@@ -1,0 +1,122 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA card and skip without one. tests/conftest.py
+imports JAX; where JAX is not installed, run them with:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+On the card, K1 (csrc/dense_hit.cu) and K2 (csrc/bounce.cu) must equal the
+plain versions bit for bit: both round every float32 operation the same way
+(the kernels are built with -fmad=false and IEEE division and square root).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import plain_render
+from wgpu_path_tracing_tpu_torch import (
+    Renderer,
+    RenderConfig,
+    cornell_box,
+    load_jax_scene,
+    material_test_box,
+)
+from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
+from wgpu_path_tracing_tpu_torch.ops import bounce as K2
+from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
+from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
+from wgpu_path_tracing_tpu_torch.render.camera import Camera
+from wgpu_path_tracing_tpu_torch.render.pipeline import camera_device
+
+pytestmark = pytest.mark.cuda
+W = H = 64
+
+
+def spot_cornell(make_box=cornell_box):
+    """The Cornell box plus a down-facing spot light (light type 3), as the
+    JAX package's Pallas bounce test builds it. ``make_box`` is either
+    package's ``cornell_box``."""
+    sc = make_box()
+    n = sc.num_lights
+    aux = np.zeros((n + 1, 5), np.float32)
+    aux[-1] = [0.0, -1.0, 0.0, 9.75, -8.56]
+    return dataclasses.replace(
+        sc,
+        light_position=np.concatenate(
+            [sc.light_position, [[0.0, 1.9, 0.0]]]).astype(np.float32),
+        light_type=np.concatenate([sc.light_type, [3]]).astype(np.int32),
+        light_color=np.concatenate(
+            [sc.light_color, [[1.0, 0.8, 0.6]]]).astype(np.float32),
+        light_intensity=np.concatenate(
+            [sc.light_intensity, [30000.0]]).astype(np.float32),
+        light_tri=np.concatenate([sc.light_tri, [0]]).astype(np.int32),
+        light_aux=aux,
+    )
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _bits(x):
+    return x.contiguous().view(torch.uint8)
+
+
+def _rays(scene_fn, dev, frame=0):
+    sc = scene_fn()
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, frame, use_dof=True)
+    return sc, scene, torch.cat([ro, rd]).contiguous(), state
+
+
+@pytest.mark.parametrize("scene_fn", [cornell_box, material_test_box])
+def test_dense_hit_kernel_equals_plain(dev, scene_fn):
+    _, scene, rays, _ = _rays(scene_fn, dev)
+    before = K1.Counter.launches
+    t, idx = K1.closest_hit_dense(scene["tri_isect"], rays)
+    torch.cuda.synchronize()
+    assert K1.Counter.launches == before + 1
+    pt, pi = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+    assert torch.equal(_bits(t), _bits(pt)) and torch.equal(idx, pi)
+
+
+@pytest.mark.parametrize("do_mis", [True, False])
+@pytest.mark.parametrize("scene_fn",
+                         [cornell_box, material_test_box, spot_cornell])
+def test_bounce_kernel_equals_plain(dev, scene_fn, do_mis):
+    sc, scene, rays, state = _rays(scene_fn, dev, frame=3)
+    n = rays.shape[1]
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    for b in range(4):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        args = (b, rays, state, thr, res, alive, t, idx, scene["tri_full"],
+                scene["light_full"])
+        kw = dict(do_mis=do_mis, num_lights=sc.num_lights)
+        kout = K2.bounce_stage_cuda(*args, **kw)
+        pout = K2.bounce_stage_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for k, p in zip(kout, pout):
+            assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
+        rays, state, thr, res, alive = pout[:5]
+
+
+def test_renderer_kernel_path_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(cornell_box())
+    kernel = r.render(spp=2)
+    launches = (K1.Counter.launches, K2.Counter.launches)
+    plain = plain_render(r, spp=2)
+    assert (K1.Counter.launches, K2.Counter.launches) == launches
+    assert np.isfinite(kernel).all()
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))

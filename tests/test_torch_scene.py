@@ -1,0 +1,151 @@
+"""The port's host side against the JAX package's, and its import rules.
+
+The port carries its own copies of the numpy scene code (every module of
+the JAX package imports jax, and the port must run without it). These tests
+keep the copies bit-equal to the originals, and keep the port free of jax,
+Pillow and ml_dtypes.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from wgpu_path_tracing_tpu.models import procedural as JP
+from wgpu_path_tracing_tpu.models.types import pack_device_scene as jpack
+from wgpu_path_tracing_tpu_torch import (
+    Renderer,
+    RenderConfig,
+    cornell_box,
+    load_jax_scene,
+    material_test_box,
+)
+from wgpu_path_tracing_tpu_torch.models.types import DEVICE_KEYS, pack_device_scene
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "wgpu_path_tracing_tpu_torch")
+
+SCENES = [(cornell_box, JP.cornell_box),
+          (material_test_box, JP.material_test_box),
+          (lambda: cornell_box(tessellation=3), lambda: JP.cornell_box(
+              tessellation=3))]
+
+
+@pytest.mark.parametrize("k", range(len(SCENES)))
+def test_scene_arrays_equal_jax(k):
+    """Every SceneArrays field, BVH order included, is bit-equal."""
+    port, ref = SCENES[k][0](), SCENES[k][1]()
+    for field in dataclasses.fields(ref):
+        a, b = getattr(port, field.name), getattr(ref, field.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, field.name
+            np.testing.assert_array_equal(a, b, err_msg=field.name)
+        else:
+            assert a == b, field.name
+
+
+@pytest.mark.parametrize("k", range(len(SCENES)))
+def test_packed_tables_equal_jax(k):
+    port = pack_device_scene(SCENES[k][0]())
+    ref = jpack(SCENES[k][1]())
+    for key in DEVICE_KEYS:
+        assert port[key].dtype == ref[key].dtype, key
+        np.testing.assert_array_equal(port[key], ref[key], err_msg=key)
+
+
+def test_load_jax_scene_uploads_the_same_tables():
+    ref = jpack(JP.cornell_box())
+    a = load_jax_scene(ref, "cpu")
+    b = load_jax_scene(pack_device_scene(cornell_box()), "cpu")
+    for key in DEVICE_KEYS:
+        assert a[key].dtype == torch.float32 and a[key].is_contiguous()
+        assert torch.equal(a[key], b[key]), key
+    assert set(a) == set(DEVICE_KEYS)  # the JAX-only tables are left behind
+
+
+def test_port_imports_no_jax_and_renders_on_cpu():
+    """A process where jax, Pillow and ml_dtypes cannot be imported imports
+    the port and renders 16x16 at 1 spp on the CPU."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'PIL', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from wgpu_path_tracing_tpu_torch import Renderer, RenderConfig, "
+        "cornell_box\n"
+        "r = Renderer(RenderConfig(width=16, height=16))\n"
+        "r.load_scene(cornell_box())\n"
+        "img = r.render(spp=1)\n"
+        "assert img.shape == (16, 16, 3) and np.isfinite(img).all()\n"
+        "assert r.stats()['rays_closest'] > 0\n"
+        "assert not any(m == 'wgpu_path_tracing_tpu' or "
+        "m.startswith('wgpu_path_tracing_tpu.') for m in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_sources_import_no_jax_pillow_or_reference_package():
+    pattern = re.compile(
+        r"import jax|from jax|wgpu_path_tracing_tpu\.|from PIL|import PIL"
+        r"|ml_dtypes")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu"))]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            for no, line in enumerate(f, 1):
+                if pattern.search(line):
+                    offenders.append(f"{path}:{no}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+
+
+def test_cuda_without_a_card_raises():
+    """No silent CPU fallback: asking for CUDA without it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        Renderer(RenderConfig(width=8, height=8), device="cuda")
+    with pytest.raises(RuntimeError):
+        load_jax_scene(pack_device_scene(cornell_box()), "cuda")
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError):
+        RenderConfig(rng="hash").validate()
+    with pytest.raises(NotImplementedError):
+        RenderConfig(intersector="walk").validate()
+    r = Renderer(RenderConfig(width=8, height=8, brute_force_max_tris=16))
+    with pytest.raises(NotImplementedError):  # 36 triangles > 16
+        r.load_scene(cornell_box())
+    textured = cornell_box()
+    textured.atlas = np.ones((4, 4, 4), np.float32)
+    textured.mat_albedo_rect[0] = [0, 0, 2, 2]
+    with pytest.raises(NotImplementedError):
+        Renderer(RenderConfig(width=8, height=8)).load_scene(textured)
+
+
+def test_quantize_atlas_matches_jax():
+    """The port rounds atlas texels to bfloat16 values with integer bit
+    operations; the JAX package does it with ml_dtypes. Same bits."""
+    from wgpu_path_tracing_tpu.models.assemble import quantize_atlas as jq
+    from wgpu_path_tracing_tpu_torch.models.assemble import quantize_atlas
+
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.0, 1.0, (64, 64, 4)).astype(np.float32)
+    # Exact ties (low 16 bits 0x8000) round to even in both. Finite values
+    # only, as texels are: the two treat NaN payloads differently.
+    ties = (rng.integers(0, 0x7F00, 256, dtype=np.uint32) << 16) | 0x8000
+    a.reshape(-1)[:256] = ties.view(np.float32)
+    np.testing.assert_array_equal(quantize_atlas(a).view(np.uint32),
+                                  jq(a).view(np.uint32))

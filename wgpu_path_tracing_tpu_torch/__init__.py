@@ -1,0 +1,34 @@
+"""wgpu_path_tracing_tpu_torch — the path tracer in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of ``wgpu_path_tracing_tpu`` (JAX on a TPU), which stays beside it as
+the reference. The dense-path render runs end to end: scene packing, camera
+rays, the dense closest hit (kernel K1, ``csrc/dense_hit.cu``), the bounce
+shading stage (kernel K2, ``csrc/bounce.cu``), accumulation and the AGX
+display transform. On ``device="cpu"`` each kernel's plain PyTorch version
+runs instead.
+
+    from wgpu_path_tracing_tpu_torch import Renderer, RenderConfig, cornell_box
+    r = Renderer(RenderConfig(width=512, height=512), device="cuda")
+    r.load_scene(cornell_box())
+    img = r.render(spp=64)
+
+The package imports neither JAX nor Pillow, so that it runs where only
+PyTorch, numpy and the CUDA toolkit are installed.
+"""
+
+from wgpu_path_tracing_tpu_torch.models.procedural import (
+    cornell_box,
+    material_test_box,
+)
+from wgpu_path_tracing_tpu_torch.models.types import load_jax_scene
+from wgpu_path_tracing_tpu_torch.render.camera import Camera
+from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
+from wgpu_path_tracing_tpu_torch.render.renderer import Renderer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Renderer", "RenderConfig", "Camera", "cornell_box", "material_test_box",
+    "load_jax_scene", "__version__",
+]

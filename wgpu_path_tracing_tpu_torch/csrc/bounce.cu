@@ -1,0 +1,526 @@
+// K2: one bounce's shading, one thread per ray, untextured, reference rng.
+//
+// Replaces the TPU kernel wgpu_path_tracing_tpu/ops/pallas_bounce.py::
+// _bounce_kernel (entered through bounce_stage_pallas, driven by
+// trace_pallas). That kernel shades (1, 1024)-lane blocks and reaches the
+// winner's table row through one-hot MXU selects with a 3-term bf16 split,
+// because a TPU vector unit has no per-lane gather. Here each thread loads
+// its own rows: tri_full[idx * 52 + c] and light_full[l * 27 + c]. None of
+// the TPU's select, chunking or column-pruning machinery is needed.
+//
+// What it computes is ops/trace.py::bounce_core of this package: hit
+// attributes (ops/shade.py), emissive termination x 1/(1+t^2), NEE with the
+// power heuristic (ops/lights.py, ops/bsdf.py), the BSDF sample, the
+// throughput update, and Russian roulette from bounce 3. The PCG state is a
+// native uint32_t and advances with an ordinary `if` per draw, in exactly the
+// draw order of the plain version.
+//
+// Bound on the H100: device-memory bytes. A ray reads 65 B of state (rays,
+// throughput, result, t, idx, rng, alive) and writes 102 B (next rays,
+// throughput, result, shadow ray, t_max, mask, direct, pdf, rng, alive);
+// the two tables (36 x 52 and a few x 27 floats for the Cornell box) stay
+// resident in L1/L2. The design keeps every intermediate
+// in registers and touches device memory once per input and output, all SoA
+// (rows of N), so neighbouring threads read and write neighbouring
+// addresses.
+//
+// Exactness: every lobe and light type is evaluated and the result selected,
+// as the plain version does, in the same expression order (left-associated
+// sums, products rounded before sums). The library is compiled with
+// -fmad=false and without --use_fast_math, so each product, sum, IEEE
+// division, sqrtf, sinf and cosf rounds as PyTorch's separate elementwise
+// kernels round it, and the outputs equal the plain version's bit for bit,
+// on the lanes it discards as well. Min/max follow PyTorch's NaN rules
+// (clamp and maximum propagate a NaN operand).
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+// Constants are written as double literals cast to float: that is how a
+// Python float meets a float32 tensor in the plain version.
+#define F32(x) (static_cast<float>(x))
+constexpr double kPi = 3.14159265359;  // pt.wgsl:3
+constexpr double kEps = 1e-6;          // pt.wgsl:4
+
+// models/types.py column maps (TF_* for tri_full, LF_* for light_full);
+// tests/test_torch_bounce.py holds these lines to the Python constants.
+constexpr int TF_COLS = 52;
+constexpr int TF_V0 = 0;
+constexpr int TF_V1 = 3;
+constexpr int TF_V2 = 6;
+constexpr int TF_N0 = 9;
+constexpr int TF_N1 = 12;
+constexpr int TF_N2 = 15;
+constexpr int TF_BASE_COLOR = 25;
+constexpr int TF_METALLIC = 28;
+constexpr int TF_ROUGHNESS = 29;
+constexpr int TF_EMISSION = 30;
+constexpr int TF_EMISSIVE_STRENGTH = 33;
+constexpr int TF_IOR = 34;
+constexpr int TF_TRANSMISSION = 35;
+constexpr int LF_COLS = 27;
+constexpr int LF_POSITION = 0;
+constexpr int LF_TYPE = 3;
+constexpr int LF_COLOR = 4;
+constexpr int LF_INTENSITY = 7;
+constexpr int LF_V0 = 9;
+constexpr int LF_V1 = 12;
+constexpr int LF_V2 = 15;
+constexpr int LF_N0 = 18;
+constexpr int LF_N1 = 21;
+constexpr int LF_N2 = 24;
+constexpr int LF_SPOT_DIR = 9;
+constexpr int LF_SPOT_SCALE = 12;
+constexpr int LF_SPOT_OFFSET = 13;
+constexpr int LIGHT_TYPE_EMISSIVE = 0;
+constexpr int LIGHT_TYPE_DIRECTIONAL = 1;
+constexpr int LIGHT_TYPE_POINT = 2;
+constexpr int LIGHT_TYPE_SPOT = 3;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ float length(V3 a) { return sqrtf(dot(a, a)); }
+
+__device__ __forceinline__ V3 normalize(V3 a) {
+  const float inv = 1.0f / length(a);
+  return {a.x * inv, a.y * inv, a.z * inv};
+}
+
+__device__ __forceinline__ V3 select(bool m, V3 a, V3 b) { return m ? a : b; }
+
+// torch.clamp_min / clamp_max / clamp: a NaN operand comes through.
+__device__ __forceinline__ float clamp_min(float v, float lo) { return isnan(v) ? v : fmaxf(v, lo); }
+__device__ __forceinline__ float clamp01(float v) {
+  return isnan(v) ? v : fminf(fmaxf(v, 0.0f), 1.0f);
+}
+// torch.maximum: the first NaN operand comes through.
+__device__ __forceinline__ float maximum(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+__device__ __forceinline__ V3 load3(const float* row, int c) { return {row[c], row[c + 1], row[c + 2]}; }
+
+// random.wgsl's PCG (ops/rng.py). `value` is computed whatever the mask; the
+// state moves only where it holds.
+__device__ __forceinline__ float rand(uint32_t& state, bool mask) {
+  uint32_t s = state * 747796405u + 2891336453u;
+  const uint32_t shift = (s >> 28) + 4u;
+  uint32_t word = ((s >> shift) ^ s) * 277803737u;
+  word = (word >> 22) ^ word;
+  if (mask) state = s;
+  return static_cast<float>(word) * 0x1p-32f;
+}
+
+// ---- BSDF (ops/bsdf.py) ----------------------------------------------------
+
+__device__ __forceinline__ V3 reflect(V3 e, V3 n) { return e - n * (F32(2.0) * dot(e, n)); }
+
+__device__ __forceinline__ V3 refract(V3 e, V3 n, float eta) {
+  const float cos_i = dot(n, e);
+  const float k = 1.0f - eta * eta * (1.0f - cos_i * cos_i);
+  const V3 out = e * eta - n * (eta * cos_i + sqrtf(clamp_min(k, 0.0f)));
+  return k < 0.0f ? v3(0.0f, 0.0f, 0.0f) : out;
+}
+
+__device__ __forceinline__ void construct_tbn(V3 n, V3& t, V3& b) {
+  const bool use_y = fabsf(n.x) > F32(0.9);
+  const V3 t0 = v3(use_y ? 0.0f : 1.0f, use_y ? 1.0f : 0.0f, 0.0f);
+  b = normalize(cross(n, t0));
+  t = normalize(cross(b, n));
+}
+
+__device__ __forceinline__ float distribution_ggx(V3 n, V3 h, float roughness) {
+  const float a = roughness * roughness;
+  const float a2 = a * a;
+  const float ndoth = clamp_min(dot(n, h), 0.0f);
+  const float denom = ndoth * ndoth * (a2 - 1.0f) + 1.0f;
+  return clamp_min(a2 / (F32(kPi) * denom * denom), 0.0f);
+}
+
+__device__ __forceinline__ float geometry_schlick_ggx(float ndotv, float roughness) {
+  const float r = roughness + 1.0f;
+  const float k = (r * r) / 8.0f;
+  return ndotv / (ndotv * (1.0f - k) + k);
+}
+
+__device__ __forceinline__ float geometry_smith(V3 n, V3 v, V3 l, float roughness) {
+  const float ndotv = clamp_min(dot(n, v), 0.0f);
+  const float ndotl = clamp_min(dot(n, l), 0.0f);
+  return geometry_schlick_ggx(ndotv, roughness) * geometry_schlick_ggx(ndotl, roughness);
+}
+
+__device__ __forceinline__ float pow5(float x) {
+  const float x2 = x * x;
+  return x2 * x2 * x;
+}
+
+__device__ __forceinline__ float reflectance(float cos_theta, float eta) {
+  float r0 = (1.0f - eta) / (1.0f + eta);
+  r0 = r0 * r0;
+  return r0 + (1.0f - r0) * pow5(1.0f - cos_theta);
+}
+
+struct Hit {
+  V3 position, normal, albedo, emission;
+  float roughness, metallic, transmission, ior, emissive_strength;
+  bool is_front;
+};
+
+// evalBSDF (pt.wgsl:548-614); returns the pdf, writes the value.
+__device__ float eval_bsdf(const Hit& hit, V3 normal, V3 v, V3 l, bool front, V3& bsdf) {
+  const V3 h = normalize(v + l);
+  const float ndotl = clamp_min(dot(normal, l), 0.0f);
+  const float ndotv = clamp_min(dot(normal, v), 0.0f);
+  const float ndoth = clamp_min(dot(normal, h), 0.0f);
+  const float vdoth = clamp_min(dot(v, h), 0.0f);
+
+  const float m = hit.metallic;
+  const float base = (1.0f - m) * F32(0.04);
+  const V3 f0 = v3(base + hit.albedo.x * m, base + hit.albedo.y * m, base + hit.albedo.z * m);
+  const float p = pow5(1.0f - vdoth);
+  const V3 f = v3(f0.x + (1.0f - f0.x) * p, f0.y + (1.0f - f0.y) * p, f0.z + (1.0f - f0.z) * p);
+  const float g = geometry_smith(normal, v, l, hit.roughness);
+  const float d = distribution_ggx(normal, h, hit.roughness);
+
+  const float kd_scale = 1.0f - hit.transmission;
+  const float spec_scale = (g * d) / clamp_min(4.0f * ndotv * ndotl, F32(kEps));
+  const V3 diffuse = v3((1.0f - f.x) * kd_scale * hit.albedo.x / F32(kPi),
+                        (1.0f - f.y) * kd_scale * hit.albedo.y / F32(kPi),
+                        (1.0f - f.z) * kd_scale * hit.albedo.z / F32(kPi));
+  const V3 specular = f * spec_scale;
+
+  const V3 bsdf_r = (diffuse + specular) * ndotl;
+  const float diffuse_prob = (1.0f - m) * (1.0f - hit.transmission);
+  const float specular_prob = m;
+  const float diffuse_pdf = ndotl / F32(kPi);
+  const float specular_pdf = d * ndoth / (4.0f * vdoth);
+  const float pdf_r = diffuse_prob * diffuse_pdf + specular_prob * specular_pdf;
+
+  const float eta = front ? 1.0f / hit.ior : hit.ior;
+  const float cos_theta = dot(normal, v);
+  const float f_trans = reflectance(fabsf(cos_theta), eta);
+  const V3 bsdf_t = hit.albedo * (1.0f - f_trans);
+  const float pdf_t = (1.0f - m) * hit.transmission;
+
+  const bool is_trans = hit.transmission > 0.0f;
+  bsdf = select(is_trans, bsdf_t, bsdf_r);
+  return clamp_min(is_trans ? pdf_t : pdf_r, F32(kEps));
+}
+
+__device__ __forceinline__ V3 cosine_direction(V3 normal, float r1, float r2) {
+  const float z = sqrtf(1.0f - r2);
+  const float phi = F32(2.0 * kPi) * r1;
+  const float sq = sqrtf(r2);
+  const float x = cosf(phi) * sq;
+  const float y = sinf(phi) * sq;
+  V3 t, b;
+  construct_tbn(normal, t, b);
+  return t * x + b * y + normal * z;
+}
+
+__device__ __forceinline__ V3 sample_ggx_normal(V3 normal, float roughness, float r1, float r2) {
+  const float a = roughness * roughness;
+  const float phi = F32(2.0 * kPi) * r1;
+  const float cos_t = sqrtf((1.0f - r2) / (1.0f + (a * a - 1.0f) * r2));
+  const float sin_t = sqrtf(1.0f - cos_t * cos_t);
+  const float lx = sin_t * cosf(phi);
+  const float ly = sin_t * sinf(phi);
+  V3 t, b;
+  construct_tbn(normal, t, b);
+  return normalize(t * lx + b * ly + normal * cos_t);
+}
+
+// sampleBSDF (pt.wgsl:498-546): lobe select, two direction draws, and the
+// Fresnel draw only on transmission lanes that can refract.
+__device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bool mask) {
+  const V3 v = -normalize(rd);
+  const float diffuse_prob = (1.0f - hit.metallic) * (1.0f - hit.transmission);
+  const float specular_prob = hit.metallic;
+
+  const float r = rand(state, mask);
+  const float r1 = rand(state, mask);
+  const float r2 = rand(state, mask);
+
+  const bool lobe_d = r < diffuse_prob;
+  const bool lobe_s = !lobe_d && (r < diffuse_prob + specular_prob);
+  const bool lobe_t = !lobe_d && !lobe_s;
+
+  const V3 dir_d = cosine_direction(hit.normal, r1, r2);
+
+  const float rough = clamp_min(hit.roughness, F32(0.04));  // pt.wgsl:518
+  const V3 h_s = sample_ggx_normal(hit.normal, rough, r1, r2);
+  const V3 dir_s = reflect(-v, h_s);
+
+  const float eta = front ? 1.0f / hit.ior : hit.ior;
+  const V3 n_t = select(front, h_s, -h_s);
+  const float cos_theta = dot(n_t, v);
+  const float sin_theta = sqrtf(clamp_min(1.0f - cos_theta * cos_theta, 0.0f));
+  const bool cannot_refract = eta * sin_theta > 1.0f;
+  const float f = reflectance(fabsf(cos_theta), eta);
+  const float r3 = rand(state, mask && lobe_t && !cannot_refract);
+  const bool do_reflect = cannot_refract || (r3 < f);
+  const V3 dir_t = do_reflect ? reflect(-v, n_t) : refract(-v, n_t, eta);
+
+  return lobe_d ? dir_d : (lobe_s ? dir_s : dir_t);
+}
+
+// ---- NEE (ops/lights.py::sample_light_from_fetch) --------------------------
+
+struct LightSample {
+  V3 intensity, wi, shadow_origin;
+  float pdf, t_max;
+  bool shadow_mask;
+};
+
+__device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_position,
+                                    uint32_t& state, bool mask, int num_lights) {
+  const int count = num_lights > 1 ? num_lights : 1;
+  const float value = rand(state, mask);
+  int li = static_cast<int>(value * static_cast<float>(count));
+  li = li < count - 1 ? li : count - 1;
+  const float* row = lights + static_cast<int64_t>(li) * LF_COLS;
+
+  const int ltype = static_cast<int>(row[LF_TYPE]);
+  const V3 lcolor = load3(row, LF_COLOR);
+  const float lint = row[LF_INTENSITY];
+  const V3 lpos = load3(row, LF_POSITION);
+
+  const bool is_dir = ltype == LIGHT_TYPE_DIRECTIONAL;
+  const bool is_spot = ltype == LIGHT_TYPE_SPOT;
+  const bool is_point = (ltype == LIGHT_TYPE_POINT) || is_spot;
+  const bool is_emis = ltype == LIGHT_TYPE_EMISSIVE;
+
+  const float r1 = rand(state, mask && is_emis);
+  const float r2 = rand(state, mask && is_emis);
+
+  const V3 wi_dir = normalize(-lpos);
+
+  const V3 to_light_p = lpos - hit_position;
+  const float dist_p = length(to_light_p);
+  const bool point_far = is_point && (dist_p > 100.0f);
+  const V3 wi_point = to_light_p * (1.0f / clamp_min(dist_p, F32(1e-30)));
+
+  const V3 v0 = load3(row, LF_V0), v1 = load3(row, LF_V1), v2 = load3(row, LF_V2);
+  const V3 n0 = load3(row, LF_N0), n1 = load3(row, LF_N1), n2 = load3(row, LF_N2);
+  const float sq = sqrtf(r1);
+  const float su = 1.0f - sq;
+  const float sv = r2 * sq;
+  const float sw = 1.0f - su - sv;
+  const V3 light_pos = v0 * sw + v1 * su + v2 * sv;
+  const V3 lnormal = normalize(n0 * sw + n1 * su + n2 * sv);
+  const V3 to_light_e = light_pos - hit_position;
+  const float dist_e = length(to_light_e);
+  const V3 wi_emis = to_light_e * (1.0f / clamp_min(dist_e, F32(1e-30)));
+
+  const V3 wi = is_dir ? wi_dir : (is_point ? wi_point : wi_emis);
+  const float dist = is_point ? dist_p : dist_e;
+
+  const float inv_n = 1.0f / static_cast<float>(count);
+  const float pdf_dir = inv_n * 1000.0f;    // pt.wgsl:406
+  const float pdf_point = inv_n * 10000.0f;  // pt.wgsl:438
+  const V3 e1 = v1 - v0;
+  const V3 e2 = v2 - v0;
+  const float area = length(cross(e1, e2)) * F32(0.5);
+  const float cos_theta = fabsf(dot(lnormal, -wi));
+  // Zero-area rows (the padding row of a lightless scene) give pdf 0.
+  const float inv_area = area > 0.0f ? 1.0f / clamp_min(area, F32(1e-30)) : 0.0f;
+  const float pdf_emis = inv_area * inv_n * (dist_e * dist_e / clamp_min(cos_theta, F32(kEps)));
+
+  const V3 int_dir = lcolor * lint;
+  float att = 1.0f / (dist_p * dist_p);
+  const V3 spot_dir = load3(row, LF_SPOT_DIR);
+  const float cd = dot(spot_dir, -wi_point);
+  const float spot_t = clamp01(cd * row[LF_SPOT_SCALE] + row[LF_SPOT_OFFSET]);
+  att = att * (is_spot ? spot_t * spot_t : 1.0f);
+  const V3 int_point = lcolor * (lint * att);
+  const V3 int_emis = lcolor * lint;
+
+  const bool dead = point_far || !mask;
+  LightSample ls;
+  ls.pdf = dead ? 0.0f : (is_dir ? pdf_dir : (is_point ? pdf_point : pdf_emis));
+  ls.intensity = dead ? v3(0.0f, 0.0f, 0.0f) : (is_dir ? int_dir : (is_point ? int_point : int_emis));
+  ls.wi = wi;
+  ls.shadow_mask = mask && !point_far;
+  ls.shadow_origin = hit_position + wi * F32(kEps);
+  ls.t_max = is_dir ? CUDART_INF_F : dist - F32(kEps * 2.0);
+  return ls;
+}
+
+// ---- the bounce (ops/trace.py::bounce_core) ---------------------------------
+
+__global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
+                              const int64_t* __restrict__ state_in,
+                              const float* __restrict__ throughput_in,
+                              const float* __restrict__ result_in,
+                              const bool* __restrict__ alive_in,
+                              const float* __restrict__ t_in,
+                              const int* __restrict__ idx_in,
+                              const float* __restrict__ tri_full,
+                              const float* __restrict__ light_full, int num_lights,
+                              int do_mis, float* __restrict__ rays_out,
+                              int64_t* __restrict__ state_out,
+                              float* __restrict__ throughput_out,
+                              float* __restrict__ result_out, bool* __restrict__ alive_out,
+                              float* __restrict__ shadow_rays, float* __restrict__ shadow_t_max,
+                              bool* __restrict__ shadow_mask, float* __restrict__ shadow_direct,
+                              float* __restrict__ shadow_pdf, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const V3 ro = v3(rays[i], rays[n + i], rays[2 * n + i]);
+  const V3 rd = v3(rays[3 * n + i], rays[4 * n + i], rays[5 * n + i]);
+  const V3 thr = v3(throughput_in[i], throughput_in[n + i], throughput_in[2 * n + i]);
+  const V3 res_in = v3(result_in[i], result_in[n + i], result_in[2 * n + i]);
+  uint32_t state = static_cast<uint32_t>(state_in[i]);
+  const float t = t_in[i];
+  const int idx = idx_in[i];
+
+  // Hit attributes (ops/shade.py::hit_attributes_from_cols), untextured.
+  // idx comes from K1: -1 (miss) or a row of tri_full.
+  const bool found = alive_in[i] && (idx >= 0);
+  const float* row = tri_full + static_cast<int64_t>(idx > 0 ? idx : 0) * TF_COLS;
+  Hit hit;
+  {
+    const V3 n0 = load3(row, TF_N0), n1 = load3(row, TF_N1), n2 = load3(row, TF_N2);
+    const V3 v0 = load3(row, TF_V0), v1 = load3(row, TF_V1), v2 = load3(row, TF_V2);
+    const V3 e1 = v1 - v0;
+    const V3 e2 = v2 - v0;
+    const V3 hvec = cross(rd, e2);
+    const float a = dot(e1, hvec);
+    const float f = 1.0f / a;
+    const V3 s = ro - v0;
+    const float u = f * dot(s, hvec);
+    const V3 q = cross(s, e1);
+    const float v = f * dot(rd, q);
+    const float w = 1.0f - u - v;
+    hit.position = ro + rd * t;
+    const V3 geom_normal = normalize(cross(e1, e2));
+    hit.normal = normalize(n0 * w + n1 * u + n2 * v);
+    hit.is_front = dot(geom_normal, rd) < 0.0f;  // pt.wgsl:196-197
+    hit.albedo = load3(row, TF_BASE_COLOR);
+    hit.roughness = clamp_min(row[TF_ROUGHNESS], F32(0.04));  // pt.wgsl:208
+    hit.metallic = row[TF_METALLIC];
+    hit.transmission = row[TF_TRANSMISSION];
+    hit.ior = row[TF_IOR];
+    hit.emission = load3(row, TF_EMISSION);
+    hit.emissive_strength = row[TF_EMISSIVE_STRENGTH];
+  }
+
+  const bool emissive =
+      found && (hit.emission.x > 0.0f || hit.emission.y > 0.0f || hit.emission.z > 0.0f);
+  const float atten = hit.emissive_strength / (1.0f + t * t);
+  const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
+  const V3 result = res_in + select(emissive, thr * hit.emission * atten, zero3);
+  const bool cont = found && !emissive;
+
+  const V3 v_out = -normalize(rd);
+  V3 s_origin = zero3, s_dir = zero3, s_direct = zero3;
+  float s_t_max = CUDART_INF_F, s_pdf = 0.0f;
+  bool s_mask = false;
+  if (do_mis) {
+    const bool nee = cont && (hit.transmission == 0.0f) && hit.is_front;
+    const LightSample ls = sample_light(light_full, hit.position, state, nee, num_lights);
+    V3 f_light;
+    const float pdf_light_bsdf = eval_bsdf(hit, hit.normal, v_out, ls.wi, hit.is_front, f_light);
+    const float f2 = ls.pdf * ls.pdf;
+    const float mis_w = f2 / (f2 + pdf_light_bsdf * pdf_light_bsdf);
+    const float scale = mis_w / clamp_min(ls.pdf, F32(kEps));
+    const V3 direct = thr * ls.intensity * f_light * scale;
+    s_direct = select(nee && (ls.pdf > 0.0f), direct, zero3);
+    s_origin = ls.shadow_origin;
+    s_dir = ls.wi;
+    s_t_max = ls.t_max;
+    s_mask = ls.shadow_mask;
+    s_pdf = ls.pdf;
+  }
+
+  const V3 new_dir = sample_bsdf(hit, rd, hit.is_front, state, cont);
+  V3 f_val;
+  const float pdf = eval_bsdf(hit, hit.normal, v_out, new_dir, hit.is_front, f_val);
+  const bool ok = cont && (pdf > 0.0f);
+
+  const V3 ro_next = select(ok, hit.position + new_dir * F32(kEps), ro);
+  const V3 rd_next = select(ok, normalize(new_dir), rd);
+  const float inv_pdf = 1.0f / clamp_min(pdf, F32(kEps));
+  V3 throughput = select(ok, thr * f_val * inv_pdf, thr);
+  bool alive = ok;
+
+  // Russian roulette from bounce 3 (pt.wgsl:699-705).
+  const bool rr = alive && (bounce_idx > 2);
+  const float u_rr = rand(state, rr);
+  const float p = maximum(maximum(throughput.x, throughput.y), throughput.z);
+  const bool die = rr && (u_rr > p);
+  throughput = select(rr && !die, throughput * (1.0f / p), throughput);
+  alive = alive && !die;
+
+  rays_out[i] = ro_next.x;
+  rays_out[n + i] = ro_next.y;
+  rays_out[2 * n + i] = ro_next.z;
+  rays_out[3 * n + i] = rd_next.x;
+  rays_out[4 * n + i] = rd_next.y;
+  rays_out[5 * n + i] = rd_next.z;
+  state_out[i] = static_cast<int64_t>(state);
+  throughput_out[i] = throughput.x;
+  throughput_out[n + i] = throughput.y;
+  throughput_out[2 * n + i] = throughput.z;
+  result_out[i] = result.x;
+  result_out[n + i] = result.y;
+  result_out[2 * n + i] = result.z;
+  alive_out[i] = alive;
+  shadow_rays[i] = s_origin.x;
+  shadow_rays[n + i] = s_origin.y;
+  shadow_rays[2 * n + i] = s_origin.z;
+  shadow_rays[3 * n + i] = s_dir.x;
+  shadow_rays[4 * n + i] = s_dir.y;
+  shadow_rays[5 * n + i] = s_dir.z;
+  shadow_t_max[i] = s_t_max;
+  shadow_mask[i] = s_mask;
+  shadow_direct[i] = s_direct.x;
+  shadow_direct[n + i] = s_direct.y;
+  shadow_direct[2 * n + i] = s_direct.z;
+  shadow_pdf[i] = s_pdf;
+}
+
+constexpr int kThreads = 128;
+
+}  // namespace
+
+extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
+                          const void* throughput, const void* result, const void* alive,
+                          const void* t, const void* idx, const void* tri_full,
+                          const void* light_full, int num_lights, int do_mis, void* rays_out,
+                          void* state_out, void* throughput_out, void* result_out,
+                          void* alive_out, void* shadow_rays, void* shadow_t_max,
+                          void* shadow_mask, void* shadow_direct, void* shadow_pdf, int n,
+                          void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  bounce_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      bounce_idx, static_cast<const float*>(rays), static_cast<const int64_t*>(state),
+      static_cast<const float*>(throughput), static_cast<const float*>(result),
+      static_cast<const bool*>(alive), static_cast<const float*>(t),
+      static_cast<const int*>(idx), static_cast<const float*>(tri_full),
+      static_cast<const float*>(light_full), num_lights, do_mis,
+      static_cast<float*>(rays_out), static_cast<int64_t*>(state_out),
+      static_cast<float*>(throughput_out), static_cast<float*>(result_out),
+      static_cast<bool*>(alive_out), static_cast<float*>(shadow_rays),
+      static_cast<float*>(shadow_t_max), static_cast<bool*>(shadow_mask),
+      static_cast<float*>(shadow_direct), static_cast<float*>(shadow_pdf), n);
+  return static_cast<int>(cudaGetLastError());
+}

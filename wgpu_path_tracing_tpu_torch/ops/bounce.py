@@ -1,0 +1,160 @@
+"""K2: the bounce megakernel, its plain version, and the loop that drives it.
+
+The counterpart of the JAX package's ``ops/pallas_bounce.py``
+(``bounce_stage_pallas`` / ``trace_pallas``), untextured and with the
+reference rng. ``bounce_stage`` takes one bounce's SoA state and returns the
+same ten arrays as ``bounce_stage_pallas``:
+
+    in:  rays (6, N) f32, state (N,) int64, throughput (3, N), result (3, N),
+         alive (N,) bool, t (N,) f32, idx (N,) int32,
+         tri_full (T, 52) f32, light_full (L, 27) f32
+    out: next rays (6, N), state, throughput, result, alive,
+         shadow rays (6, N), shadow t_max (N,), shadow mask (N,) bool,
+         direct (3, N), pdf (N,)
+
+On a CUDA tensor it launches ``csrc/bounce.cu``; on a CPU tensor it runs
+``bounce_stage_plain`` (``ops/trace.py::bounce_core`` over the same arrays).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wgpu_path_tracing_tpu_torch.models import types as T
+from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+from wgpu_path_tracing_tpu_torch.ops import shade as SHADE
+from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
+from wgpu_path_tracing_tpu_torch.ops import vec
+
+
+class Counter:
+    """Launches of the K2 kernel in this process."""
+
+    launches = 0
+
+
+def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
+                       alive, t, idx, tri_full, light_full, *, do_mis: bool,
+                       num_lights: int):
+    """Plain PyTorch K2 on any device."""
+    st = TRACE.BounceState(
+        ro=vec.from_rows(rays, 0), rd=vec.from_rows(rays, 3),
+        throughput=vec.from_rows(throughput, 0),
+        result=vec.from_rows(result, 0), alive=alive, state=state)
+    new, shadow = TRACE.bounce_core(
+        st, t, idx, int(bounce_idx),
+        fetch_tri=lambda i: SHADE.fetch_rows(tri_full, i),
+        fetch_light=lambda i: SHADE.fetch_rows(light_full, i),
+        do_mis=do_mis, num_lights=num_lights)
+    return [
+        torch.cat([vec.stack_rows(new.ro), vec.stack_rows(new.rd)]),
+        new.state,
+        vec.stack_rows(new.throughput),
+        vec.stack_rows(new.result),
+        new.alive,
+        torch.cat([vec.stack_rows(shadow.origin),
+                   vec.stack_rows(shadow.direction)]),
+        shadow.t_max,
+        shadow.mask,
+        vec.stack_rows(shadow.direct),
+        shadow.pdf,
+    ]
+
+
+_SPEC = (  # name, rows (0 = 1-D), dtype
+    ("rays", 6, torch.float32), ("state", 0, torch.int64),
+    ("throughput", 3, torch.float32), ("result", 3, torch.float32),
+    ("alive", 0, torch.bool), ("t", 0, torch.float32), ("idx", 0, torch.int32),
+)
+
+
+def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
+                      t, idx, tri_full, light_full, *, do_mis: bool,
+                      num_lights: int):
+    """Launch K2 on the current stream (no synchronisation)."""
+    n = rays.shape[1]
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError("bounce_stage_cuda needs CUDA tensors")
+    for (name, rows, dtype), x in zip(
+            _SPEC, (rays, state, throughput, result, alive, t, idx)):
+        shape = (rows, n) if rows else (n,)
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {dev}")
+    for name, x, cols in (("tri_full", tri_full, T.TF_COLS),
+                          ("light_full", light_full, T.LF_COLS)):
+        if (x.dim() != 2 or x.shape[1] != cols or x.dtype != torch.float32
+                or x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous (rows, {cols}) "
+                             f"float32 on {dev}")
+    if light_full.shape[0] < max(num_lights, 1):
+        raise ValueError("light_full has fewer rows than num_lights")
+
+    def empty(rows, dtype):
+        return torch.empty((rows, n) if rows else (n,), dtype=dtype, device=dev)
+
+    outs = [empty(6, torch.float32), empty(0, torch.int64),
+            empty(3, torch.float32), empty(3, torch.float32),
+            empty(0, torch.bool), empty(6, torch.float32),
+            empty(0, torch.float32), empty(0, torch.bool),
+            empty(3, torch.float32), empty(0, torch.float32)]
+    if n == 0:
+        return outs
+    err = cuda_lib.lib().wpt_bounce(
+        int(bounce_idx), rays.data_ptr(), state.data_ptr(),
+        throughput.data_ptr(), result.data_ptr(), alive.data_ptr(),
+        t.data_ptr(), idx.data_ptr(), tri_full.data_ptr(),
+        light_full.data_ptr(), int(num_lights),
+        int(bool(do_mis)), *(o.data_ptr() for o in outs), n,
+        cuda_lib.stream_ptr(rays))
+    cuda_lib.check(err, "wpt_bounce")
+    Counter.launches += 1
+    return outs
+
+
+def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
+                 idx, tri_full, light_full, *, do_mis: bool, num_lights: int):
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    fn = {"cuda": bounce_stage_cuda, "cpu": bounce_stage_plain}.get(
+        rays.device.type)
+    if fn is None:
+        raise ValueError(f"unsupported device {rays.device}")
+    return fn(bounce_idx, rays, state, throughput, result, alive, t, idx,
+              tri_full, light_full, do_mis=do_mis, num_lights=num_lights)
+
+
+def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
+               max_bounces: int = 8, do_mis: bool = True, num_lights: int = 0):
+    """The bounce loop over the K2 wrapper (``trace_pallas``'s shape): per
+    bounce a closest hit, K2, a shadow query and ``resolve_shadow``. Same
+    signature, semantics and RNG streams as ``ops/trace.py::trace``. On CPU
+    tensors the wrappers run their plain versions."""
+    n = ro.shape[1]
+    dev = ro.device
+    rays = torch.cat([ro, rd]).contiguous()
+    thr = torch.ones((3, n), dtype=torch.float32, device=dev)
+    res = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int64, device=dev)
+    for bounce_idx in range(max_bounces):
+        t, idx = closest_hit(rays[0:3], rays[3:6], active=alive)
+        counters[0] += alive.sum()
+        (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
+         spdf) = bounce_stage(bounce_idx, rays, state, thr, res, alive, t, idx,
+                              scene["tri_full"], scene["light_full"],
+                              do_mis=do_mis, num_lights=num_lights)
+        if do_mis:
+            counters[1] += smask.sum()
+            shadow_t, _ = closest_hit(srays[0:3], srays[3:6], active=smask,
+                                      t_max=stmax, any_hit=True)
+            shadow = TRACE.ShadowQuery(
+                origin=vec.from_rows(srays, 0),
+                direction=vec.from_rows(srays, 3), t_max=stmax, mask=smask,
+                direct=vec.from_rows(sdirect, 0), pdf=spdf)
+            res = vec.stack_rows(
+                TRACE.resolve_shadow(vec.from_rows(res, 0), shadow, shadow_t))
+    return res, state, counters

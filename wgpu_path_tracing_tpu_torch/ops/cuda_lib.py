@@ -1,0 +1,118 @@
+"""Build and load the package's CUDA kernels.
+
+The sources are ``wgpu_path_tracing_tpu_torch/csrc/*.cu``. They expose a
+plain C interface, so they are compiled with ``nvcc`` straight into one
+shared library and bound with ``ctypes``; no PyTorch headers are involved,
+which keeps the build to seconds. The build happens at first use, into
+``build/kernels/`` beside the package (git-ignored), under a name that hashes
+the sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``,
+``-fmad=false`` and no ``--use_fast_math``. Without contraction and with
+IEEE division, reciprocal and square root, each kernel rounds every
+operation as the separate kernels of its plain PyTorch version do, so the
+two agree bit for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the exported launchers; each returns cudaGetLastError().
+SIGNATURES = {
+    "wpt_dense_hit": [_P, _P, _P, _P, _I, _I, _P],
+    "wpt_bounce": [
+        _I, _P, _P, _P, _P, _P, _P, _P,  # bounce, rays, state, thr, res, alive, t, idx
+        _P, _P, _I, _I,  # tri_full, light_full, num_lights, do_mis
+        _P, _P, _P, _P, _P,  # out rays, state, thr, res, alive
+        _P, _P, _P, _P, _P,  # shadow rays, t_max, mask, direct, pdf
+        _I, _P,  # n, stream
+    ],
+}
+
+
+class _Lib:
+    handle = None
+    build_log = ""  # nvcc's report (ptxas registers, shared memory, spills)
+    lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the build directory if needed; returns the
+    library path. nvcc's report is kept in ``build_log()``."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libwpt_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    _Lib.build_log = proc.stdout + proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    with _Lib.lock:
+        if _Lib.handle is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _Lib.handle = handle
+        return _Lib.handle
+
+
+def build_log() -> str:
+    return _Lib.build_log
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,110 @@
+"""Dense ray-triangle intersection, plain PyTorch.
+
+The counterpart of the dense half of the JAX package's ``ops/intersect.py``:
+Möller-Trumbore with EPSILON = 1e-6 (pt.wgsl:123-157) over triangles packed
+as [v0, e1, e2] rows, every ray against every triangle. A miss is
+(t = inf, idx = -1); ties go to the lowest triangle index, as the reference's
+strict ``hit.t < closest.t`` gives (pt.wgsl:275).
+
+The expressions follow ``ops/pallas_kernels.py::_brute_kernel`` term by term
+(the kernel in ``csrc/dense_hit.cu`` does too), so on the card the kernel and
+this plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+EPSILON = 1e-6  # pt.wgsl:4
+
+
+def moller_trumbore(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z,
+                    e2x, e2y, e2z):
+    """Broadcasting Möller-Trumbore. Returns (t, u, v, valid)."""
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = torch.reciprocal(a)
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    valid = (
+        (torch.abs(a) >= EPSILON)
+        & (u >= 0.0)
+        & (u <= 1.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t > EPSILON)
+    )
+    return t, u, v, valid
+
+
+def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
+                      rd: torch.Tensor, chunk: int = 256):
+    """Dense closest hit. tri_isect: (T, 9); ro, rd: (N, 3) as in the JAX
+    package (any strides). Sweeps triangle chunks to bound the (N, chunk)
+    working set. Returns (t (N,) float32, idx (N,) int32)."""
+    n = ro.shape[0]
+    num_tris = tri_isect.shape[0]
+    dev = ro.device
+    best_t = torch.full((n,), math.inf, dtype=torch.float32, device=dev)
+    best_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    o = [ro[:, k, None] for k in range(3)]
+    d = [rd[:, k, None] for k in range(3)]
+    for base in range(0, num_tris, chunk):
+        tri = tri_isect[base:base + chunk]
+        cols = [tri[None, :, k] for k in range(9)]
+        t, _, _, valid = moller_trumbore(*o, *d, *cols)
+        t = torch.where(valid, t, math.inf)
+        c_t = t.min(dim=1).values
+        rows = torch.arange(tri.shape[0], dtype=torch.int32, device=dev)
+        c_idx = torch.where(t == c_t[:, None], rows[None, :],
+                            tri.shape[0]).min(dim=1).values
+        better = c_t < best_t
+        best_t = torch.where(better, c_t, best_t)
+        best_idx = torch.where(better, base + c_idx, best_idx)
+    return best_t, best_idx
+
+
+def make_closest_hit(scene: dict, intersector: str = "auto",
+                     brute_max_tris: int = 4096):
+    """Pick the intersection strategy for this scene.
+
+    Only the dense intersector is ported: a scene above ``brute_max_tris``
+    (under "auto") raises ``NotImplementedError``. As in the JAX package's
+    dense branch, ``active``, ``t_max`` and ``any_hit`` are accepted and
+    ignored: every ray is tested and the closest hit returned, which gives
+    the same occlusion answers.
+
+    The hit goes through the K1 wrapper (``ops/dense_hit.py``): the CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors.
+
+    Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False)
+    over SoA (3, N) origins and directions.
+    """
+    from wgpu_path_tracing_tpu_torch.ops import dense_hit
+
+    num_tris = scene["tri_isect"].shape[0]
+    if intersector not in ("auto", "brute"):
+        raise NotImplementedError(f"intersector={intersector!r} is not ported")
+    if intersector == "auto" and num_tris > brute_max_tris:
+        raise NotImplementedError(
+            f"{num_tris} triangles > brute_force_max_tris={brute_max_tris}: "
+            "the BVH walk intersector is not ported yet")
+    tri = scene["tri_isect"]
+
+    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        del active, t_max, any_hit
+        return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3], dim=0))
+
+    closest_hit.strategy = "brute"
+    return closest_hit
