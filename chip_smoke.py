@@ -20,7 +20,20 @@ and runs these phases, one line of output each:
 6. main path: ``Renderer(RenderConfig(width=512, height=512), device="cuda")``,
    ``load_scene(cornell_box())``, ``render(spp=64)``; the kernels' launch
    counts in that run, the image finite and equal to the plain path's image
-   of the same frames (the phase-4 bound), the wall time and Mrays/s.
+   of the same frames (the phase-4 bound), the wall time and Mrays/s; then
+   the same box with ``intersector="walk"`` forced for a few spp, and the
+   count of pixels where its image differs from the K1 path's;
+7. K3 vs plain: the wide-BVH walk on ``cornell_box(tessellation=55)``
+   (102,852 triangles) at 512x512: the camera rays, the bounce-1 rays of
+   one plain bounce and that bounce's shadow rays (``t_max``, ``any_hit``);
+   ``t`` and ``idx`` bit-equal on every lane; K3 against K1 on the
+   closest-hit rays (lanes that differ, and whether each is an exact-t
+   tie); K2 against its plain version at bounce 0 of that scene;
+8. large-scene path: ``Renderer(RenderConfig(width=512, height=512))``,
+   ``load_scene(cornell_box(tessellation=55))`` (``stats()["intersector"]``
+   must be "walk"), ``render(spp=8)``; the launch counts, the build
+   seconds, the cold render and the median of repeated renders in Mrays/s,
+   and the cold render's image against the plain path's on every pixel.
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is not
@@ -28,7 +41,8 @@ Then one JSON line of per-kernel numbers, and last the line
 repository, it fails the same way.
 
 ``--profile PATH`` also writes a ``torch.profiler`` table of four
-main-path frames to PATH and prints the device's busy share.
+main-path frames to PATH, and of four large-scene frames to PATH with
+``_large`` before its extension, and prints the device's busy share.
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ from wgpu_path_tracing_tpu_torch.ops import cuda_lib  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import vec  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import walk as K3  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops.camera_rays import (  # noqa: E402
     generate_rays,
     pixel_grid,
@@ -80,6 +95,10 @@ SIZE = 512
 SPP = 64
 REPEATS = 7
 MAX_BOUNCES = 8
+# The large-scene path (the JAX package's bench config 5, "large-100k").
+LARGE_TESSELLATION = 55
+LARGE_SPP = 8
+FORCED_WALK_SPP = 4  # the flagship box through the walk
 # Phase-4 bound for float outputs that are not bit-equal.
 MAX_ULP = 2
 MAX_ULP_LANE_SHARE = 1e-4
@@ -330,13 +349,22 @@ def phase_oracle(dev):
 def plain_render(r: Renderer, spp: int) -> np.ndarray:
     """The frames ``r.render(spp)`` draws after a reset, through the plain
     versions on ``r``'s device: ``ops/trace.py``'s bounce loop and the plain
-    dense hit, so no kernel launches. Returns (H, W, 3) like ``render``."""
+    dense hit or walk (as ``r`` picked), so no kernel launches. Returns
+    (H, W, 3) like ``render``."""
     cfg, dev = r.config, r.device
     scene = load_jax_scene(pack_device_scene(r.scene), dev)
     tri = scene["tri_isect"]
+    if r.stats()["intersector"] == "walk":
+        tables = K3.walk_tables(scene)
 
-    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-        return K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3]))
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return K3.closest_hit_walk_plain(
+                tables, ro3, rd3, active, t_max, num_tris=tri.shape[0],
+                any_hit=any_hit)
+    else:
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3]))
 
     accum = torch.zeros((cfg.width * cfg.height, 3), device=dev)
     render_chunk(TRACE.trace, closest_hit, scene,
@@ -350,26 +378,46 @@ def plain_render(r: Renderer, spp: int) -> np.ndarray:
     return accum.cpu().numpy()[row_major].reshape(cfg.height, cfg.width, 3)
 
 
+COUNTERS = {"k1": K1.Counter, "k2": K2.Counter, "k3": K3.Counter}
+
+
+def counted_render(r: Renderer, spp: int, report: dict, path: str,
+                   expect: dict):
+    """``r.render(spp)`` with every launch count set to 0 just before and
+    read just after; the counts must equal ``expect``. Returns (image,
+    wall seconds)."""
+    torch.cuda.synchronize()
+    for counter in COUNTERS.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    hdr = r.render(spp=spp)
+    secs = time.perf_counter() - t0
+    counts = {k: c.launches for k, c in COUNTERS.items()}
+    say(path, f"{r.config.width}x{r.config.height} x {spp} spp: launches "
+        + ", ".join(f"{k.upper()} {v}" for k, v in counts.items()))
+    if counts != expect:
+        raise AssertionError(f"{path}: expected launches {expect}")
+    for k, v in counts.items():
+        report.setdefault(k, {}).setdefault("launches_by_path", {})[path] = v
+    if hdr.shape != (r.config.height, r.config.width, 3) or not np.isfinite(
+            hdr).all():
+        raise AssertionError(f"{path}: the image is not finite or has the "
+                             "wrong shape")
+    return hdr, secs
+
+
 def phase_main(dev, smi, report, profile: str | None):
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
     r.load_scene(cornell_box())
-    torch.cuda.synchronize()
-    K1.Counter.launches = 0
-    K2.Counter.launches = 0
-    t0 = time.perf_counter()
-    hdr = r.render(spp=SPP)
-    secs = time.perf_counter() - t0
-    k1, k2 = K1.Counter.launches, K2.Counter.launches
-    report["k1"]["launches"], report["k2"]["launches"] = k1, k2
+    if r.stats()["intersector"] != "brute":
+        raise AssertionError("the flagship box must take the dense hit (K1)")
+    hdr, secs = counted_render(
+        r, SPP, report, "main", {"k1": 2 * MAX_BOUNCES * SPP,
+                                 "k2": MAX_BOUNCES * SPP, "k3": 0})
+    report["k1"]["launches"] = report["k1"]["launches_by_path"]["main"]
+    report["k2"]["launches"] = report["k2"]["launches_by_path"]["main"]
     stats = r.stats()
     mrays = stats["rays_total"] / secs / 1e6
-    say("main", f"{SIZE}x{SIZE} x {SPP} spp: K1 launched {k1} times, "
-        f"K2 {k2} times")
-    if k1 != 2 * MAX_BOUNCES * SPP or k2 != MAX_BOUNCES * SPP:
-        raise AssertionError(f"expected K1 {2 * MAX_BOUNCES * SPP} and K2 "
-                             f"{MAX_BOUNCES * SPP} launches")
-    if hdr.shape != (SIZE, SIZE, 3) or not np.isfinite(hdr).all():
-        raise AssertionError("the image is not finite or has the wrong shape")
     say("main", f"wall {secs:.3f} s, {stats['rays_total']} rays "
         f"({stats['rays_closest']} closest + {stats['rays_shadow']} shadow), "
         f"{mrays:.3f} Mrays/s on {smi}")
@@ -379,10 +427,11 @@ def phase_main(dev, smi, report, profile: str | None):
         say("main", f"PNG {os.path.getsize(path)} bytes, mean display "
             f"value {float(r.image().mean()):.4f}")
 
+    launched = {k: c.launches for k, c in COUNTERS.items()}
     t0 = time.perf_counter()
     hdr_plain = plain_render(r, SPP)
     plain_secs = time.perf_counter() - t0
-    if (K1.Counter.launches, K2.Counter.launches) != (k1, k2):
+    if {k: c.launches for k, c in COUNTERS.items()} != launched:
         raise AssertionError("the plain path launched a kernel")
     lanes, ulp, err = compare(torch.from_numpy(hdr.reshape(-1, 3).T.copy()),
                               torch.from_numpy(hdr_plain.reshape(-1, 3).T.copy()))
@@ -410,7 +459,179 @@ def phase_main(dev, smi, report, profile: str | None):
                       "repeat_median_seconds": float(med),
                       "repeat_seconds": walls, "plain_seconds": plain_secs}
     if profile:
-        profile_frames(r, profile)
+        profile_frames(r, profile, "main")
+
+    # The same box through the walk (K3 forced), against the K1 path.
+    w = Renderer(RenderConfig(width=SIZE, height=SIZE, intersector="walk"),
+                 device="cuda")
+    w.load_scene(cornell_box())
+    if w.stats()["intersector"] != "walk":
+        raise AssertionError("intersector='walk' did not take the walk")
+    walk_hdr, _ = counted_render(
+        w, FORCED_WALK_SPP, report, "forced_walk",
+        {"k1": 0, "k2": MAX_BOUNCES * FORCED_WALK_SPP,
+         "k3": 2 * MAX_BOUNCES * FORCED_WALK_SPP})
+    r.reset()
+    dense_hdr = r.render(spp=FORCED_WALK_SPP)
+    pixels = int((walk_hdr != dense_hdr).any(-1).sum())
+    say("main", f"the flagship box through K3 ({FORCED_WALK_SPP} spp): its "
+        f"image differs from the K1 path's on {pixels} of {SIZE * SIZE} "
+        "pixels")
+    report["main"]["forced_walk_pixels_differing"] = pixels
+    if pixels > 0.001 * SIZE * SIZE:
+        raise AssertionError("the walk and the dense hit disagree on more "
+                             "than 0.1% of the flagship's pixels")
+
+
+def phase_k3(dev, report):
+    scene_np = cornell_box(tessellation=LARGE_TESSELLATION)
+    t0 = time.perf_counter()
+    scene, rays, state = flagship_rays(scene_np, dev)
+    say("k3", f"{scene_np.num_triangles} triangles; packed and uploaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tables = K3.walk_tables(scene)
+    tri = scene["tri_isect"]
+    nt = tri.shape[0]
+    n = rays.shape[1]
+    say("k3", f"wide BVH: {tables.order.shape[0]} nodes, "
+        f"{tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups, stack "
+        f"{tables.stack} of {K3.STACK_MAX} entries")
+    t, idx = K3.closest_hit_walk_plain(tables, rays[0:3], rays[3:6],
+                                       num_tris=nt)
+    args = (0, rays, state, torch.ones((3, n), device=dev),
+            torch.zeros((3, n), device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+            scene["tri_full"], scene["light_full"])
+    kw = dict(do_mis=True, num_lights=scene_np.num_lights)
+    kout = K2.bounce_stage_cuda(*args, **kw)
+    pout = K2.bounce_stage_plain(*args, **kw)
+    parts = []
+    for name, k, p in zip(K2_OUTPUTS, kout, pout):
+        lanes, ulp, err = compare(k, p)
+        report["k2"]["max_abs_err"] = max(report["k2"]["max_abs_err"], err)
+        if lanes:
+            parts.append(f"{name} {lanes} lanes/{ulp} ulp")
+        if not within_bound(lanes, ulp, n, name in K2_EXACT):
+            raise AssertionError(f"K2 {name} disagrees with its plain version "
+                                 f"on the large box: {lanes} lanes, max {ulp} "
+                                 "ulp")
+    say("k2", f"cornell_box(tessellation={LARGE_TESSELLATION}) bounce 0: {n} "
+        "lanes; " + ("bit-equal" if not parts else "; ".join(parts)))
+
+    bounce, alive = pout[0].contiguous(), pout[4]
+    shadow, smask, stmax = pout[5].contiguous(), pout[7], pout[6]
+    cases = [("camera", rays, {}),
+             ("bounce-1", bounce, {"active": alive}),
+             ("shadow-0", shadow, {"active": smask, "t_max": stmax,
+                                   "any_hit": True})]
+    worst = 0.0
+    for name, r, extra in cases:
+        o, d = r[0:3], r[3:6]
+        kt, ki = K3.closest_hit_walk(tables, o, d, num_tris=nt, **extra)
+        pt, pi = K3.closest_hit_walk_plain(tables, o, d, num_tris=nt, **extra)
+        t_lanes, t_ulp, t_err = compare(kt, pt)
+        i_lanes = int((ki != pi).sum())
+        say("k3", f"{name} rays: {n} lanes ({int((pi >= 0).sum())} hits), t "
+            f"differs on {t_lanes} (max {t_ulp} ulp), idx differs on "
+            f"{i_lanes}")
+        if t_lanes or i_lanes:
+            raise AssertionError(f"K3 disagrees with its plain version on the "
+                                 f"{name} rays")
+        worst = max(worst, t_err)
+        if name == "shadow-0":
+            continue
+        # K3 against the dense K1 on the same closest-hit rays.
+        dt, di = K1.closest_hit_dense_cuda(tri, r.contiguous())
+        if "active" in extra:
+            dt = torch.where(extra["active"], dt, torch.inf)
+            di = torch.where(extra["active"], di, -1)
+        idx_apart = ki != di
+        t_apart = kt != dt
+        ties = not bool(t_apart.any())  # idx differs only where t is equal
+        say("k3", f"{name} rays against K1: idx differs on "
+            f"{int(idx_apart.sum())} lanes, t on {int(t_apart.sum())}; every "
+            f"difference an exact-t tie: {'yes' if ties else 'no'}")
+        if int((idx_apart | t_apart).sum()) > 0.01 * n:
+            raise AssertionError(f"K3 and K1 disagree on more than 1% of the "
+                                 f"{name} rays")
+    o, d = rays[0:3], rays[3:6]
+    ms = device_ms(lambda: K3.closest_hit_walk(tables, o, d, num_tris=nt))
+    eager = eager_ms(lambda: K3.closest_hit_walk(tables, o, d, num_tris=nt))
+    plain = eager_ms(lambda: K3.closest_hit_walk_plain(tables, o, d,
+                                                       num_tris=nt), reps=2)
+    bo, bd = bounce[0:3], bounce[3:6]
+    bounce_ms = device_ms(lambda: K3.closest_hit_walk(
+        tables, bo, bd, active=alive, num_tris=nt))
+    say("k3", f"time at {n} camera rays x {nt} tris: device {ms:.4f} ms "
+        f"(plain {plain:.4f} ms, launched from Python, which the plain "
+        f"walk's per-iteration host syncs need); launched from Python "
+        f"{eager:.4f} ms; bounce-1 rays: device {bounce_ms:.4f} ms")
+    report.setdefault("k3", {}).update(
+        max_abs_err=worst, ms=ms, plain_ms=plain, bounce_ms=bounce_ms)
+
+
+def phase_large(dev, smi, report, profile: str | None):
+    t0 = time.perf_counter()
+    scene_np = cornell_box(tessellation=LARGE_TESSELLATION)
+    sah = time.perf_counter() - t0
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    t0 = time.perf_counter()
+    r.load_scene(scene_np)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    if r.stats()["intersector"] != "walk":
+        raise AssertionError("the large box must take the walk (K3)")
+    say("large", f"{scene_np.num_triangles} triangles: the scene and its "
+        f"SAH BVH {sah:.2f} s, load_scene (wide collapse, packing, upload) "
+        f"{build:.2f} s; intersector {r.stats()['intersector']!r}")
+    hdr, secs = counted_render(
+        r, LARGE_SPP, report, "large",
+        {"k1": 0, "k2": MAX_BOUNCES * LARGE_SPP,
+         "k3": 2 * MAX_BOUNCES * LARGE_SPP})
+    report["k3"]["launches"] = report["k3"]["launches_by_path"]["large"]
+    stats = r.stats()
+    rays = stats["rays_total"]
+    say("large", f"cold render: wall {secs:.3f} s, {rays} rays "
+        f"({stats['rays_closest']} closest + {stats['rays_shadow']} "
+        f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    walls = []
+    for _ in range(REPEATS):
+        r.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(spp=LARGE_SPP, fetch=False)
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(walls, [25, 50, 75])
+    say("large", f"{REPEATS} more renders of the same {LARGE_SPP} spp: wall "
+        f"median {med:.4f} s (quartiles {q1:.4f}, {q3:.4f}; min "
+        f"{min(walls):.4f}, max {max(walls):.4f}), {rays / med / 1e6:.3f} "
+        f"Mrays/s at the median ({rays / q3 / 1e6:.3f} and "
+        f"{rays / q1 / 1e6:.3f} at the quartiles) on {smi}")
+    launched = {k: c.launches for k, c in COUNTERS.items()}
+    t0 = time.perf_counter()
+    hdr_plain = plain_render(r, LARGE_SPP)
+    plain_secs = time.perf_counter() - t0
+    if {k: c.launches for k, c in COUNTERS.items()} != launched:
+        raise AssertionError("the plain path launched a kernel")
+    pixels = int((hdr.view(np.uint32) != hdr_plain.view(np.uint32))
+                 .any(-1).sum())
+    say("large", f"plain path ({SIZE}x{SIZE} x {LARGE_SPP} spp): wall "
+        f"{plain_secs:.3f} s; its image differs from the kernels' on "
+        f"{pixels} of {SIZE * SIZE} pixels")
+    if pixels:
+        raise AssertionError("the large scene's kernel-path image differs "
+                             "from the plain path's")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_frames(r, f"{root}_large{ext}", "large")
+    report["large"] = {"triangles": scene_np.num_triangles,
+                       "sah_seconds": sah, "build_seconds": build,
+                       "seconds": secs,
+                       "mrays_per_sec": rays / secs / 1e6,
+                       "repeat_median_seconds": float(med),
+                       "repeat_quartile_seconds": [float(q1), float(q3)],
+                       "repeat_seconds": walls,
+                       "plain_seconds": plain_secs}
 
 
 def short(kernel_name: str) -> str:
@@ -419,7 +640,7 @@ def short(kernel_name: str) -> str:
     return name.split("(")[0].split("<")[0][:48]
 
 
-def profile_frames(r: Renderer, path: str) -> None:
+def profile_frames(r: Renderer, path: str, phase: str) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -446,7 +667,7 @@ def profile_frames(r: Renderer, path: str) -> None:
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=60))
-    say("profile", f"{frames} frames: wall {wall_ms:.3f} ms unprofiled, "
+    say(phase, f"profile of {frames} frames: wall {wall_ms:.3f} ms unprofiled, "
         f"device busy {busy_ms:.3f} ms in {len(device)} device events "
         f"({100 * busy_ms / wall_ms:.1f}% of the wall); top: "
         + ", ".join(f"{short(name)} {us / 1e3:.3f} ms" for name, us in top))
@@ -455,8 +676,9 @@ def profile_frames(r: Renderer, path: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
-                        help="also write a torch.profiler table of four "
-                        "main-path frames to PATH")
+                        help="also write torch.profiler tables of four "
+                        "main-path and four large-scene frames to PATH and "
+                        "PATH with _large before its extension")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -479,6 +701,8 @@ def main() -> int:
     phase_k2(dev, report)
     phase_oracle(dev)
     phase_main(dev, smi, report, args.profile)
+    phase_k3(dev, report)
+    phase_large(dev, smi, report, args.profile)
 
     pkg = "wgpu_path_tracing_tpu_torch"
     ref = "wgpu_path_tracing_tpu/ops"
@@ -487,9 +711,12 @@ def main() -> int:
          "replaces": f"{ref}/pallas_kernels.py:38", **report["k1"]},
         {"name": "bounce", "route": "cuda", "source": f"{pkg}/csrc/bounce.cu",
          "replaces": f"{ref}/pallas_bounce.py:412", **report["k2"]},
+        {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
+         "replaces": f"{ref}/walk.py:177", **report["k3"]},
     ]
     print(json.dumps({"kernels": kernels, "main": report["main"],
-                      "nvidia_smi": smi}), flush=True)
+                      "large": report["large"], "nvidia_smi": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

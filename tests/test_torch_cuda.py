@@ -5,9 +5,10 @@ imports JAX; where JAX is not installed, run them with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-On the card, K1 (csrc/dense_hit.cu) and K2 (csrc/bounce.cu) must equal the
-plain versions bit for bit: both round every float32 operation the same way
-(the kernels are built with -fmad=false and IEEE division and square root).
+On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu) and K3
+(csrc/walk.cu) must equal the plain versions bit for bit: both round every
+float32 operation the same way (the kernels are built with -fmad=false and
+IEEE division and square root).
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
+from wgpu_path_tracing_tpu_torch.ops import walk as K3
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.pipeline import camera_device
 
@@ -118,5 +120,54 @@ def test_renderer_kernel_path_equals_plain_path(dev):
     plain = plain_render(r, spp=2)
     assert (K1.Counter.launches, K2.Counter.launches) == launches
     assert np.isfinite(kernel).all()
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
+
+
+@pytest.mark.parametrize("mode", ["closest", "active", "any_hit"])
+def test_walk_kernel_equals_plain(dev, mode):
+    """K3 on the 4,898-triangle box: camera rays, and their bounce-1 and
+    shadow rays from one plain bounce."""
+    sc = cornell_box(tessellation=12)
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    tables = K3.walk_tables(scene)
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 1, use_dof=True)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    t, idx = K3.closest_hit_walk_plain(tables, ro, rd)
+    outs = K2.bounce_stage_plain(
+        0, rays, state, torch.ones((3, n), device=dev),
+        torch.zeros((3, n), device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+        scene["tri_full"], scene["light_full"], do_mis=True,
+        num_lights=sc.num_lights)
+    nt = scene["tri_isect"].shape[0]
+    for r in (rays, outs[0], outs[5]):
+        o, d = r[0:3].contiguous(), r[3:6].contiguous()
+        kw = dict(num_tris=nt)
+        if mode == "active":
+            kw["active"] = outs[4] if r is outs[0] else outs[7]
+        elif mode == "any_hit":
+            kw.update(active=outs[7], t_max=outs[6], any_hit=True)
+        before = K3.Counter.launches
+        kt, ki = K3.closest_hit_walk(tables, o, d, **kw)
+        torch.cuda.synchronize()
+        assert K3.Counter.launches == before + 1
+        pt, pi = K3.closest_hit_walk_plain(tables, o, d, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+        assert (ki >= 0).any()
+
+
+def test_renderer_walk_path_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(cornell_box(tessellation=12))
+    assert r.stats()["intersector"] == "walk"
+    before = K3.Counter.launches
+    kernel = r.render(spp=1)
+    assert K3.Counter.launches == before + 2 * r.config.max_bounces
+    plain = plain_render(r, spp=1)
+    assert K3.Counter.launches == before + 2 * r.config.max_bounces
     np.testing.assert_array_equal(kernel.view(np.uint32),
                                   plain.view(np.uint32))

@@ -140,6 +140,60 @@ def test_plain_and_kernel_paths_agree_on_cpu():
     np.testing.assert_array_equal(r.render(spp=2), plain_render(r, spp=2))
 
 
+@pytest.fixture(scope="module")
+def large_render():
+    """cornell_box(tessellation=12): 4,898 triangles, above the dense
+    intersector's 4096, so "auto" takes the walk."""
+    r = Renderer(RenderConfig(width=24, height=24))
+    r.load_scene(cornell_box(tessellation=12))
+    return r, r.render(spp=2)
+
+
+@pytest.mark.parametrize("tessellation, strategy", [(1, "brute"),
+                                                     (12, "walk")])
+def test_stats_report_the_chosen_intersector(tessellation, strategy):
+    r = Renderer(RenderConfig(width=8, height=8))
+    assert r.stats()["intersector"] is None  # no scene yet
+    scene = cornell_box(tessellation=tessellation)
+    r.load_scene(scene)
+    assert scene.num_triangles == {1: 36, 12: 4898}[tessellation]
+    assert r.stats()["intersector"] == strategy
+
+
+def test_large_scene_walk_equals_brute(large_render):
+    """The walk and the dense hit agree on every pixel: both round every
+    operation the same way, and no razor-tie pixel shows at this size."""
+    r, walk_img = large_render
+    assert r.stats()["intersector"] == "walk"
+    b = Renderer(RenderConfig(width=24, height=24, intersector="brute"))
+    b.load_scene(cornell_box(tessellation=12))
+    assert b.stats()["intersector"] == "brute"
+    np.testing.assert_array_equal(walk_img.view(np.uint32),
+                                  b.render(spp=2).view(np.uint32))
+    np.testing.assert_array_equal(walk_img, plain_render(r, spp=2))
+
+
+def test_large_scene_matches_jax_renderer(large_render):
+    """Held to the JAX Renderer at the same settings with the golden test's
+    bars: >= 99% of pixels within 5e-4 of the JAX image or, where not, of
+    the scalar oracle's mean, at most 5 off both, the means within 1e-3."""
+    r, buf = large_render
+    j = JRenderer(JRenderConfig(width=24, height=24, frames_per_chunk=2))
+    j.load_scene(jcornell_box(tessellation=12))
+    ref = j.render(spp=2)
+    close = np.isclose(buf, ref, rtol=5e-4, atol=5e-4).all(-1)
+    oracle = Oracle(cornell_box(tessellation=12), r.camera.as_pytree(), 24, 24)
+    ys, xs = np.nonzero(~close)
+    off_both = [(px, py) for px, py in zip(xs, ys)
+                if not np.allclose(buf[py, px], _oracle_mean(oracle, px, py, 2),
+                                   rtol=2e-3, atol=2e-3)]
+    report = (f"{len(xs)} of {close.size} pixels outside 5e-4 of the JAX "
+              f"render, {len(off_both)} of them off the oracle too: {off_both}")
+    assert close.size - len(off_both) >= 0.99 * close.size, report
+    assert len(off_both) <= 5, report
+    assert abs(buf.mean() / ref.mean() - 1.0) < 1e-3
+
+
 def _read_png_rgb(path):
     """Decode the writer's own 8-bit RGB PNG (filter 0 rows) with zlib."""
     with open(path, "rb") as f:

@@ -26,6 +26,7 @@ from wgpu_path_tracing_tpu_torch import (
     material_test_box,
 )
 from wgpu_path_tracing_tpu_torch.models.types import DEVICE_KEYS, pack_device_scene
+from wgpu_path_tracing_tpu_torch.accel import bvh8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "wgpu_path_tracing_tpu_torch")
@@ -62,9 +63,13 @@ def test_load_jax_scene_uploads_the_same_tables():
     ref = jpack(JP.cornell_box())
     a = load_jax_scene(ref, "cpu")
     b = load_jax_scene(pack_device_scene(cornell_box()), "cpu")
-    for key in DEVICE_KEYS:
-        assert a[key].dtype == torch.float32 and a[key].is_contiguous()
-        assert torch.equal(a[key], b[key]), key
+    for key, dtype in DEVICE_KEYS.items():
+        assert a[key].dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+        assert a[key].is_contiguous()
+        # walk_boxes holds NaN on empty child slots.
+        assert torch.equal(a[key].view(torch.uint8),
+                           b[key].view(torch.uint8)), key
+    assert a["walk_order"].dtype == torch.int32
     assert set(a) == set(DEVICE_KEYS)  # the JAX-only tables are left behind
 
 
@@ -120,14 +125,24 @@ def test_cuda_without_a_card_raises():
         load_jax_scene(pack_device_scene(cornell_box()), "cuda")
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError):
         RenderConfig(rng="hash").validate()
-    with pytest.raises(NotImplementedError):
-        RenderConfig(intersector="walk").validate()
+    for name in ("pairs", "phased", "cluster", "bvh", "stack"):
+        with pytest.raises(NotImplementedError):
+            RenderConfig(intersector=name).validate()
+    RenderConfig(intersector="walk").validate()
+    # A scene above brute_force_max_tris without walk tables (a wide tree
+    # too deep for the walk's stack) needs K4, which is not ported.
+    def too_deep(*args, **kwargs):
+        raise bvh8.WideBVHDepthError("pathologically deep (simulated)")
+
+    monkeypatch.setattr(bvh8, "build_wide_bvh", too_deep)
     r = Renderer(RenderConfig(width=8, height=8, brute_force_max_tris=16))
-    with pytest.raises(NotImplementedError):  # 36 triangles > 16
+    with pytest.warns(UserWarning), pytest.raises(NotImplementedError,
+                                                  match="K4"):
         r.load_scene(cornell_box())
+    monkeypatch.undo()
     textured = cornell_box()
     textured.atlas = np.ones((4, 4, 4), np.float32)
     textured.mat_albedo_rect[0] = [0, 0, 2, 2]

@@ -1,0 +1,364 @@
+"""K3's plain version (the wide-BVH walk) against the JAX walk and the
+port's dense hit.
+
+The same numpy-made rays go through the port's ``closest_hit_walk_plain``
+(which the K3 wrapper runs for CPU tensors), the JAX package's
+``closest_hit_walk`` in interpret mode and the port's dense
+``closest_hit_brute``. Tolerances:
+
+* Against the port's dense hit: the same per-operation rounding, so hits and
+  misses agree exactly, and t is bit-equal wherever the winner is the same
+  triangle. A winner may differ only on an exact tie (two triangles with the
+  same t, reached in another order).
+* Against the JAX walk: hits and misses agree, except on at most 0.5% of
+  lanes where the JAX walk misses a ray along a box face and the JAX
+  package's own dense hit sides with the port; idx agrees except on
+  a near tie, judged in the port's arithmetic: the port's t of JAX's
+  triangle is within 1 ulp of the port's own t (two triangles meeting at
+  the hit point; XLA:CPU fuses the Möller-Trumbore multiply-adds into FMAs
+  and PyTorch rounds every operation, so the two order such a pair
+  differently). t is within rtol 1e-4 / atol 1e-5, as tests/test_walk.py
+  holds the JAX walk to brute, plus 8 ulp of t per unit of the hit's
+  condition number |e1| |d x e2| / |a|: a grazing hit amplifies the
+  different rounding (one aimed ray at a condition number near 4000
+  differs by 2e-4 of t, and the JAX walk and the JAX brute differ there
+  by 1e-4).
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wgpu_path_tracing_tpu.models import procedural as JP
+from wgpu_path_tracing_tpu.models.types import pack_device_scene as jpack
+from wgpu_path_tracing_tpu.ops.intersect import closest_hit_brute as jbrute
+from wgpu_path_tracing_tpu.ops.walk import closest_hit_walk as jwalk
+from wgpu_path_tracing_tpu_torch import cornell_box, load_jax_scene
+from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
+from wgpu_path_tracing_tpu_torch.ops import walk
+from wgpu_path_tracing_tpu_torch.ops.intersect import (
+    closest_hit_brute,
+    make_closest_hit,
+    moller_trumbore,
+)
+
+CSRC = walk.cuda_lib.CSRC_DIR
+
+
+@pytest.fixture(scope="module")
+def random_scene():
+    return jpack(JP.random_triangles(1500, seed=5))
+
+
+@pytest.fixture(scope="module")
+def cornell_scene():
+    return jpack(JP.cornell_box(tessellation=4))
+
+
+def _aimed_rays(packed, n, seed):
+    """Rays from 14 units out aimed at random triangle centroids."""
+    rng = np.random.default_rng(seed)
+    tri = packed["tri_isect"]
+    cent = tri[:, 0:3] + (tri[:, 3:6] + tri[:, 6:9]) / 3.0
+    tgt = cent[rng.integers(0, len(tri), n)]
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (tgt - d * 14).astype(np.float32), d.astype(np.float32)
+
+
+def _random_rays(packed, n, seed):
+    """Origins anywhere in the scene's bounds, directions uniform."""
+    rng = np.random.default_rng(seed)
+    lo, hi = packed["bvh_aabb"][0, 0:3], packed["bvh_aabb"][0, 3:6]
+    o = rng.uniform(lo, hi, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _cornell_rays(n):
+    """A ring from inside the box (every ray hits) and the same ring from
+    outside, pointing away (every ray misses)."""
+    ang = np.linspace(0, 2 * np.pi, n // 2, endpoint=False)
+    d = np.stack([np.cos(ang), 0.3 * np.sin(3 * ang), np.sin(ang)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o_in = np.tile([[0.0, 1.0, 0.0]], (n // 2, 1))
+    o_out = 5.0 * d + [0.0, 1.0, 0.0]
+    return (np.concatenate([o_in, o_out]).astype(np.float32),
+            np.concatenate([d, d]).astype(np.float32))
+
+
+def _axis_rays(packed, n, seed):
+    """Directions with exact zero components, from origins on the min
+    planes of the wide tree's child boxes (the 0 * inf case the 1e-30
+    stand-in avoids). On a max plane the stand-in sees the box only at
+    t <= 0, so hits on that face's edges are the walk's razor class (in the
+    JAX walk as well); they are left out here."""
+    rng = np.random.default_rng(seed)
+    boxes = packed["walk_boxes"][:, 0:6]
+    boxes = boxes[np.isfinite(boxes).all(1)]
+    pick = boxes[rng.integers(0, len(boxes), n)]
+    o = rng.uniform(pick[:, 0:3], pick[:, 3:6])
+    plane = rng.integers(0, 3, n)
+    o[np.arange(n), plane] = pick[np.arange(n), plane]
+    d = rng.normal(size=(n, 3))
+    d[np.arange(n), plane] = 0.0
+    rows = np.arange(0, n, 3)  # a third with two zero components
+    d[rows, (plane[rows] + 1) % 3] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+RAYS = {
+    "aimed": lambda s, c: (s, *_aimed_rays(s, 512, 1)),
+    "random": lambda s, c: (c, *_random_rays(c, 512, 2)),
+    "cornell_misses": lambda s, c: (c, *_cornell_rays(512)),
+    "zero_direction": lambda s, c: (c, *_axis_rays(c, 512, 3)),
+}
+
+
+def _tables(packed):
+    return walk.walk_tables(load_jax_scene(packed, "cpu"))
+
+
+def _port_walk(packed, ro, rd, **kw):
+    t, i = walk.closest_hit_walk(
+        _tables(packed), torch.from_numpy(ro.T.copy()),
+        torch.from_numpy(rd.T.copy()),
+        num_tris=packed["tri_isect"].shape[0], **kw)
+    return t.numpy(), i.numpy()
+
+
+def _port_brute(packed, ro, rd):
+    t, i = closest_hit_brute(torch.from_numpy(packed["tri_isect"]),
+                             torch.from_numpy(ro), torch.from_numpy(rd))
+    return t.numpy(), i.numpy()
+
+
+def _jax_walk(packed, ro, rd, **kw):
+    t, i = jwalk(jnp.asarray(packed["walk_order"]),
+                 jnp.asarray(packed["walk_boxes"]),
+                 jnp.asarray(packed["walk_tris"]), jnp.asarray(ro),
+                 jnp.asarray(rd), num_tris=packed["tri_isect"].shape[0],
+                 interpret=True, bn=256, **kw)
+    return np.asarray(t), np.asarray(i)
+
+
+def _t_of(packed, ro, rd, idx):
+    """The port's Möller-Trumbore t of triangle idx[k] for ray k."""
+    tri = torch.from_numpy(packed["tri_isect"][idx])
+    o, d = torch.from_numpy(ro), torch.from_numpy(rd)
+    t, _, _, _ = moller_trumbore(*o.unbind(1), *d.unbind(1), *tri.unbind(1))
+    return t.numpy()
+
+
+def _condition(packed, ro, rd, idx):
+    """|e1| |d x e2| / |a| of triangle idx[k] for ray k, in float64."""
+    tri = packed["tri_isect"][idx].astype(np.float64)
+    h = np.cross(rd.astype(np.float64), tri[:, 6:9])
+    a = np.einsum("ij,ij->i", tri[:, 3:6], h)
+    return (np.linalg.norm(tri[:, 3:6], axis=1) * np.linalg.norm(h, axis=1)
+            / np.abs(a))
+
+
+@pytest.mark.parametrize("kind", list(RAYS))
+def test_plain_walk_matches_brute_and_jax(random_scene, cornell_scene, kind):
+    packed, ro, rd = RAYS[kind](random_scene, cornell_scene)
+    t, i = _port_walk(packed, ro, rd)
+    bt, bi = _port_brute(packed, ro, rd)
+    jt, ji = _jax_walk(packed, ro, rd)
+    hit = i >= 0
+    assert hit.sum() >= 100 and (~hit).sum() >= (100 if kind ==
+                                                  "cornell_misses" else 0)
+    # The port's dense hit: the same hits, ties the only difference.
+    np.testing.assert_array_equal(hit, bi >= 0)
+    same = i == bi
+    np.testing.assert_array_equal(t[same].view(np.uint32),
+                                  bt[same].view(np.uint32))
+    np.testing.assert_array_equal(t[~same], bt[~same])
+    np.testing.assert_array_equal(t[~hit], np.inf)
+    # The JAX walk. Its block-shared traversal has razor misses of its own
+    # (a ray along a box face): where it and the port disagree on a hit,
+    # the JAX package's dense hit sides with the port.
+    jhit = ji >= 0
+    apart = hit != jhit
+    _, jbi = jbrute(jnp.asarray(packed["tri_isect"]), jnp.asarray(ro),
+                    jnp.asarray(rd))
+    np.testing.assert_array_equal(hit[apart], np.asarray(jbi)[apart] >= 0)
+    assert apart.sum() <= 0.005 * len(hit)
+    hit = hit & jhit
+    diff = np.nonzero(hit & (i != ji))[0]
+    np.testing.assert_array_max_ulp(
+        _t_of(packed, ro[diff], rd[diff], ji[diff]), t[diff], maxulp=1)
+    t, jt = t[hit], jt[hit]
+    bound = 1e-4 * np.abs(jt) + 1e-5 + 8 * np.spacing(t) * _condition(
+        packed, ro[hit], rd[hit], i[hit])
+    assert (np.abs(t - jt) <= bound).all()
+
+
+@pytest.mark.parametrize("scene", ["random", "cornell"])
+def test_any_hit_gives_the_occlusion_answer(random_scene, cornell_scene,
+                                            scene):
+    if scene == "random":
+        packed, (ro, rd) = random_scene, _aimed_rays(random_scene, 512, 4)
+        t_max = np.random.default_rng(6).uniform(10.0, 18.0, 512).astype(
+            np.float32)
+    else:
+        packed, (ro, rd) = cornell_scene, _random_rays(cornell_scene, 512, 5)
+        t_max = np.random.default_rng(6).uniform(0.05, 2.0, 512).astype(
+            np.float32)
+    t, i = _port_walk(packed, ro, rd, t_max=torch.from_numpy(t_max),
+                      any_hit=True)
+    bt, _ = _port_brute(packed, ro, rd)
+    occluded = bt < t_max
+    assert 50 < occluded.sum() < 462
+    np.testing.assert_array_equal(t < t_max, occluded)
+    # Whatever hit stopped a lane is a real hit of that triangle.
+    hit = i >= 0
+    np.testing.assert_array_equal(_t_of(packed, ro[hit], rd[hit], i[hit]),
+                                  t[hit])
+    jt, _ = _jax_walk(packed, ro, rd, t_max=jnp.asarray(t_max), any_hit=True)
+    np.testing.assert_array_equal(jt < t_max, occluded)
+
+
+def test_inactive_lanes_miss(random_scene):
+    ro, rd = _aimed_rays(random_scene, 512, 7)
+    active = np.arange(512) % 3 != 0
+    t, i = _port_walk(random_scene, ro, rd, active=torch.from_numpy(active))
+    full_t, full_i = _port_walk(random_scene, ro, rd)
+    np.testing.assert_array_equal(t[~active], np.inf)
+    np.testing.assert_array_equal(i[~active], -1)
+    np.testing.assert_array_equal(t[active], full_t[active])
+    np.testing.assert_array_equal(i[active], full_i[active])
+    jt, ji = _jax_walk(random_scene, ro, rd, active=jnp.asarray(active))
+    np.testing.assert_array_equal(ji < 0, i < 0)
+
+
+def test_empty_scene_misses_everything():
+    packed = pack_device_scene(cornell_box())
+    empty = dict(packed)
+    from wgpu_path_tracing_tpu_torch.accel.bvh8 import build_wide_bvh
+
+    wb = build_wide_bvh(np.zeros((1, 3), np.float32),
+                        np.zeros((1, 3), np.float32),
+                        np.zeros((1, 4), np.int32),
+                        np.zeros((0, 9), np.float32))
+    empty.update(walk_order=wb.order, walk_boxes=wb.boxes, walk_tris=wb.tris)
+    ro, rd = _random_rays(packed, 64, 8)
+    t, i = _port_walk(empty, ro, rd)
+    assert np.isinf(t).all() and (i == -1).all()
+
+
+def test_stack_bound_is_depth_times_seven_plus_eight(random_scene):
+    tables = _tables(random_scene)
+    from wgpu_path_tracing_tpu_torch.accel.bvh8 import wide_depth
+
+    depth = wide_depth(random_scene["walk_order"][:, :8])
+    assert tables.stack == 7 * depth + 8 <= walk.STACK_MAX
+    assert tables.order.dtype == torch.int32
+
+
+def test_wrapper_runs_the_plain_version_on_cpu(random_scene):
+    ro, rd = _aimed_rays(random_scene, 256, 9)
+    before = walk.Counter.launches
+    t, i = _port_walk(random_scene, ro, rd)
+    assert walk.Counter.launches == before
+    tables = _tables(random_scene)
+    pt, pi = walk.closest_hit_walk_plain(
+        tables, torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy()),
+        num_tris=random_scene["tri_isect"].shape[0])
+    np.testing.assert_array_equal(t, pt.numpy())
+    np.testing.assert_array_equal(i, pi.numpy())
+
+
+@pytest.mark.parametrize("bad", ["ray_shape", "ray_dtype", "active_dtype",
+                                 "t_max_shape", "order_dtype"])
+def test_wrapper_rejects_bad_inputs(random_scene, bad):
+    tables = _tables(random_scene)
+    ro = torch.zeros((3, 8))
+    rd = torch.ones((3, 8))
+    kw = {}
+    if bad == "ray_shape":
+        ro = torch.zeros((8, 3))
+    elif bad == "ray_dtype":
+        rd = rd.double()
+    elif bad == "active_dtype":
+        kw["active"] = torch.ones(8, dtype=torch.int32)
+    elif bad == "t_max_shape":
+        kw["t_max"] = torch.ones(9)
+    else:
+        tables = tables._replace(order=tables.order.float())
+    with pytest.raises((ValueError, TypeError)):
+        walk.closest_hit_walk(tables, ro, rd, **kw)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors(random_scene):
+    with pytest.raises(ValueError):
+        walk.closest_hit_walk_cuda(_tables(random_scene), torch.zeros((3, 8)),
+                                   torch.ones((3, 8)))
+
+
+def test_kernel_constants_match_the_tables():
+    with open(f"{CSRC}/walk.cu") as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    from wgpu_path_tracing_tpu_torch.accel import bvh8
+
+    assert const("kMaxStack") == walk.STACK_MAX
+    assert const("kWidth") == bvh8.WIDTH
+    assert const("kOctants") == bvh8.OCTANTS
+    assert const("kLanes") == bvh8.LEAF_SLOTS
+    assert const("kSub") == bvh8.SUB
+    assert const("kGroupRows") == bvh8.group_rows(bvh8.SUB)
+    assert "wpt_walk" in walk.cuda_lib.SIGNATURES
+
+
+def test_make_closest_hit_picks_the_walk(random_scene):
+    scene = load_jax_scene(random_scene, "cpu")
+    assert make_closest_hit(scene).strategy == "brute"  # 1500 <= 4096
+    ch = make_closest_hit(scene, brute_max_tris=1000)
+    assert ch.strategy == "walk"
+    assert make_closest_hit(scene, "walk").strategy == "walk"
+    assert make_closest_hit(scene, "brute", 16).strategy == "brute"
+    # The walk honours active, t_max and any_hit.
+    ro, rd = _aimed_rays(random_scene, 128, 10)
+    ro3, rd3 = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    t, i = ch(ro3, rd3, active=torch.zeros(128, dtype=torch.bool))
+    assert torch.isinf(t).all() and (i == -1).all()
+    t, _ = ch(ro3, rd3, t_max=torch.full((128,), 12.0), any_hit=True)
+    bt, _ = _port_brute(random_scene, ro, rd)
+    np.testing.assert_array_equal(t.numpy() < 12.0, bt < 12.0)
+
+
+@pytest.mark.parametrize("name", ["pairs", "phased", "cluster", "bvh",
+                                  "stack", "walk_hbm"])
+def test_unported_intersectors_raise(random_scene, name):
+    scene = load_jax_scene(random_scene, "cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_closest_hit(scene, name)
+
+
+def test_a_scene_without_walk_tables_raises(random_scene):
+    scene = load_jax_scene({k: v for k, v in random_scene.items()
+                            if not k.startswith("walk_")}, "cpu")
+    with pytest.raises(NotImplementedError, match="K4"):
+        make_closest_hit(scene, brute_max_tris=1000)
+    with pytest.raises(ValueError):
+        make_closest_hit(scene, "nonsense")
+
+
+def test_forced_walk_on_the_flagship_box_equals_brute():
+    packed = pack_device_scene(cornell_box())
+    scene = load_jax_scene(packed, "cpu")
+    ro, rd = _random_rays(packed, 512, 11)
+    ro3, rd3 = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    wt, wi = make_closest_hit(scene, "walk")(ro3, rd3)
+    bt, bi = make_closest_hit(scene, "brute")(ro3, rd3)
+    assert torch.equal(wi, bi)
+    assert torch.equal(wt.view(torch.int32), bt.view(torch.int32))

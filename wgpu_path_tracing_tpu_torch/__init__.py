@@ -2,16 +2,19 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of ``wgpu_path_tracing_tpu`` (JAX on a TPU), which stays beside it as
-the reference. The dense-path render runs end to end: scene packing, camera
-rays, the dense closest hit (kernel K1, ``csrc/dense_hit.cu``), the bounce
-shading stage (kernel K2, ``csrc/bounce.cu``), accumulation and the AGX
-display transform. On ``device="cpu"`` each kernel's plain PyTorch version
-runs instead.
+the reference. The untextured render runs end to end: scene packing, camera
+rays, the closest hit (kernel K1, ``csrc/dense_hit.cu``, the dense hit for
+scenes of up to 4,096 triangles; kernel K3, ``csrc/walk.cu``, the wide-BVH
+walk above), the bounce shading stage (kernel K2, ``csrc/bounce.cu``),
+accumulation and the AGX display transform. On ``device="cpu"`` each
+kernel's plain PyTorch version runs instead.
 
     from wgpu_path_tracing_tpu_torch import Renderer, RenderConfig, cornell_box
     r = Renderer(RenderConfig(width=512, height=512), device="cuda")
-    r.load_scene(cornell_box())
+    r.load_scene(cornell_box())                  # 36 triangles: K1
     img = r.render(spp=64)
+    r.load_scene(cornell_box(tessellation=55))   # 102,852 triangles: K3
+    img = r.render(spp=8)
 
 The package imports neither JAX nor Pillow, so that it runs where only
 PyTorch, numpy and the CUDA toolkit are installed.

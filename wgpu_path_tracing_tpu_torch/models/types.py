@@ -1,9 +1,9 @@
 """Scene data structures (host NumPy) and their upload to torch tensors.
 
 A copy of the JAX package's ``models/types.py`` restricted to what the
-dense-path render reads: the column maps, ``SceneArrays``,
-``texture_slots_used`` and ``pack_device_scene`` for the ``tri_isect``,
-``tri_full``, ``light_full`` and ``atlas`` tables. The NumPy code is kept
+port renders: the column maps, ``SceneArrays``, ``texture_slots_used`` and
+``pack_device_scene`` for the ``tri_isect``, ``tri_full``, ``light_full``,
+``atlas``, ``bvh_aabb`` and wide-BVH walk tables. The NumPy code is kept
 identical so the packed tables are bit-equal to the reference's.
 
 Host side, the scene is plain-NumPy SoA (``SceneArrays``), mirroring the CPU
@@ -25,6 +25,9 @@ tables so each hot-loop gather fetches one row:
   gpu.ts:212)
 * ``bvh_aabb``   (B, 6) f32 and ``bvh_meta`` (B, 4) i32 = [left, right,
   triangleOffset, triangleCount]                  — pt.wgsl:67-78 BVHNode
+* ``walk_order`` (Nn, 64) i32, ``walk_boxes`` (Nn*64, 8) f32 and
+  ``walk_tris`` (Ng*32, 128) f32 — the wide-BVH tables of the BVH walk
+  (``accel/bvh8.py``, ``ops/walk.py``)
 * ``atlas``      (Ah, Aw, 4) f32 — rgba16float atlas texture equivalent
   (renderer.ts:246-253); rects are in pixels (atlas.ts:25-30)
 
@@ -36,8 +39,11 @@ everything.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
+
+from wgpu_path_tracing_tpu_torch.accel import bvh8
 
 LIGHT_TYPE_EMISSIVE = 0  # pt.wgsl:41
 LIGHT_TYPE_DIRECTIONAL = 1  # pt.wgsl:42
@@ -244,8 +250,11 @@ def texture_slots_used(tri_full) -> tuple[bool, bool, bool, bool]:
 def pack_device_scene(scene: SceneArrays):
     """Build the packed device tables as NumPy arrays.
 
-    Returns a dict with tri_isect, tri_full, light_full and atlas. The
-    large-scene tables (BVH links, clusters, pairs, wide BVH) and the
+    Returns a dict with tri_isect, tri_full, light_full, atlas, bvh_aabb
+    and the walk tables walk_order, walk_boxes and walk_tris. The walk
+    tables are omitted when the wide tree is too deep for the walk's stack
+    bound (``accel/bvh8.py::WideBVHDepthError``), as in the JAX package.
+    The other large-scene tables (BVH links, clusters, pairs) and the
     texture tables are not built: no intersector or sampler of this package
     reads them yet.
     """
@@ -293,6 +302,14 @@ def pack_device_scene(scene: SceneArrays):
         lights[:n_lights, LGT_INTENSITY] = scene.light_intensity
         lights[:n_lights, LGT_TRI] = scene.light_tri.astype(np.float32)
 
+    b = scene.bvh_meta.shape[0]
+    bvh_aabb = np.zeros((max(b, 1), 6), np.float32)
+    bvh_meta = np.zeros((max(b, 1), 4), np.int32)
+    if b:
+        bvh_aabb[:b, 0:3] = scene.bvh_aabb_min
+        bvh_aabb[:b, 3:6] = scene.bvh_aabb_max
+        bvh_meta[:b] = scene.bvh_meta.astype(np.int32)
+
     atlas = scene.atlas
     if atlas is None:
         atlas = np.zeros((1, 1, 4), np.float32)
@@ -323,25 +340,61 @@ def pack_device_scene(scene: SceneArrays):
             light_full[:n_lights][spot, LF_SPOT_SCALE] = aux[spot, 3]
             light_full[:n_lights][spot, LF_SPOT_OFFSET] = aux[spot, 4]
 
+    # Wide-BVH tables for the BVH walk (ops/walk.py). A pathologically deep
+    # tree omits them, and the walk then refuses the scene.
+    try:
+        wide = bvh8.build_wide_bvh(
+            scene.bvh_aabb_min if b else np.zeros((1, 3), np.float32),
+            scene.bvh_aabb_max if b else np.zeros((1, 3), np.float32),
+            bvh_meta[:b] if b else np.zeros((1, 4), np.int32),
+            tri_isect[:t],
+        )
+    except bvh8.WideBVHDepthError as e:
+        warnings.warn(f"walk tables skipped: {e}", stacklevel=2)
+        wide = None
+
     return {
         "tri_isect": tri_isect,
         "tri_full": tri_full,
         "light_full": light_full,
         "atlas": np.asarray(atlas, np.float32),
+        "bvh_aabb": bvh_aabb,
+        **(
+            {
+                "walk_order": wide.order,
+                "walk_boxes": wide.boxes,
+                "walk_tris": wide.tris,
+            }
+            if wide is not None
+            else {}
+        ),
     }
 
 
-# The tables the torch path reads, in the layout both packages share.
-DEVICE_KEYS = ("tri_isect", "tri_full", "light_full", "atlas")
+# The walk tables; a packed scene holds all three or none.
+WALK_KEYS = ("walk_order", "walk_boxes", "walk_tris")
+# The tables the torch path reads, in the layout both packages share, and
+# the dtype each is uploaded as.
+DEVICE_KEYS = {
+    "tri_isect": np.float32,
+    "tri_full": np.float32,
+    "light_full": np.float32,
+    "atlas": np.float32,
+    "walk_order": np.int32,
+    "walk_boxes": np.float32,
+    "walk_tris": np.float32,
+}
 
 
 def load_jax_scene(packed: dict, device) -> dict:
     """Upload a packed scene (``pack_device_scene`` output of either package,
-    as NumPy arrays) to contiguous float32 tensors on ``device``.
+    as NumPy arrays) to contiguous tensors on ``device``, each in its
+    ``DEVICE_KEYS`` dtype (``walk_order`` stays int32).
 
-    Only the keys in ``DEVICE_KEYS`` are read; the JAX package's extra
-    tables (BVH, clusters, walk, env) are ignored. Raises if CUDA is asked
-    for and absent: there is no silent CPU fallback.
+    Only the keys in ``DEVICE_KEYS`` are read, and the walk tables only
+    where the scene has them; the JAX package's extra tables (BVH,
+    clusters, pairs, env) are ignored. Raises if CUDA is asked for and
+    absent: there is no silent CPU fallback.
     """
     import torch
 
@@ -349,7 +402,9 @@ def load_jax_scene(packed: dict, device) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
     out = {}
-    for key in DEVICE_KEYS:
-        arr = np.ascontiguousarray(np.asarray(packed[key], np.float32))
+    for key, dtype in DEVICE_KEYS.items():
+        if key in WALK_KEYS and key not in packed:
+            continue
+        arr = np.ascontiguousarray(np.asarray(packed[key], dtype))
         out[key] = torch.from_numpy(arr).to(device)
     return out

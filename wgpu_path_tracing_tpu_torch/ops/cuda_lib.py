@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources are ``wgpu_path_tracing_tpu_torch/csrc/*.cu``. They expose a
-plain C interface, so they are compiled with ``nvcc`` straight into one
-shared library and bound with ``ctypes``; no PyTorch headers are involved,
-which keeps the build to seconds. The build happens at first use, into
-``build/kernels/`` beside the package (git-ignored), under a name that hashes
-the sources and flags, so an edit rebuilds and an unchanged tree reuses it.
+plain C interface, so they are compiled with ``nvcc`` (one process per
+source, all started together) and linked into one shared library bound with
+``ctypes``; no PyTorch headers are involved, which keeps the build to
+seconds. The build happens at first use, into ``build/kernels/`` beside the
+package (git-ignored), under a name that hashes the sources and flags, so an
+edit rebuilds and an unchanged tree reuses it.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``,
 ``-fmad=false`` and no ``--use_fast_math``. Without contraction and with
@@ -31,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _P = ctypes.c_void_p
@@ -45,6 +46,12 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,  # out rays, state, thr, res, alive
         _P, _P, _P, _P, _P,  # shadow rays, t_max, mask, direct, pdf
         _I, _P,  # n, stream
+    ],
+    "wpt_walk": [
+        _P, _P, _P,  # walk_order, walk_boxes, walk_tris
+        _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
+        _P, _P,  # out t, idx
+        _I, _I, _I, _P,  # n, num_tris (-1: none), any_hit, stream
     ],
 }
 
@@ -78,15 +85,27 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    _Lib.build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objects = [os.path.join(tmp_dir, os.path.basename(src) + ".o")
+                   for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objects)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} "
+                                   f"({proc.returncode}):\n{log}")
+        tmp = os.path.join(tmp_dir, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objects], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        _Lib.build_log = "".join(logs)
+        os.replace(tmp, out)
     return out
 
 

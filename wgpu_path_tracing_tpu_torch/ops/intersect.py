@@ -75,36 +75,75 @@ def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
     return best_t, best_idx
 
 
+# Intersectors the port runs, and the JAX package's others with what is
+# still to be ported for each.
+INTERSECTORS = ("auto", "brute", "walk")
+UNPORTED_INTERSECTORS = {
+    "pairs": "the pair dispatch K4 (ops/pairs.py::_pair_kernel)",
+    "phased": "the phased group dispatch K5 (ops/phased.py::_phased_kernel)",
+    "cluster": "the round dispatch K6 (ops/cluster.py::_round_kernel)",
+    "bvh": "the linked-BVH walk (ops/intersect.py::closest_hit_bvh_linked)",
+    "stack": "the per-ray stack walk (ops/intersect.py::closest_hit_bvh)",
+    "walk_hbm": "the paged walk (K3's TPU residency mode; 'walk' takes every "
+                "scene here)",
+}
+
+
+def check_intersector(intersector: str) -> None:
+    """Raise for an intersector the port does not run: NotImplementedError
+    naming what is still to be ported, or ValueError for an unknown name."""
+    if intersector in INTERSECTORS:
+        return
+    if intersector in UNPORTED_INTERSECTORS:
+        raise NotImplementedError(
+            f"intersector={intersector!r} is not ported: "
+            f"{UNPORTED_INTERSECTORS[intersector]} of the JAX package")
+    raise ValueError(f"unknown intersector {intersector!r}")
+
+
 def make_closest_hit(scene: dict, intersector: str = "auto",
                      brute_max_tris: int = 4096):
     """Pick the intersection strategy for this scene.
 
-    Only the dense intersector is ported: a scene above ``brute_max_tris``
-    (under "auto") raises ``NotImplementedError``. As in the JAX package's
-    dense branch, ``active``, ``t_max`` and ``any_hit`` are accepted and
-    ignored: every ray is tested and the closest hit returned, which gives
-    the same occlusion answers.
+    "auto" takes the dense intersector at or below ``brute_max_tris``
+    triangles and the wide-BVH walk above; "brute" and "walk" force one.
+    The walk needs the scene's walk tables: a scene without them (a wide
+    tree too deep for the walk's stack) raises ``NotImplementedError``, as
+    does any intersector the port does not run (``check_intersector``).
 
-    The hit goes through the K1 wrapper (``ops/dense_hit.py``): the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors.
+    The dense hit goes through the K1 wrapper (``ops/dense_hit.py``) and,
+    as in the JAX package's dense branch, accepts and ignores ``active``,
+    ``t_max`` and ``any_hit``: every ray is tested and the closest hit
+    returned, which gives the same occlusion answers. The walk goes through
+    the K3 wrapper (``ops/walk.py``) and honours all three. Each wrapper
+    runs its CUDA kernel on CUDA tensors and its plain version on CPU
+    tensors.
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False)
-    over SoA (3, N) origins and directions.
+    over SoA (3, N) origins and directions; its ``strategy`` attribute is
+    "brute" or "walk".
     """
-    from wgpu_path_tracing_tpu_torch.ops import dense_hit
+    from wgpu_path_tracing_tpu_torch.ops import dense_hit, walk
 
+    check_intersector(intersector)
     num_tris = scene["tri_isect"].shape[0]
-    if intersector not in ("auto", "brute"):
-        raise NotImplementedError(f"intersector={intersector!r} is not ported")
-    if intersector == "auto" and num_tris > brute_max_tris:
-        raise NotImplementedError(
-            f"{num_tris} triangles > brute_force_max_tris={brute_max_tris}: "
-            "the BVH walk intersector is not ported yet")
-    tri = scene["tri_isect"]
+    if intersector == "brute" or (intersector == "auto"
+                                  and num_tris <= brute_max_tris):
+        tri = scene["tri_isect"]
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            del active, t_max, any_hit
+            return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3],
+                                                              dim=0))
+
+        closest_hit.strategy = "brute"
+        return closest_hit
+
+    tables = walk.walk_tables(scene)
 
     def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-        del active, t_max, any_hit
-        return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3], dim=0))
+        return walk.closest_hit_walk(tables, ro3, rd3, active, t_max,
+                                     num_tris=num_tris, any_hit=any_hit)
 
-    closest_hit.strategy = "brute"
+    closest_hit.strategy = "walk"
     return closest_hit

@@ -1,0 +1,303 @@
+"""K3: the wide-BVH walk, its plain version, and its wrapper.
+
+The counterpart of the JAX package's ``ops/walk.py`` (``closest_hit_walk``,
+kernel ``_walk_kernel``). Closest or any hit through the 8-wide BVH tables
+of ``accel/bvh8.py``; rays are SoA (3, N) origins and directions, the
+result is (t (N,) float32, idx (N,) int32), a miss being (inf, -1).
+
+Per ray, both versions here follow the same steps, term for term:
+
+* Limit: ``t_max`` (or inf) on an active lane, -inf on an inactive one.
+* Reciprocal: a direction component ``d == 0`` becomes 1e-30 before
+  ``1/d``, so a ray on a slab plane gives no 0 * inf = NaN.
+* The octant is the ray's own three direction sign bits (bit a set when
+  d[a] < 0). An interior node's children come from ``walk_order[n, oct*8 +
+  k]`` with their boxes at rows ``(n*8 + oct)*8 + k`` of ``walk_boxes``;
+  empty slots (meta 0) are skipped. Slots 0..7 are pushed in order, so slot
+  7, the nearest along the octant, pops first (the JAX kernel's push loop).
+* A child is entered when ``tf >= tn and tf >= 0 and tn <= limit``, with
+  NaN-propagating min and max as ``torch.minimum``/``torch.maximum`` have;
+  its stack entry keeps its entry distance ``tn``. A popped entry whose
+  ``tn`` is above the live limit is dropped.
+* A leaf group's 16 sub-cluster boxes are tested against the limit at the
+  visit's start; each entered sub-cluster runs Möller-Trumbore
+  (``ops/intersect.py::moller_trumbore``) over its 8 slots. Inside a
+  sub-cluster the winner is the least t, ties to the lowest index; across
+  sub-clusters and visits the best is replaced on a strict ``<``. After the
+  visit the live limit becomes ``min(best t, limit)``; with ``any_hit`` a
+  lane whose best t is below its limit stops instead.
+* The output clears ``idx >= num_tris``, non-finite t and inactive lanes.
+
+The JAX kernel walks one shared stack per block of rays in the block's
+majority octant, so its visit order differs; results differ only in the
+exact-tie and one-ulp box-edge class that ``ops/intersect.py`` of the JAX
+package documents. Its TPU machinery (SMEM/VMEM residency, the paged slab
+ring, ``pops`` batching, the quantised stack keys, the canonical/permutation
+encoding) is not carried over.
+
+On a CUDA tensor ``closest_hit_walk`` launches ``csrc/walk.cu``; on a CPU
+tensor it runs ``closest_hit_walk_plain``. There is no fallback between the
+two.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from wgpu_path_tracing_tpu_torch.accel.bvh8 import (
+    LEAF_SLOTS,
+    OCTANTS,
+    SUB,
+    WIDTH,
+    group_rows,
+    wide_depth,
+)
+from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
+from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+from wgpu_path_tracing_tpu_torch.ops.intersect import moller_trumbore
+
+# Entries of the kernel's per-thread stack (csrc/walk.cu kMaxStack). Every
+# tree that passes accel/bvh8.py's build-time guard needs at most 256.
+STACK_MAX = 256
+GROUP_ROWS = group_rows(SUB)
+SUB_W = LEAF_SLOTS // SUB
+TINY = 1e-30  # stands in for a zero direction component before 1/d
+
+
+class Counter:
+    """Launches of the K3 kernel in this process."""
+
+    launches = 0
+
+
+class WalkTables(NamedTuple):
+    order: torch.Tensor  # (Nn, 64) int32
+    boxes: torch.Tensor  # (Nn * 64, 8) float32
+    tris: torch.Tensor  # (Ng * 32, 128) float32
+    stack: int  # per-ray stack entries the tree needs
+
+
+def walk_tables(scene: dict) -> WalkTables:
+    """The walk tables of an uploaded scene, with the stack bound of a
+    one-pop DFS: at most 7 entries linger per interior level, plus the 8
+    children of the node being visited."""
+    missing = [k for k in WALK_KEYS if k not in scene]
+    if missing:
+        raise NotImplementedError(
+            "the scene has no walk tables (its wide BVH is too deep for the "
+            "walk's stack); the pair dispatch K4 (ops/pairs.py::_pair_kernel "
+            "of the JAX package) that takes such scenes is not ported")
+    order = scene["walk_order"]
+    depth = wide_depth(order[:, :WIDTH].cpu().numpy())
+    return WalkTables(order, scene["walk_boxes"], scene["walk_tris"],
+                      depth * (WIDTH - 1) + WIDTH)
+
+
+def _limit(active, t_max, n: int, dev) -> torch.Tensor:
+    limit = (torch.full((n,), math.inf, dtype=torch.float32, device=dev)
+             if t_max is None else t_max)
+    if active is None:
+        return limit
+    return torch.where(active, limit, -math.inf)
+
+
+def slab_entry(box, ox, oy, oz, ix, iy, iz, lim):
+    """Entry test of boxes (..., 6) [min3 | max3] against rays broadcast to
+    the boxes' leading shape. Returns (tn, enter)."""
+    t1x = (box[..., 0] - ox) * ix
+    t2x = (box[..., 3] - ox) * ix
+    t1y = (box[..., 1] - oy) * iy
+    t2y = (box[..., 4] - oy) * iy
+    t1z = (box[..., 2] - oz) * iz
+    t2z = (box[..., 5] - oz) * iz
+    tn = torch.maximum(
+        torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+        torch.minimum(t1z, t2z))
+    tf = torch.minimum(
+        torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+        torch.maximum(t1z, t2z))
+    enter = (tf >= tn) & (tf >= 0.0) & (tn <= lim)
+    return tn, enter
+
+
+def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
+                           t_max=None, num_tris: int | None = None,
+                           any_hit: bool = False):
+    """Plain PyTorch K3 on any device: one DFS stack per ray, as (N, S)
+    tensors, and a loop that pops one entry on every lane with work until
+    no lane has any."""
+    dev = ro3.device
+    n = ro3.shape[1]
+    lim0 = _limit(active, t_max, n, dev)
+    o = [ro3[a] for a in range(3)]
+    d = [rd3[a] for a in range(3)]
+    inv = [torch.reciprocal(torch.where(x == 0.0, TINY, x)) for x in d]
+    octant = ((d[0] < 0.0).long() + 2 * (d[1] < 0.0).long()
+              + 4 * (d[2] < 0.0).long())
+    best_t = torch.full((n,), math.inf, dtype=torch.float32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    lim = lim0.clone()  # the live limit
+    stack_node = torch.zeros((n, tables.stack), dtype=torch.int32,
+                             device=dev)
+    stack_tn = torch.zeros((n, tables.stack), dtype=torch.float32,
+                           device=dev)
+    sp = torch.ones((n,), dtype=torch.long, device=dev)  # the root, tn 0
+    slots = torch.arange(WIDTH, device=dev)
+
+    while True:
+        lanes = torch.nonzero(sp > 0).squeeze(1)
+        if lanes.numel() == 0:
+            break
+        top = sp[lanes] - 1
+        sp[lanes] = top
+        node = stack_node[lanes, top]
+        keep = ~(stack_tn[lanes, top] > lim[lanes])
+        lanes, node = lanes[keep], node[keep]
+        inner = node >= 0
+
+        # Interior visits: test the 8 children, push the entered ones.
+        il, m = lanes[inner], node[inner].long()
+        oc = octant[il]
+        metas = tables.order[m[:, None], oc[:, None] * WIDTH + slots]
+        box = tables.boxes[((m * OCTANTS + oc) * WIDTH)[:, None] + slots, 0:6]
+        ray = [x[il][:, None] for x in o + inv]
+        tn, enter = slab_entry(box, *ray, lim[il][:, None])
+        push = enter & (metas != 0)
+        pos = sp[il][:, None] + torch.cumsum(push, dim=1) - 1
+        rows = il[:, None].expand_as(push)[push]
+        stack_node[rows, pos[push]] = metas[push]
+        stack_tn[rows, pos[push]] = tn[push]
+        sp[il] += push.sum(dim=1)
+
+        # Leaf visits: gate the sub-clusters, then Möller-Trumbore on the
+        # entered ones, one (lane, sub-cluster) pair per row.
+        ll = lanes[~inner]
+        if ll.numel() == 0:
+            continue
+        base = (-node[~inner].long() - 1) * GROUP_ROWS
+        sub = torch.arange(SUB, device=dev)
+        sb = tables.tris[(base[:, None] + 16 + sub)[..., None],
+                         torch.arange(6, device=dev)]
+        ray = [x[ll][:, None] for x in o + inv]
+        _, gate = slab_entry(sb, *ray, lim[ll][:, None])
+        r, c = torch.nonzero(gate, as_tuple=True)  # by lane, then by c
+        lane = ll[r]
+        cols = c[:, None] * SUB_W + slots[:SUB_W]
+        rows10 = base[r][:, None, None] + torch.arange(10, device=dev)[:, None]
+        tri = tables.tris[rows10, cols[:, None, :]]  # (P, 10, SUB_W)
+        ray = [x[lane][:, None] for x in o + d]
+        t, _, _, valid = moller_trumbore(*ray, *tri[:, 0:9].unbind(1))
+        gidx = tri[:, 9]
+        valid = valid & (gidx >= 0.0)
+        t = torch.where(valid, t, math.inf)
+        sub_t = t.min(dim=1).values
+        sub_i = torch.where(t == sub_t[:, None], gidx, math.inf).min(
+            dim=1).values
+        # The sub-clusters merge in ascending c with a strict <: the
+        # visit's winner is the least t, ties to the lowest c.
+        k = ll.numel()
+        vis_t = torch.full((k,), math.inf, device=dev).scatter_reduce(
+            0, r, sub_t, "amin")
+        first_c = torch.where(sub_t == vis_t[r], c, SUB)
+        win_c = torch.full((k,), SUB, dtype=c.dtype, device=dev).scatter_reduce(
+            0, r, first_c, "amin")
+        win = (c == win_c[r]) & (sub_t == vis_t[r])
+        wl, wt, wi = lane[win], sub_t[win], sub_i[win]
+        better = wt < best_t[wl]
+        best_t[wl[better]] = wt[better]
+        best_i[wl[better]] = wi[better].to(torch.int32)
+        if any_hit:
+            sp[ll[best_t[ll] < lim0[ll]]] = 0
+        else:
+            lim[ll] = torch.minimum(best_t[ll], lim0[ll])
+
+    return _finish(best_t, best_i, active, num_tris)
+
+
+def _finish(t, idx, active, num_tris):
+    if num_tris is not None:
+        idx = torch.where(idx >= num_tris, -1, idx)
+    idx = torch.where(torch.isfinite(t), idx, -1)
+    if active is not None:
+        t = torch.where(active, t, math.inf)
+        idx = torch.where(active, idx, -1)
+    return t, idx
+
+
+def _check(tables: WalkTables, ro3, rd3, active, t_max) -> None:
+    for name, x in (("ro3", ro3), ("rd3", rd3)):
+        if x.dim() != 2 or x.shape[0] != 3:
+            raise ValueError(f"{name} must be (3, N), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    n = ro3.shape[1]
+    if rd3.shape[1] != n:
+        raise ValueError("ro3 and rd3 hold different ray counts")
+    if active is not None and (active.dtype != torch.bool
+                               or tuple(active.shape) != (n,)):
+        raise ValueError("active must be a (N,) bool tensor")
+    if t_max is not None and (t_max.dtype != torch.float32
+                              or tuple(t_max.shape) != (n,)):
+        raise ValueError("t_max must be a (N,) float32 tensor")
+    order, boxes, tris = tables.order, tables.boxes, tables.tris
+    if (order.dtype != torch.int32 or order.dim() != 2
+            or order.shape[1] != OCTANTS * WIDTH):
+        raise ValueError("walk_order must be (Nn, 64) int32")
+    if (boxes.dtype != torch.float32
+            or tuple(boxes.shape) != (order.shape[0] * OCTANTS * WIDTH, 8)):
+        raise ValueError("walk_boxes must be (Nn * 64, 8) float32")
+    if (tris.dtype != torch.float32 or tris.dim() != 2
+            or tris.shape[1] != LEAF_SLOTS or tris.shape[0] % GROUP_ROWS):
+        raise ValueError("walk_tris must be (Ng * 32, 128) float32")
+    devices = {x.device for x in (ro3, rd3, order, boxes, tris, active, t_max)
+               if x is not None}
+    if len(devices) != 1:
+        raise ValueError("the rays and the walk tables are on different "
+                         "devices")
+
+
+def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,
+                          t_max=None, num_tris: int | None = None,
+                          any_hit: bool = False):
+    """Launch K3 on the current stream (no synchronisation)."""
+    _check(tables, ro3, rd3, active, t_max)
+    if ro3.device.type != "cuda":
+        raise ValueError("closest_hit_walk_cuda needs CUDA tensors")
+    if tables.stack > STACK_MAX:
+        raise ValueError(
+            f"the wide BVH needs a {tables.stack}-entry stack per ray; K3's "
+            f"stack holds {STACK_MAX}")
+    args = [x.contiguous() for x in (tables.order, tables.boxes, tables.tris,
+                                     ro3, rd3)]
+    for x in (active, t_max):
+        args.append(None if x is None else x.contiguous())
+    n = ro3.shape[1]
+    t = torch.empty((n,), dtype=torch.float32, device=ro3.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=ro3.device)
+    if n == 0:
+        return t, idx
+    err = cuda_lib.lib().wpt_walk(
+        *(None if x is None else x.data_ptr() for x in args),
+        t.data_ptr(), idx.data_ptr(), n,
+        -1 if num_tris is None else int(num_tris), int(bool(any_hit)),
+        cuda_lib.stream_ptr(ro3))
+    cuda_lib.check(err, "wpt_walk")
+    Counter.launches += 1
+    return t, idx
+
+
+def closest_hit_walk(tables: WalkTables, ro3, rd3, active=None, t_max=None,
+                     num_tris: int | None = None, any_hit: bool = False):
+    """K3 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if ro3.device.type == "cuda":
+        return closest_hit_walk_cuda(tables, ro3, rd3, active, t_max,
+                                     num_tris, any_hit)
+    _check(tables, ro3, rd3, active, t_max)
+    if ro3.device.type != "cpu":
+        raise ValueError(f"unsupported device {ro3.device}")
+    return closest_hit_walk_plain(tables, ro3, rd3, active, t_max, num_tris,
+                                  any_hit)

@@ -10,13 +10,18 @@ renders; the device is the ``Renderer``'s argument:
 * ``firefly_clamp`` — pt.wgsl:751 (min(trace(ray), vec3f(2.5)))
 * ``exposure`` — blit.wgsl:43 (applied as x exp2(EXPOSURE))
 * ``rng`` — only "reference" (random.wgsl's per-pixel PCG) is ported
-* ``intersector`` — "auto" or "brute": the dense intersector, for scenes of
-  at most ``brute_force_max_tris`` triangles
+* ``intersector`` — "auto", "brute" or "walk". "auto" takes the dense
+  intersector (K1) for scenes of at most ``brute_force_max_tris`` triangles
+  and the wide-BVH walk (K3) above; "brute" and "walk" force one. The JAX
+  package's other intersectors are not ported and raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from wgpu_path_tracing_tpu_torch.ops.intersect import check_intersector
 
 
 @dataclasses.dataclass
@@ -39,8 +44,5 @@ class RenderConfig:
         if self.rng != "reference":
             raise NotImplementedError(
                 f"rng={self.rng!r}: only the 'reference' PCG stream is ported")
-        if self.intersector not in ("auto", "brute"):
-            raise NotImplementedError(
-                f"intersector={self.intersector!r}: only the dense intersector "
-                "is ported")
+        check_intersector(self.intersector)
         return self

@@ -41,8 +41,9 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
 
     ``trace_fn`` is the bounce loop and ``closest_hit`` the intersector it
     calls: the renderer passes ``ops/bounce.py::trace_cuda`` and
-    ``ops/intersect.py::make_closest_hit``'s dense hit, which run K2 and K1
-    on CUDA tensors and their plain versions on CPU tensors.
+    ``ops/intersect.py::make_closest_hit``'s dense hit or walk, which run
+    K2 and K1 or K3 on CUDA tensors and their plain versions on CPU
+    tensors.
     Returns (accum, counters (2,) int64 [closest rays, shadow rays])."""
     dev = accum.device
     x, y = tile_pixels(width, height, dev)

@@ -8,8 +8,9 @@
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``. On "cuda" the frame runs the
-hand-written kernels K1 (dense closest hit) and K2 (bounce); on "cpu" their
-plain PyTorch versions. Asking for "cuda" without a card raises.
+hand-written kernels K1 (dense closest hit) or K3 (wide-BVH walk), as
+``RenderConfig.intersector`` picks for the scene, and K2 (bounce); on "cpu"
+their plain PyTorch versions. Asking for "cuda" without a card raises.
 
 Not ported here: glTF loading, async load, denoising, adaptive sampling,
 debug modes, textures, environment maps, multi-device rendering.
@@ -78,7 +79,8 @@ class Renderer:
             raise NotImplementedError(
                 "textured scenes are not ported yet (K2's textured variants)")
         scene_dev = load_jax_scene(packed, self.device)
-        # Raises NotImplementedError above brute_force_max_tris.
+        # Raises NotImplementedError for a scene without walk tables above
+        # brute_force_max_tris.
         self._closest_hit = make_closest_hit(
             scene_dev, self.config.intersector,
             self.config.brute_force_max_tris)
@@ -164,7 +166,7 @@ class Renderer:
         return {
             "frame_index": self.frame_index,
             "device": str(self.device),
-            "intersector": "brute",
+            "intersector": getattr(self._closest_hit, "strategy", None),
             "rays_closest": closest,
             "rays_shadow": shadow,
             "rays_total": closest + shadow,
