@@ -13,16 +13,25 @@ and runs these phases, one line of output each:
 4. K2 vs plain: the bounce shading at 512x512, bounces 0..2, on
    ``cornell_box()`` and ``material_test_box()``; state, alive and mask
    bit-equal, the float outputs bit-equal or within 2 ulp on at most 0.01%
-   of lanes;
+   of lanes; then textured K2 under the same bound on ``textured_cornell()``
+   and ``textured_cornell(atlas_size=512, congruent=True)`` (fat canvas) and
+   the 256^2 congruent box with a 255^2 pbr rect (no canvas: per slot), with
+   each mode's time and texture-slot mask;
 5. oracle: the 24x24 Cornell render through the kernels against the scalar
    oracle ``tests/oracle.py`` on 14 pixels at frames 0, 1 and 5: no RNG-state
-   mismatch and at most one radiance outlier (rtol/atol 2e-3);
+   mismatch and at most one radiance outlier (rtol/atol 2e-3); then the same
+   for ``textured_cornell()`` in both texture modes (the oracle samples per
+   slot);
 6. main path: ``Renderer(RenderConfig(width=512, height=512), device="cuda")``,
    ``load_scene(cornell_box())``, ``render(spp=64)``; the kernels' launch
    counts in that run, the image finite and equal to the plain path's image
-   of the same frames (the phase-4 bound), the wall time and Mrays/s; then
+   of the same frames on every pixel, the wall time and Mrays/s; then
    the same box with ``intersector="walk"`` forced for a few spp, and the
-   count of pixels where its image differs from the K1 path's;
+   count of pixels where its image differs from the K1 path's; then the
+   textured path: the three textured boxes of phase 4 through the same
+   entry points, each 512x512 x 64 spp (``stats()["texture"]`` must read
+   "fat", "fat" and "per_slot"), their launch counts, cold and repeated
+   Mrays/s, and each image against its plain path's on every pixel;
 7. K3 vs plain: the wide-BVH walk on ``cornell_box(tessellation=55)``
    (102,852 triangles) at 512x512: the camera rays, the bounce-1 rays of
    one plain bounce and that bounce's shadow rays (``t_max``, ``any_hit``);
@@ -33,16 +42,19 @@ and runs these phases, one line of output each:
    ``load_scene(cornell_box(tessellation=55))`` (``stats()["intersector"]``
    must be "walk"), ``render(spp=8)``; the launch counts, the build
    seconds, the cold render and the median of repeated renders in Mrays/s,
-   and the cold render's image against the plain path's on every pixel.
+   and a 2-spp render's image against the plain path's on every pixel.
 
-Then one JSON line of per-kernel numbers, and last the line
+Then one JSON line of per-kernel numbers (each kernel's time beside its
+bound: the larger of the bytes it must move over the card's memory rate and
+its operations over the float32 rate), and last the line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is not
 0 and the ok line is not printed. Without CUDA, or outside a checkout of the
 repository, it fails the same way.
 
 ``--profile PATH`` also writes a ``torch.profiler`` table of four
-main-path frames to PATH, and of four large-scene frames to PATH with
-``_large`` before its extension, and prints the device's busy share.
+main-path frames to PATH, of four textured-flagship frames and of four
+large-scene frames to PATH with ``_textured`` and ``_large`` before its
+extension, and prints the device's busy share.
 """
 
 from __future__ import annotations
@@ -68,11 +80,16 @@ from wgpu_path_tracing_tpu_torch import (  # noqa: E402
     cornell_box,
     load_jax_scene,
     material_test_box,
+    textured_cornell,
 )
-from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene  # noqa: E402
+from wgpu_path_tracing_tpu_torch.models.types import (  # noqa: E402
+    FAT_KEYS,
+    pack_device_scene,
+)
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import shade as SHADE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import vec  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import walk as K3  # noqa: E402
@@ -98,10 +115,43 @@ MAX_BOUNCES = 8
 # The large-scene path (the JAX package's bench config 5, "large-100k").
 LARGE_TESSELLATION = 55
 LARGE_SPP = 8
+LARGE_PLAIN_SPP = 2  # frames of the large box's plain-path comparison
 FORCED_WALK_SPP = 4  # the flagship box through the walk
 # Phase-4 bound for float outputs that are not bit-equal.
 MAX_ULP = 2
 MAX_ULP_LANE_SHARE = 1e-4
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): float32 outside
+# the tensor cores, and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Operations each kernel does, counted from its source, each add, multiply,
+# divide, square root, sine, cosine, min, max and compare once: a
+# Möller-Trumbore ray-triangle test (K1, K3's leaves), a ray-box slab test
+# (K3), and an upper estimate of one ray's bounce shading (K2; the textured
+# modes add the uv, the samplers' index math and the normal map's basis).
+MT_OPS = 55
+SLAB_OPS = 25
+K2_OPS = {"none": 900, "per_slot": 1100, "fat": 1100}
+
+
+def coprime_textured():
+    """The 256^2 congruent textured box with a 255^2 pbr rect: its LCM grid
+    (65,280 texels a side) is past the fat canvas's budget, so no canvas is
+    baked and K2 samples the atlas per slot."""
+    sc = textured_cornell(atlas_size=256, congruent=True)
+    sc.mat_pbr_rect[0] = [0, 0, 255, 255]
+    return sc
+
+
+# The textured path's scenes: (path name, scene, K2's texture mode). The
+# first two are the JAX bench's configs 3 and 6.
+TEXTURED = (
+    ("textured", textured_cornell, "fat"),
+    ("textured_512", lambda: textured_cornell(atlas_size=512, congruent=True),
+     "fat"),
+    ("textured_per_slot", coprime_textured, "per_slot"),
+)
+
 # tests/test_parity.py's sample pixels and bars (24x24 image).
 ORACLE_SIZE = 24
 SAMPLE_PIXELS = [
@@ -197,6 +247,62 @@ def time_pair(kernel_fn, plain_fn):
     return out
 
 
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+
+def bound(bytes_moved: int, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 rate. No single PyTorch
+    call computes any of these kernels' functions, so ``library_ms`` is
+    null."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def atlas_bytes(args, atlas, slots) -> int:
+    """The atlas bytes K2 must read at the bounce of ``args``: each distinct
+    texel that a hit lane samples for a slot its material maps (and the
+    scene uses), once: 16 bytes a texel of the (H, W, 4) atlas, 64 a row of
+    the fat canvas, and the fat canvas's match table once."""
+    rays, alive, idx, tri_full = args[1], args[5], args[7], args[8]
+    found = alive & (idx >= 0)
+    get = SHADE.fetch_rows(tri_full, torch.clamp_min(idx, 0))
+    *_, uv_u, uv_v = SHADE.barycentrics_from_cols(
+        get, vec.from_rows(rays, 0), vec.from_rows(rays, 3))
+    if isinstance(atlas, tuple):
+        _, canvas, rects = atlas
+        vrect, missing = SHADE.fat_rect(rects, get)
+        mapped = torch.zeros_like(found)
+        for k in range(4):
+            if slots[k]:
+                mapped |= ~missing[k]
+        rows = SHADE.atlas_texel(vrect, uv_u, uv_v, canvas.shape[0],
+                                 canvas.shape[1])[found & mapped]
+        return rows.unique().numel() * 64 + nbytes(rects)
+    texels = []
+    for k in range(4):
+        if not slots[k]:
+            continue
+        rect = [get(SHADE.SLOT_RECT_COLS[k] + i) for i in range(4)]
+        take = found & (rect[2] != 0.0) & (rect[3] != 0.0)
+        texels.append(SHADE.atlas_texel(rect, uv_u, uv_v, atlas.shape[0],
+                                        atlas.shape[1])[take])
+    return torch.cat(texels).unique().numel() * 16
+
+
+def k2_bound(args, outs, mode: str, atlas=None, slots=None) -> dict:
+    """K2's bound: the ray state and the tables once, the atlas texels
+    that ``atlas_bytes`` counts, every output once; ``K2_OPS`` a ray."""
+    moved = nbytes(*args[1:], *outs)
+    if atlas is not None:
+        moved += atlas_bytes(args, atlas, slots)
+    return bound(moved, K2_OPS[mode] * args[1].shape[1])
+
+
 def flagship_rays(scene_np, dev):
     """Frame-0 camera rays of the flagship camera, in the main path's tile
     lane order."""
@@ -241,7 +347,9 @@ def phase_k1(dev, report):
     say("k1", f"time at {n} rays x {tri.shape[0]} tris: device {ms:.4f} ms "
         f"(plain {plain_ms:.4f} ms); launched from Python {eager:.4f} ms "
         f"(plain {plain_eager:.4f} ms)")
-    report["k1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    report["k1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    **bound(nbytes(tri, rays) + 8 * n,
+                            MT_OPS * n * tri.shape[0])}
 
 
 K2_OUTPUTS = ("rays", "state", "throughput", "result", "alive", "shadow_rays",
@@ -249,57 +357,133 @@ K2_OUTPUTS = ("rays", "state", "throughput", "result", "alive", "shadow_rays",
 K2_EXACT = {"state", "alive", "shadow_mask"}
 
 
+def check_k2(kout, pout, n: int, where: str, report_key: dict) -> str:
+    """K2's ten outputs against its plain version's under the phase-4
+    bound; raises on a disagreement. Returns the summary of the lanes that
+    differ."""
+    parts = []
+    for name, k, p in zip(K2_OUTPUTS, kout, pout):
+        lanes, ulp, err = compare(k, p)
+        report_key["max_abs_err"] = max(report_key.get("max_abs_err", 0.0),
+                                        err)
+        if lanes:
+            parts.append(f"{name} {lanes} lanes/{ulp} ulp")
+        if not within_bound(lanes, ulp, n, name in K2_EXACT):
+            raise AssertionError(f"K2 {name} disagrees with its plain version "
+                                 f"on {where}: {lanes} lanes, max {ulp} ulp")
+    return "bit-equal" if not parts else "; ".join(parts)
+
+
+def k2_bounces(scene_np, label: str, dev, report_key: dict):
+    """K2 against its plain version at bounces 0..2 of the flagship camera
+    rays on ``scene_np`` (the plain bounce carries the rays on). Returns the
+    bounce-0 arguments and kernel outputs, the keywords, and the scene."""
+    scene, rays, state = flagship_rays(scene_np, dev)
+    atlas, slots = TRACE.scene_atlas(scene)
+    n = rays.shape[1]
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    kw = dict(do_mis=True, num_lights=scene_np.num_lights, atlas=atlas,
+              slots_used=slots)
+    timed = None
+    for b in range(3):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        args = (b, rays, state, thr, res, alive, t, idx,
+                scene["tri_full"], scene["light_full"])
+        kout = K2.bounce_stage_cuda(*args, **kw)
+        pout = K2.bounce_stage_plain(*args, **kw)
+        summary = check_k2(kout, pout, n, f"{label} bounce {b}", report_key)
+        say("k2", f"{label} bounce {b}: {n} lanes, {int(alive.sum())} alive; "
+            + summary)
+        if timed is None:
+            timed = args, kout
+        (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
+         spdf) = pout
+        shadow_t, _ = K1.closest_hit_dense_plain(scene["tri_isect"],
+                                                 srays.contiguous())
+        shadow = TRACE.ShadowQuery(
+            origin=vec.from_rows(srays, 0),
+            direction=vec.from_rows(srays, 3), t_max=stmax, mask=smask,
+            direct=vec.from_rows(sdirect, 0), pdf=spdf)
+        res = vec.stack_rows(TRACE.resolve_shadow(
+            vec.from_rows(res, 0), shadow, shadow_t))
+    return (*timed, kw, scene)
+
+
 def phase_k2(dev, report):
-    worst = 0.0
+    report["k2"] = {}
     timed = None
     for scene_fn in (cornell_box, material_test_box):
-        scene_np = scene_fn()
-        scene, rays, state = flagship_rays(scene_np, dev)
-        n = rays.shape[1]
-        thr = torch.ones((3, n), device=dev)
-        res = torch.zeros((3, n), device=dev)
-        alive = torch.ones((n,), dtype=torch.bool, device=dev)
-        for b in range(3):
-            t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
-            args = (b, rays, state, thr, res, alive, t, idx,
-                    scene["tri_full"], scene["light_full"])
-            kw = dict(do_mis=True, num_lights=scene_np.num_lights)
-            kout = K2.bounce_stage_cuda(*args, **kw)
-            pout = K2.bounce_stage_plain(*args, **kw)
-            parts = []
-            for name, k, p in zip(K2_OUTPUTS, kout, pout):
-                lanes, ulp, err = compare(k, p)
-                worst = max(worst, err)
-                if lanes:
-                    parts.append(f"{name} {lanes} lanes/{ulp} ulp")
-                if not within_bound(lanes, ulp, n, name in K2_EXACT):
-                    raise AssertionError(
-                        f"K2 {name} disagrees with its plain version on "
-                        f"{scene_fn.__name__} bounce {b}: {lanes} lanes, "
-                        f"max {ulp} ulp")
-            say("k2", f"{scene_fn.__name__} bounce {b}: {n} lanes, "
-                f"{int(alive.sum())} alive; "
-                + ("bit-equal" if not parts else "; ".join(parts)))
-            if timed is None:
-                timed = args, kw
-            (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
-             spdf) = pout
-            shadow_t, _ = K1.closest_hit_dense_plain(scene["tri_isect"],
-                                                     srays.contiguous())
-            shadow = TRACE.ShadowQuery(
-                origin=vec.from_rows(srays, 0),
-                direction=vec.from_rows(srays, 3), t_max=stmax, mask=smask,
-                direct=vec.from_rows(sdirect, 0), pdf=spdf)
-            res = vec.stack_rows(TRACE.resolve_shadow(
-                vec.from_rows(res, 0), shadow, shadow_t))
-    args, kw = timed
+        args, outs, kw, _ = k2_bounces(scene_fn(), scene_fn.__name__, dev,
+                                       report["k2"])
+        timed = timed or (args, outs, kw)
+    args, outs, kw = timed
     (ms, plain_ms), (eager, plain_eager) = time_pair(
         lambda: K2.bounce_stage_cuda(*args, **kw),
         lambda: K2.bounce_stage_plain(*args, **kw))
     say("k2", f"time at cornell_box bounce 0, {args[1].shape[1]} rays: "
         f"device {ms:.4f} ms (plain {plain_ms:.4f} ms); launched from "
         f"Python {eager:.4f} ms (plain {plain_eager:.4f} ms)")
-    report["k2"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    report["k2"].update(ms=ms, plain_ms=plain_ms,
+                        **k2_bound(args, outs, "none"))
+
+
+def phase_k2_tex(dev, report):
+    """Textured K2 on the three textured boxes; each mode's time is taken
+    on the first scene that runs it."""
+    for path, scene_fn, mode in TEXTURED:
+        key = report.setdefault(f"k2_{mode}", {})
+        args, outs, kw, scene = k2_bounces(scene_fn(), path, dev, key)
+        atlas = kw["atlas"]
+        if K2.texture_mode(atlas) != mode:
+            raise AssertionError(f"{path}: K2 samples {K2.texture_mode(atlas)}"
+                                 f", expected {mode}")
+        (ms, plain_ms), (eager, plain_eager) = time_pair(
+            lambda: K2.bounce_stage_cuda(*args, **kw),
+            lambda: K2.bounce_stage_plain(*args, **kw))
+        b = k2_bound(args, outs, mode, atlas, kw["slots_used"])
+        mask = "".join("1" if u else "0" for u in kw["slots_used"])
+        shape = (tuple(atlas[1].shape) if isinstance(atlas, tuple)
+                 else tuple(atlas.shape))
+        say("k2", f"{path} ({mode}, table {shape}, slots_used {mask} = "
+            "albedo/pbr/emissive/normal): time at bounce 0, "
+            f"{args[1].shape[1]} rays: device {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms); launched from Python {eager:.4f} ms "
+            f"(plain {plain_eager:.4f} ms); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        key.setdefault("ms_by_scene", {})[path] = ms
+        key.setdefault("plain_ms_by_scene", {})[path] = plain_ms
+        key.setdefault("slots_used", {})[path] = mask
+        key.setdefault("bound_ms_by_scene", {})[path] = b["bound_ms"]
+        if "ms" not in key:
+            key.update(ms=ms, plain_ms=plain_ms, **b)
+        if mode == "fat":
+            per_slot_instead(args, outs, kw, scene, path, key)
+
+
+def per_slot_instead(args, outs, kw, scene, path: str, key: dict):
+    """A fat scene's bounce 0 sampled per slot, as it would be without its
+    canvas: the lanes whose outputs differ from the fat mode's (the
+    texel-boundary class) and both modes' device ms, timed in the order
+    fat, per slot, per slot, fat."""
+    n = args[1].shape[1]
+    slot_kw = dict(kw, atlas=scene["atlas"])
+    slot_out = K2.bounce_stage_cuda(*args, **slot_kw)
+    differ = torch.zeros((n,), dtype=torch.bool, device=args[1].device)
+    for a, b in zip(slot_out, outs):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ |= (a != b).reshape(-1, n).any(0)
+    (slot_ms, fat_ms), _ = time_pair(
+        lambda: K2.bounce_stage_cuda(*args, **slot_kw),
+        lambda: K2.bounce_stage_cuda(*args, **kw))
+    lanes = int(differ.sum())
+    say("k2", f"{path} sampled per slot instead: device {slot_ms:.4f} ms "
+        f"against fat {fat_ms:.4f} ms; outputs differ from the fat mode's "
+        f"on {lanes} of {n} lanes")
+    key.setdefault("per_slot_instead", {})[path] = {
+        "ms": slot_ms, "fat_ms": fat_ms, "lanes_differing": lanes}
 
 
 def load_oracle():
@@ -314,13 +498,20 @@ def load_oracle():
     return module.Oracle
 
 
-def phase_oracle(dev):
+def oracle_frames(scene_np, label: str, dev, drop_fat: bool = False):
+    """The 24x24 render of ``scene_np`` through the kernels against the
+    scalar oracle on the sample pixels at frames 0, 1 and 5. ``drop_fat``
+    samples a textured scene per slot, as the oracle does, instead of from
+    its fat canvas."""
     Oracle = load_oracle()
-    scene_np = cornell_box()
     w = ORACLE_SIZE
     camera = Camera(width=w, height=w, aspect=1.0)
     oracle = Oracle(scene_np, camera.as_pytree(), w, w)
-    scene = load_jax_scene(pack_device_scene(scene_np), dev)
+    packed = pack_device_scene(scene_np)
+    if drop_fat:
+        packed = {k: v for k, v in packed.items() if k not in FAT_KEYS}
+    scene = load_jax_scene(packed, dev)
+    mode = K2.texture_mode(TRACE.scene_atlas(scene)[0])
     cam = camera_device(camera.as_pytree(), w, w)
     x, y = pixel_grid(w, w, device=dev)
     closest_hit = make_closest_hit(scene)
@@ -332,18 +523,27 @@ def phase_oracle(dev):
             do_mis=True, num_lights=scene_np.num_lights)
         radiance = radiance.T.cpu().numpy()
         end_state = end_state.cpu().numpy()
-        states = outliers = 0
+        states, outliers = [], 0
         for px, py in SAMPLE_PIXELS:
             lane = py * w + px
             expected = oracle.render_pixel(px, py, frame)
-            states += int(end_state[lane]) != int(oracle.rng.state)
+            if int(end_state[lane]) != int(oracle.rng.state):
+                states.append((px, py))
             got = np.minimum(radiance[lane], np.float32(2.5))
             outliers += not np.allclose(got, expected, rtol=2e-3, atol=2e-3)
-        say("oracle", f"frame {frame}: {len(SAMPLE_PIXELS)} pixels, "
-            f"{states} RNG-state mismatches, {outliers} radiance outliers")
+        say("oracle", f"{label} ({mode}) frame {frame}: {len(SAMPLE_PIXELS)} "
+            f"pixels, {len(states)} RNG-state mismatches"
+            + (f" at {states}" if states else "")
+            + f", {outliers} radiance outliers")
         if states or outliers > 1:
             raise AssertionError(f"the kernel path disagrees with the scalar "
-                                 f"oracle at frame {frame}")
+                                 f"oracle on {label} at frame {frame}")
+
+
+def phase_oracle(dev):
+    oracle_frames(cornell_box(), "cornell_box", dev)
+    oracle_frames(textured_cornell(), "textured_cornell", dev)
+    oracle_frames(textured_cornell(), "textured_cornell", dev, drop_fat=True)
 
 
 def plain_render(r: Renderer, spp: int) -> np.ndarray:
@@ -378,25 +578,38 @@ def plain_render(r: Renderer, spp: int) -> np.ndarray:
     return accum.cpu().numpy()[row_major].reshape(cfg.height, cfg.width, 3)
 
 
-COUNTERS = {"k1": K1.Counter, "k2": K2.Counter, "k3": K3.Counter}
+def reset_counts() -> None:
+    K1.Counter.launches = 0
+    K2.Counter.reset()
+    K3.Counter.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches per kernel: K1, K2 by texture mode ("k2" untextured), K3."""
+    return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
+            "k2_per_slot": K2.Counter.by_mode["per_slot"],
+            "k2_fat": K2.Counter.by_mode["fat"], "k3": K3.Counter.launches}
+
+
+def expect(**counts) -> dict:
+    return {k: counts.get(k, 0) for k in launch_counts()}
 
 
 def counted_render(r: Renderer, spp: int, report: dict, path: str,
-                   expect: dict):
+                   expected: dict):
     """``r.render(spp)`` with every launch count set to 0 just before and
-    read just after; the counts must equal ``expect``. Returns (image,
+    read just after; the counts must equal ``expected``. Returns (image,
     wall seconds)."""
     torch.cuda.synchronize()
-    for counter in COUNTERS.values():
-        counter.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     hdr = r.render(spp=spp)
     secs = time.perf_counter() - t0
-    counts = {k: c.launches for k, c in COUNTERS.items()}
+    counts = launch_counts()
     say(path, f"{r.config.width}x{r.config.height} x {spp} spp: launches "
         + ", ".join(f"{k.upper()} {v}" for k, v in counts.items()))
-    if counts != expect:
-        raise AssertionError(f"{path}: expected launches {expect}")
+    if counts != expected:
+        raise AssertionError(f"{path}: expected launches {expected}")
     for k, v in counts.items():
         report.setdefault(k, {}).setdefault("launches_by_path", {})[path] = v
     if hdr.shape != (r.config.height, r.config.width, 3) or not np.isfinite(
@@ -406,14 +619,53 @@ def counted_render(r: Renderer, spp: int, report: dict, path: str,
     return hdr, secs
 
 
+def repeat_renders(r: Renderer, spp: int, rays: int, path: str, smi: str):
+    """REPEATS more renders of the same frames (the wall clock of one render
+    moves with the host); returns (median, quartiles, walls)."""
+    walls = []
+    for _ in range(REPEATS):
+        r.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(spp=spp, fetch=False)
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = np.percentile(walls, [25, 50, 75])
+    say(path, f"{REPEATS} more renders of the same {spp} spp: wall median "
+        f"{med:.4f} s (quartiles {q1:.4f}, {q3:.4f}; min {min(walls):.4f}, "
+        f"max {max(walls):.4f}), {rays / med / 1e6:.3f} Mrays/s at the median "
+        f"({rays / q3 / 1e6:.3f} and {rays / q1 / 1e6:.3f} at the quartiles) "
+        f"on {smi}")
+    return float(med), [float(q1), float(q3)], walls
+
+
+def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str):
+    """The plain path's image of the same frames against the kernels',
+    which must be equal on every pixel; returns the plain wall seconds."""
+    launched = launch_counts()
+    t0 = time.perf_counter()
+    hdr_plain = plain_render(r, spp)
+    plain_secs = time.perf_counter() - t0
+    if launch_counts() != launched:
+        raise AssertionError("the plain path launched a kernel")
+    pixels = int((hdr.view(np.uint32) != hdr_plain.view(np.uint32))
+                 .any(-1).sum())
+    w, h = r.config.width, r.config.height
+    say(path, f"plain path ({w}x{h} x {spp} spp): wall {plain_secs:.3f} s; "
+        f"its image differs from the kernels' on {pixels} of {w * h} pixels")
+    if pixels:
+        raise AssertionError(f"{path}: the kernel path's image differs from "
+                             "the plain path's")
+    return plain_secs
+
+
 def phase_main(dev, smi, report, profile: str | None):
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
     r.load_scene(cornell_box())
     if r.stats()["intersector"] != "brute":
         raise AssertionError("the flagship box must take the dense hit (K1)")
     hdr, secs = counted_render(
-        r, SPP, report, "main", {"k1": 2 * MAX_BOUNCES * SPP,
-                                 "k2": MAX_BOUNCES * SPP, "k3": 0})
+        r, SPP, report, "main", expect(k1=2 * MAX_BOUNCES * SPP,
+                                       k2=MAX_BOUNCES * SPP))
     report["k1"]["launches"] = report["k1"]["launches_by_path"]["main"]
     report["k2"]["launches"] = report["k2"]["launches_by_path"]["main"]
     stats = r.stats()
@@ -427,36 +679,12 @@ def phase_main(dev, smi, report, profile: str | None):
         say("main", f"PNG {os.path.getsize(path)} bytes, mean display "
             f"value {float(r.image().mean()):.4f}")
 
-    launched = {k: c.launches for k, c in COUNTERS.items()}
-    t0 = time.perf_counter()
-    hdr_plain = plain_render(r, SPP)
-    plain_secs = time.perf_counter() - t0
-    if {k: c.launches for k, c in COUNTERS.items()} != launched:
-        raise AssertionError("the plain path launched a kernel")
-    lanes, ulp, err = compare(torch.from_numpy(hdr.reshape(-1, 3).T.copy()),
-                              torch.from_numpy(hdr_plain.reshape(-1, 3).T.copy()))
-    say("main", f"plain path: wall {plain_secs:.3f} s; its image differs "
-        f"from the kernels' on {lanes} of {SIZE * SIZE} pixels "
-        f"(max {ulp} ulp, max abs {err:.3g})")
-    if not within_bound(lanes, ulp, SIZE * SIZE, exact=False):
-        raise AssertionError("the kernel path's image disagrees with the "
-                             "plain path's")
-    # The wall clock of one render moves with the host (eager launches from
-    # Python): time REPEATS more renders of the same frames.
-    walls = []
-    for _ in range(REPEATS):
-        r.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r.render(spp=SPP, fetch=False)
-        walls.append(time.perf_counter() - t0)
-    q1, med, q3 = np.percentile(walls, [25, 50, 75])
-    say("main", f"{REPEATS} more renders of the same {SPP} spp: wall median "
-        f"{med:.4f} s (quartiles {q1:.4f}, {q3:.4f}; min {min(walls):.4f}, "
-        f"max {max(walls):.4f}), {stats['rays_total'] / med / 1e6:.3f} "
-        f"Mrays/s at the median on {smi}")
+    plain_secs = checked_plain(r, SPP, hdr, "main")
+    med, quartiles, walls = repeat_renders(r, SPP, stats["rays_total"],
+                                           "main", smi)
     report["main"] = {"seconds": secs, "mrays_per_sec": mrays,
-                      "repeat_median_seconds": float(med),
+                      "repeat_median_seconds": med,
+                      "repeat_quartile_seconds": quartiles,
                       "repeat_seconds": walls, "plain_seconds": plain_secs}
     if profile:
         profile_frames(r, profile, "main")
@@ -469,8 +697,8 @@ def phase_main(dev, smi, report, profile: str | None):
         raise AssertionError("intersector='walk' did not take the walk")
     walk_hdr, _ = counted_render(
         w, FORCED_WALK_SPP, report, "forced_walk",
-        {"k1": 0, "k2": MAX_BOUNCES * FORCED_WALK_SPP,
-         "k3": 2 * MAX_BOUNCES * FORCED_WALK_SPP})
+        expect(k2=MAX_BOUNCES * FORCED_WALK_SPP,
+               k3=2 * MAX_BOUNCES * FORCED_WALK_SPP))
     r.reset()
     dense_hdr = r.render(spp=FORCED_WALK_SPP)
     pixels = int((walk_hdr != dense_hdr).any(-1).sum())
@@ -481,6 +709,45 @@ def phase_main(dev, smi, report, profile: str | None):
     if pixels > 0.001 * SIZE * SIZE:
         raise AssertionError("the walk and the dense hit disagree on more "
                              "than 0.1% of the flagship's pixels")
+
+
+def phase_textured(dev, smi, report, profile: str | None):
+    """The textured boxes through the main path's entry points: each
+    ``Renderer(RenderConfig(width=512, height=512))``, ``load_scene``,
+    ``render(spp=64)``, with K2 in the scene's texture mode."""
+    for path, scene_fn, mode in TEXTURED:
+        r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+        t0 = time.perf_counter()
+        r.load_scene(scene_fn())
+        torch.cuda.synchronize()
+        load = time.perf_counter() - t0
+        stats = r.stats()
+        say(path, f"load_scene {load:.3f} s; intersector "
+            f"{stats['intersector']!r}, texture {stats['texture']!r}")
+        if stats["texture"] != mode or stats["intersector"] != "brute":
+            raise AssertionError(f"{path}: expected K1 and texture {mode!r}")
+        hdr, secs = counted_render(
+            r, SPP, report, path,
+            expect(k1=2 * MAX_BOUNCES * SPP,
+                   **{f"k2_{mode}": MAX_BOUNCES * SPP}))
+        key = report[f"k2_{mode}"]
+        key.setdefault("launches", key["launches_by_path"][path])
+        stats = r.stats()
+        rays = stats["rays_total"]
+        say(path, f"cold render: wall {secs:.3f} s, {rays} rays "
+            f"({stats['rays_closest']} closest + {stats['rays_shadow']} "
+            f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
+        plain_secs = checked_plain(r, SPP, hdr, path)
+        med, quartiles, walls = repeat_renders(r, SPP, rays, path, smi)
+        report[path] = {"texture": mode, "load_seconds": load,
+                        "seconds": secs, "mrays_per_sec": rays / secs / 1e6,
+                        "repeat_median_seconds": med,
+                        "repeat_quartile_seconds": quartiles,
+                        "repeat_seconds": walls, "plain_seconds": plain_secs,
+                        "mean_hdr": float(hdr.mean())}
+        if profile and path == "textured":
+            root, ext = os.path.splitext(profile)
+            profile_frames(r, f"{root}_textured{ext}", path)
 
 
 def phase_k3(dev, report):
@@ -496,8 +763,16 @@ def phase_k3(dev, report):
     say("k3", f"wide BVH: {tables.order.shape[0]} nodes, "
         f"{tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups, stack "
         f"{tables.stack} of {K3.STACK_MAX} entries")
+    visits: dict = {}
     t, idx = K3.closest_hit_walk_plain(tables, rays[0:3], rays[3:6],
-                                       num_tris=nt)
+                                       num_tris=nt, visits=visits)
+    say("k3", "camera rays, a ray (the plain walk's count): "
+        + ", ".join(f"{visits[k] / n:.2f} {k.replace('_', '-')}" for k in (
+            "interior", "leaf", "children", "sub_boxes", "sub_clusters",
+            "triangles"))
+        + " (interior and leaf-group visits, non-empty children and "
+        "sub-cluster boxes slab-tested, sub-clusters entered, their "
+        "triangles tested)")
     args = (0, rays, state, torch.ones((3, n), device=dev),
             torch.zeros((3, n), device=dev),
             torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
@@ -505,18 +780,9 @@ def phase_k3(dev, report):
     kw = dict(do_mis=True, num_lights=scene_np.num_lights)
     kout = K2.bounce_stage_cuda(*args, **kw)
     pout = K2.bounce_stage_plain(*args, **kw)
-    parts = []
-    for name, k, p in zip(K2_OUTPUTS, kout, pout):
-        lanes, ulp, err = compare(k, p)
-        report["k2"]["max_abs_err"] = max(report["k2"]["max_abs_err"], err)
-        if lanes:
-            parts.append(f"{name} {lanes} lanes/{ulp} ulp")
-        if not within_bound(lanes, ulp, n, name in K2_EXACT):
-            raise AssertionError(f"K2 {name} disagrees with its plain version "
-                                 f"on the large box: {lanes} lanes, max {ulp} "
-                                 "ulp")
+    summary = check_k2(kout, pout, n, "the large box", report["k2"])
     say("k2", f"cornell_box(tessellation={LARGE_TESSELLATION}) bounce 0: {n} "
-        "lanes; " + ("bit-equal" if not parts else "; ".join(parts)))
+        "lanes; " + summary)
 
     bounce, alive = pout[0].contiguous(), pout[4]
     shadow, smask, stmax = pout[5].contiguous(), pout[7], pout[6]
@@ -566,8 +832,20 @@ def phase_k3(dev, report):
         f"(plain {plain:.4f} ms, launched from Python, which the plain "
         f"walk's per-iteration host syncs need); launched from Python "
         f"{eager:.4f} ms; bounce-1 rays: device {bounce_ms:.4f} ms")
+    # K3's bound on the camera rays: the rays and (t, idx) once, the three
+    # tables once, and the work these rays need: a slab test for each
+    # non-empty child of an interior visit and for each sub-cluster of a
+    # leaf visit that holds a triangle, and a Möller-Trumbore test for each
+    # triangle of an entered sub-cluster.
+    ops = (SLAB_OPS * (visits["children"] + visits["sub_boxes"])
+           + MT_OPS * visits["triangles"])
+    b = bound(nbytes(o, d, tables.order, tables.boxes, tables.tris) + 8 * n,
+              ops)
+    say("k3", f"bound at {n} camera rays: {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; {ops / 1e9:.3f} Gop)")
     report.setdefault("k3", {}).update(
-        max_abs_err=worst, ms=ms, plain_ms=plain, bounce_ms=bounce_ms)
+        max_abs_err=worst, ms=ms, plain_ms=plain, bounce_ms=bounce_ms,
+        visits_per_ray={k: v / n for k, v in visits.items()}, **b)
 
 
 def phase_large(dev, smi, report, profile: str | None):
@@ -586,41 +864,19 @@ def phase_large(dev, smi, report, profile: str | None):
         f"{build:.2f} s; intersector {r.stats()['intersector']!r}")
     hdr, secs = counted_render(
         r, LARGE_SPP, report, "large",
-        {"k1": 0, "k2": MAX_BOUNCES * LARGE_SPP,
-         "k3": 2 * MAX_BOUNCES * LARGE_SPP})
+        expect(k2=MAX_BOUNCES * LARGE_SPP, k3=2 * MAX_BOUNCES * LARGE_SPP))
     report["k3"]["launches"] = report["k3"]["launches_by_path"]["large"]
     stats = r.stats()
     rays = stats["rays_total"]
     say("large", f"cold render: wall {secs:.3f} s, {rays} rays "
         f"({stats['rays_closest']} closest + {stats['rays_shadow']} "
         f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
-    walls = []
-    for _ in range(REPEATS):
-        r.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r.render(spp=LARGE_SPP, fetch=False)
-        walls.append(time.perf_counter() - t0)
-    q1, med, q3 = np.percentile(walls, [25, 50, 75])
-    say("large", f"{REPEATS} more renders of the same {LARGE_SPP} spp: wall "
-        f"median {med:.4f} s (quartiles {q1:.4f}, {q3:.4f}; min "
-        f"{min(walls):.4f}, max {max(walls):.4f}), {rays / med / 1e6:.3f} "
-        f"Mrays/s at the median ({rays / q3 / 1e6:.3f} and "
-        f"{rays / q1 / 1e6:.3f} at the quartiles) on {smi}")
-    launched = {k: c.launches for k, c in COUNTERS.items()}
-    t0 = time.perf_counter()
-    hdr_plain = plain_render(r, LARGE_SPP)
-    plain_secs = time.perf_counter() - t0
-    if {k: c.launches for k, c in COUNTERS.items()} != launched:
-        raise AssertionError("the plain path launched a kernel")
-    pixels = int((hdr.view(np.uint32) != hdr_plain.view(np.uint32))
-                 .any(-1).sum())
-    say("large", f"plain path ({SIZE}x{SIZE} x {LARGE_SPP} spp): wall "
-        f"{plain_secs:.3f} s; its image differs from the kernels' on "
-        f"{pixels} of {SIZE * SIZE} pixels")
-    if pixels:
-        raise AssertionError("the large scene's kernel-path image differs "
-                             "from the plain path's")
+    med, quartiles, walls = repeat_renders(r, LARGE_SPP, rays, "large", smi)
+    # The plain walk syncs the host once per stack pop (about 30 s a frame
+    # here), so the image comparison takes the first LARGE_PLAIN_SPP frames.
+    r.reset()
+    hdr = r.render(spp=LARGE_PLAIN_SPP)
+    plain_secs = checked_plain(r, LARGE_PLAIN_SPP, hdr, "large")
     if profile:
         root, ext = os.path.splitext(profile)
         profile_frames(r, f"{root}_large{ext}", "large")
@@ -628,8 +884,8 @@ def phase_large(dev, smi, report, profile: str | None):
                        "sah_seconds": sah, "build_seconds": build,
                        "seconds": secs,
                        "mrays_per_sec": rays / secs / 1e6,
-                       "repeat_median_seconds": float(med),
-                       "repeat_quartile_seconds": [float(q1), float(q3)],
+                       "repeat_median_seconds": med,
+                       "repeat_quartile_seconds": quartiles,
                        "repeat_seconds": walls,
                        "plain_seconds": plain_secs}
 
@@ -677,8 +933,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
                         help="also write torch.profiler tables of four "
-                        "main-path and four large-scene frames to PATH and "
-                        "PATH with _large before its extension")
+                        "main-path, textured-flagship and large-scene frames "
+                        "to PATH and PATH with _textured and _large before "
+                        "its extension")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -697,24 +954,41 @@ def main() -> int:
             say("build", line.strip())
 
     report: dict = {}
+    t_start = time.perf_counter()
     phase_k1(dev, report)
     phase_k2(dev, report)
+    phase_k2_tex(dev, report)
     phase_oracle(dev)
     phase_main(dev, smi, report, args.profile)
+    phase_textured(dev, smi, report, args.profile)
     phase_k3(dev, report)
     phase_large(dev, smi, report, args.profile)
 
     pkg = "wgpu_path_tracing_tpu_torch"
     ref = "wgpu_path_tracing_tpu/ops"
+    bounce = f"{pkg}/csrc/bounce.cu"
     kernels = [
         {"name": "dense_hit", "route": "cuda", "source": f"{pkg}/csrc/dense_hit.cu",
          "replaces": f"{ref}/pallas_kernels.py:38", **report["k1"]},
-        {"name": "bounce", "route": "cuda", "source": f"{pkg}/csrc/bounce.cu",
+        {"name": "bounce", "route": "cuda", "source": bounce,
          "replaces": f"{ref}/pallas_bounce.py:412", **report["k2"]},
+        # Textured K2: one kernel, two texture modes, each replacing the TPU
+        # kernel's sampler and the "external" texel pre-gather
+        # (_gather_texels, pallas_bounce.py:358) of its mode.
+        {"name": "bounce_tex_slot", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:258",
+         "also_replaces": f"{ref}/pallas_bounce.py:358",
+         **report["k2_per_slot"]},
+        {"name": "bounce_tex_fat", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:288",
+         "also_replaces": f"{ref}/pallas_bounce.py:358",
+         **report["k2_fat"]},
         {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
          "replaces": f"{ref}/walk.py:177", **report["k3"]},
     ]
+    say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "main": report["main"],
+                      **{path: report[path] for path, _, _ in TEXTURED},
                       "large": report["large"], "nvidia_smi": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ imports JAX; where JAX is not installed, run them with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu) and K3
-(csrc/walk.cu) must equal the plain versions bit for bit: both round every
-float32 operation the same way (the kernels are built with -fmad=false and
-IEEE division and square root).
+On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
+in both texture modes) and K3 (csrc/walk.cu) must equal the plain versions
+bit for bit: both round every float32 operation the same way (the kernels
+are built with -fmad=false and IEEE division and square root).
 """
 
 import dataclasses
@@ -24,11 +24,13 @@ from wgpu_path_tracing_tpu_torch import (
     cornell_box,
     load_jax_scene,
     material_test_box,
+    textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
+from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
 from wgpu_path_tracing_tpu_torch.ops import walk as K3
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.pipeline import camera_device
@@ -110,6 +112,59 @@ def test_bounce_kernel_equals_plain(dev, scene_fn, do_mis):
         for k, p in zip(kout, pout):
             assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
         rays, state, thr, res, alive = pout[:5]
+
+
+def coprime_textured():
+    """The 256^2 congruent textured box with a 255^2 pbr rect: no fat
+    canvas (its LCM grid is past the budget), so K2 samples per slot."""
+    sc = textured_cornell(atlas_size=256, congruent=True)
+    sc.mat_pbr_rect[0] = [0, 0, 255, 255]
+    return sc
+
+
+@pytest.mark.parametrize("scene_fn, mode", [
+    (textured_cornell, "fat"),
+    (lambda: textured_cornell(atlas_size=512, congruent=True), "fat"),
+    (coprime_textured, "per_slot"),
+])
+def test_bounce_textured_kernel_equals_plain(dev, scene_fn, mode):
+    """Textured K2 on all ten outputs, every lane (dead lanes included:
+    they shade row 0 with inf/NaN barycentrics), bounces 0..3."""
+    sc, scene, rays, state = _rays(scene_fn, dev, frame=3)
+    atlas, slots = TRACE.scene_atlas(scene)
+    assert K2.texture_mode(atlas) == mode
+    n = rays.shape[1]
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    for b in range(4):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        args = (b, rays, state, thr, res, alive, t, idx, scene["tri_full"],
+                scene["light_full"])
+        kw = dict(do_mis=True, num_lights=sc.num_lights, atlas=atlas,
+                  slots_used=slots)
+        before = K2.Counter.by_mode[mode]
+        kout = K2.bounce_stage_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert K2.Counter.by_mode[mode] == before + 1
+        pout = K2.bounce_stage_plain(*args, **kw)
+        for k, p in zip(kout, pout):
+            assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
+        rays, state, thr, res, alive = pout[:5]
+
+
+def test_renderer_textured_path_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(textured_cornell())
+    assert r.stats()["texture"] == "fat"
+    before = K2.Counter.by_mode["fat"]
+    kernel = r.render(spp=2)
+    assert K2.Counter.by_mode["fat"] == before + 2 * r.config.max_bounces
+    plain = plain_render(r, spp=2)
+    assert K2.Counter.by_mode["fat"] == before + 2 * r.config.max_bounces
+    assert np.isfinite(kernel).all()
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
 
 
 def test_renderer_kernel_path_equals_plain_path(dev):

@@ -40,7 +40,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 @pytest.fixture(scope="module")
 def golden_render():
-    r = Renderer(RenderConfig(width=48, height=48))
+    r = Renderer(RenderConfig(width=48, height=48), device="cpu")
     r.load_scene(cornell_box())
     return r, r.render(spp=8)
 
@@ -106,7 +106,7 @@ def test_ray_counters_match_jax():
     j = JRenderer(JRenderConfig(width=32, height=32, frames_per_chunk=4))
     j.load_scene(jcornell_box())
     j.render(spp=4)
-    p = Renderer(RenderConfig(width=32, height=32))
+    p = Renderer(RenderConfig(width=32, height=32), device="cpu")
     p.load_scene(cornell_box())
     p.render(spp=4)
     js, ps = j.stats(), p.stats()
@@ -116,7 +116,7 @@ def test_ray_counters_match_jax():
 
 
 def test_progressive_reset_and_camera_moves():
-    r = Renderer(RenderConfig(width=16, height=16))
+    r = Renderer(RenderConfig(width=16, height=16), device="cpu")
     r.load_scene(cornell_box())
     a = r.render(spp=2)
     b = r.render(spp=2)  # accumulates frames 2..3
@@ -135,7 +135,7 @@ def test_progressive_reset_and_camera_moves():
 def test_plain_and_kernel_paths_agree_on_cpu():
     """On the CPU the renderer's kernel wrappers run the plain versions, so
     its image equals chip_smoke.py's plain reference render bit for bit."""
-    r = Renderer(RenderConfig(width=16, height=16))
+    r = Renderer(RenderConfig(width=16, height=16), device="cpu")
     r.load_scene(cornell_box())
     np.testing.assert_array_equal(r.render(spp=2), plain_render(r, spp=2))
 
@@ -144,7 +144,7 @@ def test_plain_and_kernel_paths_agree_on_cpu():
 def large_render():
     """cornell_box(tessellation=12): 4,898 triangles, above the dense
     intersector's 4096, so "auto" takes the walk."""
-    r = Renderer(RenderConfig(width=24, height=24))
+    r = Renderer(RenderConfig(width=24, height=24), device="cpu")
     r.load_scene(cornell_box(tessellation=12))
     return r, r.render(spp=2)
 
@@ -152,7 +152,7 @@ def large_render():
 @pytest.mark.parametrize("tessellation, strategy", [(1, "brute"),
                                                      (12, "walk")])
 def test_stats_report_the_chosen_intersector(tessellation, strategy):
-    r = Renderer(RenderConfig(width=8, height=8))
+    r = Renderer(RenderConfig(width=8, height=8), device="cpu")
     assert r.stats()["intersector"] is None  # no scene yet
     scene = cornell_box(tessellation=tessellation)
     r.load_scene(scene)
@@ -165,7 +165,7 @@ def test_large_scene_walk_equals_brute(large_render):
     operation the same way, and no razor-tie pixel shows at this size."""
     r, walk_img = large_render
     assert r.stats()["intersector"] == "walk"
-    b = Renderer(RenderConfig(width=24, height=24, intersector="brute"))
+    b = Renderer(RenderConfig(width=24, height=24, intersector="brute"), device="cpu")
     b.load_scene(cornell_box(tessellation=12))
     assert b.stats()["intersector"] == "brute"
     np.testing.assert_array_equal(walk_img.view(np.uint32),
@@ -217,7 +217,7 @@ def _read_png_rgb(path):
 
 
 def test_save_png_and_hdr(tmp_path):
-    r = Renderer(RenderConfig(width=20, height=12))
+    r = Renderer(RenderConfig(width=20, height=12), device="cpu")
     r.load_scene(cornell_box())
     r.render(spp=1)
     png = tmp_path / "out.png"

@@ -24,8 +24,13 @@ from wgpu_path_tracing_tpu_torch import (
     cornell_box,
     load_jax_scene,
     material_test_box,
+    textured_cornell,
 )
-from wgpu_path_tracing_tpu_torch.models.types import DEVICE_KEYS, pack_device_scene
+from wgpu_path_tracing_tpu_torch.models.types import (
+    DEVICE_KEYS,
+    OPTIONAL_KEYS,
+    pack_device_scene,
+)
 from wgpu_path_tracing_tpu_torch.accel import bvh8
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +39,8 @@ PKG = os.path.join(REPO, "wgpu_path_tracing_tpu_torch")
 SCENES = [(cornell_box, JP.cornell_box),
           (material_test_box, JP.material_test_box),
           (lambda: cornell_box(tessellation=3), lambda: JP.cornell_box(
-              tessellation=3))]
+              tessellation=3)),
+          (textured_cornell, JP.textured_cornell)]
 
 
 @pytest.mark.parametrize("k", range(len(SCENES)))
@@ -55,22 +61,35 @@ def test_packed_tables_equal_jax(k):
     port = pack_device_scene(SCENES[k][0]())
     ref = jpack(SCENES[k][1]())
     for key in DEVICE_KEYS:
+        assert (key in port) == (key in ref), key
+        if key in OPTIONAL_KEYS and key not in ref:
+            continue
         assert port[key].dtype == ref[key].dtype, key
         np.testing.assert_array_equal(port[key], ref[key], err_msg=key)
 
 
 def test_load_jax_scene_uploads_the_same_tables():
-    ref = jpack(JP.cornell_box())
-    a = load_jax_scene(ref, "cpu")
-    b = load_jax_scene(pack_device_scene(cornell_box()), "cpu")
-    for key, dtype in DEVICE_KEYS.items():
-        assert a[key].dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
-        assert a[key].is_contiguous()
-        # walk_boxes holds NaN on empty child slots.
-        assert torch.equal(a[key].view(torch.uint8),
-                           b[key].view(torch.uint8)), key
-    assert a["walk_order"].dtype == torch.int32
-    assert set(a) == set(DEVICE_KEYS)  # the JAX-only tables are left behind
+    for make_ref, make_port, fat, slots in (
+            (JP.cornell_box, cornell_box, False, (False,) * 4),
+            (JP.textured_cornell, textured_cornell, True,
+             (True, True, False, True))):
+        a = load_jax_scene(jpack(make_ref()), "cpu")
+        b = load_jax_scene(pack_device_scene(make_port()), "cpu")
+        # The JAX-only tables are left behind; only a textured scene whose
+        # packing baked a fat canvas uploads it. The texture-slot mask is
+        # worked out once, at upload.
+        want = set(DEVICE_KEYS) - (set() if fat else {"atlas_fat",
+                                                     "atlas_fat_rects"})
+        assert set(a) == set(b) == want | {"texture_slots_used"}
+        assert a["texture_slots_used"] == b["texture_slots_used"] == slots
+        for key in want:
+            dtype = DEVICE_KEYS[key]
+            assert a[key].dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+            assert a[key].is_contiguous()
+            # walk_boxes holds NaN on empty child slots.
+            assert torch.equal(a[key].view(torch.uint8),
+                               b[key].view(torch.uint8)), key
+        assert a["walk_order"].dtype == torch.int32
 
 
 def test_port_imports_no_jax_and_renders_on_cpu():
@@ -83,7 +102,7 @@ def test_port_imports_no_jax_and_renders_on_cpu():
         "import numpy as np\n"
         "from wgpu_path_tracing_tpu_torch import Renderer, RenderConfig, "
         "cornell_box\n"
-        "r = Renderer(RenderConfig(width=16, height=16))\n"
+        "r = Renderer(RenderConfig(width=16, height=16), device='cpu')\n"
         "r.load_scene(cornell_box())\n"
         "img = r.render(spp=1)\n"
         "assert img.shape == (16, 16, 3) and np.isfinite(img).all()\n"
@@ -138,16 +157,19 @@ def test_unported_paths_raise(monkeypatch):
         raise bvh8.WideBVHDepthError("pathologically deep (simulated)")
 
     monkeypatch.setattr(bvh8, "build_wide_bvh", too_deep)
-    r = Renderer(RenderConfig(width=8, height=8, brute_force_max_tris=16))
+    r = Renderer(RenderConfig(width=8, height=8, brute_force_max_tris=16),
+                 device="cpu")
     with pytest.warns(UserWarning), pytest.raises(NotImplementedError,
                                                   match="K4"):
         r.load_scene(cornell_box())
     monkeypatch.undo()
+    # Textured scenes are ported: a 4x4 atlas loads and samples its canvas.
     textured = cornell_box()
     textured.atlas = np.ones((4, 4, 4), np.float32)
     textured.mat_albedo_rect[0] = [0, 0, 2, 2]
-    with pytest.raises(NotImplementedError):
-        Renderer(RenderConfig(width=8, height=8)).load_scene(textured)
+    r = Renderer(RenderConfig(width=8, height=8), device="cpu")
+    r.load_scene(textured)
+    assert r.stats()["texture"] in ("per_slot", "fat")
 
 
 def test_quantize_atlas_matches_jax():

@@ -362,3 +362,33 @@ def test_forced_walk_on_the_flagship_box_equals_brute():
     bt, bi = make_closest_hit(scene, "brute")(ro3, rd3)
     assert torch.equal(wi, bi)
     assert torch.equal(wt.view(torch.int32), bt.view(torch.int32))
+
+
+def test_plain_walk_counts_its_visits(random_scene):
+    """``visits`` counts the work without changing the answer: every ray
+    visits the root, every hit tested a sub-cluster, and an any-hit query
+    does no more work than the closest-hit one."""
+    ro, rd = _aimed_rays(random_scene, 256, 11)
+    tables = _tables(random_scene)
+    o, d = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    nt = random_scene["tri_isect"].shape[0]
+    closest, any_hit = {}, {}
+    t, i = walk.closest_hit_walk_plain(tables, o, d, num_tris=nt,
+                                       visits=closest)
+    t0, i0 = walk.closest_hit_walk_plain(tables, o, d, num_tris=nt)
+    assert torch.equal(t, t0) and torch.equal(i, i0)
+    walk.closest_hit_walk_plain(tables, o, d, t_max=torch.full((256,), 1e9),
+                                num_tris=nt, any_hit=True, visits=any_hit)
+    assert closest["interior"] >= 256
+    assert closest["sub_clusters"] >= int((i >= 0).sum()) > 0
+    # Only non-empty slots count: every ray tests each of the root's
+    # children, and no visit counts more than its slots.
+    root = int((tables.order[0, :walk.WIDTH] != 0).sum())
+    assert 256 * root <= closest["children"] <= walk.WIDTH * closest["interior"]
+    assert closest["sub_clusters"] <= closest["sub_boxes"]
+    assert closest["sub_boxes"] <= walk.SUB * closest["leaf"]
+    assert int((i >= 0).sum()) <= closest["triangles"]
+    assert closest["triangles"] <= walk.SUB_W * closest["sub_clusters"]
+    for key in ("interior", "leaf", "children", "sub_boxes", "sub_clusters",
+                "triangles"):
+        assert any_hit[key] <= closest[key], key

@@ -2,16 +2,21 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of ``wgpu_path_tracing_tpu`` (JAX on a TPU), which stays beside it as
-the reference. The untextured render runs end to end: scene packing, camera
-rays, the closest hit (kernel K1, ``csrc/dense_hit.cu``, the dense hit for
-scenes of up to 4,096 triangles; kernel K3, ``csrc/walk.cu``, the wide-BVH
-walk above), the bounce shading stage (kernel K2, ``csrc/bounce.cu``),
-accumulation and the AGX display transform. On ``device="cpu"`` each
-kernel's plain PyTorch version runs instead.
+the reference. The render runs end to end, textured or not: scene packing
+(with the fat texture canvas), camera rays, the closest hit (kernel K1,
+``csrc/dense_hit.cu``, the dense hit for scenes of up to 4,096 triangles;
+kernel K3, ``csrc/walk.cu``, the wide-BVH walk above), the bounce shading
+stage (kernel K2, ``csrc/bounce.cu``, untextured or sampling the texture
+atlas per slot or from the fat canvas), accumulation and the AGX display
+transform. The ``Renderer`` runs on the card unless it is given
+``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 
-    from wgpu_path_tracing_tpu_torch import Renderer, RenderConfig, cornell_box
-    r = Renderer(RenderConfig(width=512, height=512), device="cuda")
+    from wgpu_path_tracing_tpu_torch import (
+        Renderer, RenderConfig, cornell_box, textured_cornell)
+    r = Renderer(RenderConfig(width=512, height=512))   # on the card
     r.load_scene(cornell_box())                  # 36 triangles: K1
+    img = r.render(spp=64)
+    r.load_scene(textured_cornell())             # 32x32 atlas, fat canvas
     img = r.render(spp=64)
     r.load_scene(cornell_box(tessellation=55))   # 102,852 triangles: K3
     img = r.render(spp=8)
@@ -23,6 +28,7 @@ PyTorch, numpy and the CUDA toolkit are installed.
 from wgpu_path_tracing_tpu_torch.models.procedural import (
     cornell_box,
     material_test_box,
+    textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import load_jax_scene
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
@@ -33,5 +39,5 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Renderer", "RenderConfig", "Camera", "cornell_box", "material_test_box",
-    "load_jax_scene", "__version__",
+    "textured_cornell", "load_jax_scene", "__version__",
 ]

@@ -1,4 +1,5 @@
-// K2: one bounce's shading, one thread per ray, untextured, reference rng.
+// K2: one bounce's shading, one thread per ray, reference rng, untextured or
+// textured.
 //
 // Replaces the TPU kernel wgpu_path_tracing_tpu/ops/pallas_bounce.py::
 // _bounce_kernel (entered through bounce_stage_pallas, driven by
@@ -7,6 +8,26 @@
 // because a TPU vector unit has no per-lane gather. Here each thread loads
 // its own rows: tri_full[idx * 52 + c] and light_full[l * 27 + c]. None of
 // the TPU's select, chunking or column-pruning machinery is needed.
+//
+// Textures. The TPU kernel samples its atlas three ways: the per-slot
+// in-VMEM sampler (_make_atlas_sampler), the in-VMEM fat-canvas sampler
+// (_make_fat_sampler), and "external" mode, where XLA gathers the texels
+// before the kernel (_gather_texels) because VMEM cannot hold a big atlas.
+// All three exist because a TPU has no per-lane gather; here a texel is
+// one direct load, so one template parameter covers them, decided by data
+// as every JAX path decides it (fat if and only if the scene has a baked
+// fat canvas):
+//   TEX_NONE  untextured; the instruction stream of the untextured kernel;
+//   TEX_SLOT  per used slot, ax = rx + fmodf(u, 1) * rw (and ay), clipped
+//             to the atlas, truncated, one 16-byte texel load; a zero-width
+//             or zero-height rect takes the slot's fallback;
+//   TEX_FAT   the lane's 16 rect values matched against the (S, 20) table
+//             (held in shared memory; the last match wins, no match gives
+//             the rect (0, 0, 0, 0)), then one 16-byte load per used slot
+//             from the lane's 64-byte fat row, each slot masked by its own
+//             zero-rect test.
+// `slots` is the scene's 4-bit texture_slots_used mask (albedo, pbr,
+// emissive, normal); an unused slot takes its fallback without a load.
 //
 // What it computes is ops/trace.py::bounce_core of this package: hit
 // attributes (ops/shade.py), emissive termination x 1/(1+t^2), NEE with the
@@ -19,7 +40,9 @@
 // throughput, result, t, idx, rng, alive) and writes 102 B (next rays,
 // throughput, result, shadow ray, t_max, mask, direct, pdf, rng, alive);
 // the two tables (36 x 52 and a few x 27 floats for the Cornell box) stay
-// resident in L1/L2. The design keeps every intermediate
+// resident in L1/L2. A textured ray adds at most 16 B a used slot; the
+// atlas (16 KB at 32^2, 4 MB at 512^2) and the fat canvas (8 MB for the
+// 512^2 congruent atlas) fit the 50 MB L2. The design keeps every intermediate
 // in registers and touches device memory once per input and output, all SoA
 // (rows of N), so neighbouring threads read and write neighbouring
 // addresses.
@@ -32,6 +55,22 @@
 // kernels round it, and the outputs equal the plain version's bit for bit,
 // on the lanes it discards as well. Min/max follow PyTorch's NaN rules
 // (clamp and maximum propagate a NaN operand).
+//
+// Where exactness could break on textured lanes, and what keeps it:
+// - a NaN texel coordinate. A dead lane (found == false) shades row 0, and
+//   its barycentrics can be inf or NaN (a = 0), so ax can be NaN. cvt.rzi
+//   gives 0 for NaN, torch.clamp keeps it and PyTorch's CPU integer
+//   conversion gives INT_MIN; the plain version (ops/shade.py::texel_index)
+//   and texel_index below both map NaN to 0 before clamping, explicitly.
+//   Dead lanes' values reach the shadow-ray outputs through the hit's
+//   normal and position, so the index must agree there too;
+// - fmodf, as torch.fmod (both exact), not u - truncf(u);
+// - the tangent basis: r = 1 / (duv1u * duv2v - duv1v * duv2u) has no
+//   degenerate guard (JAX shade.py:257), a NaN basis is consumed only where
+//   the normal-map texel differs from (0.5, 0.5, 1), and the expression
+//   order and the IEEE division are the plain version's;
+// - the match table is float32 as on the XLA path; its values are integer
+//   pixel coordinates, exact in float32.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -54,6 +93,9 @@ constexpr int TF_V2 = 6;
 constexpr int TF_N0 = 9;
 constexpr int TF_N1 = 12;
 constexpr int TF_N2 = 15;
+constexpr int TF_UV0 = 18;
+constexpr int TF_UV1 = 20;
+constexpr int TF_UV2 = 22;
 constexpr int TF_BASE_COLOR = 25;
 constexpr int TF_METALLIC = 28;
 constexpr int TF_ROUGHNESS = 29;
@@ -61,6 +103,10 @@ constexpr int TF_EMISSION = 30;
 constexpr int TF_EMISSIVE_STRENGTH = 33;
 constexpr int TF_IOR = 34;
 constexpr int TF_TRANSMISSION = 35;
+constexpr int TF_ALBEDO_RECT = 36;
+constexpr int TF_NORMAL_RECT = 40;
+constexpr int TF_PBR_RECT = 44;
+constexpr int TF_EMISSIVE_RECT = 48;
 constexpr int LF_COLS = 27;
 constexpr int LF_POSITION = 0;
 constexpr int LF_TYPE = 3;
@@ -79,6 +125,9 @@ constexpr int LIGHT_TYPE_EMISSIVE = 0;
 constexpr int LIGHT_TYPE_DIRECTIONAL = 1;
 constexpr int LIGHT_TYPE_POINT = 2;
 constexpr int LIGHT_TYPE_SPOT = 3;
+
+constexpr int FAT_RECT_COLS = 20;  // 16 rect values | fx, fy, lw, lh
+enum TexMode { TEX_NONE = 0, TEX_SLOT = 1, TEX_FAT = 2 };
 
 struct V3 {
   float x, y, z;
@@ -176,6 +225,88 @@ __device__ __forceinline__ float reflectance(float cos_theta, float eta) {
   float r0 = (1.0f - eta) / (1.0f + eta);
   r0 = r0 * r0;
   return r0 + (1.0f - r0) * pow5(1.0f - cos_theta);
+}
+
+// ---- textures (ops/shade.py::sample_atlas, sample_atlas_fat) --------------
+
+struct Tex {
+  const float* atlas;  // TEX_SLOT: (h, w, 4) atlas; TEX_FAT: (h, w, 16) canvas
+  int h, w;
+  const float* rects;  // TEX_FAT: (n_sets, 20) match table
+  int n_sets;
+  int slots;  // bit k: slot k is mapped somewhere in the scene
+};
+
+// ops/shade.py SLOT_RECT_COLS and SLOT_FALLBACKS, slot order (albedo, pbr,
+// emissive, normal); fat rows carry 4 channels a slot in the same order.
+__device__ __forceinline__ int slot_rect_col(int k) {
+  return k == 0 ? TF_ALBEDO_RECT : (k == 1 ? TF_PBR_RECT : (k == 2 ? TF_EMISSIVE_RECT : TF_NORMAL_RECT));
+}
+
+__device__ __forceinline__ float4 slot_fallback(int k) {
+  return k == 3 ? make_float4(0.5f, 0.5f, 1.0f, 1.0f) : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+}
+
+// ops/shade.py::texel_index: NaN -> 0, clip to [0, size - 1], truncate.
+__device__ __forceinline__ int texel_index(float a, int size) {
+  const float c = isnan(a) ? 0.0f : fminf(fmaxf(a, 0.0f), static_cast<float>(size - 1));
+  return static_cast<int>(c);
+}
+
+__device__ __forceinline__ float4 load_texel(const float* base, int64_t offset) {
+  return __ldg(reinterpret_cast<const float4*>(base + offset));
+}
+
+// The four slot quads of one lane, in slot order; unused slots keep their
+// fallbacks (the caller never reads them).
+template <int MODE>
+__device__ __forceinline__ void sample_slots(const float* row, float uv_u, float uv_v,
+                                             const Tex& tex, const float* rects,
+                                             float4 (&quad)[4]) {
+  const float fu = fmodf(uv_u, 1.0f);
+  const float fv = fmodf(uv_v, 1.0f);
+  if constexpr (MODE == TEX_SLOT) {
+    for (int k = 0; k < 4; ++k) {
+      quad[k] = slot_fallback(k);
+      if (!((tex.slots >> k) & 1)) continue;
+      const float* r = row + slot_rect_col(k);
+      const bool missing = (r[2] == 0.0f) || (r[3] == 0.0f);
+      if (missing) continue;
+      const float ax = r[0] + fu * r[2];
+      const float ay = r[1] + fv * r[3];
+      const int ix = texel_index(ax, tex.w);
+      const int iy = texel_index(ay, tex.h);
+      quad[k] = load_texel(tex.atlas, (static_cast<int64_t>(iy) * tex.w + ix) * 4);
+    }
+  } else if constexpr (MODE == TEX_FAT) {
+    float vals[16];
+    for (int k = 0; k < 4; ++k) {
+      for (int c = 0; c < 4; ++c) vals[4 * k + c] = row[slot_rect_col(k) + c];
+    }
+    float fx = 0.0f, fy = 0.0f, vw = 0.0f, vh = 0.0f;
+    for (int s = 0; s < tex.n_sets; ++s) {
+      const float* set = rects + s * FAT_RECT_COLS;
+      bool m = true;
+      for (int j = 0; j < 16; ++j) m = m && (vals[j] == set[j]);
+      if (m) {  // the last matching set wins
+        fx = set[16];
+        fy = set[17];
+        vw = set[18];
+        vh = set[19];
+      }
+    }
+    const float ax = fx + fu * vw;
+    const float ay = fy + fv * vh;
+    const int ix = texel_index(ax, tex.w);
+    const int iy = texel_index(ay, tex.h);
+    const int64_t texel = (static_cast<int64_t>(iy) * tex.w + ix) * 16;
+    for (int k = 0; k < 4; ++k) {
+      quad[k] = slot_fallback(k);
+      if (!((tex.slots >> k) & 1)) continue;
+      const bool missing = (vals[4 * k + 2] == 0.0f) || (vals[4 * k + 3] == 0.0f);
+      if (!missing) quad[k] = load_texel(tex.atlas, texel + 4 * k);
+    }
+  }
 }
 
 struct Hit {
@@ -366,6 +497,7 @@ __device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_pos
 
 // ---- the bounce (ops/trace.py::bounce_core) ---------------------------------
 
+template <int MODE>
 __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const int64_t* __restrict__ state_in,
                               const float* __restrict__ throughput_in,
@@ -375,13 +507,20 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const int* __restrict__ idx_in,
                               const float* __restrict__ tri_full,
                               const float* __restrict__ light_full, int num_lights,
-                              int do_mis, float* __restrict__ rays_out,
+                              int do_mis, Tex tex, float* __restrict__ rays_out,
                               int64_t* __restrict__ state_out,
                               float* __restrict__ throughput_out,
                               float* __restrict__ result_out, bool* __restrict__ alive_out,
                               float* __restrict__ shadow_rays, float* __restrict__ shadow_t_max,
                               bool* __restrict__ shadow_mask, float* __restrict__ shadow_direct,
                               float* __restrict__ shadow_pdf, int n) {
+  extern __shared__ float s_rects[];  // TEX_FAT: the (n_sets, 20) match table
+  if constexpr (MODE == TEX_FAT) {
+    for (int k = threadIdx.x; k < tex.n_sets * FAT_RECT_COLS; k += blockDim.x) {
+      s_rects[k] = tex.rects[k];
+    }
+    __syncthreads();
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const V3 ro = v3(rays[i], rays[n + i], rays[2 * n + i]);
@@ -392,8 +531,8 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
   const float t = t_in[i];
   const int idx = idx_in[i];
 
-  // Hit attributes (ops/shade.py::hit_attributes_from_cols), untextured.
-  // idx comes from K1: -1 (miss) or a row of tri_full.
+  // Hit attributes (ops/shade.py::hit_attributes_from_cols).
+  // idx comes from K1 or K3: -1 (miss) or a row of tri_full.
   const bool found = alive_in[i] && (idx >= 0);
   const float* row = tri_full + static_cast<int64_t>(idx > 0 ? idx : 0) * TF_COLS;
   Hit hit;
@@ -421,6 +560,39 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
     hit.ior = row[TF_IOR];
     hit.emission = load3(row, TF_EMISSION);
     hit.emissive_strength = row[TF_EMISSIVE_STRENGTH];
+    if constexpr (MODE != TEX_NONE) {
+      const float uv_u = row[TF_UV0] * w + row[TF_UV1] * u + row[TF_UV2] * v;
+      const float uv_v = row[TF_UV0 + 1] * w + row[TF_UV1 + 1] * u + row[TF_UV2 + 1] * v;
+      float4 quad[4];
+      sample_slots<MODE>(row, uv_u, uv_v, tex, s_rects, quad);
+      if (tex.slots & 1) {
+        hit.albedo = v3(quad[0].x, quad[0].y, quad[0].z) * hit.albedo;
+      }
+      if (tex.slots & 2) {
+        hit.metallic = quad[1].z * row[TF_METALLIC];
+        hit.roughness = clamp_min(quad[1].y * row[TF_ROUGHNESS], F32(0.04));
+      }
+      if (tex.slots & 4) {
+        hit.emission = v3(quad[2].x, quad[2].y, quad[2].z) * hit.emission;
+      }
+      if (tex.slots & 8) {
+        // Tangent basis from UV derivatives (pt.wgsl:176-189), no guard.
+        const float duv1u = row[TF_UV1] - row[TF_UV0];
+        const float duv1v = row[TF_UV1 + 1] - row[TF_UV0 + 1];
+        const float duv2u = row[TF_UV2] - row[TF_UV0];
+        const float duv2v = row[TF_UV2 + 1] - row[TF_UV0 + 1];
+        const float r = 1.0f / (duv1u * duv2v - duv1v * duv2u);
+        const V3 tangent = normalize((e1 * duv2v - e2 * duv1v) * r);
+        const V3 tn = hit.normal;
+        const V3 tvec = normalize(tangent - tn * dot(tn, tangent));
+        const V3 bvec = normalize(cross(tn, tvec));
+        const float4 nm = quad[3];
+        const bool use_nm = (nm.x != 0.5f) || (nm.y != 0.5f) || (nm.z != 1.0f);
+        const V3 world = normalize(tvec * (nm.x * 2.0f - 1.0f) + bvec * (nm.y * 2.0f - 1.0f) +
+                                   tn * (nm.z * 2.0f - 1.0f));
+        hit.normal = select(use_nm, world, tn);
+      }
+    }
   }
 
   const bool emissive =
@@ -505,22 +677,40 @@ constexpr int kThreads = 128;
 extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
                           const void* throughput, const void* result, const void* alive,
                           const void* t, const void* idx, const void* tri_full,
-                          const void* light_full, int num_lights, int do_mis, void* rays_out,
-                          void* state_out, void* throughput_out, void* result_out,
-                          void* alive_out, void* shadow_rays, void* shadow_t_max,
-                          void* shadow_mask, void* shadow_direct, void* shadow_pdf, int n,
-                          void* stream) {
+                          const void* light_full, int num_lights, int do_mis, int tex_mode,
+                          const void* atlas, int atlas_h, int atlas_w, const void* fat_rects,
+                          int n_sets, int slots, void* rays_out, void* state_out,
+                          void* throughput_out, void* result_out, void* alive_out,
+                          void* shadow_rays, void* shadow_t_max, void* shadow_mask,
+                          void* shadow_direct, void* shadow_pdf, int n, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  bounce_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      bounce_idx, static_cast<const float*>(rays), static_cast<const int64_t*>(state),
-      static_cast<const float*>(throughput), static_cast<const float*>(result),
-      static_cast<const bool*>(alive), static_cast<const float*>(t),
-      static_cast<const int*>(idx), static_cast<const float*>(tri_full),
-      static_cast<const float*>(light_full), num_lights, do_mis,
-      static_cast<float*>(rays_out), static_cast<int64_t*>(state_out),
-      static_cast<float*>(throughput_out), static_cast<float*>(result_out),
-      static_cast<bool*>(alive_out), static_cast<float*>(shadow_rays),
-      static_cast<float*>(shadow_t_max), static_cast<bool*>(shadow_mask),
-      static_cast<float*>(shadow_direct), static_cast<float*>(shadow_pdf), n);
+  const Tex tex{static_cast<const float*>(atlas), atlas_h, atlas_w,
+                static_cast<const float*>(fat_rects), n_sets, slots};
+  auto launch = [&](auto kernel, size_t smem) {
+    kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        bounce_idx, static_cast<const float*>(rays), static_cast<const int64_t*>(state),
+        static_cast<const float*>(throughput), static_cast<const float*>(result),
+        static_cast<const bool*>(alive), static_cast<const float*>(t),
+        static_cast<const int*>(idx), static_cast<const float*>(tri_full),
+        static_cast<const float*>(light_full), num_lights, do_mis, tex,
+        static_cast<float*>(rays_out), static_cast<int64_t*>(state_out),
+        static_cast<float*>(throughput_out), static_cast<float*>(result_out),
+        static_cast<bool*>(alive_out), static_cast<float*>(shadow_rays),
+        static_cast<float*>(shadow_t_max), static_cast<bool*>(shadow_mask),
+        static_cast<float*>(shadow_direct), static_cast<float*>(shadow_pdf), n);
+  };
+  switch (tex_mode) {
+    case TEX_NONE:
+      launch(bounce_kernel<TEX_NONE>, 0);
+      break;
+    case TEX_SLOT:
+      launch(bounce_kernel<TEX_SLOT>, 0);
+      break;
+    case TEX_FAT:
+      launch(bounce_kernel<TEX_FAT>, static_cast<size_t>(n_sets) * FAT_RECT_COLS * sizeof(float));
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 """Scene data structures (host NumPy) and their upload to torch tensors.
 
 A copy of the JAX package's ``models/types.py`` restricted to what the
-port renders: the column maps, ``SceneArrays``, ``texture_slots_used`` and
-``pack_device_scene`` for the ``tri_isect``, ``tri_full``, ``light_full``,
-``atlas``, ``bvh_aabb`` and wide-BVH walk tables. The NumPy code is kept
-identical so the packed tables are bit-equal to the reference's.
+port renders: the column maps, ``SceneArrays``, ``texture_slots_used``, the
+fat-atlas bake and ``pack_device_scene`` for the ``tri_isect``,
+``tri_full``, ``light_full``, ``atlas``, ``atlas_fat``, ``atlas_fat_rects``,
+``bvh_aabb`` and wide-BVH walk tables. The NumPy code is kept identical so
+the packed tables are bit-equal to the reference's.
 
 Host side, the scene is plain-NumPy SoA (``SceneArrays``), mirroring the CPU
 structs of the reference (gpu.ts:10-65 — TriangleCPU / MaterialCPU /
@@ -30,6 +31,10 @@ tables so each hot-loop gather fetches one row:
   (``accel/bvh8.py``, ``ops/walk.py``)
 * ``atlas``      (Ah, Aw, 4) f32 — rgba16float atlas texture equivalent
   (renderer.ts:246-253); rects are in pixels (atlas.ts:25-30)
+* ``atlas_fat``  (FH, FW, 16) f32 and ``atlas_fat_rects`` (S, 20) f32 — the
+  fat canvas (one 16-channel texel row serves all four texture slots) and
+  its map-set match table; present only when ``_build_fat_atlas`` bakes
+  them
 
 Atlas rect coordinates are stored as f32 inside the material rows (pixel
 coordinates are exactly representable), so one material gather fetches
@@ -247,16 +252,171 @@ def texture_slots_used(tri_full) -> tuple[bool, bool, bool, bool]:
     )
 
 
+# Fat-atlas canvas budget: sum of packed LCM grids, in texels (one texel
+# = 16 f32 = 64 B, so 4M texels = 256 MB). Map sets with wildly coprime
+# slot dims (e.g. 255 vs 256 -> 65280-wide LCM grid) blow this and fall
+# back to the per-slot sampling.
+FAT_ATLAS_MAX_TEXELS = 4 << 20
+# Bound on the number of baked map sets (the match table's rows).
+FAT_ATLAS_MAX_SETS = 256
+
+# The JAX package's TPU bounce-kernel budgets (its ops/pallas_bounce.py:
+# 60-79), copied as plain data. They decide WHETHER the JAX package bakes a
+# fat canvas for a small atlas, and the port bakes exactly when it does, so
+# both packages pick the same texels (texel choice feeds Russian roulette,
+# so a different choice would split RNG streams). They say nothing about
+# what the card needs: there a texel is one direct load in either mode.
+UNTILED_ATLAS_TEXELS = 128 * 128
+FAT_VMEM_TEXELS = 128 * 64
+FAT_KERNEL_MAX_SETS = 8
+
+
+def _build_fat_atlas(scene: "SceneArrays", atlas: np.ndarray):
+    """Pre-bake the fat-atlas canvas (the JAX package's
+    ``models/types.py::_build_fat_atlas``, same NumPy code).
+
+    Every distinct material MAP SET (its 4-slot rect tuple) gets a VIRTUAL
+    rect on a standalone canvas whose grid is the componentwise LCM of the
+    mapped slots' dims, each texel row carrying all four slots' texels at
+    the same uv, so one row load serves every slot. Unmapped slots hold
+    the slot fallback constant (``ops/shade.py::SLOT_FALLBACKS``).
+
+    The LCM grid reproduces the per-slot texel choice for every slot: slot
+    k with kw | lw bakes nearest-downsampled onto the grid, and for uv
+    fraction f the grid cell i = floor(f*lw) satisfies
+    floor(f*kw) == i // (lw//kw) (integer floor identity), except the
+    texel-boundary ulp class (floor(kx + f*kw) and floor(fx + f*lw) can
+    round across an integer on boundary-epsilon uvs). A map set whose
+    triangles carry a negative vertex uv on an axis gets a DOUBLED grid on
+    that axis (interior origin at +lw/+lh) whose backward band holds the
+    texels the sign-preserving %-wrap reads for f in (-1, 0).
+
+    Returns (canvas (FH, FW, 16) f32, rects (S, 20) f32) — rects rows are
+    [16 atlas-rect values in SLOT_RECT_COLS order | fx, fy, lw, lh] — or
+    None (per-slot sampling) unless all rects are in bounds, the canvas
+    and set-count budgets hold, and, for a small atlas (within
+    UNTILED_ATLAS_TEXELS), the canvas and set count also fit
+    FAT_VMEM_TEXELS and FAT_KERNEL_MAX_SETS.
+    """
+    import math
+
+    h, w = int(atlas.shape[0]), int(atlas.shape[1])
+    if scene.num_triangles == 0:
+        return None
+    rect_tables = (scene.mat_albedo_rect, scene.mat_pbr_rect,
+                   scene.mat_emissive_rect, scene.mat_normal_rect)
+    mats = np.unique(np.asarray(scene.tri_mat, np.int64))
+    # One entry per DISTINCT map set: materials sharing all four rects
+    # share texels, hence one virtual rect.
+    sets: dict = {}
+    mat_set_key: dict = {}
+    for m in mats:
+        rs = tuple(tuple(int(v) for v in tab[m]) for tab in rect_tables)
+        nonempty = [r for r in rs if r[2] > 0 and r[3] > 0]
+        if not nonempty:
+            continue
+        mat_set_key[int(m)] = rs
+        for (rx, ry, rw, rh) in nonempty:
+            if rx < 0 or ry < 0 or rx + rw > w or ry + rh > h:
+                return None
+        if rs not in sets:
+            lw = math.lcm(*(r[2] for r in nonempty))
+            lh = math.lcm(*(r[3] for r in nonempty))
+            sets[rs] = {"w": lw, "h": lh, "x": 0, "y": 0,
+                        "lw": lw, "lh": lh, "ox": 0, "oy": 0}
+    if not sets:
+        return None
+    if len(sets) > FAT_ATLAS_MAX_SETS:
+        return None
+    # Per-set negative-uv flags (per axis): a negative VERTEX uv on any
+    # triangle of the set's materials doubles the set's grid on that axis
+    # and shifts the interior origin (fmod keeps runtime f in (-1, 1), so
+    # one backward band always suffices).
+    tri_mat_arr = np.asarray(scene.tri_mat)
+    uvs = (np.asarray(scene.tri_uv0), np.asarray(scene.tri_uv1),
+           np.asarray(scene.tri_uv2))
+    for m, rs in mat_set_key.items():
+        tris = tri_mat_arr == m
+        if not tris.any():
+            continue
+        box = sets[rs]
+        for uv in uvs:
+            sel = uv[tris]
+            if (sel[:, 0] < 0.0).any() and not box["ox"]:
+                box["ox"] = box["lw"]
+                box["w"] = 2 * box["lw"]
+            if (sel[:, 1] < 0.0).any() and not box["oy"]:
+                box["oy"] = box["lh"]
+                box["h"] = 2 * box["lh"]
+    # Pack the (possibly extended) grids onto one canvas (the packer the
+    # texture atlas itself uses; mutates x/y in place).
+    from wgpu_path_tracing_tpu_torch.models.potpack import potpack
+
+    boxes = list(sets.values())
+    fw, fh = potpack(boxes)
+    if fw * fh > FAT_ATLAS_MAX_TEXELS:
+        return None
+    if h * w <= UNTILED_ATLAS_TEXELS and (
+        fw * fh > FAT_VMEM_TEXELS or len(sets) > FAT_KERNEL_MAX_SETS
+    ):
+        # Small atlas whose fat form the JAX package's in-kernel sampler
+        # cannot take: it bakes nothing and samples per slot, so the port
+        # does the same.
+        return None
+    from wgpu_path_tracing_tpu_torch.ops.shade import SLOT_FALLBACKS
+
+    fat = np.empty((fh, fw, 16), np.float32)
+    fat[:] = np.array([c for fb in SLOT_FALLBACKS for c in fb], np.float32)
+    rect_rows = np.zeros((len(sets), 20), np.float32)
+    for s, (rs, box) in enumerate(sets.items()):
+        lw, lh, ox, oy = box["lw"], box["lh"], box["ox"], box["oy"]
+        # Interior origin: the [0, 1) uv band starts ox/oy cells into the
+        # allocated box; the backward band (negative uvs) occupies
+        # [-ox, 0) x [-oy, 0) relative cells.
+        fx, fy = box["x"] + ox, box["y"] + oy
+        rect_rows[s, :16] = [v for r in rs for v in r]
+        rect_rows[s, 16:] = (fx, fy, lw, lh)
+        for k, (kx, ky, kw, kh) in enumerate(rs):
+            if kw > 0 and kh > 0:
+                # Grid cell j (relative to the interior origin, j in
+                # [-ox, lw)) carries the per-slot texel the reference's
+                # index math reads for uv fraction f = j/lw:
+                # clip(kx + j // (lw//kw), 0, w-1).
+                jj = np.arange(-ox, lw)
+                ii = np.arange(-oy, lh)
+                ix = np.clip(kx + jj // (lw // kw), 0, w - 1)
+                iy = np.clip(ky + ii // (lh // kh), 0, h - 1)
+                fat[fy - oy:fy + lh, fx - ox:fx + lw, 4 * k:4 * k + 4] = (
+                    atlas[np.ix_(iy, ix)]
+                )
+    return fat, rect_rows
+
+
+def check_bf16_exact(atlas: np.ndarray) -> None:
+    """Raise unless every atlas texel is a bfloat16-representable float32
+    (its low 16 bits are zero), the invariant the JAX package asserts at
+    packing time: scenes are built through ``models/assemble.py::
+    finalize_scene``, which rounds the atlas with ``quantize_atlas``."""
+    bits = np.ascontiguousarray(np.asarray(atlas, np.float32)).view(np.uint32)
+    if (bits & 0xFFFF).any():
+        raise ValueError(
+            "pack_device_scene: atlas texels are not bf16-exact — build "
+            "scenes through models/assemble.py::finalize_scene (which "
+            "quantizes the atlas) or pre-quantize before packing")
+
+
 def pack_device_scene(scene: SceneArrays):
     """Build the packed device tables as NumPy arrays.
 
-    Returns a dict with tri_isect, tri_full, light_full, atlas, bvh_aabb
-    and the walk tables walk_order, walk_boxes and walk_tris. The walk
-    tables are omitted when the wide tree is too deep for the walk's stack
-    bound (``accel/bvh8.py::WideBVHDepthError``), as in the JAX package.
-    The other large-scene tables (BVH links, clusters, pairs) and the
-    texture tables are not built: no intersector or sampler of this package
-    reads them yet.
+    Returns a dict with tri_isect, tri_full, light_full, atlas, bvh_aabb,
+    the walk tables walk_order, walk_boxes and walk_tris, and the fat-atlas
+    tables atlas_fat and atlas_fat_rects. The walk tables are omitted when
+    the wide tree is too deep for the walk's stack bound
+    (``accel/bvh8.py::WideBVHDepthError``), and the fat tables unless
+    ``_build_fat_atlas`` bakes them, both exactly as in the JAX package.
+    The other large-scene tables (BVH links, clusters, pairs) are not
+    built: no intersector of this package reads them yet. Raises
+    ValueError for an atlas that is not bf16-exact.
     """
     t = scene.num_triangles
     tri_isect = np.zeros((max(t, 1), 9), np.float32)
@@ -353,6 +513,9 @@ def pack_device_scene(scene: SceneArrays):
         warnings.warn(f"walk tables skipped: {e}", stacklevel=2)
         wide = None
 
+    check_bf16_exact(atlas)
+    fat_atlas = _build_fat_atlas(scene, np.asarray(atlas, np.float32))
+
     return {
         "tri_isect": tri_isect,
         "tri_full": tri_full,
@@ -368,11 +531,19 @@ def pack_device_scene(scene: SceneArrays):
             if wide is not None
             else {}
         ),
+        **(
+            {"atlas_fat": fat_atlas[0], "atlas_fat_rects": fat_atlas[1]}
+            if fat_atlas is not None
+            else {}
+        ),
     }
 
 
-# The walk tables; a packed scene holds all three or none.
+# The walk tables; a packed scene holds all three or none. The same for the
+# fat-atlas tables.
 WALK_KEYS = ("walk_order", "walk_boxes", "walk_tris")
+FAT_KEYS = ("atlas_fat", "atlas_fat_rects")
+OPTIONAL_KEYS = WALK_KEYS + FAT_KEYS
 # The tables the torch path reads, in the layout both packages share, and
 # the dtype each is uploaded as.
 DEVICE_KEYS = {
@@ -383,17 +554,21 @@ DEVICE_KEYS = {
     "walk_order": np.int32,
     "walk_boxes": np.float32,
     "walk_tris": np.float32,
+    "atlas_fat": np.float32,
+    "atlas_fat_rects": np.float32,
 }
 
 
 def load_jax_scene(packed: dict, device) -> dict:
     """Upload a packed scene (``pack_device_scene`` output of either package,
     as NumPy arrays) to contiguous tensors on ``device``, each in its
-    ``DEVICE_KEYS`` dtype (``walk_order`` stays int32).
+    ``DEVICE_KEYS`` dtype (``walk_order`` stays int32), and beside them
+    ``"texture_slots_used"``, the scene's ``texture_slots_used`` tuple,
+    worked out once here from the host-side table.
 
-    Only the keys in ``DEVICE_KEYS`` are read, and the walk tables only
-    where the scene has them; the JAX package's extra tables (BVH,
-    clusters, pairs, env) are ignored. Raises if CUDA is asked for and
+    Only the keys in ``DEVICE_KEYS`` are read, and the walk and fat-atlas
+    tables only where the scene has them; the JAX package's extra tables
+    (BVH, clusters, pairs, env) are ignored. Raises if CUDA is asked for and
     absent: there is no silent CPU fallback.
     """
     import torch
@@ -403,8 +578,9 @@ def load_jax_scene(packed: dict, device) -> dict:
         raise RuntimeError("device='cuda' requested but CUDA is not available")
     out = {}
     for key, dtype in DEVICE_KEYS.items():
-        if key in WALK_KEYS and key not in packed:
+        if key in OPTIONAL_KEYS and key not in packed:
             continue
         arr = np.ascontiguousarray(np.asarray(packed[key], dtype))
         out[key] = torch.from_numpy(arr).to(device)
+    out["texture_slots_used"] = texture_slots_used(packed["tri_full"])
     return out

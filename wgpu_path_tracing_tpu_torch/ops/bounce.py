@@ -1,16 +1,24 @@
 """K2: the bounce megakernel, its plain version, and the loop that drives it.
 
 The counterpart of the JAX package's ``ops/pallas_bounce.py``
-(``bounce_stage_pallas`` / ``trace_pallas``), untextured and with the
-reference rng. ``bounce_stage`` takes one bounce's SoA state and returns the
-same ten arrays as ``bounce_stage_pallas``:
+(``bounce_stage_pallas`` / ``trace_pallas``) with the reference rng,
+untextured or textured. ``bounce_stage`` takes one bounce's SoA state and
+returns the same ten arrays as ``bounce_stage_pallas``:
 
     in:  rays (6, N) f32, state (N,) int64, throughput (3, N), result (3, N),
          alive (N,) bool, t (N,) f32, idx (N,) int32,
-         tri_full (T, 52) f32, light_full (L, 27) f32
+         tri_full (T, 52) f32, light_full (L, 27) f32,
+         atlas: None, the (H, W, 4) f32 atlas (per-slot sampling) or
+         ("fat", canvas (FH, FW, 16) f32, rects (S, 20) f32),
+         slots_used: the scene's 4 texture-slot flags
     out: next rays (6, N), state, throughput, result, alive,
          shadow rays (6, N), shadow t_max (N,), shadow mask (N,) bool,
          direct (3, N), pdf (N,)
+
+The atlas forms replace the TPU kernel's three texture modes (in-VMEM
+per-slot, in-VMEM fat, and "external", where XLA gathers the texels before
+the kernel): on the card a texel is one load, so the fat canvas, when the
+scene has one, and the per-slot atlas otherwise are read inside the kernel.
 
 On a CUDA tensor it launches ``csrc/bounce.cu``; on a CPU tensor it runs
 ``bounce_stage_plain`` (``ops/trace.py::bounce_core`` over the same arrays).
@@ -28,14 +36,33 @@ from wgpu_path_tracing_tpu_torch.ops import vec
 
 
 class Counter:
-    """Launches of the K2 kernel in this process."""
+    """Launches of the K2 kernel in this process, in all (``launches``) and
+    by texture mode (``by_mode``: "none", "per_slot", "fat")."""
 
     launches = 0
+    by_mode = {"none": 0, "per_slot": 0, "fat": 0}
+
+    @classmethod
+    def reset(cls) -> None:
+        cls.launches = 0
+        cls.by_mode = dict.fromkeys(cls.by_mode, 0)
+
+
+# csrc/bounce.cu's TexMode values.
+TEX_MODES = {"none": 0, "per_slot": 1, "fat": 2}
+
+
+def texture_mode(atlas) -> str:
+    """"none", "per_slot" or "fat" for an atlas operand."""
+    if atlas is None:
+        return "none"
+    return "fat" if isinstance(atlas, tuple) else "per_slot"
 
 
 def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
                        alive, t, idx, tri_full, light_full, *, do_mis: bool,
-                       num_lights: int):
+                       num_lights: int, atlas=None,
+                       slots_used=(True, True, True, True)):
     """Plain PyTorch K2 on any device."""
     st = TRACE.BounceState(
         ro=vec.from_rows(rays, 0), rd=vec.from_rows(rays, 3),
@@ -45,7 +72,8 @@ def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
         st, t, idx, int(bounce_idx),
         fetch_tri=lambda i: SHADE.fetch_rows(tri_full, i),
         fetch_light=lambda i: SHADE.fetch_rows(light_full, i),
-        do_mis=do_mis, num_lights=num_lights)
+        do_mis=do_mis, num_lights=num_lights, atlas=atlas,
+        slots_used=slots_used)
     return [
         torch.cat([vec.stack_rows(new.ro), vec.stack_rows(new.rd)]),
         new.state,
@@ -68,9 +96,44 @@ _SPEC = (  # name, rows (0 = 1-D), dtype
 )
 
 
+def _check_table(name, x, dev, shape):
+    """A contiguous float32 table on ``dev`` whose shape matches ``shape``
+    (None for any size), aligned for the kernel's 16-byte texel loads."""
+    if (x.dim() != len(shape)
+            or any(s is not None and s != d for s, d in zip(shape, x.shape))
+            or x.dtype != torch.float32 or x.device != dev
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        dims = ", ".join("*" if d is None else str(d) for d in shape)
+        raise ValueError(f"{name}: expected contiguous ({dims}) float32 on "
+                         f"{dev}, got {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+
+
+def _atlas_args(atlas, dev):
+    """(mode, atlas, h, w, rects, n_sets) arguments of the C launcher."""
+    mode = texture_mode(atlas)
+    if mode == "none":
+        return TEX_MODES[mode], None, 0, 0, None, 0
+    if mode == "fat":
+        tag, canvas, rects = atlas
+        if tag != "fat":
+            raise ValueError(f"unknown atlas form {tag!r}")
+        _check_table("atlas_fat", canvas, dev, (None, None, 16))
+        _check_table("atlas_fat_rects", rects, dev, (None, 20))
+        if not 1 <= rects.shape[0] <= T.FAT_ATLAS_MAX_SETS:
+            raise ValueError(f"atlas_fat_rects: {rects.shape[0]} sets, "
+                             f"expected 1..{T.FAT_ATLAS_MAX_SETS}")
+        return (TEX_MODES[mode], canvas.data_ptr(), canvas.shape[0],
+                canvas.shape[1], rects.data_ptr(), rects.shape[0])
+    _check_table("atlas", atlas, dev, (None, None, 4))
+    return (TEX_MODES[mode], atlas.data_ptr(), atlas.shape[0],
+            atlas.shape[1], None, 0)
+
+
 def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
                       t, idx, tri_full, light_full, *, do_mis: bool,
-                      num_lights: int):
+                      num_lights: int, atlas=None,
+                      slots_used=(True, True, True, True)):
     """Launch K2 on the current stream (no synchronisation)."""
     n = rays.shape[1]
     dev = rays.device
@@ -92,6 +155,10 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
                              f"float32 on {dev}")
     if light_full.shape[0] < max(num_lights, 1):
         raise ValueError("light_full has fewer rows than num_lights")
+    if len(slots_used) != 4:
+        raise ValueError("slots_used: expected 4 flags")
+    tex = _atlas_args(atlas, dev)
+    slots = sum(1 << k for k, used in enumerate(slots_used) if used)
 
     def empty(rows, dtype):
         return torch.empty((rows, n) if rows else (n,), dtype=dtype, device=dev)
@@ -108,15 +175,17 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
         throughput.data_ptr(), result.data_ptr(), alive.data_ptr(),
         t.data_ptr(), idx.data_ptr(), tri_full.data_ptr(),
         light_full.data_ptr(), int(num_lights),
-        int(bool(do_mis)), *(o.data_ptr() for o in outs), n,
+        int(bool(do_mis)), *tex, slots, *(o.data_ptr() for o in outs), n,
         cuda_lib.stream_ptr(rays))
     cuda_lib.check(err, "wpt_bounce")
     Counter.launches += 1
+    Counter.by_mode[texture_mode(atlas)] += 1
     return outs
 
 
 def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
-                 idx, tri_full, light_full, *, do_mis: bool, num_lights: int):
+                 idx, tri_full, light_full, *, do_mis: bool, num_lights: int,
+                 atlas=None, slots_used=(True, True, True, True)):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     fn = {"cuda": bounce_stage_cuda, "cpu": bounce_stage_plain}.get(
@@ -124,16 +193,19 @@ def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
     if fn is None:
         raise ValueError(f"unsupported device {rays.device}")
     return fn(bounce_idx, rays, state, throughput, result, alive, t, idx,
-              tri_full, light_full, do_mis=do_mis, num_lights=num_lights)
+              tri_full, light_full, do_mis=do_mis, num_lights=num_lights,
+              atlas=atlas, slots_used=slots_used)
 
 
 def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
                max_bounces: int = 8, do_mis: bool = True, num_lights: int = 0):
     """The bounce loop over the K2 wrapper (``trace_pallas``'s shape): per
     bounce a closest hit, K2, a shadow query and ``resolve_shadow``. Same
-    signature, semantics and RNG streams as ``ops/trace.py::trace``. On CPU
-    tensors the wrappers run their plain versions."""
+    signature, semantics and RNG streams as ``ops/trace.py::trace``, the
+    atlas form included (``ops/trace.py::scene_atlas``). On CPU tensors the
+    wrappers run their plain versions."""
     n = ro.shape[1]
+    atlas, slots_used = TRACE.scene_atlas(scene)
     dev = ro.device
     rays = torch.cat([ro, rd]).contiguous()
     thr = torch.ones((3, n), dtype=torch.float32, device=dev)
@@ -146,7 +218,8 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
         (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
          spdf) = bounce_stage(bounce_idx, rays, state, thr, res, alive, t, idx,
                               scene["tri_full"], scene["light_full"],
-                              do_mis=do_mis, num_lights=num_lights)
+                              do_mis=do_mis, num_lights=num_lights,
+                              atlas=atlas, slots_used=slots_used)
         if do_mis:
             counters[1] += smask.sum()
             shadow_t, _ = closest_hit(srays[0:3], srays[3:6], active=smask,

@@ -14,8 +14,10 @@ place of ``lax.scan``:
 
 ``bounce_core`` is the shading stage between the closest hit and the shadow
 query; the CUDA bounce kernel (``csrc/bounce.cu``) runs the same steps per
-thread in the same order. RNG draws happen in the reference's order with
-masked advancement, so every lane's stream matches random.wgsl.
+thread in the same order. Textured scenes sample their atlas in the form
+``scene_atlas`` picks, as the JAX package's ``trace`` does. RNG draws
+happen in the reference's order with masked advancement, so every lane's
+stream matches random.wgsl.
 """
 
 from __future__ import annotations
@@ -54,14 +56,17 @@ class ShadowQuery(typing.NamedTuple):
 
 
 def bounce_core(st: BounceState, t, idx, bounce_idx: int, *, fetch_tri,
-                fetch_light, do_mis: bool,
-                num_lights: int) -> tuple[BounceState, ShadowQuery]:
+                fetch_light, do_mis: bool, num_lights: int, atlas=None,
+                slots_used=(True, True, True, True),
+                ) -> tuple[BounceState, ShadowQuery]:
     """One bounce's shading. ``fetch_tri(idx)`` / ``fetch_light(idx)`` return
-    column accessors over the ``tri_full`` / ``light_full`` rows."""
+    column accessors over the ``tri_full`` / ``light_full`` rows; ``atlas``
+    and ``slots_used`` are ``ops/shade.py::hit_attributes_from_cols``'s."""
     found = st.alive & (idx >= 0)
     safe = torch.clamp_min(idx, 0)
     hit = SHADE.hit_attributes_from_cols(fetch_tri(safe), st.ro, st.rd, t,
-                                         found)
+                                         found, atlas=atlas,
+                                         slots_used=slots_used)
 
     emissive = found & vec.any_positive(hit.emission)
     atten = hit.emissive_strength / (1.0 + t * t)
@@ -124,6 +129,21 @@ def resolve_shadow(result: V3, shadow: ShadowQuery, shadow_t) -> V3:
     return result + vec.where(take, shadow.direct, vec.zeros_like(shadow_t))
 
 
+def scene_atlas(scene: dict):
+    """(atlas, slots_used): the atlas form the bounce samples, chosen as
+    the JAX package's ``trace`` chooses it (None for an untextured scene,
+    whose atlas is a 1x1 placeholder; ``("fat", canvas, rects)`` when
+    ``pack_device_scene`` baked a fat canvas; else the (H, W, 4) atlas,
+    sampled per slot), and the scene's texture-slot mask, which
+    ``models/types.py::load_jax_scene`` stores."""
+    atlas, slots = scene["atlas"], scene["texture_slots_used"]
+    if atlas.shape[0] <= 1 and atlas.shape[1] <= 1:
+        return None, slots
+    if "atlas_fat" in scene:
+        return ("fat", scene["atlas_fat"], scene["atlas_fat_rects"]), slots
+    return atlas, slots
+
+
 def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
           do_mis: bool = True, num_lights: int = 0):
     """Trace a batch of rays with the plain ``bounce_core``.
@@ -132,6 +152,7 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
     from ``ops/intersect.py::make_closest_hit``. Returns (radiance (3, N),
     final state, counters (2,) int64 [closest rays, shadow rays])."""
     n = ro.shape[1]
+    atlas, slots_used = scene_atlas(scene)
     one = torch.ones((n,), dtype=torch.float32, device=ro.device)
     zero = torch.zeros_like(one)
     st = BounceState(ro=vec.from_rows(ro, 0), rd=vec.from_rows(rd, 0),
@@ -153,7 +174,8 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
         counters[0] += st.alive.sum()
         st, shadow = bounce_core(st, t, idx, bounce_idx, fetch_tri=fetch_tri,
                                  fetch_light=fetch_light, do_mis=do_mis,
-                                 num_lights=num_lights)
+                                 num_lights=num_lights, atlas=atlas,
+                                 slots_used=slots_used)
         if do_mis:
             counters[1] += shadow.mask.sum()
             shadow_t, _ = closest_hit(vec.stack_rows(shadow.origin),

@@ -125,10 +125,17 @@ def slab_entry(box, ox, oy, oz, ix, iy, iz, lim):
 
 def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
                            t_max=None, num_tris: int | None = None,
-                           any_hit: bool = False):
+                           any_hit: bool = False, visits: dict | None = None):
     """Plain PyTorch K3 on any device: one DFS stack per ray, as (N, S)
     tensors, and a loop that pops one entry on every lane with work until
-    no lane has any."""
+    no lane has any. ``visits``, where given, gains the work the walk did,
+    summed over the rays: "interior" and "leaf" visits, the "children"
+    slab-tested on interior visits (non-empty slots), the "sub_boxes"
+    gated on leaf visits (sub-clusters that hold a triangle), the
+    "sub_clusters" entered, and the "triangles" of the entered
+    sub-clusters (one Möller-Trumbore test each); the kernel does the same
+    work, visit for visit, besides Möller-Trumbore on an entered
+    sub-cluster's empty slots."""
     dev = ro3.device
     n = ro3.shape[1]
     lim0 = _limit(active, t_max, n, dev)
@@ -146,6 +153,9 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
                            device=dev)
     sp = torch.ones((n,), dtype=torch.long, device=dev)  # the root, tn 0
     slots = torch.arange(WIDTH, device=dev)
+    if visits is not None:  # triangles each sub-cluster holds, (Ng, SUB)
+        filled = (tables.tris.view(-1, GROUP_ROWS, LEAF_SLOTS)[:, 9]
+                  .view(-1, SUB, SUB_W) >= 0.0).sum(dim=2)
 
     while True:
         lanes = torch.nonzero(sp > 0).squeeze(1)
@@ -165,7 +175,8 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
         box = tables.boxes[((m * OCTANTS + oc) * WIDTH)[:, None] + slots, 0:6]
         ray = [x[il][:, None] for x in o + inv]
         tn, enter = slab_entry(box, *ray, lim[il][:, None])
-        push = enter & (metas != 0)
+        full = metas != 0
+        push = enter & full
         pos = sp[il][:, None] + torch.cumsum(push, dim=1) - 1
         rows = il[:, None].expand_as(push)[push]
         stack_node[rows, pos[push]] = metas[push]
@@ -175,15 +186,22 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
         # Leaf visits: gate the sub-clusters, then Möller-Trumbore on the
         # entered ones, one (lane, sub-cluster) pair per row.
         ll = lanes[~inner]
+        group = -node[~inner].long() - 1
+        if visits is not None:
+            _count(visits, interior=il.numel(), leaf=ll.numel(),
+                   children=full.sum(), sub_boxes=(filled[group] > 0).sum())
         if ll.numel() == 0:
             continue
-        base = (-node[~inner].long() - 1) * GROUP_ROWS
+        base = group * GROUP_ROWS
         sub = torch.arange(SUB, device=dev)
         sb = tables.tris[(base[:, None] + 16 + sub)[..., None],
                          torch.arange(6, device=dev)]
         ray = [x[ll][:, None] for x in o + inv]
         _, gate = slab_entry(sb, *ray, lim[ll][:, None])
         r, c = torch.nonzero(gate, as_tuple=True)  # by lane, then by c
+        if visits is not None:
+            _count(visits, sub_clusters=r.numel(),
+                   triangles=filled[group[r], c].sum())
         lane = ll[r]
         cols = c[:, None] * SUB_W + slots[:SUB_W]
         rows10 = base[r][:, None, None] + torch.arange(10, device=dev)[:, None]
@@ -215,6 +233,11 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
             lim[ll] = torch.minimum(best_t[ll], lim0[ll])
 
     return _finish(best_t, best_i, active, num_tris)
+
+
+def _count(visits: dict, **work) -> None:
+    for key, n in work.items():
+        visits[key] = visits.get(key, 0) + int(n)
 
 
 def _finish(t, idx, active, num_tris):

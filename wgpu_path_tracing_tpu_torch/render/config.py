@@ -3,7 +3,10 @@
 The reference path tracer hardcodes these as shader constants; the JAX
 package promoted them to ``RenderConfig`` (``wgpu_path_tracing_tpu/render/
 config.py``). This is the same object restricted to what the torch port
-renders; the device is the ``Renderer``'s argument:
+renders: untextured and textured scenes (the atlas sampled per slot or from
+the fat canvas, as the scene's packing decides), reference rng, the dense
+hit and the wide-BVH walk. The device is the ``Renderer``'s argument (the
+card by default):
 
 * ``max_bounces`` — pt.wgsl:5 (MAX_BOUNCES = 8)
 * ``do_mis`` — pt.wgsl:636 (DO_MIS = true)

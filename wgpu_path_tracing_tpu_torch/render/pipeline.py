@@ -37,7 +37,9 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
                  width: int, height: int, use_dof: bool, max_bounces: int,
                  do_mis: bool, num_lights: int, firefly_clamp: float):
     """Accumulate ``n_frames`` 1-spp frames from ``frame_start`` into
-    ``accum`` ((N, 3) float32, tile lane order), in place.
+    ``accum`` ((N, 3) float32, tile lane order), in place. The bounce loop
+    samples the scene's atlas in the form ``ops/trace.py::scene_atlas``
+    picks.
 
     ``trace_fn`` is the bounce loop and ``closest_hit`` the intersector it
     calls: the renderer passes ``ops/bounce.py::trace_cuda`` and

@@ -1,19 +1,21 @@
 """Renderer: the headless counterpart of the reference's class Renderer
 (renderer.ts:18-511) and of the JAX package's ``render/renderer.py``.
 
-    r = Renderer(RenderConfig(width=512, height=512), device="cuda")
-    r.load_scene(cornell_box())
+    r = Renderer(RenderConfig(width=512, height=512))   # device="cuda"
+    r.load_scene(textured_cornell())
     hdr = r.render(spp=64)        # progressive; r.reset(), r.move_camera()
     r.save_png("out.png"); r.stats()
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
-scene tables live on ``device``. On "cuda" the frame runs the
-hand-written kernels K1 (dense closest hit) or K3 (wide-BVH walk), as
-``RenderConfig.intersector`` picks for the scene, and K2 (bounce); on "cpu"
-their plain PyTorch versions. Asking for "cuda" without a card raises.
+scene tables live on ``device``, the card unless the caller asks for
+``device="cpu"``. On "cuda" the frame runs the hand-written kernels K1
+(dense closest hit) or K3 (wide-BVH walk), as ``RenderConfig.intersector``
+picks for the scene, and K2 (bounce, untextured or sampling the scene's
+texture atlas per slot or from its fat canvas); on "cpu" their plain
+PyTorch versions. Asking for "cuda" without a card raises.
 
 Not ported here: glTF loading, async load, denoising, adaptive sampling,
-debug modes, textures, environment maps, multi-device rendering.
+debug modes, environment maps, multi-device rendering.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from wgpu_path_tracing_tpu_torch.models.types import (
     SceneArrays,
     load_jax_scene,
     pack_device_scene,
-    texture_slots_used,
 )
-from wgpu_path_tracing_tpu_torch.ops.bounce import trace_cuda
+from wgpu_path_tracing_tpu_torch.ops.bounce import texture_mode, trace_cuda
 from wgpu_path_tracing_tpu_torch.ops.intersect import make_closest_hit
+from wgpu_path_tracing_tpu_torch.ops.trace import scene_atlas
 from wgpu_path_tracing_tpu_torch.render import pipeline
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
@@ -57,7 +59,7 @@ def resolve_device(device) -> torch.device:
 
 class Renderer:
     def __init__(self, config: RenderConfig | None = None,
-                 camera: Camera | None = None, device="cpu"):
+                 camera: Camera | None = None, device="cuda"):
         self.config = (config or RenderConfig()).validate()
         self.device = resolve_device(device)
         self.camera = camera or Camera(
@@ -74,11 +76,7 @@ class Renderer:
 
     # --- scene ---------------------------------------------------------------
     def load_scene(self, scene: SceneArrays) -> None:
-        packed = pack_device_scene(scene)
-        if scene.atlas is not None or any(texture_slots_used(packed["tri_full"])):
-            raise NotImplementedError(
-                "textured scenes are not ported yet (K2's textured variants)")
-        scene_dev = load_jax_scene(packed, self.device)
+        scene_dev = load_jax_scene(pack_device_scene(scene), self.device)
         # Raises NotImplementedError for a scene without walk tables above
         # brute_force_max_tris.
         self._closest_hit = make_closest_hit(
@@ -167,6 +165,9 @@ class Renderer:
             "frame_index": self.frame_index,
             "device": str(self.device),
             "intersector": getattr(self._closest_hit, "strategy", None),
+            # How K2 samples the scene's atlas: "none", "per_slot" or "fat".
+            "texture": (None if self._scene_dev is None
+                        else texture_mode(scene_atlas(self._scene_dev)[0])),
             "rays_closest": closest,
             "rays_shadow": shadow,
             "rays_total": closest + shadow,
