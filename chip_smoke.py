@@ -42,7 +42,21 @@ and runs these phases, one line of output each:
    ``load_scene(cornell_box(tessellation=55))`` (``stats()["intersector"]``
    must be "walk"), ``render(spp=8)``; the launch counts, the build
    seconds, the cold render and the median of repeated renders in Mrays/s,
-   and a 2-spp render's image against the plain path's on every pixel.
+   and a 1-spp render's image against the plain path's on every pixel;
+9. K4, K5, K6 vs plain: the pair dispatch and the round dispatch on the same
+   102,852-triangle box and the same three ray sets as phase 7, the phased
+   dispatch on ``cornell_box(tessellation=16)`` (8,706 triangles: its flat
+   sweep gates every sub-cluster for every ray block, so it is the JAX
+   package's choice for mid-size trees only); ``t`` and ``idx`` bit-equal on
+   every lane; each against K3 and K1 on the closest-hit rays (lanes that
+   differ, and whether each is an exact-t tie); each kernel's time beside
+   its bound, counted from the plain version's ``visits``;
+10. dispatch paths: the large box through ``intersector="pairs"`` at 8 spp
+   (launch counts, cold and repeated Mrays/s) and its 1-spp image against
+   the plain path's; the same box packed with the wide build made to fail,
+   which ``intersector="auto"`` must take through the pair dispatch to the
+   same image; ``"phased"`` (the 8,706-triangle box) and ``"cluster"`` (the
+   large box) at 2 spp, each against its plain path.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -52,20 +66,23 @@ its operations over the float32 rate), and last the line
 repository, it fails the same way.
 
 ``--profile PATH`` also writes a ``torch.profiler`` table of four
-main-path frames to PATH, of four textured-flagship frames and of four
-large-scene frames to PATH with ``_textured`` and ``_large`` before its
+main-path frames to PATH, of four textured-flagship frames, of four
+large-scene frames and of four frames of the large scene through the pair
+dispatch to PATH with ``_textured``, ``_large`` and ``_pairs`` before its
 extension, and prints the device's busy share.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -86,9 +103,14 @@ from wgpu_path_tracing_tpu_torch.models.types import (  # noqa: E402
     FAT_KEYS,
     pack_device_scene,
 )
+from wgpu_path_tracing_tpu_torch.accel import bvh8  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import blocks as BLOCKS  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import cluster as K6  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import pairs as K4  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import phased as K5  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import shade as SHADE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import vec  # noqa: E402
@@ -115,7 +137,10 @@ MAX_BOUNCES = 8
 # The large-scene path (the JAX package's bench config 5, "large-100k").
 LARGE_TESSELLATION = 55
 LARGE_SPP = 8
-LARGE_PLAIN_SPP = 2  # frames of the large box's plain-path comparison
+LARGE_PLAIN_SPP = 1  # frames of the large box's plain-path comparison
+# The dispatch intersectors: K4 and K6 on the large box, K5 on a mid-size one.
+PHASED_TESSELLATION = 16
+DISPATCH_SPP = 2  # the "phased" and "cluster" renders and their plain paths
 FORCED_WALK_SPP = 4  # the flagship box through the walk
 # Phase-4 bound for float outputs that are not bit-equal.
 MAX_ULP = 2
@@ -132,6 +157,15 @@ PEAK_BYTES_PER_S = 3.35e12
 MT_OPS = 55
 SLAB_OPS = 25
 K2_OPS = {"none": 900, "per_slot": 1100, "fat": 1100}
+
+
+@functools.lru_cache(maxsize=None)
+def tessellated_box(tessellation: int):
+    """``cornell_box(tessellation=...)``, built once (its SAH BVH takes
+    seconds at 102,852 triangles); the second value is the seconds it took."""
+    t0 = time.perf_counter()
+    scene = cornell_box(tessellation=tessellation)
+    return scene, time.perf_counter() - t0
 
 
 def coprime_textured():
@@ -546,26 +580,42 @@ def phase_oracle(dev):
     oracle_frames(textured_cornell(), "textured_cornell", dev, drop_fat=True)
 
 
+DISPATCH = {
+    # kind: (module, the kernel wrapper, the plain version, its tables)
+    "pairs": (K4, K4.closest_hit_pairs, K4.closest_hit_pairs_plain,
+              K4.pair_tables),
+    "phased": (K5, K5.closest_hit_phased, K5.closest_hit_phased_plain,
+               lambda scene: scene["walk_tris"]),
+    "cluster": (K6, K6.closest_hit_cluster, K6.closest_hit_cluster_plain,
+                K6.cluster_tables),
+}
+
+
+def plain_closest_hit(scene: dict, strategy: str):
+    """The plain version of the intersector ``make_closest_hit`` reports as
+    ``strategy``, with its signature."""
+    tri = scene["tri_isect"]
+    nt = tri.shape[0]
+    if strategy == "brute":
+        return lambda ro3, rd3, active=None, t_max=None, any_hit=False: (
+            K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3])))
+    if strategy == "walk":
+        plain, tables = K3.closest_hit_walk_plain, K3.walk_tables(scene)
+    else:
+        _, _, plain, get_tables = DISPATCH[strategy]
+        tables = get_tables(scene)
+    return lambda ro3, rd3, active=None, t_max=None, any_hit=False: plain(
+        tables, ro3, rd3, active, t_max, num_tris=nt, any_hit=any_hit)
+
+
 def plain_render(r: Renderer, spp: int) -> np.ndarray:
     """The frames ``r.render(spp)`` draws after a reset, through the plain
     versions on ``r``'s device: ``ops/trace.py``'s bounce loop and the plain
-    dense hit or walk (as ``r`` picked), so no kernel launches. Returns
+    version of the intersector ``r`` picked, so no kernel launches. Returns
     (H, W, 3) like ``render``."""
     cfg, dev = r.config, r.device
     scene = load_jax_scene(pack_device_scene(r.scene), dev)
-    tri = scene["tri_isect"]
-    if r.stats()["intersector"] == "walk":
-        tables = K3.walk_tables(scene)
-
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-            return K3.closest_hit_walk_plain(
-                tables, ro3, rd3, active, t_max, num_tris=tri.shape[0],
-                any_hit=any_hit)
-    else:
-
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-            return K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3]))
-
+    closest_hit = plain_closest_hit(scene, r.stats()["intersector"])
     accum = torch.zeros((cfg.width * cfg.height, 3), device=dev)
     render_chunk(TRACE.trace, closest_hit, scene,
                  camera_device(r.camera.as_pytree(), cfg.width, cfg.height),
@@ -582,13 +632,19 @@ def reset_counts() -> None:
     K1.Counter.launches = 0
     K2.Counter.reset()
     K3.Counter.launches = 0
+    K4.Counter.launches = 0
+    K5.Counter.launches = 0
+    K6.Counter.launches = 0
 
 
 def launch_counts() -> dict:
-    """Launches per kernel: K1, K2 by texture mode ("k2" untextured), K3."""
+    """Launches per kernel: K1, K2 by texture mode ("k2" untextured), K3,
+    K4, K5 (a gate and a test kernel count as one) and K6."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
-            "k2_fat": K2.Counter.by_mode["fat"], "k3": K3.Counter.launches}
+            "k2_fat": K2.Counter.by_mode["fat"], "k3": K3.Counter.launches,
+            "k4": K4.Counter.launches, "k5": K5.Counter.launches,
+            "k6": K6.Counter.launches}
 
 
 def expect(**counts) -> dict:
@@ -750,8 +806,32 @@ def phase_textured(dev, smi, report, profile: str | None):
             profile_frames(r, f"{root}_textured{ext}", path)
 
 
+def ray_cases(scene_np, scene, rays, state, t, idx):
+    """The three ray sets a kernel is held to its plain version on: the
+    camera rays, the bounce-1 rays of one plain bounce from their hits
+    (t, idx) and that bounce's shadow rays (``t_max``, ``any_hit``).
+    Returns (K2's arguments, keywords and plain outputs, the cases)."""
+    n = rays.shape[1]
+    dev = rays.device
+    args = (0, rays, state, torch.ones((3, n), device=dev),
+            torch.zeros((3, n), device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+            scene["tri_full"], scene["light_full"])
+    kw = dict(do_mis=True, num_lights=scene_np.num_lights)
+    pout = K2.bounce_stage_plain(*args, **kw)
+    bounce, alive = pout[0].contiguous(), pout[4]
+    shadow, smask, stmax = pout[5].contiguous(), pout[7], pout[6]
+    cases = [("camera", rays, {}),
+             ("bounce-1", bounce, {"active": alive}),
+             ("shadow-0", shadow, {"active": smask, "t_max": stmax,
+                                   "any_hit": True})]
+    return args, kw, pout, cases
+
+
 def phase_k3(dev, report):
-    scene_np = cornell_box(tessellation=LARGE_TESSELLATION)
+    """K3 on the large box; returns the scene, its walk tables and the ray
+    cases for the dispatch intersectors' phase."""
+    scene_np, _ = tessellated_box(LARGE_TESSELLATION)
     t0 = time.perf_counter()
     scene, rays, state = flagship_rays(scene_np, dev)
     say("k3", f"{scene_np.num_triangles} triangles; packed and uploaded in "
@@ -773,23 +853,12 @@ def phase_k3(dev, report):
         + " (interior and leaf-group visits, non-empty children and "
         "sub-cluster boxes slab-tested, sub-clusters entered, their "
         "triangles tested)")
-    args = (0, rays, state, torch.ones((3, n), device=dev),
-            torch.zeros((3, n), device=dev),
-            torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
-            scene["tri_full"], scene["light_full"])
-    kw = dict(do_mis=True, num_lights=scene_np.num_lights)
+    args, kw, pout, cases = ray_cases(scene_np, scene, rays, state, t, idx)
     kout = K2.bounce_stage_cuda(*args, **kw)
-    pout = K2.bounce_stage_plain(*args, **kw)
     summary = check_k2(kout, pout, n, "the large box", report["k2"])
     say("k2", f"cornell_box(tessellation={LARGE_TESSELLATION}) bounce 0: {n} "
         "lanes; " + summary)
-
-    bounce, alive = pout[0].contiguous(), pout[4]
-    shadow, smask, stmax = pout[5].contiguous(), pout[7], pout[6]
-    cases = [("camera", rays, {}),
-             ("bounce-1", bounce, {"active": alive}),
-             ("shadow-0", shadow, {"active": smask, "t_max": stmax,
-                                   "any_hit": True})]
+    bounce, alive = cases[1][1], cases[1][2]["active"]
     worst = 0.0
     for name, r, extra in cases:
         o, d = r[0:3], r[3:6]
@@ -846,12 +915,221 @@ def phase_k3(dev, report):
     report.setdefault("k3", {}).update(
         max_abs_err=worst, ms=ms, plain_ms=plain, bounce_ms=bounce_ms,
         visits_per_ray={k: v / n for k, v in visits.items()}, **b)
+    return {"scene_np": scene_np, "scene": scene, "tables": tables,
+            "cases": cases}
+
+
+def dispatch_bound(kind: str, visits: dict, scene: dict, tables, n: int):
+    """A dispatch intersector's bound on ``n`` rays from its plain version's
+    ``visits``: the rays and (t, idx) once, the table rows the call reads
+    once (K4: the distinct super tiles its pairs name, and the super boxes;
+    K5 and K6: the whole table), and the slab and Möller-Trumbore tests the
+    plain version counted (phase 1's sweep included)."""
+    moved = 6 * 4 * n + 8 * n
+    if kind == "pairs":
+        bn = K4.BN
+        moved += (visits["tiles"] * K4.TILE_ROWS * K4.PAIRS_COLS * 4
+                  + nbytes(tables.super_aabb))
+        slabs = visits["blocks"] * bn * visits["supers"] + visits["slab_tests"]
+    elif kind == "phased":
+        moved += nbytes(tables)
+        slabs = visits["sub_boxes"] * K5.BN
+    else:
+        moved += nbytes(*tables)
+        slabs = visits["blocks"] * K6.BN * visits["boxes"]
+    ops = SLAB_OPS * slabs + MT_OPS * visits["triangle_tests"]
+    return bound(moved, ops), ops
+
+
+def dispatch_lists_ms(kind: str, tables, o, d, bo, bd, bextra):
+    """Device ms of what K4's and K6's wrappers do in PyTorch before they
+    launch: phase 1's sweep and the sort, on the camera and the bounce-1
+    rays. None for K5, whose wrapper makes no list."""
+    if kind == "phased":
+        return None
+    bn, lists, boxes = ((K4.BN, K4.pair_list, tables.super_aabb)
+                        if kind == "pairs"
+                        else (K6.BN, K6.candidates, tables.aabb))
+    n = o.shape[1]
+    out = []
+    for ro3, rd3, extra in ((o, d, {}), (bo, bd, bextra)):
+        lim0 = BLOCKS.ray_limit(extra.get("active"), None, n, o.device)
+        rays = BLOCKS.pad_blocks(ro3, rd3, lim0, bn)
+        out.append(device_ms(lambda: lists(boxes, *rays), reps=5))
+    return out
+
+
+def check_dispatch(kind: str, shared: dict, report: dict):
+    """One dispatch intersector against its plain version, bit for bit, on
+    the three ray cases; against K3 and K1 on the closest-hit rays; its time
+    on the camera and bounce-1 rays beside its bound."""
+    key = {"pairs": "k4", "phased": "k5", "cluster": "k6"}[kind]
+    _, kernel, plain, get_tables = DISPATCH[kind]
+    scene, walk_tables, cases = (shared["scene"], shared["tables"],
+                                 shared["cases"])
+    tables = get_tables(scene)
+    tri = scene["tri_isect"]
+    nt = tri.shape[0]
+    n = cases[0][1].shape[1]
+    worst, visits = 0.0, {}
+    for name, r, extra in cases:
+        o, d = r[0:3], r[3:6]
+        kt, ki = kernel(tables, o, d, num_tris=nt, **extra)
+        torch.cuda.synchronize()
+        visits[name] = {}
+        pt, pi = plain(tables, o, d, num_tris=nt, visits=visits[name],
+                       **extra)
+        t_lanes, t_ulp, t_err = compare(kt, pt)
+        i_lanes = int((ki != pi).sum())
+        say(key, f"{name} rays: {n} lanes ({int((pi >= 0).sum())} hits), t "
+            f"differs on {t_lanes} (max {t_ulp} ulp), idx differs on "
+            f"{i_lanes}; the plain version's count: {visits[name]}")
+        if t_lanes or i_lanes:
+            raise AssertionError(f"{key.upper()} disagrees with its plain "
+                                 f"version on the {name} rays")
+        worst = max(worst, t_err)
+        if name == "shadow-0":
+            continue
+        active = extra.get("active")
+        wt, wi = K3.closest_hit_walk(walk_tables, o, d, num_tris=nt, **extra)
+        dt, di = K1.closest_hit_dense_cuda(tri, r.contiguous())
+        if active is not None:
+            dt = torch.where(active, dt, torch.inf)
+            di = torch.where(active, di, -1)
+        for other, ot, oi in (("K3", wt, wi), ("K1", dt, di)):
+            idx_apart, t_apart = ki != oi, kt != ot
+            ties = not bool(t_apart.any())
+            say(key, f"{name} rays against {other}: idx differs on "
+                f"{int(idx_apart.sum())} lanes, t on {int(t_apart.sum())}; "
+                "every difference an exact-t tie: "
+                f"{'yes' if ties else 'no'}")
+            if int((idx_apart | t_apart).sum()) > 0.01 * n:
+                raise AssertionError(f"{key.upper()} and {other} disagree on "
+                                     f"more than 1% of the {name} rays")
+    (_, cam, _), (_, bounce, bextra) = cases[0], cases[1]
+    o, d, bo, bd = cam[0:3], cam[3:6], bounce[0:3], bounce[3:6]
+    ms = device_ms(lambda: kernel(tables, o, d, num_tris=nt), reps=5)
+    bounce_ms = device_ms(lambda: kernel(tables, bo, bd, num_tris=nt,
+                                         **bextra), reps=5)
+    plain_ms = eager_ms(lambda: plain(tables, o, d, num_tris=nt), reps=1)
+    lists_ms = dispatch_lists_ms(kind, tables, o, d, bo, bd, bextra)
+    b, ops = dispatch_bound(kind, visits["camera"], scene, tables, n)
+    bb, bops = dispatch_bound(kind, visits["bounce-1"], scene, tables, n)
+    say(key, f"time at {n} camera rays x {nt} tris: device {ms:.4f} ms (the "
+        f"wrapper's whole call; plain {plain_ms:.4f} ms, launched from "
+        f"Python with its host syncs), bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; {ops / 1e9:.3f} Gop); bounce-1 rays: device "
+        f"{bounce_ms:.4f} ms, bound {bb['bound_ms']:.4f} ms "
+        f"({bb['bound_by']}; {bops / 1e9:.3f} Gop)"
+        + (f"; of those, phase 1 and the sort, PyTorch calls ahead of the "
+           f"kernel: {lists_ms[0]:.4f} and {lists_ms[1]:.4f} ms"
+           if lists_ms else ""))
+    report.setdefault(key, {}).update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bounce_ms=bounce_ms,
+        lists_ms=lists_ms,
+        bounce_bound_ms=bb["bound_ms"], triangles=nt, visits=visits, **b)
+
+
+def phase_dispatch(dev, report, large: dict):
+    """K4 and K6 on the large box (``large``: phase 7's scene, walk tables
+    and ray cases), K5 on the mid-size box."""
+    check_dispatch("pairs", large, report)
+    check_dispatch("cluster", large, report)
+    scene_np, _ = tessellated_box(PHASED_TESSELLATION)
+    scene, rays, state = flagship_rays(scene_np, dev)
+    tables = K3.walk_tables(scene)
+    nt = scene["tri_isect"].shape[0]
+    say("k5", f"cornell_box(tessellation={PHASED_TESSELLATION}): {nt} "
+        f"triangles, {tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups")
+    t, idx = K3.closest_hit_walk(tables, rays[0:3], rays[3:6], num_tris=nt)
+    _, _, _, cases = ray_cases(scene_np, scene, rays, state, t, idx)
+    check_dispatch("phased", {"scene": scene, "tables": tables,
+                              "cases": cases}, report)
+
+
+def forced_renderer(intersector: str, scene_np, strategy: str) -> Renderer:
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE,
+                              intersector=intersector), device="cuda")
+    r.load_scene(scene_np)
+    if r.stats()["intersector"] != strategy:
+        raise AssertionError(f"intersector={intersector!r} took "
+                             f"{r.stats()['intersector']!r}, expected "
+                             f"{strategy!r}")
+    return r
+
+
+def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
+    """The dispatch intersectors through the ``Renderer``."""
+    large, _ = tessellated_box(LARGE_TESSELLATION)
+    r = forced_renderer("pairs", large, "pairs")
+    hdr, secs = counted_render(
+        r, LARGE_SPP, report, "pairs",
+        expect(k2=MAX_BOUNCES * LARGE_SPP, k4=2 * MAX_BOUNCES * LARGE_SPP))
+    report["k4"]["launches"] = report["k4"]["launches_by_path"]["pairs"]
+    stats = r.stats()
+    rays = stats["rays_total"]
+    say("pairs", f"cold render: wall {secs:.3f} s, {rays} rays "
+        f"({stats['rays_closest']} closest + {stats['rays_shadow']} shadow), "
+        f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    med, quartiles, walls = repeat_renders(r, LARGE_SPP, rays, "pairs", smi)
+    r.reset()
+    one = r.render(spp=LARGE_PLAIN_SPP)
+    plain_secs = checked_plain(r, LARGE_PLAIN_SPP, one, "pairs")
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_frames(r, f"{root}_pairs{ext}", "pairs")
+    report["pairs"] = {"triangles": large.num_triangles, "seconds": secs,
+                       "mrays_per_sec": rays / secs / 1e6,
+                       "repeat_median_seconds": med,
+                       "repeat_quartile_seconds": quartiles,
+                       "repeat_seconds": walls, "plain_seconds": plain_secs}
+
+    # The fallback: the same box without walk tables under "auto".
+    def too_deep(*args, **kwargs):
+        raise bvh8.WideBVHDepthError("pathologically deep (simulated)")
+
+    build, bvh8.build_wide_bvh = bvh8.build_wide_bvh, too_deep
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            f = forced_renderer("auto", large, "pairs")
+    finally:
+        bvh8.build_wide_bvh = build
+    fallback, _ = counted_render(
+        f, LARGE_PLAIN_SPP, report, "pairs_fallback",
+        expect(k2=MAX_BOUNCES * LARGE_PLAIN_SPP,
+               k4=2 * MAX_BOUNCES * LARGE_PLAIN_SPP))
+    pixels = int((fallback.view(np.uint32) != one.view(np.uint32))
+                 .any(-1).sum())
+    say("pairs", "the same box without walk tables under intersector='auto' "
+        f"took {f.stats()['intersector']!r}; its image differs from the "
+        f"forced run's on {pixels} of {SIZE * SIZE} pixels")
+    if pixels:
+        raise AssertionError("the fallback's image differs from the forced "
+                             "pair dispatch's")
+    report["pairs"]["fallback_pixels_differing"] = pixels
+
+    mid, _ = tessellated_box(PHASED_TESSELLATION)
+    for kind, key, scene_np in (("phased", "k5", mid), ("cluster", "k6",
+                                                        large)):
+        r = forced_renderer(kind, scene_np, kind)
+        hdr, secs = counted_render(
+            r, DISPATCH_SPP, report, kind,
+            expect(k2=MAX_BOUNCES * DISPATCH_SPP,
+                   **{key: 2 * MAX_BOUNCES * DISPATCH_SPP}))
+        report[key]["launches"] = report[key]["launches_by_path"][kind]
+        rays = r.stats()["rays_total"]
+        say(kind, f"{scene_np.num_triangles} triangles, cold render: wall "
+            f"{secs:.3f} s, {rays} rays, {rays / secs / 1e6:.3f} Mrays/s on "
+            f"{smi}")
+        plain_secs = checked_plain(r, DISPATCH_SPP, hdr, kind)
+        report[kind] = {"triangles": scene_np.num_triangles, "seconds": secs,
+                        "mrays_per_sec": rays / secs / 1e6,
+                        "plain_seconds": plain_secs}
 
 
 def phase_large(dev, smi, report, profile: str | None):
-    t0 = time.perf_counter()
-    scene_np = cornell_box(tessellation=LARGE_TESSELLATION)
-    sah = time.perf_counter() - t0
+    scene_np, sah = tessellated_box(LARGE_TESSELLATION)
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
     t0 = time.perf_counter()
     r.load_scene(scene_np)
@@ -873,7 +1151,7 @@ def phase_large(dev, smi, report, profile: str | None):
         f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
     med, quartiles, walls = repeat_renders(r, LARGE_SPP, rays, "large", smi)
     # The plain walk syncs the host once per stack pop (about 30 s a frame
-    # here), so the image comparison takes the first LARGE_PLAIN_SPP frames.
+    # here), so the image comparison takes the first LARGE_PLAIN_SPP frame.
     r.reset()
     hdr = r.render(spp=LARGE_PLAIN_SPP)
     plain_secs = checked_plain(r, LARGE_PLAIN_SPP, hdr, "large")
@@ -933,9 +1211,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
                         help="also write torch.profiler tables of four "
-                        "main-path, textured-flagship and large-scene frames "
-                        "to PATH and PATH with _textured and _large before "
-                        "its extension")
+                        "main-path, textured-flagship, large-scene and "
+                        "pair-dispatch frames to PATH and PATH with "
+                        "_textured, _large and _pairs before its extension")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -961,8 +1239,11 @@ def main() -> int:
     phase_oracle(dev)
     phase_main(dev, smi, report, args.profile)
     phase_textured(dev, smi, report, args.profile)
-    phase_k3(dev, report)
+    large = phase_k3(dev, report)
     phase_large(dev, smi, report, args.profile)
+    phase_dispatch(dev, report, large)
+    del large
+    phase_dispatch_paths(dev, smi, report, args.profile)
 
     pkg = "wgpu_path_tracing_tpu_torch"
     ref = "wgpu_path_tracing_tpu/ops"
@@ -985,11 +1266,20 @@ def main() -> int:
          **report["k2_fat"]},
         {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
          "replaces": f"{ref}/walk.py:177", **report["k3"]},
+        {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
+         "replaces": f"{ref}/pairs.py:108", **report["k4"]},
+        {"name": "phased", "route": "cuda", "source": f"{pkg}/csrc/phased.cu",
+         "replaces": f"{ref}/phased.py:70", **report["k5"]},
+        {"name": "cluster", "route": "cuda",
+         "source": f"{pkg}/csrc/cluster.cu",
+         "replaces": f"{ref}/cluster.py:73", **report["k6"]},
     ]
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "main": report["main"],
                       **{path: report[path] for path, _, _ in TEXTURED},
-                      "large": report["large"], "nvidia_smi": smi}),
+                      "large": report["large"],
+                      **{path: report[path] for path in DISPATCH},
+                      "nvidia_smi": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,7 +6,8 @@ imports JAX; where JAX is not installed, run them with:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
-in both texture modes) and K3 (csrc/walk.cu) must equal the plain versions
+in both texture modes), K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5
+(csrc/phased.cu) and K6 (csrc/cluster.cu) must equal the plain versions
 bit for bit: both round every float32 operation the same way (the kernels
 are built with -fmad=false and IEEE division and square root).
 """
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import plain_render
+from chip_smoke import DISPATCH, plain_render
 from wgpu_path_tracing_tpu_torch import (
     Renderer,
     RenderConfig,
@@ -224,5 +225,61 @@ def test_renderer_walk_path_equals_plain_path(dev):
     assert K3.Counter.launches == before + 2 * r.config.max_bounces
     plain = plain_render(r, spp=1)
     assert K3.Counter.launches == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
+
+
+@pytest.mark.parametrize("mode", ["closest", "active", "any_hit"])
+@pytest.mark.parametrize("kind", list(DISPATCH))
+def test_dispatch_kernel_equals_plain(dev, kind, mode):
+    """K4, K5 and K6 on the 4,898-triangle box: camera rays (4,096: four
+    blocks of K4 and K6, two of K5), and their bounce-1 and shadow rays
+    from one plain bounce; then a ray count that fills no block."""
+    module, kernel, plain, get_tables = DISPATCH[kind]
+    sc = cornell_box(tessellation=12)
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    tables = get_tables(scene)
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 1, use_dof=True)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    t, idx = K3.closest_hit_walk_plain(K3.walk_tables(scene), ro, rd)
+    outs = K2.bounce_stage_plain(
+        0, rays, state, torch.ones((3, n), device=dev),
+        torch.zeros((3, n), device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+        scene["tri_full"], scene["light_full"], do_mis=True,
+        num_lights=sc.num_lights)
+    nt = scene["tri_isect"].shape[0]
+    for r in (rays, outs[0], outs[5], rays[:, :1500]):
+        o, d = r[0:3].contiguous(), r[3:6].contiguous()
+        m = o.shape[1]
+        kw = dict(num_tris=nt)
+        if mode == "active":
+            kw["active"] = (outs[4] if r is outs[0] else outs[7])[:m]
+        elif mode == "any_hit":
+            kw.update(active=outs[7][:m], t_max=outs[6][:m], any_hit=True)
+        before = module.Counter.launches
+        kt, ki = kernel(tables, o, d, **kw)
+        torch.cuda.synchronize()
+        assert module.Counter.launches == before + 1
+        pt, pi = plain(tables, o, d, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+        assert (ki >= 0).any()
+
+
+@pytest.mark.parametrize("kind", list(DISPATCH))
+def test_renderer_dispatch_path_equals_plain_path(dev, kind):
+    r = Renderer(RenderConfig(width=W, height=H, intersector=kind),
+                 device="cuda")
+    r.load_scene(cornell_box(tessellation=12))
+    assert r.stats()["intersector"] == kind
+    counter = DISPATCH[kind][0].Counter
+    before = counter.launches
+    kernel = r.render(spp=1)
+    assert counter.launches == before + 2 * r.config.max_bounces
+    plain = plain_render(r, spp=1)
+    assert counter.launches == before + 2 * r.config.max_bounces
     np.testing.assert_array_equal(kernel.view(np.uint32),
                                   plain.view(np.uint32))

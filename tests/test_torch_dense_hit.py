@@ -157,15 +157,15 @@ def test_make_closest_hit_dense_only():
     scene = load_jax_scene(jpack(jcornell_box()), "cpu")
     ch = make_closest_hit(scene)
     assert ch.strategy == "brute"
-    # Above brute_max_tris "auto" takes the walk, and needs its tables.
+    # Above brute_max_tris "auto" takes the walk, or the pair dispatch for
+    # a scene without walk tables.
     assert make_closest_hit(scene, brute_max_tris=16).strategy == "walk"
     no_walk = {k: v for k, v in scene.items() if not k.startswith("walk_")}
-    with pytest.raises(NotImplementedError):
-        make_closest_hit(no_walk, brute_max_tris=16)
+    assert make_closest_hit(no_walk, brute_max_tris=16).strategy == "pairs"
     assert make_closest_hit(no_walk, intersector="brute",
                             brute_max_tris=16).strategy == "brute"
     with pytest.raises(NotImplementedError):
-        make_closest_hit(scene, intersector="pairs")
+        make_closest_hit(scene, intersector="stack")
     # active / t_max / any_hit are accepted and ignored, as in the JAX
     # package's dense branch.
     rng = np.random.default_rng(0)

@@ -124,7 +124,7 @@ def test_sources_import_no_jax_pillow_or_reference_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu"))]
+                  if n.endswith((".py", ".cu", ".cuh"))]
     offenders = []
     for path in files:
         with open(path) as f:
@@ -147,21 +147,26 @@ def test_cuda_without_a_card_raises():
 def test_unported_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError):
         RenderConfig(rng="hash").validate()
-    for name in ("pairs", "phased", "cluster", "bvh", "stack"):
-        with pytest.raises(NotImplementedError):
+    for name in ("bvh", "stack", "walk_hbm"):
+        with pytest.raises(NotImplementedError, match="not ported"):
             RenderConfig(intersector=name).validate()
-    RenderConfig(intersector="walk").validate()
+    for name in ("auto", "brute", "walk", "pairs", "phased", "cluster"):
+        RenderConfig(intersector=name).validate()
+    with pytest.raises(ValueError):
+        RenderConfig(intersector="nonsense").validate()
     # A scene above brute_force_max_tris without walk tables (a wide tree
-    # too deep for the walk's stack) needs K4, which is not ported.
+    # too deep for the walk's stack) renders through the pair dispatch K4.
     def too_deep(*args, **kwargs):
         raise bvh8.WideBVHDepthError("pathologically deep (simulated)")
 
     monkeypatch.setattr(bvh8, "build_wide_bvh", too_deep)
     r = Renderer(RenderConfig(width=8, height=8, brute_force_max_tris=16),
                  device="cpu")
-    with pytest.warns(UserWarning), pytest.raises(NotImplementedError,
-                                                  match="K4"):
+    with pytest.warns(UserWarning, match="walk tables skipped"):
         r.load_scene(cornell_box())
+    assert r.stats()["intersector"] == "pairs"
+    img = r.render(spp=1)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0
     monkeypatch.undo()
     # Textured scenes are ported: a 4x4 atlas loads and samples its canvas.
     textured = cornell_box()

@@ -304,6 +304,8 @@ def test_cuda_wrapper_refuses_cpu_tensors(random_scene):
 def test_kernel_constants_match_the_tables():
     with open(f"{CSRC}/walk.cu") as f:
         src = f.read()
+    with open(f"{CSRC}/isect.cuh") as f:  # the leaf layout, shared with K5
+        src += f.read()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
@@ -339,16 +341,26 @@ def test_make_closest_hit_picks_the_walk(random_scene):
 @pytest.mark.parametrize("name", ["pairs", "phased", "cluster", "bvh",
                                   "stack", "walk_hbm"])
 def test_unported_intersectors_raise(random_scene, name):
+    """The JAX package's intersectors that reach no TPU kernel still raise;
+    the three dispatch intersectors are ported and report their name."""
     scene = load_jax_scene(random_scene, "cpu")
+    if name in ("pairs", "phased", "cluster"):
+        assert make_closest_hit(scene, name).strategy == name
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         make_closest_hit(scene, name)
 
 
 def test_a_scene_without_walk_tables_raises(random_scene):
+    """Without walk tables "auto" and a forced "walk" take the pair
+    dispatch; asking the walk for its tables, or for an unknown intersector,
+    raises."""
     scene = load_jax_scene({k: v for k, v in random_scene.items()
                             if not k.startswith("walk_")}, "cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        make_closest_hit(scene, brute_max_tris=1000)
+    assert make_closest_hit(scene, brute_max_tris=1000).strategy == "pairs"
+    assert make_closest_hit(scene, "walk").strategy == "pairs"
+    with pytest.raises(ValueError, match="no walk tables"):
+        walk.walk_tables(scene)
     with pytest.raises(ValueError):
         make_closest_hit(scene, "nonsense")
 

@@ -44,53 +44,17 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "isect.cuh"
+
 namespace {
+
+using namespace wpt;  // the slab test, Möller-Trumbore and the leaf layout
 
 constexpr int kThreads = 256;
 constexpr int kWidth = 8;        // accel/bvh8.py WIDTH
 constexpr int kOctants = 8;      // accel/bvh8.py OCTANTS
-constexpr int kLanes = 128;      // accel/bvh8.py LEAF_SLOTS
-constexpr int kSub = 16;         // accel/bvh8.py SUB
-constexpr int kSubW = kLanes / kSub;
-constexpr int kGroupRows = 32;   // accel/bvh8.py group_rows(SUB)
-constexpr int kSubRow = 16;      // first sub-cluster box row of a group
 constexpr int kMaxStack = 256;   // ops/walk.py STACK_MAX; the wrapper checks
                                  // the tree's need against it
-
-// torch.minimum / torch.maximum: NaN if either operand is NaN.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b < a ? b : a;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b > a ? b : a;
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-// Slab entry test of one box row [min3 | max3] at box[0..5].
-__device__ __forceinline__ bool slab_entry(const float* __restrict__ box,
-                                           const Ray& r, float lim,
-                                           float* tn_out) {
-  const float t1x = (box[0] - r.ox) * r.ix;
-  const float t2x = (box[3] - r.ox) * r.ix;
-  const float t1y = (box[1] - r.oy) * r.iy;
-  const float t2y = (box[4] - r.oy) * r.iy;
-  const float t1z = (box[2] - r.oz) * r.iz;
-  const float t2z = (box[5] - r.oz) * r.iz;
-  const float tn = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
-                           nan_min(t1z, t2z));
-  const float tf = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
-                           nan_max(t1z, t2z));
-  *tn_out = tn;
-  return (tf >= tn) && (tf >= 0.0f) && (tn <= lim);
-}
 
 struct Entry {
   int node;  // >= 0 interior wide node, < 0 leaf group -(g + 1)
@@ -109,19 +73,7 @@ __global__ void walk_kernel(const int* __restrict__ order,
                             int any_hit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float kEpsilon = static_cast<float>(1e-6);
-  const float kTiny = static_cast<float>(1e-30);
-
-  Ray r;
-  r.ox = ro[i];
-  r.oy = ro[n + i];
-  r.oz = ro[2 * n + i];
-  r.dx = rd[i];
-  r.dy = rd[n + i];
-  r.dz = rd[2 * n + i];
-  r.ix = 1.0f / (r.dx == 0.0f ? kTiny : r.dx);
-  r.iy = 1.0f / (r.dy == 0.0f ? kTiny : r.dy);
-  r.iz = 1.0f / (r.dz == 0.0f ? kTiny : r.dz);
+  const Ray r = load_ray(ro, rd, n, i);
   const bool live = active == nullptr || active[i];
   const float lim0 =
       live ? (t_max == nullptr ? CUDART_INF_F : t_max[i]) : -CUDART_INF_F;
@@ -159,42 +111,9 @@ __global__ void walk_kernel(const int* __restrict__ order,
       float tn;
       if (!slab_entry(group + (kSubRow + c) * kLanes, r, gate_lim, &tn))
         continue;
-      float sub_t = CUDART_INF_F;
-      int sub_i = 0x7fffffff;
-      for (int k = c * kSubW; k < (c + 1) * kSubW; ++k) {
-        const float gidx = group[9 * kLanes + k];
-        const float v0x = group[0 * kLanes + k];
-        const float v0y = group[1 * kLanes + k];
-        const float v0z = group[2 * kLanes + k];
-        const float e1x = group[3 * kLanes + k];
-        const float e1y = group[4 * kLanes + k];
-        const float e1z = group[5 * kLanes + k];
-        const float e2x = group[6 * kLanes + k];
-        const float e2y = group[7 * kLanes + k];
-        const float e2z = group[8 * kLanes + k];
-        const float hx = r.dy * e2z - r.dz * e2y;
-        const float hy = r.dz * e2x - r.dx * e2z;
-        const float hz = r.dx * e2y - r.dy * e2x;
-        const float a = e1x * hx + e1y * hy + e1z * hz;
-        const float f = 1.0f / a;
-        const float sx = r.ox - v0x;
-        const float sy = r.oy - v0y;
-        const float sz = r.oz - v0z;
-        const float u = f * (sx * hx + sy * hy + sz * hz);
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-        const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-        const bool valid = (fabsf(a) >= kEpsilon) && (u >= 0.0f) &&
-                           (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                           (t > kEpsilon) && (gidx >= 0.0f);
-        const int gi = static_cast<int>(gidx);
-        if (valid && (t < sub_t || (t == sub_t && gi < sub_i))) {
-          sub_t = t;
-          sub_i = gi;
-        }
-      }
+      float sub_t;
+      int sub_i;
+      mt_subcluster(group, c, r, &sub_t, &sub_i);
       if (sub_t < best_t) {
         best_t = sub_t;
         best_i = sub_i;
@@ -207,14 +126,7 @@ __global__ void walk_kernel(const int* __restrict__ order,
     }
   }
 
-  if (num_tris >= 0 && best_i >= num_tris) best_i = -1;
-  if (!isfinite(best_t)) best_i = -1;
-  if (!live) {
-    best_t = CUDART_INF_F;
-    best_i = -1;
-  }
-  t_out[i] = best_t;
-  idx_out[i] = best_i;
+  store_hit(t_out, idx_out, i, best_t, best_i, num_tris, live);
 }
 
 }  // namespace

@@ -405,19 +405,25 @@ def check_bf16_exact(atlas: np.ndarray) -> None:
             "quantizes the atlas) or pre-quantize before packing")
 
 
-def pack_device_scene(scene: SceneArrays):
+def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
     """Build the packed device tables as NumPy arrays.
 
     Returns a dict with tri_isect, tri_full, light_full, atlas, bvh_aabb,
-    the walk tables walk_order, walk_boxes and walk_tris, and the fat-atlas
-    tables atlas_fat and atlas_fat_rects. The walk tables are omitted when
-    the wide tree is too deep for the walk's stack bound
-    (``accel/bvh8.py::WideBVHDepthError``), and the fat tables unless
-    ``_build_fat_atlas`` bakes them, both exactly as in the JAX package.
-    The other large-scene tables (BVH links, clusters, pairs) are not
-    built: no intersector of this package reads them yet. Raises
-    ValueError for an atlas that is not bf16-exact.
+    the dispatch intersectors' tables cluster_tris and cluster_aabb
+    (``ops/cluster.py::build_clusters``, ``cluster_k`` triangles a cluster)
+    and pairs_tris and pairs_super_aabb (``ops/pairs.py::
+    build_pair_tables``), the walk tables walk_order, walk_boxes and
+    walk_tris, and the fat-atlas tables atlas_fat and atlas_fat_rects. The
+    walk tables are omitted when the wide tree is too deep for the walk's
+    stack bound (``accel/bvh8.py::WideBVHDepthError``; the pair dispatch
+    then takes the scene), and the fat tables unless ``_build_fat_atlas``
+    bakes them, both exactly as in the JAX package. The BVH link table is
+    not built: no intersector of this package reads it. Raises ValueError
+    for an atlas that is not bf16-exact.
     """
+    from wgpu_path_tracing_tpu_torch.ops.cluster import build_clusters
+    from wgpu_path_tracing_tpu_torch.ops.pairs import build_pair_tables
+
     t = scene.num_triangles
     tri_isect = np.zeros((max(t, 1), 9), np.float32)
     tri_shade = np.zeros((max(t, 1), TRI_COLS), np.float32)
@@ -500,8 +506,15 @@ def pack_device_scene(scene: SceneArrays):
             light_full[:n_lights][spot, LF_SPOT_SCALE] = aux[spot, 3]
             light_full[:n_lights][spot, LF_SPOT_OFFSET] = aux[spot, 4]
 
+    # Cluster tables for the dispatch intersectors: the pair dispatch
+    # (subtree clusters grouped into super tiles) and the round dispatch
+    # (a fixed-stride cut).
+    cluster_tris, cluster_aabb = build_clusters(tri_isect, k=cluster_k)
+    pairs_tris, pairs_super_aabb = build_pair_tables(
+        bvh_aabb[:max(b, 1)], bvh_meta[:max(b, 1)], tri_isect[:t])
+
     # Wide-BVH tables for the BVH walk (ops/walk.py). A pathologically deep
-    # tree omits them, and the walk then refuses the scene.
+    # tree omits them, and the pair dispatch then takes the scene.
     try:
         wide = bvh8.build_wide_bvh(
             scene.bvh_aabb_min if b else np.zeros((1, 3), np.float32),
@@ -522,6 +535,10 @@ def pack_device_scene(scene: SceneArrays):
         "light_full": light_full,
         "atlas": np.asarray(atlas, np.float32),
         "bvh_aabb": bvh_aabb,
+        "cluster_tris": cluster_tris,
+        "cluster_aabb": cluster_aabb,
+        "pairs_tris": pairs_tris,
+        "pairs_super_aabb": pairs_super_aabb,
         **(
             {
                 "walk_order": wide.order,
@@ -551,6 +568,10 @@ DEVICE_KEYS = {
     "tri_full": np.float32,
     "light_full": np.float32,
     "atlas": np.float32,
+    "cluster_tris": np.float32,
+    "cluster_aabb": np.float32,
+    "pairs_tris": np.float32,
+    "pairs_super_aabb": np.float32,
     "walk_order": np.int32,
     "walk_boxes": np.float32,
     "walk_tris": np.float32,
@@ -568,7 +589,7 @@ def load_jax_scene(packed: dict, device) -> dict:
 
     Only the keys in ``DEVICE_KEYS`` are read, and the walk and fat-atlas
     tables only where the scene has them; the JAX package's extra tables
-    (BVH, clusters, pairs, env) are ignored. Raises if CUDA is asked for and
+    (BVH links, materials, lights, env) are ignored. Raises if CUDA is asked for and
     absent: there is no silent CPU fallback.
     """
     import torch

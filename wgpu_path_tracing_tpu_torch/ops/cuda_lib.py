@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-The sources are ``wgpu_path_tracing_tpu_torch/csrc/*.cu``. They expose a
+The sources are ``wgpu_path_tracing_tpu_torch/csrc/*.cu`` (and the header
+``isect.cuh`` that the intersection kernels share). They expose a
 plain C interface, so they are compiled with ``nvcc`` (one process per
 source, all started together) and linked into one shared library bound with
 ``ctypes``; no PyTorch headers are involved, which keeps the build to
@@ -55,6 +56,23 @@ SIGNATURES = {
         _P, _P,  # out t, idx
         _I, _I, _I, _P,  # n, num_tris (-1: none), any_hit, stream
     ],
+    "wpt_pairs": [
+        _P, _P, _P,  # pairs_tris, each block's super tiles in order, counts
+        _P, _P, _P, _P,  # ro, rd, limit, active (or NULL)
+        _P, _P,  # out t, idx
+        _I, _I, _I, _P,  # n, supers, num_tris (-1: none), stream
+    ],
+    "wpt_phased": [
+        _P, _P, _P, _P, _P,  # walk_tris, ro, rd, limit, active (or NULL)
+        _P, _P, _P,  # gate bytes (zeroed scratch), out t, idx
+        _I, _I, _I, _I, _P,  # n, bn, groups, num_tris (-1: none), stream
+    ],
+    "wpt_cluster": [
+        _P, _P, _P,  # cluster_tris, each block's entries ascending, clusters
+        _P, _P, _P, _P,  # ro, rd, limit, active (or NULL)
+        _P, _P,  # out t, idx
+        _I, _I, _I, _I, _I, _P,  # n, clusters, k, max_rounds, num_tris, stream
+    ],
 }
 
 
@@ -79,8 +97,9 @@ def build() -> str:
     """Compile csrc/*.cu into the build directory if needed; returns the
     library path. nvcc's report is kept in ``build_log()``."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"libwpt_kernels_{h.hexdigest()[:16]}.so")

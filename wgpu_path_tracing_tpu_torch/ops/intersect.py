@@ -77,11 +77,8 @@ def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
 
 # Intersectors the port runs, and the JAX package's others with what is
 # still to be ported for each.
-INTERSECTORS = ("auto", "brute", "walk")
+INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster")
 UNPORTED_INTERSECTORS = {
-    "pairs": "the pair dispatch K4 (ops/pairs.py::_pair_kernel)",
-    "phased": "the phased group dispatch K5 (ops/phased.py::_phased_kernel)",
-    "cluster": "the round dispatch K6 (ops/cluster.py::_round_kernel)",
     "bvh": "the linked-BVH walk (ops/intersect.py::closest_hit_bvh_linked)",
     "stack": "the per-ray stack walk (ops/intersect.py::closest_hit_bvh)",
     "walk_hbm": "the paged walk (K3's TPU residency mode; 'walk' takes every "
@@ -103,30 +100,46 @@ def check_intersector(intersector: str) -> None:
 
 def make_closest_hit(scene: dict, intersector: str = "auto",
                      brute_max_tris: int = 4096):
-    """Pick the intersection strategy for this scene.
+    """Pick the intersection strategy for this scene, as the JAX package's
+    ``make_closest_hit`` does, without its TPU residency budgets.
 
-    "auto" takes the dense intersector at or below ``brute_max_tris``
-    triangles and the wide-BVH walk above; "brute" and "walk" force one.
-    The walk needs the scene's walk tables: a scene without them (a wide
-    tree too deep for the walk's stack) raises ``NotImplementedError``, as
-    does any intersector the port does not run (``check_intersector``).
+    * "auto": the dense intersector (K1) at or below ``brute_max_tris``
+      triangles; above, the wide-BVH walk (K3) when the scene has walk
+      tables, else the pair dispatch (K4). A scene has no walk tables when
+      its wide tree is too deep for the walk's stack.
+    * "brute": K1. "pairs": K4. "cluster": the round dispatch (K6).
+    * "walk": K3, or quietly K4 for a scene without walk tables.
+    * "phased": the phased group dispatch (K5), which reads the walk's leaf
+      table; without walk tables it falls through to K4, as in the JAX
+      package.
+
+    Any other intersector raises (``check_intersector``).
 
     The dense hit goes through the K1 wrapper (``ops/dense_hit.py``) and,
     as in the JAX package's dense branch, accepts and ignores ``active``,
     ``t_max`` and ``any_hit``: every ray is tested and the closest hit
-    returned, which gives the same occlusion answers. The walk goes through
-    the K3 wrapper (``ops/walk.py``) and honours all three. Each wrapper
-    runs its CUDA kernel on CUDA tensors and its plain version on CPU
-    tensors.
+    returned, which gives the same occlusion answers. The others go through
+    their wrappers (``ops/walk.py``, ``ops/pairs.py``, ``ops/phased.py``,
+    ``ops/cluster.py``) and honour ``active`` and ``t_max``; only the walk
+    stops early on ``any_hit``. Each wrapper runs its CUDA kernel on CUDA
+    tensors and its plain version on CPU tensors.
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False)
     over SoA (3, N) origins and directions; its ``strategy`` attribute is
-    "brute" or "walk".
+    "brute", "walk", "pairs", "phased" or "cluster".
     """
-    from wgpu_path_tracing_tpu_torch.ops import dense_hit, walk
+    from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
+    from wgpu_path_tracing_tpu_torch.ops import (
+        cluster,
+        dense_hit,
+        pairs,
+        phased,
+        walk,
+    )
 
     check_intersector(intersector)
     num_tris = scene["tri_isect"].shape[0]
+    have_walk = all(key in scene for key in WALK_KEYS)
     if intersector == "brute" or (intersector == "auto"
                                   and num_tris <= brute_max_tris):
         tri = scene["tri_isect"]
@@ -136,14 +149,41 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
             return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3],
                                                               dim=0))
 
-        closest_hit.strategy = "brute"
-        return closest_hit
+        strategy = "brute"
+    elif intersector == "phased" and have_walk:
+        walk_tris = scene["walk_tris"]
 
-    tables = walk.walk_tables(scene)
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return phased.closest_hit_phased(walk_tris, ro3, rd3, active,
+                                             t_max, num_tris=num_tris,
+                                             any_hit=any_hit)
 
-    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-        return walk.closest_hit_walk(tables, ro3, rd3, active, t_max,
-                                     num_tris=num_tris, any_hit=any_hit)
+        strategy = "phased"
+    elif intersector == "cluster":
+        tables = cluster.cluster_tables(scene)
 
-    closest_hit.strategy = "walk"
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return cluster.closest_hit_cluster(tables, ro3, rd3, active,
+                                               t_max, num_tris=num_tris,
+                                               any_hit=any_hit)
+
+        strategy = "cluster"
+    elif intersector in ("auto", "walk") and have_walk:
+        tables = walk.walk_tables(scene)
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return walk.closest_hit_walk(tables, ro3, rd3, active, t_max,
+                                         num_tris=num_tris, any_hit=any_hit)
+
+        strategy = "walk"
+    else:
+        tables = pairs.pair_tables(scene)
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            return pairs.closest_hit_pairs(tables, ro3, rd3, active, t_max,
+                                           num_tris=num_tris,
+                                           any_hit=any_hit)
+
+        strategy = "pairs"
+    closest_hit.strategy = strategy
     return closest_hit

@@ -57,6 +57,9 @@ from wgpu_path_tracing_tpu_torch.accel.bvh8 import (
 )
 from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+from wgpu_path_tracing_tpu_torch.ops.blocks import count_work as _count
+from wgpu_path_tracing_tpu_torch.ops.blocks import finish as _finish
+from wgpu_path_tracing_tpu_torch.ops.blocks import ray_limit as _limit
 from wgpu_path_tracing_tpu_torch.ops.intersect import moller_trumbore
 
 # Entries of the kernel's per-thread stack (csrc/walk.cu kMaxStack). Every
@@ -86,22 +89,14 @@ def walk_tables(scene: dict) -> WalkTables:
     children of the node being visited."""
     missing = [k for k in WALK_KEYS if k not in scene]
     if missing:
-        raise NotImplementedError(
+        raise ValueError(
             "the scene has no walk tables (its wide BVH is too deep for the "
-            "walk's stack); the pair dispatch K4 (ops/pairs.py::_pair_kernel "
-            "of the JAX package) that takes such scenes is not ported")
+            "walk's stack): make_closest_hit takes such a scene through the "
+            "pair dispatch (ops/pairs.py)")
     order = scene["walk_order"]
     depth = wide_depth(order[:, :WIDTH].cpu().numpy())
     return WalkTables(order, scene["walk_boxes"], scene["walk_tris"],
                       depth * (WIDTH - 1) + WIDTH)
-
-
-def _limit(active, t_max, n: int, dev) -> torch.Tensor:
-    limit = (torch.full((n,), math.inf, dtype=torch.float32, device=dev)
-             if t_max is None else t_max)
-    if active is None:
-        return limit
-    return torch.where(active, limit, -math.inf)
 
 
 def slab_entry(box, ox, oy, oz, ix, iy, iz, lim):
@@ -234,20 +229,6 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
 
     return _finish(best_t, best_i, active, num_tris)
 
-
-def _count(visits: dict, **work) -> None:
-    for key, n in work.items():
-        visits[key] = visits.get(key, 0) + int(n)
-
-
-def _finish(t, idx, active, num_tris):
-    if num_tris is not None:
-        idx = torch.where(idx >= num_tris, -1, idx)
-    idx = torch.where(torch.isfinite(t), idx, -1)
-    if active is not None:
-        t = torch.where(active, t, math.inf)
-        idx = torch.where(active, idx, -1)
-    return t, idx
 
 
 def _check(tables: WalkTables, ro3, rd3, active, t_max) -> None:

@@ -9,8 +9,9 @@
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``, the card unless the caller asks for
 ``device="cpu"``. On "cuda" the frame runs the hand-written kernels K1
-(dense closest hit) or K3 (wide-BVH walk), as ``RenderConfig.intersector``
-picks for the scene, and K2 (bounce, untextured or sampling the scene's
+(dense closest hit), K3 (wide-BVH walk), K4 (pair dispatch), K5 (phased
+dispatch) or K6 (round dispatch), as ``RenderConfig.intersector`` picks for
+the scene (``stats()["intersector"]`` says which), and K2 (bounce, untextured or sampling the scene's
 texture atlas per slot or from its fat canvas); on "cpu" their plain
 PyTorch versions. Asking for "cuda" without a card raises.
 
@@ -77,8 +78,6 @@ class Renderer:
     # --- scene ---------------------------------------------------------------
     def load_scene(self, scene: SceneArrays) -> None:
         scene_dev = load_jax_scene(pack_device_scene(scene), self.device)
-        # Raises NotImplementedError for a scene without walk tables above
-        # brute_force_max_tris.
         self._closest_hit = make_closest_hit(
             scene_dev, self.config.intersector,
             self.config.brute_force_max_tris)
