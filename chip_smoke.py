@@ -56,7 +56,19 @@ and runs these phases, one line of output each:
    the plain path's; the same box packed with the wide build made to fail,
    which ``intersector="auto"`` must take through the pair dispatch to the
    same image; ``"phased"`` (the 8,706-triangle box) and ``"cluster"`` (the
-   large box) at 2 spp, each against its plain path.
+   large box) at 2 spp, and the first frame of each against its plain
+   path's;
+11. rng modes: K2's bounce-0 LDS instantiation against its plain version at
+   512x512 on ``cornell_box()``, ``material_test_box()`` and
+   ``textured_cornell()`` sampled per slot (the phase-4 bound), with its
+   time; ``Renderer(RenderConfig(width=512, height=512, rng="stratified"))``
+   on the Cornell box at 64 spp (launch counts: 64 of the LDS
+   instantiation, one a frame; cold and repeated Mrays/s; the image against
+   the plain path's of the same frames on every pixel) and ``rng="hash"`` at
+   8 spp the same way; ``frames_per_trace=2`` against 1 on the stratified
+   flagship (8 spp) and on the large box through the walk (2 spp), equal on
+   every pixel; a stratified checkpoint (4 spp, save, load into a fresh
+   ``Renderer``, 4 more) equal on every pixel to 8 spp in one go.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -67,9 +79,13 @@ repository, it fails the same way.
 
 ``--profile PATH`` also writes a ``torch.profiler`` table of four
 main-path frames to PATH, of four textured-flagship frames, of four
-large-scene frames and of four frames of the large scene through the pair
-dispatch to PATH with ``_textured``, ``_large`` and ``_pairs`` before its
-extension, and prints the device's busy share.
+large-scene frames, of four frames of the large scene through the pair
+dispatch and of four stratified flagship frames to PATH with ``_textured``,
+``_large``, ``_pairs`` and ``_stratified`` before its extension, and prints
+the device's busy share.
+
+``--phases NAME,...`` runs only the named phases (``--help`` names them),
+for iterating on the card; without it every phase runs.
 """
 
 from __future__ import annotations
@@ -116,6 +132,7 @@ from wgpu_path_tracing_tpu_torch.ops import trace as TRACE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import vec  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import walk as K3  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops.camera_rays import (  # noqa: E402
+    bounce0_lds,
     generate_rays,
     pixel_grid,
 )
@@ -140,8 +157,15 @@ LARGE_SPP = 8
 LARGE_PLAIN_SPP = 1  # frames of the large box's plain-path comparison
 # The dispatch intersectors: K4 and K6 on the large box, K5 on a mid-size one.
 PHASED_TESSELLATION = 16
-DISPATCH_SPP = 2  # the "phased" and "cluster" renders and their plain paths
+DISPATCH_SPP = 2  # the "phased" and "cluster" renders
+DISPATCH_PLAIN_SPP = 1  # frames of their plain-path comparisons
 FORCED_WALK_SPP = 4  # the flagship box through the walk
+# The rng modes: the stratified flagship renders SPP frames (its plain path
+# too); "hash", frames_per_trace and the checkpoint fewer.
+HASH_SPP = 8
+FPT_SPP = 8  # the stratified flagship at frames_per_trace 2 against 1
+FPT_LARGE_SPP = 2  # the large box through the walk, the same
+CKPT_SPP = 4  # rendered before the checkpoint and after the resume
 # Phase-4 bound for float outputs that are not bit-equal.
 MAX_ULP = 2
 MAX_ULP_LANE_SHARE = 1e-4
@@ -623,7 +647,7 @@ def plain_render(r: Renderer, spp: int) -> np.ndarray:
                  use_dof=float(r.camera.aperture) > 0.0,
                  max_bounces=cfg.max_bounces, do_mis=cfg.do_mis,
                  num_lights=r.scene.num_lights,
-                 firefly_clamp=cfg.firefly_clamp)
+                 firefly_clamp=cfg.firefly_clamp, rng_mode=cfg.rng)
     row_major = inverse_permutation(tile_permutation(cfg.width, cfg.height))
     return accum.cpu().numpy()[row_major].reshape(cfg.height, cfg.width, 3)
 
@@ -638,11 +662,13 @@ def reset_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches per kernel: K1, K2 by texture mode ("k2" untextured), K3,
-    K4, K5 (a gate and a test kernel count as one) and K6."""
+    """Launches per kernel: K1, K2 by texture mode ("k2" untextured), those
+    of them that ran K2's LDS instantiation, K3, K4, K5 (a gate and a test
+    kernel count as one) and K6."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
-            "k2_fat": K2.Counter.by_mode["fat"], "k3": K3.Counter.launches,
+            "k2_fat": K2.Counter.by_mode["fat"], "k2_lds": K2.Counter.lds,
+            "k3": K3.Counter.launches,
             "k4": K4.Counter.launches, "k5": K5.Counter.launches,
             "k6": K6.Counter.launches}
 
@@ -694,6 +720,11 @@ def repeat_renders(r: Renderer, spp: int, rays: int, path: str, smi: str):
     return float(med), [float(q1), float(q3)], walls
 
 
+def pixels_differing(a: np.ndarray, b: np.ndarray) -> int:
+    """Pixels of two (H, W, 3) float32 images whose bits differ."""
+    return int((a.view(np.uint32) != b.view(np.uint32)).any(-1).sum())
+
+
 def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str):
     """The plain path's image of the same frames against the kernels',
     which must be equal on every pixel; returns the plain wall seconds."""
@@ -703,8 +734,7 @@ def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str):
     plain_secs = time.perf_counter() - t0
     if launch_counts() != launched:
         raise AssertionError("the plain path launched a kernel")
-    pixels = int((hdr.view(np.uint32) != hdr_plain.view(np.uint32))
-                 .any(-1).sum())
+    pixels = pixels_differing(hdr, hdr_plain)
     w, h = r.config.width, r.config.height
     say(path, f"plain path ({w}x{h} x {spp} spp): wall {plain_secs:.3f} s; "
         f"its image differs from the kernels' on {pixels} of {w * h} pixels")
@@ -1099,8 +1129,7 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
         f, LARGE_PLAIN_SPP, report, "pairs_fallback",
         expect(k2=MAX_BOUNCES * LARGE_PLAIN_SPP,
                k4=2 * MAX_BOUNCES * LARGE_PLAIN_SPP))
-    pixels = int((fallback.view(np.uint32) != one.view(np.uint32))
-                 .any(-1).sum())
+    pixels = pixels_differing(fallback, one)
     say("pairs", "the same box without walk tables under intersector='auto' "
         f"took {f.stats()['intersector']!r}; its image differs from the "
         f"forced run's on {pixels} of {SIZE * SIZE} pixels")
@@ -1113,7 +1142,7 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
     for kind, key, scene_np in (("phased", "k5", mid), ("cluster", "k6",
                                                         large)):
         r = forced_renderer(kind, scene_np, kind)
-        hdr, secs = counted_render(
+        _, secs = counted_render(
             r, DISPATCH_SPP, report, kind,
             expect(k2=MAX_BOUNCES * DISPATCH_SPP,
                    **{key: 2 * MAX_BOUNCES * DISPATCH_SPP}))
@@ -1122,7 +1151,9 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
         say(kind, f"{scene_np.num_triangles} triangles, cold render: wall "
             f"{secs:.3f} s, {rays} rays, {rays / secs / 1e6:.3f} Mrays/s on "
             f"{smi}")
-        plain_secs = checked_plain(r, DISPATCH_SPP, hdr, kind)
+        r.reset()
+        one = r.render(spp=DISPATCH_PLAIN_SPP)
+        plain_secs = checked_plain(r, DISPATCH_PLAIN_SPP, one, kind)
         report[kind] = {"triangles": scene_np.num_triangles, "seconds": secs,
                         "mrays_per_sec": rays / secs / 1e6,
                         "plain_seconds": plain_secs}
@@ -1168,6 +1199,178 @@ def phase_large(dev, smi, report, profile: str | None):
                        "plain_seconds": plain_secs}
 
 
+def lds_case(scene_np, dev, drop_fat: bool = False, frame: int = 0):
+    """Bounce 0 of the stratified flagship camera at ``frame`` on
+    ``scene_np``: K2's arguments (hits from the plain dense hit), keywords
+    and the LDS rows. ``drop_fat`` samples a textured scene per slot."""
+    packed = pack_device_scene(scene_np)
+    if drop_fat:
+        packed = {k: v for k, v in packed.items() if k not in FAT_KEYS}
+    scene = load_jax_scene(packed, dev)
+    camera = Camera(width=SIZE, height=SIZE, aspect=1.0)
+    cam = camera_device(camera.as_pytree(), SIZE, SIZE)
+    x, y = tile_pixels(SIZE, SIZE, dev)
+    ro, rd, state = generate_rays(cam, x, y, frame,
+                                  use_dof=float(camera.aperture) > 0.0,
+                                  rng_mode="stratified")
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+    args = (0, rays, state, torch.ones((3, n), device=dev),
+            torch.zeros((3, n), device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+            scene["tri_full"], scene["light_full"])
+    atlas, slots = TRACE.scene_atlas(scene)
+    kw = dict(do_mis=True, num_lights=scene_np.num_lights, atlas=atlas,
+              slots_used=slots)
+    return args, kw, bounce0_lds(x, y, frame)
+
+
+def phase_k2_lds(dev, report):
+    """K2's LDS instantiation against its plain version (the phase-4 bound)
+    on the Cornell box, the material box and the textured box sampled per
+    slot; how many lanes the override moves; its time beside the launch
+    without LDS on the same inputs."""
+    key = report.setdefault("k2_lds", {})
+    timed = None
+    for label, scene_np, drop_fat in (
+            ("cornell_box", cornell_box(), False),
+            ("material_test_box", material_test_box(), False),
+            ("textured_cornell", textured_cornell(), True)):
+        args, kw, lds = lds_case(scene_np, dev, drop_fat)
+        n = args[1].shape[1]
+        before = K2.Counter.lds
+        kout = K2.bounce_stage_cuda(*args, **kw, lds=lds)
+        torch.cuda.synchronize()
+        if K2.Counter.lds != before + 1:
+            raise AssertionError("bounce 0 with lds did not launch the LDS "
+                                 "instantiation")
+        pout = K2.bounce_stage_plain(*args, **kw, lds=lds)
+        summary = check_k2(kout, pout, n, f"{label} with LDS", key)
+        without = K2.bounce_stage_cuda(*args, **kw)
+        moved = int((kout[0] != without[0]).any(0).sum())
+        states = int((kout[1] != without[1]).sum())
+        mode = K2.texture_mode(kw["atlas"])
+        say("k2_lds", f"{label} ({mode}) bounce 0, rng 'stratified': {n} "
+            f"lanes; against the plain version: {summary}; the override "
+            f"moves the next ray on {moved} lanes, the state on {states} "
+            "(the Fresnel draw follows the lobe)")
+        if not moved:
+            raise AssertionError(f"{label}: the LDS override did not engage")
+        timed = timed or (args, kw, lds, kout)
+    args, kw, lds, kout = timed
+    (ms, plain_ms), (eager, plain_eager) = time_pair(
+        lambda: K2.bounce_stage_cuda(*args, **kw, lds=lds),
+        lambda: K2.bounce_stage_plain(*args, **kw, lds=lds))
+    no_lds_ms = device_ms(lambda: K2.bounce_stage_cuda(*args, **kw))
+    b = bound(nbytes(*args[1:], lds, *kout), K2_OPS["none"] * args[1].shape[1])
+    say("k2_lds", f"time at cornell_box bounce 0, {args[1].shape[1]} rays: "
+        f"device {ms:.4f} ms (without LDS {no_lds_ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms); launched from Python {eager:.4f} ms (plain "
+        f"{plain_eager:.4f} ms); bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
+    key.update(ms=ms, plain_ms=plain_ms, no_lds_ms=no_lds_ms, **b)
+
+
+def same_image(a: np.ndarray, b: np.ndarray, what: str) -> int:
+    """Raises unless ``a`` and ``b`` are equal on every pixel."""
+    pixels = pixels_differing(a, b)
+    say("rng", f"{what}: differs on {pixels} of {a.shape[0] * a.shape[1]} "
+        "pixels")
+    if pixels:
+        raise AssertionError(f"{what}: the images differ")
+    return pixels
+
+
+def rng_renderer(rng: str, scene_np, **config) -> Renderer:
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE, rng=rng, **config),
+                 device="cuda")
+    r.load_scene(scene_np)
+    return r
+
+
+def phase_rng_paths(dev, smi, report, profile: str | None):
+    """The rng modes through the ``Renderer``: the stratified flagship (K2's
+    LDS instantiation once a frame), "hash", frames_per_trace and a
+    checkpoint."""
+    r = rng_renderer("stratified", cornell_box())
+    hdr, secs = counted_render(
+        r, SPP, report, "stratified",
+        expect(k1=2 * MAX_BOUNCES * SPP, k2=MAX_BOUNCES * SPP, k2_lds=SPP))
+    report["k2_lds"]["launches"] = report["k2_lds"]["launches_by_path"][
+        "stratified"]
+    rays = r.stats()["rays_total"]
+    say("stratified", f"cold render: wall {secs:.3f} s, {rays} rays, "
+        f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    plain_secs = checked_plain(r, SPP, hdr, "stratified")
+    med, quartiles, walls = repeat_renders(r, SPP, rays, "stratified", smi)
+    report["stratified"] = {"seconds": secs, "mrays_per_sec": rays / secs / 1e6,
+                            "repeat_median_seconds": med,
+                            "repeat_quartile_seconds": quartiles,
+                            "repeat_seconds": walls,
+                            "plain_seconds": plain_secs,
+                            "mean_hdr": float(hdr.mean())}
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_frames(r, f"{root}_stratified{ext}", "stratified")
+
+    h = rng_renderer("hash", cornell_box())
+    hash_hdr, hash_secs = counted_render(
+        h, HASH_SPP, report, "hash",
+        expect(k1=2 * MAX_BOUNCES * HASH_SPP, k2=MAX_BOUNCES * HASH_SPP))
+    hash_rays = h.stats()["rays_total"]
+    say("hash", f"cold render: wall {hash_secs:.3f} s, {hash_rays} rays, "
+        f"{hash_rays / hash_secs / 1e6:.3f} Mrays/s on {smi}")
+    report["hash"] = {"seconds": hash_secs,
+                      "mrays_per_sec": hash_rays / hash_secs / 1e6,
+                      "plain_seconds": checked_plain(h, HASH_SPP, hash_hdr,
+                                                     "hash")}
+
+    # frames_per_trace: F frames' rays in one trace call, the same image.
+    r.reset()
+    one = r.render(spp=FPT_SPP)
+    f2 = rng_renderer("stratified", cornell_box(), frames_per_trace=2)
+    two, _ = counted_render(
+        f2, FPT_SPP, report, "stratified_f2",
+        expect(k1=MAX_BOUNCES * FPT_SPP, k2=MAX_BOUNCES * FPT_SPP // 2,
+               k2_lds=FPT_SPP // 2))
+    fpt = {"flagship_pixels_differing": same_image(
+        one, two, f"the stratified flagship at frames_per_trace 2 against 1 "
+        f"({FPT_SPP} spp)")}
+    large, _ = tessellated_box(LARGE_TESSELLATION)
+    l1 = rng_renderer("reference", large)
+    one = l1.render(spp=FPT_LARGE_SPP)
+    del l1
+    l2 = rng_renderer("reference", large, frames_per_trace=2)
+    if l2.stats()["intersector"] != "walk":
+        raise AssertionError("the large box must take the walk (K3)")
+    two, _ = counted_render(
+        l2, FPT_LARGE_SPP, report, "large_f2",
+        expect(k2=MAX_BOUNCES * FPT_LARGE_SPP // 2,
+               k3=MAX_BOUNCES * FPT_LARGE_SPP))
+    fpt["large_pixels_differing"] = same_image(
+        one, two, f"the large box through K3 at frames_per_trace 2 against 1 "
+        f"({FPT_LARGE_SPP} spp)")
+    report["frames_per_trace"] = fpt
+
+    # A checkpoint: CKPT_SPP frames, saved, loaded into a fresh Renderer,
+    # CKPT_SPP more, against 2 * CKPT_SPP frames in one go.
+    c = rng_renderer("stratified", cornell_box())
+    c.render(spp=CKPT_SPP)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.npz")
+        c.save_checkpoint(path)
+        d = rng_renderer("stratified", cornell_box())
+        d.load_checkpoint(path)
+    resumed = d.render(spp=CKPT_SPP)
+    r.reset()
+    straight = r.render(spp=2 * CKPT_SPP)
+    report["checkpoint"] = {"frame_index": d.frame_index,
+                            "pixels_differing": same_image(
+        resumed, straight, f"a stratified render resumed from a checkpoint "
+        f"at {CKPT_SPP} spp against {2 * CKPT_SPP} spp in one go")}
+
+
 def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
     name = kernel_name.replace("(anonymous namespace)::", "")
@@ -1207,14 +1410,73 @@ def profile_frames(r: Renderer, path: str, phase: str) -> None:
         + ", ".join(f"{short(name)} {us / 1e3:.3f} ms" for name, us in top))
 
 
+# The phases in their order; "dispatch" reuses "k3"'s scene and rays.
+PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
+          "dispatch", "dispatch_paths", "k2_lds", "rng_paths")
+# The keys every kernel's entry in the kernels line carries.
+KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def kernels_line(report: dict, complete: bool) -> list:
+    """Every kernel's entry; with ``complete`` each must carry
+    ``KERNEL_KEYS`` (a run of some phases keeps the entries it filled)."""
+    pkg = "wgpu_path_tracing_tpu_torch"
+    ref = "wgpu_path_tracing_tpu/ops"
+    bounce = f"{pkg}/csrc/bounce.cu"
+    kernels = [
+        {"name": "dense_hit", "route": "cuda", "source": f"{pkg}/csrc/dense_hit.cu",
+         "replaces": f"{ref}/pallas_kernels.py:38", **report.get("k1", {})},
+        {"name": "bounce", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:412", **report.get("k2", {})},
+        # Textured K2: one kernel, two texture modes, each replacing the TPU
+        # kernel's sampler and the "external" texel pre-gather
+        # (_gather_texels, pallas_bounce.py:358) of its mode.
+        {"name": "bounce_tex_slot", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:258",
+         "also_replaces": f"{ref}/pallas_bounce.py:358",
+         **report.get("k2_per_slot", {})},
+        {"name": "bounce_tex_fat", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:288",
+         "also_replaces": f"{ref}/pallas_bounce.py:358",
+         **report.get("k2_fat", {})},
+        # K2's bounce-0 LDS instantiation (the TPU kernel's has_lds operand).
+        {"name": "bounce_lds", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/pallas_bounce.py:440", **report.get("k2_lds", {})},
+        {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
+         "replaces": f"{ref}/walk.py:177", **report.get("k3", {})},
+        {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
+         "replaces": f"{ref}/pairs.py:108", **report.get("k4", {})},
+        {"name": "phased", "route": "cuda", "source": f"{pkg}/csrc/phased.cu",
+         "replaces": f"{ref}/phased.py:70", **report.get("k5", {})},
+        {"name": "cluster", "route": "cuda",
+         "source": f"{pkg}/csrc/cluster.cu",
+         "replaces": f"{ref}/cluster.py:73", **report.get("k6", {})},
+    ]
+    full = [k for k in kernels if all(key in k for key in KERNEL_KEYS)]
+    if complete and len(full) != len(kernels):
+        missing = [k["name"] for k in kernels if k not in full]
+        raise AssertionError(f"kernels without all their numbers: {missing}")
+    return full
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
                         help="also write torch.profiler tables of four "
-                        "main-path, textured-flagship, large-scene and "
-                        "pair-dispatch frames to PATH and PATH with "
-                        "_textured, _large and _pairs before its extension")
+                        "main-path, textured-flagship, large-scene, "
+                        "pair-dispatch and stratified frames to PATH and PATH "
+                        "with _textured, _large, _pairs and _stratified "
+                        "before its extension")
+    parser.add_argument("--phases", metavar="NAME,...",
+                        help="run only these phases, of: " + ", ".join(PHASES))
     args = parser.parse_args()
+    wanted = PHASES if args.phases is None else tuple(args.phases.split(","))
+    unknown = set(wanted) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    if "dispatch" in wanted and "k3" not in wanted:
+        raise SystemExit("chip_smoke: the 'dispatch' phase needs 'k3'")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     dev = torch.device("cuda")
@@ -1232,53 +1494,42 @@ def main() -> int:
             say("build", line.strip())
 
     report: dict = {}
+    profile = args.profile
+    large = None
+    phases = {
+        "k1": lambda: phase_k1(dev, report),
+        "k2": lambda: phase_k2(dev, report),
+        "k2_tex": lambda: phase_k2_tex(dev, report),
+        "oracle": lambda: phase_oracle(dev),
+        "main": lambda: phase_main(dev, smi, report, profile),
+        "textured": lambda: phase_textured(dev, smi, report, profile),
+        "k3": lambda: phase_k3(dev, report),
+        "large": lambda: phase_large(dev, smi, report, profile),
+        "dispatch": lambda: phase_dispatch(dev, report, large),
+        "dispatch_paths": lambda: phase_dispatch_paths(dev, smi, report,
+                                                       profile),
+        "k2_lds": lambda: phase_k2_lds(dev, report),
+        "rng_paths": lambda: phase_rng_paths(dev, smi, report, profile),
+    }
     t_start = time.perf_counter()
-    phase_k1(dev, report)
-    phase_k2(dev, report)
-    phase_k2_tex(dev, report)
-    phase_oracle(dev)
-    phase_main(dev, smi, report, args.profile)
-    phase_textured(dev, smi, report, args.profile)
-    large = phase_k3(dev, report)
-    phase_large(dev, smi, report, args.profile)
-    phase_dispatch(dev, report, large)
-    del large
-    phase_dispatch_paths(dev, smi, report, args.profile)
+    for phase in PHASES:
+        if phase not in wanted:
+            continue
+        t_phase = time.perf_counter()
+        out = phases[phase]()
+        if phase == "k3":
+            large = out
+        elif phase == "dispatch":
+            large = None
+        say("done", f"phase {phase} in {time.perf_counter() - t_phase:.1f} s")
 
-    pkg = "wgpu_path_tracing_tpu_torch"
-    ref = "wgpu_path_tracing_tpu/ops"
-    bounce = f"{pkg}/csrc/bounce.cu"
-    kernels = [
-        {"name": "dense_hit", "route": "cuda", "source": f"{pkg}/csrc/dense_hit.cu",
-         "replaces": f"{ref}/pallas_kernels.py:38", **report["k1"]},
-        {"name": "bounce", "route": "cuda", "source": bounce,
-         "replaces": f"{ref}/pallas_bounce.py:412", **report["k2"]},
-        # Textured K2: one kernel, two texture modes, each replacing the TPU
-        # kernel's sampler and the "external" texel pre-gather
-        # (_gather_texels, pallas_bounce.py:358) of its mode.
-        {"name": "bounce_tex_slot", "route": "cuda", "source": bounce,
-         "replaces": f"{ref}/pallas_bounce.py:258",
-         "also_replaces": f"{ref}/pallas_bounce.py:358",
-         **report["k2_per_slot"]},
-        {"name": "bounce_tex_fat", "route": "cuda", "source": bounce,
-         "replaces": f"{ref}/pallas_bounce.py:288",
-         "also_replaces": f"{ref}/pallas_bounce.py:358",
-         **report["k2_fat"]},
-        {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
-         "replaces": f"{ref}/walk.py:177", **report["k3"]},
-        {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
-         "replaces": f"{ref}/pairs.py:108", **report["k4"]},
-        {"name": "phased", "route": "cuda", "source": f"{pkg}/csrc/phased.cu",
-         "replaces": f"{ref}/phased.py:70", **report["k5"]},
-        {"name": "cluster", "route": "cuda",
-         "source": f"{pkg}/csrc/cluster.cu",
-         "replaces": f"{ref}/cluster.py:73", **report["k6"]},
-    ]
+    kernels = kernels_line(report, complete=wanted == PHASES)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "main": report["main"],
-                      **{path: report[path] for path, _, _ in TEXTURED},
-                      "large": report["large"],
-                      **{path: report[path] for path in DISPATCH},
+    paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
+             "stratified", "hash", "frames_per_trace", "checkpoint")
+    print(json.dumps({"kernels": kernels,
+                      **{path: report[path] for path in paths
+                         if path in report},
                       "nvidia_smi": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ imports JAX; where JAX is not installed, run them with:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
-in both texture modes), K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5
-(csrc/phased.cu) and K6 (csrc/cluster.cu) must equal the plain versions
-bit for bit: both round every float32 operation the same way (the kernels
-are built with -fmad=false and IEEE division and square root).
+in both texture modes, with and without its bounce-0 LDS instantiation),
+K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu) and K6
+(csrc/cluster.cu) must equal the plain versions bit for bit: both round
+every float32 operation the same way (the kernels are built with
+-fmad=false and IEEE division and square root).
 """
 
 import dataclasses
@@ -283,3 +284,68 @@ def test_renderer_dispatch_path_equals_plain_path(dev, kind):
     assert counter.launches == before + 2 * r.config.max_bounces
     np.testing.assert_array_equal(kernel.view(np.uint32),
                                   plain.view(np.uint32))
+
+
+@pytest.mark.parametrize("scene_fn, mode", [
+    (cornell_box, "none"),
+    (textured_cornell, "fat"),
+    (coprime_textured, "per_slot"),
+])
+def test_bounce_lds_kernel_equals_plain(dev, scene_fn, mode):
+    """K2's LDS instantiation on the stratified camera rays, at bounce 0 in
+    each texture mode, on all ten outputs; at bounce 1 the lds operand is
+    ignored and the plain instantiation runs."""
+    sc = scene_fn()
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    atlas, slots = TRACE.scene_atlas(scene)
+    assert K2.texture_mode(atlas) == mode
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 3, use_dof=True,
+                                      rng_mode="stratified")
+    lds = CAM.bounce0_lds(x, y, 3)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    kw = dict(do_mis=True, num_lights=sc.num_lights, atlas=atlas,
+              slots_used=slots)
+    for b in range(2):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        args = (b, rays, state, thr, res, alive, t, idx, scene["tri_full"],
+                scene["light_full"])
+        before = K2.Counter.lds
+        kout = K2.bounce_stage_cuda(*args, **kw, lds=lds)
+        torch.cuda.synchronize()
+        assert K2.Counter.lds == before + (b == 0)
+        pout = K2.bounce_stage_plain(*args, **kw, lds=lds)
+        for k, p in zip(kout, pout):
+            assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
+        rays, state, thr, res, alive = pout[:5]
+
+
+@pytest.mark.parametrize("rng", ["hash", "stratified"])
+def test_renderer_rng_modes_equal_plain_path(dev, rng):
+    r = Renderer(RenderConfig(width=W, height=H, rng=rng), device="cuda")
+    r.load_scene(cornell_box())
+    before = K2.Counter.lds
+    kernel = r.render(spp=2)
+    assert K2.Counter.lds == before + (2 if rng == "stratified" else 0)
+    plain = plain_render(r, spp=2)
+    assert np.isfinite(kernel).all()
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
+
+
+def test_renderer_frames_per_trace_equals_one_frame_a_trace(dev):
+    images = []
+    for fpt in (1, 2):
+        r = Renderer(RenderConfig(width=W, height=H, rng="stratified",
+                                  frames_per_trace=fpt), device="cuda")
+        r.load_scene(cornell_box())
+        before = K1.Counter.launches
+        images.append(r.render(spp=4))
+        assert K1.Counter.launches == before + 2 * r.config.max_bounces * 4 // fpt
+    np.testing.assert_array_equal(images[0].view(np.uint32),
+                                  images[1].view(np.uint32))

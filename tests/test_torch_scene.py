@@ -145,8 +145,11 @@ def test_cuda_without_a_card_raises():
 
 
 def test_unported_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        RenderConfig(rng="hash").validate()
+    # The rng modes are ported; only the JAX package's three are taken.
+    for rng in ("hash", "stratified"):
+        RenderConfig(rng=rng).validate()
+    with pytest.raises(ValueError):
+        RenderConfig(rng="sobol").validate()
     for name in ("bvh", "stack", "walk_hbm"):
         with pytest.raises(NotImplementedError, match="not ported"):
             RenderConfig(intersector=name).validate()

@@ -2,13 +2,16 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of ``wgpu_path_tracing_tpu`` (JAX on a TPU), which stays beside it as
-the reference. The render runs end to end, textured or not: scene packing
-(with the fat texture canvas), camera rays, the closest hit (kernel K1,
-``csrc/dense_hit.cu``, the dense hit for scenes of up to 4,096 triangles;
-kernel K3, ``csrc/walk.cu``, the wide-BVH walk above), the bounce shading
-stage (kernel K2, ``csrc/bounce.cu``, untextured or sampling the texture
-atlas per slot or from the fat canvas), accumulation and the AGX display
-transform. The ``Renderer`` runs on the card unless it is given
+the reference. The render runs end to end, textured or not, in the three
+rng modes: scene packing (with the fat texture canvas), camera rays, the
+closest hit (kernel K1, ``csrc/dense_hit.cu``, the dense hit for scenes of
+up to 4,096 triangles; kernel K3, ``csrc/walk.cu``, the wide-BVH walk
+above; kernels K4-K6, the dispatch intersectors, for trees too deep for the
+walk or when forced), the bounce shading stage (kernel K2,
+``csrc/bounce.cu``, untextured or sampling the texture atlas per slot or
+from the fat canvas, with rng="stratified"'s bounce-0 override),
+accumulation, the AGX display transform, PNG, HDR and EXR output and
+checkpoints. The ``Renderer`` runs on the card unless it is given
 ``device="cpu"``, where each kernel's plain PyTorch version runs instead.
 
     from wgpu_path_tracing_tpu_torch import (
@@ -28,6 +31,8 @@ PyTorch, numpy and the CUDA toolkit are installed.
 from wgpu_path_tracing_tpu_torch.models.procedural import (
     cornell_box,
     material_test_box,
+    random_triangles,
+    single_triangle,
     textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import load_jax_scene
@@ -39,5 +44,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Renderer", "RenderConfig", "Camera", "cornell_box", "material_test_box",
-    "textured_cornell", "load_jax_scene", "__version__",
+    "random_triangles", "single_triangle", "textured_cornell",
+    "load_jax_scene", "__version__",
 ]

@@ -1,5 +1,5 @@
-// K2: one bounce's shading, one thread per ray, reference rng, untextured or
-// textured.
+// K2: one bounce's shading, one thread per ray, untextured or textured, with
+// or without the bounce-0 low-discrepancy override of rng="stratified".
 //
 // Replaces the TPU kernel wgpu_path_tracing_tpu/ops/pallas_bounce.py::
 // _bounce_kernel (entered through bounce_stage_pallas, driven by
@@ -29,6 +29,17 @@
 // `slots` is the scene's 4-bit texture_slots_used mask (albedo, pbr,
 // emissive, normal); an unused slot takes its fallback without a load.
 //
+// The LDS override (the TPU kernel's has_lds operand, pallas_bounce.py:413,
+// 440-442, 506-511). With rng="stratified" the first bounce's lobe pick and
+// direction pair come from the (3, N) rows lds = [lobe, r1, r2]: after the
+// three masked rand() calls of sample_bsdf, which advance the state exactly
+// as always, their values are replaced. The TPU kernel gates this on
+// bounce_ref[0] == 0 inside the kernel and reads the operand at every
+// bounce; here the host knows the bounce, so the template flag LDS is set
+// for the bounce-0 launch only. The operand is read once a frame (12 B a
+// ray), and every other launch, and every launch of rng="reference" and
+// "hash", runs the instruction stream without it.
+//
 // What it computes is ops/trace.py::bounce_core of this package: hit
 // attributes (ops/shade.py), emissive termination x 1/(1+t^2), NEE with the
 // power heuristic (ops/lights.py, ops/bsdf.py), the BSDF sample, the
@@ -37,10 +48,10 @@
 // draw order of the plain version.
 //
 // Bound on the H100: device-memory bytes. A ray reads 65 B of state (rays,
-// throughput, result, t, idx, rng, alive) and writes 102 B (next rays,
-// throughput, result, shadow ray, t_max, mask, direct, pdf, rng, alive);
-// the two tables (36 x 52 and a few x 27 floats for the Cornell box) stay
-// resident in L1/L2. A textured ray adds at most 16 B a used slot; the
+// throughput, result, t, idx, rng, alive; 12 B more with LDS) and writes
+// 102 B (next rays, throughput, result, shadow ray, t_max, mask, direct,
+// pdf, rng, alive); the two tables (36 x 52 and a few x 27 floats for the
+// Cornell box) stay resident in L1/L2. A textured ray adds at most 16 B a used slot; the
 // atlas (16 KB at 32^2, 4 MB at 512^2) and the fat canvas (8 MB for the
 // 512^2 congruent atlas) fit the 50 MB L2. The design keeps every intermediate
 // in registers and touches device memory once per input and output, all SoA
@@ -380,15 +391,23 @@ __device__ __forceinline__ V3 sample_ggx_normal(V3 normal, float roughness, floa
 }
 
 // sampleBSDF (pt.wgsl:498-546): lobe select, two direction draws, and the
-// Fresnel draw only on transmission lanes that can refract.
-__device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bool mask) {
+// Fresnel draw only on transmission lanes that can refract. With LDS the
+// three main draws' values are `ov`'s; the state advances all the same.
+template <bool LDS>
+__device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bool mask,
+                          const float (&ov)[3]) {
   const V3 v = -normalize(rd);
   const float diffuse_prob = (1.0f - hit.metallic) * (1.0f - hit.transmission);
   const float specular_prob = hit.metallic;
 
-  const float r = rand(state, mask);
-  const float r1 = rand(state, mask);
-  const float r2 = rand(state, mask);
+  float r = rand(state, mask);
+  float r1 = rand(state, mask);
+  float r2 = rand(state, mask);
+  if constexpr (LDS) {
+    r = ov[0];
+    r1 = ov[1];
+    r2 = ov[2];
+  }
 
   const bool lobe_d = r < diffuse_prob;
   const bool lobe_s = !lobe_d && (r < diffuse_prob + specular_prob);
@@ -497,7 +516,7 @@ __device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_pos
 
 // ---- the bounce (ops/trace.py::bounce_core) ---------------------------------
 
-template <int MODE>
+template <int MODE, bool LDS>
 __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const int64_t* __restrict__ state_in,
                               const float* __restrict__ throughput_in,
@@ -507,7 +526,8 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const int* __restrict__ idx_in,
                               const float* __restrict__ tri_full,
                               const float* __restrict__ light_full, int num_lights,
-                              int do_mis, Tex tex, float* __restrict__ rays_out,
+                              int do_mis, Tex tex, const float* __restrict__ lds,
+                              float* __restrict__ rays_out,
                               int64_t* __restrict__ state_out,
                               float* __restrict__ throughput_out,
                               float* __restrict__ result_out, bool* __restrict__ alive_out,
@@ -623,7 +643,13 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
     s_pdf = ls.pdf;
   }
 
-  const V3 new_dir = sample_bsdf(hit, rd, hit.is_front, state, cont);
+  float ov[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (LDS) {
+    ov[0] = lds[i];
+    ov[1] = lds[n + i];
+    ov[2] = lds[2 * n + i];
+  }
+  const V3 new_dir = sample_bsdf<LDS>(hit, rd, hit.is_front, state, cont, ov);
   V3 f_val;
   const float pdf = eval_bsdf(hit, hit.normal, v_out, new_dir, hit.is_front, f_val);
   const bool ok = cont && (pdf > 0.0f);
@@ -679,8 +705,9 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
                           const void* t, const void* idx, const void* tri_full,
                           const void* light_full, int num_lights, int do_mis, int tex_mode,
                           const void* atlas, int atlas_h, int atlas_w, const void* fat_rects,
-                          int n_sets, int slots, void* rays_out, void* state_out,
-                          void* throughput_out, void* result_out, void* alive_out,
+                          int n_sets, int slots, const void* lds, void* rays_out,
+                          void* state_out, void* throughput_out, void* result_out,
+                          void* alive_out,
                           void* shadow_rays, void* shadow_t_max, void* shadow_mask,
                           void* shadow_direct, void* shadow_pdf, int n, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
@@ -693,21 +720,25 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
         static_cast<const bool*>(alive), static_cast<const float*>(t),
         static_cast<const int*>(idx), static_cast<const float*>(tri_full),
         static_cast<const float*>(light_full), num_lights, do_mis, tex,
-        static_cast<float*>(rays_out), static_cast<int64_t*>(state_out),
+        static_cast<const float*>(lds), static_cast<float*>(rays_out),
+        static_cast<int64_t*>(state_out),
         static_cast<float*>(throughput_out), static_cast<float*>(result_out),
         static_cast<bool*>(alive_out), static_cast<float*>(shadow_rays),
         static_cast<float*>(shadow_t_max), static_cast<bool*>(shadow_mask),
         static_cast<float*>(shadow_direct), static_cast<float*>(shadow_pdf), n);
   };
+  const size_t fat_smem = static_cast<size_t>(n_sets) * FAT_RECT_COLS * sizeof(float);
+  const bool with_lds = lds != nullptr;
   switch (tex_mode) {
     case TEX_NONE:
-      launch(bounce_kernel<TEX_NONE>, 0);
+      with_lds ? launch(bounce_kernel<TEX_NONE, true>, 0) : launch(bounce_kernel<TEX_NONE, false>, 0);
       break;
     case TEX_SLOT:
-      launch(bounce_kernel<TEX_SLOT>, 0);
+      with_lds ? launch(bounce_kernel<TEX_SLOT, true>, 0) : launch(bounce_kernel<TEX_SLOT, false>, 0);
       break;
     case TEX_FAT:
-      launch(bounce_kernel<TEX_FAT>, static_cast<size_t>(n_sets) * FAT_RECT_COLS * sizeof(float));
+      with_lds ? launch(bounce_kernel<TEX_FAT, true>, fat_smem)
+               : launch(bounce_kernel<TEX_FAT, false>, fat_smem);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,8 +8,9 @@ self-contained default/benchmark scene, framed for the reference's default
 camera at (0, 1, 2.8) looking down -Z with fov pi/3 (renderer.ts:137-149).
 
 Also provides ``material_test_box``, which covers every BSDF lobe and light
-type the renderer shades, and ``textured_cornell``, the box with a synthetic
-texture atlas.
+type the renderer shades, ``textured_cornell``, the box with a synthetic
+texture atlas, and ``single_triangle`` and ``random_triangles`` for
+intersection tests.
 """
 
 from __future__ import annotations
@@ -248,6 +249,57 @@ def material_test_box(max_leaf_size: int = 4, num_bins: int = 12) -> SceneArrays
         light_color=np.array([[1.0, 0.9, 0.8], [0.6, 0.7, 1.0]], f32),
         light_intensity=np.array([0.8, 0.5], f32),
         max_leaf_size=max_leaf_size, num_bins=num_bins,
+    )
+
+
+def single_triangle(
+    v0=(-1.0, -1.0, -3.0),
+    v1=(1.0, -1.0, -3.0),
+    v2=(0.0, 1.0, -3.0),
+) -> SceneArrays:
+    """One diffuse triangle, for intersection tests."""
+    f32 = np.float32
+    n = np.cross(np.subtract(v1, v0), np.subtract(v2, v0))
+    n = (n / np.linalg.norm(n)).astype(f32)
+    return finalize_scene(
+        np.array([v0], f32), np.array([v1], f32), np.array([v2], f32),
+        np.array([n], f32), np.array([n], f32), np.array([n], f32),
+        np.zeros((1, 2), f32), np.zeros((1, 2), f32), np.zeros((1, 2), f32),
+        np.zeros(1, np.int32),
+        np.array([[0.8, 0.8, 0.8]], f32),
+        np.zeros(1, f32), np.ones(1, f32),
+        np.zeros((1, 3), f32), np.zeros(1, f32),
+        np.full(1, 1.5, f32), np.zeros(1, f32),
+    )
+
+
+def random_triangles(
+    n: int, seed: int = 0, extent: float = 10.0, tri_size: float = 0.5
+) -> SceneArrays:
+    """A cloud of ``n`` random diffuse triangles, the first one emissive,
+    for traversal stress tests and large-scene measurements."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    base = rng.uniform(-extent, extent, (n, 3))
+    v0 = base
+    v1 = base + rng.uniform(-tri_size, tri_size, (n, 3))
+    v2 = base + rng.uniform(-tri_size, tri_size, (n, 3))
+    nrm = np.cross(v1 - v0, v2 - v0)
+    ln = np.linalg.norm(nrm, axis=1, keepdims=True)
+    ln[ln == 0] = 1
+    nrm = nrm / ln
+    uv = rng.uniform(0, 1, (n, 2))
+    mats = np.zeros(n, np.int32)
+    mats[0] = 1  # one emissive triangle
+    return finalize_scene(
+        v0.astype(f32), v1.astype(f32), v2.astype(f32),
+        nrm.astype(f32), nrm.astype(f32), nrm.astype(f32),
+        uv.astype(f32), uv.astype(f32), uv.astype(f32),
+        mats,
+        np.array([[0.7, 0.7, 0.7], [0, 0, 0]], f32),
+        np.zeros(2, f32), np.ones(2, f32),
+        np.array([[0, 0, 0], [1, 1, 1]], f32), np.array([0.0, 4.0], f32),
+        np.full(2, 1.5, f32), np.zeros(2, f32),
     )
 
 

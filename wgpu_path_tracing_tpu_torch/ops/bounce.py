@@ -1,16 +1,19 @@
 """K2: the bounce megakernel, its plain version, and the loop that drives it.
 
 The counterpart of the JAX package's ``ops/pallas_bounce.py``
-(``bounce_stage_pallas`` / ``trace_pallas``) with the reference rng,
-untextured or textured. ``bounce_stage`` takes one bounce's SoA state and
-returns the same ten arrays as ``bounce_stage_pallas``:
+(``bounce_stage_pallas`` / ``trace_pallas``), untextured or textured, with
+the bounce-0 low-discrepancy override of rng="stratified". ``bounce_stage``
+takes one bounce's SoA state and returns the same ten arrays as
+``bounce_stage_pallas``:
 
     in:  rays (6, N) f32, state (N,) int64, throughput (3, N), result (3, N),
          alive (N,) bool, t (N,) f32, idx (N,) int32,
          tri_full (T, 52) f32, light_full (L, 27) f32,
          atlas: None, the (H, W, 4) f32 atlas (per-slot sampling) or
          ("fat", canvas (FH, FW, 16) f32, rects (S, 20) f32),
-         slots_used: the scene's 4 texture-slot flags
+         slots_used: the scene's 4 texture-slot flags,
+         lds: None or (3, N) f32 rows [lobe, r1, r2] that replace the BSDF
+         sample's three main draws at bounce 0 (ignored at other bounces)
     out: next rays (6, N), state, throughput, result, alive,
          shadow rays (6, N), shadow t_max (N,), shadow mask (N,) bool,
          direct (3, N), pdf (N,)
@@ -19,6 +22,9 @@ The atlas forms replace the TPU kernel's three texture modes (in-VMEM
 per-slot, in-VMEM fat, and "external", where XLA gathers the texels before
 the kernel): on the card a texel is one load, so the fat canvas, when the
 scene has one, and the per-slot atlas otherwise are read inside the kernel.
+The TPU kernel's ``has_lds`` operand is one more template flag: the host
+knows the bounce, so the LDS instantiation launches at bounce 0 only and the
+other bounces run the kernel without it.
 
 On a CUDA tensor it launches ``csrc/bounce.cu``; on a CPU tensor it runs
 ``bounce_stage_plain`` (``ops/trace.py::bounce_core`` over the same arrays).
@@ -36,16 +42,19 @@ from wgpu_path_tracing_tpu_torch.ops import vec
 
 
 class Counter:
-    """Launches of the K2 kernel in this process, in all (``launches``) and
-    by texture mode (``by_mode``: "none", "per_slot", "fat")."""
+    """Launches of the K2 kernel in this process, in all (``launches``), by
+    texture mode (``by_mode``: "none", "per_slot", "fat"), and those of them
+    that ran the bounce-0 LDS instantiation (``lds``)."""
 
     launches = 0
     by_mode = {"none": 0, "per_slot": 0, "fat": 0}
+    lds = 0
 
     @classmethod
     def reset(cls) -> None:
         cls.launches = 0
         cls.by_mode = dict.fromkeys(cls.by_mode, 0)
+        cls.lds = 0
 
 
 # csrc/bounce.cu's TexMode values.
@@ -62,8 +71,11 @@ def texture_mode(atlas) -> str:
 def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
                        alive, t, idx, tri_full, light_full, *, do_mis: bool,
                        num_lights: int, atlas=None,
-                       slots_used=(True, True, True, True)):
+                       slots_used=(True, True, True, True), lds=None):
     """Plain PyTorch K2 on any device."""
+    override = None
+    if lds is not None:
+        override = (int(bounce_idx) == 0, lds[0], lds[1], lds[2])
     st = TRACE.BounceState(
         ro=vec.from_rows(rays, 0), rd=vec.from_rows(rays, 3),
         throughput=vec.from_rows(throughput, 0),
@@ -73,7 +85,7 @@ def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
         fetch_tri=lambda i: SHADE.fetch_rows(tri_full, i),
         fetch_light=lambda i: SHADE.fetch_rows(light_full, i),
         do_mis=do_mis, num_lights=num_lights, atlas=atlas,
-        slots_used=slots_used)
+        slots_used=slots_used, bsdf_override=override)
     return [
         torch.cat([vec.stack_rows(new.ro), vec.stack_rows(new.rd)]),
         new.state,
@@ -133,8 +145,9 @@ def _atlas_args(atlas, dev):
 def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
                       t, idx, tri_full, light_full, *, do_mis: bool,
                       num_lights: int, atlas=None,
-                      slots_used=(True, True, True, True)):
-    """Launch K2 on the current stream (no synchronisation)."""
+                      slots_used=(True, True, True, True), lds=None):
+    """Launch K2 on the current stream (no synchronisation): the LDS
+    instantiation when ``lds`` is given at bounce 0, else the plain one."""
     n = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
@@ -159,6 +172,12 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
         raise ValueError("slots_used: expected 4 flags")
     tex = _atlas_args(atlas, dev)
     slots = sum(1 << k for k, used in enumerate(slots_used) if used)
+    use_lds = lds is not None and int(bounce_idx) == 0
+    if use_lds and (tuple(lds.shape) != (3, n) or lds.dtype != torch.float32
+                    or lds.device != dev or not lds.is_contiguous()):
+        raise ValueError(f"lds: expected contiguous (3, {n}) float32 on "
+                         f"{dev}, got {tuple(lds.shape)} {lds.dtype} on "
+                         f"{lds.device}")
 
     def empty(rows, dtype):
         return torch.empty((rows, n) if rows else (n,), dtype=dtype, device=dev)
@@ -175,17 +194,18 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
         throughput.data_ptr(), result.data_ptr(), alive.data_ptr(),
         t.data_ptr(), idx.data_ptr(), tri_full.data_ptr(),
         light_full.data_ptr(), int(num_lights),
-        int(bool(do_mis)), *tex, slots, *(o.data_ptr() for o in outs), n,
-        cuda_lib.stream_ptr(rays))
+        int(bool(do_mis)), *tex, slots, lds.data_ptr() if use_lds else None,
+        *(o.data_ptr() for o in outs), n, cuda_lib.stream_ptr(rays))
     cuda_lib.check(err, "wpt_bounce")
     Counter.launches += 1
     Counter.by_mode[texture_mode(atlas)] += 1
+    Counter.lds += int(use_lds)
     return outs
 
 
 def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
                  idx, tri_full, light_full, *, do_mis: bool, num_lights: int,
-                 atlas=None, slots_used=(True, True, True, True)):
+                 atlas=None, slots_used=(True, True, True, True), lds=None):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     fn = {"cuda": bounce_stage_cuda, "cpu": bounce_stage_plain}.get(
@@ -194,16 +214,18 @@ def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
         raise ValueError(f"unsupported device {rays.device}")
     return fn(bounce_idx, rays, state, throughput, result, alive, t, idx,
               tri_full, light_full, do_mis=do_mis, num_lights=num_lights,
-              atlas=atlas, slots_used=slots_used)
+              atlas=atlas, slots_used=slots_used, lds=lds)
 
 
 def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
-               max_bounces: int = 8, do_mis: bool = True, num_lights: int = 0):
+               max_bounces: int = 8, do_mis: bool = True, num_lights: int = 0,
+               lds0=None):
     """The bounce loop over the K2 wrapper (``trace_pallas``'s shape): per
     bounce a closest hit, K2, a shadow query and ``resolve_shadow``. Same
     signature, semantics and RNG streams as ``ops/trace.py::trace``, the
-    atlas form included (``ops/trace.py::scene_atlas``). On CPU tensors the
-    wrappers run their plain versions."""
+    atlas form and ``lds0`` included (``ops/trace.py::scene_atlas``); K2
+    gets ``lds0`` at bounce 0 only. On CPU tensors the wrappers run their
+    plain versions."""
     n = ro.shape[1]
     atlas, slots_used = TRACE.scene_atlas(scene)
     dev = ro.device
@@ -219,7 +241,8 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
          spdf) = bounce_stage(bounce_idx, rays, state, thr, res, alive, t, idx,
                               scene["tri_full"], scene["light_full"],
                               do_mis=do_mis, num_lights=num_lights,
-                              atlas=atlas, slots_used=slots_used)
+                              atlas=atlas, slots_used=slots_used,
+                              lds=lds0 if bounce_idx == 0 else None)
         if do_mis:
             counters[1] += smask.sum()
             shadow_t, _ = closest_hit(srays[0:3], srays[3:6], active=smask,

@@ -156,11 +156,16 @@ def eval_bsdf(hit, normal: V3, v: V3, l: V3, front):
     return bsdf, torch.clamp_min(pdf, EPSILON)
 
 
-def sample_bsdf(hit, rd: V3, front, state, mask):
+def sample_bsdf(hit, rd: V3, front, state, mask, override=None):
     """sampleBSDF (pt.wgsl:498-546). Returns (direction V3, new state).
 
     Draws on lanes in ``mask``: lobe select, two direction draws, and the
-    Fresnel draw only on transmission lanes that can refract."""
+    Fresnel draw only on transmission lanes that can refract.
+
+    ``override`` (rng="stratified", bounce 0): a (gate, lobe, r1, r2) tuple.
+    Where ``gate`` (a bool or a bool tensor) holds, the three main draws'
+    values are replaced; the state advances exactly as without it, so the
+    Fresnel draw, Russian roulette and later bounces keep their stream."""
     v = -vec.normalize(rd)
     diffuse_prob = (1.0 - hit.metallic) * (1.0 - hit.transmission)
     specular_prob = hit.metallic
@@ -168,6 +173,14 @@ def sample_bsdf(hit, rd: V3, front, state, mask):
     r, state = RNG.rand(state, mask)
     r1, state = RNG.rand(state, mask)
     r2, state = RNG.rand(state, mask)
+    if override is not None:
+        gate, o_r, o_r1, o_r2 = override
+        if isinstance(gate, torch.Tensor):
+            r = torch.where(gate, o_r, r)
+            r1 = torch.where(gate, o_r1, r1)
+            r2 = torch.where(gate, o_r2, r2)
+        elif gate:
+            r, r1, r2 = o_r, o_r1, o_r2
 
     lobe_d = r < diffuse_prob
     lobe_s = (~lobe_d) & (r < diffuse_prob + specular_prob)

@@ -1,9 +1,13 @@
-"""Primary ray generation (pt.wgsl:713-750), reference rng.
+"""Primary ray generation (pt.wgsl:713-750) in the three rng modes.
 
-Same semantics as the JAX package's ``ops/camera_rays.py``: per-pixel PCG
-seed, jittered pixel position, pinhole direction, and a thin-lens offset when
-the aperture is above zero (two more draws per pixel). Buffer row 0 is the
-BOTTOM of the view; the PNG writer flips.
+Same semantics as the JAX package's ``ops/camera_rays.py``: per-pixel seed,
+jittered pixel position, pinhole direction, and a thin-lens offset when the
+aperture is above zero. The seed is ``seed_pixel`` in "reference" mode and
+``hash_seed`` in "hash" and "stratified"; "stratified" takes the jitter and
+the lens disc from R2 points (streams 1-2 and 3-4) and leaves the PCG state
+as seeded. ``bounce0_lds`` gives the "stratified" mode's first-bounce BSDF
+draws (streams 5 and 6-7). Buffer row 0 is the BOTTOM of the view; the PNG
+writer flips.
 
 Rays come out SoA: ``ro`` and ``rd`` are (3, N) float32, ``state`` (N,) int64.
 """
@@ -17,6 +21,14 @@ from wgpu_path_tracing_tpu_torch.ops import rng as RNG
 from wgpu_path_tracing_tpu_torch.ops.vec import div_const
 
 PI = 3.14159265359
+
+# rng="stratified" also draws the first bounce's lobe pick and direction
+# from low-discrepancy sequences (``bounce0_lds``); the PCG state advances
+# as before. A module switch, as in the JAX package, so a test can turn it
+# off.
+TRACE_BOUNCE0_LDS = True
+
+_PHI1 = 0.6180339887498949  # golden ratio conjugate: the 1-D sequence
 
 
 def pixel_grid(width: int, height: int, device=None):
@@ -37,14 +49,29 @@ def _normalize_rows(v: torch.Tensor) -> torch.Tensor:
     return v / n
 
 
+def bounce0_lds(x: torch.Tensor, y: torch.Tensor, frame: int) -> torch.Tensor:
+    """(3, N) float32 rows [lobe, r1, r2] in [0, 1): the lobe pick from a
+    per-pixel-rotated golden-ratio sequence (stream 5), the direction pair
+    from the R2 point of streams 6-7 (JAX ``ops/camera_rays.py:41-59``)."""
+    lobe = RNG.frac_step(RNG.rotation(x, y, 5), frame, _PHI1)
+    r1, r2 = RNG.r2_point(x, y, frame, stream=6)
+    return torch.stack([lobe, r1, r2])
+
+
 def generate_rays(cam: dict, x: torch.Tensor, y: torch.Tensor, frame: int, *,
-                  use_dof: bool):
+                  use_dof: bool, rng_mode: str = "reference"):
     """cam: ``Camera.as_pytree()`` plus float ``width_f``/``height_f``.
     Returns (ro (3, N), rd (3, N), state (N,) int64)."""
     dev = x.device
-    state = RNG.seed_pixel(x, y, frame)
-    jx, state = RNG.rand(state)
-    jy, state = RNG.rand(state)
+    if rng_mode == "reference":
+        state = RNG.seed_pixel(x, y, frame)
+    else:
+        state = RNG.hash_seed(x, y, frame)
+    if rng_mode == "stratified":
+        jx, jy = RNG.r2_point(x, y, frame, stream=1)
+    else:
+        jx, state = RNG.rand(state)
+        jy, state = RNG.rand(state)
     px = x.to(torch.float32) + jx
     py = y.to(torch.float32) + jy
 
@@ -67,8 +94,11 @@ def generate_rays(cam: dict, x: torch.Tensor, y: torch.Tensor, frame: int, *,
 
     if use_dof:
         focal = pos + rd * float(f32(cam["focus_distance"]))
-        r, state = RNG.rand(state)
-        theta, state = RNG.rand(state)
+        if rng_mode == "stratified":
+            r, theta = RNG.r2_point(x, y, frame, stream=3)
+        else:
+            r, state = RNG.rand(state)
+            theta, state = RNG.rand(state)
         rr = torch.sqrt(r) * float(f32(cam["aperture"]))
         ang = theta * (2.0 * PI)
         offset = right * (rr * torch.cos(ang))[None, :] + up * (

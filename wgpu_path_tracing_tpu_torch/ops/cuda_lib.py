@@ -46,6 +46,7 @@ SIGNATURES = {
         _P, _P, _I, _I,  # tri_full, light_full, num_lights, do_mis
         _I, _P, _I, _I,  # texture mode, atlas or fat canvas, its h, w
         _P, _I, _I,  # fat match table (or NULL), its sets, slots_used bits
+        _P,  # bounce-0 LDS rows (3, N) (or NULL)
         _P, _P, _P, _P, _P,  # out rays, state, thr, res, alive
         _P, _P, _P, _P, _P,  # shadow rays, t_max, mask, direct, pdf
         _I, _P,  # n, stream

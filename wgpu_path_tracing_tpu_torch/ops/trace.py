@@ -57,11 +57,12 @@ class ShadowQuery(typing.NamedTuple):
 
 def bounce_core(st: BounceState, t, idx, bounce_idx: int, *, fetch_tri,
                 fetch_light, do_mis: bool, num_lights: int, atlas=None,
-                slots_used=(True, True, True, True),
+                slots_used=(True, True, True, True), bsdf_override=None,
                 ) -> tuple[BounceState, ShadowQuery]:
     """One bounce's shading. ``fetch_tri(idx)`` / ``fetch_light(idx)`` return
     column accessors over the ``tri_full`` / ``light_full`` rows; ``atlas``
-    and ``slots_used`` are ``ops/shade.py::hit_attributes_from_cols``'s."""
+    and ``slots_used`` are ``ops/shade.py::hit_attributes_from_cols``'s;
+    ``bsdf_override`` is ``ops/bsdf.py::sample_bsdf``'s ``override``."""
     found = st.alive & (idx >= 0)
     safe = torch.clamp_min(idx, 0)
     hit = SHADE.hit_attributes_from_cols(fetch_tri(safe), st.ro, st.rd, t,
@@ -95,7 +96,8 @@ def bounce_core(st: BounceState, t, idx, bounce_idx: int, *, fetch_tri,
         shadow = ShadowQuery(zero3, zero3, torch.full_like(t, math.inf),
                              torch.zeros_like(found), zero3, zero3.x)
 
-    new_dir, state = BSDF.sample_bsdf(hit, st.rd, hit.is_front, state, cont)
+    new_dir, state = BSDF.sample_bsdf(hit, st.rd, hit.is_front, state, cont,
+                                      override=bsdf_override)
     f_val, pdf = BSDF.eval_bsdf(hit, hit.normal, -vec.normalize(st.rd),
                                 new_dir, hit.is_front)
     ok = cont & (pdf > 0.0)
@@ -145,12 +147,14 @@ def scene_atlas(scene: dict):
 
 
 def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
-          do_mis: bool = True, num_lights: int = 0):
+          do_mis: bool = True, num_lights: int = 0, lds0=None):
     """Trace a batch of rays with the plain ``bounce_core``.
 
     ro, rd: (3, N); state: (N,) int64. ``closest_hit(ro3, rd3, ...)`` comes
-    from ``ops/intersect.py::make_closest_hit``. Returns (radiance (3, N),
-    final state, counters (2,) int64 [closest rays, shadow rays])."""
+    from ``ops/intersect.py::make_closest_hit``. ``lds0`` (rng="stratified"):
+    (3, N) float32 rows [lobe, r1, r2] that replace the first bounce's three
+    main BSDF draws (``ops/camera_rays.py::bounce0_lds``). Returns (radiance
+    (3, N), final state, counters (2,) int64 [closest rays, shadow rays])."""
     n = ro.shape[1]
     atlas, slots_used = scene_atlas(scene)
     one = torch.ones((n,), dtype=torch.float32, device=ro.device)
@@ -172,10 +176,13 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
         t, idx = closest_hit(vec.stack_rows(st.ro), vec.stack_rows(st.rd),
                              active=st.alive)
         counters[0] += st.alive.sum()
+        override = None
+        if lds0 is not None:
+            override = (bounce_idx == 0, lds0[0], lds0[1], lds0[2])
         st, shadow = bounce_core(st, t, idx, bounce_idx, fetch_tri=fetch_tri,
                                  fetch_light=fetch_light, do_mis=do_mis,
                                  num_lights=num_lights, atlas=atlas,
-                                 slots_used=slots_used)
+                                 slots_used=slots_used, bsdf_override=override)
         if do_mis:
             counters[1] += shadow.mask.sum()
             shadow_t, _ = closest_hit(vec.stack_rows(shadow.origin),

@@ -4,15 +4,19 @@ The reference path tracer hardcodes these as shader constants; the JAX
 package promoted them to ``RenderConfig`` (``wgpu_path_tracing_tpu/render/
 config.py``). This is the same object restricted to what the torch port
 renders: untextured and textured scenes (the atlas sampled per slot or from
-the fat canvas, as the scene's packing decides), reference rng, the dense
-hit, the wide-BVH walk and the three dispatch intersectors. The device is
-the ``Renderer``'s argument (the card by default):
+the fat canvas, as the scene's packing decides), the three rng modes, the
+dense hit, the wide-BVH walk and the three dispatch intersectors. The device
+is the ``Renderer``'s argument (the card by default):
 
 * ``max_bounces`` — pt.wgsl:5 (MAX_BOUNCES = 8)
 * ``do_mis`` — pt.wgsl:636 (DO_MIS = true)
 * ``firefly_clamp`` — pt.wgsl:751 (min(trace(ray), vec3f(2.5)))
 * ``exposure`` — blit.wgsl:43 (applied as x exp2(EXPOSURE))
-* ``rng`` — only "reference" (random.wgsl's per-pixel PCG) is ported
+* ``rng`` — "reference" (random.wgsl's per-pixel PCG, with its seed
+  collisions past 1000 pixels a row), "hash" (the same draws from a
+  well-mixed seed) or "stratified" (the hash seed, plus R2 low-discrepancy
+  points for the pixel jitter and the lens disc and, at bounce 0, for the
+  BSDF's lobe pick and direction: K2's LDS instantiation)
 * ``intersector`` — "auto", "brute", "walk", "pairs", "phased" or
   "cluster". "auto" takes the dense intersector (K1) for scenes of at most
   ``brute_force_max_tris`` triangles; above, the wide-BVH walk (K3), or the
@@ -21,6 +25,15 @@ the ``Renderer``'s argument (the card by default):
   "cluster" the round dispatch (K6); "walk" and "phased" fall to K4 for a
   scene without walk tables. The JAX package's "bvh", "stack" and
   "walk_hbm" are not ported and raise ``NotImplementedError``.
+* ``frames_per_chunk`` — frames a ``render`` call draws between two
+  ``on_chunk`` reports
+* ``frames_per_trace`` — frames whose rays go into one trace call (F x the
+  pixel count of lanes); the image is the same for every F. The renderer
+  clamps it per chunk with gcd, so any spp works.
+
+The JAX package's ``bounce_kernel`` (whose "xla" would put the plain bounce
+on the card's path) is not copied yet; its ``dtype`` and ``max_frames`` are
+read nowhere there and are left out.
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ from __future__ import annotations
 import dataclasses
 
 from wgpu_path_tracing_tpu_torch.ops.intersect import check_intersector
+
+RNG_MODES = ("reference", "hash", "stratified")
 
 
 @dataclasses.dataclass
@@ -43,12 +58,16 @@ class RenderConfig:
     rng: str = "reference"
     intersector: str = "auto"
     brute_force_max_tris: int = 4096
+    frames_per_chunk: int = 16
+    frames_per_trace: int = 1
 
     def validate(self) -> "RenderConfig":
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"bad image size {self.width}x{self.height}")
-        if self.rng != "reference":
-            raise NotImplementedError(
-                f"rng={self.rng!r}: only the 'reference' PCG stream is ported")
+        if self.rng not in RNG_MODES:
+            raise ValueError(f"rng={self.rng!r}: expected one of {RNG_MODES}")
+        if self.frames_per_chunk < 1 or self.frames_per_trace < 1:
+            raise ValueError("frames_per_chunk and frames_per_trace must be "
+                             ">= 1")
         check_intersector(self.intersector)
         return self

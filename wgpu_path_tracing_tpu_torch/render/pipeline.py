@@ -32,34 +32,63 @@ def tile_pixels(width: int, height: int, device):
     return x[perm], y[perm]
 
 
+def _lanes(parts):
+    """Per-frame lane tensors joined along the lanes (no copy for one)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
 def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
                  accum: torch.Tensor, frame_start: int, *, n_frames: int,
                  width: int, height: int, use_dof: bool, max_bounces: int,
-                 do_mis: bool, num_lights: int, firefly_clamp: float):
+                 do_mis: bool, num_lights: int, firefly_clamp: float,
+                 rng_mode: str = "reference", frames_per_trace: int = 1):
     """Accumulate ``n_frames`` 1-spp frames from ``frame_start`` into
     ``accum`` ((N, 3) float32, tile lane order), in place. The bounce loop
     samples the scene's atlas in the form ``ops/trace.py::scene_atlas``
     picks.
 
     ``trace_fn`` is the bounce loop and ``closest_hit`` the intersector it
-    calls: the renderer passes ``ops/bounce.py::trace_cuda`` and
-    ``ops/intersect.py::make_closest_hit``'s dense hit or walk, which run
-    K2 and K1 or K3 on CUDA tensors and their plain versions on CPU
-    tensors.
+    calls: the renderer passes ``ops/bounce.py::trace_cuda`` and the
+    intersector ``ops/intersect.py::make_closest_hit`` picked (K1, K3, K4,
+    K5 or K6), which run their kernels on CUDA tensors and their plain
+    versions on CPU tensors.
+
+    ``rng_mode`` seeds and jitters the camera rays
+    (``ops/camera_rays.py::generate_rays``); under "stratified" (and
+    ``TRACE_BOUNCE0_LDS``) the first bounce's BSDF draws come from
+    ``bounce0_lds``. ``frames_per_trace`` (F, dividing ``n_frames``) puts F
+    frames' rays into one trace call of F x N lanes, their LDS rows
+    concatenated along the lanes, and applies the running mean per frame in
+    order: every lane is traced alone, and K4's and K6's ray blocks (1,024)
+    and K5's (2,048) divide N at the image sizes they serve, so the image
+    equals F = 1's.
     Returns (accum, counters (2,) int64 [closest rays, shadow rays])."""
+    fpt = int(frames_per_trace)
+    if fpt < 1 or n_frames % fpt:
+        raise ValueError(f"frames_per_trace={fpt} must be >= 1 and divide "
+                         f"n_frames={n_frames}")
     dev = accum.device
     x, y = tile_pixels(width, height, dev)
+    n = x.shape[0]
     # NEE against zero lights would sample the padding row.
     do_mis = bool(do_mis) and num_lights > 0
+    lds_active = rng_mode == "stratified" and CAM.TRACE_BOUNCE0_LDS
     counters = torch.zeros((2,), dtype=torch.int64, device=dev)
     clamp = float(np.float32(firefly_clamp))
-    for frame in range(frame_start, frame_start + n_frames):
-        ro, rd, state = CAM.generate_rays(cam, x, y, frame, use_dof=use_dof)
+    for base in range(frame_start, frame_start + n_frames, fpt):
+        frames = range(base, base + fpt)
+        parts = [CAM.generate_rays(cam, x, y, f, use_dof=use_dof,
+                                   rng_mode=rng_mode) for f in frames]
+        ro, rd, state = (_lanes(p) for p in zip(*parts))
+        lds0 = None
+        if lds_active:
+            lds0 = _lanes([CAM.bounce0_lds(x, y, f) for f in frames])
         radiance, _, stats = trace_fn(scene, closest_hit, ro, rd, state,
                                       max_bounces=max_bounces, do_mis=do_mis,
-                                      num_lights=num_lights)
+                                      num_lights=num_lights, lds0=lds0)
         counters += stats
-        color = torch.clamp_max(radiance.T, clamp)
-        w = np.float32(1.0) / (np.float32(frame) + np.float32(1.0))
-        accum.mul_(float(np.float32(1.0) - w)).add_(color * float(w))
+        for i, frame in enumerate(frames):
+            color = torch.clamp_max(radiance[:, i * n:(i + 1) * n].T, clamp)
+            w = np.float32(1.0) / (np.float32(frame) + np.float32(1.0))
+            accum.mul_(float(np.float32(1.0) - w)).add_(color * float(w))
     return accum, counters

@@ -4,23 +4,32 @@
     r = Renderer(RenderConfig(width=512, height=512))   # device="cuda"
     r.load_scene(textured_cornell())
     hdr = r.render(spp=64)        # progressive; r.reset(), r.move_camera()
-    r.save_png("out.png"); r.stats()
+    r.save_png("out.png"); r.save_exr("out.exr"); r.stats()
+    r.save_checkpoint("run.npz")  # the JAX package's keys; load_checkpoint
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``, the card unless the caller asks for
 ``device="cpu"``. On "cuda" the frame runs the hand-written kernels K1
 (dense closest hit), K3 (wide-BVH walk), K4 (pair dispatch), K5 (phased
 dispatch) or K6 (round dispatch), as ``RenderConfig.intersector`` picks for
-the scene (``stats()["intersector"]`` says which), and K2 (bounce, untextured or sampling the scene's
-texture atlas per slot or from its fat canvas); on "cpu" their plain
-PyTorch versions. Asking for "cuda" without a card raises.
+the scene (``stats()["intersector"]`` says which), and K2 (bounce,
+untextured or sampling the scene's texture atlas per slot or from its fat
+canvas; with rng="stratified" its LDS instantiation at bounce 0); on "cpu"
+their plain PyTorch versions. Asking for "cuda" without a card raises.
 
-Not ported here: glTF loading, async load, denoising, adaptive sampling,
-debug modes, environment maps, multi-device rendering.
+``render`` draws ``frames_per_chunk`` frames at a time, calling the
+``add_on_update`` callbacks before and ``on_chunk`` after each chunk, and
+``frames_per_trace`` frames a trace call. ``render(sync=False)`` returns
+once the frames are queued; the ray counters stay on the device until
+``stats()`` or the next synchronous render reads them.
+
+Not ported here: glTF loading, async load, the pass profiler, denoising,
+adaptive sampling, debug modes, environment maps, multi-device rendering.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -74,6 +83,11 @@ class Renderer:
         self._counters = np.zeros(2, np.int64)
         self._last_counters = np.zeros(2, np.int64)
         self._last_render_seconds = 0.0
+        # Counters of render(sync=False) calls, summed on the device, and
+        # the wall clock's start of that unsynced run.
+        self._deferred: torch.Tensor | None = None
+        self._deferred_t0: float | None = None
+        self._on_update = []
 
     # --- scene ---------------------------------------------------------------
     def load_scene(self, scene: SceneArrays) -> None:
@@ -84,7 +98,11 @@ class Renderer:
         self.scene, self._scene_dev = scene, scene_dev
         self.reset()
 
-    # --- interaction (renderer.ts:152-201) -----------------------------------
+    # --- interaction (renderer.ts:152-201, 496-510) --------------------------
+    def add_on_update(self, callback) -> None:
+        """``callback(0.0)`` runs before every chunk of a ``render``."""
+        self._on_update.append(callback)
+
     def move_camera(self, forward: float, right: float, up: float) -> None:
         self.camera.move(forward, right, up)
         self.reset()
@@ -93,10 +111,35 @@ class Renderer:
         self.camera.rotate(yaw, pitch)
         self.reset()
 
+    def resize(self, width: int, height: int) -> None:
+        """New image size: the camera's aspect follows, accumulation
+        restarts."""
+        self.config.width = width
+        self.config.height = height
+        self.config.validate()
+        self.camera.resize(width, height)
+        self._accum = None
+        self.reset()
+
     def reset(self) -> None:
         """resetOutputBuffer (renderer.ts:357-366): restart accumulation."""
         self.frame_index = 0
         self._counters = np.zeros(2, np.int64)
+        self._deferred = None
+        self._deferred_t0 = None
+
+    def _sync_deferred(self) -> None:
+        """Fold the counters of ``render(sync=False)`` calls into the totals.
+        The unsynced run counts as the last render: its wall clock spans its
+        first dispatch to this read, which waits for the device."""
+        if self._deferred is None:
+            return
+        add = self._deferred.cpu().numpy().astype(np.int64)
+        self._deferred = None
+        self._last_counters = add
+        self._counters = self._counters + add
+        self._last_render_seconds = time.perf_counter() - self._deferred_t0
+        self._deferred_t0 = None
 
     # --- rendering -----------------------------------------------------------
     def _ensure_accum(self) -> None:
@@ -105,10 +148,18 @@ class Renderer:
             self._accum = torch.zeros((n, 3), dtype=torch.float32,
                                       device=self.device)
 
-    def render(self, spp: int, fetch: bool = True):
-        """Accumulate ``spp`` more samples per pixel. Returns the HDR buffer
-        as (H, W, 3) NumPy (row 0 = bottom of the view), or None with
-        ``fetch=False``."""
+    def render(self, spp: int, on_chunk=None, fetch: bool = True,
+               sync: bool = True):
+        """Accumulate ``spp`` more samples per pixel, ``frames_per_chunk``
+        frames at a time; ``on_chunk(frame_index)`` after each chunk sees
+        its frames done. Returns the HDR buffer as (H, W, 3) NumPy (row 0 =
+        bottom of the view), or None with ``fetch=False`` or ``sync=False``.
+
+        The ray counters are read once at the end, which waits for the
+        device, so the wall clock is honest. ``sync=False`` skips that read
+        (and the image): the call returns when the frames are queued, and
+        the counters fold in at ``stats()`` or the next synchronous render,
+        which then report the whole unsynced run."""
         if self._scene_dev is None:
             raise RuntimeError("No scene loaded — call load_scene first")
         cfg = self.config
@@ -116,19 +167,46 @@ class Renderer:
         cam = pipeline.camera_device(self.camera.as_pytree(), cfg.width,
                                      cfg.height)
         t0 = time.perf_counter()
-        _, counters = pipeline.render_chunk(
-            trace_cuda, self._closest_hit, self._scene_dev, cam, self._accum,
-            self.frame_index,
-            n_frames=spp, width=cfg.width, height=cfg.height,
-            use_dof=float(self.camera.aperture) > 0.0,
-            max_bounces=cfg.max_bounces, do_mis=cfg.do_mis,
-            num_lights=self.scene.num_lights,
-            firefly_clamp=cfg.firefly_clamp)
-        # The counter read waits for the device, so the wall clock is honest.
+        counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
+        remaining = spp
+        while remaining > 0:
+            for task in self._on_update:
+                task(0.0)
+            chunk = min(cfg.frames_per_chunk, remaining)
+            _, chunk_counters = pipeline.render_chunk(
+                trace_cuda, self._closest_hit, self._scene_dev, cam,
+                self._accum, self.frame_index,
+                n_frames=chunk, width=cfg.width, height=cfg.height,
+                use_dof=float(self.camera.aperture) > 0.0,
+                max_bounces=cfg.max_bounces, do_mis=cfg.do_mis,
+                num_lights=self.scene.num_lights,
+                firefly_clamp=cfg.firefly_clamp, rng_mode=cfg.rng,
+                # gcd keeps a tail chunk divisible, so any spp works.
+                frames_per_trace=math.gcd(cfg.frames_per_trace, chunk))
+            counters += chunk_counters
+            self.frame_index += chunk
+            remaining -= chunk
+            if on_chunk is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                on_chunk(self.frame_index)
+        if not sync:
+            if self._deferred is None:
+                self._deferred, self._deferred_t0 = counters, t0
+            else:
+                self._deferred += counters
+            self._last_render_seconds = time.perf_counter() - t0
+            return None
+        start = t0
+        if self._deferred is not None:
+            # A synchronous render folds the unsynced run in and reports
+            # from its first dispatch.
+            counters += self._deferred
+            start = self._deferred_t0
+            self._deferred, self._deferred_t0 = None, None
         self._last_counters = counters.cpu().numpy().astype(np.int64)
-        self._last_render_seconds = time.perf_counter() - t0
+        self._last_render_seconds = time.perf_counter() - start
         self._counters = self._counters + self._last_counters
-        self.frame_index += spp
         if not fetch:
             return None
         return self._row_major().reshape(cfg.height, cfg.width, 3)
@@ -137,6 +215,51 @@ class Renderer:
         """The tile-ordered buffer as row-major (N, 3) NumPy."""
         perm = tile_permutation(self.config.width, self.config.height)
         return self._accum.cpu().numpy()[inverse_permutation(perm)]
+
+    def _hdr(self) -> np.ndarray:
+        """The linear accumulation as (H, W, 3), top row first, NaN as 0."""
+        if self._accum is None:
+            raise RuntimeError("Nothing rendered yet")
+        hdr = self._row_major().reshape(self.config.height, self.config.width, 3)
+        return np.nan_to_num(hdr[::-1], nan=0.0)
+
+    # --- checkpoint / resume -------------------------------------------------
+    # The JAX package's .npz keys, so that each package loads the other's.
+    @staticmethod
+    def _ckpt_path(path: str) -> str:
+        return path if path.endswith(".npz") else path + ".npz"
+
+    def save_checkpoint(self, path: str) -> None:
+        """The accumulation (row-major), the frame index, the image size and
+        the camera, in one .npz."""
+        if self._accum is None:
+            raise RuntimeError("Nothing to checkpoint")
+        cam = self.camera
+        np.savez(self._ckpt_path(path), accum=self._row_major(),
+                 frame_index=self.frame_index, width=self.config.width,
+                 height=self.config.height, camera_position=cam.position,
+                 camera_forward=cam.forward, camera_right=cam.right,
+                 camera_up=cam.up, camera_fov=cam.fov,
+                 camera_aperture=cam.aperture,
+                 camera_focus_distance=cam.focus_distance)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from ``save_checkpoint``'s file (either package's): the
+        next ``render`` continues at its frame index, with the same seeds."""
+        with np.load(self._ckpt_path(path)) as data:
+            w, h = int(data["width"]), int(data["height"])
+            if (w, h) != (self.config.width, self.config.height):
+                self.resize(w, h)
+            cam = self.camera
+            for key in ("position", "forward", "right", "up"):
+                setattr(cam, key, data[f"camera_{key}"].astype(np.float32))
+            cam.fov = float(data["camera_fov"])
+            cam.aperture = float(data["camera_aperture"])
+            cam.focus_distance = float(data["camera_focus_distance"])
+            accum = np.asarray(data["accum"], np.float32).reshape(-1, 3)
+            perm = tile_permutation(w, h)
+            self._accum = torch.as_tensor(accum[perm], device=self.device)
+            self.frame_index = int(data["frame_index"])
 
     # --- output --------------------------------------------------------------
     def image(self) -> np.ndarray:
@@ -151,12 +274,15 @@ class Renderer:
 
     def save_hdr(self, path: str) -> None:
         """The LINEAR accumulation as Radiance RGBE .hdr (no tonemap)."""
-        if self._accum is None:
-            raise RuntimeError("Nothing rendered yet")
-        hdr = self._row_major().reshape(self.config.height, self.config.width, 3)
-        imageio.write_hdr(path, np.nan_to_num(hdr[::-1], nan=0.0))
+        imageio.write_hdr(path, self._hdr())
+
+    def save_exr(self, path: str) -> None:
+        """The LINEAR accumulation as an uncompressed float32 OpenEXR: the
+        same buffer as ``save_hdr``, exact instead of RGBE-quantized."""
+        imageio.write_exr(path, self._hdr())
 
     def stats(self) -> dict:
+        self._sync_deferred()
         closest, shadow = (int(c) for c in self._counters)
         last_total = int(self._last_counters.sum())
         secs = max(self._last_render_seconds, 1e-9)

@@ -2,7 +2,10 @@
 
 The counterpart of the JAX package's ``utils/image.py``. The accumulation
 buffer's row 0 is the BOTTOM of the view, so the display image is flipped.
-The PNG writer uses only the standard library (``zlib`` + ``struct``).
+Only the standard library and NumPy: the PNG writer and reader use ``zlib``
+and ``struct`` (the JAX package's use Pillow); the Radiance .hdr and the
+uncompressed float32 OpenEXR writers and readers are byte-for-byte the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -74,3 +77,182 @@ def write_hdr(path: str, hdr: np.ndarray) -> None:
         f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
         f.write(f"-Y {h} +X {w}\n".encode())
         f.write(rgbe.tobytes())
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """Read a flat (uncompressed) Radiance RGBE .hdr file -> (H, W, 3)
+    float32."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(b"#?RADIANCE"):
+        raise ValueError(f"{path}: not a Radiance .hdr file (bad magic)")
+    _, _, rest = data.partition(b"\n\n")
+    dims, _, pix = rest.partition(b"\n")
+    parts = dims.split()
+    h, w = int(parts[1]), int(parts[3])
+    rgbe = np.frombuffer(pix, np.uint8, count=h * w * 4).reshape(h, w, 4)
+    exp = rgbe[..., 3].astype(np.int32)
+    scale = np.where(exp == 0, 0.0, np.exp2(exp - 128 - 8, dtype=np.float64))
+    return rgbe[..., 0:3].astype(np.float32) * scale[..., None].astype(np.float32)
+
+
+_EXR_MAGIC = 20000630
+_EXR_FLOAT = 2  # channel pixel type: 0 UINT, 1 HALF, 2 FLOAT
+
+
+def write_exr(path: str, hdr: np.ndarray) -> None:
+    """OpenEXR 2.0, uncompressed FLOAT scanlines, channels B, G, R (the
+    format's alphabetical order), one scanline a chunk. hdr: (H, W, 3)
+    float32, top row first. Lossless, unlike RGBE's shared exponent."""
+    hdr = np.ascontiguousarray(np.asarray(hdr, np.float32))
+    h, w = hdr.shape[0], hdr.shape[1]
+
+    def attr(name: bytes, typ: bytes, payload: bytes) -> bytes:
+        return (name + b"\0" + typ + b"\0" + struct.pack("<i", len(payload))
+                + payload)
+
+    # chlist: per channel name\0, pixel type, pLinear + 3 reserved, sampling.
+    ch = b"".join(name + b"\0" + struct.pack("<i", _EXR_FLOAT) + b"\0" * 4
+                  + struct.pack("<ii", 1, 1) for name in (b"B", b"G", b"R"))
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = (
+        struct.pack("<Ii", _EXR_MAGIC, 2)  # version 2, scanline
+        + attr(b"channels", b"chlist", ch + b"\0")
+        + attr(b"compression", b"compression", b"\0")  # NO_COMPRESSION
+        + attr(b"dataWindow", b"box2i", box)
+        + attr(b"displayWindow", b"box2i", box)
+        + attr(b"lineOrder", b"lineOrder", b"\0")  # INCREASING_Y
+        + attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+        + attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0.0, 0.0))
+        + attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+        + b"\0"
+    )
+    line_bytes = 4 * w * 3
+    data_at = len(header) + 8 * h  # after the offset table
+    offsets = struct.pack(f"<{h}Q", *(data_at + y * (8 + line_bytes)
+                                      for y in range(h)))
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(offsets)
+        for y in range(h):
+            f.write(struct.pack("<ii", y, line_bytes))
+            for c in (2, 1, 0):  # B, G, R
+                f.write(hdr[y, :, c].tobytes())
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read an uncompressed FLOAT-scanline OpenEXR (as ``write_exr`` writes
+    it) -> (H, W, 3) float32, top row first. Compressed, HALF, UINT, tiled
+    or multi-channel files raise ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, _ = struct.unpack_from("<Ii", data, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError(f"{path}: not an EXR file (bad magic)")
+    pos, attrs = 8, {}
+    while data[pos] != 0:
+        nend = data.index(b"\0", pos)
+        tend = data.index(b"\0", nend + 1)
+        (size,) = struct.unpack_from("<i", data, tend + 1)
+        attrs[data[pos:nend].decode()] = data[tend + 5:tend + 5 + size]
+        pos = tend + 5 + size
+    pos += 1  # the header's terminator
+    if attrs.get("compression", b"?") != b"\0":
+        raise ValueError(f"{path}: only uncompressed (NO_COMPRESSION) EXRs "
+                         "are supported")
+    chlist, cpos = attrs.get("channels", b"\0"), 0
+    while chlist[cpos] != 0:
+        cend = chlist.index(b"\0", cpos)
+        (ctype,) = struct.unpack_from("<i", chlist, cend + 1)
+        if ctype != _EXR_FLOAT:
+            raise ValueError(f"{path}: channel "
+                             f"{chlist[cpos:cend].decode()!r} is not FLOAT")
+        cpos = cend + 17
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    out = np.empty((h, w, 3), np.float32)
+    for row, off in enumerate(struct.unpack_from(f"<{h}Q", data, pos)):
+        y, size = struct.unpack_from("<ii", data, off)
+        if size != 12 * w:
+            raise ValueError(f"{path}: scanline {row} has {size} bytes, "
+                             f"expected {12 * w}")
+        line = np.frombuffer(data, np.float32, count=3 * w, offset=off + 8)
+        for k, c in enumerate((2, 1, 0)):  # B, G, R
+            out[y - y0, :, c] = line[k * w:(k + 1) * w]
+    return out
+
+
+# PNG colour types this reader takes: 8-bit gray, RGB and RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor (PNG spec 9.4) on int16 arrays."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG filter types (PNG spec 9.2), row by row."""
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + stride)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int16)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int16)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:  # Up
+            cur = (line + prior) & 0xFF
+        elif ftype == 1:  # Sub: a running sum along each byte of a pixel
+            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.int64)
+                   & 0xFF).reshape(-1).astype(np.int16)
+        elif ftype in (3, 4):  # Average, Paeth: pixel by pixel
+            cur = np.zeros(stride, np.int16)
+            left = np.zeros(bpp, np.int16)
+            up_left = np.zeros(bpp, np.int16)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                pred = ((left + up) >> 1 if ftype == 3
+                        else _paeth(left, up, up_left))
+                left = (line[x:x + bpp] + pred) & 0xFF
+                cur[x:x + bpp] = left
+                up_left = up
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit gray, RGB or RGBA non-interlaced PNG -> (H, W, 3)
+    float32 RGB in [0, 1] (gray replicated, alpha dropped), as the JAX
+    package's Pillow reader returns it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file (bad signature)")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: only 8-bit gray, RGB and RGBA "
+                         "non-interlaced PNGs are supported")
+    ch = _PNG_CHANNELS[ctype]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
+    pixels = pixels.reshape(h, w, ch)
+    rgb = np.repeat(pixels, 3, axis=2) if ch == 1 else pixels[..., :3]
+    return rgb.astype(np.float32) / 255.0
