@@ -37,7 +37,12 @@ and runs these phases, one line of output each:
    one plain bounce and that bounce's shadow rays (``t_max``, ``any_hit``);
    ``t`` and ``idx`` bit-equal on every lane; K3 against K1 on the
    closest-hit rays (lanes that differ, and whether each is an exact-t
-   tie); K2 against its plain version at bounce 0 of that scene;
+   tie); K3 on an 11-level spine tree (``spine_tables``) against its plain
+   version; the sorted walk (``make_closest_hit`` with ``reorder=True``)
+   against the bare kernel on the bounce-1 rays, a late-bounce mask of 5%
+   of them and the shadow rays, bit for bit; each ray set's time bare,
+   sorted and of the sort alone, and the bounds on the camera and bounce-1
+   rays; K2 against its plain version at bounce 0 of that scene;
 8. large-scene path: ``Renderer(RenderConfig(width=512, height=512))``,
    ``load_scene(cornell_box(tessellation=55))`` (``stats()["intersector"]``
    must be "walk"), ``render(spp=8)``; the launch counts, the build
@@ -136,7 +141,11 @@ from wgpu_path_tracing_tpu_torch.ops.camera_rays import (  # noqa: E402
     generate_rays,
     pixel_grid,
 )
-from wgpu_path_tracing_tpu_torch.ops.intersect import make_closest_hit  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops.intersect import (  # noqa: E402
+    REORDER_BUCKETS,
+    make_closest_hit,
+    with_ray_order,
+)
 from wgpu_path_tracing_tpu_torch.render.pipeline import (  # noqa: E402
     camera_device,
     render_chunk,
@@ -617,19 +626,28 @@ DISPATCH = {
 
 def plain_closest_hit(scene: dict, strategy: str):
     """The plain version of the intersector ``make_closest_hit`` reports as
-    ``strategy``, with its signature."""
+    ``strategy``, with its signature (``reorder`` is read by none: the plain
+    versions walk each ray alone, in lane order)."""
     tri = scene["tri_isect"]
     nt = tri.shape[0]
     if strategy == "brute":
-        return lambda ro3, rd3, active=None, t_max=None, any_hit=False: (
-            K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3])))
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            return K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3]))
+
+        return closest_hit
     if strategy == "walk":
         plain, tables = K3.closest_hit_walk_plain, K3.walk_tables(scene)
     else:
         _, _, plain, get_tables = DISPATCH[strategy]
         tables = get_tables(scene)
-    return lambda ro3, rd3, active=None, t_max=None, any_hit=False: plain(
-        tables, ro3, rd3, active, t_max, num_tris=nt, any_hit=any_hit)
+
+    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                    reorder=False):
+        return plain(tables, ro3, rd3, active, t_max, num_tris=nt,
+                     any_hit=any_hit)
+
+    return closest_hit
 
 
 def plain_render(r: Renderer, spp: int) -> np.ndarray:
@@ -858,6 +876,67 @@ def ray_cases(scene_np, scene, rays, state, t, idx):
     return args, kw, pout, cases
 
 
+def spine_tables(levels: int, dev) -> tuple:
+    """Walk tables of a binary spine, collapsed with ``pack="none"``: binary
+    node 2k holds triangle k as its left leaf and the rest of the spine as
+    its right child, so each wide node takes 7 single-triangle leaves and
+    the wide tree has ``levels`` interior levels or more. Triangle k lies
+    at x = k. Returns (the walk tables, the (T, 9) [v0, e1, e2] triangles)."""
+    spine = 7 * levels + 128  # a subtree of <= 128 triangles is one group
+    tris = np.zeros((spine + 1, 9), np.float32)
+    tris[:, 0] = np.arange(spine + 1)
+    tris[:, 3:6] = [0.5, 1.0, 0.0]
+    tris[:, 6:9] = [0.3, 0.0, 1.0]
+    lo = tris[:, 0:3]
+    hi = lo + np.maximum(tris[:, 3:6], tris[:, 6:9])
+    meta, amin, amax = [], [], []
+    for k in range(spine):  # interior node 2k, leaf 2k + 1
+        meta += [[2 * k + 1, 2 * k + 2, 0, 0], [-1, -1, k, 1]]
+        amin += [lo[k:].min(0), lo[k]]
+        amax += [hi[k:].max(0), hi[k]]
+    meta.append([-1, -1, spine, 1])
+    amin.append(lo[spine])
+    amax.append(hi[spine])
+    wide = bvh8.build_wide_bvh(np.array(amin), np.array(amax),
+                               np.array(meta, np.int32), tris, pack="none")
+    scene = {"walk_order": torch.from_numpy(wide.order).to(dev),
+             "walk_boxes": torch.from_numpy(wide.boxes).to(dev),
+             "walk_tris": torch.from_numpy(wide.tris).to(dev)}
+    return K3.walk_tables(scene), tris
+
+
+def spine_rays(n: int, spine: int, seed: int, dev):
+    """Rays from anywhere along the spine's length, mostly along +-x, so
+    they cross the triangles' planes and walk deep into the tree."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-1.0, 0.1, 0.1], [spine + 1.0, 0.9, 0.9], (n, 3))
+    d = rng.normal(scale=[1.0, 0.2, 0.2], size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.T.astype(np.float32)).contiguous().to(dev),
+            torch.from_numpy(d.T.astype(np.float32)).contiguous().to(dev))
+
+
+def same_hits(a, b, what: str) -> None:
+    """Two (t, idx) results, bit for bit on every lane."""
+    t_lanes, _, _ = compare(a[0], b[0])
+    i_lanes = int((a[1] != b[1]).sum())
+    if t_lanes or i_lanes:
+        raise AssertionError(f"{what}: t differs on {t_lanes} lanes, idx on "
+                             f"{i_lanes}")
+
+
+def walk_bound(visits: dict, tables, n: int) -> tuple:
+    """K3's bound on ``n`` rays: the rays and (t, idx) once, the three
+    tables once, and the work these rays need by the plain walk's count: a
+    slab test for each non-empty child of an interior visit and for each
+    sub-cluster of a leaf visit that holds a triangle, and a Möller-Trumbore
+    test for each triangle of an entered sub-cluster."""
+    ops = (SLAB_OPS * (visits["children"] + visits["sub_boxes"])
+           + MT_OPS * visits["triangles"])
+    moved = 6 * 4 * n + nbytes(tables.order, tables.boxes, tables.tris) + 8 * n
+    return bound(moved, ops), ops
+
+
 def phase_k3(dev, report):
     """K3 on the large box; returns the scene, its walk tables and the ray
     cases for the dispatch intersectors' phase."""
@@ -871,34 +950,35 @@ def phase_k3(dev, report):
     nt = tri.shape[0]
     n = rays.shape[1]
     say("k3", f"wide BVH: {tables.order.shape[0]} nodes, "
-        f"{tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups, stack "
-        f"{tables.stack} of {K3.STACK_MAX} entries")
-    visits: dict = {}
+        f"{tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups; the kernel's "
+        f"stack {tables.levels} entries a ray in shared memory "
+        f"({tables.levels * 4 * K3.THREADS} B a block; the plain walk's "
+        f"{tables.stack}); leaf records {nbytes(tables.leaves)} B against "
+        f"walk_tris' {nbytes(tables.tris)} B")
     t, idx = K3.closest_hit_walk_plain(tables, rays[0:3], rays[3:6],
-                                       num_tris=nt, visits=visits)
-    say("k3", "camera rays, a ray (the plain walk's count): "
-        + ", ".join(f"{visits[k] / n:.2f} {k.replace('_', '-')}" for k in (
-            "interior", "leaf", "children", "sub_boxes", "sub_clusters",
-            "triangles"))
-        + " (interior and leaf-group visits, non-empty children and "
-        "sub-cluster boxes slab-tested, sub-clusters entered, their "
-        "triangles tested)")
+                                       num_tris=nt)
     args, kw, pout, cases = ray_cases(scene_np, scene, rays, state, t, idx)
     kout = K2.bounce_stage_cuda(*args, **kw)
-    summary = check_k2(kout, pout, n, "the large box", report["k2"])
+    summary = check_k2(kout, pout, n, "the large box",
+                       report.setdefault("k2", {}))
     say("k2", f"cornell_box(tessellation={LARGE_TESSELLATION}) bounce 0: {n} "
         "lanes; " + summary)
     bounce, alive = cases[1][1], cases[1][2]["active"]
-    worst = 0.0
+    worst, visits = 0.0, {}
     for name, r, extra in cases:
         o, d = r[0:3], r[3:6]
         kt, ki = K3.closest_hit_walk(tables, o, d, num_tris=nt, **extra)
-        pt, pi = K3.closest_hit_walk_plain(tables, o, d, num_tris=nt, **extra)
+        visits[name] = {}
+        pt, pi = K3.closest_hit_walk_plain(tables, o, d, num_tris=nt,
+                                           visits=visits[name], **extra)
         t_lanes, t_ulp, t_err = compare(kt, pt)
         i_lanes = int((ki != pi).sum())
         say("k3", f"{name} rays: {n} lanes ({int((pi >= 0).sum())} hits), t "
             f"differs on {t_lanes} (max {t_ulp} ulp), idx differs on "
-            f"{i_lanes}")
+            f"{i_lanes}; a ray (the plain walk's count): "
+            + ", ".join(f"{visits[name][k] / n:.2f} {k.replace('_', '-')}"
+                        for k in ("interior", "leaf", "children", "sub_boxes",
+                                  "sub_clusters", "triangles")))
         if t_lanes or i_lanes:
             raise AssertionError(f"K3 disagrees with its plain version on the "
                                  f"{name} rays")
@@ -919,32 +999,76 @@ def phase_k3(dev, report):
         if int((idx_apart | t_apart).sum()) > 0.01 * n:
             raise AssertionError(f"K3 and K1 disagree on more than 1% of the "
                                  f"{name} rays")
+    # A tree deeper than the large box's: the shared stack at 9 and more
+    # entries a ray.
+    spine, spine_tris = spine_tables(10, dev)
+    so, sd = spine_rays(4096, len(spine_tris), 1, dev)
+    same_hits(K3.closest_hit_walk(spine, so, sd),
+              K3.closest_hit_walk_plain(spine, so, sd), "K3 on the spine")
+    say("k3", f"a spine of {len(spine_tris)} triangles, "
+        f"{spine.order.shape[0]} wide nodes, stack {spine.levels} entries a "
+        "ray: 4096 random rays equal the plain walk's on every lane")
+
+    # The sorted walk: bounce rays in bucket order, against the bare kernel,
+    # on bounce-1 rays, a late-bounce mask (5% of them alive) and the
+    # bounce's shadow rays.
+    closest_hit = make_closest_hit(scene)
+    late = alive & torch.from_numpy(
+        np.random.default_rng(7).random(n) < 0.05).to(dev)
+    shadow, sextra = cases[2][1], cases[2][2]
+    sorted_cases = [("bounce-1", bounce, {"active": alive}),
+                    ("late-bounce", bounce, {"active": late}),
+                    ("shadow-0", shadow, sextra)]
+    for name, r, extra in sorted_cases:
+        o, d = r[0:3], r[3:6]
+        same_hits(closest_hit(o, d, reorder=True, **extra),
+                  K3.closest_hit_walk(tables, o, d, num_tris=nt, **extra),
+                  f"the sorted walk on the {name} rays")
+    say("k3", f"sorted walk (make_closest_hit, reorder=True: "
+        f"{REORDER_BUCKETS} buckets) equals the bare kernel "
+        f"on every lane of the bounce-1, late-bounce ({int(late.sum())} "
+        f"alive) and shadow-0 rays")
+
+    # Times: the bare kernel and the sorted walk (whole calls) on each ray
+    # set, and the sort's share alone (the wrapper around an inner call that
+    # launches nothing).
+    machinery = with_ray_order(
+        lambda ro3, rd3, active, t_max, any_hit: (
+            ro3[0], torch.zeros_like(ro3[0], dtype=torch.int32)),
+        scene["root_box"])
+    times = {}
+    for name, r, extra in [("camera", rays, {})] + sorted_cases:
+        o, d = r[0:3], r[3:6]
+        times[name] = {
+            "bare": device_ms(lambda: K3.closest_hit_walk(
+                tables, o, d, num_tris=nt, **extra)),
+            "sorted": device_ms(lambda: closest_hit(o, d, reorder=True,
+                                                    **extra)),
+            "sort": device_ms(lambda: machinery(o, d, reorder=True,
+                                                **extra))}
     o, d = rays[0:3], rays[3:6]
-    ms = device_ms(lambda: K3.closest_hit_walk(tables, o, d, num_tris=nt))
     eager = eager_ms(lambda: K3.closest_hit_walk(tables, o, d, num_tris=nt))
     plain = eager_ms(lambda: K3.closest_hit_walk_plain(tables, o, d,
                                                        num_tris=nt), reps=2)
-    bo, bd = bounce[0:3], bounce[3:6]
-    bounce_ms = device_ms(lambda: K3.closest_hit_walk(
-        tables, bo, bd, active=alive, num_tris=nt))
+    ms, bounce_ms = times["camera"]["bare"], times["bounce-1"]["bare"]
     say("k3", f"time at {n} camera rays x {nt} tris: device {ms:.4f} ms "
         f"(plain {plain:.4f} ms, launched from Python, which the plain "
         f"walk's per-iteration host syncs need); launched from Python "
         f"{eager:.4f} ms; bounce-1 rays: device {bounce_ms:.4f} ms")
-    # K3's bound on the camera rays: the rays and (t, idx) once, the three
-    # tables once, and the work these rays need: a slab test for each
-    # non-empty child of an interior visit and for each sub-cluster of a
-    # leaf visit that holds a triangle, and a Möller-Trumbore test for each
-    # triangle of an entered sub-cluster.
-    ops = (SLAB_OPS * (visits["children"] + visits["sub_boxes"])
-           + MT_OPS * visits["triangles"])
-    b = bound(nbytes(o, d, tables.order, tables.boxes, tables.tris) + 8 * n,
-              ops)
+    for name, tm in times.items():
+        say("k3", f"{name} rays: bare kernel {tm['bare']:.4f} ms, sorted walk "
+            f"{tm['sorted']:.4f} ms (whole call), of which the sort, gathers "
+            f"and scatters {tm['sort']:.4f} ms")
+    b, ops = walk_bound(visits["camera"], tables, n)
+    bb, bops = walk_bound(visits["bounce-1"], tables, n)
     say("k3", f"bound at {n} camera rays: {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}; {ops / 1e9:.3f} Gop)")
+        f"({b['bound_by']}; {ops / 1e9:.3f} Gop); bounce-1 rays: "
+        f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}; {bops / 1e9:.3f} Gop)")
     report.setdefault("k3", {}).update(
         max_abs_err=worst, ms=ms, plain_ms=plain, bounce_ms=bounce_ms,
-        visits_per_ray={k: v / n for k, v in visits.items()}, **b)
+        bounce_bound_ms=bb["bound_ms"], sorted_ms=times,
+        visits_per_ray={name: {k: v / n for k, v in vis.items()}
+                        for name, vis in visits.items()}, **b)
     return {"scene_np": scene_np, "scene": scene, "tables": tables,
             "cases": cases}
 
@@ -1490,7 +1614,8 @@ def main() -> int:
     say("build", f"nvcc built {len(cuda_lib.SIGNATURES)} launchers in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in cuda_lib.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(word in line for word in ("Function properties", "registers",
+                                         "spill")):
             say("build", line.strip())
 
     report: dict = {}

@@ -19,19 +19,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import DISPATCH, plain_render
+from chip_smoke import DISPATCH, plain_render, spine_rays, spine_tables
 from wgpu_path_tracing_tpu_torch import (
     Renderer,
     RenderConfig,
     cornell_box,
     load_jax_scene,
     material_test_box,
+    random_triangles,
     textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
+from wgpu_path_tracing_tpu_torch.ops import intersect as INTERSECT
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
 from wgpu_path_tracing_tpu_torch.ops import walk as K3
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
@@ -215,6 +217,105 @@ def test_walk_kernel_equals_plain(dev, mode):
         pt, pi = K3.closest_hit_walk_plain(tables, o, d, **kw)
         assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
         assert (ki >= 0).any()
+
+
+def _walk_case(tables, o, d, kw):
+    """K3 against its plain version on one ray set, bit for bit; one
+    launch, none for no rays."""
+    before = K3.Counter.launches
+    kt, ki = K3.closest_hit_walk(tables, o, d, **kw)
+    torch.cuda.synchronize()
+    assert K3.Counter.launches == before + (o.shape[1] > 0)
+    pt, pi = K3.closest_hit_walk_plain(tables, o, d, **kw)
+    assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+    return ki
+
+
+def _masks(n, mode, dev, seed):
+    """No mask, a mask with t_max, or that with any_hit."""
+    rng = np.random.default_rng(seed)
+    if mode == "closest":
+        return {}
+    kw = dict(active=torch.from_numpy(rng.random(n) < 0.7).to(dev),
+              t_max=torch.from_numpy(
+                  rng.uniform(0.05, 2.0, n).astype(np.float32)).to(dev))
+    return kw if mode == "masked" else dict(kw, any_hit=True)
+
+
+@pytest.mark.parametrize("mode", ["closest", "masked", "any_hit"])
+@pytest.mark.parametrize("n", [1000, 16385])
+def test_walk_kernel_on_random_triangles(dev, n, mode):
+    """K3 on random_triangles(1500) from random origins in every direction,
+    at a ray count that fills no block and one past REORDER_MIN_LANES."""
+    packed = pack_device_scene(random_triangles(1500, seed=5))
+    tables = K3.walk_tables(load_jax_scene(packed, dev))
+    rng = np.random.default_rng(n)
+    lo, hi = packed["bvh_aabb"][0, 0:3], packed["bvh_aabb"][0, 3:6]
+    o = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).T.astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    ki = _walk_case(tables, o.contiguous().to(dev), d.to(dev),
+                    dict(_masks(n, mode, dev, 1), num_tris=1500))
+    assert (ki >= 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "masked", "any_hit"])
+def test_walk_kernel_on_a_deep_tree(dev, mode):
+    """A spine tree of 11 wide levels: 10 stack entries a ray in shared
+    memory, more than the large box's 4."""
+    tables, tris = spine_tables(10, dev)
+    assert tables.levels == 10
+    o, d = spine_rays(4096, len(tris), 2, dev)
+    ki = _walk_case(tables, o, d, _masks(4096, mode, dev, 3))
+    assert (ki >= 0).any()
+
+
+def test_walk_kernel_on_no_rays(dev):
+    tables = K3.walk_tables(load_jax_scene(pack_device_scene(
+        cornell_box(tessellation=4)), dev))
+    empty = torch.zeros((3, 0), device=dev)
+    _walk_case(tables, empty, empty, {})
+
+
+def test_sorted_walk_equals_bare_kernel(dev, monkeypatch):
+    """make_closest_hit's walk with reorder=True (rays in bucket order)
+    against the bare kernel at 128x128 on the 4,898-triangle box:
+    bounce-1 rays, 5% of them, and the bounce's shadow rays. The sort is
+    forced on this tree, which is below the JAX gate."""
+    monkeypatch.setattr(INTERSECT, "REORDER_MIN_NODES", 1)
+    sc = cornell_box(tessellation=12)
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    tables = K3.walk_tables(scene)
+    size = 128
+    cam = camera_device(Camera(width=size, height=size).as_pytree(), size,
+                        size)
+    x, y = CAM.pixel_grid(size, size, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 1, use_dof=True)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    assert n >= INTERSECT.REORDER_MIN_LANES
+    nt = scene["tri_isect"].shape[0]
+    t, idx = K3.closest_hit_walk(tables, ro, rd, num_tris=nt)
+    outs = K2.bounce_stage_plain(
+        0, rays, state, torch.ones((3, n), device=dev),
+        torch.zeros((3, n), device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+        scene["tri_full"], scene["light_full"], do_mis=True,
+        num_lights=sc.num_lights)
+    late = outs[4] & torch.from_numpy(
+        np.random.default_rng(4).random(n) < 0.05).to(dev)
+    ch = INTERSECT.make_closest_hit(scene, "walk")
+    for r, kw in ((outs[0], dict(active=outs[4])),
+                  (outs[0], dict(active=late)),
+                  (outs[5], dict(active=outs[7], t_max=outs[6],
+                                 any_hit=True))):
+        o, d = r[0:3], r[3:6]
+        before = K3.Counter.launches
+        st, si = ch(o, d, reorder=True, **kw)
+        torch.cuda.synchronize()
+        assert K3.Counter.launches == before + 1
+        bt, bi = K3.closest_hit_walk(tables, o, d, num_tris=nt, **kw)
+        assert torch.equal(_bits(st), _bits(bt)) and torch.equal(si, bi)
+        assert (si >= 0).any()
 
 
 def test_renderer_walk_path_equals_plain_path(dev):

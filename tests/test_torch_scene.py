@@ -77,11 +77,14 @@ def test_load_jax_scene_uploads_the_same_tables():
         b = load_jax_scene(pack_device_scene(make_port()), "cpu")
         # The JAX-only tables are left behind; only a textured scene whose
         # packing baked a fat canvas uploads it. The texture-slot mask is
-        # worked out once, at upload.
+        # worked out once, at upload, and the root box is bvh_aabb's row 0.
         want = set(DEVICE_KEYS) - (set() if fat else {"atlas_fat",
                                                      "atlas_fat_rects"})
-        assert set(a) == set(b) == want | {"texture_slots_used"}
+        assert set(a) == set(b) == want | {"texture_slots_used", "root_box"}
         assert a["texture_slots_used"] == b["texture_slots_used"] == slots
+        assert torch.equal(a["root_box"],
+                           torch.from_numpy(jpack(make_ref())["bvh_aabb"][0]))
+        assert torch.equal(a["root_box"], b["root_box"])
         for key in want:
             dtype = DEVICE_KEYS[key]
             assert a[key].dtype == torch.from_numpy(np.zeros(1, dtype)).dtype

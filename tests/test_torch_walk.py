@@ -32,18 +32,25 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import spine_rays, spine_tables
 from wgpu_path_tracing_tpu.models import procedural as JP
 from wgpu_path_tracing_tpu.models.types import pack_device_scene as jpack
+from wgpu_path_tracing_tpu.ops.intersect import _with_bucket_reorder
 from wgpu_path_tracing_tpu.ops.intersect import closest_hit_brute as jbrute
 from wgpu_path_tracing_tpu.ops.walk import closest_hit_walk as jwalk
 from wgpu_path_tracing_tpu_torch import cornell_box, load_jax_scene
+from wgpu_path_tracing_tpu_torch.accel.bvh8 import wide_depth
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
-from wgpu_path_tracing_tpu_torch.ops import walk
+from wgpu_path_tracing_tpu_torch.ops import intersect, walk
 from wgpu_path_tracing_tpu_torch.ops.intersect import (
     closest_hit_brute,
     make_closest_hit,
     moller_trumbore,
 )
+
+# One thread a worker: PyTorch's OpenMP teams spin against each other under
+# the suite's parallel workers.
+torch.set_num_threads(1)
 
 CSRC = walk.cuda_lib.CSRC_DIR
 
@@ -253,11 +260,13 @@ def test_empty_scene_misses_everything():
 
 
 def test_stack_bound_is_depth_times_seven_plus_eight(random_scene):
+    """The plain walk's stack holds 7 entries a level plus 8; the kernel's
+    one a level below the root, in shared memory."""
     tables = _tables(random_scene)
-    from wgpu_path_tracing_tpu_torch.accel.bvh8 import wide_depth
-
     depth = wide_depth(random_scene["walk_order"][:, :8])
-    assert tables.stack == 7 * depth + 8 <= walk.STACK_MAX
+    assert tables.stack == 7 * depth + 8
+    assert tables.levels == max(depth - 1, 1)
+    assert tables.levels * 4 * walk.THREADS <= walk.SHARED_MAX
     assert tables.order.dtype == torch.int32
 
 
@@ -312,13 +321,19 @@ def test_kernel_constants_match_the_tables():
 
     from wgpu_path_tracing_tpu_torch.accel import bvh8
 
-    assert const("kMaxStack") == walk.STACK_MAX
+    assert const("kThreads") == walk.THREADS
     assert const("kWidth") == bvh8.WIDTH
     assert const("kOctants") == bvh8.OCTANTS
+    assert const("kBoxFloats") == walk.BOX_FLOATS
+    assert const("kTriFloats") == walk.TRI_FLOATS
     assert const("kLanes") == bvh8.LEAF_SLOTS
     assert const("kSub") == bvh8.SUB
     assert const("kGroupRows") == bvh8.group_rows(bvh8.SUB)
-    assert "wpt_walk" in walk.cuda_lib.SIGNATURES
+    # One launcher with the stack's size before the stream; the stack lives
+    # in dynamic shared memory and nowhere else.
+    assert len(walk.cuda_lib.SIGNATURES["wpt_walk"]) == 14
+    assert "extern __shared__ unsigned stack[];" in src
+    assert "kMaxStack" not in src and "Entry stack[" not in src
 
 
 def test_make_closest_hit_picks_the_walk(random_scene):
@@ -404,3 +419,209 @@ def test_plain_walk_counts_its_visits(random_scene):
     for key in ("interior", "leaf", "children", "sub_boxes", "sub_clusters",
                 "triangles"):
         assert any_hit[key] <= closest[key], key
+
+
+@pytest.mark.parametrize("name", ["random", "flagship"])
+def test_leaf_records_give_back_walk_tris(random_scene, name):
+    """The kernel's records, unpacked, are walk_tris' triangles, indices and
+    sub-boxes bit for bit, with zero padding; they start on 16 bytes."""
+    packed = (random_scene if name == "random"
+              else pack_device_scene(cornell_box()))
+    tables = _tables(packed)
+    group = packed["walk_tris"].reshape(-1, walk.GROUP_ROWS, walk.LEAF_SLOTS)
+    ng = group.shape[0]
+    rec = tables.leaves.numpy()
+    assert rec.shape == (ng, walk.LEAF_FLOATS) == (ng, 1664)
+    assert tables.leaves.data_ptr() % 16 == 0
+    boxes = rec[:, :walk.SUB * walk.BOX_FLOATS].reshape(ng, walk.SUB, 8)
+    tri = rec[:, walk.SUB * walk.BOX_FLOATS:].reshape(ng, walk.LEAF_SLOTS,
+                                                     12)
+    bits = lambda a: np.ascontiguousarray(a).view(np.uint32)  # noqa: E731
+    np.testing.assert_array_equal(bits(tri[..., 0:10]),
+                                  bits(group[:, 0:10, :].transpose(0, 2, 1)))
+    np.testing.assert_array_equal(bits(boxes[..., 0:6]),
+                                  bits(group[:, 16:16 + walk.SUB, 0:6]))
+    assert (tri[..., 10:] == 0).all() and (boxes[..., 6:] == 0).all()
+    # Each group's padding slots (index -1) follow its triangles, which the
+    # kernel's early stop in a sub-cluster rests on.
+    idx = tri[..., 9]
+    pad = idx < 0
+    assert (np.sort(pad, axis=1, kind="stable") == pad).all()
+
+
+def _jax_perm(packed, ro, rd):
+    """The JAX package's bucket permutation: ``_with_bucket_reorder`` around
+    an inner call that returns each sorted lane's number, which the wrapper
+    scatters back to the lane's ray."""
+    n = ro.shape[0]
+
+    def inner(ro3, rd3, active=None, t_max=None, any_hit=False):
+        lanes = jnp.arange(n, dtype=jnp.int32)
+        return lanes.astype(jnp.float32), lanes
+
+    wrapped = _with_bucket_reorder(inner, jnp.asarray(packed["bvh_aabb"][0]))
+    _, perm = wrapped(jnp.asarray(ro.T), jnp.asarray(rd.T))
+    return np.asarray(perm)
+
+
+def _edge_rays(packed, n, seed):
+    """Origins on the root box's faces and on the quantisation's bucket
+    edges (min + k * extent / 4), inside and up to one extent outside the
+    box, and direction components of +0.0 and -0.0."""
+    rng = np.random.default_rng(seed)
+    lo, hi = packed["bvh_aabb"][0, 0:3], packed["bvh_aabb"][0, 3:6]
+    ext = hi - lo
+    o = lo + ext * rng.integers(-4, 9, (n, 3)) / 4.0
+    loose = rng.random((n, 3)) < 0.3
+    o = np.where(loose, rng.uniform(lo - ext, hi + ext, (n, 3)), o)
+    d = rng.normal(size=(n, 3))
+    d[rng.random((n, 3)) < 0.2] = 0.0
+    d[rng.random((n, 3)) < 0.1] = -0.0
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "edges", "cornell"])
+def test_bucket_permutation_equals_jax(random_scene, cornell_scene, kind):
+    """The port's stable sort by bucket key gives exactly the JAX package's
+    counting-sort permutation (no lane is inactive: the JAX wrapper keys
+    every lane by its ray)."""
+    if kind == "random":
+        packed, (ro, rd) = random_scene, _random_rays(random_scene, 4096, 12)
+    elif kind == "edges":
+        packed, (ro, rd) = cornell_scene, _edge_rays(cornell_scene, 4096, 13)
+    else:
+        packed, (ro, rd) = cornell_scene, _cornell_rays(4096)
+    root = load_jax_scene(packed, "cpu")["root_box"]
+    order = intersect.ray_order(torch.from_numpy(ro.T.copy()),
+                                torch.from_numpy(rd.T.copy()), root)
+    position = torch.empty_like(order)
+    position[order] = torch.arange(len(order))
+    np.testing.assert_array_equal(position.numpy(), _jax_perm(packed, ro, rd))
+    keys = intersect.bucket_keys(torch.from_numpy(ro.T.copy()),
+                                 torch.from_numpy(rd.T.copy()), root)
+    assert 0 <= int(keys.min()) and int(keys.max()) < intersect.REORDER_BUCKETS
+    assert len(keys.unique()) > (8 if kind == "cornell" else 64)
+
+
+SORTED_CASES = {
+    # name: (share of lanes alive or None for no mask, t_max and any_hit,
+    #        reorder)
+    "reorder_off": (0.5, False, False),
+    "no_mask": (None, False, True),
+    "alive_50": (0.5, False, True),
+    "alive_5": (0.05, False, True),
+    "t_max_any_hit": (0.5, True, True),
+    "all_inactive": (0.0, False, True),
+}
+
+
+@pytest.mark.parametrize("buckets", [True, False])
+@pytest.mark.parametrize("case", list(SORTED_CASES))
+def test_sorted_walk_equals_bare_walk(random_scene, monkeypatch, case,
+                                      buckets):
+    """make_closest_hit's walk with the ray reorder equals the bare plain
+    walk bit for bit, at a ragged ray count past REORDER_MIN_LANES, with
+    5% and 50% of the lanes alive, none, t_max and any-hit; the walk gets
+    the rays in bucket order. A small tree (``buckets`` False) is walked
+    unsorted."""
+    if buckets:  # the random scene's tree is below the JAX gate
+        monkeypatch.setattr(intersect, "REORDER_MIN_NODES", 1)
+    n = intersect.REORDER_MIN_LANES + 1
+    alive, bounded, reorder = SORTED_CASES[case]
+    ro, rd = _random_rays(random_scene, n, 14)
+    ro3, rd3 = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    rng = np.random.default_rng(15)
+    kw = {}
+    if alive is not None:
+        kw["active"] = torch.from_numpy(rng.random(n) < alive)
+    if bounded:
+        kw.update(t_max=torch.from_numpy(
+            rng.uniform(0.05, 2.0, n).astype(np.float32)), any_hit=True)
+    scene = load_jax_scene(random_scene, "cpu")
+    ch = make_closest_hit(scene, "walk")
+    seen = {}
+    real = walk.closest_hit_walk
+
+    def spy(tables, o, d, active=None, t_max=None, **rest):
+        seen.update(ro=o, rd=d)
+        return real(tables, o, d, active, t_max, **rest)
+
+    monkeypatch.setattr(walk, "closest_hit_walk", spy)
+    t, i = ch(ro3, rd3, reorder=reorder, **kw)
+    pt, pi = walk.closest_hit_walk_plain(_tables(random_scene), ro3, rd3,
+                                         num_tris=1500, **kw)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
+    assert torch.equal(i, pi)
+    assert (pi >= 0).any() or case == "all_inactive"
+    sorted_call = reorder and buckets
+    assert (seen["rd"] is rd3) != sorted_call
+    if sorted_call:
+        keys = intersect.bucket_keys(seen["ro"], seen["rd"],
+                                     scene["root_box"])
+        assert (keys[1:] >= keys[:-1]).all()
+
+
+def test_small_calls_and_camera_rays_are_not_sorted(random_scene):
+    """Below REORDER_MIN_LANES, without ``reorder`` or without a root box,
+    the wrapper hands the caller's tensors to the walk untouched."""
+    root = load_jax_scene(random_scene, "cpu")["root_box"]
+    calls = []
+
+    def inner(ro3, rd3, active, t_max, any_hit):
+        calls.append(rd3)
+        return (torch.zeros(ro3.shape[1]),
+                torch.zeros(ro3.shape[1], dtype=torch.int32))
+
+    wrapped = intersect.with_ray_order(inner, root)
+    n = intersect.REORDER_MIN_LANES
+    for lanes, reorder in ((n - 1, True), (n, False)):
+        rd3 = torch.ones((3, lanes))
+        wrapped(torch.zeros((3, lanes)), rd3, reorder=reorder)
+        assert calls[-1] is rd3
+    rd3 = torch.ones((3, n))
+    intersect.with_ray_order(inner)(torch.zeros((3, n)), rd3, reorder=True)
+    assert calls[-1] is rd3
+    wrapped(torch.zeros((3, n)), rd3, reorder=True)
+    assert calls[-1] is not rd3
+
+
+@pytest.mark.parametrize("levels", [1, 5, 10])
+def test_shared_stack_follows_wide_depth(levels):
+    """The kernel's stack is one entry a wide level below the root: a spine
+    tree of ``levels`` + 1 levels needs ``levels`` entries a ray, which the
+    wrapper sizes the launch's shared memory by; the plain walk on such a
+    tree agrees with the dense hit."""
+    tables, tris = spine_tables(levels, "cpu")
+    depth = wide_depth(tables.order[:, :8].numpy())
+    assert depth == levels + 1
+    assert tables.levels == levels == walk.stack_levels(depth)
+    assert tables.stack == 7 * depth + 8
+    o, d = spine_rays(256, len(tris), 16, "cpu")
+    t, i = walk.closest_hit_walk_plain(tables, o, d)
+    bt, bi = closest_hit_brute(torch.from_numpy(tris), o.T, d.T)
+    assert torch.equal(i >= 0, bi >= 0) and int((i >= 0).sum()) > 64
+    same = i == bi
+    assert torch.equal(t[same].view(torch.int32), bt[same].view(torch.int32))
+    assert torch.equal(t[~same], bt[~same])
+
+
+@pytest.mark.parametrize("bad", ["levels", "no_levels", "leaf_shape",
+                                 "leaf_alignment"])
+def test_kernel_wrapper_checks_its_tables(random_scene, bad):
+    """Before it launches, the wrapper raises on a stack that shared memory
+    cannot hold, and on leaf records of the wrong shape or alignment."""
+    tables = _tables(random_scene)
+    if bad == "levels":
+        tables = tables._replace(
+            levels=walk.SHARED_MAX // (4 * walk.THREADS) + 1)
+    elif bad == "no_levels":
+        tables = tables._replace(levels=0)
+    elif bad == "leaf_shape":
+        tables = tables._replace(leaves=tables.leaves[:, :-4].contiguous())
+    else:
+        flat = torch.zeros(tables.leaves.numel() + 1)
+        tables = tables._replace(
+            leaves=flat[1:].view(tables.leaves.shape))
+    with pytest.raises(ValueError, match="stack|leaf records"):
+        walk.closest_hit_walk_cuda(tables, torch.zeros((3, 8)),
+                                   torch.ones((3, 8)))

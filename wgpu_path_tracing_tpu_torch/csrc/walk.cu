@@ -6,33 +6,50 @@
 // SMEM, the tables resident in VMEM (or a paged DMA ring), two pops per
 // iteration and 16-bit quantised stack keys, all to fit a vector unit that
 // has no per-lane control flow. Here one thread owns one ray and walks the
-// tree on its own stack in local memory, the shape of the reference's
-// traverseBVH (pt.wgsl:248-296): no block union, no quantisation, no
-// residency gates. The only scene-size limit is the card's memory.
+// tree on its own, the shape of the reference's traverseBVH
+// (pt.wgsl:248-296): no block union, no quantisation, no residency gates.
+// The only scene-size limit is the card's memory.
 //
-// Bound on the H100: latency of dependent table loads. Each visit reads one
-// 8-row box slab (256 B) or one leaf group's sub-box rows and 8-slot
-// columns (a group is 16 KB) through L1/L2, then does about 60 flops per
-// box test and 55 per triangle. Neighbouring threads hold neighbouring
-// camera rays, so their paths and loads largely coincide; bounce rays
-// diverge. This first version keeps the walk simple and right: the stack
-// entry is 8 bytes (node, entry distance), the tables are read directly.
+// Bound on the H100 by instruction issue, then by the divergent lanes of a
+// warp and the serial walk of the slowest rays; 9-26x its operation bound
+// (PERF.md). The design:
+// - Records shaped for 16-byte loads (ops/walk.py::leaf_records): a leaf
+//   group is 16 sub-box records of 32 B, [min3, max3, 0, 0], then 128
+//   triangle records of 48 B, [v0, e1, e2, index, 0, 0], so a sub-box is two
+//   float4 loads and a triangle three; an interior node's 8 metas are two
+//   int4 and each child box (a 32-B row of walk_boxes) two float4.
+// - A stack of one entry a tree level (Ylitie, Karras and Laine, HPG 2017),
+//   in shared memory: an interior visit makes one entry, the node and the
+//   8-bit mask of the children it entered; the node being walked stays in
+//   registers and the entries of its ancestors that still hold children go
+//   to shared memory, fewer than the tree's depth. No local memory.
+// - The slab test's 12 NaN-propagating min and max are one PTX instruction
+//   each; the 16 sub-box gates of a leaf visit are unrolled, and so are a
+//   sub-cluster's 8 Möller-Trumbore tests, each of which stops at the first
+//   condition it fails.
+// - The wrapper sorts bounce rays into direction-octant x origin buckets
+//   (ops/intersect.py::with_ray_order), so a warp holds rays with similar
+//   paths.
 //
 // Per-ray semantics (ops/walk.py, where the plain version follows the same
 // steps term for term, so the two agree bit for bit on the card):
 // - limit = t_max (or inf) on an active lane, -inf on an inactive one;
 // - 1/d with a zero component replaced by 1e-30;
 // - the octant is the ray's own direction sign bits; slots 0..7 of
-//   walk_order[n, oct*8 + k] are pushed in order (slot 7, the nearest,
-//   pops first); empty slots (meta 0, NaN boxes) are skipped;
+//   walk_order[n, oct*8 + k] are taken nearest first, slot 7 first, as a
+//   LIFO stack that pushed them in order pops them; empty slots (meta 0,
+//   NaN boxes) are skipped;
 // - a child is entered when tf >= tn && tf >= 0 && tn <= limit, with min
 //   and max that propagate NaN as torch.minimum / torch.maximum do (CUDA's
 //   fminf / fmaxf drop it);
-// - a popped entry whose entry distance is above the live limit is dropped;
+// - a child taken from its parent's mask whose entry distance is above the
+//   live limit is dropped; the distance is computed again from the same box
+//   by the same slab test, so it has the bits the plain version stored;
 // - a leaf group's 16 sub-cluster boxes are gated against the limit at the
 //   visit's start; each entered sub-cluster runs Möller-Trumbore over its
 //   8 slots (least t, ties to the lowest index; padding slots have index
-//   -1), and merges into the best hit with a strict <;
+//   -1 and come last in a group), and merges into the best hit with a
+//   strict <;
 // - after a leaf visit the limit becomes min(best t, limit), or, with
 //   any_hit, the lane stops once its best t is below its limit;
 // - the output clears idx >= num_tris, non-finite t and inactive lanes.
@@ -48,29 +65,144 @@
 
 namespace {
 
-using namespace wpt;  // the slab test, Möller-Trumbore and the leaf layout
+using namespace wpt;  // the slab test, Möller-Trumbore, the leaf layout
 
 constexpr int kThreads = 256;
 constexpr int kWidth = 8;        // accel/bvh8.py WIDTH
 constexpr int kOctants = 8;      // accel/bvh8.py OCTANTS
-constexpr int kMaxStack = 256;   // ops/walk.py STACK_MAX; the wrapper checks
-                                 // the tree's need against it
+constexpr int kBoxFloats = 8;    // a child box or sub-box record
+constexpr int kTriFloats = 12;   // a triangle record
+constexpr int kLeafFloats = kSub * kBoxFloats + kLanes * kTriFloats;
+constexpr int kDefaultShared = 48 * 1024;  // dynamic shared memory without
+                                           // the opt-in attribute
 
-struct Entry {
-  int node;  // >= 0 interior wide node, < 0 leaf group -(g + 1)
-  float tn;  // entry distance at push time
-};
+// torch.minimum / torch.maximum in one instruction each: PTX's .NaN min
+// and max return NaN if either operand is NaN, as nan_min / nan_max do. They
+// may pick another zero sign than nan_min for (+0, -0), which no comparison
+// below tells apart; tn never reaches the output.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
-__global__ void walk_kernel(const int* __restrict__ order,
-                            const float* __restrict__ boxes,
-                            const float* __restrict__ tris,
-                            const float* __restrict__ ro,
-                            const float* __restrict__ rd,
-                            const bool* __restrict__ active,
-                            const float* __restrict__ t_max,
-                            float* __restrict__ t_out,
-                            int* __restrict__ idx_out, int n, int num_tris,
-                            int any_hit) {
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// Slab test of the box record at p ([min3, max3, 0, 0], two float4): the
+// terms of isect.cuh's slab_entry in the same order.
+__device__ __forceinline__ bool box_entry(const float4* __restrict__ p,
+                                          const Ray& r, float lim,
+                                          float* tn_out) {
+  const float4 a = p[0];
+  const float4 b = p[1];
+  const float t1x = (a.x - r.ox) * r.ix, t2x = (a.w - r.ox) * r.ix;
+  const float t1y = (a.y - r.oy) * r.iy, t2y = (b.x - r.oy) * r.iy;
+  const float t1z = (a.z - r.oz) * r.iz, t2z = (b.y - r.oz) * r.iz;
+  const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                           min_nan(t1z, t2z));
+  const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                           max_nan(t1z, t2z));
+  *tn_out = tn;
+  return (tf >= tn) && (tf >= 0.0f) && (tn <= lim);
+}
+
+// The children of interior node `node` that the ray enters: bit k for slot
+// k of the octant's order.
+__device__ __forceinline__ unsigned interior_mask(
+    const int* __restrict__ order, const float4* __restrict__ boxes,
+    int node, int oct, const Ray& r, float lim) {
+  const int4* m4 = reinterpret_cast<const int4*>(
+      order + (static_cast<size_t>(node) * kOctants + oct) * kWidth);
+  const int4 lo = m4[0];
+  const int4 hi = m4[1];
+  const int metas[kWidth] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const float4* slab =
+      boxes + (static_cast<size_t>(node) * kOctants + oct) * kWidth * 2;
+  unsigned mask = 0;
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    float tn;
+    if (metas[k] != 0 && box_entry(slab + 2 * k, r, lim, &tn))
+      mask |= 1u << k;
+  }
+  return mask;
+}
+
+// isect.cuh's moller_trumbore with early exits: the same terms in the same
+// order, so the same t on a valid hit, but a triangle stops at the first
+// test it fails (most fail at u or v, before q, v and t are formed).
+__device__ __forceinline__ bool mt_early(const Ray& r, const float4& a,
+                                         const float4& b, const float4& e,
+                                         float* t_out) {
+  const float kEpsilon = static_cast<float>(1e-6);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = e.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * hx + e1y * hy + e1z * hz;
+  if (!(fabsf(det) >= kEpsilon)) return false;
+  const float f = 1.0f / det;
+  const float sx = r.ox - v0x;
+  const float sy = r.oy - v0y;
+  const float sz = r.oz - v0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  if (!((u >= 0.0f) && (u <= 1.0f))) return false;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  if (!((v >= 0.0f) && (u + v <= 1.0f))) return false;
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  *t_out = t;
+  return t > kEpsilon;
+}
+
+// Möller-Trumbore over sub-cluster c of a leaf group's records: the least
+// t, ties to the lowest triangle index. Leaves (inf, INT_MAX) when no slot
+// is hit. Unrolled, so the 24 loads issue together; a padding slot (index
+// -1) is no hit.
+__device__ __forceinline__ void mt_records(const float4* __restrict__ tris,
+                                           int c, const Ray& r, float* t_out,
+                                           int* idx_out) {
+  float sub_t = CUDART_INF_F;
+  int sub_i = 0x7fffffff;
+  const float4* p = tris + c * kSubW * 3;
+#pragma unroll
+  for (int k = 0; k < kSubW; ++k) {
+    const float4 a = p[3 * k];
+    const float4 b = p[3 * k + 1];
+    const float4 e = p[3 * k + 2];
+    const float gidx = e.y;
+    float t;
+    if (gidx >= 0.0f && mt_early(r, a, b, e, &t)) {
+      const int gi = static_cast<int>(gidx);
+      if (t < sub_t || (t == sub_t && gi < sub_i)) {
+        sub_t = t;
+        sub_i = gi;
+      }
+    }
+  }
+  *t_out = sub_t;
+  *idx_out = sub_i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    walk_kernel(const int* __restrict__ order,
+                const float4* __restrict__ boxes,
+                const float4* __restrict__ leaves,
+                const float* __restrict__ ro, const float* __restrict__ rd,
+                const bool* __restrict__ active,
+                const float* __restrict__ t_max, float* __restrict__ t_out,
+                int* __restrict__ idx_out, int n, int num_tris, int any_hit) {
+  // Entry j of this thread's stack at stack[j * kThreads + threadIdx.x]:
+  // node << 8 | the mask of its children still to take.
+  extern __shared__ unsigned stack[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(ro, rd, n, i);
@@ -83,37 +215,51 @@ __global__ void walk_kernel(const int* __restrict__ order,
   float best_t = CUDART_INF_F;
   int best_i = -1;
   float lim = lim0;
-  Entry stack[kMaxStack];
-  int sp = 1;
-  stack[0] = Entry{0, 0.0f};  // the root
+  int sp = 0;
+  int node = 0;  // the root, entered at distance 0
+  unsigned mask =
+      0.0f > lim ? 0u : interior_mask(order, boxes, 0, oct, r, lim);
 
-  while (sp > 0) {
-    const Entry e = stack[--sp];
-    if (e.tn > lim) continue;  // pop-time culling
-    if (e.node >= 0) {
-      const int* metas = order + static_cast<size_t>(e.node) * kOctants *
-                                     kWidth + oct * kWidth;
-      const float* slab =
-          boxes + (static_cast<size_t>(e.node) * kOctants + oct) * kWidth * 8;
-      for (int k = 0; k < kWidth; ++k) {
-        const int m = metas[k];
-        if (m == 0) continue;  // empty slot: NaN box
-        float tn;
-        if (!slab_entry(slab + k * 8, r, lim, &tn)) continue;
-        if (sp < kMaxStack) stack[sp++] = Entry{m, tn};
+  while (true) {
+    if (mask == 0) {
+      if (sp == 0) break;
+      const unsigned e = stack[--sp * kThreads + threadIdx.x];
+      node = static_cast<int>(e >> 8);
+      mask = e & 0xffu;
+    }
+    const int k = 31 - __clz(mask);
+    mask &= ~(1u << k);
+    const size_t row = (static_cast<size_t>(node) * kOctants + oct) * kWidth;
+    const int m = order[row + k];
+    float tn;
+    box_entry(boxes + (row + k) * 2, r, lim, &tn);
+    if (tn > lim) continue;  // culled on the live limit
+    if (m > 0) {
+      const unsigned inner = interior_mask(order, boxes, m, oct, r, lim);
+      if (inner != 0) {
+        if (mask != 0)
+          stack[sp++ * kThreads + threadIdx.x] =
+              (static_cast<unsigned>(node) << 8) | mask;
+        node = m;
+        mask = inner;
       }
       continue;
     }
-    const float* group =
-        tris + static_cast<size_t>(-e.node - 1) * kGroupRows * kLanes;
-    const float gate_lim = lim;
+    const float4* leaf =
+        leaves + static_cast<size_t>(-m - 1) * (kLeafFloats / 4);
+    unsigned gate = 0;
+#pragma unroll
     for (int c = 0; c < kSub; ++c) {
-      float tn;
-      if (!slab_entry(group + (kSubRow + c) * kLanes, r, gate_lim, &tn))
-        continue;
+      float sub_tn;
+      if (box_entry(leaf + 2 * c, r, lim, &sub_tn)) gate |= 1u << c;
+    }
+    const float4* tris = leaf + kSub * kBoxFloats / 4;
+    while (gate != 0) {
+      const int c = __ffs(gate) - 1;
+      gate &= gate - 1;
       float sub_t;
       int sub_i;
-      mt_subcluster(group, c, r, &sub_t, &sub_i);
+      mt_records(tris, c, r, &sub_t, &sub_i);
       if (sub_t < best_t) {
         best_t = sub_t;
         best_i = sub_i;
@@ -131,15 +277,25 @@ __global__ void walk_kernel(const int* __restrict__ order,
 
 }  // namespace
 
+// levels: stack entries a thread (ops/walk.py::WalkTables.levels).
 extern "C" int wpt_walk(const void* order, const void* boxes,
-                        const void* tris, const void* ro, const void* rd,
+                        const void* leaves, const void* ro, const void* rd,
                         const void* active, const void* t_max, void* t_out,
                         void* idx_out, int n, int num_tris, int any_hit,
-                        void* stream) {
+                        int levels, void* stream) {
+  const size_t shared = static_cast<size_t>(levels) * kThreads *
+                        sizeof(unsigned);
+  if (shared > kDefaultShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int blocks = (n + kThreads - 1) / kThreads;
-  walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(order), static_cast<const float*>(boxes),
-      static_cast<const float*>(tris), static_cast<const float*>(ro),
+  walk_kernel<<<blocks, kThreads, shared,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(order), static_cast<const float4*>(boxes),
+      static_cast<const float4*>(leaves), static_cast<const float*>(ro),
       static_cast<const float*>(rd), static_cast<const bool*>(active),
       static_cast<const float*>(t_max), static_cast<float*>(t_out),
       static_cast<int*>(idx_out), n, num_tris, any_hit);

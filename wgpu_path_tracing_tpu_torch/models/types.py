@@ -585,7 +585,9 @@ def load_jax_scene(packed: dict, device) -> dict:
     as NumPy arrays) to contiguous tensors on ``device``, each in its
     ``DEVICE_KEYS`` dtype (``walk_order`` stays int32), and beside them
     ``"texture_slots_used"``, the scene's ``texture_slots_used`` tuple,
-    worked out once here from the host-side table.
+    worked out once here from the host-side table, and ``"root_box"``, row 0
+    of ``bvh_aabb`` (the scene's root box [min3 | max3], which the walk's ray
+    reorder quantises origins over, ``ops/intersect.py::bucket_keys``).
 
     Only the keys in ``DEVICE_KEYS`` are read, and the walk and fat-atlas
     tables only where the scene has them; the JAX package's extra tables
@@ -604,4 +606,6 @@ def load_jax_scene(packed: dict, device) -> dict:
         arr = np.ascontiguousarray(np.asarray(packed[key], dtype))
         out[key] = torch.from_numpy(arr).to(device)
     out["texture_slots_used"] = texture_slots_used(packed["tri_full"])
+    out["root_box"] = torch.from_numpy(np.ascontiguousarray(
+        packed["bvh_aabb"][0, 0:6], np.float32)).to(device)
     return out

@@ -235,7 +235,9 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     counters = torch.zeros((2,), dtype=torch.int64, device=dev)
     for bounce_idx in range(max_bounces):
-        t, idx = closest_hit(rays[0:3], rays[3:6], active=alive)
+        reorder = bounce_idx > 0  # incoherent rays: the walk sorts them
+        t, idx = closest_hit(rays[0:3], rays[3:6], active=alive,
+                             reorder=reorder)
         counters[0] += alive.sum()
         (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
          spdf) = bounce_stage(bounce_idx, rays, state, thr, res, alive, t, idx,
@@ -246,7 +248,8 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
         if do_mis:
             counters[1] += smask.sum()
             shadow_t, _ = closest_hit(srays[0:3], srays[3:6], active=smask,
-                                      t_max=stmax, any_hit=True)
+                                      t_max=stmax, any_hit=True,
+                                      reorder=reorder)
             shadow = TRACE.ShadowQuery(
                 origin=vec.from_rows(srays, 0),
                 direction=vec.from_rows(srays, 3), t_max=stmax, mask=smask,

@@ -52,10 +52,11 @@ SIGNATURES = {
         _I, _P,  # n, stream
     ],
     "wpt_walk": [
-        _P, _P, _P,  # walk_order, walk_boxes, walk_tris
+        _P, _P, _P,  # walk_order, walk_boxes, the leaf records
         _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
         _P, _P,  # out t, idx
-        _I, _I, _I, _P,  # n, num_tris (-1: none), any_hit, stream
+        _I, _I, _I,  # n, num_tris (-1: none), any_hit
+        _I, _P,  # stack entries a thread, stream
     ],
     "wpt_pairs": [
         _P, _P, _P,  # pairs_tris, each block's super tiles in order, counts

@@ -75,6 +75,76 @@ def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
     return best_t, best_idx
 
 
+# The JAX package's ray reorder (ops/intersect.py there): a bucket key of
+# the direction octant and REORDER_POS_BITS Morton bits an axis of the
+# origin in the scene's root box (8 * 8**bits buckets), taken on trees of at
+# least REORDER_MIN_NODES wide nodes, on calls of at least REORDER_MIN_LANES
+# rays (the JAX package's COMPACT_MIN_LANES, below which its wrapper calls
+# the walk as it is). Its tail compaction, which packs the live lanes ahead
+# of the dead ones, is not carried over: on the H100 a sort that also put
+# the dead lanes last made the large box's render 3.6% slower than the
+# bucket order alone (PERF.md section 6).
+REORDER_POS_BITS = 2
+REORDER_BUCKETS = 8 * 8 ** REORDER_POS_BITS
+REORDER_MIN_NODES = 128
+REORDER_MIN_LANES = 16384
+
+
+def bucket_keys(ro3, rd3, root_box):
+    """The JAX package's ``_with_bucket_reorder`` key of each ray: three
+    octant bits (bit a set when d[a] < 0), then REORDER_POS_BITS Morton bits
+    an axis of the origin quantised over ``root_box`` [min3 | max3], most
+    significant first, x before y before z. Its arithmetic: the extent is
+    max(max - min, 1e-6), the float-to-int cast truncates toward zero, then
+    the clip. Returns (N,) int32 in [0, REORDER_BUCKETS)."""
+    bits = REORDER_POS_BITS
+    q = (1 << bits) - 1
+    lo = root_box[0:3, None]
+    ext = torch.clamp_min(root_box[3:6, None] - lo, 1e-6)
+    c = torch.clamp(((ro3 - lo) / ext * (q + 1)).to(torch.int32), 0, q)
+    neg = (rd3 < 0.0).to(torch.int32)
+    key = neg[0] + 2 * neg[1] + 4 * neg[2]
+    for b in range(bits):
+        for a in range(3):
+            key = (key << 1) | ((c[a] >> (bits - 1 - b)) & 1)
+    return key
+
+
+def ray_order(ro3, rd3, root_box):
+    """The lane order of the sorted walk: one stable sort of the rays by
+    ``bucket_keys``; lane j of the sorted call holds ray ``order[j]``. The
+    same permutation as the JAX package's one-hot counting sort, made
+    without a host sync."""
+    return torch.argsort(bucket_keys(ro3, rd3, root_box), stable=True)
+
+
+def with_ray_order(inner, root_box=None):
+    """Wrap a closest hit so that bounce rays (``reorder=True``) are walked
+    in ``ray_order``: rays, ``active`` and ``t_max`` are gathered into the
+    sorted lanes and (t, idx) scattered back to each ray's own lane. Each
+    ray is walked alone, so the answer does not depend on the order. Calls
+    without ``root_box``, of fewer than REORDER_MIN_LANES rays, or with
+    ``reorder`` False (camera rays and bounce 0's shadow rays) go straight
+    to ``inner``."""
+
+    def wrapped(ro3, rd3, active=None, t_max=None, any_hit=False,
+                reorder=False):
+        if (root_box is None or not reorder
+                or ro3.shape[1] < REORDER_MIN_LANES):
+            return inner(ro3, rd3, active, t_max, any_hit)
+        order = ray_order(ro3, rd3, root_box)
+
+        def take(x):
+            return None if x is None else x.index_select(-1, order)
+
+        t, idx = inner(take(ro3), take(rd3), take(active), take(t_max),
+                       any_hit)
+        return (torch.empty_like(t).index_copy_(0, order, t),
+                torch.empty_like(idx).index_copy_(0, order, idx))
+
+    return wrapped
+
+
 # Intersectors the port runs, and the JAX package's others with what is
 # still to be ported for each.
 INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster")
@@ -124,9 +194,14 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     stops early on ``any_hit``. Each wrapper runs its CUDA kernel on CUDA
     tensors and its plain version on CPU tensors.
 
-    Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False)
-    over SoA (3, N) origins and directions; its ``strategy`` attribute is
-    "brute", "walk", "pairs", "phased" or "cluster".
+    ``reorder`` marks incoherent rays (the bounce loops pass ``bounce_idx >
+    0``, as the JAX package's do). Every strategy takes it; only the walk
+    reads it, on a tree of REORDER_MIN_NODES wide nodes or more: it walks
+    such a call's rays in ``ray_order`` (``with_ray_order``).
+
+    Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+    reorder=False) over SoA (3, N) origins and directions; its ``strategy``
+    attribute is "brute", "walk", "pairs", "phased" or "cluster".
     """
     from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
     from wgpu_path_tracing_tpu_torch.ops import (
@@ -144,8 +219,9 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
                                   and num_tris <= brute_max_tris):
         tri = scene["tri_isect"]
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
-            del active, t_max, any_hit
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            del active, t_max, any_hit, reorder
             return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3],
                                                               dim=0))
 
@@ -153,7 +229,9 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     elif intersector == "phased" and have_walk:
         walk_tris = scene["walk_tris"]
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            del reorder
             return phased.closest_hit_phased(walk_tris, ro3, rd3, active,
                                              t_max, num_tris=num_tris,
                                              any_hit=any_hit)
@@ -162,7 +240,9 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     elif intersector == "cluster":
         tables = cluster.cluster_tables(scene)
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            del reorder
             return cluster.closest_hit_cluster(tables, ro3, rd3, active,
                                                t_max, num_tris=num_tris,
                                                any_hit=any_hit)
@@ -171,15 +251,20 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     elif intersector in ("auto", "walk") and have_walk:
         tables = walk.walk_tables(scene)
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        def walk_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
             return walk.closest_hit_walk(tables, ro3, rd3, active, t_max,
                                          num_tris=num_tris, any_hit=any_hit)
 
+        big = tables.order.shape[0] >= REORDER_MIN_NODES
+        closest_hit = with_ray_order(walk_hit,
+                                     scene["root_box"] if big else None)
         strategy = "walk"
     else:
         tables = pairs.pair_tables(scene)
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            del reorder
             return pairs.closest_hit_pairs(tables, ro3, rd3, active, t_max,
                                            num_tris=num_tris,
                                            any_hit=any_hit)

@@ -173,8 +173,9 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
         return SHADE.fetch_rows(scene["light_full"], idx)
 
     for bounce_idx in range(max_bounces):
+        reorder = bounce_idx > 0  # incoherent rays: the walk sorts them
         t, idx = closest_hit(vec.stack_rows(st.ro), vec.stack_rows(st.rd),
-                             active=st.alive)
+                             active=st.alive, reorder=reorder)
         counters[0] += st.alive.sum()
         override = None
         if lds0 is not None:
@@ -188,6 +189,6 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
             shadow_t, _ = closest_hit(vec.stack_rows(shadow.origin),
                                       vec.stack_rows(shadow.direction),
                                       active=shadow.mask, t_max=shadow.t_max,
-                                      any_hit=True)
+                                      any_hit=True, reorder=reorder)
             st = st._replace(result=resolve_shadow(st.result, shadow, shadow_t))
     return vec.stack_rows(st.result), st.state, counters

@@ -35,6 +35,13 @@ package documents. Its TPU machinery (SMEM/VMEM residency, the paged slab
 ring, ``pops`` batching, the quantised stack keys, the canonical/permutation
 encoding) is not carried over.
 
+The kernel reads the leaf groups as the records of ``leaf_records`` (one
+more device table, copied from ``walk_tris`` once a scene by
+``walk_tables``) and keeps one stack entry a tree level in shared memory,
+``WalkTables.levels`` a thread (``csrc/walk.cu``). The plain version reads
+``walk_tris`` as the JAX package lays it out, with a stack of one entry a
+pushed child.
+
 On a CUDA tensor ``closest_hit_walk`` launches ``csrc/walk.cu``; on a CPU
 tensor it runs ``closest_hit_walk_plain``. There is no fallback between the
 two.
@@ -62,12 +69,21 @@ from wgpu_path_tracing_tpu_torch.ops.blocks import finish as _finish
 from wgpu_path_tracing_tpu_torch.ops.blocks import ray_limit as _limit
 from wgpu_path_tracing_tpu_torch.ops.intersect import moller_trumbore
 
-# Entries of the kernel's per-thread stack (csrc/walk.cu kMaxStack). Every
-# tree that passes accel/bvh8.py's build-time guard needs at most 256.
-STACK_MAX = 256
 GROUP_ROWS = group_rows(SUB)
 SUB_W = LEAF_SLOTS // SUB
 TINY = 1e-30  # stands in for a zero direction component before 1/d
+# The kernel's records (csrc/walk.cu): a box [min3, max3, 0, 0] and a
+# triangle [v0, e1, e2, index, 0, 0]; a leaf group is its SUB sub-box
+# records, then its LEAF_SLOTS triangle records.
+BOX_FLOATS = 8
+TRI_FLOATS = 12
+LEAF_FLOATS = SUB * BOX_FLOATS + LEAF_SLOTS * TRI_FLOATS
+# Threads a block (csrc/walk.cu kThreads), and the shared memory one block
+# may hold on the H100: the stack's entries, 4 bytes each (node << 8 |
+# mask), a thread, must fit.
+THREADS = 256
+SHARED_MAX = 232_448
+MAX_NODES = 1 << 24  # node ids that fit beside the 8-bit mask
 
 
 class Counter:
@@ -80,13 +96,38 @@ class WalkTables(NamedTuple):
     order: torch.Tensor  # (Nn, 64) int32
     boxes: torch.Tensor  # (Nn * 64, 8) float32
     tris: torch.Tensor  # (Ng * 32, 128) float32
-    stack: int  # per-ray stack entries the tree needs
+    stack: int  # the plain version's stack entries a ray
+    leaves: torch.Tensor  # (Ng, LEAF_FLOATS) float32, leaf_records(tris)
+    levels: int  # the kernel's stack entries a ray
+
+
+def leaf_records(tris: torch.Tensor) -> torch.Tensor:
+    """The leaf groups of ``walk_tris`` as the kernel's 16-byte-aligned
+    records, by plain copies: per group its SUB sub-boxes [min3, max3, 0, 0],
+    then its LEAF_SLOTS triangles [v0, e1, e2, index, 0, 0] in slot order."""
+    group = tris.view(-1, GROUP_ROWS, LEAF_SLOTS)
+    ng = group.shape[0]
+    out = torch.zeros((ng, LEAF_FLOATS), dtype=tris.dtype, device=tris.device)
+    boxes = out[:, :SUB * BOX_FLOATS].view(ng, SUB, BOX_FLOATS)
+    boxes[..., 0:6] = group[:, 16:16 + SUB, 0:6]
+    tri = out[:, SUB * BOX_FLOATS:].view(ng, LEAF_SLOTS, TRI_FLOATS)
+    tri[..., 0:10] = group[:, 0:10, :].transpose(1, 2)
+    return out
+
+
+def stack_levels(depth: int) -> int:
+    """The kernel's stack entries a ray for a wide tree of ``depth``
+    interior levels: the node being walked stays in registers, and an entry
+    is its ancestor's, so fewer than ``depth`` (one at least, the buffer's
+    floor)."""
+    return max(depth - 1, 1)
 
 
 def walk_tables(scene: dict) -> WalkTables:
-    """The walk tables of an uploaded scene, with the stack bound of a
-    one-pop DFS: at most 7 entries linger per interior level, plus the 8
-    children of the node being visited."""
+    """The walk tables of an uploaded scene, the kernel's leaf records and
+    the two stack bounds: the plain version's one-pop DFS leaves at most 7
+    entries per interior level, plus the 8 children of the node being
+    visited; the kernel keeps one entry a level."""
     missing = [k for k in WALK_KEYS if k not in scene]
     if missing:
         raise ValueError(
@@ -96,7 +137,8 @@ def walk_tables(scene: dict) -> WalkTables:
     order = scene["walk_order"]
     depth = wide_depth(order[:, :WIDTH].cpu().numpy())
     return WalkTables(order, scene["walk_boxes"], scene["walk_tris"],
-                      depth * (WIDTH - 1) + WIDTH)
+                      depth * (WIDTH - 1) + WIDTH,
+                      leaf_records(scene["walk_tris"]), stack_levels(depth))
 
 
 def slab_entry(box, ox, oy, oz, ix, iy, iz, lim):
@@ -263,19 +305,39 @@ def _check(tables: WalkTables, ro3, rd3, active, t_max) -> None:
                          "devices")
 
 
+def _check_kernel_tables(tables: WalkTables) -> None:
+    """What the kernel reads beyond the plain version: the leaf records
+    (their shape), walk_order, walk_boxes and the records contiguous from 16
+    bytes on (the kernel loads them as int4 and float4), the node ids beside
+    the mask, and the stack in shared memory."""
+    leaves, ng = tables.leaves, tables.tris.shape[0] // GROUP_ROWS
+    if (leaves.dtype != torch.float32
+            or tuple(leaves.shape) != (ng, LEAF_FLOATS)):
+        raise ValueError(f"the leaf records must be a ({ng}, {LEAF_FLOATS}) "
+                         "float32 tensor (leaf_records)")
+    for name, x in (("leaf records", leaves), ("walk_order", tables.order),
+                    ("walk_boxes", tables.boxes)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"the {name} must be contiguous from a 16-byte "
+                             "boundary")
+    if tables.order.shape[0] > MAX_NODES:
+        raise ValueError(f"K3 takes at most {MAX_NODES} wide nodes")
+    if not 1 <= tables.levels <= SHARED_MAX // (4 * THREADS):
+        raise ValueError(
+            f"the wide BVH needs {tables.levels} stack entries a ray; K3's "
+            f"shared memory holds 1 to {SHARED_MAX // (4 * THREADS)}")
+
+
 def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,
                           t_max=None, num_tris: int | None = None,
                           any_hit: bool = False):
     """Launch K3 on the current stream (no synchronisation)."""
     _check(tables, ro3, rd3, active, t_max)
+    _check_kernel_tables(tables)
     if ro3.device.type != "cuda":
         raise ValueError("closest_hit_walk_cuda needs CUDA tensors")
-    if tables.stack > STACK_MAX:
-        raise ValueError(
-            f"the wide BVH needs a {tables.stack}-entry stack per ray; K3's "
-            f"stack holds {STACK_MAX}")
-    args = [x.contiguous() for x in (tables.order, tables.boxes, tables.tris,
-                                     ro3, rd3)]
+    args = [tables.order, tables.boxes, tables.leaves, ro3.contiguous(),
+            rd3.contiguous()]
     for x in (active, t_max):
         args.append(None if x is None else x.contiguous())
     n = ro3.shape[1]
@@ -287,7 +349,7 @@ def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,
         *(None if x is None else x.data_ptr() for x in args),
         t.data_ptr(), idx.data_ptr(), n,
         -1 if num_tris is None else int(num_tris), int(bool(any_hit)),
-        cuda_lib.stream_ptr(ro3))
+        tables.levels, cuda_lib.stream_ptr(ro3))
     cuda_lib.check(err, "wpt_walk")
     Counter.launches += 1
     return t, idx
