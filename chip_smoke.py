@@ -6,17 +6,24 @@ It builds the hand-written kernels from ``wgpu_path_tracing_tpu_torch/csrc``
 and runs these phases, one line of output each:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: nvcc builds the kernels (the seconds, and ptxas' register report);
+2. build: nvcc builds the kernels (the seconds, and each compiled
+   function's registers, stack frame and spills from ptxas' report);
 3. K1 vs plain: the dense closest hit on the 512x512 Cornell camera rays,
-   their bounce-1 rays and their bounce-0 shadow rays; ``t`` must be
-   bit-equal and ``idx`` equal on every lane;
+   their bounce-1 rays and their bounce-0 shadow rays, and on the
+   adversarial classes (``adversarial_case``: edges, vertices, u + v = 1,
+   |a| and t at EPSILON, ties, parallel and degenerate directions, ragged
+   counts); ``t`` must be bit-equal and ``idx`` equal on every lane; the
+   time on each of the three ray sets;
 4. K2 vs plain: the bounce shading at 512x512, bounces 0..2, on
-   ``cornell_box()`` and ``material_test_box()``; state, alive and mask
-   bit-equal, the float outputs bit-equal or within 2 ulp on at most 0.01%
-   of lanes; then textured K2 under the same bound on ``textured_cornell()``
-   and ``textured_cornell(atlas_size=512, congruent=True)`` (fat canvas) and
-   the 256^2 congruent box with a 255^2 pbr rect (no canvas: per slot), with
-   each mode's time and texture-slot mask;
+   ``cornell_box()``, ``material_test_box()`` and the lane mix
+   (``lane_mix_box``, random rays: every lobe, light type and lane class);
+   state, alive and mask bit-equal, the float outputs bit-equal or within 2
+   ulp on at most 0.01% of lanes; the time at bounce 0 of each; then
+   textured K2 under the same bound on ``textured_cornell()``,
+   ``textured_cornell(atlas_size=512, congruent=True)`` (fat canvas), the
+   256^2 congruent box with a 255^2 pbr rect (no canvas: per slot) and
+   ``textured_material_box()`` in both modes, with each one's time and
+   texture-slot mask;
 5. oracle: the 24x24 Cornell render through the kernels against the scalar
    oracle ``tests/oracle.py`` on 14 pixels at frames 0, 1 and 5: no RNG-state
    mismatch and at most one radiance outlier (rtol/atol 2e-3); then the same
@@ -64,9 +71,11 @@ and runs these phases, one line of output each:
    large box) at 2 spp, and the first frame of each against its plain
    path's;
 11. rng modes: K2's bounce-0 LDS instantiation against its plain version at
-   512x512 on ``cornell_box()``, ``material_test_box()`` and
-   ``textured_cornell()`` sampled per slot (the phase-4 bound), with its
-   time; ``Renderer(RenderConfig(width=512, height=512, rng="stratified"))``
+   512x512 on ``cornell_box()``, ``material_test_box()``, and
+   ``textured_cornell()`` and ``textured_material_box()`` each sampled per
+   slot and from the fat canvas (the phase-4 bound), with its time beside
+   the launch without LDS on each;
+   ``Renderer(RenderConfig(width=512, height=512, rng="stratified"))``
    on the Cornell box at 64 spp (launch counts: 64 of the LDS
    instantiation, one a frame; cold and repeated Mrays/s; the image against
    the plain path's of the same frames on every pixel) and ``rng="hash"`` at
@@ -87,7 +96,7 @@ main-path frames to PATH, of four textured-flagship frames, of four
 large-scene frames, of four frames of the large scene through the pair
 dispatch and of four stratified flagship frames to PATH with ``_textured``,
 ``_large``, ``_pairs`` and ``_stratified`` before its extension, and prints
-the device's busy share.
+the device's busy share and the ``torch.cat`` calls a frame.
 
 ``--phases NAME,...`` runs only the named phases (``--help`` names them),
 for iterating on the card; without it every phase runs.
@@ -96,9 +105,12 @@ for iterating on the card; without it every phase runs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -218,6 +230,106 @@ TEXTURED = (
      "fat"),
     ("textured_per_slot", coprime_textured, "per_slot"),
 )
+
+
+def textured_material_box(make_box=material_test_box,
+                          make_textured=textured_cornell):
+    """``material_test_box()`` with ``textured_cornell()``'s atlas and maps
+    (albedo and pbr on the white material, the normal map on the red one):
+    K2's texture modes on lanes that diverge across lobes and light types.
+    Either package's two functions may be passed."""
+    sc, tex = make_box(), make_textured()
+    sc.atlas = tex.atlas
+    for key in ("mat_albedo_rect", "mat_pbr_rect", "mat_normal_rect",
+                "mat_emissive_rect"):
+        getattr(sc, key)[0:2] = getattr(tex, key)[0:2]
+    return sc
+
+
+# The lights K2 branches on: (type, position, color, intensity, spot
+# direction, scale and offset or None). "point_far" is past the 100 at
+# which a point light is ignored.
+LANE_MIX_LIGHTS = {
+    "directional": (1, (-0.3, -1.0, -0.4), (0.6, 0.7, 1.0), 0.5, None),
+    "spot": (3, (0.0, 1.9, 0.0), (1.0, 0.8, 0.6), 3.0,
+             (0.0, -1.0, 0.0, 9.75, -8.56)),
+    "point_near": (2, (0.0, 1.8, 0.5), (1.0, 0.9, 0.8), 0.8, None),
+    "point_far": (2, (0.0, 150.0, 0.0), (1.0, 1.0, 1.0), 1e4, None),
+}
+LANE_MIX_CASES = ("all", "emissive", *LANE_MIX_LIGHTS)
+
+
+def lane_mix_box(make_box, lights: str = "all"):
+    """``make_box()`` (a procedural scene of either package) with every case
+    K2 branches on, lane by lane. Three materials are appended and given to
+    some of the non-emissive triangles: a smooth metal (roughness 0.01,
+    below the 0.04 floor), a blend of all three lobes (metallic 0.4,
+    transmission 0.5) and a dense glass (ior 2.4: total internal reflection
+    at a wide range of angles). The scene keeps its emissive triangles as
+    lights and takes ``lights``: one of ``LANE_MIX_LIGHTS`` beside them,
+    "emissive" for none, "all" for every one."""
+    sc = make_box()
+    f32 = np.float32
+    extra = {
+        "mat_base_color": [[0.95, 0.93, 0.88], [0.8, 0.6, 0.4], [1, 1, 1]],
+        "mat_metallic": [1.0, 0.4, 0.0], "mat_roughness": [0.01, 0.3, 0.01],
+        "mat_emission": [[0, 0, 0]] * 3, "mat_emissive_strength": [0.0] * 3,
+        "mat_ior": [1.5, 1.3, 2.4], "mat_transmission": [0.0, 0.5, 1.0]}
+    m = len(sc.mat_metallic)
+    fields = {k: np.concatenate([getattr(sc, k), np.asarray(v, f32)])
+              for k, v in extra.items()}
+    for k in ("mat_albedo_rect", "mat_pbr_rect", "mat_normal_rect",
+              "mat_emissive_rect"):
+        rect = getattr(sc, k)
+        fields[k] = np.concatenate([rect, np.zeros((3, 4), rect.dtype)])
+    mat = sc.tri_mat.copy()
+    emits = (sc.mat_emission[mat] > 0).any(1)
+    k = np.arange(len(mat))
+    for new, pick in ((m, k % 6 == 1), (m + 1, k % 6 == 2),
+                      (m + 2, k % 12 == 3)):
+        mat[pick & ~emits] = new
+    keep = sc.light_type == 0
+    if lights == "all":
+        names = list(LANE_MIX_LIGHTS)
+    else:
+        names = [] if lights == "emissive" else [lights]
+    add = [LANE_MIX_LIGHTS[name] for name in names]
+    aux = np.zeros((len(add), 5), f32)
+    for j, light in enumerate(add):
+        if light[4] is not None:
+            aux[j] = light[4]
+    old_aux = (np.zeros((int(keep.sum()), 5), f32) if sc.light_aux is None
+               else np.asarray(sc.light_aux, f32)[keep])
+    return dataclasses.replace(
+        sc, tri_mat=mat.astype(np.int32), **fields,
+        light_position=np.concatenate(
+            [sc.light_position[keep], np.array([a[1] for a in add], f32)
+             .reshape(-1, 3)]).astype(f32),
+        light_type=np.concatenate(
+            [sc.light_type[keep], [a[0] for a in add]]).astype(np.int32),
+        light_color=np.concatenate(
+            [sc.light_color[keep], np.array([a[2] for a in add], f32)
+             .reshape(-1, 3)]).astype(f32),
+        light_intensity=np.concatenate(
+            [sc.light_intensity[keep], [a[3] for a in add]]).astype(f32),
+        light_tri=np.concatenate(
+            [sc.light_tri[keep], np.zeros(len(add))]).astype(np.int32),
+        light_aux=np.concatenate([old_aux, aux]))
+
+
+def lane_mix_rays(n: int, seed: int = 0):
+    """Rays for ``lane_mix_box``, made with numpy: origins anywhere inside
+    the box (inside its glass too), directions uniform on the sphere (out
+    through the open front: misses), random PCG states and 10% of the lanes
+    dead. Returns ro, rd (3, n) float32, state (n,) int64, alive (n,)
+    bool."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    rd = _unit(rng, n)
+    return (ro.T.astype(np.float32).copy(), rd.T.astype(np.float32).copy(),
+            rng.integers(0, 2 ** 32, n).astype(np.int64),
+            rng.random(n) >= 0.1)
+
 
 # tests/test_parity.py's sample pixels and bars (24x24 image).
 ORACLE_SIZE = 24
@@ -370,16 +482,181 @@ def k2_bound(args, outs, mode: str, atlas=None, slots=None) -> dict:
     return bound(moved, K2_OPS[mode] * args[1].shape[1])
 
 
-def flagship_rays(scene_np, dev):
+def scene_of(scene_np, dev, drop_fat: bool = False) -> dict:
+    """``scene_np`` packed and uploaded; ``drop_fat`` leaves its fat canvas
+    out, so that K2 samples a textured scene per slot."""
+    packed = pack_device_scene(scene_np)
+    if drop_fat:
+        packed = {k: v for k, v in packed.items() if k not in FAT_KEYS}
+    return load_jax_scene(packed, dev)
+
+
+def flagship_rays(scene_np, dev, drop_fat: bool = False):
     """Frame-0 camera rays of the flagship camera, in the main path's tile
     lane order."""
-    scene = load_jax_scene(pack_device_scene(scene_np), dev)
+    scene = scene_of(scene_np, dev, drop_fat)
     camera = Camera(width=SIZE, height=SIZE, aspect=1.0)
     cam = camera_device(camera.as_pytree(), SIZE, SIZE)
     x, y = tile_pixels(SIZE, SIZE, dev)
     ro, rd, state = generate_rays(cam, x, y, 0,
                                   use_dof=float(camera.aperture) > 0.0)
     return scene, torch.cat([ro, rd]).contiguous(), state
+
+
+# K1's adversarial ray classes (``adversarial_case``): the razor edges of
+# Möller-Trumbore's tests, ties, degenerate directions and ragged counts.
+EPS32 = np.float32(1e-6)  # EPSILON as float32, where |a| and t are tested
+ADVERSARIAL = ("edges_vertices", "sum_one", "det_epsilon", "t_epsilon",
+               "duplicates", "parallel", "special_dirs", "ragged_1",
+               "ragged_255", "ragged_257")
+
+
+def _ulps(x: np.float32, k: int) -> np.float32:
+    """Positive ``x`` moved by ``k`` float32 ulps."""
+    bits = np.array([x], np.float32).view(np.int32) + np.int32(k)
+    return bits.view(np.float32)[0]
+
+
+def _squares(k: int):
+    """``k`` unit squares in the plane z = 0 at x = 2s, each split along its
+    diagonal x + y = 1 into two triangles that share it: (v0, v1, v2) with
+    dyadic coordinates, so that a ray with dyadic origin and direction gets
+    u, v and t exactly (u + v is exactly 1 on the diagonal of both)."""
+    v0, v1, v2 = [], [], []
+    for s in range(k):
+        x = 2.0 * s
+        v0 += [(x, 0, 0), (x + 1, 1, 0)]
+        v1 += [(x + 1, 0, 0), (x, 1, 0)]
+        v2 += [(x, 1, 0), (x + 1, 0, 0)]
+    return tuple(np.array(v, np.float32) for v in (v0, v1, v2))
+
+
+def _unit(rng, n):
+    d = rng.normal(size=(n, 3))
+    return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def adversarial_case(name: str, seed: int = 0):
+    """K1's adversarial class ``name`` (one of ``ADVERSARIAL``), made from a
+    seed with numpy: (v0, v1, v2) (T, 3) float32 triangle vertices and
+    (ro, rd) (N, 3) float32 rays. ``tri_isect_of`` packs the triangles as
+    ``pack_device_scene`` does."""
+    if name not in ADVERSARIAL:
+        raise ValueError(f"unknown adversarial class {name!r}")
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    if name == "edges_vertices":
+        # Random triangles; rays aimed at a vertex or at a point of an edge
+        # (u = 0, v = 0 or u + v = 1), the point rounded to float32.
+        v = rng.uniform(-1.0, 1.0, (3, 16, 3)).astype(f32)
+        n = 512
+        k = rng.integers(0, 16, n)
+        w = rng.uniform(0.0, 1.0, n)
+        corner = rng.integers(0, 3, n)
+        kind = rng.integers(0, 4, n)
+        uu = np.select([kind == 0, kind == 1, kind == 2],
+                       [0.0 * w, w, w], (corner == 1) * 1.0)
+        vv = np.select([kind == 0, kind == 1, kind == 2],
+                       [w, 0.0 * w, 1.0 - w], (corner == 2) * 1.0)
+        e1 = v[1].astype(np.float64) - v[0]
+        e2 = v[2].astype(np.float64) - v[0]
+        p = v[0][k] + e1[k] * uu[:, None] + e2[k] * vv[:, None]
+        d = _unit(rng, n)
+        o = p - d * rng.uniform(0.5, 2.0, (n, 1))
+        return v[0], v[1], v[2], o.astype(f32), d.astype(f32)
+    if name in ("sum_one", "det_epsilon", "t_epsilon"):
+        v0, v1, v2 = _squares(4)
+        n = 512
+        sq = 2.0 * rng.integers(0, 4, n)
+        if name == "sum_one":
+            # Dyadic targets on the shared diagonal, on the outer edges, at
+            # the vertices and next to them; dyadic slanted directions.
+            j = rng.integers(0, 17, n) / 16.0
+            kind = rng.integers(0, 5, n)
+            tx = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                           [j, 0 * j, j, np.round(j)], j + 1.0 / 64)
+            ty = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                           [1.0 - j, j, 0 * j, 0 * j], 1.0 - j)
+            a = rng.integers(-2, 3, (n, 2)) / 4.0
+            h = rng.choice([0.5, 1.0, 2.0], n)
+            d = np.stack([a[:, 0], a[:, 1], -np.ones(n)], 1)
+            o = np.stack([sq + tx - a[:, 0] * h, ty - a[:, 1] * h, h], 1)
+            return v0, v1, v2, o.astype(f32), d.astype(f32)
+        if name == "det_epsilon":
+            # |a| = |d.z| exactly on these triangles: d.z within 3 ulps of
+            # EPSILON either way, from either side of the plane.
+            dz = np.array([_ulps(EPS32, k) for k in rng.integers(-3, 4, n)],
+                          f32)
+            side = rng.choice([-1.0, 1.0], n).astype(f32)
+            t = rng.uniform(0.1, 1.0, n)
+            hit = rng.uniform(0.0, 1.0, (n, 2))
+            dxy = rng.uniform(-0.5, 0.5, (n, 2))
+            d = np.stack([dxy[:, 0], dxy[:, 1], -side * dz], 1)
+            o = np.stack([sq + hit[:, 0] - dxy[:, 0] * t,
+                          hit[:, 1] - dxy[:, 1] * t, side * dz * t], 1)
+            return v0, v1, v2, o.astype(f32), d.astype(f32)
+        # t_epsilon: t = the origin's height exactly, within 3 ulps of
+        # EPSILON, at 0 and -0.0, and a little above and below.
+        heights = np.array([_ulps(EPS32, k) for k in range(-3, 4)]
+                           + [0.0, -0.0, 2e-6, 5e-7, 1e-7, -1e-6], f32)
+        z = heights[rng.integers(0, len(heights), n)]
+        j = rng.integers(0, 33, (n, 2)) / 32.0
+        a = rng.integers(-2, 3, (n, 2)) / 4.0
+        d = np.stack([a[:, 0], a[:, 1], -np.ones(n)], 1).astype(f32)
+        o = np.stack([(sq + j[:, 0]).astype(f32), j[:, 1].astype(f32), z], 1)
+        return v0, v1, v2, o.astype(f32), d
+    if name == "duplicates":
+        # Six triangles, each at three indices: every hit ties thrice.
+        base = rng.uniform(-1.0, 1.0, (3, 6, 3)).astype(f32)
+        order = rng.permutation(np.tile(np.arange(6), 3))
+        v = base[:, order]
+        n = 512
+        k = rng.integers(0, 6, n)
+        w = rng.dirichlet([1.0, 1.0, 1.0], n)
+        p = (base[0][k] * w[:, :1] + base[1][k] * w[:, 1:2]
+             + base[2][k] * w[:, 2:])
+        d = _unit(rng, n)
+        o = p - d * rng.uniform(0.5, 2.0, (n, 1))
+        return v[0], v[1], v[2], o.astype(f32), d.astype(f32)
+    if name == "parallel":
+        # Directions in the plane of a triangle: exactly (z = 0 squares,
+        # d.z = 0, a = 0) and as near as float32 rounds (random triangles).
+        sv0, sv1, sv2 = _squares(2)
+        rv = rng.uniform(-1.0, 1.0, (3, 8, 3)).astype(f32)
+        v0 = np.concatenate([sv0, rv[0]])
+        v1 = np.concatenate([sv1, rv[1]])
+        v2 = np.concatenate([sv2, rv[2]])
+        n = 256
+        o1 = np.stack([rng.uniform(-0.5, 4.5, n), rng.uniform(-0.5, 1.5, n),
+                       rng.choice([0.0, -0.0, 1e-7], n)], 1)
+        d1 = np.concatenate([rng.normal(size=(n, 2)), np.zeros((n, 1))], 1)
+        k = rng.integers(0, 8, n)
+        e1 = rv[1][k].astype(np.float64) - rv[0][k]
+        e2 = rv[2][k].astype(np.float64) - rv[0][k]
+        d2 = e1 * rng.normal(size=(n, 1)) + e2 * rng.normal(size=(n, 1))
+        w = rng.dirichlet([1.0, 1.0, 1.0], n)
+        o2 = rv[0][k] + e1 * w[:, :1] + e2 * w[:, 1:2] - d2 * 0.5
+        return (v0, v1, v2, np.concatenate([o1, o2]).astype(f32),
+                np.concatenate([d1, d2]).astype(f32))
+    # The Cornell box's triangles from inside the box.
+    sc = cornell_box()
+    v0, v1, v2 = sc.tri_v0, sc.tri_v1, sc.tri_v2
+    n = {"special_dirs": 512, "ragged_1": 1, "ragged_255": 255,
+         "ragged_257": 257}[name]
+    o = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    d = _unit(rng, n)
+    if name == "special_dirs":
+        # Direction components 0, -0.0, +-inf and NaN, alone and together.
+        specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan])
+        pick = rng.random((n, 3)) < 0.4
+        d = np.where(pick, specials[rng.integers(0, 5, (n, 3))], d)
+    return v0, v1, v2, o.astype(f32), d.astype(f32)
+
+
+def tri_isect_of(v0, v1, v2) -> np.ndarray:
+    """(T, 9) [v0, e1, e2] as ``pack_device_scene`` packs it (the edges
+    rounded to float32)."""
+    return np.concatenate([v0, v1 - v0, v2 - v0], axis=1).astype(np.float32)
 
 
 def phase_k1(dev, report):
@@ -395,28 +672,49 @@ def phase_k1(dev, report):
         scene["tri_full"], scene["light_full"], do_mis=True,
         num_lights=scene_np.num_lights)
     worst = 0.0
-    for name, r in (("camera", rays), ("bounce-1", outs[0]),
-                    ("shadow-0", outs[5])):
-        r = r.contiguous()
+    sets = (("camera", rays), ("bounce-1", outs[0].contiguous()),
+            ("shadow-0", outs[5].contiguous()))
+    for name, r in sets:
         tk, ik = K1.closest_hit_dense_cuda(tri, r)
         tp, ip = K1.closest_hit_dense_plain(tri, r)
         t_lanes, t_ulp, t_err = compare(tk, tp)
         i_lanes = int((ik != ip).sum())
-        say("k1", f"{name} rays: {n} lanes, t differs on {t_lanes} "
-            f"(max {t_ulp} ulp), idx differs on {i_lanes}")
+        say("k1", f"{name} rays: {n} lanes ({int((ip >= 0).sum())} hits), t "
+            f"differs on {t_lanes} (max {t_ulp} ulp), idx differs on "
+            f"{i_lanes}")
         if t_lanes or i_lanes:
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"the {name} rays")
         worst = max(worst, t_err)
+    lanes = 0
+    for name in ADVERSARIAL:
+        v0, v1, v2, o, d = adversarial_case(name)
+        atri = torch.from_numpy(tri_isect_of(v0, v1, v2)).to(dev)
+        arays = torch.from_numpy(np.concatenate([o.T, d.T])).contiguous().to(
+            dev)
+        tk, ik = K1.closest_hit_dense_cuda(atri, arays)
+        tp, ip = K1.closest_hit_dense_plain(atri, arays)
+        if compare(tk, tp)[0] or int((ik != ip).sum()):
+            raise AssertionError(f"K1 disagrees with its plain version on the "
+                                 f"adversarial class {name}")
+        lanes += o.shape[0]
+    say("k1", f"{len(ADVERSARIAL)} adversarial classes ({', '.join(ADVERSARIAL)}"
+        f"; {lanes} rays): t and idx bit-equal on every lane")
     (ms, plain_ms), (eager, plain_eager) = time_pair(
         lambda: K1.closest_hit_dense_cuda(tri, rays),
         lambda: K1.closest_hit_dense_plain(tri, rays))
-    say("k1", f"time at {n} rays x {tri.shape[0]} tris: device {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms); launched from Python {eager:.4f} ms "
-        f"(plain {plain_eager:.4f} ms)")
+    say("k1", f"time at {n} camera rays x {tri.shape[0]} tris: device "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms); launched from Python "
+        f"{eager:.4f} ms (plain {plain_eager:.4f} ms)")
+    by_rays = {}
+    for name, r in sets:
+        by_rays[name] = device_ms(lambda: K1.closest_hit_dense_cuda(tri, r))
+    b = bound(nbytes(tri, rays) + 8 * n, MT_OPS * n * tri.shape[0])
+    say("k1", "device ms by ray set: " + ", ".join(
+        f"{name} {v:.4f}" for name, v in by_rays.items())
+        + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) on each")
     report["k1"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                    **bound(nbytes(tri, rays) + 8 * n,
-                            MT_OPS * n * tri.shape[0])}
+                    "ms_by_rays": by_rays, **b}
 
 
 K2_OUTPUTS = ("rays", "state", "throughput", "result", "alive", "shadow_rays",
@@ -441,16 +739,24 @@ def check_k2(kout, pout, n: int, where: str, report_key: dict) -> str:
     return "bit-equal" if not parts else "; ".join(parts)
 
 
-def k2_bounces(scene_np, label: str, dev, report_key: dict):
+def k2_bounces(scene_np, label: str, dev, report_key: dict, start=None,
+               drop_fat: bool = False):
     """K2 against its plain version at bounces 0..2 of the flagship camera
-    rays on ``scene_np`` (the plain bounce carries the rays on). Returns the
-    bounce-0 arguments and kernel outputs, the keywords, and the scene."""
-    scene, rays, state = flagship_rays(scene_np, dev)
+    rays on ``scene_np``, or of ``start`` (``lane_mix_rays``' rays, states
+    and alive lanes), the plain bounce carrying the rays on. ``drop_fat``
+    samples a textured scene per slot. Returns the bounce-0 arguments and
+    kernel outputs, the keywords, and the scene."""
+    if start is None:
+        scene, rays, state = flagship_rays(scene_np, dev, drop_fat)
+        alive = torch.ones((rays.shape[1],), dtype=torch.bool, device=dev)
+    else:
+        scene = scene_of(scene_np, dev, drop_fat)
+        ro, rd, state, alive = (torch.from_numpy(x).to(dev) for x in start)
+        rays = torch.cat([ro, rd]).contiguous()
     atlas, slots = TRACE.scene_atlas(scene)
     n = rays.shape[1]
     thr = torch.ones((3, n), device=dev)
     res = torch.zeros((3, n), device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
     kw = dict(do_mis=True, num_lights=scene_np.num_lights, atlas=atlas,
               slots_used=slots)
     timed = None
@@ -479,11 +785,20 @@ def k2_bounces(scene_np, label: str, dev, report_key: dict):
 
 
 def phase_k2(dev, report):
-    report["k2"] = {}
+    """K2 untextured on the Cornell box (every lane diffuse, every light
+    emissive), ``material_test_box()`` (lanes that diverge across lobes and
+    light types) and the lane mix (``lane_mix_box``: every lobe, light type
+    and lane class, from random rays); its time at bounce 0 of each."""
+    key = report["k2"] = {}
+    lane_mix = ("lane_mix", lambda: lane_mix_box(material_test_box),
+                lane_mix_rays(SIZE * SIZE, 1))
     timed = None
-    for scene_fn in (cornell_box, material_test_box):
-        args, outs, kw, _ = k2_bounces(scene_fn(), scene_fn.__name__, dev,
-                                       report["k2"])
+    for label, scene_fn, start in (("cornell_box", cornell_box, None),
+                                   ("material_test_box", material_test_box,
+                                    None), lane_mix):
+        args, outs, kw, _ = k2_bounces(scene_fn(), label, dev, key, start)
+        key.setdefault("ms_by_scene", {})[label] = device_ms(
+            lambda: K2.bounce_stage_cuda(*args, **kw))
         timed = timed or (args, outs, kw)
     args, outs, kw = timed
     (ms, plain_ms), (eager, plain_eager) = time_pair(
@@ -491,17 +806,24 @@ def phase_k2(dev, report):
         lambda: K2.bounce_stage_plain(*args, **kw))
     say("k2", f"time at cornell_box bounce 0, {args[1].shape[1]} rays: "
         f"device {ms:.4f} ms (plain {plain_ms:.4f} ms); launched from "
-        f"Python {eager:.4f} ms (plain {plain_eager:.4f} ms)")
-    report["k2"].update(ms=ms, plain_ms=plain_ms,
-                        **k2_bound(args, outs, "none"))
+        f"Python {eager:.4f} ms (plain {plain_eager:.4f} ms); device ms at "
+        "bounce 0 by scene: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in key["ms_by_scene"].items()))
+    key.update(ms=ms, plain_ms=plain_ms, **k2_bound(args, outs, "none"))
 
 
 def phase_k2_tex(dev, report):
-    """Textured K2 on the three textured boxes; each mode's time is taken
-    on the first scene that runs it."""
-    for path, scene_fn, mode in TEXTURED:
+    """Textured K2 on the three textured boxes and on
+    ``textured_material_box()`` in both modes; each mode's time is taken on
+    the first scene that runs it."""
+    for path, scene_fn, mode in TEXTURED + (
+            ("textured_material", textured_material_box, "fat"),
+            ("textured_material_per_slot", textured_material_box,
+             "per_slot")):
         key = report.setdefault(f"k2_{mode}", {})
-        args, outs, kw, scene = k2_bounces(scene_fn(), path, dev, key)
+        args, outs, kw, scene = k2_bounces(
+            scene_fn(), path, dev, key,
+            drop_fat=path == "textured_material_per_slot")
         atlas = kw["atlas"]
         if K2.texture_mode(atlas) != mode:
             raise AssertionError(f"{path}: K2 samples {K2.texture_mode(atlas)}"
@@ -1327,10 +1649,7 @@ def lds_case(scene_np, dev, drop_fat: bool = False, frame: int = 0):
     """Bounce 0 of the stratified flagship camera at ``frame`` on
     ``scene_np``: K2's arguments (hits from the plain dense hit), keywords
     and the LDS rows. ``drop_fat`` samples a textured scene per slot."""
-    packed = pack_device_scene(scene_np)
-    if drop_fat:
-        packed = {k: v for k, v in packed.items() if k not in FAT_KEYS}
-    scene = load_jax_scene(packed, dev)
+    scene = scene_of(scene_np, dev, drop_fat)
     camera = Camera(width=SIZE, height=SIZE, aspect=1.0)
     cam = camera_device(camera.as_pytree(), SIZE, SIZE)
     x, y = tile_pixels(SIZE, SIZE, dev)
@@ -1352,15 +1671,19 @@ def lds_case(scene_np, dev, drop_fat: bool = False, frame: int = 0):
 
 def phase_k2_lds(dev, report):
     """K2's LDS instantiation against its plain version (the phase-4 bound)
-    on the Cornell box, the material box and the textured box sampled per
-    slot; how many lanes the override moves; its time beside the launch
-    without LDS on the same inputs."""
+    on the Cornell box, the material box, and the textured box and the
+    textured material box each sampled per slot and from its fat canvas;
+    how many lanes the override moves; its time beside the launch without
+    LDS on the same inputs, on each."""
     key = report.setdefault("k2_lds", {})
     timed = None
     for label, scene_np, drop_fat in (
             ("cornell_box", cornell_box(), False),
             ("material_test_box", material_test_box(), False),
-            ("textured_cornell", textured_cornell(), True)):
+            ("textured_cornell", textured_cornell(), True),
+            ("textured_cornell", textured_cornell(), False),
+            ("textured_material_box", textured_material_box(), True),
+            ("textured_material_box", textured_material_box(), False)):
         args, kw, lds = lds_case(scene_np, dev, drop_fat)
         n = args[1].shape[1]
         before = K2.Counter.lds
@@ -1381,6 +1704,12 @@ def phase_k2_lds(dev, report):
             "(the Fresnel draw follows the lobe)")
         if not moved:
             raise AssertionError(f"{label}: the LDS override did not engage")
+        lds_ms = device_ms(lambda: K2.bounce_stage_cuda(*args, **kw, lds=lds))
+        bare_ms = device_ms(lambda: K2.bounce_stage_cuda(*args, **kw))
+        say("k2_lds", f"{label} ({mode}): device {lds_ms:.4f} ms with LDS, "
+            f"{bare_ms:.4f} ms without")
+        key.setdefault("ms_by_scene", {})[f"{label} ({mode})"] = {
+            "lds": lds_ms, "no_lds": bare_ms}
         timed = timed or (args, kw, lds, kout)
     args, kw, lds, kout = timed
     (ms, plain_ms), (eager, plain_eager) = time_pair(
@@ -1524,14 +1853,19 @@ def profile_frames(r: Renderer, path: str, phase: str) -> None:
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    cats = sum(e.name == "aten::cat" for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU)
+    cat_ms = sum(us for name, us in by_name.items() if "CatArray" in name) / 1e3
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=60))
     say(phase, f"profile of {frames} frames: wall {wall_ms:.3f} ms unprofiled, "
         f"device busy {busy_ms:.3f} ms in {len(device)} device events "
-        f"({100 * busy_ms / wall_ms:.1f}% of the wall); top: "
-        + ", ".join(f"{short(name)} {us / 1e3:.3f} ms" for name, us in top))
+        f"({100 * busy_ms / wall_ms:.1f}% of the wall); torch.cat "
+        f"{cats / frames:g} calls a frame, {cat_ms:.3f} ms of device time; "
+        "top: " + ", ".join(f"{short(name)} {us / 1e3:.3f} ms"
+                            for name, us in top))
 
 
 # The phases in their order; "dispatch" reuses "k3"'s scene and rays.
@@ -1584,6 +1918,37 @@ def kernels_line(report: dict, complete: bool) -> list:
     return full
 
 
+def kernel_resources(log: str) -> list:
+    """One line a compiled function from ptxas' ``-v`` report: its name
+    (demangled where ``c++filt`` is at hand), registers, stack frame and
+    spill bytes."""
+    entries, current = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            current = line.split("Function properties for ")[1].strip()
+            entries.setdefault(current, {})
+        elif current and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            entries[current].update(stack=nums[0], spill_stores=nums[1],
+                                    spill_loads=nums[2])
+        elif current and re.search(r"Used \d+ registers", line):
+            entries[current]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    names = list(entries)
+    demangle = shutil.which("c++filt")
+    if demangle and names:
+        out = subprocess.run([demangle], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    return [f"{name.replace('(anonymous namespace)::', '')}: "
+            f"{e.get('registers', '-')} registers, {e.get('stack', '-')} B "
+            f"stack frame, {e.get('spill_stores', '-')} B spill stores, "
+            f"{e.get('spill_loads', '-')} B spill loads"
+            for name, e in zip(names, entries.values())]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -1613,10 +1978,8 @@ def main() -> int:
     cuda_lib.lib()
     say("build", f"nvcc built {len(cuda_lib.SIGNATURES)} launchers in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in cuda_lib.build_log().splitlines():
-        if any(word in line for word in ("Function properties", "registers",
-                                         "spill")):
-            say("build", line.strip())
+    for line in kernel_resources(cuda_lib.build_log()):
+        say("build", line)
 
     report: dict = {}
     profile = args.profile

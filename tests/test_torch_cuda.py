@@ -19,7 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import DISPATCH, plain_render, spine_rays, spine_tables
+from chip_smoke import (
+    ADVERSARIAL,
+    DISPATCH,
+    adversarial_case,
+    lane_mix_box,
+    lane_mix_rays,
+    plain_render,
+    scene_of,
+    spine_rays,
+    spine_tables,
+    textured_material_box,
+    tri_isect_of,
+)
 from wgpu_path_tracing_tpu_torch import (
     Renderer,
     RenderConfig,
@@ -450,3 +462,91 @@ def test_renderer_frames_per_trace_equals_one_frame_a_trace(dev):
         assert K1.Counter.launches == before + 2 * r.config.max_bounces * 4 // fpt
     np.testing.assert_array_equal(images[0].view(np.uint32),
                                   images[1].view(np.uint32))
+
+
+def _dense_case(tri, ro, rd):
+    """K1 over rows (3, N) against its plain version, bit for bit; one
+    launch."""
+    before = K1.Counter.launches
+    t, idx = K1.closest_hit_dense_rows(tri, ro, rd)
+    torch.cuda.synchronize()
+    assert K1.Counter.launches == before + 1
+    pt, pi = K1.closest_hit_dense_plain(tri, torch.cat([ro, rd]))
+    assert torch.equal(_bits(t), _bits(pt)) and torch.equal(idx, pi)
+    return idx
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_dense_hit_kernel_on_adversarial_rays(dev, name):
+    """K1's early exits on Möller-Trumbore's razor edges, ties, degenerate
+    directions and ragged counts (chip_smoke.py::adversarial_case)."""
+    v0, v1, v2, ro, rd = adversarial_case(name)
+    tri = torch.from_numpy(tri_isect_of(v0, v1, v2)).to(dev)
+    _dense_case(tri, torch.from_numpy(ro.T.copy()).to(dev),
+                torch.from_numpy(rd.T.copy()).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 129, 255, 257, 383, 16385, 300001])
+def test_dense_hit_kernel_on_ragged_counts(dev, n):
+    """Ray counts that are no multiple of the rays a thread or a block, and
+    one past a wave of blocks, on the Cornell box from inside it."""
+    scene = load_jax_scene(pack_device_scene(cornell_box()), dev)
+    rng = np.random.default_rng(n)
+    ro = rng.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    rd = rng.normal(size=(n, 3))
+    idx = _dense_case(scene["tri_isect"],
+                      torch.from_numpy(ro.T.astype(np.float32)).to(dev),
+                      torch.from_numpy(rd.T.astype(np.float32)).to(dev))
+    assert (idx >= 0).float().mean() > 0.5
+
+
+def test_dense_hit_kernel_takes_row_views(dev):
+    """The two-pointer form over the rows of one (6, N) buffer, as
+    trace_cuda holds them, and over many triangles (several shared tiles),
+    equals the (6, N) form and the plain version."""
+    tris = pack_device_scene(cornell_box(tessellation=6))["tri_isect"]
+    tri = torch.from_numpy(tris).to(dev)
+    assert tri.shape[0] > 1024
+    _, _, rays, _ = _rays(cornell_box, dev)
+    _dense_case(tri, rays[0:3], rays[3:6])
+    t, idx = K1.closest_hit_dense(tri, rays)
+    pt, pi = K1.closest_hit_dense_rows(tri, rays[0:3], rays[3:6])
+    assert torch.equal(_bits(t), _bits(pt)) and torch.equal(idx, pi)
+
+
+@pytest.mark.parametrize("lds", [False, True])
+@pytest.mark.parametrize("mode", ["none", "per_slot", "fat"])
+def test_bounce_kernel_on_the_lane_mix(dev, mode, lds):
+    """K2 in each of its six instantiations on the lane mix
+    (chip_smoke.py::lane_mix_box: every lobe, light type and lane class,
+    from random rays), bounces 0..3, all ten outputs, every lane."""
+    if mode == "none":
+        sc = lane_mix_box(material_test_box)
+    else:
+        sc = lane_mix_box(textured_material_box)
+    scene = scene_of(sc, dev, drop_fat=mode == "per_slot")
+    atlas, slots = TRACE.scene_atlas(scene)
+    assert K2.texture_mode(atlas) == mode
+    n = 4096
+    start = lane_mix_rays(n, seed=2)
+    ro, rd, state, alive = (torch.from_numpy(x).to(dev) for x in start)
+    rays = torch.cat([ro, rd]).contiguous()
+    lds_rows = torch.from_numpy(np.random.default_rng(3).random(
+        (3, n), dtype=np.float32)).to(dev) if lds else None
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    kw = dict(do_mis=True, num_lights=sc.num_lights, atlas=atlas,
+              slots_used=slots, lds=lds_rows)
+    for b in range(4):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        args = (b, rays, state, thr, res, alive, t, idx, scene["tri_full"],
+                scene["light_full"])
+        before = (K2.Counter.by_mode[mode], K2.Counter.lds)
+        kout = K2.bounce_stage_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert (K2.Counter.by_mode[mode], K2.Counter.lds) == (
+            before[0] + 1, before[1] + (lds and b == 0))
+        pout = K2.bounce_stage_plain(*args, **kw)
+        for k, p in zip(kout, pout):
+            assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
+        rays, state, thr, res, alive = pout[:5]

@@ -47,25 +47,55 @@
 // native uint32_t and advances with an ordinary `if` per draw, in exactly the
 // draw order of the plain version.
 //
-// Bound on the H100: device-memory bytes. A ray reads 65 B of state (rays,
-// throughput, result, t, idx, rng, alive; 12 B more with LDS) and writes
-// 102 B (next rays, throughput, result, shadow ray, t_max, mask, direct,
-// pdf, rng, alive); the two tables (36 x 52 and a few x 27 floats for the
-// Cornell box) stay resident in L1/L2. A textured ray adds at most 16 B a used slot; the
+// Bound on the H100: device-memory bytes by the table's count, instruction
+// issue in fact. A ray reads 65 B of state (rays, throughput, result, t,
+// idx, rng, alive; 12 B more with LDS) and writes 102 B (next rays,
+// throughput, result, shadow ray, t_max, mask, direct, pdf, rng, alive);
+// the two tables (36 x 52 and a few x 27 floats for the Cornell box) stay
+// resident in L1/L2. A textured ray adds at most 16 B a used slot; the
 // atlas (16 KB at 32^2, 4 MB at 512^2) and the fat canvas (8 MB for the
-// 512^2 congruent atlas) fit the 50 MB L2. The design keeps every intermediate
-// in registers and touches device memory once per input and output, all SoA
-// (rows of N), so neighbouring threads read and write neighbouring
-// addresses.
+// 512^2 congruent atlas) fit the 50 MB L2. Every intermediate stays in
+// registers and device memory is touched once per input and output, all
+// SoA (rows of N), so neighbouring threads read and write neighbouring
+// addresses. What costs time is the arithmetic an exact build issues (IEEE
+// divisions, square roots, sines and cosines are instruction sequences), so
+// the design issues only what a lane's outputs need:
+// - each lane computes the case it selects and no other, where the plain
+//   version computes every case and selects: its BSDF lobe (diffuse: the
+//   cosine direction; specular: the GGX half-vector and the reflection;
+//   transmission: the half-vector, the refraction test, the Fresnel draw
+//   and the reflection or refraction), its evaluation branch (reflective or
+//   transmissive), its light type (directional, point or spot, emissive),
+//   the light's BSDF evaluation only where the NEE contribution is taken,
+//   the BSDF sample and its evaluation only on a lane that continues, the
+//   normal map's tangent basis only where its texel is applied, and Russian
+//   roulette only where it draws. Only selects became branches: a blend,
+//   such as pdf_r = diffuse_prob * diffuse_pdf + specular_prob *
+//   specular_pdf, keeps every term, since a zero weight times an inf or NaN
+//   term is NaN; an addition of a selected zero (result + emission) keeps
+//   its addition, since -0 + 0 is +0. A dead or missed lane still shades
+//   row 0 and writes its shadow ray from it, as the plain version does;
+// - the shading row is read as 16-byte loads (tri_full rows are 52 floats,
+//   208 B, 16-byte aligned): 8 float4 untextured (columns 0-19 and 24-35),
+//   all 13 textured, in place of about 35 scalar loads;
+// - light_full rows (27 floats, not 16-byte aligned) are read a column at a
+//   time, only the columns of the lane's light type;
+// - each sine and cosine of one angle come from one sincosf, which shares
+//   their range reduction and gives sinf's and cosf's bits
+//   (chip_smoke.py holds the kernel to torch.sin and torch.cos through the
+//   plain version).
 //
-// Exactness: every lobe and light type is evaluated and the result selected,
-// as the plain version does, in the same expression order (left-associated
-// sums, products rounded before sums). The library is compiled with
-// -fmad=false and without --use_fast_math, so each product, sum, IEEE
-// division, sqrtf, sinf and cosf rounds as PyTorch's separate elementwise
-// kernels round it, and the outputs equal the plain version's bit for bit,
-// on the lanes it discards as well. Min/max follow PyTorch's NaN rules
-// (clamp and maximum propagate a NaN operand).
+// Exactness: every branch computes its case in the plain version's
+// expression order (left-associated sums, products rounded before sums).
+// The library is compiled with -fmad=false and without --use_fast_math, so
+// each product, sum, IEEE division, sqrtf, sinf and cosf rounds as
+// PyTorch's separate elementwise kernels round it, and the outputs equal
+// the plain version's bit for bit, dead lanes included. A draw whose mask
+// is false leaves the PCG state as it is, so a branch that skips such a
+// draw (the Fresnel draw off the transmission lobe, the emissive light's
+// two draws off an emissive light, Russian roulette off its lanes) moves no
+// state. Min/max follow PyTorch's NaN rules (clamp and maximum propagate a
+// NaN operand).
 //
 // Where exactness could break on textured lanes, and what keeps it:
 // - a NaN texel coordinate. A dead lane (found == false) shades row 0, and
@@ -176,7 +206,32 @@ __device__ __forceinline__ float maximum(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
 }
 
+// A light_full row's columns c .. c + 2.
 __device__ __forceinline__ V3 load3(const float* row, int c) { return {row[c], row[c + 1], row[c + 2]}; }
+
+// A tri_full row as TF_QUADS float4; col(q, c) is its column c (with c a
+// constant, a register).
+constexpr int TF_QUADS = TF_COLS / 4;
+typedef float4 TriRow[TF_QUADS];
+
+__device__ __forceinline__ float col(const TriRow& q, int c) {
+  const float4& v = q[c >> 2];
+  return (c & 3) == 0 ? v.x : ((c & 3) == 1 ? v.y : ((c & 3) == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ V3 col3(const TriRow& q, int c) { return {col(q, c), col(q, c + 1), col(q, c + 2)}; }
+
+// The quads of a shading row that MODE reads: untextured, columns 0-19
+// (vertices, normals, uv0) and 24-35 (the material); textured, all.
+template <int MODE>
+__device__ __forceinline__ void load_row(const float* row, TriRow& q) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int k = 0; k < TF_QUADS; ++k) {
+    const bool used = MODE != 0 || k < 5 || (k >= 6 && k < 9);
+    q[k] = used ? __ldg(p + k) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
 
 // random.wgsl's PCG (ops/rng.py). `value` is computed whatever the mask; the
 // state moves only where it holds.
@@ -271,33 +326,37 @@ __device__ __forceinline__ float4 load_texel(const float* base, int64_t offset) 
 // The four slot quads of one lane, in slot order; unused slots keep their
 // fallbacks (the caller never reads them).
 template <int MODE>
-__device__ __forceinline__ void sample_slots(const float* row, float uv_u, float uv_v,
+__device__ __forceinline__ void sample_slots(const TriRow& q, float uv_u, float uv_v,
                                              const Tex& tex, const float* rects,
                                              float4 (&quad)[4]) {
   const float fu = fmodf(uv_u, 1.0f);
   const float fv = fmodf(uv_v, 1.0f);
   if constexpr (MODE == TEX_SLOT) {
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
       quad[k] = slot_fallback(k);
       if (!((tex.slots >> k) & 1)) continue;
-      const float* r = row + slot_rect_col(k);
-      const bool missing = (r[2] == 0.0f) || (r[3] == 0.0f);
+      const int c = slot_rect_col(k);
+      const bool missing = (col(q, c + 2) == 0.0f) || (col(q, c + 3) == 0.0f);
       if (missing) continue;
-      const float ax = r[0] + fu * r[2];
-      const float ay = r[1] + fv * r[3];
+      const float ax = col(q, c) + fu * col(q, c + 2);
+      const float ay = col(q, c + 1) + fv * col(q, c + 3);
       const int ix = texel_index(ax, tex.w);
       const int iy = texel_index(ay, tex.h);
       quad[k] = load_texel(tex.atlas, (static_cast<int64_t>(iy) * tex.w + ix) * 4);
     }
   } else if constexpr (MODE == TEX_FAT) {
     float vals[16];
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
-      for (int c = 0; c < 4; ++c) vals[4 * k + c] = row[slot_rect_col(k) + c];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) vals[4 * k + c] = col(q, slot_rect_col(k) + c);
     }
     float fx = 0.0f, fy = 0.0f, vw = 0.0f, vh = 0.0f;
     for (int s = 0; s < tex.n_sets; ++s) {
       const float* set = rects + s * FAT_RECT_COLS;
       bool m = true;
+#pragma unroll
       for (int j = 0; j < 16; ++j) m = m && (vals[j] == set[j]);
       if (m) {  // the last matching set wins
         fx = set[16];
@@ -311,6 +370,7 @@ __device__ __forceinline__ void sample_slots(const float* row, float uv_u, float
     const int ix = texel_index(ax, tex.w);
     const int iy = texel_index(ay, tex.h);
     const int64_t texel = (static_cast<int64_t>(iy) * tex.w + ix) * 16;
+#pragma unroll
     for (int k = 0; k < 4; ++k) {
       quad[k] = slot_fallback(k);
       if (!((tex.slots >> k) & 1)) continue;
@@ -326,15 +386,25 @@ struct Hit {
   bool is_front;
 };
 
-// evalBSDF (pt.wgsl:548-614); returns the pdf, writes the value.
+// evalBSDF (pt.wgsl:548-614); returns the pdf, writes the value. The plain
+// version computes the reflective and the transmissive result and selects
+// on transmission > 0; here a lane computes the one it selects.
 __device__ float eval_bsdf(const Hit& hit, V3 normal, V3 v, V3 l, bool front, V3& bsdf) {
+  const float m = hit.metallic;
+  if (hit.transmission > 0.0f) {
+    const float eta = front ? 1.0f / hit.ior : hit.ior;
+    const float cos_theta = dot(normal, v);
+    const float f_trans = reflectance(fabsf(cos_theta), eta);
+    bsdf = hit.albedo * (1.0f - f_trans);
+    const float pdf_t = (1.0f - m) * hit.transmission;
+    return clamp_min(pdf_t, F32(kEps));
+  }
   const V3 h = normalize(v + l);
   const float ndotl = clamp_min(dot(normal, l), 0.0f);
   const float ndotv = clamp_min(dot(normal, v), 0.0f);
   const float ndoth = clamp_min(dot(normal, h), 0.0f);
   const float vdoth = clamp_min(dot(v, h), 0.0f);
 
-  const float m = hit.metallic;
   const float base = (1.0f - m) * F32(0.04);
   const V3 f0 = v3(base + hit.albedo.x * m, base + hit.albedo.y * m, base + hit.albedo.z * m);
   const float p = pow5(1.0f - vdoth);
@@ -342,37 +412,31 @@ __device__ float eval_bsdf(const Hit& hit, V3 normal, V3 v, V3 l, bool front, V3
   const float g = geometry_smith(normal, v, l, hit.roughness);
   const float d = distribution_ggx(normal, h, hit.roughness);
 
+  // Both terms of each blend stay, whatever their weights: a zero weight
+  // times an inf or NaN term is NaN in the plain version too.
   const float kd_scale = 1.0f - hit.transmission;
   const float spec_scale = (g * d) / clamp_min(4.0f * ndotv * ndotl, F32(kEps));
   const V3 diffuse = v3((1.0f - f.x) * kd_scale * hit.albedo.x / F32(kPi),
                         (1.0f - f.y) * kd_scale * hit.albedo.y / F32(kPi),
                         (1.0f - f.z) * kd_scale * hit.albedo.z / F32(kPi));
   const V3 specular = f * spec_scale;
-
-  const V3 bsdf_r = (diffuse + specular) * ndotl;
+  bsdf = (diffuse + specular) * ndotl;
   const float diffuse_prob = (1.0f - m) * (1.0f - hit.transmission);
   const float specular_prob = m;
   const float diffuse_pdf = ndotl / F32(kPi);
   const float specular_pdf = d * ndoth / (4.0f * vdoth);
   const float pdf_r = diffuse_prob * diffuse_pdf + specular_prob * specular_pdf;
-
-  const float eta = front ? 1.0f / hit.ior : hit.ior;
-  const float cos_theta = dot(normal, v);
-  const float f_trans = reflectance(fabsf(cos_theta), eta);
-  const V3 bsdf_t = hit.albedo * (1.0f - f_trans);
-  const float pdf_t = (1.0f - m) * hit.transmission;
-
-  const bool is_trans = hit.transmission > 0.0f;
-  bsdf = select(is_trans, bsdf_t, bsdf_r);
-  return clamp_min(is_trans ? pdf_t : pdf_r, F32(kEps));
+  return clamp_min(pdf_r, F32(kEps));
 }
 
 __device__ __forceinline__ V3 cosine_direction(V3 normal, float r1, float r2) {
   const float z = sqrtf(1.0f - r2);
   const float phi = F32(2.0 * kPi) * r1;
   const float sq = sqrtf(r2);
-  const float x = cosf(phi) * sq;
-  const float y = sinf(phi) * sq;
+  float sin_phi, cos_phi;
+  sincosf(phi, &sin_phi, &cos_phi);
+  const float x = cos_phi * sq;
+  const float y = sin_phi * sq;
   V3 t, b;
   construct_tbn(normal, t, b);
   return t * x + b * y + normal * z;
@@ -383,8 +447,10 @@ __device__ __forceinline__ V3 sample_ggx_normal(V3 normal, float roughness, floa
   const float phi = F32(2.0 * kPi) * r1;
   const float cos_t = sqrtf((1.0f - r2) / (1.0f + (a * a - 1.0f) * r2));
   const float sin_t = sqrtf(1.0f - cos_t * cos_t);
-  const float lx = sin_t * cosf(phi);
-  const float ly = sin_t * sinf(phi);
+  float sin_phi, cos_phi;
+  sincosf(phi, &sin_phi, &cos_phi);
+  const float lx = sin_t * cos_phi;
+  const float ly = sin_t * sin_phi;
   V3 t, b;
   construct_tbn(normal, t, b);
   return normalize(t * lx + b * ly + normal * cos_t);
@@ -393,10 +459,12 @@ __device__ __forceinline__ V3 sample_ggx_normal(V3 normal, float roughness, floa
 // sampleBSDF (pt.wgsl:498-546): lobe select, two direction draws, and the
 // Fresnel draw only on transmission lanes that can refract. With LDS the
 // three main draws' values are `ov`'s; the state advances all the same.
+// The plain version computes the three lobes' directions and selects; here
+// a lane computes its own lobe's. Off the transmission lobe the Fresnel
+// draw's mask is false, so skipping it leaves the state where it was.
 template <bool LDS>
 __device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bool mask,
                           const float (&ov)[3]) {
-  const V3 v = -normalize(rd);
   const float diffuse_prob = (1.0f - hit.metallic) * (1.0f - hit.transmission);
   const float specular_prob = hit.metallic;
 
@@ -409,15 +477,12 @@ __device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bo
     r2 = ov[2];
   }
 
-  const bool lobe_d = r < diffuse_prob;
-  const bool lobe_s = !lobe_d && (r < diffuse_prob + specular_prob);
-  const bool lobe_t = !lobe_d && !lobe_s;
+  if (r < diffuse_prob) return cosine_direction(hit.normal, r1, r2);
 
-  const V3 dir_d = cosine_direction(hit.normal, r1, r2);
-
+  const V3 v = -normalize(rd);
   const float rough = clamp_min(hit.roughness, F32(0.04));  // pt.wgsl:518
   const V3 h_s = sample_ggx_normal(hit.normal, rough, r1, r2);
-  const V3 dir_s = reflect(-v, h_s);
+  if (r < diffuse_prob + specular_prob) return reflect(-v, h_s);
 
   const float eta = front ? 1.0f / hit.ior : hit.ior;
   const V3 n_t = select(front, h_s, -h_s);
@@ -425,11 +490,9 @@ __device__ V3 sample_bsdf(const Hit& hit, V3 rd, bool front, uint32_t& state, bo
   const float sin_theta = sqrtf(clamp_min(1.0f - cos_theta * cos_theta, 0.0f));
   const bool cannot_refract = eta * sin_theta > 1.0f;
   const float f = reflectance(fabsf(cos_theta), eta);
-  const float r3 = rand(state, mask && lobe_t && !cannot_refract);
-  const bool do_reflect = cannot_refract || (r3 < f);
-  const V3 dir_t = do_reflect ? reflect(-v, n_t) : refract(-v, n_t, eta);
-
-  return lobe_d ? dir_d : (lobe_s ? dir_s : dir_t);
+  const float r3 = rand(state, mask && !cannot_refract);
+  if (cannot_refract || (r3 < f)) return reflect(-v, n_t);
+  return refract(-v, n_t, eta);
 }
 
 // ---- NEE (ops/lights.py::sample_light_from_fetch) --------------------------
@@ -440,6 +503,11 @@ struct LightSample {
   bool shadow_mask;
 };
 
+// The plain version computes the directional, the point (and spot) and the
+// emissive sample and selects by the light's type; here a lane computes its
+// own light's. A type that is none of the four takes the emissive case, as
+// the plain version's selects give it, with the two triangle draws whose
+// mask is false.
 __device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_position,
                                     uint32_t& state, bool mask, int num_lights) {
   const int count = num_lights > 1 ? num_lights : 1;
@@ -451,66 +519,67 @@ __device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_pos
   const int ltype = static_cast<int>(row[LF_TYPE]);
   const V3 lcolor = load3(row, LF_COLOR);
   const float lint = row[LF_INTENSITY];
-  const V3 lpos = load3(row, LF_POSITION);
-
-  const bool is_dir = ltype == LIGHT_TYPE_DIRECTIONAL;
-  const bool is_spot = ltype == LIGHT_TYPE_SPOT;
-  const bool is_point = (ltype == LIGHT_TYPE_POINT) || is_spot;
-  const bool is_emis = ltype == LIGHT_TYPE_EMISSIVE;
-
-  const float r1 = rand(state, mask && is_emis);
-  const float r2 = rand(state, mask && is_emis);
-
-  const V3 wi_dir = normalize(-lpos);
-
-  const V3 to_light_p = lpos - hit_position;
-  const float dist_p = length(to_light_p);
-  const bool point_far = is_point && (dist_p > 100.0f);
-  const V3 wi_point = to_light_p * (1.0f / clamp_min(dist_p, F32(1e-30)));
-
-  const V3 v0 = load3(row, LF_V0), v1 = load3(row, LF_V1), v2 = load3(row, LF_V2);
-  const V3 n0 = load3(row, LF_N0), n1 = load3(row, LF_N1), n2 = load3(row, LF_N2);
-  const float sq = sqrtf(r1);
-  const float su = 1.0f - sq;
-  const float sv = r2 * sq;
-  const float sw = 1.0f - su - sv;
-  const V3 light_pos = v0 * sw + v1 * su + v2 * sv;
-  const V3 lnormal = normalize(n0 * sw + n1 * su + n2 * sv);
-  const V3 to_light_e = light_pos - hit_position;
-  const float dist_e = length(to_light_e);
-  const V3 wi_emis = to_light_e * (1.0f / clamp_min(dist_e, F32(1e-30)));
-
-  const V3 wi = is_dir ? wi_dir : (is_point ? wi_point : wi_emis);
-  const float dist = is_point ? dist_p : dist_e;
-
   const float inv_n = 1.0f / static_cast<float>(count);
-  const float pdf_dir = inv_n * 1000.0f;    // pt.wgsl:406
-  const float pdf_point = inv_n * 10000.0f;  // pt.wgsl:438
-  const V3 e1 = v1 - v0;
-  const V3 e2 = v2 - v0;
-  const float area = length(cross(e1, e2)) * F32(0.5);
-  const float cos_theta = fabsf(dot(lnormal, -wi));
-  // Zero-area rows (the padding row of a lightless scene) give pdf 0.
-  const float inv_area = area > 0.0f ? 1.0f / clamp_min(area, F32(1e-30)) : 0.0f;
-  const float pdf_emis = inv_area * inv_n * (dist_e * dist_e / clamp_min(cos_theta, F32(kEps)));
 
-  const V3 int_dir = lcolor * lint;
-  float att = 1.0f / (dist_p * dist_p);
-  const V3 spot_dir = load3(row, LF_SPOT_DIR);
-  const float cd = dot(spot_dir, -wi_point);
-  const float spot_t = clamp01(cd * row[LF_SPOT_SCALE] + row[LF_SPOT_OFFSET]);
-  att = att * (is_spot ? spot_t * spot_t : 1.0f);
-  const V3 int_point = lcolor * (lint * att);
-  const V3 int_emis = lcolor * lint;
+  V3 wi, intensity;
+  float pdf, t_max;
+  bool point_far = false;
+  if (ltype == LIGHT_TYPE_DIRECTIONAL) {
+    wi = normalize(-load3(row, LF_POSITION));
+    t_max = CUDART_INF_F;
+    pdf = inv_n * 1000.0f;  // pt.wgsl:406
+    intensity = lcolor * lint;
+  } else if (ltype == LIGHT_TYPE_POINT || ltype == LIGHT_TYPE_SPOT) {
+    const V3 to_light = load3(row, LF_POSITION) - hit_position;
+    const float dist = length(to_light);
+    point_far = dist > 100.0f;
+    wi = to_light * (1.0f / clamp_min(dist, F32(1e-30)));
+    t_max = dist - F32(kEps * 2.0);
+    pdf = inv_n * 10000.0f;  // pt.wgsl:438
+    float att = 1.0f / (dist * dist);
+    float spot = 1.0f;
+    if (ltype == LIGHT_TYPE_SPOT) {
+      const V3 spot_dir = load3(row, LF_SPOT_DIR);
+      const float cd = dot(spot_dir, -wi);
+      const float spot_t = clamp01(cd * row[LF_SPOT_SCALE] + row[LF_SPOT_OFFSET]);
+      spot = spot_t * spot_t;
+    }
+    att = att * spot;
+    intensity = lcolor * (lint * att);
+  } else {
+    const bool is_emis = ltype == LIGHT_TYPE_EMISSIVE;
+    const float r1 = rand(state, mask && is_emis);
+    const float r2 = rand(state, mask && is_emis);
+    const V3 v0 = load3(row, LF_V0), v1 = load3(row, LF_V1), v2 = load3(row, LF_V2);
+    const V3 n0 = load3(row, LF_N0), n1 = load3(row, LF_N1), n2 = load3(row, LF_N2);
+    const float sq = sqrtf(r1);
+    const float su = 1.0f - sq;
+    const float sv = r2 * sq;
+    const float sw = 1.0f - su - sv;
+    const V3 light_pos = v0 * sw + v1 * su + v2 * sv;
+    const V3 lnormal = normalize(n0 * sw + n1 * su + n2 * sv);
+    const V3 to_light = light_pos - hit_position;
+    const float dist = length(to_light);
+    wi = to_light * (1.0f / clamp_min(dist, F32(1e-30)));
+    t_max = dist - F32(kEps * 2.0);
+    const V3 e1 = v1 - v0;
+    const V3 e2 = v2 - v0;
+    const float area = length(cross(e1, e2)) * F32(0.5);
+    const float cos_theta = fabsf(dot(lnormal, -wi));
+    // Zero-area rows (the padding row of a lightless scene) give pdf 0.
+    const float inv_area = area > 0.0f ? 1.0f / clamp_min(area, F32(1e-30)) : 0.0f;
+    pdf = inv_area * inv_n * (dist * dist / clamp_min(cos_theta, F32(kEps)));
+    intensity = lcolor * lint;
+  }
 
   const bool dead = point_far || !mask;
   LightSample ls;
-  ls.pdf = dead ? 0.0f : (is_dir ? pdf_dir : (is_point ? pdf_point : pdf_emis));
-  ls.intensity = dead ? v3(0.0f, 0.0f, 0.0f) : (is_dir ? int_dir : (is_point ? int_point : int_emis));
+  ls.pdf = dead ? 0.0f : pdf;
+  ls.intensity = dead ? v3(0.0f, 0.0f, 0.0f) : intensity;
   ls.wi = wi;
   ls.shadow_mask = mask && !point_far;
   ls.shadow_origin = hit_position + wi * F32(kEps);
-  ls.t_max = is_dir ? CUDART_INF_F : dist - F32(kEps * 2.0);
+  ls.t_max = t_max;
   return ls;
 }
 
@@ -552,13 +621,15 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
   const int idx = idx_in[i];
 
   // Hit attributes (ops/shade.py::hit_attributes_from_cols).
-  // idx comes from K1 or K3: -1 (miss) or a row of tri_full.
+  // idx comes from K1 or K3: -1 (miss) or a row of tri_full. A dead or
+  // missed lane shades row 0, as the plain version does.
   const bool found = alive_in[i] && (idx >= 0);
-  const float* row = tri_full + static_cast<int64_t>(idx > 0 ? idx : 0) * TF_COLS;
+  TriRow q;
+  load_row<MODE>(tri_full + static_cast<int64_t>(idx > 0 ? idx : 0) * TF_COLS, q);
   Hit hit;
   {
-    const V3 n0 = load3(row, TF_N0), n1 = load3(row, TF_N1), n2 = load3(row, TF_N2);
-    const V3 v0 = load3(row, TF_V0), v1 = load3(row, TF_V1), v2 = load3(row, TF_V2);
+    const V3 n0 = col3(q, TF_N0), n1 = col3(q, TF_N1), n2 = col3(q, TF_N2);
+    const V3 v0 = col3(q, TF_V0), v1 = col3(q, TF_V1), v2 = col3(q, TF_V2);
     const V3 e1 = v1 - v0;
     const V3 e2 = v2 - v0;
     const V3 hvec = cross(rd, e2);
@@ -566,76 +637,81 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
     const float f = 1.0f / a;
     const V3 s = ro - v0;
     const float u = f * dot(s, hvec);
-    const V3 q = cross(s, e1);
-    const float v = f * dot(rd, q);
+    const V3 qv = cross(s, e1);
+    const float v = f * dot(rd, qv);
     const float w = 1.0f - u - v;
     hit.position = ro + rd * t;
     const V3 geom_normal = normalize(cross(e1, e2));
     hit.normal = normalize(n0 * w + n1 * u + n2 * v);
     hit.is_front = dot(geom_normal, rd) < 0.0f;  // pt.wgsl:196-197
-    hit.albedo = load3(row, TF_BASE_COLOR);
-    hit.roughness = clamp_min(row[TF_ROUGHNESS], F32(0.04));  // pt.wgsl:208
-    hit.metallic = row[TF_METALLIC];
-    hit.transmission = row[TF_TRANSMISSION];
-    hit.ior = row[TF_IOR];
-    hit.emission = load3(row, TF_EMISSION);
-    hit.emissive_strength = row[TF_EMISSIVE_STRENGTH];
+    hit.albedo = col3(q, TF_BASE_COLOR);
+    hit.roughness = clamp_min(col(q, TF_ROUGHNESS), F32(0.04));  // pt.wgsl:208
+    hit.metallic = col(q, TF_METALLIC);
+    hit.transmission = col(q, TF_TRANSMISSION);
+    hit.ior = col(q, TF_IOR);
+    hit.emission = col3(q, TF_EMISSION);
+    hit.emissive_strength = col(q, TF_EMISSIVE_STRENGTH);
     if constexpr (MODE != TEX_NONE) {
-      const float uv_u = row[TF_UV0] * w + row[TF_UV1] * u + row[TF_UV2] * v;
-      const float uv_v = row[TF_UV0 + 1] * w + row[TF_UV1 + 1] * u + row[TF_UV2 + 1] * v;
+      const float uv_u = col(q, TF_UV0) * w + col(q, TF_UV1) * u + col(q, TF_UV2) * v;
+      const float uv_v = col(q, TF_UV0 + 1) * w + col(q, TF_UV1 + 1) * u + col(q, TF_UV2 + 1) * v;
       float4 quad[4];
-      sample_slots<MODE>(row, uv_u, uv_v, tex, s_rects, quad);
+      sample_slots<MODE>(q, uv_u, uv_v, tex, s_rects, quad);
       if (tex.slots & 1) {
         hit.albedo = v3(quad[0].x, quad[0].y, quad[0].z) * hit.albedo;
       }
       if (tex.slots & 2) {
-        hit.metallic = quad[1].z * row[TF_METALLIC];
-        hit.roughness = clamp_min(quad[1].y * row[TF_ROUGHNESS], F32(0.04));
+        hit.metallic = quad[1].z * col(q, TF_METALLIC);
+        hit.roughness = clamp_min(quad[1].y * col(q, TF_ROUGHNESS), F32(0.04));
       }
       if (tex.slots & 4) {
         hit.emission = v3(quad[2].x, quad[2].y, quad[2].z) * hit.emission;
       }
-      if (tex.slots & 8) {
-        // Tangent basis from UV derivatives (pt.wgsl:176-189), no guard.
-        const float duv1u = row[TF_UV1] - row[TF_UV0];
-        const float duv1v = row[TF_UV1 + 1] - row[TF_UV0 + 1];
-        const float duv2u = row[TF_UV2] - row[TF_UV0];
-        const float duv2v = row[TF_UV2 + 1] - row[TF_UV0 + 1];
+      const float4 nm = quad[3];
+      if ((tex.slots & 8) && ((nm.x != 0.5f) || (nm.y != 0.5f) || (nm.z != 1.0f))) {
+        // Tangent basis from UV derivatives (pt.wgsl:176-189), no guard,
+        // only where the normal map's texel is applied.
+        const float duv1u = col(q, TF_UV1) - col(q, TF_UV0);
+        const float duv1v = col(q, TF_UV1 + 1) - col(q, TF_UV0 + 1);
+        const float duv2u = col(q, TF_UV2) - col(q, TF_UV0);
+        const float duv2v = col(q, TF_UV2 + 1) - col(q, TF_UV0 + 1);
         const float r = 1.0f / (duv1u * duv2v - duv1v * duv2u);
         const V3 tangent = normalize((e1 * duv2v - e2 * duv1v) * r);
         const V3 tn = hit.normal;
         const V3 tvec = normalize(tangent - tn * dot(tn, tangent));
         const V3 bvec = normalize(cross(tn, tvec));
-        const float4 nm = quad[3];
-        const bool use_nm = (nm.x != 0.5f) || (nm.y != 0.5f) || (nm.z != 1.0f);
-        const V3 world = normalize(tvec * (nm.x * 2.0f - 1.0f) + bvec * (nm.y * 2.0f - 1.0f) +
-                                   tn * (nm.z * 2.0f - 1.0f));
-        hit.normal = select(use_nm, world, tn);
+        hit.normal = normalize(tvec * (nm.x * 2.0f - 1.0f) + bvec * (nm.y * 2.0f - 1.0f) +
+                               tn * (nm.z * 2.0f - 1.0f));
       }
     }
   }
 
+  const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
   const bool emissive =
       found && (hit.emission.x > 0.0f || hit.emission.y > 0.0f || hit.emission.z > 0.0f);
-  const float atten = hit.emissive_strength / (1.0f + t * t);
-  const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
-  const V3 result = res_in + select(emissive, thr * hit.emission * atten, zero3);
+  // The addition stays on every lane: -0 + 0 is +0.
+  V3 emitted = zero3;
+  if (emissive) {
+    const float atten = hit.emissive_strength / (1.0f + t * t);
+    emitted = thr * hit.emission * atten;
+  }
+  const V3 result = res_in + emitted;
   const bool cont = found && !emissive;
 
-  const V3 v_out = -normalize(rd);
   V3 s_origin = zero3, s_dir = zero3, s_direct = zero3;
   float s_t_max = CUDART_INF_F, s_pdf = 0.0f;
   bool s_mask = false;
   if (do_mis) {
     const bool nee = cont && (hit.transmission == 0.0f) && hit.is_front;
     const LightSample ls = sample_light(light_full, hit.position, state, nee, num_lights);
-    V3 f_light;
-    const float pdf_light_bsdf = eval_bsdf(hit, hit.normal, v_out, ls.wi, hit.is_front, f_light);
-    const float f2 = ls.pdf * ls.pdf;
-    const float mis_w = f2 / (f2 + pdf_light_bsdf * pdf_light_bsdf);
-    const float scale = mis_w / clamp_min(ls.pdf, F32(kEps));
-    const V3 direct = thr * ls.intensity * f_light * scale;
-    s_direct = select(nee && (ls.pdf > 0.0f), direct, zero3);
+    if (nee && (ls.pdf > 0.0f)) {  // the lanes whose contribution is taken
+      V3 f_light;
+      const float pdf_light_bsdf =
+          eval_bsdf(hit, hit.normal, -normalize(rd), ls.wi, hit.is_front, f_light);
+      const float f2 = ls.pdf * ls.pdf;
+      const float mis_w = f2 / (f2 + pdf_light_bsdf * pdf_light_bsdf);
+      const float scale = mis_w / clamp_min(ls.pdf, F32(kEps));
+      s_direct = thr * ls.intensity * f_light * scale;
+    }
     s_origin = ls.shadow_origin;
     s_dir = ls.wi;
     s_t_max = ls.t_max;
@@ -643,30 +719,39 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
     s_pdf = ls.pdf;
   }
 
-  float ov[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (LDS) {
-    ov[0] = lds[i];
-    ov[1] = lds[n + i];
-    ov[2] = lds[2 * n + i];
+  // The BSDF sample and its evaluation on the lanes that continue; every
+  // draw of a lane that does not is masked off.
+  V3 ro_next = ro, rd_next = rd, throughput = thr;
+  bool alive = false;
+  if (cont) {
+    float ov[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (LDS) {
+      ov[0] = lds[i];
+      ov[1] = lds[n + i];
+      ov[2] = lds[2 * n + i];
+    }
+    const V3 new_dir = sample_bsdf<LDS>(hit, rd, hit.is_front, state, true, ov);
+    V3 f_val;
+    const float pdf = eval_bsdf(hit, hit.normal, -normalize(rd), new_dir, hit.is_front, f_val);
+    if (pdf > 0.0f) {
+      ro_next = hit.position + new_dir * F32(kEps);
+      rd_next = normalize(new_dir);
+      const float inv_pdf = 1.0f / clamp_min(pdf, F32(kEps));
+      throughput = thr * f_val * inv_pdf;
+      alive = true;
+    }
   }
-  const V3 new_dir = sample_bsdf<LDS>(hit, rd, hit.is_front, state, cont, ov);
-  V3 f_val;
-  const float pdf = eval_bsdf(hit, hit.normal, v_out, new_dir, hit.is_front, f_val);
-  const bool ok = cont && (pdf > 0.0f);
-
-  const V3 ro_next = select(ok, hit.position + new_dir * F32(kEps), ro);
-  const V3 rd_next = select(ok, normalize(new_dir), rd);
-  const float inv_pdf = 1.0f / clamp_min(pdf, F32(kEps));
-  V3 throughput = select(ok, thr * f_val * inv_pdf, thr);
-  bool alive = ok;
 
   // Russian roulette from bounce 3 (pt.wgsl:699-705).
-  const bool rr = alive && (bounce_idx > 2);
-  const float u_rr = rand(state, rr);
-  const float p = maximum(maximum(throughput.x, throughput.y), throughput.z);
-  const bool die = rr && (u_rr > p);
-  throughput = select(rr && !die, throughput * (1.0f / p), throughput);
-  alive = alive && !die;
+  if (alive && (bounce_idx > 2)) {
+    const float u_rr = rand(state, true);
+    const float p = maximum(maximum(throughput.x, throughput.y), throughput.z);
+    if (u_rr > p) {
+      alive = false;
+    } else {
+      throughput = throughput * (1.0f / p);
+    }
+  }
 
   rays_out[i] = ro_next.x;
   rays_out[n + i] = ro_next.y;

@@ -3,104 +3,133 @@
 // Replaces the TPU kernel wgpu_path_tracing_tpu/ops/pallas_kernels.py::
 // _brute_kernel (entered through closest_hit_brute_pallas_soa). That kernel
 // evaluates (256 triangles x 1024 rays) broadcasts per grid step and reduces
-// with a first-index min trick; here one thread owns one ray and walks the
-// triangles in ascending index, keeping the best hit with a strict `<`, which
-// is the same lowest-index tie rule with no atomics and no cross-block pass.
+// with a first-index min trick; here each thread owns one ray and walks the
+// triangles in ascending index, keeping the ray's best hit with a strict
+// `<`, which is the same lowest-index tie rule with no atomics and no
+// cross-block pass.
 //
-// Bound on the H100: FP32 issue, about 55 flops per ray-triangle pair; the
-// rays are read once (24 B) and (t, idx) written once (8 B). The design
-// stages the triangle table through shared memory in tiles of 256 rows, so
-// each triangle is read from device memory once per block and then
-// broadcast from shared memory to the block's 256 rays. Rays are SoA
-// (6, N), so neighbouring threads read neighbouring addresses. The ragged
-// edge is masked; nothing is padded. At the flagship size (262,144 rays x 36
-// triangles) launch latency rather than arithmetic is expected to dominate.
+// Bound on the H100 by instruction issue. The rays are read once (24 B) and
+// (t, idx) written once (8 B), and the table's bound counts 55 operations a
+// ray-triangle pair, but an exact build (-fmad=false) fuses none of them and
+// the IEEE reciprocal is a short sequence, so the full test issues about 75
+// instructions a pair. The design issues fewer (PERF.md):
+// - each triangle goes through the shared tile as three 16-byte rows
+//   [v0, e1.x | e1.y, e1.z, e2.x, e2.y | e2.z, 0, 0, 0], three LDS.128
+//   broadcasts in place of nine scalar loads;
+// - the test stops at the first condition it fails (isect.cuh::mt_early):
+//   |a| < EPSILON, then u outside [0, 1], then v, and returns t or NaN, so
+//   the update is one compare. Camera and shadow rays in the main path's
+//   tile lane order are coherent, so whole warps take the same exit; bounce
+//   rays diverge more and gain less;
+// - one ray a thread at 32 registers (__launch_bounds__), so that 16 blocks
+//   of 128 threads, the SM's 2,048 threads, are resident: 262,144 rays are
+//   one wave of 2,048 blocks. Two and four rays a thread, which share each
+//   triangle's loads, measured no faster: the loads were not what held it;
+// - the grid is at most one wave of resident blocks, which loop over groups
+//   of kThreads rays, so a larger call never leaves a last wave mostly
+//   empty; the tile is staged once a block when the scene fits it.
+// Origins and directions are two SoA (3, n) row blocks, so the neighbouring
+// threads of a warp read neighbouring addresses, and the caller's rows of a
+// larger buffer go in without a copy. The ragged edge is masked.
 //
 // The arithmetic is the plain version's (ops/intersect.py::moller_trumbore)
 // term for term. The library is compiled with -fmad=false and without
 // --use_fast_math, so every product, sum and the IEEE 1/a round as
-// PyTorch's separate elementwise kernels round them: the results equal the
+// PyTorch's separate elementwise kernels round them, and an exit skips only
+// a pair that the plain version's `valid` rejects: the results equal the
 // plain version bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "isect.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;
-constexpr float kEpsilon = 1e-6f;
+using wpt::Ray;
 
-__global__ void dense_hit_kernel(const float* __restrict__ rays,
-                                 const float* __restrict__ tris,
-                                 float* __restrict__ t_out,
-                                 int* __restrict__ idx_out, int n,
-                                 int num_tris) {
-  __shared__ float tile[kTile * 9];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (live) {
-    ox = rays[i];
-    oy = rays[n + i];
-    oz = rays[2 * n + i];
-    dx = rays[3 * n + i];
-    dy = rays[4 * n + i];
-    dz = rays[5 * n + i];
+constexpr int kThreads = 128;  // threads a block, one ray each
+constexpr int kBlocksPerSm = 16;  // 2,048 threads: at most 32 registers
+constexpr int kTile = 256;     // triangles a staged tile
+
+// Rows [base, base + count) of the (T, 9) table into the tile, three
+// float4 a triangle; the last three floats of each triangle stay unread.
+__device__ __forceinline__ void stage(float* tile, const float* __restrict__ tris,
+                                      int base, int count) {
+  for (int k = threadIdx.x; k < count * 9; k += blockDim.x) {
+    const int row = k / 9;
+    tile[row * 12 + (k - row * 9)] = tris[base * 9 + k];
   }
-  float best_t = CUDART_INF_F;
-  int best_idx = -1;
+}
 
-  for (int base = 0; base < num_tris; base += kTile) {
-    const int count = min(kTile, num_tris - base);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    dense_hit_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                     const float* __restrict__ tris, float* __restrict__ t_out,
+                     int* __restrict__ idx_out, int n, int num_tris) {
+  __shared__ float4 tile[kTile * 3];
+  float* tile_f = reinterpret_cast<float*>(tile);
+  const bool one_tile = num_tris <= kTile;
+  if (one_tile) {
+    stage(tile_f, tris, 0, num_tris);
     __syncthreads();
-    for (int k = threadIdx.x; k < count * 9; k += blockDim.x) {
-      tile[k] = tris[base * 9 + k];
+  }
+  const int groups = (n + kThreads - 1) / kThreads;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int i = g * kThreads + threadIdx.x;
+    Ray r{};
+    if (i < n) {
+      r.ox = ro[i];
+      r.oy = ro[n + i];
+      r.oz = ro[2 * n + i];
+      r.dx = rd[i];
+      r.dy = rd[n + i];
+      r.dz = rd[2 * n + i];
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < count; ++j) {
-      const float* tri = tile + j * 9;
-      const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-      const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-      const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = e1x * hx + e1y * hy + e1z * hz;
-      const float f = 1.0f / a;
-      const float sx = ox - v0x;
-      const float sy = oy - v0y;
-      const float sz = oz - v0z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-      const bool valid = (fabsf(a) >= kEpsilon) && (u >= 0.0f) &&
-                         (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                         (t > kEpsilon);
-      if (valid && t < best_t) {
-        best_t = t;
-        best_idx = base + j;
+    float best_t = CUDART_INF_F;
+    int best_i = -1;
+    for (int base = 0; base < num_tris; base += kTile) {
+      const int count = min(kTile, num_tris - base);
+      if (!one_tile) {
+        __syncthreads();
+        stage(tile_f, tris, base, count);
+        __syncthreads();
+      }
+      for (int j = 0; j < count; ++j) {
+        const float t = wpt::mt_early(r, tile[3 * j], tile[3 * j + 1],
+                                      tile[3 * j + 2]);  // NaN: no hit
+        if (t < best_t) {
+          best_t = t;
+          best_i = base + j;
+        }
       }
     }
-  }
-  if (live) {
-    t_out[i] = best_t;
-    idx_out[i] = best_idx;
+    if (i < n) {
+      t_out[i] = best_t;
+      idx_out[i] = best_i;
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int wpt_dense_hit(const void* rays, const void* tris, void* t_out,
-                             void* idx_out, int n, int num_tris,
+// ro, rd: (3, n) float32 rows; tris: (num_tris, 9) float32.
+extern "C" int wpt_dense_hit(const void* ro, const void* rd, const void* tris,
+                             void* t_out, void* idx_out, int n, int num_tris,
                              void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  static int slots = 0;  // resident blocks on the whole card
+  if (slots == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_hit_kernel,
+                                                  kThreads, 0);
+    slots = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int groups = (n + kThreads - 1) / kThreads;
+  const int blocks = groups < slots ? groups : slots;
   dense_hit_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rays), static_cast<const float*>(tris),
-      static_cast<float*>(t_out), static_cast<int*>(idx_out), n, num_tris);
+      static_cast<const float*>(ro), static_cast<const float*>(rd),
+      static_cast<const float*>(tris), static_cast<float*>(t_out),
+      static_cast<int*>(idx_out), n, num_tris);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-// Device functions the intersection kernels share: walk.cu (K3), pairs.cu
-// (K4), phased.cu (K5) and cluster.cu (K6).
+// Device functions the intersection kernels share: dense_hit.cu (K1),
+// walk.cu (K3), pairs.cu (K4), phased.cu (K5) and cluster.cu (K6).
 //
 // Each follows its plain PyTorch counterpart term for term (ops/walk.py
 // slab_entry, ops/blocks.py slab_entry_div, ops/intersect.py
@@ -112,6 +112,41 @@ __device__ __forceinline__ bool moller_trumbore(
   *t_out = t;
   return (fabsf(a) >= kEpsilon) && (u >= 0.0f) && (u <= 1.0f) &&
          (v >= 0.0f) && (u + v <= 1.0f) && (t > kEpsilon);
+}
+
+// moller_trumbore with early exits, for a triangle read as three 16-byte
+// rows a = [v0, e1.x], b = [e1.y, e1.z, e2.x, e2.y], e = [e2.z, ...] (K1's
+// shared tile, K3's leaf records): the same terms in the same order, so the
+// same t on a valid hit, but a triangle stops at the first test it fails
+// (|a| < EPSILON, then u outside [0, 1], then v), each of which the full
+// test's `valid` also rejects; a NaN fails its compare in both. Returns t
+// on a valid hit and NaN otherwise, so that the caller's `t < best` is its
+// whole test (a bool carried out of the exits cost byte moves on every
+// pair: PERF.md).
+__device__ __forceinline__ float mt_early(const Ray& r, const float4& a,
+                                          const float4& b, const float4& e) {
+  const float kEpsilon = static_cast<float>(1e-6);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = e.x;
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * hx + e1y * hy + e1z * hz;
+  if (!(fabsf(det) >= kEpsilon)) return CUDART_NAN_F;
+  const float f = 1.0f / det;
+  const float sx = r.ox - v0x;
+  const float sy = r.oy - v0y;
+  const float sz = r.oz - v0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  if (!((u >= 0.0f) && (u <= 1.0f))) return CUDART_NAN_F;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  if (!((v >= 0.0f) && (u + v <= 1.0f))) return CUDART_NAN_F;
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return t > kEpsilon ? t : CUDART_NAN_F;
 }
 
 // The closest valid hit among `rows` consecutive rows of `stride` floats

@@ -132,37 +132,6 @@ __device__ __forceinline__ unsigned interior_mask(
   return mask;
 }
 
-// isect.cuh's moller_trumbore with early exits: the same terms in the same
-// order, so the same t on a valid hit, but a triangle stops at the first
-// test it fails (most fail at u or v, before q, v and t are formed).
-__device__ __forceinline__ bool mt_early(const Ray& r, const float4& a,
-                                         const float4& b, const float4& e,
-                                         float* t_out) {
-  const float kEpsilon = static_cast<float>(1e-6);
-  const float v0x = a.x, v0y = a.y, v0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = e.x;
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * hx + e1y * hy + e1z * hz;
-  if (!(fabsf(det) >= kEpsilon)) return false;
-  const float f = 1.0f / det;
-  const float sx = r.ox - v0x;
-  const float sy = r.oy - v0y;
-  const float sz = r.oz - v0z;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
-  if (!((u >= 0.0f) && (u <= 1.0f))) return false;
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  if (!((v >= 0.0f) && (u + v <= 1.0f))) return false;
-  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-  *t_out = t;
-  return t > kEpsilon;
-}
-
 // Möller-Trumbore over sub-cluster c of a leaf group's records: the least
 // t, ties to the lowest triangle index. Leaves (inf, INT_MAX) when no slot
 // is hit. Unrolled, so the 24 loads issue together; a padding slot (index
@@ -179,8 +148,8 @@ __device__ __forceinline__ void mt_records(const float4* __restrict__ tris,
     const float4 b = p[3 * k + 1];
     const float4 e = p[3 * k + 2];
     const float gidx = e.y;
-    float t;
-    if (gidx >= 0.0f && mt_early(r, a, b, e, &t)) {
+    if (gidx >= 0.0f) {
+      const float t = mt_early(r, a, b, e);  // NaN where there is no hit
       const int gi = static_cast<int>(gidx);
       if (t < sub_t || (t == sub_t && gi < sub_i)) {
         sub_t = t;

@@ -110,7 +110,7 @@ _SPEC = (  # name, rows (0 = 1-D), dtype
 
 def _check_table(name, x, dev, shape):
     """A contiguous float32 table on ``dev`` whose shape matches ``shape``
-    (None for any size), aligned for the kernel's 16-byte texel loads."""
+    (None for any size), aligned for the kernel's 16-byte loads."""
     if (x.dim() != len(shape)
             or any(s is not None and s != d for s, d in zip(shape, x.shape))
             or x.dtype != torch.float32 or x.device != dev
@@ -160,12 +160,13 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
                              f"{tuple(x.shape)} {x.dtype}")
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name}: must be contiguous on {dev}")
-    for name, x, cols in (("tri_full", tri_full, T.TF_COLS),
-                          ("light_full", light_full, T.LF_COLS)):
-        if (x.dim() != 2 or x.shape[1] != cols or x.dtype != torch.float32
-                or x.device != dev or not x.is_contiguous()):
-            raise ValueError(f"{name}: expected contiguous (rows, {cols}) "
-                             f"float32 on {dev}")
+    # The kernel reads tri_full's rows as 16-byte loads.
+    _check_table("tri_full", tri_full, dev, (None, T.TF_COLS))
+    if (light_full.dim() != 2 or light_full.shape[1] != T.LF_COLS
+            or light_full.dtype != torch.float32 or light_full.device != dev
+            or not light_full.is_contiguous()):
+        raise ValueError(f"light_full: expected contiguous (rows, "
+                         f"{T.LF_COLS}) float32 on {dev}")
     if light_full.shape[0] < max(num_lights, 1):
         raise ValueError("light_full has fewer rows than num_lights")
     if len(slots_used) != 4:

@@ -40,7 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported launchers; each returns cudaGetLastError().
 SIGNATURES = {
-    "wpt_dense_hit": [_P, _P, _P, _P, _I, _I, _P],
+    "wpt_dense_hit": [_P, _P, _P, _P, _P, _I, _I, _P],  # ro, rd, tris, t, idx
     "wpt_bounce": [
         _I, _P, _P, _P, _P, _P, _P, _P,  # bounce, rays, state, thr, res, alive, t, idx
         _P, _P, _I, _I,  # tri_full, light_full, num_lights, do_mis

@@ -185,7 +185,8 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
 
     Any other intersector raises (``check_intersector``).
 
-    The dense hit goes through the K1 wrapper (``ops/dense_hit.py``) and,
+    The dense hit goes through the K1 wrapper over origin and direction
+    rows (``ops/dense_hit.py::closest_hit_dense_rows``: no copy) and,
     as in the JAX package's dense branch, accepts and ignores ``active``,
     ``t_max`` and ``any_hit``: every ray is tested and the closest hit
     returned, which gives the same occlusion answers. The others go through
@@ -222,8 +223,7 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
         def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
                         reorder=False):
             del active, t_max, any_hit, reorder
-            return dense_hit.closest_hit_dense(tri, torch.cat([ro3, rd3],
-                                                              dim=0))
+            return dense_hit.closest_hit_dense_rows(tri, ro3, rd3)
 
         strategy = "brute"
     elif intersector == "phased" and have_walk:
