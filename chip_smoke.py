@@ -59,15 +59,25 @@ and runs these phases, one line of output each:
    102,852-triangle box and the same three ray sets as phase 7, the phased
    dispatch on ``cornell_box(tessellation=16)`` (8,706 triangles: its flat
    sweep gates every sub-cluster for every ray block, so it is the JAX
-   package's choice for mid-size trees only); ``t`` and ``idx`` bit-equal on
-   every lane; each against K3 and K1 on the closest-hit rays (lanes that
-   differ, and whether each is an exact-t tie); each kernel's time beside
-   its bound, counted from the plain version's ``visits``;
+   package's choice for mid-size trees only); K4 also on the bounce-1 rays
+   and a late-bounce mask of them (5% alive) as ``make_closest_hit``'s
+   pair route hands them to it (``with_tail_compaction``: a compaction tier
+   and the bucket order), and K6 on the late-bounce mask as it is; ``t``
+   and ``idx`` bit-equal to the plain version on every lane of every set,
+   and the whole route equal to the bare kernel's result scattered back;
+   phase 1's kernel (``csrc/blocks.cu``) equal to ``block_entry`` on every
+   set of K4 and K6 (-0 == +0) and its lists to the plain lists; each
+   against K3 and K1 on the bare closest-hit rays (lanes that differ, and
+   whether each is an exact-t tie); each set's time (the wrapper's whole
+   call; phase 1 and the sort alone; the route's whole call where it has
+   one) beside its bound, counted from the plain version's ``visits`` on
+   the rays as the kernel receives them;
 10. dispatch paths: the large box through ``intersector="pairs"`` at 8 spp
    (launch counts, cold and repeated Mrays/s) and its 1-spp image against
-   the plain path's; the same box packed with the wide build made to fail,
-   which ``intersector="auto"`` must take through the pair dispatch to the
-   same image; ``"phased"`` (the 8,706-triangle box) and ``"cluster"`` (the
+   the plain path's (the plain versions behind the same
+   ``with_tail_compaction``); the same box packed with the wide build made
+   to fail, which ``intersector="auto"`` must take through the pair
+   dispatch to the same image; ``"phased"`` (the 8,706-triangle box) and ``"cluster"`` (the
    large box) at 2 spp, and the first frame of each against its plain
    path's;
 11. rng modes: K2's bounce-0 LDS instantiation against its plain version at
@@ -156,7 +166,9 @@ from wgpu_path_tracing_tpu_torch.ops.camera_rays import (  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops.intersect import (  # noqa: E402
     REORDER_BUCKETS,
     make_closest_hit,
+    pairs_reorder,
     with_ray_order,
+    with_tail_compaction,
 )
 from wgpu_path_tracing_tpu_torch.render.pipeline import (  # noqa: E402
     camera_device,
@@ -948,8 +960,10 @@ DISPATCH = {
 
 def plain_closest_hit(scene: dict, strategy: str):
     """The plain version of the intersector ``make_closest_hit`` reports as
-    ``strategy``, with its signature (``reorder`` is read by none: the plain
-    versions walk each ray alone, in lane order)."""
+    ``strategy``, with its signature. ``reorder`` is read by the pair
+    dispatch alone, through the same ``with_tail_compaction`` as the
+    kernel's route, since its blocks are part of its function; the other
+    plain versions walk each ray alone, in lane order."""
     tri = scene["tri_isect"]
     nt = tri.shape[0]
     if strategy == "brute":
@@ -964,10 +978,17 @@ def plain_closest_hit(scene: dict, strategy: str):
         _, _, plain, get_tables = DISPATCH[strategy]
         tables = get_tables(scene)
 
-    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                    reorder=False):
+    def inner(ro3, rd3, active=None, t_max=None, any_hit=False):
         return plain(tables, ro3, rd3, active, t_max, num_tris=nt,
                      any_hit=any_hit)
+
+    if strategy == "pairs":
+        return with_tail_compaction(inner, scene["root_box"],
+                                    pairs_reorder(scene))
+
+    def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                    reorder=False):
+        return inner(ro3, rd3, active, t_max, any_hit)
 
     return closest_hit
 
@@ -997,6 +1018,7 @@ def reset_counts() -> None:
     K2.Counter.reset()
     K3.Counter.launches = 0
     K4.Counter.launches = 0
+    BLOCKS.Counter.launches = 0
     K5.Counter.launches = 0
     K6.Counter.launches = 0
 
@@ -1004,13 +1026,14 @@ def reset_counts() -> None:
 def launch_counts() -> dict:
     """Launches per kernel: K1, K2 by texture mode ("k2" untextured), those
     of them that ran K2's LDS instantiation, K3, K4, K5 (a gate and a test
-    kernel count as one) and K6."""
+    kernel count as one), K6 and the phase-1 kernel of K4 and K6."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
             "k2_fat": K2.Counter.by_mode["fat"], "k2_lds": K2.Counter.lds,
             "k3": K3.Counter.launches,
             "k4": K4.Counter.launches, "k5": K5.Counter.launches,
-            "k6": K6.Counter.launches}
+            "k6": K6.Counter.launches,
+            "block_entry": BLOCKS.Counter.launches}
 
 
 def expect(**counts) -> dict:
@@ -1259,15 +1282,34 @@ def walk_bound(visits: dict, tables, n: int) -> tuple:
     return bound(moved, ops), ops
 
 
-def phase_k3(dev, report):
-    """K3 on the large box; returns the scene, its walk tables and the ray
-    cases for the dispatch intersectors' phase."""
+def large_sets(dev) -> dict:
+    """The large box (``cornell_box(tessellation=55)``), packed and
+    uploaded, its walk tables, its camera rays and the three ray cases of
+    ``ray_cases`` (from the plain walk's hits), and a late-bounce mask of
+    the bounce-1 rays, about 5% of them alive: what phases k3 and dispatch
+    share."""
     scene_np, _ = tessellated_box(LARGE_TESSELLATION)
     t0 = time.perf_counter()
     scene, rays, state = flagship_rays(scene_np, dev)
-    say("k3", f"{scene_np.num_triangles} triangles; packed and uploaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    say("large", f"{scene_np.num_triangles} triangles; packed and uploaded "
+        f"in {time.perf_counter() - t0:.2f} s")
     tables = K3.walk_tables(scene)
+    t, idx = K3.closest_hit_walk_plain(tables, rays[0:3], rays[3:6],
+                                       num_tris=scene["tri_isect"].shape[0])
+    k2_case = ray_cases(scene_np, scene, rays, state, t, idx)
+    cases = k2_case[3]
+    late = cases[1][2]["active"] & torch.from_numpy(
+        np.random.default_rng(7).random(rays.shape[1]) < 0.05).to(dev)
+    return {"scene_np": scene_np, "scene": scene, "tables": tables,
+            "rays": rays, "k2_case": k2_case[:3], "cases": cases,
+            "late": late}
+
+
+def phase_k3(dev, report, large: dict):
+    """K3 on the large box (``large_sets``)."""
+    scene, tables = large["scene"], large["tables"]
+    rays, cases, late = large["rays"], large["cases"], large["late"]
+    args, kw, pout = large["k2_case"]
     tri = scene["tri_isect"]
     nt = tri.shape[0]
     n = rays.shape[1]
@@ -1277,9 +1319,6 @@ def phase_k3(dev, report):
         f"({tables.levels * 4 * K3.THREADS} B a block; the plain walk's "
         f"{tables.stack}); leaf records {nbytes(tables.leaves)} B against "
         f"walk_tris' {nbytes(tables.tris)} B")
-    t, idx = K3.closest_hit_walk_plain(tables, rays[0:3], rays[3:6],
-                                       num_tris=nt)
-    args, kw, pout, cases = ray_cases(scene_np, scene, rays, state, t, idx)
     kout = K2.bounce_stage_cuda(*args, **kw)
     summary = check_k2(kout, pout, n, "the large box",
                        report.setdefault("k2", {}))
@@ -1335,8 +1374,6 @@ def phase_k3(dev, report):
     # on bounce-1 rays, a late-bounce mask (5% of them alive) and the
     # bounce's shadow rays.
     closest_hit = make_closest_hit(scene)
-    late = alive & torch.from_numpy(
-        np.random.default_rng(7).random(n) < 0.05).to(dev)
     shadow, sextra = cases[2][1], cases[2][2]
     sorted_cases = [("bounce-1", bounce, {"active": alive}),
                     ("late-bounce", bounce, {"active": late}),
@@ -1391,8 +1428,6 @@ def phase_k3(dev, report):
         bounce_bound_ms=bb["bound_ms"], sorted_ms=times,
         visits_per_ray={name: {k: v / n for k, v in vis.items()}
                         for name, vis in visits.items()}, **b)
-    return {"scene_np": scene_np, "scene": scene, "tables": tables,
-            "cases": cases}
 
 
 def dispatch_bound(kind: str, visits: dict, scene: dict, tables, n: int):
@@ -1411,60 +1446,173 @@ def dispatch_bound(kind: str, visits: dict, scene: dict, tables, n: int):
         moved += nbytes(tables)
         slabs = visits["sub_boxes"] * K5.BN
     else:
-        moved += nbytes(*tables)
+        moved += nbytes(tables.aabb, tables.tris)
         slabs = visits["blocks"] * K6.BN * visits["boxes"]
     ops = SLAB_OPS * slabs + MT_OPS * visits["triangle_tests"]
     return bound(moved, ops), ops
 
 
-def dispatch_lists_ms(kind: str, tables, o, d, bo, bd, bextra):
-    """Device ms of what K4's and K6's wrappers do in PyTorch before they
-    launch: phase 1's sweep and the sort, on the camera and the bounce-1
-    rays. None for K5, whose wrapper makes no list."""
-    if kind == "phased":
-        return None
+def route_lanes(scene: dict, o, d, extra: dict):
+    """The rays ``make_closest_hit``'s pair route hands K4 for a bounce call
+    (``reorder=True``): the origins, directions and keywords that
+    ``with_tail_compaction`` passes on (compacted, sorted)."""
+    got = []
+
+    def record(ro3, rd3, active=None, t_max=None, any_hit=False):
+        got.append((ro3, rd3, active, t_max))
+        m = ro3.shape[1]
+        return (torch.full((m,), torch.inf, device=ro3.device),
+                torch.full((m,), -1, dtype=torch.int32, device=ro3.device))
+
+    with_tail_compaction(record, scene["root_box"], pairs_reorder(scene))(
+        o, d, reorder=True, **extra)
+    ro3, rd3, active, t_max = got[0]
+    kw = {"active": active}
+    if t_max is not None:
+        kw["t_max"] = t_max
+    if "any_hit" in extra:
+        kw["any_hit"] = extra["any_hit"]
+    return ro3.contiguous(), rd3.contiguous(), kw
+
+
+def dispatch_sets(kind: str, shared: dict):
+    """The ray sets a dispatch intersector is held to its plain version on:
+    (name, rays (6, N), keywords, whether the set goes through the pair
+    route's wrapper). Every kind takes the camera, bounce-1 and shadow-0
+    rays as they are; K4 also the bounce-1 rays, a mid-bounce mask of them
+    (about 36% alive: the n/2 tier) and a late-bounce mask (about 5%: the
+    n/8 tier) through
+    ``with_tail_compaction``, and K6 the late-bounce mask as it is (K6 gets
+    no ray order, as in the JAX package)."""
+    cases = [(name, r, extra, False) for name, r, extra in shared["cases"]]
+    bounce, bextra = cases[1][1], cases[1][2]
+    if kind == "pairs":
+        mid = bextra["active"] & torch.from_numpy(
+            np.random.default_rng(8).random(bounce.shape[1]) < 0.4).to(
+                bounce.device)
+        cases += [("bounce-1 sorted", bounce, bextra, True),
+                  ("mid-bounce", bounce, {"active": mid}, True),
+                  ("late-bounce", bounce, {"active": shared["late"]}, True)]
+    elif kind == "cluster":
+        cases.append(("late-bounce", bounce, {"active": shared["late"]},
+                      False))
+    return cases
+
+
+def check_phase1(kind: str, tables, o, d, kw: dict, what: str) -> dict:
+    """The phase-1 kernel against ``block_entry`` on the rays as K4 or K6
+    receives them (-0 == +0), and the lists made from each, equal; the
+    device ms of the kernel, of ``block_entry`` and of phase 1 and the sort
+    as the wrapper makes them."""
     bn, lists, boxes = ((K4.BN, K4.pair_list, tables.super_aabb)
                         if kind == "pairs"
                         else (K6.BN, K6.candidates, tables.aabb))
-    n = o.shape[1]
-    out = []
-    for ro3, rd3, extra in ((o, d, {}), (bo, bd, bextra)):
-        lim0 = BLOCKS.ray_limit(extra.get("active"), None, n, o.device)
-        rays = BLOCKS.pad_blocks(ro3, rd3, lim0, bn)
-        out.append(device_ms(lambda: lists(boxes, *rays), reps=5))
+    order = K4.sorted_pairs if kind == "pairs" else K6.pick_order
+    lim0 = BLOCKS.ray_limit(kw.get("active"), kw.get("t_max"), o.shape[1],
+                            o.device)
+    rays = BLOCKS.pad_blocks(o, d, lim0, bn)
+    ke = BLOCKS.block_entry_cuda(boxes, *rays)
+    pe = BLOCKS.block_entry(boxes, *rays)
+    torch.cuda.synchronize()
+    signs = int(((ke == 0) & (torch.signbit(ke) != torch.signbit(pe))).sum())
+    if not torch.equal(ke, pe):
+        raise AssertionError(f"the phase-1 kernel disagrees with block_entry "
+                             f"on the {what} rays")
+    if not all(torch.equal(a, b) for a, b in zip(order(ke), order(pe))):
+        raise AssertionError(f"the phase-1 kernel's {kind} lists differ from "
+                             f"the plain ones on the {what} rays")
+    nb, c = ke.shape
+    out = {"blocks": nb, "boxes": c, "zero_signs_differing": signs,
+           "entries": int((pe < torch.inf).sum()),
+           "phase1_ms": device_ms(lambda: BLOCKS.block_entry_cuda(boxes,
+                                                                  *rays),
+                                  reps=5),
+           "phase1_plain_ms": device_ms(lambda: BLOCKS.block_entry(boxes,
+                                                                   *rays),
+                                        reps=5),
+           "lists_ms": device_ms(lambda: lists(boxes, *rays), reps=5)}
+    b = bound(nbytes(*rays[0], *rays[1], rays[2], boxes, ke),
+              SLAB_OPS * nb * bn * c)
+    out.update(phase1_bound_ms=b["bound_ms"], phase1_bound_by=b["bound_by"])
     return out
+
+
+PHASE1_KEYS = ("phase1_ms", "phase1_plain_ms", "phase1_bound_ms", "blocks",
+               "boxes", "entries", "zero_signs_differing")
 
 
 def check_dispatch(kind: str, shared: dict, report: dict):
     """One dispatch intersector against its plain version, bit for bit, on
-    the three ray cases; against K3 and K1 on the closest-hit rays; its time
-    on the camera and bounce-1 rays beside its bound."""
+    its ray sets (``dispatch_sets``; the sets through the pair route's
+    wrapper on the lanes it hands K4, and the whole wrapped call against
+    the bare kernel's result scattered back); phase 1 (K4, K6) against
+    ``block_entry``; against K3 and K1 on the bare closest-hit rays; each
+    timed set beside its bound."""
     key = {"pairs": "k4", "phased": "k5", "cluster": "k6"}[kind]
     _, kernel, plain, get_tables = DISPATCH[kind]
-    scene, walk_tables, cases = (shared["scene"], shared["tables"],
-                                 shared["cases"])
+    scene, walk_tables = shared["scene"], shared["tables"]
     tables = get_tables(scene)
     tri = scene["tri_isect"]
     nt = tri.shape[0]
-    n = cases[0][1].shape[1]
-    worst, visits = 0.0, {}
-    for name, r, extra in cases:
+    n = shared["cases"][0][1].shape[1]
+    route = make_closest_hit(scene, "pairs") if kind == "pairs" else None
+    worst, sets = 0.0, {}
+    for name, r, extra, wrapped in dispatch_sets(kind, shared):
         o, d = r[0:3], r[3:6]
-        kt, ki = kernel(tables, o, d, num_tris=nt, **extra)
+        if wrapped:
+            ko, kd, kw = route_lanes(scene, o, d, extra)
+        else:
+            ko, kd, kw = o, d, extra
+        m = ko.shape[1]
+        kt, ki = kernel(tables, ko, kd, num_tris=nt, **kw)
         torch.cuda.synchronize()
-        visits[name] = {}
-        pt, pi = plain(tables, o, d, num_tris=nt, visits=visits[name],
-                       **extra)
+        visits = {}
+        pt, pi = plain(tables, ko, kd, num_tris=nt, visits=visits, **kw)
         t_lanes, t_ulp, t_err = compare(kt, pt)
         i_lanes = int((ki != pi).sum())
-        say(key, f"{name} rays: {n} lanes ({int((pi >= 0).sum())} hits), t "
-            f"differs on {t_lanes} (max {t_ulp} ulp), idx differs on "
-            f"{i_lanes}; the plain version's count: {visits[name]}")
+        live = "all" if kw.get("active") is None else int(kw["active"].sum())
+        say(key, f"{name} rays: {m} lanes ({live} alive, "
+            f"{int((pi >= 0).sum())} hits), t differs on {t_lanes} (max "
+            f"{t_ulp} ulp), idx differs on {i_lanes}; the plain version's "
+            f"count: {visits}")
         if t_lanes or i_lanes:
             raise AssertionError(f"{key.upper()} disagrees with its plain "
                                  f"version on the {name} rays")
         worst = max(worst, t_err)
-        if name == "shadow-0":
+        entry = {"lanes": m, "visits": visits}
+        if wrapped:
+            # The whole route: the kernel through the wrapper equals the
+            # bare kernel's result on the lanes above, scattered back.
+            wt, wi = route(o, d, reorder=True, **extra)
+            st, si = with_tail_compaction(
+                lambda *args, **kwargs: (kt, ki), scene["root_box"],
+                pairs_reorder(scene))(o, d, reorder=True, **extra)
+            same_hits((wt, wi), (st, si), f"K4's route on the {name} rays")
+            entry["wrapper_ms"] = eager_ms(
+                lambda: route(o, d, reorder=True, **extra), reps=5)
+        if kind != "phased":
+            entry.update(check_phase1(kind, tables, ko, kd, kw, name))
+        if name != "shadow-0":
+            entry["ms"] = device_ms(
+                lambda: kernel(tables, ko, kd, num_tris=nt, **kw), reps=5)
+            b, ops = dispatch_bound(kind, visits, scene, tables, m)
+            entry.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                         gop=ops / 1e9)
+            say(key, f"{name} rays: device {entry['ms']:.4f} ms"
+                + (" (the wrapper's whole call: phase 1, the sort, the "
+                   "kernel)" if kind != "phased" else "")
+                + (f", phase 1 and the sort {entry['lists_ms']:.4f} ms "
+                   f"(phase 1's kernel {entry['phase1_ms']:.4f} ms, "
+                   f"block_entry {entry['phase1_plain_ms']:.4f} ms; "
+                   f"{entry['zero_signs_differing']} zero signs differ)"
+                   if "lists_ms" in entry else "")
+                + (f"; through make_closest_hit (compaction, order, host "
+                   f"sync; launched from Python) {entry['wrapper_ms']:.4f} "
+                   "ms" if wrapped else "")
+                + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+                f"{ops / 1e9:.3f} Gop)")
+        sets[name] = entry
+        if wrapped or name == "shadow-0" or name == "late-bounce":
             continue
         active = extra.get("active")
         wt, wi = K3.closest_hit_walk(walk_tables, o, d, num_tris=nt, **extra)
@@ -1482,33 +1630,42 @@ def check_dispatch(kind: str, shared: dict, report: dict):
             if int((idx_apart | t_apart).sum()) > 0.01 * n:
                 raise AssertionError(f"{key.upper()} and {other} disagree on "
                                      f"more than 1% of the {name} rays")
-    (_, cam, _), (_, bounce, bextra) = cases[0], cases[1]
-    o, d, bo, bd = cam[0:3], cam[3:6], bounce[0:3], bounce[3:6]
-    ms = device_ms(lambda: kernel(tables, o, d, num_tris=nt), reps=5)
-    bounce_ms = device_ms(lambda: kernel(tables, bo, bd, num_tris=nt,
-                                         **bextra), reps=5)
+    cam = shared["cases"][0][1]
+    o, d = cam[0:3], cam[3:6]
     plain_ms = eager_ms(lambda: plain(tables, o, d, num_tris=nt), reps=1)
-    lists_ms = dispatch_lists_ms(kind, tables, o, d, bo, bd, bextra)
-    b, ops = dispatch_bound(kind, visits["camera"], scene, tables, n)
-    bb, bops = dispatch_bound(kind, visits["bounce-1"], scene, tables, n)
-    say(key, f"time at {n} camera rays x {nt} tris: device {ms:.4f} ms (the "
-        f"wrapper's whole call; plain {plain_ms:.4f} ms, launched from "
-        f"Python with its host syncs), bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}; {ops / 1e9:.3f} Gop); bounce-1 rays: device "
-        f"{bounce_ms:.4f} ms, bound {bb['bound_ms']:.4f} ms "
-        f"({bb['bound_by']}; {bops / 1e9:.3f} Gop)"
-        + (f"; of those, phase 1 and the sort, PyTorch calls ahead of the "
-           f"kernel: {lists_ms[0]:.4f} and {lists_ms[1]:.4f} ms"
-           if lists_ms else ""))
+    cam_set, bounce_set = sets["camera"], sets["bounce-1"]
+    say(key, f"time at {n} camera rays x {nt} tris: device "
+        f"{cam_set['ms']:.4f} ms (plain {plain_ms:.4f} ms, launched from "
+        f"Python with its host syncs), bound {cam_set['bound_ms']:.4f} "
+        f"ms; bounce-1 rays: device {bounce_set['ms']:.4f} ms, bound "
+        f"{bounce_set['bound_ms']:.4f} ms")
     report.setdefault(key, {}).update(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bounce_ms=bounce_ms,
-        lists_ms=lists_ms,
-        bounce_bound_ms=bb["bound_ms"], triangles=nt, visits=visits, **b)
+        max_abs_err=worst, ms=cam_set["ms"], plain_ms=plain_ms,
+        bounce_ms=bounce_set["ms"],
+        bounce_bound_ms=bounce_set["bound_ms"],
+        lists_ms={k: v["lists_ms"] for k, v in sets.items()
+                  if "lists_ms" in v} or None,
+        triangles=nt, sets=sets, bound_ms=cam_set["bound_ms"],
+        bound_by=cam_set["bound_by"], library_ms=None)
+    if kind == "pairs":
+        # The phase-1 kernel's entry: its time and bound on K4's camera
+        # rays; every set above held it to block_entry.
+        report.setdefault("block_entry", {}).update(
+            max_abs_err=0.0, ms=cam_set["phase1_ms"],
+            plain_ms=cam_set["phase1_plain_ms"],
+            bound_ms=cam_set["phase1_bound_ms"],
+            bound_by=cam_set["phase1_bound_by"], library_ms=None,
+            by_set={k: {f: v[f] for f in PHASE1_KEYS}
+                    for k, v in sets.items() if "phase1_ms" in v})
+    elif kind == "cluster":
+        report.setdefault("block_entry", {})["k6_by_set"] = {
+            k: {f: v[f] for f in PHASE1_KEYS}
+            for k, v in sets.items() if "phase1_ms" in v}
 
 
 def phase_dispatch(dev, report, large: dict):
-    """K4 and K6 on the large box (``large``: phase 7's scene, walk tables
-    and ray cases), K5 on the mid-size box."""
+    """K4 and K6 on the large box (``large_sets``), K5 on the mid-size
+    box."""
     check_dispatch("pairs", large, report)
     check_dispatch("cluster", large, report)
     scene_np, _ = tessellated_box(PHASED_TESSELLATION)
@@ -1540,8 +1697,10 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
     r = forced_renderer("pairs", large, "pairs")
     hdr, secs = counted_render(
         r, LARGE_SPP, report, "pairs",
-        expect(k2=MAX_BOUNCES * LARGE_SPP, k4=2 * MAX_BOUNCES * LARGE_SPP))
-    report["k4"]["launches"] = report["k4"]["launches_by_path"]["pairs"]
+        expect(k2=MAX_BOUNCES * LARGE_SPP, k4=2 * MAX_BOUNCES * LARGE_SPP,
+               block_entry=2 * MAX_BOUNCES * LARGE_SPP))
+    for key in ("k4", "block_entry"):
+        report[key]["launches"] = report[key]["launches_by_path"]["pairs"]
     stats = r.stats()
     rays = stats["rays_total"]
     say("pairs", f"cold render: wall {secs:.3f} s, {rays} rays "
@@ -1574,7 +1733,8 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
     fallback, _ = counted_render(
         f, LARGE_PLAIN_SPP, report, "pairs_fallback",
         expect(k2=MAX_BOUNCES * LARGE_PLAIN_SPP,
-               k4=2 * MAX_BOUNCES * LARGE_PLAIN_SPP))
+               k4=2 * MAX_BOUNCES * LARGE_PLAIN_SPP,
+               block_entry=2 * MAX_BOUNCES * LARGE_PLAIN_SPP))
     pixels = pixels_differing(fallback, one)
     say("pairs", "the same box without walk tables under intersector='auto' "
         f"took {f.stats()['intersector']!r}; its image differs from the "
@@ -1588,10 +1748,11 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
     for kind, key, scene_np in (("phased", "k5", mid), ("cluster", "k6",
                                                         large)):
         r = forced_renderer(kind, scene_np, kind)
+        calls = 2 * MAX_BOUNCES * DISPATCH_SPP
         _, secs = counted_render(
             r, DISPATCH_SPP, report, kind,
-            expect(k2=MAX_BOUNCES * DISPATCH_SPP,
-                   **{key: 2 * MAX_BOUNCES * DISPATCH_SPP}))
+            expect(k2=MAX_BOUNCES * DISPATCH_SPP, **{key: calls},
+                   block_entry=calls if kind == "cluster" else 0))
         report[key]["launches"] = report[key]["launches_by_path"][kind]
         rays = r.stats()["rays_total"]
         say(kind, f"{scene_np.num_triangles} triangles, cold render: wall "
@@ -1868,7 +2029,8 @@ def profile_frames(r: Renderer, path: str, phase: str) -> None:
                             for name, us in top))
 
 
-# The phases in their order; "dispatch" reuses "k3"'s scene and rays.
+# The phases in their order; "k3" and "dispatch" share the large box's
+# scene and rays (``large_sets``).
 PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
           "dispatch", "dispatch_paths", "k2_lds", "rng_paths")
 # The keys every kernel's entry in the kernels line carries.
@@ -1905,6 +2067,12 @@ def kernels_line(report: dict, complete: bool) -> list:
          "replaces": f"{ref}/walk.py:177", **report.get("k3", {})},
         {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
          "replaces": f"{ref}/pairs.py:108", **report.get("k4", {})},
+        # Phase 1 of K4 and K6: the XLA scans ahead of the two TPU kernels.
+        {"name": "block_entry", "route": "cuda",
+         "source": f"{pkg}/csrc/blocks.cu",
+         "replaces": f"{ref}/pairs.py:307",
+         "also_replaces": f"{ref}/cluster.py:239",
+         **report.get("block_entry", {})},
         {"name": "phased", "route": "cuda", "source": f"{pkg}/csrc/phased.cu",
          "replaces": f"{ref}/phased.py:70", **report.get("k5", {})},
         {"name": "cluster", "route": "cuda",
@@ -1964,8 +2132,6 @@ def main() -> int:
     unknown = set(wanted) - set(PHASES)
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
-    if "dispatch" in wanted and "k3" not in wanted:
-        raise SystemExit("chip_smoke: the 'dispatch' phase needs 'k3'")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     dev = torch.device("cuda")
@@ -1983,7 +2149,14 @@ def main() -> int:
 
     report: dict = {}
     profile = args.profile
-    large = None
+    large: dict = {}
+
+    def large_box() -> dict:
+        # Built once, for "k3" and "dispatch"; dropped after them.
+        if not large:
+            large.update(large_sets(dev))
+        return large
+
     phases = {
         "k1": lambda: phase_k1(dev, report),
         "k2": lambda: phase_k2(dev, report),
@@ -1991,9 +2164,9 @@ def main() -> int:
         "oracle": lambda: phase_oracle(dev),
         "main": lambda: phase_main(dev, smi, report, profile),
         "textured": lambda: phase_textured(dev, smi, report, profile),
-        "k3": lambda: phase_k3(dev, report),
+        "k3": lambda: phase_k3(dev, report, large_box()),
         "large": lambda: phase_large(dev, smi, report, profile),
-        "dispatch": lambda: phase_dispatch(dev, report, large),
+        "dispatch": lambda: phase_dispatch(dev, report, large_box()),
         "dispatch_paths": lambda: phase_dispatch_paths(dev, smi, report,
                                                        profile),
         "k2_lds": lambda: phase_k2_lds(dev, report),
@@ -2004,11 +2177,9 @@ def main() -> int:
         if phase not in wanted:
             continue
         t_phase = time.perf_counter()
-        out = phases[phase]()
-        if phase == "k3":
-            large = out
-        elif phase == "dispatch":
-            large = None
+        phases[phase]()
+        if phase == "dispatch" or (phase == "k3" and "dispatch" not in wanted):
+            large.clear()
         say("done", f"phase {phase} in {time.perf_counter() - t_phase:.1f} s")
 
     kernels = kernels_line(report, complete=wanted == PHASES)

@@ -7,8 +7,9 @@ imports JAX; where JAX is not installed, run them with:
 
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
 in both texture modes, with and without its bounce-0 LDS instantiation),
-K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu) and K6
-(csrc/cluster.cu) must equal the plain versions bit for bit: both round
+K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu), K6
+(csrc/cluster.cu) and the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
+sign of a zero) must equal the plain versions bit for bit: both round
 every float32 operation the same way (the kernels are built with
 -fmad=false and IEEE division and square root).
 """
@@ -25,6 +26,7 @@ from chip_smoke import (
     adversarial_case,
     lane_mix_box,
     lane_mix_rays,
+    plain_closest_hit,
     plain_render,
     scene_of,
     spine_rays,
@@ -42,11 +44,14 @@ from wgpu_path_tracing_tpu_torch import (
     textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
+from wgpu_path_tracing_tpu_torch.ops import blocks as BLOCKS
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
 from wgpu_path_tracing_tpu_torch.ops import intersect as INTERSECT
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
+from wgpu_path_tracing_tpu_torch.ops import cluster as K6
+from wgpu_path_tracing_tpu_torch.ops import pairs as K4
 from wgpu_path_tracing_tpu_torch.ops import walk as K3
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.pipeline import camera_device
@@ -379,6 +384,127 @@ def test_dispatch_kernel_equals_plain(dev, kind, mode):
         torch.cuda.synchronize()
         assert module.Counter.launches == before + 1
         pt, pi = plain(tables, o, d, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+        assert (ki >= 0).any()
+
+
+def _bounce_sets(dev, size):
+    """The 4,898-triangle box at ``size`` x ``size``: its scene, and its
+    bounce-1 rays, their alive mask, a late-bounce mask of about 5% of them,
+    and their shadow rays with mask and t_max, from one plain bounce."""
+    sc = cornell_box(tessellation=12)
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    cam = camera_device(Camera(width=size, height=size).as_pytree(), size,
+                        size)
+    x, y = CAM.pixel_grid(size, size, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 1, use_dof=True)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    t, idx = K3.closest_hit_walk_plain(K3.walk_tables(scene), ro, rd)
+    outs = K2.bounce_stage_plain(
+        0, rays, state, torch.ones((3, n), device=dev),
+        torch.zeros((3, n), device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+        scene["tri_full"], scene["light_full"], do_mis=True,
+        num_lights=sc.num_lights)
+    late = outs[4] & torch.from_numpy(
+        np.random.default_rng(5).random(n) < 0.05).to(dev)
+    return scene, rays, outs, late
+
+
+@pytest.mark.parametrize("bn", [1024, 100, 2048])
+def test_block_entry_kernel_equals_plain(dev, bn):
+    """Phase 1's kernel against block_entry (-0 == +0) on camera, bounce-1
+    and shadow rays of the 4,898-triangle box, against its super boxes and
+    its cluster boxes, at a ray count that fills no block."""
+    scene, rays, outs, _ = _bounce_sets(dev, W)
+    for r, active, t_max in ((rays, None, None), (outs[0], outs[4], None),
+                             (outs[5], outs[7], outs[6])):
+        m = r.shape[1] - 37
+        o, d = r[0:3, :m].contiguous(), r[3:6, :m].contiguous()
+        lim0 = BLOCKS.ray_limit(None if active is None else active[:m],
+                                None if t_max is None else t_max[:m], m, dev)
+        padded = BLOCKS.pad_blocks(o, d, lim0, bn)
+        for aabb in (scene["pairs_super_aabb"], scene["cluster_aabb"]):
+            before = BLOCKS.Counter.launches
+            got = BLOCKS.block_entry_cuda(aabb, *padded)
+            torch.cuda.synchronize()
+            assert BLOCKS.Counter.launches == before + 1
+            want = BLOCKS.block_entry(aabb, *padded)
+            assert torch.equal(got, want)
+            assert (want < torch.inf).any()
+            for a, b in zip(K4.sorted_pairs(got), K4.sorted_pairs(want)):
+                assert torch.equal(a, b)
+
+
+def test_pair_route_kernel_equals_plain(dev, monkeypatch):
+    """K4 behind make_closest_hit's with_tail_compaction, against the plain
+    version behind the same wrapper, at 128x128 (16,384 lanes, the sort
+    forced on this tree): bounce-1 rays (the whole call sorted), a
+    late-bounce mask of 5% (the n/8 tier, sorted), the shadow rays, and a
+    call with no live lane (the n/8 tier, fill lanes only)."""
+    monkeypatch.setattr(INTERSECT, "REORDER_MIN_NODES", 1)
+    scene, _, outs, late = _bounce_sets(dev, 128)
+    kernel = INTERSECT.make_closest_hit(scene, "pairs")
+    plain = plain_closest_hit(scene, "pairs")
+    none = torch.zeros_like(late)
+    for r, kw in ((outs[0], dict(active=outs[4])),
+                  (outs[0], dict(active=late)),
+                  (outs[5], dict(active=outs[7], t_max=outs[6],
+                                 any_hit=True)),
+                  (outs[0], dict(active=none))):
+        o, d = r[0:3], r[3:6]
+        before = K4.Counter.launches, BLOCKS.Counter.launches
+        kt, ki = kernel(o, d, reorder=True, **kw)
+        torch.cuda.synchronize()
+        assert (K4.Counter.launches, BLOCKS.Counter.launches) == (
+            before[0] + 1, before[1] + 1)
+        pt, pi = plain(o, d, reorder=True, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+        assert (ki >= 0).any() or not kw["active"].any()
+
+
+@pytest.mark.parametrize("n", [200000, 100000, 40000, 3000])
+def test_pairs_kernel_at_every_split(dev, n):
+    """K4 against its plain version at ray counts whose blocks take each
+    split of a block's rows over a CTA cluster (on an H100 at two CTAs an
+    SM: 196 blocks one CTA each, 98 blocks two, 40 four, 3 eight), random
+    rays over the 4,898-triangle box with 30% of them alive and a random
+    t_max on half of those."""
+    packed = pack_device_scene(cornell_box(tessellation=12))
+    scene = load_jax_scene(packed, dev)
+    tables = K4.pair_tables(scene)
+    rng = np.random.default_rng(n)
+    root = packed["bvh_aabb"][0]
+    lo, hi = root[0:3, None], root[3:6, None]
+    o = torch.from_numpy(rng.uniform(lo, hi, (3, n)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    active = torch.from_numpy(rng.random(n) < 0.3)
+    t_max = torch.from_numpy(np.where(
+        rng.random(n) < 0.5, rng.uniform(0.1, 3.0, n), np.inf).astype(
+            np.float32))
+    o, d, active, t_max = (x.to(dev) for x in (o, d, active, t_max))
+    nt = scene["tri_isect"].shape[0]
+    kt, ki = K4.closest_hit_pairs(tables, o, d, active, t_max, num_tris=nt)
+    torch.cuda.synchronize()
+    pt, pi = K4.closest_hit_pairs_plain(tables, o, d, active, t_max,
+                                        num_tris=nt)
+    assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+    assert (ki >= 0).sum() > 0.05 * n
+
+
+def test_cluster_kernel_on_sparse_lanes(dev):
+    """K6 against its plain version on the late-bounce mask (5% alive: the
+    dead lanes skip their tests) and on a ray count that fills no block."""
+    scene, _, outs, late = _bounce_sets(dev, W)
+    tables = K6.cluster_tables(scene)
+    nt = scene["tri_isect"].shape[0]
+    for m in (outs[0].shape[1], 1500):
+        o, d = outs[0][0:3, :m].contiguous(), outs[0][3:6, :m].contiguous()
+        kt, ki = K6.closest_hit_cluster(tables, o, d, late[:m], num_tris=nt)
+        torch.cuda.synchronize()
+        pt, pi = K6.closest_hit_cluster_plain(tables, o, d, late[:m],
+                                              num_tris=nt)
         assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
         assert (ki >= 0).any()
 

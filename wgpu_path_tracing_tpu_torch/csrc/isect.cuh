@@ -1,5 +1,6 @@
 // Device functions the intersection kernels share: dense_hit.cu (K1),
-// walk.cu (K3), pairs.cu (K4), phased.cu (K5) and cluster.cu (K6).
+// walk.cu (K3), pairs.cu (K4), phased.cu (K5), cluster.cu (K6) and blocks.cu
+// (phase 1 of K4 and K6).
 //
 // Each follows its plain PyTorch counterpart term for term (ops/walk.py
 // slab_entry, ops/blocks.py slab_entry_div, ops/intersect.py
@@ -22,10 +23,22 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return b < a ? b : a;
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b > a ? b : a;
+// torch.minimum / torch.maximum in one instruction each: PTX's .NaN min
+// and max return NaN if either operand is NaN, as nan_min does. They
+// may pick another zero sign than nan_min for (+0, -0), which no comparison
+// tells apart: use them where the result is only compared, or where a
+// stored zero's sign is allowed to differ (phase 1's entry table, which is
+// only compared and sorted).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 struct Ray {
@@ -57,13 +70,17 @@ __device__ __forceinline__ Ray pad_ray() {
   return Ray{0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
 }
 
+// The slab test from the six plane distances: the entry distance tn in
+// *tn_out, and whether the ray enters the box at or below `lim`. tn's zero
+// sign may differ from the plain version's (min_nan, max_nan); every caller
+// only compares it, but phase 1 also stores it.
 __device__ __forceinline__ bool slab_enter(float t1x, float t2x, float t1y,
                                            float t2y, float t1z, float t2z,
                                            float lim, float* tn_out) {
-  const float tn = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
-                           nan_min(t1z, t2z));
-  const float tf = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
-                           nan_max(t1z, t2z));
+  const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                           min_nan(t1z, t2z));
+  const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                           max_nan(t1z, t2z));
   *tn_out = tn;
   return (tf >= tn) && (tf >= 0.0f) && (tn <= lim);
 }
@@ -79,14 +96,16 @@ __device__ __forceinline__ bool slab_entry(const float* __restrict__ box,
                     tn_out);
 }
 
-// The same test dividing by the direction (K4, K6): a zero component gives
-// +-inf or NaN, and a NaN box rejects every lane.
-__device__ __forceinline__ bool slab_entry_div(const float* box, const Ray& r,
-                                               float lim, float* tn_out) {
-  return slab_enter((box[0] - r.ox) / r.dx, (box[3] - r.ox) / r.dx,
-                    (box[1] - r.oy) / r.dy, (box[4] - r.oy) / r.dy,
-                    (box[2] - r.oz) / r.dz, (box[5] - r.oz) / r.dz, lim,
-                    tn_out);
+// The same test dividing by the direction (K4, K6 and their phase 1), on a
+// box [min3, max3] held as six floats: a zero component gives +-inf or NaN,
+// and a NaN box rejects every lane.
+__device__ __forceinline__ bool slab_entry_div(float x0, float y0, float z0,
+                                               float x1, float y1, float z1,
+                                               const Ray& r, float lim,
+                                               float* tn_out) {
+  return slab_enter((x0 - r.ox) / r.dx, (x1 - r.ox) / r.dx,
+                    (y0 - r.oy) / r.dy, (y1 - r.oy) / r.dy,
+                    (z0 - r.oz) / r.dz, (z1 - r.oz) / r.dz, lim, tn_out);
 }
 
 // Möller-Trumbore with EPSILON = 1e-6 (pt.wgsl:123-157) against one triangle
@@ -149,28 +168,6 @@ __device__ __forceinline__ float mt_early(const Ray& r, const float4& a,
   return t > kEpsilon ? t : CUDART_NAN_F;
 }
 
-// The closest valid hit among `rows` consecutive rows of `stride` floats
-// whose first nine are [v0, e1, e2] (K4's and K6's staged tiles): the least
-// t, ties to the lowest row. Leaves (inf, -1) when no row is hit.
-__device__ __forceinline__ void closest_row(const float* tile, int rows,
-                                            int stride, const Ray& r,
-                                            float* t_out, int* row_out) {
-  float best = CUDART_INF_F;
-  int best_row = -1;
-  for (int k = 0; k < rows; ++k) {
-    const float* v = tile + k * stride;
-    float t;
-    if (moller_trumbore(r, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                        v[8], &t) &&
-        t < best) {
-      best = t;
-      best_row = k;
-    }
-  }
-  *t_out = best;
-  *row_out = best_row;
-}
-
 // The leaf table of accel/bvh8.py: groups of kGroupRows rows of kLanes
 // floats; rows 0..8 hold [v0, e1, e2] by slot, row 9 the global triangle
 // index (-1 on a padding slot), rows kSubRow.. the sub-cluster boxes.
@@ -206,6 +203,22 @@ __device__ __forceinline__ void mt_subcluster(const float* __restrict__ group,
   }
   *t_out = sub_t;
   *idx_out = sub_i;
+}
+
+// cp.async of 16 bytes from global to shared memory (K4, K6), its commit
+// group, and the wait for every group this thread committed.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The epilogue every intersector shares (ops/blocks.py finish).

@@ -24,7 +24,8 @@
 //   registers and the entries of its ancestors that still hold children go
 //   to shared memory, fewer than the tree's depth. No local memory.
 // - The slab test's 12 NaN-propagating min and max are one PTX instruction
-//   each; the 16 sub-box gates of a leaf visit are unrolled, and so are a
+//   each (isect.cuh's slab_enter, which K4, K5, K6 and their phase 1
+//   share); the 16 sub-box gates of a leaf visit are unrolled, and so are a
 //   sub-cluster's 8 Möller-Trumbore tests, each of which stops at the first
 //   condition it fails.
 // - The wrapper sorts bounce rays into direction-octant x origin buckets
@@ -76,38 +77,16 @@ constexpr int kLeafFloats = kSub * kBoxFloats + kLanes * kTriFloats;
 constexpr int kDefaultShared = 48 * 1024;  // dynamic shared memory without
                                            // the opt-in attribute
 
-// torch.minimum / torch.maximum in one instruction each: PTX's .NaN min
-// and max return NaN if either operand is NaN, as nan_min / nan_max do. They
-// may pick another zero sign than nan_min for (+0, -0), which no comparison
-// below tells apart; tn never reaches the output.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
 // Slab test of the box record at p ([min3, max3, 0, 0], two float4): the
-// terms of isect.cuh's slab_entry in the same order.
+// terms of isect.cuh's slab_entry in the same order, and its slab_enter.
 __device__ __forceinline__ bool box_entry(const float4* __restrict__ p,
                                           const Ray& r, float lim,
                                           float* tn_out) {
   const float4 a = p[0];
   const float4 b = p[1];
-  const float t1x = (a.x - r.ox) * r.ix, t2x = (a.w - r.ox) * r.ix;
-  const float t1y = (a.y - r.oy) * r.iy, t2y = (b.x - r.oy) * r.iy;
-  const float t1z = (a.z - r.oz) * r.iz, t2z = (b.y - r.oz) * r.iz;
-  const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
-                           min_nan(t1z, t2z));
-  const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
-                           max_nan(t1z, t2z));
-  *tn_out = tn;
-  return (tf >= tn) && (tf >= 0.0f) && (tn <= lim);
+  return slab_enter((a.x - r.ox) * r.ix, (a.w - r.ox) * r.ix,
+                    (a.y - r.oy) * r.iy, (b.x - r.oy) * r.iy,
+                    (a.z - r.oz) * r.iz, (b.y - r.oz) * r.iz, lim, tn_out);
 }
 
 // The children of interior node `node` that the ray enters: bit k for slot

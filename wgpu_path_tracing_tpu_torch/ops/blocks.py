@@ -18,6 +18,9 @@ triangle wins), and the helpers here fix it in one place:
   propagate NaN as the JAX package's ``jnp.minimum``/``jnp.maximum`` do;
 * ``block_entry``: phase 1 of K4 and K6, every ray against every box,
   reduced per block to the nearest entry distance (inf: no lane enters);
+  ``block_entry_cuda`` is its kernel (``csrc/blocks.cu``), and
+  ``entry_table`` what K4's and K6's wrappers call: the kernel on CUDA
+  tensors, ``block_entry`` on CPU tensors;
 * ``count_work``: the ``visits`` counts of the plain versions;
 * ``finish``: the epilogue (``idx >= num_tris`` and non-finite ``t`` become
   misses, inactive lanes return (inf, -1)).
@@ -29,8 +32,16 @@ import math
 
 import torch
 
+from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+
 # Elements of the largest temporary a chunked sweep may make.
 SWEEP_ELEMENTS = 1 << 23
+
+
+class Counter:
+    """Launches of the phase-1 kernel in this process."""
+
+    launches = 0
 
 
 def ray_limit(active, t_max, n: int, dev) -> torch.Tensor:
@@ -141,3 +152,44 @@ def block_entry(aabb, o, d, lim) -> torch.Tensor:
                                    lim[:, :, None])
         out[:, lo:lo + step] = torch.where(enter, tn, math.inf).amin(dim=1)
     return out
+
+
+def block_entry_cuda(aabb, o, d, lim) -> torch.Tensor:
+    """``block_entry`` on the card (``csrc/blocks.cu``, on the current stream,
+    no synchronisation): one thread block a ray block, no chunks and no
+    temporaries. The same (nb, C) table, except that a least entry of zero
+    may come out as -0 where ``block_entry`` gives +0; the table is only
+    compared and sorted, where -0 == +0."""
+    rows = (*o, *d, lim)
+    if len(rows) != 7:
+        raise ValueError("block_entry_cuda takes three origin rows, three "
+                         "direction rows and the limits")
+    if any(x.device.type != "cuda" or x.device != lim.device
+           for x in (aabb, *rows)):
+        raise ValueError("block_entry_cuda needs CUDA tensors on one device")
+    check_table("aabb", aabb, 6)
+    if lim.dim() != 2 or any(x.dtype != torch.float32
+                             or x.shape != lim.shape for x in rows):
+        raise ValueError("the rays and limits must be (nb, bn) float32, got "
+                         f"{[tuple(x.shape) for x in rows]}")
+    nb, bn = lim.shape
+    c = aabb.shape[0]
+    out = torch.empty((nb, c), dtype=torch.float32, device=lim.device)
+    if nb == 0 or c == 0:
+        return out
+    aabb = aabb.contiguous()
+    rows = [x.contiguous() for x in rows]
+    err = cuda_lib.lib().wpt_block_entry(
+        aabb.data_ptr(), *(x.data_ptr() for x in rows), out.data_ptr(), nb,
+        bn, c, cuda_lib.stream_ptr(lim))
+    cuda_lib.check(err, "wpt_block_entry")
+    Counter.launches += 1
+    return out
+
+
+def entry_table(aabb, o, d, lim) -> torch.Tensor:
+    """Phase 1 as K4's and K6's wrappers take it: the kernel for CUDA
+    tensors, ``block_entry`` for CPU tensors."""
+    if lim.device.type == "cuda":
+        return block_entry_cuda(aabb, o, d, lim)
+    return block_entry(aabb, o, d, lim)

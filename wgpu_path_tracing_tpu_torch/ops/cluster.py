@@ -9,8 +9,9 @@ idx (N,) int32), a miss being (inf, -1).
 
 * BUILD (host, ``build_clusters``): the BVH-sorted triangle table is cut
   into clusters of ``CLUSTER_K`` consecutive triangles, each with its AABB.
-* PHASE 1 (``ops/blocks.py::block_entry``): every ray against every cluster
-  AABB, reduced per block of ``BN`` rays to the nearest entry distance.
+* PHASE 1 (``ops/blocks.py::block_entry``, on the card its kernel
+  ``csrc/blocks.cu``): every ray against every cluster AABB, reduced per
+  block of ``BN`` rays to the nearest entry distance.
 * ROUNDS (the kernel, or the plain loop): each block takes its candidates in
   ascending entry distance, the lower cluster index first on ties (the JAX
   package's repeated ``argmin``; here a stable sort), ``ROUND`` of them a
@@ -28,6 +29,11 @@ block's tail with zero directions, whose entry distance into a box around
 the origin is -inf, and a block with such an entry never takes a candidate
 there while the loop waits for it. Here the tail lanes enter nothing, and
 every entry below inf is a candidate.
+
+The kernel reads the triangles as ``cluster_rows``, three 16-byte rows a
+triangle, a copy of ``cluster_tris`` that ``cluster_tables`` makes once a
+scene; the plain version reads ``cluster_tris``. The JAX package puts no ray
+order in front of this dispatch, and neither does the port.
 
 On a CUDA tensor ``closest_hit_cluster`` launches ``csrc/cluster.cu``; on a
 CPU tensor it runs ``closest_hit_cluster_plain``. There is no fallback
@@ -48,6 +54,7 @@ from wgpu_path_tracing_tpu_torch.ops.intersect import moller_trumbore
 CLUSTER_K = 128  # triangles in a cluster (csrc/cluster.cu kMaxK)
 BN = 1024  # rays in a block (csrc/cluster.cu kBlock)
 ROUND = 8  # candidates a block takes between two culls
+ROW_FLOATS = 12  # a triangle of cluster_rows: [v0, e1, e2, 0, 0, 0]
 CLUSTER_KEYS = ("cluster_tris", "cluster_aabb")
 
 
@@ -60,6 +67,7 @@ class Counter:
 class ClusterTables(NamedTuple):
     aabb: torch.Tensor  # (C, 6) float32
     tris: torch.Tensor  # (C * k, 9) float32
+    rows: torch.Tensor | None = None  # (C * k, 12) float32, cluster_rows
 
 
 def build_clusters(tri_isect: np.ndarray, k: int = CLUSTER_K):
@@ -89,22 +97,39 @@ def build_clusters(tri_isect: np.ndarray, k: int = CLUSTER_K):
     return tris, aabb
 
 
+def cluster_rows(tris: torch.Tensor) -> torch.Tensor:
+    """``cluster_tris`` as the kernel reads it, by plain copies: each
+    triangle [v0, e1, e2] followed by three zeros, so that it is three
+    16-byte rows."""
+    out = torch.zeros((tris.shape[0], ROW_FLOATS), dtype=tris.dtype,
+                      device=tris.device)
+    out[:, 0:9] = tris
+    return out
+
+
 def cluster_tables(scene: dict) -> ClusterTables:
-    """The cluster tables of an uploaded scene."""
+    """The cluster tables of an uploaded scene, with the kernel's rows."""
     missing = [k for k in CLUSTER_KEYS if k not in scene]
     if missing:
         raise ValueError(f"the scene has no cluster tables ({missing}): pack "
-                       "it with pack_device_scene and upload it with "
-                       "load_jax_scene")
-    return ClusterTables(scene["cluster_aabb"], scene["cluster_tris"])
+                         "it with pack_device_scene and upload it with "
+                         "load_jax_scene")
+    tris = scene["cluster_tris"]
+    return ClusterTables(scene["cluster_aabb"], tris, cluster_rows(tris))
 
 
 def candidates(aabb, o, d, lim):
-    """Phase 1 and the pick order: (entry (nb, C) float32 ascending, cids
-    (nb, C) int64), each block's clusters by entry distance, ties to the
-    lower index; inf entries are no candidates."""
-    return tuple(torch.sort(blocks.block_entry(aabb, o, d, lim), dim=1,
-                            stable=True))
+    """Phase 1 and the pick order, as the kernel's wrapper makes them: phase
+    1 by ``blocks.entry_table`` (the kernel on CUDA tensors), then
+    ``pick_order``."""
+    return pick_order(blocks.entry_table(aabb, o, d, lim))
+
+
+def pick_order(entry):
+    """The pick order of phase 1's (nb, C) table: (entry (nb, C) float32
+    ascending, cids (nb, C) int64), each block's clusters by entry distance,
+    ties to the lower index; inf entries are no candidates."""
+    return tuple(torch.sort(entry, dim=1, stable=True))
 
 
 def _check(tables: ClusterTables, ro3, rd3, active, t_max) -> int:
@@ -112,6 +137,11 @@ def _check(tables: ClusterTables, ro3, rd3, active, t_max) -> int:
     blocks.check_rays(ro3, rd3, active, t_max, *tables)
     blocks.check_table("cluster_aabb", tables.aabb, 6)
     blocks.check_table("cluster_tris", tables.tris, 9)
+    if tables.rows is not None:
+        blocks.check_table("cluster rows", tables.rows, ROW_FLOATS)
+        if tables.rows.shape[0] != tables.tris.shape[0]:
+            raise ValueError("the cluster rows must hold a row for each row "
+                             "of cluster_tris")
     c = tables.aabb.shape[0]
     if c == 0 or tables.tris.shape[0] % c:
         raise ValueError("cluster_tris must hold the same number of rows "
@@ -137,7 +167,7 @@ def closest_hit_cluster_plain(tables: ClusterTables, ro3, rd3, active=None,
     lim0 = blocks.ray_limit(active, t_max, n, dev)
     o, d, lim = blocks.pad_blocks(ro3, rd3, lim0, BN)
     nb, c = lim.shape[0], tables.aabb.shape[0]
-    entry, cids = candidates(tables.aabb, o, d, lim)
+    entry, cids = pick_order(blocks.block_entry(tables.aabb, o, d, lim))
     if visits is not None:
         blocks.count_work(visits, blocks=nb, boxes=c)
     best_t = torch.full((nb, BN), math.inf, dtype=torch.float32, device=dev)
@@ -188,9 +218,9 @@ def _finish(best_t, best_i, n: int, active, num_tris):
 def closest_hit_cluster_cuda(tables: ClusterTables, ro3, rd3, active=None,
                              t_max=None, num_tris: int | None = None,
                              any_hit: bool = False, max_rounds: int = 0):
-    """Phase 1 and the pick order in PyTorch, then K6 on the current stream
-    (no synchronisation): one thread block for each block of ``BN`` rays,
-    through all its rounds."""
+    """Phase 1's kernel and the pick order's sort, then K6 on the current
+    stream (no synchronisation): one thread block for each block of ``BN``
+    rays, through all its rounds, reading ``tables.rows``."""
     del any_hit
     k = _check(tables, ro3, rd3, active, t_max)
     if ro3.device.type != "cuda":
@@ -209,10 +239,16 @@ def closest_hit_cluster_cuda(tables: ClusterTables, ro3, rd3, active=None,
     entry, cids = candidates(tables.aabb,
                              *blocks.pad_blocks(ro3, rd3, lim0, BN))
     entry, cids = entry.contiguous(), cids.contiguous()
-    tris = tables.tris.contiguous()
+    if tables.rows is None:
+        raise ValueError("K6 reads the cluster rows: make the tables with "
+                         "cluster_tables")
+    rows = tables.rows.contiguous()
+    if rows.data_ptr() % 16:
+        raise ValueError("K6 reads the cluster rows as float4: they must be "
+                         "16-byte aligned")
     active = None if active is None else active.contiguous()
     err = cuda_lib.lib().wpt_cluster(
-        tris.data_ptr(), entry.data_ptr(), cids.data_ptr(), ro3.data_ptr(),
+        rows.data_ptr(), entry.data_ptr(), cids.data_ptr(), ro3.data_ptr(),
         rd3.data_ptr(), lim0.data_ptr(),
         None if active is None else active.data_ptr(), t.data_ptr(),
         idx.data_ptr(), n, cids.shape[1], k, int(max_rounds),

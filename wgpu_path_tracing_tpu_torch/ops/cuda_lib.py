@@ -58,6 +58,10 @@ SIGNATURES = {
         _I, _I, _I,  # n, num_tris (-1: none), any_hit
         _I, _P,  # stack entries a thread, stream
     ],
+    "wpt_block_entry": [
+        _P, _P, _P, _P, _P, _P, _P, _P,  # aabb, ox, oy, oz, dx, dy, dz, limit
+        _P, _I, _I, _I, _P,  # out, nb, bn, boxes, stream
+    ],
     "wpt_pairs": [
         _P, _P, _P,  # pairs_tris, each block's super tiles in order, counts
         _P, _P, _P, _P,  # ro, rd, limit, active (or NULL)
@@ -70,7 +74,7 @@ SIGNATURES = {
         _I, _I, _I, _I, _P,  # n, bn, groups, num_tris (-1: none), stream
     ],
     "wpt_cluster": [
-        _P, _P, _P,  # cluster_tris, each block's entries ascending, clusters
+        _P, _P, _P,  # cluster rows, each block's entries ascending, clusters
         _P, _P, _P, _P,  # ro, rd, limit, active (or NULL)
         _P, _P,  # out t, idx
         _I, _I, _I, _I, _I, _P,  # n, clusters, k, max_rounds, num_tris, stream

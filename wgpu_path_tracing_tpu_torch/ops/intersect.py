@@ -80,14 +80,21 @@ def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
 # origin in the scene's root box (8 * 8**bits buckets), taken on trees of at
 # least REORDER_MIN_NODES wide nodes, on calls of at least REORDER_MIN_LANES
 # rays (the JAX package's COMPACT_MIN_LANES, below which its wrapper calls
-# the walk as it is). Its tail compaction, which packs the live lanes ahead
-# of the dead ones, is not carried over: on the H100 a sort that also put
-# the dead lanes last made the large box's render 3.6% slower than the
-# bucket order alone (PERF.md section 6).
+# the intersector as it is). The walk takes the order alone
+# (``with_ray_order``): its tail compaction, which packs the live lanes
+# ahead of the dead ones, made the large box's render 3.6% slower there on
+# the H100 (PERF.md section 6). The pair dispatch takes both
+# (``with_tail_compaction``), because it computes another function on
+# another lane order: its vote is over a block of consecutive lanes.
 REORDER_POS_BITS = 2
 REORDER_BUCKETS = 8 * 8 ** REORDER_POS_BITS
 REORDER_MIN_NODES = 128
 REORDER_MIN_LANES = 16384
+# The compaction's tiers (the JAX package's COMPACT_DIVS and
+# COMPACT_TIER_MIN_LANES): n // div lanes, a tier of fewer than
+# COMPACT_TIER_MIN_LANES being skipped.
+COMPACT_DIVS = (2, 8, 32, 128)
+COMPACT_TIER_MIN_LANES = 2048
 
 
 def bucket_keys(ro3, rd3, root_box):
@@ -118,29 +125,100 @@ def ray_order(ro3, rd3, root_box):
     return torch.argsort(bucket_keys(ro3, rd3, root_box), stable=True)
 
 
+def sorted_call(inner, ro3, rd3, active, t_max, any_hit, root_box):
+    """``inner`` on the rays in ``ray_order``: rays, ``active`` and
+    ``t_max`` gathered into the sorted lanes, (t, idx) scattered back to
+    each ray's own lane."""
+    order = ray_order(ro3, rd3, root_box)
+
+    def take(x):
+        return None if x is None else x.index_select(-1, order)
+
+    t, idx = inner(take(ro3), take(rd3), take(active), take(t_max), any_hit)
+    return (torch.empty_like(t).index_copy_(0, order, t),
+            torch.empty_like(idx).index_copy_(0, order, idx))
+
+
 def with_ray_order(inner, root_box=None):
     """Wrap a closest hit so that bounce rays (``reorder=True``) are walked
-    in ``ray_order``: rays, ``active`` and ``t_max`` are gathered into the
-    sorted lanes and (t, idx) scattered back to each ray's own lane. Each
-    ray is walked alone, so the answer does not depend on the order. Calls
-    without ``root_box``, of fewer than REORDER_MIN_LANES rays, or with
-    ``reorder`` False (camera rays and bounce 0's shadow rays) go straight
-    to ``inner``."""
+    in ``ray_order`` (``sorted_call``). Each ray is walked alone, so the
+    answer does not depend on the order. Calls without ``root_box``, of
+    fewer than REORDER_MIN_LANES rays, or with ``reorder`` False (camera
+    rays and bounce 0's shadow rays) go straight to ``inner``."""
 
     def wrapped(ro3, rd3, active=None, t_max=None, any_hit=False,
                 reorder=False):
         if (root_box is None or not reorder
                 or ro3.shape[1] < REORDER_MIN_LANES):
             return inner(ro3, rd3, active, t_max, any_hit)
-        order = ray_order(ro3, rd3, root_box)
+        return sorted_call(inner, ro3, rd3, active, t_max, any_hit, root_box)
 
-        def take(x):
-            return None if x is None else x.index_select(-1, order)
+    return wrapped
 
-        t, idx = inner(take(ro3), take(rd3), take(active), take(t_max),
-                       any_hit)
-        return (torch.empty_like(t).index_copy_(0, order, t),
-                torch.empty_like(idx).index_copy_(0, order, idx))
+
+def compaction_tier(live: int, n: int):
+    """The lanes of the smallest tier n // div (``COMPACT_DIVS``, tiers of
+    fewer than COMPACT_TIER_MIN_LANES skipped) that holds ``live`` lanes,
+    or None when none does."""
+    for div in sorted(COMPACT_DIVS, reverse=True):
+        k = n // div
+        if k >= COMPACT_TIER_MIN_LANES and live <= k:
+            return k
+    return None
+
+
+def with_tail_compaction(inner, root_box, use_reorder: bool = True):
+    """Wrap a closest hit as the JAX package's ``_with_tail_compaction``
+    wraps its pair dispatch, handing ``inner`` exactly the lanes that it
+    hands it:
+
+    * a call without ``active``, or of fewer than REORDER_MIN_LANES rays,
+      goes to ``inner`` as it is, whatever ``reorder`` says;
+    * a call whose live lanes fit a tier (``compaction_tier``) goes to
+      ``inner`` on that tier's k lanes: the live rays in ascending order,
+      then fill lanes that carry ray 0's origin, direction and ``t_max``
+      with ``active`` False (``jnp.nonzero(active, size=k,
+      fill_value=n)``); with ``use_reorder`` the k lanes, fill lanes
+      included, are sorted by ``ray_order`` first. This does not depend on
+      ``reorder``: a sparse shadow call of bounce 0 is compacted too. The
+      results are scattered back, and a dead lane gets (inf, -1);
+    * any other call is sorted whole when ``reorder`` and ``use_reorder``
+      are both set, and goes to ``inner`` as it is otherwise.
+
+    The live count picks the tier, so the wrapper reads it on the host once
+    a call: one synchronisation a call on this route (``torch.nonzero``),
+    which a CUDA graph of the bounce loop would have to lift.
+    ``use_reorder`` follows the JAX package's ``big_tree``: set for a scene
+    without walk tables, and for one with at least REORDER_MIN_NODES wide
+    nodes."""
+
+    def inner_sorted(ro3, rd3, active, t_max, any_hit):
+        if not use_reorder:
+            return inner(ro3, rd3, active, t_max, any_hit)
+        return sorted_call(inner, ro3, rd3, active, t_max, any_hit, root_box)
+
+    def wrapped(ro3, rd3, active=None, t_max=None, any_hit=False,
+                reorder=False):
+        n = ro3.shape[1]
+        if active is None or n < REORDER_MIN_LANES:
+            return inner(ro3, rd3, active, t_max, any_hit)
+        lanes = torch.nonzero(active).squeeze(1)  # ascending; a host sync
+        k = compaction_tier(lanes.numel(), n)
+        if k is None:
+            call = inner_sorted if reorder else inner
+            return call(ro3, rd3, active, t_max, any_hit)
+        live = lanes.numel()
+        slots = torch.zeros((k,), dtype=lanes.dtype, device=lanes.device)
+        slots[:live] = lanes  # the fill lanes take ray 0
+        valid = torch.arange(k, device=lanes.device) < live
+        t_k, i_k = inner_sorted(
+            ro3.index_select(1, slots), rd3.index_select(1, slots), valid,
+            None if t_max is None else t_max.index_select(0, slots),
+            any_hit)
+        t = torch.full((n,), math.inf, dtype=t_k.dtype, device=t_k.device)
+        idx = torch.full((n,), -1, dtype=i_k.dtype, device=i_k.device)
+        return (t.index_copy_(0, lanes, t_k[:live]),
+                idx.index_copy_(0, lanes, i_k[:live]))
 
     return wrapped
 
@@ -166,6 +244,17 @@ def check_intersector(intersector: str) -> None:
             f"intersector={intersector!r} is not ported: "
             f"{UNPORTED_INTERSECTORS[intersector]} of the JAX package")
     raise ValueError(f"unknown intersector {intersector!r}")
+
+
+def pairs_reorder(scene: dict) -> bool:
+    """``use_reorder`` of the pair route (the JAX package's ``big_tree``):
+    set for a scene without walk tables, else for a tree of at least
+    REORDER_MIN_NODES wide nodes."""
+    from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
+
+    if not all(key in scene for key in WALK_KEYS):
+        return True
+    return scene["walk_order"].shape[0] >= REORDER_MIN_NODES
 
 
 def make_closest_hit(scene: dict, intersector: str = "auto",
@@ -196,9 +285,12 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     tensors and its plain version on CPU tensors.
 
     ``reorder`` marks incoherent rays (the bounce loops pass ``bounce_idx >
-    0``, as the JAX package's do). Every strategy takes it; only the walk
-    reads it, on a tree of REORDER_MIN_NODES wide nodes or more: it walks
-    such a call's rays in ``ray_order`` (``with_ray_order``).
+    0``, as the JAX package's do). Every strategy takes it. The walk, on a
+    tree of REORDER_MIN_NODES wide nodes or more, walks such a call's rays
+    in ``ray_order`` (``with_ray_order``). Every route to the pair dispatch
+    ("pairs", and "auto", "walk" and "phased" without walk tables) goes
+    through ``with_tail_compaction``, as the JAX package's does: sparse
+    calls on a compacted tier, bounce rays sorted.
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
     reorder=False) over SoA (3, N) origins and directions; its ``strategy``
@@ -262,13 +354,13 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     else:
         tables = pairs.pair_tables(scene)
 
-        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                        reorder=False):
-            del reorder
+        def pairs_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
             return pairs.closest_hit_pairs(tables, ro3, rd3, active, t_max,
                                            num_tris=num_tris,
                                            any_hit=any_hit)
 
+        closest_hit = with_tail_compaction(pairs_hit, scene["root_box"],
+                                           pairs_reorder(scene))
         strategy = "pairs"
     closest_hit.strategy = strategy
     return closest_hit

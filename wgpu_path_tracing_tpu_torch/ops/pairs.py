@@ -11,10 +11,11 @@ no walk tables. Rays are SoA (3, N) origins and directions, the result is
   of at most ``PAIRS_K`` triangles (``accel/bvh.py::cut_subtree_clusters``);
   ``PAIRS_GROUP`` consecutive clusters form a super tile of
   ``PAIRS_GROUP * PAIRS_K`` rows ``[v0, e1, e2 | cluster AABB | base idx]``.
-* PHASE 1 (``ops/blocks.py::block_entry``): every ray against every super
-  AABB, reduced per block of ``BN`` rays to the nearest entry distance.
-* PAIR LIST (``pair_list``): each block's candidates in ascending entry
-  distance, the super index breaking ties (a stable sort).
+* PHASE 1 (``ops/blocks.py::block_entry``, on the card its kernel
+  ``csrc/blocks.cu``): every ray against every super AABB, reduced per
+  block of ``BN`` rays to the nearest entry distance.
+* PAIR LIST (``pair_list``, ``sorted_pairs``): each block's candidates in
+  ascending entry distance, the super index breaking ties (a stable sort).
 * DISPATCH (the kernel, or ``_dispatch_plain``): each block walks its list
   in order and carries its lanes' best (t, idx). For each of a super's
   member clusters it tests the cluster's box against the live limits
@@ -28,7 +29,10 @@ shadow rays, and the closest hit answers the occlusion question.
 
 What the JAX package has for its TPU only is not carried over: the dispatch
 windows and their seeding flags, the scalar prefetch, the chunked phase-1
-scan. One difference in a case the JAX package gets wrong: it fills the
+scan. What the JAX package puts in front of its pair dispatch, the tail
+compaction and the bucket order of bounce rays, is
+``ops/intersect.py::with_tail_compaction``, which ``make_closest_hit`` wraps
+around every route to K4. One difference in a case the JAX package gets wrong: it fills the
 last block's tail with zero directions, whose entry distance into a box
 around the origin is -inf, and then counts only finite entries while the
 sort puts -inf first, so each such block loses its farthest candidates.
@@ -121,10 +125,16 @@ def pair_tables(scene: dict) -> PairTables:
 
 
 def pair_list(super_aabb, o, d, lim):
-    """Phase 1 and the pair list: (cids (nb, Cs) int64, each block's super
-    tiles in ascending entry distance, ties to the lower index; counts (nb,)
-    int64, how many of them the block enters)."""
-    block_tn = blocks.block_entry(super_aabb, o, d, lim)
+    """Phase 1 and the pair list, as the kernel's wrapper makes them: phase
+    1 by ``blocks.entry_table`` (the kernel on CUDA tensors), then
+    ``sorted_pairs``."""
+    return sorted_pairs(blocks.entry_table(super_aabb, o, d, lim))
+
+
+def sorted_pairs(block_tn):
+    """The pair list of phase 1's (nb, Cs) table: (cids (nb, Cs) int64, each
+    block's super tiles in ascending entry distance, ties to the lower
+    index; counts (nb,) int64, how many of them the block enters)."""
     cids = torch.sort(block_tn, dim=1, stable=True).indices
     return cids, (block_tn < math.inf).sum(dim=1)
 
@@ -213,7 +223,8 @@ def closest_hit_pairs_plain(tables: PairTables, ro3, rd3, active=None,
     n = ro3.shape[1]
     lim0 = blocks.ray_limit(active, t_max, n, ro3.device)
     o, d, lim = blocks.pad_blocks(ro3, rd3, lim0, BN)
-    cids, counts = pair_list(tables.super_aabb, o, d, lim)
+    cids, counts = sorted_pairs(
+        blocks.block_entry(tables.super_aabb, o, d, lim))
     if visits is not None:
         blocks.count_work(visits, blocks=lim.shape[0], supers=cids.shape[1])
     t, idx = _dispatch_plain(tables.tris, cids, counts, o, d, lim, visits)
@@ -224,8 +235,9 @@ def closest_hit_pairs_plain(tables: PairTables, ro3, rd3, active=None,
 def closest_hit_pairs_cuda(tables: PairTables, ro3, rd3, active=None,
                            t_max=None, num_tris: int | None = None,
                            any_hit: bool = False):
-    """Phase 1 and the pair list in PyTorch, then K4 on the current stream
-    (no synchronisation): one thread block for each block of ``BN`` rays."""
+    """Phase 1's kernel and the pair list's sort, then K4 on the current
+    stream (no synchronisation): one thread block for each block of ``BN``
+    rays."""
     del any_hit
     _check(tables, ro3, rd3, active, t_max)
     if ro3.device.type != "cuda":
@@ -242,6 +254,9 @@ def closest_hit_pairs_cuda(tables: PairTables, ro3, rd3, active=None,
                              *blocks.pad_blocks(ro3, rd3, lim0, BN))
     cids, counts = cids.contiguous(), counts.contiguous()
     tris = tables.tris.contiguous()
+    if tris.data_ptr() % 16:
+        raise ValueError("K4 reads pairs_tris as float4 rows: it must be "
+                         "16-byte aligned")
     active = None if active is None else active.contiguous()
     err = cuda_lib.lib().wpt_pairs(
         tris.data_ptr(), cids.data_ptr(), counts.data_ptr(), ro3.data_ptr(),
