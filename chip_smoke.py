@@ -62,7 +62,11 @@ and runs these phases, one line of output each:
    package's choice for mid-size trees only); K4 also on the bounce-1 rays
    and a late-bounce mask of them (5% alive) as ``make_closest_hit``'s
    pair route hands them to it (``with_tail_compaction``: a compaction tier
-   and the bucket order), and K6 on the late-bounce mask as it is; ``t``
+   and the bucket order), K6 on the late-bounce mask as it is, and K5 on
+   the late-bounce mask, on a ray count that fills no block and on the
+   large box's camera rays, with each set's device time split between its
+   gate and test kernels (``torch.profiler``) and its union-box gate scheme
+   (``K5.gate_scheme``) equal to the sub-box gates; ``t``
    and ``idx`` bit-equal to the plain version on every lane of every set,
    and the whole route equal to the bare kernel's result scattered back;
    phase 1's kernel (``csrc/blocks.cu``) equal to ``block_entry`` on every
@@ -952,7 +956,7 @@ DISPATCH = {
     "pairs": (K4, K4.closest_hit_pairs, K4.closest_hit_pairs_plain,
               K4.pair_tables),
     "phased": (K5, K5.closest_hit_phased, K5.closest_hit_phased_plain,
-               lambda scene: scene["walk_tris"]),
+               lambda scene: K5.phased_tables(scene["walk_tris"])),
     "cluster": (K6, K6.closest_hit_cluster, K6.closest_hit_cluster_plain,
                 K6.cluster_tables),
 }
@@ -1430,25 +1434,37 @@ def phase_k3(dev, report, large: dict):
                         for name, vis in visits.items()}, **b)
 
 
-def dispatch_bound(kind: str, visits: dict, scene: dict, tables, n: int):
+def dispatch_bound(kind: str, visits: dict, scene: dict, tables, n: int,
+                   old: bool = False):
     """A dispatch intersector's bound on ``n`` rays from its plain version's
     ``visits``: the rays and (t, idx) once, the table rows the call reads
     once (K4: the distinct super tiles its pairs name, and the super boxes;
-    K5 and K6: the whole table), and the slab and Möller-Trumbore tests the
-    plain version counted (phase 1's sweep included)."""
+    K5: its leaf records; K6: the whole table), and the slab and
+    Möller-Trumbore tests the plain version counted (phase 1's sweep
+    included). K5's gate counts the filled sub-boxes only, or the slab tests
+    its gate scheme needs on these rays where that is fewer
+    (``K5.gate_scheme``), and its triangle tests the live lanes' only; with
+    ``old``, the coarser count: every sub-box and every lane of a block,
+    against ``walk_tris``."""
     moved = 6 * 4 * n + 8 * n
+    tests = visits["triangle_tests"]
     if kind == "pairs":
         bn = K4.BN
         moved += (visits["tiles"] * K4.TILE_ROWS * K4.PAIRS_COLS * 4
                   + nbytes(tables.super_aabb))
         slabs = visits["blocks"] * bn * visits["supers"] + visits["slab_tests"]
-    elif kind == "phased":
-        moved += nbytes(tables)
+    elif kind == "phased" and old:
+        moved += nbytes(tables.tris)
         slabs = visits["sub_boxes"] * K5.BN
+    elif kind == "phased":
+        moved += nbytes(tables.leaves)
+        slabs = min(visits["filled_sub_boxes"] * K5.BN,
+                    visits["gate_slab_tests"])
+        tests = visits["live_triangle_tests"]
     else:
         moved += nbytes(tables.aabb, tables.tris)
         slabs = visits["blocks"] * K6.BN * visits["boxes"]
-    ops = SLAB_OPS * slabs + MT_OPS * visits["triangle_tests"]
+    ops = SLAB_OPS * slabs + MT_OPS * tests
     return bound(moved, ops), ops
 
 
@@ -1482,10 +1498,15 @@ def dispatch_sets(kind: str, shared: dict):
     rays as they are; K4 also the bounce-1 rays, a mid-bounce mask of them
     (about 36% alive: the n/2 tier) and a late-bounce mask (about 5%: the
     n/8 tier) through
-    ``with_tail_compaction``, and K6 the late-bounce mask as it is (K6 gets
-    no ray order, as in the JAX package)."""
+    ``with_tail_compaction``, K6 the late-bounce mask as it is (K6 gets
+    no ray order, as in the JAX package), and K5 the late-bounce mask and
+    a ray count that fills no block (the camera rays but the last 1,037)."""
     cases = [(name, r, extra, False) for name, r, extra in shared["cases"]]
     bounce, bextra = cases[1][1], cases[1][2]
+    if kind == "phased":
+        cam = cases[0][1]
+        cases += [("late-bounce", bounce, {"active": shared["late"]}, False),
+                  ("ragged", cam[:, :cam.shape[1] - 1037], {}, False)]
     if kind == "pairs":
         mid = bextra["active"] & torch.from_numpy(
             np.random.default_rng(8).random(bounce.shape[1]) < 0.4).to(
@@ -1568,6 +1589,9 @@ def check_dispatch(kind: str, shared: dict, report: dict):
         torch.cuda.synchronize()
         visits = {}
         pt, pi = plain(tables, ko, kd, num_tris=nt, visits=visits, **kw)
+        if kind == "phased":
+            visits["gate_slab_tests"] = phased_gate_scheme(tables, ko, kd, kw,
+                                                           name)
         t_lanes, t_ulp, t_err = compare(kt, pt)
         i_lanes = int((ki != pi).sum())
         live = "all" if kw.get("active") is None else int(kw["active"].sum())
@@ -1592,12 +1616,27 @@ def check_dispatch(kind: str, shared: dict, report: dict):
                 lambda: route(o, d, reorder=True, **extra), reps=5)
         if kind != "phased":
             entry.update(check_phase1(kind, tables, ko, kd, kw, name))
-        if name != "shadow-0":
+        else:
+            entry["split_ms"] = kernel_split(
+                lambda: kernel(tables, ko, kd, num_tris=nt, **kw))
+            say(key, f"{name} rays: device ms a call by kernel "
+                "(torch.profiler): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in entry["split_ms"].items()))
+        if name not in ("shadow-0", "ragged"):
             entry["ms"] = device_ms(
                 lambda: kernel(tables, ko, kd, num_tris=nt, **kw), reps=5)
             b, ops = dispatch_bound(kind, visits, scene, tables, m)
             entry.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                          gop=ops / 1e9)
+            if kind == "phased":
+                old, old_ops = dispatch_bound(kind, visits, scene, tables, m,
+                                              old=True)
+                entry.update(old_bound_ms=old["bound_ms"],
+                             old_gop=old_ops / 1e9)
+                say(key, f"{name} rays: bound counting every sub-box and "
+                    f"every lane "
+                    f"{old['bound_ms']:.4f} ms ({old_ops / 1e9:.3f} Gop), "
+                    f"now {b['bound_ms']:.4f} ms")
             say(key, f"{name} rays: device {entry['ms']:.4f} ms"
                 + (" (the wrapper's whole call: phase 1, the sort, the "
                    "kernel)" if kind != "phased" else "")
@@ -1612,7 +1651,7 @@ def check_dispatch(kind: str, shared: dict, report: dict):
                 + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
                 f"{ops / 1e9:.3f} Gop)")
         sets[name] = entry
-        if wrapped or name == "shadow-0" or name == "late-bounce":
+        if wrapped or name in ("shadow-0", "late-bounce", "ragged"):
             continue
         active = extra.get("active")
         wt, wi = K3.closest_hit_walk(walk_tables, o, d, num_tris=nt, **extra)
@@ -1643,10 +1682,16 @@ def check_dispatch(kind: str, shared: dict, report: dict):
         max_abs_err=worst, ms=cam_set["ms"], plain_ms=plain_ms,
         bounce_ms=bounce_set["ms"],
         bounce_bound_ms=bounce_set["bound_ms"],
+        split_ms={k: v["split_ms"] for k, v in sets.items()
+                  if "split_ms" in v} or None,
         lists_ms={k: v["lists_ms"] for k, v in sets.items()
                   if "lists_ms" in v} or None,
         triangles=nt, sets=sets, bound_ms=cam_set["bound_ms"],
         bound_by=cam_set["bound_by"], library_ms=None)
+    if kind == "phased":
+        # The coarser bound (every sub-box, every lane), beside.
+        report[key].update(old_bound_ms=cam_set["old_bound_ms"],
+                           bounce_old_bound_ms=bounce_set["old_bound_ms"])
     if kind == "pairs":
         # The phase-1 kernel's entry: its time and bound on K4's camera
         # rays; every set above held it to block_entry.
@@ -1663,11 +1708,50 @@ def check_dispatch(kind: str, shared: dict, report: dict):
             for k, v in sets.items() if "phase1_ms" in v}
 
 
+def phased_gate_scheme(tables, o, d, kw: dict, what: str) -> int:
+    """K5's gate scheme (``K5.gate_scheme``: union boxes first) on the rays
+    as the kernel receives them: its gates must equal the plain version's
+    sub-box gates; returns the slab tests it needs."""
+    lim0 = BLOCKS.ray_limit(kw.get("active"), kw.get("t_max"), o.shape[1],
+                            o.device)
+    rays = BLOCKS.pad_blocks(o, d, lim0, K5.BN)
+    groups = tables.tris.view(-1, K5.GROUP_ROWS, K5.LEAF_SLOTS)
+    gates, tests = K5.gate_scheme(groups, *rays)
+    if not torch.equal(gates, K5.sub_gates(groups, *rays)):
+        raise AssertionError(f"K5's union-box gate scheme drops or adds a "
+                             f"gate on the {what} rays")
+    return tests
+
+
+def check_phased_large(large: dict, report: dict) -> None:
+    """K5 against its plain version, bit for bit, on the large box's camera
+    rays (1,084 leaf groups: the test kernel's gate windows and the gate
+    kernel's grid at that size), with its time."""
+    scene, rays = large["scene"], large["cases"][0][1]
+    tables = K5.phased_tables(scene["walk_tris"])
+    nt = scene["tri_isect"].shape[0]
+    o, d = rays[0:3], rays[3:6]
+    kt, ki = K5.closest_hit_phased(tables, o, d, num_tris=nt)
+    torch.cuda.synchronize()
+    pt, pi = K5.closest_hit_phased_plain(tables, o, d, num_tris=nt)
+    same_hits((kt, ki), (pt, pi), "K5 on the large box's camera rays")
+    ms = device_ms(lambda: K5.closest_hit_phased(tables, o, d, num_tris=nt),
+                   reps=5)
+    groups = tables.tris.shape[0] // K5.GROUP_ROWS
+    say("k5", f"large box ({nt} triangles, {groups} leaf groups, ordered "
+        f"slots: {tables.ordered}), camera rays: t and idx equal the plain "
+        f"version's on every lane; device {ms:.4f} ms")
+    report.setdefault("k5", {})["large_camera"] = {
+        "triangles": nt, "groups": groups, "ms": ms,
+        "hits": int((pi >= 0).sum())}
+
+
 def phase_dispatch(dev, report, large: dict):
-    """K4 and K6 on the large box (``large_sets``), K5 on the mid-size
-    box."""
+    """K4 and K6 on the large box (``large_sets``), K5 on the mid-size box
+    and on the large box's camera rays."""
     check_dispatch("pairs", large, report)
     check_dispatch("cluster", large, report)
+    check_phased_large(large, report)
     scene_np, _ = tessellated_box(PHASED_TESSELLATION)
     scene, rays, state = flagship_rays(scene_np, dev)
     tables = K3.walk_tables(scene)
@@ -1676,8 +1760,10 @@ def phase_dispatch(dev, report, large: dict):
         f"triangles, {tables.tris.shape[0] // K3.GROUP_ROWS} leaf groups")
     t, idx = K3.closest_hit_walk(tables, rays[0:3], rays[3:6], num_tris=nt)
     _, _, _, cases = ray_cases(scene_np, scene, rays, state, t, idx)
+    late = cases[1][2]["active"] & torch.from_numpy(
+        np.random.default_rng(7).random(rays.shape[1]) < 0.05).to(dev)
     check_dispatch("phased", {"scene": scene, "tables": tables,
-                              "cases": cases}, report)
+                              "cases": cases, "late": late}, report)
 
 
 def forced_renderer(intersector: str, scene_np, strategy: str) -> Renderer:
@@ -1989,6 +2075,31 @@ def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
     name = kernel_name.replace("(anonymous namespace)::", "")
     return name.split("(")[0].split("<")[0][:48]
+
+
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel it launches, by the
+    kernel's short name, from ``torch.profiler``'s device events over
+    ``reps`` calls (after one profiled warm-up call: the tracer's
+    start-up)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=activities):
+        fn()
+        torch.cuda.synchronize()
+    with torch_profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = short(e.name)
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / reps)
+    return by_name
 
 
 def profile_frames(r: Renderer, path: str, phase: str) -> None:

@@ -7,7 +7,9 @@ imports JAX; where JAX is not installed, run them with:
 
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
 in both texture modes, with and without its bounce-0 LDS instantiation),
-K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu), K6
+K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
+ragged counts, sparse and dead lanes, past one gate window, at other
+block sizes and with unordered slots), K6
 (csrc/cluster.cu) and the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
 sign of a zero) must equal the plain versions bit for bit: both round
 every float32 operation the same way (the kernels are built with
@@ -52,6 +54,7 @@ from wgpu_path_tracing_tpu_torch.ops import intersect as INTERSECT
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
 from wgpu_path_tracing_tpu_torch.ops import cluster as K6
 from wgpu_path_tracing_tpu_torch.ops import pairs as K4
+from wgpu_path_tracing_tpu_torch.ops import phased as K5
 from wgpu_path_tracing_tpu_torch.ops import walk as K3
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.pipeline import camera_device
@@ -507,6 +510,122 @@ def test_cluster_kernel_on_sparse_lanes(dev):
                                               num_tris=nt)
         assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
         assert (ki >= 0).any()
+
+
+def _phased_case(tables, o, d, **kw):
+    """K5 against its plain version, bit for bit; one launch."""
+    before = K5.Counter.launches
+    kt, ki = K5.closest_hit_phased(tables, o, d, **kw)
+    torch.cuda.synchronize()
+    assert K5.Counter.launches == before + 1
+    pt, pi = K5.closest_hit_phased_plain(tables, o, d, **kw)
+    assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+    return pi
+
+
+def _random_dispatch_rays(packed, n, dev):
+    """``n`` rays from anywhere in the box's bounds, 30% of them alive and
+    half of those with a random t_max."""
+    rng = np.random.default_rng(n)
+    root = packed["bvh_aabb"][0]
+    o = rng.uniform(root[0:3, None], root[3:6, None], (3, n))
+    d = rng.normal(size=(3, n))
+    active = rng.random(n) < 0.3
+    t_max = np.where(rng.random(n) < 0.5, rng.uniform(0.1, 3.0, n), np.inf)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev),
+            torch.from_numpy(active).to(dev),
+            torch.from_numpy(t_max.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 31, 2047, 2049, 5000, 16385])
+def test_phased_kernel_on_ragged_counts(dev, n):
+    """Ray counts that fill no block (the tail lanes vote for nothing and
+    the last CTA is partly past the rays), with sparse lanes and limits."""
+    packed = pack_device_scene(cornell_box(tessellation=12))
+    scene = load_jax_scene(packed, dev)
+    tables = K5.phased_tables(scene["walk_tris"])
+    o, d, active, t_max = _random_dispatch_rays(packed, n, dev)
+    nt = scene["tri_isect"].shape[0]
+    _phased_case(tables, o, d, active=active, t_max=t_max, num_tris=nt)
+    pi = _phased_case(tables, o, d, num_tris=nt)
+    assert (pi >= 0).any()
+
+
+def test_phased_kernel_on_sparse_and_dead_lanes(dev):
+    """The late-bounce mask (5% alive: live lanes packed onto a CTA's first
+    threads) and a call with no live lane (every CTA leaves at once)."""
+    scene, _, outs, late = _bounce_sets(dev, W)
+    tables = K5.phased_tables(scene["walk_tris"])
+    nt = scene["tri_isect"].shape[0]
+    o, d = outs[0][0:3].contiguous(), outs[0][3:6].contiguous()
+    pi = _phased_case(tables, o, d, active=late, num_tris=nt)
+    assert (pi >= 0).any()
+    pi = _phased_case(tables, o, d, active=torch.zeros_like(late),
+                      num_tris=nt)
+    assert (pi == -1).all()
+
+
+def test_phased_kernel_past_one_gate_window(dev):
+    """cornell_box(tessellation=16): 95 leaf groups, 1,520 sub-clusters, more
+    than one window (1,024) of the test kernel's gate list and six CTAs of
+    the gate kernel a ray block; camera, bounce-1 and shadow rays."""
+    sc = cornell_box(tessellation=16)
+    scene = load_jax_scene(pack_device_scene(sc), dev)
+    tables = K5.phased_tables(scene["walk_tris"])
+    assert scene["walk_tris"].shape[0] // K5.GROUP_ROWS > 64
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 1, use_dof=True)
+    n = ro.shape[1]
+    t, idx = K3.closest_hit_walk_plain(K3.walk_tables(scene), ro, rd)
+    outs = K2.bounce_stage_plain(
+        0, torch.cat([ro, rd]).contiguous(), state,
+        torch.ones((3, n), device=dev), torch.zeros((3, n), device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev), t, idx,
+        scene["tri_full"], scene["light_full"], do_mis=True,
+        num_lights=sc.num_lights)
+    nt = scene["tri_isect"].shape[0]
+    assert (_phased_case(tables, ro, rd, num_tris=nt) >= 0).any()
+    b = outs[0]
+    _phased_case(tables, b[0:3].contiguous(), b[3:6].contiguous(),
+                 active=outs[4], num_tris=nt)
+    sh = outs[5]
+    _phased_case(tables, sh[0:3].contiguous(), sh[3:6].contiguous(),
+                 active=outs[7], t_max=outs[6], num_tris=nt)
+
+
+@pytest.mark.parametrize("bn", [32, 96, 256])
+def test_phased_kernel_at_other_block_sizes(dev, bn):
+    """Blocks of 32, 96 and 256 rays: the test kernel's CTA shrinks to the
+    largest power of two that divides the block (32, 32, 256)."""
+    packed = pack_device_scene(cornell_box(tessellation=12))
+    scene = load_jax_scene(packed, dev)
+    tables = K5.phased_tables(scene["walk_tris"])
+    o, d, active, t_max = _random_dispatch_rays(packed, 3000, dev)
+    _phased_case(tables, o, d, active=active, t_max=t_max, bn=bn)
+
+
+def test_phased_kernel_with_unordered_slots(dev):
+    """Slots shuffled inside each sub-cluster, with a duplicate of slot 0's
+    triangle under a higher index (exact-t ties): the tables fail
+    slots_ascending and the kernel's index-comparing instantiation runs."""
+    packed = pack_device_scene(cornell_box(tessellation=12))
+    tris = torch.from_numpy(packed["walk_tris"]).clone()
+    groups = tris.view(-1, K5.GROUP_ROWS, 128)
+    rng = np.random.default_rng(3)
+    for g in range(groups.shape[0]):
+        for c in range(16):
+            k = np.arange(8 * c, 8 * c + 8)
+            if groups[g, 9, k[0]] < 0 or groups[g, 9, k[1]] < 0:
+                continue
+            groups[g, 0:9, k[1]] = groups[g, 0:9, k[0]]
+            groups[g, 9, k[1]] = groups[g, 9, k[0]] + 100000.0
+            groups[g, 0:10, k] = groups[g, 0:10, rng.permutation(k)]
+    tables = K5.phased_tables(tris.to(dev))
+    assert not tables.ordered
+    o, d, active, t_max = _random_dispatch_rays(packed, 5000, dev)
+    assert (_phased_case(tables, o, d) >= 0).any()
 
 
 @pytest.mark.parametrize("kind", list(DISPATCH))

@@ -179,8 +179,8 @@ def _port(kind, packed, ro, rd, plain=False, **kw):
     elif kind == "phased":
         fn = (phased.closest_hit_phased_plain if plain
               else phased.closest_hit_phased)
-        t, i = fn(scene["walk_tris"], _soa(ro), _soa(rd), num_tris=nt,
-                  bn=PHASED_BN, **kw)
+        t, i = fn(phased.phased_tables(scene["walk_tris"]), _soa(ro),
+                  _soa(rd), num_tris=nt, bn=PHASED_BN, **kw)
     else:
         fn = (cluster.closest_hit_cluster_plain if plain
               else cluster.closest_hit_cluster)
@@ -371,7 +371,8 @@ def test_empty_scene_misses_everything(cornell_scene, kind):
         t, i = cluster.closest_hit_cluster(
             cluster.ClusterTables(tensors[1], tensors[0]), o, d, num_tris=0)
     else:
-        t, i = phased.closest_hit_phased(tensors[0], o, d, num_tris=0)
+        t, i = phased.closest_hit_phased(phased.phased_tables(tensors[0]), o,
+                                         d, num_tris=0)
     assert torch.isinf(t).all() and (i == -1).all()
     # No rays at all.
     none = torch.zeros((3, 0))
@@ -399,7 +400,7 @@ def _call(kind, scene, ro, rd, cuda=False, **kw):
     if kind == "phased":
         fn = (phased.closest_hit_phased_cuda if cuda
               else phased.closest_hit_phased)
-        return fn(scene["walk_tris"], ro, rd, **kw)
+        return fn(phased.phased_tables(scene["walk_tris"]), ro, rd, **kw)
     fn = (cluster.closest_hit_cluster_cuda if cuda
           else cluster.closest_hit_cluster)
     return fn(cluster.cluster_tables(scene), ro, rd, **kw)
@@ -434,7 +435,8 @@ def test_cuda_wrapper_refuses_cpu_tensors(random_scene, kind):
         _call(kind, scene, torch.zeros((3, 8)), torch.ones((3, 8)), cuda=True)
     if kind == "phased":
         with pytest.raises(ValueError, match="multiple of 32"):
-            phased.closest_hit_phased(scene["walk_tris"], torch.zeros((3, 8)),
+            phased.closest_hit_phased(phased.phased_tables(scene["walk_tris"]),
+                                      torch.zeros((3, 8)),
                                       torch.ones((3, 8)), bn=100)
 
 

@@ -69,9 +69,10 @@ SIGNATURES = {
         _I, _I, _I, _P,  # n, supers, num_tris (-1: none), stream
     ],
     "wpt_phased": [
-        _P, _P, _P, _P, _P,  # walk_tris, ro, rd, limit, active (or NULL)
-        _P, _P, _P,  # gate bytes (zeroed scratch), out t, idx
-        _I, _I, _I, _I, _P,  # n, bn, groups, num_tris (-1: none), stream
+        _P, _P, _P, _P, _P,  # leaf records, ro, rd, limit, active (or NULL)
+        _P, _P, _P,  # gate bytes (scratch), out t, idx
+        _I, _I, _I, _I,  # n, bn, groups, num_tris (-1: none)
+        _I, _P,  # slots in ascending index order (kOrdered), stream
     ],
     "wpt_cluster": [
         _P, _P, _P,  # cluster rows, each block's entries ascending, clusters

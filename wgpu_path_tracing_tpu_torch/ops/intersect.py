@@ -319,12 +319,12 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
 
         strategy = "brute"
     elif intersector == "phased" and have_walk:
-        walk_tris = scene["walk_tris"]
+        tables = phased.phased_tables(scene["walk_tris"])
 
         def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
                         reorder=False):
             del reorder
-            return phased.closest_hit_phased(walk_tris, ro3, rd3, active,
+            return phased.closest_hit_phased(tables, ro3, rd3, active,
                                              t_max, num_tris=num_tris,
                                              any_hit=any_hit)
 
