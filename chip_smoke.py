@@ -97,6 +97,32 @@ and runs these phases, one line of output each:
    flagship (8 spp) and on the large box through the walk (2 spp), equal on
    every pixel; a stratified checkpoint (4 spp, save, load into a fresh
    ``Renderer``, 4 more) equal on every pixel to 8 spp in one go.
+12. scene loading (``gltf``): ``gallery_atrium(detail=3)`` (116,430
+   triangles, 12 materials, 7 texture map sets) written to a .glb by
+   ``scene_to_glb``, then ``Renderer(RenderConfig(width=512, height=512))``,
+   ``load_model(path)`` and ``render(spp=8)``: the load's parts in seconds
+   (parse, atlas, the whole ``load_model``, the SAH build, packing, upload,
+   ``Renderer.load_model``), ``stats()["intersector"]`` "walk" and
+   ``stats()["texture"]`` what the scene loaded directly reads, its arrays
+   equal to a second round trip's, the launch counts (K3 and K2 in that
+   texture mode), cold and repeated Mrays/s, a 1-spp image against the
+   plain path's on every pixel, ``stats()["passes"]`` and
+   ``stats()["frames"]``; then ``load_model_async`` of the same file while
+   ``cornell_box()`` renders 3 chunks: the atrium installed at the second
+   chunk's start with the mean restarted there (its two chunks equal to a
+   fresh render of the same frames), and a failed async load raising from
+   its future and at the next render;
+13. environment map (``env``): K2's ENV instantiation against its plain
+   version at bounces 0..2 on ``material_test_box()`` (open: many rays
+   miss), ``textured_cornell()`` and ``textured_material_box()`` each
+   sampled from the fat canvas and per slot, and the lane mix, each under
+   a numpy-made 64x128 map with intensity 1.5 and rotation 0.7 rad, and
+   with LDS rows at bounce 0 (the phase-4 bound); its time on each at
+   bounce 0, beside the same launch without the map and K2 without a map
+   on the Cornell box; then the material box at 512x512 x 64 spp through
+   ``set_environment``: launch counts (512 of the ENV instantiation), cold
+   and repeated Mrays/s, the image against the plain path's on every pixel,
+   and its renders in turns with the same box's without the map.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -108,12 +134,15 @@ repository, it fails the same way.
 ``--profile PATH`` also writes a ``torch.profiler`` table of four
 main-path frames to PATH, of four textured-flagship frames, of four
 large-scene frames, of four frames of the large scene through the pair
-dispatch and of four stratified flagship frames to PATH with ``_textured``,
-``_large``, ``_pairs`` and ``_stratified`` before its extension, and prints
-the device's busy share and the ``torch.cat`` calls a frame.
+dispatch, of four stratified flagship frames, of four frames of the loaded
+atrium and of four env-box frames to PATH with ``_textured``, ``_large``,
+``_pairs``, ``_stratified``, ``_gltf`` and ``_env`` before its extension,
+and prints the device's busy share and the ``torch.cat`` calls a frame.
 
 ``--phases NAME,...`` runs only the named phases (``--help`` names them),
-for iterating on the card; without it every phase runs.
+for iterating on the card; without it every phase runs. ``--phases
+gltf,env`` runs the scene-loading and environment-map phases alone
+(about 65 s after the build).
 """
 
 from __future__ import annotations
@@ -142,8 +171,11 @@ from wgpu_path_tracing_tpu_torch import (  # noqa: E402
     Renderer,
     RenderConfig,
     cornell_box,
+    gallery_atrium,
     load_jax_scene,
+    load_model,
     material_test_box,
+    scene_to_glb,
     textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import (  # noqa: E402
@@ -151,11 +183,17 @@ from wgpu_path_tracing_tpu_torch.models.types import (  # noqa: E402
     pack_device_scene,
 )
 from wgpu_path_tracing_tpu_torch.accel import bvh8  # noqa: E402
+from wgpu_path_tracing_tpu_torch.accel.bvh import build_bvh  # noqa: E402
+from wgpu_path_tracing_tpu_torch.models.gltf import (  # noqa: E402
+    GLTFFile,
+    build_atlas,
+)
 from wgpu_path_tracing_tpu_torch.ops import blocks as BLOCKS  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cluster as K6  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import env as ENV  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import pairs as K4  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import phased as K5  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import shade as SHADE  # noqa: E402
@@ -203,6 +241,18 @@ HASH_SPP = 8
 FPT_SPP = 8  # the stratified flagship at frames_per_trace 2 against 1
 FPT_LARGE_SPP = 2  # the large box through the walk, the same
 CKPT_SPP = 4  # rendered before the checkpoint and after the resume
+# Scene loading: the atrium at full detail (about 116k triangles) written to
+# a .glb and read back; its render, the plain path's frames and the async
+# load's.
+GLTF_DETAIL = 3
+GLTF_SPP = 8
+GLTF_PLAIN_SPP = 1
+ASYNC_CHUNK = 16  # frames_per_chunk of the async load's render
+# The environment map: a numpy-made 64x128 equirect map, its intensity and
+# a rotation that is not 0.
+ENV_SHAPE = (64, 128)
+ENV_INTENSITY = 1.5
+ENV_ROTATION = 0.7
 # Phase-4 bound for float outputs that are not bit-equal.
 MAX_ULP = 2
 MAX_ULP_LANE_SHARE = 1e-4
@@ -218,6 +268,9 @@ PEAK_BYTES_PER_S = 3.35e12
 MT_OPS = 55
 SLAB_OPS = 25
 K2_OPS = {"none": 900, "per_slot": 1100, "fat": 1100}
+# A missed lane's environment term (normalize, atan2, acos, the texel's
+# index, intensity and throughput products).
+ENV_OPS = 80
 
 
 @functools.lru_cache(maxsize=None)
@@ -489,13 +542,33 @@ def atlas_bytes(args, atlas, slots) -> int:
     return torch.cat(texels).unique().numel() * 16
 
 
-def k2_bound(args, outs, mode: str, atlas=None, slots=None) -> dict:
+def env_misses(args, env) -> tuple:
+    """(missed lanes, the distinct texels of the environment map they
+    read) at the bounce of ``args``: a missed lane reads one texel."""
+    rays, alive, idx = args[1], args[5], args[7]
+    missed = alive & (idx < 0)
+    env_map, params = env
+    iy, ix = ENV.env_texel(vec.from_rows(rays, 3), env_map.shape[0],
+                           env_map.shape[1], params[1])
+    texels = (iy * env_map.shape[1] + ix)[missed].unique().numel()
+    return int(missed.sum()), texels
+
+
+def k2_bound(args, outs, mode: str, atlas=None, slots=None,
+             env=None) -> dict:
     """K2's bound: the ray state and the tables once, the atlas texels
-    that ``atlas_bytes`` counts, every output once; ``K2_OPS`` a ray."""
+    that ``atlas_bytes`` counts, the environment map's texels that the
+    missed lanes read (12 B each, and the two params), every output once;
+    ``K2_OPS`` a ray and ``ENV_OPS`` a missed lane."""
     moved = nbytes(*args[1:], *outs)
     if atlas is not None:
         moved += atlas_bytes(args, atlas, slots)
-    return bound(moved, K2_OPS[mode] * args[1].shape[1])
+    ops = K2_OPS[mode] * args[1].shape[1]
+    if env is not None:
+        missed, texels = env_misses(args, env)
+        moved += texels * 12 + nbytes(env[1])
+        ops += ENV_OPS * missed
+    return bound(moved, ops)
 
 
 def scene_of(scene_np, dev, drop_fat: bool = False) -> dict:
@@ -756,12 +829,13 @@ def check_k2(kout, pout, n: int, where: str, report_key: dict) -> str:
 
 
 def k2_bounces(scene_np, label: str, dev, report_key: dict, start=None,
-               drop_fat: bool = False):
+               drop_fat: bool = False, env: bool = False):
     """K2 against its plain version at bounces 0..2 of the flagship camera
     rays on ``scene_np``, or of ``start`` (``lane_mix_rays``' rays, states
     and alive lanes), the plain bounce carrying the rays on. ``drop_fat``
-    samples a textured scene per slot. Returns the bounce-0 arguments and
-    kernel outputs, the keywords, and the scene."""
+    samples a textured scene per slot; ``env`` lights the misses with
+    ``env_map()`` (K2's ``ENV`` instantiation). Returns the bounce-0
+    arguments and kernel outputs, the keywords, and the scene."""
     if start is None:
         scene, rays, state = flagship_rays(scene_np, dev, drop_fat)
         alive = torch.ones((rays.shape[1],), dtype=torch.bool, device=dev)
@@ -775,6 +849,8 @@ def k2_bounces(scene_np, label: str, dev, report_key: dict, start=None,
     res = torch.zeros((3, n), device=dev)
     kw = dict(do_mis=True, num_lights=scene_np.num_lights, atlas=atlas,
               slots_used=slots)
+    if env:
+        kw["env"] = with_env(scene, dev)
     timed = None
     for b in range(3):
         t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
@@ -783,8 +859,11 @@ def k2_bounces(scene_np, label: str, dev, report_key: dict, start=None,
         kout = K2.bounce_stage_cuda(*args, **kw)
         pout = K2.bounce_stage_plain(*args, **kw)
         summary = check_k2(kout, pout, n, f"{label} bounce {b}", report_key)
-        say("k2", f"{label} bounce {b}: {n} lanes, {int(alive.sum())} alive; "
-            + summary)
+        if env:
+            summary = (f"{env_misses(args, kw['env'])[0]} missed (the map "
+                       "lit); " + summary)
+        say("env" if env else "k2", f"{label} bounce {b}: {n} lanes, "
+            f"{int(alive.sum())} alive; " + summary)
         if timed is None:
             timed = args, kout
         (rays, state, thr, res, alive, srays, stmax, smask, sdirect,
@@ -1000,10 +1079,14 @@ def plain_closest_hit(scene: dict, strategy: str):
 def plain_render(r: Renderer, spp: int) -> np.ndarray:
     """The frames ``r.render(spp)`` draws after a reset, through the plain
     versions on ``r``'s device: ``ops/trace.py``'s bounce loop and the plain
-    version of the intersector ``r`` picked, so no kernel launches. Returns
-    (H, W, 3) like ``render``."""
+    version of the intersector ``r`` picked, so no kernel launches, with
+    ``r``'s environment map where it has one. Returns (H, W, 3) like
+    ``render``."""
     cfg, dev = r.config, r.device
     scene = load_jax_scene(pack_device_scene(r.scene), dev)
+    for key in ("env", "env_params"):  # the environment map, where set
+        if key in r._scene_dev:
+            scene[key] = r._scene_dev[key]
     closest_hit = plain_closest_hit(scene, r.stats()["intersector"])
     accum = torch.zeros((cfg.width * cfg.height, 3), device=dev)
     render_chunk(TRACE.trace, closest_hit, scene,
@@ -1029,11 +1112,13 @@ def reset_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches per kernel: K1, K2 by texture mode ("k2" untextured), those
-    of them that ran K2's LDS instantiation, K3, K4, K5 (a gate and a test
-    kernel count as one), K6 and the phase-1 kernel of K4 and K6."""
+    of them that ran K2's LDS instantiation and its ENV one, K3, K4, K5 (a
+    gate and a test kernel count as one), K6 and the phase-1 kernel of K4
+    and K6."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
             "k2_fat": K2.Counter.by_mode["fat"], "k2_lds": K2.Counter.lds,
+            "k2_env": K2.Counter.env,
             "k3": K3.Counter.launches,
             "k4": K4.Counter.launches, "k5": K5.Counter.launches,
             "k6": K6.Counter.launches,
@@ -1972,10 +2057,11 @@ def phase_k2_lds(dev, report):
     key.update(ms=ms, plain_ms=plain_ms, no_lds_ms=no_lds_ms, **b)
 
 
-def same_image(a: np.ndarray, b: np.ndarray, what: str) -> int:
+def same_image(a: np.ndarray, b: np.ndarray, what: str,
+               phase: str = "rng") -> int:
     """Raises unless ``a`` and ``b`` are equal on every pixel."""
     pixels = pixels_differing(a, b)
-    say("rng", f"{what}: differs on {pixels} of {a.shape[0] * a.shape[1]} "
+    say(phase, f"{what}: differs on {pixels} of {a.shape[0] * a.shape[1]} "
         "pixels")
     if pixels:
         raise AssertionError(f"{what}: the images differ")
@@ -2071,6 +2157,276 @@ def phase_rng_paths(dev, smi, report, profile: str | None):
         f"at {CKPT_SPP} spp against {2 * CKPT_SPP} spp in one go")}
 
 
+# --- scene loading and the environment map ---------------------------------
+
+
+def env_map() -> np.ndarray:
+    """A numpy-made (64, 128, 3) equirect map: a sky gradient over a dark
+    ground, with seeded noise so that neighbouring texels differ."""
+    h, w = ENV_SHAPE
+    rng = np.random.default_rng(11)
+    v = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h
+    sky = np.stack([0.3 + 0.5 * v, 0.5 + 0.3 * v, 1.2 - 0.6 * v], -1)
+    ground = np.array([0.12, 0.08, 0.05], np.float32)
+    env = np.where(v[..., None] < 0.5, sky, ground) * np.ones((h, w, 1))
+    env = env + 0.2 * rng.random((h, w, 3))
+    return np.ascontiguousarray(env, np.float32)
+
+
+def with_env(scene: dict, dev):
+    """Install ``env_map()`` in a scene dict; returns K2's ``env``
+    operand (map, params)."""
+    scene.update(ENV.env_tables(env_map(), ENV_INTENSITY, ENV_ROTATION, dev))
+    return ENV.scene_env(scene)
+
+
+def timed(fn):
+    """(fn(), its wall seconds to a device sync)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_arrays(a, b, what: str) -> None:
+    """Raises unless two ``SceneArrays`` hold equal arrays."""
+    diff = [f.name for f in dataclasses.fields(a)
+            if not np.array_equal(np.asarray(getattr(a, f.name)),
+                                  np.asarray(getattr(b, f.name)))]
+    if diff:
+        raise AssertionError(f"{what}: arrays differ: {diff}")
+
+
+def phase_gltf(dev, smi, report, profile: str | None):
+    """The atrium (``gallery_atrium(detail=3)``, about 116k triangles, 12
+    materials, 7 texture map sets) written to a .glb by ``scene_to_glb`` and
+    rendered through ``Renderer.load_model``: the load's parts, the walk
+    (K3) and K2 in the direct scene's texture mode, the arrays against a
+    second round trip, a 1-spp image against the plain path's, then
+    ``load_model_async`` staged into a render of ``cornell_box()``."""
+    atrium, build = timed(lambda: gallery_atrium(detail=GLTF_DETAIL))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "atrium.glb")
+        data, export = timed(lambda: scene_to_glb(atrium))
+        with open(path, "wb") as f:
+            f.write(data)
+        say("gltf", f"gallery_atrium(detail={GLTF_DETAIL}): "
+            f"{atrium.num_triangles} triangles, {atrium.num_materials} "
+            f"materials, {atrium.num_lights} lights, built in {build:.3f} s; "
+            f"scene_to_glb {len(data)} bytes in {export:.3f} s")
+        # The load's parts, each alone: parse, atlas, the whole load_model
+        # (parse, atlas, flatten, SAH build), the SAH build alone, pack and
+        # upload.
+        gf, parse = timed(lambda: GLTFFile.load(path))
+        (atlas, _), atlas_s = timed(lambda: build_atlas(gf))
+        loaded, model_s = timed(lambda: load_model(path))
+        _, sah = timed(lambda: build_bvh(
+            loaded.tri_v0, loaded.tri_v1, loaded.tri_v2))
+        packed, pack = timed(lambda: pack_device_scene(loaded))
+        _, upload = timed(lambda: load_jax_scene(packed, dev))
+        r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+        _, load = timed(lambda: r.load_model(path))
+        loads = {"parse": parse, "atlas": atlas_s, "load_model": model_s,
+                 "sah_build": sah, "pack": pack, "upload": upload,
+                 "renderer_load_model": load}
+        say("gltf", "load seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in loads.items())
+            + f" (atlas {tuple(atlas.shape)})")
+        direct = Renderer(RenderConfig(width=SIZE, height=SIZE),
+                          device="cuda")
+        direct.load_scene(atrium)
+        stats, want = r.stats(), direct.stats()["texture"]
+        del direct
+        say("gltf", f"intersector {stats['intersector']!r}, texture "
+            f"{stats['texture']!r} (the direct scene's: {want!r})")
+        if stats["intersector"] != "walk" or stats["texture"] != want:
+            raise AssertionError("the loaded atrium must take the walk (K3) "
+                                 "and the direct scene's texture mode")
+        # A second round trip of the atrium, written and read anew.
+        again = os.path.join(tmp, "again.glb")
+        with open(again, "wb") as f:
+            f.write(scene_to_glb(atrium))
+        same_arrays(r.scene, load_model(again), "a second round trip")
+        say("gltf", "the loaded arrays equal a second round trip's")
+
+        mode = {"none": "k2", "per_slot": "k2_per_slot", "fat": "k2_fat"}[
+            want]
+        hdr, secs = counted_render(
+            r, GLTF_SPP, report, "gltf",
+            expect(k3=2 * MAX_BOUNCES * GLTF_SPP,
+                   **{mode: MAX_BOUNCES * GLTF_SPP}))
+        rays = r.stats()["rays_total"]
+        say("gltf", f"cold render: wall {secs:.3f} s, {rays} rays, "
+            f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
+        med, quartiles, walls = repeat_renders(r, GLTF_SPP, rays, "gltf", smi)
+        r.reset()
+        one = r.render(spp=GLTF_PLAIN_SPP)
+        plain_secs = checked_plain(r, GLTF_PLAIN_SPP, one, "gltf")
+        say("gltf", f"mean display value {float(r.image().mean()):.4f}")
+        if profile:
+            root, ext = os.path.splitext(profile)
+            profile_frames(r, f"{root}_gltf{ext}", "gltf")
+        stats = r.stats()
+        say("gltf", f"passes {json.dumps(stats['passes'])}; frames "
+            f"{json.dumps(stats['frames'])}")
+        report["gltf"] = {
+            "triangles": atrium.num_triangles, "glb_bytes": len(data),
+            "texture": want, "load_seconds": loads, "seconds": secs,
+            "mrays_per_sec": rays / secs / 1e6,
+            "repeat_median_seconds": med,
+            "repeat_quartile_seconds": quartiles, "repeat_seconds": walls,
+            "plain_seconds": plain_secs, "passes": stats["passes"],
+            "frames": stats["frames"], "mean_hdr": float(hdr.mean())}
+
+        # load_model_async while the Cornell box renders: the first chunk's
+        # callback waits for the load, so the staged scene is installed at
+        # the next chunk boundary, and the mean restarts there.
+        a = Renderer(RenderConfig(width=SIZE, height=SIZE,
+                                  frames_per_chunk=ASYNC_CHUNK),
+                     device="cuda")
+        a.load_scene(cornell_box())
+        future = a.load_model_async(path)
+        seen = []
+
+        def on_chunk(frame):
+            seen.append((frame, a.scene.num_triangles))
+            if len(seen) == 1:
+                future.result()
+
+        hdr_async = a.render(spp=3 * ASYNC_CHUNK, on_chunk=on_chunk)
+        say("gltf", f"load_model_async during a render of 3 chunks: (frame "
+            f"index, triangles) after each chunk {seen}")
+        if (seen[0][1] != 36 or seen[1] != (ASYNC_CHUNK, atrium.num_triangles)
+                or a.frame_index != 2 * ASYNC_CHUNK):
+            raise AssertionError("the staged scene was not installed at the "
+                                 "chunk boundary with the mean restarted")
+        r.reset()
+        same_image(hdr_async, r.render(spp=2 * ASYNC_CHUNK),
+                   "the async-installed atrium's 2 chunks against a fresh "
+                   "render of the same frames", "gltf")
+        bad = a.load_model_async(os.path.join(tmp, "missing.glb"))
+        if not isinstance(bad.exception(), FileNotFoundError):
+            raise AssertionError("a failed async load must raise from its "
+                                 "future")
+        try:
+            a.render(spp=1)
+        except RuntimeError as exc:
+            say("gltf", f"a failed async load raises from its future and at "
+                f"the next render: {exc}")
+        else:
+            raise AssertionError("a failed async load must raise at the next "
+                                 "render")
+        report["gltf"]["async_chunks"] = seen
+
+
+def phase_env(dev, smi, report, profile: str | None):
+    """K2's ENV instantiation against its plain version at bounces 0..2 on
+    the open material box, the textured box in both texture modes, the
+    textured material box in both and the lane mix, and with LDS at bounce
+    0; K2 without a map on the Cornell box; then the material box at 64 spp
+    through ``set_environment``, its image against the plain path's."""
+    key = report.setdefault("k2_env", {})
+    lane_mix = lambda: lane_mix_box(material_test_box)  # noqa: E731
+    cases = (("material_test_box", material_test_box, None, False),
+             ("textured_cornell", textured_cornell, None, False),
+             ("textured_cornell", textured_cornell, None, True),
+             ("textured_material_box", textured_material_box, None, False),
+             ("textured_material_box", textured_material_box, None, True),
+             ("lane_mix", lane_mix, lane_mix_rays(SIZE * SIZE, 2), False))
+    for label, scene_fn, start, drop_fat in cases:
+        before = K2.Counter.env
+        args, outs, kw, scene = k2_bounces(scene_fn(), label, dev, key, start,
+                                           drop_fat=drop_fat, env=True)
+        torch.cuda.synchronize()
+        if K2.Counter.env != before + 3:
+            raise AssertionError("K2 with a map did not launch its ENV "
+                                 "instantiation")
+        mode = K2.texture_mode(kw["atlas"])
+        b = k2_bound(args, outs, mode, kw["atlas"], kw["slots_used"],
+                     kw["env"])
+        ms = device_ms(lambda: K2.bounce_stage_cuda(*args, **kw))
+        key.setdefault("ms_by_scene", {})[f"{label} ({mode})"] = ms
+        key.setdefault("bound_ms_by_scene", {})[f"{label} ({mode})"] = (
+            b["bound_ms"])
+        if label == "material_test_box":
+            (ms, plain_ms), (eager, plain_eager) = time_pair(
+                lambda: K2.bounce_stage_cuda(*args, **kw),
+                lambda: K2.bounce_stage_plain(*args, **kw))
+            without = {k: v for k, v in kw.items() if k != "env"}
+            no_env_ms = device_ms(
+                lambda: K2.bounce_stage_cuda(*args, **without))
+            missed, texels = env_misses(args, kw["env"])
+            say("env", f"time at material_test_box bounce 0, "
+                f"{args[1].shape[1]} rays ({missed} missed, {texels} "
+                f"texels read): device {ms:.4f} ms (without the map "
+                f"{no_env_ms:.4f} ms; plain {plain_ms:.4f} ms); launched "
+                f"from Python {eager:.4f} ms (plain {plain_eager:.4f} ms); "
+                f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            key.update(ms=ms, plain_ms=plain_ms, no_env_ms=no_env_ms, **b)
+        # Bounce 0 with LDS rows (the stratified camera's, random rows for
+        # the lane mix): K2 with both flags.
+        n = args[1].shape[1]
+        lds = (bounce0_lds(*tile_pixels(SIZE, SIZE, dev), 0) if start is None
+               else torch.from_numpy(np.random.default_rng(5).random(
+                   (3, n), dtype=np.float32)).to(dev))
+        before = K2.Counter.lds
+        kout = K2.bounce_stage_cuda(*args, **kw, lds=lds)
+        torch.cuda.synchronize()
+        if K2.Counter.lds != before + 1:
+            raise AssertionError("bounce 0 with lds did not launch the LDS "
+                                 "instantiation")
+        pout = K2.bounce_stage_plain(*args, **kw, lds=lds)
+        say("env", f"{label} ({mode}) bounce 0 with LDS: "
+            + check_k2(kout, pout, n, f"{label} with LDS and the map", key))
+    # K2 without the map on the Cornell box at bounce 0: the instruction
+    # stream scenes without a map run.
+    args, outs, kw, _ = k2_bounces(cornell_box(), "cornell_box", dev, {})
+    key["cornell_no_env_ms"] = device_ms(
+        lambda: K2.bounce_stage_cuda(*args, **kw))
+    say("env", f"K2 without a map, cornell_box bounce 0: device "
+        f"{key['cornell_no_env_ms']:.4f} ms")
+
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    r.load_scene(material_test_box())
+    r.set_environment(env_map(), intensity=ENV_INTENSITY,
+                      rotation=ENV_ROTATION)
+    hdr, secs = counted_render(
+        r, SPP, report, "env",
+        expect(k1=2 * MAX_BOUNCES * SPP, k2=MAX_BOUNCES * SPP,
+               k2_env=MAX_BOUNCES * SPP))
+    key["launches"] = report["k2_env"]["launches_by_path"]["env"]
+    rays = r.stats()["rays_total"]
+    say("env", f"cold render: wall {secs:.3f} s, {rays} rays, "
+        f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    plain_secs = checked_plain(r, SPP, hdr, "env")
+    med, quartiles, walls = repeat_renders(r, SPP, rays, "env", smi)
+    # The same box without the map, in turns with the map's renders, so
+    # that the host's speed moves both alike (the map changes no path).
+    bare = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    bare.load_scene(material_test_box())
+    bare.render(spp=SPP)
+    turns = {"no_map": [], "map": []}
+    for _ in range(REPEATS):
+        for key, renderer in (("no_map", bare), ("map", r)):
+            renderer.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renderer.render(spp=SPP, fetch=False)
+            turns[key].append(time.perf_counter() - t0)
+    medians = {k: float(np.median(v)) for k, v in turns.items()}
+    say("env", f"in turns, {REPEATS} renders each: wall median "
+        + ", ".join(f"{k} {v:.4f} s ({rays / v / 1e6:.3f} Mrays/s)"
+                    for k, v in medians.items()) + f" on {smi}")
+    report["env"] = {"seconds": secs, "mrays_per_sec": rays / secs / 1e6,
+                     "repeat_median_seconds": med,
+                     "repeat_quartile_seconds": quartiles,
+                     "repeat_seconds": walls, "plain_seconds": plain_secs,
+                     "turns_seconds": turns, "mean_hdr": float(hdr.mean())}
+    if profile:
+        root, ext = os.path.splitext(profile)
+        profile_frames(r, f"{root}_env{ext}", "env")
+
+
 def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
     name = kernel_name.replace("(anonymous namespace)::", "")
@@ -2143,7 +2499,7 @@ def profile_frames(r: Renderer, path: str, phase: str) -> None:
 # The phases in their order; "k3" and "dispatch" share the large box's
 # scene and rays (``large_sets``).
 PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
-          "dispatch", "dispatch_paths", "k2_lds", "rng_paths")
+          "dispatch", "dispatch_paths", "k2_lds", "rng_paths", "gltf", "env")
 # The keys every kernel's entry in the kernels line carries.
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -2174,6 +2530,11 @@ def kernels_line(report: dict, complete: bool) -> list:
         # K2's bounce-0 LDS instantiation (the TPU kernel's has_lds operand).
         {"name": "bounce_lds", "route": "cuda", "source": bounce,
          "replaces": f"{ref}/pallas_bounce.py:440", **report.get("k2_lds", {})},
+        # K2's ENV instantiation: the miss term that the JAX package runs in
+        # XLA only (ops/trace.py:104-108), sampled by ops/env.py:26.
+        {"name": "bounce_env", "route": "cuda", "source": bounce,
+         "replaces": f"{ref}/trace.py:104", "also_replaces": f"{ref}/env.py:26",
+         **report.get("k2_env", {})},
         {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
          "replaces": f"{ref}/walk.py:177", **report.get("k3", {})},
         {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
@@ -2233,9 +2594,10 @@ def main() -> int:
     parser.add_argument("--profile", metavar="PATH",
                         help="also write torch.profiler tables of four "
                         "main-path, textured-flagship, large-scene, "
-                        "pair-dispatch and stratified frames to PATH and PATH "
-                        "with _textured, _large, _pairs and _stratified "
-                        "before its extension")
+                        "pair-dispatch, stratified, loaded-atrium and env-box "
+                        "frames to PATH and PATH with _textured, _large, "
+                        "_pairs, _stratified, _gltf and _env before its "
+                        "extension")
     parser.add_argument("--phases", metavar="NAME,...",
                         help="run only these phases, of: " + ", ".join(PHASES))
     args = parser.parse_args()
@@ -2282,6 +2644,8 @@ def main() -> int:
                                                        profile),
         "k2_lds": lambda: phase_k2_lds(dev, report),
         "rng_paths": lambda: phase_rng_paths(dev, smi, report, profile),
+        "gltf": lambda: phase_gltf(dev, smi, report, profile),
+        "env": lambda: phase_env(dev, smi, report, profile),
     }
     t_start = time.perf_counter()
     for phase in PHASES:
@@ -2296,7 +2660,8 @@ def main() -> int:
     kernels = kernels_line(report, complete=wanted == PHASES)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
-             "stratified", "hash", "frames_per_trace", "checkpoint")
+             "stratified", "hash", "frames_per_trace", "checkpoint", "gltf",
+             "env")
     print(json.dumps({"kernels": kernels,
                       **{path: report[path] for path in paths
                          if path in report},

@@ -6,7 +6,8 @@ imports JAX; where JAX is not installed, run them with:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
-in both texture modes, with and without its bounce-0 LDS instantiation),
+in both texture modes, with and without its bounce-0 LDS instantiation,
+with and without its environment map's ENV instantiation),
 K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
 ragged counts, sparse and dead lanes, past one gate window, at other
 block sizes and with unordered slots), K6
@@ -26,6 +27,8 @@ from chip_smoke import (
     ADVERSARIAL,
     DISPATCH,
     adversarial_case,
+    env_map,
+    with_env,
     lane_mix_box,
     lane_mix_rays,
     plain_closest_hit,
@@ -40,9 +43,12 @@ from wgpu_path_tracing_tpu_torch import (
     Renderer,
     RenderConfig,
     cornell_box,
+    gallery_atrium,
     load_jax_scene,
+    load_model,
     material_test_box,
     random_triangles,
+    scene_to_glb,
     textured_cornell,
 )
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
@@ -795,3 +801,76 @@ def test_bounce_kernel_on_the_lane_mix(dev, mode, lds):
         for k, p in zip(kout, pout):
             assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
         rays, state, thr, res, alive = pout[:5]
+
+
+@pytest.mark.parametrize("lds", [False, True])
+@pytest.mark.parametrize("mode", ["none", "per_slot", "fat"])
+def test_bounce_env_kernel_equals_plain(dev, mode, lds):
+    """K2's ENV instantiation (the environment map's miss term) in each
+    texture mode, with and without LDS at bounce 0, on the open material
+    box's camera rays (many misses), bounces 0..3, all ten outputs."""
+    sc = material_test_box() if mode == "none" else textured_material_box()
+    scene = scene_of(sc, dev, drop_fat=mode == "per_slot")
+    atlas, slots = TRACE.scene_atlas(scene)
+    assert K2.texture_mode(atlas) == mode
+    env = with_env(scene, dev)
+    cam = camera_device(Camera(width=W, height=H).as_pytree(), W, H)
+    x, y = CAM.pixel_grid(W, H, device=dev)
+    ro, rd, state = CAM.generate_rays(cam, x, y, 3, use_dof=True)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    thr = torch.ones((3, n), device=dev)
+    res = torch.zeros((3, n), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    kw = dict(do_mis=True, num_lights=sc.num_lights, atlas=atlas,
+              slots_used=slots, env=env,
+              lds=CAM.bounce0_lds(x, y, 3) if lds else None)
+    missed = 0
+    for b in range(4):
+        t, idx = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+        missed += int((alive & (idx < 0)).sum())
+        args = (b, rays, state, thr, res, alive, t, idx, scene["tri_full"],
+                scene["light_full"])
+        before = K2.Counter.env
+        kout = K2.bounce_stage_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert K2.Counter.env == before + 1
+        pout = K2.bounce_stage_plain(*args, **kw)
+        for k, p in zip(kout, pout):
+            assert torch.equal(_bits(k), _bits(p)), f"bounce {b}"
+        rays, state, thr, res, alive = pout[:5]
+    assert missed > 0
+
+
+def test_renderer_env_path_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(material_test_box())
+    r.set_environment(env_map(), intensity=1.5, rotation=0.7)
+    before = K2.Counter.env
+    kernel = r.render(spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    plain = plain_render(r, spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
+    r.set_environment(None)  # the 1x1 map: no ENV launch
+    r.render(spp=1)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+
+
+def test_renderer_gltf_path_equals_plain_path(dev, tmp_path):
+    path = tmp_path / "atrium.glb"
+    path.write_bytes(scene_to_glb(gallery_atrium(detail=1)))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    assert r.stats()["intersector"] == "walk"
+    assert r.stats()["texture"] == "fat"
+    before = (K3.Counter.launches, K2.Counter.by_mode["fat"])
+    kernel = r.render(spp=1)
+    assert (K3.Counter.launches, K2.Counter.by_mode["fat"]) == (
+        before[0] + 2 * r.config.max_bounces,
+        before[1] + r.config.max_bounces)
+    plain = plain_render(r, spp=1)
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain.view(np.uint32))
+    assert load_model(str(path)).num_triangles == r.scene.num_triangles

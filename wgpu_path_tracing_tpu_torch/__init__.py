@@ -9,13 +9,17 @@ up to 4,096 triangles; kernel K3, ``csrc/walk.cu``, the wide-BVH walk
 above; kernels K4-K6, the dispatch intersectors, for trees too deep for the
 walk or when forced), the bounce shading stage (kernel K2,
 ``csrc/bounce.cu``, untextured or sampling the texture atlas per slot or
-from the fat canvas, with rng="stratified"'s bounce-0 override),
-accumulation, the AGX display transform, PNG, HDR and EXR output and
-checkpoints. The ``Renderer`` runs on the card unless it is given
-``device="cpu"``, where each kernel's plain PyTorch version runs instead.
+from the fat canvas, with rng="stratified"'s bounce-0 override, and
+with an environment map that lights the misses), accumulation, the AGX
+display transform, PNG, HDR and EXR output, checkpoints, glTF files in and
+out (``load_model``, ``scene_to_glb``; PNG textures, no JPEG decoder), the
+pass profiler and the frame meter. The ``Renderer`` runs on the card unless
+it is given ``device="cpu"``, where each kernel's plain PyTorch version
+runs instead.
 
     from wgpu_path_tracing_tpu_torch import (
-        Renderer, RenderConfig, cornell_box, textured_cornell)
+        Renderer, RenderConfig, cornell_box, gallery_atrium, scene_to_glb,
+        textured_cornell)
     r = Renderer(RenderConfig(width=512, height=512))   # on the card
     r.load_scene(cornell_box())                  # 36 triangles: K1
     img = r.render(spp=64)
@@ -23,11 +27,19 @@ checkpoints. The ``Renderer`` runs on the card unless it is given
     img = r.render(spp=64)
     r.load_scene(cornell_box(tessellation=55))   # 102,852 triangles: K3
     img = r.render(spp=8)
+    open("atrium.glb", "wb").write(scene_to_glb(gallery_atrium()))
+    r.load_model("atrium.glb")                   # about 116k triangles: K3
+    img = r.render(spp=8)
+    r.set_environment(sky_rgb, intensity=1.0)    # (H, W, 3) equirect map
+    print(r.stats()["passes"], r.stats()["frames"])
 
 The package imports neither JAX nor Pillow, so that it runs where only
 PyTorch, numpy and the CUDA toolkit are installed.
 """
 
+from wgpu_path_tracing_tpu_torch.models.export import scene_to_glb
+from wgpu_path_tracing_tpu_torch.models.gallery import gallery_atrium
+from wgpu_path_tracing_tpu_torch.models.gltf import load_model
 from wgpu_path_tracing_tpu_torch.models.procedural import (
     cornell_box,
     material_test_box,
@@ -35,6 +47,7 @@ from wgpu_path_tracing_tpu_torch.models.procedural import (
     single_triangle,
     textured_cornell,
 )
+from wgpu_path_tracing_tpu_torch.models.replica import cornell_replica
 from wgpu_path_tracing_tpu_torch.models.types import load_jax_scene
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
@@ -45,5 +58,6 @@ __version__ = "0.1.0"
 __all__ = [
     "Renderer", "RenderConfig", "Camera", "cornell_box", "material_test_box",
     "random_triangles", "single_triangle", "textured_cornell",
+    "gallery_atrium", "cornell_replica", "load_model", "scene_to_glb",
     "load_jax_scene", "__version__",
 ]

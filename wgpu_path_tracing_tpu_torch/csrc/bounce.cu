@@ -40,6 +40,23 @@
 // ray), and every other launch, and every launch of rng="reference" and
 // "hash", runs the instruction stream without it.
 //
+// The environment map (template flag ENV). The JAX package lights a miss
+// with an equirect map only on its XLA bounce (ops/trace.py:104-108 there,
+// sampled by its ops/env.py::make_env_sampler): its Pallas kernel has no map
+// and the pipeline turns the kernel off when a scene has one
+// (render/pipeline.py:46-59). That term sits in no pallas_call; here it runs
+// inside K2, after the emissive term, in the plain version's order
+// (ops/env.py): d = normalize(rd), u = (atan2f(d.z, d.x) + rotation) /
+// float32(2 pi), u -= floorf(u), v = acosf(clamp(d.y, -1, 1)) *
+// float32(1 / pi), the texel (trunc(v h), trunc(u w)) clipped to the map,
+// times the intensity, times the throughput, added to the result on every
+// lane (zero off the missed lanes: -0 + 0 is +0). Only a missed lane
+// computes and reads it: one texel (12 B) of the (H, W, 3) map a missed
+// ray. atan2f, acosf and floorf are the CUDA math library's, as PyTorch's
+// CUDA torch.atan2, torch.acos and torch.floor call them; the
+// ENV = false instantiations are the instruction stream of the kernel
+// without a map.
+//
 // What it computes is ops/trace.py::bounce_core of this package: hit
 // attributes (ops/shade.py), emissive termination x 1/(1+t^2), NEE with the
 // power heuristic (ops/lights.py, ops/bsdf.py), the BSDF sample, the
@@ -116,6 +133,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -583,9 +602,42 @@ __device__ LightSample sample_light(const float* __restrict__ lights, V3 hit_pos
   return ls;
 }
 
+// ---- the environment map (ops/env.py) --------------------------------------
+
+// float32(2 pi) and float32(1 / pi), as ops/env.py rounds them.
+constexpr double kTwoPi32 = 6.283185307179586;
+constexpr double kInvPi32 = 0.3183098861837907;
+
+struct Env {
+  const float* map;  // (h, w, 3) linear radiance
+  int h, w;
+  const float* params;  // [intensity, rotation in radians]
+};
+
+// torch.clamp(v, -1, 1): a NaN operand comes through.
+__device__ __forceinline__ float clamp11(float v) {
+  return isnan(v) ? v : fminf(fmaxf(v, -1.0f), 1.0f);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// ops/env.py::make_env_sampler: the nearest texel of the direction's
+// azimuth and polar angle, times the intensity.
+__device__ __forceinline__ V3 env_radiance(V3 rd, const Env& env) {
+  const V3 d = normalize(rd);
+  float u = (atan2f(d.z, d.x) + env.params[1]) / F32(kTwoPi32);
+  u = u - floorf(u);
+  const float v = acosf(clamp11(d.y)) * F32(kInvPi32);
+  const int ix = clampi(static_cast<int>(u * static_cast<float>(env.w)), 0, env.w - 1);
+  const int iy = clampi(static_cast<int>(v * static_cast<float>(env.h)), 0, env.h - 1);
+  const float* texel = env.map + (static_cast<int64_t>(iy) * env.w + ix) * 3;
+  const float intensity = env.params[0];
+  return v3(__ldg(texel) * intensity, __ldg(texel + 1) * intensity, __ldg(texel + 2) * intensity);
+}
+
 // ---- the bounce (ops/trace.py::bounce_core) ---------------------------------
 
-template <int MODE, bool LDS>
+template <int MODE, bool LDS, bool ENV>
 __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const int64_t* __restrict__ state_in,
                               const float* __restrict__ throughput_in,
@@ -596,7 +648,7 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
                               const float* __restrict__ tri_full,
                               const float* __restrict__ light_full, int num_lights,
                               int do_mis, Tex tex, const float* __restrict__ lds,
-                              float* __restrict__ rays_out,
+                              Env env, float* __restrict__ rays_out,
                               int64_t* __restrict__ state_out,
                               float* __restrict__ throughput_out,
                               float* __restrict__ result_out, bool* __restrict__ alive_out,
@@ -694,7 +746,16 @@ __global__ void bounce_kernel(int bounce_idx, const float* __restrict__ rays,
     const float atten = hit.emissive_strength / (1.0f + t * t);
     emitted = thr * hit.emission * atten;
   }
-  const V3 result = res_in + emitted;
+  V3 result = res_in + emitted;
+  if constexpr (ENV) {
+    // The miss term (ops/trace.py::bounce_core): a missed lane adds its
+    // texel; the addition stays on every lane.
+    V3 lit = zero3;
+    if (alive_in[i] && (idx < 0)) {
+      lit = thr * env_radiance(rd, env);
+    }
+    result = result + lit;
+  }
   const bool cont = found && !emissive;
 
   V3 s_origin = zero3, s_dir = zero3, s_direct = zero3;
@@ -790,7 +851,8 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
                           const void* t, const void* idx, const void* tri_full,
                           const void* light_full, int num_lights, int do_mis, int tex_mode,
                           const void* atlas, int atlas_h, int atlas_w, const void* fat_rects,
-                          int n_sets, int slots, const void* lds, void* rays_out,
+                          int n_sets, int slots, const void* lds, const void* env_map,
+                          int env_h, int env_w, const void* env_params, void* rays_out,
                           void* state_out, void* throughput_out, void* result_out,
                           void* alive_out,
                           void* shadow_rays, void* shadow_t_max, void* shadow_mask,
@@ -798,6 +860,8 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
   const int blocks = (n + kThreads - 1) / kThreads;
   const Tex tex{static_cast<const float*>(atlas), atlas_h, atlas_w,
                 static_cast<const float*>(fat_rects), n_sets, slots};
+  const Env env{static_cast<const float*>(env_map), env_h, env_w,
+                static_cast<const float*>(env_params)};
   auto launch = [&](auto kernel, size_t smem) {
     kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         bounce_idx, static_cast<const float*>(rays), static_cast<const int64_t*>(state),
@@ -805,7 +869,7 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
         static_cast<const bool*>(alive), static_cast<const float*>(t),
         static_cast<const int*>(idx), static_cast<const float*>(tri_full),
         static_cast<const float*>(light_full), num_lights, do_mis, tex,
-        static_cast<const float*>(lds), static_cast<float*>(rays_out),
+        static_cast<const float*>(lds), env, static_cast<float*>(rays_out),
         static_cast<int64_t*>(state_out),
         static_cast<float*>(throughput_out), static_cast<float*>(result_out),
         static_cast<bool*>(alive_out), static_cast<float*>(shadow_rays),
@@ -814,16 +878,25 @@ extern "C" int wpt_bounce(int bounce_idx, const void* rays, const void* state,
   };
   const size_t fat_smem = static_cast<size_t>(n_sets) * FAT_RECT_COLS * sizeof(float);
   const bool with_lds = lds != nullptr;
+  const bool with_env = env_map != nullptr;
+  // The four LDS x ENV instantiations of one texture mode.
+  auto pick = [&](auto mode, size_t smem) {
+    constexpr int M = decltype(mode)::value;
+    if (with_lds) {
+      with_env ? launch(bounce_kernel<M, true, true>, smem) : launch(bounce_kernel<M, true, false>, smem);
+    } else {
+      with_env ? launch(bounce_kernel<M, false, true>, smem) : launch(bounce_kernel<M, false, false>, smem);
+    }
+  };
   switch (tex_mode) {
     case TEX_NONE:
-      with_lds ? launch(bounce_kernel<TEX_NONE, true>, 0) : launch(bounce_kernel<TEX_NONE, false>, 0);
+      pick(std::integral_constant<int, TEX_NONE>{}, 0);
       break;
     case TEX_SLOT:
-      with_lds ? launch(bounce_kernel<TEX_SLOT, true>, 0) : launch(bounce_kernel<TEX_SLOT, false>, 0);
+      pick(std::integral_constant<int, TEX_SLOT>{}, 0);
       break;
     case TEX_FAT:
-      with_lds ? launch(bounce_kernel<TEX_FAT, true>, fat_smem)
-               : launch(bounce_kernel<TEX_FAT, false>, fat_smem);
+      pick(std::integral_constant<int, TEX_FAT>{}, fat_smem);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

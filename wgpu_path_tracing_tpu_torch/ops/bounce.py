@@ -13,7 +13,9 @@ takes one bounce's SoA state and returns the same ten arrays as
          ("fat", canvas (FH, FW, 16) f32, rects (S, 20) f32),
          slots_used: the scene's 4 texture-slot flags,
          lds: None or (3, N) f32 rows [lobe, r1, r2] that replace the BSDF
-         sample's three main draws at bounce 0 (ignored at other bounces)
+         sample's three main draws at bounce 0 (ignored at other bounces),
+         env: None or (map (H, W, 3) f32, params (2,) f32 [intensity,
+         rotation]): the environment map that lights the misses
     out: next rays (6, N), state, throughput, result, alive,
          shadow rays (6, N), shadow t_max (N,), shadow mask (N,) bool,
          direct (3, N), pdf (N,)
@@ -24,7 +26,11 @@ the kernel): on the card a texel is one load, so the fat canvas, when the
 scene has one, and the per-slot atlas otherwise are read inside the kernel.
 The TPU kernel's ``has_lds`` operand is one more template flag: the host
 knows the bounce, so the LDS instantiation launches at bounce 0 only and the
-other bounces run the kernel without it.
+other bounces run the kernel without it. An environment map is a third
+flag, ``ENV``: the JAX package lights misses on its XLA bounce only (its
+Pallas kernel has no map), so here the miss term of ``ops/trace.py::
+bounce_core`` (``ops/env.py``) runs inside K2 where a scene has a map, and
+scenes without one run the instruction stream they ran before.
 
 On a CUDA tensor it launches ``csrc/bounce.cu``; on a CPU tensor it runs
 ``bounce_stage_plain`` (``ops/trace.py::bounce_core`` over the same arrays).
@@ -36,6 +42,7 @@ import torch
 
 from wgpu_path_tracing_tpu_torch.models import types as T
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.ops import shade as SHADE
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
 from wgpu_path_tracing_tpu_torch.ops import vec
@@ -44,17 +51,20 @@ from wgpu_path_tracing_tpu_torch.ops import vec
 class Counter:
     """Launches of the K2 kernel in this process, in all (``launches``), by
     texture mode (``by_mode``: "none", "per_slot", "fat"), and those of them
-    that ran the bounce-0 LDS instantiation (``lds``)."""
+    that ran the bounce-0 LDS instantiation (``lds``) and the environment
+    map's (``env``)."""
 
     launches = 0
     by_mode = {"none": 0, "per_slot": 0, "fat": 0}
     lds = 0
+    env = 0
 
     @classmethod
     def reset(cls) -> None:
         cls.launches = 0
         cls.by_mode = dict.fromkeys(cls.by_mode, 0)
         cls.lds = 0
+        cls.env = 0
 
 
 # csrc/bounce.cu's TexMode values.
@@ -71,7 +81,8 @@ def texture_mode(atlas) -> str:
 def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
                        alive, t, idx, tri_full, light_full, *, do_mis: bool,
                        num_lights: int, atlas=None,
-                       slots_used=(True, True, True, True), lds=None):
+                       slots_used=(True, True, True, True), lds=None,
+                       env=None):
     """Plain PyTorch K2 on any device."""
     override = None
     if lds is not None:
@@ -85,7 +96,8 @@ def bounce_stage_plain(bounce_idx: int, rays, state, throughput, result,
         fetch_tri=lambda i: SHADE.fetch_rows(tri_full, i),
         fetch_light=lambda i: SHADE.fetch_rows(light_full, i),
         do_mis=do_mis, num_lights=num_lights, atlas=atlas,
-        slots_used=slots_used, bsdf_override=override)
+        slots_used=slots_used, bsdf_override=override,
+        env=None if env is None else ENV.make_env_sampler(*env))
     return [
         torch.cat([vec.stack_rows(new.ro), vec.stack_rows(new.rd)]),
         new.state,
@@ -145,9 +157,11 @@ def _atlas_args(atlas, dev):
 def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
                       t, idx, tri_full, light_full, *, do_mis: bool,
                       num_lights: int, atlas=None,
-                      slots_used=(True, True, True, True), lds=None):
+                      slots_used=(True, True, True, True), lds=None,
+                      env=None):
     """Launch K2 on the current stream (no synchronisation): the LDS
-    instantiation when ``lds`` is given at bounce 0, else the plain one."""
+    instantiation when ``lds`` is given at bounce 0, else the plain one;
+    the ``ENV`` instantiation when ``env`` holds a real map."""
     n = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
@@ -179,6 +193,21 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
         raise ValueError(f"lds: expected contiguous (3, {n}) float32 on "
                          f"{dev}, got {tuple(lds.shape)} {lds.dtype} on "
                          f"{lds.device}")
+    env_args = (None, 0, 0, None)
+    if env is not None and ENV.has_env(env[0]):
+        env_map, env_params = env
+        if (env_map.dim() != 3 or env_map.shape[2] != 3
+                or env_map.dtype != torch.float32 or env_map.device != dev
+                or not env_map.is_contiguous()):
+            raise ValueError(f"env: expected a contiguous (H, W, 3) float32 "
+                             f"map on {dev}, got {tuple(env_map.shape)} "
+                             f"{env_map.dtype} on {env_map.device}")
+        if (tuple(env_params.shape) != (2,)
+                or env_params.dtype != torch.float32
+                or env_params.device != dev):
+            raise ValueError(f"env params: expected (2,) float32 on {dev}")
+        env_args = (env_map.data_ptr(), env_map.shape[0], env_map.shape[1],
+                    env_params.data_ptr())
 
     def empty(rows, dtype):
         return torch.empty((rows, n) if rows else (n,), dtype=dtype, device=dev)
@@ -196,17 +225,20 @@ def bounce_stage_cuda(bounce_idx: int, rays, state, throughput, result, alive,
         t.data_ptr(), idx.data_ptr(), tri_full.data_ptr(),
         light_full.data_ptr(), int(num_lights),
         int(bool(do_mis)), *tex, slots, lds.data_ptr() if use_lds else None,
-        *(o.data_ptr() for o in outs), n, cuda_lib.stream_ptr(rays))
+        *env_args, *(o.data_ptr() for o in outs), n,
+        cuda_lib.stream_ptr(rays))
     cuda_lib.check(err, "wpt_bounce")
     Counter.launches += 1
     Counter.by_mode[texture_mode(atlas)] += 1
     Counter.lds += int(use_lds)
+    Counter.env += int(env_args[0] is not None)
     return outs
 
 
 def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
                  idx, tri_full, light_full, *, do_mis: bool, num_lights: int,
-                 atlas=None, slots_used=(True, True, True, True), lds=None):
+                 atlas=None, slots_used=(True, True, True, True), lds=None,
+                 env=None):
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     fn = {"cuda": bounce_stage_cuda, "cpu": bounce_stage_plain}.get(
@@ -215,7 +247,7 @@ def bounce_stage(bounce_idx: int, rays, state, throughput, result, alive, t,
         raise ValueError(f"unsupported device {rays.device}")
     return fn(bounce_idx, rays, state, throughput, result, alive, t, idx,
               tri_full, light_full, do_mis=do_mis, num_lights=num_lights,
-              atlas=atlas, slots_used=slots_used, lds=lds)
+              atlas=atlas, slots_used=slots_used, lds=lds, env=env)
 
 
 def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
@@ -224,11 +256,13 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
     """The bounce loop over the K2 wrapper (``trace_pallas``'s shape): per
     bounce a closest hit, K2, a shadow query and ``resolve_shadow``. Same
     signature, semantics and RNG streams as ``ops/trace.py::trace``, the
-    atlas form and ``lds0`` included (``ops/trace.py::scene_atlas``); K2
-    gets ``lds0`` at bounce 0 only. On CPU tensors the wrappers run their
-    plain versions."""
+    atlas form, the environment map and ``lds0`` included
+    (``ops/trace.py::scene_atlas``, ``ops/env.py::scene_env``); K2 gets
+    ``lds0`` at bounce 0 only. On CPU tensors the wrappers run their plain
+    versions."""
     n = ro.shape[1]
     atlas, slots_used = TRACE.scene_atlas(scene)
+    env = ENV.scene_env(scene)
     dev = ro.device
     rays = torch.cat([ro, rd]).contiguous()
     thr = torch.ones((3, n), dtype=torch.float32, device=dev)
@@ -245,7 +279,7 @@ def trace_cuda(scene: dict, closest_hit, ro, rd, state, *,
                               scene["tri_full"], scene["light_full"],
                               do_mis=do_mis, num_lights=num_lights,
                               atlas=atlas, slots_used=slots_used,
-                              lds=lds0 if bounce_idx == 0 else None)
+                              lds=lds0 if bounce_idx == 0 else None, env=env)
         if do_mis:
             counters[1] += smask.sum()
             shadow_t, _ = closest_hit(srays[0:3], srays[3:6], active=smask,

@@ -47,6 +47,7 @@ SIGNATURES = {
         _I, _P, _I, _I,  # texture mode, atlas or fat canvas, its h, w
         _P, _I, _I,  # fat match table (or NULL), its sets, slots_used bits
         _P,  # bounce-0 LDS rows (3, N) (or NULL)
+        _P, _I, _I, _P,  # environment map (or NULL), its h, w, its params
         _P, _P, _P, _P, _P,  # out rays, state, thr, res, alive
         _P, _P, _P, _P, _P,  # shadow rays, t_max, mask, direct, pdf
         _I, _P,  # n, stream

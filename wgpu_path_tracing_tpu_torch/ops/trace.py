@@ -3,7 +3,9 @@
 The counterpart of the JAX package's ``ops/trace.py``, with a Python loop in
 place of ``lax.scan``:
 
-* miss: the lane dies (black background, pt.wgsl:646-649),
+* miss: the lane dies (black background, pt.wgsl:646-649), picking up
+  the scene's environment map first where it has one (``ops/env.py``, the
+  JAX package's extension),
 * emissive hit: contribution x 1/(1+t^2), then the path ends
   (pt.wgsl:652-658),
 * NEE only when MIS is on and the hit is front-facing and not transmissive
@@ -28,6 +30,7 @@ import typing
 import torch
 
 from wgpu_path_tracing_tpu_torch.ops import bsdf as BSDF
+from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.ops import lights as LIGHTS
 from wgpu_path_tracing_tpu_torch.ops import rng as RNG
 from wgpu_path_tracing_tpu_torch.ops import shade as SHADE
@@ -58,11 +61,13 @@ class ShadowQuery(typing.NamedTuple):
 def bounce_core(st: BounceState, t, idx, bounce_idx: int, *, fetch_tri,
                 fetch_light, do_mis: bool, num_lights: int, atlas=None,
                 slots_used=(True, True, True, True), bsdf_override=None,
-                ) -> tuple[BounceState, ShadowQuery]:
+                env=None) -> tuple[BounceState, ShadowQuery]:
     """One bounce's shading. ``fetch_tri(idx)`` / ``fetch_light(idx)`` return
     column accessors over the ``tri_full`` / ``light_full`` rows; ``atlas``
     and ``slots_used`` are ``ops/shade.py::hit_attributes_from_cols``'s;
-    ``bsdf_override`` is ``ops/bsdf.py::sample_bsdf``'s ``override``."""
+    ``bsdf_override`` is ``ops/bsdf.py::sample_bsdf``'s ``override``;
+    ``env`` an ``rd -> V3`` radiance sampler (``ops/env.py::
+    make_env_sampler``) added on a miss after the emissive term, or None."""
     found = st.alive & (idx >= 0)
     safe = torch.clamp_min(idx, 0)
     hit = SHADE.hit_attributes_from_cols(fetch_tri(safe), st.ro, st.rd, t,
@@ -74,6 +79,9 @@ def bounce_core(st: BounceState, t, idx, bounce_idx: int, *, fetch_tri,
     zero3 = vec.zeros_like(t)
     result = st.result + vec.where(
         emissive, st.throughput * hit.emission * atten, zero3)
+    if env is not None:
+        missed = st.alive & (idx < 0)
+        result = result + vec.where(missed, st.throughput * env(st.rd), zero3)
 
     cont = found & ~emissive
 
@@ -153,10 +161,14 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
     ro, rd: (3, N); state: (N,) int64. ``closest_hit(ro3, rd3, ...)`` comes
     from ``ops/intersect.py::make_closest_hit``. ``lds0`` (rng="stratified"):
     (3, N) float32 rows [lobe, r1, r2] that replace the first bounce's three
-    main BSDF draws (``ops/camera_rays.py::bounce0_lds``). Returns (radiance
-    (3, N), final state, counters (2,) int64 [closest rays, shadow rays])."""
+    main BSDF draws (``ops/camera_rays.py::bounce0_lds``). A scene dict that
+    carries a real environment map (``ops/env.py::scene_env``) lights the
+    misses. Returns (radiance (3, N), final state, counters (2,) int64
+    [closest rays, shadow rays])."""
     n = ro.shape[1]
     atlas, slots_used = scene_atlas(scene)
+    env_map = ENV.scene_env(scene)
+    env = None if env_map is None else ENV.make_env_sampler(*env_map)
     one = torch.ones((n,), dtype=torch.float32, device=ro.device)
     zero = torch.zeros_like(one)
     st = BounceState(ro=vec.from_rows(ro, 0), rd=vec.from_rows(rd, 0),
@@ -183,7 +195,8 @@ def trace(scene: dict, closest_hit, ro, rd, state, *, max_bounces: int = 8,
         st, shadow = bounce_core(st, t, idx, bounce_idx, fetch_tri=fetch_tri,
                                  fetch_light=fetch_light, do_mis=do_mis,
                                  num_lights=num_lights, atlas=atlas,
-                                 slots_used=slots_used, bsdf_override=override)
+                                 slots_used=slots_used, bsdf_override=override,
+                                 env=env)
         if do_mis:
             counters[1] += shadow.mask.sum()
             shadow_t, _ = closest_hit(vec.stack_rows(shadow.origin),

@@ -4,14 +4,26 @@ The reference path tracer hardcodes these as shader constants; the JAX
 package promoted them to ``RenderConfig`` (``wgpu_path_tracing_tpu/render/
 config.py``). This is the same object restricted to what the torch port
 renders: untextured and textured scenes (the atlas sampled per slot or from
-the fat canvas, as the scene's packing decides), the three rng modes, the
-dense hit, the wide-BVH walk and the three dispatch intersectors. The device
-is the ``Renderer``'s argument (the card by default):
+the fat canvas, as the scene's packing decides), glTF files, environment
+maps, the three rng modes, the dense hit, the wide-BVH walk and the three
+dispatch intersectors. The device is the ``Renderer``'s argument (the card
+by default):
 
 * ``max_bounces`` — pt.wgsl:5 (MAX_BOUNCES = 8)
 * ``do_mis`` — pt.wgsl:636 (DO_MIS = true)
 * ``firefly_clamp`` — pt.wgsl:751 (min(trace(ray), vec3f(2.5)))
 * ``exposure`` — blit.wgsl:43 (applied as x exp2(EXPOSURE))
+* ``texture_pixel_ratio`` — atlas.ts:10 (each glTF texture scaled by 0.5
+  into the atlas)
+* ``spot_lights`` — read KHR spot lights from glTF files instead of the
+  reference's warning and skip (gpu.ts:234-236); off, as there
+* ``max_leaf_size`` / ``num_bins`` — bvh.ts:42-45 (the SAH build's
+  BuildOptions, 4 and 12), for scenes that ``load_model`` builds
+* ``env_map`` / ``env_intensity`` / ``env_rotation`` — the JAX package's
+  environment map (``ops/env.py``): a .hdr, .exr or PNG path that
+  ``load_scene`` installs, its scale and its yaw in radians; None keeps the
+  reference's black background (pt.wgsl:646-649). On the card K2's ``ENV``
+  instantiation adds the map's texel on a miss
 * ``rng`` — "reference" (random.wgsl's per-pixel PCG, with its seed
   collisions past 1000 pixels a row), "hash" (the same draws from a
   well-mixed seed) or "stratified" (the hash seed, plus R2 low-discrepancy
@@ -28,8 +40,12 @@ is the ``Renderer``'s argument (the card by default):
 * ``frames_per_chunk`` — frames a ``render`` call draws between two
   ``on_chunk`` reports
 * ``frames_per_trace`` — frames whose rays go into one trace call (F x the
-  pixel count of lanes); the image is the same for every F. The renderer
-  clamps it per chunk with gcd, so any spp works.
+  pixel count of lanes); the image is bit-identical to F = 1's except the
+  razor-tie class, as the JAX package words it: on the pair route a call of
+  16,384 lanes or more packs and sorts the F frames' lanes together, and
+  K4 settles an exact-t tie in its 1,024-lane blocks' visit order
+  (``tests/test_torch_fpt.py`` shows F = 2 equal to 1 where it does so).
+  The renderer clamps it per chunk with gcd, so any spp works.
 
 The JAX package's ``bounce_kernel`` (whose "xla" would put the plain bounce
 on the card's path) is not copied yet; its ``dtype`` and ``max_frames`` are
@@ -54,6 +70,17 @@ class RenderConfig:
     do_mis: bool = True
     firefly_clamp: float = 2.5
     exposure: float = 1.0
+
+    # Scene ingestion (atlas.ts, gpu.ts) and the BVH build (bvh.ts).
+    texture_pixel_ratio: float = 0.5
+    spot_lights: bool = False
+    max_leaf_size: int = 4
+    num_bins: int = 12
+
+    # The environment map (ops/env.py); None: misses are black.
+    env_map: str | None = None
+    env_intensity: float = 1.0
+    env_rotation: float = 0.0
 
     rng: str = "reference"
     intersector: str = "auto"

@@ -61,7 +61,9 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
     concatenated along the lanes, and applies the running mean per frame in
     order: every lane is traced alone, and K4's and K6's ray blocks (1,024)
     and K5's (2,048) divide N at the image sizes they serve, so the image
-    equals F = 1's.
+    equals F = 1's except the razor-tie class: the pair route packs and
+    sorts a call of 16,384 lanes or more across the frames, and K4 settles
+    an exact-t tie in its blocks' visit order.
     Returns (accum, counters (2,) int64 [closest rays, shadow rays])."""
     fpt = int(frames_per_trace)
     if fpt < 1 or n_frames % fpt:

@@ -2,10 +2,12 @@
 (renderer.ts:18-511) and of the JAX package's ``render/renderer.py``.
 
     r = Renderer(RenderConfig(width=512, height=512))   # device="cuda"
-    r.load_scene(textured_cornell())
+    r.load_scene(textured_cornell())   # or r.load_model("scene.glb")
     hdr = r.render(spp=64)        # progressive; r.reset(), r.move_camera()
     r.save_png("out.png"); r.save_exr("out.exr"); r.stats()
     r.save_checkpoint("run.npz")  # the JAX package's keys; load_checkpoint
+    r.set_environment(env_rgb, intensity=1.0, rotation=0.5)  # lit misses
+    future = r.load_model_async("next.glb")  # staged, installed by render
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``, the card unless the caller asks for
@@ -14,32 +16,47 @@ scene tables live on ``device``, the card unless the caller asks for
 dispatch) or K6 (round dispatch), as ``RenderConfig.intersector`` picks for
 the scene (``stats()["intersector"]`` says which), and K2 (bounce,
 untextured or sampling the scene's texture atlas per slot or from its fat
-canvas; with rng="stratified" its LDS instantiation at bounce 0); on "cpu"
-their plain PyTorch versions. Asking for "cuda" without a card raises.
+canvas; with rng="stratified" its LDS instantiation at bounce 0; with an
+environment map its ENV instantiation); on "cpu" their plain PyTorch
+versions. Asking for "cuda" without a card raises.
 
 ``render`` draws ``frames_per_chunk`` frames at a time, calling the
 ``add_on_update`` callbacks before and ``on_chunk`` after each chunk, and
 ``frames_per_trace`` frames a trace call. ``render(sync=False)`` returns
 once the frames are queued; the ray counters stay on the device until
-``stats()`` or the next synchronous render reads them.
+``stats()`` or the next synchronous render reads them. ``profiler``
+(``utils/profiler.py``) times each chunk's dispatch a frame
+("path-trace-pass", on the host clock: no sync) and ``image()``
+("blit-pass"), ``frame_meter`` ticks a frame; ``stats()["passes"]`` and
+``stats()["frames"]`` report them.
 
-Not ported here: glTF loading, async load, the pass profiler, denoising,
-adaptive sampling, debug modes, environment maps, multi-device rendering.
+``load_model_async`` reads a glTF file on a worker thread while the caller
+renders on; ``render`` installs the staged scene at its next chunk
+boundary (restarting the mean there). A failed load raises from the
+returned future and from the next ``poll_pending_scene`` (so the next
+``render``), once.
+
+Not ported here: denoising, adaptive sampling, debug modes, multi-device
+rendering.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import math
+import threading
 import time
 
 import numpy as np
 import torch
 
+from wgpu_path_tracing_tpu_torch.models.gltf import load_model
 from wgpu_path_tracing_tpu_torch.models.types import (
     SceneArrays,
     load_jax_scene,
     pack_device_scene,
 )
+from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.ops.bounce import texture_mode, trace_cuda
 from wgpu_path_tracing_tpu_torch.ops.intersect import make_closest_hit
 from wgpu_path_tracing_tpu_torch.ops.trace import scene_atlas
@@ -47,6 +64,7 @@ from wgpu_path_tracing_tpu_torch.render import pipeline
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
 from wgpu_path_tracing_tpu_torch.utils import image as imageio
+from wgpu_path_tracing_tpu_torch.utils.profiler import FrameMeter, PassProfiler
 from wgpu_path_tracing_tpu_torch.utils.tiling import (
     inverse_permutation,
     tile_permutation,
@@ -88,15 +106,97 @@ class Renderer:
         self._deferred: torch.Tensor | None = None
         self._deferred_t0: float | None = None
         self._on_update = []
+        # load_model_async's staging slot and its failure, guarded by the
+        # lock: the worker thread fills them, the render thread empties them.
+        self._pending_lock = threading.Lock()
+        self._pending_scene: SceneArrays | None = None
+        self._pending_error: Exception | None = None
+        # Pass timings and the frame meter (profiler.ts, fps-meter.tsx; the
+        # labels are renderer.ts:422, 443's).
+        self.profiler = PassProfiler()
+        self.frame_meter = FrameMeter()
 
     # --- scene ---------------------------------------------------------------
     def load_scene(self, scene: SceneArrays) -> None:
+        """Pack and upload ``scene``; with ``config.env_map`` set, read that
+        map and install it. Restarts accumulation."""
         scene_dev = load_jax_scene(pack_device_scene(scene), self.device)
+        if self.config.env_map is not None:
+            scene_dev.update(ENV.env_tables(
+                ENV.load_env_image(self.config.env_map),
+                self.config.env_intensity, self.config.env_rotation,
+                self.device))
         self._closest_hit = make_closest_hit(
             scene_dev, self.config.intersector,
             self.config.brute_force_max_tris)
         self.scene, self._scene_dev = scene, scene_dev
         self.reset()
+
+    def set_environment(self, source, intensity: float = 1.0,
+                        rotation: float = 0.0) -> None:
+        """Install, or clear with ``source=None``, an equirectangular
+        environment map that lights the misses (the JAX package's extension
+        over the reference's black background, pt.wgsl:646-649).
+        ``source``: an (H, W, 3) array or a .hdr, .exr or PNG path;
+        ``rotation`` in radians. Restarts accumulation."""
+        if self._scene_dev is None:
+            raise RuntimeError("Load a scene first")
+        env = (np.zeros((1, 1, 3), np.float32) if source is None
+               else ENV.load_env_image(source))
+        self._scene_dev.update(ENV.env_tables(env, intensity, rotation,
+                                              self.device))
+        self.reset()
+
+    def _read_model(self, path: str) -> SceneArrays:
+        cfg = self.config
+        return load_model(path, texture_pixel_ratio=cfg.texture_pixel_ratio,
+                          max_leaf_size=cfg.max_leaf_size,
+                          num_bins=cfg.num_bins,
+                          enable_spot_lights=cfg.spot_lights)
+
+    def load_model(self, path: str) -> None:
+        """Load a .glb or .gltf file (loader.ts:19-46, gpu.ts:67-150)."""
+        self.load_scene(self._read_model(path))
+
+    def load_model_async(self, path: str) -> concurrent.futures.Future:
+        """Read a glTF file on a worker thread, the headless form of the
+        reference's Web Worker hand-off (loader.ts:23-37): parse, atlas and
+        BVH build run while the caller renders the current scene. The
+        scene is staged, not installed: a ``render`` in progress installs
+        it at its next chunk boundary (and restarts the mean there), so no
+        sample of the new scene is folded into the old scene's mean; else
+        the next ``render`` or ``poll_pending_scene`` does. Returns a
+        future of the scene, which raises if the load fails; the failure is
+        also raised by the next ``poll_pending_scene``."""
+        def job():
+            try:
+                scene = self._read_model(path)
+            except Exception as exc:
+                with self._pending_lock:
+                    self._pending_error = exc
+                raise
+            with self._pending_lock:
+                self._pending_scene = scene
+            return scene
+
+        executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        future = executor.submit(job)
+        executor.shutdown(wait=False)
+        return future
+
+    def poll_pending_scene(self) -> bool:
+        """Install a scene staged by ``load_model_async``, if any; returns
+        whether one was installed. A staged failure raises here, once.
+        ``render`` calls it at its start and at every chunk boundary."""
+        with self._pending_lock:
+            scene, self._pending_scene = self._pending_scene, None
+            error, self._pending_error = self._pending_error, None
+        if error is not None:
+            raise RuntimeError(f"load_model_async failed: {error!r}") from error
+        if scene is None:
+            return False
+        self.load_scene(scene)
+        return True
 
     # --- interaction (renderer.ts:152-201, 496-510) --------------------------
     def add_on_update(self, callback) -> None:
@@ -159,9 +259,14 @@ class Renderer:
         device, so the wall clock is honest. ``sync=False`` skips that read
         (and the image): the call returns when the frames are queued, and
         the counters fold in at ``stats()`` or the next synchronous render,
-        which then report the whole unsynced run."""
+        which then report the whole unsynced run.
+
+        A scene staged by ``load_model_async`` is installed at the start and
+        at each chunk boundary."""
+        self.poll_pending_scene()
         if self._scene_dev is None:
-            raise RuntimeError("No scene loaded — call load_scene first")
+            raise RuntimeError("No scene loaded — call load_model or "
+                               "load_scene first")
         cfg = self.config
         self._ensure_accum()
         cam = pipeline.camera_device(self.camera.as_pytree(), cfg.width,
@@ -170,9 +275,11 @@ class Renderer:
         counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
         remaining = spp
         while remaining > 0:
+            self.poll_pending_scene()
             for task in self._on_update:
                 task(0.0)
             chunk = min(cfg.frames_per_chunk, remaining)
+            chunk_t0 = time.perf_counter()
             _, chunk_counters = pipeline.render_chunk(
                 trace_cuda, self._closest_hit, self._scene_dev, cam,
                 self._accum, self.frame_index,
@@ -184,11 +291,16 @@ class Renderer:
                 # gcd keeps a tail chunk divisible, so any spp works.
                 frames_per_trace=math.gcd(cfg.frames_per_trace, chunk))
             counters += chunk_counters
+            if on_chunk is not None and self.device.type == "cuda":
+                # The callback sees its frames done.
+                torch.cuda.synchronize(self.device)
+            self.profiler.add("path-trace-pass",
+                              (time.perf_counter() - chunk_t0) / chunk)
+            for _ in range(chunk):
+                self.frame_meter.tick()
             self.frame_index += chunk
             remaining -= chunk
             if on_chunk is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
                 on_chunk(self.frame_index)
         if not sync:
             if self._deferred is None:
@@ -266,8 +378,10 @@ class Renderer:
         """Tonemapped display image (H, W, 3) in [0, 1], top row first."""
         if self._accum is None:
             raise RuntimeError("Nothing rendered yet")
-        return imageio.buffer_to_srgb(self._row_major(), self.config.width,
-                                      self.config.height, self.config.exposure)
+        with self.profiler.section("blit-pass"):
+            return imageio.buffer_to_srgb(self._row_major(), self.config.width,
+                                          self.config.height,
+                                          self.config.exposure)
 
     def save_png(self, path: str) -> None:
         imageio.write_png(path, self.image())
@@ -298,4 +412,6 @@ class Renderer:
             "rays_total": closest + shadow,
             "last_render_seconds": self._last_render_seconds,
             "mrays_per_sec": last_total / secs / 1e6 if last_total else 0.0,
+            "passes": self.profiler.stats(),
+            "frames": self.frame_meter.stats(),
         }

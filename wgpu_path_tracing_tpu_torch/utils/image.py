@@ -10,11 +10,14 @@ package's.
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
 import numpy as np
 import torch
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def buffer_to_srgb(accum, width: int, height: int, exposure: float = 1.0):
@@ -29,10 +32,18 @@ def buffer_to_srgb(accum, width: int, height: int, exposure: float = 1.0):
     return img[::-1]
 
 
-def encode_png(img01: np.ndarray) -> bytes:
-    """(H, W, 3) float in [0, 1], top row first -> 8-bit RGB PNG bytes."""
-    data = (np.clip(img01, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    h, w = data.shape[0], data.shape[1]
+def encode_png(img: np.ndarray) -> bytes:
+    """An image, top row first, -> 8-bit PNG bytes: (H, W, 3) float in
+    [0, 1] as RGB, or (H, W, 3) or (H, W, 4) uint8 as RGB or RGBA (the
+    exporter's textures)."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        data = np.ascontiguousarray(img)
+    else:
+        data = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    h, w, ch = data.shape
+    if ch not in (3, 4):
+        raise ValueError(f"encode_png: expected 3 or 4 channels, got {ch}")
     raw = b"".join(b"\x00" + data[y].tobytes() for y in range(h))
 
     def chunk(tag: bytes, payload: bytes) -> bytes:
@@ -40,8 +51,9 @@ def encode_png(img01: np.ndarray) -> bytes:
         return (struct.pack(">I", len(payload)) + body
                 + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    ctype = 2 if ch == 3 else 6
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw, 6))
             + chunk(b"IEND", b""))
 
@@ -225,34 +237,174 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _png_chunks(data: bytes, name: str):
+    """(IHDR fields, the joined IDAT payload, PLTE, tRNS) of PNG bytes."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file (bad signature)")
+    pos, idat, chunks = 8, [], {}
+    while pos < len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        else:
+            chunks.setdefault(tag, body)
+        pos += 12 + length
+    if b"IHDR" not in chunks:
+        raise ValueError(f"{name}: no IHDR chunk")
+    header = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
+    return header, b"".join(idat), chunks.get(b"PLTE"), chunks.get(b"tRNS")
+
+
+def _png_pixels(header, idat: bytes, channels: int) -> np.ndarray:
+    w, h = header[0], header[1]
+    pixels = _unfilter(zlib.decompress(idat), h, w * channels, channels)
+    return pixels.reshape(h, w, channels)
+
+
 def read_png(path: str) -> np.ndarray:
     """Read an 8-bit gray, RGB or RGBA non-interlaced PNG -> (H, W, 3)
     float32 RGB in [0, 1] (gray replicated, alpha dropped), as the JAX
     package's Pillow reader returns it."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file (bad signature)")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (length,) = struct.unpack_from(">I", data, pos)
-        tag = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-        pos += 12 + length
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
+    header, idat, _, _ = _png_chunks(data, path)
+    _, _, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
         raise ValueError(f"{path}: only 8-bit gray, RGB and RGBA "
                          "non-interlaced PNGs are supported")
     ch = _PNG_CHANNELS[ctype]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    pixels = pixels.reshape(h, w, ch)
+    pixels = _png_pixels(header, idat, ch)
     rgb = np.repeat(pixels, 3, axis=2) if ch == 1 else pixels[..., :3]
     return rgb.astype(np.float32) / 255.0
+
+
+# Channels a pixel by PNG colour type: gray, RGB, palette, gray + alpha,
+# RGBA.
+_PNG_RGBA_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """PNG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
+    ``Image.open(...).convert("RGBA")`` returns for 8-bit non-interlaced
+    gray, RGB, palette, gray + alpha and RGBA images: gray replicated, a
+    palette looked up, alpha from the image, from ``tRNS`` (a palette's
+    per-entry alphas; the one transparent gray value or RGB colour), else
+    255. 16-bit, sub-byte and interlaced PNGs raise ``ValueError``; a JPEG
+    raises ``NotImplementedError`` naming ``name``."""
+    if data[:2] == b"\xff\xd8":
+        raise NotImplementedError(
+            f"{name}: JPEG textures are not supported (no JPEG decoder in "
+            "this package); convert the image to PNG")
+    header, idat, plte, trns = _png_chunks(data, name)
+    _, _, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _PNG_RGBA_CHANNELS or interlace != 0:
+        raise ValueError(f"{name}: only 8-bit non-interlaced PNGs are "
+                         f"supported (bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace})")
+    px = _png_pixels(header, idat, _PNG_RGBA_CHANNELS[ctype])
+    h, w = px.shape[0], px.shape[1]
+    out = np.full((h, w, 4), 255, np.uint8)
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        pal = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        table[:len(pal), :3] = pal
+        if trns is not None:
+            alpha = np.frombuffer(trns, np.uint8)[:256]
+            table[:len(alpha), 3] = alpha
+        return table[px[..., 0]]
+    if ctype in (0, 4):
+        out[..., :3] = px[..., :1]
+        if ctype == 4:
+            out[..., 3] = px[..., 1]
+        elif trns is not None and len(trns) >= 2:
+            (gray,) = struct.unpack(">H", trns[:2])
+            out[..., 3] = np.where(px[..., 0] == gray, 0, 255)
+        return out
+    out[..., :px.shape[2]] = px
+    if ctype == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]))
+        out[..., 3] = np.where((px == key).all(-1), 0, 255)
+    return out
+
+
+# Pillow's fixed-point resampling (Resample.c): weights carry
+# PRECISION_BITS fraction bits.
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear_weights(in_size: int, out_size: int):
+    """The triangle filter's taps of each output pixel, as Pillow's
+    ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` make them: (first
+    source index (out,), fixed-point weights (out, ksize) int64, zero past
+    each pixel's taps)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale  # the bilinear filter's support is 1
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [abs((x + xmin - center + 0.5) / filterscale)
+             for x in range(xmax)]
+        k = [1.0 - a if a < 1.0 else 0.0 for a in k]
+        ww = 0.0
+        for v in k:  # summed in order, as the C loop sums
+            ww += v
+        if ww != 0.0:
+            k = [v / ww for v in k]
+        first[xx] = xmin
+        weights[xx, :xmax] = [int(0.5 + v * (1 << _PRECISION_BITS))
+                              for v in k]
+    return first, weights
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of Pillow's two-pass resize along ``axis`` (1: rows,
+    horizontal; 0: columns, vertical) of an (H, W, C) uint8 image."""
+    first, weights = _bilinear_weights(img.shape[axis], out_size)
+    taps = first[:, None] + np.arange(weights.shape[1])
+    taps = np.minimum(taps, img.shape[axis] - 1)  # zero-weight taps only
+    src = np.moveaxis(img, axis, 0).astype(np.int64)  # (in, other, C)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    for j in range(weights.shape[1]):
+        acc += src[taps[:, j]] * weights[:, j, None, None]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA -> (h, w, 4) for ``size = (w, h)``, equal to
+    Pillow's ``Image.fromarray(img).resize((w, h), Image.BILINEAR)``: the
+    colour premultiplied by alpha first and divided back after, the
+    horizontal pass and then the vertical one, each only where its size
+    changes, each in Pillow's 22-bit fixed point and clipped to 8 bits; a
+    copy when the size is the same."""
+    img = np.asarray(img, np.uint8)
+    w, h = (int(v) for v in size)
+    if (h, w) == img.shape[:2]:
+        return img.copy()
+    a = img[..., 3:4].astype(np.uint32)
+    tmp = img[..., :3].astype(np.uint32) * a + 128  # MULDIV255
+    pre = np.concatenate([((tmp >> 8) + tmp) >> 8, a], -1).astype(np.uint8)
+    if w != img.shape[1]:
+        pre = _resample_axis(pre, w, 1)
+    if h != img.shape[0]:
+        pre = _resample_axis(pre, h, 0)
+    alpha = pre[..., 3:4].astype(np.int64)
+    rgb = pre[..., :3].astype(np.int64)
+    keep = (alpha == 0) | (alpha == 255)
+    div = np.clip(255 * rgb // np.maximum(alpha, 1), 0, 255)
+    out = pre.copy()
+    out[..., :3] = np.where(keep, rgb, div)
+    return out
