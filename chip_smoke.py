@@ -122,7 +122,31 @@ and runs these phases, one line of output each:
    on the Cornell box; then the material box at 512x512 x 64 spp through
    ``set_environment``: launch counts (512 of the ENV instantiation), cold
    and repeated Mrays/s, the image against the plain path's on every pixel,
-   and its renders in turns with the same box's without the map.
+   and its renders in turns with the same box's without the map;
+14. binary-BVH walks (``bvh2``): K7 (the stack walk) and K8 (the linked
+   walk) against their plain versions on the large box's camera, bounce-1
+   and shadow rays (an active mask, ``t_max``, ``any_hit``), bit for bit,
+   and against K3 (lanes that differ, and whether each is an exact-t tie;
+   the shadow rays' occlusion answers), each set's time beside its bound
+   (from the plain versions' node and triangle counts);
+15. debug views (``debug``): ``mode="bvh_depth"`` and ``mode="normal"`` at
+   512x512 on ``cornell_box()`` and the large box, each equal to its plain
+   path on every pixel (K7's depth mode timed on the large box); 1-spp Cornell renders through ``"stack"`` and
+   ``"bvh"`` (launch counts), each equal to its plain path and, but for
+   exact-t ties (at most 1% of pixels), to the K1 path's image;
+16. denoising (``denoise``): the flagship at 64 spp, then ``aovs()``,
+   ``denoise()`` (launch counts: the guides' K1 and five K9) and
+   ``image(denoise=True)``; K9 against its plain version at every level on
+   the path's own inputs, bit for bit; the whole ``denoise()`` against its
+   plain path; K9's time a level beside its bound, the plain level's, the
+   whole filter's and ``denoise()``'s wall;
+17. adaptive sampling (``adaptive``): ``render_adaptive(64)`` on the
+   flagship (launch counts, wall, Mrays/s; its ``render_adaptive(16)``
+   image against its plain path on every pixel) and
+   ``render_adaptive(8)`` on the large box through the walk (launch counts,
+   wall, Mrays/s); the walk's adaptive image held to its plain path on
+   ``cornell_box(tessellation=16)`` at 256x256, 3 spp, 2 bounces (the
+   large box's plain walk takes about 30 s a frame).
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -137,12 +161,16 @@ large-scene frames, of four frames of the large scene through the pair
 dispatch, of four stratified flagship frames, of four frames of the loaded
 atrium and of four env-box frames to PATH with ``_textured``, ``_large``,
 ``_pairs``, ``_stratified``, ``_gltf`` and ``_env`` before its extension,
-and prints the device's busy share and the ``torch.cat`` calls a frame.
+and prints the device's busy share and the ``torch.cat`` calls a frame;
+and of one flagship ``denoise()`` and one flagship ``render_adaptive(64)``
+with ``_denoise`` and ``_adaptive``.
 
 ``--phases NAME,...`` runs only the named phases (``--help`` names them),
 for iterating on the card; without it every phase runs. ``--phases
 gltf,env`` runs the scene-loading and environment-map phases alone
-(about 65 s after the build).
+(about 65 s after the build); ``--phases bvh2,debug,denoise,adaptive`` the
+phases of the binary-BVH walks, the debug views, the denoiser and adaptive
+sampling.
 """
 
 from __future__ import annotations
@@ -193,7 +221,9 @@ from wgpu_path_tracing_tpu_torch.ops import bounce as K2  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cluster as K6  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import cuda_lib  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import denoise as K9  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import env as ENV  # noqa: E402
+from wgpu_path_tracing_tpu_torch.ops import intersect as ISECT  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import pairs as K4  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import phased as K5  # noqa: E402
 from wgpu_path_tracing_tpu_torch.ops import shade as SHADE  # noqa: E402
@@ -212,6 +242,8 @@ from wgpu_path_tracing_tpu_torch.ops.intersect import (  # noqa: E402
     with_ray_order,
     with_tail_compaction,
 )
+from wgpu_path_tracing_tpu_torch.debug import modes as DEBUG  # noqa: E402
+from wgpu_path_tracing_tpu_torch.render import adaptive as ADAPTIVE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.render.pipeline import (  # noqa: E402
     camera_device,
     render_chunk,
@@ -1055,6 +1087,20 @@ def plain_closest_hit(scene: dict, strategy: str):
             return K1.closest_hit_dense_plain(tri, torch.cat([ro3, rd3]))
 
         return closest_hit
+    if strategy in ("stack", "bvh"):
+        aabb = scene["bvh_aabb"]
+        if strategy == "stack":
+            plain, table = ISECT.closest_hit_bvh_plain, scene["bvh_meta"]
+        else:
+            plain = ISECT.closest_hit_bvh_linked_plain
+            table = ISECT.linked_nodes(scene["bvh_meta"], scene["bvh_links"])
+
+        def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                        reorder=False):
+            return plain(aabb, table, tri, ro3.T, rd3.T, active, t_max,
+                         any_hit=any_hit)
+
+        return closest_hit
     if strategy == "walk":
         plain, tables = K3.closest_hit_walk_plain, K3.walk_tables(scene)
     else:
@@ -1100,6 +1146,48 @@ def plain_render(r: Renderer, spp: int) -> np.ndarray:
     return accum.cpu().numpy()[row_major].reshape(cfg.height, cfg.width, 3)
 
 
+def plain_debug(r: Renderer) -> np.ndarray:
+    """The debug view ``r.render_debug()`` makes, through the plain
+    versions on ``r``'s device: K7's depth mode, or the plain version of the
+    intersector ``r`` picked under the plain hit attributes."""
+    cfg = r.config
+    scene, cam = r._scene_dev, r._camera()
+    if cfg.mode == "bvh_depth":
+        ro3, rd3 = DEBUG._center_rays(cam, cfg.width, cfg.height, r.device)
+        depth = ISECT.bvh_depth_plain(scene["bvh_aabb"], scene["bvh_meta"],
+                                      ro3.T, rd3.T, float(DEBUG.MAX_DEPTH))
+        buf = torch.stack([depth, depth, depth], dim=-1)
+    else:
+        buf = DEBUG.render_normal(scene, cam, cfg.width, cfg.height,
+                                  closest_hit=plain_closest_hit(
+                                      scene, r.stats()["intersector"]))
+    return buf.cpu().numpy().reshape(cfg.height, cfg.width, 3)
+
+
+def plain_denoise(r: Renderer, hdr: np.ndarray | None = None) -> np.ndarray:
+    """``r.denoise(hdr)`` through the plain versions on ``r``'s device: the
+    guides through the plain intersector, each filter level through
+    ``atrous_level_plain``."""
+    cfg = r.config
+    if hdr is None:
+        hdr = r._row_major().reshape(cfg.height, cfg.width, 3)
+    aovs = K9.primary_aovs(r._scene_dev, r._camera(), cfg.width, cfg.height,
+                           closest_hit=plain_closest_hit(
+                               r._scene_dev, r.stats()["intersector"]))
+    return K9.denoise_image(hdr, aovs, spp=r.frame_index,
+                            level=K9.atrous_level_plain)
+
+
+def plain_adaptive(r: Renderer, spp: int) -> np.ndarray:
+    """``render_adaptive(spp)`` after a reset, through the plain bounce loop
+    and the plain version of ``r``'s intersector (the accumulation's first
+    frame overwrites what was there)."""
+    r.reset()
+    return r.render_adaptive(spp, trace_fn=TRACE.trace,
+                             closest_hit=plain_closest_hit(
+                                 r._scene_dev, r.stats()["intersector"]))
+
+
 def reset_counts() -> None:
     K1.Counter.launches = 0
     K2.Counter.reset()
@@ -1108,13 +1196,16 @@ def reset_counts() -> None:
     BLOCKS.Counter.launches = 0
     K5.Counter.launches = 0
     K6.Counter.launches = 0
+    ISECT.StackCounter.launches = ISECT.StackCounter.depth = 0
+    ISECT.LinkedCounter.launches = 0
+    K9.Counter.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches per kernel: K1, K2 by texture mode ("k2" untextured), those
     of them that ran K2's LDS instantiation and its ENV one, K3, K4, K5 (a
-    gate and a test kernel count as one), K6 and the phase-1 kernel of K4
-    and K6."""
+    gate and a test kernel count as one), K6, the phase-1 kernel of K4
+    and K6, K7 (and those of them in its depth mode), K8 and K9."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
             "k2_fat": K2.Counter.by_mode["fat"], "k2_lds": K2.Counter.lds,
@@ -1122,7 +1213,10 @@ def launch_counts() -> dict:
             "k3": K3.Counter.launches,
             "k4": K4.Counter.launches, "k5": K5.Counter.launches,
             "k6": K6.Counter.launches,
-            "block_entry": BLOCKS.Counter.launches}
+            "block_entry": BLOCKS.Counter.launches,
+            "k7": ISECT.StackCounter.launches,
+            "k7_depth": ISECT.StackCounter.depth,
+            "k8": ISECT.LinkedCounter.launches, "k9": K9.Counter.launches}
 
 
 def expect(**counts) -> dict:
@@ -1337,6 +1431,34 @@ def spine_tables(levels: int, dev) -> tuple:
              "walk_boxes": torch.from_numpy(wide.boxes).to(dev),
              "walk_tris": torch.from_numpy(wide.tris).to(dev)}
     return K3.walk_tables(scene), tris
+
+
+def left_spine(levels: int) -> dict:
+    """A binary BVH as deep as ``levels``: interior node 2k has the rest of
+    the spine as its LEFT child (node 2k + 2) and triangle k as its right
+    leaf (node 2k + 1), so the left-first stack walk keeps one right leaf a
+    level on its stack and overflows a stack of fewer than ``levels``
+    entries. Triangle k lies at x = k, as ``spine_tables``' do. Returns the
+    NumPy tables ``bvh_aabb`` (B, 6), ``bvh_meta`` (B, 4), ``bvh_links``
+    and ``tri_isect`` (levels + 1, 9)."""
+    from wgpu_path_tracing_tpu_torch.accel.bvh import build_links
+
+    tris = np.zeros((levels + 1, 9), np.float32)
+    tris[:, 0] = np.arange(levels + 1)
+    tris[:, 3:6] = [0.5, 1.0, 0.0]
+    tris[:, 6:9] = [0.3, 0.0, 1.0]
+    lo = tris[:, 0:3]
+    hi = lo + np.maximum(tris[:, 3:6], tris[:, 6:9])
+    meta, box = [], []
+    for k in range(levels):
+        meta += [[2 * k + 2, 2 * k + 1, 0, 0], [-1, -1, k, 1]]
+        box += [np.concatenate([lo[k:].min(0), hi[k:].max(0)]),
+                np.concatenate([lo[k], hi[k]])]
+    meta.append([-1, -1, levels, 1])
+    box.append(np.concatenate([lo[levels], hi[levels]]))
+    meta = np.array(meta, np.int32)
+    return {"bvh_aabb": np.array(box, np.float32), "bvh_meta": meta,
+            "bvh_links": build_links(meta), "tri_isect": tris}
 
 
 def spine_rays(n: int, spine: int, seed: int, dev):
@@ -2427,6 +2549,393 @@ def phase_env(dev, smi, report, profile: str | None):
         profile_frames(r, f"{root}_env{ext}", "env")
 
 
+def bvh2_bound(visits: dict, scene: dict, n: int) -> dict:
+    """K7's or K8's bound on ``n`` rays from its plain version's ``visits``:
+    the rays and (t, idx) once, the node rows (box, meta or links) and the
+    triangle rows once, a slab test a visited node and a Möller-Trumbore
+    test a tested triangle."""
+    moved = 6 * 4 * n + 8 * n + nbytes(scene["bvh_aabb"], scene["bvh_meta"],
+                                       scene["tri_isect"])
+    ops = SLAB_OPS * visits["nodes"] + MT_OPS * visits.get("triangles", 0)
+    return bound(moved, ops)
+
+
+BVH2_KERNELS = {
+    # kind: (report key, counter, kernel wrapper, plain version, node table)
+    "stack": ("k7", ISECT.StackCounter, ISECT.closest_hit_bvh_cuda,
+              ISECT.closest_hit_bvh_plain,
+              lambda scene: scene["bvh_meta"]),
+    "bvh": ("k8", ISECT.LinkedCounter, ISECT.closest_hit_bvh_linked_cuda,
+            ISECT.closest_hit_bvh_linked_plain,
+            lambda scene: ISECT.linked_nodes(scene["bvh_meta"],
+                                             scene["bvh_links"])),
+}
+
+
+def phase_bvh2(dev, report, large: dict):
+    """K7 and K8 on the large box's camera, bounce-1 and shadow rays
+    (``large_sets``), against their plain versions bit for bit and against
+    K3; each set's time beside its bound. K7's depth mode is held by phase
+    ``debug``."""
+    scene, rays, cases = large["scene"], large["rays"], large["cases"]
+    tri, aabb = scene["tri_isect"], scene["bvh_aabb"]
+    nt, n = tri.shape[0], rays.shape[1]
+    walk_tables = K3.walk_tables(scene)
+    say("bvh2", f"binary BVH: {aabb.shape[0]} nodes over {nt} triangles")
+    for kind, (key, counter, cuda, plain, table_of) in BVH2_KERNELS.items():
+        table = table_of(scene)
+        worst, times = 0.0, {}
+        for name, r, extra in cases:
+            o, d = r[0:3].T, r[3:6].T
+            before = counter.launches
+            kt, ki = cuda(aabb, table, tri, o, d, **extra)
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise AssertionError(f"{kind}: the wrapper did not launch")
+            visits = {}
+            t0 = time.perf_counter()
+            pt, pi = plain(aabb, table, tri, o, d, visits=visits, **extra)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            t_lanes, t_ulp, t_err = compare(kt, pt)
+            i_lanes = int((ki != pi).sum())
+            worst = max(worst, t_err)
+            if t_lanes or i_lanes:
+                raise AssertionError(
+                    f"{key} ({kind}) disagrees with its plain version on the "
+                    f"{name} rays: t on {t_lanes}, idx on {i_lanes} lanes")
+            # Against K3 on the same rays (K3 clears idx past the triangle
+            # count; the walks return the raw best, which is never past).
+            wt, wi = K3.closest_hit_walk(walk_tables, r[0:3], r[3:6],
+                                         num_tris=nt, **extra)
+            if extra.get("any_hit"):
+                # Shadow rays start on the walls, whose planes hold BVH box
+                # faces: a zero direction component there is the slab
+                # test's 0/0 = NaN (a missed box) in the binary walks and
+                # the 1e-30 stand-in in K3, so a few answers may differ.
+                occl = (kt < extra["t_max"]) != (wt < extra["t_max"])
+                apart_note = (f"occlusion answers differ from K3's on "
+                              f"{int(occl.sum())} lanes")
+                if int(occl.sum()) > 0.01 * n:
+                    raise AssertionError(f"{kind}: the shadow answers differ "
+                                         "from K3's on more than 1% of lanes")
+            else:
+                idx_apart = ki != wi
+                t_apart = kt != wt
+                apart_note = (f"against K3 idx differs on "
+                              f"{int(idx_apart.sum())} lanes, t on "
+                              f"{int(t_apart.sum())}; every difference an "
+                              f"exact-t tie: "
+                              f"{'yes' if not bool(t_apart.any()) else 'no'}")
+                if int((idx_apart | t_apart).sum()) > 0.01 * n:
+                    raise AssertionError(f"{kind} and K3 disagree on more "
+                                         f"than 1% of the {name} rays")
+            ms = device_ms(lambda: cuda(aabb, table, tri, o, d, **extra))
+            b = bvh2_bound(visits, scene, n)
+            times[name] = {"ms": ms, "plain_s": plain_s, **b,
+                           "nodes_per_ray": visits["nodes"] / n,
+                           "triangles_per_ray": visits["triangles"] / n}
+            say("bvh2", f"{key} ({kind}) {name} rays: {n} lanes "
+                f"({int((pi >= 0).sum())} hits) equal to the plain version "
+                f"on every lane; {visits['nodes'] / n:.1f} nodes and "
+                f"{visits['triangles'] / n:.1f} triangles a ray; "
+                f"{apart_note}; "
+                f"device {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}); plain {plain_s * 1e3:.1f} ms")
+        cam = times["camera"]
+        report.setdefault(key, {}).update(
+            max_abs_err=worst, ms=cam["ms"], plain_ms=cam["plain_s"] * 1e3,
+            bound_ms=cam["bound_ms"], bound_by=cam["bound_by"],
+            library_ms=None, sets=times)
+
+
+def renderer_of(scene_np, **config) -> Renderer:
+    """A 512x512 Renderer on the card with ``scene_np`` loaded."""
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE, **config),
+                 device="cuda")
+    r.load_scene(scene_np)
+    return r
+
+
+def phase_debug(dev, smi, report, large: dict):
+    """The two debug views on the Cornell box and the large box, each
+    against its plain path; 1-spp Cornell renders through "stack" and
+    "bvh" against their plain paths and the K1 path."""
+    out = report.setdefault("debug", {})
+    for label, scene_np, hit in (("cornell", cornell_box(), "k1"),
+                                 ("large", large["scene_np"], "k3")):
+        r = renderer_of(scene_np)
+        for mode, counts in (("bvh_depth", dict(k7=1, k7_depth=1)),
+                             ("normal", {hit: 1})):
+            r.config.mode = mode
+            path = f"debug_{mode}_{label}"
+            view, secs = counted_render(r, 1, report, path, expect(**counts))
+            t0 = time.perf_counter()
+            plain = plain_debug(r)
+            plain_secs = time.perf_counter() - t0
+            same_image(view, plain, f"{mode} view of the {label} box against "
+                       f"its plain path ({plain_secs:.2f} s)", "debug")
+            out[path] = {"seconds": secs, "plain_seconds": plain_secs,
+                         "mean": float(view.mean())}
+            if mode == "bvh_depth" and label == "large":
+                scene = r._scene_dev
+                ro3, rd3 = DEBUG._center_rays(r._camera(), SIZE, SIZE, dev)
+                ms = device_ms(lambda: ISECT.bvh_depth_cuda(
+                    scene["bvh_aabb"], scene["bvh_meta"], ro3.T, rd3.T,
+                    float(DEBUG.MAX_DEPTH)))
+                say("debug", f"K7's depth mode on the large box's pixel "
+                    f"centres: device {ms:.4f} ms")
+                report["k7"]["depth_mode_ms"] = ms
+    brute = renderer_of(cornell_box())
+    k1_image = brute.render(spp=1)
+    for kind, key in (("stack", "k7"), ("bvh", "k8")):
+        r = renderer_of(cornell_box(), intersector=kind)
+        if r.stats()["intersector"] != kind:
+            raise AssertionError(f"intersector={kind!r} was not taken")
+        path = f"render_{kind}"
+        hdr, secs = counted_render(
+            r, 1, report, path,
+            expect(k2=MAX_BOUNCES, **{key: 2 * MAX_BOUNCES}))
+        report[key]["launches"] = report[key]["launches_by_path"][path]
+        plain_secs = checked_plain(r, 1, hdr, "debug")
+        apart = pixels_differing(hdr, k1_image)
+        say("debug", f"{kind} render, 1 spp: wall {secs:.3f} s; differs from "
+            f"the K1 path's image on {apart} pixels")
+        if apart > 0.01 * SIZE * SIZE:
+            raise AssertionError(f"the {kind} render differs from the K1 "
+                                 "render on more than 1% of its pixels")
+        out[path] = {"seconds": secs, "plain_seconds": plain_secs,
+                     "pixels_apart_from_k1": apart}
+
+
+# K9's work a pixel a level: 25 taps of 44 operations (the normal dot
+# product and its clamp, pow, the depth and luminance terms with their two
+# exps, the weight's products, the three sums) and 15 of its own (the centre
+# luminance, sig_l, the two normalizations); bytes: colour, normal, depth,
+# variance and found read once, colour and variance written once.
+ATROUS_OPS = 25 * 44 + 15
+ATROUS_BYTES = 12 + 12 + 4 + 4 + 1 + 12 + 4
+
+
+def phase_denoise(dev, smi, report, profile: str | None = None):
+    """The flagship at 64 spp, then ``aovs()``, ``denoise()`` and
+    ``image(denoise=True)``: K9 against its plain version at every level on
+    the path's own inputs, the whole ``denoise()`` against the plain path,
+    and the times."""
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    r.load_scene(cornell_box())
+    r.render(spp=SPP)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    aovs = r.aovs()
+    torch.cuda.synchronize()
+    aov_secs = time.perf_counter() - t0
+    found = float(aovs["found"].float().mean())
+    dn, secs = timed(lambda: r.denoise())
+    counts = launch_counts()
+    say("denoise", f"aovs() {aov_secs * 1e3:.1f} ms ({100 * found:.1f}% of "
+        f"pixels hit); denoise() wall {secs * 1e3:.1f} ms; launches "
+        + ", ".join(f"{k.upper()} {v}" for k, v in counts.items() if v))
+    if counts != expect(k1=2, k9=5):
+        raise AssertionError("denoise: expected two dense hits (the AOV "
+                             "passes of aovs() and of denoise) and 5 K9 "
+                             "launches")
+    report.setdefault("k9", {})["launches"] = 5
+    if dn.shape != (SIZE, SIZE, 3) or not np.isfinite(dn).all():
+        raise AssertionError("denoise: the image is not finite")
+    img = r.image(denoise=True)
+    raw = r.image()
+    if not np.isfinite(img).all() or img.shape != raw.shape:
+        raise AssertionError("image(denoise=True) is not a finite image")
+
+    # Every level of the path: the kernel against the plain version on the
+    # same inputs, and each level's inputs kept for the times.
+    levels, worst = [], 0.0
+
+    def checking_level(*args, **kw):
+        nonlocal worst
+        kout = K9.atrous_level_cuda(*args, **kw)
+        pout = K9.atrous_level_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for k, p, what in zip(kout, pout, ("colour", "variance")):
+            lanes, ulp, err = compare(k.reshape(-1), p.reshape(-1))
+            if lanes:
+                raise AssertionError(f"K9 level {len(levels)}: the {what} "
+                                     f"differs on {lanes} values "
+                                     f"({ulp} ulp)")
+            worst = max(worst, err)
+        levels.append((args, kw))
+        return kout
+
+    same_image(r.denoise(level=checking_level), dn,
+               "denoise() with each level checked against denoise()",
+               "denoise")
+    say("denoise", f"K9 equals its plain version at all {len(levels)} levels "
+        "(colour and variance, bit for bit)")
+    t0 = time.perf_counter()
+    plain = plain_denoise(r)
+    plain_secs = time.perf_counter() - t0
+    same_image(dn, plain, f"denoise() against the plain path "
+               f"({plain_secs:.2f} s)", "denoise")
+    level_ms = [device_ms(lambda a=a, k=k: K9.atrous_level_cuda(*a, **k))
+                for a, k in levels]
+    plain_level_ms = [eager_ms(lambda a=a, k=k: K9.atrous_level_plain(*a, **k),
+                               reps=3) for a, k in levels]
+    args, kw = levels[0]
+    filt = lambda level: K9.atrous_filter(  # noqa: E731
+        *args[:4], level=level, **kw)
+    filter_ms = eager_ms(lambda: filt(K9.atrous_level))
+    plain_filter_ms = eager_ms(lambda: filt(K9.atrous_level_plain), reps=3)
+    n = SIZE * SIZE
+    b = bound(ATROUS_BYTES * n, ATROUS_OPS * n)
+    say("denoise", "K9 device ms by level (step 1..16): "
+        + ", ".join(f"{ms:.4f}" for ms in level_ms)
+        + f"; bound {b['bound_ms']:.4f} ms a level ({b['bound_by']}); plain "
+        "level " + ", ".join(f"{ms:.2f}" for ms in plain_level_ms)
+        + f" ms; the whole filter {filter_ms:.3f} ms (plain "
+        f"{plain_filter_ms:.2f} ms) launched from Python; denoise() wall "
+        f"{secs * 1e3:.1f} ms on {smi}")
+    report["k9"].update(max_abs_err=worst, ms=float(np.median(level_ms)),
+                        plain_ms=float(np.median(plain_level_ms)),
+                        level_ms=level_ms, plain_level_ms=plain_level_ms,
+                        **b)
+    report["denoise"] = {"aovs_seconds": aov_secs, "denoise_seconds": secs,
+                         "filter_ms": filter_ms,
+                         "plain_filter_ms": plain_filter_ms,
+                         "plain_denoise_seconds": plain_secs,
+                         "mean_raw": float(raw.mean()),
+                         "mean_denoised": float(img.mean())}
+    if profile:
+        root, ext = os.path.splitext(profile)
+        report["denoise"]["profile"] = profile_call(
+            r.denoise, f"{root}_denoise{ext}", "denoise")
+
+
+ADAPTIVE_SPP = 64
+ADAPTIVE_LARGE_SPP = 8
+# The flagship's adaptive image held to its plain path at this budget (the
+# plain path of 64 spp takes about 30 s: 160 plain traces).
+ADAPTIVE_PLAIN_SPP = 16
+# The walk's adaptive render held to its plain path: the 8,706-triangle box
+# (the large box's plain walk takes about 30 s a frame) at 256x256, 3 spp
+# (2 warmup frames and 4 rounds of 16,384 lanes, which the walk sorts), 2
+# bounces (the plain walk syncs the host once a stack pop).
+ADAPTIVE_PLAIN_WALK = (PHASED_TESSELLATION, 256, 3, 2)
+
+
+def adaptive_launches(spp: int, n: int) -> tuple:
+    """(traces, rounds) of ``render_adaptive(spp)`` at ``n`` pixels with
+    the default fractions."""
+    n0 = max(2, int(round(spp * 0.5)))
+    k = min(n, max(ADAPTIVE.LANE_QUANTUM, -(-int(round(n * 0.25))
+                                             // ADAPTIVE.LANE_QUANTUM)
+                   * ADAPTIVE.LANE_QUANTUM))
+    rounds = int(round((spp - n0) * n / k))
+    return n0 + rounds, rounds
+
+
+ADAPTIVE_REPEATS = 2
+
+
+def counted_adaptive(r: Renderer, spp: int, report: dict, path: str,
+                     expected: dict):
+    """``r.render_adaptive(spp)`` after a reset, with every launch count
+    set to 0 just before and read just after (they must equal
+    ``expected``), then ADAPTIVE_REPEATS more; returns (image, the first
+    wall seconds, its rays, the median wall of the repeats)."""
+    r.reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    rays0 = int(r._counters.sum())
+    hdr, secs = timed(lambda: r.render_adaptive(spp))
+    counts = launch_counts()
+    rays = int(r._counters.sum()) - rays0
+    say(path, f"render_adaptive({spp}) at {r.config.width}x"
+        f"{r.config.height}: wall {secs:.3f} s, {rays} rays, "
+        f"{rays / secs / 1e6:.3f} Mrays/s; launches "
+        + ", ".join(f"{k.upper()} {v}" for k, v in counts.items() if v))
+    if counts != expected:
+        raise AssertionError(f"{path}: expected launches {expected}")
+    if not np.isfinite(hdr).all():
+        raise AssertionError(f"{path}: the image is not finite")
+    walls = []
+    for _ in range(ADAPTIVE_REPEATS):
+        r.reset()
+        walls.append(timed(lambda: r.render_adaptive(spp))[1])
+    med = float(np.median(walls))
+    say(path, f"{ADAPTIVE_REPEATS} more: wall median {med:.3f} s (min "
+        f"{min(walls):.3f}, max {max(walls):.3f}), {rays / med / 1e6:.3f} "
+        "Mrays/s at the median")
+    return hdr, secs, rays, med
+
+
+def phase_adaptive(dev, smi, report, large: dict,
+                   profile: str | None = None):
+    """``render_adaptive`` on the flagship (64 spp) and on the large box
+    through the walk (8 spp): launch counts, wall and Mrays/s, the
+    flagship's image against its plain path, and the walk's against its
+    plain path on the cut of ``ADAPTIVE_PLAIN_WALK``."""
+    out = report.setdefault("adaptive", {})
+    n = SIZE * SIZE
+    traces, rounds = adaptive_launches(ADAPTIVE_SPP, n)
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    r.load_scene(cornell_box())
+    hdr, secs, rays, med = counted_adaptive(
+        r, ADAPTIVE_SPP, report, "adaptive",
+        expect(k1=2 * MAX_BOUNCES * traces, k2=MAX_BOUNCES * traces))
+    _, plain_rounds = adaptive_launches(ADAPTIVE_PLAIN_SPP, n)
+    r.reset()
+    hdr = r.render_adaptive(ADAPTIVE_PLAIN_SPP)
+    t0 = time.perf_counter()
+    plain = plain_adaptive(r, ADAPTIVE_PLAIN_SPP)
+    plain_secs = time.perf_counter() - t0
+    same_image(hdr, plain, f"the flagship's render_adaptive("
+               f"{ADAPTIVE_PLAIN_SPP}) ({plain_rounds} rounds) against its "
+               f"plain path ({plain_secs:.1f} s)", "adaptive")
+    out["flagship"] = {"spp": ADAPTIVE_SPP, "rounds": rounds,
+                       "seconds": secs, "rays": rays,
+                       "mrays_per_sec": rays / secs / 1e6,
+                       "repeat_median_seconds": med,
+                       "plain_spp": ADAPTIVE_PLAIN_SPP,
+                       "plain_seconds": plain_secs}
+    if profile:
+        root, ext = os.path.splitext(profile)
+
+        def again():
+            r.reset()
+            r.render_adaptive(ADAPTIVE_SPP)
+
+        out["flagship"]["profile"] = profile_call(
+            again, f"{root}_adaptive{ext}", "adaptive")
+    r = renderer_of(large["scene_np"])
+    traces, rounds = adaptive_launches(ADAPTIVE_LARGE_SPP, n)
+    hdr, secs, rays, med = counted_adaptive(
+        r, ADAPTIVE_LARGE_SPP, report, "adaptive_large",
+        expect(k3=2 * MAX_BOUNCES * traces, k2=MAX_BOUNCES * traces))
+    out["large"] = {"spp": ADAPTIVE_LARGE_SPP, "rounds": rounds,
+                    "seconds": secs, "rays": rays,
+                    "mrays_per_sec": rays / secs / 1e6,
+                    "repeat_median_seconds": med}
+    tess, size, spp, bounces = ADAPTIVE_PLAIN_WALK
+    r = Renderer(RenderConfig(width=size, height=size, max_bounces=bounces),
+                 device="cuda")
+    r.load_scene(tessellated_box(tess)[0])
+    if r.stats()["intersector"] != "walk":
+        raise AssertionError("the mid-size box must take the walk")
+    got = r.render_adaptive(spp)
+    t0 = time.perf_counter()
+    plain = plain_adaptive(r, spp)
+    plain_secs = time.perf_counter() - t0
+    same_image(got, plain, f"cornell_box(tessellation={tess}) adaptive at "
+               f"{size}x{size}, {spp} spp, {bounces} bounces, through the "
+               f"walk, against its plain path ({plain_secs:.1f} s)",
+               "adaptive")
+    out["walk_plain_check"] = {"tessellation": tess, "size": size,
+                               "spp": spp, "max_bounces": bounces,
+                               "plain_seconds": plain_secs}
+
+
 def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
     name = kernel_name.replace("(anonymous namespace)::", "")
@@ -2496,10 +3005,48 @@ def profile_frames(r: Renderer, path: str, phase: str) -> None:
                             for name, us in top))
 
 
+def profile_call(fn, path: str, phase: str) -> dict:
+    """``torch.profiler``'s table of one call of ``fn`` to ``path``: its
+    wall unprofiled, the device's busy time and share of it, and the four
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=activities):  # the tracer's start-up
+        fn()
+        torch.cuda.synchronize()
+    _, wall = timed(fn)
+    with torch_profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    by_name: dict = {}
+    for e in device:
+        by_name[short(e.name)] = (by_name.get(short(e.name), 0.0)
+                                  + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
+    say(phase, f"profile of one call: wall {wall * 1e3:.3f} ms unprofiled, "
+        f"device busy {busy_ms:.3f} ms in {len(device)} device events "
+        f"({100 * busy_ms / (wall * 1e3):.1f}% of the wall); top: "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in top))
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+            "device_events": len(device), "top": top}
+
+
 # The phases in their order; "k3" and "dispatch" share the large box's
 # scene and rays (``large_sets``).
 PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
-          "dispatch", "dispatch_paths", "k2_lds", "rng_paths", "gltf", "env")
+          "dispatch", "dispatch_paths", "k2_lds", "rng_paths", "gltf", "env",
+          "bvh2", "debug", "denoise", "adaptive")
+# The phases that share the large box (``large_sets``).
+LARGE_USERS = ("k3", "dispatch", "bvh2", "debug", "adaptive")
 # The keys every kernel's entry in the kernels line carries.
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -2550,6 +3097,18 @@ def kernels_line(report: dict, complete: bool) -> list:
         {"name": "cluster", "route": "cuda",
          "source": f"{pkg}/csrc/cluster.cu",
          "replaces": f"{ref}/cluster.py:73", **report.get("k6", {})},
+        # K7-K9 replace functions the JAX package leaves to XLA: the two
+        # binary-BVH walks (K7's depth mode the debug view's walk too) and
+        # one level of the denoiser's filter.
+        {"name": "bvh_stack", "route": "cuda", "source": f"{pkg}/csrc/bvh2.cu",
+         "replaces": f"{ref}/intersect.py:136",
+         "also_replaces": "wgpu_path_tracing_tpu/debug/modes.py:46",
+         **report.get("k7", {})},
+        {"name": "bvh_linked", "route": "cuda",
+         "source": f"{pkg}/csrc/bvh2.cu",
+         "replaces": f"{ref}/intersect.py:233", **report.get("k8", {})},
+        {"name": "atrous", "route": "cuda", "source": f"{pkg}/csrc/atrous.cu",
+         "replaces": f"{ref}/denoise.py:177", **report.get("k9", {})},
     ]
     full = [k for k in kernels if all(key in k for key in KERNEL_KEYS)]
     if complete and len(full) != len(kernels):
@@ -2625,7 +3184,7 @@ def main() -> int:
     large: dict = {}
 
     def large_box() -> dict:
-        # Built once, for "k3" and "dispatch"; dropped after them.
+        # Built once, for LARGE_USERS; dropped after the last of them.
         if not large:
             large.update(large_sets(dev))
         return large
@@ -2646,14 +3205,20 @@ def main() -> int:
         "rng_paths": lambda: phase_rng_paths(dev, smi, report, profile),
         "gltf": lambda: phase_gltf(dev, smi, report, profile),
         "env": lambda: phase_env(dev, smi, report, profile),
+        "bvh2": lambda: phase_bvh2(dev, report, large_box()),
+        "debug": lambda: phase_debug(dev, smi, report, large_box()),
+        "denoise": lambda: phase_denoise(dev, smi, report, profile),
+        "adaptive": lambda: phase_adaptive(dev, smi, report, large_box(),
+                                           profile),
     }
     t_start = time.perf_counter()
+    last_large = [p for p in PHASES if p in wanted and p in LARGE_USERS]
     for phase in PHASES:
         if phase not in wanted:
             continue
         t_phase = time.perf_counter()
         phases[phase]()
-        if phase == "dispatch" or (phase == "k3" and "dispatch" not in wanted):
+        if last_large and phase == last_large[-1]:
             large.clear()
         say("done", f"phase {phase} in {time.perf_counter() - t_phase:.1f} s")
 
@@ -2661,7 +3226,7 @@ def main() -> int:
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
              "stratified", "hash", "frames_per_trace", "checkpoint", "gltf",
-             "env")
+             "env", "debug", "denoise", "adaptive")
     print(json.dumps({"kernels": kernels,
                       **{path: report[path] for path in paths
                          if path in report},

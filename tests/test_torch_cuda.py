@@ -11,10 +11,14 @@ with and without its environment map's ENV instantiation),
 K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
 ragged counts, sparse and dead lanes, past one gate window, at other
 block sizes and with unordered slots), K6
-(csrc/cluster.cu) and the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
-sign of a zero) must equal the plain versions bit for bit: both round
-every float32 operation the same way (the kernels are built with
--fmad=false and IEEE division and square root).
+(csrc/cluster.cu), the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
+sign of a zero), K7 and K8 (csrc/bvh2.cu: the binary-BVH walks, K7 also in
+its depth mode and with an overflowing stack) and K9 (csrc/atrous.cu, each
+level of the denoiser) must equal the plain versions bit for bit: both
+round every float32 operation the same way (the kernels are built with
+-fmad=false and IEEE division and square root). So must the Renderer's
+"stack" and "bvh" renders, its debug views, ``denoise`` and
+``render_adaptive`` their plain paths.
 """
 
 import dataclasses
@@ -27,6 +31,10 @@ from chip_smoke import (
     ADVERSARIAL,
     DISPATCH,
     adversarial_case,
+    left_spine,
+    plain_adaptive,
+    plain_debug,
+    plain_denoise,
     env_map,
     with_env,
     lane_mix_box,
@@ -59,6 +67,7 @@ from wgpu_path_tracing_tpu_torch.ops import dense_hit as K1
 from wgpu_path_tracing_tpu_torch.ops import intersect as INTERSECT
 from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
 from wgpu_path_tracing_tpu_torch.ops import cluster as K6
+from wgpu_path_tracing_tpu_torch.ops import denoise as K9
 from wgpu_path_tracing_tpu_torch.ops import pairs as K4
 from wgpu_path_tracing_tpu_torch.ops import phased as K5
 from wgpu_path_tracing_tpu_torch.ops import walk as K3
@@ -874,3 +883,139 @@ def test_renderer_gltf_path_equals_plain_path(dev, tmp_path):
     np.testing.assert_array_equal(kernel.view(np.uint32),
                                   plain.view(np.uint32))
     assert load_model(str(path)).num_triangles == r.scene.num_triangles
+
+
+def _walk_cases(scene, rays, dev):
+    """Camera rays, the bounce-1 rays of a plain bounce (a third of them
+    dead) and shadow rays with t_max and any_hit."""
+    n = rays.shape[1]
+    rng = np.random.default_rng(4)
+    o, d = rays[0:3].T, rays[3:6].T
+    alive = torch.from_numpy(rng.random(n) > 0.33).to(dev)
+    t_max = torch.from_numpy(rng.uniform(0.2, 3.0, n).astype(
+        np.float32)).to(dev)
+    d2 = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    d2 = d2 / d2.norm(dim=1, keepdim=True)
+    t, _ = K1.closest_hit_dense_plain(scene["tri_isect"], rays)
+    hit_o = torch.where(torch.isfinite(t)[:, None], o + d * t[:, None], o)
+    return [(o, d, {}), (hit_o.contiguous(), d2.contiguous(),
+                         {"active": alive}),
+            (hit_o.contiguous(), d2.contiguous(),
+             {"active": alive, "t_max": t_max, "any_hit": True})]
+
+
+@pytest.mark.parametrize("kind", ["stack", "bvh"])
+@pytest.mark.parametrize("scene_fn", [cornell_box,
+                                      lambda: cornell_box(tessellation=6)])
+def test_bvh_walk_kernels_equal_plain(dev, kind, scene_fn):
+    _, scene, rays, _ = _rays(scene_fn, dev)
+    aabb, tri = scene["bvh_aabb"], scene["tri_isect"]
+    if kind == "stack":
+        table, counter = scene["bvh_meta"], INTERSECT.StackCounter
+        cuda, plain = (INTERSECT.closest_hit_bvh_cuda,
+                       INTERSECT.closest_hit_bvh_plain)
+    else:
+        table = INTERSECT.linked_nodes(scene["bvh_meta"], scene["bvh_links"])
+        counter = INTERSECT.LinkedCounter
+        cuda, plain = (INTERSECT.closest_hit_bvh_linked_cuda,
+                       INTERSECT.closest_hit_bvh_linked_plain)
+    for o, d, kw in _walk_cases(scene, rays, dev):
+        before = counter.launches
+        kt, ki = cuda(aabb, table, tri, o, d, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        pt, pi = plain(aabb, table, tri, o, d, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("depth,steps", [(2, 40), (3, 60), (64, 10_000)])
+def test_stack_kernel_overflow_and_step_cap_equal_plain(dev, depth, steps):
+    spine = {k: torch.from_numpy(v).to(dev)
+             for k, v in left_spine(12).items()}
+    o, d = spine_rays(4096, 13, 2, dev)
+    o, d = o.T.contiguous(), d.T.contiguous()
+    args = (spine["bvh_aabb"], spine["bvh_meta"], spine["tri_isect"], o, d)
+    kt, ki = INTERSECT.closest_hit_bvh_cuda(*args, stack_depth=depth,
+                                            max_steps=steps)
+    pt, pi = INTERSECT.closest_hit_bvh_plain(*args, stack_depth=depth,
+                                             max_steps=steps)
+    assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+    kd = INTERSECT.bvh_depth_cuda(spine["bvh_aabb"], spine["bvh_meta"], o, d,
+                                  24.0, depth, steps)
+    pd = INTERSECT.bvh_depth_plain(spine["bvh_aabb"], spine["bvh_meta"], o,
+                                   d, 24.0, depth, steps)
+    assert torch.equal(_bits(kd), _bits(pd))
+
+
+def test_atrous_kernel_equals_plain_at_every_level(dev):
+    rng = np.random.default_rng(0)
+    h, w = 96, 80
+    color = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32)
+                             * 2).to(dev)
+    normal = torch.from_numpy(rng.normal(size=(h, w, 3)).astype(
+        np.float32)).to(dev)
+    normal = normal / normal.norm(dim=-1, keepdim=True)
+    depth = torch.from_numpy(rng.uniform(1, 5, (h, w)).astype(
+        np.float32)).to(dev)
+    found = torch.from_numpy(rng.random((h, w)) > 0.2).to(dev)
+    var = torch.from_numpy(rng.random((h, w), dtype=np.float32)
+                           * 0.1).to(dev)
+    normal[~found] = 0.0
+    depth[~found] = 0.0
+    for i in range(5):
+        before = K9.Counter.launches
+        kc, kv = K9.atrous_level(color, normal, depth, found, var, 1 << i)
+        torch.cuda.synchronize()
+        assert K9.Counter.launches == before + 1
+        pc, pv = K9.atrous_level_plain(color, normal, depth, found, var,
+                                       1 << i)
+        assert torch.equal(_bits(kc), _bits(pc)), i
+        assert torch.equal(_bits(kv), _bits(pv)), i
+        color, var = pc, pv
+
+
+@pytest.mark.parametrize("kind", ["stack", "bvh"])
+def test_renderer_binary_bvh_paths_equal_plain_path(dev, kind):
+    r = Renderer(RenderConfig(width=W, height=H, intersector=kind),
+                 device="cuda")
+    r.load_scene(cornell_box())
+    assert r.stats()["intersector"] == kind
+    counter = (INTERSECT.StackCounter if kind == "stack"
+               else INTERSECT.LinkedCounter)
+    before = counter.launches
+    kernel = r.render(spp=2)
+    assert counter.launches == before + 4 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=2).view(np.uint32))
+
+
+@pytest.mark.parametrize("mode", ["normal", "bvh_depth"])
+def test_renderer_debug_views_equal_plain_path(dev, mode):
+    r = Renderer(RenderConfig(width=W, height=H, mode=mode), device="cuda")
+    r.load_scene(cornell_box())
+    before = (K1.Counter.launches, INTERSECT.StackCounter.depth)
+    view = r.render(spp=1)
+    after = (K1.Counter.launches, INTERSECT.StackCounter.depth)
+    assert after == ((before[0] + 1, before[1]) if mode == "normal"
+                     else (before[0], before[1] + 1))
+    np.testing.assert_array_equal(view.view(np.uint32),
+                                  plain_debug(r).view(np.uint32))
+
+
+def test_renderer_denoise_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(cornell_box())
+    r.render(spp=4)
+    before = K9.Counter.launches
+    got = r.denoise()
+    assert K9.Counter.launches == before + 5
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  plain_denoise(r).view(np.uint32))
+
+
+def test_renderer_adaptive_equals_plain_path(dev):
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_scene(cornell_box())
+    got = r.render_adaptive(8)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  plain_adaptive(r, 8).view(np.uint32))

@@ -178,8 +178,9 @@ def test_make_closest_hit_dense_only():
     assert make_closest_hit(no_walk, brute_max_tris=16).strategy == "pairs"
     assert make_closest_hit(no_walk, intersector="brute",
                             brute_max_tris=16).strategy == "brute"
+    assert make_closest_hit(scene, intersector="stack").strategy == "stack"
     with pytest.raises(NotImplementedError):
-        make_closest_hit(scene, intersector="stack")
+        make_closest_hit(scene, intersector="walk_hbm")
     # active / t_max / any_hit are accepted and ignored, as in the JAX
     # package's dense branch.
     rng = np.random.default_rng(0)

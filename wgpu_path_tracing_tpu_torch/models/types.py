@@ -408,8 +408,9 @@ def check_bf16_exact(atlas: np.ndarray) -> None:
 def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
     """Build the packed device tables as NumPy arrays.
 
-    Returns a dict with tri_isect, tri_full, light_full, atlas, bvh_aabb,
-    the dispatch intersectors' tables cluster_tris and cluster_aabb
+    Returns a dict with tri_isect, tri_full, light_full, atlas, the binary
+    BVH's bvh_aabb, bvh_meta and bvh_links (``accel/bvh.py::build_links``:
+    the hit and miss links of the linked walk, -1 filled), the dispatch intersectors' tables cluster_tris and cluster_aabb
     (``ops/cluster.py::build_clusters``, ``cluster_k`` triangles a cluster)
     and pairs_tris and pairs_super_aabb (``ops/pairs.py::
     build_pair_tables``), the walk tables walk_order, walk_boxes and
@@ -417,10 +418,10 @@ def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
     walk tables are omitted when the wide tree is too deep for the walk's
     stack bound (``accel/bvh8.py::WideBVHDepthError``; the pair dispatch
     then takes the scene), and the fat tables unless ``_build_fat_atlas``
-    bakes them, both exactly as in the JAX package. The BVH link table is
-    not built: no intersector of this package reads it. Raises ValueError
-    for an atlas that is not bf16-exact.
+    bakes them, both exactly as in the JAX package. Raises ValueError for an
+    atlas that is not bf16-exact.
     """
+    from wgpu_path_tracing_tpu_torch.accel.bvh import build_links
     from wgpu_path_tracing_tpu_torch.ops.cluster import build_clusters
     from wgpu_path_tracing_tpu_torch.ops.pairs import build_pair_tables
 
@@ -471,10 +472,12 @@ def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
     b = scene.bvh_meta.shape[0]
     bvh_aabb = np.zeros((max(b, 1), 6), np.float32)
     bvh_meta = np.zeros((max(b, 1), 4), np.int32)
+    bvh_links = np.full((max(b, 1), 2), -1, np.int32)
     if b:
         bvh_aabb[:b, 0:3] = scene.bvh_aabb_min
         bvh_aabb[:b, 3:6] = scene.bvh_aabb_max
         bvh_meta[:b] = scene.bvh_meta.astype(np.int32)
+        bvh_links[:b] = build_links(bvh_meta[:b])
 
     atlas = scene.atlas
     if atlas is None:
@@ -535,6 +538,8 @@ def pack_device_scene(scene: SceneArrays, cluster_k: int = 64):
         "light_full": light_full,
         "atlas": np.asarray(atlas, np.float32),
         "bvh_aabb": bvh_aabb,
+        "bvh_meta": bvh_meta,
+        "bvh_links": bvh_links,
         "cluster_tris": cluster_tris,
         "cluster_aabb": cluster_aabb,
         "pairs_tris": pairs_tris,
@@ -572,6 +577,9 @@ DEVICE_KEYS = {
     "cluster_aabb": np.float32,
     "pairs_tris": np.float32,
     "pairs_super_aabb": np.float32,
+    "bvh_aabb": np.float32,
+    "bvh_meta": np.int32,
+    "bvh_links": np.int32,
     "walk_order": np.int32,
     "walk_boxes": np.float32,
     "walk_tris": np.float32,
@@ -583,7 +591,8 @@ DEVICE_KEYS = {
 def load_jax_scene(packed: dict, device) -> dict:
     """Upload a packed scene (``pack_device_scene`` output of either package,
     as NumPy arrays) to contiguous tensors on ``device``, each in its
-    ``DEVICE_KEYS`` dtype (``walk_order`` stays int32), and beside them
+    ``DEVICE_KEYS`` dtype (``walk_order``, ``bvh_meta`` and ``bvh_links``
+    stay int32), and beside them
     ``"texture_slots_used"``, the scene's ``texture_slots_used`` tuple,
     worked out once here from the host-side table, and ``"root_box"``, row 0
     of ``bvh_aabb`` (the scene's root box [min3 | max3], which the walk's ray
@@ -591,7 +600,7 @@ def load_jax_scene(packed: dict, device) -> dict:
 
     Only the keys in ``DEVICE_KEYS`` are read, and the walk and fat-atlas
     tables only where the scene has them; the JAX package's extra tables
-    (BVH links, materials, lights, env) are ignored. Raises if CUDA is asked for and
+    (materials, lights, env) are ignored. Raises if CUDA is asked for and
     absent: there is no silent CPU fallback.
     """
     import torch

@@ -38,6 +38,9 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# K7's stack entries a ray at most (csrc/bvh2.cu kMaxStack).
+BVH_MAX_STACK = 64
 # C signatures of the exported launchers; each returns cudaGetLastError().
 SIGNATURES = {
     "wpt_dense_hit": [_P, _P, _P, _P, _P, _I, _I, _P],  # ro, rd, tris, t, idx
@@ -80,6 +83,26 @@ SIGNATURES = {
         _P, _P, _P, _P,  # ro, rd, limit, active (or NULL)
         _P, _P,  # out t, idx
         _I, _I, _I, _I, _I, _P,  # n, clusters, k, max_rounds, num_tris, stream
+    ],
+    "wpt_bvh_stack": [
+        _P, _P, _P,  # bvh_aabb, bvh_meta, tri_isect (NULL in depth mode)
+        _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
+        _P, _P,  # out t (or depth), idx
+        _I, _I, _I, _I, _I,  # n, nodes, tris, leaf_size, stack_depth
+        _I, _I, _I, _F, _P,  # any_hit, max_steps, depth mode, its norm, stream
+    ],
+    "wpt_bvh_linked": [
+        _P, _P, _P,  # bvh_aabb, the linked nodes, tri_isect
+        _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
+        _P, _P,  # out t, idx
+        _I, _I, _I, _I, _I, _I, _P,  # n, nodes, tris, leaf_size, any_hit,
+        # max_steps, stream
+    ],
+    "wpt_atrous_level": [
+        _P, _P, _P, _P, _P,  # color, normal, depth, found, var
+        _P, _P,  # out color, var
+        _I, _I, _I,  # h, w, step
+        _F, _F, _F, _P,  # sigma_normal, sigma_depth, sigma_lum, stream
     ],
 }
 

@@ -1,14 +1,24 @@
-"""Dense ray-triangle intersection, plain PyTorch.
+"""Ray-triangle intersection and the choice of intersector.
 
-The counterpart of the dense half of the JAX package's ``ops/intersect.py``:
-Möller-Trumbore with EPSILON = 1e-6 (pt.wgsl:123-157) over triangles packed
-as [v0, e1, e2] rows, every ray against every triangle. A miss is
-(t = inf, idx = -1); ties go to the lowest triangle index, as the reference's
-strict ``hit.t < closest.t`` gives (pt.wgsl:275).
+The counterpart of the JAX package's ``ops/intersect.py``:
 
-The expressions follow ``ops/pallas_kernels.py::_brute_kernel`` term by term
-(the kernel in ``csrc/dense_hit.cu`` does too), so on the card the kernel and
-this plain version agree bit for bit.
+* the dense closest hit: Möller-Trumbore with EPSILON = 1e-6
+  (pt.wgsl:123-157) over triangles packed as [v0, e1, e2] rows, every ray
+  against every triangle; ties go to the lowest triangle index, as the
+  reference's strict ``hit.t < closest.t`` gives (pt.wgsl:275). The
+  expressions follow ``ops/pallas_kernels.py::_brute_kernel`` term by term
+  (the kernel K1 in ``csrc/dense_hit.cu`` does too);
+* the two walks of the binary BVH, ``closest_hit_bvh`` (a fixed stack per
+  ray, K7) and ``closest_hit_bvh_linked`` (stackless, over the hit and miss
+  links, K8), and K7's depth mode ``bvh_depth`` (the debug heat map). Each
+  has a plain version, the JAX ``lax.while_loop`` as a Python loop, and a
+  CUDA kernel in ``csrc/bvh2.cu``;
+* ``make_closest_hit``, which picks one of these or the wide-BVH walk and
+  the dispatch intersectors of ``ops/walk.py``, ``ops/pairs.py``,
+  ``ops/phased.py`` and ``ops/cluster.py``.
+
+A miss is (t = inf, idx = -1). On the card each kernel and its plain version
+agree bit for bit: the kernels round every operation as PyTorch does.
 """
 
 from __future__ import annotations
@@ -16,6 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from wgpu_path_tracing_tpu_torch.ops import cuda_lib
+from wgpu_path_tracing_tpu_torch.ops.blocks import count_work
 
 EPSILON = 1e-6  # pt.wgsl:4
 
@@ -73,6 +86,480 @@ def closest_hit_brute(tri_isect: torch.Tensor, ro: torch.Tensor,
         best_t = torch.where(better, c_t, best_t)
         best_idx = torch.where(better, base + c_idx, best_idx)
     return best_t, best_idx
+
+
+def slab_test(ro, rd, box_min, box_max):
+    """Slab AABB test (pt.wgsl:234-245) of (N, 3) rays against (N, 3) box
+    corners, dividing by the direction as the JAX package's ``slab_test``
+    does: a zero component gives +-inf or NaN, and ``torch.minimum``,
+    ``torch.amax`` and their kin carry NaN through, so such a lane's hit is
+    false. Returns (hit, t_near)."""
+    t1 = (box_min - ro) / rd
+    t2 = (box_max - ro) / rd
+    t_near = torch.amax(torch.minimum(t1, t2), dim=-1)
+    t_far = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return (t_far >= t_near) & (t_far >= 0.0), t_near
+
+
+# The binary-BVH walks' defaults (the JAX package's): the reference's stack
+# of 64 entries (pt.wgsl:249), the leaf size of the build (bvh.ts:86), and
+# the loops' step caps.
+STACK_DEPTH = 64
+LEAF_SIZE = 4
+STACK_MAX_STEPS = 1_000_000
+LINKED_MAX_STEPS = 4_000_000
+INT32_MIN = -(1 << 31)
+
+
+class StackCounter:
+    """Launches of K7, the stack walk, in this process; ``depth`` counts
+    those of them that ran its depth mode."""
+
+    launches = 0
+    depth = 0
+
+
+class LinkedCounter:
+    """Launches of K8, the linked walk, in this process."""
+
+    launches = 0
+
+
+def _rows(idx, size: int):
+    """Row indices as XLA's gather takes them: a negative index counts from
+    the end, then the index is clamped into [0, size)."""
+    idx = idx.long()
+    return torch.clamp(torch.where(idx < 0, idx + size, idx), 0, size - 1)
+
+
+def _leaf_tests(tri_isect, ro, rd, meta_off, count, do_leaf, best_t,
+                best_i, leaf_size: int):
+    """The JAX walks' leaf loop on the lanes of ``ro``/``rd``: triangles
+    ``meta_off + i`` for i < min(count, leaf_size), in order, each kept on
+    a strict ``<``. The ``leaf_size`` tests run as one broadcast; the
+    sequential updates keep the first of the least valid t's, where it is
+    below ``best_t``, which is what this reduction keeps. Returns the
+    updated (best_t, best_i)."""
+    if leaf_size <= 0:
+        return best_t, best_i
+    nt = tri_isect.shape[0]
+    slot = torch.arange(leaf_size, device=ro.device)
+    do = do_leaf[:, None] & (slot < count[:, None])
+    tri = torch.where(do, meta_off[:, None] + slot.to(meta_off.dtype), 0)
+    tdata = tri_isect[_rows(tri, nt)]  # (L, leaf_size, 9)
+    o = [x[:, None] for x in ro.unbind(1)]
+    d = [x[:, None] for x in rd.unbind(1)]
+    t, _, _, valid = moller_trumbore(*o, *d, *tdata.unbind(2))
+    t = torch.where(do & valid, t, math.inf)
+    t_min = t.min(dim=1).values
+    first = torch.where(t == t_min[:, None], slot, leaf_size).min(dim=1)
+    better = t_min < best_t
+    win = torch.gather(tri, 1, torch.clamp_max(first.values, leaf_size - 1)
+                       [:, None])[:, 0]
+    return (torch.where(better, t_min, best_t),
+            torch.where(better, win, best_i))
+
+
+# The plain walks step the lanes that had work at their last compaction,
+# masked as the JAX loops mask every lane, and compact (one host sync)
+# every COMPACT_EVERY steps.
+COMPACT_EVERY = 16
+
+
+def _stack_step(stack, sp, lanes, has, push, spm1, meta):
+    """A step's stack update on ``lanes`` as the JAX walk makes it: the
+    popped slot takes the right child (dropped when the slot lies past the
+    stack), then slot min(spm1 + 1, depth - 1) the left child, so at a full
+    stack the left child overwrites the right; on the lanes that had work
+    (``has``) the pointer moves to spm1 + 2 on a push, to spm1 otherwise."""
+    depth = stack.shape[1]
+    slot2 = torch.clamp_max(spm1 + 1, depth - 1)
+    right = push & (spm1 < depth)
+    stack[lanes[right], spm1[right]] = meta[right, 1]
+    stack[lanes[push], slot2[push]] = meta[push, 0]
+    sp[lanes] = torch.where(has, torch.where(push, spm1 + 2, spm1), sp[lanes])
+
+
+def _pop(stack, sp, lanes):
+    """(has, spm1, node) of ``lanes``: whether the lane has work, the
+    post-pop pointer max(sp - 1, 0), and the node at it: INT32_MIN for a
+    slot past the stack (``jnp.take_along_axis`` fills an out-of-bounds
+    read so; ``_rows`` then reads row 0), 0 on a lane without work."""
+    depth = stack.shape[1]
+    sp_l = sp[lanes]
+    has = sp_l > 0
+    spm1 = torch.clamp_min(sp_l - 1, 0)
+    node = stack[lanes, torch.clamp_max(spm1, depth - 1)]
+    node = torch.where(spm1 < depth, node, INT32_MIN)
+    return has, spm1, torch.where(has, node, 0)
+
+
+class _Work:
+    """The ``visits`` counts of a plain walk, summed on the device and read
+    once at the end."""
+
+    def __init__(self, visits: dict | None, dev):
+        self.visits = visits
+        self.nodes = torch.zeros((), dtype=torch.long, device=dev)
+        self.triangles = torch.zeros((), dtype=torch.long, device=dev)
+
+    def add(self, visited, count=None, leaf=None, leaf_size: int = 0):
+        if self.visits is None:
+            return
+        self.nodes += visited.sum()
+        if count is not None:
+            self.triangles += (torch.clamp(count, 0, leaf_size)
+                               * leaf).sum()
+
+    def done(self, triangles: bool = True) -> None:
+        if self.visits is not None:
+            count_work(self.visits, nodes=self.nodes)
+            if triangles:
+                count_work(self.visits, triangles=self.triangles)
+
+
+def closest_hit_bvh_plain(bvh_aabb, bvh_meta, tri_isect, ro, rd, active=None,
+                          t_max=None, leaf_size: int = LEAF_SIZE,
+                          stack_depth: int = STACK_DEPTH,
+                          any_hit: bool = False,
+                          max_steps: int = STACK_MAX_STEPS,
+                          visits: dict | None = None):
+    """Plain PyTorch K7: the JAX ``closest_hit_bvh`` with its
+    ``lax.while_loop`` as a Python loop that steps every lane with a
+    non-empty stack once an iteration.
+
+    bvh_aabb (B, 6) [min, max]; bvh_meta (B, 4) int32 [left, right, offset,
+    count]; tri_isect (T, 9); ro, rd (N, 3); active (N,) bool; t_max (N,)
+    float32. A popped node whose box the ray enters at or below min(best t,
+    t_max) is processed: a leaf tests its first ``leaf_size`` triangles, an
+    interior node pushes its right, then its left child (left pops first).
+    ``any_hit`` empties a lane's stack once its best t is below t_max (or
+    inf). ``max_steps`` caps the iterations. ``visits``, where given, gains
+    the "nodes" slab-tested and the "triangles" tested. Returns (t (N,),
+    idx (N,) int32), the raw best: inf and -1 where nothing was hit."""
+    n = ro.shape[0]
+    dev = ro.device
+    nb = bvh_aabb.shape[0]
+    best_t = torch.full((n,), math.inf, dtype=torch.float32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, stack_depth), dtype=torch.int32, device=dev)
+    sp = torch.ones((n,), dtype=torch.long, device=dev)
+    if active is not None:
+        sp = torch.where(active, sp, 0)
+    work = _Work(visits, dev)
+    steps = 0
+    while steps < max_steps:
+        if steps % COMPACT_EVERY == 0:
+            lanes = torch.nonzero(sp > 0).squeeze(1)
+            if lanes.numel() == 0:
+                break
+            o, d = ro[lanes], rd[lanes]
+            tm = None if t_max is None else t_max[lanes]
+        has, spm1, node = _pop(stack, sp, lanes)
+        rows = _rows(node, nb)
+        box = bvh_aabb[rows]
+        hit, t_near = slab_test(o, d, box[:, 0:3], box[:, 3:6])
+        bt = best_t[lanes]
+        limit = bt if tm is None else torch.minimum(bt, tm)
+        process = has & hit & (t_near <= limit)
+        meta = bvh_meta[rows]
+        count = meta[:, 3]
+        is_leaf = count > 0
+        bt, bi = _leaf_tests(tri_isect, o, d, meta[:, 2], count,
+                             process & is_leaf, bt, best_i[lanes], leaf_size)
+        best_t[lanes], best_i[lanes] = bt, bi
+        work.add(has, count, process & is_leaf, leaf_size)
+        _stack_step(stack, sp, lanes, has, process & ~is_leaf, spm1, meta)
+        if any_hit:
+            found = bt < (math.inf if tm is None else tm)
+            sp[lanes] = torch.where(found, 0, sp[lanes])
+        steps += 1
+    work.done()
+    return best_t, best_i
+
+
+def bvh_depth_plain(bvh_aabb, bvh_meta, ro, rd, norm: float,
+                    stack_depth: int = STACK_DEPTH,
+                    max_steps: int = STACK_MAX_STEPS,
+                    visits: dict | None = None):
+    """Plain PyTorch K7 in its depth mode: the JAX ``render_bvh_depth``
+    walk (pt_bvh.wgsl:98-130) over (N, 3) rays, every lane from the root.
+    No culling and no triangle tests: an interior node whose box the ray
+    enters pushes its children, and each step keeps the running max of the
+    post-pop pointer. Returns that max divided by ``norm`` (an IEEE
+    division, ``ops/vec.py::div_const``). ``max_steps`` caps the
+    iterations, a guard the JAX loop lacks (it has no cap: a stack that
+    overflowed on a hit root would never empty there)."""
+    from wgpu_path_tracing_tpu_torch.ops.vec import div_const
+
+    n = ro.shape[0]
+    dev = ro.device
+    nb = bvh_aabb.shape[0]
+    max_depth = torch.zeros((n,), dtype=torch.float32, device=dev)
+    stack = torch.zeros((n, stack_depth), dtype=torch.int32, device=dev)
+    sp = torch.ones((n,), dtype=torch.long, device=dev)
+    work = _Work(visits, dev)
+    steps = 0
+    while steps < max_steps:
+        if steps % COMPACT_EVERY == 0:
+            lanes = torch.nonzero(sp > 0).squeeze(1)
+            if lanes.numel() == 0:
+                break
+            o, d = ro[lanes], rd[lanes]
+        has, spm1, node = _pop(stack, sp, lanes)
+        md = max_depth[lanes]
+        max_depth[lanes] = torch.where(
+            has, torch.maximum(md, spm1.to(torch.float32)), md)
+        rows = _rows(node, nb)
+        box = bvh_aabb[rows]
+        hit, _ = slab_test(o, d, box[:, 0:3], box[:, 3:6])
+        meta = bvh_meta[rows]
+        work.add(has)
+        _stack_step(stack, sp, lanes, has, has & hit & (meta[:, 3] == 0),
+                    spm1, meta)
+        steps += 1
+    work.done(triangles=False)
+    return div_const(max_depth, norm)
+
+
+def closest_hit_bvh_linked_plain(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
+                                 active=None, t_max=None,
+                                 leaf_size: int = LEAF_SIZE,
+                                 any_hit: bool = False,
+                                 max_steps: int = LINKED_MAX_STEPS,
+                                 visits: dict | None = None):
+    """Plain PyTorch K8: the JAX ``closest_hit_bvh_linked`` (stackless:
+    each ray holds only its node) with its ``lax.while_loop`` as a Python
+    loop. bvh_nodes (B, 4) int32 [hit link, miss link, offset, count]
+    (``linked_nodes``); a node of -1 ends a lane. A node whose box the ray
+    enters at or below min(best t, t_max) tests its first ``leaf_size``
+    triangles when it is a leaf and follows its hit link, else its miss
+    link. The other arguments, ``visits`` and the result are
+    ``closest_hit_bvh_plain``'s."""
+    n = ro.shape[0]
+    dev = ro.device
+    nb = bvh_aabb.shape[0]
+    best_t = torch.full((n,), math.inf, dtype=torch.float32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    node = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if active is not None:
+        node = torch.where(active, node, -1)
+    work = _Work(visits, dev)
+    steps = 0
+    while steps < max_steps:
+        if steps % COMPACT_EVERY == 0:
+            lanes = torch.nonzero(node >= 0).squeeze(1)
+            if lanes.numel() == 0:
+                break
+            o, d = ro[lanes], rd[lanes]
+            tm = None if t_max is None else t_max[lanes]
+        cur = node[lanes]
+        valid = cur >= 0
+        rows = _rows(torch.clamp_min(cur, 0), nb)
+        box = bvh_aabb[rows]
+        hit, t_near = slab_test(o, d, box[:, 0:3], box[:, 3:6])
+        bt = best_t[lanes]
+        limit = bt if tm is None else torch.minimum(bt, tm)
+        box_hit = valid & hit & (t_near <= limit)
+        meta = bvh_nodes[rows]
+        count = meta[:, 3]
+        do_leaf = box_hit & (count > 0)
+        bt, bi = _leaf_tests(tri_isect, o, d, meta[:, 2], count, do_leaf, bt,
+                             best_i[lanes], leaf_size)
+        best_t[lanes], best_i[lanes] = bt, bi
+        work.add(valid, count, do_leaf, leaf_size)
+        nxt = torch.where(valid, torch.where(box_hit, meta[:, 0],
+                                             meta[:, 1]), -1)
+        if any_hit:
+            nxt = torch.where(bt < (math.inf if tm is None else tm), -1, nxt)
+        node[lanes] = nxt
+        steps += 1
+    work.done()
+    return best_t, best_i
+
+
+def linked_nodes(bvh_meta, bvh_links):
+    """The linked walk's (B, 4) int32 rows [hit, miss, offset, count], as
+    the JAX package's ``make_closest_hit`` concatenates them."""
+    return torch.cat([bvh_links, bvh_meta[:, 2:4]], dim=1).contiguous()
+
+
+def _check_bvh(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max) -> None:
+    n = ro.shape[0]
+    for name, x in (("ro", ro), ("rd", rd)):
+        if x.dim() != 2 or tuple(x.shape) != (n, 3):
+            raise ValueError(f"{name} must be (N, 3), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if bvh_aabb.dtype != torch.float32 or bvh_aabb.dim() != 2 or (
+            bvh_aabb.shape[1] != 6):
+        raise ValueError("bvh_aabb must be (B, 6) float32")
+    if nodes.dtype != torch.int32 or tuple(nodes.shape) != (
+            bvh_aabb.shape[0], 4):
+        raise ValueError("the node table must be (B, 4) int32")
+    if tri_isect is not None and (tri_isect.dtype != torch.float32
+                                  or tri_isect.dim() != 2
+                                  or tri_isect.shape[1] != 9):
+        raise ValueError("tri_isect must be (T, 9) float32")
+    if active is not None and (active.dtype != torch.bool
+                               or tuple(active.shape) != (n,)):
+        raise ValueError("active must be a (N,) bool tensor")
+    if t_max is not None and (t_max.dtype != torch.float32
+                              or tuple(t_max.shape) != (n,)):
+        raise ValueError("t_max must be a (N,) float32 tensor")
+    devices = {x.device for x in (bvh_aabb, nodes, tri_isect, ro, rd, active,
+                                  t_max) if x is not None}
+    if len(devices) != 1:
+        raise ValueError("the rays and the BVH tables are on different "
+                         "devices")
+
+
+def _launch_args(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max,
+                 max_steps: int):
+    """The tensors (to keep alive over the launch), pointers and step cap
+    that both kernels of ``csrc/bvh2.cu`` take: the tables contiguous (the
+    node rows read as 16-byte int4), the rays as (3, N) rows, ``max_steps``
+    held to int32."""
+    if ro.device.type != "cuda":
+        raise ValueError("the K7 and K8 launchers need CUDA tensors")
+    nodes = nodes.contiguous()
+    if nodes.data_ptr() % 16:
+        raise ValueError("the node table must start on a 16-byte boundary")
+    keep = [bvh_aabb.contiguous(), nodes,
+            None if tri_isect is None else tri_isect.contiguous(),
+            ro.T.contiguous(), rd.T.contiguous(),
+            None if active is None else active.contiguous(),
+            None if t_max is None else t_max.contiguous()]
+    ptrs = [None if x is None else x.data_ptr() for x in keep]
+    steps = max(0, min(int(max_steps), (1 << 31) - 1))
+    return keep, ptrs, steps
+
+
+def _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max,
+                  leaf_size, stack_depth, any_hit, max_steps, norm):
+    if not 1 <= stack_depth <= cuda_lib.BVH_MAX_STACK:
+        raise ValueError(f"K7 keeps 1 to {cuda_lib.BVH_MAX_STACK} stack "
+                         f"entries a ray, not {stack_depth}")
+    keep, ptrs, steps = _launch_args(bvh_aabb, bvh_meta, tri_isect, ro, rd,
+                                     active, t_max, max_steps)
+    n = ro.shape[0]
+    dev = ro.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, idx
+    err = cuda_lib.lib().wpt_bvh_stack(
+        *ptrs, t.data_ptr(), idx.data_ptr(), n, bvh_aabb.shape[0],
+        0 if tri_isect is None else tri_isect.shape[0], int(leaf_size),
+        int(stack_depth), int(bool(any_hit)), steps,
+        int(norm is not None), 1.0 if norm is None else float(norm),
+        cuda_lib.stream_ptr(ro))
+    cuda_lib.check(err, "wpt_bvh_stack")
+    StackCounter.launches += 1
+    if norm is not None:
+        StackCounter.depth += 1
+    return t, idx
+
+
+def closest_hit_bvh_cuda(bvh_aabb, bvh_meta, tri_isect, ro, rd, active=None,
+                         t_max=None, leaf_size: int = LEAF_SIZE,
+                         stack_depth: int = STACK_DEPTH,
+                         any_hit: bool = False,
+                         max_steps: int = STACK_MAX_STEPS):
+    """Launch K7 (``csrc/bvh2.cu``) on the current stream."""
+    _check_bvh(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max)
+    return _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active,
+                         t_max, leaf_size, stack_depth, any_hit, max_steps,
+                         None)
+
+
+def bvh_depth_cuda(bvh_aabb, bvh_meta, ro, rd, norm: float,
+                   stack_depth: int = STACK_DEPTH,
+                   max_steps: int = STACK_MAX_STEPS):
+    """Launch K7 in its depth mode on the current stream; returns the
+    normalized depth (N,)."""
+    _check_bvh(bvh_aabb, bvh_meta, None, ro, rd, None, None)
+    depth, _ = _stack_launch(bvh_aabb, bvh_meta, None, ro, rd, None, None,
+                             0, stack_depth, False, max_steps, norm)
+    return depth
+
+
+def closest_hit_bvh_linked_cuda(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
+                                active=None, t_max=None,
+                                leaf_size: int = LEAF_SIZE,
+                                any_hit: bool = False,
+                                max_steps: int = LINKED_MAX_STEPS):
+    """Launch K8 (``csrc/bvh2.cu``) on the current stream."""
+    _check_bvh(bvh_aabb, bvh_nodes, tri_isect, ro, rd, active, t_max)
+    keep, ptrs, steps = _launch_args(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
+                                     active, t_max, max_steps)
+    n = ro.shape[0]
+    t = torch.empty((n,), dtype=torch.float32, device=ro.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=ro.device)
+    if n == 0:
+        return t, idx
+    err = cuda_lib.lib().wpt_bvh_linked(
+        *ptrs, t.data_ptr(), idx.data_ptr(), n, bvh_aabb.shape[0],
+        tri_isect.shape[0], int(leaf_size), int(bool(any_hit)), steps,
+        cuda_lib.stream_ptr(ro))
+    cuda_lib.check(err, "wpt_bvh_linked")
+    LinkedCounter.launches += 1
+    return t, idx
+
+
+def _plain_on_cpu(x) -> None:
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def closest_hit_bvh(bvh_aabb, bvh_meta, tri_isect, ro, rd, active=None,
+                    t_max=None, leaf_size: int = LEAF_SIZE,
+                    stack_depth: int = STACK_DEPTH, any_hit: bool = False,
+                    max_steps: int = STACK_MAX_STEPS):
+    """The JAX ``closest_hit_bvh`` (the per-ray fixed stack, pt.wgsl:248-296):
+    K7 on CUDA tensors, its plain version on CPU tensors. Arguments and
+    result as ``closest_hit_bvh_plain``'s."""
+    if ro.device.type == "cuda":
+        return closest_hit_bvh_cuda(bvh_aabb, bvh_meta, tri_isect, ro, rd,
+                                    active, t_max, leaf_size, stack_depth,
+                                    any_hit, max_steps)
+    _check_bvh(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max)
+    _plain_on_cpu(ro)
+    return closest_hit_bvh_plain(bvh_aabb, bvh_meta, tri_isect, ro, rd,
+                                 active, t_max, leaf_size, stack_depth,
+                                 any_hit, max_steps)
+
+
+def bvh_depth(bvh_aabb, bvh_meta, ro, rd, norm: float,
+              stack_depth: int = STACK_DEPTH,
+              max_steps: int = STACK_MAX_STEPS):
+    """K7's depth mode (``bvh_depth_plain``) on (N, 3) rays: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if ro.device.type == "cuda":
+        return bvh_depth_cuda(bvh_aabb, bvh_meta, ro, rd, norm, stack_depth,
+                              max_steps)
+    _check_bvh(bvh_aabb, bvh_meta, None, ro, rd, None, None)
+    _plain_on_cpu(ro)
+    return bvh_depth_plain(bvh_aabb, bvh_meta, ro, rd, norm, stack_depth,
+                           max_steps)
+
+
+def closest_hit_bvh_linked(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
+                           active=None, t_max=None,
+                           leaf_size: int = LEAF_SIZE, any_hit: bool = False,
+                           max_steps: int = LINKED_MAX_STEPS):
+    """The JAX ``closest_hit_bvh_linked`` (stackless, over the hit and miss
+    links): K8 on CUDA tensors, its plain version on CPU tensors. Arguments
+    and result as ``closest_hit_bvh_linked_plain``'s."""
+    if ro.device.type == "cuda":
+        return closest_hit_bvh_linked_cuda(bvh_aabb, bvh_nodes, tri_isect,
+                                           ro, rd, active, t_max, leaf_size,
+                                           any_hit, max_steps)
+    _check_bvh(bvh_aabb, bvh_nodes, tri_isect, ro, rd, active, t_max)
+    _plain_on_cpu(ro)
+    return closest_hit_bvh_linked_plain(bvh_aabb, bvh_nodes, tri_isect, ro,
+                                        rd, active, t_max, leaf_size, any_hit,
+                                        max_steps)
 
 
 # The JAX package's ray reorder (ops/intersect.py there): a bucket key of
@@ -223,12 +710,10 @@ def with_tail_compaction(inner, root_box, use_reorder: bool = True):
     return wrapped
 
 
-# Intersectors the port runs, and the JAX package's others with what is
-# still to be ported for each.
-INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster")
+# Intersectors the port runs, and the JAX package's one it does not run.
+INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster", "bvh",
+                "stack")
 UNPORTED_INTERSECTORS = {
-    "bvh": "the linked-BVH walk (ops/intersect.py::closest_hit_bvh_linked)",
-    "stack": "the per-ray stack walk (ops/intersect.py::closest_hit_bvh)",
     "walk_hbm": "the paged walk (K3's TPU residency mode; 'walk' takes every "
                 "scene here)",
 }
@@ -258,7 +743,7 @@ def pairs_reorder(scene: dict) -> bool:
 
 
 def make_closest_hit(scene: dict, intersector: str = "auto",
-                     brute_max_tris: int = 4096):
+                     brute_max_tris: int = 4096, leaf_size: int = LEAF_SIZE):
     """Pick the intersection strategy for this scene, as the JAX package's
     ``make_closest_hit`` does, without its TPU residency budgets.
 
@@ -267,6 +752,12 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
       tables, else the pair dispatch (K4). A scene has no walk tables when
       its wide tree is too deep for the walk's stack.
     * "brute": K1. "pairs": K4. "cluster": the round dispatch (K6).
+    * "stack": the binary BVH walked with a fixed stack per ray (K7,
+      ``closest_hit_bvh``); "bvh": the same tree walked over its hit and
+      miss links (K8, ``closest_hit_bvh_linked``). Both test at most
+      ``leaf_size`` triangles a leaf, as the JAX package's do. "auto" takes
+      neither: the JAX package's choice of the linked walk for large scenes
+      on its CPU backend is a habit of a TPU's host, not the card's.
     * "walk": K3, or quietly K4 for a scene without walk tables.
     * "phased": the phased group dispatch (K5), which reads the walk's leaf
       table; without walk tables it falls through to K4, as in the JAX
@@ -280,9 +771,9 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     ``t_max`` and ``any_hit``: every ray is tested and the closest hit
     returned, which gives the same occlusion answers. The others go through
     their wrappers (``ops/walk.py``, ``ops/pairs.py``, ``ops/phased.py``,
-    ``ops/cluster.py``) and honour ``active`` and ``t_max``; only the walk
-    stops early on ``any_hit``. Each wrapper runs its CUDA kernel on CUDA
-    tensors and its plain version on CPU tensors.
+    ``ops/cluster.py``) and honour ``active`` and ``t_max``; the walk and
+    the two binary-BVH walks stop early on ``any_hit``. Each wrapper runs
+    its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
 
     ``reorder`` marks incoherent rays (the bounce loops pass ``bounce_idx >
     0``, as the JAX package's do). Every strategy takes it. The walk, on a
@@ -294,7 +785,8 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
     reorder=False) over SoA (3, N) origins and directions; its ``strategy``
-    attribute is "brute", "walk", "pairs", "phased" or "cluster".
+    attribute is "brute", "walk", "pairs", "phased", "cluster", "stack" or
+    "bvh".
     """
     from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
     from wgpu_path_tracing_tpu_torch.ops import (
@@ -308,7 +800,28 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
     check_intersector(intersector)
     num_tris = scene["tri_isect"].shape[0]
     have_walk = all(key in scene for key in WALK_KEYS)
-    if intersector == "brute" or (intersector == "auto"
+    if intersector in ("stack", "bvh"):
+        aabb, tri = scene["bvh_aabb"], scene["tri_isect"]
+        if intersector == "stack":
+            meta = scene["bvh_meta"]
+
+            def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                            reorder=False):
+                del reorder
+                return closest_hit_bvh(aabb, meta, tri, ro3.T, rd3.T, active,
+                                       t_max, leaf_size, any_hit=any_hit)
+        else:
+            nodes = linked_nodes(scene["bvh_meta"], scene["bvh_links"])
+
+            def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
+                            reorder=False):
+                del reorder
+                return closest_hit_bvh_linked(aabb, nodes, tri, ro3.T, rd3.T,
+                                              active, t_max, leaf_size,
+                                              any_hit=any_hit)
+
+        strategy = intersector
+    elif intersector == "brute" or (intersector == "auto"
                                   and num_tris <= brute_max_tris):
         tri = scene["tri_isect"]
 

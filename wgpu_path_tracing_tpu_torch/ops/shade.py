@@ -257,3 +257,18 @@ def hit_attributes_from_cols(get, ro: V3, rd: V3, t, found, atlas=None,
         uv_v=uv_v,
         is_front=is_front,
     )
+
+
+def hit_attributes(scene: dict, ro3, rd3, t, idx, slots_used=None) -> Hit:
+    """The Hit of (3, N) rays' closest hits (t, idx) in an uploaded scene,
+    as the JAX package's ``hit_attributes``: each winner's ``tri_full`` row
+    (row 0 on a miss, ``found`` False there), the atlas in the form
+    ``ops/trace.py::scene_atlas`` picks, and the scene's texture-slot mask
+    or ``slots_used``."""
+    from wgpu_path_tracing_tpu_torch.ops.trace import scene_atlas
+
+    atlas, scene_slots = scene_atlas(scene)
+    get = fetch_rows(scene["tri_full"], torch.clamp_min(idx, 0))
+    return hit_attributes_from_cols(
+        get, vec.from_rows(ro3, 0), vec.from_rows(rd3, 0), t, idx >= 0,
+        atlas, scene_slots if slots_used is None else slots_used)

@@ -5,9 +5,9 @@ package promoted them to ``RenderConfig`` (``wgpu_path_tracing_tpu/render/
 config.py``). This is the same object restricted to what the torch port
 renders: untextured and textured scenes (the atlas sampled per slot or from
 the fat canvas, as the scene's packing decides), glTF files, environment
-maps, the three rng modes, the dense hit, the wide-BVH walk and the three
-dispatch intersectors. The device is the ``Renderer``'s argument (the card
-by default):
+maps, the three rng modes, the debug views, the dense hit, the wide-BVH
+walk, the three dispatch intersectors and the two binary-BVH walks. The
+device is the ``Renderer``'s argument (the card by default):
 
 * ``max_bounces`` — pt.wgsl:5 (MAX_BOUNCES = 8)
 * ``do_mis`` — pt.wgsl:636 (DO_MIS = true)
@@ -29,14 +29,20 @@ by default):
   well-mixed seed) or "stratified" (the hash seed, plus R2 low-discrepancy
   points for the pixel jitter and the lens disc and, at bounce 0, for the
   BSDF's lobe pick and direction: K2's LDS instantiation)
-* ``intersector`` — "auto", "brute", "walk", "pairs", "phased" or
-  "cluster". "auto" takes the dense intersector (K1) for scenes of at most
-  ``brute_force_max_tris`` triangles; above, the wide-BVH walk (K3), or the
-  pair dispatch (K4) for a scene whose wide tree is too deep for the walk.
-  The others force one: "pairs" K4, "phased" the phased group dispatch (K5),
-  "cluster" the round dispatch (K6); "walk" and "phased" fall to K4 for a
-  scene without walk tables. The JAX package's "bvh", "stack" and
-  "walk_hbm" are not ported and raise ``NotImplementedError``.
+* ``intersector`` — "auto", "brute", "walk", "pairs", "phased",
+  "cluster", "stack" or "bvh". "auto" takes the dense intersector (K1) for
+  scenes of at most ``brute_force_max_tris`` triangles; above, the wide-BVH
+  walk (K3), or the pair dispatch (K4) for a scene whose wide tree is too
+  deep for the walk. The others force one: "pairs" K4, "phased" the phased
+  group dispatch (K5), "cluster" the round dispatch (K6), "stack" the
+  binary BVH with a stack per ray (K7), "bvh" the same tree over its hit
+  and miss links (K8); "walk" and "phased" fall to K4 for a scene without
+  walk tables. The JAX package's "walk_hbm", a TPU residency mode, raises
+  ``NotImplementedError``.
+* ``mode`` — "pt" (the path tracer), or one of the debug views of
+  ``debug/modes.py``: "bvh_depth" (the binary BVH's stack depth a pixel,
+  K7's depth mode) or "normal" (the primary hit's shading normal).
+  ``Renderer.render`` returns the debug view in their place.
 * ``frames_per_chunk`` — frames a ``render`` call draws between two
   ``on_chunk`` reports
 * ``frames_per_trace`` — frames whose rays go into one trace call (F x the
@@ -59,6 +65,7 @@ import dataclasses
 from wgpu_path_tracing_tpu_torch.ops.intersect import check_intersector
 
 RNG_MODES = ("reference", "hash", "stratified")
+MODES = ("pt", "bvh_depth", "normal")
 
 
 @dataclasses.dataclass
@@ -88,6 +95,9 @@ class RenderConfig:
     frames_per_chunk: int = 16
     frames_per_trace: int = 1
 
+    # The debug views (ports of pt_bvh.wgsl and pt_debug.wgsl).
+    mode: str = "pt"
+
     def validate(self) -> "RenderConfig":
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"bad image size {self.width}x{self.height}")
@@ -97,4 +107,6 @@ class RenderConfig:
             raise ValueError("frames_per_chunk and frames_per_trace must be "
                              ">= 1")
         check_intersector(self.intersector)
+        if self.mode not in MODES:
+            raise ValueError(f"mode={self.mode!r}: expected one of {MODES}")
         return self

@@ -41,11 +41,15 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
                  accum: torch.Tensor, frame_start: int, *, n_frames: int,
                  width: int, height: int, use_dof: bool, max_bounces: int,
                  do_mis: bool, num_lights: int, firefly_clamp: float,
-                 rng_mode: str = "reference", frames_per_trace: int = 1):
+                 rng_mode: str = "reference", frames_per_trace: int = 1,
+                 m2: torch.Tensor | None = None):
     """Accumulate ``n_frames`` 1-spp frames from ``frame_start`` into
-    ``accum`` ((N, 3) float32, tile lane order), in place. The bounce loop
-    samples the scene's atlas in the form ``ops/trace.py::scene_atlas``
-    picks.
+    ``accum`` ((N, 3) float32, tile lane order), in place; with ``m2``
+    (the same shape) fold each frame's clamped colour squared into that
+    running mean too, with the same weights (adaptive sampling's warmup,
+    ``render/adaptive.py``), which leaves ``accum`` as it would be. The
+    bounce loop samples the scene's atlas in the form
+    ``ops/trace.py::scene_atlas`` picks.
 
     ``trace_fn`` is the bounce loop and ``closest_hit`` the intersector it
     calls: the renderer passes ``ops/bounce.py::trace_cuda`` and the
@@ -93,4 +97,7 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
             color = torch.clamp_max(radiance[:, i * n:(i + 1) * n].T, clamp)
             w = np.float32(1.0) / (np.float32(frame) + np.float32(1.0))
             accum.mul_(float(np.float32(1.0) - w)).add_(color * float(w))
+            if m2 is not None:
+                m2.mul_(float(np.float32(1.0) - w)).add_(color * color
+                                                         * float(w))
     return accum, counters

@@ -8,15 +8,18 @@
     r.save_checkpoint("run.npz")  # the JAX package's keys; load_checkpoint
     r.set_environment(env_rgb, intensity=1.0, rotation=0.5)  # lit misses
     future = r.load_model_async("next.glb")  # staged, installed by render
+    img = r.image(denoise=True)   # à-trous filter on a copy (ops/denoise.py)
+    hdr = r.render_adaptive(64)   # adaptive sampling (render/adaptive.py)
+    Renderer(RenderConfig(mode="normal"))   # or "bvh_depth": the debug views
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``, the card unless the caller asks for
 ``device="cpu"``. On "cuda" the frame runs the hand-written kernels K1
 (dense closest hit), K3 (wide-BVH walk), K4 (pair dispatch), K5 (phased
-dispatch) or K6 (round dispatch), as ``RenderConfig.intersector`` picks for
-the scene (``stats()["intersector"]`` says which), and K2 (bounce,
-untextured or sampling the scene's texture atlas per slot or from its fat
-canvas; with rng="stratified" its LDS instantiation at bounce 0; with an
+dispatch), K6 (round dispatch), K7 (the binary BVH's stack walk) or K8 (its
+linked walk), as ``RenderConfig.intersector`` picks for the scene
+(``stats()["intersector"]`` says which), and K2 (bounce, untextured or
+sampling the scene's texture atlas per slot or from its fat canvas; with rng="stratified" its LDS instantiation at bounce 0; with an
 environment map its ENV instantiation); on "cpu" their plain PyTorch
 versions. Asking for "cuda" without a card raises.
 
@@ -36,8 +39,15 @@ boundary (restarting the mean there). A failed load raises from the
 returned future and from the next ``poll_pending_scene`` (so the next
 ``render``), once.
 
-Not ported here: denoising, adaptive sampling, debug modes, multi-device
-rendering.
+The JAX package's extensions: ``denoise`` (and ``aovs``,
+``image(denoise=True)``, ``save_png(denoise=True)``) filters a copy of the
+linear accumulation with the edge-avoiding à-trous filter, whose levels are
+kernel K9 on the card (``ops/denoise.py``); ``render_adaptive`` spends a
+budget of samples on the noisiest pixels after a uniform warmup
+(``render/adaptive.py``); ``RenderConfig(mode="normal")`` and
+``mode="bvh_depth"`` make ``render`` return a debug view
+(``debug/modes.py``; the depth view runs K7 in its depth mode). Not ported
+here: multi-device rendering.
 """
 
 from __future__ import annotations
@@ -128,7 +138,7 @@ class Renderer:
                 self.device))
         self._closest_hit = make_closest_hit(
             scene_dev, self.config.intersector,
-            self.config.brute_force_max_tris)
+            self.config.brute_force_max_tris, self.config.max_leaf_size)
         self.scene, self._scene_dev = scene, scene_dev
         self.reset()
 
@@ -262,15 +272,17 @@ class Renderer:
         which then report the whole unsynced run.
 
         A scene staged by ``load_model_async`` is installed at the start and
-        at each chunk boundary."""
+        at each chunk boundary. With ``config.mode`` a debug view, returns
+        ``render_debug()`` instead."""
         self.poll_pending_scene()
         if self._scene_dev is None:
             raise RuntimeError("No scene loaded — call load_model or "
                                "load_scene first")
         cfg = self.config
+        if cfg.mode != "pt":
+            return self.render_debug()
         self._ensure_accum()
-        cam = pipeline.camera_device(self.camera.as_pytree(), cfg.width,
-                                     cfg.height)
+        cam = self._camera()
         t0 = time.perf_counter()
         counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
         remaining = spp
@@ -323,10 +335,34 @@ class Renderer:
             return None
         return self._row_major().reshape(cfg.height, cfg.width, 3)
 
-    def _row_major(self) -> np.ndarray:
-        """The tile-ordered buffer as row-major (N, 3) NumPy."""
+    def _row_major(self, accum: torch.Tensor | None = None) -> np.ndarray:
+        """A tile-ordered (N, 3) buffer, the accumulation by default, as
+        row-major NumPy."""
         perm = tile_permutation(self.config.width, self.config.height)
-        return self._accum.cpu().numpy()[inverse_permutation(perm)]
+        buf = self._accum if accum is None else accum
+        return buf.cpu().numpy()[inverse_permutation(perm)]
+
+    def _camera(self) -> dict:
+        """The camera's parameters with the image size, as the frame takes
+        them."""
+        return pipeline.camera_device(self.camera.as_pytree(),
+                                      self.config.width, self.config.height)
+
+    def render_debug(self) -> np.ndarray:
+        """The debug view ``config.mode`` names ("bvh_depth" or "normal",
+        ``debug/modes.py``) of the current camera, as (H, W, 3) NumPy, row 0
+        the bottom of the view."""
+        from wgpu_path_tracing_tpu_torch.debug import modes
+
+        cfg = self.config
+        if cfg.mode == "bvh_depth":
+            buf = modes.render_bvh_depth(self._scene_dev, self._camera(),
+                                         cfg.width, cfg.height)
+        else:
+            buf = modes.render_normal(self._scene_dev, self._camera(),
+                                      cfg.width, cfg.height,
+                                      closest_hit=self._closest_hit)
+        return buf.cpu().numpy().reshape(cfg.height, cfg.width, 3)
 
     def _hdr(self) -> np.ndarray:
         """The linear accumulation as (H, W, 3), top row first, NaN as 0."""
@@ -373,18 +409,63 @@ class Renderer:
             self._accum = torch.as_tensor(accum[perm], device=self.device)
             self.frame_index = int(data["frame_index"])
 
+    # --- denoising and adaptive sampling (the JAX package's extensions) ----
+    def aovs(self, lens_samples: int | None = None) -> dict:
+        """The denoiser's primary-hit guides (``ops/denoise.py::
+        primary_aovs``) through the scene's intersector: row-major tensors
+        on the renderer's device, ``albedo`` and ``normal`` (N, 3),
+        ``depth`` and ``found`` (N,). ``lens_samples`` None or 0: pinhole
+        centre rays; K > 0: averaged over K thin-lens samples."""
+        if self._scene_dev is None:
+            raise RuntimeError("No scene loaded")
+        from wgpu_path_tracing_tpu_torch.ops import denoise as DN
+
+        cfg = self.config
+        return DN.primary_aovs(self._scene_dev, self._camera(), cfg.width,
+                               cfg.height, lens_samples=int(lens_samples or 0),
+                               rng_mode=cfg.rng,
+                               closest_hit=self._closest_hit)
+
+    def denoise(self, hdr: np.ndarray | None = None, **params) -> np.ndarray:
+        """The à-trous denoise (``ops/denoise.py::denoise_image``, guided by
+        ``aovs()``) of the linear accumulation, or of ``hdr`` (H, W, 3),
+        e.g. a ``render_adaptive`` result. Returns a new (H, W, 3) array;
+        the accumulation is untouched. ``params`` go to ``denoise_image``
+        (``spp`` defaults to ``frame_index``)."""
+        if hdr is None:
+            if self._accum is None:
+                raise RuntimeError("Nothing rendered yet")
+            hdr = self._row_major().reshape(self.config.height,
+                                            self.config.width, 3)
+        from wgpu_path_tracing_tpu_torch.ops import denoise as DN
+
+        params.setdefault("spp", self.frame_index)
+        return DN.denoise_image(hdr, self.aovs(), **params)
+
+    def render_adaptive(self, spp: int, **kw) -> np.ndarray:
+        """Adaptive sampling (``render/adaptive.py::render_adaptive``):
+        about ``spp`` frames of ray budget, concentrated on the noisiest
+        pixels after a uniform warmup. Returns the combined (H, W, 3) HDR
+        image; the accumulation keeps the warmup only."""
+        from wgpu_path_tracing_tpu_torch.render import adaptive
+
+        return adaptive.render_adaptive(self, spp, **kw)
+
     # --- output --------------------------------------------------------------
-    def image(self) -> np.ndarray:
-        """Tonemapped display image (H, W, 3) in [0, 1], top row first."""
+    def image(self, denoise: bool = False) -> np.ndarray:
+        """Tonemapped display image (H, W, 3) in [0, 1], top row first;
+        ``denoise=True`` filters a copy of the HDR buffer first."""
         if self._accum is None:
             raise RuntimeError("Nothing rendered yet")
         with self.profiler.section("blit-pass"):
-            return imageio.buffer_to_srgb(self._row_major(), self.config.width,
+            hdr = (self.denoise().reshape(-1, 3) if denoise
+                   else self._row_major())
+            return imageio.buffer_to_srgb(hdr, self.config.width,
                                           self.config.height,
                                           self.config.exposure)
 
-    def save_png(self, path: str) -> None:
-        imageio.write_png(path, self.image())
+    def save_png(self, path: str, denoise: bool = False) -> None:
+        imageio.write_png(path, self.image(denoise=denoise))
 
     def save_hdr(self, path: str) -> None:
         """The LINEAR accumulation as Radiance RGBE .hdr (no tonemap)."""
