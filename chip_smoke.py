@@ -146,7 +146,26 @@ and runs these phases, one line of output each:
    ``render_adaptive(8)`` on the large box through the walk (launch counts,
    wall, Mrays/s); the walk's adaptive image held to its plain path on
    ``cornell_box(tessellation=16)`` at 256x256, 3 spp, 2 bounces (the
-   large box's plain walk takes about 30 s a frame).
+   large box's plain walk takes about 30 s a frame);
+18. native scene prep (``native``): the C++ library of ``accel/native.py``
+   (built with g++) against the NumPy paths on ``cornell_box(
+   tessellation=55)`` and ``gallery_atrium(detail=3)``: the SAH build, the
+   wide collapse (packs "none" and "ffd"), the triangle reorder, the glTF
+   flatten and potpack (the atrium's atlas and fat canvas), bit for bit
+   (the wide boxes' NaN bits included), each timed both ways; the two
+   scenes built both ways and the atrium's ``Renderer.load_model`` from a
+   .glb both ways, the same arrays, with their seconds;
+19. the command line and the viewer (``cli``): ``python -m
+   wgpu_path_tracing_tpu_torch.cli render`` of the flagship (64 spp) and of
+   the atrium from a .glb (8 spp) as two subprocesses, each PNG equal on
+   every pixel to an in-process ``Renderer``'s; ``cli.main`` in this
+   process with its launches counted; ``--checkpoint`` and ``--resume``
+   (32 + 32 spp) equal to 64 spp in one go; ``info`` and ``export``; the
+   HTTP viewer at 256x256: ``w`` pressed over HTTP moves the camera and
+   restarts the accumulation (that tick's launches counted),
+   ``/frame.png`` decodes, ``/stats`` reads, ticks a second and
+   ``motion_to_frame_ms``, and the atrium's bytes POSTed to ``/load``
+   installed at a chunk boundary with the mean restarted.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -170,7 +189,8 @@ for iterating on the card; without it every phase runs. ``--phases
 gltf,env`` runs the scene-loading and environment-map phases alone
 (about 65 s after the build); ``--phases bvh2,debug,denoise,adaptive`` the
 phases of the binary-BVH walks, the debug views, the denoiser and adaptive
-sampling.
+sampling; ``--phases native,cli`` the scene-prep library and the command
+line (about 60 s after the build).
 """
 
 from __future__ import annotations
@@ -210,7 +230,8 @@ from wgpu_path_tracing_tpu_torch.models.types import (  # noqa: E402
     FAT_KEYS,
     pack_device_scene,
 )
-from wgpu_path_tracing_tpu_torch.accel import bvh8  # noqa: E402
+from wgpu_path_tracing_tpu_torch import cli as CLI  # noqa: E402
+from wgpu_path_tracing_tpu_torch.accel import bvh8, native  # noqa: E402
 from wgpu_path_tracing_tpu_torch.accel.bvh import build_bvh  # noqa: E402
 from wgpu_path_tracing_tpu_torch.models.gltf import (  # noqa: E402
     GLTFFile,
@@ -2342,7 +2363,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
         gf, parse = timed(lambda: GLTFFile.load(path))
         (atlas, _), atlas_s = timed(lambda: build_atlas(gf))
         loaded, model_s = timed(lambda: load_model(path))
-        _, sah = timed(lambda: build_bvh(
+        _, sah = timed(lambda: native.build_bvh(
             loaded.tri_v0, loaded.tri_v1, loaded.tri_v2))
         packed, pack = timed(lambda: pack_device_scene(loaded))
         _, upload = timed(lambda: load_jax_scene(packed, dev))
@@ -2935,6 +2956,411 @@ def phase_adaptive(dev, smi, report, large: dict,
                                "spp": spp, "max_bounces": bounces,
                                "plain_seconds": plain_secs}
 
+# The native scene-prep library and the command line: the scenes whose set-up
+# the library shortens, the CLI's renders and the viewer's ticks.
+CLI_SPP = 64  # the flagship through the CLI (and 32 + 32 through a resume)
+CLI_ATRIUM_SPP = 8
+VIEWER_SIZE = 256
+VIEWER_FRAMES = 4  # frames a viewer tick
+VIEWER_TICKS = 20  # ticks timed for the viewer's fps
+
+
+@functools.lru_cache(maxsize=None)
+def atrium_glb() -> tuple:
+    """(``gallery_atrium(detail=GLTF_DETAIL)``, its .glb bytes), made once."""
+    atrium = gallery_atrium(detail=GLTF_DETAIL)
+    return atrium, scene_to_glb(atrium)
+
+
+class numpy_paths:
+    """Within the block the package sees no C++ compiler, so every loader
+    takes its NumPy path."""
+
+    def __enter__(self):
+        self.compiler = native.compiler
+        native.compiler = lambda: None
+        if native.native_available():
+            raise AssertionError("the NumPy paths were not forced")
+
+    def __exit__(self, *exc):
+        native.compiler = self.compiler
+
+
+def bits_equal(a, b) -> bool:
+    """Equal shapes and bits (NaN-aware for float32)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    return bool(np.array_equal(a, b))
+
+
+def both_ways(what: str, lib_fn, numpy_fn, fields, out: dict, smi: str):
+    """``lib_fn()`` against ``numpy_fn()``: each timed once, their results'
+    ``fields`` (attribute names, or indices of a tuple) bit-equal."""
+    got, lib_s = timed(lib_fn)
+    want, numpy_s = timed(numpy_fn)
+    pick = ((lambda x, f: x[f]) if isinstance(fields[0], int)
+            else (lambda x, f: getattr(x, f)))
+    differ = [f for f in fields if not bits_equal(pick(got, f), pick(want, f))]
+    say("native", f"{what}: library {lib_s:.4f} s, NumPy {numpy_s:.4f} s "
+        f"({numpy_s / lib_s:.1f}x), " + (f"DIFFER in {differ}" if differ
+                                         else "bit-equal") + f" on {smi}")
+    if differ:
+        raise AssertionError(f"{what}: the library and NumPy differ")
+    out[what] = {"library_s": lib_s, "numpy_s": numpy_s}
+    return got
+
+
+def phase_native(dev, smi, report):
+    """The C++ scene-prep library against the NumPy paths, bit for bit, on
+    the large box and the atrium: the SAH build, the wide collapse, the
+    triangle reorder, potpack (the atrium's atlas and fat canvas), each
+    timed both ways; the whole scene builds and the atrium's
+    ``Renderer.load_model`` from a .glb both ways."""
+    if not native.native_available():
+        raise AssertionError("no g++ on PATH: the native library cannot build")
+    _, build_s = timed(native.lib)
+    out = report.setdefault("native", {"build_s": build_s})
+    say("native", f"g++ built {os.path.basename(native.library_path())} in "
+        f"{build_s:.2f} s ({' '.join(native.CXX_FLAGS)})")
+    large, _ = tessellated_box(LARGE_TESSELLATION)
+    atrium, glb = atrium_glb()
+    for label, scene, remake in (
+            ("large box", large,
+             lambda: cornell_box(tessellation=LARGE_TESSELLATION)),
+            ("atrium", atrium, lambda: gallery_atrium(detail=GLTF_DETAIL))):
+        n = scene.num_triangles
+        v = (scene.tri_v0, scene.tri_v1, scene.tri_v2)
+        tree = both_ways(f"{label} SAH build, {n} triangles",
+                         lambda: native.build_bvh_native(*v),
+                         lambda: build_bvh(*v),
+                         ("aabb_min", "aabb_max", "meta", "order"), out, smi)
+        tri = tri_isect_of(*(np.asarray(a)[tree.order] for a in v))
+        for pack in ("none", "ffd"):
+            both_ways(f"{label} wide collapse ({pack})",
+                      lambda: bvh8.build_wide_bvh(
+                          tree.aabb_min, tree.aabb_max, tree.meta, tri,
+                          pack=pack),
+                      lambda: bvh8.build_wide_bvh(
+                          tree.aabb_min, tree.aabb_max, tree.meta, tri,
+                          pack=pack, prefer_native=False),
+                      ("meta", "order", "boxes", "tris"), out, smi)
+        cols = (scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_n0,
+                scene.tri_n1, scene.tri_n2, scene.tri_uv0, scene.tri_uv1,
+                scene.tri_uv2, scene.tri_mat)
+        perm = np.random.default_rng(3).permutation(n)
+        both_ways(f"{label} triangle reorder",
+                  lambda: native.reorder_tris_native(perm, *cols),
+                  lambda: tuple(np.asarray(c)[perm] for c in cols),
+                  tuple(range(10)), out, smi)
+        with numpy_paths():
+            plain, numpy_s = timed(remake)
+        fresh, lib_s = timed(remake)
+        same_arrays(fresh, plain, f"the {label} built both ways")
+        say("native", f"{label} scene build: library {lib_s:.3f} s, NumPy "
+            f"{numpy_s:.3f} s, the same arrays on {smi}")
+        out[f"{label} scene build"] = {"library_s": lib_s,
+                                       "numpy_s": numpy_s}
+
+    # The glTF flatten under a node that is not the identity (the atrium's
+    # nodes are): the float64 transform, renormalization and gather.
+    from wgpu_path_tracing_tpu_torch.models import gltf as GLTF
+
+    rng = np.random.default_rng(11)
+    pos = rng.uniform(-50, 50, (4096, 3)).astype(np.float32)
+    nrm = rng.normal(0, 1, (4096, 3)).astype(np.float32)
+    nrm[::97] = 0.0
+    world = np.eye(4)
+    world[0:3, 0:3] = rng.normal(0, 1, (3, 3)) + np.eye(3) * 2.0
+    world[0:3, 3] = rng.uniform(-5, 5, 3)
+    args = (pos, nrm, world, np.linalg.inv(world).T,
+            rng.integers(0, 4096, 3 * 6000))
+    both_ways("flatten of 6,000 triangles under a transformed node",
+              lambda: native.flatten_native(*args),
+              lambda: GLTF.flatten_corners(*args), tuple(range(6)), out, smi)
+
+    # potpack on the boxes the atrium's load packs: the atlas's and the fat
+    # canvas's, recorded as the loader hands them over.
+    from wgpu_path_tracing_tpu_torch.models import potpack as POTPACK
+
+    recorded = []
+
+    def recording(boxes):
+        recorded.append([{"w": b["w"], "h": b["h"]} for b in boxes])
+        return real(boxes)
+
+    real = POTPACK.potpack
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "atrium.glb")
+        with open(path, "wb") as f:
+            f.write(glb)
+        GLTF.potpack = POTPACK.potpack = recording
+        try:
+            pack_device_scene(load_model(path))
+        finally:
+            GLTF.potpack = POTPACK.potpack = real
+        for k, boxes in enumerate(recorded):
+            wh = np.array([[b["w"], b["h"]] for b in boxes], np.float64)
+
+            def python():
+                copies = [dict(b) for b in boxes]
+                dims = POTPACK.potpack_python(copies)
+                return (np.array([[b["x"], b["y"]] for b in copies],
+                                 np.float64), *map(float, dims))
+
+            both_ways(f"atrium potpack {k} ({len(boxes)} boxes)",
+                      lambda: native.potpack_native(wh), python, (0, 1, 2),
+                      out, smi)
+
+        # The atrium's whole Renderer.load_model from the .glb, both ways.
+        loads = {}
+        for way in ("library", "NumPy"):
+            r = Renderer(RenderConfig(width=SIZE, height=SIZE),
+                         device="cuda")
+            if way == "NumPy":
+                with numpy_paths():
+                    _, loads[way] = timed(lambda: r.load_model(path))
+                same_arrays(r.scene, loaded, "the atrium loaded both ways")
+            else:
+                _, loads[way] = timed(lambda: r.load_model(path))
+                loaded = r.scene
+            del r
+        say("native", f"atrium Renderer.load_model from a .glb "
+            f"({len(glb)} bytes): library {loads['library']:.3f} s, NumPy "
+            f"{loads['NumPy']:.3f} s, the same arrays on {smi}")
+        out["atrium Renderer.load_model"] = {"library_s": loads["library"],
+                                             "numpy_s": loads["NumPy"]}
+
+
+def counted_call(fn, report: dict, path: str, expected: dict):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; the counts must equal ``expected``. Returns (result, wall
+    seconds to a device sync)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    result, secs = timed(fn)
+    counts = launch_counts()
+    say(path, "launches " + ", ".join(f"{k.upper()} {v}"
+                                      for k, v in counts.items() if v))
+    if counts != expected:
+        raise AssertionError(f"{path}: expected launches {expected}, got "
+                             f"{counts}")
+    for k, v in counts.items():
+        report.setdefault(k, {}).setdefault("launches_by_path", {})[path] = v
+    return result, secs
+
+
+def cli_main(*argv) -> str:
+    """``cli.main(argv)`` in this process; returns what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main(list(argv))
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def cli_renderer(scene_np=None, path=None) -> Renderer:
+    """The ``Renderer`` the CLI builds by default (512x512, its camera)."""
+    import math
+
+    cam = Camera(width=SIZE, height=SIZE, aspect=1.0, fov=math.radians(60.0),
+                 aperture=0.001, focus_distance=5.0)
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE), cam, device="cuda")
+    if path is None:
+        r.load_scene(scene_np)
+    else:
+        r.load_model(path)
+    return r
+
+
+def same_png(a: str, b: str, what: str) -> None:
+    from wgpu_path_tracing_tpu_torch.utils.image import read_png
+
+    same_image(read_png(a), read_png(b), what, "cli")
+
+
+def http(url: str, data: bytes | None = None, method: str = "GET") -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.read()
+
+
+def phase_cli(dev, smi, report):
+    """The command line as subprocesses (the flagship at 64 spp, the atrium
+    from a .glb at 8 spp), each PNG against an in-process ``Renderer``'s;
+    ``cli.main`` in this process with the launches counted; a checkpoint and
+    resume; ``info`` and ``export``; the HTTP viewer on the Cornell box:
+    a key press over HTTP moves the camera and restarts the accumulation,
+    the frame decodes, the stats read, a POSTed .glb is installed at a
+    chunk boundary; its fps and motion-to-frame time."""
+    from wgpu_path_tracing_tpu_torch.utils.image import decode_png_rgba
+    from wgpu_path_tracing_tpu_torch.viewer import ViewerServer
+
+    out = report.setdefault("cli", {})
+    atrium, glb = atrium_glb()
+    with tempfile.TemporaryDirectory() as tmp:
+        atrium_path = os.path.join(tmp, "atrium.glb")
+        with open(atrium_path, "wb") as f:
+            f.write(glb)
+        at = lambda name: os.path.join(tmp, name)  # noqa: E731
+        # The two subprocesses at once.
+        env = dict(os.environ, PYTHONPATH=REPO)
+        cmds = {"cornell": ["cornell", "--spp", str(CLI_SPP)],
+                "atrium": [atrium_path, "--spp", str(CLI_ATRIUM_SPP)]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "wgpu_path_tracing_tpu_torch.cli",
+             "render", *args, "-o", at(f"{k}_sub.png")], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, args in cmds.items()}
+        try:
+            runs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        sub_s = time.perf_counter() - t0
+        for k, p in procs.items():
+            if p.returncode != 0:
+                raise AssertionError(f"cli render {k} exited {p.returncode}:"
+                                     f"\n{runs[k][1][-4000:]}")
+            say("cli", f"python -m wgpu_path_tracing_tpu_torch.cli render "
+                f"{' '.join(cmds[k])}: {runs[k][0].strip()}")
+        say("cli", f"both subprocesses in {sub_s:.2f} s of wall (processes "
+            f"started together) on {smi}")
+
+        # The flagship: cli.main in this process, launches counted; an
+        # in-process Renderer; the subprocess's PNG; all equal.
+        _, secs = counted_call(
+            lambda: cli_main("render", "cornell", "--spp", str(CLI_SPP),
+                             "-o", at("cornell_main.png")),
+            report, "cli_cornell", expect(k1=2 * MAX_BOUNCES * CLI_SPP,
+                                          k2=MAX_BOUNCES * CLI_SPP))
+        r = cli_renderer(cornell_box())
+        r.render(spp=CLI_SPP)
+        r.save_png(at("cornell_renderer.png"))
+        same_png(at("cornell_sub.png"), at("cornell_renderer.png"),
+                 "the CLI subprocess's flagship PNG against the Renderer's")
+        same_png(at("cornell_main.png"), at("cornell_renderer.png"),
+                 "cli.main's flagship PNG against the Renderer's")
+        say("cli", f"cli.main render cornell, {CLI_SPP} spp: wall {secs:.3f} "
+            f"s (scene, kernels' load, render, PNG) on {smi}")
+        out["cornell"] = {"spp": CLI_SPP, "subprocesses_s": sub_s,
+                          "main_s": secs}
+
+        # The atrium from the .glb, the same way.
+        r = cli_renderer(path=atrium_path)
+        mode = {"none": "k2", "per_slot": "k2_per_slot", "fat": "k2_fat"}[
+            r.stats()["texture"]]
+        counted_call(lambda: r.render(spp=CLI_ATRIUM_SPP), report,
+                     "cli_atrium_renderer",
+                     expect(k3=2 * MAX_BOUNCES * CLI_ATRIUM_SPP,
+                            **{mode: MAX_BOUNCES * CLI_ATRIUM_SPP}))
+        r.save_png(at("atrium_renderer.png"))
+        del r
+        same_png(at("atrium_sub.png"), at("atrium_renderer.png"),
+                 "the CLI subprocess's atrium PNG against the Renderer's")
+
+        # A checkpoint after 32 spp and a resume to 64: the 64-spp image.
+        half = CLI_SPP // 2
+        cli_main("render", "cornell", "--spp", str(half), "--checkpoint",
+                 at("run.npz"), "-o", at("half.png"))
+        cli_main("render", "cornell", "--spp", str(CLI_SPP), "--checkpoint",
+                 at("run.npz"), "--resume", "-o", at("resumed.png"))
+        same_png(at("resumed.png"), at("cornell_renderer.png"),
+                 f"cli --checkpoint ({half} spp) and --resume (to {CLI_SPP}) "
+                 f"against {CLI_SPP} spp in one go")
+
+        info = json.loads(cli_main("info", atrium_path))
+        if info["triangles"] != atrium.num_triangles:
+            raise AssertionError("cli info: wrong triangle count")
+        said = cli_main("export", "cornell", "-o", at("cornell.glb"))
+        if load_model(at("cornell.glb")).num_triangles != 36:
+            raise AssertionError("cli export: the .glb does not load back")
+        say("cli", f"info: {info['triangles']} triangles, {info['bvh_nodes']} "
+            f"BVH nodes, atlas {info['atlas']}; export: {said.strip()}")
+
+        # The viewer on the Cornell box.
+        v = Renderer(RenderConfig(width=VIEWER_SIZE, height=VIEWER_SIZE),
+                     device="cuda")
+        v.load_scene(cornell_box())
+        server = ViewerServer(v, port=0, frames_per_update=VIEWER_FRAMES)
+        try:
+            base = f"http://127.0.0.1:{server.port}"
+            server.step(1 / 60)
+            server.step(1 / 60)
+            pos0 = v.camera.position.copy()
+            http(f"{base}/key?k=w&down=1")
+            counted_call(lambda: server.step(1 / 60), report, "viewer",
+                         expect(k1=2 * MAX_BOUNCES * VIEWER_FRAMES,
+                                k2=MAX_BOUNCES * VIEWER_FRAMES))
+            http(f"{base}/key?k=w&down=0")
+            if np.allclose(v.camera.position, pos0) or (
+                    v.frame_index != VIEWER_FRAMES):
+                raise AssertionError("the viewer's w key did not move the "
+                                     "camera and restart the accumulation")
+            server.step(1 / 60)
+            frame = decode_png_rgba(http(f"{base}/frame.png"), "frame.png")
+            stats = json.loads(http(f"{base}/stats"))
+            if frame.shape != (VIEWER_SIZE, VIEWER_SIZE, 4) or (
+                    stats["spp"] != 2 * VIEWER_FRAMES):
+                raise AssertionError(f"viewer frame {frame.shape}, stats "
+                                     f"{stats}")
+            say("cli", f"viewer: w moved the camera {pos0} -> "
+                f"{v.camera.position}, accumulation restarted; "
+                f"/frame.png {frame.shape}, /stats {stats}")
+            # Ticks timed at rest, then one motion's time to its frame.
+            t0 = time.perf_counter()
+            for _ in range(VIEWER_TICKS):
+                server.step(1 / 60)
+            tick_s = (time.perf_counter() - t0) / VIEWER_TICKS
+            http(f"{base}/look?dx=8&dy=0")
+            server.step(1 / 60)
+            stats = json.loads(http(f"{base}/stats"))
+            say("cli", f"viewer {VIEWER_SIZE}x{VIEWER_SIZE}, {VIEWER_FRAMES} "
+                f"frames a tick: {1 / tick_s:.2f} ticks/s "
+                f"({VIEWER_FRAMES / tick_s:.1f} frames/s), frame meter "
+                f"{stats['fps']:.1f} fps, motion_to_frame_ms "
+                f"{stats['motion_to_frame_ms']:.3f} on {smi}")
+            out["viewer"] = {"size": VIEWER_SIZE, "frames_a_tick":
+                             VIEWER_FRAMES, "tick_s": tick_s,
+                             "fps": stats["fps"],
+                             "motion_to_frame_ms":
+                                 stats["motion_to_frame_ms"]}
+
+            # POST the atrium's bytes: staged off the render thread, then
+            # installed at a render's chunk boundary, the mean restarted.
+            server.step(1 / 60)
+            server.step(1 / 60)
+            before = v.frame_index  # 3 ticks since the look restarted it
+            if http(f"{base}/load", glb, "POST") != b"staged":
+                raise AssertionError("POST /load did not stage the scene")
+            t0 = time.perf_counter()
+            server.step(1 / 60)
+            server.loads[-1].result(timeout=300)
+            while v.scene.num_triangles != atrium.num_triangles:
+                server.step(1 / 60)
+            swap_s = time.perf_counter() - t0
+            if v.frame_index >= before or v.frame_index % VIEWER_FRAMES:
+                raise AssertionError("the POSTed atrium was not installed at "
+                                     "a chunk boundary with the mean "
+                                     "restarted")
+            say("cli", f"viewer: POST /load of the atrium ({len(glb)} bytes) "
+                f"installed at a chunk boundary {swap_s:.3f} s after the "
+                f"POST (frame index {before} -> {v.frame_index}) on {smi}")
+            out["viewer"]["swap_s"] = swap_s
+        finally:
+            server.stop()
+
 
 def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
@@ -3044,7 +3470,7 @@ def profile_call(fn, path: str, phase: str) -> dict:
 # scene and rays (``large_sets``).
 PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
           "dispatch", "dispatch_paths", "k2_lds", "rng_paths", "gltf", "env",
-          "bvh2", "debug", "denoise", "adaptive")
+          "bvh2", "debug", "denoise", "adaptive", "native", "cli")
 # The phases that share the large box (``large_sets``).
 LARGE_USERS = ("k3", "dispatch", "bvh2", "debug", "adaptive")
 # The keys every kernel's entry in the kernels line carries.
@@ -3210,6 +3636,8 @@ def main() -> int:
         "denoise": lambda: phase_denoise(dev, smi, report, profile),
         "adaptive": lambda: phase_adaptive(dev, smi, report, large_box(),
                                            profile),
+        "native": lambda: phase_native(dev, smi, report),
+        "cli": lambda: phase_cli(dev, smi, report),
     }
     t_start = time.perf_counter()
     last_large = [p for p in PHASES if p in wanted and p in LARGE_USERS]
@@ -3226,7 +3654,7 @@ def main() -> int:
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
              "stratified", "hash", "frames_per_trace", "checkpoint", "gltf",
-             "env", "debug", "denoise", "adaptive")
+             "env", "debug", "denoise", "adaptive", "native", "cli")
     print(json.dumps({"kernels": kernels,
                       **{path: report[path] for path in paths
                          if path in report},

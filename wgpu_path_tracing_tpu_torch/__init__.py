@@ -13,9 +13,13 @@ from the fat canvas, with rng="stratified"'s bounce-0 override, and
 with an environment map that lights the misses), accumulation, the AGX
 display transform, PNG, HDR and EXR output, checkpoints, glTF files in and
 out (``load_model``, ``scene_to_glb``; PNG textures, no JPEG decoder), the
-pass profiler and the frame meter. The ``Renderer`` runs on the card unless
-it is given ``device="cpu"``, where each kernel's plain PyTorch version
-runs instead.
+pass profiler and the frame meter, the fly-camera ``Controller``, the HTTP
+live viewer (``viewer.py``) and the command line (``cli.py``). Scene
+preparation (the SAH build, the wide collapse, the glTF flatten, the atlas
+packing) runs in a C++ library that ``accel/native.py`` builds with g++,
+bit-identical to the NumPy paths it stands in for. The ``Renderer`` runs
+on the card unless it is given ``device="cpu"``, where each kernel's plain
+PyTorch version runs instead.
 
     from wgpu_path_tracing_tpu_torch import (
         Renderer, RenderConfig, cornell_box, gallery_atrium, scene_to_glb,
@@ -32,6 +36,11 @@ runs instead.
     img = r.render(spp=8)
     r.set_environment(sky_rgb, intensity=1.0)    # (H, W, 3) equirect map
     print(r.stats()["passes"], r.stats()["frames"])
+    c = Controller(r)                            # the fly camera
+    c.key_down("w"); c.update(1 / 60); c.key_up("w")
+
+    python -m wgpu_path_tracing_tpu_torch.cli render cornell --spp 64 -o a.png
+    python -m wgpu_path_tracing_tpu_torch.cli view cornell --port 8080
 
 The package imports neither JAX nor Pillow, so that it runs where only
 PyTorch, numpy and the CUDA toolkit are installed.
@@ -51,12 +60,13 @@ from wgpu_path_tracing_tpu_torch.models.replica import cornell_replica
 from wgpu_path_tracing_tpu_torch.models.types import load_jax_scene
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
+from wgpu_path_tracing_tpu_torch.render.controller import Controller
 from wgpu_path_tracing_tpu_torch.render.renderer import Renderer
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Renderer", "RenderConfig", "Camera", "cornell_box", "material_test_box",
+    "Renderer", "RenderConfig", "Camera", "Controller", "cornell_box", "material_test_box",
     "random_triangles", "single_triangle", "textured_cornell",
     "gallery_atrium", "cornell_replica", "load_model", "scene_to_glb",
     "load_jax_scene", "__version__",

@@ -27,9 +27,11 @@ triangles:
   NaN when the sub-cluster holds no triangle). Each sub-cluster box gates
   Möller-Trumbore over its LEAF_SLOTS // SUB slots.
 
-Not copied: the C++ twin (``accel/native.py``), which the JAX package's own
-tests hold bit-identical to this NumPy path, and the experimental "slice"
-pack and 16-wide collapse.
+``build_wide_bvh`` runs the C++ twin (``accel/cbvh/wide_collapse.cpp``,
+bound by ``accel/native.py``) when the library has a compiler; this NumPy
+path is its plain version, and ``tests/test_torch_native.py`` holds the two
+bit-identical. Not copied: the experimental "slice" pack and 16-wide
+collapse.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import sys
 
 import numpy as np
 
+from wgpu_path_tracing_tpu_torch.accel import native
 from wgpu_path_tracing_tpu_torch.accel.bvh import subtree_ranges
 
 WIDTH = 8
@@ -124,6 +127,7 @@ def build_wide_bvh(
     meta: np.ndarray,
     tri_isect: np.ndarray,
     pack: str = "ffd",
+    prefer_native: bool = True,
 ) -> WideBVH:
     """Collapse the binary BVH into the walk's wide tables.
 
@@ -131,13 +135,21 @@ def build_wide_bvh(
     leaf groups copy them into lane-major slabs. ``pack`` selects how small
     sibling subtrees share leaf groups: "none" = one subtree per group,
     "ffd" = first-fit-decreasing bin-pack on subtree boundaries (the
-    default; fuller groups, fewer group visits).
+    default; fuller groups, fewer group visits). ``prefer_native`` takes
+    the C++ collapse when ``native.native_available()``; False, or no
+    compiler, this NumPy path (the same tables).
     """
     if pack not in ("none", "ffd"):
         raise ValueError(f"pack={pack!r}: only 'none' and 'ffd' are ported")
     width, leaf_slots, sub = WIDTH, LEAF_SLOTS, SUB
     t = int(tri_isect.shape[0])
     grows = group_rows(sub)
+    if t > 0 and prefer_native and native.native_available():
+        wm, wo, wb, wt = native.build_wide_native(
+            aabb_min, aabb_max, meta, tri_isect, leaf_slots, sub, grows,
+            pack=pack)
+        _check_stack_depth(wm)
+        return WideBVH(meta=wm, order=wo, boxes=wb, tris=wt)
     if t == 0:
         # Degenerate: one node, all children empty.
         m = np.zeros((1, width), np.int32)

@@ -3,7 +3,9 @@
 Mirrors the tail of the reference's ``prepareScene`` (gpu.ts:105-150):
 
 1. build the BVH, which reorders the triangle array in place
-   (gpu.ts:119 -> bvh.ts:53),
+   (gpu.ts:119 -> bvh.ts:53): the native library's SAH build and one fused
+   gather of the triangle columns when ``accel/native.py`` has a compiler,
+   else the NumPy build and a gather a column (the same arrays),
 2. extract one emissive light per triangle whose material has
    ``length(emission) > 0`` — AFTER the reorder, so ``triangleIndex`` refers
    to sorted positions (gpu.ts:121-138); the light's color is the material's
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from wgpu_path_tracing_tpu_torch.accel.bvh import build_bvh
+from wgpu_path_tracing_tpu_torch.accel import native
 from wgpu_path_tracing_tpu_torch.models.types import (
     LIGHT_TYPE_EMISSIVE,
     SceneArrays,
@@ -70,24 +72,30 @@ def finalize_scene(
     if atlas is not None:
         atlas = quantize_atlas(atlas)
 
-    bvh = build_bvh(tri_v0, tri_v1, tri_v2, max_leaf_size, num_bins)
+    bvh = native.build_bvh(tri_v0, tri_v1, tri_v2, max_leaf_size, num_bins)
     order = bvh.order
 
     def reorder(a):
         a = np.asarray(a, f32)
         return a[order] if num_tris else a
 
-    tri_v0 = reorder(tri_v0)
-    tri_v1 = reorder(tri_v1)
-    tri_v2 = reorder(tri_v2)
-    tri_n0 = reorder(tri_n0)
-    tri_n1 = reorder(tri_n1)
-    tri_n2 = reorder(tri_n2)
-    tri_uv0 = reorder(tri_uv0)
-    tri_uv1 = reorder(tri_uv1)
-    tri_uv2 = reorder(tri_uv2)
-    tri_mat = np.asarray(tri_mat, np.int32)[order] if num_tris else (
-        np.asarray(tri_mat, np.int32))
+    if num_tris and native.native_available():
+        (tri_v0, tri_v1, tri_v2, tri_n0, tri_n1, tri_n2, tri_uv0, tri_uv1,
+         tri_uv2, tri_mat) = native.reorder_tris_native(
+            order, tri_v0, tri_v1, tri_v2, tri_n0, tri_n1, tri_n2, tri_uv0,
+            tri_uv1, tri_uv2, tri_mat)
+    else:
+        tri_v0 = reorder(tri_v0)
+        tri_v1 = reorder(tri_v1)
+        tri_v2 = reorder(tri_v2)
+        tri_n0 = reorder(tri_n0)
+        tri_n1 = reorder(tri_n1)
+        tri_n2 = reorder(tri_n2)
+        tri_uv0 = reorder(tri_uv0)
+        tri_uv1 = reorder(tri_uv1)
+        tri_uv2 = reorder(tri_uv2)
+        tri_mat = np.asarray(tri_mat, np.int32)[order] if num_tris else (
+            np.asarray(tri_mat, np.int32))
 
     # Explicit (KHR punctual) lights collected during node processing.
     lp = [] if light_position is None else list(np.asarray(light_position, f32))

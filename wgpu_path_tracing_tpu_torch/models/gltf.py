@@ -30,9 +30,11 @@ reference's, as the JAX package keeps them:
 The JAX package decodes and scales images with Pillow; here
 ``utils/image.py::decode_png_rgba`` and ``resize_bilinear_u8`` compute what
 Pillow computes, so the atlas is array-equal. There is no JPEG decoder: a
-JPEG image raises ``NotImplementedError`` naming it. The JAX package's
-native flattener (its ``accel/native.py``) is not carried over: this is
-the NumPy transform and gather that the JAX package holds it to.
+JPEG image raises ``NotImplementedError`` naming it. With a compiler,
+``accel/native.py``'s library transforms and gathers each primitive's
+corners in one pass (``flatten_native``) and packs the atlas
+(``potpack_native``); the NumPy code here is their plain version, the same
+arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from urllib.parse import unquote
 
 import numpy as np
 
+from wgpu_path_tracing_tpu_torch.accel import native
 from wgpu_path_tracing_tpu_torch.models.assemble import finalize_scene
 from wgpu_path_tracing_tpu_torch.models.potpack import potpack
 from wgpu_path_tracing_tpu_torch.models.types import SceneArrays
@@ -445,22 +448,14 @@ def _add_light(lights: dict, light: dict, world: np.ndarray,
     lights["aux"].append(aux)
 
 
-def _primitive_corners(gf: GLTFFile, prim: dict, world: np.ndarray,
-                       normal_mat: np.ndarray):
-    """A primitive's triangle corners in world space: (v0, v1, v2, n0, n1,
-    n2, uv0, uv1, uv2). Transforms in float64, cast to float32 before the
-    gathers (the cast commutes with the gather); identity nodes skip the
-    float64 round trip of the positions."""
-    attrs = prim["attributes"]
-    if "indices" not in prim:
-        raise ValueError("No index found")  # gpu.ts:307-309
-    pos32 = gf.accessor(attrs["POSITION"])
-    nrm32 = gf.accessor(attrs["NORMAL"])
-    idx = gf.accessor(prim["indices"]).reshape(-1).astype(np.int64)
-    if "TEXCOORD_0" in attrs:
-        uv = gf.accessor(attrs["TEXCOORD_0"]).astype(np.float32)
-    else:
-        uv = np.zeros((pos32.shape[0], 2), np.float32)  # gpu.ts:310
+def flatten_corners(pos32: np.ndarray, nrm32: np.ndarray, world: np.ndarray,
+                    normal_mat: np.ndarray, idx: np.ndarray):
+    """The corners of triangles ``idx`` (3k corner indices) in world space:
+    (v0, v1, v2, n0, n1, n2), each (k, 3) float32 (gpu.ts:247-274).
+    Transforms in float64, cast to float32 before the gathers (the cast
+    commutes with the gather); an identity node skips the float64 round
+    trip of the positions. This is the plain version of
+    ``native.flatten_native``."""
     if np.array_equal(world, np.eye(4)):
         wpos = np.ascontiguousarray(pos32, np.float32)
         nrm64 = nrm32.astype(np.float64)
@@ -472,8 +467,29 @@ def _primitive_corners(gf: GLTFFile, prim: dict, world: np.ndarray,
     ln[ln == 0] = 1.0
     wnrm = (nrm64 / ln).astype(np.float32)
     i0, i1, i2 = idx[0::3], idx[1::3], idx[2::3]
-    return (wpos[i0], wpos[i1], wpos[i2], wnrm[i0], wnrm[i1], wnrm[i2],
-            uv[i0], uv[i1], uv[i2])
+    return wpos[i0], wpos[i1], wpos[i2], wnrm[i0], wnrm[i1], wnrm[i2]
+
+
+def _primitive_corners(gf: GLTFFile, prim: dict, world: np.ndarray,
+                       normal_mat: np.ndarray):
+    """A primitive's triangle corners in world space: (v0, v1, v2, n0, n1,
+    n2, uv0, uv1, uv2); the positions and normals by the native library
+    when it has a compiler, else by ``flatten_corners`` (the same
+    arrays)."""
+    attrs = prim["attributes"]
+    if "indices" not in prim:
+        raise ValueError("No index found")  # gpu.ts:307-309
+    pos32 = gf.accessor(attrs["POSITION"])
+    nrm32 = gf.accessor(attrs["NORMAL"])
+    idx = gf.accessor(prim["indices"]).reshape(-1).astype(np.int64)
+    if "TEXCOORD_0" in attrs:
+        uv = gf.accessor(attrs["TEXCOORD_0"]).astype(np.float32)
+    else:
+        uv = np.zeros((pos32.shape[0], 2), np.float32)  # gpu.ts:310
+    flatten = (native.flatten_native if idx.size and native.native_available()
+               else flatten_corners)
+    return (*flatten(pos32, nrm32, world, normal_mat, idx),
+            uv[idx[0::3]], uv[idx[1::3]], uv[idx[2::3]])
 
 
 def load_model(path: str, texture_pixel_ratio: float = 0.5,

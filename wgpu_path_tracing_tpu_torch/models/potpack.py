@@ -1,20 +1,41 @@
 """Rectangle packing for texture canvases (mapbox/potpack, atlas.ts:60).
 
-A copy of the JAX package's ``models/gltf.py::potpack_python``: sort by
-height, fill a roughly square strip, split free spaces. The JAX package
-dispatches to a native twin held bit-identical to this packer, so both give
-the same positions. Integer dims keep integer arithmetic throughout (the
-fat-atlas canvas uses the result as an array shape).
+``potpack_python`` is a copy of the JAX package's: sort by height, fill a
+roughly square strip, split free spaces. ``potpack`` runs its C++ twin
+(``accel/cbvh/potpack.cpp``, bit-identical) when the native library has a
+compiler. Integer dims keep integer results either way (the fat-atlas
+canvas uses them as an array shape).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
+
+from wgpu_path_tracing_tpu_torch.accel import native
+
 
 def potpack(boxes: list[dict]) -> tuple[int, int]:
     """Pack boxes ``{"w", "h"}`` in place (sets each box's ``x`` and ``y``).
-    Returns the (width, height) of the packed canvas."""
+    Returns the (width, height) of the packed canvas: ``potpack_python``'s
+    positions and canvas, through the native library when it has a
+    compiler."""
+    if not (boxes and native.native_available()):
+        return potpack_python(boxes)
+    xy, w, h = native.potpack_native(
+        np.array([[b["w"], b["h"]] for b in boxes], np.float64))
+    # Integer dims pack exactly in float64; give them back as ints.
+    as_int = all(isinstance(b["w"], int) and isinstance(b["h"], int)
+                 for b in boxes)
+    cast = int if as_int else float
+    for box, (x, y) in zip(boxes, xy):
+        box["x"], box["y"] = cast(x), cast(y)
+    return cast(w), cast(h)
+
+
+def potpack_python(boxes: list[dict]) -> tuple[int, int]:
+    """The Python packer, ``potpack``'s plain version."""
     area = sum(b["w"] * b["h"] for b in boxes)
     max_width = max((b["w"] for b in boxes), default=0)
     order = sorted(range(len(boxes)), key=lambda i: -boxes[i]["h"])
