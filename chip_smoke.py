@@ -165,7 +165,30 @@ and runs these phases, one line of output each:
    restarts the accumulation (that tick's launches counted),
    ``/frame.png`` decodes, ``/stats`` reads, ticks a second and
    ``motion_to_frame_ms``, and the atrium's bytes POSTed to ``/load``
-   installed at a chunk boundary with the mean restarted.
+   installed at a chunk boundary with the mean restarted;
+20. the 16-wide walk (``wide16``, run after phase 7 on its large box): the
+   width-16 ("ffd") and the width-8 "slice" collapses of the large box built
+   in NumPy (seconds, nodes, groups, depth beside the "ffd" tree's); K3's
+   width-16 instantiation (``wpt_walk16``), and K3 on the slice tables,
+   against their plain versions on phase 7's camera, bounce-1 and shadow-0
+   rays, bit for bit, and against width-8 K3 (lanes that differ, and
+   whether each is an exact-t tie); device ms a call of the three trees in
+   turns; K3-w16's bound; a 192x192 x 1-spp render of the large box
+   through ``make_closest_hit`` on the width-16 tables (K3-w16 launches
+   counted) against its plain path on every pixel;
+21. multi-device rendering (``shard``): ``Renderer(devices=["cuda"] * k,
+   sample_shards=s)`` on the 1x1, 1x2 and 2x2 meshes of the one card (each
+   entry a shard that runs there in turn), the flagship at 64 spp: the
+   launches (K1 1,024 / 2,048 / 2,048), each image equal to its plain
+   path's (``render_chunk_sharded`` with the plain versions) on every pixel
+   and within rtol 1e-4 / atol 1e-5 of the single-device image, the
+   counters equal, the cold render and the median of repeats in Mrays/s in
+   turns with the single-device renderer; then on the 2x2 mesh the large
+   box through the walk (8 spp), ``rng="stratified"`` (8 spp, also against
+   its plain path), a checkpoint resume (4 + 4 spp against 8 in one go,
+   bit for bit) and a padded tail (5 spp); ``cli.main render cornell
+   --multichip`` against the ``Renderer``'s PNG; and ``devices=True`` on
+   this host (one card: the single-device path).
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -190,7 +213,8 @@ gltf,env`` runs the scene-loading and environment-map phases alone
 (about 65 s after the build); ``--phases bvh2,debug,denoise,adaptive`` the
 phases of the binary-BVH walks, the debug views, the denoiser and adaptive
 sampling; ``--phases native,cli`` the scene-prep library and the command
-line (about 60 s after the build).
+line (about 60 s after the build); ``--phases wide16,shard`` the 16-wide
+walk and multi-device rendering.
 """
 
 from __future__ import annotations
@@ -199,6 +223,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -264,6 +289,7 @@ from wgpu_path_tracing_tpu_torch.ops.intersect import (  # noqa: E402
     with_tail_compaction,
 )
 from wgpu_path_tracing_tpu_torch.debug import modes as DEBUG  # noqa: E402
+from wgpu_path_tracing_tpu_torch.parallel import shard as SH  # noqa: E402
 from wgpu_path_tracing_tpu_torch.render import adaptive as ADAPTIVE  # noqa: E402
 from wgpu_path_tracing_tpu_torch.render.pipeline import (  # noqa: E402
     camera_device,
@@ -1122,7 +1148,7 @@ def plain_closest_hit(scene: dict, strategy: str):
                          any_hit=any_hit)
 
         return closest_hit
-    if strategy == "walk":
+    if strategy in ("walk", "walk_hbm"):
         plain, tables = K3.closest_hit_walk_plain, K3.walk_tables(scene)
     else:
         _, _, plain, get_tables = DISPATCH[strategy]
@@ -1212,7 +1238,7 @@ def plain_adaptive(r: Renderer, spp: int) -> np.ndarray:
 def reset_counts() -> None:
     K1.Counter.launches = 0
     K2.Counter.reset()
-    K3.Counter.launches = 0
+    K3.Counter.launches = K3.Counter.wide = 0
     K4.Counter.launches = 0
     BLOCKS.Counter.launches = 0
     K5.Counter.launches = 0
@@ -1224,14 +1250,15 @@ def reset_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches per kernel: K1, K2 by texture mode ("k2" untextured), those
-    of them that ran K2's LDS instantiation and its ENV one, K3, K4, K5 (a
-    gate and a test kernel count as one), K6, the phase-1 kernel of K4
-    and K6, K7 (and those of them in its depth mode), K8 and K9."""
+    of them that ran K2's LDS instantiation and its ENV one, K3 (and those
+    of them at width 16), K4, K5 (a gate and a test kernel count as one),
+    K6, the phase-1 kernel of K4 and K6, K7 (and those of them in its depth
+    mode), K8 and K9."""
     return {"k1": K1.Counter.launches, "k2": K2.Counter.by_mode["none"],
             "k2_per_slot": K2.Counter.by_mode["per_slot"],
             "k2_fat": K2.Counter.by_mode["fat"], "k2_lds": K2.Counter.lds,
             "k2_env": K2.Counter.env,
-            "k3": K3.Counter.launches,
+            "k3": K3.Counter.launches, "k3_w16": K3.Counter.wide,
             "k4": K4.Counter.launches, "k5": K5.Counter.launches,
             "k6": K6.Counter.launches,
             "block_entry": BLOCKS.Counter.launches,
@@ -1503,11 +1530,12 @@ def same_hits(a, b, what: str) -> None:
 
 
 def walk_bound(visits: dict, tables, n: int) -> tuple:
-    """K3's bound on ``n`` rays: the rays and (t, idx) once, the three
-    tables once, and the work these rays need by the plain walk's count: a
-    slab test for each non-empty child of an interior visit and for each
-    sub-cluster of a leaf visit that holds a triangle, and a Möller-Trumbore
-    test for each triangle of an entered sub-cluster."""
+    """K3's bound on ``n`` rays, at the tables' width W: the rays and (t,
+    idx) once, the three tables once, and the work these rays need by the
+    plain walk's count: a slab test for each non-empty child of an interior
+    visit (up to W) and for each sub-cluster of a leaf visit that holds a
+    triangle, and a Möller-Trumbore test for each triangle of an entered
+    sub-cluster."""
     ops = (SLAB_OPS * (visits["children"] + visits["sub_boxes"])
            + MT_OPS * visits["triangles"])
     moved = 6 * 4 * n + nbytes(tables.order, tables.boxes, tables.tris) + 8 * n
@@ -3167,8 +3195,6 @@ def cli_main(*argv) -> str:
 
 def cli_renderer(scene_np=None, path=None) -> Renderer:
     """The ``Renderer`` the CLI builds by default (512x512, its camera)."""
-    import math
-
     cam = Camera(width=SIZE, height=SIZE, aspect=1.0, fov=math.radians(60.0),
                  aperture=0.001, focus_distance=5.0)
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), cam, device="cuda")
@@ -3362,6 +3388,372 @@ def phase_cli(dev, smi, report):
             server.stop()
 
 
+# --- multi-device rendering and the 16-wide walk ---------------------------
+
+# The meshes of phase ``shard``, (name, sample shards, row shards), each
+# entry of the device list a shard that runs on the one card in turn; the
+# spp of its other renders.
+SHARD_MESHES = (("1x1", 1, 1), ("1x2", 1, 2), ("2x2", 2, 2))
+SHARD_LARGE_SPP = 8
+SHARD_RNG_SPP = 8
+SHARD_TAIL_SPP = 5  # not a multiple of the sample axis: a padded chunk
+SHARD_CLI_SPP = 8
+SHARD_REPEATS = 5  # renders of each mesh, in turns with one device's
+# Phase ``wide16``: the size of its 1-spp render (the plain walk at 512x512
+# takes about 30 s a frame).
+WIDE16_SIZE = 192
+
+
+def mesh_renderer(sample: int, rows: int, scene_np, **config) -> Renderer:
+    """A 512x512 ``Renderer`` on a (sample, rows) mesh of the card."""
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE, **config),
+                 device="cuda", devices=["cuda"] * (sample * rows),
+                 sample_shards=sample)
+    r.load_scene(scene_np)
+    return r
+
+
+def shard_frames(r: Renderer, spp: int) -> int:
+    """The frames ``r.render(spp)`` runs over all the shards of its mesh:
+    each chunk as ``round_chunk`` rounds it, on every row shard."""
+    total, remaining = 0, spp
+    while remaining > 0:
+        n_frames, chunk = SH.round_chunk(
+            min(r.config.frames_per_chunk, remaining), r.mesh.shape["sample"])
+        total += n_frames * r.mesh.shape["row"]
+        remaining -= chunk
+    return total
+
+
+def plain_sharded(r: Renderer, spp: int) -> np.ndarray:
+    """The frames ``r.render(spp)`` draws on its mesh after a reset, through
+    ``render_chunk_sharded`` with the plain bounce loop and the plain
+    version of ``r``'s intersector, in the renderer's chunks. Returns
+    (H, W, 3) like ``render``."""
+    cfg, mesh = r.config, r.mesh
+    scene = load_jax_scene(pack_device_scene(r.scene), r.device)
+    for key in ("env", "env_params"):  # the environment map, where set
+        if key in r._scene_dev:
+            scene[key] = r._scene_dev[key]
+    scenes = SH.replicate_scene(scene, mesh)
+    hits = {d: plain_closest_hit(s, r.stats()["intersector"])
+            for d, s in scenes.items()}
+    accum = SH.shard_accum(torch.zeros((cfg.width * cfg.height, 3)), mesh)
+    frame, remaining = 0, spp
+    while remaining > 0:
+        chunk = min(cfg.frames_per_chunk, remaining)
+        fpt = math.gcd(cfg.frames_per_trace, chunk)
+        n_frames, chunk = SH.round_chunk(chunk, mesh.shape["sample"])
+        SH.render_chunk_sharded(
+            TRACE.trace, hits, scenes, r._camera(), accum, frame, mesh=mesh,
+            n_frames=n_frames, n_active=chunk, frames_per_trace=fpt,
+            width=cfg.width, height=cfg.height,
+            use_dof=float(r.camera.aperture) > 0.0,
+            max_bounces=cfg.max_bounces, do_mis=cfg.do_mis,
+            num_lights=r.scene.num_lights, firefly_clamp=cfg.firefly_clamp,
+            rng_mode=cfg.rng)
+        frame += chunk
+        remaining -= chunk
+    buf = SH.untile_image(SH.gather_image(accum), cfg.width, cfg.height,
+                          mesh.shape["row"])
+    return buf.reshape(cfg.height, cfg.width, 3)
+
+
+def against_single(hdr, ref, stats, ref_stats, what: str) -> int:
+    """A sharded image against the single-device one at the JAX package's
+    bar (rtol 1e-4 / atol 1e-5): the pixels outside it, which must be none;
+    the ray counters must be equal."""
+    off = int((~np.isclose(hdr, ref, rtol=1e-4, atol=1e-5)).any(-1).sum())
+    rays = (stats["rays_closest"], stats["rays_shadow"])
+    ref_rays = (ref_stats["rays_closest"], ref_stats["rays_shadow"])
+    say("shard", f"{what}: {off} pixels outside rtol 1e-4 / atol 1e-5 of "
+        f"the single-device image, {pixels_differing(hdr, ref)} not "
+        f"bit-equal; rays {rays}, single device {ref_rays}")
+    if off or rays != ref_rays:
+        raise AssertionError(f"{what}: not the single-device render")
+    return off
+
+
+def phase_shard(dev, smi, report):
+    """``Renderer(devices=...)`` on meshes of the one card: the flagship on
+    the 1x1, 1x2 and 2x2 meshes at 64 spp (launches, each image against its
+    plain path's and the single-device image, the counters, cold and
+    repeated Mrays/s in turns with the single-device renderer); then on the
+    2x2 mesh the large box through the walk, the stratified flagship, a
+    checkpoint resume and a padded tail chunk; ``cli.main render
+    --multichip``; and ``devices=True`` on this host's cards."""
+    out = report.setdefault("shard", {})
+    single = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    single.load_scene(cornell_box())
+    ref = single.render(spp=SPP)
+    ref_stats = single.stats()
+    rays = ref_stats["rays_total"]
+    for name, sample, rows in SHARD_MESHES:
+        r = mesh_renderer(sample, rows, cornell_box())
+        frames = shard_frames(r, SPP)
+        hdr, secs = counted_render(
+            r, SPP, report, f"shard_{name}",
+            expect(k1=2 * MAX_BOUNCES * frames, k2=MAX_BOUNCES * frames))
+        off = against_single(hdr, ref, r.stats(), ref_stats,
+                             f"{name} mesh, flagship {SPP} spp")
+        t0 = time.perf_counter()
+        plain = plain_sharded(r, SPP)
+        plain_s = time.perf_counter() - t0
+        same_image(hdr, plain, f"{name} mesh against its plain path "
+                   f"({plain_s:.3f} s)", "shard")
+        walls = {"single": [], "mesh": []}
+        for _ in range(SHARD_REPEATS):  # in turns: single, mesh
+            for key, rr in (("single", single), ("mesh", r)):
+                rr.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rr.render(spp=SPP, fetch=False)
+                walls[key].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        say("shard", f"{name} mesh: cold render {secs:.4f} s, "
+            f"{rays / secs / 1e6:.3f} Mrays/s; {SHARD_REPEATS} renders in "
+            f"turns with one device, medians {med['mesh']:.4f} s "
+            f"({rays / med['mesh'] / 1e6:.3f} Mrays/s) against "
+            f"{med['single']:.4f} s ({rays / med['single'] / 1e6:.3f}): "
+            f"{med['mesh'] / med['single']:.3f}x the single device's wall "
+            f"on {smi}")
+        out[name] = {"launches_k1": 2 * MAX_BOUNCES * frames,
+                     "pixels_outside_bar": off, "seconds": secs,
+                     "mrays_per_sec": rays / secs / 1e6,
+                     "repeat_median_seconds": med["mesh"],
+                     "single_median_seconds": med["single"],
+                     "repeat_seconds": walls["mesh"],
+                     "single_seconds": walls["single"],
+                     "wall_ratio": med["mesh"] / med["single"],
+                     "plain_seconds": plain_s}
+        del r
+
+    # The large box through the walk, on the 2x2 mesh.
+    large, _ = tessellated_box(LARGE_TESSELLATION)
+    one = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    one.load_scene(large)
+    large_ref = one.render(spp=SHARD_LARGE_SPP)
+    large_stats = one.stats()
+    del one
+    r = mesh_renderer(2, 2, large)
+    if r.stats()["intersector"] != "walk":
+        raise AssertionError("the large box must take the walk (K3)")
+    frames = shard_frames(r, SHARD_LARGE_SPP)
+    hdr, secs = counted_render(
+        r, SHARD_LARGE_SPP, report, "shard_large",
+        expect(k2=MAX_BOUNCES * frames, k3=2 * MAX_BOUNCES * frames))
+    against_single(hdr, large_ref, r.stats(), large_stats,
+                   f"2x2 mesh, the large box through the walk, "
+                   f"{SHARD_LARGE_SPP} spp")
+    out["large_2x2"] = {"seconds": secs, "mrays_per_sec":
+                        r.stats()["rays_total"] / secs / 1e6}
+    del r
+
+    # rng="stratified" on the 2x2 mesh: K2's LDS instantiation once a shard
+    # frame.
+    one = rng_renderer("stratified", cornell_box())
+    strat_ref = one.render(spp=SHARD_RNG_SPP)
+    r = mesh_renderer(2, 2, cornell_box(), rng="stratified")
+    frames = shard_frames(r, SHARD_RNG_SPP)
+    hdr, _ = counted_render(
+        r, SHARD_RNG_SPP, report, "shard_stratified",
+        expect(k1=2 * MAX_BOUNCES * frames, k2=MAX_BOUNCES * frames,
+               k2_lds=frames))
+    against_single(hdr, strat_ref, r.stats(), one.stats(),
+                   f"2x2 mesh, stratified flagship, {SHARD_RNG_SPP} spp")
+    same_image(hdr, plain_sharded(r, SHARD_RNG_SPP),
+               "the stratified 2x2 mesh against its plain path", "shard")
+    del r, one
+
+    # A checkpoint on the 2x2 mesh: CKPT_SPP frames, saved, loaded into a
+    # fresh mesh renderer, CKPT_SPP more; against 2 * CKPT_SPP frames in one
+    # go in the same chunks.
+    c = mesh_renderer(2, 2, cornell_box(), frames_per_chunk=CKPT_SPP)
+    c.render(spp=CKPT_SPP)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.npz")
+        c.save_checkpoint(path)
+        d = mesh_renderer(2, 2, cornell_box(), frames_per_chunk=CKPT_SPP)
+        d.load_checkpoint(path)
+    resumed = d.render(spp=CKPT_SPP)
+    c.reset()
+    same_image(resumed, c.render(spp=2 * CKPT_SPP),
+               f"a 2x2 mesh render resumed from a checkpoint at {CKPT_SPP} "
+               f"spp against {2 * CKPT_SPP} spp in one go", "shard")
+    del c, d
+
+    # A padded tail: SHARD_TAIL_SPP frames on two sample shards.
+    one = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
+    one.load_scene(cornell_box())
+    tail_ref = one.render(spp=SHARD_TAIL_SPP)
+    r = mesh_renderer(2, 2, cornell_box())
+    frames = shard_frames(r, SHARD_TAIL_SPP)
+    hdr, _ = counted_render(
+        r, SHARD_TAIL_SPP, report, "shard_tail",
+        expect(k1=2 * MAX_BOUNCES * frames, k2=MAX_BOUNCES * frames))
+    if r.frame_index != SHARD_TAIL_SPP:
+        raise AssertionError("the padded tail did not land on the spp")
+    against_single(hdr, tail_ref, r.stats(), one.stats(),
+                   f"2x2 mesh, {SHARD_TAIL_SPP} spp ({frames} shard frames, "
+                   "the padded ones weighing 0)")
+    del r, one
+
+    # The command line's --multichip, and devices=True on this host.
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "multichip.png")
+        cli_main("render", "cornell", "--spp", str(SHARD_CLI_SPP),
+                 "--multichip", "-o", png)
+        c = cli_renderer(cornell_box())
+        c.render(spp=SHARD_CLI_SPP)
+        c.save_png(os.path.join(tmp, "renderer.png"))
+        same_png(png, os.path.join(tmp, "renderer.png"),
+                 "cli render --multichip's PNG against the Renderer's")
+    cards = torch.cuda.device_count()
+    every = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda",
+                     devices=True)
+    shape = None if every.mesh is None else every.mesh.shape
+    say("shard", f"{cards} card(s): devices=True takes "
+        f"{'the single-device path' if shape is None else shape}")
+    if (shape is None) != (cards == 1):
+        raise AssertionError("devices=True must take the single-device path "
+                             "on one card and a mesh on more")
+    out["cards"] = cards
+
+
+def wide_tables(wb, dev):
+    """``build_wide_bvh``'s tables uploaded as the walk reads them."""
+    return K3.walk_tables({
+        "walk_order": torch.from_numpy(wb.order).to(dev),
+        "walk_boxes": torch.from_numpy(wb.boxes).to(dev),
+        "walk_tris": torch.from_numpy(wb.tris).to(dev)})
+
+
+def phase_wide16(dev, smi, report, large: dict):
+    """The 16-wide walk on the large box (``large_sets``): the width-16
+    ("ffd") and the width-8 "slice" collapses built in NumPy; K3-w16, and
+    K3 on the slice tables, against their plain versions on the camera,
+    bounce-1 and shadow-0 rays, bit for bit, and against width-8 K3 on the
+    scene's own tables; their times, the bound; a 1-spp render through
+    ``make_closest_hit`` on the width-16 tables against its plain path."""
+    scene_np, scene, w8 = large["scene_np"], large["scene"], large["tables"]
+    nt = scene_np.num_triangles
+    tri = scene["tri_isect"].cpu().numpy()[:nt]
+    args = (scene_np.bvh_aabb_min, scene_np.bvh_aabb_max, scene_np.bvh_meta,
+            tri)
+    trees = {}
+    for name, pack, width in (("ffd-8", "ffd", 8), ("ffd-16", "ffd", 16),
+                              ("slice-8", "slice", 8)):
+        t0 = time.perf_counter()
+        wb = bvh8.build_wide_bvh(*args, pack=pack, width=width,
+                                 prefer_native=False)
+        secs = time.perf_counter() - t0
+        trees[name] = wb
+        say("wide16", f"{name} collapse in NumPy: {secs:.3f} s, "
+            f"{wb.num_nodes} wide nodes, {wb.num_groups} leaf groups, depth "
+            f"{bvh8.wide_depth(wb.meta)}")
+        report.setdefault("wide16", {})[name] = {
+            "numpy_seconds": secs, "nodes": wb.num_nodes,
+            "groups": wb.num_groups, "depth": bvh8.wide_depth(wb.meta)}
+    if not np.array_equal(trees["ffd-8"].order, w8.order.cpu().numpy()):
+        raise AssertionError("the NumPy ffd collapse is not the scene's")
+    tables = {"w16": wide_tables(trees["ffd-16"], dev),
+              "slice": wide_tables(trees["slice-8"], dev), "w8": w8}
+    n = large["rays"].shape[1]
+    visits = {}
+    for key in ("w16", "slice"):
+        tb = tables[key]
+        for name, r, extra in large["cases"]:
+            o, d = r[0:3], r[3:6]
+            before = K3.Counter.wide
+            kt, ki = K3.closest_hit_walk(tb, o, d, num_tris=nt, **extra)
+            if K3.Counter.wide - before != int(key == "w16"):
+                raise AssertionError("the launch went to the wrong width")
+            visits[key, name] = {}
+            pt, pi = K3.closest_hit_walk_plain(tb, o, d, num_tris=nt,
+                                               visits=visits[key, name],
+                                               **extra)
+            same_hits((kt, ki), (pt, pi), f"K3 ({key}) on the {name} rays")
+            wt, wi = K3.closest_hit_walk(w8, o, d, num_tris=nt, **extra)
+            if "any_hit" in extra:
+                # Any hit below the limit answers: the occlusion answers
+                # must agree, not the hit found.
+                apart = (kt < extra["t_max"]) != (wt < extra["t_max"])
+                agree = f"{int(apart.sum())} occlusion answers differ"
+                bad = bool(apart.any())
+            else:
+                apart = (ki != wi) | (kt != wt)
+                agree = (f"{int(apart.sum())} lanes differ, every one an "
+                         f"exact-t tie: "
+                         f"{'no' if bool((kt != wt).any()) else 'yes'}")
+                bad = int(apart.sum()) > 0.01 * n
+            say("wide16", f"{key} tables, {name} rays: K3 equals its plain "
+                f"version on all {n} lanes ({int((pi >= 0).sum())} hits); "
+                f"against width-8 K3 {agree}; a ray: "
+                + ", ".join(f"{visits[key, name][k] / n:.2f} {k}"
+                            for k in ("interior", "leaf", "children",
+                                      "triangles")))
+            if bad:
+                raise AssertionError(f"{key} and width-8 K3 disagree on the "
+                                     f"{name} rays")
+    # Device ms a call, the three trees in turns, in one process.
+    times = {}
+    for name, r, extra in large["cases"]:
+        o, d = r[0:3], r[3:6]
+        for key in ("w8", "w16", "slice", "w16", "w8"):
+            ms = device_ms(lambda: K3.closest_hit_walk(
+                tables[key], o, d, num_tris=nt, **extra))
+            times.setdefault(name, {}).setdefault(key, []).append(ms)
+        say("wide16", f"{name} rays, device ms a call (CUDA graph replay): "
+            + ", ".join(f"{key} {' / '.join(f'{v:.4f}' for v in vs)}"
+                        for key, vs in times[name].items()))
+    o, d = large["rays"][0:3], large["rays"][3:6]
+    plain = eager_ms(lambda: K3.closest_hit_walk_plain(tables["w16"], o, d,
+                                                       num_tris=nt), reps=1)
+    b, ops = walk_bound(visits["w16", "camera"], tables["w16"], n)
+    say("wide16", f"K3-w16 bound at {n} camera rays: {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; {ops / 1e9:.3f} Gop); plain {plain:.4f} ms on "
+        f"{smi}")
+
+    # A 1-spp render through make_closest_hit on the width-16 tables.
+    s16 = dict(scene, walk_order=tables["w16"].order,
+               walk_boxes=tables["w16"].boxes, walk_tris=tables["w16"].tris)
+    closest_hit = make_closest_hit(s16, "walk")
+    cam = camera_device(Camera(width=WIDE16_SIZE, height=WIDE16_SIZE)
+                        .as_pytree(), WIDE16_SIZE, WIDE16_SIZE)
+    kw = dict(n_frames=1, width=WIDE16_SIZE, height=WIDE16_SIZE,
+              use_dof=True, max_bounces=MAX_BOUNCES, do_mis=True,
+              num_lights=scene_np.num_lights, firefly_clamp=2.5)
+    images = []
+    torch.cuda.synchronize()
+    reset_counts()
+    for trace_fn, ch in ((K2.trace_cuda, closest_hit),
+                         (TRACE.trace, plain_closest_hit(s16, "walk"))):
+        accum = torch.zeros((WIDE16_SIZE * WIDE16_SIZE, 3), device=dev)
+        render_chunk(trace_fn, ch, s16, cam, accum, 0, **kw)
+        images.append(accum.cpu().numpy())
+        if trace_fn is K2.trace_cuda:
+            counts = launch_counts()
+    if counts != expect(k2=MAX_BOUNCES, k3=2 * MAX_BOUNCES,
+                        k3_w16=2 * MAX_BOUNCES):
+        raise AssertionError(f"wide16 render: launches {counts}")
+    report.setdefault("k3_w16", {})["launches_by_path"] = {
+        "wide16": counts["k3_w16"]}
+    same_image(images[0].reshape(WIDE16_SIZE, WIDE16_SIZE, 3),
+               images[1].reshape(WIDE16_SIZE, WIDE16_SIZE, 3),
+               f"{WIDE16_SIZE}x{WIDE16_SIZE} x 1 spp of the large box "
+               "through make_closest_hit on the width-16 tables (K3-w16 "
+               f"{counts['k3_w16']} launches) against its plain path",
+               "wide16")
+    cam_ms = times["camera"]
+    report["k3_w16"].update(
+        launches=counts["k3_w16"], max_abs_err=0.0,
+        ms=float(np.mean(cam_ms["w16"])), plain_ms=plain,
+        w8_ms=float(np.mean(cam_ms["w8"])),
+        slice_ms=float(np.mean(cam_ms["slice"])), times_ms=times,
+        visits_per_ray={f"{k}/{name}": {kk: v / n for kk, v in vis.items()}
+                        for (k, name), vis in visits.items()}, **b)
+
+
 def short(kernel_name: str) -> str:
     """A device event's name without namespaces, arguments and templates."""
     name = kernel_name.replace("(anonymous namespace)::", "")
@@ -3468,11 +3860,12 @@ def profile_call(fn, path: str, phase: str) -> dict:
 
 # The phases in their order; "k3" and "dispatch" share the large box's
 # scene and rays (``large_sets``).
-PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "large",
-          "dispatch", "dispatch_paths", "k2_lds", "rng_paths", "gltf", "env",
-          "bvh2", "debug", "denoise", "adaptive", "native", "cli")
+PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "wide16",
+          "large", "dispatch", "dispatch_paths", "k2_lds", "rng_paths",
+          "gltf", "env", "bvh2", "debug", "denoise", "adaptive", "native",
+          "cli", "shard")
 # The phases that share the large box (``large_sets``).
-LARGE_USERS = ("k3", "dispatch", "bvh2", "debug", "adaptive")
+LARGE_USERS = ("k3", "dispatch", "bvh2", "debug", "adaptive", "wide16")
 # The keys every kernel's entry in the kernels line carries.
 KERNEL_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -3510,6 +3903,11 @@ def kernels_line(report: dict, complete: bool) -> list:
          **report.get("k2_env", {})},
         {"name": "walk", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
          "replaces": f"{ref}/walk.py:177", **report.get("k3", {})},
+        # K3's width-16 instantiation: the same TPU kernel at the width
+        # closest_hit_walk infers from the order table (walk.py:684).
+        {"name": "walk_w16", "route": "cuda", "source": f"{pkg}/csrc/walk.cu",
+         "replaces": f"{ref}/walk.py:177", "also_replaces": f"{ref}/walk.py:684",
+         **report.get("k3_w16", {})},
         {"name": "pairs", "route": "cuda", "source": f"{pkg}/csrc/pairs.cu",
          "replaces": f"{ref}/pairs.py:108", **report.get("k4", {})},
         # Phase 1 of K4 and K6: the XLA scans ahead of the two TPU kernels.
@@ -3638,6 +4036,8 @@ def main() -> int:
                                            profile),
         "native": lambda: phase_native(dev, smi, report),
         "cli": lambda: phase_cli(dev, smi, report),
+        "shard": lambda: phase_shard(dev, smi, report),
+        "wide16": lambda: phase_wide16(dev, smi, report, large_box()),
     }
     t_start = time.perf_counter()
     last_large = [p for p in PHASES if p in wanted and p in LARGE_USERS]
@@ -3654,7 +4054,8 @@ def main() -> int:
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
              "stratified", "hash", "frames_per_trace", "checkpoint", "gltf",
-             "env", "debug", "denoise", "adaptive", "native", "cli")
+             "env", "debug", "denoise", "adaptive", "native", "cli", "shard",
+             "wide16")
     print(json.dumps({"kernels": kernels,
                       **{path: report[path] for path in paths
                          if path in report},

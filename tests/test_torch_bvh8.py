@@ -17,7 +17,7 @@ from wgpu_path_tracing_tpu.accel import bvh8 as JB
 from wgpu_path_tracing_tpu.models import procedural as JP
 from wgpu_path_tracing_tpu.models.types import pack_device_scene as jpack
 from wgpu_path_tracing_tpu_torch import cornell_box, load_jax_scene
-from wgpu_path_tracing_tpu_torch.accel import bvh8
+from wgpu_path_tracing_tpu_torch.accel import bvh8, native
 from wgpu_path_tracing_tpu_torch.models.procedural import material_test_box
 from wgpu_path_tracing_tpu_torch.models.types import (
     SceneArrays,
@@ -142,6 +142,24 @@ def test_stack_depth_guard(monkeypatch):
     assert not set(WALK) & set(packed)
 
 
-def test_only_the_ported_packs_are_taken():
-    with pytest.raises(ValueError, match="slice"):
-        bvh8.build_wide_bvh(*_tree_inputs("cornell4"), pack="slice")
+def test_only_the_ported_packs_are_taken(monkeypatch):
+    """Every pack and width of the JAX package is ported: "slice" and width
+    16, which have no C++ twin, build in NumPy even with the library there
+    (array-equal to the JAX builder, tests/test_torch_wide16.py); an
+    unknown pack or width raises."""
+    args = _tree_inputs("cornell4")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the native collapse was called")
+
+    monkeypatch.setattr(native, "native_available", lambda: True)
+    monkeypatch.setattr(native, "build_wide_native", refuse)
+    for pack, width in (("slice", 8), ("ffd", 16), ("none", 16)):
+        wb = bvh8.build_wide_bvh(*args, pack=pack, width=width)
+        ref = JB.build_wide_bvh(*args, pack=pack, width=width,
+                                prefer_native=False)
+        np.testing.assert_array_equal(wb.order, ref.order)
+    with pytest.raises(ValueError, match="pack"):
+        bvh8.build_wide_bvh(*args, pack="bins")
+    with pytest.raises(ValueError, match="width"):
+        bvh8.build_wide_bvh(*args, width=4)

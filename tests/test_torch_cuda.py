@@ -8,7 +8,7 @@ imports JAX; where JAX is not installed, run them with:
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
 in both texture modes, with and without its bounce-0 LDS instantiation,
 with and without its environment map's ENV instantiation),
-K3 (csrc/walk.cu), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
+K3 (csrc/walk.cu, at width 8 and 16, and on the "slice" pack's tables), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
 ragged counts, sparse and dead lanes, past one gate window, at other
 block sizes and with unordered slots), K6
 (csrc/cluster.cu), the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
@@ -18,7 +18,10 @@ level of the denoiser) must equal the plain versions bit for bit: both
 round every float32 operation the same way (the kernels are built with
 -fmad=false and IEEE division and square root). So must the Renderer's
 "stack" and "bvh" renders, its debug views, ``denoise`` and
-``render_adaptive`` their plain paths.
+``render_adaptive`` their plain paths, and a render on a (2, 2) mesh of
+the card (``devices=``) the plain path of the same sharded render; that
+render is held to the single-device one at rtol 1e-4 / atol 1e-5 (the
+sharded fold sums a chunk first), its counters exactly.
 """
 
 import dataclasses
@@ -41,6 +44,7 @@ from chip_smoke import (
     lane_mix_rays,
     plain_closest_hit,
     plain_render,
+    plain_sharded,
     scene_of,
     spine_rays,
     spine_tables,
@@ -59,6 +63,7 @@ from wgpu_path_tracing_tpu_torch import (
     scene_to_glb,
     textured_cornell,
 )
+from wgpu_path_tracing_tpu_torch.accel import bvh8
 from wgpu_path_tracing_tpu_torch.models.types import pack_device_scene
 from wgpu_path_tracing_tpu_torch.ops import blocks as BLOCKS
 from wgpu_path_tracing_tpu_torch.ops import bounce as K2
@@ -302,6 +307,56 @@ def test_walk_kernel_on_a_deep_tree(dev, mode):
     o, d = spine_rays(4096, len(tris), 2, dev)
     ki = _walk_case(tables, o, d, _masks(4096, mode, dev, 3))
     assert (ki >= 0).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "masked", "any_hit"])
+@pytest.mark.parametrize("pack, width", [("ffd", 16), ("slice", 8),
+                                         ("slice", 16)])
+def test_wide_walk_kernel_equals_plain(dev, pack, width, mode):
+    """K3 at width 16 (``wpt_walk16``) and on the "slice" pack's tables, on
+    random_triangles(8000) (two wide levels) from random origins in every
+    direction at a ray count that fills no block."""
+    sc = random_triangles(8000, seed=3)
+    packed = pack_device_scene(sc)
+    wb = bvh8.build_wide_bvh(sc.bvh_aabb_min, sc.bvh_aabb_max, sc.bvh_meta,
+                             packed["tri_isect"][:sc.num_triangles],
+                             pack=pack, width=width, prefer_native=False)
+    packed.update(walk_order=wb.order, walk_boxes=wb.boxes, walk_tris=wb.tris)
+    tables = K3.walk_tables(load_jax_scene(packed, dev))
+    assert tables.width == width
+    n = 16385
+    rng = np.random.default_rng(width)
+    lo, hi = packed["bvh_aabb"][0, 0:3], packed["bvh_aabb"][0, 3:6]
+    o = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).T.astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    before = K3.Counter.wide
+    ki = _walk_case(tables, o.contiguous().to(dev), d.to(dev),
+                    dict(_masks(n, mode, dev, 5), num_tris=8000))
+    assert K3.Counter.wide == before + (width == 16)
+    assert (ki >= 0).any()
+
+
+def test_renderer_on_a_mesh_of_the_card(dev):
+    """``devices=["cuda:0"] * 4``: a (2, 2) mesh of shards that run on the
+    one card in turn. The image equals the plain path of the same sharded
+    render bit for bit, and the single-device render within rtol 1e-4 /
+    atol 1e-5; the counters equal; K1 runs for each shard's frames."""
+    cfg = dict(width=W, height=H, frames_per_chunk=4)
+    one = Renderer(RenderConfig(**cfg), device="cuda")
+    four = Renderer(RenderConfig(**cfg), device="cuda",
+                    devices=["cuda:0"] * 4)
+    assert four.mesh.shape == {"sample": 2, "row": 2}
+    for r in (one, four):
+        r.load_scene(cornell_box())
+    single = one.render(spp=4)
+    before = K1.Counter.launches
+    multi = four.render(spp=4)
+    assert K1.Counter.launches == before + 2 * 8 * 4 * 2  # 4 frames x 2 rows
+    np.testing.assert_allclose(multi, single, rtol=1e-4, atol=1e-5)
+    for key in ("rays_closest", "rays_shadow"):
+        assert four.stats()[key] == one.stats()[key]
+    np.testing.assert_array_equal(multi.view(np.uint32),
+                                  plain_sharded(four, 4).view(np.uint32))
 
 
 def test_walk_kernel_on_no_rays(dev):

@@ -179,8 +179,9 @@ def test_make_closest_hit_dense_only():
     assert make_closest_hit(no_walk, intersector="brute",
                             brute_max_tris=16).strategy == "brute"
     assert make_closest_hit(scene, intersector="stack").strategy == "stack"
-    with pytest.raises(NotImplementedError):
-        make_closest_hit(scene, intersector="walk_hbm")
+    # "walk_hbm", the JAX package's paged walk, runs as K3.
+    assert make_closest_hit(scene, intersector="walk_hbm",
+                            brute_max_tris=16).strategy == "walk_hbm"
     # active / t_max / any_hit are accepted and ignored, as in the JAX
     # package's dense branch.
     rng = np.random.default_rng(0)

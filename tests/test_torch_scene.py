@@ -153,10 +153,10 @@ def test_unported_paths_raise(monkeypatch):
         RenderConfig(rng=rng).validate()
     with pytest.raises(ValueError):
         RenderConfig(rng="sobol").validate()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        RenderConfig(intersector="walk_hbm").validate()
-    for name in ("auto", "brute", "walk", "pairs", "phased", "cluster", "bvh",
-                 "stack"):
+    # Every intersector of the JAX package is taken, "walk_hbm" (its paged
+    # walk, which the port runs as K3) included.
+    for name in ("auto", "brute", "walk", "walk_hbm", "pairs", "phased",
+                 "cluster", "bvh", "stack"):
         RenderConfig(intersector=name).validate()
     with pytest.raises(ValueError):
         RenderConfig(intersector="nonsense").validate()

@@ -323,6 +323,7 @@ def test_kernel_constants_match_the_tables():
 
     assert const("kThreads") == walk.THREADS
     assert const("kWidth") == bvh8.WIDTH
+    assert (const("kWidth"), const("kWideWidth")) == bvh8.WIDTHS
     assert const("kOctants") == bvh8.OCTANTS
     assert const("kBoxFloats") == walk.BOX_FLOATS
     assert const("kTriFloats") == walk.TRI_FLOATS
@@ -356,15 +357,14 @@ def test_make_closest_hit_picks_the_walk(random_scene):
 @pytest.mark.parametrize("name", ["pairs", "phased", "cluster", "bvh",
                                   "stack", "walk_hbm"])
 def test_unported_intersectors_raise(random_scene, name):
-    """The JAX package's paged walk, a TPU residency mode, still raises;
-    the three dispatch intersectors and the two binary-BVH walks are ported
-    and report their name."""
+    """Every intersector of the JAX package is ported and reports its name:
+    the three dispatch intersectors, the two binary-BVH walks, and the paged
+    walk, a TPU residency mode that the port runs as K3; an unknown name
+    raises."""
     scene = load_jax_scene(random_scene, "cpu")
-    if name != "walk_hbm":
-        assert make_closest_hit(scene, name).strategy == name
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_closest_hit(scene, name)
+    assert make_closest_hit(scene, name).strategy == name
+    with pytest.raises(ValueError, match="unknown intersector"):
+        make_closest_hit(scene, name + "_x")
 
 
 def test_a_scene_without_walk_tables_raises(random_scene):

@@ -1,25 +1,25 @@
-"""Wide (8-ary) BVH collapse for the BVH walk (``ops/walk.py``, K3).
+"""Wide (8- or 16-ary) BVH collapse for the BVH walk (``ops/walk.py``, K3).
 
-A NumPy copy of the JAX package's ``accel/bvh8.py`` restricted to what the
-walk reads: width 8 and the "none" and "ffd" leaf packs, NumPy only. The
-tables are array-equal to the original's (``tests/test_torch_bvh8.py``), so
-both packages walk the same tree.
+A NumPy copy of the JAX package's ``accel/bvh8.py``: widths 8 and 16 and
+the "none", "ffd" and "slice" leaf packs. The tables are array-equal to the
+original's (``tests/test_torch_bvh8.py``, ``tests/test_torch_wide16.py``),
+so both packages walk the same tree.
 
-The binary SAH tree (``accel/bvh.py``) is collapsed into an 8-wide
-hierarchy whose leaves are subtree-aligned groups of <= LEAF_SLOTS
+The binary SAH tree (``accel/bvh.py``) is collapsed into a ``width``-wide
+hierarchy (W below; 8 by default) whose leaves are groups of <= LEAF_SLOTS
 triangles:
 
-* ``meta`` (Nn, 8) int32: child slot encoding. > 0 interior child (wide
+* ``meta`` (Nn, W) int32: child slot encoding. > 0 interior child (wide
   node id), < 0 leaf (group ``g = -m - 1``), == 0 empty (its box is NaN;
   node 0 is the root and is never anyone's child).
-* ``boxes`` (Nn * 64, 8) f32: per (node, ray-direction octant) an 8-row
-  slab at ``(n*8 + oct) * 8``. Row k is the k-th child in push order, its
+* ``boxes`` (Nn * 8 * W, 8) f32: per (node, ray-direction octant) a W-row
+  slab at ``(n*8 + oct) * W``. Row k is the k-th child in push order, its
   bounds on lanes 0..5 (minx..maxz); empty-child rows hold NaN. Push order
   is far-to-near along the octant's sign vector (octant bit a = 1 when
-  d[a] < 0), so a LIFO stack that pushes slots 0..7 pops the nearest
+  d[a] < 0), so a LIFO stack that pushes slots 0..W-1 pops the nearest
   child first.
-* ``order`` (Nn, 64) int32: ``order[n, oct*8 + k]`` is the meta of the
-  k-th pushed child (0 = empty slot).
+* ``order`` (Nn, 8 * W) int32: ``order[n, oct*W + k]`` is the meta of the
+  k-th pushed child (0 = empty slot). The walk reads W from its shape.
 * ``tris`` (Ng * group_rows(SUB), 128) f32: per leaf group a slab of
   LEAF_SLOTS triangle slots on lanes. Rows 0-8 hold [v0, e1, e2], row 9 the
   global triangle index (-1 on padding slots), rows 16..16+SUB the
@@ -28,10 +28,11 @@ triangles:
   Möller-Trumbore over its LEAF_SLOTS // SUB slots.
 
 ``build_wide_bvh`` runs the C++ twin (``accel/cbvh/wide_collapse.cpp``,
-bound by ``accel/native.py``) when the library has a compiler; this NumPy
-path is its plain version, and ``tests/test_torch_native.py`` holds the two
-bit-identical. Not copied: the experimental "slice" pack and 16-wide
-collapse.
+bound by ``accel/native.py``) for the "none" and "ffd" packs at width 8
+when the library has a compiler; this NumPy path is its plain version, and
+``tests/test_torch_native.py`` holds the two bit-identical. The "slice"
+pack and width 16 (the JAX package's experimental collapses) have no C++
+twin there or here: they take this NumPy path.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from wgpu_path_tracing_tpu_torch.accel import native
 from wgpu_path_tracing_tpu_torch.accel.bvh import subtree_ranges
 
 WIDTH = 8
+WIDTHS = (8, 16)  # the collapses K3 walks (csrc/walk.cu instantiations)
+PACKS = ("none", "ffd", "slice")
 OCTANTS = 8  # per-ray-direction-sign slab replicas (3 sign bits)
 LEAF_SLOTS = 128  # triangle slots per leaf group
 SUB = 16  # sub-clusters per leaf group, the Möller-Trumbore gating unit
@@ -107,10 +110,14 @@ def group_rows(sub: int) -> int:
 
 @dataclasses.dataclass
 class WideBVH:
-    meta: np.ndarray  # (Nn, 8) int32
-    order: np.ndarray  # (Nn, 64) int32: per-octant ordered child metas
-    boxes: np.ndarray  # (Nn * 64, 8) f32: per-octant ordered slabs
+    meta: np.ndarray  # (Nn, W) int32
+    order: np.ndarray  # (Nn, 8 * W) int32: per-octant ordered child metas
+    boxes: np.ndarray  # (Nn * 8 * W, 8) f32: per-octant ordered slabs
     tris: np.ndarray  # (Ng * group_rows(SUB), 128) f32
+
+    @property
+    def width(self) -> int:
+        return int(self.meta.shape[1])
 
     @property
     def num_nodes(self) -> int:
@@ -128,6 +135,7 @@ def build_wide_bvh(
     tri_isect: np.ndarray,
     pack: str = "ffd",
     prefer_native: bool = True,
+    width: int = WIDTH,
 ) -> WideBVH:
     """Collapse the binary BVH into the walk's wide tables.
 
@@ -135,16 +143,24 @@ def build_wide_bvh(
     leaf groups copy them into lane-major slabs. ``pack`` selects how small
     sibling subtrees share leaf groups: "none" = one subtree per group,
     "ffd" = first-fit-decreasing bin-pack on subtree boundaries (the
-    default; fuller groups, fewer group visits). ``prefer_native`` takes
-    the C++ collapse when ``native.native_available()``; False, or no
-    compiler, this NumPy path (the same tables).
+    default; fuller groups, fewer group visits), "slice" = the smalls'
+    triangle ranges concatenated in DFS order and cut at exact LEAF_SLOTS
+    boundaries (full groups; a group's box from its own triangles).
+    ``width`` (8 or 16) is the interior fan-out: 16 halves the interior
+    levels at twice the slab rows a visit. ``prefer_native`` takes the C++
+    collapse for "none" and "ffd" at width 8 when
+    ``native.native_available()``; False, no compiler, or any other
+    combination, this NumPy path (the same tables).
     """
-    if pack not in ("none", "ffd"):
-        raise ValueError(f"pack={pack!r}: only 'none' and 'ffd' are ported")
-    width, leaf_slots, sub = WIDTH, LEAF_SLOTS, SUB
+    if pack not in PACKS:
+        raise ValueError(f"pack={pack!r}: expected one of {PACKS}")
+    if width not in WIDTHS:
+        raise ValueError(f"width={width}: expected one of {WIDTHS}")
+    leaf_slots, sub = LEAF_SLOTS, SUB
     t = int(tri_isect.shape[0])
     grows = group_rows(sub)
-    if t > 0 and prefer_native and native.native_available():
+    if (t > 0 and prefer_native and pack in ("none", "ffd")
+            and width == WIDTH and native.native_available()):
         wm, wo, wb, wt = native.build_wide_native(
             aabb_min, aabb_max, meta, tri_isect, leaf_slots, sub, grows,
             pack=pack)
@@ -181,6 +197,11 @@ def build_wide_bvh(
         groups.append(
             [(int(lo[e]), count(e)) for e in sorted(members, key=lambda e: lo[e])]
         )
+        return -(gid + 1)
+
+    def emit_group_ranges(ranges: list[tuple[int, int]]) -> int:
+        gid = len(groups)
+        groups.append(list(ranges))
         return -(gid + 1)
 
     def alloc_node() -> int:
@@ -241,6 +262,9 @@ def build_wide_bvh(
         def slot_demand(es: list[int]) -> int:
             smalls = [e for e in es if count(e) <= leaf_slots]
             overs = len(es) - len(smalls)
+            if pack == "slice":
+                total = sum(count(e) for e in smalls)
+                return overs + -(-total // leaf_slots)
             if pack == "ffd":
                 return overs + len(_pack_bins(smalls))
             return overs + len(smalls)
@@ -261,7 +285,27 @@ def build_wide_bvh(
 
         smalls = [e for e in elems if count(e) <= leaf_slots]
         slots = []
-        if pack == "ffd":
+        if pack == "slice" and smalls:
+            # The smalls' triangle ranges in DFS order, cut at exact
+            # leaf_slots boundaries (a subtree may split across groups).
+            runs = [(int(lo[e]), count(e))
+                    for e in sorted(smalls, key=lambda e: lo[e])]
+            cur: list[tuple[int, int]] = []
+            room = leaf_slots
+            for glo, gcnt in runs:
+                while gcnt > 0:
+                    take = min(room, gcnt)
+                    cur.append((glo, take))
+                    glo += take
+                    gcnt -= take
+                    room -= take
+                    if room == 0:
+                        slots.append((emit_group_ranges(cur),
+                                      _box_of_ranges(cur)))
+                        cur, room = [], leaf_slots
+            if cur:
+                slots.append((emit_group_ranges(cur), _box_of_ranges(cur)))
+        elif pack == "ffd":
             for members in _pack_bins(smalls):
                 box = _union_box(members)
                 if len(members) == 1:
@@ -310,6 +354,15 @@ def build_wide_bvh(
         maxs = aabb_max[members].max(axis=0)
         return np.concatenate([mins, maxs]).astype(np.float32)
 
+    tri_f = np.asarray(tri_isect, np.float32)
+
+    def _box_of_ranges(ranges: list[tuple[int, int]]) -> np.ndarray:
+        rows = np.concatenate([tri_f[glo:glo + c] for glo, c in ranges])
+        v0 = rows[:, 0:3]
+        allv = np.concatenate([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]])
+        return np.concatenate([allv.min(axis=0),
+                               allv.max(axis=0)]).astype(np.float32)
+
     def _fill(nid: int, slots: list[tuple[int, np.ndarray]]) -> None:
         assert len(slots) <= width
         for c, (m, box) in enumerate(slots):
@@ -348,7 +401,7 @@ def build_wide_bvh(
     # Leaf slabs: slots beyond a group's count pad with rejecting rows.
     ng = len(groups)
     tris = np.zeros((ng * grows, leaf_slots), np.float32)
-    tri = np.asarray(tri_isect, np.float32)
+    tri = tri_f
     sub_w = leaf_slots // sub
     for g, ranges in enumerate(groups):
         r0 = g * grows

@@ -24,10 +24,9 @@ Where it differs from the JAX package's CLI:
 * ``--device`` (default "cuda") picks the ``Renderer``'s device, the
   counterpart of the JAX package's platform choice; "cpu" runs each
   kernel's plain PyTorch version (the tests pass it).
-* ``--intersector`` offers the port's choices; "walk_hbm", a TPU residency
-  mode, is not ported.
-* There is no ``--multichip`` yet: it waits for the port of the JAX
-  package's ``parallel/shard.py``.
+* ``--multichip`` renders over every card of ``--device``
+  (``Renderer(devices=True)``, ``parallel/shard.py``); with one card it is
+  the single-device render.
 * There is no ``bench`` subcommand yet: it waits for the port's benchmark.
 """
 
@@ -41,8 +40,8 @@ import time
 
 import numpy as np
 
-INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster",
-                "stack", "bvh")
+INTERSECTORS = ("auto", "brute", "walk", "walk_hbm", "pairs", "phased",
+                "cluster", "stack", "bvh")
 DEFAULT_CAM_POS = [0.0, 1.0, 2.8]  # renderer.ts:136-150
 
 
@@ -121,7 +120,8 @@ def _build_renderer(args):
         focus_distance=args.focus_distance,
     )
     cam.position = np.asarray(args.cam_pos, np.float32)
-    r = Renderer(cfg, cam, device=args.device)
+    r = Renderer(cfg, cam, device=args.device,
+                 devices=True if getattr(args, "multichip", False) else None)
     if args.cam_yaw or args.cam_pitch:
         r.camera.rotate(math.radians(args.cam_yaw),
                         math.radians(args.cam_pitch))
@@ -330,6 +330,9 @@ def main(argv=None) -> int:
     pr.add_argument("--checkpoint", help="npz accumulation checkpoint path")
     pr.add_argument("--resume", action="store_true")
     pr.add_argument("-v", "--verbose", action="store_true")
+    pr.add_argument("--multichip", action="store_true",
+                    help="shard the render over every card of --device "
+                         "(parallel/shard.py)")
     pr.set_defaults(func=cmd_render)
 
     pv = sub.add_parser("view", help="live progressive viewer (HTTP) with a "

@@ -1,7 +1,10 @@
-// K3: closest or any hit through the 8-wide BVH (accel/bvh8.py tables).
+// K3: closest or any hit through the wide BVH (accel/bvh8.py tables), at
+// width 8 (wpt_walk) and 16 (wpt_walk16, the tables of
+// build_wide_bvh(width=16)): the fan-out W is a template parameter.
 //
 // Replaces the TPU kernel wgpu_path_tracing_tpu/ops/walk.py::_walk_kernel
-// (entered through closest_hit_walk). That kernel walks one DFS stack per
+// (entered through closest_hit_walk, which infers its width from the order
+// table, walk.py:684, as ops/walk.py does here). That kernel walks one DFS stack per
 // block of 2048 rays in the block's majority octant, with the stack in
 // SMEM, the tables resident in VMEM (or a paged DMA ring), two pops per
 // iteration and 16-bit quantised stack keys, all to fit a vector unit that
@@ -16,13 +19,17 @@
 // - Records shaped for 16-byte loads (ops/walk.py::leaf_records): a leaf
 //   group is 16 sub-box records of 32 B, [min3, max3, 0, 0], then 128
 //   triangle records of 48 B, [v0, e1, e2, index, 0, 0], so a sub-box is two
-//   float4 loads and a triangle three; an interior node's 8 metas are two
-//   int4 and each child box (a 32-B row of walk_boxes) two float4.
+//   float4 loads and a triangle three; an interior node's W metas are W/4
+//   int4 (two at width 8, four at 16) and each child box (a 32-B row of
+//   walk_boxes) two float4.
 // - A stack of one entry a tree level (Ylitie, Karras and Laine, HPG 2017),
-//   in shared memory: an interior visit makes one entry, the node and the
-//   8-bit mask of the children it entered; the node being walked stays in
-//   registers and the entries of its ancestors that still hold children go
-//   to shared memory, fewer than the tree's depth. No local memory.
+//   in shared memory: an interior visit makes one entry, node << W | the
+//   W-bit mask of the children it entered, in 32 bits (so at most 2^24
+//   nodes at width 8 and 65,536 at width 16, which the wrapper checks); the
+//   node being walked stays in registers and the entries of its ancestors
+//   that still hold children go to shared memory, fewer than the tree's
+//   depth (the wrapper sizes it from the tree's own depth). No local
+//   memory.
 // - The slab test's 12 NaN-propagating min and max are one PTX instruction
 //   each (isect.cuh's slab_enter, which K4, K5, K6 and their phase 1
 //   share); the 16 sub-box gates of a leaf visit are unrolled, and so are a
@@ -36,8 +43,8 @@
 // steps term for term, so the two agree bit for bit on the card):
 // - limit = t_max (or inf) on an active lane, -inf on an inactive one;
 // - 1/d with a zero component replaced by 1e-30;
-// - the octant is the ray's own direction sign bits; slots 0..7 of
-//   walk_order[n, oct*8 + k] are taken nearest first, slot 7 first, as a
+// - the octant is the ray's own direction sign bits; slots 0..W-1 of
+//   walk_order[n, oct*W + k] are taken nearest first, slot W-1 first, as a
 //   LIFO stack that pushed them in order pops them; empty slots (meta 0,
 //   NaN boxes) are skipped;
 // - a child is entered when tf >= tn && tf >= 0 && tn <= limit, with min
@@ -70,6 +77,7 @@ using namespace wpt;  // the slab test, Möller-Trumbore, the leaf layout
 
 constexpr int kThreads = 256;
 constexpr int kWidth = 8;        // accel/bvh8.py WIDTH
+constexpr int kWideWidth = 16;   // accel/bvh8.py WIDTHS[1]
 constexpr int kOctants = 8;      // accel/bvh8.py OCTANTS
 constexpr int kBoxFloats = 8;    // a child box or sub-box record
 constexpr int kTriFloats = 12;   // a triangle record
@@ -91,19 +99,26 @@ __device__ __forceinline__ bool box_entry(const float4* __restrict__ p,
 
 // The children of interior node `node` that the ray enters: bit k for slot
 // k of the octant's order.
+template <int W>
 __device__ __forceinline__ unsigned interior_mask(
     const int* __restrict__ order, const float4* __restrict__ boxes,
     int node, int oct, const Ray& r, float lim) {
   const int4* m4 = reinterpret_cast<const int4*>(
-      order + (static_cast<size_t>(node) * kOctants + oct) * kWidth);
-  const int4 lo = m4[0];
-  const int4 hi = m4[1];
-  const int metas[kWidth] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      order + (static_cast<size_t>(node) * kOctants + oct) * W);
+  int metas[W];
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const int4 v = m4[q];
+    metas[4 * q] = v.x;
+    metas[4 * q + 1] = v.y;
+    metas[4 * q + 2] = v.z;
+    metas[4 * q + 3] = v.w;
+  }
   const float4* slab =
-      boxes + (static_cast<size_t>(node) * kOctants + oct) * kWidth * 2;
+      boxes + (static_cast<size_t>(node) * kOctants + oct) * W * 2;
   unsigned mask = 0;
 #pragma unroll
-  for (int k = 0; k < kWidth; ++k) {
+  for (int k = 0; k < W; ++k) {
     float tn;
     if (metas[k] != 0 && box_entry(slab + 2 * k, r, lim, &tn))
       mask |= 1u << k;
@@ -140,6 +155,7 @@ __device__ __forceinline__ void mt_records(const float4* __restrict__ tris,
   *idx_out = sub_i;
 }
 
+template <int W>
 __global__ void __launch_bounds__(kThreads)
     walk_kernel(const int* __restrict__ order,
                 const float4* __restrict__ boxes,
@@ -149,7 +165,8 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ t_max, float* __restrict__ t_out,
                 int* __restrict__ idx_out, int n, int num_tris, int any_hit) {
   // Entry j of this thread's stack at stack[j * kThreads + threadIdx.x]:
-  // node << 8 | the mask of its children still to take.
+  // node << W | the mask of its children still to take.
+  constexpr unsigned kMask = (1u << W) - 1u;
   extern __shared__ unsigned stack[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -166,28 +183,28 @@ __global__ void __launch_bounds__(kThreads)
   int sp = 0;
   int node = 0;  // the root, entered at distance 0
   unsigned mask =
-      0.0f > lim ? 0u : interior_mask(order, boxes, 0, oct, r, lim);
+      0.0f > lim ? 0u : interior_mask<W>(order, boxes, 0, oct, r, lim);
 
   while (true) {
     if (mask == 0) {
       if (sp == 0) break;
       const unsigned e = stack[--sp * kThreads + threadIdx.x];
-      node = static_cast<int>(e >> 8);
-      mask = e & 0xffu;
+      node = static_cast<int>(e >> W);
+      mask = e & kMask;
     }
     const int k = 31 - __clz(mask);
     mask &= ~(1u << k);
-    const size_t row = (static_cast<size_t>(node) * kOctants + oct) * kWidth;
+    const size_t row = (static_cast<size_t>(node) * kOctants + oct) * W;
     const int m = order[row + k];
     float tn;
     box_entry(boxes + (row + k) * 2, r, lim, &tn);
     if (tn > lim) continue;  // culled on the live limit
     if (m > 0) {
-      const unsigned inner = interior_mask(order, boxes, m, oct, r, lim);
+      const unsigned inner = interior_mask<W>(order, boxes, m, oct, r, lim);
       if (inner != 0) {
         if (mask != 0)
           stack[sp++ * kThreads + threadIdx.x] =
-              (static_cast<unsigned>(node) << 8) | mask;
+              (static_cast<unsigned>(node) << W) | mask;
         node = m;
         mask = inner;
       }
@@ -223,29 +240,49 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(t_out, idx_out, i, best_t, best_i, num_tris, live);
 }
 
-}  // namespace
-
 // levels: stack entries a thread (ops/walk.py::WalkTables.levels).
-extern "C" int wpt_walk(const void* order, const void* boxes,
-                        const void* leaves, const void* ro, const void* rd,
-                        const void* active, const void* t_max, void* t_out,
-                        void* idx_out, int n, int num_tris, int any_hit,
-                        int levels, void* stream) {
+template <int W>
+int launch_walk(const void* order, const void* boxes, const void* leaves,
+                const void* ro, const void* rd, const void* active,
+                const void* t_max, void* t_out, void* idx_out, int n,
+                int num_tris, int any_hit, int levels, void* stream) {
   const size_t shared = static_cast<size_t>(levels) * kThreads *
                         sizeof(unsigned);
   if (shared > kDefaultShared) {
     const cudaError_t err = cudaFuncSetAttribute(
-        walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        walk_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n + kThreads - 1) / kThreads;
-  walk_kernel<<<blocks, kThreads, shared,
-                static_cast<cudaStream_t>(stream)>>>(
+  walk_kernel<W><<<blocks, kThreads, shared,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(order), static_cast<const float4*>(boxes),
       static_cast<const float4*>(leaves), static_cast<const float*>(ro),
       static_cast<const float*>(rd), static_cast<const bool*>(active),
       static_cast<const float*>(t_max), static_cast<float*>(t_out),
       static_cast<int*>(idx_out), n, num_tris, any_hit);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int wpt_walk(const void* order, const void* boxes,
+                        const void* leaves, const void* ro, const void* rd,
+                        const void* active, const void* t_max, void* t_out,
+                        void* idx_out, int n, int num_tris, int any_hit,
+                        int levels, void* stream) {
+  return launch_walk<kWidth>(order, boxes, leaves, ro, rd, active, t_max,
+                             t_out, idx_out, n, num_tris, any_hit, levels,
+                             stream);
+}
+
+extern "C" int wpt_walk16(const void* order, const void* boxes,
+                          const void* leaves, const void* ro, const void* rd,
+                          const void* active, const void* t_max, void* t_out,
+                          void* idx_out, int n, int num_tris, int any_hit,
+                          int levels, void* stream) {
+  return launch_walk<kWideWidth>(order, boxes, leaves, ro, rd, active, t_max,
+                                 t_out, idx_out, n, num_tris, any_hit, levels,
+                                 stream);
 }

@@ -31,11 +31,13 @@ TRACE_BOUNCE0_LDS = True
 _PHI1 = 0.6180339887498949  # golden ratio conjugate: the 1-D sequence
 
 
-def pixel_grid(width: int, height: int, device=None):
+def pixel_grid(width: int, height: int, device=None, row_offset: int = 0):
     """Integer pixel coords of a (height, width) image, flattened row-major
-    (buffer index = y * width + x, pt.wgsl:753)."""
+    (buffer index = y * width + x, pt.wgsl:753). ``row_offset`` shifts y,
+    so a row shard of a larger image (``parallel/shard.py``) seeds its
+    pixels by their global rows."""
     y, x = torch.meshgrid(
-        torch.arange(height, dtype=torch.int32, device=device),
+        torch.arange(height, dtype=torch.int32, device=device) + row_offset,
         torch.arange(width, dtype=torch.int32, device=device),
         indexing="ij",
     )

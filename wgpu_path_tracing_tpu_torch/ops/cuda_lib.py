@@ -62,6 +62,9 @@ SIGNATURES = {
         _I, _I, _I,  # n, num_tris (-1: none), any_hit
         _I, _P,  # stack entries a thread, stream
     ],
+    "wpt_walk16": [  # the same at width 16
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ],
     "wpt_block_entry": [
         _P, _P, _P, _P, _P, _P, _P, _P,  # aabb, ox, oy, oz, dx, dy, dz, limit
         _P, _I, _I, _I, _P,  # out, nb, bn, boxes, stream

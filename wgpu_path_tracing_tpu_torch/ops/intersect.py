@@ -710,25 +710,15 @@ def with_tail_compaction(inner, root_box, use_reorder: bool = True):
     return wrapped
 
 
-# Intersectors the port runs, and the JAX package's one it does not run.
-INTERSECTORS = ("auto", "brute", "walk", "pairs", "phased", "cluster", "bvh",
-                "stack")
-UNPORTED_INTERSECTORS = {
-    "walk_hbm": "the paged walk (K3's TPU residency mode; 'walk' takes every "
-                "scene here)",
-}
+# The intersectors, the JAX package's names.
+INTERSECTORS = ("auto", "brute", "walk", "walk_hbm", "pairs", "phased",
+                "cluster", "bvh", "stack")
 
 
 def check_intersector(intersector: str) -> None:
-    """Raise for an intersector the port does not run: NotImplementedError
-    naming what is still to be ported, or ValueError for an unknown name."""
-    if intersector in INTERSECTORS:
-        return
-    if intersector in UNPORTED_INTERSECTORS:
-        raise NotImplementedError(
-            f"intersector={intersector!r} is not ported: "
-            f"{UNPORTED_INTERSECTORS[intersector]} of the JAX package")
-    raise ValueError(f"unknown intersector {intersector!r}")
+    """Raise ValueError for a name that is not an intersector."""
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}")
 
 
 def pairs_reorder(scene: dict) -> bool:
@@ -759,11 +749,15 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
       neither: the JAX package's choice of the linked walk for large scenes
       on its CPU backend is a habit of a TPU's host, not the card's.
     * "walk": K3, or quietly K4 for a scene without walk tables.
+      "walk_hbm", the JAX package's paged walk, computes the resident
+      walk's function bit for bit; the port runs it as "walk" (K3) and
+      reports "walk_hbm". The TPU's VMEM capacity check that the JAX
+      package makes for it has no counterpart on the card.
     * "phased": the phased group dispatch (K5), which reads the walk's leaf
       table; without walk tables it falls through to K4, as in the JAX
       package.
 
-    Any other intersector raises (``check_intersector``).
+    An unknown intersector raises (``check_intersector``).
 
     The dense hit goes through the K1 wrapper over origin and direction
     rows (``ops/dense_hit.py::closest_hit_dense_rows``: no copy) and,
@@ -785,8 +779,8 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
     reorder=False) over SoA (3, N) origins and directions; its ``strategy``
-    attribute is "brute", "walk", "pairs", "phased", "cluster", "stack" or
-    "bvh".
+    attribute is "brute", "walk", "walk_hbm", "pairs", "phased",
+    "cluster", "stack" or "bvh".
     """
     from wgpu_path_tracing_tpu_torch.models.types import WALK_KEYS
     from wgpu_path_tracing_tpu_torch.ops import (
@@ -853,7 +847,7 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
                                                any_hit=any_hit)
 
         strategy = "cluster"
-    elif intersector in ("auto", "walk") and have_walk:
+    elif intersector in ("auto", "walk", "walk_hbm") and have_walk:
         tables = walk.walk_tables(scene)
 
         def walk_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
@@ -863,7 +857,7 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
         big = tables.order.shape[0] >= REORDER_MIN_NODES
         closest_hit = with_ray_order(walk_hit,
                                      scene["root_box"] if big else None)
-        strategy = "walk"
+        strategy = "walk_hbm" if intersector == "walk_hbm" else "walk"
     else:
         tables = pairs.pair_tables(scene)
 

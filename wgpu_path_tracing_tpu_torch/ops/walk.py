@@ -1,9 +1,11 @@
 """K3: the wide-BVH walk, its plain version, and its wrapper.
 
 The counterpart of the JAX package's ``ops/walk.py`` (``closest_hit_walk``,
-kernel ``_walk_kernel``). Closest or any hit through the 8-wide BVH tables
-of ``accel/bvh8.py``; rays are SoA (3, N) origins and directions, the
-result is (t (N,) float32, idx (N,) int32), a miss being (inf, -1).
+kernel ``_walk_kernel``). Closest or any hit through the wide BVH tables of
+``accel/bvh8.py``; rays are SoA (3, N) origins and directions, the result
+is (t (N,) float32, idx (N,) int32), a miss being (inf, -1). The fan-out W
+comes from the order table, ``walk_order.shape[1] // 8``, as the JAX walk
+infers it: 8 for the default collapse, 16 for ``build_wide_bvh(width=16)``.
 
 Per ray, both versions here follow the same steps, term for term:
 
@@ -11,10 +13,11 @@ Per ray, both versions here follow the same steps, term for term:
 * Reciprocal: a direction component ``d == 0`` becomes 1e-30 before
   ``1/d``, so a ray on a slab plane gives no 0 * inf = NaN.
 * The octant is the ray's own three direction sign bits (bit a set when
-  d[a] < 0). An interior node's children come from ``walk_order[n, oct*8 +
-  k]`` with their boxes at rows ``(n*8 + oct)*8 + k`` of ``walk_boxes``;
-  empty slots (meta 0) are skipped. Slots 0..7 are pushed in order, so slot
-  7, the nearest along the octant, pops first (the JAX kernel's push loop).
+  d[a] < 0). An interior node's children come from ``walk_order[n, oct*W +
+  k]`` with their boxes at rows ``(n*8 + oct)*W + k`` of ``walk_boxes``;
+  empty slots (meta 0) are skipped. Slots 0..W-1 are pushed in order, so
+  slot W-1, the nearest along the octant, pops first (the JAX kernel's push
+  loop).
 * A child is entered when ``tf >= tn and tf >= 0 and tn <= limit``, with
   NaN-propagating min and max as ``torch.minimum``/``torch.maximum`` have;
   its stack entry keeps its entry distance ``tn``. A popped entry whose
@@ -38,7 +41,8 @@ encoding) is not carried over.
 The kernel reads the leaf groups as the records of ``leaf_records`` (one
 more device table, copied from ``walk_tris`` once a scene by
 ``walk_tables``) and keeps one stack entry a tree level in shared memory,
-``WalkTables.levels`` a thread (``csrc/walk.cu``). The plain version reads
+``WalkTables.levels`` a thread (``csrc/walk.cu``, one instantiation a
+width: ``wpt_walk`` at 8, ``wpt_walk16`` at 16). The plain version reads
 ``walk_tris`` as the JAX package lays it out, with a stack of one entry a
 pushed child.
 
@@ -59,6 +63,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh8 import (
     OCTANTS,
     SUB,
     WIDTH,
+    WIDTHS,
     group_rows,
     wide_depth,
 )
@@ -79,26 +84,36 @@ BOX_FLOATS = 8
 TRI_FLOATS = 12
 LEAF_FLOATS = SUB * BOX_FLOATS + LEAF_SLOTS * TRI_FLOATS
 # Threads a block (csrc/walk.cu kThreads), and the shared memory one block
-# may hold on the H100: the stack's entries, 4 bytes each (node << 8 |
+# may hold on the H100: the stack's entries, 4 bytes each (node << W |
 # mask), a thread, must fit.
 THREADS = 256
 SHARED_MAX = 232_448
-MAX_NODES = 1 << 24  # node ids that fit beside the 8-bit mask
+# The kernel's entry point for each width, and the node ids that fit beside
+# a W-bit mask in a 32-bit stack entry.
+LAUNCHERS = {8: "wpt_walk", 16: "wpt_walk16"}
+MAX_NODES = {w: 1 << (32 - w) for w in WIDTHS}
 
 
 class Counter:
-    """Launches of the K3 kernel in this process."""
+    """Launches of the K3 kernel in this process, and those of them at
+    width 16 (``wpt_walk16``)."""
 
     launches = 0
+    wide = 0
 
 
 class WalkTables(NamedTuple):
-    order: torch.Tensor  # (Nn, 64) int32
-    boxes: torch.Tensor  # (Nn * 64, 8) float32
+    order: torch.Tensor  # (Nn, 8 * W) int32
+    boxes: torch.Tensor  # (Nn * 8 * W, 8) float32
     tris: torch.Tensor  # (Ng * 32, 128) float32
     stack: int  # the plain version's stack entries a ray
     leaves: torch.Tensor  # (Ng, LEAF_FLOATS) float32, leaf_records(tris)
     levels: int  # the kernel's stack entries a ray
+
+    @property
+    def width(self) -> int:
+        """The tree's fan-out W, from the order table."""
+        return self.order.shape[1] // OCTANTS
 
 
 def leaf_records(tris: torch.Tensor) -> torch.Tensor:
@@ -125,8 +140,8 @@ def stack_levels(depth: int) -> int:
 
 def walk_tables(scene: dict) -> WalkTables:
     """The walk tables of an uploaded scene, the kernel's leaf records and
-    the two stack bounds: the plain version's one-pop DFS leaves at most 7
-    entries per interior level, plus the 8 children of the node being
+    the two stack bounds: the plain version's one-pop DFS leaves at most
+    W - 1 entries per interior level, plus the W children of the node being
     visited; the kernel keeps one entry a level."""
     missing = [k for k in WALK_KEYS if k not in scene]
     if missing:
@@ -135,9 +150,10 @@ def walk_tables(scene: dict) -> WalkTables:
             "walk's stack): make_closest_hit takes such a scene through the "
             "pair dispatch (ops/pairs.py)")
     order = scene["walk_order"]
-    depth = wide_depth(order[:, :WIDTH].cpu().numpy())
+    width = order.shape[1] // OCTANTS
+    depth = wide_depth(order[:, :width].cpu().numpy())
     return WalkTables(order, scene["walk_boxes"], scene["walk_tris"],
-                      depth * (WIDTH - 1) + WIDTH,
+                      depth * (width - 1) + width,
                       leaf_records(scene["walk_tris"]), stack_levels(depth))
 
 
@@ -189,7 +205,8 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
     stack_tn = torch.zeros((n, tables.stack), dtype=torch.float32,
                            device=dev)
     sp = torch.ones((n,), dtype=torch.long, device=dev)  # the root, tn 0
-    slots = torch.arange(WIDTH, device=dev)
+    width = tables.width
+    slots = torch.arange(width, device=dev)
     if visits is not None:  # triangles each sub-cluster holds, (Ng, SUB)
         filled = (tables.tris.view(-1, GROUP_ROWS, LEAF_SLOTS)[:, 9]
                   .view(-1, SUB, SUB_W) >= 0.0).sum(dim=2)
@@ -205,11 +222,11 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
         lanes, node = lanes[keep], node[keep]
         inner = node >= 0
 
-        # Interior visits: test the 8 children, push the entered ones.
+        # Interior visits: test the W children, push the entered ones.
         il, m = lanes[inner], node[inner].long()
         oc = octant[il]
-        metas = tables.order[m[:, None], oc[:, None] * WIDTH + slots]
-        box = tables.boxes[((m * OCTANTS + oc) * WIDTH)[:, None] + slots, 0:6]
+        metas = tables.order[m[:, None], oc[:, None] * width + slots]
+        box = tables.boxes[((m * OCTANTS + oc) * width)[:, None] + slots, 0:6]
         ray = [x[il][:, None] for x in o + inv]
         tn, enter = slab_entry(box, *ray, lim[il][:, None])
         full = metas != 0
@@ -290,11 +307,12 @@ def _check(tables: WalkTables, ro3, rd3, active, t_max) -> None:
         raise ValueError("t_max must be a (N,) float32 tensor")
     order, boxes, tris = tables.order, tables.boxes, tables.tris
     if (order.dtype != torch.int32 or order.dim() != 2
-            or order.shape[1] != OCTANTS * WIDTH):
-        raise ValueError("walk_order must be (Nn, 64) int32")
-    if (boxes.dtype != torch.float32
-            or tuple(boxes.shape) != (order.shape[0] * OCTANTS * WIDTH, 8)):
-        raise ValueError("walk_boxes must be (Nn * 64, 8) float32")
+            or order.shape[1] not in [OCTANTS * w for w in WIDTHS]):
+        raise ValueError(f"walk_order must be (Nn, 8 * W) int32, W in "
+                         f"{WIDTHS}")
+    if (boxes.dtype != torch.float32 or tuple(boxes.shape)
+            != (order.shape[0] * order.shape[1], 8)):
+        raise ValueError("walk_boxes must be (Nn * 8 * W, 8) float32")
     if (tris.dtype != torch.float32 or tris.dim() != 2
             or tris.shape[1] != LEAF_SLOTS or tris.shape[0] % GROUP_ROWS):
         raise ValueError("walk_tris must be (Ng * 32, 128) float32")
@@ -309,7 +327,8 @@ def _check_kernel_tables(tables: WalkTables) -> None:
     """What the kernel reads beyond the plain version: the leaf records
     (their shape), walk_order, walk_boxes and the records contiguous from 16
     bytes on (the kernel loads them as int4 and float4), the node ids beside
-    the mask, and the stack in shared memory."""
+    the W-bit mask in a 32-bit stack entry (at most 65,536 nodes at width
+    16), and the stack in shared memory."""
     leaves, ng = tables.leaves, tables.tris.shape[0] // GROUP_ROWS
     if (leaves.dtype != torch.float32
             or tuple(leaves.shape) != (ng, LEAF_FLOATS)):
@@ -320,8 +339,10 @@ def _check_kernel_tables(tables: WalkTables) -> None:
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"the {name} must be contiguous from a 16-byte "
                              "boundary")
-    if tables.order.shape[0] > MAX_NODES:
-        raise ValueError(f"K3 takes at most {MAX_NODES} wide nodes")
+    limit = MAX_NODES[tables.width]
+    if tables.order.shape[0] > limit:
+        raise ValueError(f"K3 takes at most {limit} wide nodes at width "
+                         f"{tables.width}")
     if not 1 <= tables.levels <= SHARED_MAX // (4 * THREADS):
         raise ValueError(
             f"the wide BVH needs {tables.levels} stack entries a ray; K3's "
@@ -331,7 +352,8 @@ def _check_kernel_tables(tables: WalkTables) -> None:
 def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,
                           t_max=None, num_tris: int | None = None,
                           any_hit: bool = False):
-    """Launch K3 on the current stream (no synchronisation)."""
+    """Launch K3, the instantiation of the tables' width, on the current
+    stream (no synchronisation)."""
     _check(tables, ro3, rd3, active, t_max)
     _check_kernel_tables(tables)
     if ro3.device.type != "cuda":
@@ -345,13 +367,15 @@ def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,
     idx = torch.empty((n,), dtype=torch.int32, device=ro3.device)
     if n == 0:
         return t, idx
-    err = cuda_lib.lib().wpt_walk(
+    launcher = LAUNCHERS[tables.width]
+    err = getattr(cuda_lib.lib(), launcher)(
         *(None if x is None else x.data_ptr() for x in args),
         t.data_ptr(), idx.data_ptr(), n,
         -1 if num_tris is None else int(num_tris), int(bool(any_hit)),
         tables.levels, cuda_lib.stream_ptr(ro3))
-    cuda_lib.check(err, "wpt_walk")
+    cuda_lib.check(err, launcher)
     Counter.launches += 1
+    Counter.wide += int(tables.width == 16)
     return t, idx
 
 

@@ -145,7 +145,12 @@ def render_adaptive(renderer, spp: int, *, warmup_frac: float = 0.5,
     would reuse frame seeds the rounds consumed (the JAX package's
     documented limitation). ``trace_fn`` and ``closest_hit`` (default: the
     renderer's intersector) are the frame's bounce loop and intersector, as
-    ``render_chunk`` takes them."""
+    ``render_chunk`` takes them. A renderer on a mesh (``devices=``)
+    raises ``NotImplementedError``, as the JAX package's does."""
+    if renderer.mesh is not None:
+        raise NotImplementedError(
+            "adaptive sampling runs single-device (warmup may be sharded "
+            "in a future round)")
     cfg = renderer.config
     w, h = cfg.width, cfg.height
     n = w * h

@@ -29,16 +29,17 @@ device is the ``Renderer``'s argument (the card by default):
   well-mixed seed) or "stratified" (the hash seed, plus R2 low-discrepancy
   points for the pixel jitter and the lens disc and, at bounce 0, for the
   BSDF's lobe pick and direction: K2's LDS instantiation)
-* ``intersector`` — "auto", "brute", "walk", "pairs", "phased",
-  "cluster", "stack" or "bvh". "auto" takes the dense intersector (K1) for
+* ``intersector`` — "auto", "brute", "walk", "walk_hbm", "pairs",
+  "phased", "cluster", "stack" or "bvh". "auto" takes the dense intersector (K1) for
   scenes of at most ``brute_force_max_tris`` triangles; above, the wide-BVH
   walk (K3), or the pair dispatch (K4) for a scene whose wide tree is too
   deep for the walk. The others force one: "pairs" K4, "phased" the phased
   group dispatch (K5), "cluster" the round dispatch (K6), "stack" the
   binary BVH with a stack per ray (K7), "bvh" the same tree over its hit
   and miss links (K8); "walk" and "phased" fall to K4 for a scene without
-  walk tables. The JAX package's "walk_hbm", a TPU residency mode, raises
-  ``NotImplementedError``.
+  walk tables. "walk_hbm", the JAX package's paged walk (a TPU residency
+  mode with the resident walk's results), runs as "walk" and reports its
+  own name.
 * ``mode`` — "pt" (the path tracer), or one of the debug views of
   ``debug/modes.py``: "bvh_depth" (the binary BVH's stack depth a pixel,
   K7's depth mode) or "normal" (the primary hit's shading normal).

@@ -11,6 +11,7 @@
     img = r.image(denoise=True)   # à-trous filter on a copy (ops/denoise.py)
     hdr = r.render_adaptive(64)   # adaptive sampling (render/adaptive.py)
     Renderer(RenderConfig(mode="normal"))   # or "bvh_depth": the debug views
+    Renderer(cfg, devices=True)   # every card; or devices=["cuda:0", ...]
 
 A plain class, no ``nn.Module``: there are no weights. The HDR buffer and the
 scene tables live on ``device``, the card unless the caller asks for
@@ -46,8 +47,17 @@ kernel K9 on the card (``ops/denoise.py``); ``render_adaptive`` spends a
 budget of samples on the noisiest pixels after a uniform warmup
 (``render/adaptive.py``); ``RenderConfig(mode="normal")`` and
 ``mode="bvh_depth"`` make ``render`` return a debug view
-(``debug/modes.py``; the depth view runs K7 in its depth mode). Not ported
-here: multi-device rendering.
+(``debug/modes.py``; the depth view runs K7 in its depth mode).
+
+``devices`` renders over a ("sample", "row") mesh (``parallel/shard.py``):
+``True`` takes every card (or the CPU with ``device="cpu"``) and keeps the
+single-device path when there is one; an explicit list always takes the
+sharded path, even a list of one (the sharding tax), and may name a device
+more than once (each entry a shard that runs there in turn). The scene is
+copied to each distinct device, the accumulation is held as row bands, and
+``self.device`` is the mesh's first device, where ``aovs``, ``denoise``
+and ``render_debug`` run from its copy of the scene, as in the JAX package.
+``render_adaptive`` refuses a mesh.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.ops.bounce import texture_mode, trace_cuda
 from wgpu_path_tracing_tpu_torch.ops.intersect import make_closest_hit
 from wgpu_path_tracing_tpu_torch.ops.trace import scene_atlas
+from wgpu_path_tracing_tpu_torch.parallel import shard as SH
 from wgpu_path_tracing_tpu_torch.render import pipeline
 from wgpu_path_tracing_tpu_torch.render.camera import Camera
 from wgpu_path_tracing_tpu_torch.render.config import RenderConfig
@@ -97,16 +108,40 @@ def resolve_device(device) -> torch.device:
 
 class Renderer:
     def __init__(self, config: RenderConfig | None = None,
-                 camera: Camera | None = None, device="cuda"):
+                 camera: Camera | None = None, device="cuda", devices=None,
+                 sample_shards: int | None = None):
+        """``devices``: render over a ("sample", "row") mesh
+        (``parallel/shard.py``), a list of devices or True for every card
+        of ``device``'s type; ``sample_shards`` the mesh's sample axis
+        (``make_mesh``'s default when None). Default: one device."""
         self.config = (config or RenderConfig()).validate()
         self.device = resolve_device(device)
+        self.mesh: SH.Mesh | None = None
+        if devices is not None and devices is not False:
+            every = devices is True
+            if every:
+                count = (torch.cuda.device_count()
+                         if self.device.type == "cuda" else 1)
+                devices = ([torch.device("cuda", i) for i in range(count)]
+                           if self.device.type == "cuda" else [self.device])
+            if len(devices) > 1 or not every:
+                self.mesh = SH.make_mesh([resolve_device(d) for d in devices],
+                                         sample_shards=sample_shards)
+                self.device = self.mesh.devices[0][0]
+                self._check_rows(self.config.height)
         self.camera = camera or Camera(
             width=self.config.width, height=self.config.height,
             aspect=self.config.width / self.config.height)
         self.scene: SceneArrays | None = None
+        # The scene and its closest hit on each device that renders: the
+        # one device, or each distinct device of the mesh. _scene_dev and
+        # _closest_hit are the first device's.
+        self._scenes: dict = {}
+        self._closest_hits: dict = {}
         self._scene_dev: dict | None = None
         self._closest_hit = None
-        self._accum: torch.Tensor | None = None
+        # The HDR buffer: one tensor, or the mesh's row bands.
+        self._accum: torch.Tensor | list | None = None
         self.frame_index = 0
         self._counters = np.zeros(2, np.int64)
         self._last_counters = np.zeros(2, np.int64)
@@ -126,20 +161,33 @@ class Renderer:
         self.profiler = PassProfiler()
         self.frame_meter = FrameMeter()
 
+    def _check_rows(self, height: int) -> None:
+        rows = self.mesh.shape["row"]
+        if height % rows:
+            raise ValueError(f"height {height} must divide the row axis "
+                             f"{rows}")
+
     # --- scene ---------------------------------------------------------------
     def load_scene(self, scene: SceneArrays) -> None:
-        """Pack and upload ``scene``; with ``config.env_map`` set, read that
-        map and install it. Restarts accumulation."""
+        """Pack and upload ``scene`` (to each distinct device of the mesh);
+        with ``config.env_map`` set, read that map and install it. Restarts
+        accumulation."""
         scene_dev = load_jax_scene(pack_device_scene(scene), self.device)
         if self.config.env_map is not None:
             scene_dev.update(ENV.env_tables(
                 ENV.load_env_image(self.config.env_map),
                 self.config.env_intensity, self.config.env_rotation,
                 self.device))
-        self._closest_hit = make_closest_hit(
-            scene_dev, self.config.intersector,
-            self.config.brute_force_max_tris, self.config.max_leaf_size)
-        self.scene, self._scene_dev = scene, scene_dev
+        scenes = ({self.device: scene_dev} if self.mesh is None
+                  else SH.replicate_scene(scene_dev, self.mesh))
+        self._closest_hits = {
+            dev: make_closest_hit(s, self.config.intersector,
+                                  self.config.brute_force_max_tris,
+                                  self.config.max_leaf_size)
+            for dev, s in scenes.items()}
+        self.scene, self._scenes = scene, scenes
+        self._scene_dev = scenes[self.device]
+        self._closest_hit = self._closest_hits[self.device]
         self.reset()
 
     def set_environment(self, source, intensity: float = 1.0,
@@ -153,8 +201,8 @@ class Renderer:
             raise RuntimeError("Load a scene first")
         env = (np.zeros((1, 1, 3), np.float32) if source is None
                else ENV.load_env_image(source))
-        self._scene_dev.update(ENV.env_tables(env, intensity, rotation,
-                                              self.device))
+        for dev, scene in self._scenes.items():
+            scene.update(ENV.env_tables(env, intensity, rotation, dev))
         self.reset()
 
     def _read_model(self, path: str) -> SceneArrays:
@@ -224,6 +272,8 @@ class Renderer:
     def resize(self, width: int, height: int) -> None:
         """New image size: the camera's aspect follows, accumulation
         restarts."""
+        if self.mesh is not None:
+            self._check_rows(height)
         self.config.width = width
         self.config.height = height
         self.config.validate()
@@ -254,9 +304,21 @@ class Renderer:
     # --- rendering -----------------------------------------------------------
     def _ensure_accum(self) -> None:
         n = self.config.width * self.config.height
-        if self._accum is None or self._accum.shape[0] != n:
+        if self.mesh is not None:
+            if (self._accum is None
+                    or sum(band.shape[0] for band in self._accum) != n):
+                self._accum = SH.shard_accum(
+                    torch.zeros((n, 3), dtype=torch.float32), self.mesh)
+        elif self._accum is None or self._accum.shape[0] != n:
             self._accum = torch.zeros((n, 3), dtype=torch.float32,
                                       device=self.device)
+
+    def _sync(self) -> None:
+        """Wait for every card the renderer runs on."""
+        devs = [self.device] if self.mesh is None else self.mesh.distinct()
+        for dev in devs:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def render(self, spp: int, on_chunk=None, fetch: bool = True,
                sync: bool = True):
@@ -292,20 +354,30 @@ class Renderer:
                 task(0.0)
             chunk = min(cfg.frames_per_chunk, remaining)
             chunk_t0 = time.perf_counter()
-            _, chunk_counters = pipeline.render_chunk(
-                trace_cuda, self._closest_hit, self._scene_dev, cam,
-                self._accum, self.frame_index,
-                n_frames=chunk, width=cfg.width, height=cfg.height,
+            # gcd keeps a tail chunk divisible, so any spp works.
+            fpt = math.gcd(cfg.frames_per_trace, chunk)
+            common = dict(
+                width=cfg.width, height=cfg.height,
                 use_dof=float(self.camera.aperture) > 0.0,
                 max_bounces=cfg.max_bounces, do_mis=cfg.do_mis,
                 num_lights=self.scene.num_lights,
-                firefly_clamp=cfg.firefly_clamp, rng_mode=cfg.rng,
-                # gcd keeps a tail chunk divisible, so any spp works.
-                frames_per_trace=math.gcd(cfg.frames_per_trace, chunk))
+                firefly_clamp=cfg.firefly_clamp, rng_mode=cfg.rng)
+            if self.mesh is None:
+                _, chunk_counters = pipeline.render_chunk(
+                    trace_cuda, self._closest_hit, self._scene_dev, cam,
+                    self._accum, self.frame_index, n_frames=chunk,
+                    frames_per_trace=fpt, **common)
+            else:
+                n_frames, chunk = SH.round_chunk(chunk,
+                                                 self.mesh.shape["sample"])
+                _, chunk_counters = SH.render_chunk_sharded(
+                    trace_cuda, self._closest_hits, self._scenes, cam,
+                    self._accum, self.frame_index, mesh=self.mesh,
+                    n_frames=n_frames, n_active=chunk, frames_per_trace=fpt,
+                    **common)
             counters += chunk_counters
-            if on_chunk is not None and self.device.type == "cuda":
-                # The callback sees its frames done.
-                torch.cuda.synchronize(self.device)
+            if on_chunk is not None:
+                self._sync()  # the callback sees its frames done
             self.profiler.add("path-trace-pass",
                               (time.perf_counter() - chunk_t0) / chunk)
             for _ in range(chunk):
@@ -336,11 +408,26 @@ class Renderer:
         return self._row_major().reshape(cfg.height, cfg.width, 3)
 
     def _row_major(self, accum: torch.Tensor | None = None) -> np.ndarray:
-        """A tile-ordered (N, 3) buffer, the accumulation by default, as
-        row-major NumPy."""
-        perm = tile_permutation(self.config.width, self.config.height)
+        """A tile-ordered (N, 3) buffer, the accumulation by default (on a
+        mesh, its row bands), as row-major NumPy."""
+        cfg = self.config
+        if accum is None and self.mesh is not None:
+            return SH.untile_image(SH.gather_image(self._accum), cfg.width,
+                                   cfg.height, self.mesh.shape["row"])
+        perm = tile_permutation(cfg.width, cfg.height)
         buf = self._accum if accum is None else accum
         return buf.cpu().numpy()[inverse_permutation(perm)]
+
+    def _tile_order(self, accum: np.ndarray):
+        """A row-major (N, 3) buffer as the accumulation: tile-ordered on
+        the device, or the mesh's row bands."""
+        cfg = self.config
+        if self.mesh is None:
+            perm = tile_permutation(cfg.width, cfg.height)
+            return torch.as_tensor(accum[perm], device=self.device)
+        bands = SH.tile_bands(accum, cfg.width, cfg.height,
+                              self.mesh.shape["row"])
+        return SH.shard_accum(torch.from_numpy(bands), self.mesh)
 
     def _camera(self) -> dict:
         """The camera's parameters with the image size, as the frame takes
@@ -405,8 +492,7 @@ class Renderer:
             cam.aperture = float(data["camera_aperture"])
             cam.focus_distance = float(data["camera_focus_distance"])
             accum = np.asarray(data["accum"], np.float32).reshape(-1, 3)
-            perm = tile_permutation(w, h)
-            self._accum = torch.as_tensor(accum[perm], device=self.device)
+            self._accum = self._tile_order(accum)
             self.frame_index = int(data["frame_index"])
 
     # --- denoising and adaptive sampling (the JAX package's extensions) ----
