@@ -123,17 +123,26 @@ and runs these phases, one line of output each:
    ``set_environment``: launch counts (512 of the ENV instantiation), cold
    and repeated Mrays/s, the image against the plain path's on every pixel,
    and its renders in turns with the same box's without the map;
-14. binary-BVH walks (``bvh2``): K7 (the stack walk) and K8 (the linked
-   walk) against their plain versions on the large box's camera, bounce-1
-   and shadow rays (an active mask, ``t_max``, ``any_hit``), bit for bit,
-   and against K3 (lanes that differ, and whether each is an exact-t tie;
-   the shadow rays' occlusion answers), each set's time beside its bound
-   (from the plain versions' node and triangle counts);
+14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
+   against ``/`` bit for bit (a zero numerator's sign aside, ``div_apart``)
+   on 2^24 random bit patterns, the special operands and 2^22 pairs in and
+   around its fast window (``div_operands``); the ptxas report of K7 and
+   K8 (registers, stack frame, spills); K7 (the stack walk) and K8 (the
+   linked walk), over their records staged once, against their plain
+   versions on the large box's camera, bounce-1 and shadow rays (an active
+   mask, ``t_max``, ``any_hit``), bit for bit, and against K3 (lanes that
+   differ, and whether each is an exact-t tie; the shadow rays' occlusion
+   answers), each set's time beside its bound (from the plain versions'
+   node and triangle counts);
 15. debug views (``debug``): ``mode="bvh_depth"`` and ``mode="normal"`` at
    512x512 on ``cornell_box()`` and the large box, each equal to its plain
-   path on every pixel (K7's depth mode timed on the large box); 1-spp Cornell renders through ``"stack"`` and
-   ``"bvh"`` (launch counts), each equal to its plain path and, but for
-   exact-t ties (at most 1% of pixels), to the K1 path's image;
+   path on every pixel (K7's depth mode timed on the large box, beside its
+   bound); 1-spp Cornell renders through ``"stack"`` and ``"bvh"`` (launch
+   counts), each equal to its plain path and, but for exact-t ties (at
+   most 1% of pixels), to the K1 path's image; 128x128 renders of
+   ``cornell_box(tessellation=30)`` (19,603 binary nodes) through both at
+   two bounces, bounce 1's calls in ray order (``BVH2_REORDER_MIN_NODES``),
+   each equal to its plain path;
 16. denoising (``denoise``): the flagship at 64 spp, then ``aovs()``,
    ``denoise()`` (launch counts: the guides' K1 and five K9) and
    ``image(denoise=True)``; K9 against its plain version at every level on
@@ -173,9 +182,9 @@ and runs these phases, one line of output each:
    against their plain versions on phase 7's camera, bounce-1 and shadow-0
    rays, bit for bit, and against width-8 K3 (lanes that differ, and
    whether each is an exact-t tie); device ms a call of the three trees in
-   turns; K3-w16's bound; a 192x192 x 1-spp render of the large box
-   through ``make_closest_hit`` on the width-16 tables (K3-w16 launches
-   counted) against its plain path on every pixel;
+   turns; K3-w16's bound on each ray set; a 192x192 x 1-spp render of the
+   large box through ``make_closest_hit`` on the width-16 tables (K3-w16
+   launches counted) against its plain path on every pixel;
 21. multi-device rendering (``shard``): ``Renderer(devices=["cuda"] * k,
    sample_shards=s)`` on the 1x1, 1x2 and 2x2 meshes of the one card (each
    entry a shard that runs there in turn), the flagship at 64 spp: the
@@ -311,6 +320,9 @@ LARGE_SPP = 8
 LARGE_PLAIN_SPP = 1  # frames of the large box's plain-path comparison
 # The dispatch intersectors: K4 and K6 on the large box, K5 on a mid-size one.
 PHASED_TESSELLATION = 16
+# The binary walks' ray-ordered renders: 19,603 binary nodes, at least
+# ops/intersect.py BVH2_REORDER_MIN_NODES for K7 and K8.
+ORDERED_TESSELLATION = 30
 DISPATCH_SPP = 2  # the "phased" and "cluster" renders
 DISPATCH_PLAIN_SPP = 1  # frames of their plain-path comparisons
 FORCED_WALK_SPP = 4  # the flagship box through the walk
@@ -1193,16 +1205,18 @@ def plain_render(r: Renderer, spp: int) -> np.ndarray:
     return accum.cpu().numpy()[row_major].reshape(cfg.height, cfg.width, 3)
 
 
-def plain_debug(r: Renderer) -> np.ndarray:
+def plain_debug(r: Renderer, visits: dict | None = None) -> np.ndarray:
     """The debug view ``r.render_debug()`` makes, through the plain
-    versions on ``r``'s device: K7's depth mode, or the plain version of the
+    versions on ``r``'s device: K7's depth mode (whose node visits
+    ``visits``, where given, gains), or the plain version of the
     intersector ``r`` picked under the plain hit attributes."""
     cfg = r.config
     scene, cam = r._scene_dev, r._camera()
     if cfg.mode == "bvh_depth":
         ro3, rd3 = DEBUG._center_rays(cam, cfg.width, cfg.height, r.device)
         depth = ISECT.bvh_depth_plain(scene["bvh_aabb"], scene["bvh_meta"],
-                                      ro3.T, rd3.T, float(DEBUG.MAX_DEPTH))
+                                      ro3.T, rd3.T, float(DEBUG.MAX_DEPTH),
+                                      visits=visits)
         buf = torch.stack([depth, depth, depth], dim=-1)
     else:
         buf = DEBUG.render_normal(scene, cam, cfg.width, cfg.height,
@@ -2609,16 +2623,97 @@ def bvh2_bound(visits: dict, scene: dict, n: int) -> dict:
     return bound(moved, ops)
 
 
+def bvh2_depth_bound(visits: dict, scene: dict, n: int) -> dict:
+    """K7's depth-mode bound on ``n`` rays from its plain version's
+    ``visits``: the rays and the depth once, the box and meta rows once, a
+    slab test a visited node."""
+    moved = 6 * 4 * n + 4 * n + nbytes(scene["bvh_aabb"], scene["bvh_meta"])
+    return bound(moved, SLAB_OPS * visits["nodes"])
+
+
 BVH2_KERNELS = {
-    # kind: (report key, counter, kernel wrapper, plain version, node table)
-    "stack": ("k7", ISECT.StackCounter, ISECT.closest_hit_bvh_cuda,
+    # kind: (report key, counter, the launcher over the staged tables, plain
+    # version, node table, the staging of the kernel's tables)
+    "stack": ("k7", ISECT.StackCounter, ISECT.launch_stack,
               ISECT.closest_hit_bvh_plain,
-              lambda scene: scene["bvh_meta"]),
-    "bvh": ("k8", ISECT.LinkedCounter, ISECT.closest_hit_bvh_linked_cuda,
+              lambda scene: scene["bvh_meta"], ISECT.stack_tables),
+    "bvh": ("k8", ISECT.LinkedCounter, ISECT.launch_linked,
             ISECT.closest_hit_bvh_linked_plain,
             lambda scene: ISECT.linked_nodes(scene["bvh_meta"],
-                                             scene["bvh_links"])),
+                                             scene["bvh_links"]),
+            ISECT.linked_tables),
 }
+
+
+def _f32(bits: np.ndarray) -> np.ndarray:
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def div_operands(n: int, seed: int, dev):
+    """Operand pairs (a, d) for K7's and K8's division: ``n`` pairs of
+    random float32 bit patterns (every exponent, NaN and infinity
+    included); every pair of the special operands (+-0, +-inf, NaN, the
+    smallest and largest subnormals, FLT_MIN, FLT_MAX, 1, the fast
+    window's edges 2^-64, 2^-63, 2^+-40, 2^+-41 and 2^39, and each one's
+    neighbours) and each special against 4,096 random patterns; and n // 4
+    pairs in and around the fast window (``csrc/bvh2.cu`` div_by: |a| in
+    [2^-63, 2^40], |d| in [2^-40, 2^40]), normal operands with exponents
+    in [-65, 42] and [-42, 42]. Returns two (M,) float32 tensors on
+    ``dev``."""
+    rng = np.random.default_rng(seed)
+    base = np.array([0x00000000, 0x7F800000, 0x7FC00000, 0x00000001,
+                     0x007FFFFF, 0x00800000, 0x7F7FFFFF, 0x3F800000,
+                     0x53800000, 0x2B800000, 0x54000000, 0x2B000000,
+                     0x20000000, 0x1F800000, 0x53000000],
+                    np.int64)
+    near = np.concatenate([base - 1, base, base + 1])
+    near = near[(near >= 0) & (near <= 0x7FFFFFFF)]
+    special = np.unique(np.concatenate([near, near | 0x80000000]))
+    sa, sd = np.meshgrid(special, special)
+    noise = rng.integers(0, 1 << 32, (2, 4096), dtype=np.int64)
+    wide = rng.integers(0, 1 << 32, (2, n), dtype=np.int64)
+    m = n // 4
+    exps = np.stack([rng.integers(127 - 65, 127 + 43, m, dtype=np.int64),
+                     rng.integers(127 - 42, 127 + 43, m, dtype=np.int64)])
+    window = ((exps << 23) | rng.integers(0, 1 << 23, (2, m), dtype=np.int64)
+              | (rng.integers(0, 2, (2, m), dtype=np.int64) << 31))
+    a = np.concatenate([wide[0], sa.ravel(), np.repeat(special, 4096),
+                        np.tile(noise[0], len(special)), window[0]])
+    d = np.concatenate([wide[1], sd.ravel(), np.tile(noise[1], len(special)),
+                        np.repeat(special, 4096), window[1]])
+    return (torch.from_numpy(_f32(a)).to(dev),
+            torch.from_numpy(_f32(d)).to(dev))
+
+
+def div_apart(a, d, got, want) -> int:
+    """Pairs where K7's and K8's division ``got`` differs from ``want``
+    (``/``) beyond what ``csrc/bvh2.cu`` allows: a zero numerator over a
+    divisor of the fast window (|d| in [2^-40, 2^40]) may give the other
+    zero sign (+0 always), which the walks only compare. NaN is held to
+    NaN, not to its bits."""
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    same = (bits(got) == bits(want)) | (torch.isnan(got)
+                                          & torch.isnan(want))
+    m = d.abs()
+    zero = ((a == 0) & (m >= 2.0 ** -40) & (m <= 2.0 ** 40) & (got == 0)
+            & (want == 0))
+    return int((~(same | zero)).sum())
+
+
+def check_bvh2_div(dev) -> tuple:
+    """K7's and K8's division against the same file's ``/`` (bit for bit)
+    and PyTorch's division (NaN against NaN), each a zero numerator's sign
+    aside (``div_apart``), on ``div_operands``; returns (pairs, the pairs
+    whose zero sign differs from ``/``'s)."""
+    a, d = div_operands(1 << 24, 0, dev)
+    got, ieee = ISECT.bvh2_div(a, d)
+    apart, apart_torch = div_apart(a, d, got, ieee), div_apart(a, d, got,
+                                                               a / d)
+    if apart or apart_torch:
+        raise AssertionError(f"div_by differs from / on {apart} pairs and "
+                             f"from PyTorch's division on {apart_torch}")
+    signs = int((got.view(torch.int32) != ieee.view(torch.int32)).sum())
+    return a.numel(), signs
 
 
 def phase_bvh2(dev, report, large: dict):
@@ -2630,14 +2725,22 @@ def phase_bvh2(dev, report, large: dict):
     tri, aabb = scene["tri_isect"], scene["bvh_aabb"]
     nt, n = tri.shape[0], rays.shape[1]
     walk_tables = K3.walk_tables(scene)
+    pairs, signs = check_bvh2_div(aabb.device)
+    say("bvh2", f"div_by equal to / and to PyTorch's division on {pairs} "
+        f"operand pairs, bit for bit but for {signs} zero numerators' signs")
+    for line in kernel_resources(cuda_lib.build_log()):
+        if "stack_kernel" in line or "linked_kernel" in line:
+            say("bvh2", f"ptxas: {line}")
     say("bvh2", f"binary BVH: {aabb.shape[0]} nodes over {nt} triangles")
-    for kind, (key, counter, cuda, plain, table_of) in BVH2_KERNELS.items():
+    for kind, (key, counter, cuda, plain, table_of,
+               stage) in BVH2_KERNELS.items():
         table = table_of(scene)
+        staged = stage(aabb, table, tri)
         worst, times = 0.0, {}
         for name, r, extra in cases:
             o, d = r[0:3].T, r[3:6].T
             before = counter.launches
-            kt, ki = cuda(aabb, table, tri, o, d, **extra)
+            kt, ki = cuda(staged, o, d, **extra)
             torch.cuda.synchronize()
             if counter.launches != before + 1:
                 raise AssertionError(f"{kind}: the wrapper did not launch")
@@ -2679,7 +2782,7 @@ def phase_bvh2(dev, report, large: dict):
                 if int((idx_apart | t_apart).sum()) > 0.01 * n:
                     raise AssertionError(f"{kind} and K3 disagree on more "
                                          f"than 1% of the {name} rays")
-            ms = device_ms(lambda: cuda(aabb, table, tri, o, d, **extra))
+            ms = device_ms(lambda: cuda(staged, o, d, **extra))
             b = bvh2_bound(visits, scene, n)
             times[name] = {"ms": ms, "plain_s": plain_s, **b,
                            "nodes_per_ray": visits["nodes"] / n,
@@ -2709,7 +2812,8 @@ def renderer_of(scene_np, **config) -> Renderer:
 def phase_debug(dev, smi, report, large: dict):
     """The two debug views on the Cornell box and the large box, each
     against its plain path; 1-spp Cornell renders through "stack" and
-    "bvh" against their plain paths and the K1 path."""
+    "bvh" against their plain paths and the K1 path; the same walks in ray
+    order on a box of ORDERED_TESSELLATION against their plain paths."""
     out = report.setdefault("debug", {})
     for label, scene_np, hit in (("cornell", cornell_box(), "k1"),
                                  ("large", large["scene_np"], "k3")):
@@ -2719,8 +2823,9 @@ def phase_debug(dev, smi, report, large: dict):
             r.config.mode = mode
             path = f"debug_{mode}_{label}"
             view, secs = counted_render(r, 1, report, path, expect(**counts))
+            visits = {}
             t0 = time.perf_counter()
-            plain = plain_debug(r)
+            plain = plain_debug(r, visits)
             plain_secs = time.perf_counter() - t0
             same_image(view, plain, f"{mode} view of the {label} box against "
                        f"its plain path ({plain_secs:.2f} s)", "debug")
@@ -2729,12 +2834,17 @@ def phase_debug(dev, smi, report, large: dict):
             if mode == "bvh_depth" and label == "large":
                 scene = r._scene_dev
                 ro3, rd3 = DEBUG._center_rays(r._camera(), SIZE, SIZE, dev)
-                ms = device_ms(lambda: ISECT.bvh_depth_cuda(
-                    scene["bvh_aabb"], scene["bvh_meta"], ro3.T, rd3.T,
-                    float(DEBUG.MAX_DEPTH)))
+                staged = ISECT.stack_tables(scene["bvh_aabb"],
+                                            scene["bvh_meta"])
+                ms = device_ms(lambda: ISECT.launch_stack_depth(
+                    staged, ro3.T, rd3.T, float(DEBUG.MAX_DEPTH)))
+                b = bvh2_depth_bound(visits, scene, SIZE * SIZE)
                 say("debug", f"K7's depth mode on the large box's pixel "
-                    f"centres: device {ms:.4f} ms")
-                report["k7"]["depth_mode_ms"] = ms
+                    f"centres: {visits['nodes'] / SIZE ** 2:.1f} nodes a "
+                    f"ray; device {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_by']})")
+                report["k7"].update(depth_mode_ms=ms,
+                                    depth_mode_bound_ms=b["bound_ms"])
     brute = renderer_of(cornell_box())
     k1_image = brute.render(spp=1)
     for kind, key in (("stack", "k7"), ("bvh", "k8")):
@@ -2755,6 +2865,37 @@ def phase_debug(dev, smi, report, large: dict):
                                  "render on more than 1% of its pixels")
         out[path] = {"seconds": secs, "plain_seconds": plain_secs,
                      "pixels_apart_from_k1": apart}
+    # The binary walks' ray order (BVH2_REORDER_MIN_NODES) on a box of
+    # ORDERED_TESSELLATION at 128x128, REORDER_MIN_LANES rays a call, and
+    # two bounces: bounce 1's closest-hit and shadow calls sorted, the image
+    # the plain path's (each ray walked alone, in lane order).
+    size, order, sorts = 128, ISECT.ray_order, []
+    ISECT.ray_order = lambda *a: sorts.append(1) or order(*a)
+    try:
+        for kind, key in (("stack", "k7"), ("bvh", "k8")):
+            r = Renderer(RenderConfig(width=size, height=size,
+                                      intersector=kind, max_bounces=2),
+                         device="cuda")
+            r.load_scene(tessellated_box(ORDERED_TESSELLATION)[0])
+            nodes = r._scene_dev["bvh_aabb"].shape[0]
+            if nodes < ISECT.BVH2_REORDER_MIN_NODES[kind]:
+                raise AssertionError(f"{nodes} binary nodes: below the "
+                                     "ray order's threshold")
+            sorts.clear()
+            path = f"render_{kind}_ordered"
+            hdr, secs = counted_render(r, 1, report, path,
+                                       expect(k2=2, **{key: 4}))
+            if len(sorts) != 2:
+                raise AssertionError(f"{path}: {len(sorts)} calls sorted, "
+                                     "not bounce 1's two")
+            plain_secs = checked_plain(r, 1, hdr, "debug")
+            say("debug", f"{kind} render of the {nodes}-node box, 1 spp, 2 "
+                f"bounces: wall {secs:.3f} s, bounce 1's two calls in ray "
+                "order")
+            out[path] = {"seconds": secs, "plain_seconds": plain_secs,
+                         "nodes": nodes}
+    finally:
+        ISECT.ray_order = order
 
 
 # K9's work a pixel a level: 25 taps of 44 operations (the normal dot
@@ -3709,9 +3850,13 @@ def phase_wide16(dev, smi, report, large: dict):
     o, d = large["rays"][0:3], large["rays"][3:6]
     plain = eager_ms(lambda: K3.closest_hit_walk_plain(tables["w16"], o, d,
                                                        num_tris=nt), reps=1)
-    b, ops = walk_bound(visits["w16", "camera"], tables["w16"], n)
-    say("wide16", f"K3-w16 bound at {n} camera rays: {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}; {ops / 1e9:.3f} Gop); plain {plain:.4f} ms on "
+    for name, _, _ in large["cases"]:
+        nb, ops = walk_bound(visits["w16", name], tables["w16"], n)
+        say("wide16", f"K3-w16 bound at {n} {name} rays: "
+            f"{nb['bound_ms']:.4f} ms ({nb['bound_by']}; {ops / 1e9:.3f} "
+            f"Gop)")
+    b, _ = walk_bound(visits["w16", "camera"], tables["w16"], n)
+    say("wide16", f"K3-w16 plain at {n} camera rays: {plain:.4f} ms on "
         f"{smi}")
 
     # A 1-spp render through make_closest_hit on the width-16 tables.

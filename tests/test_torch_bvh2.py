@@ -417,6 +417,223 @@ def test_wrappers_take_cpu_tensors_to_the_plain_version_only():
             fn(scene["bvh_aabb"], table, scene["tri_isect"], ro, rd)
     with pytest.raises(ValueError, match="CUDA"):
         I.bvh_depth_cuda(scene["bvh_aabb"], scene["bvh_meta"], ro, rd, 24.0)
+    stack = I.stack_tables(scene["bvh_aabb"], scene["bvh_meta"],
+                           scene["tri_isect"])
+    linked = I.linked_tables(scene["bvh_aabb"], I.linked_nodes(
+        scene["bvh_meta"], scene["bvh_links"]), scene["tri_isect"])
+    for call in (lambda: I.launch_stack(stack, ro, rd),
+                 lambda: I.launch_linked(linked, ro, rd),
+                 lambda: I.launch_stack_depth(stack._replace(tris=None), ro,
+                                              rd, 24.0)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     with pytest.raises(ValueError, match="N, 3"):
         I.closest_hit_bvh(scene["bvh_aabb"], scene["bvh_meta"],
                           scene["tri_isect"], ro.T, rd.T)
+
+
+# K7's and K8's staged tables (ops/intersect.py stack_tables, linked_tables):
+# the records hold the original tables' bits, so they unpack to them
+# exactly.
+
+
+def _tables(packed):
+    return {k: torch.from_numpy(np.ascontiguousarray(packed[k]))
+            for k in ("bvh_aabb", "bvh_meta", "bvh_links", "tri_isect")}
+
+
+def _scene_of(name, random_scene, cornell_scene):
+    return random_scene if name == "random" else cornell_scene
+
+
+@pytest.mark.parametrize("name", ["cornell", "random"])
+def test_stack_records_unpack_to_the_tables(random_scene, cornell_scene,
+                                            name):
+    """K7's 32-byte records give back bvh_aabb and bvh_meta array-equal,
+    the builder's fields that the record drops (a leaf's children -1, an
+    interior node's offset and count 0) restored from the node's kind, and
+    bit 31 of the fourth word is the box's tame flag."""
+    t = _tables(_scene_of(name, random_scene, cornell_scene))
+    rec = I.stack_records(t["bvh_aabb"], t["bvh_meta"])
+    assert rec.dtype == torch.float32 and tuple(rec.shape) == (
+        t["bvh_meta"].shape[0], 8)
+    bits = rec.view(torch.int32).numpy()
+    aabb = np.concatenate([bits[:, 0:3], bits[:, 4:7]], axis=1)
+    np.testing.assert_array_equal(aabb.view(np.float32), t["bvh_aabb"])
+    a, b = bits[:, 3] & 0x7FFFFFFF, bits[:, 7]
+    np.testing.assert_array_equal(bits[:, 3] < 0,
+                                  I.tame_boxes(t["bvh_aabb"]).numpy())
+    leaf = b < 0
+    none, zero = -np.ones_like(a), np.zeros_like(a)
+    meta = np.where(leaf[:, None], np.stack([none, none, a, -b], 1),
+                    np.stack([a, b, zero, zero], 1))
+    np.testing.assert_array_equal(meta, t["bvh_meta"].numpy())
+    assert leaf.any() and (~leaf).any()
+
+
+@pytest.mark.parametrize("name", ["cornell", "random"])
+def test_linked_records_unpack_to_the_tables(random_scene, cornell_scene,
+                                             name):
+    """K8's 48-byte records give back bvh_aabb and the linked nodes [hit,
+    miss, offset, count] array-equal, then the box's tame flag and a zero
+    word."""
+    t = _tables(_scene_of(name, random_scene, cornell_scene))
+    nodes = I.linked_nodes(t["bvh_meta"], t["bvh_links"])
+    rec = I.linked_records(t["bvh_aabb"], nodes)
+    bits = rec.view(torch.int32).numpy()
+    assert bits.shape == (nodes.shape[0], 12)
+    aabb = np.concatenate([bits[:, 0:3], bits[:, 4:7]], axis=1)
+    np.testing.assert_array_equal(aabb.view(np.float32), t["bvh_aabb"])
+    np.testing.assert_array_equal(bits[:, [3, 7, 8, 9]], nodes.numpy())
+    tame = I.tame_boxes(t["bvh_aabb"]).numpy()
+    assert tame.all()  # a built scene's boxes are all tame
+    np.testing.assert_array_equal(bits[:, 10], np.where(tame, I.TAME_BIT, 0))
+    np.testing.assert_array_equal(bits[:, 11], 0)
+
+
+@pytest.mark.parametrize("name", ["cornell", "random"])
+def test_triangle_rows_equal_tri_isect(random_scene, cornell_scene, name):
+    t = _tables(_scene_of(name, random_scene, cornell_scene))
+    rows = I.tri_rows(t["tri_isect"])
+    assert tuple(rows.shape) == (t["tri_isect"].shape[0], 12)
+    np.testing.assert_array_equal(rows[:, 0:9].numpy().view(np.uint32),
+                                  t["tri_isect"].numpy().view(np.uint32))
+    np.testing.assert_array_equal(rows[:, 9:12].numpy(), 0.0)
+
+
+@pytest.mark.parametrize("kind", WALKS)
+def test_staged_tables_are_aligned(random_scene, kind):
+    """Each table is contiguous, starts on a 16-byte boundary and has rows
+    of a multiple of 16 bytes (32 B a K7 record, 48 B a K8 record and a
+    triangle), so every record and row is a run of 16-byte loads."""
+    t = _tables(random_scene)
+    if kind == "stack":
+        staged = I.stack_tables(t["bvh_aabb"], t["bvh_meta"], t["tri_isect"])
+        width = 8
+    else:
+        staged = I.linked_tables(t["bvh_aabb"],
+                                 I.linked_nodes(t["bvh_meta"],
+                                                t["bvh_links"]),
+                                 t["tri_isect"])
+        width = 12
+    assert staged.nodes.shape[1] == width
+    for x in (staged.nodes, staged.tris):
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+        assert (x.shape[1] * x.element_size()) % 16 == 0
+    assert I.stack_tables(t["bvh_aabb"], t["bvh_meta"]).tris is None
+
+
+def test_tame_boxes_keep_the_fast_division_exact():
+    """A box is tame when each coordinate is 0, NaN or within [2^-40, 2^39]
+    in magnitude; a subnormal, a tiny, a huge or an infinite coordinate
+    makes it untame, whatever its sign."""
+    boxes = np.zeros((9, 6), np.float32)
+    boxes[:, 3:6] = 1.0
+    boxes[1, 0] = np.nan
+    boxes[2, 1] = -(2.0 ** -40)
+    boxes[3, 5] = 2.0 ** 39
+    boxes[4, 2] = 1e-40  # subnormal
+    boxes[5, 4] = -(2.0 ** -41)
+    boxes[6, 3] = 2.0 ** 40
+    boxes[7, 0] = -np.inf
+    boxes[8, 0] = -0.0
+    got = I.tame_boxes(torch.from_numpy(boxes)).numpy()
+    np.testing.assert_array_equal(got, [True, True, True, True, False,
+                                        False, False, False, True])
+
+
+@pytest.mark.parametrize("broken", ["negative_count", "negative_right",
+                                    "negative_left"])
+def test_stack_records_raise_on_a_table_they_cannot_hold(random_scene,
+                                                         broken):
+    """K7's record tells a leaf from an interior node by the sign of its
+    last field and keeps the tame flag in the sign bit of its fourth: a
+    count below 0, or an interior node's child below 0, would be misread,
+    so staging such a table raises."""
+    t = _tables(random_scene)
+    meta = t["bvh_meta"].clone()
+    interior = int(np.nonzero(meta[:, 3].numpy() == 0)[0][0])
+    if broken == "negative_count":
+        meta[interior, 3] = -1
+    elif broken == "negative_right":
+        meta[interior, 1] = -5
+    else:
+        meta[interior, 0] = -2
+    with pytest.raises(ValueError, match="count >= 0"):
+        I.stack_records(t["bvh_aabb"], meta)
+    with pytest.raises(ValueError, match="count >= 0"):
+        I.stack_tables(t["bvh_aabb"], meta, t["tri_isect"])
+
+
+@pytest.mark.parametrize("kind", WALKS)
+def test_make_closest_hit_stages_once_per_scene(monkeypatch, kind):
+    """The closure stages its kernel's tables once, when it is made, and
+    never on a call; CPU calls take the plain version over the scene's own
+    tables (a card test holds the CUDA calls to the staged tables)."""
+    scene = load_jax_scene(pack_device_scene(cornell_box()), "cpu")
+    name = "stack_tables" if kind == "stack" else "linked_tables"
+    made = []
+    stage = getattr(I, name)
+    monkeypatch.setattr(I, name,
+                        lambda *a: made.append(stage(*a)) or made[-1])
+    walk = "closest_hit_bvh" if kind == "stack" else "closest_hit_bvh_linked"
+    call, plain_calls = getattr(I, walk), []
+
+    def spy(*args, **kw):
+        plain_calls.append(args[0:3])
+        return call(*args, **kw)
+
+    monkeypatch.setattr(I, walk, spy)
+    ch = I.make_closest_hit(scene, kind)
+    assert len(made) == 1
+    rng = np.random.default_rng(8)
+    packed = pack_device_scene(cornell_box())
+    for _ in range(3):
+        ro = np.tile([[0.0, 1.0, 0.0]], (64, 1)).astype(np.float32)
+        rd = _unit(rng, 64).astype(np.float32)
+        t, _ = ch(torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy()))
+        np.testing.assert_array_equal(t.numpy(), _brute(packed, ro, rd)[0])
+    assert len(made) == 1 and len(plain_calls) == 3
+    assert all(args[0] is scene["bvh_aabb"] for args in plain_calls)
+    assert isinstance(made[0], I.BVH2Tables)
+    ch2 = I.make_closest_hit(scene, kind)
+    assert len(made) == 2 and ch2.strategy == kind
+
+
+@pytest.mark.parametrize("kind", WALKS)
+def test_bounce_calls_walk_in_ray_order(monkeypatch, kind):
+    """On a tree of BVH2_REORDER_MIN_NODES[kind] binary nodes or more
+    (lowered here to this tree's count), a call with ``reorder`` walks its rays in
+    ``ray_order`` (calls of at least REORDER_MIN_LANES rays; lowered here
+    to 64) and gives each ray the answer of the unsorted call, ``active``
+    and ``t_max`` included; a camera call (``reorder`` False) is not
+    sorted, and neither is a bounce call on a tree one node below the
+    threshold."""
+    scene = load_jax_scene(pack_device_scene(random_triangles(1500, seed=5)),
+                           "cpu")
+    nodes = scene["bvh_aabb"].shape[0]
+    monkeypatch.setattr(I, "REORDER_MIN_LANES", 64)
+    sorts = []
+    order = I.ray_order
+    monkeypatch.setattr(I, "ray_order",
+                        lambda *a: sorts.append(1) or order(*a))
+    monkeypatch.setitem(I.BVH2_REORDER_MIN_NODES, kind, nodes)
+    ch = I.make_closest_hit(scene, kind)
+    packed = pack_device_scene(random_triangles(1500, seed=5))
+    ro, rd = _aimed_rays(packed, 256, 14)
+    rng = np.random.default_rng(15)
+    kw = dict(active=torch.from_numpy(rng.random(256) > 0.3),
+              t_max=torch.from_numpy(rng.uniform(8.0, 20.0, 256).astype(
+                  np.float32)))
+    o, d = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    bare = ch(o, d, **kw)
+    assert not sorts
+    got = ch(o, d, reorder=True, **kw)
+    assert len(sorts) == 1
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  bare[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1].numpy(), bare[1].numpy())
+    assert (bare[1].numpy() >= 0).sum() > 20
+    monkeypatch.setitem(I.BVH2_REORDER_MIN_NODES, kind, nodes + 1)
+    I.make_closest_hit(scene, kind)(o, d, reorder=True, **kw)
+    assert len(sorts) == 1

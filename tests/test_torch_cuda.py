@@ -12,9 +12,10 @@ K3 (csrc/walk.cu, at width 8 and 16, and on the "slice" pack's tables), K4 (csrc
 ragged counts, sparse and dead lanes, past one gate window, at other
 block sizes and with unordered slots), K6
 (csrc/cluster.cu), the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
-sign of a zero), K7 and K8 (csrc/bvh2.cu: the binary-BVH walks, K7 also in
-its depth mode and with an overflowing stack) and K9 (csrc/atrous.cu, each
-level of the denoiser) must equal the plain versions bit for bit: both
+sign of a zero), K7 and K8 (csrc/bvh2.cu: the binary-BVH walks over their
+staged records, K7 also in its depth mode and with an overflowing stack;
+their division against ``/``, a zero numerator's sign aside) and K9
+(csrc/atrous.cu, each level of the denoiser) must equal the plain versions bit for bit: both
 round every float32 operation the same way (the kernels are built with
 -fmad=false and IEEE division and square root). So must the Renderer's
 "stack" and "bvh" renders, its debug views, ``denoise`` and
@@ -34,6 +35,8 @@ from chip_smoke import (
     ADVERSARIAL,
     DISPATCH,
     adversarial_case,
+    div_apart,
+    div_operands,
     left_spine,
     plain_adaptive,
     plain_debug,
@@ -959,32 +962,85 @@ def _walk_cases(scene, rays, dev):
              {"active": alive, "t_max": t_max, "any_hit": True})]
 
 
+def _bvh_walk_cases(scene, rays, dev):
+    """``_walk_cases``, then the bounce rays with ``active`` and ``t_max``
+    (closest hit below t_max) and the camera rays with a leaf size below
+    the tree's (2 of up to 4 triangles a leaf)."""
+    cases = _walk_cases(scene, rays, dev)
+    o2, d2, kw = cases[2]
+    return cases + [(o2, d2, {"active": kw["active"], "t_max": kw["t_max"]}),
+                    (cases[0][0], cases[0][1], {"leaf_size": 2})]
+
+
 @pytest.mark.parametrize("kind", ["stack", "bvh"])
 @pytest.mark.parametrize("scene_fn", [cornell_box,
                                       lambda: cornell_box(tessellation=6)])
 def test_bvh_walk_kernels_equal_plain(dev, kind, scene_fn):
+    """K7 and K8 through the wrapper that stages their tables on the call
+    (the first case) and through the launcher over tables staged once (the
+    others) against their plain versions, and K7's depth mode on the
+    camera rays against its plain version, both ways."""
     _, scene, rays, _ = _rays(scene_fn, dev)
     aabb, tri = scene["bvh_aabb"], scene["tri_isect"]
     if kind == "stack":
         table, counter = scene["bvh_meta"], INTERSECT.StackCounter
         cuda, plain = (INTERSECT.closest_hit_bvh_cuda,
                        INTERSECT.closest_hit_bvh_plain)
+        staged = INTERSECT.stack_tables(aabb, table, tri)
+        launch = INTERSECT.launch_stack
     else:
         table = INTERSECT.linked_nodes(scene["bvh_meta"], scene["bvh_links"])
         counter = INTERSECT.LinkedCounter
         cuda, plain = (INTERSECT.closest_hit_bvh_linked_cuda,
                        INTERSECT.closest_hit_bvh_linked_plain)
-    for o, d, kw in _walk_cases(scene, rays, dev):
+        staged = INTERSECT.linked_tables(aabb, table, tri)
+        launch = INTERSECT.launch_linked
+    for case, (o, d, kw) in enumerate(_bvh_walk_cases(scene, rays, dev)):
         before = counter.launches
-        kt, ki = cuda(aabb, table, tri, o, d, **kw)
+        if case == 0:
+            kt, ki = cuda(aabb, table, tri, o, d, **kw)
+        else:
+            kt, ki = launch(staged, o, d, **kw)
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         pt, pi = plain(aabb, table, tri, o, d, **kw)
-        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi), kw
+    if kind == "stack":
+        o, d = rays[0:3].T, rays[3:6].T
+        pd = INTERSECT.bvh_depth_plain(aabb, table, o, d, 24.0)
+        kd = INTERSECT.bvh_depth_cuda(aabb, table, o, d, 24.0)
+        assert torch.equal(_bits(kd), _bits(pd))
+        kd = INTERSECT.launch_stack_depth(staged._replace(tris=None), o, d,
+                                          24.0)
+        assert torch.equal(_bits(kd), _bits(pd))
 
 
-@pytest.mark.parametrize("depth,steps", [(2, 40), (3, 60), (64, 10_000)])
+@pytest.mark.parametrize("kind", ["stack", "bvh"])
+def test_make_closest_hit_launches_over_its_staged_tables(dev, monkeypatch,
+                                                          kind):
+    """Every CUDA call of the "stack" and "bvh" closures launches its kernel
+    over the one set of tables staged when the closure was made."""
+    name = "launch_stack" if kind == "stack" else "launch_linked"
+    launch, seen = getattr(INTERSECT, name), []
+    monkeypatch.setattr(INTERSECT, name, lambda tables, *a, **kw: (
+        seen.append(tables) or launch(tables, *a, **kw)))
+    _, scene, rays, _ = _rays(cornell_box, dev)
+    ch = INTERSECT.make_closest_hit(scene, kind)
+    plain = plain_closest_hit(scene, kind)
+    for o, d, kw in _walk_cases(scene, rays, dev):
+        kt, ki = ch(o.T, d.T, **kw)
+        pt, pi = plain(o.T, d.T, **kw)
+        assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi), kw
+    assert len(seen) == 3 and all(x is seen[0] for x in seen)
+    assert isinstance(seen[0], INTERSECT.BVH2Tables)
+
+
+@pytest.mark.parametrize("depth,steps", [(1, 30), (2, 40), (3, 60),
+                                         (64, 10_000)])
 def test_stack_kernel_overflow_and_step_cap_equal_plain(dev, depth, steps):
+    """K7 and its depth mode on a left spine that overflows a stack of
+    fewer than 12 entries, to a step cap, against their plain versions;
+    and K8 to the same step cap."""
     spine = {k: torch.from_numpy(v).to(dev)
              for k, v in left_spine(12).items()}
     o, d = spine_rays(4096, 13, 2, dev)
@@ -1000,6 +1056,32 @@ def test_stack_kernel_overflow_and_step_cap_equal_plain(dev, depth, steps):
     pd = INTERSECT.bvh_depth_plain(spine["bvh_aabb"], spine["bvh_meta"], o,
                                    d, 24.0, depth, steps)
     assert torch.equal(_bits(kd), _bits(pd))
+    nodes = INTERSECT.linked_nodes(spine["bvh_meta"], spine["bvh_links"])
+    largs = (spine["bvh_aabb"], nodes, spine["tri_isect"], o, d)
+    kt, ki = INTERSECT.closest_hit_bvh_linked_cuda(*largs, max_steps=steps)
+    pt, pi = INTERSECT.closest_hit_bvh_linked_plain(*largs, max_steps=steps)
+    assert torch.equal(_bits(kt), _bits(pt)) and torch.equal(ki, pi)
+
+
+def test_bvh_division_equals_ieee_division(dev):
+    """K7's and K8's division (csrc/bvh2.cu div_by: the reciprocal once a
+    divisor, the quotient's FMAs a plane, __fdiv_rn outside its window)
+    against ``/`` in the same file and PyTorch's division, bit for bit, on
+    2^24 random bit patterns, the special operands and their neighbours
+    against each other and against random patterns, and 2^22 pairs inside
+    the fast window (chip_smoke.div_operands). The one freedom the source
+    states: a zero numerator over a divisor of the window gives +0 where
+    ``/`` may give -0 (the walks only compare their quotients)."""
+    a, d = div_operands(1 << 24, 1, dev)
+    assert a.numel() > (1 << 24) + (1 << 22)
+    got, ieee = INTERSECT.bvh2_div(a, d)
+    assert div_apart(a, d, got, ieee) == 0
+    assert div_apart(a, d, got, a / d) == 0
+    nan = torch.isnan(ieee)
+    assert torch.equal(got[nan].view(torch.int32),
+                       ieee[nan].view(torch.int32))
+    signs = got.view(torch.int32) != ieee.view(torch.int32)
+    assert bool((a[signs] == 0).all()) and bool((got[signs] == 0).all())
 
 
 def test_atrous_kernel_equals_plain_at_every_level(dev):
@@ -1042,6 +1124,36 @@ def test_renderer_binary_bvh_paths_equal_plain_path(dev, kind):
     assert counter.launches == before + 4 * r.config.max_bounces
     np.testing.assert_array_equal(kernel.view(np.uint32),
                                   plain_render(r, spp=2).view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["stack", "bvh"])
+def test_renderer_binary_bvh_ray_order_equals_plain_path(dev, monkeypatch,
+                                                         kind):
+    """A 128x128 render (REORDER_MIN_LANES rays a call) through "stack" and
+    "bvh" at two bounces, on ``cornell_box(tessellation=30)`` (30,602
+    triangles, 19,603 binary nodes: at least BVH2_REORDER_MIN_NODES for
+    both): bounce 1's closest-hit and shadow calls walk their rays in
+    ``ray_order``, and the image equals the plain path's (every ray walked
+    alone, in lane order) bit for bit."""
+    sorts = []
+    order = INTERSECT.ray_order
+    monkeypatch.setattr(INTERSECT, "ray_order",
+                        lambda *a: sorts.append(1) or order(*a))
+    size = 128
+    r = Renderer(RenderConfig(width=size, height=size, intersector=kind,
+                              max_bounces=2), device="cuda")
+    r.load_scene(cornell_box(tessellation=30))
+    assert size * size >= INTERSECT.REORDER_MIN_LANES
+    assert (r._scene_dev["bvh_aabb"].shape[0]
+            >= INTERSECT.BVH2_REORDER_MIN_NODES[kind])
+    counter = (INTERSECT.StackCounter if kind == "stack"
+               else INTERSECT.LinkedCounter)
+    before = counter.launches
+    kernel = r.render(spp=1)
+    assert counter.launches == before + 4
+    assert len(sorts) == 2
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))
 
 
 @pytest.mark.parametrize("mode", ["normal", "bvh_depth"])

@@ -88,19 +88,20 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _P,  # n, clusters, k, max_rounds, num_tris, stream
     ],
     "wpt_bvh_stack": [
-        _P, _P, _P,  # bvh_aabb, bvh_meta, tri_isect (NULL in depth mode)
+        _P, _P,  # the 32-B node records, the 48-B triangle rows (or NULL)
         _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
         _P, _P,  # out t (or depth), idx
         _I, _I, _I, _I, _I,  # n, nodes, tris, leaf_size, stack_depth
         _I, _I, _I, _F, _P,  # any_hit, max_steps, depth mode, its norm, stream
     ],
     "wpt_bvh_linked": [
-        _P, _P, _P,  # bvh_aabb, the linked nodes, tri_isect
+        _P, _P,  # the 48-B node records, the 48-B triangle rows
         _P, _P, _P, _P,  # ro, rd, active (or NULL), t_max (or NULL)
         _P, _P,  # out t, idx
         _I, _I, _I, _I, _I, _I, _P,  # n, nodes, tris, leaf_size, any_hit,
         # max_steps, stream
     ],
+    "wpt_bvh_div": [_P, _P, _P, _P, _I, _P],  # a, d, out, a / d, n, stream
     "wpt_atrous_level": [
         _P, _P, _P, _P, _P,  # color, normal, depth, found, var
         _P, _P,  # out color, var
@@ -112,7 +113,9 @@ SIGNATURES = {
 
 class _Lib:
     handle = None
-    build_log = ""  # nvcc's report (ptxas registers, shared memory, spills)
+    # nvcc's report (ptxas registers, shared memory, spills), kept beside
+    # the library and read back with it
+    build_log = ""
     lock = threading.Lock()
 
 
@@ -137,7 +140,11 @@ def build() -> str:
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"libwpt_kernels_{h.hexdigest()[:16]}.so")
+    log_path = out[:-3] + ".log"
     if os.path.exists(out):
+        if not _Lib.build_log and os.path.exists(log_path):
+            with open(log_path) as f:
+                _Lib.build_log = f.read()
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -160,6 +167,8 @@ def build() -> str:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stderr}")
         _Lib.build_log = "".join(logs)
+        with open(log_path, "w") as f:
+            f.write(_Lib.build_log)
         os.replace(tmp, out)
     return out
 

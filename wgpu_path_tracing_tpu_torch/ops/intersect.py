@@ -24,6 +24,7 @@ agree bit for bit: the kernels round every operation as PyTorch does.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -384,13 +385,104 @@ def linked_nodes(bvh_meta, bvh_links):
     return torch.cat([bvh_links, bvh_meta[:, 2:4]], dim=1).contiguous()
 
 
-def _check_bvh(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max) -> None:
+class BVH2Tables(NamedTuple):
+    """K7's or K8's tables as its kernel reads them, staged once a scene
+    (``stack_tables``, ``linked_tables``): one record a node, float32 rows
+    whose integer fields hold int32 bits, and the triangles as 48-byte
+    rows (``tri_rows``), None in K7's depth mode."""
+
+    nodes: torch.Tensor
+    tris: torch.Tensor | None
+
+
+def tri_rows(tri_isect):
+    """(T, 12) float32: the (T, 9) [v0, e1, e2] rows padded with three
+    zeros, in the same order, so that a triangle is three 16-byte loads."""
+    return torch.nn.functional.pad(tri_isect, (0, 3)).contiguous()
+
+
+# The flag of a tame box in its record (bit 31 of a 32-bit word).
+TAME_BIT = -(1 << 31)
+
+
+def tame_boxes(bvh_aabb):
+    """(B,) bool: each of the box's six coordinates is 0, NaN, or has a
+    magnitude in [2^-40, 2^39]. A step of K7 or K8 from a tame ray into a
+    tame box divides on its fast path (``csrc/bvh2.cu``)."""
+    m = bvh_aabb.abs()
+    ok = (m == 0) | torch.isnan(m) | ((m >= 2.0 ** -40) & (m <= 2.0 ** 39))
+    return ok.all(dim=1)
+
+
+def stack_records(bvh_aabb, bvh_meta):
+    """K7's (B, 8) records, 32 bytes a node: [min3, left, max3, right] for
+    an interior node (count 0), [min3, offset, max3, -count] for a leaf, so
+    the sign of the last field tells them apart, with TAME_BIT set in the
+    fourth word of a ``tame_boxes`` box. That needs count >= 0 on every
+    node, a left and right child >= 0 on every interior node and an offset
+    >= 0 on every leaf; a table without them raises ValueError (one host
+    sync)."""
+    left, right, off, count = bvh_meta.unbind(1)
+    interior = count == 0
+    first = torch.where(interior, left, off)
+    if bool(((count < 0) | (first < 0) | (interior & (right < 0))).any()):
+        raise ValueError("K7's records need count >= 0 on every node, "
+                         "children >= 0 on every interior node and an "
+                         "offset >= 0 on every leaf")
+    rec = torch.empty((bvh_meta.shape[0], 8), dtype=torch.int32,
+                      device=bvh_meta.device)
+    rec[:, 0:3] = bvh_aabb[:, 0:3].view(torch.int32)
+    rec[:, 3] = torch.where(tame_boxes(bvh_aabb), first | TAME_BIT, first)
+    rec[:, 4:7] = bvh_aabb[:, 3:6].view(torch.int32)
+    rec[:, 7] = torch.where(interior, right, -count)
+    return rec.view(torch.float32)
+
+
+def linked_records(bvh_aabb, bvh_nodes):
+    """K8's (B, 12) records, 48 bytes a node: [min3, hit, max3, miss,
+    offset, count, TAME_BIT on a ``tame_boxes`` box else 0, 0] from the box
+    and ``linked_nodes``' row."""
+    rec = torch.zeros((bvh_nodes.shape[0], 12), dtype=torch.int32,
+                      device=bvh_nodes.device)
+    rec[:, 0:3] = bvh_aabb[:, 0:3].view(torch.int32)
+    rec[:, 3] = bvh_nodes[:, 0]
+    rec[:, 4:7] = bvh_aabb[:, 3:6].view(torch.int32)
+    rec[:, 7] = bvh_nodes[:, 1]
+    rec[:, 8:10] = bvh_nodes[:, 2:4]
+    rec[:, 10] = torch.where(tame_boxes(bvh_aabb), TAME_BIT, 0)
+    return rec.view(torch.float32)
+
+
+def stack_tables(bvh_aabb, bvh_meta, tri_isect=None) -> BVH2Tables:
+    """K7's staged tables, on the tables' device; ``tri_isect`` None for
+    the depth mode."""
+    return BVH2Tables(stack_records(bvh_aabb, bvh_meta),
+                      None if tri_isect is None else tri_rows(tri_isect))
+
+
+def linked_tables(bvh_aabb, bvh_nodes, tri_isect) -> BVH2Tables:
+    """K8's staged tables, on the tables' device."""
+    return BVH2Tables(linked_records(bvh_aabb, bvh_nodes),
+                      tri_rows(tri_isect))
+
+
+def _check_rays(ro, rd, active, t_max) -> None:
     n = ro.shape[0]
     for name, x in (("ro", ro), ("rd", rd)):
         if x.dim() != 2 or tuple(x.shape) != (n, 3):
             raise ValueError(f"{name} must be (N, 3), got {tuple(x.shape)}")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if active is not None and (active.dtype != torch.bool
+                               or tuple(active.shape) != (n,)):
+        raise ValueError("active must be a (N,) bool tensor")
+    if t_max is not None and (t_max.dtype != torch.float32
+                              or tuple(t_max.shape) != (n,)):
+        raise ValueError("t_max must be a (N,) float32 tensor")
+
+
+def _check_bvh(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max) -> None:
+    _check_rays(ro, rd, active, t_max)
     if bvh_aabb.dtype != torch.float32 or bvh_aabb.dim() != 2 or (
             bvh_aabb.shape[1] != 6):
         raise ValueError("bvh_aabb must be (B, 6) float32")
@@ -401,12 +493,6 @@ def _check_bvh(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max) -> None:
                                   or tri_isect.dim() != 2
                                   or tri_isect.shape[1] != 9):
         raise ValueError("tri_isect must be (T, 9) float32")
-    if active is not None and (active.dtype != torch.bool
-                               or tuple(active.shape) != (n,)):
-        raise ValueError("active must be a (N,) bool tensor")
-    if t_max is not None and (t_max.dtype != torch.float32
-                              or tuple(t_max.shape) != (n,)):
-        raise ValueError("t_max must be a (N,) float32 tensor")
     devices = {x.device for x in (bvh_aabb, nodes, tri_isect, ro, rd, active,
                                   t_max) if x is not None}
     if len(devices) != 1:
@@ -414,20 +500,36 @@ def _check_bvh(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max) -> None:
                          "devices")
 
 
-def _launch_args(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max,
-                 max_steps: int):
-    """The tensors (to keep alive over the launch), pointers and step cap
-    that both kernels of ``csrc/bvh2.cu`` take: the tables contiguous (the
-    node rows read as 16-byte int4), the rays as (3, N) rows, ``max_steps``
-    held to int32."""
+def _need_cuda(ro) -> None:
     if ro.device.type != "cuda":
         raise ValueError("the K7 and K8 launchers need CUDA tensors")
-    nodes = nodes.contiguous()
-    if nodes.data_ptr() % 16:
-        raise ValueError("the node table must start on a 16-byte boundary")
-    keep = [bvh_aabb.contiguous(), nodes,
-            None if tri_isect is None else tri_isect.contiguous(),
-            ro.T.contiguous(), rd.T.contiguous(),
+
+
+def _launch_args(tables: BVH2Tables, width: int, ro, rd, active, t_max,
+                 max_steps: int):
+    """The tensors (to keep alive over the launch), pointers and step cap
+    that both kernels of ``csrc/bvh2.cu`` take: the staged tables
+    (``width`` floats a node record, 12 a triangle row; contiguous, 16-byte
+    aligned, on the rays' device), the rays as (3, N) rows, ``max_steps``
+    held to int32."""
+    _check_rays(ro, rd, active, t_max)
+    _need_cuda(ro)
+    for name, x, cols in (("node records", tables.nodes, width),
+                          ("triangle rows", tables.tris, 12)):
+        if x is None:
+            continue
+        if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != cols
+                or x.device != ro.device):
+            raise ValueError(f"the staged {name} must be (rows, {cols}) "
+                             f"float32 on {ro.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"the staged {name} must be contiguous and "
+                             "start on a 16-byte boundary")
+    for x in (active, t_max):
+        if x is not None and x.device != ro.device:
+            raise ValueError("the rays and their masks are on different "
+                             "devices")
+    keep = [tables.nodes, tables.tris, ro.T.contiguous(), rd.T.contiguous(),
             None if active is None else active.contiguous(),
             None if t_max is None else t_max.contiguous()]
     ptrs = [None if x is None else x.data_ptr() for x in keep]
@@ -435,13 +537,16 @@ def _launch_args(bvh_aabb, nodes, tri_isect, ro, rd, active, t_max,
     return keep, ptrs, steps
 
 
-def _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max,
-                  leaf_size, stack_depth, any_hit, max_steps, norm):
+def _stack_launch(tables, ro, rd, active, t_max, leaf_size, stack_depth,
+                  any_hit, max_steps, norm):
     if not 1 <= stack_depth <= cuda_lib.BVH_MAX_STACK:
         raise ValueError(f"K7 keeps 1 to {cuda_lib.BVH_MAX_STACK} stack "
                          f"entries a ray, not {stack_depth}")
-    keep, ptrs, steps = _launch_args(bvh_aabb, bvh_meta, tri_isect, ro, rd,
-                                     active, t_max, max_steps)
+    if (norm is None) == (tables.tris is None):
+        raise ValueError("K7's closest hit takes triangle rows, its depth "
+                         "mode none")
+    keep, ptrs, steps = _launch_args(tables, 8, ro, rd, active, t_max,
+                                     max_steps)
     n = ro.shape[0]
     dev = ro.device
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -449,8 +554,8 @@ def _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max,
     if n == 0:
         return t, idx
     err = cuda_lib.lib().wpt_bvh_stack(
-        *ptrs, t.data_ptr(), idx.data_ptr(), n, bvh_aabb.shape[0],
-        0 if tri_isect is None else tri_isect.shape[0], int(leaf_size),
+        *ptrs, t.data_ptr(), idx.data_ptr(), n, tables.nodes.shape[0],
+        0 if tables.tris is None else tables.tris.shape[0], int(leaf_size),
         int(stack_depth), int(bool(any_hit)), steps,
         int(norm is not None), 1.0 if norm is None else float(norm),
         cuda_lib.stream_ptr(ro))
@@ -461,27 +566,71 @@ def _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max,
     return t, idx
 
 
+def launch_stack(tables: BVH2Tables, ro, rd, active=None, t_max=None,
+                 leaf_size: int = LEAF_SIZE, stack_depth: int = STACK_DEPTH,
+                 any_hit: bool = False, max_steps: int = STACK_MAX_STEPS):
+    """Launch K7 (``csrc/bvh2.cu``) on the current stream over ``tables``
+    (``stack_tables``), the one form of the tree it reads; rays and result
+    as ``closest_hit_bvh_plain``'s. CUDA tensors only."""
+    return _stack_launch(tables, ro, rd, active, t_max, leaf_size,
+                         stack_depth, any_hit, max_steps, None)
+
+
+def launch_stack_depth(tables: BVH2Tables, ro, rd, norm: float,
+                       stack_depth: int = STACK_DEPTH,
+                       max_steps: int = STACK_MAX_STEPS):
+    """Launch K7 in its depth mode on the current stream over ``tables``
+    (``stack_tables`` without triangles); returns the normalized depth
+    (N,)."""
+    depth, _ = _stack_launch(tables, ro, rd, None, None, 0, stack_depth,
+                             False, max_steps, norm)
+    return depth
+
+
+def launch_linked(tables: BVH2Tables, ro, rd, active=None, t_max=None,
+                  leaf_size: int = LEAF_SIZE, any_hit: bool = False,
+                  max_steps: int = LINKED_MAX_STEPS):
+    """Launch K8 (``csrc/bvh2.cu``) on the current stream over ``tables``
+    (``linked_tables``); the rest as ``launch_stack``."""
+    if tables.tris is None:
+        raise ValueError("K8 takes triangle rows")
+    keep, ptrs, steps = _launch_args(tables, 12, ro, rd, active, t_max,
+                                     max_steps)
+    n = ro.shape[0]
+    t = torch.empty((n,), dtype=torch.float32, device=ro.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=ro.device)
+    if n == 0:
+        return t, idx
+    err = cuda_lib.lib().wpt_bvh_linked(
+        *ptrs, t.data_ptr(), idx.data_ptr(), n, tables.nodes.shape[0],
+        tables.tris.shape[0], int(leaf_size), int(bool(any_hit)), steps,
+        cuda_lib.stream_ptr(ro))
+    cuda_lib.check(err, "wpt_bvh_linked")
+    LinkedCounter.launches += 1
+    return t, idx
+
+
 def closest_hit_bvh_cuda(bvh_aabb, bvh_meta, tri_isect, ro, rd, active=None,
                          t_max=None, leaf_size: int = LEAF_SIZE,
                          stack_depth: int = STACK_DEPTH,
                          any_hit: bool = False,
                          max_steps: int = STACK_MAX_STEPS):
-    """Launch K7 (``csrc/bvh2.cu``) on the current stream."""
+    """Stage K7's tables (``stack_tables``) and launch it on the current
+    stream."""
     _check_bvh(bvh_aabb, bvh_meta, tri_isect, ro, rd, active, t_max)
-    return _stack_launch(bvh_aabb, bvh_meta, tri_isect, ro, rd, active,
-                         t_max, leaf_size, stack_depth, any_hit, max_steps,
-                         None)
+    return launch_stack(stack_tables(bvh_aabb, bvh_meta, tri_isect), ro, rd,
+                        active, t_max, leaf_size, stack_depth, any_hit,
+                        max_steps)
 
 
 def bvh_depth_cuda(bvh_aabb, bvh_meta, ro, rd, norm: float,
                    stack_depth: int = STACK_DEPTH,
                    max_steps: int = STACK_MAX_STEPS):
-    """Launch K7 in its depth mode on the current stream; returns the
-    normalized depth (N,)."""
+    """Stage K7's records and launch its depth mode on the current stream;
+    returns the normalized depth (N,)."""
     _check_bvh(bvh_aabb, bvh_meta, None, ro, rd, None, None)
-    depth, _ = _stack_launch(bvh_aabb, bvh_meta, None, ro, rd, None, None,
-                             0, stack_depth, False, max_steps, norm)
-    return depth
+    return launch_stack_depth(stack_tables(bvh_aabb, bvh_meta), ro, rd, norm,
+                              stack_depth, max_steps)
 
 
 def closest_hit_bvh_linked_cuda(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
@@ -489,22 +638,28 @@ def closest_hit_bvh_linked_cuda(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
                                 leaf_size: int = LEAF_SIZE,
                                 any_hit: bool = False,
                                 max_steps: int = LINKED_MAX_STEPS):
-    """Launch K8 (``csrc/bvh2.cu``) on the current stream."""
+    """Stage K8's tables (``linked_tables``) and launch it on the current
+    stream."""
     _check_bvh(bvh_aabb, bvh_nodes, tri_isect, ro, rd, active, t_max)
-    keep, ptrs, steps = _launch_args(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
-                                     active, t_max, max_steps)
-    n = ro.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=ro.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=ro.device)
-    if n == 0:
-        return t, idx
-    err = cuda_lib.lib().wpt_bvh_linked(
-        *ptrs, t.data_ptr(), idx.data_ptr(), n, bvh_aabb.shape[0],
-        tri_isect.shape[0], int(leaf_size), int(bool(any_hit)), steps,
-        cuda_lib.stream_ptr(ro))
-    cuda_lib.check(err, "wpt_bvh_linked")
-    LinkedCounter.launches += 1
-    return t, idx
+    return launch_linked(linked_tables(bvh_aabb, bvh_nodes, tri_isect), ro,
+                         rd, active, t_max, leaf_size, any_hit, max_steps)
+
+
+def bvh2_div(a, d):
+    """K7's and K8's division (``csrc/bvh2.cu`` div_by) on float32 CUDA
+    tensors of one shape, for its card test. Returns (div_by's quotients,
+    ``a / d`` as the same file computes it)."""
+    _need_cuda(a)
+    if a.dtype != torch.float32 or d.dtype != torch.float32 or (
+            a.shape != d.shape):
+        raise ValueError("a and d must be float32 tensors of one shape")
+    a, d = a.contiguous(), d.contiguous()
+    out, ieee = torch.empty_like(a), torch.empty_like(a)
+    if a.numel():
+        cuda_lib.check(cuda_lib.lib().wpt_bvh_div(
+            a.data_ptr(), d.data_ptr(), out.data_ptr(), ieee.data_ptr(),
+            a.numel(), cuda_lib.stream_ptr(a)), "wpt_bvh_div")
+    return out, ieee
 
 
 def _plain_on_cpu(x) -> None:
@@ -517,8 +672,8 @@ def closest_hit_bvh(bvh_aabb, bvh_meta, tri_isect, ro, rd, active=None,
                     stack_depth: int = STACK_DEPTH, any_hit: bool = False,
                     max_steps: int = STACK_MAX_STEPS):
     """The JAX ``closest_hit_bvh`` (the per-ray fixed stack, pt.wgsl:248-296):
-    K7 on CUDA tensors, its plain version on CPU tensors. Arguments and
-    result as ``closest_hit_bvh_plain``'s."""
+    K7 on CUDA tensors (its tables staged on the call), its plain version
+    on CPU tensors. Arguments and result as ``closest_hit_bvh_plain``'s."""
     if ro.device.type == "cuda":
         return closest_hit_bvh_cuda(bvh_aabb, bvh_meta, tri_isect, ro, rd,
                                     active, t_max, leaf_size, stack_depth,
@@ -534,7 +689,8 @@ def bvh_depth(bvh_aabb, bvh_meta, ro, rd, norm: float,
               stack_depth: int = STACK_DEPTH,
               max_steps: int = STACK_MAX_STEPS):
     """K7's depth mode (``bvh_depth_plain``) on (N, 3) rays: the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (its records staged on the call), the plain version on CPU
+    tensors."""
     if ro.device.type == "cuda":
         return bvh_depth_cuda(bvh_aabb, bvh_meta, ro, rd, norm, stack_depth,
                               max_steps)
@@ -549,8 +705,9 @@ def closest_hit_bvh_linked(bvh_aabb, bvh_nodes, tri_isect, ro, rd,
                            leaf_size: int = LEAF_SIZE, any_hit: bool = False,
                            max_steps: int = LINKED_MAX_STEPS):
     """The JAX ``closest_hit_bvh_linked`` (stackless, over the hit and miss
-    links): K8 on CUDA tensors, its plain version on CPU tensors. Arguments
-    and result as ``closest_hit_bvh_linked_plain``'s."""
+    links): K8 on CUDA tensors (its tables staged on the call), its plain
+    version on CPU tensors. Arguments and result as
+    ``closest_hit_bvh_linked_plain``'s."""
     if ro.device.type == "cuda":
         return closest_hit_bvh_linked_cuda(bvh_aabb, bvh_nodes, tri_isect,
                                            ro, rd, active, t_max, leaf_size,
@@ -577,6 +734,12 @@ REORDER_POS_BITS = 2
 REORDER_BUCKETS = 8 * 8 ** REORDER_POS_BITS
 REORDER_MIN_NODES = 128
 REORDER_MIN_LANES = 16384
+# The binary-BVH walks' own thresholds, in binary nodes: the sort, gathers
+# and scatters cost about 0.14 ms a 262,144-ray call on the H100, and on
+# the bounce-1 rays of boxes of 33 to 66,523 binary nodes the order paid K7
+# from 12,835 nodes (even at 8,943) and K8 from 19,603 (0.99x at 12,835;
+# PERF.md).
+BVH2_REORDER_MIN_NODES = {"stack": 12_000, "bvh": 19_000}
 # The compaction's tiers (the JAX package's COMPACT_DIVS and
 # COMPACT_TIER_MIN_LANES): n // div lanes, a tier of fewer than
 # COMPACT_TIER_MIN_LANES being skipped.
@@ -748,6 +911,10 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
       ``leaf_size`` triangles a leaf, as the JAX package's do. "auto" takes
       neither: the JAX package's choice of the linked walk for large scenes
       on its CPU backend is a habit of a TPU's host, not the card's.
+      Their kernels' tables (``stack_tables``, ``linked_tables``) are
+      staged here, once a scene, on the scene's device, and CUDA calls
+      launch the kernel over them (``launch_stack``, ``launch_linked``);
+      CPU calls take the plain version over the scene's own tables.
     * "walk": K3, or quietly K4 for a scene without walk tables.
       "walk_hbm", the JAX package's paged walk, computes the resident
       walk's function bit for bit; the port runs it as "walk" (K3) and
@@ -771,11 +938,12 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
 
     ``reorder`` marks incoherent rays (the bounce loops pass ``bounce_idx >
     0``, as the JAX package's do). Every strategy takes it. The walk, on a
-    tree of REORDER_MIN_NODES wide nodes or more, walks such a call's rays
-    in ``ray_order`` (``with_ray_order``). Every route to the pair dispatch
-    ("pairs", and "auto", "walk" and "phased" without walk tables) goes
-    through ``with_tail_compaction``, as the JAX package's does: sparse
-    calls on a compacted tier, bounce rays sorted.
+    tree of REORDER_MIN_NODES wide nodes or more, and the binary-BVH walks,
+    on one of BVH2_REORDER_MIN_NODES[intersector] binary nodes or more,
+    walk such a call's rays in ``ray_order`` (``with_ray_order``). Every route to the pair
+    dispatch ("pairs", and "auto", "walk" and "phased" without walk
+    tables) goes through ``with_tail_compaction``, as the JAX package's
+    does: sparse calls on a compacted tier, bounce rays sorted.
 
     Returns closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
     reorder=False) over SoA (3, N) origins and directions; its ``strategy``
@@ -798,22 +966,29 @@ def make_closest_hit(scene: dict, intersector: str = "auto",
         aabb, tri = scene["bvh_aabb"], scene["tri_isect"]
         if intersector == "stack":
             meta = scene["bvh_meta"]
+            staged, launch = stack_tables(aabb, meta, tri), launch_stack
 
-            def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                            reorder=False):
-                del reorder
-                return closest_hit_bvh(aabb, meta, tri, ro3.T, rd3.T, active,
+            def plain(ro, rd, active, t_max, any_hit):
+                return closest_hit_bvh(aabb, meta, tri, ro, rd, active,
                                        t_max, leaf_size, any_hit=any_hit)
         else:
             nodes = linked_nodes(scene["bvh_meta"], scene["bvh_links"])
+            staged, launch = linked_tables(aabb, nodes, tri), launch_linked
 
-            def closest_hit(ro3, rd3, active=None, t_max=None, any_hit=False,
-                            reorder=False):
-                del reorder
-                return closest_hit_bvh_linked(aabb, nodes, tri, ro3.T, rd3.T,
+            def plain(ro, rd, active, t_max, any_hit):
+                return closest_hit_bvh_linked(aabb, nodes, tri, ro, rd,
                                               active, t_max, leaf_size,
                                               any_hit=any_hit)
 
+        def bvh_hit(ro3, rd3, active=None, t_max=None, any_hit=False):
+            if ro3.device.type == "cuda":
+                return launch(staged, ro3.T, rd3.T, active, t_max, leaf_size,
+                              any_hit=any_hit)
+            return plain(ro3.T, rd3.T, active, t_max, any_hit)
+
+        big = aabb.shape[0] >= BVH2_REORDER_MIN_NODES[intersector]
+        closest_hit = with_ray_order(bvh_hit,
+                                     scene["root_box"] if big else None)
         strategy = intersector
     elif intersector == "brute" or (intersector == "auto"
                                   and num_tris <= brute_max_tris):
