@@ -147,8 +147,9 @@ and runs these phases, one line of output each:
    ``denoise()`` (launch counts: the guides' K1 and five K9) and
    ``image(denoise=True)``; K9 against its plain version at every level on
    the path's own inputs, bit for bit; the whole ``denoise()`` against its
-   plain path; K9's time a level beside its bound, the plain level's, the
-   whole filter's and ``denoise()``'s wall;
+   plain path; ptxas' report of K9; K9's time a level (each step) beside
+   its bound, the plain level's, the whole filter's and ``denoise()``'s
+   wall;
 17. adaptive sampling (``adaptive``): ``render_adaptive(64)`` on the
    flagship (launch counts, wall, Mrays/s; its ``render_adaptive(16)``
    image against its plain path on every pixel) and
@@ -177,8 +178,9 @@ and runs these phases, one line of output each:
    installed at a chunk boundary with the mean restarted;
 20. the 16-wide walk (``wide16``, run after phase 7 on its large box): the
    width-16 ("ffd") and the width-8 "slice" collapses of the large box built
-   in NumPy (seconds, nodes, groups, depth beside the "ffd" tree's); K3's
-   width-16 instantiation (``wpt_walk16``), and K3 on the slice tables,
+   in NumPy (seconds, nodes, groups, depth beside the "ffd" tree's);
+   ptxas' report of K3-w16 (``wpt_walk16``, a team of lanes a ray); K3-w16,
+   and K3 on the slice tables,
    against their plain versions on phase 7's camera, bounce-1 and shadow-0
    rays, bit for bit, and against width-8 K3 (lanes that differ, and
    whether each is an exact-t tie); device ms a call of the three trees in
@@ -1466,12 +1468,13 @@ def ray_cases(scene_np, scene, rays, state, t, idx):
     return args, kw, pout, cases
 
 
-def spine_tables(levels: int, dev) -> tuple:
-    """Walk tables of a binary spine, collapsed with ``pack="none"``: binary
-    node 2k holds triangle k as its left leaf and the rest of the spine as
-    its right child, so each wide node takes 7 single-triangle leaves and
-    the wide tree has ``levels`` interior levels or more. Triangle k lies
-    at x = k. Returns (the walk tables, the (T, 9) [v0, e1, e2] triangles)."""
+def spine_tables(levels: int, dev, width: int = 8) -> tuple:
+    """Walk tables of a binary spine, collapsed with ``pack="none"`` at
+    ``width``: binary node 2k holds triangle k as its left leaf and the rest
+    of the spine as its right child, so each wide node takes width - 1
+    single-triangle leaves and the tree at width 8 has ``levels`` interior
+    levels or more (at 16 about half as many). Triangle k lies at x = k.
+    Returns (the walk tables, the (T, 9) [v0, e1, e2] triangles)."""
     spine = 7 * levels + 128  # a subtree of <= 128 triangles is one group
     tris = np.zeros((spine + 1, 9), np.float32)
     tris[:, 0] = np.arange(spine + 1)
@@ -1488,7 +1491,8 @@ def spine_tables(levels: int, dev) -> tuple:
     amin.append(lo[spine])
     amax.append(hi[spine])
     wide = bvh8.build_wide_bvh(np.array(amin), np.array(amax),
-                               np.array(meta, np.int32), tris, pack="none")
+                               np.array(meta, np.int32), tris, pack="none",
+                               width=width)
     scene = {"walk_order": torch.from_numpy(wide.order).to(dev),
              "walk_boxes": torch.from_numpy(wide.boxes).to(dev),
              "walk_tris": torch.from_numpy(wide.tris).to(dev)}
@@ -2979,6 +2983,10 @@ def phase_denoise(dev, smi, report, profile: str | None = None):
     plain_filter_ms = eager_ms(lambda: filt(K9.atrous_level_plain), reps=3)
     n = SIZE * SIZE
     b = bound(ATROUS_BYTES * n, ATROUS_OPS * n)
+    for line in kernel_resources(cuda_lib.build_log()):
+        if "atrous_level_kernel" in line:
+            say("denoise", f"ptxas: {line}")
+            report["k9"]["ptxas"] = line
     say("denoise", "K9 device ms by level (step 1..16): "
         + ", ".join(f"{ms:.4f}" for ms in level_ms)
         + f"; bound {b['bound_ms']:.4f} ms a level ({b['bound_by']}); plain "
@@ -3779,6 +3787,12 @@ def phase_wide16(dev, smi, report, large: dict):
     scene_np, scene, w8 = large["scene_np"], large["scene"], large["tables"]
     nt = scene_np.num_triangles
     tri = scene["tri_isect"].cpu().numpy()[:nt]
+    for line in kernel_resources(cuda_lib.build_log()):
+        if "team_walk_kernel" in line:
+            say("wide16", f"ptxas: {line}; a team of {K3.TEAM} lanes a ray, "
+                f"its stack {K3.STACK_BYTES[16]} B of dynamic shared memory "
+                "a tree level a block")
+            report.setdefault("k3_w16", {})["ptxas"] = line
     args = (scene_np.bvh_aabb_min, scene_np.bvh_aabb_max, scene_np.bvh_meta,
             tri)
     trees = {}
@@ -4088,8 +4102,8 @@ def kernels_line(report: dict, complete: bool) -> list:
 
 def kernel_resources(log: str) -> list:
     """One line a compiled function from ptxas' ``-v`` report: its name
-    (demangled where ``c++filt`` is at hand), registers, stack frame and
-    spill bytes."""
+    (demangled where ``c++filt`` is at hand), registers, stack frame,
+    spill bytes and static shared memory."""
     entries, current = {}, None
     for line in log.splitlines():
         if "Function properties for " in line:
@@ -4103,6 +4117,8 @@ def kernel_resources(log: str) -> list:
         elif current and re.search(r"Used \d+ registers", line):
             entries[current]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[current]["smem"] = int(smem.group(1)) if smem else 0
     names = list(entries)
     demangle = shutil.which("c++filt")
     if demangle and names:
@@ -4113,7 +4129,8 @@ def kernel_resources(log: str) -> list:
     return [f"{name.replace('(anonymous namespace)::', '')}: "
             f"{e.get('registers', '-')} registers, {e.get('stack', '-')} B "
             f"stack frame, {e.get('spill_stores', '-')} B spill stores, "
-            f"{e.get('spill_loads', '-')} B spill loads"
+            f"{e.get('spill_loads', '-')} B spill loads, "
+            f"{e.get('smem', '-')} B static shared memory"
             for name, e in zip(names, entries.values())]
 
 

@@ -8,14 +8,17 @@ imports JAX; where JAX is not installed, run them with:
 On the card, K1 (csrc/dense_hit.cu), K2 (csrc/bounce.cu, untextured and
 in both texture modes, with and without its bounce-0 LDS instantiation,
 with and without its environment map's ENV instantiation),
-K3 (csrc/walk.cu, at width 8 and 16, and on the "slice" pack's tables), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
+K3 (csrc/walk.cu, at width 8 and 16, and on the "slice" pack's tables;
+at 16 a team of lanes a ray, also at ragged counts, on a deep tree and an
+empty one), K4 (csrc/pairs.cu), K5 (csrc/phased.cu, also on
 ragged counts, sparse and dead lanes, past one gate window, at other
 block sizes and with unordered slots), K6
 (csrc/cluster.cu), the phase 1 of K4 and K6 (csrc/blocks.cu, up to the
 sign of a zero), K7 and K8 (csrc/bvh2.cu: the binary-BVH walks over their
 staged records, K7 also in its depth mode and with an overflowing stack;
 their division against ``/``, a zero numerator's sign aside) and K9
-(csrc/atrous.cu, each level of the denoiser) must equal the plain versions bit for bit: both
+(csrc/atrous.cu, each level of the denoiser, and steps past the image's
+size) must equal the plain versions bit for bit: both
 round every float32 operation the same way (the kernels are built with
 -fmad=false and IEEE division and square root). So must the Renderer's
 "stack" and "bvh" renders, its debug views, ``denoise`` and
@@ -337,6 +340,64 @@ def test_wide_walk_kernel_equals_plain(dev, pack, width, mode):
                     dict(_masks(n, mode, dev, 5), num_tris=8000))
     assert K3.Counter.wide == before + (width == 16)
     assert (ki >= 0).any()
+
+
+def _w16_tables(sc, dev):
+    """``sc`` collapsed at width 16, as K3-w16 walks it."""
+    packed = pack_device_scene(sc)
+    wb = bvh8.build_wide_bvh(sc.bvh_aabb_min, sc.bvh_aabb_max, sc.bvh_meta,
+                             packed["tri_isect"][:sc.num_triangles],
+                             pack="ffd", width=16, prefer_native=False)
+    packed.update(walk_order=wb.order, walk_boxes=wb.boxes, walk_tris=wb.tris)
+    tables = K3.walk_tables(load_jax_scene(packed, dev))
+    assert tables.width == 16
+    return tables, packed
+
+
+@pytest.mark.parametrize("mode", ["closest", "masked", "any_hit"])
+@pytest.mark.parametrize("n", [1, 15, 17, 33, 3000])
+def test_team_walk_at_ragged_ray_counts(dev, n, mode):
+    """K3-w16 walks a ray with a team of lanes, a block holding
+    ``THREADS // TEAM`` rays: counts that fill no block, one ray, a block
+    and a ray, and a few thousand, on random_triangles(3000) from random
+    origins in every direction."""
+    tables, packed = _w16_tables(random_triangles(3000, seed=n), dev)
+    rng = np.random.default_rng(n + 7)
+    lo, hi = packed["bvh_aabb"][0, 0:3], packed["bvh_aabb"][0, 3:6]
+    o = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).T.astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    before = K3.Counter.wide
+    _walk_case(tables, o.contiguous().to(dev), d.to(dev),
+               dict(_masks(n, mode, dev, n), num_tris=3000))
+    assert K3.Counter.wide == before + 1
+
+
+@pytest.mark.parametrize("mode", ["closest", "masked", "any_hit"])
+def test_team_walk_on_a_deep_tree(dev, mode):
+    """A spine collapsed at width 16 into 15 wide levels: 14 stack entries
+    a team in shared memory."""
+    tables, tris = spine_tables(30, dev, width=16)
+    assert tables.width == 16 and tables.levels == 14
+    o, d = spine_rays(4096, len(tris), 4, dev)
+    ki = _walk_case(tables, o, d, _masks(4096, mode, dev, 6))
+    assert (ki >= 0).any()
+
+
+def test_team_walk_on_an_empty_scene(dev):
+    """A width-16 tree over no triangle: every lane misses."""
+    wb = bvh8.build_wide_bvh(np.zeros((1, 3), np.float32),
+                             np.zeros((1, 3), np.float32),
+                             np.zeros((1, 4), np.int32),
+                             np.zeros((0, 9), np.float32), width=16)
+    packed = dict(pack_device_scene(cornell_box()), walk_order=wb.order,
+                  walk_boxes=wb.boxes, walk_tris=wb.tris)
+    tables = K3.walk_tables(load_jax_scene(packed, dev))
+    assert tables.width == 16
+    rng = np.random.default_rng(9)
+    o = torch.from_numpy(rng.uniform(-1, 1, (3, 100)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(3, 100)).astype(np.float32))
+    ki = _walk_case(tables, o.to(dev), d.to(dev), {})
+    assert bool((ki == -1).all())
 
 
 def test_renderer_on_a_mesh_of_the_card(dev):
@@ -1109,6 +1170,34 @@ def test_atrous_kernel_equals_plain_at_every_level(dev):
         assert torch.equal(_bits(kc), _bits(pc)), i
         assert torch.equal(_bits(kv), _bits(pv)), i
         color, var = pc, pv
+
+
+@pytest.mark.parametrize("step", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("h, w", [(37, 53), (512, 512)])
+def test_atrous_kernel_equals_plain_at_every_step(dev, h, w, step):
+    """K9's tiles of the decimated grid at the denoiser's steps and past
+    the image's size (64 > 37, 53: a pixel a residue, every tap clamped),
+    on a ragged and a full-size image."""
+    rng = np.random.default_rng(h + step)
+    color = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32)
+                             * 3).to(dev)
+    normal = torch.from_numpy(rng.normal(size=(h, w, 3)).astype(
+        np.float32)).to(dev)
+    normal = normal / normal.norm(dim=-1, keepdim=True)
+    depth = torch.from_numpy(rng.uniform(1, 5, (h, w)).astype(
+        np.float32)).to(dev)
+    found = torch.from_numpy(rng.random((h, w)) > 0.2).to(dev)
+    var = torch.from_numpy(rng.random((h, w), dtype=np.float32)
+                           * 0.1).to(dev)
+    normal[~found] = 0.0
+    depth[~found] = 0.0
+    before = K9.Counter.launches
+    kc, kv = K9.atrous_level(color, normal, depth, found, var, step)
+    torch.cuda.synchronize()
+    assert K9.Counter.launches == before + 1
+    pc, pv = K9.atrous_level_plain(color, normal, depth, found, var, step)
+    assert torch.equal(_bits(kc), _bits(pc))
+    assert torch.equal(_bits(kv), _bits(pv))
 
 
 @pytest.mark.parametrize("kind", ["stack", "bvh"])

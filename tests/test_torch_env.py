@@ -33,6 +33,7 @@ from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.ops.vec import V3
 from wgpu_path_tracing_tpu_torch.utils import image as IMAGE
 from tests import oracle as ORACLE
+from tests import torch_png_cases as PNG
 
 torch.set_num_threads(1)
 F = np.float32
@@ -119,6 +120,44 @@ def test_load_env_image_equals_jax(kind, tmp_path):
         np.testing.assert_array_equal(got, env)
     with pytest.raises(ValueError):
         ENV.load_env_image(np.zeros((4, 4), F))
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("kind", sorted(PNG.KINDS))
+def test_load_env_image_png_kinds_equal_jax(kind, interlace, tmp_path):
+    """An LDR map of every PNG kind (``tests/torch_png_cases.py``: palette,
+    tRNS, gray + alpha, 1/2/4-bit, 16-bit, Adam7 at odd sizes and sizes
+    under 8): the port's ``load_env_image`` equals the JAX one (Pillow's
+    ``convert("RGB")``), and ``read_png`` equals ``convert("RGB") / 255``."""
+    from PIL import Image
+
+    for k, (h, w) in enumerate(PNG.SIZES):
+        path = tmp_path / f"{kind}_{k}.png"
+        path.write_bytes(PNG.case(kind, h, w, interlace, seed=10 + k))
+        got = ENV.load_env_image(str(path))
+        assert got.shape == (h, w, 3) and got.dtype == F
+        np.testing.assert_array_equal(got, JENV.load_env_image(str(path)))
+        with Image.open(path) as ref:
+            want = np.asarray(ref.convert("RGB"), F) / 255.0
+        np.testing.assert_array_equal(IMAGE.read_png(str(path)), want)
+
+
+def test_jpeg_env_map_raises_naming_the_file(tmp_path):
+    """A JPEG map raises ``NotImplementedError`` naming the file (the
+    package has no JPEG decoder yet), through ``load_env_image`` and the
+    ``Renderer``'s config."""
+    from PIL import Image
+
+    path = tmp_path / "sky.png"  # a JPEG whatever its name says
+    Image.new("RGB", (8, 4), (90, 140, 220)).save(path, "JPEG")
+    with pytest.raises(NotImplementedError, match="sky.png: JPEG"):
+        ENV.load_env_image(str(path))
+    jpg = tmp_path / "sky.jpg"
+    jpg.write_bytes(path.read_bytes())
+    r = Renderer(RenderConfig(width=8, height=8, env_map=str(jpg)),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="sky.jpg"):
+        r.load_scene(cornell_box())
 
 
 def test_disabled_map_is_bit_identical_to_no_map():

@@ -42,6 +42,7 @@ from wgpu_path_tracing_tpu_torch import (
 )
 from wgpu_path_tracing_tpu_torch.models import gltf as G
 from wgpu_path_tracing_tpu_torch.utils import image as IMAGE
+from tests import torch_png_cases as PNG
 
 torch.set_num_threads(1)
 
@@ -113,14 +114,45 @@ def test_decode_png_rgba_equals_pillow(mode, trns):
     np.testing.assert_array_equal(IMAGE.decode_png_rgba(data), want)
 
 
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("kind", sorted(PNG.KINDS))
+def test_decode_png_rgba_reads_every_kind_as_pillow(kind, interlace):
+    """Every bit depth of every colour type, with tRNS where the type takes
+    one, Adam7 or not, each row under another filter type, at odd sizes and
+    sizes under 8 (empty Adam7 passes): what ``Image.open(...).convert(
+    "RGBA")`` returns; and ``convert("RGB")`` is its RGB on each."""
+    for k, (h, w) in enumerate(PNG.SIZES):
+        data = PNG.case(kind, h, w, interlace, seed=k)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # Pillow on tRNS palettes
+            with Image.open(io.BytesIO(data)) as ref:
+                want = np.asarray(ref.convert("RGBA"))
+                rgb = np.asarray(ref.convert("RGB"))
+        np.testing.assert_array_equal(IMAGE.decode_png_rgba(data), want,
+                                      err_msg=f"{kind} {h}x{w}")
+        np.testing.assert_array_equal(rgb, want[..., :3])
+
+
 def test_decode_png_rgba_refuses_what_it_cannot_read():
-    sixteen = _pillow_png(Image.new("I;16", (4, 3)))
-    with pytest.raises(ValueError):
-        IMAGE.decode_png_rgba(sixteen)
-    plain = bytearray(_pillow_png(Image.new("RGB", (4, 3))))
-    plain[28] = 1  # IHDR's interlace method: Adam7
-    with pytest.raises(ValueError, match="interlace 1"):
-        IMAGE.decode_png_rgba(bytes(plain))
+    """16-bit (Pillow's "I;16", clipped at 255) and Adam7-interlaced PNGs
+    decode as Pillow decodes them; a bit depth the colour type does not
+    allow and a JPEG raise."""
+    rng = np.random.default_rng(11)
+    sixteen = rng.integers(0, 600, (3, 4)).astype(np.uint16)
+    data = _pillow_png(Image.fromarray(sixteen, "I;16"))
+    with Image.open(io.BytesIO(data)) as ref:
+        assert ref.mode == "I;16"
+        np.testing.assert_array_equal(IMAGE.decode_png_rgba(data),
+                                      np.asarray(ref.convert("RGBA")))
+    rgb = rng.integers(0, 256, (11, 6, 3))
+    data = PNG.write_png(rgb, 8, 2, interlace=1)
+    with Image.open(io.BytesIO(data)) as ref:
+        np.testing.assert_array_equal(IMAGE.decode_png_rgba(data),
+                                      np.asarray(ref.convert("RGBA")))
+    bad = bytearray(PNG.write_png(rgb, 8, 2))
+    bad[24] = 4  # IHDR's bit depth: 4-bit RGB does not exist
+    with pytest.raises(ValueError, match="bit depth 4, colour type 2"):
+        IMAGE.decode_png_rgba(bytes(bad))
     buf = io.BytesIO()
     Image.new("RGB", (8, 8), (200, 10, 10)).save(buf, "JPEG")
     with pytest.raises(NotImplementedError, match="wall.jpg: JPEG"):

@@ -397,10 +397,26 @@ def test_read_png_round_trips_the_writer_and_refuses_the_rest(tmp_path):
     image.write_png(str(path), img)
     want = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8) / np.float32(255)
     np.testing.assert_array_equal(image.read_png(str(path)), want)
-    for bad in (Image.new("I;16", (4, 4)), Image.new("P", (4, 4))):
-        bad.save(path)
-        with pytest.raises(ValueError):
-            image.read_png(str(path))
+    # 16-bit gray and palette files read as Pillow's convert("RGB") reads
+    # them; a JPEG and a bit depth the colour type does not allow raise.
+    rng = np.random.default_rng(5)
+    for im in (Image.fromarray(rng.integers(0, 600, (4, 5)).astype(
+            np.uint16), "I;16"),
+               Image.fromarray(rng.integers(0, 256, (4, 5, 3)).astype(
+                   np.uint8)).convert("P", palette=Image.ADAPTIVE, colors=7)):
+        im.save(path)
+        with Image.open(path) as ref:
+            rgb = np.asarray(ref.convert("RGB"), np.float32) / 255.0
+        np.testing.assert_array_equal(image.read_png(str(path)), rgb)
+    Image.new("RGB", (4, 4)).save(path, "JPEG")
+    with pytest.raises(NotImplementedError, match="a.png: JPEG"):
+        image.read_png(str(path))
+    Image.new("RGB", (4, 4)).save(path)
+    bad = bytearray(path.read_bytes())
+    bad[24] = 4  # IHDR's bit depth: 4-bit RGB does not exist
+    path.write_bytes(bytes(bad))
+    with pytest.raises(ValueError, match="bit depth 4"):
+        image.read_png(str(path))
 
 
 # --- procedural scenes and config ------------------------------------------------

@@ -16,12 +16,14 @@ JAX walk and the port's dense hit.
   8 ulp a unit of the hit's condition number of the JAX walk's.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_walk import _aimed_rays, _condition, _t_of
+from tests.test_torch_walk import CSRC, _aimed_rays, _condition, _t_of
 from wgpu_path_tracing_tpu.accel import bvh8 as JB
 from wgpu_path_tracing_tpu.accel import native as JNATIVE
 from wgpu_path_tracing_tpu.models import procedural as JP
@@ -246,9 +248,11 @@ def test_make_closest_hit_walks_width_16_tables(random_inputs):
 
 def test_kernel_wrapper_checks_the_nodes_per_width(random_inputs,
                                                    monkeypatch):
-    """A 32-bit stack entry holds the node beside a W-bit mask: the wrapper
-    refuses a tree with more nodes than fit, at each width."""
-    assert walk.MAX_NODES == {8: 1 << 24, 16: 1 << 16}
+    """At width 8 a 32-bit stack entry holds the node beside the 8-bit
+    mask; at 16 the team's stack holds the metas, so the int32 node ids
+    are the limit. The wrapper refuses a tree with more nodes, at each
+    width."""
+    assert walk.MAX_NODES == {8: 1 << 24, 16: 1 << 31}
     assert walk.LAUNCHERS == {8: "wpt_walk", 16: "wpt_walk16"}
     _, packed = _tables_of(random_inputs, "ffd", 16)
     tables = walk.walk_tables(load_jax_scene(packed, "cpu"))
@@ -256,6 +260,51 @@ def test_kernel_wrapper_checks_the_nodes_per_width(random_inputs,
     with pytest.raises(ValueError, match="wide nodes at width 16"):
         walk.closest_hit_walk_cuda(tables, torch.zeros((3, 8)),
                                    torch.ones((3, 8)))
+
+
+def test_team_walk_layout_and_its_stack_limit(random_inputs):
+    """K3-w16 walks a ray with TEAM lanes (``csrc/walk.cu`` kTeam), and its
+    stack is a team's 16 metas and entry distances a level: the wrapper
+    takes the most levels that shared memory holds at that size and
+    refuses one more, before it looks at the device."""
+    with open(f"{CSRC}/walk.cu") as f:
+        src = f.read()
+    team = int(re.search(r"constexpr int kTeam = (\d+);", src).group(1))
+    assert team == walk.TEAM and walk.WIDTHS[1] % team == 0
+    assert walk.STACK_BYTES == {8: 4 * walk.THREADS,
+                                16: (4 + 4) * 16 * walk.THREADS // team}
+    _, packed = _tables_of(random_inputs, "ffd", 16)
+    tables = walk.walk_tables(load_jax_scene(packed, "cpu"))
+    most = walk.SHARED_MAX // walk.STACK_BYTES[16]
+    rays = (torch.zeros((3, 8)), torch.ones((3, 8)))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        walk.closest_hit_walk_cuda(tables._replace(levels=most), *rays)
+    with pytest.raises(ValueError, match="stack"):
+        walk.closest_hit_walk_cuda(tables._replace(levels=most + 1), *rays)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_walk_counts_each_rays_visits(random_inputs, any_hit):
+    """``ray_visits`` (the lever tool's per-ray counts) leaves the answer as
+    it is; its interior and leaf counts sum to ``visits``' totals, every
+    ray pops at least the root, and a pop is a visit or a cull."""
+    _, packed = _tables_of(random_inputs, "ffd", 16)
+    tables = walk.walk_tables(load_jax_scene(packed, "cpu"))
+    ro, rd = _aimed_rays(packed, 300, 21)
+    o, d = torch.from_numpy(ro.T.copy()), torch.from_numpy(rd.T.copy())
+    kw = dict(t_max=torch.full((300,), 1e9), any_hit=True) if any_hit else {}
+    per_ray, totals = {}, {}
+    t, i = walk.closest_hit_walk_plain(tables, o, d, ray_visits=per_ray,
+                                       visits=totals, **kw)
+    t0, i0 = walk.closest_hit_walk_plain(tables, o, d, **kw)
+    assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
+    assert torch.equal(i, i0)
+    for key in ("interior", "leaf"):
+        assert per_ray[key].shape == (300,)
+        assert int(per_ray[key].sum()) == totals[key]
+    assert bool((per_ray["pops"] >= 1).all())
+    assert bool((per_ray["pops"] >= per_ray["interior"]
+                 + per_ray["leaf"]).all())
 
 
 def test_width_16_and_slice_skip_the_native_builder(random_inputs,

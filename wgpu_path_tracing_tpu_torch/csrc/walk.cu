@@ -1,6 +1,7 @@
 // K3: closest or any hit through the wide BVH (accel/bvh8.py tables), at
-// width 8 (wpt_walk) and 16 (wpt_walk16, the tables of
-// build_wide_bvh(width=16)): the fan-out W is a template parameter.
+// width 8 (wpt_walk, walk_kernel: a ray a thread, the design below) and 16
+// (wpt_walk16 on the tables of build_wide_bvh(width=16), team_walk_kernel:
+// a team of lanes a ray, described where it is defined).
 //
 // Replaces the TPU kernel wgpu_path_tracing_tpu/ops/walk.py::_walk_kernel
 // (entered through closest_hit_walk, which infers its width from the order
@@ -25,7 +26,7 @@
 // - A stack of one entry a tree level (Ylitie, Karras and Laine, HPG 2017),
 //   in shared memory: an interior visit makes one entry, node << W | the
 //   W-bit mask of the children it entered, in 32 bits (so at most 2^24
-//   nodes at width 8 and 65,536 at width 16, which the wrapper checks); the
+//   nodes at width 8, which the wrapper checks); the
 //   node being walked stays in registers and the entries of its ancestors
 //   that still hold children go to shared memory, fewer than the tree's
 //   depth (the wrapper sizes it from the tree's own depth). No local
@@ -240,6 +241,258 @@ __global__ void __launch_bounds__(kThreads)
   store_hit(t_out, idx_out, i, best_t, best_i, num_tris, live);
 }
 
+// ---------------------------------------------------------------------------
+// K3-w16: the width-16 walk, a team of kTeam lanes a ray.
+//
+// A 16-wide node is a half-warp's worth of children, and a leaf group holds
+// 16 sub-boxes: so kTeam lanes walk one ray together, lane j owning child
+// slots j, j + kTeam, ... (kSlots of them) of the node being walked and
+// sub-box j, j + kTeam, ... of a leaf. Every decision (the mask, the
+// stack, the limit, the best hit) is the same on all the team's lanes, so
+// the team's control flow is uniform and each *_sync names its lanes only;
+// the two or four teams of a warp follow their own rays.
+// - Interior visit: one coalesced team read of the node's metas (64 B) and
+//   boxes (512 B); each lane runs box_entry on its slots, and a ballot of
+//   the team gives interior_mask<16>'s bits. Each lane keeps its slots'
+//   meta and entry distance in registers, so the pop-time cull and the
+//   child's id are shuffles from the slot's lane, not a reload.
+// - Pops keep walk_kernel's order: k = 31 - clz(mask), highest slot first,
+//   a LIFO stack, the cull tn > lim against the live limit.
+// - The stack is one a team in shared memory, an entry a tree level below
+//   the root: each lane's slots' metas (0 for a slot no longer pending, so
+//   that a ballot gives the entry's mask back) and entry distances.
+// - Leaf visit: lane j gates sub-box j (and j + kTeam), a ballot gives the
+//   gate; the entered sub-clusters go kPair at a time, one to each group of
+//   kSubW lanes, one triangle slot a lane, through mt_early term for term;
+//   each group's (t, index) is reduced by shuffles with mt_records' rule
+//   (least t, ties to the lowest index, padding -1 and NaN no hit), and the
+//   groups merge into the best hit in ascending sub-cluster with a strict
+//   <, as walk_kernel's serial loop does; a pass in which no lane's t is
+//   below the best hit skips the reduction (it could change nothing).
+// Bound on the H100 by instruction issue and by the latency of each step's
+// dependent loads (PERF.md); the per-ray semantics are walk_kernel's above.
+constexpr int kTeam = 16;                    // lanes a ray
+constexpr int kSlots = kWideWidth / kTeam;   // child slots a lane
+constexpr int kTeams = kThreads / kTeam;     // rays a block
+constexpr int kGates = kSub / kTeam;         // sub-boxes a lane gates
+constexpr int kPair = kTeam / kSubW;         // sub-clusters tested at once
+static_assert(kTeam == 8 || kTeam == 16, "a team is 8 or 16 lanes");
+
+// The team's bits of a ballot over the warp, in its lanes' order.
+__device__ __forceinline__ unsigned team_ballot(unsigned tmask, int base,
+                                                bool pred) {
+  return (__ballot_sync(tmask, pred) >> base) & ((1u << kTeam) - 1u);
+}
+
+// The children of interior node `node` that the ray enters, as
+// interior_mask<16> gives them: bit k for slot k. Lane j's slots' metas and
+// entry distances go to meta[] and tn[].
+__device__ __forceinline__ unsigned team_interior(
+    const int* __restrict__ order, const float4* __restrict__ boxes,
+    int node, int oct, const Ray& r, float lim, int lane, unsigned tmask,
+    int base, int (&meta)[kSlots], float (&tn)[kSlots]) {
+  const size_t row = (static_cast<size_t>(node) * kOctants + oct) *
+                     kWideWidth;
+  unsigned mask = 0;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int k = s * kTeam + lane;
+    meta[s] = order[row + k];
+    const bool enter = box_entry(boxes + (row + k) * 2, r, lim, &tn[s]);
+    mask |= team_ballot(tmask, base, meta[s] != 0 && enter) << (s * kTeam);
+  }
+  return mask;
+}
+
+// mt_records' (t, index) rule as a total order: a strictly below b.
+__device__ __forceinline__ bool hit_below(float ta, int ia, float tb,
+                                          int ib) {
+  return ta < tb || (ta == tb && ia < ib);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    team_walk_kernel(const int* __restrict__ order,
+                     const float4* __restrict__ boxes,
+                     const float4* __restrict__ leaves,
+                     const float* __restrict__ ro,
+                     const float* __restrict__ rd,
+                     const bool* __restrict__ active,
+                     const float* __restrict__ t_max,
+                     float* __restrict__ t_out, int* __restrict__ idx_out,
+                     int n, int num_tris, int any_hit, int levels) {
+  // Entry e of team t's stack, slot k: [(e * kTeams + t) * 16 + k] of the
+  // metas, then of the entry distances.
+  extern __shared__ int stack_meta[];
+  float* stack_tn =
+      reinterpret_cast<float*>(stack_meta + levels * kTeams * kWideWidth);
+  const int lane = threadIdx.x & (kTeam - 1);
+  const int team = threadIdx.x / kTeam;
+  const int base = threadIdx.x & 31 & ~(kTeam - 1);
+  const unsigned tmask = ((1u << kTeam) - 1u) << base;
+  const int i = blockIdx.x * kTeams + team;
+  if (i >= n) return;  // the whole team: it shares i
+  const Ray r = load_ray(ro, rd, n, i);
+  const bool live = active == nullptr || active[i];
+  const float lim0 =
+      live ? (t_max == nullptr ? CUDART_INF_F : t_max[i]) : -CUDART_INF_F;
+  const int oct = (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) +
+                  (r.dz < 0.0f ? 4 : 0);
+
+  float best_t = CUDART_INF_F;
+  int best_i = -1;
+  float lim = lim0;
+  int sp = 0;
+  int meta[kSlots];
+  float tn[kSlots];
+  unsigned mask = 0;  // the root, entered at distance 0
+  if (!(0.0f > lim))
+    mask = team_interior(order, boxes, 0, oct, r, lim, lane, tmask, base,
+                         meta, tn);
+
+  while (true) {
+    if (mask == 0) {
+      if (sp == 0) break;
+      --sp;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int at = (sp * kTeams + team) * kWideWidth + s * kTeam + lane;
+        meta[s] = stack_meta[at];
+        tn[s] = stack_tn[at];
+        mask |= team_ballot(tmask, base, meta[s] != 0) << (s * kTeam);
+      }
+    }
+    const int k = 31 - __clz(mask);
+    mask &= ~(1u << k);
+    int mk = meta[0];
+    float tk = tn[0];
+#pragma unroll
+    for (int s = 1; s < kSlots; ++s) {
+      if (k / kTeam == s) {
+        mk = meta[s];
+        tk = tn[s];
+      }
+    }
+    const int m = __shfl_sync(tmask, mk, k & (kTeam - 1), kTeam);
+    if (__shfl_sync(tmask, tk, k & (kTeam - 1), kTeam) > lim)
+      continue;  // culled on the live limit
+    if (m > 0) {
+      int cmeta[kSlots];
+      float ctn[kSlots];
+      const unsigned inner = team_interior(order, boxes, m, oct, r, lim,
+                                           lane, tmask, base, cmeta, ctn);
+      if (inner != 0) {
+        if (mask != 0) {
+#pragma unroll
+          for (int s = 0; s < kSlots; ++s) {
+            const int slot = s * kTeam + lane;
+            const int at = (sp * kTeams + team) * kWideWidth + slot;
+            stack_meta[at] = (mask >> slot) & 1u ? meta[s] : 0;
+            stack_tn[at] = tn[s];
+          }
+          ++sp;
+        }
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          meta[s] = cmeta[s];
+          tn[s] = ctn[s];
+        }
+        mask = inner;
+      }
+      continue;
+    }
+    const float4* leaf =
+        leaves + static_cast<size_t>(-m - 1) * (kLeafFloats / 4);
+    unsigned gate = 0;
+#pragma unroll
+    for (int s = 0; s < kGates; ++s) {
+      float sub_tn;
+      const bool enter = box_entry(leaf + 2 * (s * kTeam + lane), r, lim,
+                                   &sub_tn);
+      gate |= team_ballot(tmask, base, enter) << (s * kTeam);
+    }
+    const float4* tris = leaf + kSub * kBoxFloats / 4;
+    const int group = lane / kSubW;  // which of the kPair sub-clusters
+    while (gate != 0) {
+      // The next kPair entered sub-clusters in ascending order; -1 where
+      // the gate runs out.
+      int c = -1;
+#pragma unroll
+      for (int q = 0; q < kPair; ++q) {
+        const int cq = gate != 0 ? __ffs(gate) - 1 : -1;
+        gate &= gate - 1;
+        if (group == q) c = cq;
+      }
+      float t = CUDART_INF_F;
+      int gi = 0x7fffffff;
+      if (c >= 0) {
+        const float4* p = tris + (c * kSubW + (lane & (kSubW - 1))) * 3;
+        const float4 a = p[0];
+        const float4 b = p[1];
+        const float4 e = p[2];
+        if (e.y >= 0.0f) {
+          const float tt = mt_early(r, a, b, e);  // NaN where no hit
+          if (tt == tt) {
+            t = tt;
+            gi = static_cast<int>(e.y);
+          }
+        }
+      }
+      // Only a t below the best hit can change it (the merge's strict <):
+      // most passes hold none, and skip the reduction.
+      if (__ballot_sync(tmask, t < best_t) == 0) continue;
+#pragma unroll
+      for (int off = kSubW / 2; off > 0; off /= 2) {
+        const float to = __shfl_xor_sync(tmask, t, off);
+        const int io = __shfl_xor_sync(tmask, gi, off);
+        if (hit_below(to, io, t, gi)) {
+          t = to;
+          gi = io;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kPair; ++q) {
+        const float tq = __shfl_sync(tmask, t, q * kSubW, kTeam);
+        const int iq = __shfl_sync(tmask, gi, q * kSubW, kTeam);
+        if (tq < best_t) {
+          best_t = tq;
+          best_i = iq;
+        }
+      }
+    }
+    if (any_hit) {
+      if (best_t < lim0) break;
+    } else {
+      lim = nan_min(best_t, lim0);
+    }
+  }
+
+  if (lane == 0) store_hit(t_out, idx_out, i, best_t, best_i, num_tris, live);
+}
+
+int launch_team_walk(const void* order, const void* boxes,
+                     const void* leaves, const void* ro, const void* rd,
+                     const void* active, const void* t_max, void* t_out,
+                     void* idx_out, int n, int num_tris, int any_hit,
+                     int levels, void* stream) {
+  const size_t shared = static_cast<size_t>(levels) * kTeams * kWideWidth *
+                        (sizeof(int) + sizeof(float));
+  if (shared > kDefaultShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        team_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (n + kTeams - 1) / kTeams;
+  team_walk_kernel<<<blocks, kThreads, shared,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(order), static_cast<const float4*>(boxes),
+      static_cast<const float4*>(leaves), static_cast<const float*>(ro),
+      static_cast<const float*>(rd), static_cast<const bool*>(active),
+      static_cast<const float*>(t_max), static_cast<float*>(t_out),
+      static_cast<int*>(idx_out), n, num_tris, any_hit, levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // levels: stack entries a thread (ops/walk.py::WalkTables.levels).
 template <int W>
 int launch_walk(const void* order, const void* boxes, const void* leaves,
@@ -282,7 +535,6 @@ extern "C" int wpt_walk16(const void* order, const void* boxes,
                           const void* active, const void* t_max, void* t_out,
                           void* idx_out, int n, int num_tris, int any_hit,
                           int levels, void* stream) {
-  return launch_walk<kWideWidth>(order, boxes, leaves, ro, rd, active, t_max,
-                                 t_out, idx_out, n, num_tris, any_hit, levels,
-                                 stream);
+  return launch_team_walk(order, boxes, leaves, ro, rd, active, t_max, t_out,
+                          idx_out, n, num_tris, any_hit, levels, stream);
 }

@@ -217,10 +217,14 @@ def _check_level(color, normal, depth, found, var) -> None:
 def atrous_level_cuda(color, normal, depth, found, var, step: int, *,
                       sigma_normal: float = 128.0, sigma_depth: float = 1.0,
                       sigma_lum: float = 4.0):
-    """Launch K9 (``csrc/atrous.cu``) on the current stream."""
+    """Launch K9 (``csrc/atrous.cu``) on the current stream: a block a
+    16x16 tile of the pixels that share one residue (y mod step, x mod
+    step), its halo staged in shared memory once."""
     _check_level(color, normal, depth, found, var)
     if color.device.type != "cuda":
         raise ValueError("atrous_level_cuda needs CUDA tensors")
+    if int(step) < 1:
+        raise ValueError(f"the tap spacing must be 1 or more, got {step}")
     h, w = depth.shape
     keep = [x.contiguous() for x in (color, normal, depth, found, var)]
     out = torch.empty_like(keep[0])

@@ -41,10 +41,12 @@ encoding) is not carried over.
 The kernel reads the leaf groups as the records of ``leaf_records`` (one
 more device table, copied from ``walk_tris`` once a scene by
 ``walk_tables``) and keeps one stack entry a tree level in shared memory,
-``WalkTables.levels`` a thread (``csrc/walk.cu``, one instantiation a
-width: ``wpt_walk`` at 8, ``wpt_walk16`` at 16). The plain version reads
-``walk_tris`` as the JAX package lays it out, with a stack of one entry a
-pushed child.
+``WalkTables.levels`` of them a ray (``csrc/walk.cu``, one kernel a width:
+``wpt_walk`` at 8 walks a ray a thread, with a 4-byte entry ``node << 8 |
+mask``; ``wpt_walk16`` at 16 walks a ray with a team of TEAM lanes, whose
+entry is the 16 slots' metas and entry distances, 128 bytes). The plain
+version reads ``walk_tris`` as the JAX package lays it out, with a stack of
+one entry a pushed child.
 
 On a CUDA tensor ``closest_hit_walk`` launches ``csrc/walk.cu``; on a CPU
 tensor it runs ``closest_hit_walk_plain``. There is no fallback between the
@@ -83,15 +85,20 @@ TINY = 1e-30  # stands in for a zero direction component before 1/d
 BOX_FLOATS = 8
 TRI_FLOATS = 12
 LEAF_FLOATS = SUB * BOX_FLOATS + LEAF_SLOTS * TRI_FLOATS
-# Threads a block (csrc/walk.cu kThreads), and the shared memory one block
-# may hold on the H100: the stack's entries, 4 bytes each (node << W |
-# mask), a thread, must fit.
+# Threads a block (csrc/walk.cu kThreads), the lanes that walk one ray at
+# width 16 (kTeam), and the shared memory one block may hold on the H100:
+# the stack's entries must fit, STACK_BYTES a tree level a block (at width
+# 8 one 4-byte entry, node << 8 | mask, a thread; at 16 a team's 16 metas
+# and 16 entry distances, 4 bytes each, a ray).
 THREADS = 256
+TEAM = 16
 SHARED_MAX = 232_448
-# The kernel's entry point for each width, and the node ids that fit beside
-# a W-bit mask in a 32-bit stack entry.
+STACK_BYTES = {8: 4 * THREADS, 16: 8 * WIDTHS[1] * (THREADS // TEAM)}
+# The kernel's entry point for each width, and the nodes it can address:
+# at width 8 the node ids that fit beside the 8-bit mask in a 32-bit stack
+# entry; at 16 the int32 ids of walk_order (the stack holds the metas).
 LAUNCHERS = {8: "wpt_walk", 16: "wpt_walk16"}
-MAX_NODES = {w: 1 << (32 - w) for w in WIDTHS}
+MAX_NODES = {8: 1 << 24, 16: 1 << 31}
 
 
 class Counter:
@@ -178,10 +185,14 @@ def slab_entry(box, ox, oy, oz, ix, iy, iz, lim):
 
 def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
                            t_max=None, num_tris: int | None = None,
-                           any_hit: bool = False, visits: dict | None = None):
+                           any_hit: bool = False, visits: dict | None = None,
+                           ray_visits: dict | None = None):
     """Plain PyTorch K3 on any device: one DFS stack per ray, as (N, S)
     tensors, and a loop that pops one entry on every lane with work until
-    no lane has any. ``visits``, where given, gains the work the walk did,
+    no lane has any. ``ray_visits``, where given, gains each ray's own
+    counts as (N,) int64 tensors: "pops" (stack entries taken, the kernel's
+    loop steps, culled ones too), "interior" and "leaf" visits. ``visits``,
+    where given, gains the work the walk did,
     summed over the rays: "interior" and "leaf" visits, the "children"
     slab-tested on interior visits (non-empty slots), the "sub_boxes"
     gated on leaf visits (sub-clusters that hold a triangle), the
@@ -207,6 +218,10 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
     sp = torch.ones((n,), dtype=torch.long, device=dev)  # the root, tn 0
     width = tables.width
     slots = torch.arange(width, device=dev)
+    if ray_visits is not None:
+        for key in ("pops", "interior", "leaf"):
+            ray_visits.setdefault(key, torch.zeros(n, dtype=torch.long,
+                                                   device=dev))
     if visits is not None:  # triangles each sub-cluster holds, (Ng, SUB)
         filled = (tables.tris.view(-1, GROUP_ROWS, LEAF_SLOTS)[:, 9]
                   .view(-1, SUB, SUB_W) >= 0.0).sum(dim=2)
@@ -219,6 +234,8 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
         sp[lanes] = top
         node = stack_node[lanes, top]
         keep = ~(stack_tn[lanes, top] > lim[lanes])
+        if ray_visits is not None:
+            ray_visits["pops"][lanes] += 1
         lanes, node = lanes[keep], node[keep]
         inner = node >= 0
 
@@ -241,6 +258,9 @@ def closest_hit_walk_plain(tables: WalkTables, ro3, rd3, active=None,
         # entered ones, one (lane, sub-cluster) pair per row.
         ll = lanes[~inner]
         group = -node[~inner].long() - 1
+        if ray_visits is not None:
+            ray_visits["interior"][il] += 1
+            ray_visits["leaf"][ll] += 1
         if visits is not None:
             _count(visits, interior=il.numel(), leaf=ll.numel(),
                    children=full.sum(), sub_boxes=(filled[group] > 0).sum())
@@ -343,10 +363,11 @@ def _check_kernel_tables(tables: WalkTables) -> None:
     if tables.order.shape[0] > limit:
         raise ValueError(f"K3 takes at most {limit} wide nodes at width "
                          f"{tables.width}")
-    if not 1 <= tables.levels <= SHARED_MAX // (4 * THREADS):
+    most = SHARED_MAX // STACK_BYTES[tables.width]
+    if not 1 <= tables.levels <= most:
         raise ValueError(
             f"the wide BVH needs {tables.levels} stack entries a ray; K3's "
-            f"shared memory holds 1 to {SHARED_MAX // (4 * THREADS)}")
+            f"shared memory holds 1 to {most} at width {tables.width}")
 
 
 def closest_hit_walk_cuda(tables: WalkTables, ro3, rd3, active=None,

@@ -194,8 +194,15 @@ def read_exr(path: str) -> np.ndarray:
     return out
 
 
-# PNG colour types this reader takes: 8-bit gray, RGB and RGBA.
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+# Channels a pixel by PNG colour type (gray, RGB, palette, gray + alpha,
+# RGBA), and the bit depths the PNG standard allows each (PNG spec 11.2.2).
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# The seven passes of Adam7 interlacing (PNG spec 8.2): first column, first
+# row, column step, row step.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -259,55 +266,98 @@ def _png_chunks(data: bytes, name: str):
     return header, b"".join(idat), chunks.get(b"PLTE"), chunks.get(b"tRNS")
 
 
-def _png_pixels(header, idat: bytes, channels: int) -> np.ndarray:
-    w, h = header[0], header[1]
-    pixels = _unfilter(zlib.decompress(idat), h, w * channels, channels)
-    return pixels.reshape(h, w, channels)
+def _unpack_samples(rows: np.ndarray, w: int, depth: int,
+                    ch: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) -> the samples (h, w, ch) as uint16:
+    sub-byte samples from the high bits of each byte down, 16-bit ones
+    big-endian."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch).astype(np.uint16)
+    if depth == 16:
+        pairs = rows[:, :2 * w * ch].reshape(h, w, ch, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint16)
+    return (bits.astype(np.uint16) * weights).sum(axis=2, dtype=np.uint16)[
+        ..., None]
+
+
+def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
+    """The image's samples (h, w, channels) uint16 at its own bit depth,
+    each Adam7 pass (PNG spec 8.2) unfiltered on its own and put in place."""
+    w, h, depth, ctype, _, _, interlace = header
+    ch = _PNG_CHANNELS[ctype]
+    bits = depth * ch
+    bpp = max(1, bits // 8)  # the filters' byte distance (PNG spec 9.2)
+    raw = zlib.decompress(idat)
+    out = np.zeros((h, w, ch), np.uint16)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw == 0 or ph == 0:
+            continue  # an empty pass has no rows, not even filter bytes
+        stride = (pw * bits + 7) // 8
+        size = ph * (1 + stride)
+        if pos + size > len(raw):
+            raise ValueError(f"{name}: the image data is {len(raw)} bytes, "
+                             "too short for its header")
+        rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _unpack_samples(rows, pw, depth, ch)
+        pos += size
+    return out
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit gray, RGB or RGBA non-interlaced PNG -> (H, W, 3)
-    float32 RGB in [0, 1] (gray replicated, alpha dropped), as the JAX
-    package's Pillow reader returns it."""
+    """Read a PNG -> (H, W, 3) float32 RGB in [0, 1], as the JAX package's
+    Pillow reader returns it (``Image.open(path).convert("RGB") / 255``):
+    the RGB of ``decode_png_rgba``, whose rules are Pillow's for every bit
+    depth, colour type and interlace method. A JPEG raises
+    ``NotImplementedError`` naming the file."""
     with open(path, "rb") as f:
         data = f.read()
-    header, idat, _, _ = _png_chunks(data, path)
-    _, _, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit gray, RGB and RGBA "
-                         "non-interlaced PNGs are supported")
-    ch = _PNG_CHANNELS[ctype]
-    pixels = _png_pixels(header, idat, ch)
-    rgb = np.repeat(pixels, 3, axis=2) if ch == 1 else pixels[..., :3]
-    return rgb.astype(np.float32) / 255.0
+    return decode_png_rgba(data, path)[..., :3].astype(np.float32) / 255.0
 
 
-# Channels a pixel by PNG colour type: gray, RGB, palette, gray + alpha,
-# RGBA.
-_PNG_RGBA_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+def _gray_to_8bit(s: np.ndarray, depth: int) -> np.ndarray:
+    """Gray samples as Pillow opens them and converts them to 8 bits: a
+    1-bit image is 0 or 255 (mode "1"), 2- and 4-bit ones are scaled (x85,
+    x17), a 16-bit one (mode "I;16") is clipped at 255, not shifted."""
+    if depth == 16:
+        return np.minimum(s, 255).astype(np.uint8)
+    return (s * (255 // ((1 << depth) - 1))).astype(np.uint8)
 
 
 def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
     """PNG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
-    ``Image.open(...).convert("RGBA")`` returns for 8-bit non-interlaced
-    gray, RGB, palette, gray + alpha and RGBA images: gray replicated, a
-    palette looked up, alpha from the image, from ``tRNS`` (a palette's
-    per-entry alphas; the one transparent gray value or RGB colour), else
-    255. 16-bit, sub-byte and interlaced PNGs raise ``ValueError``; a JPEG
-    raises ``NotImplementedError`` naming ``name``."""
+    ``Image.open(...).convert("RGBA")`` returns, for every bit depth (1, 2,
+    4, 8, 16) of every colour type the PNG standard allows it, interlaced
+    (Adam7) or not. Pillow's rules, copied as it applies them:
+
+    * gray: 1-bit 0 or 255, 2- and 4-bit scaled, 8-bit as it is, 16-bit
+      clipped at 255; RGB, gray + alpha and RGBA at 16 bits keep each
+      sample's high byte;
+    * a palette is looked up (entries past PLTE are black), with ``tRNS``
+      alphas for its first entries;
+    * ``tRNS`` of a gray or RGB image makes alpha 0 where the 8-bit value
+      equals the chunk's value as the file stores it (at 16 bits, and at 2
+      and 4 bits, against the converted sample; at 1 bit any non-zero value
+      means 255), else alpha is 255.
+
+    Other combinations raise ``ValueError``; a JPEG raises
+    ``NotImplementedError`` naming ``name``."""
     if data[:2] == b"\xff\xd8":
         raise NotImplementedError(
-            f"{name}: JPEG textures are not supported (no JPEG decoder in "
-            "this package); convert the image to PNG")
+            f"{name}: JPEG images are not supported (this package has no "
+            "JPEG decoder yet: ROADMAP.md A.1); convert the image to PNG")
     header, idat, plte, trns = _png_chunks(data, name)
     _, _, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_RGBA_CHANNELS or interlace != 0:
-        raise ValueError(f"{name}: only 8-bit non-interlaced PNGs are "
-                         f"supported (bit depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace})")
-    px = _png_pixels(header, idat, _PNG_RGBA_CHANNELS[ctype])
-    h, w = px.shape[0], px.shape[1]
-    out = np.full((h, w, 4), 255, np.uint8)
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace not in (0, 1):
+        raise ValueError(f"{name}: not a valid PNG header (bit depth "
+                         f"{depth}, colour type {ctype}, interlace "
+                         f"{interlace})")
+    s = _png_samples(header, idat, name)
+    h, w = s.shape[0], s.shape[1]
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{name}: palette PNG without a PLTE chunk")
@@ -318,19 +368,26 @@ def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
         if trns is not None:
             alpha = np.frombuffer(trns, np.uint8)[:256]
             table[:len(alpha), 3] = alpha
-        return table[px[..., 0]]
-    if ctype in (0, 4):
-        out[..., :3] = px[..., :1]
-        if ctype == 4:
-            out[..., 3] = px[..., 1]
-        elif trns is not None and len(trns) >= 2:
-            (gray,) = struct.unpack(">H", trns[:2])
-            out[..., 3] = np.where(px[..., 0] == gray, 0, 255)
+        return table[s[..., 0]]
+    out = np.full((h, w, 4), 255, np.uint8)
+    if ctype == 0:
+        gray = _gray_to_8bit(s[..., 0], depth)
+        out[..., :3] = gray[..., None]
+        if trns is not None and len(trns) >= 2:
+            (key,) = struct.unpack(">H", trns[:2])
+            if depth == 1:
+                key = 255 if key else 0
+            out[..., 3] = np.where(gray.astype(np.int32) == key, 0, 255)
         return out
-    out[..., :px.shape[2]] = px
+    s8 = (s >> 8 if depth == 16 else s).astype(np.uint8)
+    if ctype == 4:
+        out[..., :3] = s8[..., :1]
+        out[..., 3] = s8[..., 1]
+        return out
+    out[..., :s8.shape[2]] = s8  # RGB or RGBA
     if ctype == 2 and trns is not None and len(trns) >= 6:
         key = np.array(struct.unpack(">HHH", trns[:6]))
-        out[..., 3] = np.where((px == key).all(-1), 0, 255)
+        out[..., 3] = np.where((s8 == key).all(-1), 0, 255)
     return out
 
 
