@@ -34,7 +34,10 @@ and runs these phases, one line of output each:
    counts in that run, the image finite and equal to the plain path's image
    of the same frames on every pixel, the wall time and Mrays/s; then
    the same box with ``intersector="walk"`` forced for a few spp, and the
-   count of pixels where its image differs from the K1 path's; then the
+   count of pixels where its image differs from the K1 path's; the
+   flagship at 64x64 x 8 spp under ``bounce_kernel="auto"``, ``"pallas"``
+   and ``"xla"`` (K2 launches 64, 64 and 0), the three images equal on
+   every pixel; then the
    textured path: the three textured boxes of phase 4 through the same
    entry points, each 512x512 x 64 spp (``stats()["texture"]`` must read
    "fat", "fat" and "per_slot"), their launch counts, cold and repeated
@@ -111,7 +114,14 @@ and runs these phases, one line of output each:
    ``cornell_box()`` renders 3 chunks: the atrium installed at the second
    chunk's start with the mean restarted there (its two chunks equal to a
    fresh render of the same frames), and a failed async load raising from
-   its future and at the next render;
+   its future and at the next render; then the JPEG reader on this host:
+   the small JPEGs under ``tests/jpeg`` array-equal to their Pillow decode
+   (``pillow_rgba.npz``), the 1024^2 and 2048^2 4:2:0 files' decode
+   seconds (their SHA-256 against Pillow's), and
+   ``textured_cornell(tessellation=12)`` with those JPEGs as its textures,
+   written to a .gltf and loaded by ``load_model`` (the walk, the fat
+   canvas), 256x256 x 8 spp with its launches, and its 1-spp image
+   against the plain path's;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -199,7 +209,20 @@ and runs these phases, one line of output each:
    its plain path), a checkpoint resume (4 + 4 spp against 8 in one go,
    bit for bit) and a padded tail (5 spp); ``cli.main render cornell
    --multichip`` against the ``Renderer``'s PNG; and ``devices=True`` on
-   this host (one card: the single-device path).
+   this host (one card: the single-device path);
+22. the JAX package's large scenes (``big``, its bench config 7):
+   ``cornell_box(tessellation=150, 243, 345)``, 765,002, 2,007,668 and
+   4,046,852 triangles, through the ``Renderer`` on the routes of
+   ``BIG_ROUTES`` (765k and 2M under "auto" at 128x128, 8 spp,
+   ``frames_per_trace=8``; 2M under "pairs" at 2 spp; 4M under "pairs"
+   and under "auto" at 64x64, 1 spp): the strategy each took, the scene's
+   and ``load_scene``'s seconds, the launches, peak device memory and the
+   median of 3 renders after a warm-up in Mrays/s; at each size K2, K3 and
+   K4 (the kernels of its routes) on 16,384-ray subsets of the 512x512
+   camera rays, their bounce-1 rays and shadow-0 rays against their plain
+   versions, bit for bit, and K3's and K4's device ms a call of 262,144
+   rays beside the bound from the plain visits, scaled; at 765k and 2M the
+   walk route's 64x64, 1-spp, 1-bounce image against the plain path's.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -225,13 +248,16 @@ gltf,env`` runs the scene-loading and environment-map phases alone
 phases of the binary-BVH walks, the debug views, the denoiser and adaptive
 sampling; ``--phases native,cli`` the scene-prep library and the command
 line (about 60 s after the build); ``--phases wide16,shard`` the 16-wide
-walk and multi-device rendering.
+walk and multi-device rendering; ``--phases big`` the large scenes (about
+230 s).
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
+import hashlib
 import functools
 import json
 import math
@@ -241,6 +267,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -328,6 +355,9 @@ ORDERED_TESSELLATION = 30
 DISPATCH_SPP = 2  # the "phased" and "cluster" renders
 DISPATCH_PLAIN_SPP = 1  # frames of their plain-path comparisons
 FORCED_WALK_SPP = 4  # the flagship box through the walk
+# The flagship under each RenderConfig.bounce_kernel.
+BOUNCE_KERNEL_SIZE = 64
+BOUNCE_KERNEL_SPP = 8
 # The rng modes: the stratified flagship renders SPP frames (its plain path
 # too); "hash", frames_per_trace and the checkpoint fewer.
 HASH_SPP = 8
@@ -1183,14 +1213,17 @@ def plain_closest_hit(scene: dict, strategy: str):
     return closest_hit
 
 
-def plain_render(r: Renderer, spp: int) -> np.ndarray:
+def plain_render(r: Renderer, spp: int, repack: bool = True) -> np.ndarray:
     """The frames ``r.render(spp)`` draws after a reset, through the plain
     versions on ``r``'s device: ``ops/trace.py``'s bounce loop and the plain
     version of the intersector ``r`` picked, so no kernel launches, with
-    ``r``'s environment map where it has one. Returns (H, W, 3) like
-    ``render``."""
+    ``r``'s environment map where it has one. The scene is packed and
+    uploaded anew, or with ``repack=False`` (scenes of millions of
+    triangles, whose packing takes seconds) taken as ``r`` uploaded it.
+    Returns (H, W, 3) like ``render``."""
     cfg, dev = r.config, r.device
-    scene = load_jax_scene(pack_device_scene(r.scene), dev)
+    scene = (load_jax_scene(pack_device_scene(r.scene), dev) if repack
+             else dict(r._scene_dev))
     for key in ("env", "env_params"):  # the environment map, where set
         if key in r._scene_dev:
             scene[key] = r._scene_dev[key]
@@ -1311,18 +1344,19 @@ def counted_render(r: Renderer, spp: int, report: dict, path: str,
     return hdr, secs
 
 
-def repeat_renders(r: Renderer, spp: int, rays: int, path: str, smi: str):
-    """REPEATS more renders of the same frames (the wall clock of one render
-    moves with the host); returns (median, quartiles, walls)."""
+def repeat_renders(r: Renderer, spp: int, rays: int, path: str, smi: str,
+                   repeats: int = REPEATS):
+    """``repeats`` more renders of the same frames (the wall clock of one
+    render moves with the host); returns (median, quartiles, walls)."""
     walls = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         r.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r.render(spp=spp, fetch=False)
         walls.append(time.perf_counter() - t0)
     q1, med, q3 = np.percentile(walls, [25, 50, 75])
-    say(path, f"{REPEATS} more renders of the same {spp} spp: wall median "
+    say(path, f"{repeats} more renders of the same {spp} spp: wall median "
         f"{med:.4f} s (quartiles {q1:.4f}, {q3:.4f}; min {min(walls):.4f}, "
         f"max {max(walls):.4f}), {rays / med / 1e6:.3f} Mrays/s at the median "
         f"({rays / q3 / 1e6:.3f} and {rays / q1 / 1e6:.3f} at the quartiles) "
@@ -1335,12 +1369,14 @@ def pixels_differing(a: np.ndarray, b: np.ndarray) -> int:
     return int((a.view(np.uint32) != b.view(np.uint32)).any(-1).sum())
 
 
-def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str):
-    """The plain path's image of the same frames against the kernels',
-    which must be equal on every pixel; returns the plain wall seconds."""
+def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str,
+                  repack: bool = True):
+    """The plain path's image of the same frames (``plain_render``) against
+    the kernels', which must be equal on every pixel; returns the plain
+    wall seconds."""
     launched = launch_counts()
     t0 = time.perf_counter()
-    hdr_plain = plain_render(r, spp)
+    hdr_plain = plain_render(r, spp, repack)
     plain_secs = time.perf_counter() - t0
     if launch_counts() != launched:
         raise AssertionError("the plain path launched a kernel")
@@ -1405,6 +1441,26 @@ def phase_main(dev, smi, report, profile: str | None):
     if pixels > 0.001 * SIZE * SIZE:
         raise AssertionError("the walk and the dense hit disagree on more "
                              "than 0.1% of the flagship's pixels")
+
+    # The bounce loop by name (RenderConfig.bounce_kernel): "pallas" is K2
+    # as "auto" is, "xla" the plain bounce loop with no K2 launch; the
+    # three images equal on every pixel.
+    images = {}
+    for kernel in ("auto", "pallas", "xla"):
+        b = Renderer(RenderConfig(width=BOUNCE_KERNEL_SIZE,
+                                  height=BOUNCE_KERNEL_SIZE,
+                                  bounce_kernel=kernel), device="cuda")
+        b.load_scene(cornell_box())
+        images[kernel], _ = counted_render(
+            b, BOUNCE_KERNEL_SPP, report, f"bounce_kernel_{kernel}",
+            expect(k1=2 * MAX_BOUNCES * BOUNCE_KERNEL_SPP,
+                   k2=0 if kernel == "xla" else MAX_BOUNCES
+                   * BOUNCE_KERNEL_SPP))
+    for kernel in ("pallas", "xla"):
+        same_image(images[kernel], images["auto"],
+                   f"bounce_kernel={kernel!r} at {BOUNCE_KERNEL_SIZE}x"
+                   f"{BOUNCE_KERNEL_SIZE} x {BOUNCE_KERNEL_SPP} spp against "
+                   "'auto'", "main")
 
 
 def phase_textured(dev, smi, report, profile: str | None):
@@ -2126,6 +2182,206 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
                         "plain_seconds": plain_secs}
 
 
+# The JAX package's bench config 7 (bench.py:381-431): the tessellated box
+# at 765,002, 2,007,668 and 4,046,852 triangles, each route as (label,
+# tessellation, intersector, the strategy it must report, image size, spp,
+# frames_per_chunk, frames_per_trace).
+BIG_ROUTES = (
+    ("765k", 150, "auto", "walk", 128, 8, 8, 8),
+    ("2M", 243, "auto", "walk", 128, 8, 8, 8),
+    ("2M_pairs", 243, "pairs", "pairs", 128, 2, 2, 2),
+    ("4M_pairs", 345, "pairs", "pairs", 64, 1, 1, 1),
+    ("4M", 345, "auto", "walk", 64, 1, 1, 1),
+)
+BIG_REPEATS = 3
+# The whole-image check of the walk routes at 765k and 2M: 64x64, 1 spp,
+# 1 bounce (the camera and shadow-0 calls: the plain walk takes 5-10 s a
+# call of bounce rays there, which the subsets hold instead).
+BIG_PLAIN_TESSELLATIONS = (150, 243)
+BIG_PLAIN_SIZE = 64
+BIG_PLAIN_BOUNCES = 1
+BIG_RAYS = SIZE  # the kernels' timed calls: 512 x 512 camera rays
+BIG_SUBSET_BLOCKS = 16  # of 1,024 lanes, evenly spaced: 16,384 rays
+BIG_TIME_REPS = 3
+
+
+def big_subset(n: int, dev) -> torch.Tensor:
+    """BIG_SUBSET_BLOCKS whole blocks of 1,024 lanes (K4's ray block),
+    evenly spaced over ``n`` lanes: the rays each kernel is held to its
+    plain version on, whose plain visit counts scale to the full call."""
+    step = n // (BIG_SUBSET_BLOCKS * K4.BN)
+    starts = torch.arange(BIG_SUBSET_BLOCKS, device=dev) * step * K4.BN
+    return (starts[:, None] + torch.arange(K4.BN, device=dev)).reshape(-1)
+
+
+def scaled(visits: dict, factor: float) -> dict:
+    return {k: v * factor for k, v in visits.items()}
+
+
+def big_kernels(label: str, r: Renderer, keys: set, report: dict) -> dict:
+    """K2 and the kernels ``keys`` names ("k3", "k4") on the 512x512 camera
+    rays of ``r``'s scene, their bounce-1 rays (K2 on the camera hits) and
+    that bounce's shadow rays: each on a 16,384-ray subset
+    (``big_subset``) against its plain version, bit for bit (K2 under the
+    phase-4 bound), and K3's and K4's device ms a call (a CUDA graph)
+    beside the bound from the plain version's visits on the subset, scaled
+    to the call (K4's distinct super tiles capped at the table's). K3 takes
+    the rays as they are, K4 its bounce-1 and shadow-0 rays as the main
+    path's pair route hands them (``route_lanes``: sorted, on a compaction
+    tier)."""
+    scene = r._scene_dev
+    nt = scene["tri_isect"].shape[0]
+    camera = Camera(width=BIG_RAYS, height=BIG_RAYS, aspect=1.0)
+    cam = camera_device(camera.as_pytree(), BIG_RAYS, BIG_RAYS)
+    x, y = tile_pixels(BIG_RAYS, BIG_RAYS, r.device)
+    ro, rd, state = generate_rays(cam, x, y, 0,
+                                  use_dof=float(camera.aperture) > 0.0)
+    rays = torch.cat([ro, rd]).contiguous()
+    n = rays.shape[1]
+    kinds = {}
+    if "k3" in keys:
+        kinds["k3"] = (K3.walk_tables(scene), K3.closest_hit_walk,
+                       K3.closest_hit_walk_plain)
+    if "k4" in keys:
+        kinds["k4"] = (K4.pair_tables(scene), K4.closest_hit_pairs,
+                       K4.closest_hit_pairs_plain)
+    tables, kernel, _ = next(iter(kinds.values()))
+    t, idx = kernel(tables, rays[0:3], rays[3:6], num_tris=nt)
+    # K2 on the camera hits: the bounce-1 and shadow-0 rays of the whole
+    # call, and its subset against the plain version.
+    sub = big_subset(n, r.device)
+    ones = torch.ones((3, n), device=r.device)
+    args = (0, rays, state, ones, torch.zeros_like(ones),
+            torch.ones((n,), dtype=torch.bool, device=r.device), t, idx,
+            scene["tri_full"], scene["light_full"])
+    kw = dict(do_mis=True, num_lights=r.scene.num_lights)
+    kout = K2.bounce_stage_cuda(*args, **kw)
+    sub_args = tuple(a[..., sub] if torch.is_tensor(a) and a.shape[-1] == n
+                     else a for a in args)
+    summary = check_k2(tuple(o[..., sub] for o in kout),
+                       K2.bounce_stage_plain(*sub_args, **kw), sub.numel(),
+                       f"the {label} box", report.setdefault("k2", {}))
+    say("big", f"{label}: K2 at bounce 0 on {sub.numel()} of {n} camera "
+        f"hits against its plain version: {summary}")
+    sets = [("camera", rays, {}),
+            ("bounce-1", kout[0], {"active": kout[4]}),
+            ("shadow-0", kout[5], {"active": kout[7], "t_max": kout[6],
+                                   "any_hit": True})]
+    out = {}
+    for key, (tables, kernel, plain) in kinds.items():
+        for name, rr, extra in sets:
+            o, d = rr[0:3].contiguous(), rr[3:6].contiguous()
+            if key == "k4" and name != "camera":
+                o, d, extra = route_lanes(scene, o, d, extra)
+            m = o.shape[1]
+            sub = big_subset(m, r.device)
+            sub_extra = {k: (v[sub] if torch.is_tensor(v) else v)
+                         for k, v in extra.items()}
+            so, sd = o[:, sub].contiguous(), d[:, sub].contiguous()
+            visits = {}
+            t0 = time.perf_counter()
+            want = plain(tables, so, sd, num_tris=nt, visits=visits,
+                         **sub_extra)
+            plain_secs = time.perf_counter() - t0
+            same_hits(kernel(tables, so, sd, num_tris=nt, **sub_extra), want,
+                      f"{key.upper()} on the {label} box's {name} subset")
+            ms = device_ms(lambda: kernel(tables, o, d, num_tris=nt, **extra),
+                           reps=BIG_TIME_REPS)
+            full = scaled(visits, m / sub.numel())
+            if key == "k3":
+                b, ops = walk_bound(full, tables, m)
+            else:
+                full["tiles"] = min(full["tiles"], tables.super_aabb.shape[0])
+                b, ops = dispatch_bound("pairs", full, scene, tables, m)
+            entry = out.setdefault(key, {})[name] = {
+                "rays": m, "ms": ms, "gops": ops / 1e9, **b,
+                "plain_seconds_subset": plain_secs,
+                "hits_subset": int((want[1] >= 0).sum()),
+                "visits_per_ray": {v: c / sub.numel()
+                                   for v, c in visits.items()}}
+            say("big", f"{label}: {key.upper()} on {sub.numel()} of the {m} "
+                f"{name} rays equals its plain version on every lane "
+                f"({entry['hits_subset']} hits; plain {plain_secs:.2f} s); "
+                f"device {ms:.4f} ms a call of {m}, bound "
+                f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
+                f"{entry['gops']:.2f} Gop)")
+    return out
+
+
+def phase_big(dev, smi, report):
+    """The JAX package's large scenes (``BIG_ROUTES``) through the
+    ``Renderer``: each route's strategy, set-up seconds (the scene with its
+    C++ SAH build, then ``load_scene``: wide collapse, packing, upload),
+    peak device memory, launches, a warm-up and the median of BIG_REPEATS
+    renders in Mrays/s; at each size the kernels of its routes against
+    their plain versions (``big_kernels``); at 765k and 2M the walk route's
+    64x64, 1-spp, 1-bounce image against the plain path's."""
+    out = report.setdefault("big", {})
+    checked, built = set(), {}
+    for (label, tess, intersector, strategy, size, spp, fpc,
+         fpt) in BIG_ROUTES:
+        if tess not in built:  # each box built once, for its routes
+            built.clear()
+            t0 = time.perf_counter()
+            built[tess] = cornell_box(tessellation=tess)
+            scene_s = time.perf_counter() - t0
+        scene_np = built[tess]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = Renderer(RenderConfig(width=size, height=size,
+                                  frames_per_chunk=fpc, frames_per_trace=fpt,
+                                  intersector=intersector), device="cuda")
+        _, load_s = timed(lambda: r.load_scene(scene_np))
+        got = r.stats()["intersector"]
+        say("big", f"{label}: {scene_np.num_triangles} triangles; "
+            f"cornell_box (mesh and C++ SAH build) {scene_s:.2f} s, "
+            f"load_scene (wide collapse, packing, upload) {load_s:.2f} s; "
+            f"intersector={intersector!r} took {got!r}")
+        if got != strategy:
+            raise AssertionError(f"{label}: expected {strategy!r}")
+        calls = spp // fpt
+        kernel = {"walk": {"k3": 2 * MAX_BOUNCES * calls},
+                  "pairs": {"k4": 2 * MAX_BOUNCES * calls,
+                            "block_entry": 2 * MAX_BOUNCES * calls}}[got]
+        _, secs = counted_render(r, spp, report, f"big_{label}",
+                                 expect(k2=MAX_BOUNCES * calls, **kernel))
+        rays = r.stats()["rays_total"]
+        med, quartiles, walls = repeat_renders(r, spp, rays, f"big_{label}",
+                                               smi, repeats=BIG_REPEATS)
+        peak = torch.cuda.max_memory_allocated()
+        say("big", f"{label}: warm-up {secs:.3f} s; {rays} rays a render, "
+            f"{rays / med / 1e6:.4f} Mrays/s at the median; peak device "
+            f"memory {peak / 2**30:.3f} GiB on {smi}")
+        out[label] = {"triangles": scene_np.num_triangles, "intersector": got,
+                      "size": size, "spp": spp, "frames_per_trace": fpt,
+                      "scene_seconds": scene_s, "load_scene_seconds": load_s,
+                      "warmup_seconds": secs, "rays": rays,
+                      "repeat_seconds": walls, "repeat_median_seconds": med,
+                      "mrays_per_sec": rays / med / 1e6,
+                      "peak_device_bytes": peak}
+        if tess not in checked:  # the kernels of every route at this size
+            checked.add(tess)
+            keys = {{"walk": "k3", "pairs": "k4"}[route[3]]
+                    for route in BIG_ROUTES if route[1] == tess}
+            out[label]["kernels"] = kernels = big_kernels(label, r, keys,
+                                                          report)
+            for key, sets in kernels.items():
+                report.setdefault(key, {}).setdefault("big", {})[label] = {
+                    name: {k: e[k] for k in ("rays", "ms", "bound_ms",
+                                             "bound_by")}
+                    for name, e in sets.items()}
+        if tess in BIG_PLAIN_TESSELLATIONS and got == "walk":
+            # The whole image at BIG_PLAIN_SIZE, 1 spp and BIG_PLAIN_BOUNCES
+            # bounces: the plain walk syncs the host once a stack pop.
+            r.resize(BIG_PLAIN_SIZE, BIG_PLAIN_SIZE)
+            r.config.max_bounces = BIG_PLAIN_BOUNCES
+            hdr = r.render(spp=1)
+            out[label]["plain_seconds"] = checked_plain(
+                r, 1, hdr, f"big_{label}", repack=False)
+        del r
+    torch.cuda.empty_cache()
+
+
 def phase_large(dev, smi, report, profile: str | None):
     scene_np, sah = tessellated_box(LARGE_TESSELLATION)
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
@@ -2369,6 +2625,42 @@ def with_env(scene: dict, dev):
     return ENV.scene_env(scene)
 
 
+JPEG_DIR = os.path.join(REPO, "tests", "jpeg")
+# The JPEG-textured scene: textured_cornell(tessellation=12), 4,898
+# triangles (the walk), its images replaced by the committed JPEGs.
+JPEG_TESSELLATION = 12
+JPEG_SIZE = 256
+JPEG_SPP = 8
+
+
+def jpeg_cases() -> list:
+    """(name, bytes, Pillow's RGBA) of each small JPEG under ``tests/jpeg``,
+    whose Pillow decode ``pillow_rgba.npz`` holds."""
+    want = np.load(os.path.join(JPEG_DIR, "pillow_rgba.npz"))
+    out = []
+    for name in sorted(want.files):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            out.append((name, f.read(), want[name]))
+    return out
+
+
+def with_jpeg_images(glb: bytes, jpegs: list) -> str:
+    """The .gltf text of the .glb ``glb`` with its buffer as a data URI and
+    image i's bytes replaced by ``jpegs[i % len(jpegs)]`` (a data URI with
+    no ``mimeType``: the loaders sniff the bytes)."""
+    def uri(mime: str, data: bytes) -> str:
+        return f"data:{mime};base64," + base64.b64encode(data).decode()
+
+    gf = GLTFFile._parse_glb(glb, "")
+    gltf = dict(gf.gltf)
+    gltf["buffers"] = [{"byteLength": len(gf.buffers[0]),
+                        "uri": uri("application/octet-stream",
+                                   gf.buffers[0])}]
+    gltf["images"] = [{"uri": uri("image/jpeg", jpegs[i % len(jpegs)])}
+                      for i in range(len(gltf.get("images", [])))]
+    return json.dumps(gltf)
+
+
 def timed(fn):
     """(fn(), its wall seconds to a device sync)."""
     t0 = time.perf_counter()
@@ -2468,18 +2760,31 @@ def phase_gltf(dev, smi, report, profile: str | None):
             "frames": stats["frames"], "mean_hdr": float(hdr.mean())}
 
         # load_model_async while the Cornell box renders: the first chunk's
-        # callback waits for the load, so the staged scene is installed at
-        # the next chunk boundary, and the mean restarts there.
+        # callback lets the load start and waits for it, so the staged scene
+        # is installed at the next chunk boundary, and the mean restarts
+        # there.
         a = Renderer(RenderConfig(width=SIZE, height=SIZE,
                                   frames_per_chunk=ASYNC_CHUNK),
                      device="cuda")
         a.load_scene(cornell_box())
+        # The worker reads the file once the first chunk is done, so the
+        # scene is staged between the first and the second chunk.
+        first_chunk = threading.Event()
+        read_model = a._read_model
+
+        def gated_read(p):
+            if not first_chunk.wait(timeout=600):
+                raise TimeoutError("the first chunk never finished")
+            return read_model(p)
+
+        a._read_model = gated_read
         future = a.load_model_async(path)
         seen = []
 
         def on_chunk(frame):
             seen.append((frame, a.scene.num_triangles))
             if len(seen) == 1:
+                first_chunk.set()
                 future.result()
 
         hdr_async = a.render(spp=3 * ASYNC_CHUNK, on_chunk=on_chunk)
@@ -2506,6 +2811,65 @@ def phase_gltf(dev, smi, report, profile: str | None):
             raise AssertionError("a failed async load must raise at the next "
                                  "render")
         report["gltf"]["async_chunks"] = seen
+        report["gltf"]["jpeg"] = jpeg_scene(tmp, smi, report)
+
+
+def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
+    """The JPEG reader on this host: the committed small JPEGs against
+    their Pillow decode, array-equal; the 1024^2 and 2048^2 4:2:0 files'
+    decode seconds, each decode's SHA-256 against Pillow's; then
+    ``textured_cornell(tessellation=JPEG_TESSELLATION)`` with its textures
+    as those JPEGs, through ``load_model`` of a .gltf, K3 and K2 on the fat
+    canvas, and a 1-spp image against the plain path's."""
+    from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
+
+    cases = jpeg_cases()
+    for name, data, want in cases:
+        if not np.array_equal(decode_jpeg_rgba(data, name), want):
+            raise AssertionError(f"{name}: the decode differs from Pillow's")
+    say("gltf", f"{len(cases)} committed JPEGs ({', '.join(n for n, _, _ in cases)})"
+        " decode array-equal to Pillow's")
+    with open(os.path.join(JPEG_DIR, "pillow_sha256.json")) as f:
+        digests = json.load(f)
+    decode_s = {}
+    for name, digest in sorted(digests.items()):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        rgba = decode_jpeg_rgba(data, name)
+        decode_s[name] = time.perf_counter() - t0
+        if hashlib.sha256(rgba.tobytes()).hexdigest() != digest:
+            raise AssertionError(f"{name}: the decode differs from Pillow's")
+        say("gltf", f"{name} ({rgba.shape[1]}x{rgba.shape[0]}, {len(data)} "
+            f"bytes): decoded in {decode_s[name]:.3f} s on this host, equal "
+            "to Pillow's decode (SHA-256)")
+    path = os.path.join(tmp, "jpeg_textured.gltf")
+    scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
+    with open(path, "w") as f:
+        f.write(with_jpeg_images(scene_to_glb(scene_np),
+                                 [data for _, data, _ in cases]))
+    r = Renderer(RenderConfig(width=JPEG_SIZE, height=JPEG_SIZE),
+                 device="cuda")
+    _, load = timed(lambda: r.load_model(path))
+    stats = r.stats()
+    say("gltf", f"the JPEG-textured box ({r.scene.num_triangles} triangles, "
+        f"atlas {tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
+        f"intersector {stats['intersector']!r}, texture {stats['texture']!r}")
+    if stats["intersector"] != "walk" or stats["texture"] != "fat":
+        raise AssertionError("the JPEG-textured box must take the walk (K3) "
+                             "and the fat canvas")
+    _, secs = counted_render(
+        r, JPEG_SPP, report, "gltf_jpeg",
+        expect(k3=2 * MAX_BOUNCES * JPEG_SPP, k2_fat=MAX_BOUNCES * JPEG_SPP))
+    rays = r.stats()["rays_total"]
+    say("gltf", f"JPEG-textured box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} "
+        f"spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    r.reset()
+    one = r.render(spp=1)
+    plain_secs = checked_plain(r, 1, one, "gltf_jpeg")
+    return {"decode_seconds": decode_s, "load_model_seconds": load,
+            "seconds": secs, "mrays_per_sec": rays / secs / 1e6,
+            "plain_seconds": plain_secs}
 
 
 def phase_env(dev, smi, report, profile: str | None):
@@ -4020,9 +4384,9 @@ def profile_call(fn, path: str, phase: str) -> dict:
 # The phases in their order; "k3" and "dispatch" share the large box's
 # scene and rays (``large_sets``).
 PHASES = ("k1", "k2", "k2_tex", "oracle", "main", "textured", "k3", "wide16",
-          "large", "dispatch", "dispatch_paths", "k2_lds", "rng_paths",
-          "gltf", "env", "bvh2", "debug", "denoise", "adaptive", "native",
-          "cli", "shard")
+          "large", "dispatch", "dispatch_paths", "big", "k2_lds",
+          "rng_paths", "gltf", "env", "bvh2", "debug", "denoise", "adaptive",
+          "native", "cli", "shard")
 # The phases that share the large box (``large_sets``).
 LARGE_USERS = ("k3", "dispatch", "bvh2", "debug", "adaptive", "wide16")
 # The keys every kernel's entry in the kernels line carries.
@@ -4187,6 +4551,7 @@ def main() -> int:
         "dispatch": lambda: phase_dispatch(dev, report, large_box()),
         "dispatch_paths": lambda: phase_dispatch_paths(dev, smi, report,
                                                        profile),
+        "big": lambda: phase_big(dev, smi, report),
         "k2_lds": lambda: phase_k2_lds(dev, report),
         "rng_paths": lambda: phase_rng_paths(dev, smi, report, profile),
         "gltf": lambda: phase_gltf(dev, smi, report, profile),
@@ -4215,6 +4580,7 @@ def main() -> int:
     kernels = kernels_line(report, complete=wanted == PHASES)
     say("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     paths = ("main", *(path for path, _, _ in TEXTURED), "large", *DISPATCH,
+             "big",
              "stratified", "hash", "frames_per_trace", "checkpoint", "gltf",
              "env", "debug", "denoise", "adaptive", "native", "cli", "shard",
              "wide16")

@@ -15,6 +15,7 @@ import json
 import math
 import os
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -223,11 +224,21 @@ def test_http_viewer_scene_swap(tmp_path):
     the .glb bytes of ``scene_to_glb(cornell_box())``; each scene is read
     off the render thread and installed at the next chunk boundary, with
     the mean restarted; the upload's temporary file goes when the load
-    settles. The load may finish before the first tick's render starts or
-    after it: either way the frame index after two ticks shows the mean
-    restarted (2 or 4 frames, not the 8 of four ticks on one scene)."""
+    settles. Each load's worker reads the scene only once the tick that
+    started it has rendered, so the scene is installed at the start of the
+    next tick on every run: 2 frames after it, not the 8 of four ticks on
+    one scene."""
     r = make_renderer(8, cornell_box(tessellation=2))
     n_box = r.scene.num_triangles
+    tick_done = threading.Event()
+    read_model = r._read_model
+
+    def gated_read(p):
+        if not tick_done.wait(timeout=120):
+            raise TimeoutError("the tick that started the load never ended")
+        return read_model(p)
+
+    r._read_model = gated_read
     data = scene_to_glb(cornell_box())
     path = tmp_path / "cornell.glb"
     path.write_bytes(data)
@@ -239,22 +250,27 @@ def test_http_viewer_scene_swap(tmp_path):
         assert r.frame_index == 4
         assert post(f"{base}/load?path={path}") == b"staged"
         server.step(1 / 60)  # starts the load
+        assert r.frame_index == 6 and r.scene.num_triangles == n_box
+        tick_done.set()
         wait_for(server.loads[-1])
-        server.step(1 / 60)  # installed by now, at a chunk boundary
+        server.step(1 / 60)  # installed at this tick's start
         assert r.scene.num_triangles == 36 != n_box
-        assert r.frame_index in (2, 4)
+        assert r.frame_index == 2
 
         r.load_scene(cornell_box(tessellation=2))
         server.step(1 / 60)
         server.step(1 / 60)
         assert r.frame_index == 4
         before = set(glob.glob(os.path.join(tempfile.gettempdir(), "*.glb")))
+        tick_done.clear()
         assert post(f"{base}/load", data) == b"staged"
         server.step(1 / 60)
+        assert r.frame_index == 6
+        tick_done.set()
         wait_for(server.loads[-1])
         server.step(1 / 60)
         assert r.scene.num_triangles == 36
-        assert r.frame_index in (2, 4)
+        assert r.frame_index == 2
         assert json.loads(get(f"{base}/stats"))["spp"] == r.frame_index
         leaked = set(glob.glob(os.path.join(tempfile.gettempdir(),
                                             "*.glb"))) - before

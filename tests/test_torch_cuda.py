@@ -1275,3 +1275,39 @@ def test_renderer_adaptive_equals_plain_path(dev):
     got = r.render_adaptive(8)
     np.testing.assert_array_equal(got.view(np.uint32),
                                   plain_adaptive(r, 8).view(np.uint32))
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "xla"])
+def test_renderer_bounce_kernels_equal_auto(dev, kernel):
+    """``RenderConfig.bounce_kernel``: "pallas" runs K2 as "auto" does,
+    "xla" the plain bounce loop with no K2 launch; the images are equal on
+    every pixel."""
+    images = {}
+    for name in ("auto", kernel):
+        r = Renderer(RenderConfig(width=W, height=H, bounce_kernel=name),
+                     device="cuda")
+        r.load_scene(material_test_box())
+        before = K2.Counter.launches
+        images[name] = r.render(spp=2)
+        k2 = K2.Counter.launches - before
+        assert k2 == (0 if name == "xla" else 2 * r.config.max_bounces)
+    np.testing.assert_array_equal(images[kernel].view(np.uint32),
+                                  images["auto"].view(np.uint32))
+
+
+def test_renderer_jpeg_textured_scene_equals_plain_path(dev, tmp_path):
+    """A glTF whose textures are the committed JPEGs (``tests/jpeg``),
+    through ``load_model``, the walk and K2 on the fat canvas, equal to
+    its plain path on every pixel."""
+    from chip_smoke import jpeg_cases, with_jpeg_images
+
+    path = tmp_path / "jpeg_textured.gltf"
+    path.write_text(with_jpeg_images(
+        scene_to_glb(textured_cornell(tessellation=12)),
+        [data for _, data, _ in jpeg_cases()]))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    assert r.stats()["intersector"] == "walk"
+    assert r.stats()["texture"] == "fat"
+    np.testing.assert_array_equal(r.render(spp=1).view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))

@@ -143,14 +143,16 @@ def test_load_env_image_png_kinds_equal_jax(kind, interlace, tmp_path):
 
 
 def test_jpeg_env_map_raises_naming_the_file(tmp_path):
-    """A JPEG map raises ``NotImplementedError`` naming the file (the
-    package has no JPEG decoder yet), through ``load_env_image`` and the
-    ``Renderer``'s config."""
+    """A progressive JPEG map, which the port does not decode (baseline
+    ones it does: ``tests/test_torch_jpeg.py``), raises
+    ``NotImplementedError`` naming the file, through ``load_env_image`` and
+    the ``Renderer``'s config."""
     from PIL import Image
 
     path = tmp_path / "sky.png"  # a JPEG whatever its name says
-    Image.new("RGB", (8, 4), (90, 140, 220)).save(path, "JPEG")
-    with pytest.raises(NotImplementedError, match="sky.png: JPEG"):
+    Image.new("RGB", (8, 4), (90, 140, 220)).save(path, "JPEG",
+                                                  progressive=True)
+    with pytest.raises(NotImplementedError, match="sky.png: progressive"):
         ENV.load_env_image(str(path))
     jpg = tmp_path / "sky.jpg"
     jpg.write_bytes(path.read_bytes())

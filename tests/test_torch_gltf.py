@@ -18,6 +18,7 @@ import dataclasses
 import io
 import json
 import struct
+import threading
 import warnings
 
 import numpy as np
@@ -136,7 +137,8 @@ def test_decode_png_rgba_reads_every_kind_as_pillow(kind, interlace):
 def test_decode_png_rgba_refuses_what_it_cannot_read():
     """16-bit (Pillow's "I;16", clipped at 255) and Adam7-interlaced PNGs
     decode as Pillow decodes them; a bit depth the colour type does not
-    allow and a JPEG raise."""
+    allow raises, and JPEG bytes (``decode_image_rgba`` reads them) are no
+    PNG."""
     rng = np.random.default_rng(11)
     sixteen = rng.integers(0, 600, (3, 4)).astype(np.uint16)
     data = _pillow_png(Image.fromarray(sixteen, "I;16"))
@@ -155,7 +157,7 @@ def test_decode_png_rgba_refuses_what_it_cannot_read():
         IMAGE.decode_png_rgba(bytes(bad))
     buf = io.BytesIO()
     Image.new("RGB", (8, 8), (200, 10, 10)).save(buf, "JPEG")
-    with pytest.raises(NotImplementedError, match="wall.jpg: JPEG"):
+    with pytest.raises(ValueError, match="wall.jpg: not a PNG"):
         IMAGE.decode_png_rgba(buf.getvalue(), "wall.jpg")
 
 
@@ -444,14 +446,23 @@ def _quad_gltf(tmp_path, image: dict | None = None, indexed=True) -> str:
     return _write(tmp_path, "quad.gltf", json.dumps(gltf).encode())
 
 
-def test_jpeg_texture_raises_naming_the_image(tmp_path):
+def test_jpeg_texture_raises_naming_the_image(tmp_path, jax_numpy):
+    """A baseline JPEG texture loads as the JAX loader (Pillow) loads it; a
+    progressive one, which the port does not decode, raises naming the
+    image, declared image/jpeg or not (the bytes decide)."""
     buf = io.BytesIO()
     Image.new("RGB", (8, 8), (10, 200, 10)).save(buf, "JPEG")
+    uri = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+    path = _quad_gltf(tmp_path, {"uri": uri, "name": "grass"})
+    assert_same_scene(G.load_model(path), JG.load_model(path))
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8), (10, 200, 10)).save(buf, "JPEG",
+                                                  progressive=True)
     uri = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
     for image in ({"uri": uri, "mimeType": "image/jpeg", "name": "grass"},
                   {"uri": uri, "name": "grass"}):  # by MIME type, by bytes
         path = _quad_gltf(tmp_path, image)
-        with pytest.raises(NotImplementedError, match="grass"):
+        with pytest.raises(NotImplementedError, match="grass.*: progressive"):
             G.load_model(path)
 
 
@@ -490,12 +501,24 @@ def test_load_model_async_stages_and_installs(tmp_path):
                        frames_per_chunk=2)
     r = Renderer(cfg, device="cpu")
     r.load_scene(single_triangle())
+    # The worker reads the file only once the first chunk is done, so the
+    # scene is staged between the first and the second chunk on every run.
+    first_chunk_done = threading.Event()
+    read_model = r._read_model
+
+    def gated_read(p):
+        if not first_chunk_done.wait(timeout=120):
+            raise TimeoutError("the first chunk never finished")
+        return read_model(p)
+
+    r._read_model = gated_read
     future = r.load_model_async(path)
     seen = []
 
     def on_chunk(frame):
         seen.append((frame, r.scene.num_triangles))
         if len(seen) == 1:
+            first_chunk_done.set()
             future.result()  # the worker finishes before the next chunk
 
     img = r.render(spp=6, on_chunk=on_chunk)

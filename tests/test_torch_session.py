@@ -398,7 +398,8 @@ def test_read_png_round_trips_the_writer_and_refuses_the_rest(tmp_path):
     want = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8) / np.float32(255)
     np.testing.assert_array_equal(image.read_png(str(path)), want)
     # 16-bit gray and palette files read as Pillow's convert("RGB") reads
-    # them; a JPEG and a bit depth the colour type does not allow raise.
+    # them, a baseline JPEG as Pillow decodes it; a progressive JPEG and a
+    # bit depth the colour type does not allow raise.
     rng = np.random.default_rng(5)
     for im in (Image.fromarray(rng.integers(0, 600, (4, 5)).astype(
             np.uint16), "I;16"),
@@ -408,8 +409,13 @@ def test_read_png_round_trips_the_writer_and_refuses_the_rest(tmp_path):
         with Image.open(path) as ref:
             rgb = np.asarray(ref.convert("RGB"), np.float32) / 255.0
         np.testing.assert_array_equal(image.read_png(str(path)), rgb)
-    Image.new("RGB", (4, 4)).save(path, "JPEG")
-    with pytest.raises(NotImplementedError, match="a.png: JPEG"):
+    im = Image.fromarray(rng.integers(0, 256, (4, 5, 3)).astype(np.uint8))
+    im.save(path, "JPEG")
+    with Image.open(path) as ref:
+        rgb = np.asarray(ref.convert("RGB"), np.float32) / 255.0
+    np.testing.assert_array_equal(image.read_png(str(path)), rgb)
+    im.save(path, "JPEG", progressive=True)
+    with pytest.raises(NotImplementedError, match="a.png: progressive"):
         image.read_png(str(path))
     Image.new("RGB", (4, 4)).save(path)
     bad = bytearray(path.read_bytes())

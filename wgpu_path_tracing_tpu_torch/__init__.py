@@ -12,7 +12,7 @@ walk or when forced), the bounce shading stage (kernel K2,
 from the fat canvas, with rng="stratified"'s bounce-0 override, and
 with an environment map that lights the misses), accumulation, the AGX
 display transform, PNG, HDR and EXR output, checkpoints, glTF files in and
-out (``load_model``, ``scene_to_glb``; PNG textures, no JPEG decoder), the
+out (``load_model``, ``scene_to_glb``; PNG and baseline JPEG textures), the
 pass profiler and the frame meter, the fly-camera ``Controller``, the HTTP
 live viewer (``viewer.py``) and the command line (``cli.py``). Scene
 preparation (the SAH build, the wide collapse, the glTF flatten, the atlas

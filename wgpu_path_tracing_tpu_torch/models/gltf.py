@@ -28,9 +28,11 @@ reference's, as the JAX package keeps them:
   ``models/assemble.py::finalize_scene`` (gpu.ts:119-138).
 
 The JAX package decodes and scales images with Pillow; here
-``utils/image.py::decode_png_rgba`` and ``resize_bilinear_u8`` compute what
-Pillow computes, so the atlas is array-equal. There is no JPEG decoder: a
-JPEG image raises ``NotImplementedError`` naming it. With a compiler,
+``utils/image.py::decode_image_rgba`` (PNG, and baseline JPEG through
+``utils/jpeg.py``, told apart by their bytes as Pillow does) and
+``resize_bilinear_u8`` compute what Pillow computes, so the atlas is
+array-equal. A progressive or CMYK JPEG raises ``NotImplementedError``
+naming the image. With a compiler,
 ``accel/native.py``'s library transforms and gathers each primitive's
 corners in one pass (``flatten_native``) and packs the atlas
 (``potpack_native``); the NumPy code here is their plain version, the same
@@ -54,7 +56,7 @@ from wgpu_path_tracing_tpu_torch.models.assemble import finalize_scene
 from wgpu_path_tracing_tpu_torch.models.potpack import potpack
 from wgpu_path_tracing_tpu_torch.models.types import SceneArrays
 from wgpu_path_tracing_tpu_torch.utils.image import (
-    decode_png_rgba,
+    decode_image_rgba,
     resize_bilinear_u8,
 )
 
@@ -291,14 +293,10 @@ SLOTS = ("albedo", "normal", "pbr", "emissive")
 
 
 def _decode_image(gf: GLTFFile, src: int, data: bytes) -> np.ndarray:
-    """(H, W, 4) uint8 RGBA of an image's bytes; a JPEG raises
-    ``NotImplementedError`` naming the image."""
-    name = gf.image_name(src)
-    if gf.gltf["images"][src].get("mimeType") == "image/jpeg":
-        raise NotImplementedError(
-            f"{name}: JPEG textures are not supported (no JPEG decoder in "
-            "this package); convert the image to PNG")
-    return decode_png_rgba(data, name)
+    """(H, W, 4) uint8 RGBA of an image's bytes, PNG or JPEG by their
+    signature (the ``mimeType`` is not read, as Pillow does not read it);
+    errors name the image."""
+    return decode_image_rgba(data, gf.image_name(src))
 
 
 def build_atlas(gf: GLTFFile, texture_pixel_ratio: float = 0.5):

@@ -152,8 +152,13 @@ def _dispatch_plain(tris, cids, counts, o, d, lim, visits):
     """Every block through its pair list. The blocks are put in descending
     order of their counts, so the blocks that still have a pair at rank r
     are the first m of them, and m is known on the host after the one copy
-    of ``counts``; the member clusters that no lane enters are dropped by
-    ``torch.nonzero``."""
+    of ``counts``. A rank's super tile is taken whole: its member boxes'
+    entry distances and Möller-Trumbore over its rows come first, for the
+    blocks where some lane enters some member within the limits the rank
+    starts with (a superset of those that enter one as the limits shrink:
+    ``torch.nonzero``, one host sync a rank); then the members, in order,
+    each test their boxes against the live limits and hand their least t
+    to the blocks that enter, as the kernel does member by member."""
     dev = lim.device
     nb, bn = lim.shape
     host_counts = counts.cpu()
@@ -166,46 +171,56 @@ def _dispatch_plain(tris, cids, counts, o, d, lim, visits):
     best_t = torch.full((nb, bn), math.inf, dtype=torch.float32, device=dev)
     best_i = torch.full((nb, bn), -1, dtype=torch.int32, device=dev)
     rows = torch.arange(PAIRS_K, device=dev)
-    tiles = set()
+    members = torch.arange(PAIRS_GROUP, device=dev) * PAIRS_K
+    entered = torch.zeros((), dtype=torch.int64, device=dev)
     for rank in range(int(left[0]) if nb else 0):
         m = int((left > rank).sum())
-        tile = cids[:m, rank] * TILE_ROWS  # first row of each block's tile
-        if visits is not None:
-            tiles.update(cids[:m, rank].tolist())
+        # Each block's tile's member rows: (m, PAIRS_GROUP).
+        r0 = (cids[:m, rank] * TILE_ROWS)[:, None] + members
         ray = [x[:m] for x in (*o, *d)]
+        tn, box_ok = blocks.slab_entry_div(
+            tris[r0, 9:15][:, :, None, :], *(x[:, None, :] for x in ray),
+            math.inf)  # (m, PAIRS_GROUP, bn)
+        start = torch.minimum(best_t[:m], lim[:m])[:, None, :]
+        sel = torch.nonzero((box_ok & (tn <= start)).flatten(1).any(dim=1))
+        sel = sel.squeeze(1)
+        if sel.numel() == 0:
+            continue
+        tri = tris[r0[sel][:, :, None] + rows]  # (g, PAIRS_GROUP, K, 16)
+        t, _, _, valid = moller_trumbore(
+            *(x[sel][:, None, None, :] for x in ray),
+            *(tri[..., c, None] for c in range(9)))
+        t = torch.where(valid, t, math.inf)
+        min_t = t.min(dim=2).values  # (g, PAIRS_GROUP, bn)
+        min_row = torch.where(t == min_t[:, :, None], rows[:, None],
+                              1 << 30).min(dim=2).values
+        idx = tri[:, :, 0, 15].to(torch.int32)[..., None] + min_row.to(
+            torch.int32)
+        bt, bi, bl = best_t[sel], best_i[sel], lim[sel]
+        tn, box_ok = tn[sel], box_ok[sel]
         for s in range(PAIRS_GROUP):
-            r0 = tile + s * PAIRS_K
-            limit = torch.minimum(best_t[:m], lim[:m])
-            _, enter = blocks.slab_entry_div(tris[r0, 9:15][:, None, :], *ray,
-                                             limit)
-            sel = torch.nonzero(enter.any(dim=1)).squeeze(1)
-            if visits is not None:
-                blocks.count_work(visits, slab_tests=m * bn,
-                       triangle_tests=sel.numel() * PAIRS_K * bn,
-                       clusters=sel.numel())
-            if sel.numel() == 0:
-                continue
-            tri = tris[r0[sel][:, None] + rows]  # (g, K, 16)
-            t, _, _, valid = moller_trumbore(
-                *(x[sel][:, None, :] for x in ray),
-                *(tri[:, :, c, None] for c in range(9)))
-            t = torch.where(valid, t, math.inf)
-            min_t = t.min(dim=1).values
-            min_row = torch.where(t == min_t[:, None], rows[None, :, None],
-                                  1 << 30).min(dim=1).values
-            base = tri[:, 0, 15].to(torch.int32)
-            cur = best_t[sel]
-            better = min_t < cur
-            best_t[sel] = torch.where(better, min_t, cur)
-            best_i[sel] = torch.where(
-                better, base[:, None] + min_row.to(torch.int32), best_i[sel])
+            limit = torch.minimum(bt, bl)
+            take = (box_ok[:, s] & (tn[:, s] <= limit)).any(dim=1)
+            entered += take.sum()
+            better = (min_t[:, s] < bt) & take[:, None]
+            bt = torch.where(better, min_t[:, s], bt)
+            bi = torch.where(better, idx[:, s], bi)
+        best_t[sel], best_i[sel] = bt, bi
     if visits is not None:
-        blocks.count_work(visits, pairs=int(host_counts.sum()),
-                          tiles=len(tiles))
+        # Each member's box against every lane of each block at its rank;
+        # Möller-Trumbore for every lane of the entered ones; the distinct
+        # super tiles the lists name.
+        n_entered = int(entered)
+        named = cids[torch.arange(cids.shape[1], device=dev)[None, :]
+                     < counts[order][:, None]]
+        blocks.count_work(visits,
+                          slab_tests=PAIRS_GROUP * bn * int(host_counts.sum()),
+                          triangle_tests=n_entered * PAIRS_K * bn,
+                          clusters=n_entered, pairs=int(host_counts.sum()),
+                          tiles=torch.unique(named).numel())
     out_t, out_i = torch.empty_like(best_t), torch.empty_like(best_i)
     out_t[order], out_i[order] = best_t, best_i
     return out_t, out_i
-
 
 
 def closest_hit_pairs_plain(tables: PairTables, ro3, rd3, active=None,

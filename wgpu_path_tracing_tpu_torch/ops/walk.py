@@ -346,9 +346,10 @@ def _check(tables: WalkTables, ro3, rd3, active, t_max) -> None:
 def _check_kernel_tables(tables: WalkTables) -> None:
     """What the kernel reads beyond the plain version: the leaf records
     (their shape), walk_order, walk_boxes and the records contiguous from 16
-    bytes on (the kernel loads them as int4 and float4), the node ids beside
-    the W-bit mask in a 32-bit stack entry (at most 65,536 nodes at width
-    16), and the stack in shared memory."""
+    bytes on (the kernel loads them as int4 and float4), the node ids it
+    can address (``MAX_NODES``: at width 8 beside the 8-bit mask in a
+    32-bit stack entry, 2^24; at width 16 int32's, the team's stack holding
+    the metas), and the stack in shared memory."""
     leaves, ng = tables.leaves, tables.tris.shape[0] // GROUP_ROWS
     if (leaves.dtype != torch.float32
             or tuple(leaves.shape) != (ng, LEAF_FLOATS)):

@@ -151,8 +151,9 @@ def render_chunk_sharded(trace_fn, closest_hit_by_device: dict, scenes: dict,
     ``scenes`` and ``closest_hit_by_device`` map each distinct device of
     the mesh to its copy of the scene (``replicate_scene``) and the closest
     hit built on it (``ops/intersect.py::make_closest_hit``); ``trace_fn``
-    is the bounce loop (``ops/bounce.py::trace_cuda``, or ``ops/trace.py::
-    trace`` for the plain path). ``accum`` is the list of row bands
+    is the bounce loop (``render/pipeline.py::make_trace_fn``'s for the
+    renderer's ``bounce_kernel``: ``ops/bounce.py::trace_cuda``, or
+    ``ops/trace.py::trace`` under "xla" and for the plain path). ``accum`` is the list of row bands
     (``shard_accum``); it is updated in place and returned.
 
     Renders ``n_frames`` 1-spp frames, a multiple of the sample axis s: a

@@ -21,8 +21,9 @@ docstring gives the scheme and its measurements:
 4. the image: (warmup mean x n0 + extra sum) / (n0 + extra count).
 
 The frames run through the ``trace_fn`` and ``closest_hit`` given (the
-renderer's: ``ops/bounce.py::trace_cuda`` with the scene's intersector, so
-the kernels on the card; the plain versions on the CPU). The selection is
+renderer's: the bounce loop of its ``bounce_kernel``, ``ops/bounce.py::
+trace_cuda`` under "auto", with the scene's intersector, so the kernels on
+the card; the plain versions on the CPU). The selection is
 host-side NumPy, as in the JAX package. A subset round traces K lanes, a
 count that need not fill a ray block: the port's intersectors take any
 count. The selected lanes are distinct, so the side buffers' ``index_add_``
@@ -35,7 +36,6 @@ import numpy as np
 import torch
 
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
-from wgpu_path_tracing_tpu_torch.ops.bounce import trace_cuda
 from wgpu_path_tracing_tpu_torch.render import pipeline
 from wgpu_path_tracing_tpu_torch.utils.tiling import (
     inverse_permutation,
@@ -136,7 +136,7 @@ def _blurred(score: np.ndarray, width: int, height: int) -> np.ndarray:
 
 def render_adaptive(renderer, spp: int, *, warmup_frac: float = 0.5,
                     select_frac: float = 0.25, reselect_every: int = 1,
-                    refresh_every: int = 4, trace_fn=trace_cuda,
+                    refresh_every: int = 4, trace_fn=None,
                     closest_hit=None) -> np.ndarray:
     """Render about ``spp`` frames of ray budget adaptively on ``renderer``
     (a ``Renderer`` with a scene); returns the combined HDR image
@@ -144,8 +144,9 @@ def render_adaptive(renderer, spp: int, *, warmup_frac: float = 0.5,
     accumulation keeps the uniform warmup only; continuing with ``render``
     would reuse frame seeds the rounds consumed (the JAX package's
     documented limitation). ``trace_fn`` and ``closest_hit`` (default: the
-    renderer's intersector) are the frame's bounce loop and intersector, as
-    ``render_chunk`` takes them. A renderer on a mesh (``devices=``)
+    bounce loop of the renderer's ``bounce_kernel``, ``render/pipeline.py::
+    make_trace_fn``, and the renderer's intersector) are the frame's bounce
+    loop and intersector, as ``render_chunk`` takes them. A renderer on a mesh (``devices=``)
     raises ``NotImplementedError``, as the JAX package's does."""
     if renderer.mesh is not None:
         raise NotImplementedError(
@@ -159,6 +160,8 @@ def render_adaptive(renderer, spp: int, *, warmup_frac: float = 0.5,
         renderer.render(spp, fetch=False)
         return renderer._row_major().reshape(h, w, 3)
 
+    if trace_fn is None:
+        trace_fn = pipeline.make_trace_fn(cfg.bounce_kernel, renderer.device)
     if closest_hit is None:
         closest_hit = renderer._closest_hit
     scene = renderer._scene_dev

@@ -54,19 +54,30 @@ device is the ``Renderer``'s argument (the card by default):
   (``tests/test_torch_fpt.py`` shows F = 2 equal to 1 where it does so).
   The renderer clamps it per chunk with gcd, so any spp works.
 
-The JAX package's ``bounce_kernel`` (whose "xla" would put the plain bounce
-on the card's path) is not copied yet; its ``dtype`` and ``max_frames`` are
-read nowhere there and are left out.
+* ``bounce_kernel`` — the bounce loop (``render/pipeline.py::
+  make_trace_fn``): "auto" and "pallas" run K2 (``ops/bounce.py::
+  trace_cuda``) on the card and its plain version on the CPU; "xla" runs
+  the plain bounce (``ops/trace.py::trace``) on either device. Under an
+  environment map "pallas" stays K2 (its ``ENV`` instantiation), where the
+  JAX package falls back to XLA with a warning.
+
+``max_frames``, ``move_speed``, ``rotate_speed`` and ``dtype`` are the JAX
+package's fields that nothing outside its config reads; they are here so
+that ``RenderConfig(**dataclasses.asdict(jax_config))`` constructs, and
+nothing here reads them either (``render/controller.py`` moves at its own
+MOVE_SPEED and ROTATE_SPEED, as the JAX package's does).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from wgpu_path_tracing_tpu_torch.ops.intersect import check_intersector
 
 RNG_MODES = ("reference", "hash", "stratified")
 MODES = ("pt", "bvh_depth", "normal")
+BOUNCE_KERNELS = ("auto", "pallas", "xla")
 
 
 @dataclasses.dataclass
@@ -78,12 +89,17 @@ class RenderConfig:
     do_mis: bool = True
     firefly_clamp: float = 2.5
     exposure: float = 1.0
+    max_frames: int = -1  # renderer.ts:16; read nowhere
 
     # Scene ingestion (atlas.ts, gpu.ts) and the BVH build (bvh.ts).
     texture_pixel_ratio: float = 0.5
     spot_lights: bool = False
     max_leaf_size: int = 4
     num_bins: int = 12
+
+    # controller.ts:3-4; read nowhere (render/controller.py has its own).
+    move_speed: float = 2.0
+    rotate_speed: float = math.pi / 18
 
     # The environment map (ops/env.py); None: misses are black.
     env_map: str | None = None
@@ -92,9 +108,11 @@ class RenderConfig:
 
     rng: str = "reference"
     intersector: str = "auto"
+    bounce_kernel: str = "auto"
     brute_force_max_tris: int = 4096
     frames_per_chunk: int = 16
     frames_per_trace: int = 1
+    dtype: str = "float32"  # read nowhere
 
     # The debug views (ports of pt_bvh.wgsl and pt_debug.wgsl).
     mode: str = "pt"
@@ -108,6 +126,9 @@ class RenderConfig:
             raise ValueError("frames_per_chunk and frames_per_trace must be "
                              ">= 1")
         check_intersector(self.intersector)
+        if self.bounce_kernel not in BOUNCE_KERNELS:
+            raise ValueError(f"bounce_kernel={self.bounce_kernel!r}: expected "
+                             f"one of {BOUNCE_KERNELS}")
         if self.mode not in MODES:
             raise ValueError(f"mode={self.mode!r}: expected one of {MODES}")
         return self

@@ -14,6 +14,9 @@ import numpy as np
 import torch
 
 from wgpu_path_tracing_tpu_torch.ops import camera_rays as CAM
+from wgpu_path_tracing_tpu_torch.ops import trace as TRACE
+from wgpu_path_tracing_tpu_torch.ops.bounce import trace_cuda
+from wgpu_path_tracing_tpu_torch.render.config import BOUNCE_KERNELS
 from wgpu_path_tracing_tpu_torch.utils.tiling import tile_permutation
 
 
@@ -23,6 +26,29 @@ def camera_device(cam: dict, width: int, height: int) -> dict:
     out["width_f"] = np.float32(width)
     out["height_f"] = np.float32(height)
     return out
+
+
+def make_trace_fn(bounce_kernel: str, device):
+    """The bounce loop that ``RenderConfig.bounce_kernel`` names, for
+    scenes on ``device`` (the JAX package's ``make_trace_fn``):
+
+    * "auto" and "pallas": ``ops/bounce.py::trace_cuda``, K2 on a CUDA
+      device. On the CPU it runs K2's plain version: under "pallas" that
+      is the port's counterpart of the JAX package's interpret mode (the
+      caller asked for the CPU), not a fallback;
+    * "xla": ``ops/trace.py::trace``, the plain bounce, on either device
+      (no K2 launch).
+
+    An environment map changes nothing here: K2 has its ``ENV``
+    instantiation, so "pallas" stays K2, where the JAX package's Pallas
+    megakernel has no environment term and its "pallas" falls back to XLA
+    with a warning. The intersector is the caller's choice either way."""
+    if bounce_kernel not in BOUNCE_KERNELS:
+        raise ValueError(f"bounce_kernel={bounce_kernel!r}: expected one of "
+                         f"{BOUNCE_KERNELS}")
+    if torch.device(device).type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return TRACE.trace if bounce_kernel == "xla" else trace_cuda
 
 
 def tile_pixels(width: int, height: int, device):
@@ -52,10 +78,10 @@ def render_chunk(trace_fn, closest_hit, scene: dict, cam: dict,
     ``ops/trace.py::scene_atlas`` picks.
 
     ``trace_fn`` is the bounce loop and ``closest_hit`` the intersector it
-    calls: the renderer passes ``ops/bounce.py::trace_cuda`` and the
-    intersector ``ops/intersect.py::make_closest_hit`` picked (K1, K3, K4,
-    K5 or K6), which run their kernels on CUDA tensors and their plain
-    versions on CPU tensors.
+    calls: the renderer passes the loop ``make_trace_fn`` picks for its
+    ``bounce_kernel`` and the intersector ``ops/intersect.py::
+    make_closest_hit`` picked (K1, K3, K4, K5 or K6), which run their
+    kernels on CUDA tensors and their plain versions on CPU tensors.
 
     ``rng_mode`` seeds and jitters the camera rays
     (``ops/camera_rays.py::generate_rays``); under "stratified" (and

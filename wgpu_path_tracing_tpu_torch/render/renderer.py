@@ -77,7 +77,7 @@ from wgpu_path_tracing_tpu_torch.models.types import (
     pack_device_scene,
 )
 from wgpu_path_tracing_tpu_torch.ops import env as ENV
-from wgpu_path_tracing_tpu_torch.ops.bounce import texture_mode, trace_cuda
+from wgpu_path_tracing_tpu_torch.ops.bounce import texture_mode
 from wgpu_path_tracing_tpu_torch.ops.intersect import make_closest_hit
 from wgpu_path_tracing_tpu_torch.ops.trace import scene_atlas
 from wgpu_path_tracing_tpu_torch.parallel import shard as SH
@@ -347,6 +347,7 @@ class Renderer:
         cam = self._camera()
         t0 = time.perf_counter()
         counters = torch.zeros((2,), dtype=torch.int64, device=self.device)
+        trace_fn = pipeline.make_trace_fn(cfg.bounce_kernel, self.device)
         remaining = spp
         while remaining > 0:
             self.poll_pending_scene()
@@ -364,14 +365,14 @@ class Renderer:
                 firefly_clamp=cfg.firefly_clamp, rng_mode=cfg.rng)
             if self.mesh is None:
                 _, chunk_counters = pipeline.render_chunk(
-                    trace_cuda, self._closest_hit, self._scene_dev, cam,
+                    trace_fn, self._closest_hit, self._scene_dev, cam,
                     self._accum, self.frame_index, n_frames=chunk,
                     frames_per_trace=fpt, **common)
             else:
                 n_frames, chunk = SH.round_chunk(chunk,
                                                  self.mesh.shape["sample"])
                 _, chunk_counters = SH.render_chunk_sharded(
-                    trace_cuda, self._closest_hits, self._scenes, cam,
+                    trace_fn, self._closest_hits, self._scenes, cam,
                     self._accum, self.frame_index, mesh=self.mesh,
                     n_frames=n_frames, n_active=chunk, frames_per_trace=fpt,
                     **common)

@@ -3,9 +3,9 @@
 The counterpart of the JAX package's ``utils/image.py``. The accumulation
 buffer's row 0 is the BOTTOM of the view, so the display image is flipped.
 Only the standard library and NumPy: the PNG writer and reader use ``zlib``
-and ``struct`` (the JAX package's use Pillow); the Radiance .hdr and the
-uncompressed float32 OpenEXR writers and readers are byte-for-byte the JAX
-package's.
+and ``struct``, and JPEG files are read by ``utils/jpeg.py`` (the JAX
+package's use Pillow); the Radiance .hdr and the uncompressed float32
+OpenEXR writers and readers are byte-for-byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -309,14 +309,30 @@ def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG -> (H, W, 3) float32 RGB in [0, 1], as the JAX package's
-    Pillow reader returns it (``Image.open(path).convert("RGB") / 255``):
-    the RGB of ``decode_png_rgba``, whose rules are Pillow's for every bit
-    depth, colour type and interlace method. A JPEG raises
-    ``NotImplementedError`` naming the file."""
+    """Read a PNG or a JPEG -> (H, W, 3) float32 RGB in [0, 1], as the JAX
+    package's Pillow reader returns it (``Image.open(path).convert("RGB") /
+    255``): the RGB of ``decode_image_rgba``, which tells the two formats
+    apart by their bytes, whatever the file's name says."""
     with open(path, "rb") as f:
         data = f.read()
-    return decode_png_rgba(data, path)[..., :3].astype(np.float32) / 255.0
+    return decode_image_rgba(data, path)[..., :3].astype(np.float32) / 255.0
+
+
+def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """PNG or JPEG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
+    ``Image.open(...).convert("RGBA")`` returns. The format is sniffed by
+    its signature, as Pillow sniffs it, not by a file name or a MIME type:
+    ``FF D8 FF`` is a JPEG (``utils/jpeg.py::decode_jpeg_rgba``),
+    ``89 'PNG'`` a PNG (``decode_png_rgba``); anything else raises
+    ``ValueError`` naming ``name``."""
+    from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
+
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg_rgba(data, name)
+    if data[:4] == _PNG_SIGNATURE[:4]:
+        return decode_png_rgba(data, name)
+    raise ValueError(f"{name}: neither a PNG nor a JPEG image (the only "
+                     "formats this package reads)")
 
 
 def _gray_to_8bit(s: np.ndarray, depth: int) -> np.ndarray:
@@ -344,12 +360,8 @@ def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
       and 4 bits, against the converted sample; at 1 bit any non-zero value
       means 255), else alpha is 255.
 
-    Other combinations raise ``ValueError``; a JPEG raises
-    ``NotImplementedError`` naming ``name``."""
-    if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            f"{name}: JPEG images are not supported (this package has no "
-            "JPEG decoder yet: ROADMAP.md A.1); convert the image to PNG")
+    Other combinations, and bytes that are no PNG (``decode_image_rgba``
+    reads JPEG too), raise ``ValueError`` naming ``name``."""
     header, idat, plte, trns = _png_chunks(data, name)
     _, _, depth, ctype, _, _, interlace = header
     if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace not in (0, 1):
