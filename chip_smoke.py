@@ -115,13 +115,16 @@ and runs these phases, one line of output each:
    chunk's start with the mean restarted there (its two chunks equal to a
    fresh render of the same frames), and a failed async load raising from
    its future and at the next render; then the JPEG reader on this host:
-   the small JPEGs under ``tests/jpeg`` array-equal to their Pillow decode
-   (``pillow_rgba.npz``), the 1024^2 and 2048^2 4:2:0 files' decode
-   seconds (their SHA-256 against Pillow's), and
-   ``textured_cornell(tessellation=12)`` with those JPEGs as its textures,
-   written to a .gltf and loaded by ``load_model`` (the walk, the fat
-   canvas), 256x256 x 8 spp with its launches, and its 1-spp image
-   against the plain path's;
+   the small JPEGs under ``tests/jpeg`` (sequential, progressive, CMYK,
+   YCCK, block-smoothed) array-equal to their Pillow decode
+   (``pillow_rgba.npz``), each decode's seconds, the 1024^2 and 2048^2
+   4:2:0 files' decode seconds, sequential and progressive (their SHA-256
+   against Pillow's, each within 5 s), the 2048^2 files' seconds through
+   the plain Python entropy decoder, and
+   ``textured_cornell(tessellation=12)`` with the progressive, CMYK and
+   YCCK JPEGs as its textures, written to a .gltf and loaded by
+   ``load_model`` (the walk, the fat canvas), 512x512 x 8 spp with its
+   launches, and its 1-spp image against the plain path's;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -133,6 +136,9 @@ and runs these phases, one line of output each:
    ``set_environment``: launch counts (512 of the ENV instantiation), cold
    and repeated Mrays/s, the image against the plain path's on every pixel,
    and its renders in turns with the same box's without the map;
+   then the material box at 512x512 x 8 spp under the committed
+   progressive JPEG map (``RenderConfig.env_map``): its launches (K1, K2,
+   K2's ENV instantiation) and its image against the plain path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
    against ``/`` bit for bit (a zero numerator's sign aside, ``div_apart``)
    on 2^24 random bit patterns, the special operands and 2^22 pairs in and
@@ -2627,10 +2633,21 @@ def with_env(scene: dict, dev):
 
 JPEG_DIR = os.path.join(REPO, "tests", "jpeg")
 # The JPEG-textured scene: textured_cornell(tessellation=12), 4,898
-# triangles (the walk), its images replaced by the committed JPEGs.
+# triangles (the walk), its images replaced by the committed progressive,
+# CMYK and YCCK JPEGs, at the flagship's width.
 JPEG_TESSELLATION = 12
-JPEG_SIZE = 256
+JPEG_SIZE = SIZE
 JPEG_SPP = 8
+# The largest file's decode on the card's host must stay within this.
+JPEG_DECODE_BOUND_S = 5.0
+JPEG_PYTHON_TIMED = ("timing_2048.jpg", "timing_progressive_2048.jpg")
+JPEG_TEXTURES = ("albedo_progressive_420.jpg", "pbr_cmyk_progressive.jpg",
+                 "normal_cmyk_restart.jpg", "emissive_ycck_420.jpg",
+                 "roughness_ycck_progressive.jpg")
+# The env box under a committed progressive JPEG map, read through
+# RenderConfig.env_map.
+JPEG_ENV = "env_progressive.jpg"
+JPEG_ENV_SPP = 8
 
 
 def jpeg_cases() -> list:
@@ -2815,23 +2832,29 @@ def phase_gltf(dev, smi, report, profile: str | None):
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
-    """The JPEG reader on this host: the committed small JPEGs against
-    their Pillow decode, array-equal; the 1024^2 and 2048^2 4:2:0 files'
-    decode seconds, each decode's SHA-256 against Pillow's; then
+    """The JPEG reader on this host: every committed small JPEG (sequential,
+    progressive, CMYK, YCCK, block-smoothed) against its Pillow decode,
+    array-equal, and the 1024^2 and 2048^2 sequential and progressive
+    files' decode seconds, each decode's SHA-256 against Pillow's; then
     ``textured_cornell(tessellation=JPEG_TESSELLATION)`` with its textures
-    as those JPEGs, through ``load_model`` of a .gltf, K3 and K2 on the fat
-    canvas, and a 1-spp image against the plain path's."""
+    as the progressive, CMYK and YCCK JPEGs, through ``load_model`` of a
+    .gltf, at JPEG_SIZE^2: K3 and K2 on the fat canvas, and a 1-spp image
+    against the plain path's."""
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     cases = jpeg_cases()
+    decode_s = {}
     for name, data, want in cases:
-        if not np.array_equal(decode_jpeg_rgba(data, name), want):
+        t0 = time.perf_counter()
+        got = decode_jpeg_rgba(data, name)
+        decode_s[name] = time.perf_counter() - t0
+        if not np.array_equal(got, want):
             raise AssertionError(f"{name}: the decode differs from Pillow's")
-    say("gltf", f"{len(cases)} committed JPEGs ({', '.join(n for n, _, _ in cases)})"
-        " decode array-equal to Pillow's")
+    say("gltf", f"{len(cases)} committed JPEGs decode array-equal to "
+        "Pillow's: " + ", ".join(f"{n} {decode_s[n]:.4f} s"
+                                 for n, _, _ in cases) + f" on {smi}")
     with open(os.path.join(JPEG_DIR, "pillow_sha256.json")) as f:
         digests = json.load(f)
-    decode_s = {}
     for name, digest in sorted(digests.items()):
         with open(os.path.join(JPEG_DIR, name), "rb") as f:
             data = f.read()
@@ -2842,18 +2865,45 @@ def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
             raise AssertionError(f"{name}: the decode differs from Pillow's")
         say("gltf", f"{name} ({rgba.shape[1]}x{rgba.shape[0]}, {len(data)} "
             f"bytes): decoded in {decode_s[name]:.3f} s on this host, equal "
-            "to Pillow's decode (SHA-256)")
+            f"to Pillow's decode (SHA-256), on {smi}")
+    slow = {n: t for n, t in decode_s.items()
+            if n.startswith("timing_") and t > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    # The plain Python entropy decoder on the 2048^2 files, for the record:
+    # the C++ one runs in front of it because this one comes close to the
+    # bound on progressive files.
+    python_s = {}
+    for name in JPEG_PYTHON_TIMED:
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            data = f.read()
+        real = native.native_available
+        native.native_available = lambda: False
+        try:
+            t0 = time.perf_counter()
+            rgba = decode_jpeg_rgba(data, name)
+            python_s[name] = time.perf_counter() - t0
+        finally:
+            native.native_available = real
+        if hashlib.sha256(rgba.tobytes()).hexdigest() != digests[name]:
+            raise AssertionError(f"{name}: the Python decode differs from "
+                                 "Pillow's")
+        say("gltf", f"{name}: the plain Python entropy decoder took "
+            f"{python_s[name]:.3f} s on this host (C++ {decode_s[name]:.3f} "
+            f"s; bound {JPEG_DECODE_BOUND_S} s), equal to Pillow's, on {smi}")
     path = os.path.join(tmp, "jpeg_textured.gltf")
     scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
+    textures = {name: data for name, data, _ in cases}
     with open(path, "w") as f:
         f.write(with_jpeg_images(scene_to_glb(scene_np),
-                                 [data for _, data, _ in cases]))
+                                 [textures[n] for n in JPEG_TEXTURES]))
     r = Renderer(RenderConfig(width=JPEG_SIZE, height=JPEG_SIZE),
                  device="cuda")
     _, load = timed(lambda: r.load_model(path))
     stats = r.stats()
     say("gltf", f"the JPEG-textured box ({r.scene.num_triangles} triangles, "
-        f"atlas {tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
+        f"textures {', '.join(JPEG_TEXTURES)}, atlas "
+        f"{tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
         f"intersector {stats['intersector']!r}, texture {stats['texture']!r}")
     if stats["intersector"] != "walk" or stats["texture"] != "fat":
         raise AssertionError("the JPEG-textured box must take the walk (K3) "
@@ -2867,9 +2917,36 @@ def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
     r.reset()
     one = r.render(spp=1)
     plain_secs = checked_plain(r, 1, one, "gltf_jpeg")
-    return {"decode_seconds": decode_s, "load_model_seconds": load,
-            "seconds": secs, "mrays_per_sec": rays / secs / 1e6,
-            "plain_seconds": plain_secs}
+    return {"decode_seconds": decode_s, "python_decode_seconds": python_s,
+            "load_model_seconds": load,
+            "size": JPEG_SIZE, "seconds": secs,
+            "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
+
+
+def jpeg_env_box(smi: str, report: dict) -> dict:
+    """The material box at SIZE^2 under the committed progressive JPEG map
+    (``RenderConfig.env_map``, read by ``load_env_image``): K1, K2 and K2's
+    ENV instantiation launched as expected, and the image equal to the
+    plain path's on every pixel."""
+    path = os.path.join(JPEG_DIR, JPEG_ENV)
+    env, read_s = timed(lambda: ENV.load_env_image(path))
+    r = Renderer(RenderConfig(width=SIZE, height=SIZE, env_map=path,
+                              env_intensity=ENV_INTENSITY), device="cuda")
+    _, load = timed(lambda: r.load_scene(material_test_box()))
+    hdr, secs = counted_render(
+        r, JPEG_ENV_SPP, report, "env_jpeg",
+        expect(k1=2 * MAX_BOUNCES * JPEG_ENV_SPP, k2=MAX_BOUNCES * JPEG_ENV_SPP,
+               k2_env=MAX_BOUNCES * JPEG_ENV_SPP))
+    rays = r.stats()["rays_total"]
+    say("env", f"the material box under {JPEG_ENV} (map {env.shape}, read "
+        f"in {read_s:.4f} s; load_scene {load:.3f} s) {SIZE}x{SIZE} x "
+        f"{JPEG_ENV_SPP} spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} "
+        f"Mrays/s on {smi}")
+    plain_secs = checked_plain(r, JPEG_ENV_SPP, hdr, "env_jpeg")
+    return {"map": JPEG_ENV, "read_seconds": read_s,
+            "load_scene_seconds": load, "seconds": secs,
+            "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs,
+            "mean_hdr": float(hdr.mean())}
 
 
 def phase_env(dev, smi, report, profile: str | None):
@@ -2978,6 +3055,7 @@ def phase_env(dev, smi, report, profile: str | None):
     if profile:
         root, ext = os.path.splitext(profile)
         profile_frames(r, f"{root}_env{ext}", "env")
+    report["env"]["jpeg"] = jpeg_env_box(smi, report)
 
 
 def bvh2_bound(visits: dict, scene: dict, n: int) -> dict:

@@ -1296,15 +1296,16 @@ def test_renderer_bounce_kernels_equal_auto(dev, kernel):
 
 
 def test_renderer_jpeg_textured_scene_equals_plain_path(dev, tmp_path):
-    """A glTF whose textures are the committed JPEGs (``tests/jpeg``),
-    through ``load_model``, the walk and K2 on the fat canvas, equal to
-    its plain path on every pixel."""
-    from chip_smoke import jpeg_cases, with_jpeg_images
+    """A glTF whose textures are the committed progressive, CMYK and YCCK
+    JPEGs (``tests/jpeg``), through ``load_model``, the walk and K2 on the
+    fat canvas, equal to its plain path on every pixel."""
+    from chip_smoke import JPEG_TEXTURES, jpeg_cases, with_jpeg_images
 
     path = tmp_path / "jpeg_textured.gltf"
+    textures = {name: data for name, data, _ in jpeg_cases()}
     path.write_text(with_jpeg_images(
         scene_to_glb(textured_cornell(tessellation=12)),
-        [data for _, data, _ in jpeg_cases()]))
+        [textures[name] for name in JPEG_TEXTURES]))
     r = Renderer(RenderConfig(width=W, height=H), device="cuda")
     r.load_model(str(path))
     assert r.stats()["intersector"] == "walk"

@@ -136,7 +136,7 @@ def test_demodulation_keeps_texture():
     normal, depth, fnd = _flat_guides(h, w)
     aovs = {"albedo": albedo.reshape(-1, 3), "normal": normal.reshape(-1, 3),
             "depth": depth.reshape(-1), "found": fnd.reshape(-1)}
-    out = D.denoise_image(noisy, aovs)
+    out = D.denoise_image(noisy, aovs, device="cpu")
     truth = albedo * illum
     rmse_in = float(np.sqrt(np.mean((noisy - truth) ** 2)))
     rmse_out = float(np.sqrt(np.mean((out - truth) ** 2)))
@@ -201,9 +201,25 @@ def test_denoise_image_matches_jax(blend, spp):
             "normal": normal.reshape(-1, 3), "depth": depth.reshape(-1),
             "found": found.reshape(-1)}
     want = JD.denoise_image(color, aovs, blend=blend, spp=spp)
-    got = D.denoise_image(color, aovs, blend=blend, spp=spp)
+    got = D.denoise_image(color, aovs, blend=blend, spp=spp,
+                          device="cpu")
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL * 10)
+
+
+def test_denoise_image_runs_on_the_card_by_default(monkeypatch):
+    """NumPy guides and no ``device``: ``denoise_image`` asks for the card,
+    as every entry point of the port does, and raises where there is none
+    instead of running on the CPU."""
+    color, normal, depth, found = _random_case(6)
+    h, w, _ = color.shape
+    aovs = {"albedo": np.ones((h * w, 3), np.float32),
+            "normal": normal.reshape(-1, 3), "depth": depth.reshape(-1),
+            "found": found.reshape(-1)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="'cuda'.*not available"):
+        D.denoise_image(color, aovs)
+    assert D.denoise_image(color, aovs, device="cpu").shape == (h, w, 3)
 
 
 @pytest.mark.parametrize("p", [1, 2, 8])

@@ -447,22 +447,27 @@ def _quad_gltf(tmp_path, image: dict | None = None, indexed=True) -> str:
 
 
 def test_jpeg_texture_raises_naming_the_image(tmp_path, jax_numpy):
-    """A baseline JPEG texture loads as the JAX loader (Pillow) loads it; a
-    progressive one, which the port does not decode, raises naming the
-    image, declared image/jpeg or not (the bytes decide)."""
-    buf = io.BytesIO()
-    Image.new("RGB", (8, 8), (10, 200, 10)).save(buf, "JPEG")
-    uri = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
-    path = _quad_gltf(tmp_path, {"uri": uri, "name": "grass"})
-    assert_same_scene(G.load_model(path), JG.load_model(path))
-    buf = io.BytesIO()
-    Image.new("RGB", (8, 8), (10, 200, 10)).save(buf, "JPEG",
-                                                  progressive=True)
-    uri = "data:image/jpeg;base64," + base64.b64encode(buf.getvalue()).decode()
+    """Baseline, progressive and CMYK JPEG textures load as the JAX loader
+    (Pillow) loads them; an arithmetic-coded one, which the port does not
+    decode, raises naming the image, declared image/jpeg or not (the bytes
+    decide)."""
+    green = Image.new("RGB", (8, 8), (10, 200, 10))
+    for img, kw in ((green, {}), (green, {"progressive": True}),
+                    (green.convert("CMYK"), {"progressive": True})):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", **kw)
+        uri = ("data:image/jpeg;base64,"
+               + base64.b64encode(buf.getvalue()).decode())
+        path = _quad_gltf(tmp_path, {"uri": uri, "name": "grass"})
+        assert_same_scene(G.load_model(path), JG.load_model(path))
+    data = buf.getvalue()
+    sof = data.index(b"\xff\xc2")  # SOF2 -> SOF10, arithmetic progressive
+    data = data[:sof + 1] + b"\xca" + data[sof + 2:]
+    uri = "data:image/jpeg;base64," + base64.b64encode(data).decode()
     for image in ({"uri": uri, "mimeType": "image/jpeg", "name": "grass"},
                   {"uri": uri, "name": "grass"}):  # by MIME type, by bytes
         path = _quad_gltf(tmp_path, image)
-        with pytest.raises(NotImplementedError, match="grass.*: progressive"):
+        with pytest.raises(NotImplementedError, match="grass.*: arithmetic"):
             G.load_model(path)
 
 

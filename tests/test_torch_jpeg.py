@@ -2,13 +2,19 @@
 textures and environment maps against the JAX package, which reads them
 with Pillow.
 
-Every baseline case is held array-equal to ``Image.open(...).convert(
-"RGBA")``: Pillow decodes with libjpeg-turbo at its defaults (the integer
-IDCT, fancy upsampling, the fixed-point YCbCr tables), which the reader
-copies. Pillow writes 4:4:4, 4:2:2 and 4:2:0 only, in one interleaved
-scan; ``tests/torch_jpeg_cases.py`` writes the rest (4:4:0, 4:1:1, mixed
-factors, one scan a component, 16-bit tables, Adobe RGB, restart intervals
-on any MCU count), which Pillow then decodes as the reference.
+Every case is held array-equal to ``Image.open(...).convert("RGBA")``:
+Pillow decodes with libjpeg-turbo at its defaults (the integer IDCT, fancy
+upsampling, the fixed-point YCbCr tables, block smoothing of progressive
+files that leave coefficient bits unsent), which the reader copies. Each
+case is decoded twice, with the C++ entropy decoder (``accel/cbvh/
+jpeg_scan.cpp``) and with its plain Python version, and both must equal
+Pillow. Pillow writes 4:4:4, 4:2:2 and 4:2:0 only, sequential in one
+interleaved scan or progressive in libjpeg's standard script, and CMYK;
+``tests/torch_jpeg_cases.py`` writes the rest (4:4:0, 4:1:1, mixed
+factors, one scan a component, 16-bit tables, Adobe RGB, YCCK and 4
+components under any Adobe transform, restart intervals on any MCU count,
+progressive scan scripts of any shape, scripts that stop early), which
+Pillow then decodes as the reference.
 """
 
 import io
@@ -26,6 +32,7 @@ from wgpu_path_tracing_tpu import RenderConfig as JRenderConfig
 from wgpu_path_tracing_tpu.models import gltf as JG
 from wgpu_path_tracing_tpu.models import procedural as JP
 from wgpu_path_tracing_tpu.ops import env as JENV
+from wgpu_path_tracing_tpu.utils import image as JIMAGE
 from chip_smoke import with_jpeg_images
 from wgpu_path_tracing_tpu_torch import (
     Renderer,
@@ -37,6 +44,8 @@ from wgpu_path_tracing_tpu_torch import (
 from wgpu_path_tracing_tpu_torch.models import gltf as G
 from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.utils import image as IMAGE
+from wgpu_path_tracing_tpu_torch.accel import native
+from wgpu_path_tracing_tpu_torch.utils import jpeg as JPEG
 from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 from tests import torch_jpeg_cases as JC
 from tests.test_torch_env import EnvOracle, _oracle_mean
@@ -45,6 +54,9 @@ torch.set_num_threads(1)
 
 SIZES = [(1, 1), (7, 13), (17, 33), (100, 75), (256, 256)]
 QUALITIES = (10, 75, 95, 100)
+# Pillow sizes its buffer for a progressive file at 2 bytes a pixel from
+# quality 95 on, and fails to write the 256^2 4:4:4 photo at 99 and above.
+PROGRESSIVE_QUALITIES = (10, 75, 95, 98)
 
 
 def pillow_rgba(data: bytes) -> np.ndarray:
@@ -64,9 +76,21 @@ def photo(w: int, h: int, seed: int = 0) -> Image.Image:
                            "RGB")
 
 
+def decode_in(in_cxx: bool, data: bytes, name: str) -> np.ndarray:
+    """``decode_jpeg_rgba`` with the C++ entropy decoder, or with its plain
+    Python version (``native_available`` patched to False)."""
+    with pytest.MonkeyPatch.context() as m:
+        if not in_cxx:
+            m.setattr(native, "native_available", lambda: False)
+        return decode_jpeg_rgba(data, name)
+
+
 def assert_like_pillow(data: bytes) -> None:
-    np.testing.assert_array_equal(decode_jpeg_rgba(data, "case"),
-                                  pillow_rgba(data))
+    """Both entropy decoders' RGBA equal to Pillow's."""
+    want = pillow_rgba(data)
+    for in_cxx in (True, False):
+        np.testing.assert_array_equal(decode_in(in_cxx, data, "case"), want,
+                                      err_msg=f"in C++: {in_cxx}")
 
 
 @pytest.mark.parametrize("mode", ["gray", "4:4:4", "4:2:2", "4:2:0"])
@@ -167,20 +191,205 @@ def test_hypothesis_sizes_qualities_subsampling(w, h, quality, subsampling,
                                    subsampling=subsampling))
 
 
+# --- progressive, CMYK and YCCK ---------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["gray", "4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pillow_progressive_files_equal_pillow(size, mode):
+    """libjpeg's standard progressive script as Pillow writes it (the DC
+    at Al 1, the luma's bands 1-5 and 6-63 at Al 2 and the chroma's at Al
+    1, then the refinements), at each quality, with and without
+    ``optimize``, with restart markers every 3 blocks, every block and
+    every MCU row (each end-of-band run cut at a restart)."""
+    img = photo(*size, seed=size[0])
+    kw = {"progressive": True}
+    if mode == "gray":
+        img = img.convert("L")
+    else:
+        kw["subsampling"] = ("4:4:4", "4:2:2", "4:2:0").index(mode)
+    for quality in PROGRESSIVE_QUALITIES:
+        assert_like_pillow(pillow_jpeg(img, quality=quality, **kw))
+    for extra in ({"optimize": True}, {"restart_marker_blocks": 3},
+                  {"restart_marker_blocks": 1, "optimize": True},
+                  {"restart_marker_rows": 1}):
+        assert_like_pillow(pillow_jpeg(img, quality=75, **kw, **extra))
+
+
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["sequential", "progressive"])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pillow_cmyk_equals_pillow(size, progressive):
+    """Pillow's CMYK files (an Adobe marker with transform 0, the samples
+    written inverted and read back as "CMYK;I"), at 1x1 sampling and with
+    the first component at 2x2 (``subsampling=2``), with restart
+    markers."""
+    img = photo(*size, seed=3).convert("CMYK")
+    for kw in ({"quality": 75}, {"quality": 95, "subsampling": 2},
+               {"quality": 10}, {"restart_marker_blocks": 2}):
+        assert_like_pillow(pillow_jpeg(img, progressive=progressive, **kw))
+
+
+@settings(max_examples=12, deadline=None)
+@given(w=st.integers(1, 70), h=st.integers(1, 70),
+       quality=st.integers(1, 100), subsampling=st.sampled_from([0, 1, 2]),
+       restart=st.sampled_from([0, 1, 4]), seed=st.integers(0, 2**16))
+def test_hypothesis_progressive(w, h, quality, subsampling, restart, seed):
+    assert_like_pillow(pillow_jpeg(photo(w, h, seed), quality=quality,
+                                   subsampling=subsampling, progressive=True,
+                                   restart_marker_blocks=restart))
+
+
+SCRIPT_SAMPLINGS = {"gray": [(1, 1)], "4:4:4": [(1, 1)] * 3,
+                    "4:2:0": [(2, 2), (1, 1), (1, 1)],
+                    "mixed": [(2, 2), (1, 2), (2, 1)]}
+
+
+@pytest.mark.parametrize("sampling", sorted(SCRIPT_SAMPLINGS))
+@pytest.mark.parametrize("script", sorted(JC.SCRIPTS))
+def test_progressive_scripts_equal_pillow(script, sampling):
+    """Scan scripts Pillow cannot write (``JC.SCRIPTS``): each DC in a
+    scan of its own, successive approximation of the DC (Al 2, 1, 0) and
+    of the AC from Al 2, bands refined over part of their range, and
+    scripts that stop after the DC or after band 1-5, which libjpeg
+    block-smooths; at sizes no multiple of the MCU (40 rows leave a
+    padding block row of the 4:2:0 luma that the smoothing reads), without
+    restarts and with restart intervals of 1 and 5 MCUs (end-of-band runs
+    cut at each restart)."""
+    sampling = SCRIPT_SAMPLINGS[sampling]
+    nc = len(sampling)
+    for w, h in [(8, 8), (17, 33), (40, 40)]:
+        planes = JC.sample_planes(w, h, nc=nc, seed=w)
+        for restart in (0, 1, 5):
+            assert_like_pillow(JC.write_jpeg(
+                planes, sampling, quality=60, restart=restart,
+                scans=JC.script_for(script, nc)))
+
+
+FOUR = {"cmyk_adobe": {"app": "adobe", "adobe_transform": 0},
+        "ycck": {"app": "adobe", "adobe_transform": 2},
+        "adobe_transform_1": {"app": "adobe", "adobe_transform": 1},
+        "no_adobe": {"app": "none"}, "jfif_no_adobe": {"app": "jfif"}}
+
+
+@pytest.mark.parametrize("frame", ["sequential", "progressive"])
+@pytest.mark.parametrize("header", sorted(FOUR))
+def test_four_components_as_libjpeg_guesses(header, frame):
+    """Four components: CMYK without an Adobe marker (a JFIF marker or
+    none) and under transform 0; YCCK under transform 2 and, with
+    libjpeg's warning, 1 (``jdcolor.c::ycck_cmyk_convert``); then Pillow's
+    "CMYK;I" and ``cmyk2rgb``. At 1x1 sampling and with the first and last
+    components at 2x2 and 2x1, in one interleaved scan, one scan a
+    component and three progressive scripts, with restart intervals."""
+    planes = JC.sample_planes(19, 11, nc=4)
+    for sampling in ([(1, 1)] * 4, [(2, 2), (1, 1), (1, 1), (2, 1)]):
+        if frame == "sequential":
+            for kw in ({}, {"interleaved": False, "restart": 2},
+                       {"restart": 1}):
+                assert_like_pillow(JC.write_jpeg(planes, sampling,
+                                                 **FOUR[header], **kw))
+        else:
+            for script in ("simple", "refine_al2", "dc_only"):
+                assert_like_pillow(JC.write_jpeg(
+                    planes, sampling, restart=3, **FOUR[header],
+                    scans=JC.script_for(script, 4)))
+
+
+def test_block_smoothing_only_where_bits_are_missing(monkeypatch):
+    """``smoothing_ok``: off for sequential and complete progressive
+    files, on for each script of ``JC.SMOOTHED``; where on, the image
+    differs from the plain IDCT's (except "band_1_5", whose band 1-5 is
+    exact and whose 6-9 libjpeg does not estimate without DC
+    interpolation), and Pillow agrees with the smoothed one."""
+    calls = []
+    smooth = JPEG.smooth_blocks
+    monkeypatch.setattr(JPEG, "smooth_blocks",
+                        lambda coef, c, rows: calls.append(c.id)
+                        or smooth(coef, c, rows))
+    planes = JC.sample_planes(40, 40, seed=3)
+    sampling = [(2, 2), (1, 1), (1, 1)]
+    files = {name: JC.write_jpeg(planes, sampling, quality=60,
+                                 scans=JC.script_for(name, 3))
+             for name in JC.SCRIPTS}
+    files["sequential"] = JC.write_jpeg(planes, sampling, quality=60)
+    files["pillow"] = pillow_jpeg(photo(40, 40), progressive=True)
+    for name, data in files.items():
+        calls.clear()
+        got = decode_jpeg_rgba(data, name)
+        np.testing.assert_array_equal(got, pillow_rgba(data), err_msg=name)
+        assert bool(calls) == (name in JC.SMOOTHED), name
+        if calls:
+            assert sorted(calls) == [1, 2, 3], name
+            with monkeypatch.context() as m:
+                m.setattr(JPEG, "smoothing_ok", lambda frame: False)
+                plain = decode_jpeg_rgba(data, name)
+            assert np.array_equal(plain, got) == (name == "band_1_5"), name
+
+
+def test_a_failed_native_build_raises(monkeypatch):
+    """Where ``g++`` is on ``PATH`` the decode takes the C++ entropy
+    decoder; a library that fails to build raises, and the decode does
+    not fall back to Python. Without ``g++`` it decodes in Python."""
+    data = pillow_jpeg(photo(16, 8), progressive=True)
+
+    def fail(cxx=None):
+        raise RuntimeError("g++ failed to build the native library")
+
+    monkeypatch.setattr(native._Lib, "handle", None)
+    monkeypatch.setattr(native, "build", fail)
+    monkeypatch.setattr(native, "native_available", lambda: True)
+    with pytest.raises(RuntimeError, match="failed to build"):
+        decode_jpeg_rgba(data, "x.jpg")
+    monkeypatch.setattr(native, "native_available", lambda: False)
+    np.testing.assert_array_equal(decode_jpeg_rgba(data, "x.jpg"),
+                                  pillow_rgba(data))
+
+
+def test_bad_progressive_scans_raise_naming_the_image():
+    """``start_pass_phuff_decoder``'s errors raise ``ValueError`` naming
+    the image: an AC scan of two components, a DC scan with Se > 0, Ss >
+    Se, a refinement whose Al is not Ah - 1, Al above 13. Its warnings (an
+    AC scan before any DC, a refinement out of turn) decode as Pillow
+    decodes them."""
+    planes = JC.sample_planes(16, 16)
+    sampling = [(1, 1)] * 3
+    dc = ((0, 1, 2), 0, 0, 0, 0)
+    for scan in (((0, 1), 1, 63, 0, 0), ((0,), 0, 5, 0, 0),
+                 ((0,), 9, 5, 0, 0), ((0,), 1, 63, 2, 0),
+                 ((0,), 1, 63, 0, 14)):
+        data = JC.write_jpeg(planes, sampling, scans=[dc, scan])
+        with pytest.raises(ValueError, match="bad.jpg: bad progressive"):
+            decode_jpeg_rgba(data, "bad.jpg")
+    for scans in ([((0,), 1, 63, 0, 0), dc],
+                  [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 63, 1, 0),
+                   ((0, 1, 2), 0, 0, 1, 0)]):
+        assert_like_pillow(JC.write_jpeg(planes, sampling, scans=scans))
+
+
 def test_progressive_cmyk_and_truncated_raise_naming_the_image():
-    img = photo(16, 16)
-    with pytest.raises(NotImplementedError, match="sky.jpg: progressive"):
-        decode_jpeg_rgba(pillow_jpeg(img, progressive=True), "sky.jpg")
-    with pytest.raises(NotImplementedError, match="ink.jpg: 4-component"):
-        decode_jpeg_rgba(pillow_jpeg(img.convert("CMYK")), "ink.jpg")
+    """Cut progressive, CMYK and baseline files raise ``ValueError``
+    naming the image through both entropy decoders; arithmetic-coded,
+    lossless, hierarchical and 12-bit frames ``NotImplementedError``;
+    more than 10 blocks a MCU, a bad progressive scan and bytes that are
+    no JPEG ``ValueError``. (Progressive and CMYK files decode: the cases
+    above.)"""
+    img = photo(64, 64)
+    for data in (pillow_jpeg(img, quality=90),
+                 pillow_jpeg(img, progressive=True),
+                 pillow_jpeg(img.convert("CMYK")),
+                 pillow_jpeg(img.convert("CMYK"), progressive=True,
+                             restart_marker_blocks=2)):
+        for cut in (len(data) // 2, len(data) - 40, 300):
+            for in_cxx in (True, False):
+                with pytest.raises(ValueError, match="cut.jpg: truncated"):
+                    decode_in(in_cxx, data[:cut], "cut.jpg")
     data = pillow_jpeg(photo(64, 64), quality=90)
-    for cut in (len(data) // 2, len(data) - 40, 300):
-        with pytest.raises(ValueError, match="cut.jpg: truncated"):
-            decode_jpeg_rgba(data[:cut], "cut.jpg")
     sof = data.index(b"\xff\xc0")
-    arithmetic = data[:sof + 1] + b"\xc9" + data[sof + 2:]
-    with pytest.raises(NotImplementedError, match="a.jpg: arithmetic"):
-        decode_jpeg_rgba(arithmetic, "a.jpg")
+    for marker, what in ((0xC9, "arithmetic"), (0xCA, "arithmetic"),
+                         (0xC3, "lossless"), (0xC5, "hierarchical")):
+        other = data[:sof + 1] + bytes([marker]) + data[sof + 2:]
+        with pytest.raises(NotImplementedError, match=f"a.jpg: {what}"):
+            decode_jpeg_rgba(other, "a.jpg")
     twelve = bytearray(data)
     twelve[sof + 4] = 12  # the frame's sample precision
     with pytest.raises(NotImplementedError, match="b.jpg: 12-bit"):
@@ -191,6 +400,39 @@ def test_progressive_cmyk_and_truncated_raise_naming_the_image():
                                        [(4, 4), (2, 2), (1, 1)]), "d.jpg")
     with pytest.raises(ValueError, match="c.jpg: not a JPEG"):
         decode_jpeg_rgba(b"\x89PNG\r\n\x1a\n", "c.jpg")
+
+
+def test_lossless_jpeg_pillow_reads_raises_naming_the_image():
+    """A lossless JPEG (SOF3) that ``JC.write_lossless_jpeg`` writes:
+    Pillow's libjpeg-turbo decodes it to the very samples, and the port,
+    which does not decode lossless frames, raises ``NotImplementedError``
+    naming the image (a known difference, ``ROADMAP.md`` A.1)."""
+    plane = JC.sample_planes(23, 17, nc=1)[0]
+    data = JC.write_lossless_jpeg(plane)
+    want = np.repeat(plane[..., None], 3, -1)
+    np.testing.assert_array_equal(pillow_rgba(data)[..., :3], want)
+    with pytest.raises(NotImplementedError, match="ll.jpg: lossless"):
+        decode_jpeg_rgba(data, "ll.jpg")
+
+
+@pytest.mark.parametrize("sampling", ["gray", "4:2:0", "4:4:4_apart"])
+def test_arithmetic_jpeg_pillow_reads_raises_naming_the_image(sampling):
+    """An arithmetic-coded sequential JPEG (SOF9) that ``JC.write_jpeg(
+    arithmetic=True)`` writes: Pillow's libjpeg-turbo decodes it to the
+    pixels of the Huffman-coded file of the same coefficients, and the
+    port, which does not decode arithmetic coding, raises
+    ``NotImplementedError`` naming the image (a known difference,
+    ``ROADMAP.md`` A.1)."""
+    factors, kw = {"gray": ([(1, 1)], {}),
+                   "4:2:0": ([(2, 2), (1, 1), (1, 1)], {}),
+                   "4:4:4_apart": ([(1, 1)] * 3, {"interleaved": False})}[
+                       sampling]
+    planes = JC.sample_planes(33, 17, nc=len(factors))
+    data = JC.write_jpeg(planes, factors, arithmetic=True, **kw)
+    np.testing.assert_array_equal(
+        pillow_rgba(data), pillow_rgba(JC.write_jpeg(planes, factors, **kw)))
+    with pytest.raises(NotImplementedError, match="ar.jpg: arithmetic"):
+        decode_jpeg_rgba(data, "ar.jpg")
 
 
 def test_images_are_sniffed_by_their_bytes(tmp_path):
@@ -216,18 +458,47 @@ def test_images_are_sniffed_by_their_bytes(tmp_path):
 # --- against the JAX package --------------------------------------------------
 
 
-@pytest.mark.parametrize("ratio", [0.5, 1.0])
-def test_jpeg_textures_build_the_jax_atlas(tmp_path, ratio):
-    """``textured_cornell()`` written to a .gltf whose images are JPEGs
-    (4:2:0, gray with custom tables, 4:4:4 with restart markers; one
-    declared image/png, the others with no MIME type): the port's atlas
-    equals the JAX ``build_atlas``'s, which decodes with Pillow."""
-    jpegs = [pillow_jpeg(photo(37, 21), quality=85),
-             pillow_jpeg(photo(16, 16, 1).convert("L"), optimize=True),
-             pillow_jpeg(photo(9, 30, 2), subsampling=0,
-                         restart_marker_blocks=1)]
+def kind_jpegs(kind: str) -> list:
+    """Three textures of one kind: "baseline" (4:2:0, gray with custom
+    tables, 4:4:4 with restart markers), "progressive" (the same three
+    progressive), "cmyk" (Pillow's, sequential, progressive, and with its
+    first component at 2x2 and restart markers) or "ycck" (written with an
+    Adobe marker of transform 2, one sequential, two progressive)."""
+    imgs = [photo(37, 21), photo(16, 16, 1), photo(9, 30, 2)]
+    if kind in ("baseline", "progressive"):
+        p = kind == "progressive"
+        return [pillow_jpeg(imgs[0], quality=85, progressive=p),
+                pillow_jpeg(imgs[1].convert("L"), optimize=True,
+                            progressive=p),
+                pillow_jpeg(imgs[2], subsampling=0, restart_marker_blocks=1,
+                            progressive=p)]
+    if kind == "cmyk":
+        return [pillow_jpeg(imgs[0].convert("CMYK"), quality=85),
+                pillow_jpeg(imgs[1].convert("CMYK"), progressive=True),
+                pillow_jpeg(imgs[2].convert("CMYK"), subsampling=2,
+                            restart_marker_blocks=1, progressive=True)]
+    ycck = {"app": "adobe", "adobe_transform": 2}
+    return [JC.write_jpeg(JC.sample_planes(37, 21, nc=4), [(2, 2)] + [(1, 1)]
+                          * 3, quality=85, **ycck),
+            JC.write_jpeg(JC.sample_planes(16, 16, nc=4, seed=1), [(1, 1)] * 4,
+                          scans=JC.script_for("simple", 4), **ycck),
+            JC.write_jpeg(JC.sample_planes(9, 30, nc=4, seed=2),
+                          [(1, 2), (1, 1), (1, 1), (1, 1)], restart=1,
+                          scans=JC.script_for("refine_al2", 4), **ycck)]
+
+
+@pytest.mark.parametrize("kind,ratio", [
+    *[pytest.param("baseline", r, id=str(r)) for r in (0.5, 1.0)],
+    *[pytest.param(k, r, id=f"{k}-{r}") for k in ("progressive", "cmyk",
+                                                  "ycck")
+      for r in (0.5, 1.0)]])
+def test_jpeg_textures_build_the_jax_atlas(tmp_path, kind, ratio):
+    """``textured_cornell()`` written to a .gltf whose images are JPEGs of
+    one kind (``kind_jpegs``; one declared image/png, the others with no
+    MIME type): the port's atlas equals the JAX ``build_atlas``'s, which
+    decodes with Pillow."""
     gltf = json.loads(with_jpeg_images(scene_to_glb(textured_cornell()),
-                                       jpegs))
+                                       kind_jpegs(kind)))
     assert len(gltf["images"]) >= 2
     gltf["images"][0]["mimeType"] = "image/png"
     path = tmp_path / "textured.gltf"
@@ -238,18 +509,17 @@ def test_jpeg_textures_build_the_jax_atlas(tmp_path, ratio):
     assert got_rects == want_rects
 
 
-def test_jpeg_env_map_equals_jax_and_renders_like_it(tmp_path):
-    """A JPEG map named .png: ``load_env_image`` equals the JAX one
-    (Pillow), and a 24x24, 2-spp render of the open material box under it,
-    set through ``RenderConfig.env_map``, is held to the JAX ``Renderer``
-    with the bars of ``tests/test_torch_env.py``: >= 99% of pixels within
-    5e-4 of the JAX image or, where not, within 2e-3 of the scalar
-    oracle's mean, at most 5 off both, the means within 1e-3."""
-    rng = np.random.default_rng(9)
-    sky = (rng.random((32, 64, 3)) * 255).astype(np.uint8)
+def env_case(tmp_path, data: bytes) -> None:
+    """A JPEG map named .png: ``read_png`` and ``load_env_image`` equal
+    the JAX ones (Pillow), and a 24x24, 2-spp render of the open material
+    box under it, set through ``RenderConfig.env_map``, is held to the JAX
+    ``Renderer`` with the bars of ``tests/test_torch_env.py``: >= 99% of
+    pixels within 5e-4 of the JAX image or, where not, within 2e-3 of the
+    scalar oracle's mean, at most 5 off both, the means within 1e-3."""
     path = str(tmp_path / "sky.png")
     with open(path, "wb") as f:
-        f.write(pillow_jpeg(Image.fromarray(sky), quality=80))
+        f.write(data)
+    np.testing.assert_array_equal(IMAGE.read_png(path), JIMAGE.read_png(path))
     env = ENV.load_env_image(path)
     np.testing.assert_array_equal(env, JENV.load_env_image(path))
     r = Renderer(RenderConfig(width=24, height=24, max_bounces=2,
@@ -276,6 +546,35 @@ def test_jpeg_env_map_equals_jax_and_renders_like_it(tmp_path):
     assert abs(buf.mean() / ref.mean() - 1.0) < 1e-3
 
 
+def sky(kind: str) -> bytes:
+    """A 32x64 noisy sky as a JPEG of ``kind``: "baseline" or "progressive"
+    (Pillow, quality 80), "cmyk" (Pillow, progressive) or "ycck" (written,
+    progressive, with restart intervals)."""
+    rng = np.random.default_rng(9)
+    img = Image.fromarray((rng.random((32, 64, 3)) * 255).astype(np.uint8))
+    if kind in ("baseline", "progressive"):
+        return pillow_jpeg(img, quality=80, progressive=kind == "progressive")
+    if kind == "cmyk":
+        return pillow_jpeg(img.convert("CMYK"), quality=80, progressive=True)
+    planes = [*np.moveaxis(np.asarray(img), -1, 0),
+              JC.sample_planes(64, 32, nc=4)[3]]
+    return JC.write_jpeg(planes, [(2, 2), (1, 1), (1, 1), (1, 1)], restart=2,
+                         app="adobe", adobe_transform=2,
+                         scans=JC.script_for("simple", 4))
+
+
+def test_jpeg_env_map_equals_jax_and_renders_like_it(tmp_path):
+    """``env_case`` on a baseline JPEG map."""
+    env_case(tmp_path, sky("baseline"))
+
+
+@pytest.mark.parametrize("kind", ["progressive", "cmyk", "ycck"])
+def test_jpeg_env_map_of_every_kind_equals_jax_and_renders_like_it(tmp_path,
+                                                                   kind):
+    """``env_case`` on a progressive, a CMYK and a YCCK map."""
+    env_case(tmp_path, sky(kind))
+
+
 def test_committed_jpegs_equal_their_pillow_decode():
     """The small JPEGs under ``tests/jpeg/`` (the card's check of the reader,
     where there is no Pillow) still decode as Pillow decodes them here and
@@ -289,3 +588,25 @@ def test_committed_jpegs_equal_their_pillow_decode():
         np.testing.assert_array_equal(decode_jpeg_rgba(data, name), want,
                                       err_msg=name)
     assert JPEG_DIR.endswith("jpeg")
+
+
+def test_committed_timing_jpegs_equal_their_pillow_digest():
+    """The 1024^2 and 2048^2 files under ``tests/jpeg``, sequential and
+    progressive (the card host's timing of the reader), decode to the
+    SHA-256 of Pillow's decode that ``pillow_sha256.json`` holds, and
+    Pillow here still decodes them so."""
+    import hashlib
+
+    from chip_smoke import JPEG_DIR
+
+    with open(f"{JPEG_DIR}/pillow_sha256.json") as f:
+        digests = json.load(f)
+    assert sorted(digests) == ["timing_1024.jpg", "timing_2048.jpg",
+                               "timing_progressive_1024.jpg",
+                               "timing_progressive_2048.jpg"]
+    for name, digest in digests.items():
+        with open(f"{JPEG_DIR}/{name}", "rb") as f:
+            data = f.read()
+        got = decode_jpeg_rgba(data, name)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == digest, name
+        np.testing.assert_array_equal(got, pillow_rgba(data), err_msg=name)

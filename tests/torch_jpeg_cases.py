@@ -1,13 +1,19 @@
-"""A small baseline JPEG writer for the decoder's tests: the files Pillow
-cannot write (4:4:0, 4:1:1 and mixed sampling factors, one scan per
-component, 16-bit quantization tables, an Adobe RGB marker or only
-component ids, restart intervals on any MCU count). Each file is decoded by
+"""A small JPEG writer for the decoder's tests: the files Pillow cannot
+write (4:4:0, 4:1:1 and mixed sampling factors, one scan per component,
+16-bit quantization tables, an Adobe RGB marker or only component ids,
+restart intervals on any MCU count, 4 components under any Adobe transform
+or none, progressive scan scripts of any shape). Each file is decoded by
 Pillow and by ``utils/jpeg.py``; only the decoders are compared, so this
 writer's own arithmetic (a float DCT, box downsampling) need not match any
 encoder's.
 
-The Huffman tables are the standard ones (ISO 10918-1 Annex K.3), read
-from the DHT segments of a file Pillow writes without ``optimize``.
+A sequential file uses the standard Huffman tables (ISO 10918-1 Annex
+K.3), read from the DHT segments of a file Pillow writes without
+``optimize``. A progressive file (``scans=``) is coded as libjpeg's
+``jcphuff.c`` codes it, end-of-band runs and buffered correction bits
+included, with tables made for each scan from its symbol counts
+(``jchuff.c::jpeg_gen_optimal_table``), since the standard AC tables have
+no EOBn symbols.
 """
 
 from __future__ import annotations
@@ -111,13 +117,18 @@ def _category(v: int) -> int:
 def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
                restart: int = 0, interleaved: bool = True,
                quant16: bool = False, app: str = "jfif",
-               adobe_transform: int = 1) -> bytes:
-    """A baseline JPEG of the full-size uint8 ``planes`` (1 or 3, each
-    (H, W)) with ``sampling`` [(h, v)] a component; ``ids`` the component
-    ids (1, 2, 3 by default); ``restart`` MCUs a restart interval;
+               adobe_transform: int = 1, scans=None,
+               arithmetic: bool = False) -> bytes:
+    """A JPEG of the full-size uint8 ``planes`` (1, 3 or 4, each (H, W))
+    with ``sampling`` [(h, v)] a component; ``ids`` the component ids (1,
+    2, 3... by default); ``restart`` MCUs a restart interval;
     ``interleaved`` False writes one scan a component; ``quant16`` writes
     16-bit quantization tables; ``app`` "jfif", "adobe" (with
-    ``adobe_transform``) or "none"."""
+    ``adobe_transform``) or "none". ``scans``, a progressive script
+    [(component indices, Ss, Se, Ah, Al)], writes a progressive frame
+    (SOF2) of those scans instead of a sequential one; ``arithmetic``
+    codes a sequential file with ``jcarith.c``'s QM coder (SOF9, no
+    restart intervals) instead of Huffman tables."""
     planes = [np.asarray(p, np.float64) for p in planes]
     nc = len(planes)
     h, w = planes[0].shape
@@ -163,9 +174,22 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
     sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(
         bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], min(c, 1)])
         for c in range(nc))
-    segment(0xC1 if quant16 else 0xC0, sof)
+    if scans is not None:
+        segment(0xC2, sof)
+        if restart:
+            segment(0xDD, struct.pack(">H", restart))
+        for scan in scans:
+            _progressive_scan(out, segment, scan, grids, sampling, ids,
+                              restart, mx, my)
+        out.extend(b"\xff\xd9")
+        return bytes(out)
+    if arithmetic and restart:
+        raise ValueError("the arithmetic writer has no restart intervals")
+    segment(0xC9 if arithmetic else 0xC1 if quant16 else 0xC0, sof)
     for (tc, th), (counts, symbols) in tables.items():
-        segment(0xC4, bytes([tc << 4 | th]) + bytes(counts) + bytes(symbols))
+        if not arithmetic:
+            segment(0xC4, bytes([tc << 4 | th]) + bytes(counts)
+                    + bytes(symbols))
     if restart:
         segment(0xDD, struct.pack(">H", restart))
 
@@ -208,6 +232,17 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
                           for v in range(sampling[c][1])
                           for u in range(sampling[c][0])]) for c in comps]
                     for y in range(my) for x in range(mx)]
+        if arithmetic:  # statistics start at 0 in every scan
+            ar = _Arith()
+            state = {"dc": [[0] * 64, [0] * 64], "ac": [[0] * 256, [0] * 256],
+                     "fixed": [113], "ctx": {}, "last": {}}
+            for mcu in mcus:
+                for c, cells in mcu:
+                    for by, bx in cells:
+                        _arith_block(ar, grids[c][0][by, bx], c, min(c, 1),
+                                     state)
+            out.extend(ar.finish())
+            continue
         bits, preds = _Bits(), {}
         for m, mcu in enumerate(mcus):
             if restart and m and m % restart == 0:
@@ -223,26 +258,497 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
     return bytes(out)
 
 
+def optimal_table(freq) -> tuple:
+    """``jchuff.c::jpeg_gen_optimal_table``: (counts, symbols) of a Huffman
+    table for symbol counts ``freq`` (256), codes at most 16 bits, no code
+    all ones."""
+    freq = list(freq) + [1]  # the reserved symbol 256
+    codesize, others = [0] * 257, [-1] * 257
+    while True:
+        c1 = c2 = -1
+        v = 1 << 62
+        for i in range(257):
+            if freq[i] and freq[i] <= v:
+                v, c1 = freq[i], i
+        v = 1 << 62
+        for i in range(257):
+            if freq[i] and freq[i] <= v and i != c1:
+                v, c2 = freq[i], i
+        if c2 < 0:
+            break
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        codesize[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            codesize[c1] += 1
+        others[c1] = c2
+        codesize[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            codesize[c2] += 1
+    bits = [0] * 33
+    for size in codesize:
+        if size:
+            bits[size] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    symbols = [j for size in range(1, 33) for j in range(256)
+               if codesize[j] == size]
+    return bits[1:17], symbols
+
+
+MAX_CORR_BITS = 1000  # jcphuff.c: the correction-bit buffer
+
+
+def _progressive_scan(out, segment, scan, grids, sampling, ids, restart, mx,
+                      my) -> None:
+    """One progressive scan, coded as ``jcphuff.c`` codes it: its DHT
+    segment (tables from its own symbol counts), its SOS, its data."""
+    comps, ss, se, ah, al = scan
+    table_of = {c: min(c, 1) for c in comps}
+    if len(comps) == 1:
+        grid, cw, ch = grids[comps[0]]
+        mcus = [[(comps[0], [(by, bx)])] for by in range(-(-ch // 8))
+                for bx in range(-(-cw // 8))]
+    else:
+        mcus = [[(c, [(y * sampling[c][1] + v, x * sampling[c][0] + u)
+                      for v in range(sampling[c][1])
+                      for u in range(sampling[c][0])]) for c in comps]
+                for y in range(my) for x in range(mx)]
+    events = []  # ("s", table key, symbol), ("b", value, bits), ("r", n)
+    state = {"eobrun": 0, "be": [], "preds": {}}
+    key_ac = (1, table_of[comps[0]])
+
+    def emit_eobrun():
+        run = state["eobrun"]
+        if run:
+            nbits = run.bit_length() - 1
+            events.append(("s", key_ac, nbits << 4))
+            if nbits:
+                events.append(("b", run & ((1 << nbits) - 1), nbits))
+            state["eobrun"] = 0
+            events.extend(("b", bit, 1) for bit in state["be"])
+            state["be"] = []
+
+    def dc_first(c, zz):
+        t = int(zz[0]) >> al
+        diff = t - state["preds"].get(c, 0)
+        state["preds"][c] = t
+        s = _category(diff)
+        events.append(("s", (0, table_of[c]), s))
+        if s:
+            events.append(("b", diff if diff > 0 else diff + (1 << s) - 1,
+                           s))
+
+    def ac_first(zz):
+        r = 0
+        for k in range(ss, se + 1):
+            v = int(zz[k])
+            t = abs(v) >> al
+            if t == 0:
+                r += 1
+                continue
+            emit_eobrun()
+            while r > 15:
+                events.append(("s", key_ac, 0xF0))
+                r -= 16
+            nbits = t.bit_length()
+            events.append(("s", key_ac, (r << 4) + nbits))
+            events.append(("b", (t if v > 0 else ~t) & ((1 << nbits) - 1),
+                           nbits))
+            r = 0
+        if r:
+            state["eobrun"] += 1
+            if state["eobrun"] == 0x7FFF:
+                emit_eobrun()
+
+    def ac_refine(zz):
+        absval = {k: abs(int(zz[k])) >> al for k in range(ss, se + 1)}
+        eob = max([k for k, t in absval.items() if t == 1], default=0)
+        r, br = 0, []
+        for k in range(ss, se + 1):
+            t = absval[k]
+            if t == 0:
+                r += 1
+                continue
+            while r > 15 and k <= eob:
+                emit_eobrun()
+                events.append(("s", key_ac, 0xF0))
+                r -= 16
+                events.extend(("b", bit, 1) for bit in br)
+                br = []
+            if t > 1:
+                br.append(t & 1)
+                continue
+            emit_eobrun()
+            events.append(("s", key_ac, (r << 4) + 1))
+            events.append(("b", 1 if zz[k] > 0 else 0, 1))
+            events.extend(("b", bit, 1) for bit in br)
+            br, r = [], 0
+        if r or br:
+            state["eobrun"] += 1
+            state["be"] += br
+            if (state["eobrun"] == 0x7FFF
+                    or len(state["be"]) > MAX_CORR_BITS - 64 + 1):
+                emit_eobrun()
+
+    for m, mcu in enumerate(mcus):
+        if restart and m and m % restart == 0:
+            emit_eobrun()
+            events.append(("r", (m // restart - 1) % 8, 0))
+            state["preds"] = {}
+        for c, cells in mcu:
+            for by, bx in cells:
+                zz = grids[c][0][by, bx]
+                if ss == 0 and ah == 0:
+                    dc_first(c, zz)
+                elif ss == 0:
+                    events.append(("b", (int(zz[0]) >> al) & 1, 1))
+                elif ah == 0:
+                    ac_first(zz)
+                else:
+                    ac_refine(zz)
+    emit_eobrun()
+    freqs = {}
+    for kind, key, sym in events:
+        if kind == "s":
+            freqs.setdefault(key, [0] * 256)[sym] += 1
+    tables = {key: optimal_table(f) for key, f in sorted(freqs.items())}
+    if tables:
+        segment(0xC4, b"".join(bytes([tc << 4 | th]) + bytes(counts)
+                               + bytes(symbols)
+                               for (tc, th), (counts, symbols)
+                               in tables.items()))
+    codes = {key: _codes(*val) for key, val in tables.items()}
+    segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([ids[c], table_of[c] << 4 | table_of[c]]) for c in comps)
+        + bytes([ss, se, ah << 4 | al]))
+    bits = _Bits()
+    for kind, a, b in events:
+        if kind == "s":
+            bits.put(*codes[a][b])
+        elif kind == "b":
+            bits.put(a, b)
+        else:
+            out.extend(bits.flush())
+            out.extend(bytes([0xFF, 0xD0 + a]))
+    out.extend(bits.flush())
+
+
+def write_lossless_jpeg(plane) -> bytes:
+    """A lossless JPEG (SOF3, ISO 10918-1 Annex H) of one uint8 (H, W)
+    plane: predictor 1 (the sample to the left; the one above in the first
+    column; 128 first), no point transform, one Huffman table made from
+    the differences' categories."""
+    x = np.asarray(plane, np.int64)
+    h, w = x.shape
+    pred = np.zeros_like(x)
+    pred[0, 0] = 128
+    pred[0, 1:] = x[0, :-1]
+    pred[1:, 0] = x[:-1, 0]
+    pred[1:, 1:] = x[1:, :-1]
+    diffs = (x - pred).reshape(-1).tolist()
+    cats = [_category(d) for d in diffs]
+    freq = [0] * 256
+    for c in cats:
+        freq[c] += 1
+    counts, symbols = optimal_table(freq)
+    codes = _codes(counts, symbols)
+    out = bytearray(b"\xff\xd8")
+
+    def segment(marker: int, body: bytes) -> None:
+        out.extend(struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body)
+
+    segment(0xC3, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
+    segment(0xC4, bytes([0]) + bytes(counts) + bytes(symbols))
+    segment(0xDA, bytes([1, 1, 0, 1, 0, 0]))  # predictor 1, Se 0, Pt 0
+    bits = _Bits()
+    for d, s in zip(diffs, cats):
+        bits.put(*codes[s])
+        if s:
+            bits.put(d if d > 0 else d + (1 << s) - 1, s)
+    out.extend(bits.flush())
+    out.extend(b"\xff\xd9")
+    return bytes(out)
+
+
+# ISO 10918-1 Table D.2, the arithmetic coder's probability states, packed
+# as libjpeg's jaricom.c packs them: Qe << 16 | Next_Index_MPS << 8 |
+# Switch_MPS << 7 | Next_Index_LPS; the last, 113, is the fixed 0.5 state.
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+
+
+class _Arith:
+    """``jcarith.c``'s QM coder: ``encode`` one binary decision in a
+    statistics bin (a list and an index), ``finish`` the scan's bytes
+    (0xFF stuffed)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.a, self.c, self.ct = 0x10000, 0, 11
+        self.sc = self.zc = 0
+        self.buffer = -1
+
+    def _zeros(self):
+        self.out.extend(bytes(self.zc))
+        self.zc = 0
+
+    def _put(self, b):
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def _flush_stacked(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self.out.append(self.buffer)
+        if self.sc:
+            self._zeros()
+            self.out.extend(b"\xff\x00" * self.sc)
+            self.sc = 0
+
+    def _carry(self):
+        if self.buffer >= 0:
+            self._zeros()
+            self._put(self.buffer + 1)
+        self.zc += self.sc
+        self.sc = 0
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:  # the less probable symbol
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:  # renormalization and output (D.1.5)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._carry()
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_stacked()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                return
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            self._carry()
+        else:
+            self._flush_stacked()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._put((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._put((self.c >> 11) & 0xFF)
+        return bytes(self.out)
+
+
+def _arith_magnitude(ar, stats, st, v, x1, ac):
+    """Figures F.8 and F.9: v (a magnitude less 1) as its category, in bin
+    ``st`` and then from ``x1`` on (an AC coefficient's second decision
+    stays in ``st``, a DC's moves to ``x1``), then its bits below the
+    leading one."""
+    m = 0
+    if v:
+        ar.encode(stats, st, 1)
+        m, v2 = 1, v >> 1
+        if ac and v2:
+            ar.encode(stats, st, 1)
+            m, v2 = 2, v2 >> 1
+        st = x1 if (m > 1 or not ac) else st
+        while v2:
+            ar.encode(stats, st, 1)
+            m <<= 1
+            st += 1
+            v2 >>= 1
+    ar.encode(stats, st, 0)
+    st += 14
+    m >>= 1
+    while m:
+        ar.encode(stats, st, 1 if m & v else 0)
+        m >>= 1
+
+
+def _arith_block(ar, zz, comp, tbl, state):
+    """``jcarith.c::encode_mcu`` on one block (zigzag ``zz``) at the
+    default conditioning (DC L = 0, U = 1; AC K = 5)."""
+    dc, ac = state["dc"][tbl], state["ac"][tbl]
+    s0 = state["ctx"].get(comp, 0)
+    v = int(zz[0]) - state["last"].get(comp, 0)
+    if v == 0:
+        ar.encode(dc, s0, 0)
+        state["ctx"][comp] = 0
+    else:
+        state["last"][comp] = int(zz[0])
+        ar.encode(dc, s0, 1)
+        ar.encode(dc, s0 + 1, 0 if v > 0 else 1)
+        st, ctx, v = (s0 + 2, 4, v) if v > 0 else (s0 + 3, 8, -v)
+        category = (v - 1).bit_length()  # m = 2^(category - 1), 0 for 0
+        if category > 1:  # m > (1 << U) >> 1
+            ctx += 8
+        state["ctx"][comp] = ctx
+        _arith_magnitude(ar, dc, st, v - 1, 20, ac=False)
+    ke = max([k for k in range(1, 64) if zz[k]], default=0)
+    k = 1
+    while k <= ke:
+        st = 3 * (k - 1)
+        ar.encode(ac, st, 0)
+        while int(zz[k]) == 0:
+            ar.encode(ac, st + 1, 0)
+            st += 3
+            k += 1
+        ar.encode(ac, st + 1, 1)
+        v = int(zz[k])
+        ar.encode(state["fixed"], 0, 0 if v > 0 else 1)
+        _arith_magnitude(ar, ac, st + 2, abs(v) - 1, 189 if k <= 5 else 217,
+                         ac=True)
+        k += 1
+    if k <= 63:
+        ar.encode(ac, 3 * (k - 1), 1)
+
+
+# Scan scripts [(components, Ss, Se, Ah, Al)] for three components.
+SCRIPTS = {
+    # jcparam.c jpeg_simple_progression's YCbCr script, as Pillow writes it
+    "simple": [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+               ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+               ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+               ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+               ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)],
+    # spectral selection only, the DC of each component in a scan of its own
+    "dc_apart": [((0,), 0, 0, 0, 0), ((2,), 0, 0, 0, 0), ((1,), 0, 0, 0, 0),
+                 ((0,), 1, 2, 0, 0), ((0,), 3, 63, 0, 0),
+                 ((1,), 1, 63, 0, 0), ((2,), 1, 63, 0, 0)],
+    # DC in three passes (Al 2, 1, 0), the AC refined from Al 2
+    "refine_al2": [((0, 1, 2), 0, 0, 0, 2), ((0, 1, 2), 0, 0, 2, 1),
+                   ((0, 1, 2), 0, 0, 1, 0), ((0,), 1, 63, 0, 2),
+                   ((1,), 1, 9, 0, 2), ((1,), 10, 63, 0, 1),
+                   ((2,), 1, 63, 0, 0), ((0,), 1, 63, 2, 1),
+                   ((1,), 1, 9, 2, 1), ((0,), 1, 63, 1, 0),
+                   ((1,), 1, 63, 1, 0)],
+    # the chroma DC interleaved, the luma's apart and refined
+    "pairs": [((0,), 0, 0, 0, 1), ((1, 2), 0, 0, 0, 0), ((0,), 0, 0, 1, 0),
+              ((0,), 1, 63, 0, 1), ((0,), 1, 63, 1, 0), ((1,), 1, 63, 0, 0),
+              ((2,), 1, 63, 0, 0)],
+    # stopped early: block smoothing estimates the missing coefficients
+    "dc_only": [((0, 1, 2), 0, 0, 0, 0)],
+    "dc_al1": [((0, 1, 2), 0, 0, 0, 1)],
+    "band_1_5": [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 5, 0, 0),
+                 ((1,), 1, 5, 0, 0), ((2,), 1, 5, 0, 0)],
+    "band_1_5_al1": [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 1),
+                     ((1,), 1, 63, 0, 0), ((2,), 1, 2, 0, 2)],
+    "luma_dc_only": [((0, 1, 2), 0, 0, 0, 0), ((1,), 1, 63, 0, 0),
+                     ((2,), 1, 63, 0, 0)],
+    "simple_no_refine": [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                         ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                         ((0,), 6, 63, 0, 2)],
+    # each DC in a scan of its own (padding blocks stay zero), then stopped
+    "dc_apart_band": [((0,), 0, 0, 0, 1), ((1,), 0, 0, 0, 0),
+                      ((2,), 0, 0, 0, 0), ((0,), 1, 5, 0, 1)],
+}
+SMOOTHED = ("dc_only", "dc_al1", "band_1_5", "band_1_5_al1", "luma_dc_only",
+            "simple_no_refine", "dc_apart_band")
+
+
+def script_for(name: str, nc: int) -> list:
+    """``SCRIPTS[name]`` for ``nc`` components: component indices past the
+    last are dropped (1: the gray image's own scans), a fourth component
+    joins the interleaved DC scans and gets the luma's AC scans."""
+    out = []
+    for comps, ss, se, ah, al in SCRIPTS[name]:
+        comps = tuple(c for c in comps if c < nc)
+        if not comps:
+            continue
+        joins = nc == 4 and ss == 0 and 0 in comps and len(comps) > 1
+        out.append((comps + (3,) if joins else comps, ss, se, ah, al))
+        if nc == 4 and 0 in comps and not joins:
+            out.append(((3,), ss, se, ah, al))
+    return out
+
+
 def sample_planes(w: int, h: int, nc: int = 3, seed: int = 0,
                   noise: int = 30):
     """Smooth gradients with noise: edges and flat runs for the decoder."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     planes = [(xx * 7 + yy * 3) % 256, (xx * 2 + 255 - yy * 5) % 256,
-              128 + 100 * np.sin(xx / 3.0) * np.cos(yy / 5.0)]
+              128 + 100 * np.sin(xx / 3.0) * np.cos(yy / 5.0),
+              (xx * yy) % 200 + 30]
     return [np.clip(p + rng.integers(-noise, noise, p.shape), 0, 255).astype(
         np.uint8) for p in planes[:nc]]
 
 
 def write_fixtures(directory: str) -> None:
     """The JPEGs under ``tests/jpeg`` that ``chip_smoke.py`` checks the
-    reader with on the card's host, which has no Pillow: four small ones
-    (4:2:0; 4:4:4; 4:2:2 with restart markers; gray with custom Huffman
-    tables) with their Pillow decode in ``pillow_rgba.npz``, and a 1024^2
-    and a 2048^2 4:2:0 file, timed there, with the SHA-256 of their Pillow
-    decode in ``pillow_sha256.json``. Run ``python -m
-    tests.torch_jpeg_cases`` from the repository's root to write them
-    anew."""
+    reader with on the card's host, which has no Pillow, with their Pillow
+    decode in ``pillow_rgba.npz``: four small sequential ones (4:2:0;
+    4:4:4; 4:2:2 with restart markers; gray with custom Huffman tables);
+    the textures of the card's JPEG-textured box (a progressive 4:2:0 one,
+    a progressive CMYK one, a sequential CMYK one with restart markers, a
+    YCCK one and a progressive YCCK one, these two from ``write_jpeg``); a
+    block-smoothed one (a script stopped after band 1-5 at Al 1); and a
+    progressive 64x128 environment map. Then a 1024^2 and a 2048^2 4:2:0
+    file, sequential at quality 75 and progressive at quality 90, timed
+    there, with the SHA-256 of their Pillow decode in
+    ``pillow_sha256.json``. Run ``python -m tests.torch_jpeg_cases`` from
+    the repository's root to write them anew."""
     import hashlib
     import json
 
@@ -259,14 +765,21 @@ def write_fixtures(directory: str) -> None:
         return Image.fromarray(np.clip(base + rng.normal(0, 6, base.shape),
                                        0, 255).astype(np.uint8))
 
+    def decode(data):
+        with Image.open(io.BytesIO(data)) as ref:
+            return np.asarray(ref.convert("RGBA"))
+
+    def put(name, data):
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(data)
+        return decode(data)
+
     def save(name, im, **kw):
         buf = io.BytesIO()
         im.save(buf, "JPEG", **kw)
-        with open(os.path.join(directory, name), "wb") as f:
-            f.write(buf.getvalue())
-        with Image.open(buf) as ref:
-            return np.asarray(ref.convert("RGBA"))
+        return put(name, buf.getvalue())
 
+    sky = smooth(128, 12).resize((128, 64))
     small = {
         "albedo_420.jpg": save("albedo_420.jpg", photo(48, 40, 1, 20),
                                quality=85, subsampling=2),
@@ -278,14 +791,40 @@ def write_fixtures(directory: str) -> None:
         "emissive_gray_optimized.jpg": save(
             "emissive_gray_optimized.jpg", photo(24, 24, 4).convert("L"),
             quality=80, optimize=True),
+        "albedo_progressive_420.jpg": save(
+            "albedo_progressive_420.jpg", photo(48, 40, 7, 20), quality=85,
+            subsampling=2, progressive=True),
+        "pbr_cmyk_progressive.jpg": save(
+            "pbr_cmyk_progressive.jpg", photo(32, 32, 8, 40).convert("CMYK"),
+            quality=90, progressive=True),
+        "normal_cmyk_restart.jpg": save(
+            "normal_cmyk_restart.jpg", photo(40, 24, 9, 10).convert("CMYK"),
+            quality=75, restart_marker_blocks=2),
+        "emissive_ycck_420.jpg": put("emissive_ycck_420.jpg", write_jpeg(
+            sample_planes(24, 24, nc=4, seed=10),
+            [(2, 2), (1, 1), (1, 1), (1, 1)], quality=80, app="adobe",
+            adobe_transform=2)),
+        "roughness_ycck_progressive.jpg": put(
+            "roughness_ycck_progressive.jpg", write_jpeg(
+                sample_planes(36, 20, nc=4, seed=13),
+                [(2, 1), (1, 1), (1, 1), (2, 1)], quality=70, restart=3,
+                app="adobe", adobe_transform=2,
+                scans=script_for("refine_al2", 4))),
+        "albedo_smoothed.jpg": put("albedo_smoothed.jpg", write_jpeg(
+            sample_planes(40, 40, seed=11), [(2, 2), (1, 1), (1, 1)],
+            quality=70, scans=script_for("band_1_5_al1", 3))),
+        "env_progressive.jpg": save("env_progressive.jpg", sky, quality=90,
+                                    progressive=True),
     }
     np.savez_compressed(os.path.join(directory, "pillow_rgba.npz"), **small)
     digests = {}
     for n, seed in ((1024, 5), (2048, 6)):
-        name = f"timing_{n}.jpg"
-        rgba = save(name, smooth(n, seed), quality=75, subsampling=2)
-        digests[name] = hashlib.sha256(
-            np.ascontiguousarray(rgba).tobytes()).hexdigest()
+        for name, kw in ((f"timing_{n}.jpg", {"quality": 75}),
+                         (f"timing_progressive_{n}.jpg",
+                          {"quality": 90, "progressive": True})):
+            rgba = save(name, smooth(n, seed), subsampling=2, **kw)
+            digests[name] = hashlib.sha256(
+                np.ascontiguousarray(rgba).tobytes()).hexdigest()
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
 

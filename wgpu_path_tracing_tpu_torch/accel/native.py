@@ -1,9 +1,9 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Four sources,
-each the twin of a NumPy path of this package and bit-identical to it
-(``tests/test_torch_native.py``):
+The counterpart of the JAX package's ``accel/native.py``. Five sources,
+each the twin of a NumPy or Python path of this package and bit-identical
+to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
 * ``bvh_builder.cpp``: the SAH build of ``accel/bvh.py::build_bvh``;
 * ``wide_collapse.cpp``: the 8-wide collapse of ``accel/bvh8.py::
@@ -11,7 +11,9 @@ each the twin of a NumPy path of this package and bit-identical to it
 * ``flatten.cpp``: the glTF corner transform and gather of ``models/gltf.py::
   flatten_corners``, and the triangle reorder of ``models/assemble.py::
   finalize_scene``;
-* ``potpack.cpp``: ``models/potpack.py::potpack_python``.
+* ``potpack.cpp``: ``models/potpack.py::potpack_python``;
+* ``jpeg_scan.cpp``: the entropy decode of a JPEG scan, ``utils/jpeg.py::
+  decode_scan`` and its progressive MCU decoders.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -44,7 +46,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
-           "potpack.cpp")
+           "potpack.cpp", "jpeg_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -55,6 +57,7 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 # C signatures of the exported functions; each returns an int64.
 SIGNATURES = {
@@ -77,7 +80,14 @@ SIGNATURES = {
                          _I32P],
     # wh, n, out xy, out (width, height)
     "wpt_potpack": [_F64P, _I64, _F64P, _F64P],
+    # data, segment starts, segments, mode, Ss, Se, Al, MCUs, MCUs an
+    # interval, MCUs a row, blocks an MCU, each block's slot, offset, row
+    # stride, MCU width, DC and AC table; coefficient grids, tables
+    "wpt_jpeg_scan": [ctypes.c_char_p, _I64P, _I64, _I32, _I32, _I32, _I32,
+                      _I64, _I64, _I64, _I32, _I32P, _I64P, _I64P, _I64P,
+                      _I32P, _I32P, _PTRS, _PTRS],
 }
+JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 PACK_CODES = {"none": 0, "ffd": 1}
 
 
@@ -288,3 +298,51 @@ def reorder_tris_native(order, v0, v1, v2, n0, n1, n2, u0, u1, u2, mat):
         raise RuntimeError(f"native reorder failed (rc={rc}): the order is "
                            "not a permutation of the triangles")
     return (*outs3, *outs2, mo)
+
+
+def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
+                     mode: int, ss: int, se: int, al: int, name: str) -> None:
+    """One JPEG scan's entropy decode in C++ (``jpeg_scan.cpp``), into the
+    components' coefficient arrays in place: ``segments``, ``units``,
+    ``restart`` and ``n_mcus`` as ``utils/jpeg.py::decode_scan`` takes
+    them; ``mode`` 0 sequential, 1 DC first, 2 DC refinement, 3 AC first,
+    4 AC refinement. The same coefficients as the Python decoders; bad data
+    raises ``ValueError`` naming ``name``."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    if len(segments) < need:
+        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
+                         f"{need} restart intervals)")
+    segments = segments[:need]
+    starts = np.zeros(need + 1, np.int64)
+    starts[1:] = np.cumsum([len(s) for s in segments])
+    comps, tables, blocks = [], [], []
+
+    def index(items, x):
+        for i, y in enumerate(items):
+            if y is x:
+                return i
+        items.append(x)
+        return len(items) - 1
+
+    for comp, dct, act, offsets, row_stride, _ in units:
+        slot = index(comps, comp)
+        dc = -1 if dct is None else index(tables, dct)
+        ac = -1 if act is None else index(tables, act)
+        blocks += [(slot, o, row_stride, comp.mcu_w, dc, ac) for o in offsets]
+    cols = list(zip(*blocks))
+    slot, dc_tab, ac_tab = (np.asarray(cols[i], np.int32) for i in (0, 4, 5))
+    off, stride, mcu_w = (np.asarray(cols[i], np.int64) for i in (1, 2, 3))
+    coef_ptrs = (ctypes.c_void_p * len(comps))(
+        *[c.coef.buffer_info()[0] for c in comps])
+    lookups = [t.lookup for t in tables]
+    table_ptrs = (ctypes.c_void_p * max(len(lookups), 1))(
+        *[t.ctypes.data for t in lookups])
+    rc = lib().wpt_jpeg_scan(
+        b"".join(segments), _ptr(starts, _I64P), need, mode, ss, se, al,
+        n_mcus, interval, units[0][5], len(blocks), _ptr(slot, _I32P),
+        _ptr(off, _I64P), _ptr(stride, _I64P), _ptr(mcu_w, _I64P),
+        _ptr(dc_tab, _I32P), _ptr(ac_tab, _I32P),
+        ctypes.cast(coef_ptrs, _PTRS), ctypes.cast(table_ptrs, _PTRS))
+    if rc:
+        raise ValueError(f"{name}: {JPEG_STATUS.get(rc, f'decode error {rc}')}")

@@ -301,12 +301,19 @@ def denoise_image(color_hwc, aovs: dict, *, levels: int = 5,
     / max(albedo, DEMOD_EPS) is filtered, then remodulated; ``blend`` mixes
     raw and filtered per pixel (``variance_blend``), the raw weight capped
     at spp / (spp + 128) when ``spp`` is given. Runs on ``device``, by
-    default the guides' device (the CPU for NumPy guides); ``level`` as in
-    ``atrous_filter``. Returns (H, W, 3) float32 NumPy."""
+    default the guides' device, and for NumPy guides the card, as every
+    entry point of the package does: "cuda" without a card raises, and
+    ``device="cpu"`` runs on the CPU. ``level`` as in ``atrous_filter``.
+    Returns (H, W, 3) float32 NumPy."""
     h, w, _ = color_hwc.shape
     if device is None:
         guide = aovs["normal"]
-        device = guide.device if isinstance(guide, torch.Tensor) else "cpu"
+        device = guide.device if isinstance(guide, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("denoise_image: device 'cuda' (the default for "
+                           "NumPy guides) but CUDA is not available; pass "
+                           "device='cpu' to run on the CPU")
 
     def put(x, dtype, shape):
         return torch.as_tensor(np.asarray(x) if not isinstance(

@@ -84,8 +84,8 @@ def load_env_image(source) -> np.ndarray:
 
     ``source``: a NumPy array (used as it is), a Radiance .hdr, an
     uncompressed float OpenEXR (.exr, as ``utils/image.py::read_exr``
-    takes it), or a PNG or baseline JPEG (``utils/image.py::read_png``,
-    told apart by their bytes), decoded from sRGB with gamma 2.2 (the
+    takes it), or a PNG or a sequential or progressive JPEG
+    (``utils/image.py::read_png``, told apart by their bytes), decoded from sRGB with gamma 2.2 (the
     reference's texture convention, atlas.ts:143-147)."""
     from wgpu_path_tracing_tpu_torch.utils import image
 

@@ -1,36 +1,50 @@
-"""Baseline JPEG decoding in NumPy, the pixels Pillow gives.
+"""JPEG decoding in NumPy, the pixels Pillow gives.
 
 The JAX package reads JPEG textures and LDR environment maps with Pillow
 (``Image.open(...).convert("RGBA")``), which decodes with libjpeg-turbo at
 its defaults. This module decodes the same files to the same bytes:
 
-* frames: baseline and extended sequential Huffman (SOF0, SOF1) at 8 bits,
-  one scan or several, interleaved or not, with restart intervals (DRI,
-  RSTn), several DQT and DHT segments, any size;
-* components: 1 (gray, replicated, alpha 255) or 3: YCbCr, or RGB where an
+* frames: baseline and extended sequential Huffman (SOF0, SOF1) and
+  progressive Huffman (SOF2) at 8 bits, one scan or several, interleaved
+  or not, with restart intervals (DRI, RSTn), several DQT and DHT
+  segments, any size. Progressive scans follow ``jdphuff.c``: DC first and
+  refinement, AC first with end-of-band runs and AC refinement, any scan
+  script libjpeg accepts (its warnings change nothing, its errors raise);
+* components: 1 (gray, replicated, alpha 255), 3: YCbCr, or RGB where an
   Adobe marker says transform 0 (or, with neither a JFIF nor an Adobe
-  marker, the component ids are 'R', 'G', 'B'), as libjpeg guesses;
+  marker, the component ids are 'R', 'G', 'B'), as libjpeg guesses; or 4:
+  CMYK without an Adobe marker or under transform 0, YCCK under any other
+  transform (``jdcolor.c``'s ``ycck_cmyk_convert``), then Pillow's
+  "CMYK;I" inversion and its ``cmyk2rgb``;
 * every sampling factor libjpeg accepts (integer ratios to the largest);
 * libjpeg-turbo's default arithmetic: ``jidctint.c``'s integer IDCT
   (``JDCT_ISLOW``: CONST_BITS 13, PASS1_BITS 2, its range-limit table),
   ``jdsample.c``'s fancy (triangle) upsampling for h2v1, h1v2 and h2v2
   with its alternating rounding bias (box replication for a component two
-  samples wide or less under h2v1 and h2v2, and for other ratios), and
-  ``jdcolor.c``'s fixed-point YCbCr tables. libjpeg-turbo's SIMD paths
-  give these routines' results bit for bit.
+  samples wide or less under h2v1 and h2v2, and for other ratios),
+  ``jdcolor.c``'s fixed-point YCbCr tables, and ``jdcoefct.c``'s block
+  smoothing (libjpeg-turbo 2.1 and later: coefficients 1-9 estimated from a
+  5x5 neighbourhood of DC values) where a progressive file leaves bits of
+  those coefficients unsent. libjpeg-turbo's SIMD paths give these
+  routines' results bit for bit.
 
-EXIF orientation is ignored, as ``Image.open`` ignores it. Progressive,
-arithmetic-coded, lossless, hierarchical and 12-bit files, and 4-component
-(CMYK, YCCK) ones, raise ``NotImplementedError`` naming the image;
-truncated or malformed data raises ``ValueError`` naming it.
+EXIF orientation is ignored, as ``Image.open`` ignores it. Arithmetic-coded,
+lossless, hierarchical and 12-bit files raise ``NotImplementedError``
+naming the image; truncated or malformed data raises ``ValueError`` naming
+it.
 
-The entropy decode is serial: ``decode_scan`` walks the bits in Python
-over lookup tables that resolve a code and its extra bits at once. The
-IDCT, the upsampling and the colour conversion are whole-array NumPy.
+The entropy decode is serial. ``decode_scan`` (sequential) and the four
+progressive MCU decoders walk the bits in Python over lookup tables; they
+are the plain version of ``accel/cbvh/jpeg_scan.cpp``, which the native
+library runs wherever ``accel.native.native_available()`` (``g++`` on
+``PATH``; a failed build raises). A host without ``g++`` decodes in Python,
+several times slower on a progressive file. The IDCT, the smoothing,
+the upsampling and the colour conversion are whole-array NumPy.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 import struct
 from array import array
@@ -39,8 +53,9 @@ import numpy as np
 
 SOI, EOI, SOS, DQT, DHT, DRI, DNL = 0xD8, 0xD9, 0xDA, 0xDB, 0xC4, 0xDD, 0xDC
 SOF_SEQUENTIAL = (0xC0, 0xC1)
+SOF_PROGRESSIVE = (0xC2,)
 SOF_UNSUPPORTED = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
+    0xC3: "lossless", 0xC5: "hierarchical",
     0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
@@ -102,12 +117,15 @@ _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
 class HuffmanTable:
-    """A DHT table as three 65,536-entry lookups on the next 16 bits:
-    ``code`` gives (code length, symbol) for any code, 0 where no code
-    starts; ``dc`` (bits consumed, difference) and ``ac`` (bits consumed,
-    zero run, coefficient; run -1 at the end of block, 16 and no
-    coefficient at a run of 16 zeros) resolve a code and its extra bits
-    together where they fit in the 16 bits, and give 0 bits elsewhere."""
+    """A DHT table as lookups on the next 16 bits: ``lookup`` (int32, for
+    the C++ decoder) and ``code`` give (code length << 8 | symbol) for any
+    code, 0 where no code starts; ``dc`` (bits consumed, difference) and
+    ``ac`` (bits consumed, zero run, coefficient; run -1 at the end of
+    block, 16 and no coefficient at a run of 16 zeros) resolve a code and
+    its extra bits together where they fit in the 16 bits, and give 0 bits
+    elsewhere. The Python lists are made at first use: a progressive file
+    carries a table or two a scan, and the C++ decoder reads ``lookup``
+    only."""
 
     def __init__(self, counts, symbols):
         lengths = np.repeat(np.arange(1, 17), counts)
@@ -127,7 +145,16 @@ class HuffmanTable:
             lo = c << (16 - n)
             code_len[lo:lo + (1 << (16 - n))] = n
             code_sym[lo:lo + (1 << (16 - n))] = sym
-        self.code = (code_len << 8 | code_sym).tolist()
+        self.lookup = (code_len << 8 | code_sym).astype(np.int32)
+        self.max_symbol = int(symbols.max(initial=0))
+
+    @functools.cached_property
+    def code(self) -> list:
+        return self.lookup.tolist()
+
+    def _resolved(self):
+        code_len = self.lookup.astype(np.int64) >> 8
+        code_sym = self.lookup.astype(np.int64) & 255
         pattern = np.arange(1 << 16, dtype=np.int64)
         size = code_sym & 15
         total = code_len + size
@@ -137,21 +164,33 @@ class HuffmanTable:
                          raw - (1 << size) + 1, raw)
         value = np.where(size == 0, 0, value)
         used = np.where(fits, total, 0)
-        self.dc = list(zip(used.tolist(), value.tolist()))
+        return code_sym, size, used, value
+
+    @functools.cached_property
+    def dc(self) -> list:
+        _, _, used, value = self._resolved()
+        return list(zip(used.tolist(), value.tolist()))
+
+    @functools.cached_property
+    def ac(self) -> list:
+        code_sym, size, used, value = self._resolved()
         run = code_sym >> 4
         run = np.where(size > 0, run, np.where(run == 15, 16, -1))
-        self.ac = list(zip(used.tolist(), run.tolist(), value.tolist()))
+        return list(zip(used.tolist(), run.tolist(), value.tolist()))
 
 
 class Component:
     """A frame component: its id, sampling factors, quantization table
-    index, its block grid (the MCU-padded grid for interleaved scans) and
-    its coefficients, natural order, int32."""
+    index, its block grid (the MCU-padded grid for interleaved scans), its
+    coefficients, natural order, int32, and, in a progressive frame, the
+    point transform (Al) each zigzag coefficient was last sent at (-1:
+    never), libjpeg's ``coef_bits``."""
 
     def __init__(self, cid, h, v, tq):
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.quant = None  # latched at the component's first scan
         self.coef = None
+        self.coef_bits = [-1] * 64
 
 
 def _extend(v: int, s: int) -> int:
@@ -253,6 +292,181 @@ def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
         except IndexError:
             raise ValueError(f"{name}: truncated JPEG data") from None
         if p > 8 * len(segments[seg_i]):
+            raise ValueError(f"{name}: truncated JPEG data")
+
+
+def _wrap16(v: int) -> int:
+    """``v`` as libjpeg's JCOEF (int16) holds it."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+class _Reader:
+    """The bits of one restart interval's unstuffed bytes, read at bit
+    ``p``; past the end they are zeros, and the interval's check raises."""
+
+    __slots__ = ("win", "p", "name")
+
+    def __init__(self, segment: bytes, name: str):
+        self.win, self.p, self.name = _windows(segment), 0, name
+
+    def bits(self, n: int) -> int:
+        p = self.p
+        self.p = p + n
+        return (self.win[p >> 3] >> (32 - (p & 7) - n)) & ((1 << n) - 1)
+
+    def symbol(self, table: HuffmanTable) -> int:
+        p = self.p
+        e = table.code[(self.win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if not e:
+            raise ValueError(f"{self.name}: bad Huffman code")
+        self.p = p + (e >> 8)
+        return e & 255
+
+
+class _Progress:
+    """What a progressive scan carries from MCU to MCU within a restart
+    interval: the DC predictors (by component) and the end-of-band run."""
+
+    __slots__ = ("preds", "eobrun")
+
+    def __init__(self):
+        self.preds, self.eobrun = {}, 0
+
+
+def decode_mcu_DC_first(rd: _Reader, blocks: list, st: _Progress,
+                        al: int) -> None:
+    """``jdphuff.c::decode_mcu_DC_first``: each block's DC difference,
+    added to its component's predictor and stored shifted by ``Al``.
+    ``blocks``: (coefficients, offset of the block's first coefficient,
+    component, DC table, AC table) of each block of the MCU."""
+    for coef, base, comp, dct, _ in blocks:
+        s = rd.symbol(dct)
+        diff = _extend(rd.bits(s), s) if s else 0
+        pred = st.preds.get(comp, 0) + diff
+        st.preds[comp] = pred
+        coef[base] = _wrap16(pred << al)
+
+
+def decode_mcu_DC_refine(rd: _Reader, blocks: list, al: int) -> None:
+    """``decode_mcu_DC_refine``: one bit a block, OR-ed in at ``1 << Al``."""
+    p1 = 1 << al
+    for coef, base, *_ in blocks:
+        if rd.bits(1):
+            coef[base] |= p1
+
+
+def decode_mcu_AC_first(rd: _Reader, block: tuple, st: _Progress, ss: int,
+                        se: int, al: int) -> None:
+    """``decode_mcu_AC_first``: the band ``Ss..Se`` of one block, each
+    coefficient shifted by ``Al``; EOBr opens a run of blocks whose band
+    is all zero, this one included: 2^r plus the value of the next r
+    bits."""
+    if st.eobrun:
+        st.eobrun -= 1
+        return
+    coef, base, _, _, act = block
+    zz = NATURAL_ORDER
+    k = ss
+    while k <= se:
+        rs = rd.symbol(act)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            coef[base + zz[k]] = _wrap16(_extend(rd.bits(s), s) << al)
+        elif r == 15:
+            k += 15
+        else:
+            run = 1 << r
+            if r:
+                run += rd.bits(r)
+            st.eobrun = run - 1
+            break
+        k += 1
+
+
+def decode_mcu_AC_refine(rd: _Reader, block: tuple, st: _Progress, ss: int,
+                         se: int, al: int) -> None:
+    """``decode_mcu_AC_refine``: a correction bit for each coefficient of
+    the band that already has a history, and each newly nonzero one, +-(1
+    << Al), placed after its run of zero-history positions; inside an
+    end-of-band run only the correction bits."""
+    coef, base, _, _, act = block
+    zz = NATURAL_ORDER
+    p1, m1 = 1 << al, -1 << al
+    k = ss
+    if not st.eobrun:
+        while k <= se:
+            rs = rd.symbol(act)
+            r, s = rs >> 4, rs & 15
+            if s:  # a symbol of size other than 1 is a warning only
+                s = p1 if rd.bits(1) else m1
+            elif r != 15:
+                st.eobrun = 1 << r
+                if r:
+                    st.eobrun += rd.bits(r)
+                break
+            while True:  # jdphuff.c's do-while over the band
+                pos = base + zz[k]
+                v = coef[pos]
+                if v:
+                    if rd.bits(1) and not v & p1:
+                        coef[pos] = _wrap16(v + (p1 if v >= 0 else m1))
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+                if k > se:
+                    break
+            if s:
+                coef[base + zz[k]] = s
+            k += 1
+    if st.eobrun:
+        while k <= se:
+            pos = base + zz[k]
+            v = coef[pos]
+            if v and rd.bits(1) and not v & p1:
+                coef[pos] = _wrap16(v + (p1 if v >= 0 else m1))
+            k += 1
+        st.eobrun -= 1
+
+
+def decode_progressive_scan(segments: list, units: list, restart: int,
+                            n_mcus: int, ss: int, se: int, ah: int, al: int,
+                            name: str) -> None:
+    """One progressive scan's entropy-coded data into its components'
+    coefficients, MCU by MCU through the decoder its ``Ss``/``Ah`` pick;
+    ``segments``, ``units``, ``restart`` and ``n_mcus`` as ``decode_scan``
+    takes them. Each restart interval starts with the predictors at 0 and
+    no end-of-band run."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    if len(segments) < need:
+        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
+                         f"{need} restart intervals)")
+    mcus_row = units[0][5]
+    for seg_i in range(need):
+        rd, st = _Reader(segments[seg_i], name), _Progress()
+        first = seg_i * interval
+        try:
+            for m in range(first, min(first + interval, n_mcus)):
+                my, mx = divmod(m, mcus_row)
+                blocks = [(comp.coef,
+                           (my * row_stride + off + mx * comp.mcu_w) * 64,
+                           comp, dct, act)
+                          for comp, dct, act, offsets, row_stride, _ in units
+                          for off in offsets]
+                if ss == 0 and ah == 0:
+                    decode_mcu_DC_first(rd, blocks, st, al)
+                elif ss == 0:
+                    decode_mcu_DC_refine(rd, blocks, al)
+                elif ah == 0:
+                    decode_mcu_AC_first(rd, blocks[0], st, ss, se, al)
+                else:
+                    decode_mcu_AC_refine(rd, blocks[0], st, ss, se, al)
+        except IndexError:
+            raise ValueError(f"{name}: truncated JPEG data") from None
+        if rd.p > 8 * len(segments[seg_i]):
             raise ValueError(f"{name}: truncated JPEG data")
 
 
@@ -425,7 +639,7 @@ def _parse_dqt(seg: bytes, tables: dict, name: str) -> None:
         i += 1 + size
 
 
-def _parse_sof(seg: bytes, name: str) -> dict:
+def _parse_sof(seg: bytes, name: str, progressive: bool) -> dict:
     if len(seg) < 6:
         raise ValueError(f"{name}: bad SOF segment")
     precision, height, width, nc = struct.unpack(">BHHB", seg[:6])
@@ -435,10 +649,7 @@ def _parse_sof(seg: bytes, name: str) -> dict:
     if height == 0 or width == 0:
         raise NotImplementedError(f"{name}: a JPEG whose height comes in a "
                                   "DNL marker is not supported")
-    if nc == 4:
-        raise NotImplementedError(f"{name}: 4-component (CMYK or YCCK) JPEG "
-                                  "images are not supported")
-    if nc not in (1, 3) or len(seg) < 6 + 3 * nc:
+    if nc not in (1, 3, 4) or len(seg) < 6 + 3 * nc:
         raise ValueError(f"{name}: a JPEG of {nc} components is not "
                          "supported")
     comps = []
@@ -461,13 +672,17 @@ def _parse_sof(seg: bytes, name: str) -> dict:
         c.grid_w, c.grid_h = mcus_x * c.h, mcus_y * c.v
         c.coef = array("i", bytes(4 * c.grid_w * c.grid_h * 64))
     return {"width": width, "height": height, "comps": comps,
-            "hmax": hmax, "vmax": vmax, "mcus_x": mcus_x, "mcus_y": mcus_y}
+            "hmax": hmax, "vmax": vmax, "mcus_x": mcus_x, "mcus_y": mcus_y,
+            "progressive": progressive}
 
 
 def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
     """JPEG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
     ``Image.open(...).convert("RGBA")`` returns for the files the module
     docstring lists; others raise naming ``name``."""
+    from wgpu_path_tracing_tpu_torch.accel import native
+
+    in_cxx = native.native_available()
     data = bytes(data)
     if data[:3] != b"\xff\xd8\xff":
         raise ValueError(f"{name}: not a JPEG file")
@@ -504,11 +719,11 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
         if marker in SOF_UNSUPPORTED:
             raise NotImplementedError(
                 f"{name}: {SOF_UNSUPPORTED[marker]} JPEG images are not "
-                "supported (baseline and extended sequential Huffman only)")
-        if marker in SOF_SEQUENTIAL:
+                "supported (sequential and progressive Huffman only)")
+        if marker in SOF_SEQUENTIAL or marker in SOF_PROGRESSIVE:
             if frame is not None:
                 raise ValueError(f"{name}: two frames in one JPEG")
-            frame = _parse_sof(seg, name)
+            frame = _parse_sof(seg, name, marker in SOF_PROGRESSIVE)
         elif marker == DHT:
             _parse_dht(seg, huff, name)
         elif marker == DQT:
@@ -528,77 +743,259 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
             if frame is None:
                 raise ValueError(f"{name}: a scan before the frame header")
             pos = _read_scan(data, pos, seg, frame, huff, quant, restart,
-                             name)
+                             name, in_cxx)
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{name}: no image data in the JPEG")
     return _to_rgba(frame, jfif, adobe, transform, name)
 
 
-def _read_scan(data, pos, seg, frame, huff, quant, restart, name) -> int:
-    """One SOS: its header, then its entropy-coded data; returns the
-    position of the marker after it."""
+def _check_progression(comps, ss, se, ah, al, name) -> None:
+    """``jdphuff.c::start_pass_phuff_decoder``'s checks: a DC scan has Se =
+    0, an AC scan one component and Ss <= Se < 64, a refinement Al = Ah -
+    1, Al <= 13; these raise. Then each coefficient's history is set to Al;
+    a history that does not match Ah (``JWRN_BOGUS_PROGRESSION``) is a
+    warning there and changes nothing here."""
+    if ss == 0:
+        bad = se != 0
+    else:
+        bad = ss > se or se >= 64 or len(comps) != 1
+    if (ah and al != ah - 1) or al > 13 or bad:
+        raise ValueError(f"{name}: bad progressive JPEG scan (Ss={ss}, "
+                         f"Se={se}, Ah={ah}, Al={al})")
+    for c in comps:
+        c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
+
+
+def _read_scan(data, pos, seg, frame, huff, quant, restart, name,
+               in_cxx: bool) -> int:
+    """One SOS: its header, then its entropy-coded data (through
+    ``accel/cbvh/jpeg_scan.cpp`` where ``in_cxx``); returns the
+    position of the marker after it. A sequential scan needs both tables
+    of each component (its Ss, Se, Ah and Al are ignored, as libjpeg
+    ignores them with a warning); a progressive DC first scan the DC
+    tables, an AC scan its AC table, a DC refinement none."""
     ns = seg[0] if seg else 0
     if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
         raise ValueError(f"{name}: bad SOS segment")
+    ss, se, ahl = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    ah, al = ahl >> 4, ahl & 15
+    progressive = frame["progressive"]
+    needs_dc = not progressive or (ss == 0 and ah == 0)
+    needs_ac = not progressive or ss != 0
     by_id = {c.id: c for c in frame["comps"]}
-    comps, dcs, acs = [], [], []
+    comps, keys = [], []
     for k in range(ns):
         cid, tables = seg[1 + 2 * k], seg[2 + 2 * k]
         if cid not in by_id:
             raise ValueError(f"{name}: a scan names an unknown component")
-        c = by_id[cid]
-        key_dc, key_ac = (0, tables >> 4), (1, tables & 15)
-        if key_dc not in huff or key_ac not in huff:
-            raise ValueError(f"{name}: a scan uses an undefined Huffman "
-                             "table")
+        comps.append(by_id[cid])
+        keys.append(((0, tables >> 4), (1, tables & 15)))
+    # libjpeg's order: the MCU's size, the quantization tables, the
+    # progression, the Huffman tables.
+    try:
+        units, n_mcus = _scan_units(comps, frame)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    for c in comps:
         if c.quant is None:
             if c.tq not in quant:
                 raise ValueError(f"{name}: a component uses an undefined "
                                  "quantization table")
             c.quant = quant[c.tq]  # latched, as libjpeg does
-        comps.append(c)
-        dcs.append(huff[key_dc])
-        acs.append(huff[key_ac])
-    ss, se, ahl = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise NotImplementedError(f"{name}: progressive JPEG scans are not "
-                                  "supported")
-    try:
-        units, n_mcus = _scan_units(comps, frame)
-    except ValueError as exc:
-        raise ValueError(f"{name}: {exc}") from None
+    if progressive:
+        _check_progression(comps, ss, se, ah, al, name)
+    dcs, acs = [], []
+    for key_dc, key_ac in keys:
+        if (needs_dc and key_dc not in huff) or (needs_ac
+                                                 and key_ac not in huff):
+            raise ValueError(f"{name}: a scan uses an undefined Huffman "
+                             "table")
+        if needs_dc and huff[key_dc].max_symbol > 15:
+            raise ValueError(f"{name}: bad Huffman table (a DC symbol above "
+                             "15)")
+        dcs.append(huff[key_dc] if needs_dc else None)
+        acs.append(huff[key_ac] if needs_ac else None)
     segments, end = _entropy_segments(data, pos, name)
-    decode_scan(segments, [(c, dc, ac, offs, stride, row)
-                           for (c, offs, stride, row), dc, ac
-                           in zip(units, dcs, acs)],
-                restart, n_mcus, name)
+    units = [(c, dc, ac, offs, stride, row)
+             for (c, offs, stride, row), dc, ac in zip(units, dcs, acs)]
+    if in_cxx:
+        from wgpu_path_tracing_tpu_torch.accel.native import jpeg_scan_native
+
+        mode = 0 if not progressive else (
+            (1 if ah == 0 else 2) if ss == 0 else (3 if ah == 0 else 4))
+        jpeg_scan_native(segments, units, restart, n_mcus, mode, ss, se, al,
+                         name)
+    elif progressive:
+        decode_progressive_scan(segments, units, restart, n_mcus, ss, se,
+                                ah, al, name)
+    else:
+        decode_scan(segments, units, restart, n_mcus, name)
     return end
 
 
-def _component_plane(c) -> np.ndarray:
-    """The component's samples, its block grid through ``idct_islow``,
-    cropped to its downsampled size."""
+# Natural positions of zigzag coefficients 1..9, the ones block smoothing
+# estimates (jdcoefct.c's Q01_POS, Q10_POS, Q20_POS, Q11_POS, Q02_POS,
+# Q03_POS, Q12_POS, Q21_POS, Q30_POS).
+SMOOTH_POS = tuple(NATURAL_ORDER[1:10])
+
+
+def smoothing_ok(frame: dict) -> bool:
+    """``jdcoefct.c::smoothing_ok`` on the finished file: a progressive
+    frame whose every component has its quantization table latched, with
+    the DC and the nine smoothed coefficients' steps nonzero, and some DC
+    bits sent, where some component's coefficients 1..9 still lack bits."""
+    if not frame["progressive"]:
+        return False
+    useful = False
+    for c in frame["comps"]:
+        if c.quant is None or c.coef_bits[0] < 0:
+            return False
+        if any(int(c.quant[p]) == 0 for p in (0,) + SMOOTH_POS):
+            return False
+        useful = useful or any(b != 0 for b in c.coef_bits[1:10])
+    return useful
+
+
+def _estimate(num, q: int, al: int):
+    """jdcoefct.c's rounded estimate ``num / (q << 8)`` for a coefficient
+    whose history is ``al``: the magnitude capped below 1 << Al where Al >
+    0, the sign of ``num``."""
+    mag = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def smooth_blocks(coef: np.ndarray, c, rows_total: int) -> np.ndarray:
+    """``jdcoefct.c::decompress_smooth_data`` (libjpeg-turbo 2.1 and later)
+    on component ``c``'s (grid_h, grid_w, 64) natural-order coefficients,
+    int16 values: a copy whose real blocks have coefficients 1..9
+    estimated where still zero and not known exact, from the DC values of
+    the 5x5 blocks around each (where no AC coefficient 1..9 was ever sent,
+    a Gaussian-like kernel, and the DC itself replaced; else the extension
+    of ISO 10918-1 K.8 to 5x5). Columns beyond the component's last real
+    one repeat it; the rows above and below are picked as libjpeg picks
+    them per iMCU row (``block_rows`` is the last iMCU row's real count
+    there, so a row's second neighbour below can be a padding row of the
+    grid). ``rows_total``: the frame's iMCU rows."""
+    bits = c.coef_bits
+    wib, hib, v = -(-c.width // 8), -(-c.height // 8), c.v
+    q = [int(c.quant[0])] + [int(c.quant[p]) for p in SMOOTH_POS]
+    dc = coef[..., 0].astype(np.int64)
+    r_abs = np.arange(hib)
+    imcu, b = r_abs // v, r_abs % v
+    last = hib % v or v
+    block_rows = np.where(imcu < rows_total - 1, v, last)
+    ibr = imcu * block_rows + b
+    ibrs = block_rows * rows_total
+    prev = np.where(ibr > 0, r_abs - 1, r_abs)
+    prev2 = np.where(ibr > 1, r_abs - 2, prev)
+    nxt = np.where(ibr < ibrs - 1, r_abs + 1, r_abs)
+    nxt2 = np.where(ibr < ibrs - 2, r_abs + 2, nxt)
+    cols = np.arange(wib)
+    D = [None]  # D[1..25]: jdcoefct.c's DC01..DC25, row by row
+    for rows in (prev2, prev, r_abs, nxt, nxt2):
+        for d in (-2, -1, 0, 1, 2):
+            D.append(dc[rows[:, None], np.clip(cols + d, 0, wib - 1)[None]])
+    change_dc = all(x == -1 for x in bits[1:10])
+    ws = coef[:hib, :wib].astype(np.int64)
+    q00 = q[0]
+    if change_dc:
+        nums = [
+            -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9]
+            + 3 * D[10] - 3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15]
+            - 3 * D[16] + 13 * D[17] - 13 * D[19] + 3 * D[20] - D[21]
+            - D[22] + D[24] + D[25],
+            -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7]
+            + 38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17]
+            - 38 * D[18] - 13 * D[19] + D[20] + D[21] + 3 * D[22]
+            + 3 * D[23] + 3 * D[24] + D[25],
+            D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13]
+            - 5 * D[14] + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23],
+            -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19]
+            + D[21] - D[25],
+            2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13]
+            + 7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19],
+            D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19],
+            D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19],
+            D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19],
+            D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]]
+    else:
+        nums = [
+            -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15],
+            -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23],
+            -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23],
+            D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22]
+            - D[24] + D[4] - D[6] + 10 * D[7] - 10 * D[9],
+            -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]]
+    for k, num in enumerate(nums, start=1):
+        pos, al = SMOOTH_POS[k - 1], bits[k]
+        if al == 0:
+            continue
+        cur = ws[..., pos]
+        ws[..., pos] = np.where(cur == 0, _estimate(q00 * num, q[k], al), cur)
+    if change_dc:
+        num = q00 * (
+            -2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6]
+            + 6 * D[7] + 42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11]
+            + 42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] - 6 * D[16]
+            + 6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21]
+            - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25])
+        ws[..., 0] = _estimate(num, q00, 0)
+    out = coef.copy()
+    out[:hib, :wib] = ((ws + 32768) & 0xFFFF) - 32768  # JCOEF wraps
+    return out
+
+
+def _component_plane(c, frame: dict, smooth: bool) -> np.ndarray:
+    """The component's samples, its block grid (block-smoothed where
+    ``smooth``) through ``idct_islow``, cropped to its downsampled size. A
+    component no scan named has no quantization table: libjpeg's IDCT then
+    multiplies by zeros, a plane of 128."""
     coef = np.frombuffer(c.coef, np.int32).astype(np.int16)  # JCOEF wraps
-    if c.quant is None:
-        raise ValueError("a component has no scan")
-    blocks = idct_islow(coef.reshape(-1, 64), c.quant)
+    coef = coef.reshape(c.grid_h, c.grid_w, 64)
+    if smooth:
+        coef = smooth_blocks(coef, c, frame["mcus_y"])
+    quant = c.quant if c.quant is not None else np.zeros(64, np.int64)
+    blocks = idct_islow(coef.reshape(-1, 64), quant)
     plane = blocks.reshape(c.grid_h, c.grid_w, 8, 8).transpose(
         0, 2, 1, 3).reshape(c.grid_h * 8, c.grid_w * 8)
     return plane[:c.height, :c.width]
 
 
+def _muldiv255(a, b):
+    """Pillow's ``MULDIV255``: a * b / 255, rounded, in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
 def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
     w, h = frame["width"], frame["height"]
     comps = frame["comps"]
-    try:
-        planes = [upsample(_component_plane(c), frame["hmax"] // c.h,
-                           frame["vmax"] // c.v)[:h, :w] for c in comps]
-    except ValueError as exc:
-        raise ValueError(f"{name}: {exc}") from None
+    smooth = smoothing_ok(frame)
+    planes = [upsample(_component_plane(c, frame, smooth),
+                       frame["hmax"] // c.h, frame["vmax"] // c.v)[:h, :w]
+              for c in comps]
     out = np.full((h, w, 4), 255, np.uint8)
     if len(comps) == 1:
         out[..., :3] = planes[0][..., None]
+        return out
+    if len(comps) == 4:
+        # jdapimin.c default_decompress_parms: CMYK without an Adobe
+        # marker or under transform 0, YCCK under 2 (and, with a warning,
+        # any other transform).
+        c, m, y, k = planes
+        if adobe and transform != 0:  # jdcolor.c ycck_cmyk_convert
+            c, m, y = (np.clip(255 - (c + _CR_R[y]), 0, 255),
+                       np.clip(255 - (c + ((_CB_G[m] + _CR_G[y]) >> 16)), 0,
+                               255),
+                       np.clip(255 - (c + _CB_B[m]), 0, 255))
+        # Pillow reads the samples as "CMYK;I" (each inverted), then
+        # Convert.c cmyk2rgb: 255 - K' = k, so each channel is
+        # k - k (255 - x) / 255.
+        for i, x in enumerate((c, m, y)):
+            out[..., i] = np.clip(k - _muldiv255(255 - x, k), 0, 255)
         return out
     # libjpeg's guess of the colour space (jdapimin.c
     # default_decompress_parms).
