@@ -116,15 +116,17 @@ and runs these phases, one line of output each:
    fresh render of the same frames), and a failed async load raising from
    its future and at the next render; then the JPEG reader on this host:
    the small JPEGs under ``tests/jpeg`` (sequential, progressive, CMYK,
-   YCCK, block-smoothed) array-equal to their Pillow decode
-   (``pillow_rgba.npz``), each decode's seconds, the 1024^2 and 2048^2
-   4:2:0 files' decode seconds, sequential and progressive (their SHA-256
-   against Pillow's, each within 5 s), the 2048^2 files' seconds through
-   the plain Python entropy decoder, and
-   ``textured_cornell(tessellation=12)`` with the progressive, CMYK and
-   YCCK JPEGs as its textures, written to a .gltf and loaded by
-   ``load_model`` (the walk, the fat canvas), 512x512 x 8 spp with its
-   launches, and its 1-spp image against the plain path's;
+   YCCK, block-smoothed, arithmetic-coded, lossless) array-equal to their
+   Pillow decode (``pillow_rgba.npz``), each decode's seconds, the 1024^2
+   and 2048^2 4:2:0 files' decode seconds, sequential and progressive,
+   Huffman- and arithmetic-coded, and the 1024^2 lossless file's (their
+   SHA-256 against Pillow's, each within 5 s), the seconds of
+   ``JPEG_PYTHON_TIMED`` through the plain Python entropy decoder, and
+   ``textured_cornell(tessellation=12)`` twice, with the progressive,
+   CMYK and YCCK JPEGs as its textures and with the arithmetic-coded and
+   lossless ones, each written to a .gltf and loaded by ``load_model``
+   (the walk, the fat canvas), 512x512 x 8 spp with its launches, and its
+   1-spp image against the plain path's;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -136,9 +138,10 @@ and runs these phases, one line of output each:
    ``set_environment``: launch counts (512 of the ENV instantiation), cold
    and repeated Mrays/s, the image against the plain path's on every pixel,
    and its renders in turns with the same box's without the map;
-   then the material box at 512x512 x 8 spp under the committed
-   progressive JPEG map (``RenderConfig.env_map``): its launches (K1, K2,
-   K2's ENV instantiation) and its image against the plain path's;
+   then the material box at 512x512 x 8 spp under each committed
+   progressive JPEG map, Huffman- and arithmetic-coded
+   (``RenderConfig.env_map``): its launches (K1, K2, K2's ENV
+   instantiation) and its image against the plain path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
    against ``/`` bit for bit (a zero numerator's sign aside, ``div_apart``)
    on 2^24 random bit patterns, the special operands and 2^22 pairs in and
@@ -2640,13 +2643,27 @@ JPEG_SIZE = SIZE
 JPEG_SPP = 8
 # The largest file's decode on the card's host must stay within this.
 JPEG_DECODE_BOUND_S = 5.0
-JPEG_PYTHON_TIMED = ("timing_2048.jpg", "timing_progressive_2048.jpg")
+# Timed through the plain Python entropy decoder too: the Huffman files at
+# 2048^2, the arithmetic-coded and lossless ones at 1024^2 (a binary
+# decision a step in Python).
+JPEG_PYTHON_TIMED = ("timing_2048.jpg", "timing_progressive_2048.jpg",
+                     "timing_arith_1024.jpg",
+                     "timing_arith_progressive_1024.jpg",
+                     "timing_lossless_1024.jpg")
 JPEG_TEXTURES = ("albedo_progressive_420.jpg", "pbr_cmyk_progressive.jpg",
                  "normal_cmyk_restart.jpg", "emissive_ycck_420.jpg",
                  "roughness_ycck_progressive.jpg")
-# The env box under a committed progressive JPEG map, read through
-# RenderConfig.env_map.
+# The second JPEG-textured box: arithmetic-coded (SOF9 with a DAC segment
+# and restarts, SOF10 block-smoothed) and lossless (SOF3 RGB and gray)
+# textures.
+JPEG_TEXTURES_ARITH = ("albedo_arith_restart.jpg",
+                       "pbr_arith_progressive_smoothed.jpg",
+                       "normal_lossless_rgb.jpg",
+                       "roughness_lossless_gray.jpg")
+# The env box under committed progressive JPEG maps (Huffman- and
+# arithmetic-coded), read through RenderConfig.env_map.
 JPEG_ENV = "env_progressive.jpg"
+JPEG_ENV_ARITH = "env_arith_progressive.jpg"
 JPEG_ENV_SPP = 8
 
 
@@ -2833,13 +2850,15 @@ def phase_gltf(dev, smi, report, profile: str | None):
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
     """The JPEG reader on this host: every committed small JPEG (sequential,
-    progressive, CMYK, YCCK, block-smoothed) against its Pillow decode,
-    array-equal, and the 1024^2 and 2048^2 sequential and progressive
-    files' decode seconds, each decode's SHA-256 against Pillow's; then
-    ``textured_cornell(tessellation=JPEG_TESSELLATION)`` with its textures
-    as the progressive, CMYK and YCCK JPEGs, through ``load_model`` of a
-    .gltf, at JPEG_SIZE^2: K3 and K2 on the fat canvas, and a 1-spp image
-    against the plain path's."""
+    progressive, CMYK, YCCK, block-smoothed, arithmetic-coded, lossless)
+    against its Pillow decode, array-equal, and the timing files' decode
+    seconds (1024^2 and 2048^2 sequential and progressive, Huffman- and
+    arithmetic-coded; 1024^2 lossless), each decode's SHA-256 against
+    Pillow's; then ``textured_cornell(tessellation=JPEG_TESSELLATION)``
+    through ``load_model`` of a .gltf at JPEG_SIZE^2, twice: with the
+    progressive, CMYK and YCCK JPEGs as its textures, then with the
+    arithmetic-coded and lossless ones. Each: K3 and K2 on the fat canvas,
+    and a 1-spp image against the plain path's."""
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     cases = jpeg_cases()
@@ -2870,9 +2889,10 @@ def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
             if n.startswith("timing_") and t > JPEG_DECODE_BOUND_S}
     if slow:
         raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
-    # The plain Python entropy decoder on the 2048^2 files, for the record:
-    # the C++ one runs in front of it because this one comes close to the
-    # bound on progressive files.
+    # The plain Python entropy decoder on JPEG_PYTHON_TIMED, for the
+    # record: the C++ one runs in front of it because this one comes close
+    # to the bound on progressive Huffman files and passes it on
+    # arithmetic-coded ones.
     python_s = {}
     for name in JPEG_PYTHON_TIMED:
         with open(os.path.join(JPEG_DIR, name), "rb") as f:
@@ -2891,59 +2911,74 @@ def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
         say("gltf", f"{name}: the plain Python entropy decoder took "
             f"{python_s[name]:.3f} s on this host (C++ {decode_s[name]:.3f} "
             f"s; bound {JPEG_DECODE_BOUND_S} s), equal to Pillow's, on {smi}")
-    path = os.path.join(tmp, "jpeg_textured.gltf")
-    scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
     textures = {name: data for name, data, _ in cases}
+    out = {"decode_seconds": decode_s, "python_decode_seconds": python_s}
+    out.update(jpeg_box(tmp, textures, JPEG_TEXTURES, "gltf_jpeg", smi,
+                        report))
+    out["arith"] = jpeg_box(tmp, textures, JPEG_TEXTURES_ARITH,
+                            "gltf_jpeg_arith", smi, report)
+    return out
+
+
+def jpeg_box(tmp: str, textures: dict, names: tuple, path_name: str,
+             smi: str, report: dict) -> dict:
+    """``textured_cornell(tessellation=JPEG_TESSELLATION)`` with the
+    committed JPEGs ``names`` as its textures, through ``load_model`` of a
+    .gltf, at JPEG_SIZE^2 x JPEG_SPP: K3 and K2 on the fat canvas counted
+    under ``path_name``, and a 1-spp image against the plain path's."""
+    path = os.path.join(tmp, f"{path_name}.gltf")
+    scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
     with open(path, "w") as f:
         f.write(with_jpeg_images(scene_to_glb(scene_np),
-                                 [textures[n] for n in JPEG_TEXTURES]))
+                                 [textures[n] for n in names]))
     r = Renderer(RenderConfig(width=JPEG_SIZE, height=JPEG_SIZE),
                  device="cuda")
     _, load = timed(lambda: r.load_model(path))
     stats = r.stats()
     say("gltf", f"the JPEG-textured box ({r.scene.num_triangles} triangles, "
-        f"textures {', '.join(JPEG_TEXTURES)}, atlas "
+        f"textures {', '.join(names)}, atlas "
         f"{tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
         f"intersector {stats['intersector']!r}, texture {stats['texture']!r}")
     if stats["intersector"] != "walk" or stats["texture"] != "fat":
         raise AssertionError("the JPEG-textured box must take the walk (K3) "
                              "and the fat canvas")
     _, secs = counted_render(
-        r, JPEG_SPP, report, "gltf_jpeg",
+        r, JPEG_SPP, report, path_name,
         expect(k3=2 * MAX_BOUNCES * JPEG_SPP, k2_fat=MAX_BOUNCES * JPEG_SPP))
     rays = r.stats()["rays_total"]
-    say("gltf", f"JPEG-textured box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} "
-        f"spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    say("gltf", f"JPEG-textured box ({path_name}) {JPEG_SIZE}x{JPEG_SIZE} x "
+        f"{JPEG_SPP} spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s "
+        f"on {smi}")
     r.reset()
     one = r.render(spp=1)
-    plain_secs = checked_plain(r, 1, one, "gltf_jpeg")
-    return {"decode_seconds": decode_s, "python_decode_seconds": python_s,
-            "load_model_seconds": load,
+    plain_secs = checked_plain(r, 1, one, path_name)
+    return {"textures": list(names), "load_model_seconds": load,
             "size": JPEG_SIZE, "seconds": secs,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
 
 
-def jpeg_env_box(smi: str, report: dict) -> dict:
-    """The material box at SIZE^2 under the committed progressive JPEG map
+def jpeg_env_box(smi: str, report: dict, name: str = JPEG_ENV,
+                 path_name: str = "env_jpeg") -> dict:
+    """The material box at SIZE^2 under the committed JPEG map ``name``
     (``RenderConfig.env_map``, read by ``load_env_image``): K1, K2 and K2's
-    ENV instantiation launched as expected, and the image equal to the
-    plain path's on every pixel."""
-    path = os.path.join(JPEG_DIR, JPEG_ENV)
+    ENV instantiation launched as expected (counted under ``path_name``),
+    and the image equal to the plain path's on every pixel."""
+    path = os.path.join(JPEG_DIR, name)
     env, read_s = timed(lambda: ENV.load_env_image(path))
     r = Renderer(RenderConfig(width=SIZE, height=SIZE, env_map=path,
                               env_intensity=ENV_INTENSITY), device="cuda")
     _, load = timed(lambda: r.load_scene(material_test_box()))
     hdr, secs = counted_render(
-        r, JPEG_ENV_SPP, report, "env_jpeg",
+        r, JPEG_ENV_SPP, report, path_name,
         expect(k1=2 * MAX_BOUNCES * JPEG_ENV_SPP, k2=MAX_BOUNCES * JPEG_ENV_SPP,
                k2_env=MAX_BOUNCES * JPEG_ENV_SPP))
     rays = r.stats()["rays_total"]
-    say("env", f"the material box under {JPEG_ENV} (map {env.shape}, read "
+    say("env", f"the material box under {name} (map {env.shape}, read "
         f"in {read_s:.4f} s; load_scene {load:.3f} s) {SIZE}x{SIZE} x "
         f"{JPEG_ENV_SPP} spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} "
         f"Mrays/s on {smi}")
-    plain_secs = checked_plain(r, JPEG_ENV_SPP, hdr, "env_jpeg")
-    return {"map": JPEG_ENV, "read_seconds": read_s,
+    plain_secs = checked_plain(r, JPEG_ENV_SPP, hdr, path_name)
+    return {"map": name, "read_seconds": read_s,
             "load_scene_seconds": load, "seconds": secs,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs,
             "mean_hdr": float(hdr.mean())}
@@ -3056,6 +3091,8 @@ def phase_env(dev, smi, report, profile: str | None):
         root, ext = os.path.splitext(profile)
         profile_frames(r, f"{root}_env{ext}", "env")
     report["env"]["jpeg"] = jpeg_env_box(smi, report)
+    report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
+                                               "env_jpeg_arith")
 
 
 def bvh2_bound(visits: dict, scene: dict, n: int) -> dict:

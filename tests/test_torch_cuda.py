@@ -1295,20 +1295,39 @@ def test_renderer_bounce_kernels_equal_auto(dev, kernel):
                                   images["auto"].view(np.uint32))
 
 
-def test_renderer_jpeg_textured_scene_equals_plain_path(dev, tmp_path):
-    """A glTF whose textures are the committed progressive, CMYK and YCCK
-    JPEGs (``tests/jpeg``), through ``load_model``, the walk and K2 on the
-    fat canvas, equal to its plain path on every pixel."""
-    from chip_smoke import JPEG_TEXTURES, jpeg_cases, with_jpeg_images
+def _jpeg_box_equals_plain(tmp_path, names) -> None:
+    """``textured_cornell(tessellation=12)`` in a glTF whose textures are
+    the committed JPEGs ``names`` (``tests/jpeg``), through ``load_model``:
+    the walk and K2 on the fat canvas, equal to its plain path on every
+    pixel."""
+    from chip_smoke import jpeg_cases, with_jpeg_images
 
     path = tmp_path / "jpeg_textured.gltf"
     textures = {name: data for name, data, _ in jpeg_cases()}
     path.write_text(with_jpeg_images(
         scene_to_glb(textured_cornell(tessellation=12)),
-        [textures[name] for name in JPEG_TEXTURES]))
+        [textures[name] for name in names]))
     r = Renderer(RenderConfig(width=W, height=H), device="cuda")
     r.load_model(str(path))
     assert r.stats()["intersector"] == "walk"
     assert r.stats()["texture"] == "fat"
     np.testing.assert_array_equal(r.render(spp=1).view(np.uint32),
                                   plain_render(r, spp=1).view(np.uint32))
+
+
+def test_renderer_jpeg_textured_scene_equals_plain_path(dev, tmp_path):
+    """The progressive, CMYK and YCCK textures of ``chip_smoke.py``'s
+    JPEG-textured box (``_jpeg_box_equals_plain``)."""
+    from chip_smoke import JPEG_TEXTURES
+
+    _jpeg_box_equals_plain(tmp_path, JPEG_TEXTURES)
+
+
+def test_renderer_arithmetic_jpeg_textured_scene_equals_plain_path(
+        dev, tmp_path):
+    """The arithmetic-coded (SOF9, SOF10) and lossless (SOF3) textures of
+    ``chip_smoke.py``'s second JPEG-textured box, through K3 and K2-fat
+    (``_jpeg_box_equals_plain``)."""
+    from chip_smoke import JPEG_TEXTURES_ARITH
+
+    _jpeg_box_equals_plain(tmp_path, JPEG_TEXTURES_ARITH)

@@ -143,8 +143,8 @@ def test_load_env_image_png_kinds_equal_jax(kind, interlace, tmp_path):
 
 
 def test_jpeg_env_map_raises_naming_the_file(tmp_path):
-    """An arithmetic-coded JPEG map, which the port does not decode
-    (Huffman-coded ones it does, sequential and progressive:
+    """A hierarchical JPEG map, which neither Pillow nor the port decodes
+    (Huffman- and arithmetic-coded and lossless ones the port does:
     ``tests/test_torch_jpeg.py``), raises ``NotImplementedError`` naming
     the file, through ``load_env_image`` and the ``Renderer``'s config."""
     import io
@@ -155,10 +155,10 @@ def test_jpeg_env_map_raises_naming_the_file(tmp_path):
     Image.new("RGB", (8, 4), (90, 140, 220)).save(buf, "JPEG",
                                                   progressive=True)
     data = buf.getvalue()
-    sof = data.index(b"\xff\xc2")  # SOF2 -> SOF10, arithmetic progressive
+    sof = data.index(b"\xff\xc2")  # SOF2 -> SOF6, hierarchical progressive
     path = tmp_path / "sky.png"  # a JPEG whatever its name says
-    path.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
-    with pytest.raises(NotImplementedError, match="sky.png: arithmetic"):
+    path.write_bytes(data[:sof + 1] + b"\xc6" + data[sof + 2:])
+    with pytest.raises(NotImplementedError, match="sky.png: hierarchical"):
         ENV.load_env_image(str(path))
     jpg = tmp_path / "sky.jpg"
     jpg.write_bytes(path.read_bytes())

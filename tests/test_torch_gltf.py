@@ -447,10 +447,11 @@ def _quad_gltf(tmp_path, image: dict | None = None, indexed=True) -> str:
 
 
 def test_jpeg_texture_raises_naming_the_image(tmp_path, jax_numpy):
-    """Baseline, progressive and CMYK JPEG textures load as the JAX loader
-    (Pillow) loads them; an arithmetic-coded one, which the port does not
-    decode, raises naming the image, declared image/jpeg or not (the bytes
-    decide)."""
+    """Baseline, progressive and CMYK JPEG textures, and the last relabelled
+    arithmetic-coded progressive (SOF10: its data read as arithmetic-coded,
+    which Pillow decodes), load as the JAX loader (Pillow) loads them; a
+    hierarchical one, which neither decodes, raises naming the image,
+    declared image/jpeg or not (the bytes decide)."""
     green = Image.new("RGB", (8, 8), (10, 200, 10))
     for img, kw in ((green, {}), (green, {"progressive": True}),
                     (green.convert("CMYK"), {"progressive": True})):
@@ -461,14 +462,20 @@ def test_jpeg_texture_raises_naming_the_image(tmp_path, jax_numpy):
         path = _quad_gltf(tmp_path, {"uri": uri, "name": "grass"})
         assert_same_scene(G.load_model(path), JG.load_model(path))
     data = buf.getvalue()
-    sof = data.index(b"\xff\xc2")  # SOF2 -> SOF10, arithmetic progressive
-    data = data[:sof + 1] + b"\xca" + data[sof + 2:]
-    uri = "data:image/jpeg;base64," + base64.b64encode(data).decode()
-    for image in ({"uri": uri, "mimeType": "image/jpeg", "name": "grass"},
-                  {"uri": uri, "name": "grass"}):  # by MIME type, by bytes
-        path = _quad_gltf(tmp_path, image)
-        with pytest.raises(NotImplementedError, match="grass.*: arithmetic"):
-            G.load_model(path)
+    sof = data.index(b"\xff\xc2")
+    for marker in (b"\xca", b"\xc6"):  # SOF10; SOF6, hierarchical
+        other = data[:sof + 1] + marker + data[sof + 2:]
+        uri = "data:image/jpeg;base64," + base64.b64encode(other).decode()
+        if marker == b"\xca":
+            path = _quad_gltf(tmp_path, {"uri": uri, "name": "grass"})
+            assert_same_scene(G.load_model(path), JG.load_model(path))
+            continue
+        for image in ({"uri": uri, "mimeType": "image/jpeg", "name": "grass"},
+                      {"uri": uri, "name": "grass"}):  # by MIME type, bytes
+            path = _quad_gltf(tmp_path, image)
+            with pytest.raises(NotImplementedError,
+                               match="grass.*: hierarchical"):
+                G.load_model(path)
 
 
 def test_png_texture_in_a_gltf_and_no_index(tmp_path, jax_numpy):

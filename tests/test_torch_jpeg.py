@@ -13,8 +13,10 @@ interleaved scan or progressive in libjpeg's standard script, and CMYK;
 ``tests/torch_jpeg_cases.py`` writes the rest (4:4:0, 4:1:1, mixed
 factors, one scan a component, 16-bit tables, Adobe RGB, YCCK and 4
 components under any Adobe transform, restart intervals on any MCU count,
-progressive scan scripts of any shape, scripts that stop early), which
-Pillow then decodes as the reference.
+progressive scan scripts of any shape, scripts that stop early,
+arithmetic-coded and lossless frames), which Pillow then decodes as the
+reference. The arithmetic-coded and lossless cases of their own are in
+``tests/test_torch_jpeg_arith.py`` and ``tests/test_torch_jpeg_lossless.py``.
 """
 
 import io
@@ -91,6 +93,16 @@ def assert_like_pillow(data: bytes) -> None:
     for in_cxx in (True, False):
         np.testing.assert_array_equal(decode_in(in_cxx, data, "case"), want,
                                       err_msg=f"in C++: {in_cxx}")
+
+
+def assert_refused_like_pillow(data: bytes, exc, match: str) -> None:
+    """Pillow refuses ``data``, and both entropy decoders raise ``exc``
+    matching ``match`` after the image's name."""
+    with pytest.raises(Exception):
+        pillow_rgba(data)
+    for in_cxx in (True, False):
+        with pytest.raises(exc, match=f"r.jpg: {match}"):
+            decode_in(in_cxx, data, "r.jpg")
 
 
 @pytest.mark.parametrize("mode", ["gray", "4:4:4", "4:2:2", "4:2:0"])
@@ -367,29 +379,44 @@ def test_bad_progressive_scans_raise_naming_the_image():
 
 
 def test_progressive_cmyk_and_truncated_raise_naming_the_image():
-    """Cut progressive, CMYK and baseline files raise ``ValueError``
-    naming the image through both entropy decoders; arithmetic-coded,
-    lossless, hierarchical and 12-bit frames ``NotImplementedError``;
-    more than 10 blocks a MCU, a bad progressive scan and bytes that are
-    no JPEG ``ValueError``. (Progressive and CMYK files decode: the cases
-    above.)"""
+    """Cut progressive, CMYK, baseline, arithmetic-coded and lossless files
+    raise ``ValueError`` naming the image through both entropy decoders;
+    hierarchical and 12-bit frames ``NotImplementedError``; more than 10
+    blocks a MCU, a bad progressive scan and bytes that are no JPEG
+    ``ValueError``. A baseline file relabelled SOF9, SOF10 or SOF3 (its
+    Huffman data read as arithmetic-coded or lossless data) goes as Pillow
+    goes: SOF9 decodes to Pillow's array, SOF10 and SOF3 are refused for
+    their scan's Ss..Se, by Pillow and by the port. (Progressive, CMYK,
+    arithmetic-coded and lossless files decode: the cases above and
+    ``tests/test_torch_jpeg_arith.py``, ``tests/test_torch_jpeg_lossless.
+    py``.)"""
     img = photo(64, 64)
+    planes = JC.sample_planes(64, 64)
     for data in (pillow_jpeg(img, quality=90),
                  pillow_jpeg(img, progressive=True),
                  pillow_jpeg(img.convert("CMYK")),
                  pillow_jpeg(img.convert("CMYK"), progressive=True,
-                             restart_marker_blocks=2)):
+                             restart_marker_blocks=2),
+                 JC.write_jpeg(planes, [(2, 2), (1, 1), (1, 1)],
+                               arithmetic=True, restart=3),
+                 JC.write_jpeg(planes, [(1, 1)] * 3, arithmetic=True,
+                               scans=JC.script_for("simple", 3)),
+                 JC.write_lossless_jpeg(planes, predictor=6, restart_rows=4)):
         for cut in (len(data) // 2, len(data) - 40, 300):
             for in_cxx in (True, False):
                 with pytest.raises(ValueError, match="cut.jpg: truncated"):
                     decode_in(in_cxx, data[:cut], "cut.jpg")
     data = pillow_jpeg(photo(64, 64), quality=90)
     sof = data.index(b"\xff\xc0")
-    for marker, what in ((0xC9, "arithmetic"), (0xCA, "arithmetic"),
-                         (0xC3, "lossless"), (0xC5, "hierarchical")):
-        other = data[:sof + 1] + bytes([marker]) + data[sof + 2:]
-        with pytest.raises(NotImplementedError, match=f"a.jpg: {what}"):
-            decode_jpeg_rgba(other, "a.jpg")
+    relabel = {m: data[:sof + 1] + bytes([m]) + data[sof + 2:]
+               for m in (0xC9, 0xCA, 0xC3, 0xC5)}
+    assert_like_pillow(relabel[0xC9])
+    assert_refused_like_pillow(relabel[0xCA], ValueError,
+                               "bad progressive JPEG scan")
+    assert_refused_like_pillow(relabel[0xC3], ValueError,
+                               "bad lossless JPEG scan")
+    assert_refused_like_pillow(relabel[0xC5], NotImplementedError,
+                               "hierarchical")
     twelve = bytearray(data)
     twelve[sof + 4] = 12  # the frame's sample precision
     with pytest.raises(NotImplementedError, match="b.jpg: 12-bit"):
@@ -404,35 +431,36 @@ def test_progressive_cmyk_and_truncated_raise_naming_the_image():
 
 def test_lossless_jpeg_pillow_reads_raises_naming_the_image():
     """A lossless JPEG (SOF3) that ``JC.write_lossless_jpeg`` writes:
-    Pillow's libjpeg-turbo decodes it to the very samples, and the port,
-    which does not decode lossless frames, raises ``NotImplementedError``
-    naming the image (a known difference, ``ROADMAP.md`` A.1)."""
+    Pillow's libjpeg-turbo decodes it to the very samples, and so does the
+    port, through both entropy decoders (it raised here before lossless
+    frames were decoded; the name stays)."""
     plane = JC.sample_planes(23, 17, nc=1)[0]
     data = JC.write_lossless_jpeg(plane)
     want = np.repeat(plane[..., None], 3, -1)
     np.testing.assert_array_equal(pillow_rgba(data)[..., :3], want)
-    with pytest.raises(NotImplementedError, match="ll.jpg: lossless"):
-        decode_jpeg_rgba(data, "ll.jpg")
+    assert_like_pillow(data)
+    np.testing.assert_array_equal(decode_jpeg_rgba(data, "ll.jpg")[..., :3],
+                                  want)
 
 
 @pytest.mark.parametrize("sampling", ["gray", "4:2:0", "4:4:4_apart"])
 def test_arithmetic_jpeg_pillow_reads_raises_naming_the_image(sampling):
     """An arithmetic-coded sequential JPEG (SOF9) that ``JC.write_jpeg(
     arithmetic=True)`` writes: Pillow's libjpeg-turbo decodes it to the
-    pixels of the Huffman-coded file of the same coefficients, and the
-    port, which does not decode arithmetic coding, raises
-    ``NotImplementedError`` naming the image (a known difference,
-    ``ROADMAP.md`` A.1)."""
+    pixels of the Huffman-coded file of the same coefficients, and so does
+    the port, through both entropy decoders (it raised here before
+    arithmetic coding was decoded; the name stays)."""
     factors, kw = {"gray": ([(1, 1)], {}),
                    "4:2:0": ([(2, 2), (1, 1), (1, 1)], {}),
                    "4:4:4_apart": ([(1, 1)] * 3, {"interleaved": False})}[
                        sampling]
     planes = JC.sample_planes(33, 17, nc=len(factors))
     data = JC.write_jpeg(planes, factors, arithmetic=True, **kw)
-    np.testing.assert_array_equal(
-        pillow_rgba(data), pillow_rgba(JC.write_jpeg(planes, factors, **kw)))
-    with pytest.raises(NotImplementedError, match="ar.jpg: arithmetic"):
-        decode_jpeg_rgba(data, "ar.jpg")
+    huffman = JC.write_jpeg(planes, factors, **kw)
+    np.testing.assert_array_equal(pillow_rgba(data), pillow_rgba(huffman))
+    assert_like_pillow(data)
+    np.testing.assert_array_equal(decode_jpeg_rgba(data, "ar.jpg"),
+                                  decode_jpeg_rgba(huffman, "h.jpg"))
 
 
 def test_images_are_sniffed_by_their_bytes(tmp_path):
@@ -462,9 +490,32 @@ def kind_jpegs(kind: str) -> list:
     """Three textures of one kind: "baseline" (4:2:0, gray with custom
     tables, 4:4:4 with restart markers), "progressive" (the same three
     progressive), "cmyk" (Pillow's, sequential, progressive, and with its
-    first component at 2x2 and restart markers) or "ycck" (written with an
-    Adobe marker of transform 2, one sequential, two progressive)."""
+    first component at 2x2 and restart markers), "ycck" (written with an
+    Adobe marker of transform 2, one sequential, two progressive),
+    "arithmetic" (4:2:0 SOF9 with a DAC segment, gray SOF10 block-smoothed,
+    4:4:4 SOF10 with restart markers) or "lossless" (RGB, gray with a
+    point transform, RGB with its first component at 2x2 and restarts)."""
     imgs = [photo(37, 21), photo(16, 16, 1), photo(9, 30, 2)]
+    if kind == "arithmetic":
+        return [JC.write_jpeg(JC.sample_planes(37, 21), [(2, 2), (1, 1),
+                                                         (1, 1)],
+                              quality=85, arithmetic=True,
+                              dac={(0, 0): 0x32, (1, 1): 9}),
+                JC.write_jpeg(JC.sample_planes(16, 16, nc=1, seed=1),
+                              [(1, 1)], arithmetic=True,
+                              scans=JC.script_for("band_1_5_al1", 1)),
+                JC.write_jpeg(JC.sample_planes(9, 30, seed=2), [(1, 1)] * 3,
+                              arithmetic=True, restart=1,
+                              scans=JC.script_for("simple", 3))]
+    if kind == "lossless":
+        return [JC.write_lossless_jpeg(JC.sample_planes(37, 21),
+                                       predictor=7),
+                JC.write_lossless_jpeg(JC.sample_planes(16, 16, nc=1,
+                                                        seed=1),
+                                       predictor=5, pt=2),
+                JC.write_lossless_jpeg(JC.sample_planes(9, 30, seed=2),
+                                       [(2, 2), (1, 1), (1, 1)],
+                                       predictor=4, restart_rows=1)]
     if kind in ("baseline", "progressive"):
         p = kind == "progressive"
         return [pillow_jpeg(imgs[0], quality=85, progressive=p),
@@ -490,7 +541,8 @@ def kind_jpegs(kind: str) -> list:
 @pytest.mark.parametrize("kind,ratio", [
     *[pytest.param("baseline", r, id=str(r)) for r in (0.5, 1.0)],
     *[pytest.param(k, r, id=f"{k}-{r}") for k in ("progressive", "cmyk",
-                                                  "ycck")
+                                                  "ycck", "arithmetic",
+                                                  "lossless")
       for r in (0.5, 1.0)]])
 def test_jpeg_textures_build_the_jax_atlas(tmp_path, kind, ratio):
     """``textured_cornell()`` written to a .gltf whose images are JPEGs of
@@ -548,16 +600,24 @@ def env_case(tmp_path, data: bytes) -> None:
 
 def sky(kind: str) -> bytes:
     """A 32x64 noisy sky as a JPEG of ``kind``: "baseline" or "progressive"
-    (Pillow, quality 80), "cmyk" (Pillow, progressive) or "ycck" (written,
-    progressive, with restart intervals)."""
+    (Pillow, quality 80), "cmyk" (Pillow, progressive), "ycck" (written,
+    progressive, with restart intervals), "arithmetic" (SOF9 4:2:0),
+    "arithmetic_progressive" (SOF10 4:2:0, restart intervals) or
+    "lossless" (SOF3 RGB, predictor 7)."""
     rng = np.random.default_rng(9)
     img = Image.fromarray((rng.random((32, 64, 3)) * 255).astype(np.uint8))
     if kind in ("baseline", "progressive"):
         return pillow_jpeg(img, quality=80, progressive=kind == "progressive")
     if kind == "cmyk":
         return pillow_jpeg(img.convert("CMYK"), quality=80, progressive=True)
-    planes = [*np.moveaxis(np.asarray(img), -1, 0),
-              JC.sample_planes(64, 32, nc=4)[3]]
+    rgb = list(np.moveaxis(np.asarray(img), -1, 0))
+    if kind == "lossless":
+        return JC.write_lossless_jpeg(rgb, predictor=7)
+    if kind.startswith("arithmetic"):
+        scans = JC.script_for("simple", 3) if kind.endswith("ve") else None
+        return JC.write_jpeg(rgb, [(2, 2), (1, 1), (1, 1)], quality=80,
+                             arithmetic=True, scans=scans, restart=2)
+    planes = [*rgb, JC.sample_planes(64, 32, nc=4)[3]]
     return JC.write_jpeg(planes, [(2, 2), (1, 1), (1, 1), (1, 1)], restart=2,
                          app="adobe", adobe_transform=2,
                          scans=JC.script_for("simple", 4))
@@ -568,10 +628,13 @@ def test_jpeg_env_map_equals_jax_and_renders_like_it(tmp_path):
     env_case(tmp_path, sky("baseline"))
 
 
-@pytest.mark.parametrize("kind", ["progressive", "cmyk", "ycck"])
+@pytest.mark.parametrize("kind", ["progressive", "cmyk", "ycck",
+                                  "arithmetic", "arithmetic_progressive",
+                                  "lossless"])
 def test_jpeg_env_map_of_every_kind_equals_jax_and_renders_like_it(tmp_path,
                                                                    kind):
-    """``env_case`` on a progressive, a CMYK and a YCCK map."""
+    """``env_case`` on a progressive, a CMYK, a YCCK, two arithmetic-coded
+    and a lossless map."""
     env_case(tmp_path, sky(kind))
 
 
@@ -592,9 +655,12 @@ def test_committed_jpegs_equal_their_pillow_decode():
 
 def test_committed_timing_jpegs_equal_their_pillow_digest():
     """The 1024^2 and 2048^2 files under ``tests/jpeg``, sequential and
-    progressive (the card host's timing of the reader), decode to the
-    SHA-256 of Pillow's decode that ``pillow_sha256.json`` holds, and
-    Pillow here still decodes them so."""
+    progressive, Huffman- and arithmetic-coded, and the 1024^2 lossless
+    one (the card host's timing of the reader), decode to the SHA-256 of
+    Pillow's decode that ``pillow_sha256.json`` holds, and Pillow here
+    still decodes them so (handed each file in one block: it refuses an
+    arithmetic-coded file past its first 64 KiB block otherwise,
+    ``JC.pillow_whole_rgba``)."""
     import hashlib
 
     from chip_smoke import JPEG_DIR
@@ -602,6 +668,11 @@ def test_committed_timing_jpegs_equal_their_pillow_digest():
     with open(f"{JPEG_DIR}/pillow_sha256.json") as f:
         digests = json.load(f)
     assert sorted(digests) == ["timing_1024.jpg", "timing_2048.jpg",
+                               "timing_arith_1024.jpg",
+                               "timing_arith_2048.jpg",
+                               "timing_arith_progressive_1024.jpg",
+                               "timing_arith_progressive_2048.jpg",
+                               "timing_lossless_1024.jpg",
                                "timing_progressive_1024.jpg",
                                "timing_progressive_2048.jpg"]
     for name, digest in digests.items():
@@ -609,4 +680,5 @@ def test_committed_timing_jpegs_equal_their_pillow_digest():
             data = f.read()
         got = decode_jpeg_rgba(data, name)
         assert hashlib.sha256(got.tobytes()).hexdigest() == digest, name
-        np.testing.assert_array_equal(got, pillow_rgba(data), err_msg=name)
+        np.testing.assert_array_equal(got, JC.pillow_whole_rgba(data),
+                                      err_msg=name)

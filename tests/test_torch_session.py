@@ -398,9 +398,9 @@ def test_read_png_round_trips_the_writer_and_refuses_the_rest(tmp_path):
     want = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8) / np.float32(255)
     np.testing.assert_array_equal(image.read_png(str(path)), want)
     # 16-bit gray and palette files read as Pillow's convert("RGB") reads
-    # them, a baseline and a progressive JPEG as Pillow decodes them; an
-    # arithmetic-coded JPEG and a bit depth the colour type does not allow
-    # raise.
+    # them, a baseline, a progressive and (relabelled) an arithmetic-coded
+    # progressive JPEG as Pillow decodes them; a hierarchical JPEG and a
+    # bit depth the colour type does not allow raise.
     rng = np.random.default_rng(5)
     for im in (Image.fromarray(rng.integers(0, 600, (4, 5)).astype(
             np.uint16), "I;16"),
@@ -420,9 +420,13 @@ def test_read_png_round_trips_the_writer_and_refuses_the_rest(tmp_path):
         rgb = np.asarray(ref.convert("RGB"), np.float32) / 255.0
     np.testing.assert_array_equal(image.read_png(str(path)), rgb)
     data = path.read_bytes()
-    sof = data.index(b"\xff\xc2")  # SOF2 -> SOF10, arithmetic progressive
-    path.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])
-    with pytest.raises(NotImplementedError, match="a.png: arithmetic"):
+    sof = data.index(b"\xff\xc2")
+    path.write_bytes(data[:sof + 1] + b"\xca" + data[sof + 2:])  # SOF10
+    with Image.open(path) as ref:
+        rgb = np.asarray(ref.convert("RGB"), np.float32) / 255.0
+    np.testing.assert_array_equal(image.read_png(str(path)), rgb)
+    path.write_bytes(data[:sof + 1] + b"\xc6" + data[sof + 2:])  # SOF6
+    with pytest.raises(NotImplementedError, match="a.png: hierarchical"):
         image.read_png(str(path))
     Image.new("RGB", (4, 4)).save(path)
     bad = bytearray(path.read_bytes())

@@ -2,7 +2,10 @@
 write (4:4:0, 4:1:1 and mixed sampling factors, one scan per component,
 16-bit quantization tables, an Adobe RGB marker or only component ids,
 restart intervals on any MCU count, 4 components under any Adobe transform
-or none, progressive scan scripts of any shape). Each file is decoded by
+or none, progressive scan scripts of any shape), arithmetic-coded
+sequential and progressive files (SOF9, SOF10) with restart intervals and
+any DAC conditioning, lossless files (SOF3) with every predictor and point
+transform, and arithmetic-coded lossless ones (SOF11). Each file is decoded by
 Pillow and by ``utils/jpeg.py``; only the decoders are compared, so this
 writer's own arithmetic (a float DCT, box downsampling) need not match any
 encoder's.
@@ -23,7 +26,7 @@ import os
 import struct
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageFile
 
 
 def _markers(data: bytes):
@@ -118,7 +121,7 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
                restart: int = 0, interleaved: bool = True,
                quant16: bool = False, app: str = "jfif",
                adobe_transform: int = 1, scans=None,
-               arithmetic: bool = False) -> bytes:
+               arithmetic: bool = False, dac=None) -> bytes:
     """A JPEG of the full-size uint8 ``planes`` (1, 3 or 4, each (H, W))
     with ``sampling`` [(h, v)] a component; ``ids`` the component ids (1,
     2, 3... by default); ``restart`` MCUs a restart interval;
@@ -127,8 +130,10 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
     ``adobe_transform``) or "none". ``scans``, a progressive script
     [(component indices, Ss, Se, Ah, Al)], writes a progressive frame
     (SOF2) of those scans instead of a sequential one; ``arithmetic``
-    codes a sequential file with ``jcarith.c``'s QM coder (SOF9, no
-    restart intervals) instead of Huffman tables."""
+    codes the file with ``jcarith.c``'s QM coder instead of Huffman tables
+    (SOF9, or SOF10 with ``scans``), at the conditioning ``dac`` gives
+    ({(0, table): U << 4 | L, (1, table): Kx}, written as a DAC segment;
+    L = 0, U = 1, Kx = 5 elsewhere)."""
     planes = [np.asarray(p, np.float64) for p in planes]
     nc = len(planes)
     h, w = planes[0].shape
@@ -174,6 +179,28 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
     sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(
         bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], min(c, 1)])
         for c in range(nc))
+    if arithmetic:
+        segment(0xCA if scans is not None else 0xC9, sof)
+        if dac:
+            segment(0xCC, b"".join(bytes([tc << 4 | tb, v])
+                                   for (tc, tb), v in sorted(dac.items())))
+        if restart:
+            segment(0xDD, struct.pack(">H", restart))
+        if scans is None:
+            scans = [(tuple(range(nc)), 0, 63, 0, 0)] if interleaved else [
+                ((c,), 0, 63, 0, 0) for c in range(nc)]
+            progressive = False
+        else:
+            progressive = True
+        for comps, ss, se, ah, al in scans:
+            segment(0xDA, bytes([len(comps)]) + b"".join(
+                bytes([ids[c], min(c, 1) << 4 | min(c, 1)]) for c in comps)
+                + bytes([ss, se, ah << 4 | al]))
+            out.extend(_arith_scan((comps, ss, se, ah, al), progressive,
+                                   grids, sampling, restart, mx, my,
+                                   dac or {}))
+        out.extend(b"\xff\xd9")
+        return bytes(out)
     if scans is not None:
         segment(0xC2, sof)
         if restart:
@@ -183,13 +210,9 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
                               restart, mx, my)
         out.extend(b"\xff\xd9")
         return bytes(out)
-    if arithmetic and restart:
-        raise ValueError("the arithmetic writer has no restart intervals")
-    segment(0xC9 if arithmetic else 0xC1 if quant16 else 0xC0, sof)
+    segment(0xC1 if quant16 else 0xC0, sof)
     for (tc, th), (counts, symbols) in tables.items():
-        if not arithmetic:
-            segment(0xC4, bytes([tc << 4 | th]) + bytes(counts)
-                    + bytes(symbols))
+        segment(0xC4, bytes([tc << 4 | th]) + bytes(counts) + bytes(symbols))
     if restart:
         segment(0xDD, struct.pack(">H", restart))
 
@@ -222,27 +245,7 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
         segment(0xDA, bytes([len(comps)]) + b"".join(
             bytes([ids[c], min(c, 1) << 4 | min(c, 1)]) for c in comps)
             + b"\x00\x3f\x00")
-        if len(comps) == 1:
-            grid, cw, ch = grids[comps[0]]
-            bw, bh = -(-cw // 8), -(-ch // 8)
-            mcus = [[(comps[0], [(by, bx)])] for by in range(bh)
-                    for bx in range(bw)]
-        else:
-            mcus = [[(c, [(y * sampling[c][1] + v, x * sampling[c][0] + u)
-                          for v in range(sampling[c][1])
-                          for u in range(sampling[c][0])]) for c in comps]
-                    for y in range(my) for x in range(mx)]
-        if arithmetic:  # statistics start at 0 in every scan
-            ar = _Arith()
-            state = {"dc": [[0] * 64, [0] * 64], "ac": [[0] * 256, [0] * 256],
-                     "fixed": [113], "ctx": {}, "last": {}}
-            for mcu in mcus:
-                for c, cells in mcu:
-                    for by, bx in cells:
-                        _arith_block(ar, grids[c][0][by, bx], c, min(c, 1),
-                                     state)
-            out.extend(ar.finish())
-            continue
+        mcus = _mcus(comps, grids, sampling, mx, my)
         bits, preds = _Bits(), {}
         for m, mcu in enumerate(mcus):
             if restart and m and m % restart == 0:
@@ -256,6 +259,22 @@ def write_jpeg(planes, sampling, *, quality: int = 75, ids=None,
         out.extend(bits.flush())
     out.extend(b"\xff\xd9")
     return bytes(out)
+
+
+def _mcus(comps, grids, sampling, mx, my, block: int = 8) -> list:
+    """The MCUs of a scan over ``comps``: for each, [(component, [(row,
+    column) of each of its data units])]. A scan of one component walks
+    its own extent unit by unit (``block`` samples a unit: 8 for DCT
+    blocks, 1 for lossless samples), an interleaved one the frame's MCU
+    grid."""
+    if len(comps) == 1:
+        _, cw, ch = grids[comps[0]]
+        return [[(comps[0], [(by, bx)])] for by in range(-(-ch // block))
+                for bx in range(-(-cw // block))]
+    return [[(c, [(y * sampling[c][1] + v, x * sampling[c][0] + u)
+                  for v in range(sampling[c][1])
+                  for u in range(sampling[c][0])]) for c in comps]
+            for y in range(my) for x in range(mx)]
 
 
 def optimal_table(freq) -> tuple:
@@ -318,15 +337,7 @@ def _progressive_scan(out, segment, scan, grids, sampling, ids, restart, mx,
     segment (tables from its own symbol counts), its SOS, its data."""
     comps, ss, se, ah, al = scan
     table_of = {c: min(c, 1) for c in comps}
-    if len(comps) == 1:
-        grid, cw, ch = grids[comps[0]]
-        mcus = [[(comps[0], [(by, bx)])] for by in range(-(-ch // 8))
-                for bx in range(-(-cw // 8))]
-    else:
-        mcus = [[(c, [(y * sampling[c][1] + v, x * sampling[c][0] + u)
-                      for v in range(sampling[c][1])
-                      for u in range(sampling[c][0])]) for c in comps]
-                for y in range(my) for x in range(mx)]
+    mcus = _mcus(comps, grids, sampling, mx, my)
     events = []  # ("s", table key, symbol), ("b", value, bits), ("r", n)
     state = {"eobrun": 0, "be": [], "preds": {}}
     key_ac = (1, table_of[comps[0]])
@@ -447,40 +458,200 @@ def _progressive_scan(out, segment, scan, grids, sampling, ids, restart, mx,
     out.extend(bits.flush())
 
 
-def write_lossless_jpeg(plane) -> bytes:
-    """A lossless JPEG (SOF3, ISO 10918-1 Annex H) of one uint8 (H, W)
-    plane: predictor 1 (the sample to the left; the one above in the first
-    column; 128 first), no point transform, one Huffman table made from
-    the differences' categories."""
-    x = np.asarray(plane, np.int64)
+def lossless_predict(x, psv: int, pt: int, first_rows) -> np.ndarray:
+    """ISO 10918-1 Annex H's prediction of each sample of the (H, W) int
+    plane ``x`` (already shifted right by the point transform ``pt``) under
+    predictor ``psv``: rows flagged in ``first_rows`` use the sample to the
+    left (2^(7 - pt) for their first), the first column the sample above,
+    the rest Ra, Rb, Rc as ``psv`` combines them."""
+    x = np.asarray(x, np.int64)
     h, w = x.shape
     pred = np.zeros_like(x)
-    pred[0, 0] = 128
-    pred[0, 1:] = x[0, :-1]
-    pred[1:, 0] = x[:-1, 0]
-    pred[1:, 1:] = x[1:, :-1]
-    diffs = (x - pred).reshape(-1).tolist()
-    cats = [_category(d) for d in diffs]
-    freq = [0] * 256
-    for c in cats:
-        freq[c] += 1
-    counts, symbols = optimal_table(freq)
-    codes = _codes(counts, symbols)
+    for r in range(h):
+        if first_rows[r]:
+            pred[r, 0] = 1 << (7 - pt)
+            pred[r, 1:] = x[r, :-1]
+            continue
+        ra, rb, rc = x[r, :-1], x[r - 1, 1:], x[r - 1, :-1]
+        pred[r, 0] = x[r - 1, 0]
+        pred[r, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                       5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                       7: (ra + rb) >> 1}[psv]
+    return pred
+
+
+def _diff_bits(d: int) -> tuple:
+    """A lossless difference (mod 2^16, -32767..32768) as its category
+    (16 for 32768, which has no extra bits) and its extra bits."""
+    d = ((d + 32767) & 0xFFFF) - 32767
+    s = 16 if d == 32768 else _category(d)
+    return s, (d if d > 0 else d + (1 << s) - 1) if 0 < s < 16 else 0
+
+
+def write_lossless_jpeg(planes, sampling=None, *, predictor: int = 1,
+                        pt: int = 0, restart_rows: int = 0,
+                        interleaved: bool = True, app: str = "none",
+                        adobe_transform: int = 1, ids=None, diffs=None,
+                        arithmetic: bool = False) -> bytes:
+    """A lossless JPEG (SOF3, ISO 10918-1 Annex H) of the uint8 ``planes``
+    (one (H, W) plane, or a list of 1, 3 or 4) at ``sampling`` [(h, v)] a
+    component (box-averaged, rounded down), with ``predictor`` 1-7 and the
+    point transform ``pt``, restart intervals of ``restart_rows`` MCU rows,
+    one scan or (``interleaved`` False) one a component, ``app`` and
+    ``ids`` as ``write_jpeg`` takes them, one Huffman table a component
+    class (made from the scan's categories). ``diffs``, a list of int
+    arrays over each component's MCU-padded sample grid, replaces the
+    coded differences (any value mod 2^16, 32768 as category 16).
+    ``arithmetic`` writes an arithmetic-coded lossless frame (SOF11) with
+    the same differences in the QM coder, after Annex H's model (each
+    difference coded as a DC difference is, its context from the classes
+    of the differences to the left and above)."""
+    if np.ndim(planes) == 2:
+        planes = [planes]
+    planes = [np.asarray(p, np.int64) for p in planes]
+    nc = len(planes)
+    h, w = planes[0].shape
+    sampling = sampling or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    mx, my = -(-w // hmax), -(-h // vmax)
+    scans = [tuple(range(nc))] if interleaved else [(c,) for c in range(nc)]
+    grids = []
+    for c, (hs, vs) in enumerate(sampling):
+        cw, ch = -(-w * hs // hmax), -(-h * vs // vmax)
+        fy, fx = vmax // vs, hmax // hs
+        pad = np.pad(planes[c], ((0, ch * fy - h), (0, cw * fx - w)),
+                     mode="edge")
+        small = pad.reshape(ch, fy, cw, fx).sum(axis=(1, 3)) // (fy * fx)
+        grids.append((small >> pt, cw, ch))
     out = bytearray(b"\xff\xd8")
 
     def segment(marker: int, body: bytes) -> None:
         out.extend(struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body)
 
-    segment(0xC3, struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0]))
-    segment(0xC4, bytes([0]) + bytes(counts) + bytes(symbols))
-    segment(0xDA, bytes([1, 1, 0, 1, 0, 0]))  # predictor 1, Se 0, Pt 0
-    bits = _Bits()
-    for d, s in zip(diffs, cats):
-        bits.put(*codes[s])
-        if s:
-            bits.put(d if d > 0 else d + (1 << s) - 1, s)
-    out.extend(bits.flush())
+    if app == "jfif":
+        segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    elif app == "adobe":
+        segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                + bytes([adobe_transform]))
+    segment(0xCB if arithmetic else 0xC3, struct.pack(">BHHB", 8, h, w, nc)
+            + b"".join(bytes([ids[c], sampling[c][0] << 4 | sampling[c][1],
+                              0]) for c in range(nc)))
+    for comps in scans:
+        mcus_row = (mx if len(comps) > 1 else grids[comps[0]][1])
+        restart = restart_rows * mcus_row
+        if restart:
+            segment(0xDD, struct.pack(">H", restart))
+        # Each component's differences over its MCU-padded grid, the
+        # prediction starting anew at the scan and at each restart.
+        coded = {}
+        for c in comps:
+            x, cw, ch = grids[c]
+            hs, vs = sampling[c]
+            rows = np.arange(ch)
+            if len(comps) > 1:
+                first = (rows % vs == 0) & ((rows // vs) % max(restart_rows,
+                                                               1) == 0)
+                if not restart_rows:
+                    first = rows == 0
+                gw, gh = mx * hs, my * vs
+            else:
+                first = (rows % max(restart_rows, 1) == 0) if restart_rows \
+                    else rows == 0
+                gw, gh = cw, ch
+            d = np.zeros((gh, gw), np.int64)
+            d[:ch, :cw] = x - lossless_predict(x, predictor, pt, first)
+            coded[c] = d if diffs is None else np.asarray(diffs[c], np.int64)
+        mcus = _mcus(comps, [(coded[c], grids[c][1], grids[c][2])
+                             if c in coded else None for c in range(nc)],
+                     sampling, mx, my, block=1)
+        if arithmetic:
+            tables = b""
+        else:
+            freq = {}
+            for c in comps:
+                f = freq.setdefault(min(c, 1), [0] * 256)
+                for v in coded[c].reshape(-1).tolist():
+                    f[_diff_bits(v)[0]] += 1
+            tables = {t: optimal_table(f) for t, f in sorted(freq.items())}
+            segment(0xC4, b"".join(bytes([t]) + bytes(counts) + bytes(syms)
+                                   for t, (counts, syms) in tables.items()))
+            codes = {t: _codes(*v) for t, v in tables.items()}
+        segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([ids[c], min(c, 1) << 4]) for c in comps)
+            + bytes([predictor, 0, pt]))
+        if arithmetic:
+            out.extend(_arith_lossless(mcus, coded, restart))
+            continue
+        bits = _Bits()
+        for m, mcu in enumerate(mcus):
+            if restart and m and m % restart == 0:
+                out.extend(bits.flush())
+                out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+            for c, cells in mcu:
+                for y, x in cells:
+                    s, extra = _diff_bits(int(coded[c][y, x]))
+                    bits.put(*codes[min(c, 1)][s])
+                    if 0 < s < 16:
+                        bits.put(extra, s)
+        out.extend(bits.flush())
     out.extend(b"\xff\xd9")
+    return bytes(out)
+
+
+def _arith_lossless(mcus, coded, restart) -> bytes:
+    """The differences of a lossless scan in the QM coder after ISO
+    10918-1 H.1.4.3: each coded as a DC difference is (F.1.4.4.1), the
+    bins of its first decisions picked by the classes (zero, small and
+    large positive and negative, at L = 0 and U = 1) of the differences
+    coded to its left (Da) and above (Db) in its component, 5 x 5 contexts
+    of four bins, the magnitude bins from 100 (Db small) or 129 (Db
+    large)."""
+    def klass(d):
+        if d == 0:
+            return 0
+        big = abs(d) > 2
+        return (3 if big else 1) + (d < 0)
+
+    out = bytearray()
+    ar, stats = _Arith(), [0] * 158
+    for m, mcu in enumerate(mcus):
+        if restart and m and m % restart == 0:
+            out.extend(ar.finish())
+            out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+            ar, stats = _Arith(), [0] * 158
+        for c, cells in mcu:
+            d = coded[c]
+            for y, x in cells:
+                v = ((int(d[y, x]) + 32767) & 0xFFFF) - 32767
+                da = int(d[y, x - 1]) if x else 0
+                db = int(d[y - 1, x]) if y else 0
+                s0 = 4 * (5 * klass(da) + klass(db))
+                if v == 0:
+                    ar.encode(stats, s0, 0)
+                    continue
+                ar.encode(stats, s0, 1)
+                ar.encode(stats, s0 + 1, 0 if v > 0 else 1)
+                st = s0 + 2 + (v < 0)
+                v = abs(v) - 1
+                x1 = 129 if klass(db) > 2 else 100
+                mm = 0
+                if v:
+                    ar.encode(stats, st, 1)
+                    mm, v2, st = 1, v >> 1, x1
+                    while v2:
+                        ar.encode(stats, st, 1)
+                        mm <<= 1
+                        st += 1
+                        v2 >>= 1
+                ar.encode(stats, st, 0)
+                st += 14
+                mm >>= 1
+                while mm:
+                    ar.encode(stats, st, 1 if mm & v else 0)
+                    mm >>= 1
+    out.extend(ar.finish())
     return bytes(out)
 
 
@@ -600,68 +771,136 @@ class _Arith:
         return bytes(self.out)
 
 
-def _arith_magnitude(ar, stats, st, v, x1, ac):
-    """Figures F.8 and F.9: v (a magnitude less 1) as its category, in bin
-    ``st`` and then from ``x1`` on (an AC coefficient's second decision
-    stays in ``st``, a DC's moves to ``x1``), then its bits below the
-    leading one."""
-    m = 0
-    if v:
-        ar.encode(stats, st, 1)
-        m, v2 = 1, v >> 1
-        if ac and v2:
+class _ArithCoder:
+    """``jcarith.c``'s statistics and encoders over one restart interval
+    of one scan: the DC and AC bins of each table (64 and 256, all 0 at
+    the start), the fixed bin, each component's DC predictor and context,
+    and the conditioning ``dac`` gives."""
+
+    def __init__(self, dac: dict):
+        self.ar, self.dac = _Arith(), dac
+        self.dc, self.ac = {}, {}
+        self.fixed = [113]
+        self.ctx, self.last = {}, {}
+
+    def _magnitude(self, stats, st, v, x1, ac):
+        """Figures F.8 and F.9: ``v`` (a magnitude less 1) as its category
+        in bin ``st`` and from ``x1`` on (an AC coefficient's second
+        decision stays in ``st``), then its bits below the leading one."""
+        ar = self.ar
+        m = 0
+        if v:
             ar.encode(stats, st, 1)
-            m, v2 = 2, v2 >> 1
-        st = x1 if (m > 1 or not ac) else st
-        while v2:
-            ar.encode(stats, st, 1)
-            m <<= 1
-            st += 1
-            v2 >>= 1
-    ar.encode(stats, st, 0)
-    st += 14
-    m >>= 1
-    while m:
-        ar.encode(stats, st, 1 if m & v else 0)
+            m, v2 = 1, v >> 1
+            if ac and v2:
+                ar.encode(stats, st, 1)
+                m, v2 = 2, v2 >> 1
+            st = x1 if (m > 1 or not ac) else st
+            while v2:
+                ar.encode(stats, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+        ar.encode(stats, st, 0)
+        st += 14
+        mag = m
         m >>= 1
+        while m:
+            ar.encode(stats, st, 1 if m & v else 0)
+            m >>= 1
+        return mag
 
-
-def _arith_block(ar, zz, comp, tbl, state):
-    """``jcarith.c::encode_mcu`` on one block (zigzag ``zz``) at the
-    default conditioning (DC L = 0, U = 1; AC K = 5)."""
-    dc, ac = state["dc"][tbl], state["ac"][tbl]
-    s0 = state["ctx"].get(comp, 0)
-    v = int(zz[0]) - state["last"].get(comp, 0)
-    if v == 0:
-        ar.encode(dc, s0, 0)
-        state["ctx"][comp] = 0
-    else:
-        state["last"][comp] = int(zz[0])
-        ar.encode(dc, s0, 1)
-        ar.encode(dc, s0 + 1, 0 if v > 0 else 1)
+    def dc_value(self, comp, tbl, value):
+        """``encode_mcu``'s DC part (and ``encode_mcu_DC_first``'s, on the
+        shifted value): the difference from the component's last value in
+        the bins its context picks, the context from the magnitude."""
+        ar = self.ar
+        stats = self.dc.setdefault(tbl, [0] * 64)
+        s0 = self.ctx.get(comp, 0)
+        v = value - self.last.get(comp, 0)
+        if v == 0:
+            ar.encode(stats, s0, 0)
+            self.ctx[comp] = 0
+            return
+        self.last[comp] = value
+        ar.encode(stats, s0, 1)
+        ar.encode(stats, s0 + 1, 0 if v > 0 else 1)
         st, ctx, v = (s0 + 2, 4, v) if v > 0 else (s0 + 3, 8, -v)
-        category = (v - 1).bit_length()  # m = 2^(category - 1), 0 for 0
-        if category > 1:  # m > (1 << U) >> 1
+        m = self._magnitude(stats, st, v - 1, 20, ac=False)
+        lo, hi = self.dac.get((0, tbl), 0x10) & 15, self.dac.get((0, tbl),
+                                                                0x10) >> 4
+        if m < (1 << lo) >> 1:
+            ctx = 0
+        elif m > (1 << hi) >> 1:
             ctx += 8
-        state["ctx"][comp] = ctx
-        _arith_magnitude(ar, dc, st, v - 1, 20, ac=False)
-    ke = max([k for k in range(1, 64) if zz[k]], default=0)
-    k = 1
-    while k <= ke:
-        st = 3 * (k - 1)
-        ar.encode(ac, st, 0)
-        while int(zz[k]) == 0:
-            ar.encode(ac, st + 1, 0)
-            st += 3
+        self.ctx[comp] = ctx
+
+    def ac_band(self, tbl, zz, ss, se, al, ah=None):
+        """``encode_mcu``'s AC part (``ss`` 1, ``se`` 63, ``al`` 0),
+        ``encode_mcu_AC_first`` or, with ``ah``, ``encode_mcu_AC_refine``
+        on one block's zigzag coefficients."""
+        ar = self.ar
+        stats = self.ac.setdefault(tbl, [0] * 256)
+        kx = self.dac.get((1, tbl), 5)
+        t = (np.abs(zz) >> al).tolist()
+        ke = next((k for k in range(se, 0, -1) if t[k]), 0)
+        kex = 0
+        if ah is not None:
+            kex = next((k for k in range(ke, 0, -1)
+                        if abs(int(zz[k])) >> ah), 0)
+        k = ss
+        while k <= ke:
+            st = 3 * (k - 1)
+            if k > kex:
+                ar.encode(stats, st, 0)  # not the end of the band
+            while True:
+                if t[k]:
+                    if ah is not None and t[k] >> 1:  # known nonzero
+                        ar.encode(stats, st + 2, t[k] & 1)
+                    else:
+                        ar.encode(stats, st + 1, 1)
+                        ar.encode(self.fixed, 0, 0 if zz[k] > 0 else 1)
+                        if ah is None:
+                            self._magnitude(stats, st + 2, t[k] - 1,
+                                            189 if k <= kx else 217, ac=True)
+                    break
+                ar.encode(stats, st + 1, 0)
+                st += 3
+                k += 1
             k += 1
-        ar.encode(ac, st + 1, 1)
-        v = int(zz[k])
-        ar.encode(state["fixed"], 0, 0 if v > 0 else 1)
-        _arith_magnitude(ar, ac, st + 2, abs(v) - 1, 189 if k <= 5 else 217,
-                         ac=True)
-        k += 1
-    if k <= 63:
-        ar.encode(ac, 3 * (k - 1), 1)
+        if k <= se:
+            ar.encode(stats, 3 * (k - 1), 1)
+
+
+def _arith_scan(scan, progressive, grids, sampling, restart, mx, my,
+                dac) -> bytes:
+    """One scan's entropy-coded bytes as ``jcarith.c`` writes them, the
+    statistics, predictors and coder started anew after each RSTn."""
+    comps, ss, se, ah, al = scan
+    out = bytearray()
+    coder = _ArithCoder(dac)
+    for m, mcu in enumerate(_mcus(comps, grids, sampling, mx, my)):
+        if restart and m and m % restart == 0:
+            out.extend(coder.ar.finish())
+            out.extend(bytes([0xFF, 0xD0 + (m // restart - 1) % 8]))
+            coder = _ArithCoder(dac)
+        for c, cells in mcu:
+            for by, bx in cells:
+                zz = grids[c][0][by, bx]
+                tbl = min(c, 1)
+                if not progressive:
+                    coder.dc_value(c, tbl, int(zz[0]))
+                    coder.ac_band(tbl, zz, 1, 63, 0)
+                elif ss == 0 and ah == 0:
+                    coder.dc_value(c, tbl, int(zz[0]) >> al)
+                elif ss == 0:
+                    coder.ar.encode(coder.fixed, 0, (int(zz[0]) >> al) & 1)
+                elif ah == 0:
+                    coder.ac_band(tbl, zz, ss, se, al)
+                else:
+                    coder.ac_band(tbl, zz, ss, se, al, ah)
+    out.extend(coder.ar.finish())
+    return bytes(out)
 
 
 # Scan scripts [(components, Ss, Se, Ah, Al)] for three components.
@@ -735,6 +974,18 @@ def sample_planes(w: int, h: int, nc: int = 3, seed: int = 0,
         np.uint8) for p in planes[:nc]]
 
 
+def pillow_whole_rgba(data: bytes) -> np.ndarray:
+    """Pillow's ``convert("RGBA")`` of JPEG bytes handed to libjpeg in one
+    block. Pillow reads a file in blocks of ``ImageFile.MAXBLOCK`` (64
+    KiB) and libjpeg's arithmetic decoder cannot wait for the next one
+    (``JERR_CANT_SUSPEND``), so Pillow refuses an arithmetic-coded file
+    whose data runs past its first block; in one block it decodes it. Any
+    other file decodes the same either way."""
+    with Image.open(io.BytesIO(data)) as ref:
+        ref.decodermaxblock = max(len(data), ImageFile.MAXBLOCK)
+        return np.asarray(ref.convert("RGBA"))
+
+
 def write_fixtures(directory: str) -> None:
     """The JPEGs under ``tests/jpeg`` that ``chip_smoke.py`` checks the
     reader with on the card's host, which has no Pillow, with their Pillow
@@ -743,12 +994,20 @@ def write_fixtures(directory: str) -> None:
     the textures of the card's JPEG-textured box (a progressive 4:2:0 one,
     a progressive CMYK one, a sequential CMYK one with restart markers, a
     YCCK one and a progressive YCCK one, these two from ``write_jpeg``); a
-    block-smoothed one (a script stopped after band 1-5 at Al 1); and a
-    progressive 64x128 environment map. Then a 1024^2 and a 2048^2 4:2:0
-    file, sequential at quality 75 and progressive at quality 90, timed
-    there, with the SHA-256 of their Pillow decode in
+    block-smoothed one (a script stopped after band 1-5 at Al 1); a
+    progressive 64x128 environment map; the textures of the card's second
+    JPEG-textured box: an arithmetic-coded 4:2:0 one with a DAC segment and
+    restart markers (SOF9), an arithmetic-coded progressive 4:2:0 one whose
+    script stops after band 1-5 at Al 1 (SOF10, block-smoothed), a gray
+    lossless one (SOF3, predictor 4, point transform 1, restarts) and an
+    RGB one (predictor 7, 2x1 sampled first component); and an
+    arithmetic-coded progressive 64x128 environment map. Then 1024^2 and
+    2048^2 4:2:0 files, sequential at quality 75 and progressive at
+    quality 90, each Huffman- and arithmetic-coded, and a 1024^2 RGB
+    lossless file of a smooth image (predictor 4; at 2048^2 it would pass 2
+    MB), timed there, with the SHA-256 of their Pillow decode in
     ``pillow_sha256.json``. Run ``python -m tests.torch_jpeg_cases`` from
-    the repository's root to write them anew."""
+    the repository's root to write them anew (about two minutes)."""
     import hashlib
     import json
 
@@ -756,18 +1015,21 @@ def write_fixtures(directory: str) -> None:
         return Image.fromarray(np.stack(sample_planes(w, h, seed=seed,
                                                       noise=noise), -1))
 
-    def smooth(n, seed):
+    def smooth(n, seed, noise=6.0):
         rng = np.random.default_rng(seed)
         yy, xx = np.mgrid[0:n, 0:n] / n
         base = np.stack([np.sin(xx * 20) * 0.5 + 0.5,
                          np.cos(yy * 13 + xx * 5) * 0.5 + 0.5, xx * yy],
                         -1) * 255
-        return Image.fromarray(np.clip(base + rng.normal(0, 6, base.shape),
-                                       0, 255).astype(np.uint8))
+        if noise:
+            base = base + rng.normal(0, noise, base.shape)
+        return Image.fromarray(np.clip(base, 0, 255).astype(np.uint8))
+
+    def planes(im):
+        return list(np.moveaxis(np.asarray(im), -1, 0))
 
     def decode(data):
-        with Image.open(io.BytesIO(data)) as ref:
-            return np.asarray(ref.convert("RGBA"))
+        return pillow_whole_rgba(data)
 
     def put(name, data):
         with open(os.path.join(directory, name), "wb") as f:
@@ -815,16 +1077,48 @@ def write_fixtures(directory: str) -> None:
             quality=70, scans=script_for("band_1_5_al1", 3))),
         "env_progressive.jpg": save("env_progressive.jpg", sky, quality=90,
                                     progressive=True),
+        "albedo_arith_restart.jpg": put("albedo_arith_restart.jpg", write_jpeg(
+            sample_planes(48, 40, seed=14), [(2, 2), (1, 1), (1, 1)],
+            quality=85, arithmetic=True, restart=3,
+            dac={(0, 0): 0x21, (1, 0): 3, (0, 1): 0x10, (1, 1): 8})),
+        "pbr_arith_progressive_smoothed.jpg": put(
+            "pbr_arith_progressive_smoothed.jpg", write_jpeg(
+                sample_planes(40, 40, seed=15), [(2, 2), (1, 1), (1, 1)],
+                quality=70, arithmetic=True, restart=2,
+                scans=script_for("band_1_5_al1", 3))),
+        "roughness_lossless_gray.jpg": put(
+            "roughness_lossless_gray.jpg", write_lossless_jpeg(
+                sample_planes(36, 20, nc=1, seed=16), predictor=4, pt=1,
+                restart_rows=2)),
+        "normal_lossless_rgb.jpg": put(
+            "normal_lossless_rgb.jpg", write_lossless_jpeg(
+                sample_planes(40, 24, seed=17), [(2, 1), (1, 1), (1, 1)],
+                predictor=7, restart_rows=1)),
+        "env_arith_progressive.jpg": put(
+            "env_arith_progressive.jpg", write_jpeg(
+                planes(sky), [(2, 2), (1, 1), (1, 1)], quality=90,
+                arithmetic=True, scans=script_for("simple", 3))),
     }
     np.savez_compressed(os.path.join(directory, "pillow_rgba.npz"), **small)
     digests = {}
+    def digest(name, rgba):
+        digests[name] = hashlib.sha256(
+            np.ascontiguousarray(rgba).tobytes()).hexdigest()
+
     for n, seed in ((1024, 5), (2048, 6)):
         for name, kw in ((f"timing_{n}.jpg", {"quality": 75}),
                          (f"timing_progressive_{n}.jpg",
                           {"quality": 90, "progressive": True})):
-            rgba = save(name, smooth(n, seed), subsampling=2, **kw)
-            digests[name] = hashlib.sha256(
-                np.ascontiguousarray(rgba).tobytes()).hexdigest()
+            digest(name, save(name, smooth(n, seed), subsampling=2, **kw))
+        for name, kw in ((f"timing_arith_{n}.jpg", {"quality": 75}),
+                         (f"timing_arith_progressive_{n}.jpg",
+                          {"quality": 90, "scans": script_for("simple", 3)})):
+            digest(name, put(name, write_jpeg(
+                planes(smooth(n, seed)), [(2, 2), (1, 1), (1, 1)],
+                arithmetic=True, **kw)))
+    digest("timing_lossless_1024.jpg", put(
+        "timing_lossless_1024.jpg", write_lossless_jpeg(
+            planes(smooth(1024, 5, noise=0)), predictor=4)))
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
 

@@ -4,10 +4,11 @@ files, in turns, in one process on the host it runs on.
     python tools/jpeg_decode_times.py [--reps 3]
 
 For each ``tests/jpeg/timing_*.jpg`` (1024^2 and 2048^2, 4:2:0, sequential
-and progressive), ``decode_jpeg_rgba`` runs ``--reps`` times with the C++
-entropy decoder (``accel/cbvh/jpeg_scan.cpp``) and as often with its plain
-Python version (``accel.native.native_available`` patched to False),
-alternating; each decode's SHA-256 is held to Pillow's
+and progressive, Huffman- and arithmetic-coded; 1024^2 lossless),
+``decode_jpeg_rgba`` runs ``--reps`` times with the C++ entropy decoder
+(``accel/cbvh/jpeg_scan.cpp``) and as often with its plain Python version
+(``accel.native.native_available`` patched to False), alternating;
+each decode's SHA-256 is held to Pillow's
 (``tests/jpeg/pillow_sha256.json``). One line a decode: the file, the
 decoder, the seconds. The first line names the card, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it,

@@ -13,7 +13,9 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   finalize_scene``;
 * ``potpack.cpp``: ``models/potpack.py::potpack_python``;
 * ``jpeg_scan.cpp``: the entropy decode of a JPEG scan, ``utils/jpeg.py::
-  decode_scan`` and its progressive MCU decoders.
+  decode_scan`` and its progressive MCU decoders, ``decode_arith_scan``
+  and ``decode_lossless_scan``, and a lossless component's
+  ``undifference``.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -54,6 +56,7 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
@@ -81,11 +84,22 @@ SIGNATURES = {
     # wh, n, out xy, out (width, height)
     "wpt_potpack": [_F64P, _I64, _F64P, _F64P],
     # data, segment starts, segments, mode, Ss, Se, Al, MCUs, MCUs an
-    # interval, MCUs a row, blocks an MCU, each block's slot, offset, row
-    # stride, MCU width, DC and AC table; coefficient grids, tables
+    # interval, MCUs a row, values a data unit, blocks an MCU, each block's
+    # slot, offset, row stride, MCU width, DC and AC table; coefficient
+    # grids, tables
     "wpt_jpeg_scan": [ctypes.c_char_p, _I64P, _I64, _I32, _I32, _I32, _I32,
-                      _I64, _I64, _I64, _I32, _I32P, _I64P, _I64P, _I64P,
-                      _I32P, _I32P, _PTRS, _PTRS],
+                      _I64, _I64, _I64, _I32, _I32, _I32P, _I64P, _I64P,
+                      _I64P, _I32P, _I32P, _PTRS, _PTRS],
+    # as wpt_jpeg_scan without the unit, with table numbers, then each
+    # table's L, U and Kx; coefficient grids
+    "wpt_jpeg_arith_scan": [ctypes.c_char_p, _I64P, _I64, _I32, _I32, _I32,
+                            _I32, _I64, _I64, _I64, _I32, _I32P, _I64P,
+                            _I64P, _I64P, _I32P, _I32P, _U8P, _U8P, _U8P,
+                            _PTRS],
+    # differences, row stride, width, height, first rows, predictor, Pt,
+    # out samples
+    "wpt_jpeg_undifference": [_I32P, _I64, _I64, _I64, _U8P, _I32, _I32,
+                              _U8P],
 }
 JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 PACK_CODES = {"none": 0, "ffd": 1}
@@ -300,14 +314,12 @@ def reorder_tris_native(order, v0, v1, v2, n0, n1, n2, u0, u1, u2, mat):
     return (*outs3, *outs2, mo)
 
 
-def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
-                     mode: int, ss: int, se: int, al: int, name: str) -> None:
-    """One JPEG scan's entropy decode in C++ (``jpeg_scan.cpp``), into the
-    components' coefficient arrays in place: ``segments``, ``units``,
-    ``restart`` and ``n_mcus`` as ``utils/jpeg.py::decode_scan`` takes
-    them; ``mode`` 0 sequential, 1 DC first, 2 DC refinement, 3 AC first,
-    4 AC refinement. The same coefficients as the Python decoders; bad data
-    raises ``ValueError`` naming ``name``."""
+def _scan_layout(segments: list, units: list, restart: int, n_mcus: int,
+                 name: str, table_index):
+    """What both scan decoders take: the restart intervals' bytes and
+    starts, the interval's MCUs, the components, and each block's slot,
+    offset, row stride, MCU width, DC and AC table (``table_index`` of
+    each unit's table, -1 for none)."""
     interval = restart or n_mcus
     need = (n_mcus + interval - 1) // interval
     if len(segments) < need:
@@ -316,33 +328,91 @@ def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
     segments = segments[:need]
     starts = np.zeros(need + 1, np.int64)
     starts[1:] = np.cumsum([len(s) for s in segments])
-    comps, tables, blocks = [], [], []
-
-    def index(items, x):
-        for i, y in enumerate(items):
-            if y is x:
-                return i
-        items.append(x)
-        return len(items) - 1
-
+    comps, blocks = [], []
     for comp, dct, act, offsets, row_stride, _ in units:
-        slot = index(comps, comp)
-        dc = -1 if dct is None else index(tables, dct)
-        ac = -1 if act is None else index(tables, act)
+        if comp not in comps:
+            comps.append(comp)
+        slot = comps.index(comp)
+        dc, ac = table_index(dct), table_index(act)
         blocks += [(slot, o, row_stride, comp.mcu_w, dc, ac) for o in offsets]
     cols = list(zip(*blocks))
     slot, dc_tab, ac_tab = (np.asarray(cols[i], np.int32) for i in (0, 4, 5))
     off, stride, mcu_w = (np.asarray(cols[i], np.int64) for i in (1, 2, 3))
     coef_ptrs = (ctypes.c_void_p * len(comps))(
         *[c.coef.buffer_info()[0] for c in comps])
+    return (b"".join(segments), _ptr(starts, _I64P), need, interval,
+            units[0][5], len(blocks), _ptr(slot, _I32P), _ptr(off, _I64P),
+            _ptr(stride, _I64P), _ptr(mcu_w, _I64P), _ptr(dc_tab, _I32P),
+            _ptr(ac_tab, _I32P), ctypes.cast(coef_ptrs, _PTRS),
+            (starts, slot, off, stride, mcu_w, dc_tab, ac_tab, coef_ptrs))
+
+
+def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
+                     mode: int, ss: int, se: int, al: int, name: str,
+                     unit: int = 64) -> None:
+    """One Huffman-coded JPEG scan's entropy decode in C++
+    (``jpeg_scan.cpp``), into the components' coefficient arrays in place:
+    ``segments``, ``units``, ``restart`` and ``n_mcus`` as ``utils/jpeg.py::
+    decode_scan`` takes them; ``mode`` 0 sequential, 1 DC first, 2 DC
+    refinement, 3 AC first, 4 AC refinement, 5 lossless differences
+    (``unit`` 1: one value a data unit). The same values as the Python
+    decoders; bad data raises ``ValueError`` naming ``name``."""
+    tables = []
+
+    def index(t):
+        if t is None:
+            return -1
+        for i, y in enumerate(tables):
+            if y is t:
+                return i
+        tables.append(t)
+        return len(tables) - 1
+
+    (data, starts, need, interval, mcus_row, n_blocks, slot, off, stride,
+     mcu_w, dc_tab, ac_tab, coefs, _keep) = _scan_layout(
+         segments, units, restart, n_mcus, name, index)
     lookups = [t.lookup for t in tables]
     table_ptrs = (ctypes.c_void_p * max(len(lookups), 1))(
         *[t.ctypes.data for t in lookups])
     rc = lib().wpt_jpeg_scan(
-        b"".join(segments), _ptr(starts, _I64P), need, mode, ss, se, al,
-        n_mcus, interval, units[0][5], len(blocks), _ptr(slot, _I32P),
-        _ptr(off, _I64P), _ptr(stride, _I64P), _ptr(mcu_w, _I64P),
-        _ptr(dc_tab, _I32P), _ptr(ac_tab, _I32P),
-        ctypes.cast(coef_ptrs, _PTRS), ctypes.cast(table_ptrs, _PTRS))
+        data, starts, need, mode, ss, se, al, n_mcus, interval, mcus_row,
+        unit, n_blocks, slot, off, stride, mcu_w, dc_tab, ac_tab, coefs,
+        ctypes.cast(table_ptrs, _PTRS))
     if rc:
         raise ValueError(f"{name}: {JPEG_STATUS.get(rc, f'decode error {rc}')}")
+
+
+def jpeg_arith_scan_native(segments: list, units: list, restart: int,
+                           n_mcus: int, mode: int, ss: int, se: int, al: int,
+                           cond: dict, name: str) -> None:
+    """One arithmetic-coded JPEG scan's decode in C++ (``jpeg_scan.cpp``),
+    into the components' coefficient arrays in place, as ``utils/jpeg.py::
+    decode_arith_scan`` takes its arguments (units carry table numbers, and
+    ``cond`` the DAC conditioning); the same coefficients."""
+    (data, starts, need, interval, mcus_row, n_blocks, slot, off, stride,
+     mcu_w, dc_tab, ac_tab, coefs, _keep) = _scan_layout(
+         segments, units, restart, n_mcus, name,
+         lambda t: -1 if t is None else t)
+    lo = np.asarray([lu[0] for lu in cond["dc"]], np.uint8)
+    hi = np.asarray([lu[1] for lu in cond["dc"]], np.uint8)
+    kx = np.asarray(cond["ac"], np.uint8)
+    lib().wpt_jpeg_arith_scan(
+        data, starts, need, mode, ss, se, al, n_mcus, interval, mcus_row,
+        n_blocks, slot, off, stride, mcu_w, dc_tab, ac_tab, _ptr(lo, _U8P),
+        _ptr(hi, _U8P), _ptr(kx, _U8P), coefs)
+
+
+def jpeg_undifference_native(diff: np.ndarray, first_rows: np.ndarray,
+                             psv: int, pt: int) -> np.ndarray:
+    """``utils/jpeg.py::undifference`` in C++: a lossless component's
+    (H, W) uint8 samples from its int32 differences (a row-strided view
+    of its sample grid), equal to the Python one."""
+    h, w = diff.shape
+    if diff.strides[1] != 4:
+        diff = np.ascontiguousarray(diff)
+    first = np.ascontiguousarray(first_rows, np.uint8)
+    out = np.empty((h, w), np.uint8)
+    lib().wpt_jpeg_undifference(
+        diff.ctypes.data_as(_I32P), diff.strides[0] // 4, w, h,
+        _ptr(first, _U8P), psv, pt, _ptr(out, _U8P))
+    return out

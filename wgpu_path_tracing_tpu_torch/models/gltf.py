@@ -28,12 +28,13 @@ reference's, as the JAX package keeps them:
   ``models/assemble.py::finalize_scene`` (gpu.ts:119-138).
 
 The JAX package decodes and scales images with Pillow; here
-``utils/image.py::decode_image_rgba`` (PNG, and sequential and
-progressive JPEG in gray, YCbCr, RGB, CMYK and YCCK through
-``utils/jpeg.py``, told apart by their bytes as Pillow does) and
-``resize_bilinear_u8`` compute what Pillow computes, so the atlas is
-array-equal. An arithmetic-coded, lossless, hierarchical or 12-bit JPEG
-raises ``NotImplementedError`` naming the image. With a compiler,
+``utils/image.py::decode_image_rgba`` (PNG, and sequential, progressive
+and lossless JPEG, Huffman- or arithmetic-coded, in gray, YCbCr, RGB, CMYK
+and YCCK through ``utils/jpeg.py``, told apart by their bytes as Pillow
+does) and ``resize_bilinear_u8`` compute what Pillow computes, so the
+atlas is array-equal. A JPEG Pillow refuses (hierarchical, arithmetic-coded
+lossless, 12-bit) raises ``NotImplementedError`` naming the image. With a
+compiler,
 ``accel/native.py``'s library transforms and gathers each primitive's
 corners in one pass (``flatten_native``) and packs the atlas
 (``potpack_native``); the NumPy code here is their plain version, the same

@@ -4,12 +4,22 @@ The JAX package reads JPEG textures and LDR environment maps with Pillow
 (``Image.open(...).convert("RGBA")``), which decodes with libjpeg-turbo at
 its defaults. This module decodes the same files to the same bytes:
 
-* frames: baseline and extended sequential Huffman (SOF0, SOF1) and
-  progressive Huffman (SOF2) at 8 bits, one scan or several, interleaved
-  or not, with restart intervals (DRI, RSTn), several DQT and DHT
-  segments, any size. Progressive scans follow ``jdphuff.c``: DC first and
-  refinement, AC first with end-of-band runs and AC refinement, any scan
-  script libjpeg accepts (its warnings change nothing, its errors raise);
+* frames: baseline and extended sequential Huffman (SOF0, SOF1),
+  progressive Huffman (SOF2), lossless Huffman (SOF3) and sequential and
+  progressive arithmetic-coded (SOF9, SOF10) at 8 bits, one scan or
+  several, interleaved or not, with restart intervals (DRI, RSTn), several
+  DQT, DHT and DAC segments, any size. Progressive scans follow
+  ``jdphuff.c`` and ``jdarith.c``: DC first and refinement, AC first and
+  AC refinement, any scan script libjpeg accepts (its warnings change
+  nothing, its errors raise); arithmetic-coded data that proves bad leaves
+  the rest of its restart interval undecoded, as ``jdarith.c`` does;
+* lossless frames as ``jdlhuff.c``, ``jddiffct.c`` and ``jdlossls.c``
+  decode them: predictors 1-7, the point transform, differences mod 2^16,
+  the prediction restarting at the first row of the iMCU row a restart
+  falls in, restart intervals of whole MCU rows only, replication for
+  upsampling, and no colour conversion (three components are RGB unless a
+  JFIF or Adobe marker says YCbCr, which libjpeg-turbo refuses, as it
+  refuses YCCK);
 * components: 1 (gray, replicated, alpha 255), 3: YCbCr, or RGB where an
   Adobe marker says transform 0 (or, with neither a JFIF nor an Adobe
   marker, the component ids are 'R', 'G', 'B'), as libjpeg guesses; or 4:
@@ -17,29 +27,35 @@ its defaults. This module decodes the same files to the same bytes:
   transform (``jdcolor.c``'s ``ycck_cmyk_convert``), then Pillow's
   "CMYK;I" inversion and its ``cmyk2rgb``;
 * every sampling factor libjpeg accepts (integer ratios to the largest);
-* libjpeg-turbo's default arithmetic: ``jidctint.c``'s integer IDCT
-  (``JDCT_ISLOW``: CONST_BITS 13, PASS1_BITS 2, its range-limit table),
-  ``jdsample.c``'s fancy (triangle) upsampling for h2v1, h1v2 and h2v2
-  with its alternating rounding bias (box replication for a component two
-  samples wide or less under h2v1 and h2v2, and for other ratios),
-  ``jdcolor.c``'s fixed-point YCbCr tables, and ``jdcoefct.c``'s block
-  smoothing (libjpeg-turbo 2.1 and later: coefficients 1-9 estimated from a
-  5x5 neighbourhood of DC values) where a progressive file leaves bits of
-  those coefficients unsent. libjpeg-turbo's SIMD paths give these
-  routines' results bit for bit.
+* libjpeg-turbo's default arithmetic: the integer IDCT (``JDCT_ISLOW``:
+  CONST_BITS 13, PASS1_BITS 2) as its SIMD version computes it in 16-bit
+  lanes (``idct_islow``), ``jdsample.c``'s fancy (triangle) upsampling for
+  h2v1, h1v2 and h2v2 with its alternating rounding bias (box replication
+  for a component two samples wide or less under h2v1 and h2v2, and for
+  other ratios), ``jdcolor.c``'s fixed-point YCbCr tables, and
+  ``jdcoefct.c``'s block smoothing (libjpeg-turbo 2.1 and later:
+  coefficients 1-9 estimated from a 5x5 neighbourhood of DC values) where
+  a progressive file, Huffman- or arithmetic-coded, leaves bits of those
+  coefficients unsent.
 
-EXIF orientation is ignored, as ``Image.open`` ignores it. Arithmetic-coded,
-lossless, hierarchical and 12-bit files raise ``NotImplementedError``
-naming the image; truncated or malformed data raises ``ValueError`` naming
-it.
+EXIF orientation is ignored, as ``Image.open`` ignores it. Hierarchical,
+arithmetic-coded lossless and other than 8-bit files, DNL heights and
+fractional sampling ratios raise ``NotImplementedError`` naming the image,
+as Pillow refuses them; truncated or malformed data raises ``ValueError``
+naming it. Pillow also refuses an arithmetic-coded file whose data runs
+past its first 64 KiB read (libjpeg's arithmetic decoder cannot wait for
+more input); this module reads it, as Pillow does when handed the whole
+file at once.
 
-The entropy decode is serial. ``decode_scan`` (sequential) and the four
-progressive MCU decoders walk the bits in Python over lookup tables; they
-are the plain version of ``accel/cbvh/jpeg_scan.cpp``, which the native
-library runs wherever ``accel.native.native_available()`` (``g++`` on
-``PATH``; a failed build raises). A host without ``g++`` decodes in Python,
-several times slower on a progressive file. The IDCT, the smoothing,
-the upsampling and the colour conversion are whole-array NumPy.
+The entropy decode is serial. ``decode_scan`` (sequential), the four
+progressive MCU decoders, ``decode_arith_scan`` and
+``decode_lossless_scan`` walk the bits (or the binary decisions) in
+Python; they, and ``undifference``, are the plain version of
+``accel/cbvh/jpeg_scan.cpp``, which the native library runs wherever
+``accel.native.native_available()`` (``g++`` on ``PATH``; a failed build
+raises). A host without ``g++`` decodes in Python, several times slower on
+a progressive or arithmetic-coded file. The IDCT, the smoothing, the
+upsampling and the colour conversion are whole-array NumPy.
 """
 
 from __future__ import annotations
@@ -52,13 +68,17 @@ from array import array
 import numpy as np
 
 SOI, EOI, SOS, DQT, DHT, DRI, DNL = 0xD8, 0xD9, 0xDA, 0xDB, 0xC4, 0xDD, 0xDC
-SOF_SEQUENTIAL = (0xC0, 0xC1)
-SOF_PROGRESSIVE = (0xC2,)
+DAC = 0xCC
+# The frames libjpeg-turbo decodes: (progressive, arithmetic, lossless).
+SOF_KINDS = {0xC0: (False, False, False), 0xC1: (False, False, False),
+             0xC2: (True, False, False), 0xC3: (False, False, True),
+             0xC9: (False, True, False), 0xCA: (True, True, False)}
+# The frames it refuses (Pillow with it): hierarchical ones, and
+# arithmetic-coded lossless ones, for which it has no decoder.
 SOF_UNSUPPORTED = {
-    0xC3: "lossless", 0xC5: "hierarchical",
-    0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
-    0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
-    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
+    0xC5: "hierarchical", 0xC6: "hierarchical progressive",
+    0xC7: "hierarchical lossless", 0xCB: "arithmetic-coded lossless",
+    0xCD: "arithmetic-coded hierarchical",
     0xCE: "arithmetic-coded hierarchical progressive",
     0xCF: "arithmetic-coded hierarchical lossless"}
 
@@ -81,21 +101,6 @@ FIX_0_298631336, FIX_0_390180644, FIX_0_541196100 = 2446, 3196, 4433
 FIX_0_765366865, FIX_0_899976223, FIX_1_175875602 = 6270, 7373, 9633
 FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
-
-
-def _idct_range_limit() -> np.ndarray:
-    """``IDCT_range_limit`` (jdmaster.c ``prepare_range_limit_table``): the
-    sample for a centred IDCT output x is table[x & 1023]: x + 128 for x in
-    [-128, 127], 255 above up to 511, 0 below down to -512, wrapping past
-    that as libjpeg's table does."""
-    x = np.arange(1024)
-    out = np.where(x < 128, x + 128, 0)
-    out = np.where((x >= 128) & (x < 512), 255, out)
-    out = np.where(x >= 896, x - 896, out)
-    return out.astype(np.uint8)
-
-
-_RANGE_LIMIT = _idct_range_limit()
 
 
 def _ycc_tables():
@@ -295,8 +300,9 @@ def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
             raise ValueError(f"{name}: truncated JPEG data")
 
 
-def _wrap16(v: int) -> int:
-    """``v`` as libjpeg's JCOEF (int16) holds it."""
+def _wrap16(v):
+    """``v`` (an int or an integer array) as a 16-bit lane, libjpeg's JCOEF
+    (int16), holds it."""
     return ((v + 32768) & 0xFFFF) - 32768
 
 
@@ -470,6 +476,391 @@ def decode_progressive_scan(segments: list, units: list, restart: int,
             raise ValueError(f"{name}: truncated JPEG data")
 
 
+# ISO 10918-1 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS
+# << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed bin's
+# state (Qe 0.5, never moving).
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+
+
+class _QM:
+    """``jdarith.c``'s decoder over one restart interval's unstuffed bytes:
+    the C and A registers, the bit counter (-16 before the first two bytes,
+    -1 once the data proved bad: the interval's remaining MCUs are then
+    left as they are), zeros past the last byte, and the interval's
+    statistics: 64 bins a DC table, 256 an AC table, all 0 at the start,
+    the fixed bin, each component's last DC value and DC context."""
+
+    __slots__ = ("data", "pos", "c", "a", "ct", "dc", "ac", "fixed", "last",
+                 "ctx")
+
+    def __init__(self, segment: bytes):
+        self.data, self.pos = segment, 0
+        self.c, self.a, self.ct = 0, 0, -16
+        self.dc, self.ac = {}, {}
+        self.fixed = bytearray([113])
+        self.last, self.ctx = {}, {}
+
+    def decode(self, st: bytearray, i: int) -> int:
+        """``arith_decode``: one binary decision in bin ``st[i]``, with the
+        bin's state moved as Table D.2 says."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                pos = self.pos
+                c = (c << 8) | (self.data[pos] if pos < len(self.data) else 0)
+                self.pos = pos + 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000  # the two first bytes are in
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_dc(qm: _QM, comp, tbl: int, cond: dict) -> bool:
+    """Figures F.19-F.24 as ``jdarith.c`` reads a DC difference into the
+    component's last value (mod 2^16), the context its magnitude sets
+    against the table's L and U. False where the magnitude overflows."""
+    stats = qm.dc.setdefault(tbl, bytearray(64))
+    s0 = qm.ctx.get(comp, 0)
+    if not qm.decode(stats, s0):
+        qm.ctx[comp] = 0
+        return True
+    sign = qm.decode(stats, s0 + 1)
+    st = s0 + 2 + sign
+    m = qm.decode(stats, st)
+    if m:
+        st = 20
+        while qm.decode(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                return False
+            st += 1
+    lo, hi = cond["dc"][tbl]
+    if m < (1 << lo) >> 1:
+        qm.ctx[comp] = 0
+    elif m > (1 << hi) >> 1:
+        qm.ctx[comp] = 12 + sign * 4
+    else:
+        qm.ctx[comp] = 4 + sign * 4
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if qm.decode(stats, st):
+            v |= m
+        m >>= 1
+    v += 1
+    qm.last[comp] = (qm.last.get(comp, 0) + (-v if sign else v)) & 0xFFFF
+    return True
+
+
+def _arith_ac_value(qm: _QM, stats: bytearray, st: int, k: int, kx: int):
+    """A nonzero AC coefficient's sign (the fixed bin) and value, its
+    magnitude bins from 189 up to Kx and from 217 past it; None where the
+    magnitude overflows."""
+    sign = qm.decode(qm.fixed, 0)
+    st += 2
+    m = qm.decode(stats, st)
+    if m and qm.decode(stats, st):
+        m <<= 1
+        st = 189 if k <= kx else 217
+        while qm.decode(stats, st):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            st += 1
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if qm.decode(stats, st):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def arith_mcu_sequential(qm: _QM, blocks: list, cond: dict) -> None:
+    """``jdarith.c::decode_mcu``: each block's DC difference, then its AC
+    coefficients 1..63 up to the end-of-block decision."""
+    zz = NATURAL_ORDER
+    for coef, base, comp, dtbl, atbl in blocks:
+        if not _arith_dc(qm, comp, dtbl, cond):
+            qm.ct = -1
+            return
+        coef[base] = _wrap16(qm.last.get(comp, 0))
+        stats = qm.ac.setdefault(atbl, bytearray(256))
+        kx = cond["ac"][atbl]
+        k = 1
+        while k <= 63:
+            st = 3 * (k - 1)
+            if qm.decode(stats, st):
+                break
+            while not qm.decode(stats, st + 1):
+                st += 3
+                k += 1
+                if k > 63:
+                    qm.ct = -1
+                    return
+            v = _arith_ac_value(qm, stats, st, k, kx)
+            if v is None:
+                qm.ct = -1
+                return
+            coef[base + zz[k]] = _wrap16(v)
+            k += 1
+
+
+def arith_mcu_DC_first(qm: _QM, blocks: list, cond: dict, al: int) -> None:
+    """``decode_mcu_DC_first``: each block's DC, shifted by ``Al``."""
+    for coef, base, comp, dtbl, _ in blocks:
+        if not _arith_dc(qm, comp, dtbl, cond):
+            qm.ct = -1
+            return
+        coef[base] = _wrap16(qm.last.get(comp, 0) << al)
+
+
+def arith_mcu_DC_refine(qm: _QM, blocks: list, al: int) -> None:
+    """``decode_mcu_DC_refine``: one bit a block from the fixed bin."""
+    for coef, base, *_ in blocks:
+        if qm.decode(qm.fixed, 0):
+            coef[base] |= 1 << al
+
+
+def arith_mcu_AC_first(qm: _QM, block: tuple, cond: dict, ss: int, se: int,
+                       al: int) -> None:
+    """``decode_mcu_AC_first``: the band ``Ss..Se`` of one block, each
+    coefficient shifted by ``Al``."""
+    coef, base, _, _, atbl = block
+    zz = NATURAL_ORDER
+    stats = qm.ac.setdefault(atbl, bytearray(256))
+    kx = cond["ac"][atbl]
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if qm.decode(stats, st):
+            break
+        while not qm.decode(stats, st + 1):
+            st += 3
+            k += 1
+            if k > se:
+                qm.ct = -1
+                return
+        v = _arith_ac_value(qm, stats, st, k, kx)
+        if v is None:
+            qm.ct = -1
+            return
+        coef[base + zz[k]] = _wrap16(v << al)
+        k += 1
+
+
+def arith_mcu_AC_refine(qm: _QM, block: tuple, ss: int, se: int,
+                        al: int) -> None:
+    """``decode_mcu_AC_refine``: past the last coefficient the earlier
+    scans made nonzero (EOBx) an end-of-band decision at each position;
+    a known nonzero coefficient takes a correction bit (+-(1 << Al) away
+    from zero), a zero one may become +-(1 << Al)."""
+    coef, base, _, _, atbl = block
+    zz = NATURAL_ORDER
+    stats = qm.ac.setdefault(atbl, bytearray(256))
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coef[base + zz[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if k > kex and qm.decode(stats, st):
+            break
+        while True:
+            pos = base + zz[k]
+            v = coef[pos]
+            if v:
+                if qm.decode(stats, st + 2):
+                    coef[pos] = _wrap16(v + (m1 if v < 0 else p1))
+                break
+            if qm.decode(stats, st + 1):
+                coef[pos] = m1 if qm.decode(qm.fixed, 0) else p1
+                break
+            st += 3
+            k += 1
+            if k > se:
+                qm.ct = -1
+                return
+        k += 1
+
+
+def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
+                      mode: int, ss: int, se: int, al: int, cond: dict,
+                      name: str) -> None:
+    """One arithmetic-coded scan (SOF9, SOF10) into its components'
+    coefficients: ``segments``, ``units`` (with table numbers for tables),
+    ``restart`` and ``n_mcus`` as ``decode_scan`` takes them, ``mode`` as
+    ``accel.native.jpeg_scan_native`` numbers them, ``cond`` the DAC
+    conditioning ({"dc": [(L, U)] * 16, "ac": [Kx] * 16}). Each restart
+    interval starts the coder, the statistics and the predictors anew. Bad
+    data does not raise: as ``jdarith.c`` warns and leaves the rest of the
+    interval undecoded, so does this."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    if len(segments) < need:
+        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
+                         f"{need} restart intervals)")
+    mcus_row = units[0][5]
+    for seg_i in range(need):
+        qm = _QM(segments[seg_i])
+        first = seg_i * interval
+        for m in range(first, min(first + interval, n_mcus)):
+            if qm.ct == -1 and mode != 2:
+                break
+            my, mx = divmod(m, mcus_row)
+            blocks = [(comp.coef,
+                       (my * row_stride + off + mx * comp.mcu_w) * 64,
+                       comp, dtbl, atbl)
+                      for comp, dtbl, atbl, offsets, row_stride, _ in units
+                      for off in offsets]
+            if mode == 0:
+                arith_mcu_sequential(qm, blocks, cond)
+            elif mode == 1:
+                arith_mcu_DC_first(qm, blocks, cond, al)
+            elif mode == 2:
+                arith_mcu_DC_refine(qm, blocks, al)
+            elif mode == 3:
+                arith_mcu_AC_first(qm, blocks[0], cond, ss, se, al)
+            else:
+                arith_mcu_AC_refine(qm, blocks[0], ss, se, al)
+
+
+def decode_lossless_scan(segments: list, units: list, restart: int,
+                         n_mcus: int, name: str) -> None:
+    """The Huffman-coded differences of one lossless scan (SOF3,
+    ``jdlhuff.c``) into its components' sample grids (``comp.coef``, one
+    int32 a sample): ``segments``, ``units`` and ``restart`` as
+    ``decode_scan`` takes them, each data unit one sample; category 16 is
+    32768 with no extra bits."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    if len(segments) < need:
+        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
+                         f"{need} restart intervals)")
+    mcus_row = units[0][5]
+    for seg_i in range(need):
+        rd = _Reader(segments[seg_i], name)
+        first = seg_i * interval
+        try:
+            for m in range(first, min(first + interval, n_mcus)):
+                my, mx = divmod(m, mcus_row)
+                for comp, dct, _, offsets, row_stride, _ in units:
+                    for off in offsets:
+                        s = rd.symbol(dct)
+                        comp.coef[my * row_stride + off + mx * comp.mcu_w] = (
+                            32768 if s == 16 else
+                            _extend(rd.bits(s), s) if s else 0)
+        except IndexError:
+            raise ValueError(f"{name}: truncated JPEG data") from None
+        if rd.p > 8 * len(segments[seg_i]):
+            raise ValueError(f"{name}: truncated JPEG data")
+
+
+def lossless_first_rows(c, interleaved: bool, restart: int,
+                        mcus_row: int) -> np.ndarray:
+    """Which of component ``c``'s sample rows ``jdlossls.c`` undifferences
+    as a first row (the sample to the left, 2^(7 - Pt) first) in a scan:
+    the first row of each iMCU row (``c.v`` rows) in whose MCU rows the
+    scan starts or a restart interval does. An interleaved scan's MCU row
+    is an iMCU row; a scan of one component has ``c.v`` MCU rows an iMCU
+    row, so a restart inside one takes effect at its first row, as
+    libjpeg-turbo undifferences an iMCU row once all of it is decoded."""
+    rows = np.arange(c.height)
+    per = restart // mcus_row if restart else 0
+    if interleaved:
+        mcu_rows = rows // c.v
+    else:
+        mcu_rows = rows
+    reset = (mcu_rows % per == 0) if per else (mcu_rows == 0)
+    imcu = rows // c.v
+    hit = np.zeros(imcu[-1] + 1, bool)
+    np.logical_or.at(hit, imcu, reset)
+    return (rows % c.v == 0) & hit[imcu]
+
+
+def undifference(diff: np.ndarray, first_rows: np.ndarray, psv: int,
+                 pt: int) -> np.ndarray:
+    """``jdlossls.c`` on one component's (H, W) differences: each sample
+    its difference plus its prediction, mod 2^16 (a first row from the
+    left, 2^(7 - Pt) first; other rows from the sample above first, then
+    by predictor ``psv`` of Ra, Rb, Rc), then shifted left by the point
+    transform ``pt`` and cut to 8 bits as libjpeg's JSAMPLE holds it."""
+    d = diff.astype(np.int64)
+    h, w = d.shape
+    x = np.zeros((h, w), np.int64)
+    for r in range(h):
+        if first_rows[r]:
+            x[r] = (np.cumsum(d[r]) + (1 << (7 - pt))) & 0xFFFF
+            continue
+        b = x[r - 1]
+        x0 = (d[r, 0] + b[0]) & 0xFFFF
+        if psv in (1, 4, 5):
+            step = d[r, 1:] + {1: 0, 4: b[1:] - b[:-1],
+                               5: (b[1:] - b[:-1]) >> 1}[psv]
+            x[r, 0] = x0
+            x[r, 1:] = (x0 + np.cumsum(step)) & 0xFFFF
+        elif psv in (2, 3):
+            x[r, 0] = x0
+            x[r, 1:] = (d[r, 1:] + (b[1:] if psv == 2 else b[:-1])) & 0xFFFF
+        else:
+            row, dr, bl = [int(x0)], d[r].tolist(), b.tolist()
+            for i in range(1, w):
+                ra, rb, rc = row[-1], bl[i], bl[i - 1]
+                pred = rb + ((ra - rc) >> 1) if psv == 6 else (ra + rb) >> 1
+                row.append((dr[i] + pred) & 0xFFFF)
+            x[r] = row
+    return ((x << pt) & 0xFF).astype(np.uint8)
+
+
 def _scan_units(comps: list, frame: dict):
     """Each data unit of one MCU of a scan over ``comps``: (component, its
     block offsets in the component's grid (row * grid width + column),
@@ -479,7 +870,8 @@ def _scan_units(comps: list, frame: dict):
     extent (ceil(downsampled size / 8))."""
     if len(comps) == 1:
         c = comps[0]
-        bw, bh = -(-c.width // 8), -(-c.height // 8)
+        unit = frame["block"]
+        bw, bh = -(-c.width // unit), -(-c.height // unit)
         c.mcu_w = 1
         return [(c, [0], c.grid_w, bw)], bw * bh
     mx, my = frame["mcus_x"], frame["mcus_y"]
@@ -517,18 +909,22 @@ def _entropy_segments(data: bytes, pos: int, name: str):
 
 
 def _idct_1d(x):
-    """jidctint.c's butterfly on eight int64 arrays (one pass, before the
-    descale): returns the eight outputs in order."""
+    """jidctint.c's butterfly on eight int64 arrays of 16-bit values (one
+    pass, before the descale): returns the eight outputs in order. The
+    four sums libjpeg-turbo's SIMD IDCT forms in 16-bit lanes (in0 +- in4,
+    in7 + in3, in5 + in1) wrap as there; its products and the other sums
+    are exact in 32 bits, as here."""
     z2, z3 = x[2], x[6]
     z1 = (z2 + z3) * FIX_0_541196100
     tmp2 = z1 + z3 * -FIX_1_847759065
     tmp3 = z1 + z2 * FIX_0_765366865
-    tmp0 = (x[0] + x[4]) << CONST_BITS
-    tmp1 = (x[0] - x[4]) << CONST_BITS
+    tmp0 = _wrap16(x[0] + x[4]) << CONST_BITS
+    tmp1 = _wrap16(x[0] - x[4]) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * FIX_1_175875602
     t0 = t0 * FIX_0_298631336
     t1 = t1 * FIX_2_053119869
@@ -547,25 +943,35 @@ def _idct_1d(x):
 
 
 def _descale(x, n):
-    return (x + (1 << (n - 1))) >> n
+    """A 32-bit lane's rounded right shift: the sum wraps mod 2^32 first."""
+    return ((x + (1 << (n - 1)) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31) >> n
 
 
 def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """``jpeg_idct_islow`` on (N, 64) natural-order coefficients (int16, as
     libjpeg's JCOEF holds them) with a natural-order quantization table:
-    (N, 8, 8) uint8 samples. The columns pass keeps PASS1_BITS extra bits
-    (int, as libjpeg's workspace), the rows pass descales by CONST_BITS +
-    PASS1_BITS + 3 and range-limits through ``_RANGE_LIMIT``. libjpeg's
-    shortcuts for all-zero AC columns and rows give the same values."""
-    blocks = (coef.astype(np.int64) * quant.astype(np.int64)).reshape(
+    (N, 8, 8) uint8 samples, as libjpeg-turbo's SIMD version
+    (``jsimd_idct_islow``, SSE2 and AVX2) computes them, which Pillow
+    runs: each product coefficient x step and the workspace are 16-bit
+    (the columns pass keeps PASS1_BITS extra bits and saturates; a block
+    with no AC coefficient in rows 1-7 takes the shortcut DC << PASS1_BITS,
+    which wraps), the rows pass descales by CONST_BITS + PASS1_BITS + 3 and
+    saturates to -128..127 before the 128 is added. On the values real
+    images give this is ``jidctint.c``'s C code bit for bit; only corrupt
+    data, whose coefficients overflow 16 bits on the way, tells them
+    apart."""
+    c = coef.reshape(-1, 64)
+    blocks = _wrap16(c.astype(np.int64) * quant.astype(np.int64)).reshape(
         -1, 8, 8)
     cols = _idct_1d([blocks[:, k, :] for k in range(8)])
-    ws = np.stack([_descale(c, CONST_BITS - PASS1_BITS) for c in cols],
-                  axis=1)
+    ws = np.clip(np.stack([_descale(v, CONST_BITS - PASS1_BITS)
+                           for v in cols], axis=1), -32768, 32767)
+    dc_only = ~c[:, 8:].any(axis=1)
+    ws[dc_only] = _wrap16(blocks[dc_only, 0, :] << PASS1_BITS)[:, None, :]
     rows = _idct_1d([ws[:, :, k] for k in range(8)])
     out = np.stack([_descale(r, CONST_BITS + PASS1_BITS + 3) for r in rows],
                    axis=2)
-    return _RANGE_LIMIT[out & 1023]
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 def _edge(a, axis, first):
@@ -584,15 +990,19 @@ def _interleave(even, odd, axis):
     return out.reshape(shape)
 
 
-def upsample(plane: np.ndarray, hr: int, vr: int) -> np.ndarray:
+def upsample(plane: np.ndarray, hr: int, vr: int,
+             fancy: bool = True) -> np.ndarray:
     """``jdsample.c`` at libjpeg-turbo's defaults on a component plane
     cropped to its downsampled size: fancy h2v1 and h2v2 (where the plane
-    is more than two samples wide), fancy h1v2, box replication otherwise;
-    edges repeat the last real sample, as libjpeg's context rows do."""
+    is more than two samples wide), fancy h1v2, box replication otherwise
+    and wherever ``fancy`` is False; edges repeat the last real sample, as
+    libjpeg's context rows do."""
     c = plane.astype(np.int64)
     w = c.shape[1]
     if (hr, vr) == (1, 1):
         return c
+    if not fancy:
+        return np.repeat(np.repeat(c, vr, axis=0), hr, axis=1)
     if (hr, vr) == (2, 1) and w > 2:
         three = 3 * c
         return _interleave((three + _edge(c, 1, True) + 1) >> 2,
@@ -639,7 +1049,22 @@ def _parse_dqt(seg: bytes, tables: dict, name: str) -> None:
         i += 1 + size
 
 
-def _parse_sof(seg: bytes, name: str, progressive: bool) -> dict:
+def _parse_dac(seg: bytes, cond: dict, name: str) -> None:
+    """``jdmarker.c::get_dac``: (Tc << 4 | Tb, value) pairs, a DC table's
+    value U << 4 | L (L <= U), an AC table's Kx."""
+    if len(seg) % 2:
+        raise ValueError(f"{name}: bad DAC segment")
+    for i in range(0, len(seg), 2):
+        index, val = seg[i], seg[i + 1]
+        if index >= 32 or (index < 16 and (val & 15) > (val >> 4)):
+            raise ValueError(f"{name}: bad DAC segment")
+        if index >= 16:
+            cond["ac"][index - 16] = val
+        else:
+            cond["dc"][index] = (val & 15, val >> 4)
+
+
+def _parse_sof(seg: bytes, name: str, kind: tuple) -> dict:
     if len(seg) < 6:
         raise ValueError(f"{name}: bad SOF segment")
     precision, height, width, nc = struct.unpack(">BHHB", seg[:6])
@@ -665,15 +1090,20 @@ def _parse_sof(seg: bytes, name: str, progressive: bool) -> dict:
         if hmax % c.h or vmax % c.v:
             raise NotImplementedError(f"{name}: fractional sampling ratios "
                                       "are not supported")
-    mcus_x, mcus_y = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    progressive, arithmetic, lossless = kind
+    unit = 1 if lossless else 8  # a lossless data unit is one sample
+    mcus_x = -(-width // (unit * hmax))
+    mcus_y = -(-height // (unit * vmax))
     for c in comps:
         c.width = -(-width * c.h // hmax)
         c.height = -(-height * c.v // vmax)
         c.grid_w, c.grid_h = mcus_x * c.h, mcus_y * c.v
-        c.coef = array("i", bytes(4 * c.grid_w * c.grid_h * 64))
+        c.coef = array("i", bytes(4 * c.grid_w * c.grid_h * unit * unit))
+        c.samples = None
     return {"width": width, "height": height, "comps": comps,
             "hmax": hmax, "vmax": vmax, "mcus_x": mcus_x, "mcus_y": mcus_y,
-            "progressive": progressive}
+            "progressive": progressive, "arithmetic": arithmetic,
+            "lossless": lossless, "block": unit}
 
 
 def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -689,6 +1119,7 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
     pos = 2
     frame = None
     huff, quant = {}, {}
+    cond = {"dc": [(0, 1)] * 16, "ac": [5] * 16}  # DAC's defaults
     restart = 0
     jfif = adobe = False
     transform = None
@@ -719,13 +1150,15 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
         if marker in SOF_UNSUPPORTED:
             raise NotImplementedError(
                 f"{name}: {SOF_UNSUPPORTED[marker]} JPEG images are not "
-                "supported (sequential and progressive Huffman only)")
-        if marker in SOF_SEQUENTIAL or marker in SOF_PROGRESSIVE:
+                "supported (libjpeg-turbo decodes none)")
+        if marker in SOF_KINDS:
             if frame is not None:
                 raise ValueError(f"{name}: two frames in one JPEG")
-            frame = _parse_sof(seg, name, marker in SOF_PROGRESSIVE)
+            frame = _parse_sof(seg, name, SOF_KINDS[marker])
         elif marker == DHT:
             _parse_dht(seg, huff, name)
+        elif marker == DAC:
+            _parse_dac(seg, cond, name)
         elif marker == DQT:
             _parse_dqt(seg, quant, name)
         elif marker == DRI:
@@ -742,8 +1175,8 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
         elif marker == SOS:
             if frame is None:
                 raise ValueError(f"{name}: a scan before the frame header")
-            pos = _read_scan(data, pos, seg, frame, huff, quant, restart,
-                             name, in_cxx)
+            pos = _read_scan(data, pos, seg, frame, huff, quant, cond,
+                             restart, name, in_cxx)
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{name}: no image data in the JPEG")
@@ -767,14 +1200,67 @@ def _check_progression(comps, ss, se, ah, al, name) -> None:
         c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
 
 
-def _read_scan(data, pos, seg, frame, huff, quant, restart, name,
+def _read_lossless_scan(data, pos, comps, keys, frame, huff, restart, psv,
+                        se, ah, pt, name, in_cxx: bool) -> int:
+    """A lossless scan (``jdlossls.c``, ``jddiffct.c``, ``jdlhuff.c``):
+    its checks (predictor 1-7, Se and Ah 0, Pt below 8, a restart interval
+    of whole MCU rows), its differences, then each component's samples
+    undifferenced into ``c.samples``. Returns the position of the marker
+    after it."""
+    if not 1 <= psv <= 7 or se or ah or pt >= 8:
+        raise ValueError(f"{name}: bad lossless JPEG scan (predictor {psv},"
+                         f" Se={se}, Ah={ah}, Pt={pt})")
+    try:
+        units, n_mcus = _scan_units(comps, frame)
+    except ValueError as exc:
+        raise ValueError(f"{name}: {exc}") from None
+    mcus_row = units[0][3]
+    if restart % mcus_row:
+        raise ValueError(f"{name}: a lossless JPEG's restart interval "
+                         f"({restart}) is not a whole number of MCU rows "
+                         f"({mcus_row} MCUs)")
+    tables = []
+    for (key_dc, _), c in zip(keys, comps):
+        if key_dc not in huff:
+            raise ValueError(f"{name}: a scan uses an undefined Huffman "
+                             "table")
+        if huff[key_dc].max_symbol > 16:
+            raise ValueError(f"{name}: bad Huffman table (a lossless symbol "
+                             "above 16)")
+        tables.append(huff[key_dc])
+        c.coef = array("i", bytes(4 * c.grid_w * c.grid_h))
+    segments, end = _entropy_segments(data, pos, name)
+    units = [(c, t, None, offs, stride, row)
+             for (c, offs, stride, row), t in zip(units, tables)]
+    if in_cxx:
+        from wgpu_path_tracing_tpu_torch.accel import native
+
+        native.jpeg_scan_native(segments, units, restart, n_mcus, 5, 0, 0, 0,
+                                name, unit=1)
+    else:
+        decode_lossless_scan(segments, units, restart, n_mcus, name)
+    for c in comps:
+        first = lossless_first_rows(c, len(comps) > 1, restart, mcus_row)
+        diff = np.frombuffer(c.coef, np.int32).reshape(
+            c.grid_h, c.grid_w)[:c.height, :c.width]
+        if in_cxx:
+            c.samples = native.jpeg_undifference_native(diff, first, psv, pt)
+        else:
+            c.samples = undifference(diff, first, psv, pt)
+    return end
+
+
+def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
                in_cxx: bool) -> int:
     """One SOS: its header, then its entropy-coded data (through
     ``accel/cbvh/jpeg_scan.cpp`` where ``in_cxx``); returns the
-    position of the marker after it. A sequential scan needs both tables
-    of each component (its Ss, Se, Ah and Al are ignored, as libjpeg
-    ignores them with a warning); a progressive DC first scan the DC
-    tables, an AC scan its AC table, a DC refinement none."""
+    position of the marker after it. A sequential Huffman scan needs both
+    tables of each component (its Ss, Se, Ah and Al are ignored, as
+    libjpeg ignores them with a warning); a progressive DC first scan the
+    DC tables, an AC scan its AC table, a DC refinement none. Arithmetic
+    coding needs no table segment: its statistics start at 0, conditioned
+    as the DAC segments so far say (``cond``). A lossless scan reads its
+    predictor from Ss and its point transform from Al."""
     ns = seg[0] if seg else 0
     if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
         raise ValueError(f"{name}: bad SOS segment")
@@ -791,6 +1277,9 @@ def _read_scan(data, pos, seg, frame, huff, quant, restart, name,
             raise ValueError(f"{name}: a scan names an unknown component")
         comps.append(by_id[cid])
         keys.append(((0, tables >> 4), (1, tables & 15)))
+    if frame["lossless"]:
+        return _read_lossless_scan(data, pos, comps, keys, frame, huff,
+                                   restart, ss, se, ah, al, name, in_cxx)
     # libjpeg's order: the MCU's size, the quantization tables, the
     # progression, the Huffman tables.
     try:
@@ -805,6 +1294,23 @@ def _read_scan(data, pos, seg, frame, huff, quant, restart, name,
             c.quant = quant[c.tq]  # latched, as libjpeg does
     if progressive:
         _check_progression(comps, ss, se, ah, al, name)
+    mode = 0 if not progressive else (
+        (1 if ah == 0 else 2) if ss == 0 else (3 if ah == 0 else 4))
+    if frame["arithmetic"]:
+        segments, end = _entropy_segments(data, pos, name)
+        units = [(c, key_dc[1], key_ac[1], offs, stride, row)
+                 for (c, offs, stride, row), (key_dc, key_ac)
+                 in zip(units, keys)]
+        if in_cxx:
+            from wgpu_path_tracing_tpu_torch.accel.native import (
+                jpeg_arith_scan_native)
+
+            jpeg_arith_scan_native(segments, units, restart, n_mcus, mode,
+                                   ss, se, al, cond, name)
+        else:
+            decode_arith_scan(segments, units, restart, n_mcus, mode, ss, se,
+                              al, cond, name)
+        return end
     dcs, acs = [], []
     for key_dc, key_ac in keys:
         if (needs_dc and key_dc not in huff) or (needs_ac
@@ -822,8 +1328,6 @@ def _read_scan(data, pos, seg, frame, huff, quant, restart, name,
     if in_cxx:
         from wgpu_path_tracing_tpu_torch.accel.native import jpeg_scan_native
 
-        mode = 0 if not progressive else (
-            (1 if ah == 0 else 2) if ss == 0 else (3 if ah == 0 else 4))
         jpeg_scan_native(segments, units, restart, n_mcus, mode, ss, se, al,
                          name)
     elif progressive:
@@ -952,7 +1456,12 @@ def _component_plane(c, frame: dict, smooth: bool) -> np.ndarray:
     """The component's samples, its block grid (block-smoothed where
     ``smooth``) through ``idct_islow``, cropped to its downsampled size. A
     component no scan named has no quantization table: libjpeg's IDCT then
-    multiplies by zeros, a plane of 128."""
+    multiplies by zeros, a plane of 128. A lossless frame's samples come
+    undifferenced from its scans (0 where no scan named the component)."""
+    if frame["lossless"]:
+        if c.samples is None:
+            return np.zeros((c.height, c.width), np.uint8)
+        return c.samples
     coef = np.frombuffer(c.coef, np.int32).astype(np.int16)  # JCOEF wraps
     coef = coef.reshape(c.grid_h, c.grid_w, 64)
     if smooth:
@@ -974,8 +1483,11 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
     w, h = frame["width"], frame["height"]
     comps = frame["comps"]
     smooth = smoothing_ok(frame)
+    # libjpeg-turbo upsamples a lossless frame by replication only (its
+    # fancy upsampling needs DCT blocks of more than one sample).
     planes = [upsample(_component_plane(c, frame, smooth),
-                       frame["hmax"] // c.h, frame["vmax"] // c.v)[:h, :w]
+                       frame["hmax"] // c.h, frame["vmax"] // c.v,
+                       fancy=not frame["lossless"])[:h, :w]
               for c in comps]
     out = np.full((h, w, 4), 255, np.uint8)
     if len(comps) == 1:
@@ -986,6 +1498,10 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
         # marker or under transform 0, YCCK under 2 (and, with a warning,
         # any other transform).
         c, m, y, k = planes
+        if adobe and transform != 0 and frame["lossless"]:
+            raise NotImplementedError(
+                f"{name}: a lossless YCCK JPEG is not supported (libjpeg-turbo"
+                " converts no colour space of a lossless frame)")
         if adobe and transform != 0:  # jdcolor.c ycck_cmyk_convert
             c, m, y = (np.clip(255 - (c + _CR_R[y]), 0, 255),
                        np.clip(255 - (c + ((_CB_G[m] + _CR_G[y]) >> 16)), 0,
@@ -999,12 +1515,18 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
         return out
     # libjpeg's guess of the colour space (jdapimin.c
     # default_decompress_parms).
+    # A lossless frame with neither marker is RGB whatever its ids (and
+    # libjpeg-turbo converts no colour space of a lossless frame).
     if jfif:
         rgb = False
     elif adobe:
         rgb = transform == 0
     else:
-        rgb = [c.id for c in comps] == [82, 71, 66]
+        rgb = frame["lossless"] or [c.id for c in comps] == [82, 71, 66]
+    if not rgb and frame["lossless"]:
+        raise NotImplementedError(
+            f"{name}: a lossless YCbCr JPEG is not supported (libjpeg-turbo "
+            "converts no colour space of a lossless frame)")
     if rgb:
         for k in range(3):
             out[..., k] = planes[k]
