@@ -126,7 +126,16 @@ and runs these phases, one line of output each:
    CMYK and YCCK JPEGs as its textures and with the arithmetic-coded and
    lossless ones, each written to a .gltf and loaded by ``load_model``
    (the walk, the fat canvas), 512x512 x 8 spp with its launches, and its
-   1-spp image against the plain path's;
+   1-spp image against the plain path's; then the TGA, BMP (DIB, ICO,
+   CUR), netpbm and TIFF readers on this host: every file under
+   ``tests/ldr`` array-equal to its Pillow decode with the C++ loops and
+   with the Python ones, a 4096x2048 RLE TGA and a 4096x2048 LZW TIFF made
+   by the test suite's writers (``LDR_TIMING_SIZE``), each decoded with
+   the C++ loops within 5 s (the TGA and a 2048x1024 TIFF with the Python
+   ones too) and equal to the array it was made from, and the same box
+   with four sidecar textures (``LDR_TEXTURES``: RLE TGA, RLE8 BMP, P6,
+   LZW TIFF; the walk and K2 in the scene's texture mode) against its
+   plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -139,9 +148,10 @@ and runs these phases, one line of output each:
    and repeated Mrays/s, the image against the plain path's on every pixel,
    and its renders in turns with the same box's without the map;
    then the material box at 512x512 x 8 spp under each committed
-   progressive JPEG map, Huffman- and arithmetic-coded
-   (``RenderConfig.env_map``): its launches (K1, K2, K2's ENV
-   instantiation) and its image against the plain path's;
+   progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
+   map and a 16-bit RGB TIFF map (``RenderConfig.env_map``): its launches
+   (K1, K2, K2's ENV instantiation) and its image against the plain
+   path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
    against ``/`` bit for bit (a zero numerator's sign aside, ``div_apart``)
    on 2^24 random bit patterns, the special operands and 2^22 pairs in and
@@ -253,7 +263,7 @@ with ``_denoise`` and ``_adaptive``.
 ``--phases NAME,...`` runs only the named phases (``--help`` names them),
 for iterating on the card; without it every phase runs. ``--phases
 gltf,env`` runs the scene-loading and environment-map phases alone
-(about 65 s after the build); ``--phases bvh2,debug,denoise,adaptive`` the
+(about 100 s after the build); ``--phases bvh2,debug,denoise,adaptive`` the
 phases of the binary-BVH walks, the debug views, the denoiser and adaptive
 sampling; ``--phases native,cli`` the scene-prep library and the command
 line (about 60 s after the build); ``--phases wide16,shard`` the 16-wide
@@ -2665,6 +2675,21 @@ JPEG_TEXTURES_ARITH = ("albedo_arith_restart.jpg",
 JPEG_ENV = "env_progressive.jpg"
 JPEG_ENV_ARITH = "env_arith_progressive.jpg"
 JPEG_ENV_SPP = 8
+LDR_DIR = os.path.join(REPO, "tests", "ldr")
+# The LDR-textured box: textured_cornell(tessellation=JPEG_TESSELLATION) at
+# JPEG_SIZE, its three images and a fourth (material 1's emissive map) read
+# from sidecar files: an RLE TGA with alpha, an RLE8 BMP, a binary P6 and an
+# LZW TIFF with predictor 2.
+LDR_TEXTURES = ("albedo_rle_rgba.tga", "roughness_rle8.bmp", "rgb.ppm",
+                "pbr_lzw_predictor.tif")
+# The env box under an RLE 32-bit bottom-left TGA map and a 16-bit RGB TIFF
+# map (LZW, predictor 2).
+LDR_ENV_MAPS = (("env_rle32.tga", "env_tga"), ("env_rgb16.tif", "env_tiff16"))
+# The decode timing files, made here from a seeded image by the test
+# suite's own writers: an equirect map's usual size, and a quarter of it
+# for the plain Python LZW decode (a code a step in Python).
+LDR_TIMING_SIZE = (4096, 2048)
+LDR_PYTHON_TIFF_SIZE = (2048, 1024)
 
 
 def jpeg_cases() -> list:
@@ -2692,6 +2717,38 @@ def with_jpeg_images(glb: bytes, jpegs: list) -> str:
                                    gf.buffers[0])}]
     gltf["images"] = [{"uri": uri("image/jpeg", jpegs[i % len(jpegs)])}
                       for i in range(len(gltf.get("images", [])))]
+    return json.dumps(gltf)
+
+
+def ldr_cases() -> list:
+    """(name, bytes, Pillow's RGBA) of each file under ``tests/ldr``, whose
+    Pillow decode ``pillow_rgba.npz`` holds."""
+    want = np.load(os.path.join(LDR_DIR, "pillow_rgba.npz"))
+    out = []
+    for name in sorted(want.files):
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            out.append((name, f.read(), want[name]))
+    return out
+
+
+def with_sidecar_images(glb: bytes, names: list) -> str:
+    """The .gltf text of the .glb ``glb`` with its buffer as a data URI and
+    image i read from the sidecar file ``names[i]`` (by its ``uri``, no
+    ``mimeType``: the loaders sniff the bytes); a name past the scene's
+    images becomes material 1's emissive map (emissive factor 1)."""
+    gf = GLTFFile._parse_glb(glb, "")
+    gltf = json.loads(json.dumps(gf.gltf))
+    gltf["buffers"] = [{"byteLength": len(gf.buffers[0]),
+                        "uri": "data:application/octet-stream;base64,"
+                        + base64.b64encode(gf.buffers[0]).decode()}]
+    n = len(gltf.get("images", []))
+    gltf["images"] = [{"uri": name} for name in names]
+    for name in names[n:]:
+        gltf["textures"].append({"source": gltf["images"].index(
+            {"uri": name})})
+        material = gltf["materials"][1]
+        material["emissiveTexture"] = {"index": len(gltf["textures"]) - 1}
+        material["emissiveFactor"] = [1.0, 1.0, 1.0]
     return json.dumps(gltf)
 
 
@@ -2846,6 +2903,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
                                  "render")
         report["gltf"]["async_chunks"] = seen
         report["gltf"]["jpeg"] = jpeg_scene(tmp, smi, report)
+        report["gltf"]["ldr"] = ldr_scene(tmp, smi, report)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -2957,13 +3015,149 @@ def jpeg_box(tmp: str, textures: dict, names: tuple, path_name: str,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
 
 
+def image_cases():
+    """``tests/torch_image_cases.py`` (the test suite's writers), loaded by
+    its path: ``tests`` is no package, and another ``tests`` may be
+    installed."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_image_cases", os.path.join(REPO, "tests",
+                                          "torch_image_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def decode_both(data: bytes, name: str, python: bool = True) -> list:
+    """``decode_image_rgba`` with the C++ loops and, unless ``python`` is
+    False, with their plain Python versions: [(RGBA, seconds), ...]."""
+    from wgpu_path_tracing_tpu_torch.utils.image import decode_image_rgba
+
+    out = []
+    real = native.native_available
+    for in_cxx in (True, False)[:2 if python else 1]:
+        native.native_available = real if in_cxx else (lambda: False)
+        try:
+            t0 = time.perf_counter()
+            rgba = decode_image_rgba(data, name)
+            out.append((rgba, time.perf_counter() - t0))
+        finally:
+            native.native_available = real
+    return out
+
+
+def ldr_scene(tmp: str, smi: str, report: dict) -> dict:
+    """The TGA, BMP (DIB, ICO, CUR), netpbm and TIFF readers on this host:
+    every file under ``tests/ldr`` against its Pillow decode, array-equal,
+    with the C++ loops and with their Python versions; the decode seconds
+    of a 4096x2048 RLE TGA (both ways) and a 4096x2048 LZW TIFF (C++; the
+    Python loop on a 2048x1024 one), made here by the test suite's writers
+    and each equal to the array it was made from; then the LDR-textured box
+    (``ldr_box``)."""
+    cases_module = image_cases()
+    sample_image, write_tga, write_tiff = (
+        cases_module.sample_image, cases_module.write_tga,
+        cases_module.write_tiff)
+    cases = ldr_cases()
+    for name, data, want in cases:
+        for rgba, _ in decode_both(data, name):
+            if not np.array_equal(rgba, want):
+                raise AssertionError(f"{name}: the decode differs from "
+                                     "Pillow's")
+    say("gltf", f"{len(cases)} committed TGA, BMP, DIB, ICO, CUR, netpbm and "
+        "TIFF files decode array-equal to Pillow's, with the C++ loops and "
+        "with the Python ones")
+    w, h = LDR_TIMING_SIZE
+    img = sample_image(w, h, 31)
+    img[..., 3] = 255
+    rgb = sample_image(w, h, 32, 3)
+    pw, ph = LDR_PYTHON_TIFF_SIZE
+    (tga, tif, small), make_s = timed(lambda: (
+        write_tga(img[..., [2, 1, 0, 3]], 10, 32),
+        write_tiff(rgb, 8, 2, compression=5, predictor=2, rows_per_strip=16),
+        write_tiff(rgb[:ph, :pw], 8, 2, compression=5, predictor=2,
+                   rows_per_strip=16)))
+    seconds = {}
+    for name, data, want, python in (
+            (f"rle32_{w}x{h}.tga", tga, img, True),
+            (f"lzw_predictor_{w}x{h}.tif", tif, rgb, False),
+            (f"lzw_predictor_{pw}x{ph}.tif", small, rgb[:ph, :pw], True)):
+        both = decode_both(data, name, python)
+        for rgba, _ in both:
+            if not (np.array_equal(rgba[..., :want.shape[-1]], want)
+                    and (rgba[..., 3] == 255).all()):
+                raise AssertionError(f"{name}: the decode differs from the "
+                                     "encoded array")
+        seconds[name] = {"cxx": both[0][1]}
+        if python:
+            seconds[name]["python"] = both[1][1]
+        say("gltf", f"{name} ({len(data)} bytes): decoded in "
+            f"{both[0][1]:.3f} s with the C++ loops"
+            + (f", {both[1][1]:.3f} s with the Python ones" if python else "")
+            + f" on this host, equal to the encoded array, on {smi}")
+    slow = {n: t["cxx"] for n, t in seconds.items()
+            if t["cxx"] > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    out = {"files": len(cases), "timing_seconds": seconds,
+           "timing_files_made_seconds": make_s}
+    out.update(ldr_box(tmp, {n: d for n, d, _ in cases}, smi, report))
+    return out
+
+
+def ldr_box(tmp: str, files: dict, smi: str, report: dict) -> dict:
+    """``textured_cornell(tessellation=JPEG_TESSELLATION)`` through
+    ``load_model`` of a .gltf whose images are the sidecar files
+    LDR_TEXTURES, at JPEG_SIZE^2 x JPEG_SPP: K3 and K2 in the scene's
+    texture mode counted under "gltf_ldr", and a 1-spp image against the
+    plain path's."""
+    directory = os.path.join(tmp, "ldr_box")
+    os.makedirs(directory, exist_ok=True)
+    for name in LDR_TEXTURES:
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(files[name])
+    path = os.path.join(directory, "ldr_box.gltf")
+    scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
+    with open(path, "w") as f:
+        f.write(with_sidecar_images(scene_to_glb(scene_np),
+                                    list(LDR_TEXTURES)))
+    r = Renderer(RenderConfig(width=JPEG_SIZE, height=JPEG_SIZE),
+                 device="cuda")
+    _, load = timed(lambda: r.load_model(path))
+    stats = r.stats()
+    say("gltf", f"the LDR-textured box ({r.scene.num_triangles} triangles, "
+        f"sidecar textures {', '.join(LDR_TEXTURES)}, atlas "
+        f"{tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
+        f"intersector {stats['intersector']!r}, texture {stats['texture']!r}")
+    if stats["intersector"] != "walk" or stats["texture"] not in (
+            "fat", "per_slot"):
+        raise AssertionError("the LDR-textured box must take the walk (K3) "
+                             "and a texture mode")
+    mode = {"fat": "k2_fat", "per_slot": "k2_per_slot"}[stats["texture"]]
+    _, secs = counted_render(
+        r, JPEG_SPP, report, "gltf_ldr",
+        expect(k3=2 * MAX_BOUNCES * JPEG_SPP, **{mode: MAX_BOUNCES * JPEG_SPP}))
+    rays = r.stats()["rays_total"]
+    say("gltf", f"LDR-textured box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} spp: "
+        f"wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s on {smi}")
+    r.reset()
+    one = r.render(spp=1)
+    plain_secs = checked_plain(r, 1, one, "gltf_ldr")
+    return {"textures": list(LDR_TEXTURES), "texture": stats["texture"],
+            "load_model_seconds": load, "size": JPEG_SIZE, "seconds": secs,
+            "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
+
+
 def jpeg_env_box(smi: str, report: dict, name: str = JPEG_ENV,
-                 path_name: str = "env_jpeg") -> dict:
-    """The material box at SIZE^2 under the committed JPEG map ``name``
-    (``RenderConfig.env_map``, read by ``load_env_image``): K1, K2 and K2's
+                 path_name: str = "env_jpeg", directory: str = JPEG_DIR
+                 ) -> dict:
+    """The material box at SIZE^2 under the committed map ``name`` in
+    ``directory`` (a JPEG, or an LDR file under ``tests/ldr``;
+    ``RenderConfig.env_map``, read by ``load_env_image``): K1, K2 and K2's
     ENV instantiation launched as expected (counted under ``path_name``),
     and the image equal to the plain path's on every pixel."""
-    path = os.path.join(JPEG_DIR, name)
+    path = os.path.join(directory, name)
     env, read_s = timed(lambda: ENV.load_env_image(path))
     r = Renderer(RenderConfig(width=SIZE, height=SIZE, env_map=path,
                               env_intensity=ENV_INTENSITY), device="cuda")
@@ -3093,6 +3287,9 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg"] = jpeg_env_box(smi, report)
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
+    for name, path_name in LDR_ENV_MAPS:
+        report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
+                                                LDR_DIR)
 
 
 def bvh2_bound(visits: dict, scene: dict, n: int) -> dict:

@@ -1331,3 +1331,60 @@ def test_renderer_arithmetic_jpeg_textured_scene_equals_plain_path(
     from chip_smoke import JPEG_TEXTURES_ARITH
 
     _jpeg_box_equals_plain(tmp_path, JPEG_TEXTURES_ARITH)
+
+
+def test_renderer_ldr_textured_scene_equals_plain_path(dev, tmp_path):
+    """``chip_smoke.py``'s LDR-textured box: ``textured_cornell(
+    tessellation=12)`` in a glTF whose four texture slots are sidecar files
+    (an RLE TGA with alpha, an RLE8 BMP, a binary P6, an LZW TIFF with
+    predictor 2), through ``load_model``: the walk and K2 in the scene's
+    texture mode, equal to its plain path on every pixel."""
+    from chip_smoke import LDR_TEXTURES, ldr_cases, with_sidecar_images
+
+    files = {name: data for name, data, _ in ldr_cases()}
+    for name in LDR_TEXTURES:
+        (tmp_path / name).write_bytes(files[name])
+    path = tmp_path / "ldr_textured.gltf"
+    path.write_text(with_sidecar_images(
+        scene_to_glb(textured_cornell(tessellation=12)), list(LDR_TEXTURES)))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    mode = r.stats()["texture"]
+    assert r.stats()["intersector"] == "walk" and mode in ("fat", "per_slot")
+    before = (K3.Counter.launches, K2.Counter.by_mode[mode])
+    kernel = r.render(spp=1)
+    assert (K3.Counter.launches, K2.Counter.by_mode[mode]) == (
+        before[0] + 2 * r.config.max_bounces,
+        before[1] + r.config.max_bounces)
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["env_rle32.tga", "env_rgb16.tif"])
+def test_renderer_ldr_env_map_equals_plain_path(dev, name):
+    """The material box under ``chip_smoke.py``'s RLE 32-bit TGA map and
+    16-bit RGB TIFF map (``RenderConfig.env_map``): K2's ENV instantiation
+    at every bounce, the image equal to the plain path's."""
+    from chip_smoke import LDR_DIR
+
+    r = Renderer(RenderConfig(width=W, height=H,
+                              env_map=f"{LDR_DIR}/{name}", env_intensity=1.5),
+                 device="cuda")
+    r.load_scene(material_test_box())
+    before = K2.Counter.env
+    kernel = r.render(spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=2).view(np.uint32))
+
+
+def test_committed_ldr_files_decode_to_their_pillow_arrays_here(dev):
+    """The files under ``tests/ldr`` decode on the card's host (no Pillow)
+    to ``pillow_rgba.npz``, with the C++ loops and with the Python ones."""
+    from chip_smoke import decode_both, ldr_cases
+
+    cases = ldr_cases()
+    assert len(cases) >= 40
+    for name, data, want in cases:
+        for rgba, _ in decode_both(data, name):
+            np.testing.assert_array_equal(rgba, want, err_msg=name)

@@ -465,8 +465,8 @@ def test_arithmetic_jpeg_pillow_reads_raises_naming_the_image(sampling):
 
 def test_images_are_sniffed_by_their_bytes(tmp_path):
     """``decode_image_rgba`` and ``read_png`` tell PNG from JPEG by the
-    signature, whatever the name says, as Pillow does; other bytes raise
-    naming the file."""
+    signature, whatever the name says, as Pillow does; a format not read
+    here raises naming the file and the format."""
     img = photo(10, 6)
     jpeg = pillow_jpeg(img, quality=80)
     path = tmp_path / "sky.png"  # a JPEG whatever its name says
@@ -479,7 +479,8 @@ def test_images_are_sniffed_by_their_bytes(tmp_path):
                                   pillow_rgba(png))
     np.testing.assert_array_equal(IMAGE.decode_image_rgba(jpeg),
                                   pillow_rgba(jpeg))
-    with pytest.raises(ValueError, match="x.gif: neither a PNG nor a JPEG"):
+    with pytest.raises(ValueError,
+                       match="x.gif: Pillow would open this file as GIF"):
         IMAGE.decode_image_rgba(b"GIF89a" + bytes(20), "x.gif")
 
 

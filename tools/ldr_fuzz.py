@@ -1,0 +1,300 @@
+"""Hold the LDR readers to Pillow on mutated and generated files.
+
+    python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|mut] [--n 2000] [--seed 1]
+
+Each case is random bytes of one format (``tests/torch_image_cases.py``'s
+writers with random headers, depths, compressions and layouts, a quarter
+of them then mutated) or, with ``--kind mut``, a file under ``tests/ldr``
+with a few bytes changed or its end cut. Pillow (the JAX package's reader)
+and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
+C++ loops and with their Python versions. A case is BAD when the port
+returns an array that is not Pillow's, or any array where Pillow raises;
+it is a GAP when Pillow reads it and the port raises. BAD cases are
+written under ``build/ldr_fuzz/``; the exit code is 1 if there is one.
+The process's address space is capped at 3 GiB (headers may claim huge
+images).
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import os
+import resource
+import struct
+import sys
+import warnings
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from PIL import Image  # noqa: E402
+
+from tests import torch_image_cases as C  # noqa: E402
+from wgpu_path_tracing_tpu_torch.accel import native  # noqa: E402
+from wgpu_path_tracing_tpu_torch.utils.image import decode_image_rgba  # noqa: E402
+
+OUT_DIR = os.path.join(REPO, "build", "ldr_fuzz")
+
+
+def pillow(data: bytes):
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGBA")), im.format
+    except Exception as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:80]}"
+
+
+def port(data: bytes, in_cxx: bool):
+    real = native.native_available
+    native.native_available = real if in_cxx else (lambda: False)
+    try:
+        return decode_image_rgba(data, "f"), None
+    except Exception as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:80]}"
+    finally:
+        native.native_available = real
+
+
+def pick(rng, options):
+    return options[int(rng.integers(0, len(options)))]
+
+
+def rand_bytes(rng, n: int) -> bytes:
+    return rng.integers(0, 256, max(0, n), dtype=np.uint8).tobytes()
+
+
+def mutate(data: bytes, rng) -> bytes:
+    """Cut the end, or change one to three bytes (most in the header)."""
+    d = bytearray(data)
+    if rng.integers(0, 4) == 0 and len(d) > 1:
+        return bytes(d[:rng.integers(1, len(d))])
+    for _ in range(rng.integers(1, 4)):
+        i = int(rng.integers(0, min(len(d), 80 if rng.random() < 0.7
+                                    else len(d))))
+        d[i] = (int(rng.integers(0, 256)) if rng.random() < 0.5
+                else d[i] ^ (1 << int(rng.integers(0, 8))))
+    return bytes(d)
+
+
+def rnd_tga(rng) -> bytes:
+    """A TGA header of any type, depth, map and origin, then pixels or
+    run-length packets, a little short or long."""
+    w, h = int(rng.integers(1, 9)), int(rng.integers(1, 7))
+    itype = pick(rng, [1, 2, 3, 9, 10, 11, 0, 4])
+    depth = pick(rng, [1, 8, 15, 16, 24, 32])
+    has_map = int(rng.random() < (0.8 if itype in (1, 9) else 0.1))
+    cdepth, start, length = pick(rng, [15, 16, 24, 32]), \
+        int(rng.integers(0, 4)), int(rng.integers(0, 20))
+    ident = rand_bytes(rng, int(rng.integers(0, 4)))
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), has_map, itype, start,
+                       length, cdepth, 0, 0, w, h, depth,
+                       int(rng.integers(0, 256)))
+    cmap = rand_bytes(rng, length * ((cdepth + 7) // 8)) if has_map else b""
+    bpp = max(1, depth // 8)
+    if itype & 8:
+        body, n = bytearray(), 0
+        while n < w * h + rng.integers(-2, 3):
+            k = int(rng.integers(1, 6))
+            if rng.random() < 0.5:
+                body += bytes([0x80 | (k - 1)]) + rand_bytes(rng, bpp)
+            else:
+                body += bytes([k - 1]) + rand_bytes(rng, bpp * k)
+            n += k
+    else:
+        body = rand_bytes(rng, w * h * bpp + int(rng.integers(-2, 3)))
+    return head + ident + cmap + bytes(body)
+
+
+MASKS = [(0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xF800, 0x7E0, 0x1F, 0),
+         (0x7C00, 0x3E0, 0x1F, 0), (0, 0, 0, 0), (1, 2, 3, 4)]
+
+
+def rnd_bmp(rng) -> bytes:
+    """A BMP or DIB of any header, depth, compression, masks and palette
+    (a gray ramp sometimes), RLE data written or random, maybe cut."""
+    w, h = int(rng.integers(1, 12)), int(rng.integers(1, 6))
+    bits = pick(rng, [1, 4, 8, 16, 24, 32, 2])
+    comp = pick(rng, [0, 0, 1, 2, 3, 4, 6])
+    header = pick(rng, [12, 40, 52, 56, 64, 108, 124])
+    colors = pick(rng, [0, 2, 3, 16, 256, 300] if bits <= 8 else [0, 0, 5])
+    n_pal = colors or (1 << bits if bits <= 8 else 0)
+    if rng.random() < 0.3 and bits <= 8:
+        pal = np.repeat(np.arange(n_pal, dtype=np.uint8)[:, None], 3, 1)
+        if n_pal == 2:
+            pal[1] = 255
+    else:
+        pal = rng.integers(0, 256, (n_pal, 3), dtype=np.uint8)
+    if bits <= 8:
+        px = rng.integers(0, max(1, min(n_pal + 2, 1 << bits)), (h, w),
+                          dtype=np.uint8)
+    else:
+        px = rng.integers(0, 256, (h, w, bits // 8), dtype=np.uint8)
+    stream = None
+    if comp in (1, 2):
+        idx = px if px.ndim == 2 else px[..., 0]
+        if rng.random() < 0.5:
+            stream = (C.rle8_rows(idx % 255) if comp == 1
+                      else C.rle4_rows(idx % 16))
+        else:
+            stream = bytes(int(v) % 4 if i % 2 == 0 and rng.random() < 0.5
+                           else int(v) for i, v in enumerate(
+                               rng.integers(0, 256, int(rng.integers(2, 40)))))
+    try:
+        data = C.write_bmp(px, bits, header=header, compression=comp,
+                           palette=pal if bits <= 8 else None, colors=colors,
+                           masks=pick(rng, MASKS) if comp == 3 else None,
+                           top_down=rng.random() < 0.3 and header != 12,
+                           rle_data=stream, file_header=rng.random() < 0.8)
+    except Exception:
+        return b"BM"
+    if rng.random() < 0.3:
+        data = data[:len(data) - int(rng.integers(0, 6))]
+    return data
+
+
+def rnd_icon(rng) -> bytes:
+    """An ICO or CUR of zero to three frames: BMP frames of 4-32 bits with
+    AND masks, or PNG frames; the directory's depth sometimes wrong."""
+    frames = []
+    for _ in range(int(rng.integers(0, 4))):
+        size = pick(rng, [1, 2, 4, 8, 16])
+        img = rng.integers(0, 256, (size, size, 4), dtype=np.uint8)
+        bits = pick(rng, [32, 24, 8, 4])
+        if bits <= 8:
+            data = C.icon_dib(img, bits,
+                              rng.integers(0, 256, (1 << bits, 3),
+                                           dtype=np.uint8),
+                              rng.integers(0, 1 << bits, (size, size),
+                                           dtype=np.uint8))
+        elif rng.random() < 0.2:
+            data = C.pillow_bytes(img, "PNG")
+        else:
+            data = C.icon_dib(img, bits)
+        shown = bits if rng.random() < 0.8 else pick(rng, [0, 32, 8])
+        frames.append((data, size, size, 0, shown, 1))
+    return C.write_icon(frames, rng.random() < 0.4)
+
+
+def rnd_ppm(rng) -> bytes:
+    """A netpbm header of any magic (some Pillow does not know), size and
+    maxval, comments in it, then plain or binary data, a sample short or
+    long."""
+    magic = pick(rng, [b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"Pf",
+                       b"PyP", b"PyRGBA", b"PyCMYK", b"P0CMYK", b"P7", b"P0"])
+    w, h = int(rng.integers(0, 6)), int(rng.integers(1, 5))
+    maxval = pick(rng, [1, 7, 255, 256, 1000, 65535, 0, 70000])
+    seps = [b" ", b"\n", b"\t", b"#c\n", b"\r", b" #x\r\n"]
+    head = magic + pick(rng, seps) + str(w).encode() + pick(rng, seps) \
+        + str(h).encode()
+    if magic not in (b"P1", b"P4"):
+        head += pick(rng, seps) + (str(maxval).encode() if magic != b"Pf"
+                                   else pick(rng, [b"-1.0", b"1.0", b"0",
+                                                   b"nan"]))
+    head += pick(rng, [b"\n", b" ", b"#z\n"])
+    bands = {b"P3": 3, b"P6": 3, b"PyRGBA": 4, b"PyCMYK": 4,
+             b"P0CMYK": 4}.get(magic, 1)
+    n = max(0, w * h * bands + int(rng.integers(-1, 2)))
+    if magic == b"P1":
+        body = b" ".join(pick(rng, [b"0", b"1", b"01", b"2", b"#q\n1"])
+                         for _ in range(n))
+    elif magic in (b"P2", b"P3"):
+        body = b" ".join(str(int(v)).encode()
+                         for v in rng.integers(-1, maxval + 2, n))
+    elif magic == b"Pf":
+        body = rng.random(n).astype("<f4").tobytes()
+    else:
+        body = rand_bytes(rng, n * (2 if maxval > 255 else 1))
+    return head + body
+
+
+def rnd_tiff(rng) -> bytes:
+    """A TIFF of any photometric, depth, extra samples, compression,
+    predictor, byte order, strips or tiles, planes, fill order,
+    orientation and sample format."""
+    h, w = int(rng.integers(1, 20)), int(rng.integers(1, 20))
+    photo = pick(rng, [0, 1, 2, 3, 5])
+    bits = pick(rng, [1, 2, 4, 8, 8, 16])
+    extra = ()
+    if photo in (1, 2) and bits >= 8 and rng.random() < 0.4:
+        extra = tuple(pick(rng, [0, 1, 2])
+                      for _ in range(int(rng.integers(1, 3))))
+    if photo == 3 and bits == 8 and rng.random() < 0.3:
+        extra = (pick(rng, [0, 2]),)
+    spp = {2: 3, 5: 4}.get(photo, 1) + len(extra)
+    samples = rng.integers(0, 1 << bits, (h, w, spp)).astype(
+        np.uint16 if bits == 16 else np.uint8)
+    if rng.random() < 0.5:
+        samples = np.repeat(samples[:, :1], w, 1)
+    comp = pick(rng, [1, 5, 8, 32946, 32773])
+    predictor = 2 if comp in (5, 8, 32946) and bits in (8, 16) \
+        and rng.random() < 0.5 else 1
+    tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.3 else None)
+    return C.write_tiff(
+        samples, bits, photo, compression=comp, predictor=predictor,
+        order=pick(rng, ["<", ">"]), rows_per_strip=int(rng.integers(1, h + 3)),
+        tile=tile, planar=pick(rng, [1, 1, 2]), fill=pick(rng, [1, 1, 2]),
+        extra=extra,
+        orientation=int(rng.integers(1, 9)) if rng.random() < 0.3 else None,
+        colormap=(rng.integers(0, 65536, 3 * (1 << bits)) if photo == 3
+                  else None),
+        sample_format=pick(rng, [1, 2]) if rng.random() < 0.2 else None)
+
+
+GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
+       "tiff": rnd_tiff}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kind", default="mut", choices=[*GEN, "mut"])
+    ap.add_argument("--n", type=int, default=2000)
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args(argv)
+    resource.setrlimit(resource.RLIMIT_AS, (3 << 30, 3 << 30))
+    warnings.simplefilter("ignore")
+    rng = np.random.default_rng(args.seed)
+    fixtures = list(C.fixtures().values())
+    counts = {"same": 0, "both_raise": 0, "gap": 0, "bad": 0}
+    gaps: dict = {}
+    for _ in range(args.n):
+        if args.kind == "mut":
+            data = mutate(fixtures[int(rng.integers(0, len(fixtures)))], rng)
+        else:
+            data = GEN[args.kind](rng)
+            if rng.random() < 0.25:
+                data = mutate(data, rng)
+        want, why = pillow(data)
+        verdict = None
+        for in_cxx in (True, False):
+            got, err = port(data, in_cxx)
+            if got is not None and (want is None or got.shape != want.shape
+                                    or not np.array_equal(got, want)):
+                verdict = "bad"
+                break
+            if got is None and want is not None:
+                verdict = "gap"
+                gaps[err] = gaps.get(err, 0) + 1
+                break
+        if verdict is None:
+            verdict = "same" if want is not None else "both_raise"
+        counts[verdict] += 1
+        if verdict == "bad":
+            os.makedirs(OUT_DIR, exist_ok=True)
+            path = os.path.join(OUT_DIR, f"{args.kind}_{counts['bad']}.bin")
+            with open(path, "wb") as f:
+                f.write(data)
+            print(f"BAD ({'C++' if in_cxx else 'Python'}; Pillow: {why}): "
+                  f"{path}")
+    print(args.kind, counts)
+    for err, n in sorted(gaps.items(), key=lambda kv: -kv[1])[:20]:
+        print(f"  gap x{n}: {err}")
+    return 1 if counts["bad"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

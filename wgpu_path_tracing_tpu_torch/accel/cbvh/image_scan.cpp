@@ -1,0 +1,228 @@
+// The per-packet loops of the LDR image readers, the same bytes as the
+// plain versions in Python:
+// * wpt_tga_rle: TGA run-length data (utils/tga.py::rle_plain), raw
+//   packets running on across rows, run packets held within their row;
+// * wpt_bmp_rle: BMP RLE8 and RLE4 data as Pillow's BmpRleDecoder reads it
+//   (utils/bmp.py::rle_plain), its escapes included;
+// * wpt_packbits: libtiff's PackBitsDecode of one TIFF strip or tile
+//   (utils/tiff.py::packbits_plain);
+// * wpt_lzw: libtiff's LZWDecode of one TIFF strip or tile, new-style codes
+//   (utils/tiff.py::lzw_plain).
+// Each writes into a buffer the caller sizes and returns a status or the
+// count of bytes written.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+// Status: 0 done, 1 the data runs out, 2 a run packet crosses its row.
+extern "C" int64_t wpt_tga_rle(const uint8_t* data, int64_t n, int64_t pos,
+                               int32_t bpp, int64_t width, int64_t pixels,
+                               uint8_t* out) {
+  const int64_t row = width * bpp;
+  const int64_t total = pixels * bpp;
+  int64_t x = 0, done = 0;
+  while (done < total) {
+    if (pos >= n) return 1;
+    const int head = data[pos];
+    int64_t k = ((head & 0x7F) + 1) * static_cast<int64_t>(bpp);
+    if (head & 0x80) {
+      if (pos + 1 + bpp > n) return 1;
+      if (x + k > row) return 2;
+      uint8_t* dst = out + done + x;
+      for (int64_t i = 0; i < k; i += bpp) std::memcpy(dst + i, data + pos + 1, bpp);
+      pos += 1 + bpp;
+      x += k;
+      if (x == row) {
+        done += row;
+        x = 0;
+      }
+    } else {
+      if (pos + 1 + k > n) return 1;
+      int64_t src = pos + 1;
+      pos += 1 + k;
+      while (k > 0 && done < total) {
+        const int64_t take = k < row - x ? k : row - x;
+        std::memcpy(out + done + x, data + src, take);
+        src += take;
+        k -= take;
+        x += take;
+        if (x == row) {
+          done += row;
+          x = 0;
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// Returns the pixels decoded, at most count (the first count land in out;
+// the last packet may run past them); *status gets 1 where a delta escape
+// is cut short (Pillow raises), else 0.
+extern "C" int64_t wpt_bmp_rle(const uint8_t* data, int64_t n, int64_t pos,
+                               int32_t rle4, int64_t width, int64_t count,
+                               uint8_t* out, int64_t* status) {
+  int64_t len = 0, x = 0;
+  *status = 0;
+  // Writes past count are dropped: the decode keeps count pixels.
+  auto put = [&](uint8_t v) {
+    if (len < count) out[len] = v;
+    ++len;
+  };
+  while (len < count) {
+    if (pos + 2 > n) break;
+    int64_t k = data[pos];
+    const int byte = data[pos + 1];
+    pos += 2;
+    if (k) {
+      if (x + k > width) k = width - x > 0 ? width - x : 0;
+      for (int64_t i = 0; i < k && len < count; ++i)
+        put(rle4 ? ((i & 1) ? (byte & 0x0F) : (byte >> 4))
+                 : static_cast<uint8_t>(byte));
+      x += k;
+    } else if (byte == 0) {
+      const int64_t pad = (width - len % width) % width;
+      for (int64_t i = 0; i < pad && len < count; ++i) put(0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      if (pos + 2 > n) break;
+      pos += 2;
+      if (pos + 2 > n) {
+        *status = 1;
+        break;
+      }
+      const int64_t skip = data[pos] + data[pos + 1] * width;
+      pos += 2;
+      for (int64_t i = 0; i < skip && len < count; ++i) put(0);
+      if (len >= count) break;
+      x = len % width;
+    } else {
+      const int64_t want = rle4 ? byte / 2 : byte;
+      const int64_t got = n - pos < want ? n - pos : want;
+      for (int64_t i = 0; i < got; ++i) {
+        const uint8_t b = data[pos + i];
+        if (rle4) {
+          put(b >> 4);
+          put(b & 0x0F);
+        } else {
+          put(b);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if (pos % 2) pos += 1;
+    }
+  }
+  return len < count ? len : count;
+}
+
+// Returns the bytes written into size (fewer where the data runs out).
+extern "C" int64_t wpt_packbits(const uint8_t* src, int64_t n, int64_t size,
+                                uint8_t* out) {
+  int64_t pos = 0, len = 0;
+  while (pos < n && len < size) {
+    int64_t k = src[pos++];
+    if (k >= 128) k -= 256;
+    if (k < 0) {
+      if (k == -128) continue;
+      k = -k + 1;
+      if (k > size - len) k = size - len;
+      if (pos >= n) break;
+      std::memset(out + len, src[pos++], k);
+      len += k;
+    } else {
+      k += 1;
+      if (k > size - len) k = size - len;
+      if (n - pos < k) break;
+      std::memcpy(out + len, src + pos, k);
+      pos += k;
+      len += k;
+    }
+  }
+  return len;
+}
+
+// Status: 0 done, 1 a corrupted table, 2 not enough data, 3 old-style
+// codes; *written gets the bytes written.
+extern "C" int64_t wpt_lzw(const uint8_t* src, int64_t n, int64_t size,
+                           uint8_t* out, int64_t* written) {
+  *written = 0;
+  if (n >= 2 && src[0] == 0 && (src[1] & 1)) return 3;
+  constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMax = 5119;
+  std::vector<int32_t> prefix(kMax), length(kMax);
+  std::vector<uint8_t> suffix(kMax), first(kMax);
+  for (int i = 0; i < 256; ++i) {
+    prefix[i] = -1;
+    length[i] = 1;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+  }
+  std::vector<uint8_t> scratch;
+  int width = 9;
+  int64_t next = kFirst, len = 0, bitpos = 0;
+  const int64_t nbits = 8 * n;
+  int64_t prev = -2;  // -2: no clear code yet; -1: just after one
+  int status = 2;
+  while (len < size) {
+    if (bitpos + width > nbits) break;
+    const int64_t at = bitpos >> 3;
+    uint32_t word = 0;
+    for (int i = 0; i < 3; ++i)
+      word = (word << 8) | (at + i < n ? src[at + i] : 0);
+    const int64_t code =
+        (word >> (24 - width - (bitpos & 7))) & ((1u << width) - 1);
+    bitpos += width;
+    if (code == kEoi) break;
+    if (code == kClear) {
+      next = kFirst;
+      width = 9;
+      prev = -1;
+      continue;
+    }
+    int64_t entry;
+    if (prev == -2) {
+      status = 1;
+      break;
+    }
+    if (prev == -1) {
+      if (code >= 256) {
+        status = 1;
+        break;
+      }
+      entry = code;
+    } else if (code <= next) {
+      if (next >= kMax) {
+        status = 1;
+        break;
+      }
+      prefix[next] = static_cast<int32_t>(prev);
+      length[next] = length[prev] + 1;
+      first[next] = first[prev];
+      suffix[next] = code < next ? first[code] : first[prev];
+      entry = code;
+      ++next;
+    } else {
+      status = 1;
+      break;
+    }
+    // The entry's bytes, written back to front, cut at size.
+    const int64_t m = length[entry];
+    scratch.resize(m);
+    int64_t c = entry;
+    for (int64_t i = m - 1; i >= 0; --i) {
+      scratch[i] = suffix[c];
+      c = prefix[c];
+    }
+    const int64_t take = m < size - len ? m : size - len;
+    std::memcpy(out + len, scratch.data(), take);
+    len += take;
+    prev = code;
+    if (next + 1 >= (int64_t{1} << width) && width < 12) ++width;
+  }
+  *written = len;
+  if (status == 1) return 1;
+  return len < size ? 2 : 0;
+}

@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Five sources,
+The counterpart of the JAX package's ``accel/native.py``. Six sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -15,7 +15,10 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 * ``jpeg_scan.cpp``: the entropy decode of a JPEG scan, ``utils/jpeg.py::
   decode_scan`` and its progressive MCU decoders, ``decode_arith_scan``
   and ``decode_lossless_scan``, and a lossless component's
-  ``undifference``.
+  ``undifference``;
+* ``image_scan.cpp``: the per-packet loops of the LDR readers,
+  ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``, and
+  ``utils/tiff.py::packbits_plain`` and ``lzw_plain``.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -48,7 +51,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
-           "potpack.cpp", "jpeg_scan.cpp")
+           "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -100,6 +103,15 @@ SIGNATURES = {
     # out samples
     "wpt_jpeg_undifference": [_I32P, _I64, _I64, _I64, _U8P, _I32, _I32,
                               _U8P],
+    # data, its length, start, bytes a pixel, width, pixels, out
+    "wpt_tga_rle": [ctypes.c_char_p, _I64, _I64, _I32, _I64, _I64, _U8P],
+    # data, its length, start, RLE4, width, pixels, out, out status
+    "wpt_bmp_rle": [ctypes.c_char_p, _I64, _I64, _I32, _I64, _I64, _U8P,
+                    _I64P],
+    # data, its length, bytes wanted, out
+    "wpt_packbits": [ctypes.c_char_p, _I64, _I64, _U8P],
+    # data, its length, bytes wanted, out, out bytes written
+    "wpt_lzw": [ctypes.c_char_p, _I64, _I64, _U8P, _I64P],
 }
 JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 PACK_CODES = {"none": 0, "ffd": 1}
@@ -416,3 +428,40 @@ def jpeg_undifference_native(diff: np.ndarray, first_rows: np.ndarray,
         diff.ctypes.data_as(_I32P), diff.strides[0] // 4, w, h,
         _ptr(first, _U8P), psv, pt, _ptr(out, _U8P))
     return out
+
+
+def tga_rle_native(data: bytes, pos: int, bpp: int, width: int,
+                   pixels: int) -> tuple[np.ndarray, int]:
+    """``utils/tga.py::rle_plain`` in C++ (``image_scan.cpp``): the same
+    bytes and status."""
+    out = np.zeros(pixels * bpp, np.uint8)
+    status = lib().wpt_tga_rle(data, len(data), pos, bpp, width, pixels,
+                               _ptr(out, _U8P))
+    return out, int(status)
+
+
+def bmp_rle_native(data: bytes, pos: int, rle4: bool, width: int,
+                   count: int) -> tuple[bytes, int]:
+    """``utils/bmp.py::rle_plain`` in C++ (``image_scan.cpp``): the same
+    bytes and status."""
+    out = np.empty(count, np.uint8)
+    status = np.zeros(1, np.int64)
+    n = lib().wpt_bmp_rle(data, len(data), pos, int(rle4), width, count,
+                          _ptr(out, _U8P), _ptr(status, _I64P))
+    return out[:n].tobytes(), int(status[0])
+
+
+def packbits_native(src: bytes, size: int) -> tuple[bytes, int]:
+    """``utils/tiff.py::packbits_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.empty(size, np.uint8)
+    n = lib().wpt_packbits(src, len(src), size, _ptr(out, _U8P))
+    return out[:n].tobytes(), 0 if n == size else 2
+
+
+def lzw_native(src: bytes, size: int) -> tuple[bytes, int]:
+    """``utils/tiff.py::lzw_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.empty(size, np.uint8)
+    written = np.zeros(1, np.int64)
+    status = lib().wpt_lzw(src, len(src), size, _ptr(out, _U8P),
+                           _ptr(written, _I64P))
+    return out[:int(written[0])].tobytes(), int(status)

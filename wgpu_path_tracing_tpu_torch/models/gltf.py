@@ -27,13 +27,18 @@ reference's, as the JAX package keeps them:
 * the BVH build, triangle reorder and emissive-light extraction of
   ``models/assemble.py::finalize_scene`` (gpu.ts:119-138).
 
-The JAX package decodes and scales images with Pillow; here
-``utils/image.py::decode_image_rgba`` (PNG, and sequential, progressive
-and lossless JPEG, Huffman- or arithmetic-coded, in gray, YCbCr, RGB, CMYK
-and YCCK through ``utils/jpeg.py``, told apart by their bytes as Pillow
-does) and ``resize_bilinear_u8`` compute what Pillow computes, so the
-atlas is array-equal. A JPEG Pillow refuses (hierarchical, arithmetic-coded
-lossless, 12-bit) raises ``NotImplementedError`` naming the image. With a
+The JAX package decodes and scales images with Pillow, a sidecar file by
+its ``uri`` whatever its ``mimeType``; here ``utils/image.py::
+decode_image_rgba`` (PNG; sequential, progressive and lossless JPEG,
+Huffman- or arithmetic-coded, in gray, YCbCr, RGB, CMYK and YCCK through
+``utils/jpeg.py``; TGA, BMP with DIB, ICO and CUR, netpbm and baseline
+TIFF through ``utils/tga.py``, ``bmp.py``, ``netpbm.py`` and ``tiff.py``;
+the format found by the bytes in Pillow's order) and
+``resize_bilinear_u8`` compute what Pillow computes, so the atlas is
+array-equal. A variant Pillow opens that this package does not read (a
+12-bit or hierarchical JPEG, JPEG-in-TIFF, ...) raises
+``NotImplementedError``, and a format it does not read (WebP, GIF, ...)
+``ValueError``, naming the image. With a
 compiler,
 ``accel/native.py``'s library transforms and gathers each primitive's
 corners in one pass (``flatten_native``) and packs the atlas
@@ -295,9 +300,9 @@ SLOTS = ("albedo", "normal", "pbr", "emissive")
 
 
 def _decode_image(gf: GLTFFile, src: int, data: bytes) -> np.ndarray:
-    """(H, W, 4) uint8 RGBA of an image's bytes, PNG or JPEG by their
-    signature (the ``mimeType`` is not read, as Pillow does not read it);
-    errors name the image."""
+    """(H, W, 4) uint8 RGBA of an image's bytes, the format found by the
+    bytes as Pillow finds it (the ``mimeType`` is not read, as Pillow does
+    not read it); errors name the image."""
     return decode_image_rgba(data, gf.image_name(src))
 
 

@@ -3,9 +3,11 @@
 The counterpart of the JAX package's ``utils/image.py``. The accumulation
 buffer's row 0 is the BOTTOM of the view, so the display image is flipped.
 Only the standard library and NumPy: the PNG writer and reader use ``zlib``
-and ``struct``, and JPEG files are read by ``utils/jpeg.py`` (the JAX
-package's use Pillow); the Radiance .hdr and the uncompressed float32
-OpenEXR writers and readers are byte-for-byte the JAX package's.
+and ``struct``; JPEG, BMP (with DIB, ICO and CUR), netpbm, TIFF and TGA
+files are read by ``utils/jpeg.py``, ``bmp.py``, ``netpbm.py``, ``tiff.py``
+and ``tga.py`` (the JAX package's use Pillow); the Radiance .hdr and the
+uncompressed float32 OpenEXR writers and readers are byte-for-byte the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -245,14 +247,20 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def _png_chunks(data: bytes, name: str):
-    """(IHDR fields, the joined IDAT payload, PLTE, tRNS) of PNG bytes."""
+    """(IHDR fields, the joined IDAT payload, PLTE, tRNS, the first chunk
+    before any IDAT whose CRC is wrong, or None) of PNG bytes."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file (bad signature)")
-    pos, idat, chunks = 8, [], {}
+    pos, idat, chunks, bad_crc = 8, [], {}, None
     while pos < len(data):
         (length,) = struct.unpack_from(">I", data, pos)
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if not idat and bad_crc is None and (
+                len(crc) < 4 or struct.unpack(">I", crc)[0]
+                != zlib.crc32(tag + body) & 0xFFFFFFFF):
+            bad_crc = tag  # Pillow checks each CRC up to the first IDAT
         if tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -262,8 +270,11 @@ def _png_chunks(data: bytes, name: str):
         pos += 12 + length
     if b"IHDR" not in chunks:
         raise ValueError(f"{name}: no IHDR chunk")
-    header = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
-    return header, b"".join(idat), chunks.get(b"PLTE"), chunks.get(b"tRNS")
+    header = struct.unpack(">IIBBBBB", chunks[b"IHDR"][:13])
+    if header[5]:
+        raise ValueError(f"{name}: unknown PNG filter method {header[5]}")
+    return (header, b"".join(idat), chunks.get(b"PLTE"), chunks.get(b"tRNS"),
+            bad_crc)
 
 
 def _unpack_samples(rows: np.ndarray, w: int, depth: int,
@@ -290,7 +301,10 @@ def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
     ch = _PNG_CHANNELS[ctype]
     bits = depth * ch
     bpp = max(1, bits // 8)  # the filters' byte distance (PNG spec 9.2)
-    raw = zlib.decompress(idat)
+    try:
+        raw = zlib.decompress(idat)
+    except zlib.error as exc:
+        raise ValueError(f"{name}: bad PNG image data ({exc})") from None
     out = np.zeros((h, w, ch), np.uint16)
     pos = 0
     for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
@@ -309,30 +323,57 @@ def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG or a JPEG -> (H, W, 3) float32 RGB in [0, 1], as the JAX
+    """Read an LDR image -> (H, W, 3) float32 RGB in [0, 1], as the JAX
     package's Pillow reader returns it (``Image.open(path).convert("RGB") /
-    255``): the RGB of ``decode_image_rgba``, which tells the two formats
-    apart by their bytes, whatever the file's name says."""
+    255``): the RGB of ``decode_image_rgba``, which tells the formats apart
+    by their bytes, whatever the file's name says."""
     with open(path, "rb") as f:
         data = f.read()
     return decode_image_rgba(data, path)[..., :3].astype(np.float32) / 255.0
 
 
-def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
-    """PNG or JPEG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
-    ``Image.open(...).convert("RGBA")`` returns. The format is sniffed by
-    its signature, as Pillow sniffs it, not by a file name or a MIME type:
-    ``FF D8 FF`` is a JPEG (``utils/jpeg.py::decode_jpeg_rgba``),
-    ``89 'PNG'`` a PNG (``decode_png_rgba``); anything else raises
-    ``ValueError`` naming ``name``."""
+def _readers() -> dict:
+    """The decoders of the formats this package reads, by Pillow's name."""
+    from wgpu_path_tracing_tpu_torch.utils import bmp, netpbm, tga, tiff
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
-    if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg_rgba(data, name)
-    if data[:4] == _PNG_SIGNATURE[:4]:
-        return decode_png_rgba(data, name)
-    raise ValueError(f"{name}: neither a PNG nor a JPEG image (the only "
-                     "formats this package reads)")
+    return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
+            "JPEG": decode_jpeg_rgba, "PPM": netpbm.decode_netpbm_rgba,
+            "PNG": decode_png_rgba, "CUR": bmp.decode_cur_rgba,
+            "ICO": bmp.decode_ico_rgba, "TIFF": tiff.decode_tiff_rgba,
+            "TGA": tga.decode_tga_rgba}
+
+
+def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """LDR image bytes -> (H, W, 4) uint8 RGBA, what Pillow's
+    ``Image.open(...).convert("RGBA")`` returns. The format is the one
+    ``Image.open`` would choose, found as it finds it (``utils/sniff.py``):
+    the bytes, not a file name or a MIME type, and Pillow's order of
+    formats. PNG (``decode_png_rgba``), JPEG (``utils/jpeg.py``), BMP, DIB,
+    ICO and CUR (``utils/bmp.py``), netpbm (``utils/netpbm.py``), TIFF
+    (``utils/tiff.py``) and TGA (``utils/tga.py``) are read. TGA, which has
+    no signature, is read only when no format before it in Pillow's order
+    might take the bytes. Bytes Pillow would open as another format (GIF,
+    WebP, ...) or not at all raise ``ValueError`` naming ``name`` and the
+    format; a variant of a read format that Pillow opens but this package
+    does not read raises ``NotImplementedError`` naming ``name``."""
+    from wgpu_path_tracing_tpu_torch.utils import sniff
+
+    readers = _readers()
+    for fmt in sniff.pillow_candidates(data):
+        reader = readers.get(fmt)
+        if reader is None:
+            raise ValueError(f"{name}: Pillow would open this file as {fmt}, "
+                             "a format this package does not read")
+        try:
+            return reader(data, name)
+        except sniff.NotThisFormat:
+            continue
+    later = sniff.accepts_after_tga(data)
+    if later:
+        raise ValueError(f"{name}: Pillow would open this file as {later}, "
+                         "a format this package does not read")
+    raise ValueError(f"{name}: not an image Pillow can identify")
 
 
 def _gray_to_8bit(s: np.ndarray, depth: int) -> np.ndarray:
@@ -360,14 +401,19 @@ def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
       and 4 bits, against the converted sample; at 1 bit any non-zero value
       means 255), else alpha is 255.
 
-    Other combinations, and bytes that are no PNG (``decode_image_rgba``
-    reads JPEG too), raise ``ValueError`` naming ``name``."""
-    header, idat, plte, trns = _png_chunks(data, name)
+    Other combinations, a chunk before the image data whose CRC is wrong
+    or a filter method other than 0 (Pillow refuses both), and bytes that
+    are no PNG (``decode_image_rgba`` reads other formats), raise
+    ``ValueError`` naming ``name``."""
+    header, idat, plte, trns, bad_crc = _png_chunks(data, name)
     _, _, depth, ctype, _, _, interlace = header
     if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace not in (0, 1):
         raise ValueError(f"{name}: not a valid PNG header (bit depth "
                          f"{depth}, colour type {ctype}, interlace "
                          f"{interlace})")
+    if bad_crc is not None:
+        raise ValueError(f"{name}: broken PNG file (bad checksum in "
+                         f"{bad_crc!r})")
     s = _png_samples(header, idat, name)
     h, w = s.shape[0], s.shape[1]
     if ctype == 3:

@@ -1479,6 +1479,15 @@ def _muldiv255(a, b):
     return ((t >> 8) + t) >> 8
 
 
+def pillow_cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb`` (Convert.c) on (..., 4) CMYK samples as Pillow
+    holds them: each of R, G, B is ``255 - K`` less ``MULDIV255`` of its
+    ink and ``255 - K``."""
+    x = np.asarray(cmyk).astype(np.int64)
+    nk = 255 - x[..., 3:4]
+    return np.clip(nk - _muldiv255(x[..., :3], nk), 0, 255).astype(np.uint8)
+
+
 def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
     w, h = frame["width"], frame["height"]
     comps = frame["comps"]
@@ -1508,10 +1517,8 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
                                255),
                        np.clip(255 - (c + _CB_B[m]), 0, 255))
         # Pillow reads the samples as "CMYK;I" (each inverted), then
-        # Convert.c cmyk2rgb: 255 - K' = k, so each channel is
-        # k - k (255 - x) / 255.
-        for i, x in enumerate((c, m, y)):
-            out[..., i] = np.clip(k - _muldiv255(255 - x, k), 0, 255)
+        # converts with cmyk2rgb.
+        out[..., :3] = pillow_cmyk_to_rgb(255 - np.stack([c, m, y, k], -1))
         return out
     # libjpeg's guess of the colour space (jdapimin.c
     # default_decompress_parms).
