@@ -135,7 +135,14 @@ and runs these phases, one line of output each:
    ones too) and equal to the array it was made from, and the same box
    with four sidecar textures (``LDR_TEXTURES``: RLE TGA, RLE8 BMP, P6,
    LZW TIFF; the walk and K2 in the scene's texture mode) against its
-   plain path;
+   plain path; then the WebP and GIF readers (their committed files are
+   among the ``tests/ldr`` files held to Pillow both ways): the committed
+   4096x2048 lossy WebP with alpha (its SHA-256 against Pillow's), a
+   4096x2048 lossless WebP and GIF made by the test suite's writers, each
+   decoded with the C++ loops within 5 s, the Python loops on a committed
+   1024x512 lossy WebP and a lossless WebP and GIF of that size
+   (``WEBP_GIF_PYTHON_SIZE``), and the same box with WebP and GIF sidecar
+   textures (``WEBP_GIF_TEXTURES``) against its plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -149,7 +156,8 @@ and runs these phases, one line of output each:
    and its renders in turns with the same box's without the map;
    then the material box at 512x512 x 8 spp under each committed
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
-   map and a 16-bit RGB TIFF map (``RenderConfig.env_map``): its launches
+   map, a 16-bit RGB TIFF map, a lossy WebP map and a GIF map
+   (``RenderConfig.env_map``): its launches
    (K1, K2, K2's ENV instantiation) and its image against the plain
    path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
@@ -2685,11 +2693,26 @@ LDR_TEXTURES = ("albedo_rle_rgba.tga", "roughness_rle8.bmp", "rgb.ppm",
 # The env box under an RLE 32-bit bottom-left TGA map and a 16-bit RGB TIFF
 # map (LZW, predictor 2).
 LDR_ENV_MAPS = (("env_rle32.tga", "env_tga"), ("env_rgb16.tif", "env_tiff16"))
+# The WebP/GIF-textured box: the same scene with a lossy WebP with alpha
+# (ALPH, VP8L-compressed), a Pillow lossless WebP, a GIF with a
+# transparency index and a lossy WebP whose alpha is a VP8L stream under
+# the horizontal filter as its four sidecar textures; and the env box under
+# a lossy WebP map and a GIF map.
+WEBP_GIF_TEXTURES = ("lossy_alpha.webp", "lossless_rgba.webp",
+                     "transparent.gif", "alpha_vp8l_horizontal.webp")
+WEBP_GIF_ENV_MAPS = (("env_lossy.webp", "env_webp"), ("env.gif", "env_gif"))
 # The decode timing files, made here from a seeded image by the test
 # suite's own writers: an equirect map's usual size, and a quarter of it
 # for the plain Python LZW decode (a code a step in Python).
 LDR_TIMING_SIZE = (4096, 2048)
 LDR_PYTHON_TIFF_SIZE = (2048, 1024)
+# The WebP and GIF decode timings: the committed 4096x2048 lossy WebP with
+# alpha (tests/ldr, its Pillow decode's SHA-256 beside it), a 4096x2048
+# lossless WebP (the test suite's minimal VP8L writer) and GIF (8-bit
+# literal codes) made here from seeded images, all in C++; the plain Python
+# loops on the committed 1024x512 lossy WebP with alpha and on a lossless
+# WebP and a GIF of WEBP_GIF_PYTHON_SIZE made here.
+WEBP_GIF_PYTHON_SIZE = (1024, 512)
 
 
 def jpeg_cases() -> list:
@@ -2904,6 +2927,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
         report["gltf"]["async_chunks"] = seen
         report["gltf"]["jpeg"] = jpeg_scene(tmp, smi, report)
         report["gltf"]["ldr"] = ldr_scene(tmp, smi, report)
+        report["gltf"]["webp_gif"] = webp_gif_scene(tmp, smi, report)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -3065,7 +3089,8 @@ def ldr_scene(tmp: str, smi: str, report: dict) -> dict:
             if not np.array_equal(rgba, want):
                 raise AssertionError(f"{name}: the decode differs from "
                                      "Pillow's")
-    say("gltf", f"{len(cases)} committed TGA, BMP, DIB, ICO, CUR, netpbm and "
+    say("gltf", f"{len(cases)} committed TGA, BMP, DIB, ICO, CUR, netpbm, "
+        "WebP, GIF and "
         "TIFF files decode array-equal to Pillow's, with the C++ loops and "
         "with the Python ones")
     w, h = LDR_TIMING_SIZE
@@ -3106,45 +3131,120 @@ def ldr_scene(tmp: str, smi: str, report: dict) -> dict:
     return out
 
 
-def ldr_box(tmp: str, files: dict, smi: str, report: dict) -> dict:
+def webp_gif_scene(tmp: str, smi: str, report: dict) -> dict:
+    """The WebP and GIF readers on this host (``ldr_scene`` has held every
+    committed WebP and GIF file to its Pillow array both ways): the C++
+    decode seconds of the committed 4096x2048 lossy WebP with alpha (its
+    SHA-256 against Pillow's), and of a 4096x2048 lossless WebP and GIF made
+    here by the test suite's writers (each equal to the array it was made
+    from); the plain Python loops on the committed 1024x512 lossy WebP
+    with alpha and on a lossless WebP and a GIF of WEBP_GIF_PYTHON_SIZE;
+    each C++ decode under JPEG_DECODE_BOUND_S; then the WebP/GIF-textured
+    box (``ldr_box`` with WEBP_GIF_TEXTURES)."""
+    cases_module = image_cases()
+    sample_image, write_vp8l, write_gif = (
+        cases_module.sample_image, cases_module.write_vp8l,
+        cases_module.write_gif)
+    with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
+        digests = json.load(f)
+    w, h = LDR_TIMING_SIZE
+    pw, ph = WEBP_GIF_PYTHON_SIZE
+    img = sample_image(w, h, 41)
+    palette = sample_image(256, 1, 42, 3)[0]
+    idx = sample_image(w, h, 43, 1)[..., 0]
+    (lossless, gif, small_lossless, small_gif), make_s = timed(lambda: (
+        write_vp8l(img), write_gif(idx, bits=8, literal=True,
+                                   global_palette=palette),
+        write_vp8l(img[:ph, :pw]),
+        write_gif(idx[:ph, :pw], bits=8, literal=True,
+                  global_palette=palette)))
+    files = []
+    for name in (cases_module.LARGE_WEBP, cases_module.MEDIUM_WEBP):
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            files.append((name, f.read(), digests[name],
+                          name == cases_module.MEDIUM_WEBP))
+    files += [
+        (f"lossless_{w}x{h}.webp", lossless, img, False),
+        (f"literal_{w}x{h}.gif", gif, palette[idx], False),
+        (f"lossless_{pw}x{ph}.webp", small_lossless, img[:ph, :pw], True),
+        (f"literal_{pw}x{ph}.gif", small_gif, palette[idx[:ph, :pw]], True)]
+    seconds = {}
+    for name, data, want, python in files:
+        both = decode_both(data, name, python)
+        for rgba, _ in both:
+            if isinstance(want, str):
+                ok = hashlib.sha256(rgba.tobytes()).hexdigest() == want
+            else:
+                ok = (np.array_equal(rgba[..., :want.shape[-1]], want)
+                      and (want.shape[-1] == 4 or (rgba[..., 3] == 255).all()))
+            if not ok:
+                raise AssertionError(f"{name}: the decode differs from "
+                                     + ("Pillow's (SHA-256)" if isinstance(
+                                         want, str) else "the encoded array"))
+        seconds[name] = {"python" if python else "cxx": both[-1][1]}
+        if python:
+            seconds[name]["cxx"] = both[0][1]
+        say("gltf", f"{name} ({len(data)} bytes): decoded in "
+            f"{both[0][1]:.3f} s with the C++ loops"
+            + (f", {both[1][1]:.3f} s with the Python ones" if python else "")
+            + " on this host, equal to "
+            + ("Pillow's decode (SHA-256)" if isinstance(want, str)
+               else "the encoded array") + f", on {smi}")
+    slow = {n: t["cxx"] for n, t in seconds.items()
+            if t["cxx"] > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
+           "python_size": list(WEBP_GIF_PYTHON_SIZE)}
+    texture_files = {}
+    for name in WEBP_GIF_TEXTURES:
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            texture_files[name] = f.read()
+    out.update(ldr_box(tmp, texture_files, smi, report, WEBP_GIF_TEXTURES,
+                       "gltf_webp_gif"))
+    return out
+
+
+def ldr_box(tmp: str, files: dict, smi: str, report: dict,
+            textures: tuple = LDR_TEXTURES, path_name: str = "gltf_ldr"
+            ) -> dict:
     """``textured_cornell(tessellation=JPEG_TESSELLATION)`` through
     ``load_model`` of a .gltf whose images are the sidecar files
-    LDR_TEXTURES, at JPEG_SIZE^2 x JPEG_SPP: K3 and K2 in the scene's
-    texture mode counted under "gltf_ldr", and a 1-spp image against the
-    plain path's."""
-    directory = os.path.join(tmp, "ldr_box")
+    ``textures``, at JPEG_SIZE^2 x JPEG_SPP: K3 and K2 in the scene's
+    texture mode counted under ``path_name``, and a 1-spp image against
+    the plain path's."""
+    directory = os.path.join(tmp, path_name)
     os.makedirs(directory, exist_ok=True)
-    for name in LDR_TEXTURES:
+    for name in textures:
         with open(os.path.join(directory, name), "wb") as f:
             f.write(files[name])
-    path = os.path.join(directory, "ldr_box.gltf")
+    path = os.path.join(directory, f"{path_name}.gltf")
     scene_np = textured_cornell(tessellation=JPEG_TESSELLATION)
     with open(path, "w") as f:
-        f.write(with_sidecar_images(scene_to_glb(scene_np),
-                                    list(LDR_TEXTURES)))
+        f.write(with_sidecar_images(scene_to_glb(scene_np), list(textures)))
     r = Renderer(RenderConfig(width=JPEG_SIZE, height=JPEG_SIZE),
                  device="cuda")
     _, load = timed(lambda: r.load_model(path))
     stats = r.stats()
-    say("gltf", f"the LDR-textured box ({r.scene.num_triangles} triangles, "
-        f"sidecar textures {', '.join(LDR_TEXTURES)}, atlas "
+    say("gltf", f"the {path_name} box ({r.scene.num_triangles} triangles, "
+        f"sidecar textures {', '.join(textures)}, atlas "
         f"{tuple(r.scene.atlas.shape)}): load_model {load:.3f} s, "
         f"intersector {stats['intersector']!r}, texture {stats['texture']!r}")
     if stats["intersector"] != "walk" or stats["texture"] not in (
             "fat", "per_slot"):
-        raise AssertionError("the LDR-textured box must take the walk (K3) "
+        raise AssertionError(f"the {path_name} box must take the walk (K3) "
                              "and a texture mode")
     mode = {"fat": "k2_fat", "per_slot": "k2_per_slot"}[stats["texture"]]
     _, secs = counted_render(
-        r, JPEG_SPP, report, "gltf_ldr",
+        r, JPEG_SPP, report, path_name,
         expect(k3=2 * MAX_BOUNCES * JPEG_SPP, **{mode: MAX_BOUNCES * JPEG_SPP}))
     rays = r.stats()["rays_total"]
-    say("gltf", f"LDR-textured box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} spp: "
+    say("gltf", f"{path_name} box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} spp: "
         f"wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s on {smi}")
     r.reset()
     one = r.render(spp=1)
-    plain_secs = checked_plain(r, 1, one, "gltf_ldr")
-    return {"textures": list(LDR_TEXTURES), "texture": stats["texture"],
+    plain_secs = checked_plain(r, 1, one, path_name)
+    return {"textures": list(textures), "texture": stats["texture"],
             "load_model_seconds": load, "size": JPEG_SIZE, "seconds": secs,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
 
@@ -3287,7 +3387,7 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg"] = jpeg_env_box(smi, report)
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
-    for name, path_name in LDR_ENV_MAPS:
+    for name, path_name in LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS:
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

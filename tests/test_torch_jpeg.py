@@ -480,8 +480,8 @@ def test_images_are_sniffed_by_their_bytes(tmp_path):
     np.testing.assert_array_equal(IMAGE.decode_image_rgba(jpeg),
                                   pillow_rgba(jpeg))
     with pytest.raises(ValueError,
-                       match="x.gif: Pillow would open this file as GIF"):
-        IMAGE.decode_image_rgba(b"GIF89a" + bytes(20), "x.gif")
+                       match="x.qoi: Pillow would open this file as QOI"):
+        IMAGE.decode_image_rgba(b"qoif" + bytes(20), "x.qoi")
 
 
 # --- against the JAX package --------------------------------------------------

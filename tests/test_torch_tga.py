@@ -243,7 +243,7 @@ def test_every_format_pillow_writes_reads_as_pillow_or_raises(fmt):
             assert "s.img" in str(exc), exc
             if opened is not None and opened not in (
                     "BMP", "DIB", "JPEG", "MPO", "PNG", "PPM", "TGA", "TIFF",
-                    "ICO", "CUR"):
+                    "ICO", "CUR", "GIF", "WEBP"):
                 assert opened in str(exc), (fmt, mode, exc)
             continue
         assert want is not None, (fmt, mode)
@@ -258,7 +258,9 @@ def test_sniffing_follows_pillows_order():
     Pillow's CUR reader finds no entries and passes it on, and it is read
     as TGA. A TGA header that PCX's test takes (an ID field of 10 bytes)
     is PCX's, which raises, and the port raises naming PCX. A GIF and a
-    WebP raise naming their formats; bytes no format takes raise."""
+    WebP (tried after TGA, whose header checks a RIFF file fails) read as
+    Pillow reads them; a format still not read (QOI) raises naming it;
+    bytes no format takes raise."""
     px = C.sample_image(6, 4, 2, 3)
     data = C.write_tga(px[..., ::-1], 2, 24)
     assert data[:4] == b"\0\0\2\0"
@@ -269,11 +271,14 @@ def test_sniffing_follows_pillows_order():
     C.assert_refused(pcx, "p.tga", ValueError, "Pillow would open this file "
                      "as PCX")
     gif = C.pillow_bytes(Image.fromarray(px), "GIF")
-    C.assert_refused(gif, "x.gif", ValueError,
-                     "Pillow would open this file as GIF")
+    assert list(sniff.pillow_candidates(gif)) == ["GIF", "TGA"]
+    C.assert_like_pillow(gif)
     webp = C.pillow_bytes(Image.fromarray(px), "WEBP")
-    C.assert_refused(webp, "x.webp", ValueError,
-                     "Pillow would open this file as WEBP")
+    assert list(sniff.pillow_candidates(webp)) == ["TGA", "WEBP"]
+    C.assert_like_pillow(webp)
+    qoi = C.pillow_bytes(Image.fromarray(px), "QOI")
+    C.assert_refused(qoi, "x.qoi", ValueError,
+                     "Pillow would open this file as QOI")
     assert C.pillow_refuses(b"\xff" * 40)
     C.assert_refused(b"\xff" * 40, "n.bin", ValueError,
                      "not an image Pillow can identify")

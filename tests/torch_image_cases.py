@@ -1,6 +1,7 @@
-"""Small writers of TGA, BMP (DIB, ICO, CUR), netpbm and TIFF files for the
-LDR readers' tests (``utils/tga.py``, ``bmp.py``, ``netpbm.py``,
-``tiff.py``), and the fixtures under ``tests/ldr/``.
+"""Small writers of TGA, BMP (DIB, ICO, CUR), netpbm, TIFF, WebP and GIF
+files for the LDR readers' tests (``utils/tga.py``, ``bmp.py``,
+``netpbm.py``, ``tiff.py``, ``webp.py``, ``gif.py``), and the fixtures
+under ``tests/ldr/``.
 
 The writers make what Pillow cannot write: TGA at 16 bits and through a
 colour map of 16 bits, RLE packets that run across rows, every origin;
@@ -8,7 +9,12 @@ BMP with RLE8 and RLE4 (their escapes included), OS/2 and V2-V5 headers,
 bit fields, top-down rows and short palettes; cursors; netpbm with
 comments anywhere and any maxval; TIFF in strips or tiles, in separate
 planes, in either byte order, under PackBits, LZW or deflate with or
-without horizontal differencing, fill order 2 and an orientation. Each
+without horizontal differencing, fill order 2 and an orientation; VP8L
+streams with each transform and the colour cache, ALPH chunks under each
+filter, animations whose first frame sits at an offset; GIF at every
+minimum code size, with any palette, transparency, interlace and offset.
+Pillow's own libwebp, driven through ctypes (``libwebp_encode``), writes
+lossy files with the options Pillow's ``save`` never sets. Each
 file is decoded by Pillow, the reference, and by the port; only the
 decoders are compared. The writers need NumPy only (the card's host has
 no Pillow, and ``chip_smoke.py`` makes its timing files with them); the
@@ -624,6 +630,638 @@ def _pack_samples(block: np.ndarray, bits: int, order: str) -> np.ndarray:
     return np.packbits(b.reshape(n, -1), axis=1)
 
 
+# --- WebP ------------------------------------------------------------------------
+
+_LIBWEBP: list = []
+_WEBP_CONFIG_FIELDS = (
+    "lossless", "quality", "method", "image_hint", "target_size",
+    "target_PSNR", "segments", "sns_strength", "filter_strength",
+    "filter_sharpness", "filter_type", "autofilter", "alpha_compression",
+    "alpha_filtering", "alpha_quality", "pass_", "show_compressed",
+    "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size",
+    "thread_level", "low_memory", "near_lossless", "exact",
+    "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")
+
+
+def _libwebp():
+    """Pillow's own libwebp (the one its WebP plugin is linked with), found
+    among the libraries this process has mapped once ``PIL._webp`` is
+    imported, and bound with ctypes."""
+    if _LIBWEBP:
+        return _LIBWEBP[0]
+    import ctypes
+
+    from PIL import _webp  # noqa: F401  (maps libwebp into the process)
+
+    with open("/proc/self/maps") as f:
+        paths = {line.split()[-1] for line in f if "libwebp" in line}
+    path = next(p for p in sorted(paths)
+                if "demux" not in os.path.basename(p)
+                and "mux" not in os.path.basename(p))
+    lib = ctypes.CDLL(path)
+
+    class Config(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR")
+                     else ctypes.c_int) for n in _WEBP_CONFIG_FIELDS] + [
+            ("pad", ctypes.c_uint32 * 8)]
+
+    class Writer(ctypes.Structure):
+        _fields_ = [("mem", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                    ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32 * 1)]
+
+    _LIBWEBP.append((lib, Config, Writer))
+    return _LIBWEBP[0]
+
+
+def libwebp_encode(rgba: np.ndarray, **options) -> bytes:
+    """An (h, w, 4) uint8 image encoded by Pillow's libwebp through its
+    advanced API (``WebPConfig``), which reaches what Pillow's ``save``
+    never sets: ``segments``, ``partitions`` (log2 of the token
+    partitions), ``filter_type`` (0 the simple loop filter),
+    ``filter_strength``, ``filter_sharpness``, ``use_sharp_yuv``,
+    ``alpha_compression``, ``alpha_filtering``, ``preprocessing`` and the
+    rest of ``_WEBP_CONFIG_FIELDS``. Returns the whole RIFF file."""
+    import ctypes
+
+    lib, Config, Writer = _libwebp()
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    abi = 0x0210  # WEBP_ENCODER_ABI_VERSION of libwebp 1.x
+    config = Config()
+    assert lib.WebPConfigInitInternal(ctypes.byref(config), 0,
+                                      ctypes.c_float(75.0), abi)
+    for key, value in options.items():
+        setattr(config, key, value)
+    assert lib.WebPValidateConfig(ctypes.byref(config)), options
+    # WebPPicture (256 bytes on 64-bit): use_argb at 0, width at 8, height
+    # at 12, writer at 96, custom_ptr at 104.
+    pic = ctypes.create_string_buffer(512)
+    assert lib.WebPPictureInitInternal(pic, abi)
+    ctypes.c_int.from_buffer(pic, 0).value = 1
+    ctypes.c_int.from_buffer(pic, 8).value = w
+    ctypes.c_int.from_buffer(pic, 12).value = h
+    assert lib.WebPPictureImportRGBA(pic, rgba.ctypes.data_as(ctypes.c_void_p),
+                                     4 * w)
+    writer = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    ctypes.c_void_p.from_buffer(pic, 96).value = ctypes.cast(
+        lib.WebPMemoryWrite, ctypes.c_void_p).value
+    ctypes.c_void_p.from_buffer(pic, 104).value = ctypes.addressof(writer)
+    ok = lib.WebPEncode(ctypes.byref(config), pic)
+    out = ctypes.string_at(writer.mem, writer.size)
+    lib.WebPPictureFree(pic)
+    lib.WebPMemoryWriterClear(ctypes.byref(writer))
+    assert ok, f"WebPEncode failed: {options}"
+    return out
+
+
+def riff_chunks(data: bytes) -> list:
+    """[(fourcc, payload)] of a RIFF/WEBP file's top-level chunks."""
+    out, at = [], 12
+    while at + 8 <= len(data):
+        fourcc = data[at:at + 4]
+        (size,) = struct.unpack_from("<I", data, at + 4)
+        out.append((fourcc, data[at + 8:at + 8 + size]))
+        at += 8 + size + (size & 1)
+    return out
+
+
+def chunk(fourcc: bytes, payload: bytes) -> bytes:
+    """One RIFF chunk, padded to an even size."""
+    return (fourcc + struct.pack("<I", len(payload)) + payload
+            + b"\0" * (len(payload) & 1))
+
+
+def riff(chunks: list) -> bytes:
+    """A RIFF/WEBP file of the given chunk bytes."""
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x(width: int, height: int, flags: int) -> bytes:
+    """A VP8X chunk (flags: 0x10 alpha, 0x02 animation, 0x20 ICC, 0x08
+    EXIF, 0x04 XMP)."""
+    return chunk(b"VP8X", struct.pack("<I", flags)
+                 + (width - 1).to_bytes(3, "little")
+                 + (height - 1).to_bytes(3, "little"))
+
+
+def image_chunks(still: bytes) -> bytes:
+    """The ALPH (if any) and VP8/VP8L chunks of a still WebP file."""
+    return b"".join(chunk(f, p) for f, p in riff_chunks(still)
+                    if f in (b"ALPH", b"VP8 ", b"VP8L"))
+
+
+def write_animated_webp(frames: list, canvas: tuple, flags: int = 0x12,
+                        background: int = 0, loop: int = 0) -> bytes:
+    """An animated WebP: ``frames`` of (x, y, still WebP bytes, duration,
+    ANMF flags), each placed at its even offset on a ``canvas`` (w, h)."""
+    body = [vp8x(canvas[0], canvas[1], flags),
+            chunk(b"ANIM", struct.pack("<IH", background, loop))]
+    for x, y, still, duration, fflags in frames:
+        w, h = webp_size(still)
+        body.append(chunk(b"ANMF", (x // 2).to_bytes(3, "little")
+                          + (y // 2).to_bytes(3, "little")
+                          + (w - 1).to_bytes(3, "little")
+                          + (h - 1).to_bytes(3, "little")
+                          + duration.to_bytes(3, "little") + bytes([fflags])
+                          + image_chunks(still)))
+    return riff(body)
+
+
+def webp_size(still: bytes) -> tuple:
+    """(width, height) of a still WebP file's bitstream."""
+    for fourcc, payload in riff_chunks(still):
+        if fourcc == b"VP8L":
+            v = int.from_bytes(payload[1:5], "little")
+            return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+        if fourcc == b"VP8 ":
+            return (struct.unpack_from("<H", payload, 6)[0] & 0x3FFF,
+                    struct.unpack_from("<H", payload, 8)[0] & 0x3FFF)
+    raise ValueError("no image chunk")
+
+
+class _Bits:
+    """An LSB-first bit writer (VP8L's order)."""
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, value: int, nbits: int) -> None:
+        self.acc |= (int(value) & ((1 << nbits) - 1)) << self.n
+        self.n += nbits
+        while self.n >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.n -= 8
+
+    def code(self, codes: dict, symbol: int) -> None:
+        """A canonical prefix code's symbol, its bits most significant
+        first."""
+        code, n = codes[symbol]
+        for i in range(n - 1, -1, -1):
+            self.put((code >> i) & 1, 1)
+
+    def done(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def _canonical(lengths: list) -> dict:
+    """{symbol: (code, length)} of the canonical code of ``lengths``."""
+    codes, code = {}, 0
+    for n in range(1, 16):
+        for s, sn in enumerate(lengths):
+            if sn == n:
+                codes[s] = (code, n)
+                code += 1
+        code <<= 1
+    return codes
+
+
+def _put_code(bw: _Bits, lengths: list) -> dict:
+    """A normal prefix code of ``lengths`` (all at most 15), written with a
+    flat code-length code (lengths 0-15 at 4 bits each)."""
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+             15)
+    bw.put(0, 1)
+    bw.put(len(order) - 4, 4)
+    for sym in order:
+        bw.put(0 if sym >= 16 else 4, 3)
+    bw.put(0, 1)
+    cl_codes = _canonical([4] * 16)
+    for n in lengths:
+        bw.code(cl_codes, n)
+    return _canonical(lengths)
+
+
+def _flat_lengths(alphabet: int, cache: int = 0) -> list:
+    """Code lengths of a complete code: 256 literals at 8 bits, or, with a
+    colour cache of 2**cache entries, literals at 9 and cache codes at
+    cache + 1 bits."""
+    if not cache:
+        return [8] * 256 + [0] * (alphabet - 256)
+    return [9] * 256 + [0] * 24 + [cache + 1] * (1 << cache)
+
+
+def _put_image(bw: _Bits, px: np.ndarray, cache: int = 0,
+               main: bool = False) -> None:
+    """An entropy-coded ARGB image (flat uint32 pixels): its colour cache
+    bit, the main image's "no meta prefix codes" bit (a transform's
+    sub-image has none), five prefix codes and the pixels as literals or
+    colour cache hits."""
+    if cache:
+        bw.put(1, 1)
+        bw.put(cache, 4)
+    else:
+        bw.put(0, 1)
+    if main:
+        bw.put(0, 1)
+    green = _put_code(bw, _flat_lengths(280 + ((1 << cache) if cache else 0),
+                                        cache))
+    others = [_put_code(bw, [8] * 256) for _ in range(3)]
+    bw.put(1, 1)  # distance: a simple code of one symbol, 0
+    bw.put(0, 1)
+    bw.put(0, 1)
+    bw.put(0, 1)
+    table = [None] * (1 << cache) if cache else None
+    for v in np.asarray(px, np.uint32).tolist():
+        if table is not None:
+            key = ((v * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - cache)
+            if table[key] == v:
+                bw.code(green, 280 + key)
+                continue
+            table[key] = v
+        bw.code(green, (v >> 8) & 0xFF)
+        bw.code(others[0], (v >> 16) & 0xFF)
+        bw.code(others[1], v & 0xFF)
+        bw.code(others[2], v >> 24)
+
+
+def _argb(rgba: np.ndarray) -> np.ndarray:
+    a = rgba.astype(np.uint32)
+    return (a[..., 3] << 24) | (a[..., 0] << 16) | (a[..., 1] << 8) | a[..., 2]
+
+
+def _sub8(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-channel (a - b) mod 256 of ARGB words."""
+    out = np.zeros_like(a)
+    for s in (0, 8, 16, 24):
+        out |= (((a >> s) - (b >> s)) & 0xFF) << s
+    return out
+
+
+def _predictions(img: np.ndarray, mode: int) -> np.ndarray:
+    """VP8L predictor ``mode`` (0-13) of every pixel from its neighbours in
+    ``img`` (h, w) ARGB, the rightmost pixel's top-right being the first
+    pixel of its own row (the decoder's layout); rows and columns 0 are
+    the caller's."""
+    h, w = img.shape
+    flat = img.reshape(-1).astype(np.int64)
+    idx = np.arange(h * w).reshape(h, w)
+    L = flat[np.maximum(idx - 1, 0)]
+    T = flat[np.maximum(idx - w, 0)]
+    TL = flat[np.maximum(idx - w - 1, 0)]
+    TR = flat[np.maximum(idx - w + 1, 0)]
+
+    def avg(a, b):
+        return (((a ^ b) & 0xFEFEFEFE) >> 1) + (a & b)
+
+    def ch(v, s):
+        return (v >> s) & 0xFF
+
+    if mode == 0:
+        p = np.full(h * w, 0xFF000000, np.int64)
+    elif mode in (1, 2, 3, 4):
+        p = {1: L, 2: T, 3: TR, 4: TL}[mode]
+    elif mode == 5:
+        p = avg(avg(L, TR), T)
+    elif mode == 6:
+        p = avg(L, TL)
+    elif mode == 7:
+        p = avg(L, T)
+    elif mode == 8:
+        p = avg(TL, T)
+    elif mode == 9:
+        p = avg(T, TR)
+    elif mode == 10:
+        p = avg(avg(L, TL), avg(T, TR))
+    elif mode == 11:
+        score = sum(np.abs(ch(L, s) - ch(TL, s)) - np.abs(ch(T, s) - ch(TL, s))
+                    for s in (0, 8, 16, 24))
+        p = np.where(score <= 0, T, L)
+    elif mode == 12:
+        p = sum(np.clip(ch(L, s) + ch(T, s) - ch(TL, s), 0, 255) << s
+                for s in (0, 8, 16, 24))
+    else:
+        a = avg(L, T)
+        p = 0
+        for s in (0, 8, 16, 24):
+            d = ch(a, s) - ch(TL, s)
+            p = p + (np.clip(ch(a, s) + np.trunc(d / 2).astype(np.int64), 0,
+                             255) << s)
+    return np.asarray(p, np.int64).astype(np.uint32).reshape(h, w)
+
+
+def write_vp8l(rgba: np.ndarray, *, transforms: tuple = (), cache: int = 0,
+               seed: int = 0, bits: int = 2, alpha_used: bool | None = None,
+               riff_wrap: bool = True, mode: int | None = None) -> bytes:
+    """A lossless WebP of an (h, w, 4) uint8 image written by this module,
+    not by libwebp: ``transforms`` applied in order from "palette" (colour
+    indexing, bundled at 2, 4 and 16 colours), "subtract_green",
+    "predictor" (a seeded mode, 0-13, a tile of 2**``bits`` pixels, or
+    ``mode`` in every tile) and
+    "cross_color" (seeded multipliers a tile), then the pixels as literals
+    or ``cache`` colour cache hits (``cache`` bits), every prefix code
+    complete. No transform and no cache is the vectorized minimal writer
+    (8-bit codes, 32 bits a pixel), fast at 4096x2048; ``riff_wrap=False``
+    returns the bare stream after the header, as an ALPH chunk holds it."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    if alpha_used is None:
+        alpha_used = bool((rgba[..., 3] != 255).any())
+    if not transforms and not cache and riff_wrap:
+        return _write_vp8l_minimal(rgba, alpha_used)
+    rng = np.random.default_rng(seed)
+    bw = _Bits()
+    if riff_wrap:
+        bw.put(0x2F, 8)
+        bw.put(w - 1, 14)
+        bw.put(h - 1, 14)
+        bw.put(int(alpha_used), 1)
+        bw.put(0, 3)
+    img = _argb(rgba)
+    width = w
+    for kind in transforms:
+        bw.put(1, 1)
+        if kind == "palette":
+            colours, inverse = np.unique(img.reshape(-1), return_inverse=True)
+            n = len(colours)
+            assert n <= 256, "a palette of at most 256 colours"
+            pbits = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+            bw.put(3, 2)
+            bw.put(n - 1, 8)
+            deltas = colours.copy()
+            deltas[1:] = _sub8(colours[1:], colours[:-1])
+            _put_image(bw, deltas)
+            idx = inverse.reshape(h, width).astype(np.uint32)
+            per = 1 << pbits
+            packed_w = -(-width // per)
+            full = np.zeros((h, packed_w * per), np.uint32)
+            full[:, :width] = idx
+            packed = np.zeros((h, packed_w), np.uint32)
+            for k in range(per):
+                packed |= full[:, k::per] << ((8 >> pbits) * k)
+            img = (packed << 8) | 0xFF000000
+            width = packed_w
+        elif kind == "subtract_green":
+            bw.put(2, 2)
+            g = (img >> 8) & 0xFF
+            img = ((img & 0xFF00FF00) | ((((img >> 16) - g) & 0xFF) << 16)
+                   | ((img - g) & 0xFF))
+        elif kind == "predictor":
+            bw.put(0, 2)
+            bw.put(bits - 2, 3)
+            tw, th = -(-width // (1 << bits)), -(-h // (1 << bits))
+            modes = (rng.integers(0, 14, (th, tw)) if mode is None
+                     else np.full((th, tw), mode)).astype(np.uint32)
+            pred = np.zeros((h, width), np.uint32)
+            for m in range(14):
+                sel = np.repeat(np.repeat(modes == m, 1 << bits, 0),
+                                1 << bits, 1)[:h, :width]
+                if sel.any():
+                    pred = np.where(sel, _predictions(img, m), pred)
+            pred[0, :] = np.concatenate([[0xFF000000], img[0, :-1]])
+            pred[1:, 0] = img[:-1, 0]
+            _put_image(bw, ((modes << 8) | 0xFF000000).reshape(-1))
+            img = _sub8(img, pred)
+        elif kind == "cross_color":
+            bw.put(1, 2)
+            bw.put(bits - 2, 3)
+            tw, th = -(-width // (1 << bits)), -(-h // (1 << bits))
+            mult = rng.integers(0, 256, (th, tw, 3)).astype(np.uint32)
+            m = np.repeat(np.repeat(mult, 1 << bits, 0), 1 << bits,
+                          1)[:h, :width]
+            s8 = lambda v: ((v.astype(np.int64) & 0xFF) ^ 0x80) - 128  # noqa
+            g2r, g2b, r2b = s8(m[..., 0]), s8(m[..., 1]), s8(m[..., 2])
+            green, red = s8(img >> 8), s8(img >> 16)
+            new_r = (((img >> 16) & 0xFF).astype(np.int64)
+                     - ((g2r * green) >> 5)) & 0xFF
+            new_b = ((img & 0xFF).astype(np.int64) - ((g2b * green) >> 5)
+                     - ((r2b * red) >> 5)) & 0xFF
+            img = ((img & 0xFF00FF00) | (new_r.astype(np.uint32) << 16)
+                   | new_b.astype(np.uint32))
+            codes = (mult[..., 0] | (mult[..., 1] << 8) | (mult[..., 2] << 16)
+                     | np.uint32(0xFF000000))
+            _put_image(bw, codes.reshape(-1))
+        else:
+            raise ValueError(kind)
+    bw.put(0, 1)  # no more transforms
+    _put_image(bw, img.reshape(-1), cache, main=True)
+    payload = bw.done()
+    return riff([chunk(b"VP8L", payload)]) if riff_wrap else payload
+
+
+def _write_vp8l_minimal(rgba: np.ndarray, alpha_used: bool) -> bytes:
+    h, w = rgba.shape[:2]
+    head = []  # (value, bits), LSB first
+
+    def put(value, nbits):
+        head.append((int(value), nbits))
+
+    put(0x2F, 8)
+    put(w - 1, 14)
+    put(h - 1, 14)
+    put(int(alpha_used), 1)
+    put(0, 3)  # version
+    put(0, 1)  # no transform
+    put(0, 1)  # no colour cache
+    put(0, 1)  # no meta prefix codes
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8)
+    for alphabet in (280, 256, 256, 256):
+        put(0, 1)  # normal code
+        put(len(order) - 4, 4)
+        for sym in order:  # the code-length code: symbols 0 and 8, 1 bit
+            put(1 if sym in (0, 8) else 0, 3)
+        put(0, 1)  # every symbol's length is written
+        for sym in range(alphabet):
+            put(1 if sym < 256 else 0, 1)  # length 8 ('1') or 0 ('0')
+    for v in (1, 0, 0, 0):  # distance: a simple code of one symbol, 0
+        put(v, 1)
+    bits = np.concatenate([((np.uint64(v) >> np.arange(n, dtype=np.uint64))
+                            & np.uint64(1)).astype(np.uint8)
+                           for v, n in head])
+    # Each symbol's 8-bit canonical code is the symbol, read MSB first.
+    px = rgba[..., [1, 0, 2, 3]].reshape(-1)
+    bits = np.concatenate([bits, np.unpackbits(px, bitorder="big")])
+    payload = np.packbits(bits, bitorder="little").tobytes()
+    return riff([chunk(b"VP8L", payload)])
+
+
+def write_alph(alpha: np.ndarray, filt: int, compressed: bool,
+               pre: int = 0) -> bytes:
+    """An ALPH payload of an (h, w) alpha plane: the header byte (method,
+    ``filt`` 0 none, 1 horizontal, 2 vertical, 3 gradient, ``pre``), then
+    the filtered values raw or as a VP8L stream of implicit size (green
+    only)."""
+    a = np.asarray(alpha, np.int32)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    if filt == 1:
+        pred[:, 1:] = a[:, :-1]
+        pred[1:, 0] = a[:-1, 0]
+    elif filt == 2:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:] = a[:-1]
+    elif filt == 3:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    res = ((a - pred) & 0xFF).astype(np.uint8)
+    head = bytes([int(compressed) | (filt << 2) | (pre << 4)])
+    if not compressed:
+        return head + res.tobytes()
+    rgba = np.zeros((h, w, 4), np.uint8)
+    rgba[..., 1] = res
+    rgba[..., 3] = 255
+    return head + write_vp8l(rgba, transforms=("palette",) if len(
+        np.unique(res)) <= 256 else (), riff_wrap=False)
+
+
+def with_alph(still: bytes, alph: bytes, width: int, height: int) -> bytes:
+    """A VP8X file of a still lossy file's VP8 chunk and the ALPH payload
+    ``alph``."""
+    vp8 = next(p for f, p in riff_chunks(still) if f == b"VP8 ")
+    return riff([vp8x(width, height, 0x10), chunk(b"ALPH", alph),
+                 chunk(b"VP8 ", vp8)])
+
+
+# --- GIF -----------------------------------------------------------------------
+
+
+def gif_lzw(indices: np.ndarray, bits: int, *, literal: bool = False,
+            clear_first: bool = True, end: bool = True,
+            stats: dict | None = None) -> bytes:
+    """LZW codes of ``indices`` (flat, in stream order) for minimum code
+    size ``bits``, packed LSB first into sub-blocks (and the terminator), as
+    Pillow's decoder reads them: the width grows once the entry at the
+    width's last code is added, up to 12 bits, and the table stays full
+    without a clear code. ``literal`` writes each index as its own code,
+    with a clear code before every ``2**bits - 2`` of them so the width
+    stays ``bits + 1`` (vectorized: the writer of the card's large file);
+    below 2 bits the codes are literal anyway, since Pillow's table never
+    widens there. ``stats``, if given, gets the codes written after the
+    first clear ("codes") and the widest code ("width")."""
+    idx = np.asarray(indices, np.uint8).reshape(-1)
+    clear, eoi = 1 << bits, (1 << bits) + 1
+    if literal or bits < 2:
+        width = bits + 1
+        n = len(idx)
+        per = (1 << bits) - 2 if bits >= 2 else max(n, 1)
+        groups = -(-n // per)
+        pos = np.arange(n)
+        codes = np.empty(n + groups + int(end), np.int64)
+        codes[pos + pos // per + 1] = idx
+        codes[np.arange(groups) * (per + 1)] = clear
+        if end:
+            codes[-1] = eoi
+        if not clear_first and groups:
+            codes = codes[1:]
+        shifts = np.arange(width, dtype=np.int64)
+        stream = ((codes[:, None] >> shifts) & 1).astype(np.uint8).reshape(-1)
+        return _sub_blocks(np.packbits(stream, bitorder="little").tobytes())
+    codes, widths = [], []
+    state = {"width": bits + 1, "next": clear + 2, "emitted": 0}
+
+    def emit(code):
+        codes.append(code)
+        widths.append(state["width"])
+        state["emitted"] += 1
+        # From the second code after a clear the decoder adds an entry.
+        if state["emitted"] >= 2 and state["next"] < 4096:
+            if (state["next"] == (1 << state["width"]) - 1
+                    and state["width"] < 12):
+                state["width"] += 1
+            state["next"] += 1
+
+    if clear_first:
+        codes.append(clear)
+        widths.append(bits + 1)
+    table: dict = {}
+    enc_next = clear + 2
+    w = None
+    for v in idx.tolist():
+        if w is None:
+            w = v
+            continue
+        key = (w, v)
+        if key in table:
+            w = table[key]
+            continue
+        emit(w)
+        if enc_next < 4096:
+            table[key] = enc_next
+            enc_next += 1
+        w = v
+    if w is not None:
+        emit(w)
+    if end:
+        codes.append(eoi)
+        widths.append(state["width"])
+    if stats is not None:
+        stats["codes"] = state["emitted"]
+        stats["width"] = max(widths)
+    acc, nacc, out = 0, 0, bytearray()
+    for c, n in zip(codes, widths):
+        acc |= c << nacc
+        nacc += n
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+    if nacc:
+        out.append(acc)
+    return _sub_blocks(bytes(out))
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    out = bytearray()
+    for i in range(0, len(data), 255):
+        part = data[i:i + 255]
+        out.append(len(part))
+        out += part
+    return bytes(out) + b"\0"
+
+
+def _gif_palette(pal) -> tuple[int, bytes]:
+    pal = np.asarray(pal, np.uint8).reshape(-1, 3)
+    k = max(0, int(np.ceil(np.log2(max(len(pal), 2)))) - 1)
+    full = np.zeros((2 << k, 3), np.uint8)
+    full[:len(pal)] = pal
+    return k, full.tobytes()
+
+
+def write_gif(indices: np.ndarray, *, screen: tuple | None = None,
+              offset: tuple = (0, 0), bits: int | None = None,
+              global_palette=None, local_palette=None,
+              transparency: int | None = None, interlace: bool = False,
+              literal: bool = False, end: bool = True,
+              extensions: bytes = b"", version: bytes = b"GIF89a") -> bytes:
+    """A one-frame GIF of (h, w) ``indices``: the logical ``screen`` (w, h;
+    the frame's size by default), the frame at ``offset``, palettes of
+    (n, 3) entries padded to a power of two (n itself when it is one),
+    a graphic control extension with ``transparency``, ``interlace``d rows,
+    minimum code size ``bits`` (enough for the largest index by default),
+    raw ``extensions`` bytes before the frame."""
+    idx = np.asarray(indices, np.uint8)
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    flags = 0
+    gpal = b""
+    if global_palette is not None:
+        k, gpal = _gif_palette(global_palette)
+        flags = 0x80 | k
+    out = version + struct.pack("<HHBBB", sw, sh, flags, 0, 0) + gpal
+    out += extensions
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1, 0, 0, transparency]) + b"\0"
+    lflags = 0x40 if interlace else 0
+    lpal = b""
+    if local_palette is not None:
+        k, lpal = _gif_palette(local_palette)
+        lflags |= 0x80 | k
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, lflags)
+    out += lpal
+    if bits is None:
+        bits = max(2, int(idx.max()).bit_length() if idx.size else 2)
+    rows = (np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                            np.arange(2, h, 4), np.arange(1, h, 2)])
+            if interlace else np.arange(h))
+    out += bytes([bits]) + gif_lzw(idx[rows].reshape(-1), bits,
+                                   literal=literal, end=end)
+    return out + b";"
+
+
 # --- the committed fixtures --------------------------------------------------------
 
 
@@ -736,7 +1374,111 @@ def fixtures() -> dict:
     out["cmyk16_lzw.tif"] = write_tiff(
         (sample_image(21, 13, 13, 4).astype(np.uint16) * 257), 16, 5,
         compression=5)
+    out.update(webp_gif_fixtures())
     return out
+
+
+def webp_gif_fixtures() -> dict:
+    """{file name: bytes} of the WebP and GIF files under ``tests/ldr``."""
+    from PIL import Image
+
+    rgba = sample_image(37, 21, 1)
+    rgb = sample_image(40, 24, 2, 3)
+    opaque = np.concatenate([rgb, np.full((24, 40, 1), 255, np.uint8)], -1)
+    out = {}
+    # WebP: Pillow's lossless and lossy writers, libwebp's encoder with
+    # options Pillow never sets, and this module's own VP8L and ALPH data.
+    out["lossless_rgba.webp"] = pillow_bytes(rgba, "WEBP", lossless=True)
+    out["lossless_rgb.webp"] = pillow_bytes(rgb, "WEBP", lossless=True)
+    out["lossless_alpha_bit_cleared.webp"] = write_vp8l(
+        rgba, transforms=("subtract_green",), alpha_used=False)
+    out["lossy_q75.webp"] = pillow_bytes(rgb, "WEBP", quality=75)
+    out["lossy_q5_m0.webp"] = pillow_bytes(rgb, "WEBP", quality=5, method=0)
+    out["lossy_alpha.webp"] = pillow_bytes(rgba, "WEBP", quality=80)
+    out["lossy_simple_filter_8parts.webp"] = libwebp_encode(
+        opaque, filter_type=0, partitions=3, segments=4, sns_strength=100,
+        filter_strength=60)
+    out["lossy_sharp_yuv_17x23.webp"] = libwebp_encode(
+        sample_image(17, 23, 3), use_sharp_yuv=1, quality=60.0)
+    lossy = libwebp_encode(sample_image(13, 9, 2), alpha_compression=0)
+    alpha = sample_image(13, 9, 4)[..., 3]
+    out["alpha_raw_gradient.webp"] = with_alph(lossy, write_alph(alpha, 3,
+                                                                 False), 13, 9)
+    out["alpha_vp8l_horizontal.webp"] = with_alph(
+        lossy, write_alph(alpha, 1, True), 13, 9)
+    out["vp8l_all_transforms_cache.webp"] = write_vp8l(
+        rgba, transforms=("subtract_green", "predictor", "cross_color"),
+        cache=5, seed=7)
+    pal = sample_image(4, 1, 8)[0]
+    out["vp8l_palette4.webp"] = write_vp8l(
+        pal[(sample_image(29, 19, 9, 1)[..., 0] >> 6)],
+        transforms=("palette",))
+    out["vp8x_icc_exif_xmp.webp"] = pillow_bytes(
+        rgba, "WEBP", icc_profile=bytes(range(128)),
+        exif=b"Exif\0\0II*\0\x08\0\0\0\0\0", xmp=b"<x:xmpmeta/>")
+    out["animated_offset.webp"] = write_animated_webp(
+        [(4, 6, libwebp_encode(sample_image(9, 7, 10)), 50, 0),
+         (0, 0, libwebp_encode(sample_image(20, 17, 11), lossless=1), 50, 2)],
+        (20, 17))
+    # GIF: Pillow's writer and this module's.
+    idx = sample_image(40, 24, 12, 1)[..., 0] >> 4
+    palette = sample_image(16, 1, 13, 3)[0]
+    pimg = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                        colors=50)
+    out["pillow_p.gif"] = pillow_bytes(pimg, "GIF")
+    out["pillow_l.gif"] = pillow_bytes(Image.fromarray(rgb).convert("L"), "GIF")
+    out["interlaced_local.gif"] = write_gif(idx, interlace=True,
+                                            local_palette=palette)
+    ramp = np.repeat(np.arange(4, dtype=np.uint8)[:, None], 3, 1)
+    out["gray_ramp_past.gif"] = write_gif(
+        (idx[:9, :11] % 10).astype(np.uint8), global_palette=ramp)
+    out["past_palette.gif"] = write_gif((idx[:9, :11] % 10).astype(np.uint8),
+                                        global_palette=palette[:4])
+    out["transparent.gif"] = write_gif(idx[:10, :12], screen=(20, 15),
+                                       offset=(3, 4), global_palette=palette,
+                                       transparency=5)
+    out["offset_past_screen.gif"] = write_gif(idx[:10, :12], screen=(8, 6),
+                                              offset=(5, 2),
+                                              global_palette=palette)
+    out["no_palette_transparent.gif"] = write_gif(idx[:7, :9], transparency=3)
+    rng = np.random.default_rng(14)
+    out["full_table_12bit.gif"] = write_gif(
+        rng.integers(0, 256, (64, 64)).astype(np.uint8), bits=8,
+        global_palette=rng.integers(0, 256, (256, 3)))
+    out["bits5_literal.gif"] = write_gif(idx[:11, :13], bits=5, literal=True,
+                                         global_palette=palette)
+    return out
+
+
+def env_webp(w: int, h: int, seed: int) -> bytes:
+    """A lossy (quality 80) RGB WebP map of ``sample_image``."""
+    return pillow_bytes(sample_image(w, h, seed, 3), "WEBP", quality=80)
+
+
+def env_gif(w: int, h: int, seed: int) -> bytes:
+    """A GIF map: ``sample_image`` quantized by Pillow to 64 colours."""
+    from PIL import Image
+
+    img = Image.fromarray(sample_image(w, h, seed, 3))
+    return pillow_bytes(img.convert("P", palette=Image.Palette.ADAPTIVE,
+                                    colors=64), "GIF")
+
+
+# The committed lossy WebPs with alpha, 4096x2048 and 1024x512, whose
+# Pillow decodes only ``pillow_sha256.json`` holds (the larger is 32 MiB).
+LARGE_WEBP = "large_lossy_alpha_4096x2048.webp"
+MEDIUM_WEBP = "medium_lossy_alpha_1024x512.webp"
+
+
+def large_webp(w: int = 4096, h: int = 2048) -> bytes:
+    """A lossy (quality 75) WebP with alpha of smooth seeded content,
+    written by Pillow."""
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.stack([0.5 + 0.4 * np.sin(6 * x + 3 * y),
+                    0.5 + 0.4 * np.cos(5 * y) * x, 0.3 + 0.5 * x * y,
+                    0.6 + 0.4 * np.sin(9 * x * y)], -1)
+    return pillow_bytes((img * 255).astype(np.uint8), "WEBP", quality=75)
 
 
 def env_tga(w: int, h: int, seed: int) -> bytes:
@@ -761,6 +1503,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files = fixtures()
     files["env_rle32.tga"] = env_tga(64, 32, 21)
     files["env_rgb16.tif"] = env_tiff16(64, 32, 22)
+    files["env_lossy.webp"] = env_webp(64, 32, 23)
+    files["env.gif"] = env_gif(64, 32, 24)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -769,6 +1513,11 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     np.savez_compressed(os.path.join(directory, "pillow_rgba.npz"), **decoded)
     digests = {n: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
                for n, a in sorted(decoded.items())}
+    for name, size in ((LARGE_WEBP, (4096, 2048)), (MEDIUM_WEBP, (1024, 512))):
+        data = large_webp(*size)
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(data)
+        digests[name] = hashlib.sha256(pillow_rgba(data).tobytes()).hexdigest()
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
 

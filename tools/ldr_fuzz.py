@@ -1,11 +1,15 @@
 """Hold the LDR readers to Pillow on mutated and generated files.
 
-    python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|mut] [--n 2000] [--seed 1]
+    python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|webp|gif|mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
-writers with random headers, depths, compressions and layouts, a quarter
-of them then mutated) or, with ``--kind mut``, a file under ``tests/ldr``
-with a few bytes changed or its end cut. Pillow (the JAX package's reader)
+writers with random headers, depths, compressions and layouts; for WebP,
+Pillow's writer and Pillow's own libwebp with random options, this
+suite's VP8L writer with random transforms and animations with random
+offsets; for GIF, random code sizes, palettes, transparency, interlace,
+offsets and extensions; a quarter of them then mutated) or, with
+``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
+end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
 C++ loops and with their Python versions. A case is BAD when the port
 returns an array that is not Pillow's, or any array where Pillow raises;
@@ -245,8 +249,134 @@ def rnd_tiff(rng) -> bytes:
         sample_format=pick(rng, [1, 2]) if rng.random() < 0.2 else None)
 
 
+def rnd_image(rng, w: int, h: int) -> np.ndarray:
+    """Seeded smooth content, or noise, with alpha opaque, binary or
+    smooth."""
+    img = C.sample_image(w, h, int(rng.integers(0, 1 << 16)))
+    if rng.random() < 0.25:
+        img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    alpha = rng.random()
+    if alpha < 0.4:
+        img[..., 3] = 255
+    elif alpha < 0.6:
+        img[..., 3] = (img[..., 3] > 127) * 255
+    return img
+
+
+def rnd_webp_still(rng, w: int, h: int) -> bytes:
+    img = rnd_image(rng, w, h)
+    kind = rng.random()
+    if kind < 0.3:
+        return C.pillow_bytes(img, "WEBP", lossless=bool(rng.random() < 0.4),
+                              quality=int(rng.integers(0, 101)),
+                              method=int(rng.integers(0, 7)),
+                              exact=bool(rng.random() < 0.5),
+                              alpha_quality=int(rng.integers(0, 101)))
+    if kind < 0.75:
+        return C.libwebp_encode(
+            img, lossless=int(rng.random() < 0.3),
+            quality=float(rng.integers(0, 101)),
+            method=int(rng.integers(0, 7)), segments=int(rng.integers(1, 5)),
+            sns_strength=int(rng.integers(0, 101)),
+            filter_strength=int(rng.integers(0, 101)),
+            filter_sharpness=int(rng.integers(0, 8)),
+            filter_type=int(rng.integers(0, 2)),
+            autofilter=int(rng.random() < 0.3),
+            alpha_compression=int(rng.integers(0, 2)),
+            alpha_filtering=int(rng.integers(0, 3)),
+            alpha_quality=int(rng.integers(0, 101)),
+            partitions=int(rng.integers(0, 4)),
+            preprocessing=int(rng.integers(0, 3)),
+            near_lossless=int(pick(rng, [100, 100,
+                                         int(rng.integers(0, 101))])),
+            exact=int(rng.integers(0, 2)),
+            use_sharp_yuv=int(rng.integers(0, 2)))
+    names = ["subtract_green", "predictor", "cross_color"]
+    transforms = tuple(str(t) for t in rng.permutation(names)[
+        :int(rng.integers(0, 4))])
+    if rng.random() < 0.3:
+        colours = int(rng.integers(1, 40))
+        pal = rng.integers(0, 256, (colours, 4)).astype(np.uint8)
+        img = pal[rng.integers(0, colours, (h, w))]
+        transforms = ("palette",) + transforms[:1]
+    return C.write_vp8l(img, transforms=transforms,
+                        cache=int(pick(rng, [0, 0, 1, 4, 11])),
+                        seed=int(rng.integers(0, 1000)),
+                        bits=int(rng.integers(2, 5)),
+                        alpha_used=bool(rng.random() < 0.8))
+
+
+def rnd_webp(rng) -> bytes:
+    """A still (Pillow, libwebp with random options, or this suite's VP8L
+    writer), or an animation whose frames sit at random offsets."""
+    w, h = int(rng.integers(1, 40)), int(rng.integers(1, 30))
+    if rng.random() < 0.8:
+        return rnd_webp_still(rng, w, h)
+    canvas = (w + int(rng.integers(0, 12)), h + int(rng.integers(0, 12)))
+    frames = []
+    for _ in range(int(rng.integers(1, 4))):
+        fw, fh = int(rng.integers(1, w + 1)), int(rng.integers(1, h + 1))
+        x = 2 * int(rng.integers(0, (canvas[0] - fw) // 2 + 1))
+        y = 2 * int(rng.integers(0, (canvas[1] - fh) // 2 + 1))
+        frames.append((x, y, rnd_webp_still(rng, fw, fh),
+                       int(rng.integers(0, 100)), int(rng.integers(0, 4))))
+    return C.write_animated_webp(frames, canvas,
+                                 flags=pick(rng, [0x12, 0x02, 0x12, 0x32]))
+
+
+def rnd_gif(rng) -> bytes:
+    """A frame of random indices through this suite's writer (code size,
+    palettes, transparency, interlace, offset, extensions, literal codes),
+    or Pillow's writer, one frame or several."""
+    w, h = int(rng.integers(1, 40)), int(rng.integers(1, 30))
+    if rng.random() < 0.25:
+        img = Image.fromarray(rnd_image(rng, w, h))
+        mode = pick(rng, ["P", "L", "RGB", "RGBA", "1", "LA"])
+        im = img.convert(mode)
+        buf = io.BytesIO()
+        if rng.random() < 0.3:
+            more = [Image.fromarray(rnd_image(rng, w, h)).convert(mode)]
+            im.save(buf, "GIF", save_all=True, append_images=more,
+                    interlace=bool(rng.random() < 0.5),
+                    disposal=int(rng.integers(0, 4)))
+        else:
+            im.save(buf, "GIF", interlace=bool(rng.random() < 0.5))
+        return buf.getvalue()
+    bits = int(pick(rng, [1, 2, 3, 4, 5, 6, 7, 8, 8, 8, 0, 9, 12]))
+    top = 1 if bits == 0 else 1 << min(bits, 8)
+    idx = rng.integers(0, top, (h, w)).astype(np.uint8)
+    if rng.random() < 0.5:
+        idx[: h // 2] = idx[0, 0]
+
+    def palette():
+        r = rng.random()
+        n = int(pick(rng, [2, 4, 8, 16, 256]))
+        if r < 0.2:
+            return np.repeat(np.arange(n, dtype=np.uint8)[:, None], 3, 1)
+        return rng.integers(0, 256, (n, 3))
+
+    screen = (max(1, w + int(rng.integers(-5, 8))),
+              max(1, h + int(rng.integers(-5, 8))))
+    ext = b""
+    if rng.random() < 0.3:
+        ext = pick(rng, [b"!\xfe\x03abc\x00",
+                         b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00",
+                         b"\x00!\x01\x02ab\x00",
+                         b"!\xf9\x04\x00\x00\x00\x00\x00"])
+    return C.write_gif(
+        idx, screen=screen,
+        offset=(int(rng.integers(0, 6)), int(rng.integers(0, 6))), bits=bits,
+        global_palette=palette() if rng.random() < 0.7 else None,
+        local_palette=palette() if rng.random() < 0.3 else None,
+        transparency=(int(rng.integers(0, max(top, 2)))
+                      if rng.random() < 0.4 else None),
+        interlace=bool(rng.random() < 0.4),
+        literal=bool(rng.random() < 0.2 and bits >= 2), extensions=ext,
+        version=pick(rng, [b"GIF89a", b"GIF87a"]))
+
+
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
-       "tiff": rnd_tiff}
+       "tiff": rnd_tiff, "webp": rnd_webp, "gif": rnd_gif}
 
 
 def main(argv=None) -> int:

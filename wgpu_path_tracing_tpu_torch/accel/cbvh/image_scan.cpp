@@ -7,7 +7,9 @@
 // * wpt_packbits: libtiff's PackBitsDecode of one TIFF strip or tile
 //   (utils/tiff.py::packbits_plain);
 // * wpt_lzw: libtiff's LZWDecode of one TIFF strip or tile, new-style codes
-//   (utils/tiff.py::lzw_plain).
+//   (utils/tiff.py::lzw_plain);
+// * wpt_gif_lzw: Pillow's GifDecode of one GIF frame's LZW data, rows in
+//   interlace order (utils/gif.py::lzw_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
 // count of bytes written.
 
@@ -225,4 +227,141 @@ extern "C" int64_t wpt_lzw(const uint8_t* src, int64_t n, int64_t size,
   *written = len;
   if (status == 1) return 1;
   return len < size ? 2 : 0;
+}
+
+// Status: 0 the frame's last pixel written, 1 broken data, 2 the data (or
+// an end code) comes before the last pixel, 3 a minimum code size over 12;
+// *written gets the pixels written.
+extern "C" int64_t wpt_gif_lzw(const uint8_t* data, int64_t n, int32_t bits,
+                               int64_t width, int64_t height, int32_t interlace,
+                               uint8_t* out, int64_t* written) {
+  *written = 0;
+  if (bits < 0 || bits > 12) return 3;
+  const int clear = 1 << bits, end = clear + 1;
+  int64_t step = interlace ? 8 : 1;
+  int il = interlace ? 1 : 0;
+  std::vector<uint8_t> tab(4096, 0);
+  std::vector<int32_t> link(4096, 0);
+  std::vector<uint8_t> stack;
+  stack.reserve(4096);
+  int64_t pos = 0, blocksize = 0, x = 0, y = 0, count = 0;
+  uint32_t bitbuffer = 0;
+  int bitcount = 0, state = 1, next = 0, codesize = 0, codemask = 0;
+  int lastcode = 0, lastdata = 0;
+  size_t pending = 0;  // bytes of stack still to output (from its end)
+  uint8_t one;
+  while (true) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      pending = 0;
+      state = 2;
+    }
+    const uint8_t* str;
+    size_t len;
+    std::vector<uint8_t> chunk;
+    if (pending) {
+      chunk.assign(stack.rbegin(), stack.rbegin() + pending);
+      str = chunk.data();
+      len = pending;
+      pending = 0;
+    } else {
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= static_cast<uint32_t>(data[pos++]) << bitcount;
+          --blocksize;
+          bitcount += 8;
+        } else {
+          if (pos >= n || n - pos < data[pos] + 1) {
+            *written = count;
+            return 2;
+          }
+          blocksize = data[pos++];
+        }
+      }
+      int c = static_cast<int>(bitbuffer & static_cast<uint32_t>(codemask));
+      bitbuffer >>= codesize;
+      bitcount -= codesize;
+      if (c == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (c == end) {
+        *written = count;
+        return 2;
+      }
+      if (state == 2) {
+        if (c > clear) {
+          *written = count;
+          return 1;
+        }
+        lastdata = lastcode = c;
+        state = 3;
+      } else {
+        const int thiscode = c;
+        if (c > next) {
+          *written = count;
+          return 1;
+        }
+        stack.clear();
+        if (c == next) {
+          stack.push_back(static_cast<uint8_t>(lastdata));
+          c = lastcode;
+        }
+        while (c >= clear) {
+          if (stack.size() >= 4096 || c >= 4096) {
+            *written = count;
+            return 1;
+          }
+          stack.push_back(tab[c]);
+          c = link[c];
+        }
+        lastdata = c;
+        if (next < 4096) {
+          tab[next] = static_cast<uint8_t>(c);
+          link[next] = lastcode;
+          if (next == codemask && codesize < 12) {
+            ++codesize;
+            codemask = (1 << codesize) - 1;
+          }
+          ++next;
+        }
+        lastcode = thiscode;
+        pending = stack.size();
+      }
+      one = static_cast<uint8_t>(lastdata);
+      str = &one;
+      len = 1;
+    }
+    if (y >= height) {
+      *written = count;
+      return 1;
+    }
+    for (size_t k = 0; k < len; ++k) {
+      out[y * width + x] = str[k];
+      ++count;
+      if (++x >= width) {
+        x = 0;
+        y += step;
+        while (y >= height) {
+          if (il == 1) {
+            y = 4;
+            il = 2;
+          } else if (il == 2) {
+            step = 4;
+            y = 2;
+            il = 3;
+          } else if (il == 3) {
+            step = 2;
+            y = 1;
+            il = 0;
+          } else {
+            *written = count;
+            return 0;
+          }
+        }
+      }
+    }
+  }
 }

@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Six sources,
+The counterpart of the JAX package's ``accel/native.py``. Seven sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -17,8 +17,12 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   and ``decode_lossless_scan``, and a lossless component's
   ``undifference``;
 * ``image_scan.cpp``: the per-packet loops of the LDR readers,
-  ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``, and
-  ``utils/tiff.py::packbits_plain`` and ``lzw_plain``.
+  ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``,
+  ``utils/tiff.py::packbits_plain`` and ``lzw_plain``, and
+  ``utils/gif.py::lzw_plain``;
+* ``webp_scan.cpp``: the WebP decoding loops, ``utils/webp.py::
+  vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
+  ``unfilter_plain``.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -51,7 +55,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
-           "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp")
+           "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -60,6 +64,7 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _F64P = ctypes.POINTER(ctypes.c_double)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
@@ -112,6 +117,21 @@ SIGNATURES = {
     "wpt_packbits": [ctypes.c_char_p, _I64, _I64, _U8P],
     # data, its length, bytes wanted, out, out bytes written
     "wpt_lzw": [ctypes.c_char_p, _I64, _I64, _U8P, _I64P],
+    # data, its length, minimum code size, width, height, interlaced, out
+    # (the frame's indices), out pixels written
+    "wpt_gif_lzw": [ctypes.c_char_p, _I64, _I32, _I64, _I64, _I32, _U8P,
+                    _I64P],
+    # data, its length, start bit, width, height, distance map, out ARGB
+    "wpt_vp8l": [ctypes.c_char_p, _I64, _I64, _I32, _I32, _U8P, _U32P],
+    # data, its length, width, height, DC and AC quantizer tables, default
+    # and update coefficient probabilities, B_PRED probabilities, out Y, U,
+    # V (whole macroblocks)
+    "wpt_vp8": [ctypes.c_char_p, _I64, _I32, _I32, _I32P, _I32P, _U8P, _U8P,
+                _U8P, _U8P, _U8P, _U8P],
+    # Y, its row stride, U, V, their row stride, width, height, out RGB
+    "wpt_yuv_to_rgb": [_U8P, _I64, _U8P, _U8P, _I64, _I32, _I32, _U8P],
+    # filtered alpha, width, height, filter method, out alpha
+    "wpt_alpha_unfilter": [_U8P, _I32, _I32, _I32, _U8P],
 }
 JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 PACK_CODES = {"none": 0, "ffd": 1}
@@ -465,3 +485,66 @@ def lzw_native(src: bytes, size: int) -> tuple[bytes, int]:
     status = lib().wpt_lzw(src, len(src), size, _ptr(out, _U8P),
                            _ptr(written, _I64P))
     return out[:int(written[0])].tobytes(), int(status)
+
+
+def gif_lzw_native(data: bytes, bits: int, width: int, height: int,
+                   interlace: bool) -> tuple[np.ndarray, int, int]:
+    """``utils/gif.py::lzw_plain`` in C++ (``image_scan.cpp``): the same
+    indices, pixels written and status."""
+    out = np.zeros((height, width), np.uint8)
+    written = np.zeros(1, np.int64)
+    status = lib().wpt_gif_lzw(data, len(data), bits, width, height,
+                               int(interlace), _ptr(out, _U8P),
+                               _ptr(written, _I64P))
+    return out, int(written[0]), int(status)
+
+
+def vp8l_native(data: bytes, pos: int, width: int, height: int
+                ) -> tuple[np.ndarray, int]:
+    """``utils/webp.py::vp8l_plain`` in C++ (``webp_scan.cpp``)."""
+    from wgpu_path_tracing_tpu_torch.utils import webp_tables as T
+
+    out = np.zeros((height, width), np.uint32)
+    status = lib().wpt_vp8l(data, len(data), pos, width, height,
+                            _ptr(np.ascontiguousarray(T.CODE_TO_PLANE), _U8P),
+                            _ptr(out, _U32P))
+    return out, int(status)
+
+
+def vp8_native(data: bytes, width: int, height: int):
+    """``utils/webp.py::vp8_plain`` in C++ (``webp_scan.cpp``): (Y, U, V,
+    status)."""
+    from wgpu_path_tracing_tpu_torch.utils import webp_tables as T
+
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    Y = np.zeros((16 * mb_h, 16 * mb_w), np.uint8)
+    U = np.zeros((8 * mb_h, 8 * mb_w), np.uint8)
+    V = np.zeros((8 * mb_h, 8 * mb_w), np.uint8)
+    tables = [np.ascontiguousarray(t) for t in (
+        T.DC_TABLE, T.AC_TABLE, T.COEFF_PROBA0, T.COEFF_UPDATE,
+        T.BMODES_PROBA)]
+    status = lib().wpt_vp8(data, len(data), width, height,
+                           _ptr(tables[0], _I32P), _ptr(tables[1], _I32P),
+                           *[_ptr(t, _U8P) for t in tables[2:]],
+                           _ptr(Y, _U8P), _ptr(U, _U8P), _ptr(V, _U8P))
+    return Y, U, V, int(status)
+
+
+def yuv_to_rgb_native(Y: np.ndarray, U: np.ndarray, V: np.ndarray,
+                      width: int, height: int) -> np.ndarray:
+    """``utils/webp.py::yuv_to_rgb_plain`` in C++ (``webp_scan.cpp``)."""
+    Y, U, V = (np.ascontiguousarray(p, np.uint8) for p in (Y, U, V))
+    out = np.empty((height, width, 3), np.uint8)
+    lib().wpt_yuv_to_rgb(_ptr(Y, _U8P), Y.shape[1], _ptr(U, _U8P),
+                         _ptr(V, _U8P), U.shape[1], width, height,
+                         _ptr(out, _U8P))
+    return out
+
+
+def alpha_unfilter_native(rows: np.ndarray, method: int) -> np.ndarray:
+    """``utils/webp.py::unfilter_plain`` in C++ (``webp_scan.cpp``)."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    h, w = rows.shape
+    out = np.empty((h, w), np.uint8)
+    lib().wpt_alpha_unfilter(_ptr(rows, _U8P), w, h, method, _ptr(out, _U8P))
+    return out

@@ -31,15 +31,14 @@ The JAX package decodes and scales images with Pillow, a sidecar file by
 its ``uri`` whatever its ``mimeType``; here ``utils/image.py::
 decode_image_rgba`` (PNG; sequential, progressive and lossless JPEG,
 Huffman- or arithmetic-coded, in gray, YCbCr, RGB, CMYK and YCCK through
-``utils/jpeg.py``; TGA, BMP with DIB, ICO and CUR, netpbm and baseline
-TIFF through ``utils/tga.py``, ``bmp.py``, ``netpbm.py`` and ``tiff.py``;
-the format found by the bytes in Pillow's order) and
-``resize_bilinear_u8`` compute what Pillow computes, so the atlas is
-array-equal. A variant Pillow opens that this package does not read (a
-12-bit or hierarchical JPEG, JPEG-in-TIFF, ...) raises
-``NotImplementedError``, and a format it does not read (WebP, GIF, ...)
-``ValueError``, naming the image. With a
-compiler,
+``utils/jpeg.py``; TGA, BMP with DIB, ICO and CUR, netpbm, baseline
+TIFF, WebP and GIF through ``utils/tga.py``, ``bmp.py``, ``netpbm.py``,
+``tiff.py``, ``webp.py`` and ``gif.py``; the format found by the bytes in
+Pillow's order) and ``resize_bilinear_u8`` compute what Pillow computes,
+so the atlas is array-equal. A variant Pillow opens that this package
+does not read (a 12-bit or hierarchical JPEG, JPEG-in-TIFF, ...) raises
+``NotImplementedError``, and a format it does not read (AVIF, QOI, ...)
+``ValueError``, naming the image. With a compiler,
 ``accel/native.py``'s library transforms and gathers each primitive's
 corners in one pass (``flatten_native``) and packs the atlas
 (``potpack_native``); the NumPy code here is their plain version, the same

@@ -5,7 +5,8 @@ buffer's row 0 is the BOTTOM of the view, so the display image is flipped.
 Only the standard library and NumPy: the PNG writer and reader use ``zlib``
 and ``struct``; JPEG, BMP (with DIB, ICO and CUR), netpbm, TIFF and TGA
 files are read by ``utils/jpeg.py``, ``bmp.py``, ``netpbm.py``, ``tiff.py``
-and ``tga.py`` (the JAX package's use Pillow); the Radiance .hdr and the
+and ``tga.py``, WebP and GIF files by ``utils/webp.py`` and ``gif.py``
+(the JAX package's use Pillow); the Radiance .hdr and the
 uncompressed float32 OpenEXR writers and readers are byte-for-byte the JAX
 package's.
 """
@@ -334,14 +335,16 @@ def read_png(path: str) -> np.ndarray:
 
 def _readers() -> dict:
     """The decoders of the formats this package reads, by Pillow's name."""
-    from wgpu_path_tracing_tpu_torch.utils import bmp, netpbm, tga, tiff
+    from wgpu_path_tracing_tpu_torch.utils import (bmp, gif, netpbm, tga,
+                                                   tiff, webp)
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
-            "JPEG": decode_jpeg_rgba, "PPM": netpbm.decode_netpbm_rgba,
-            "PNG": decode_png_rgba, "CUR": bmp.decode_cur_rgba,
-            "ICO": bmp.decode_ico_rgba, "TIFF": tiff.decode_tiff_rgba,
-            "TGA": tga.decode_tga_rgba}
+            "GIF": gif.decode_gif_rgba, "JPEG": decode_jpeg_rgba,
+            "PPM": netpbm.decode_netpbm_rgba, "PNG": decode_png_rgba,
+            "CUR": bmp.decode_cur_rgba, "ICO": bmp.decode_ico_rgba,
+            "TIFF": tiff.decode_tiff_rgba, "TGA": tga.decode_tga_rgba,
+            "WEBP": webp.decode_webp_rgba}
 
 
 def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -350,13 +353,18 @@ def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
     ``Image.open`` would choose, found as it finds it (``utils/sniff.py``):
     the bytes, not a file name or a MIME type, and Pillow's order of
     formats. PNG (``decode_png_rgba``), JPEG (``utils/jpeg.py``), BMP, DIB,
-    ICO and CUR (``utils/bmp.py``), netpbm (``utils/netpbm.py``), TIFF
-    (``utils/tiff.py``) and TGA (``utils/tga.py``) are read. TGA, which has
-    no signature, is read only when no format before it in Pillow's order
-    might take the bytes. Bytes Pillow would open as another format (GIF,
-    WebP, ...) or not at all raise ``ValueError`` naming ``name`` and the
-    format; a variant of a read format that Pillow opens but this package
-    does not read raises ``NotImplementedError`` naming ``name``."""
+    ICO and CUR (``utils/bmp.py``), GIF (``utils/gif.py``, the first
+    frame), netpbm (``utils/netpbm.py``), TIFF (``utils/tiff.py``), TGA
+    (``utils/tga.py``) and WebP (``utils/webp.py``, lossless, lossy with
+    its alpha, the first frame of an animation) are read. The walk goes on
+    past a format only where that format's reader says Pillow's ``_open``
+    would pass the bytes on (TGA, which has no signature, passes on a RIFF
+    header, so WebP files reach WEBP). Bytes Pillow would open as a format
+    this package does not read (AVIF, QOI, ...) raise ``ValueError`` at the
+    first such format, naming ``name`` and the format, and bytes no format
+    takes raise ``ValueError`` too; a variant of a read format that Pillow
+    opens but this package does not read raises ``NotImplementedError``
+    naming ``name``."""
     from wgpu_path_tracing_tpu_torch.utils import sniff
 
     readers = _readers()
@@ -369,10 +377,6 @@ def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
             return reader(data, name)
         except sniff.NotThisFormat:
             continue
-    later = sniff.accepts_after_tga(data)
-    if later:
-        raise ValueError(f"{name}: Pillow would open this file as {later}, "
-                         "a format this package does not read")
     raise ValueError(f"{name}: not an image Pillow can identify")
 
 

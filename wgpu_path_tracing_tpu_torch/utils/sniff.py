@@ -10,12 +10,15 @@ IMT, IPTC, PCD, SPIDER and TGA); an ``_open`` that raises ``SyntaxError``,
 the next plugin, any other error ends the search.
 
 ``pillow_candidates`` lists, in that order, the formats Pillow would try
-on some bytes, up to TGA. The formats this package does not read are kept
-by their ``_accept`` test alone (or, for those without one, by a copy of
-the first checks of their ``_open``), so the list is what Pillow might
-choose, never less: ``utils/image.py::decode_image_rgba`` reads a file as
-TGA, which has no signature, only when no format before TGA might take
-it.
+on some bytes: every format whose test passes, TGA among them (it has no
+signature and is always tried), and the formats after TGA (WEBP first).
+The formats this package does not read are kept by their ``_accept`` test
+alone (or, for those without one, by a copy of the first checks of their
+``_open``), so the list is what Pillow might choose, never less:
+``utils/image.py::decode_image_rgba`` walks it, passing a format on only
+where that format's reader says Pillow's ``_open`` would (a RIFF header
+fails TGA's colour-map check, so a WebP file reaches WEBP), and stops at
+the first format it has no reader for.
 """
 
 from __future__ import annotations
@@ -266,20 +269,11 @@ TAKES = {
 
 def pillow_candidates(data: bytes):
     """The formats Pillow would try on ``data``, in its order: each whose
-    test passes, then TGA (which takes any bytes its header checks
-    pass)."""
+    test passes, TGA always (it takes any bytes its header checks pass),
+    then each after TGA whose ``_accept`` passes."""
     prefix = data[:16]
-    for fmt in ORDER[:ORDER.index("TGA")]:
+    for fmt in ORDER:
         test = TAKES.get(fmt)
-        if test(data) if test is not None else ACCEPT[fmt](prefix):
+        if fmt == "TGA" or (test(data) if test is not None
+                            else ACCEPT[fmt](prefix)):
             yield fmt
-    yield "TGA"
-
-
-def accepts_after_tga(data: bytes) -> str | None:
-    """The first format after TGA whose _accept passes, or None."""
-    prefix = data[:16]
-    for fmt in ORDER[ORDER.index("TGA") + 1:]:
-        if ACCEPT[fmt](prefix):
-            return fmt
-    return None
