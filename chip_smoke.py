@@ -31,8 +31,9 @@ and runs these phases, one line of output each:
    slot);
 6. main path: ``Renderer(RenderConfig(width=512, height=512), device="cuda")``,
    ``load_scene(cornell_box())``, ``render(spp=64)``; the kernels' launch
-   counts in that run, the image finite and equal to the plain path's image
-   of the same frames on every pixel, the wall time and Mrays/s; then
+   counts in that run, the image finite, its first ``PLAIN_FRAMES`` (8)
+   frames drawn again equal to the plain path's on every pixel, the wall
+   time and Mrays/s; then
    the same box with ``intersector="walk"`` forced for a few spp, and the
    count of pixels where its image differs from the K1 path's; the
    flagship at 64x64 x 8 spp under ``bounce_kernel="auto"``, ``"pallas"``
@@ -41,7 +42,8 @@ and runs these phases, one line of output each:
    textured path: the three textured boxes of phase 4 through the same
    entry points, each 512x512 x 64 spp (``stats()["texture"]`` must read
    "fat", "fat" and "per_slot"), their launch counts, cold and repeated
-   Mrays/s, and each image against its plain path's on every pixel;
+   Mrays/s, and each one's first 8 frames against its plain path's on
+   every pixel;
 7. K3 vs plain: the wide-BVH walk on ``cornell_box(tessellation=55)``
    (102,852 triangles) at 512x512: the camera rays, the bounce-1 rays of
    one plain bounce and that bounce's shadow rays (``t_max``, ``any_hit``);
@@ -57,7 +59,8 @@ and runs these phases, one line of output each:
    ``load_scene(cornell_box(tessellation=55))`` (``stats()["intersector"]``
    must be "walk"), ``render(spp=8)``; the launch counts, the build
    seconds, the cold render and the median of repeated renders in Mrays/s,
-   and a 1-spp render's image against the plain path's on every pixel;
+   and a 1-spp render's image at ``PLAIN_BOUNCES`` (2) bounces against the
+   plain path's on every pixel;
 9. K4, K5, K6 vs plain: the pair dispatch and the round dispatch on the same
    102,852-triangle box and the same three ray sets as phase 7, the phased
    dispatch on ``cornell_box(tessellation=16)`` (8,706 triangles: its flat
@@ -80,13 +83,13 @@ and runs these phases, one line of output each:
    one) beside its bound, counted from the plain version's ``visits`` on
    the rays as the kernel receives them;
 10. dispatch paths: the large box through ``intersector="pairs"`` at 8 spp
-   (launch counts, cold and repeated Mrays/s) and its 1-spp image against
-   the plain path's (the plain versions behind the same
+   (launch counts, cold and repeated Mrays/s) and its 1-spp, 2-bounce
+   image against the plain path's (the plain versions behind the same
    ``with_tail_compaction``); the same box packed with the wide build made
    to fail, which ``intersector="auto"`` must take through the pair
    dispatch to the same image; ``"phased"`` (the 8,706-triangle box) and ``"cluster"`` (the
-   large box) at 2 spp, and the first frame of each against its plain
-   path's;
+   large box) at 2 spp, and the first frame of each at 2 bounces against
+   its plain path's;
 11. rng modes: K2's bounce-0 LDS instantiation against its plain version at
    512x512 on ``cornell_box()``, ``material_test_box()``, and
    ``textured_cornell()`` and ``textured_material_box()`` each sampled per
@@ -94,8 +97,8 @@ and runs these phases, one line of output each:
    the launch without LDS on each;
    ``Renderer(RenderConfig(width=512, height=512, rng="stratified"))``
    on the Cornell box at 64 spp (launch counts: 64 of the LDS
-   instantiation, one a frame; cold and repeated Mrays/s; the image against
-   the plain path's of the same frames on every pixel) and ``rng="hash"`` at
+   instantiation, one a frame; cold and repeated Mrays/s; its first 8
+   frames against the plain path's on every pixel) and ``rng="hash"`` at
    8 spp the same way; ``frames_per_trace=2`` against 1 on the stratified
    flagship (8 spp) and on the large box through the walk (2 spp), equal on
    every pixel; a stratified checkpoint (4 spp, save, load into a fresh
@@ -108,8 +111,8 @@ and runs these phases, one line of output each:
    ``Renderer.load_model``), ``stats()["intersector"]`` "walk" and
    ``stats()["texture"]`` what the scene loaded directly reads, its arrays
    equal to a second round trip's, the launch counts (K3 and K2 in that
-   texture mode), cold and repeated Mrays/s, a 1-spp image against the
-   plain path's on every pixel, ``stats()["passes"]`` and
+   texture mode), cold and repeated Mrays/s, a 1-spp, 2-bounce image
+   against the plain path's on every pixel, ``stats()["passes"]`` and
    ``stats()["frames"]``; then ``load_model_async`` of the same file while
    ``cornell_box()`` renders 3 chunks: the atrium installed at the second
    chunk's start with the mean restarted there (its two chunks equal to a
@@ -126,7 +129,7 @@ and runs these phases, one line of output each:
    CMYK and YCCK JPEGs as its textures and with the arithmetic-coded and
    lossless ones, each written to a .gltf and loaded by ``load_model``
    (the walk, the fat canvas), 512x512 x 8 spp with its launches, and its
-   1-spp image against the plain path's; then the TGA, BMP (DIB, ICO,
+   1-spp, 2-bounce image against the plain path's; then the TGA, BMP (DIB, ICO,
    CUR), netpbm and TIFF readers on this host: every file under
    ``tests/ldr`` array-equal to its Pillow decode with the C++ loops and
    with the Python ones, a 4096x2048 RLE TGA and a 4096x2048 LZW TIFF made
@@ -152,8 +155,9 @@ and runs these phases, one line of output each:
    bounce 0, beside the same launch without the map and K2 without a map
    on the Cornell box; then the material box at 512x512 x 64 spp through
    ``set_environment``: launch counts (512 of the ENV instantiation), cold
-   and repeated Mrays/s, the image against the plain path's on every pixel,
-   and its renders in turns with the same box's without the map;
+   and repeated Mrays/s, its first 8 frames against the plain path's on
+   every pixel, and its renders in turns with the same box's without the
+   map;
    then the material box at 512x512 x 8 spp under each committed
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
    map, a 16-bit RGB TIFF map, a lossy WebP map and a GIF map
@@ -199,9 +203,9 @@ and runs these phases, one line of output each:
    tessellation=55)`` and ``gallery_atrium(detail=3)``: the SAH build, the
    wide collapse (packs "none" and "ffd"), the triangle reorder, the glTF
    flatten and potpack (the atrium's atlas and fat canvas), bit for bit
-   (the wide boxes' NaN bits included), each timed both ways; the two
-   scenes built both ways and the atrium's ``Renderer.load_model`` from a
-   .glb both ways, the same arrays, with their seconds;
+   (the wide boxes' NaN bits included), each timed both ways; the large
+   box's scene built both ways and the atrium's ``Renderer.load_model``
+   from a .glb both ways, the same arrays, with their seconds;
 19. the command line and the viewer (``cli``): ``python -m
    wgpu_path_tracing_tpu_torch.cli render`` of the flagship (64 spp) and of
    the atrium from a .glb (8 spp) as two subprocesses, each PNG equal on
@@ -227,9 +231,10 @@ and runs these phases, one line of output each:
 21. multi-device rendering (``shard``): ``Renderer(devices=["cuda"] * k,
    sample_shards=s)`` on the 1x1, 1x2 and 2x2 meshes of the one card (each
    entry a shard that runs there in turn), the flagship at 64 spp: the
-   launches (K1 1,024 / 2,048 / 2,048), each image equal to its plain
-   path's (``render_chunk_sharded`` with the plain versions) on every pixel
-   and within rtol 1e-4 / atol 1e-5 of the single-device image, the
+   launches (K1 1,024 / 2,048 / 2,048), each image's first 8 frames equal
+   to its plain path's (``render_chunk_sharded`` with the plain versions)
+   on every pixel, the whole within rtol 1e-4 / atol 1e-5 of the
+   single-device image, the
    counters equal, the cold render and the median of repeats in Mrays/s in
    turns with the single-device renderer; then on the 2x2 mesh the large
    box through the walk (8 spp), ``rng="stratified"`` (8 spp, also against
@@ -246,10 +251,11 @@ and runs these phases, one line of output each:
    and ``load_scene``'s seconds, the launches, peak device memory and the
    median of 3 renders after a warm-up in Mrays/s; at each size K2, K3 and
    K4 (the kernels of its routes) on 16,384-ray subsets of the 512x512
-   camera rays, their bounce-1 rays and shadow-0 rays against their plain
+   camera rays and, at the first size each kernel runs at (K3 765k, K4
+   2M), of their bounce-1 rays and shadow-0 rays against their plain
    versions, bit for bit, and K3's and K4's device ms a call of 262,144
-   rays beside the bound from the plain visits, scaled; at 765k and 2M the
-   walk route's 64x64, 1-spp, 1-bounce image against the plain path's.
+   rays beside the bound from the plain visits, scaled; at 765k the walk
+   route's 64x64, 1-spp, 1-bounce image against the plain path's.
 
 Then one JSON line of per-kernel numbers (each kernel's time beside its
 bound: the larger of the bytes it must move over the card's memory rate and
@@ -370,6 +376,13 @@ SIZE = 512
 SPP = 64
 REPEATS = 7
 MAX_BOUNCES = 8
+# The plain paths take seconds a frame (the tree walks sync the host once a
+# stack pop), so an image check draws fewer frames than the timed render
+# (PLAIN_FRAMES) and, through the walks and the dispatch intersectors, also
+# fewer bounces (PLAIN_BOUNCES: the camera rays, their shadow rays and one
+# bounce of incoherent rays and theirs).
+PLAIN_FRAMES = 8
+PLAIN_BOUNCES = 2
 # The large-scene path (the JAX package's bench config 5, "large-100k").
 LARGE_TESSELLATION = 55
 LARGE_SPP = 8
@@ -386,7 +399,7 @@ FORCED_WALK_SPP = 4  # the flagship box through the walk
 BOUNCE_KERNEL_SIZE = 64
 BOUNCE_KERNEL_SPP = 8
 # The rng modes: the stratified flagship renders SPP frames (its plain path
-# too); "hash", frames_per_trace and the checkpoint fewer.
+# PLAIN_FRAMES); "hash", frames_per_trace and the checkpoint fewer.
 HASH_SPP = 8
 FPT_SPP = 8  # the stratified flagship at frames_per_trace 2 against 1
 FPT_LARGE_SPP = 2  # the large box through the walk, the same
@@ -1417,6 +1430,25 @@ def checked_plain(r: Renderer, spp: int, hdr: np.ndarray, path: str,
     return plain_secs
 
 
+def checked_plain_frames(r: Renderer, frames: int, path: str,
+                         bounces: int | None = None, repack: bool = True):
+    """The first ``frames`` frames drawn again through the kernels, at
+    ``bounces`` bounces where given, against the plain path's
+    (``checked_plain``): the plain versions take seconds a frame, so the
+    check holds fewer frames or bounces than the timed render. ``r``'s
+    bounce count is restored after; its accumulation holds the checked
+    frames. Returns (the kernels' image, the plain wall seconds)."""
+    keep = r.config.max_bounces
+    if bounces is not None:
+        r.config.max_bounces = bounces
+    try:
+        r.reset()
+        hdr = r.render(spp=frames)
+        return hdr, checked_plain(r, frames, hdr, path, repack)
+    finally:
+        r.config.max_bounces = keep
+
+
 def phase_main(dev, smi, report, profile: str | None):
     r = Renderer(RenderConfig(width=SIZE, height=SIZE), device="cuda")
     r.load_scene(cornell_box())
@@ -1438,7 +1470,7 @@ def phase_main(dev, smi, report, profile: str | None):
         say("main", f"PNG {os.path.getsize(path)} bytes, mean display "
             f"value {float(r.image().mean()):.4f}")
 
-    plain_secs = checked_plain(r, SPP, hdr, "main")
+    _, plain_secs = checked_plain_frames(r, PLAIN_FRAMES, "main")
     med, quartiles, walls = repeat_renders(r, SPP, stats["rays_total"],
                                            "main", smi)
     report["main"] = {"seconds": secs, "mrays_per_sec": mrays,
@@ -1516,7 +1548,7 @@ def phase_textured(dev, smi, report, profile: str | None):
         say(path, f"cold render: wall {secs:.3f} s, {rays} rays "
             f"({stats['rays_closest']} closest + {stats['rays_shadow']} "
             f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
-        plain_secs = checked_plain(r, SPP, hdr, path)
+        _, plain_secs = checked_plain_frames(r, PLAIN_FRAMES, path)
         med, quartiles, walls = repeat_renders(r, SPP, rays, path, smi)
         report[path] = {"texture": mode, "load_seconds": load,
                         "seconds": secs, "mrays_per_sec": rays / secs / 1e6,
@@ -2150,9 +2182,8 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
         f"({stats['rays_closest']} closest + {stats['rays_shadow']} shadow), "
         f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
     med, quartiles, walls = repeat_renders(r, LARGE_SPP, rays, "pairs", smi)
-    r.reset()
-    one = r.render(spp=LARGE_PLAIN_SPP)
-    plain_secs = checked_plain(r, LARGE_PLAIN_SPP, one, "pairs")
+    one, plain_secs = checked_plain_frames(r, LARGE_PLAIN_SPP, "pairs",
+                                           PLAIN_BOUNCES)
     if profile:
         root, ext = os.path.splitext(profile)
         profile_frames(r, f"{root}_pairs{ext}", "pairs")
@@ -2173,11 +2204,12 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
             f = forced_renderer("auto", large, "pairs")
     finally:
         bvh8.build_wide_bvh = build
+    f.config.max_bounces = PLAIN_BOUNCES  # as the forced run's image
     fallback, _ = counted_render(
         f, LARGE_PLAIN_SPP, report, "pairs_fallback",
-        expect(k2=MAX_BOUNCES * LARGE_PLAIN_SPP,
-               k4=2 * MAX_BOUNCES * LARGE_PLAIN_SPP,
-               block_entry=2 * MAX_BOUNCES * LARGE_PLAIN_SPP))
+        expect(k2=PLAIN_BOUNCES * LARGE_PLAIN_SPP,
+               k4=2 * PLAIN_BOUNCES * LARGE_PLAIN_SPP,
+               block_entry=2 * PLAIN_BOUNCES * LARGE_PLAIN_SPP))
     pixels = pixels_differing(fallback, one)
     say("pairs", "the same box without walk tables under intersector='auto' "
         f"took {f.stats()['intersector']!r}; its image differs from the "
@@ -2201,9 +2233,8 @@ def phase_dispatch_paths(dev, smi, report, profile: str | None = None):
         say(kind, f"{scene_np.num_triangles} triangles, cold render: wall "
             f"{secs:.3f} s, {rays} rays, {rays / secs / 1e6:.3f} Mrays/s on "
             f"{smi}")
-        r.reset()
-        one = r.render(spp=DISPATCH_PLAIN_SPP)
-        plain_secs = checked_plain(r, DISPATCH_PLAIN_SPP, one, kind)
+        _, plain_secs = checked_plain_frames(r, DISPATCH_PLAIN_SPP, kind,
+                                             PLAIN_BOUNCES)
         report[kind] = {"triangles": scene_np.num_triangles, "seconds": secs,
                         "mrays_per_sec": rays / secs / 1e6,
                         "plain_seconds": plain_secs}
@@ -2221,15 +2252,19 @@ BIG_ROUTES = (
     ("4M", 345, "auto", "walk", 64, 1, 1, 1),
 )
 BIG_REPEATS = 3
-# The whole-image check of the walk routes at 765k and 2M: 64x64, 1 spp,
-# 1 bounce (the camera and shadow-0 calls: the plain walk takes 5-10 s a
-# call of bounce rays there, which the subsets hold instead).
-BIG_PLAIN_TESSELLATIONS = (150, 243)
+# The whole-image check of the walk route at 765k: 64x64, 1 spp, 1 bounce
+# (the camera and shadow-0 calls: the plain walk takes 5-10 s a call of
+# bounce rays there, which the subsets hold instead).
+BIG_PLAIN_TESSELLATIONS = (150,)
 BIG_PLAIN_SIZE = 64
 BIG_PLAIN_BOUNCES = 1
 BIG_RAYS = SIZE  # the kernels' timed calls: 512 x 512 camera rays
 BIG_SUBSET_BLOCKS = 16  # of 1,024 lanes, evenly spaced: 16,384 rays
 BIG_TIME_REPS = 3
+# The plain walk and pair dispatch take 10-30 s on a bounce-1 or shadow-0
+# subset at 2M and 4M: each kernel is held on those two sets at the first
+# size it runs at (K3 765k, K4 2M), and on the camera set at every size.
+BIG_DEEP_SETS = ("bounce-1", "shadow-0")
 
 
 def big_subset(n: int, dev) -> torch.Tensor:
@@ -2245,10 +2280,12 @@ def scaled(visits: dict, factor: float) -> dict:
     return {k: v * factor for k, v in visits.items()}
 
 
-def big_kernels(label: str, r: Renderer, keys: set, report: dict) -> dict:
+def big_kernels(label: str, r: Renderer, keys: set, report: dict,
+                deep: set) -> dict:
     """K2 and the kernels ``keys`` names ("k3", "k4") on the 512x512 camera
-    rays of ``r``'s scene, their bounce-1 rays (K2 on the camera hits) and
-    that bounce's shadow rays: each on a 16,384-ray subset
+    rays of ``r``'s scene and, for those of them not yet in ``deep`` (which
+    gains them), their bounce-1 rays (K2 on the camera hits) and that
+    bounce's shadow rays: each on a 16,384-ray subset
     (``big_subset``) against its plain version, bit for bit (K2 under the
     phase-4 bound), and K3's and K4's device ms a call (a CUDA graph)
     beside the bound from the plain version's visits on the subset, scaled
@@ -2297,6 +2334,8 @@ def big_kernels(label: str, r: Renderer, keys: set, report: dict) -> dict:
     out = {}
     for key, (tables, kernel, plain) in kinds.items():
         for name, rr, extra in sets:
+            if name in BIG_DEEP_SETS and key in deep:
+                continue
             o, d = rr[0:3].contiguous(), rr[3:6].contiguous()
             if key == "k4" and name != "camera":
                 o, d, extra = route_lanes(scene, o, d, extra)
@@ -2332,6 +2371,7 @@ def big_kernels(label: str, r: Renderer, keys: set, report: dict) -> dict:
                 f"device {ms:.4f} ms a call of {m}, bound "
                 f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
                 f"{entry['gops']:.2f} Gop)")
+    deep.update(kinds)
     return out
 
 
@@ -2341,10 +2381,10 @@ def phase_big(dev, smi, report):
     C++ SAH build, then ``load_scene``: wide collapse, packing, upload),
     peak device memory, launches, a warm-up and the median of BIG_REPEATS
     renders in Mrays/s; at each size the kernels of its routes against
-    their plain versions (``big_kernels``); at 765k and 2M the walk route's
+    their plain versions (``big_kernels``); at 765k the walk route's
     64x64, 1-spp, 1-bounce image against the plain path's."""
     out = report.setdefault("big", {})
-    checked, built = set(), {}
+    checked, built, deep = set(), {}, set()
     for (label, tess, intersector, strategy, size, spp, fpc,
          fpt) in BIG_ROUTES:
         if tess not in built:  # each box built once, for its routes
@@ -2391,7 +2431,7 @@ def phase_big(dev, smi, report):
             keys = {{"walk": "k3", "pairs": "k4"}[route[3]]
                     for route in BIG_ROUTES if route[1] == tess}
             out[label]["kernels"] = kernels = big_kernels(label, r, keys,
-                                                          report)
+                                                          report, deep)
             for key, sets in kernels.items():
                 report.setdefault(key, {}).setdefault("big", {})[label] = {
                     name: {k: e[k] for k in ("rays", "ms", "bound_ms",
@@ -2432,10 +2472,10 @@ def phase_large(dev, smi, report, profile: str | None):
         f"shadow), {rays / secs / 1e6:.3f} Mrays/s on {smi}")
     med, quartiles, walls = repeat_renders(r, LARGE_SPP, rays, "large", smi)
     # The plain walk syncs the host once per stack pop (about 30 s a frame
-    # here), so the image comparison takes the first LARGE_PLAIN_SPP frame.
-    r.reset()
-    hdr = r.render(spp=LARGE_PLAIN_SPP)
-    plain_secs = checked_plain(r, LARGE_PLAIN_SPP, hdr, "large")
+    # of 8 bounces here), so the image comparison takes the first
+    # LARGE_PLAIN_SPP frame at PLAIN_BOUNCES.
+    _, plain_secs = checked_plain_frames(r, LARGE_PLAIN_SPP, "large",
+                                         PLAIN_BOUNCES)
     if profile:
         root, ext = os.path.splitext(profile)
         profile_frames(r, f"{root}_large{ext}", "large")
@@ -2560,7 +2600,7 @@ def phase_rng_paths(dev, smi, report, profile: str | None):
     rays = r.stats()["rays_total"]
     say("stratified", f"cold render: wall {secs:.3f} s, {rays} rays, "
         f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
-    plain_secs = checked_plain(r, SPP, hdr, "stratified")
+    _, plain_secs = checked_plain_frames(r, PLAIN_FRAMES, "stratified")
     med, quartiles, walls = repeat_renders(r, SPP, rays, "stratified", smi)
     report["stratified"] = {"seconds": secs, "mrays_per_sec": rays / secs / 1e6,
                             "repeat_median_seconds": med,
@@ -2854,10 +2894,9 @@ def phase_gltf(dev, smi, report, profile: str | None):
         say("gltf", f"cold render: wall {secs:.3f} s, {rays} rays, "
             f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
         med, quartiles, walls = repeat_renders(r, GLTF_SPP, rays, "gltf", smi)
-        r.reset()
-        one = r.render(spp=GLTF_PLAIN_SPP)
-        plain_secs = checked_plain(r, GLTF_PLAIN_SPP, one, "gltf")
         say("gltf", f"mean display value {float(r.image().mean()):.4f}")
+        _, plain_secs = checked_plain_frames(r, GLTF_PLAIN_SPP, "gltf",
+                                             PLAIN_BOUNCES)
         if profile:
             root, ext = os.path.splitext(profile)
             profile_frames(r, f"{root}_gltf{ext}", "gltf")
@@ -3031,9 +3070,7 @@ def jpeg_box(tmp: str, textures: dict, names: tuple, path_name: str,
     say("gltf", f"JPEG-textured box ({path_name}) {JPEG_SIZE}x{JPEG_SIZE} x "
         f"{JPEG_SPP} spp: wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s "
         f"on {smi}")
-    r.reset()
-    one = r.render(spp=1)
-    plain_secs = checked_plain(r, 1, one, path_name)
+    _, plain_secs = checked_plain_frames(r, 1, path_name, PLAIN_BOUNCES)
     return {"textures": list(names), "load_model_seconds": load,
             "size": JPEG_SIZE, "seconds": secs,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
@@ -3241,9 +3278,7 @@ def ldr_box(tmp: str, files: dict, smi: str, report: dict,
     rays = r.stats()["rays_total"]
     say("gltf", f"{path_name} box {JPEG_SIZE}x{JPEG_SIZE} x {JPEG_SPP} spp: "
         f"wall {secs:.3f} s, {rays / secs / 1e6:.3f} Mrays/s on {smi}")
-    r.reset()
-    one = r.render(spp=1)
-    plain_secs = checked_plain(r, 1, one, path_name)
+    _, plain_secs = checked_plain_frames(r, 1, path_name, PLAIN_BOUNCES)
     return {"textures": list(textures), "texture": stats["texture"],
             "load_model_seconds": load, "size": JPEG_SIZE, "seconds": secs,
             "mrays_per_sec": rays / secs / 1e6, "plain_seconds": plain_secs}
@@ -3357,7 +3392,7 @@ def phase_env(dev, smi, report, profile: str | None):
     rays = r.stats()["rays_total"]
     say("env", f"cold render: wall {secs:.3f} s, {rays} rays, "
         f"{rays / secs / 1e6:.3f} Mrays/s on {smi}")
-    plain_secs = checked_plain(r, SPP, hdr, "env")
+    _, plain_secs = checked_plain_frames(r, PLAIN_FRAMES, "env")
     med, quartiles, walls = repeat_renders(r, SPP, rays, "env", smi)
     # The same box without the map, in turns with the map's renders, so
     # that the host's speed moves both alike (the map changes no path).
@@ -3970,8 +4005,8 @@ def phase_native(dev, smi, report):
     """The C++ scene-prep library against the NumPy paths, bit for bit, on
     the large box and the atrium: the SAH build, the wide collapse, the
     triangle reorder, potpack (the atrium's atlas and fat canvas), each
-    timed both ways; the whole scene builds and the atrium's
-    ``Renderer.load_model`` from a .glb both ways."""
+    timed both ways; the large box's whole scene build and the atrium's
+    ``Renderer.load_model`` from a .glb (its whole build) both ways."""
     if not native.native_available():
         raise AssertionError("no g++ on PATH: the native library cannot build")
     _, build_s = timed(native.lib)
@@ -3983,7 +4018,7 @@ def phase_native(dev, smi, report):
     for label, scene, remake in (
             ("large box", large,
              lambda: cornell_box(tessellation=LARGE_TESSELLATION)),
-            ("atrium", atrium, lambda: gallery_atrium(detail=GLTF_DETAIL))):
+            ("atrium", atrium, None)):
         n = scene.num_triangles
         v = (scene.tri_v0, scene.tri_v1, scene.tri_v2)
         tree = both_ways(f"{label} SAH build, {n} triangles",
@@ -4008,6 +4043,8 @@ def phase_native(dev, smi, report):
                   lambda: native.reorder_tris_native(perm, *cols),
                   lambda: tuple(np.asarray(c)[perm] for c in cols),
                   tuple(range(10)), out, smi)
+        if remake is None:  # the load_model below builds it both ways
+            continue
         with numpy_paths():
             plain, numpy_s = timed(remake)
         fresh, lib_s = timed(remake)
@@ -4401,8 +4438,9 @@ def against_single(hdr, ref, stats, ref_stats, what: str) -> int:
 
 def phase_shard(dev, smi, report):
     """``Renderer(devices=...)`` on meshes of the one card: the flagship on
-    the 1x1, 1x2 and 2x2 meshes at 64 spp (launches, each image against its
-    plain path's and the single-device image, the counters, cold and
+    the 1x1, 1x2 and 2x2 meshes at 64 spp (launches, each image against
+    the single-device image, its first PLAIN_FRAMES against the plain
+    path's, the counters, cold and
     repeated Mrays/s in turns with the single-device renderer); then on the
     2x2 mesh the large box through the walk, the stratified flagship, a
     checkpoint resume and a padded tail chunk; ``cli.main render
@@ -4421,11 +4459,14 @@ def phase_shard(dev, smi, report):
             expect(k1=2 * MAX_BOUNCES * frames, k2=MAX_BOUNCES * frames))
         off = against_single(hdr, ref, r.stats(), ref_stats,
                              f"{name} mesh, flagship {SPP} spp")
+        # The plain path takes seconds a frame: its first PLAIN_FRAMES.
+        r.reset()
+        first = r.render(spp=PLAIN_FRAMES)
         t0 = time.perf_counter()
-        plain = plain_sharded(r, SPP)
+        plain = plain_sharded(r, PLAIN_FRAMES)
         plain_s = time.perf_counter() - t0
-        same_image(hdr, plain, f"{name} mesh against its plain path "
-                   f"({plain_s:.3f} s)", "shard")
+        same_image(first, plain, f"{name} mesh against its plain path "
+                   f"({PLAIN_FRAMES} spp, {plain_s:.3f} s)", "shard")
         walls = {"single": [], "mesh": []}
         for _ in range(SHARD_REPEATS):  # in turns: single, mesh
             for key, rr in (("single", single), ("mesh", r)):
