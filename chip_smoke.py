@@ -145,7 +145,17 @@ and runs these phases, one line of output each:
    decoded with the C++ loops within 5 s, the Python loops on a committed
    1024x512 lossy WebP and a lossless WebP and GIF of that size
    (``WEBP_GIF_PYTHON_SIZE``), and the same box with WebP and GIF sidecar
-   textures (``WEBP_GIF_TEXTURES``) against its plain path;
+   textures (``WEBP_GIF_TEXTURES``) against its plain path; then TIFF's
+   other variants (their committed files, JPEG-in-TIFF, YCbCr, CIELab,
+   float, 32-bit, 12-bit, BigTIFF, old-style LZW, CCITT and LZMA, are among
+   the ``tests/ldr`` files held to Pillow both ways): the committed
+   4096x2048 JPEG-in-TIFF YCbCr 2x2 tiled file (its SHA-256 against
+   Pillow's), a 4096x2048 G4 page and a 4096x2048 float LZW file with the
+   floating-point predictor made by the test suite's writers, each decoded
+   with the C++ loops within 5 s and equal to what it was made from, the
+   Python loops on a 1024x512 G4 page, and the same box with four
+   TIFF-variant sidecar textures (``TIFF_VARIANT_TEXTURES``) against its
+   plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -160,8 +170,8 @@ and runs these phases, one line of output each:
    map;
    then the material box at 512x512 x 8 spp under each committed
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
-   map, a 16-bit RGB TIFF map, a lossy WebP map and a GIF map
-   (``RenderConfig.env_map``): its launches
+   map, a 16-bit RGB TIFF map, a lossy WebP map, a GIF map, a JPEG-in-TIFF
+   YCbCr map and a float TIFF map (``RenderConfig.env_map``): its launches
    (K1, K2, K2's ENV instantiation) and its image against the plain
    path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
@@ -2741,6 +2751,20 @@ LDR_ENV_MAPS = (("env_rle32.tga", "env_tga"), ("env_rgb16.tif", "env_tiff16"))
 WEBP_GIF_TEXTURES = ("lossy_alpha.webp", "lossless_rgba.webp",
                      "transparent.gif", "alpha_vp8l_horizontal.webp")
 WEBP_GIF_ENV_MAPS = (("env_lossy.webp", "env_webp"), ("env.gif", "env_gif"))
+# The TIFF-variant-textured box: the same scene with a JPEG-in-TIFF YCbCr
+# (2x2, tiles), a BigTIFF LZW RGBA, a float gray (LZW, floating-point
+# predictor) and a G4 file as its four sidecar textures; and the env box
+# under a JPEG-in-TIFF YCbCr map and a float map.
+TIFF_VARIANT_TEXTURES = ("jpeg_ycbcr_tiles.tif", "bigtiff_lzw_rgba.tif",
+                         "float_lzw_pred3.tif", "g4.tif")
+TIFF_VARIANT_ENV_MAPS = (("env_jpeg_ycbcr.tif", "env_tiff_jpeg"),
+                         ("env_float.tif", "env_tiff_float"))
+# The TIFF-variant decode timings: the committed 4096x2048 JPEG-in-TIFF
+# YCbCr 2x2 tiled file (tests/ldr, its Pillow decode's SHA-256 beside it),
+# a 4096x2048 G4 page and float LZW file (the floating-point predictor) made
+# here by the test suite's writers, in C++; the plain Python loops on a G4
+# page of TIFF_VARIANT_PYTHON_SIZE.
+TIFF_VARIANT_PYTHON_SIZE = (1024, 512)
 # The decode timing files, made here from a seeded image by the test
 # suite's own writers: an equirect map's usual size, and a quarter of it
 # for the plain Python LZW decode (a code a step in Python).
@@ -2967,6 +2991,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
         report["gltf"]["jpeg"] = jpeg_scene(tmp, smi, report)
         report["gltf"]["ldr"] = ldr_scene(tmp, smi, report)
         report["gltf"]["webp_gif"] = webp_gif_scene(tmp, smi, report)
+        report["gltf"]["tiff_variants"] = tiff_variant_scene(tmp, smi, report)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -3242,6 +3267,88 @@ def webp_gif_scene(tmp: str, smi: str, report: dict) -> dict:
     return out
 
 
+def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
+    """TIFF's other variants on this host (``ldr_scene`` has held every
+    committed one to its Pillow array both ways): the C++ decode seconds of
+    the committed 4096x2048 JPEG-in-TIFF YCbCr 2x2 tiled file (its SHA-256
+    against Pillow's), and of a 4096x2048 G4 page and float LZW file with
+    the floating-point predictor made here by the test suite's writers
+    (each equal to what it was made from: the page's bits, the floats
+    clipped and truncated as Pillow converts them); the plain Python loops
+    on a G4 page of TIFF_VARIANT_PYTHON_SIZE and both loops on an old-style
+    LZW RGB file of LDR_PYTHON_TIFF_SIZE (predictor 2, 16-row bands that
+    repeat, so that the writer codes one); each C++ decode under
+    JPEG_DECODE_BOUND_S; then the TIFF-variant-textured box (``ldr_box``
+    with TIFF_VARIANT_TEXTURES)."""
+    cases_module = image_cases()
+    with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
+        digests = json.load(f)
+    w, h = LDR_TIMING_SIZE
+    pw, ph = TIFF_VARIANT_PYTHON_SIZE
+    write_tiff = cases_module.write_tiff
+    (page, small, field), pages_s = timed(lambda: (
+        cases_module.fax_page(w, h, 51), cases_module.fax_page(pw, ph, 52),
+        cases_module.float_field(w, h)))
+    lw, lh = LDR_PYTHON_TIFF_SIZE
+    bands = np.tile(cases_module.sample_image(lw, 16, 53, 3), (lh // 16, 1, 1))
+    (g4, small_g4, floats, old_lzw), make_s = timed(lambda: (
+        write_tiff(page[..., None], 1, 0, compression=4),
+        write_tiff(small[..., None], 1, 0, compression=4),
+        write_tiff(field, 32, 1, compression=5, predictor=3,
+                   sample_format=3, rows_per_strip=16),
+        write_tiff(bands, 8, 2, compression=5, predictor=2, old_lzw=True,
+                   rows_per_strip=16)))
+    with open(os.path.join(LDR_DIR, cases_module.LARGE_TIFF_JPEG), "rb") as f:
+        jpeg = f.read()
+    files = [
+        (cases_module.LARGE_TIFF_JPEG, jpeg,
+         digests[cases_module.LARGE_TIFF_JPEG], False),
+        (f"g4_page_{w}x{h}.tif", g4, (1 - page) * 255, False),
+        (f"float_lzw_predictor3_{w}x{h}.tif", floats,
+         np.clip(field[..., 0], 0, 255).astype(np.uint8), False),
+        (f"g4_page_{pw}x{ph}.tif", small_g4, (1 - small) * 255, True),
+        (f"old_lzw_predictor_{lw}x{lh}.tif", old_lzw, bands, True)]
+    seconds = {}
+    for name, data, want, python in files:
+        both = decode_both(data, name, python)
+        for rgba, _ in both:
+            if isinstance(want, str):
+                ok = hashlib.sha256(rgba.tobytes()).hexdigest() == want
+            else:
+                gray = want[..., None] if want.ndim == 2 else want
+                ok = (np.array_equal(rgba[..., :3], np.broadcast_to(
+                    gray, rgba.shape[:2] + (3,)))
+                      and (rgba[..., 3] == 255).all())
+            if not ok:
+                raise AssertionError(f"{name}: the decode differs from "
+                                     + ("Pillow's (SHA-256)" if isinstance(
+                                         want, str) else "what it was made "
+                                         "from"))
+        seconds[name] = {"cxx": both[0][1]}
+        if python:
+            seconds[name]["python"] = both[1][1]
+        say("gltf", f"{name} ({len(data)} bytes): decoded in "
+            f"{both[0][1]:.3f} s with the C++ loops"
+            + (f", {both[1][1]:.3f} s with the Python ones" if python else "")
+            + " on this host, equal to "
+            + ("Pillow's decode (SHA-256)" if isinstance(want, str)
+               else "what it was made from") + f", on {smi}")
+    slow = {n: t["cxx"] for n, t in seconds.items()
+            if t["cxx"] > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
+           "timing_arrays_made_seconds": pages_s,
+           "python_size": list(TIFF_VARIANT_PYTHON_SIZE)}
+    texture_files = {}
+    for name in TIFF_VARIANT_TEXTURES:
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            texture_files[name] = f.read()
+    out.update(ldr_box(tmp, texture_files, smi, report, TIFF_VARIANT_TEXTURES,
+                       "gltf_tiff_variants"))
+    return out
+
+
 def ldr_box(tmp: str, files: dict, smi: str, report: dict,
             textures: tuple = LDR_TEXTURES, path_name: str = "gltf_ldr"
             ) -> dict:
@@ -3422,7 +3529,8 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg"] = jpeg_env_box(smi, report)
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
-    for name, path_name in LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS:
+    for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
+                            + TIFF_VARIANT_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

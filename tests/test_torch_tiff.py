@@ -1,7 +1,9 @@
-"""The port's baseline TIFF reader (``utils/tiff.py``) against Pillow
-12.1.0 with libtiff, which the JAX package reads LDR images with; and the
-atlas of a .gltf whose sidecar textures are TGA, BMP, netpbm and TIFF
-files against the JAX ``build_atlas``.
+"""The port's TIFF reader (``utils/tiff.py``) against Pillow 12.1.0 with
+libtiff, which the JAX package reads LDR images with; and the atlas of a
+.gltf whose sidecar textures are TGA, BMP, netpbm and TIFF files against
+the JAX ``build_atlas``. The variants of ``tests/test_torch_tiff_variants.py``
+(JPEG, YCbCr, CIELab, float, BigTIFF, CCITT ...) are held here too where
+they were once left for later.
 
 Every case is held array-equal to ``Image.open(...).convert("RGBA")``, and
 decoded twice: with the C++ PackBits and LZW loops (``accel/cbvh/
@@ -183,17 +185,17 @@ def test_orientation_is_applied_as_pillow_applies_it(orientation):
     assert got.shape[:2] == ((37, 23) if orientation > 4 else (23, 37))
 
 
-def not_read_cases():
+def once_left_cases():
+    """The variants PR 20 left for later, now read as Pillow reads them."""
     img = Image.fromarray(RGB)
-    ycbcr = C.write_tiff(RGB, 8, 6)
-    old_lzw = bytearray(C.write_tiff(RGB, 8, 2, compression=5))
-    old_lzw[8:10] = b"\x00\x01"  # the first strip starts 00 01: old-style
     return {
         "jpeg": C.pillow_bytes(img, "TIFF", compression="jpeg"),
-        "ycbcr": ycbcr,
+        "ycbcr": C.write_tiff(C.rgb_to_ycbcr(RGB), 8, 6, compression=5,
+                              subsampling=(2, 2), rows_per_strip=6),
         "float": C.pillow_bytes(Image.fromarray(GRAY[..., 0]).convert("F"),
                                 "TIFF"),
-        "old_style_lzw": bytes(old_lzw),
+        "old_style_lzw": C.write_tiff(RGB, 8, 2, compression=5,
+                                      old_lzw=True),
         "group4": C.pillow_bytes(Image.fromarray(GRAY[..., 0]).convert("1"),
                                  "TIFF", compression="group4"),
         "group3": C.pillow_bytes(Image.fromarray(GRAY[..., 0]).convert("1"),
@@ -204,14 +206,56 @@ def not_read_cases():
     }
 
 
+ONCE_LEFT = once_left_cases()
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_LEFT))
+def test_variants_once_left_for_later_equal_pillow(case):
+    """JPEG-in-TIFF, YCbCr, float and 32-bit samples, old-style LZW, CCITT
+    G3/G4 and BigTIFF decode as Pillow decodes them."""
+    C.assert_like_pillow(ONCE_LEFT[case], case)
+
+
+def with_byte_count(data: bytes, count: int) -> bytes:
+    """A one-strip little-endian TIFF with its StripByteCounts set."""
+    out = bytearray(data)
+    at = out.index(struct.pack("<HHI", 279, 4, 1))
+    struct.pack_into("<I", out, at + 8, count)
+    return bytes(out)
+
+
+def not_read_cases():
+    return {
+        "old_style_jpeg": C.write_tiff(RGB, 8, 6, compression=1,
+                                       tags={259: (3, [6])}),
+        "zstd": C.pillow_bytes(Image.fromarray(RGB), "TIFF",
+                               compression="zstd"),
+        "webp": C.write_tiff(RGB, 8, 2, tags={259: (3, [50001])}),
+        "separate_planes_16bit_lzw": C.write_tiff(RGB16, 16, 2, compression=5,
+                                                  planar=2),
+        "big_endian_signed_16bit_lzw": C.write_tiff(
+            RGB16[..., :1], 16, 1, compression=5, order=">", sample_format=2),
+        "ccitt_ends_early": with_byte_count(C.write_tiff(
+            (GRAY > 100).astype(np.uint8), 1, 1, compression=4), 9),
+        "jpeg_strip_cut_short": with_byte_count(C.write_tiff(
+            RGB, 8, 2, compression=7, jpeg={"tables": False}), 400),
+        "lzma_bad_data": bytes(C.write_tiff(RGB, 8, 2, compression=34925)[:30])
+        + b"\xff" * 20 + bytes(C.write_tiff(RGB, 8, 2, compression=34925)[50:]),
+    }
+
+
 NOT_READ = not_read_cases()
 
 
 @pytest.mark.parametrize("case", sorted(NOT_READ))
 def test_variants_left_for_later_raise_naming_the_image(case):
-    """JPEG-in-TIFF, YCbCr, float and 32-bit samples, old-style LZW, CCITT
-    G3/G4 and BigTIFF raise ``NotImplementedError`` naming the image,
-    whatever Pillow does with them."""
+    """Old-style JPEG (6), zstd, WebP, compressed separate planes of other
+    samples than 8-bit RGB, RGBA and CMYK, compressed big-endian signed
+    16-bit samples, CCITT data that ends before its last row (libtiff
+    leaves rows unwritten), a JPEG strip cut short (libtiff ends it with a
+    fake EOI) and bad LZMA data (libtiff keeps part of it) raise
+    ``NotImplementedError`` naming the image, whatever Pillow does with
+    them."""
     C.assert_refused(NOT_READ[case], "n.tif", NotImplementedError)
 
 
@@ -230,7 +274,52 @@ def refused_cases():
                                                    extra=(1,)),
         "raw_truncated": C.write_tiff(RGB, 8, 2)[:-50],
         "header_only": b"II*\x00",
+        # Pillow reads uncompressed YCbCr as "RGBX", four bytes a pixel.
+        "ycbcr_raw": C.write_tiff(RGB, 8, 6),
+        "old_style_lzw_flipped": old_style_flipped(),
+        "float_rgb": C.write_tiff(RGB.astype(np.float32), 32, 2,
+                                  sample_format=3),
+        "float64": C.write_tiff(GRAY.astype(np.float32), 32, 1,
+                                sample_format=3, tags={258: (3, [64])}),
+        "int32_mm_unsigned": C.write_tiff(GRAY.astype(np.int64), 32, 1,
+                                          order=">"),
+        "gray12_mm": C.write_tiff(GRAY.astype(np.uint16) * 9, 12, 1,
+                                  order=">"),
+        "bigtiff_mm": C.write_tiff(RGB, 8, 2, bigtiff=True, order=">"),
+        "ycbcr_2x4": C.write_tiff(C.rgb_to_ycbcr(RGB), 8, 6, compression=5,
+                                  subsampling=(2, 4)),
+        "jpeg_sampling_disagrees": C.write_tiff(
+            C.rgb_to_ycbcr(RGB), 8, 6, compression=7, subsampling=(2, 2),
+            jpeg={"sampling": [(2, 1), (1, 1), (1, 1)]}),
+        "predictor3_on_integers": C.write_tiff(RGB16[..., :1], 16, 1,
+                                               compression=5, predictor=3),
+        "predictor2_at_12_bits": C.write_tiff(GRAY.astype(np.uint16) * 9, 12,
+                                              1, compression=5, predictor=2),
+        "rows_per_strip_0_lzw": C.write_tiff(RGB, 8, 2, compression=5,
+                                             tags={278: (4, [0])}),
+        "rows_per_strip_0_raw": C.write_tiff(RGB, 8, 2, tags={278: (4, [0])}),
+        "rows_per_strip_2e31_lzw": C.write_tiff(RGB, 8, 2, compression=5,
+                                                tags={278: (4, [2 ** 31])}),
+        "rows_per_strip_0_tiled_g4": C.write_tiff(
+            (GRAY > 100).astype(np.uint8), 1, 1, compression=4,
+            tile=(16, 16), tags={278: (4, [0])}),
+        "ycbcr_fill2": C.write_tiff(C.rgb_to_ycbcr(RGB), 8, 6, compression=5,
+                                    subsampling=(1, 2), fill=2),
+        "jpeg_scan_header_of_the_wrong_length": C.write_tiff(
+            RGB, 8, 2, compression=7, jpeg={"tables": False}).replace(
+                b"\xff\xda\x00\x0c", b"\xff\xda\x00\x2c"),
+        "jpeg_scan_names_a_component_twice": C.write_tiff(
+            RGB, 8, 2, compression=7, jpeg={"tables": False}).replace(
+                b"\xff\xda\x00\x0c\x03\x01\x00\x02\x11\x03",
+                b"\xff\xda\x00\x0c\x03\x01\x00\x02\x11\x02"),
     }
+
+
+def old_style_flipped() -> bytes:
+    """A new-style LZW strip whose first two bytes say old-style."""
+    data = bytearray(C.write_tiff(RGB, 8, 2, compression=5))
+    data[8:10] = b"\x00\x01"
+    return bytes(data)
 
 
 REFUSED = refused_cases()
@@ -249,9 +338,8 @@ def strips():
     out = []
     cases = [fixture(n) for n in TIFF_FILES] + [f() for f in WRITTEN.values()]
     for data in cases:
-        order = "<" if data[:2] == b"II" else ">"
-        tags, _ = tiff._ifd(data, order, struct.unpack_from(
-            order + "I", data, 4)[0], "s")
+        order, big, first = tiff._header(data, "s")
+        tags, _ = tiff._ifd(data, order, first, "s", big)
         kind = tiff.COMPRESSIONS[tags.get(259, 1)]
         if kind not in ("packbits", "tiff_lzw"):
             continue
@@ -269,26 +357,32 @@ def strips():
         kind = "packbits" if rng.random() < 0.5 else "tiff_lzw"
         if kind == "tiff_lzw" and rng.random() < 0.7:
             src = C.lzw(bytes(rng.integers(0, 5, int(rng.integers(0, 3000)),
-                                           dtype=np.uint8)))
+                                           dtype=np.uint8)),
+                        old_style=bool(rng.random() < 0.5))
             src = src[:int(rng.integers(len(src) // 2, len(src) + 1))]
         out.append((kind, src, int(rng.integers(0, 5000))))
     return out
 
 
 def test_packbits_and_lzw_loops_in_cxx_equal_python():
-    """``wpt_packbits`` and ``wpt_lzw`` give the same bytes and status as
-    ``packbits_plain`` and ``lzw_plain`` on every strip, good or bad."""
+    """``wpt_packbits`` and ``wpt_lzw`` (new- and old-style codes) give the
+    same bytes and status as ``packbits_plain`` and ``lzw_plain`` on every
+    strip, good or bad."""
     seen = set()
     for kind, src, size in strips():
         if kind == "packbits":
             got = native.packbits_native(src, size)
             assert got == tiff.packbits_plain(src, size)
-        else:
-            got = native.lzw_native(src, size)
-            assert got == tiff.lzw_plain(src, size)
-        seen.add((kind, got[1]))
-    assert seen >= {("packbits", 0), ("packbits", 2), ("tiff_lzw", 0),
-                    ("tiff_lzw", 1), ("tiff_lzw", 2), ("tiff_lzw", 3)}
+            seen.add((kind, got[1]))
+            continue
+        for old in (False, True):
+            got = native.lzw_native(src, size, old)
+            assert got == tiff.lzw_plain(src, size, old)
+            seen.add((kind, old, got[1]))
+    assert seen >= {("packbits", 0), ("packbits", 2), ("tiff_lzw", False, 0),
+                    ("tiff_lzw", False, 1), ("tiff_lzw", False, 2),
+                    ("tiff_lzw", True, 0), ("tiff_lzw", True, 1),
+                    ("tiff_lzw", True, 2)}
 
 
 def test_writers_lzw_is_libtiffs():

@@ -28,6 +28,7 @@ same each time.
 
 from __future__ import annotations
 
+import bisect
 import hashlib
 import io
 import json
@@ -455,16 +456,19 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def lzw(data: bytes) -> bytes:
+def lzw(data: bytes, old_style: bool = False) -> bytes:
     """TIFF LZW as libtiff writes it: codes most significant bit first, a
     clear code first and whenever the table fills, the width growing one
-    code early, an end-of-information code last."""
+    code early, an end-of-information code last. ``old_style`` writes the
+    codes libtiff's ``LZWDecodeCompat`` reads: least significant bit
+    first, the width growing one code later."""
     codes, widths = [256], [9]
     if not data:
         codes.append(257)
         widths.append(9)
-        return _pack_codes(codes, widths)
+        return _pack_codes(codes, widths, old_style)
     table: dict[int, int] = {}
+    late = int(old_style)
     nxt, width, maxcode = 258, 9, 511
     w = data[0]
     for c in data[1:]:
@@ -482,7 +486,7 @@ def lzw(data: bytes) -> bytes:
             widths.append(width)
             table.clear()
             nxt, width, maxcode = 258, 9, 511
-        elif nxt > maxcode:
+        elif nxt > maxcode + late:
             width += 1
             maxcode = (1 << width) - 1
         w = c
@@ -493,17 +497,22 @@ def lzw(data: bytes) -> bytes:
         codes.append(256)
         widths.append(width)
         width = 9
-    elif nxt > maxcode:
+    elif nxt > maxcode + late:
         width += 1
     codes.append(257)
     widths.append(width)
-    return _pack_codes(codes, widths)
+    return _pack_codes(codes, widths, old_style)
 
 
-def _pack_codes(codes: list, widths: list) -> bytes:
+def _pack_codes(codes: list, widths: list, lsb_first: bool = False) -> bytes:
     c = np.asarray(codes, np.uint32)
     wd = np.asarray(widths, np.uint8)
     top = 12
+    if lsb_first:
+        bits = (c[:, None] >> np.arange(top, dtype=np.uint32)) & 1
+        keep = np.arange(top)[None, :] < wd[:, None]
+        return np.packbits(bits[keep].astype(np.uint8),
+                           bitorder="little").tobytes()
     bits = ((c[:, None] >> np.arange(top - 1, -1, -1, dtype=np.uint32)) & 1)
     keep = np.arange(top)[None, :] >= (top - wd[:, None])
     return np.packbits(bits[keep].astype(np.uint8)).tobytes()
@@ -517,16 +526,245 @@ def predict(rows: np.ndarray, spp: int, bits: int, order: str) -> np.ndarray:
         d = s.copy()
         d[:, 1:] = s[:, 1:] - s[:, :-1]
         return (d & 0xFF).astype(np.uint8).reshape(n, -1)
-    dt = np.dtype(order + "u2")
-    s = rows.copy().view(dt).reshape(n, -1, spp).astype(np.int32)
+    size = bits // 8
+    dt = np.dtype(f"{order}u{size}")
+    s = rows.copy().view(dt).reshape(n, -1, spp).astype(np.int64)
     d = s.copy()
     d[:, 1:] = s[:, 1:] - s[:, :-1]
-    return (d & 0xFFFF).astype(dt).reshape(n, -1).view(np.uint8)
+    return (d & ((1 << bits) - 1)).astype(dt).reshape(n, -1).view(np.uint8)
+
+
+def float_predict(rows: np.ndarray, spp: int, bits: int,
+                  order: str) -> np.ndarray:
+    """libtiff's floating-point predictor (3) on (rows, bytes): each row's
+    samples as big-endian byte planes (most significant first), then
+    differenced a byte ``spp`` bytes back."""
+    n = rows.shape[0]
+    size = bits // 8
+    vals = rows.copy().view(f"{order}u{size}").reshape(n, -1)
+    planes = vals.astype(f">u{size}").view(np.uint8).reshape(
+        n, -1, size).transpose(0, 2, 1).reshape(n, -1).astype(np.int16)
+    d = planes.copy()
+    d[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+    return (d & 0xFF).astype(np.uint8)
+
+
+def ycbcr_blocks(block: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """(rows, w, 3) Y, Cb, Cr at full size -> (block rows, bytes) of
+    TIFF's subsampled YCbCr data units: hs x vs luma samples (row by row)
+    then Cb and Cr, the chroma taken from each unit's first pixel; a unit
+    past the edge repeats the last row and column."""
+    rows, w, _ = block.shape
+    by, bx = -(-rows // vs), -(-w // hs)
+    pad = np.pad(block, ((0, by * vs - rows), (0, bx * hs - w), (0, 0)),
+                 mode="edge")
+    units = pad.reshape(by, vs, bx, hs, 3).transpose(0, 2, 1, 3, 4)
+    luma = units[..., 0].reshape(by, bx, vs * hs)
+    chroma = units[:, :, 0, 0, 1:]
+    return np.concatenate([luma, chroma], -1).reshape(by, -1).astype(np.uint8)
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """JFIF's RGB -> YCbCr, rounded, as uint8."""
+    r, g, b = (rgb[..., k].astype(np.float64) for k in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    return np.clip(np.round(np.stack([y, cb, cr], -1)), 0, 255).astype(
+        np.uint8)
+
+
+def _jpeg_cases():
+    """``tests/torch_jpeg_cases.py``, loaded by its path (``tests`` may be
+    no package where this module is loaded by path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_jpeg_cases", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "torch_jpeg_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def split_jpeg_tables(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG -> (its DQT and DHT segments as an abbreviated table stream,
+    SOI ... EOI; the stream without them)."""
+    tables, rest = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    pos = 2
+    while pos < len(stream):
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            rest += stream[pos:]
+            break
+        (length,) = struct.unpack(">H", stream[pos + 2:pos + 4])
+        seg = stream[pos:pos + 2 + length]
+        (tables if marker in (0xC4, 0xDB) else rest).extend(seg)
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+# T.4's modified Huffman codes: run length -> code string, white and black
+# terminating codes (0-63), make-up codes (64-1728) and the extended
+# make-up codes both colours share (1792-2560).
+_WHITE_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 "
+    "001000 000011 110100 110101 101010 101011 0100111 0001100 0001000 "
+    "0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 "
+    "00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 "
+    "00101100 00101101 00000100 00000101 00001010 00001011 01010010 "
+    "01010011 01010100 01010101 00100100 00100101 01011000 01011001 "
+    "01011010 01011011 01001010 01001011 00110010 00110011 00110100").split()
+_WHITE_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 "
+    "011010101 011010110 011010111 011011000 011011001 011011010 "
+    "011011011 010011000 010011001 010011010 011000 010011011").split()
+_BLACK_TERM = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 "
+    "0000101 0000111 00000100 00000111 000011000 0000010111 0000011000 "
+    "0000001000 00001100111 00001101000 00001101100 00000110111 "
+    "00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 "
+    "000001101011 000011010010 000011010011 000011010100 000011010101 "
+    "000011010110 000011010111 000001101100 000001101101 000011011010 "
+    "000011011011 000001010100 000001010101 000001010110 000001010111 "
+    "000001100100 000001100101 000001010010 000001010011 000000100100 "
+    "000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()
+_BLACK_MAKEUP = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 "
+    "000000110100 000000110101 0000001101100 0000001101101 0000001001010 "
+    "0000001001011 0000001001100 0000001001101 0000001110010 "
+    "0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 "
+    "0000001100101").split()
+_EXT_MAKEUP = (
+    "00000001000 00000001100 00000001101 000000010010 000000010011 "
+    "000000010100 000000010101 000000010110 000000010111 000000011100 "
+    "000000011101 000000011110 000000011111").split()
+FAX_CODES = []
+for _term, _makeup in ((_WHITE_TERM, _WHITE_MAKEUP),
+                       (_BLACK_TERM, _BLACK_MAKEUP)):
+    _codes = dict(enumerate(_term))
+    _codes.update({64 * (i + 1): c for i, c in enumerate(_makeup)})
+    _codes.update({1792 + 64 * i: c for i, c in enumerate(_EXT_MAKEUP)})
+    FAX_CODES.append(_codes)
+FAX_EOL = "000000000001"
+# T.4's two-dimensional mode codes.
+FAX_PASS, FAX_HORIZ = "0001", "001"
+FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+                -2: "000010", -3: "0000010"}
+
+
+def fax_run(run: int, colour: int) -> str:
+    """One run's codes: make-up codes of 2560 while more than 2560 is
+    left, one make-up code, a terminating code."""
+    table = FAX_CODES[colour]
+    out = []
+    while run > 2560 + 63:
+        out.append(table[2560])
+        run -= 2560
+    if run >= 64:
+        out.append(table[run & ~63])
+    out.append(table[run & 63])
+    return "".join(out)
+
+
+def _changes(row: np.ndarray) -> np.ndarray:
+    """A row's changing elements (where a pixel differs from the one
+    before, the pixel before the row white), then the width twice."""
+    prev = np.concatenate([[0], row[:-1]])
+    w = len(row)
+    return np.concatenate([np.flatnonzero(row != prev), [w, w]])
+
+
+def fax_row_1d(row: np.ndarray) -> str:
+    ch = _changes(row)
+    w = len(row)
+    edges = np.concatenate([[0], ch[ch < w], [w]])
+    return "".join(fax_run(int(b - a), i & 1)
+                   for i, (a, b) in enumerate(zip(edges[:-1], edges[1:])))
+
+
+def fax_row_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """T.4's two-dimensional coding of ``row`` against ``ref``: pass,
+    vertical and horizontal modes."""
+    w = len(row)
+    ca = _changes(row).tolist()
+    cb = _changes(ref).tolist()
+    # The reference line's changes to each colour (the colour a change
+    # starts), then w.
+    to = [[x for x in cb[:-2] if ref[x] == c] + [w] for c in (0, 1)]
+    out = []
+    a0, colour = -1, 0
+    while a0 < w:
+        a1 = ca[bisect.bisect_right(ca, a0)]
+        b1 = to[1 - colour][bisect.bisect_right(to[1 - colour], a0)]
+        b2 = cb[bisect.bisect_right(cb, b1)] if b1 < w else w
+        if b2 < a1:
+            out.append(FAX_PASS)
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(FAX_VERTICAL[a1 - b1])
+            a0, colour = a1, 1 - colour
+        else:
+            a2 = ca[bisect.bisect_right(ca, a1)] if a1 < w else w
+            out.append(FAX_HORIZ + fax_run(a1 - max(a0, 0), colour)
+                       + fax_run(a2 - a1, 1 - colour))
+            a0 = a2
+    return "".join(out)
+
+
+def fax_encode(bits: np.ndarray, compression: int, options: int = 0,
+               k: int = 2) -> bytes:
+    """(rows, w) 0/1 samples -> one strip of CCITT data as libtiff writes
+    it: compression 2 (modified Huffman, each row to a byte boundary), 3
+    (T.4: an EOL before each row, to a byte boundary under ``options``
+    bit 2; two-dimensional rows under bit 0, every ``k``-th row
+    one-dimensional, a tag bit after each EOL; six EOLs at the end) or 4
+    (T.6: every row two-dimensional, EOFB at the end)."""
+    out = []
+    ref = np.zeros(bits.shape[1], np.uint8)
+    two_d = compression == 4 or (compression == 3 and options & 1)
+    for i, row in enumerate(bits.astype(np.uint8)):
+        one_d = not two_d or (compression == 3 and i % k == 0)
+        if compression == 3:
+            if options & 4:  # fill so that the EOL ends on a byte boundary
+                length = len("".join(out))
+                out.append("0" * ((4 - length) % 8))
+            out.append(FAX_EOL + ("" if not options & 1 else
+                                  "1" if one_d else "0"))
+        out.append(fax_row_1d(row) if one_d else fax_row_2d(row, ref))
+        if compression == 2:
+            out.append("0" * (-len("".join(out)) % 8))
+        ref = row
+    if compression == 3:
+        out.append((FAX_EOL + ("1" if options & 1 else "")) * 6)
+    elif compression == 4:
+        out.append(FAX_EOL * 2)
+    s = "".join(out)
+    s += "0" * (-len(s) % 8)
+    return np.packbits(np.frombuffer(s.encode(), np.uint8) - 48).tobytes()
 
 
 _REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _lzma(data: bytes) -> bytes:
+    import lzma
+
+    return lzma.compress(data, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+
+
 COMPRESS = {1: lambda b: b, 5: lzw, 8: lambda b: zlib.compress(b, 6),
-            32946: lambda b: zlib.compress(b, 6), 32773: packbits}
+            32946: lambda b: zlib.compress(b, 6), 32773: packbits,
+            34925: _lzma}
+# Field types the writer packs: struct code and size.
+_FIELD = {3: ("H", 2), 4: ("I", 4), 16: ("Q", 8), 7: ("B", 1)}
 
 
 def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
@@ -534,17 +772,31 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
                rows_per_strip: int | None = None, tile: tuple | None = None,
                planar: int = 1, fill: int = 1, extra: tuple = (),
                orientation: int | None = None, colormap=None,
-               sample_format: int | None = None) -> bytes:
-    """A one-page TIFF of ``samples`` (h, w, spp) at ``bits`` (1-16) a
-    sample, top row first: strips of ``rows_per_strip`` rows or tiles of
-    ``tile = (w, h)``, chunky or in separate planes, compressed with
-    ``compression`` (1, 5, 8, 32773, 32946), ``predictor`` 2 differencing
-    (8 and 16 bits), ``fill`` 2 reversing the bits of each stored byte."""
+               sample_format: int | None = None, bigtiff: bool = False,
+               subsampling: tuple | None = None, jpeg: dict | None = None,
+               old_lzw: bool | tuple = False, fax_options: int = 0,
+               tags: dict | None = None) -> bytes:
+    """A one-page TIFF of ``samples`` (h, w, spp) at ``bits`` (1-16 or 32;
+    32-bit float samples as a float32 array) a sample, top row first:
+    strips of ``rows_per_strip`` rows or tiles of ``tile = (w, h)``,
+    chunky or in separate planes, compressed with ``compression`` (1, 2,
+    3, 4, 5, 7, 8, 32773, 32946, 34925), ``predictor`` 2 (differencing) or
+    3 (libtiff's floating-point predictor), ``fill`` 2 reversing the bits
+    of each stored byte. ``bigtiff`` writes the BigTIFF container (8-byte
+    offsets and counts); ``subsampling`` (hs, vs) packs YCbCr ``samples``
+    into data units; compression 7 writes each strip or tile as a JPEG of
+    ``jpeg`` = {"quality", "sampling", "tables": a JPEGTables tag};
+    ``old_lzw`` writes old-style LZW codes (True: every strip or tile; a
+    tuple: those of these indices); ``fax_options`` is the
+    T4Options tag of compression 3; ``tags`` adds {tag: (type, values)}
+    (type 5: (numerator, denominator) pairs; type 7: bytes)."""
     h, w, spp = samples.shape
     byte_order = b"II" if order == "<" else b"MM"
     tw, th = tile if tile else (w, rows_per_strip or h)
     chunks = []
+    made: dict = {}  # a strip or tile seen before is compressed once
     per = spp if planar == 1 else 1
+    jpeg_tables = None
     for p in range(1 if planar == 1 else spp):
         src = samples if planar == 1 else samples[..., p:p + 1]
         for ty in range(0, h, th):
@@ -553,13 +805,39 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
                     block = np.zeros((th, tw, per), samples.dtype)
                     part = src[ty:ty + th, tx:tx + tw]
                     block[:part.shape[0], :part.shape[1]] = part
+                    if compression == 7:  # a JPEG tile pads with its edge
+                        block = np.pad(part, ((0, th - part.shape[0]),
+                                              (0, tw - part.shape[1]),
+                                              (0, 0)), mode="edge")
                 else:
                     block = src[ty:ty + th]
-                rows = _pack_samples(block, bits, order)
-                if predictor == 2:
-                    rows = predict(rows, per, bits, order)
-                raw = rows.tobytes()
-                data = COMPRESS[compression](raw)
+                if compression == 7:
+                    opts = jpeg or {}
+                    sampling = opts.get("sampling", [(1, 1)] * per)
+                    stream = _jpeg_cases().write_jpeg(
+                        [block[..., c] for c in range(per)], sampling,
+                        quality=opts.get("quality", 75), app="none")
+                    if opts.get("tables", True):
+                        jpeg_tables, stream = split_jpeg_tables(stream)
+                    chunks.append(stream)
+                    continue
+                if compression in (2, 3, 4):
+                    data = fax_encode(block[..., 0], compression, fax_options)
+                else:
+                    if subsampling:
+                        rows = ycbcr_blocks(block, *subsampling)
+                    else:
+                        rows = _pack_samples(block, bits, order)
+                    if predictor == 2:
+                        rows = predict(rows, per, bits, order)
+                    elif predictor == 3:
+                        rows = float_predict(rows, per, bits, order)
+                    raw = rows.tobytes()
+                    old = old_lzw is True or len(chunks) in (old_lzw or ())
+                    if (raw, old) not in made:
+                        made[raw, old] = (lzw(raw, old_style=True) if old
+                                          else COMPRESS[compression](raw))
+                    data = made[raw, old]
                 if fill == 2:
                     data = _REV[np.frombuffer(data, np.uint8)].tobytes()
                 chunks.append(data)
@@ -578,6 +856,12 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
         entries[320] = (3, [int(v) for v in np.asarray(colormap).reshape(-1)])
     if sample_format is not None:
         entries[339] = (3, [sample_format] * spp)
+    if subsampling:
+        entries[530] = (3, list(subsampling))
+    if jpeg_tables is not None:
+        entries[347] = (7, jpeg_tables)
+    if compression == 3:
+        entries[292] = (4, [fax_options])
     if tile:
         entries[322] = (4, [tw])
         entries[323] = (4, [th])
@@ -585,46 +869,70 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
     else:
         entries[278] = (4, [th])
         off_tag, cnt_tag = 273, 279
-    body = bytearray(byte_order + struct.pack(order + "HI", 42, 0))
+    entries.update(tags or {})
+    head = 16 if bigtiff else 8
+    body = bytearray(byte_order + (struct.pack(order + "HHHQ", 43, 8, 0, 0)
+                                   if bigtiff else
+                                   struct.pack(order + "HI", 42, 0)))
     offsets = []
     for data in chunks:
         offsets.append(len(body))
         body += data
         if len(body) % 2:
             body.append(0)
-    entries[off_tag] = (4, offsets)
-    entries[cnt_tag] = (4, [len(d) for d in chunks])
+    long_type = 16 if bigtiff else 4
+    entries[off_tag] = (long_type, offsets)
+    entries[cnt_tag] = (long_type, [len(d) for d in chunks])
     ifd_at = len(body)
-    struct.pack_into(order + "I", body, 4, ifd_at)
-    tags = sorted(entries)
-    values_at = ifd_at + 2 + 12 * len(tags) + 4
-    ifd = bytearray(struct.pack(order + "H", len(tags)))
+    struct.pack_into(order + ("Q" if bigtiff else "I"), body, head - (
+        8 if bigtiff else 4), ifd_at)
+    tags_sorted = sorted(entries)
+    slot, entry, count_code = (8, 20, "Q") if bigtiff else (4, 12, "I")
+    values_at = ifd_at + (8 if bigtiff else 2) + entry * len(tags_sorted) + slot
+    ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"),
+                                len(tags_sorted)))
     blob = bytearray()
-    for tag in tags:
+    for tag in tags_sorted:
         typ, vals = entries[tag]
-        code = "H" if typ == 3 else "I"
-        payload = struct.pack(f"{order}{len(vals)}{code}", *vals)
-        if len(payload) <= 4:
-            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + payload.ljust(4, b"\0")
+        if typ == 5:
+            payload = struct.pack(f"{order}{2 * len(vals)}I",
+                                  *[v for pair in vals for v in pair])
+            count = len(vals)
+        elif typ == 7:
+            payload, count = bytes(vals), len(vals)
         else:
-            ifd += struct.pack(order + "HHII", tag, typ, len(vals),
+            code = _FIELD[typ][0]
+            payload = struct.pack(f"{order}{len(vals)}{code}", *vals)
+            count = len(vals)
+        head_fmt = order + "HH" + count_code
+        if len(payload) <= slot:
+            ifd += struct.pack(head_fmt, tag, typ, count) + payload.ljust(
+                slot, b"\0")
+        else:
+            ifd += struct.pack(head_fmt + count_code, tag, typ, count,
                                values_at + len(blob))
             blob += payload
             if len(blob) % 2:
                 blob.append(0)
-    ifd += struct.pack(order + "I", 0)
+    ifd += struct.pack(order + count_code, 0)
     return bytes(body + ifd + blob)
 
 
 def _pack_samples(block: np.ndarray, bits: int, order: str) -> np.ndarray:
     """(rows, w, spp) samples -> (rows, bytes) at ``bits`` a sample, rows
-    padded to whole bytes."""
+    padded to whole bytes (32-bit samples as the array's kind: float,
+    signed or unsigned)."""
     n = block.shape[0]
     flat = block.reshape(n, -1)
     if bits == 8:
         return flat.astype(np.uint8)
-    if bits == 16:
-        return flat.astype(order + "u2").view(np.uint8).reshape(n, -1)
+    if bits in (16, 32):
+        kind = "f" if flat.dtype.kind == "f" else "u"
+        dt = f"{order}{kind}{bits // 8}"
+        if kind == "u":
+            flat = flat.astype(np.int64) & ((1 << bits) - 1)
+        return np.ascontiguousarray(flat.astype(dt)).view(np.uint8).reshape(
+            n, -1)
     shifts = np.arange(bits - 1, -1, -1)
     b = ((flat[..., None].astype(np.uint16) >> shifts) & 1).astype(np.uint8)
     return np.packbits(b.reshape(n, -1), axis=1)
@@ -1375,7 +1683,146 @@ def fixtures() -> dict:
         (sample_image(21, 13, 13, 4).astype(np.uint16) * 257), 16, 5,
         compression=5)
     out.update(webp_gif_fixtures())
+    out.update(tiff_variant_fixtures())
     return out
+
+
+def tiff_variant_fixtures() -> dict:
+    """{file name: bytes} of the TIFF variants under ``tests/ldr``:
+    JPEG-in-TIFF, YCbCr, CIELab, float, 32-bit and 12-bit samples,
+    BigTIFF, old-style LZW, CCITT and LZMA."""
+    from PIL import Image
+
+    rgb = sample_image(40, 24, 2, 3)
+    rgba = sample_image(37, 21, 1)
+    gray = sample_image(33, 17, 3, 1)
+    ycc = rgb_to_ycbcr(rgb)
+    out = {}
+    out["jpeg_ycbcr_tiles.tif"] = write_tiff(
+        ycc, 8, 6, compression=7, subsampling=(2, 2), tile=(16, 16),
+        jpeg={"sampling": [(2, 2), (1, 1), (1, 1)], "quality": 85})
+    out["jpeg_rgb_pillow.tif"] = pillow_bytes(rgb, "TIFF", compression="jpeg")
+    out["jpeg_gray_strips.tif"] = write_tiff(gray, 8, 1, compression=7,
+                                             rows_per_strip=8,
+                                             jpeg={"tables": False})
+    out["ycbcr_lzw_22.tif"] = write_tiff(ycc, 8, 6, compression=5,
+                                         subsampling=(2, 2), rows_per_strip=6)
+    out["ycbcr_deflate_41_rbw.tif"] = write_tiff(
+        ycc, 8, 6, compression=8, subsampling=(4, 1), rows_per_strip=5,
+        tags={532: (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                        (240, 1)]),
+              529: (5, [(2126, 10000), (7152, 10000), (722, 10000)])})
+    out["ycbcr_packbits_44_tiles.tif"] = write_tiff(
+        ycc, 8, 6, compression=32773, subsampling=(4, 4), tile=(32, 16))
+    lab = np.stack([gray[..., 0], sample_image(33, 17, 4, 1)[..., 0] - 100,
+                    sample_image(33, 17, 5, 1)[..., 0] ^ 0x80], -1)
+    out["lab_lzw.tif"] = write_tiff(lab.astype(np.uint8), 8, 8, compression=5,
+                                    rows_per_strip=7)
+    out["lab_pillow.tif"] = pillow_bytes(Image.fromarray(rgb).convert("LAB"),
+                                         "TIFF")
+    out["float_lzw_pred3.tif"] = write_tiff(float_gray(37, 21, 6), 32, 1,
+                                            compression=5, predictor=3,
+                                            sample_format=3, rows_per_strip=8)
+    out["float_mm_raw.tif"] = write_tiff(float_gray(19, 11, 7), 32, 0,
+                                         order=">", sample_format=3)
+    out["int32_deflate.tif"] = write_tiff(
+        gray.astype(np.int64) * 3 - 200, 32, 1, compression=8, predictor=2,
+        sample_format=2)
+    out["gray12_lzw.tif"] = write_tiff(gray.astype(np.uint16) * 13 + 7, 12, 1,
+                                       compression=5)
+    out["bigtiff_lzw_rgba.tif"] = write_tiff(rgba, 8, 2, compression=5,
+                                             extra=(2,), predictor=2,
+                                             bigtiff=True, rows_per_strip=5)
+    out["bigtiff_pillow.tif"] = pillow_bytes(rgb, "TIFF", big_tiff=True,
+                                             compression="tiff_adobe_deflate")
+    out["old_lzw_predictor.tif"] = write_tiff(rgb, 8, 2, compression=5,
+                                              predictor=2, old_lzw=True,
+                                              rows_per_strip=9)
+    bits = (gray > 120).astype(np.uint8)
+    out["g4.tif"] = write_tiff(bits, 1, 0, compression=4, rows_per_strip=6)
+    out["g3_2d_fill2.tif"] = write_tiff(bits, 1, 1, compression=3,
+                                        fax_options=5, fill=2)
+    out["ccitt_pillow.tif"] = pillow_bytes(
+        Image.fromarray(gray[..., 0]).convert("1"), "TIFF",
+        compression="tiff_ccitt")
+    out["lzma_rgb16_predictor.tif"] = write_tiff(
+        sample_image(21, 13, 14, 3).astype(np.uint16) * 257, 16, 2,
+        compression=34925, predictor=2)
+    return out
+
+
+def float_gray(w: int, h: int, seed: int) -> np.ndarray:
+    """(h, w, 1) float32 samples around 0-255 with the edges of Pillow's
+    F -> L conversion in the first row: below 0, fractions, past 255, NaN
+    and infinities."""
+    v = sample_image(w, h, seed, 1).astype(np.float32) * 1.3 - 40.7
+    edges = [-3.7, 0.5, 1.5, 254.6, 300.0, np.nan, -np.inf, np.inf, 255.99,
+             -0.5, 1e30]
+    v[0, :min(w, len(edges)), 0] = edges[:w]
+    return v
+
+
+def fax_page(w: int, h: int, seed: int) -> np.ndarray:
+    """(h, w) 0/1 samples like a scanned page: lines of 12x16 glyph cells,
+    each glyph a seeded 8x12 pattern, with margins and blank lines."""
+    rng = np.random.default_rng(seed)
+    glyphs = (rng.random((64, 12, 8)) < 0.45).astype(np.uint8)
+    page = np.zeros((h, w), np.uint8)
+    cells_y, cells_x = (h - 64) // 16, (w - 64) // 12
+    picks = rng.integers(0, 64, (cells_y, cells_x))
+    blank = rng.random((cells_y, cells_x)) < 0.2
+    for cy in range(cells_y):
+        if cy % 9 == 8:
+            continue  # a blank line between paragraphs
+        for cx in range(cells_x):
+            if not blank[cy, cx]:
+                y, x = 32 + 16 * cy, 32 + 12 * cx
+                page[y:y + 12, x:x + 8] = glyphs[picks[cy, cx]]
+    return page
+
+
+def float_field(w: int, h: int, period: int = 16) -> np.ndarray:
+    """(h, w, 1) float32 radiance-like samples (0 to a few hundred, smooth
+    in x), repeating every ``period`` rows so that the LZW writer
+    compresses one strip of them."""
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    y = np.linspace(0.0, 1.0, period, dtype=np.float32)[:, None]
+    band = (120 + 110 * np.sin(9 * x) * np.cos(3 * y) + 40 * x * y) ** 1.1
+    return np.tile(band.astype(np.float32), (-(-h // period), 1))[:h, :, None]
+
+
+# The committed JPEG-in-TIFF YCbCr 2x2 timing file, 4096x2048, whose Pillow
+# decode only ``pillow_sha256.json`` holds.
+LARGE_TIFF_JPEG = "large_jpeg_ycbcr_4096x2048.tif"
+
+
+def large_tiff_jpeg(w: int = 4096, h: int = 2048) -> bytes:
+    """A JPEG-in-TIFF YCbCr map (2x2, 256x256 tiles, quality 75) of smooth
+    content."""
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.stack([0.5 + 0.4 * np.sin(6 * x + 3 * y),
+                    0.5 + 0.4 * np.cos(5 * y) * x, 0.3 + 0.5 * x * y], -1)
+    return write_tiff(rgb_to_ycbcr((img * 255).astype(np.uint8)), 8, 6,
+                      compression=7, subsampling=(2, 2), tile=(256, 256),
+                      jpeg={"sampling": [(2, 2), (1, 1), (1, 1)],
+                            "quality": 75})
+
+
+def env_tiff_jpeg(w: int, h: int, seed: int) -> bytes:
+    """A JPEG-in-TIFF YCbCr map (2x2 subsampling, 16x16 tiles, quality 90)
+    of ``sample_image``."""
+    ycc = rgb_to_ycbcr(sample_image(w, h, seed, 3))
+    return write_tiff(ycc, 8, 6, compression=7, subsampling=(2, 2),
+                      tile=(16, 16), jpeg={"sampling": [(2, 2), (1, 1), (1, 1)],
+                                           "quality": 90})
+
+
+def env_tiff_float(w: int, h: int, seed: int) -> bytes:
+    """A float gray map (LZW, the floating-point predictor) of
+    ``float_gray``."""
+    return write_tiff(float_gray(w, h, seed), 32, 1, compression=5,
+                      predictor=3, sample_format=3, rows_per_strip=16)
 
 
 def webp_gif_fixtures() -> dict:
@@ -1505,6 +1952,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env_rgb16.tif"] = env_tiff16(64, 32, 22)
     files["env_lossy.webp"] = env_webp(64, 32, 23)
     files["env.gif"] = env_gif(64, 32, 24)
+    files["env_jpeg_ycbcr.tif"] = env_tiff_jpeg(64, 32, 25)
+    files["env_float.tif"] = env_tiff_float(64, 32, 26)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -1513,8 +1962,10 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     np.savez_compressed(os.path.join(directory, "pillow_rgba.npz"), **decoded)
     digests = {n: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
                for n, a in sorted(decoded.items())}
-    for name, size in ((LARGE_WEBP, (4096, 2048)), (MEDIUM_WEBP, (1024, 512))):
-        data = large_webp(*size)
+    for name, make in ((LARGE_WEBP, lambda: large_webp(4096, 2048)),
+                       (MEDIUM_WEBP, lambda: large_webp(1024, 512)),
+                       (LARGE_TIFF_JPEG, large_tiff_jpeg)):
+        data = make()
         with open(os.path.join(directory, name), "wb") as f:
             f.write(data)
         digests[name] = hashlib.sha256(pillow_rgba(data).tobytes()).hexdigest()

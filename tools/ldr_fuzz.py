@@ -1,9 +1,12 @@
 """Hold the LDR readers to Pillow on mutated and generated files.
 
-    python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|webp|gif|mut] [--n 2000] [--seed 1]
+    python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
+        tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
-writers with random headers, depths, compressions and layouts; for WebP,
+writers with random headers, depths, compressions and layouts; for TIFF
+also BigTIFF, YCbCr at every subsampling, float, 32-bit, 12-bit and CIELab
+samples under each predictor, JPEG, CCITT and old-style LZW; for WebP,
 Pillow's writer and Pillow's own libwebp with random options, this
 suite's VP8L writer with random transforms and animations with random
 offsets; for GIF, random code sizes, palettes, transparency, interlace,
@@ -216,6 +219,14 @@ def rnd_ppm(rng) -> bytes:
 
 
 def rnd_tiff(rng) -> bytes:
+    """A baseline TIFF, or one of the kinds below (BigTIFF, YCbCr, float
+    and 32-bit samples, JPEG, CCITT, old-style LZW)."""
+    kinds = (rnd_tiff_base, rnd_tiff_big, rnd_tiff_ycbcr, rnd_tiff_float,
+             rnd_tiff_jpeg, rnd_tiff_fax, rnd_tiff_oldlzw)
+    return kinds[int(rng.integers(0, len(kinds)))](rng)
+
+
+def rnd_tiff_base(rng, bigtiff: bool = False) -> bytes:
     """A TIFF of any photometric, depth, extra samples, compression,
     predictor, byte order, strips or tiles, planes, fill order,
     orientation and sample format."""
@@ -233,7 +244,7 @@ def rnd_tiff(rng) -> bytes:
         np.uint16 if bits == 16 else np.uint8)
     if rng.random() < 0.5:
         samples = np.repeat(samples[:, :1], w, 1)
-    comp = pick(rng, [1, 5, 8, 32946, 32773])
+    comp = pick(rng, [1, 5, 8, 32946, 32773, 34925])
     predictor = 2 if comp in (5, 8, 32946) and bits in (8, 16) \
         and rng.random() < 0.5 else 1
     tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
@@ -246,7 +257,137 @@ def rnd_tiff(rng) -> bytes:
         orientation=int(rng.integers(1, 9)) if rng.random() < 0.3 else None,
         colormap=(rng.integers(0, 65536, 3 * (1 << bits)) if photo == 3
                   else None),
-        sample_format=pick(rng, [1, 2]) if rng.random() < 0.2 else None)
+        sample_format=pick(rng, [1, 2]) if rng.random() < 0.2 else None,
+        bigtiff=bigtiff)
+
+
+def rnd_tiff_big(rng) -> bytes:
+    """A baseline random TIFF in the BigTIFF container (or, for a
+    big-endian one, the header Pillow misreads)."""
+    return rnd_tiff_base(rng, bigtiff=True)
+
+
+def rnd_tiff_ycbcr(rng) -> bytes:
+    """YCbCr: every subsampling (some libtiff refuses), raw or compressed,
+    strips or tiles, with random ReferenceBlackWhite and coefficients."""
+    h, w = int(rng.integers(1, 24)), int(rng.integers(1, 40))
+    sub = pick(rng, [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4),
+                     (2, 4), (3, 1)])
+    samples = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    if rng.random() < 0.5:
+        samples = C.rgb_to_ycbcr(C.sample_image(w, h, int(rng.integers(
+            0, 1 << 16)), 3))
+    tags = {}
+    if rng.random() < 0.4:
+        tags[532] = (5, [(int(rng.integers(0, 300)), int(rng.integers(0, 3)))
+                         for _ in range(6)])
+    if rng.random() < 0.3:
+        tags[529] = (5, [(int(rng.integers(0, 2000)), 1000) for _ in range(3)])
+    tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.3 else None)
+    return C.write_tiff(
+        samples, 8, 6, compression=pick(rng, [1, 5, 8, 32773, 34925]),
+        subsampling=sub, order=pick(rng, ["<", ">"]),
+        rows_per_strip=int(rng.integers(1, h + 3)), tile=tile, tags=tags,
+        orientation=int(rng.integers(1, 9)) if rng.random() < 0.2 else None)
+
+
+def rnd_tiff_float(rng) -> bytes:
+    """32-bit float and integer gray, 12-bit gray and CIELab: raw or
+    compressed, predictors 1-3, either byte order."""
+    h, w = int(rng.integers(1, 20)), int(rng.integers(1, 30))
+    kind = pick(rng, ["float", "int", "12", "lab"])
+    order = pick(rng, ["<", ">"])
+    comp = pick(rng, [1, 5, 8, 34925, 32773])
+    if kind == "float":
+        v = (rng.standard_normal((h, w, 1)) * 200 + 100).astype(np.float32)
+        v[rng.random((h, w, 1)) < 0.05] = np.nan
+        bits, photo, fmt, pred = 32, pick(rng, [0, 1]), 3, pick(rng, [1, 2, 3])
+    elif kind == "int":
+        v = rng.integers(-300, 600, (h, w, 1))
+        bits, photo, fmt, pred = 32, 1, pick(rng, [1, 2]), pick(rng, [1, 2, 3])
+    elif kind == "12":
+        v = rng.integers(0, 4096, (h, w, 1))
+        bits, photo, fmt, pred = 12, 1, None, pick(rng, [1, 1, 2])
+    else:
+        v = rng.integers(0, 256, (h, w, 3))
+        bits, photo, fmt, pred = 8, 8, None, pick(rng, [1, 2])
+    if comp in (1, 32773):
+        pred = 1
+    tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.3 else None)
+    return C.write_tiff(v, bits, photo, compression=comp, predictor=pred,
+                        order=order, sample_format=fmt, tile=tile,
+                        rows_per_strip=int(rng.integers(1, h + 3)))
+
+
+def rnd_tiff_jpeg(rng) -> bytes:
+    """JPEG-in-TIFF: photometric 1, 2 and 6, strips or tiles, with or
+    without JPEGTables, YCbCrSubsampling agreeing with the streams, absent
+    or wrong."""
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+    photo = pick(rng, [1, 2, 6, 6])
+    img = C.sample_image(w, h, int(rng.integers(0, 1 << 16)), 3)
+    if rng.random() < 0.2:
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    samples = img[..., :1] if photo == 1 else (
+        C.rgb_to_ycbcr(img) if photo == 6 else img)
+    n = samples.shape[-1]
+    sampling = [(1, 1)] * n
+    if photo == 6:
+        sampling[0] = pick(rng, [(1, 1), (2, 1), (2, 2), (1, 2)])
+    tags = {}
+    sub = None
+    if photo == 6 and rng.random() < 0.7:
+        sub = sampling[0] if rng.random() < 0.8 else pick(rng, [(2, 2), (1, 1)])
+    tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.4 else None)
+    return C.write_tiff(
+        samples, 8, photo, compression=7, subsampling=sub, tile=tile,
+        rows_per_strip=8 * int(rng.integers(1, 4)), tags=tags,
+        jpeg={"sampling": sampling, "quality": int(rng.integers(20, 100)),
+              "tables": bool(rng.random() < 0.7)})
+
+
+def rnd_tiff_fax(rng) -> bytes:
+    """CCITT modified Huffman, T.4 (1-D and 2-D, fill bits) and T.6, in
+    strips or tiles, either photometric and fill order."""
+    h, w = int(rng.integers(1, 30)), int(rng.integers(1, 90))
+    b = (rng.random((h, w)) < rng.random()).astype(np.uint8)
+    if rng.random() < 0.5:
+        b = (C.sample_image(w, h, int(rng.integers(0, 1 << 16)), 1)[..., 0]
+             > int(rng.integers(60, 200))).astype(np.uint8)
+    comp = pick(rng, [2, 3, 4])
+    tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.2 else None)
+    return C.write_tiff(
+        b[..., None], 1, pick(rng, [0, 1]), compression=comp,
+        fax_options=pick(rng, [0, 1, 4, 5]) if comp == 3 else 0,
+        fill=pick(rng, [1, 1, 2]), tile=tile, order=pick(rng, ["<", ">"]),
+        rows_per_strip=int(rng.integers(1, h + 3)))
+
+
+def rnd_tiff_oldlzw(rng) -> bytes:
+    """Old-style LZW (libtiff's LZWDecodeCompat), with predictor 2 at 8
+    and 16 bits, and files mixing old- and new-style strips."""
+    h, w = int(rng.integers(1, 30)), int(rng.integers(1, 60))
+    bits = pick(rng, [8, 8, 16])
+    spp = pick(rng, [1, 3, 4])
+    samples = rng.integers(0, 1 << bits, (h, w, spp)).astype(
+        np.uint16 if bits == 16 else np.uint8)
+    if rng.random() < 0.5:
+        samples = np.repeat(samples[:, :1], w, 1)
+    photo = 1 if spp == 1 else 2
+    data = C.write_tiff(samples, bits, photo, compression=5, old_lzw=True,
+                        predictor=pick(rng, [1, 2]),
+                        extra=(2,) if spp == 4 else (),
+                        rows_per_strip=int(rng.integers(1, h + 3)))
+    if rng.random() < 0.2:  # a new-style file, its first strip old-style
+        new = C.write_tiff(samples, bits, photo, compression=5,
+                           extra=(2,) if spp == 4 else (),
+                           rows_per_strip=int(rng.integers(1, h + 3)))
+        return new if rng.random() < 0.5 else data
+    return data
 
 
 def rnd_image(rng, w: int, h: int) -> np.ndarray:
@@ -376,7 +517,10 @@ def rnd_gif(rng) -> bytes:
 
 
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
-       "tiff": rnd_tiff, "webp": rnd_webp, "gif": rnd_gif}
+       "tiff": rnd_tiff, "tiff_big": rnd_tiff_big, "tiff_ycbcr": rnd_tiff_ycbcr,
+       "tiff_float": rnd_tiff_float, "tiff_jpeg": rnd_tiff_jpeg,
+       "tiff_fax": rnd_tiff_fax, "tiff_oldlzw": rnd_tiff_oldlzw,
+       "webp": rnd_webp, "gif": rnd_gif}
 
 
 def main(argv=None) -> int:

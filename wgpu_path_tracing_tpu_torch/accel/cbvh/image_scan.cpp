@@ -6,8 +6,8 @@
 //   (utils/bmp.py::rle_plain), its escapes included;
 // * wpt_packbits: libtiff's PackBitsDecode of one TIFF strip or tile
 //   (utils/tiff.py::packbits_plain);
-// * wpt_lzw: libtiff's LZWDecode of one TIFF strip or tile, new-style codes
-//   (utils/tiff.py::lzw_plain);
+// * wpt_lzw: libtiff's LZWDecode (new-style codes) or LZWDecodeCompat
+//   (old-style) of one TIFF strip or tile (utils/tiff.py::lzw_plain);
 // * wpt_gif_lzw: Pillow's GifDecode of one GIF frame's LZW data, rows in
 //   interlace order (utils/gif.py::lzw_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
@@ -148,12 +148,12 @@ extern "C" int64_t wpt_packbits(const uint8_t* src, int64_t n, int64_t size,
   return len;
 }
 
-// Status: 0 done, 1 a corrupted table, 2 not enough data, 3 old-style
-// codes; *written gets the bytes written.
+// Status: 0 done, 1 a corrupted table, 2 not enough data; *written gets
+// the bytes written. old_style reads libtiff's LZWDecodeCompat codes:
+// least significant bit first, the width growing one code later.
 extern "C" int64_t wpt_lzw(const uint8_t* src, int64_t n, int64_t size,
-                           uint8_t* out, int64_t* written) {
+                           int32_t old_style, uint8_t* out, int64_t* written) {
   *written = 0;
-  if (n >= 2 && src[0] == 0 && (src[1] & 1)) return 3;
   constexpr int kClear = 256, kEoi = 257, kFirst = 258, kMax = 5119;
   std::vector<int32_t> prefix(kMax), length(kMax);
   std::vector<uint8_t> suffix(kMax), first(kMax);
@@ -166,16 +166,23 @@ extern "C" int64_t wpt_lzw(const uint8_t* src, int64_t n, int64_t size,
   int width = 9;
   int64_t next = kFirst, len = 0, bitpos = 0;
   const int64_t nbits = 8 * n;
+  const int64_t late = old_style ? 1 : 0;
   int64_t prev = -2;  // -2: no clear code yet; -1: just after one
   int status = 2;
   while (len < size) {
     if (bitpos + width > nbits) break;
     const int64_t at = bitpos >> 3;
     uint32_t word = 0;
-    for (int i = 0; i < 3; ++i)
-      word = (word << 8) | (at + i < n ? src[at + i] : 0);
-    const int64_t code =
-        (word >> (24 - width - (bitpos & 7))) & ((1u << width) - 1);
+    int64_t code;
+    if (old_style) {
+      for (int i = 2; i >= 0; --i)
+        word = (word << 8) | (at + i < n ? src[at + i] : 0);
+      code = (word >> (bitpos & 7)) & ((1u << width) - 1);
+    } else {
+      for (int i = 0; i < 3; ++i)
+        word = (word << 8) | (at + i < n ? src[at + i] : 0);
+      code = (word >> (24 - width - (bitpos & 7))) & ((1u << width) - 1);
+    }
     bitpos += width;
     if (code == kEoi) break;
     if (code == kClear) {
@@ -222,7 +229,7 @@ extern "C" int64_t wpt_lzw(const uint8_t* src, int64_t n, int64_t size,
     std::memcpy(out + len, scratch.data(), take);
     len += take;
     prev = code;
-    if (next + 1 >= (int64_t{1} << width) && width < 12) ++width;
+    if (next + 1 - late >= (int64_t{1} << width) && width < 12) ++width;
   }
   *written = len;
   if (status == 1) return 1;

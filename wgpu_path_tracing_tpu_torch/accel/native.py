@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Seven sources,
+The counterpart of the JAX package's ``accel/native.py``. Eight sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -18,8 +18,9 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   ``undifference``;
 * ``image_scan.cpp``: the per-packet loops of the LDR readers,
   ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``,
-  ``utils/tiff.py::packbits_plain`` and ``lzw_plain``, and
-  ``utils/gif.py::lzw_plain``;
+  ``utils/tiff.py::packbits_plain`` and ``lzw_plain`` (new- and old-style
+  codes), and ``utils/gif.py::lzw_plain``;
+* ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
 * ``webp_scan.cpp``: the WebP decoding loops, ``utils/webp.py::
   vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
   ``unfilter_plain``.
@@ -55,7 +56,8 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
-           "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp")
+           "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp",
+           "fax_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -115,8 +117,12 @@ SIGNATURES = {
                     _I64P],
     # data, its length, bytes wanted, out
     "wpt_packbits": [ctypes.c_char_p, _I64, _I64, _U8P],
-    # data, its length, bytes wanted, out, out bytes written
-    "wpt_lzw": [ctypes.c_char_p, _I64, _I64, _U8P, _I64P],
+    # data, its length, bytes wanted, old-style codes, out, out bytes written
+    "wpt_lzw": [ctypes.c_char_p, _I64, _I64, _I32, _U8P, _I64P],
+    # data, its length, compression (2, 3, 4), width, rows, T4Options, the
+    # page's run array and its length, out (rows x width 0/1 samples)
+    "wpt_fax": [ctypes.c_char_p, _I64, _I32, _I64, _I64, _I32, _I64P, _I64,
+                _U8P],
     # data, its length, minimum code size, width, height, interlaced, out
     # (the frame's indices), out pixels written
     "wpt_gif_lzw": [ctypes.c_char_p, _I64, _I32, _I64, _I64, _I32, _U8P,
@@ -478,13 +484,32 @@ def packbits_native(src: bytes, size: int) -> tuple[bytes, int]:
     return out[:n].tobytes(), 0 if n == size else 2
 
 
-def lzw_native(src: bytes, size: int) -> tuple[bytes, int]:
+def lzw_native(src: bytes, size: int, old_style: bool = False
+               ) -> tuple[bytes, int]:
     """``utils/tiff.py::lzw_plain`` in C++ (``image_scan.cpp``)."""
     out = np.empty(size, np.uint8)
     written = np.zeros(1, np.int64)
-    status = lib().wpt_lzw(src, len(src), size, _ptr(out, _U8P),
-                           _ptr(written, _I64P))
+    status = lib().wpt_lzw(src, len(src), size, int(old_style),
+                           _ptr(out, _U8P), _ptr(written, _I64P))
     return out[:int(written[0])].tobytes(), int(status)
+
+
+def fax_native(src: bytes, compression: int, width: int, rows: int,
+               options: int = 0, runs: np.ndarray | None = None
+               ) -> tuple[np.ndarray, int]:
+    """``utils/fax.py::fax_plain`` in C++ (``fax_scan.cpp``); ``runs``, the
+    page's run array, updated in place."""
+    from wgpu_path_tracing_tpu_torch.utils.fax import fax_runs
+
+    if runs is None:
+        runs = fax_runs(compression, width, options)
+    if runs.dtype != np.int64 or not runs.flags.c_contiguous or \
+            runs.shape != fax_runs(compression, width, options).shape:
+        raise ValueError("fax_native needs fax_runs's array for this page")
+    out = np.empty((rows, width), np.uint8)
+    status = lib().wpt_fax(src, len(src), compression, width, rows, options,
+                           _ptr(runs, _I64P), len(runs), _ptr(out, _U8P))
+    return out, int(status)
 
 
 def gif_lzw_native(data: bytes, bits: int, width: int, height: int,

@@ -1074,7 +1074,7 @@ def _parse_sof(seg: bytes, name: str, kind: tuple) -> dict:
     if height == 0 or width == 0:
         raise NotImplementedError(f"{name}: a JPEG whose height comes in a "
                                   "DNL marker is not supported")
-    if nc not in (1, 3, 4) or len(seg) < 6 + 3 * nc:
+    if nc not in (1, 3, 4) or len(seg) != 6 + 3 * nc:  # libjpeg: bad length
         raise ValueError(f"{name}: a JPEG of {nc} components is not "
                          "supported")
     comps = []
@@ -1110,6 +1110,25 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
     """JPEG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
     ``Image.open(...).convert("RGBA")`` returns for the files the module
     docstring lists; others raise naming ``name``."""
+    return _to_rgba(*_read_frame(data, name), name)
+
+
+def decode_jpeg_samples(data: bytes, name: str, ycbcr: bool
+                        ) -> tuple[dict, np.ndarray]:
+    """A JPEG stream as libtiff has libjpeg decode it inside a TIFF ->
+    (its frame, (H, W, components) uint8 samples, upsampled): converted
+    from YCbCr to RGB where ``ycbcr`` (libtiff's JPEGCOLORMODE_RGB, three
+    components), else as they are (JCS_UNKNOWN: no colour conversion)."""
+    frame = _read_frame(data, name)[0]
+    planes = _planes(frame)
+    if ycbcr and len(planes) == 3:
+        return frame, _ycc_to_rgb(*planes)
+    return frame, np.stack(planes, -1)
+
+
+def _read_frame(data: bytes, name: str) -> tuple:
+    """Parse and entropy-decode a JPEG: (frame, JFIF marker seen, Adobe
+    marker seen, Adobe transform)."""
     from wgpu_path_tracing_tpu_torch.accel import native
 
     in_cxx = native.native_available()
@@ -1180,7 +1199,7 @@ def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{name}: no image data in the JPEG")
-    return _to_rgba(frame, jfif, adobe, transform, name)
+    return frame, jfif, adobe, transform
 
 
 def _check_progression(comps, ss, se, ah, al, name) -> None:
@@ -1262,7 +1281,7 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
     as the DAC segments so far say (``cond``). A lossless scan reads its
     predictor from Ss and its point transform from Al."""
     ns = seg[0] if seg else 0
-    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+    if not 1 <= ns <= 4 or len(seg) != 4 + 2 * ns:  # libjpeg: bad length
         raise ValueError(f"{name}: bad SOS segment")
     ss, se, ahl = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
     ah, al = ahl >> 4, ahl & 15
@@ -1273,8 +1292,9 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
     comps, keys = [], []
     for k in range(ns):
         cid, tables = seg[1 + 2 * k], seg[2 + 2 * k]
-        if cid not in by_id:
-            raise ValueError(f"{name}: a scan names an unknown component")
+        if cid not in by_id or by_id[cid] in comps:
+            raise ValueError(f"{name}: a scan names an unknown component, or "
+                             "one twice (libjpeg: invalid component ID)")
         comps.append(by_id[cid])
         keys.append(((0, tables >> 4), (1, tables & 15)))
     if frame["lossless"]:
@@ -1488,16 +1508,31 @@ def pillow_cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return np.clip(nk - _muldiv255(x[..., :3], nk), 0, 255).astype(np.uint8)
 
 
+def _planes(frame) -> list:
+    """Each component's samples, upsampled to the frame's size. libjpeg-turbo
+    upsamples a lossless frame by replication only (its fancy upsampling
+    needs DCT blocks of more than one sample)."""
+    w, h = frame["width"], frame["height"]
+    smooth = smoothing_ok(frame)
+    return [upsample(_component_plane(c, frame, smooth),
+                     frame["hmax"] // c.h, frame["vmax"] // c.v,
+                     fancy=not frame["lossless"])[:h, :w]
+            for c in frame["comps"]]
+
+
+def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """libjpeg's YCbCr -> RGB (jdcolor.c's tables): (H, W, 3) uint8."""
+    out = np.empty(y.shape + (3,), np.uint8)
+    out[..., 0] = np.clip(y + _CR_R[cr], 0, 255)
+    out[..., 1] = np.clip(y + ((_CB_G[cb] + _CR_G[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(y + _CB_B[cb], 0, 255)
+    return out
+
+
 def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
     w, h = frame["width"], frame["height"]
     comps = frame["comps"]
-    smooth = smoothing_ok(frame)
-    # libjpeg-turbo upsamples a lossless frame by replication only (its
-    # fancy upsampling needs DCT blocks of more than one sample).
-    planes = [upsample(_component_plane(c, frame, smooth),
-                       frame["hmax"] // c.h, frame["vmax"] // c.v,
-                       fancy=not frame["lossless"])[:h, :w]
-              for c in comps]
+    planes = _planes(frame)
     out = np.full((h, w, 4), 255, np.uint8)
     if len(comps) == 1:
         out[..., :3] = planes[0][..., None]
@@ -1538,8 +1573,5 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
         for k in range(3):
             out[..., k] = planes[k]
         return out
-    y, cb, cr = planes
-    out[..., 0] = np.clip(y + _CR_R[cr], 0, 255)
-    out[..., 1] = np.clip(y + ((_CB_G[cb] + _CR_G[cr]) >> 16), 0, 255)
-    out[..., 2] = np.clip(y + _CB_B[cb], 0, 255)
+    out[..., :3] = _ycc_to_rgb(*planes)
     return out

@@ -1,43 +1,65 @@
-"""Baseline TIFF decoding in NumPy, the pixels Pillow gives.
+"""TIFF decoding in NumPy, the pixels Pillow gives.
 
 The JAX package opens LDR environment maps and textures with Pillow
 (``Image.open(...).convert("RGBA")``). Pillow 12.1.0 reads the first page
-of a TIFF in one of two ways, and this module copies both:
+of a TIFF (classic, or little-endian BigTIFF: 8-byte offsets and counts) in
+one of two ways, and this module copies both:
 
 * uncompressed data with its own raw decoder, strip by strip or tile by
   tile, from each offset (byte counts unread; one strip or tile that covers
   the image is read from the LAST offset), a separate plane (planar
   configuration 2) a band at a time, fill order 2 reversing each byte's
-  bits; the predictor is not applied;
-* compressed data through libtiff: PackBits (32773), LZW (5) and deflate
-  (8, 32946), each strip or tile decoded to its whole size (a short one
-  raises, extra data is ignored), fill order 2 reversing the bits of the
-  compressed bytes, horizontal differencing (predictor 2) at 8 and 16 bits
-  undone a sample at a time, 16-bit samples in the file's byte order.
+  bits; the predictor is not applied; YCbCr is read as "RGBX" (four bytes
+  a pixel, no colour conversion), so a file of three samples a pixel
+  mostly runs out of data;
+* compressed data through libtiff: PackBits (32773), LZW (5, new-style and
+  old-style codes), deflate (8, 32946), LZMA (34925, the standard
+  library's ``lzma``), CCITT modified Huffman, T.4 and T.6 (2, 3, 4;
+  ``utils/fax.py``) and JPEG (7: each strip's or tile's stream after the
+  ``JPEGTables`` stream, decoded by ``utils/jpeg.py``; YCbCr converted to
+  RGB by libjpeg as Pillow's JPEGCOLORMODE_RGB asks, other colour spaces
+  left as they are), each strip or tile decoded to its whole size (a short
+  one raises, extra data is ignored), fill order 2 reversing the bits of
+  the compressed bytes, horizontal differencing (predictor 2) at 8, 16 and
+  32 bits and the floating-point predictor (3) undone a row at a time,
+  16-bit samples in the file's byte order, 32-bit samples in the host's
+  (little-endian) order, which Pillow then reads in the file's: a
+  big-endian compressed 32-bit file comes out byte-swapped, as in Pillow.
+  YCbCr data that is not JPEG-compressed goes through libtiff's
+  ``TIFFRGBAImage``: data units of ``YCbCrSubsampling`` (1x1, 1x2, 2x1,
+  2x2, 4x1, 4x2, 4x4), each pixel taking its unit's Cb and Cr, converted
+  by ``TIFFYCbCrToRGB``'s tables (``YCbCrCoefficients``,
+  ``ReferenceBlackWhite``).
 
 Then Pillow's modes (``TiffImagePlugin.OPEN_INFO``) and conversions: 1, 2,
 4 and 8-bit gray (WhiteIsZero inverted at up to 8 bits; 2 and 4 bits
-scaled by 85 and 17), 16-bit gray clipped at 255 (not inverted under
-WhiteIsZero, as Pillow reads it; signed samples clipped at 0), gray with
-alpha, RGB at 8 and 16 bits (a 16-bit sample's high byte) with its extra
-samples: unassociated alpha kept, associated alpha divided out as
-Pillow's "RGBa" unpacker does, others dropped; palette images at 1-8 bits
-(each ``ColorMap`` entry's high byte), with alpha; CMYK at 8 and 16 bits
-through Pillow's ``cmyk2rgb``; and the ``Orientation`` tag, which
+scaled by 85 and 17), 12 and 16-bit gray clipped at 255 (not inverted
+under WhiteIsZero, as Pillow reads it; signed samples clipped at 0),
+32-bit integer gray ("I": clipped to 0-255; an unsigned sample past 2^31
+is negative, so 0) and float gray ("F": clipped, then truncated; NaN is
+0), gray with alpha, RGB at 8 and 16 bits (a 16-bit sample's high byte)
+with its extra samples: unassociated alpha kept, associated alpha divided
+out as Pillow's "RGBa" unpacker does, others dropped; palette images at
+1-8 bits (each ``ColorMap`` entry's high byte), with alpha; CMYK at 8 and
+16 bits through Pillow's ``cmyk2rgb``; CIELab through LittleCMS's Lab to
+sRGB transform (``utils/lab.py``); and the ``Orientation`` tag, which
 Pillow's TIFF loader applies (``ImageOps.exif_transpose``) after the load.
 
 A separate plane read uncompressed takes one character of Pillow's raw
 mode as its own: 8 bits a sample (1 for "1"), neither inverted nor
-reversed, whatever the file says, as Pillow reads it. JPEG-in-TIFF (6,
-7), YCbCr, CIELab, float and 32-bit samples, 12-bit samples, predictor 3,
-old-style LZW, CCITT G3/G4 and the other codecs, BigTIFF, compressed
-separate planes other than 8-bit RGB, RGBA and CMYK, and directories
-libtiff may refuse where Pillow's parser does not (repeated tags, a
-single-valued tag of several values, baseline tags of other types than
-SHORT and LONG) raise ``NotImplementedError`` naming the image; what
-Pillow refuses raises ``ValueError``. The PackBits and LZW loops are ``packbits_plain`` and
-``lzw_plain`` here, the plain versions of ``accel/cbvh/image_scan.cpp``'s
-``wpt_packbits`` and ``wpt_lzw``, which the native library runs wherever
+reversed, whatever the file says, as Pillow reads it. Old-style JPEG (6),
+zstd, WebP and the other codecs, compressed separate planes other than
+8-bit RGB, RGBA and CMYK, compressed big-endian signed 16-bit samples,
+CCITT data that ends before its strip's last row (libtiff leaves the rows
+after unwritten), JPEG or LZMA data cut short or bad where libtiff reads
+part of it, and directories libtiff may refuse where Pillow's parser
+does not (repeated tags, a single-valued tag of several values, baseline
+tags of other types than SHORT, LONG and, in a BigTIFF, LONG8) raise
+``NotImplementedError`` naming the image; what Pillow refuses raises
+``ValueError``. The PackBits, LZW and CCITT loops are ``packbits_plain``,
+``lzw_plain`` and ``utils/fax.py::fax_plain`` here, the plain versions of
+``accel/cbvh/image_scan.cpp``'s ``wpt_packbits`` and ``wpt_lzw`` and
+``fax_scan.cpp``'s ``wpt_fax``, which the native library runs wherever
 ``accel.native.native_available()``.
 """
 
@@ -57,36 +79,80 @@ COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                 32946: "tiff_deflate", 34676: "tiff_sgilog",
                 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
-READ = ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate")
+READ = ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate",
+        "lzma", "jpeg", "tiff_ccitt", "group3", "group4")
+FAX = {"tiff_ccitt": 2, "group3": 3, "group4": 4}
+# JPEG frame headers libjpeg reads (SOF0-SOF3, SOF9-SOF11).
+SOF_MARKERS = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA, 0xCB)
+# Codecs that take libtiff's predictor.
+PREDICTED = ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma")
 # Integer field types: (struct code, size).
 TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2),
          9: ("i", 4), 16: ("Q", 8)}
 # Pillow's other field types, read and skipped: (size of a value).
 OTHER_TYPES = {2: 1, 5: 8, 7: 1, 10: 8, 11: 4, 12: 8, 13: 4}
 SCALAR_TAGS = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
+# Tags libtiff reads from other field types: JPEGTables (bytes),
+# YCbCrCoefficients and ReferenceBlackWhite (as floats, at these counts).
+FLOAT_TAGS = {529: 3, 532: 6}
 LZW_TABLE = 5119  # libtiff's CSIZE: entries past it corrupt the table
-LZW_STATUS = {1: "corrupted LZW table", 2: "not enough LZW data",
-              3: "old-style LZW codes are not supported"}
+LZW_STATUS = {1: "corrupted LZW table", 2: "not enough LZW data"}
 
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 BASELINE_TAGS = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284,
                  317, 320, 322, 323, 324, 325, 338, 339)
 
 
-def _ifd(data: bytes, order: str, pos: int, name: str) -> tuple[dict, dict]:
+def _header(data: bytes, name: str) -> tuple[str, bool, int]:
+    """(byte order, BigTIFF, the first IFD's offset) as Pillow reads the
+    header: only "II+\\0" is BigTIFF to it (it tests byte 2 for 43), so a
+    big-endian BigTIFF is read as a classic TIFF."""
+    if not data.startswith(TIFF_PREFIXES):
+        raise ValueError(f"{name}: not a TIFF file")
+    order = "<" if data[:2] == b"II" else ">"
+    big = data[2] == 43
+    if len(data) < (16 if big else 8):
+        raise ValueError(f"{name}: the TIFF header is truncated")
+    (first,) = struct.unpack_from(order + ("Q" if big else "I"), data,
+                                  8 if big else 4)
+    return order, big, first
+
+
+def _float_values(typ: int, raw: bytes, order: str, count: int):
+    """A tag's values as libtiff's TIFFReadDirEntryFloatArray gives them
+    (float32; a rational's numerator and denominator each made a float
+    first, 0 over 0 as 0)."""
+    f32 = np.float32
+    if typ in (5, 10):
+        pairs = struct.unpack(f"{order}{2 * count}{'I' if typ == 5 else 'i'}",
+                              raw)
+        return tuple(f32(0.0) if b == 0 else f32(a) / f32(b)
+                     for a, b in zip(pairs[::2], pairs[1::2]))
+    code = {3: "H", 4: "I", 11: "f", 12: "d"}[typ]
+    return tuple(f32(v) for v in struct.unpack(f"{order}{count}{code}", raw))
+
+
+def _ifd(data: bytes, order: str, pos: int, name: str,
+         big: bool = False) -> tuple[dict, dict]:
     """The first IFD's tags as Pillow's ``tag_v2`` holds them (scalar tags
-    a number, the others a tuple), and each tag's field type (minus its
-    count for a single-valued tag of several values; key -1 for a
-    repeated tag)."""
-    if pos + 2 > len(data):
+    a number, the others a tuple; JPEGTables as bytes, YCbCrCoefficients
+    and ReferenceBlackWhite as floats where libtiff would read them), and
+    each tag's field type (minus its count for a single-valued tag of
+    several values; key -1 for a repeated tag). A BigTIFF directory has an
+    8-byte count, 20-byte entries and 8-byte offsets."""
+    head, entry, count_code, slot = ((8, 20, "Q", 8) if big
+                                     else (2, 12, "I", 4))
+    if pos + head > len(data):
         raise ValueError(f"{name}: the TIFF directory is truncated")
-    (n,) = struct.unpack_from(order + "H", data, pos)
+    (n,) = struct.unpack_from(order + ("Q" if big else "H"), data, pos)
     tags, types = {}, {}
     for i in range(n):
-        at = pos + 2 + 12 * i
-        if at + 12 > len(data):
+        at = pos + head + entry * i
+        if at + entry > len(data):
             raise ValueError(f"{name}: the TIFF directory is truncated")
-        tag, typ, count = struct.unpack_from(order + "HHI", data, at)
+        tag, typ, count = struct.unpack_from(order + "HH" + count_code, data,
+                                             at)
+        value_at = at + 4 + slot
         if tag in types:
             types[-1] = tag  # a repeated tag: libtiff keeps another copy
         # libtiff refuses a count other than 1 for a single-valued tag,
@@ -94,12 +160,20 @@ def _ifd(data: bytes, order: str, pos: int, name: str) -> tuple[dict, dict]:
         types[tag] = typ if count == 1 or tag not in SCALAR_TAGS else -count
         if typ in OTHER_TYPES:
             size = count * OTHER_TYPES[typ]
-            (off,) = struct.unpack_from(order + "I", data, at + 8)
-            if size > 4 and off + size > len(data):
-                raise ValueError(f"{name}: TIFF tag {tag}'s data is truncated")
+            off = value_at
+            if size > slot:
+                (off,) = struct.unpack_from(order + count_code, data, value_at)
+                if off + size > len(data):
+                    raise ValueError(f"{name}: TIFF tag {tag}'s data is "
+                                     "truncated")
             if tag in BASELINE_TAGS:
                 raise NotImplementedError(f"{name}: TIFF tag {tag} of field "
                                           f"type {typ}")
+            raw = data[off:off + size]
+            if tag == 347 and typ == 7:
+                tags[tag] = raw
+            elif FLOAT_TAGS.get(tag) == count and typ in (5, 10, 11, 12):
+                tags[tag] = _float_values(typ, raw, order, count)
             continue
         if typ not in TYPES:
             continue
@@ -109,15 +183,17 @@ def _ifd(data: bytes, order: str, pos: int, name: str) -> tuple[dict, dict]:
             raise ValueError(f"{name}: TIFF tag {tag} of field type BYTE")
         code, unit = TYPES[typ]
         size = count * unit
-        off = at + 8
-        if size > 4:
-            (off,) = struct.unpack_from(order + "I", data, at + 8)
+        off = value_at
+        if size > slot:
+            (off,) = struct.unpack_from(order + count_code, data, value_at)
             if off + size > len(data):
                 raise ValueError(f"{name}: TIFF tag {tag}'s data is truncated")
         if size == 0:
             continue
         vals = struct.unpack_from(f"{order}{count}{code}", data, off)
         tags[tag] = vals[0] if tag in SCALAR_TAGS else vals
+        if FLOAT_TAGS.get(tag) == count and typ in (3, 4):
+            tags[tag] = tuple(np.float32(v) for v in vals)
     return tags, types
 
 
@@ -129,6 +205,19 @@ def _mode(key: tuple) -> tuple[str, str] | None:
     r = "R" if fill == 2 else ""
     if fill not in (1, 2):
         return None
+    if fill == 1 and extra == ():
+        if bps == (32,) and fmt == (3,) and photo in (0, 1):
+            return "F", "F;32F" if order == "<" else "F;32BF"
+        if bps == (32,) and photo == 1:
+            raw = {((1,), "<"): "I;32N", ((2,), "<"): "I;32S",
+                   ((2,), ">"): "I;32BS"}.get((fmt, order))
+            return ("I", raw) if raw else None
+        if bps == (12,) and photo == 1 and fmt == (1,) and order == "<":
+            return "I;16", "I;12"
+        if photo == 6 and fmt == (1,) and bps in ((8,), (8, 8, 8)):
+            return ("L", "L") if bps == (8,) else ("RGB", "RGBX")
+        if photo == 8 and fmt == (1,) and bps == (8, 8, 8):
+            return "LAB", "LAB"
     if fmt == (1,) and extra == () and bps in ((1,), (2,), (4,), (8,)):
         b = bps[0]
         if photo in (0, 1):
@@ -212,13 +301,17 @@ def packbits_plain(src: bytes, size: int) -> tuple[bytes, int]:
     return bytes(out), 0 if len(out) == size else 2
 
 
-def _lzw_codes(bits: np.ndarray, pos: int, first: int) -> tuple:
+def _lzw_codes(bits: np.ndarray, pos: int, first: int,
+               old_style: bool) -> tuple:
     """The codes from bit ``pos`` while no clear code comes: (codes, the
     bit after each), ``first`` codes decoded since the last clear. The
     width of each follows from that count alone: 9 bits up to code 253
-    after a clear, then 10, 11 and 12, each one code early."""
+    after a clear, then 10, 11 and 12, each one code early (old-style
+    codes: one code later, each code least significant bit first)."""
+    late = int(old_style)
     k = np.arange(first, first + 4096)
-    width = 9 + (k >= 254) + (k >= 766) + (k >= 1790)
+    width = (9 + (k >= 254 + late) + (k >= 766 + late)
+             + (k >= 1790 + late))
     ends = pos + np.cumsum(width)
     keep = ends <= len(bits)
     width, ends = width[keep], ends[keep]
@@ -226,24 +319,35 @@ def _lzw_codes(bits: np.ndarray, pos: int, first: int) -> tuple:
     idx = starts[:, None] + np.arange(12)[None, :]
     take = np.arange(12)[None, :] < width[:, None]
     got = np.where(take, bits[np.minimum(idx, len(bits) - 1)], 0)
-    shift = width[:, None] - 1 - np.arange(12)[None, :]
+    if old_style:
+        shift = np.broadcast_to(np.arange(12)[None, :], got.shape)
+    else:
+        shift = width[:, None] - 1 - np.arange(12)[None, :]
     codes = (got.astype(np.int64) << np.maximum(shift, 0)).sum(1)
     return codes.tolist(), ends.tolist()
 
 
-def lzw_plain(src: bytes, size: int) -> tuple[bytes, int]:
+def lzw_old_style(src: bytes) -> bool:
+    """libtiff's test for old-style LZW codes: the data starts with 0, then
+    a byte with its low bit set."""
+    return len(src) >= 2 and src[0] == 0 and bool(src[1] & 1)
+
+
+def lzw_plain(src: bytes, size: int, old_style: bool = False
+              ) -> tuple[bytes, int]:
     """libtiff's ``LZWDecode`` (new-style codes, most significant bit
-    first, the code width growing one code early) into ``size`` bytes:
-    (bytes, status: 0, or a key of LZW_STATUS)."""
-    if len(src) >= 2 and src[0] == 0 and src[1] & 1:
-        return b"", 3
-    bits = np.unpackbits(np.frombuffer(src, np.uint8))
+    first, the code width growing one code early) or ``LZWDecodeCompat``
+    (``old_style``: least significant bit first, the width growing one code
+    later) into ``size`` bytes: (bytes, status: 0, or a key of
+    LZW_STATUS)."""
+    bits = np.unpackbits(np.frombuffer(src, np.uint8),
+                         bitorder="little" if old_style else "big")
     out = bytearray()
     table: list[bytes] = [bytes([i]) for i in range(256)] + [b"", b""]
     prev = -2  # -2: no clear code yet (libtiff's sentinel); -1: after one
     pos, count = 0, 0  # bit position; codes since the last clear
     while len(out) < size:
-        codes, ends = _lzw_codes(bits, pos, count)
+        codes, ends = _lzw_codes(bits, pos, count, old_style)
         if not codes:
             break  # no EOI: what is there is all
         for code, end in zip(codes, ends):
@@ -279,46 +383,111 @@ def lzw_plain(src: bytes, size: int) -> tuple[bytes, int]:
     return bytes(out[:size]), 0 if len(out) >= size else 2
 
 
-def _decompress(kind: str, src: bytes, size: int, name: str) -> np.ndarray:
+def _decompress(kind: str, src: bytes, size: int, name: str,
+                old_lzw: bool = False, partial: bool = False) -> np.ndarray:
     """One strip's or tile's ``size`` bytes, in C++ for PackBits and LZW
-    wherever the native library builds."""
+    wherever the native library builds. Bad or short data raises, or with
+    ``partial`` gives what the codec wrote before it failed and zeros after
+    (what libtiff's RGBA reader goes on with)."""
     from wgpu_path_tracing_tpu_torch.accel import native
 
+    error = None
     if kind == "tiff_lzw":
         fn = native.lzw_native if native.native_available() else lzw_plain
-        out, status = fn(src, size)
-        if status:
-            raise (NotImplementedError if status == 3 else ValueError)(
-                f"{name}: {LZW_STATUS[status]}")
+        out, status = fn(src, size, old_lzw)
+        error = LZW_STATUS.get(status)
     elif kind == "packbits":
         fn = (native.packbits_native if native.native_available()
               else packbits_plain)
         out, status = fn(src, size)
-        if status:
-            raise ValueError(f"{name}: not enough PackBits data")
+        error = "not enough PackBits data" if status else None
+    elif kind == "lzma":
+        try:
+            import lzma
+        except ImportError:
+            raise NotImplementedError(f"{name}: LZMA-compressed TIFF needs "
+                                      "Python's lzma module") from None
+        try:
+            out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src, size)
+        except lzma.LZMAError as exc:
+            # libtiff keeps what liblzma wrote before it found the bad data,
+            # and a strip stands if that fills it; Python's lzma gives none
+            # of it back.
+            raise NotImplementedError(f"{name}: bad LZMA data ({exc}), which "
+                                      "libtiff may read in part") from None
+        error = "not enough LZMA data" if len(out) < size else None
     else:
         try:
             out = zlib.decompressobj().decompress(src, size)
         except zlib.error as exc:
-            raise ValueError(f"{name}: bad deflate data ({exc})") from None
-        if len(out) < size:
-            raise ValueError(f"{name}: not enough deflate data")
-    return np.frombuffer(out, np.uint8)
+            error = f"bad deflate data ({exc})"
+            out = _inflate_until_error(src, size) if partial else b""
+        if len(out) < size and error is None:
+            error = "not enough deflate data"
+    if error and not partial:
+        raise ValueError(f"{name}: {error}")
+    buf = np.zeros(size, np.uint8)
+    buf[:min(len(out), size)] = np.frombuffer(out, np.uint8)[:size]
+    return buf
 
 
-def _undo_predictor(rows: np.ndarray, spp: int, bits: int,
-                    order: str) -> np.ndarray:
-    """Horizontal differencing undone (libtiff's horAcc8/horAcc16) on
-    (rows, bytes) of one strip or tile; 16-bit samples come back in the
-    file's byte order."""
+def _inflate_until_error(src: bytes, size: int) -> bytes:
+    """The bytes zlib writes before it finds bad data, fed a byte at a
+    time (only on bad data)."""
+    dec = zlib.decompressobj()
+    out = bytearray()
+    try:
+        for i in range(len(src)):
+            out += dec.decompress(src[i:i + 1], size - len(out))
+            if len(out) >= size or dec.eof:
+                break
+    except zlib.error:
+        pass
+    return bytes(out)
+
+
+def _fax(kind: str, src: bytes, width: int, rows: int, options: int,
+         runs: np.ndarray, name: str) -> np.ndarray:
+    """One strip's or tile's CCITT data -> (rows, width) 0/1 samples, in
+    C++ wherever the native library builds; ``runs`` the page's run
+    array."""
+    from wgpu_path_tracing_tpu_torch.accel import native
+    from wgpu_path_tracing_tpu_torch.utils.fax import FAX_STATUS, fax_plain
+
+    fn = native.fax_native if native.native_available() else fax_plain
+    out, status = fn(src, FAX[kind], width, rows, options, runs)
+    if status:
+        raise (NotImplementedError if status == 1 else ValueError)(
+            f"{name}: {FAX_STATUS[status]}")
+    return out
+
+
+def _undo_predictor(buf: np.ndarray, rowsize: int, spp: int, bits: int,
+                    predictor: int, order: str, name: str) -> np.ndarray:
+    """libtiff's predictor undone on one strip's or tile's bytes, a row of
+    ``rowsize`` bytes at a time: horizontal differencing (horAcc8/16/32,
+    samples in the file's byte order) or the floating-point predictor
+    (fpAcc: each row's bytes summed ``spp`` apart, then its byte planes,
+    most significant first, put back into samples, here in the file's
+    order)."""
+    size = bits // 8
+    if len(buf) % rowsize or rowsize % (size * spp):
+        raise ValueError(f"{name}: TIFF rows that the predictor cannot "
+                         "split (libtiff refuses them)")
+    rows = buf.reshape(-1, rowsize)
     n = rows.shape[0]
+    if predictor == 3:
+        acc = np.cumsum(rows.reshape(n, -1, spp), axis=1, dtype=np.uint8)
+        planes = acc.reshape(n, size, -1).transpose(0, 2, 1)
+        vals = np.ascontiguousarray(planes).view(f">u{size}")
+        return vals.astype(f"{order}u{size}").view(np.uint8).reshape(-1)
     if bits == 8:
-        s = rows.reshape(n, -1, spp).astype(np.uint64)
-        return (np.cumsum(s, axis=1) & 0xFF).astype(np.uint8).reshape(n, -1)
-    dt = np.dtype(order + "u2")
-    s = rows.view(dt).reshape(n, -1, spp).astype(np.uint64)
-    acc = (np.cumsum(s, axis=1) & 0xFFFF).astype(dt)
-    return acc.reshape(n, -1).view(np.uint8)
+        return np.cumsum(rows.reshape(n, -1, spp), axis=1,
+                         dtype=np.uint8).reshape(-1)
+    dt = np.dtype(f"{order}u{size}")
+    acc = np.cumsum(rows.view(dt).reshape(n, -1, spp), axis=1,
+                    dtype=f"u{size}")
+    return acc.astype(dt).view(np.uint8).reshape(-1)
 
 
 def _samples(rows: np.ndarray, count: int, bits: int, order: str) -> np.ndarray:
@@ -326,8 +495,9 @@ def _samples(rows: np.ndarray, count: int, bits: int, order: str) -> np.ndarray:
     n = rows.shape[0]
     if bits == 8:
         return rows[:, :count]
-    if bits == 16:
-        return rows[:, :2 * count].copy().view(order + "u2")[:, :count]
+    if bits in (16, 32):
+        size = bits // 8
+        return rows[:, :size * count].copy().view(f"{order}u{size}")[:, :count]
     b = np.unpackbits(rows, axis=1)[:, :count * bits].reshape(n, count, bits)
     w = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint16)
     return (b * w).sum(-1, dtype=np.uint16)
@@ -346,33 +516,24 @@ def _layout(tags: dict, w: int, h: int, name: str):
     raise ValueError(f"{name}: unknown TIFF data organization")
 
 
-def _compressed(data, tags, order, kind, w, h, spp, bits, planar, name):
-    """libtiff's decode: (H, W, spp) samples, each strip or tile decoded to
-    its whole size; rows and columns past the image are dropped."""
-    fill = tags.get(266, 1)
-    predictor = tags.get(317, 1) if kind != "packbits" else 1
-    if predictor not in (1, 2):
-        raise NotImplementedError(f"{name}: TIFF predictor {predictor}")
-    if predictor == 2 and bits not in (8, 16):
-        raise ValueError(f"{name}: horizontal differencing of {bits}-bit "
-                         "samples (libtiff refuses it)")
+def _chunks(data, tags, w, h, n_planes, name):
+    """Each strip or tile libtiff decodes, in its order: (index, plane,
+    top row, left column, rows, its bytes, fill order undone), and (tile
+    width, tile height, tiled)."""
     offsets, counts, tw, th, tiled = _layout(tags, w, h, name)
     if counts is None:
         raise NotImplementedError(f"{name}: compressed TIFF data without "
                                   "byte counts")
     th = th if tiled else min(th, h)
-    per = spp if planar == 1 else 1
-    n_planes = 1 if planar == 1 else spp
     across, down = -(-w // tw), -(-h // th)
     if len(offsets) < across * down * n_planes or len(counts) < len(offsets):
         raise ValueError(f"{name}: too few TIFF strips or tiles")
-    line = (tw * per * bits + 7) // 8
-    out = np.zeros((h, w, spp), np.uint16)
+    fill = tags.get(266, 1)
+    out = []
     for p in range(n_planes):
         for k in range(across * down):
             ty, tx = divmod(k, across)
             y0, x0 = ty * th, tx * tw
-            rows = th if tiled else min(th, h - y0)
             i = p * across * down + k
             if offsets[i] + counts[i] > len(data):
                 raise ValueError(f"{name}: TIFF strip or tile {i} runs past "
@@ -380,12 +541,263 @@ def _compressed(data, tags, order, kind, w, h, spp, bits, planar, name):
             src = data[offsets[i]:offsets[i] + counts[i]]
             if fill == 2:
                 src = _REVERSE[np.frombuffer(src, np.uint8)].tobytes()
-            buf = _decompress(kind, src, rows * line, name).reshape(rows, line)
-            if predictor == 2:
-                buf = _undo_predictor(buf, per, bits, order)
-            vals = _samples(buf, tw * per, bits, order).reshape(rows, tw, per)
-            ys, xs = min(rows, h - y0), min(tw, w - x0)
-            out[y0:y0 + ys, x0:x0 + xs, p:p + per] = vals[:ys, :xs]
+            rows = th if tiled else min(th, h - y0)
+            out.append((i, p, y0, x0, rows, src))
+    return out, tw, th, tiled
+
+
+def _predictor(tags: dict, kind: str, bits: int, fmt: tuple,
+               name: str) -> int:
+    """The predictor libtiff applies, checked as PredictorSetup checks
+    it."""
+    predictor = tags.get(317, 1) if kind in PREDICTED else 1
+    if predictor not in (1, 2, 3):
+        raise NotImplementedError(f"{name}: TIFF predictor {predictor}")
+    if predictor == 2 and bits not in (8, 16, 32):
+        raise ValueError(f"{name}: horizontal differencing of {bits}-bit "
+                         "samples (libtiff refuses it)")
+    if predictor == 3 and (fmt[0] != 3 or bits not in (16, 32)):
+        raise ValueError(f"{name}: the floating-point predictor on sample "
+                         f"format {fmt[0]} at {bits} bits (libtiff refuses "
+                         "it)")
+    return predictor
+
+
+def _compressed(data, tags, order, kind, w, h, spp, bits, planar, fmt, name):
+    """libtiff's decode: (H, W, spp) samples, each strip or tile decoded to
+    its whole size; rows and columns past the image are dropped. Old-style
+    LZW is chosen by the first strip or tile libtiff reads, for all."""
+    predictor = _predictor(tags, kind, bits, fmt, name)
+    per = spp if planar == 1 else 1
+    chunks, tw, th, tiled = _chunks(data, tags, w, h,
+                                    1 if planar == 1 else spp, name)
+    line = (tw * per * bits + 7) // 8
+    out = np.zeros((h, w, spp), np.uint32 if bits == 32 else np.uint16)
+    old_lzw = kind == "tiff_lzw" and bool(chunks) and lzw_old_style(
+        chunks[0][5])
+    if kind in FAX:
+        from wgpu_path_tracing_tpu_torch.utils.fax import fax_runs
+
+        if bits != 1:
+            raise ValueError(f"{name}: CCITT data of {bits}-bit samples "
+                             "(libtiff refuses it)")
+        t4 = tags.get(292, (0,)) if kind == "group3" else (0,)
+        t4 = t4[0] if isinstance(t4, tuple) else t4
+        runs = fax_runs(FAX[kind], tw, t4)
+    for _, p, y0, x0, rows, src in chunks:
+        if kind in FAX:
+            vals = _fax(kind, src, tw, rows, t4, runs, name)[..., None]
+        else:
+            buf = _decompress(kind, src, rows * line, name, old_lzw)
+            if predictor != 1:
+                buf = _undo_predictor(buf, line, per, bits, predictor, order,
+                                      name)
+            vals = _samples(buf.reshape(rows, line), tw * per, bits,
+                            order).reshape(rows, tw, per)
+        ys, xs = min(rows, h - y0), min(tw, w - x0)
+        out[y0:y0 + ys, x0:x0 + xs, p:p + per] = vals[:ys, :xs]
+    return out
+
+
+def _jpeg_segments(stream: bytes) -> list:
+    """A JPEG stream's marker segments after its SOI, up to its first scan
+    or its EOI: [(marker, the segment's bytes)]."""
+    out, pos = [], 2
+    while pos + 4 <= len(stream) and stream[pos] == 0xFF \
+            and stream[pos + 1] not in (0xD9, 0xDA):
+        (length,) = struct.unpack(">H", stream[pos + 2:pos + 4])
+        out.append((stream[pos + 1], stream[pos:pos + 2 + length]))
+        pos += 2 + length
+    return out
+
+
+def _jpeg(data, tags, w, h, spp, photo, planar, name):
+    """libtiff's JPEG decode (compression 7): each strip's or tile's stream
+    after the JPEGTables stream's segments, through ``utils/jpeg.py``,
+    checked as JPEGPreDecode checks it; (H, W, spp) samples, RGB for
+    YCbCr (JPEGCOLORMODE_RGB). A tile is decoded at its full size and cut
+    to the image."""
+    from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_samples
+
+    if planar != 1:
+        raise NotImplementedError(f"{name}: JPEG-compressed separate planes")
+    chunks, tw, th, tiled = _chunks(data, tags, w, h, 1, name)
+    tables = tags.get(347, b"\xff\xd8")
+    if tables[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: the JPEGTables stream does not start with "
+                         "SOI")
+    seen = b"".join(seg for _, seg in _jpeg_segments(tables))
+    sampling = (1, 1)
+    if photo == 6 and 530 in tags:
+        sampling = (tuple(tags[530]) + (2, 2))[:2]
+    elif photo == 6:
+        # JPEGFixupTagsSubsampling: without the tag, the first strip's frame
+        # header (its first component's factors) gives it.
+        sof = [seg for marker, seg in (_jpeg_segments(chunks[0][5])
+                                       if chunks else [])
+               if marker in SOF_MARKERS and len(seg) >= 12]
+        sampling = (sof[0][11] >> 4, sof[0][11] & 15) if sof else (2, 2)
+    out = np.zeros((h, w, spp), np.uint16)
+    for i, _, y0, x0, rows, src in chunks:
+        if src[:2] != b"\xff\xd8":
+            raise ValueError(f"{name}: JPEG strip or tile {i} does not start "
+                             "with SOI")
+        try:
+            frame, vals = decode_jpeg_samples(src[:2] + seen + src[2:], name,
+                                              ycbcr=photo == 6)
+        except ValueError as exc:
+            if "truncated JPEG data" not in str(exc):
+                raise
+            # libtiff ends a short stream with a fake EOI, and libjpeg
+            # decodes the rest as zeros: read by Pillow, not by the port.
+            raise NotImplementedError(f"{exc}, which libtiff ends with a "
+                                      "fake EOI") from None
+        comps = frame["comps"]
+        if len(comps) != spp:
+            raise ValueError(f"{name}: improper JPEG component count")
+        if (comps[0].h, comps[0].v) != sampling or any(
+                (c.h, c.v) != (1, 1) for c in comps[1:]):
+            raise ValueError(f"{name}: improper JPEG sampling factors")
+        jw, jh = frame["width"], frame["height"]
+        if jw > tw or (jh > rows and (tiled or y0 + rows != h)):
+            raise ValueError(f"{name}: JPEG strip or tile size exceeds "
+                             "expected dimensions")
+        if jh < rows:
+            raise ValueError(f"{name}: a JPEG strip or tile of {jh} rows "
+                             f"where libtiff reads {rows}")
+        if jw < tw:
+            # libjpeg fills only the first jw pixels of each row.
+            raise NotImplementedError(f"{name}: a JPEG strip or tile of "
+                                      f"width {jw} where libtiff expects "
+                                      f"{tw}")
+        # libjpeg keeps the tables a stream defines for the streams after.
+        seen += b"".join(seg for marker, seg in _jpeg_segments(src)
+                         if marker in (0xC4, 0xDB))
+        ys, xs = min(rows, h - y0), min(tw, w - x0)
+        out[y0:y0 + ys, x0:x0 + xs] = vals[:ys, :xs]
+    return out
+
+
+# TIFFRGBAImage's YCbCr data units, (horizontal, vertical) subsampling.
+YCBCR_UNITS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+LUMA_DEFAULT = (0.299, 0.587, 0.114)
+
+
+def ycbcr_tables(luma, rbw, name: str = "image") -> tuple:
+    """libtiff's TIFFYCbCrToRGBInit (tif_color.c) on float32 coefficients
+    and ReferenceBlackWhite: (Y, Cr->R, Cb->B, Cr->G, Cb->G) tables of 256
+    int64, the float arithmetic in float32 as libtiff's."""
+    f32 = np.float32
+    luma = [f32(v) for v in luma]
+    rbw = [f32(v) for v in rbw]
+    if any(np.isnan(v) for v in luma) or luma[1] == 0:
+        raise ValueError(f"{name}: invalid YCbCrCoefficients")
+    if not all(f32(-2 ** 31) < v < f32(2 ** 31) for v in rbw):
+        raise ValueError(f"{name}: invalid ReferenceBlackWhite")
+
+    def clamp(f, lo, hi):  # !((f) >= (min)) ? min : f > max ? max : f
+        f = np.asarray(f, np.float32)
+        return np.where(~(f >= lo), f32(lo), np.where(f > hi, f32(hi), f))
+
+    def fix(f):  # (int32_t)(f * 65536 + 0.5), the sum in double
+        return np.int64(np.float64(f32(f) * f32(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb
+        den = den if den != 0 else f32(1)
+        num = (c - np.int64(np.trunc(rb))).astype(np.float32) * f32(cr)
+        return num / den
+
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        f1 = f32(2) - f32(2) * luma[0]
+        d1 = fix(clamp(f1, 0, 2))
+        f2 = luma[0] * f1 / luma[1]
+        d2 = -fix(clamp(f2, 0, 2))
+        f3 = f32(2) - f32(2) * luma[2]
+        d3 = fix(clamp(f3, 0, 2))
+        f4 = luma[2] * f3 / luma[1]
+        d4 = -fix(clamp(f4, 0, 2))
+        x = np.arange(-128, 128, dtype=np.int64)
+        cr = clamp(code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127),
+                   -4096, 4096).astype(np.int64)
+        cb = clamp(code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127),
+                   -4096, 4096).astype(np.int64)
+        y = clamp(code2v(x + 128, rbw[0], rbw[1], 255), -4096,
+                  4096).astype(np.int64)
+    return (y, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr,
+            d4 * cb + 32768)
+
+
+def ycbcr_to_rgb(y, cb, cr, tables) -> np.ndarray:
+    """TIFFYCbCrtoRGB on uint8 planes -> (..., 3) uint8."""
+    yt, cr_r, cb_b, cr_g, cb_g = tables
+    yv = yt[y]
+    out = np.empty(np.shape(y) + (3,), np.uint8)
+    out[..., 0] = np.clip(yv + cr_r[cr], 0, 255)
+    out[..., 1] = np.clip(yv + ((cb_g[cb] + cr_g[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(yv + cb_b[cb], 0, 255)
+    return out
+
+
+def _ycbcr(data, tags, order, kind, w, h, fmt, name):
+    """Pillow's read of YCbCr that is not JPEG-compressed: libtiff's
+    TIFFRGBAImage -> (H, W, 3) RGB in the file's row order (Pillow applies
+    the Orientation after)."""
+    hs, vs = (tuple(tags.get(530, (2, 2))) + (2, 2))[:2]
+    if (hs, vs) not in YCBCR_UNITS:
+        raise ValueError(f"{name}: YCbCr subsampling {hs}x{vs} (libtiff "
+                         "cannot read it)")
+    tables = ycbcr_tables(tags.get(529, LUMA_DEFAULT),
+                          tags.get(532, (0, 255, 128, 255, 128, 255)), name)
+    predictor = _predictor(tags, kind, 8, fmt, name)
+    chunks, tw, th, tiled = _chunks(data, tags, w, h, 1, name)
+    unit = hs * vs + 2
+    across = -(-tw // hs)
+    if tiled and tw % hs:
+        raise NotImplementedError(f"{name}: YCbCr tiles of a width that is "
+                                  "no multiple of the subsampling")
+    # TIFFScanlineSize rounds a row of data units over vs down: a strip
+    # reads that many bytes a row, the rest of its units stay 0.
+    rowsize = tw * 3 if tiled else across * unit // vs
+    old_lzw = kind == "tiff_lzw" and bool(chunks) and lzw_old_style(
+        chunks[0][5])
+    out = np.zeros((h, w, 3), np.uint8)
+    for _, _, y0, x0, rows, src in chunks:
+        down = -(-rows // vs)
+        size = down * across * unit if tiled else down * vs * rowsize
+        # The reader does not stop on a strip's bad data: it goes on with
+        # what the codec wrote, the predictor not undone (a tile's buffer
+        # would still hold the tile before it).
+        try:
+            buf = _decompress(kind, src, size, name, old_lzw)
+        except ValueError as exc:
+            if tiled:
+                raise NotImplementedError(f"{exc} (in a YCbCr tile)") from None
+            buf = _decompress(kind, src, size, name, old_lzw, partial=True)
+        else:
+            if predictor != 1:
+                try:
+                    buf = _undo_predictor(buf, rowsize, 3, 8, predictor,
+                                          order, name)
+                except ValueError:
+                    if tiled:
+                        raise NotImplementedError(
+                            f"{name}: a YCbCr tile the predictor cannot "
+                            "split") from None
+        units = np.zeros(down * across * unit, np.uint8)
+        units[:size] = buf
+        ys, xs = min(rows, h - y0), min(tw, w - x0)
+        # putcontig8bitYCbCr44tile skips the units past the image's edge as
+        # if they were 4x2 units (libtiff's fromskew).
+        stride = across * unit
+        if (hs, vs) == (4, 4) and xs < tw:
+            stride = -(-xs // 4) * unit + (tw - xs) // 4 * 10
+        r = np.arange(ys)[:, None]
+        c = np.arange(xs)[None, :]
+        at = (r // vs) * stride + (c // hs) * unit
+        out[y0:y0 + ys, x0:x0 + xs] = ycbcr_to_rgb(
+            units[at + (r % vs) * hs + c % hs], units[at + hs * vs],
+            units[at + hs * vs + 1], tables)
     return out
 
 
@@ -405,8 +817,9 @@ def _raw(data, tags, order, w, h, spp, bits, planar, mode, rawmode, name):
     pass covers the image, the tiles taken in the order of their offsets
     (a later one over an earlier one). A separate plane is read as one
     character of the raw mode: 8 bits a sample (1 for "1"), neither
-    inverted nor reversed, whatever the file's bits. Returns (samples,
-    bits, raw mode) of what was read."""
+    inverted nor reversed, whatever the file's bits. Raw mode "RGBX" (of
+    YCbCr) reads four bytes a pixel. Returns (samples, bits, raw mode) of
+    what was read."""
     offsets, _, tw, th, tiled = _layout(tags, w, h, name)
     fill = tags.get(266, 1)
     if planar != 2 and fill == 2 and rawmode in NO_UNPACKER:
@@ -423,7 +836,8 @@ def _raw(data, tags, order, w, h, spp, bits, planar, mode, rawmode, name):
             x, y = 0, y + th
             if y >= h:
                 y, layer = 0, layer + 1
-    per = 1 if planar == 2 else spp
+    read = 4 if rawmode == "RGBX" else spp  # samples a pixel Pillow reads
+    per = 1 if planar == 2 else read
     chars = rawmode
     if planar == 2:
         top_layer = max(t[3] for t in tiles) if tiles else 0
@@ -434,8 +848,9 @@ def _raw(data, tags, order, w, h, spp, bits, planar, mode, rawmode, name):
         rawmode = {"1": "1", "L": "L", "P": "P"}.get(mode, mode)
     # What no strip covers stays 0 in Pillow's image: a sample that an
     # inverting raw mode turns into 0.
-    out = np.full((h, w, spp), (1 << bits) - 1 if rawmode in INVERTED else 0,
-                  np.uint16)
+    out = np.full((h, w, per if planar != 2 else spp),
+                  (1 << bits) - 1 if rawmode in INVERTED else 0,
+                  np.uint32 if bits == 32 else np.uint16)
     for off, x, y, layer in sorted(tiles, key=lambda t: t[0]):
         b = (1 if chars[layer] == "1" else 8) if planar == 2 else bits
         band = layer if planar == 2 else 0
@@ -485,10 +900,23 @@ def _to_rgba(mode: str, raw: str, s: np.ndarray, bits: int,
             v = top - v
         out[..., :3] = (v * (255 // top))[..., None]
         return out
+    if mode == "F":  # Pillow's F -> L: clipped, then truncated; NaN 0
+        f = s[..., 0].astype(np.uint32).view(np.float32)
+        with np.errstate(invalid="ignore"):
+            g = np.where(np.isnan(f), 0, np.clip(f, 0, 255)).astype(np.uint8)
+        out[..., :3] = g[..., None]
+        return out
     if mode in ("I;16", "I;16B", "I"):
         if raw in ("I;16S", "I;16BS"):
             v = np.where(v >= 32768, v - 65536, v)
+        elif bits == 32:  # Pillow's "I" holds int32
+            v = s[..., 0].astype(np.uint32).view(np.int32).astype(np.int64)
         out[..., :3] = np.clip(v, 0, 255)[..., None]
+        return out
+    if mode == "LAB":
+        from wgpu_path_tracing_tpu_torch.utils.lab import lab_to_rgb
+
+        out[..., :3] = lab_to_rgb(s[..., :3].astype(np.uint8))
         return out
     if mode in ("P", "PA"):
         n = len(cmap) // 3
@@ -522,15 +950,8 @@ def _to_rgba(mode: str, raw: str, s: np.ndarray, bits: int,
 def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
     """TIFF bytes -> (H, W, 4) uint8 RGBA of the first page, what
     Pillow's ``Image.open(...).convert("RGBA")`` returns."""
-    if not data.startswith(TIFF_PREFIXES):
-        raise ValueError(f"{name}: not a TIFF file")
-    if data[2] == 43 or data[3] == 43:
-        raise NotImplementedError(f"{name}: BigTIFF is not supported")
-    order = "<" if data[:2] == b"II" else ">"
-    if len(data) < 8:
-        raise ValueError(f"{name}: the TIFF header is truncated")
-    (first,) = struct.unpack_from(order + "I", data, 4)
-    tags, types = _ifd(data, order, first, name)
+    order, big, first = _header(data, name)
+    tags, types = _ifd(data, order, first, name, big)
     if 0xBC01 in tags:
         raise ValueError(f"{name}: Windows Media Photo is not supported")
     if tags.get(259, 1) not in COMPRESSIONS:
@@ -557,10 +978,6 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         bps = bps * spp
     if len(bps) != spp:
         raise ValueError(f"{name}: unknown TIFF data organization")
-    if photo in (6, 8) or 3 in fmt or max(bps) > 16 or 12 in bps:
-        raise NotImplementedError(
-            f"{name}: TIFF photometric {photo}, sample format {fmt} at "
-            f"{bps} bits is not supported")
     planar = tags.get(284, 1)
     found = _mode((order, photo, fmt, fill, bps, extra))
     if found is None:
@@ -577,6 +994,10 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
     if mode in ("P", "PA") and len(tags[320]) // 3 > 256:
         raise ValueError(f"{name}: a TIFF ColorMap of more than 256 "
                          "entries (Pillow: invalid palette size)")
+    rps = tags.get(278)
+    if rps == 0 and (kind != "raw" or 324 not in tags):
+        raise ValueError(f"{name}: RowsPerStrip 0 (libtiff and Pillow refuse "
+                         "it)")
     if kind == "raw":
         s, bits, raw = _raw(data, tags, order, w, h, spp, bits, planar, mode,
                             raw, name)
@@ -584,7 +1005,7 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         # libtiff reads the directory again, and checks what Pillow's own
         # parser lets through.
         odd = {t: types[t] for t in BASELINE_TAGS + (-1,) if t in types
-               and types[t] not in (3, 4)}
+               and types[t] not in ((3, 4, 16) if big else (3, 4))}
         odd.update({t: 0 for t in types if t in BASELINE_TAGS
                     and t not in tags})
         if odd or planar not in (1, 2) or 258 not in tags:
@@ -592,6 +1013,8 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
                 f"{name}: TIFF tags of field types {odd}, planar "
                 f"configuration {planar} or no BitsPerSample, which libtiff "
                 "may refuse")
+        if big and data[4:8] != b"\x08\x00\x00\x00":
+            raise ValueError(f"{name}: a BigTIFF header libtiff refuses")
         if planar == 2 and spp > 1 and not (
                 bits == 8 and raw in ("RGB", "RGBA", "RGBa", "CMYK")):
             raise NotImplementedError(f"{name}: a compressed separate-plane "
@@ -599,8 +1022,27 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         if order == ">" and raw in ("I;16BS",):
             raise NotImplementedError(f"{name}: compressed big-endian signed "
                                       "16-bit samples")
-        s = _compressed(data, tags, order, kind, w, h, spp, bits, planar,
-                        name)
+        # Pillow's strip buffer is RowsPerStrip rows (all of them for
+        # 2^32 - 1): it refuses one past 2^31 - 1 bytes.
+        row = w * 4 if photo == 6 and kind != "jpeg" else -(-w * sum(
+            bps) // (spp if planar == 2 else 1) // 8)
+        if 324 not in tags and isinstance(rps, int) and rps != 2 ** 32 - 1 \
+                and (2 ** 31 - 1) // max(row, 1) < rps:
+            raise ValueError(f"{name}: RowsPerStrip {rps} (Pillow: out of "
+                             "memory)")
+        if kind == "jpeg":
+            s = _jpeg(data, tags, w, h, spp, photo, planar, name)
+            raw = "RGB" if photo == 6 else raw
+        elif photo == 6:
+            if spp != 3:
+                raise ValueError(f"{name}: YCbCr of {spp} samples (libtiff's "
+                                 "RGBA reader refuses it)")
+            s = _ycbcr(data, tags, order, kind, w, h, fmt, name)
+        else:
+            s = _compressed(data, tags, order, kind, w, h, spp, bits, planar,
+                            fmt, name)
+            if bits == 32 and order == ">":
+                s = s.byteswap()  # libtiff's host order, read as the file's
     out = _to_rgba(mode, raw, s, bits, tags.get(320))
     orientation = tags.get(274)
     if orientation in TRANSPOSE:
