@@ -155,7 +155,15 @@ and runs these phases, one line of output each:
    with the C++ loops within 5 s and equal to what it was made from, the
    Python loops on a 1024x512 G4 page, and the same box with four
    TIFF-variant sidecar textures (``TIFF_VARIANT_TEXTURES``) against its
-   plain path;
+   plain path; then the QOI, PCX (DCX), SGI, PSD and DDS readers (their
+   committed files are among the ``tests/ldr`` files held to Pillow both
+   ways): a 4096x2048 BC7 DDS (its SHA-256 against Pillow's) and a
+   4096x2048 PackBits RGBA PSD (against the array it was made from) made
+   by the test suite's writers, each decoded with the C++ loops within 5
+   s and timed with the plain versions too, the plain versions on files
+   of ``ASSET_PYTHON_SIZE``, and the same
+   box with BC7 DDS, BC1 DDS, PSD and QOI sidecar textures
+   (``ASSET_TEXTURES``) against its plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -2759,6 +2767,19 @@ TIFF_VARIANT_TEXTURES = ("jpeg_ycbcr_tiles.tif", "bigtiff_lzw_rgba.tif",
                          "float_lzw_pred3.tif", "g4.tif")
 TIFF_VARIANT_ENV_MAPS = (("env_jpeg_ycbcr.tif", "env_tiff_jpeg"),
                          ("env_float.tif", "env_tiff_float"))
+# The asset-format-textured box: the same scene with a BC7 DDS (mode 6), a
+# BC1 DDS with 1-bit alpha (Pillow's DXT1 writer), a PackBits RGBA PSD and
+# an RGBA QOI as its four sidecar textures; and the env box under a BC1
+# DDS map and an RLE SGI map.
+ASSET_TEXTURES = ("bc7_mode6.dds", "dxt1_alpha.dds", "rgba_packbits.psd",
+                  "pillow_rgba.qoi")
+ASSET_ENV_MAPS = (("env_bc1.dds", "env_dds_bc1"), ("env_rle.sgi",
+                                                    "env_sgi_rle"))
+# The asset-format decode timings: a 4096x2048 BC7 DDS (its Pillow decode's
+# SHA-256 in tests/ldr/pillow_sha256.json) and PackBits RGBA PSD made here
+# by the test suite's writers, in C++ and with the plain versions; the
+# plain versions on files of ASSET_PYTHON_SIZE too.
+ASSET_PYTHON_SIZE = (1024, 512)
 # The TIFF-variant decode timings: the committed 4096x2048 JPEG-in-TIFF
 # YCbCr 2x2 tiled file (tests/ldr, its Pillow decode's SHA-256 beside it),
 # a 4096x2048 G4 page and float LZW file (the floating-point predictor) made
@@ -2992,6 +3013,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
         report["gltf"]["ldr"] = ldr_scene(tmp, smi, report)
         report["gltf"]["webp_gif"] = webp_gif_scene(tmp, smi, report)
         report["gltf"]["tiff_variants"] = tiff_variant_scene(tmp, smi, report)
+        report["gltf"]["assets"] = asset_scene(tmp, smi, report)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -3152,9 +3174,9 @@ def ldr_scene(tmp: str, smi: str, report: dict) -> dict:
                 raise AssertionError(f"{name}: the decode differs from "
                                      "Pillow's")
     say("gltf", f"{len(cases)} committed TGA, BMP, DIB, ICO, CUR, netpbm, "
-        "WebP, GIF and "
-        "TIFF files decode array-equal to Pillow's, with the C++ loops and "
-        "with the Python ones")
+        "WebP, GIF, TIFF, QOI, PCX, DCX, SGI, PSD and DDS files decode "
+        "array-equal to Pillow's, with the C++ loops and with the Python "
+        "ones")
     w, h = LDR_TIMING_SIZE
     img = sample_image(w, h, 31)
     img[..., 3] = 255
@@ -3349,6 +3371,72 @@ def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
     return out
 
 
+def asset_scene(tmp: str, smi: str, report: dict) -> dict:
+    """The QOI, PCX (DCX), SGI, PSD and DDS readers on this host
+    (``ldr_scene`` has held every committed file of theirs to its Pillow
+    array both ways): the C++ decode seconds of a 4096x2048 BC7 DDS (mode
+    6; its SHA-256 against Pillow's) and a 4096x2048 PackBits RGBA PSD
+    (against the array it was made from), made here by the test suite's
+    writers, each under JPEG_DECODE_BOUND_S, and their plain decode seconds
+    (the NumPy block decoders and the Python PackBits loop, what a host
+    without g++ runs); both ways on a BC7 DDS and a PSD of
+    ASSET_PYTHON_SIZE (the BC7 one against the C++ decode); then the
+    asset-textured box (``ldr_box`` with ASSET_TEXTURES)."""
+    cases_module = image_cases()
+    with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
+        digests = json.load(f)
+    w, h = LDR_TIMING_SIZE
+    pw, ph = ASSET_PYTHON_SIZE
+    ((bc7, (psd, img), small_bc7, (small_psd, small_img)),
+     make_s) = timed(lambda: (
+         cases_module.large_bc7(w, h), cases_module.large_psd(w, h),
+         cases_module.large_bc7(pw, ph), cases_module.large_psd(pw, ph)))
+    files = [(cases_module.LARGE_BC7, bc7, digests[cases_module.LARGE_BC7],
+              True),
+             (f"packbits_rgba_{w}x{h}.psd", psd, img, True),
+             (f"bc7_mode6_{pw}x{ph}.dds", small_bc7, None, True),
+             (f"packbits_rgba_{pw}x{ph}.psd", small_psd, small_img, True)]
+    seconds = {}
+    for name, data, want, python in files:
+        both = decode_both(data, name, python)
+        for rgba, _ in both:
+            if isinstance(want, str):
+                ok = hashlib.sha256(rgba.tobytes()).hexdigest() == want
+            elif want is None:  # the plain decoders against the C++ one
+                ok = np.array_equal(rgba, both[0][0])
+            else:
+                ok = np.array_equal(rgba, want)
+            if not ok:
+                raise AssertionError(
+                    f"{name}: the decode differs from "
+                    + ("Pillow's (SHA-256)" if isinstance(want, str) else
+                       "the C++ decode" if want is None else
+                       "the array it was made from"))
+        seconds[name] = {"cxx": both[0][1]}
+        if python:
+            seconds[name]["python"] = both[1][1]
+        say("gltf", f"{name} ({len(data)} bytes): decoded in "
+            f"{both[0][1]:.3f} s with the C++ loops"
+            + (f", {both[1][1]:.3f} s with the plain ones" if python else "")
+            + " on this host, equal to "
+            + ("Pillow's decode (SHA-256)" if isinstance(want, str) else
+               "the C++ decode" if want is None else
+               "the array it was made from") + f", on {smi}")
+    slow = {n: t["cxx"] for n, t in seconds.items()
+            if t["cxx"] > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
+           "python_size": list(ASSET_PYTHON_SIZE)}
+    texture_files = {}
+    for name in ASSET_TEXTURES:
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            texture_files[name] = f.read()
+    out.update(ldr_box(tmp, texture_files, smi, report, ASSET_TEXTURES,
+                       "gltf_assets"))
+    return out
+
+
 def ldr_box(tmp: str, files: dict, smi: str, report: dict,
             textures: tuple = LDR_TEXTURES, path_name: str = "gltf_ldr"
             ) -> dict:
@@ -3530,7 +3618,7 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
     for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
-                            + TIFF_VARIANT_ENV_MAPS):
+                            + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

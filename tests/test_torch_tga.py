@@ -243,7 +243,8 @@ def test_every_format_pillow_writes_reads_as_pillow_or_raises(fmt):
             assert "s.img" in str(exc), exc
             if opened is not None and opened not in (
                     "BMP", "DIB", "JPEG", "MPO", "PNG", "PPM", "TGA", "TIFF",
-                    "ICO", "CUR", "GIF", "WEBP"):
+                    "ICO", "CUR", "GIF", "WEBP", "QOI", "PCX", "DCX", "SGI",
+                    "PSD", "DDS"):
                 assert opened in str(exc), (fmt, mode, exc)
             continue
         assert want is not None, (fmt, mode)
@@ -257,10 +258,10 @@ def test_sniffing_follows_pillows_order():
     """A true-colour TGA starts with a cursor's signature (``00 00 02 00``):
     Pillow's CUR reader finds no entries and passes it on, and it is read
     as TGA. A TGA header that PCX's test takes (an ID field of 10 bytes)
-    is PCX's, which raises, and the port raises naming PCX. A GIF and a
-    WebP (tried after TGA, whose header checks a RIFF file fails) read as
-    Pillow reads them; a format still not read (QOI) raises naming it;
-    bytes no format takes raise."""
+    is PCX's, an unknown PCX mode to Pillow, which raises, and the port
+    raises so. A GIF and a WebP (tried after TGA, whose header checks a
+    RIFF file fails) read as Pillow reads them; a format still not read
+    (XPM) raises naming it; bytes no format takes raise."""
     px = C.sample_image(6, 4, 2, 3)
     data = C.write_tga(px[..., ::-1], 2, 24)
     assert data[:4] == b"\0\0\2\0"
@@ -268,17 +269,18 @@ def test_sniffing_follows_pillows_order():
     np.testing.assert_array_equal(C.assert_like_pillow(data)[..., :3], px)
     pcx = C.write_tga(px[..., ::-1], 2, 24, ident=b"0123456789")
     assert C.pillow_refuses(pcx)
-    C.assert_refused(pcx, "p.tga", ValueError, "Pillow would open this file "
-                     "as PCX")
+    C.assert_refused(pcx, "p.tga", ValueError, "unknown PCX mode")
     gif = C.pillow_bytes(Image.fromarray(px), "GIF")
     assert list(sniff.pillow_candidates(gif)) == ["GIF", "TGA"]
     C.assert_like_pillow(gif)
     webp = C.pillow_bytes(Image.fromarray(px), "WEBP")
     assert list(sniff.pillow_candidates(webp)) == ["TGA", "WEBP"]
     C.assert_like_pillow(webp)
-    qoi = C.pillow_bytes(Image.fromarray(px), "QOI")
-    C.assert_refused(qoi, "x.qoi", ValueError,
-                     "Pillow would open this file as QOI")
+    xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n'
+           b'"a c #ff0000",\n"b c #00ff00",\n"ab"\n};\n')
+    assert C.pillow_bytes(Image.open(io.BytesIO(xpm)), "PNG")
+    C.assert_refused(xpm, "x.xpm", ValueError,
+                     "Pillow would open this file as XPM")
     assert C.pillow_refuses(b"\xff" * 40)
     C.assert_refused(b"\xff" * 40, "n.bin", ValueError,
                      "not an image Pillow can identify")

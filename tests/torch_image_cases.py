@@ -1,7 +1,8 @@
-"""Small writers of TGA, BMP (DIB, ICO, CUR), netpbm, TIFF, WebP and GIF
-files for the LDR readers' tests (``utils/tga.py``, ``bmp.py``,
-``netpbm.py``, ``tiff.py``, ``webp.py``, ``gif.py``), and the fixtures
-under ``tests/ldr/``.
+"""Small writers of TGA, BMP (DIB, ICO, CUR), netpbm, TIFF, WebP, GIF,
+QOI, PCX (DCX), SGI, PSD and DDS files for the LDR readers' tests
+(``utils/tga.py``, ``bmp.py``, ``netpbm.py``, ``tiff.py``, ``webp.py``,
+``gif.py``, ``qoi.py``, ``pcx.py``, ``sgi.py``, ``psd.py``, ``dds.py``),
+and the fixtures under ``tests/ldr/``.
 
 The writers make what Pillow cannot write: TGA at 16 bits and through a
 colour map of 16 bits, RLE packets that run across rows, every origin;
@@ -12,7 +13,11 @@ planes, in either byte order, under PackBits, LZW or deflate with or
 without horizontal differencing, fill order 2 and an orientation; VP8L
 streams with each transform and the colour cache, ALPH chunks under each
 filter, animations whose first frame sits at an offset; GIF at every
-minimum code size, with any palette, transparency, interlace and offset.
+minimum code size, with any palette, transparency, interlace and offset;
+QOI op streams; PCX on 2 and 4 bit planes and with odd strides, DCX; SGI
+at 16 bits, RLE rows shared or out of order; PSD in every colour mode,
+raw and PackBits, with resources and layer sections; DDS headers of every
+pixel format Pillow reads, BC7 mode-6 blocks and random blocks.
 Pillow's own libwebp, driven through ctypes (``libwebp_encode``), writes
 lossy files with the options Pillow's ``save`` never sets. Each
 file is decoded by Pillow, the reference, and by the port; only the
@@ -1684,6 +1689,7 @@ def fixtures() -> dict:
         compression=5)
     out.update(webp_gif_fixtures())
     out.update(tiff_variant_fixtures())
+    out.update(new_format_fixtures())
     return out
 
 
@@ -1943,6 +1949,480 @@ def env_tiff16(w: int, h: int, seed: int) -> bytes:
                       rows_per_strip=16)
 
 
+# --- QOI, PCX, DCX, SGI, PSD, DDS ---------------------------------------------
+
+
+def qoi_ops(rgba: np.ndarray, channels: int = 4) -> bytes:
+    """A QOI op stream of (h, w, 4) pixels, as the specification's encoder
+    writes it (index, diff, luma, run, RGB and RGBA ops)."""
+    index = [None] * 64
+    prev = (0, 0, 0, 255)
+    out = bytearray()
+    run = 0
+    for px in map(tuple, rgba.reshape(-1, 4).astype(int)):
+        if channels == 3:
+            px = px[:3] + (255,)
+        if px == prev:
+            run += 1
+            if run == 62:
+                out.append(0xC0 | 61)
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        h = (px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64
+        if index[h] == px:
+            out.append(h)
+        else:
+            index[h] = px
+            if px[3] != prev[3]:
+                out += bytes([0xFF, *px])
+            else:
+                dr, dg, db = ((px[i] - prev[i] + 128) % 256 - 128
+                              for i in range(3))
+                if all(-2 <= d <= 1 for d in (dr, dg, db)):
+                    out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+                elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and \
+                        -8 <= db - dg <= 7:
+                    out += bytes([0x80 | (dg + 32),
+                                  (dr - dg + 8) << 4 | (db - dg + 8)])
+                else:
+                    out += bytes([0xFE, *px[:3]])
+        prev = px
+    if run:
+        out.append(0xC0 | (run - 1))
+    return bytes(out)
+
+
+def write_qoi(w: int, h: int, ops: bytes, channels: int = 4,
+              colourspace: int = 0, end: bytes = b"\0" * 7 + b"\1") -> bytes:
+    """A QOI file: the 14-byte header, ``ops`` and the end marker."""
+    return b"qoif" + struct.pack(">IIBB", w, h, channels, colourspace) + ops \
+        + end
+
+
+def pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX run-length data of (h, row bytes) uint8, each row on its own:
+    runs of up to 63, a byte with its two top bits set always as a run."""
+    out = bytearray()
+    for row in rows:
+        starts, lengths = _runs(row[:, None], len(row))
+        for s, n in zip(starts, lengths):
+            v = int(row[s])
+            while n > 0:
+                k = min(n, 63)
+                if k == 1 and v < 0xC0:
+                    out.append(v)
+                else:
+                    out += bytes([0xC0 | k, v])
+                n -= k
+    return bytes(out)
+
+
+def write_pcx(rows: np.ndarray, w: int, bits: int, planes: int, *,
+              version: int = 5, palette16: bytes = bytes(48),
+              trailer: bytes | None = None, stride: int | None = None,
+              origin: tuple = (0, 0), data: bytes | None = None) -> bytes:
+    """A PCX file of (h, planes * stride) row bytes (``stride`` the
+    header's bytes a plane a row, as the rows were laid out), run-length
+    coded (or ``data`` as it is), with a 16-colour header palette and an
+    optional 769-byte trailer."""
+    h = rows.shape[0]
+    stride = rows.shape[1] // planes if stride is None else stride
+    x0, y0 = origin
+    head = struct.pack("<BBBB4HHH", 10, version, 1, bits, x0, y0, x0 + w - 1,
+                       y0 + h - 1, 72, 72) + palette16 + bytes([0, planes]) \
+        + struct.pack("<HH", stride, 1) + bytes(58)
+    body = pcx_rle(rows) if data is None else data
+    return head + body + (trailer or b"")
+
+
+def pcx_planes(idx: np.ndarray, planes: int, stride: int) -> np.ndarray:
+    """(h, w) indices below 2^planes -> (h, planes * stride) rows of bit
+    planes, plane k the indices' bit k."""
+    h, w = idx.shape
+    rows = np.zeros((h, planes * stride), np.uint8)
+    for k in range(planes):
+        packed = np.packbits((idx >> k) & 1, axis=1)
+        rows[:, k * stride:k * stride + packed.shape[1]] = packed
+    return rows
+
+
+def write_dcx(pages: list) -> bytes:
+    """A DCX file: its magic, the page offsets, a 0, the pages."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for page in pages:
+        offsets.append(at)
+        at += len(page)
+    return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets, 0) + \
+        b"".join(pages)
+
+
+def sgi_rle_row(samples: np.ndarray, bpc: int) -> bytes:
+    """One channel of one SGI row: runs (up to 127) and copies, then a 0
+    count; 16-bit samples as big-endian words."""
+    fmt = ">u2" if bpc == 2 else "u1"
+    out = bytearray()
+    starts, lengths = _runs(samples[:, None], len(samples))
+    lit = []
+
+    def flush():
+        while lit:
+            k = min(len(lit), 127)
+            out.extend(np.array([0x80 | k], fmt).tobytes())
+            out.extend(np.array(lit[:k], fmt).tobytes())
+            del lit[:k]
+
+    for s, n in zip(starts, lengths):
+        if n < 3:
+            lit.extend(int(v) for v in samples[s:s + n])
+            continue
+        flush()
+        while n > 0:
+            k = min(n, 127)
+            out.extend(np.array([k, int(samples[s])], fmt).tobytes())
+            n -= k
+    flush()
+    out.extend(np.array([0], fmt).tobytes())
+    return bytes(out)
+
+
+def write_sgi(px: np.ndarray, bpc: int = 1, rle: bool = False, *,
+              dimension: int | None = None, share_rows: bool = False,
+              reverse_rows: bool = False) -> bytes:
+    """An SGI file of (h, w, z) samples (uint16 at ``bpc`` 2), rows stored
+    bottom-up; RLE rows each once (identical rows sharing their data when
+    ``share_rows``; the rows' data in reverse order when
+    ``reverse_rows``)."""
+    h, w, z = px.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHiiI", 474, int(rle), bpc, dimension, w, h, z,
+                       0, (1 << (8 * bpc)) - 1, 0)
+    head = head.ljust(512, b"\0")
+    planes = np.moveaxis(px[::-1], -1, 0)  # (z, h, w), bottom row first
+    if not rle:
+        fmt = ">u2" if bpc == 2 else "u1"
+        return head + planes.astype(fmt).tobytes()
+    rows = [sgi_rle_row(planes[c, y], bpc) for c in range(z) for y in range(h)]
+    order = list(range(len(rows)))[::-1] if reverse_rows else list(
+        range(len(rows)))
+    at = 512 + 8 * len(rows)
+    placed, body = {}, bytearray()
+    starts = [0] * len(rows)
+    for i in order:
+        key = rows[i] if share_rows else i
+        if key not in placed:
+            placed[key] = at + len(body)
+            body += rows[i]
+        starts[i] = placed[key]
+    lengths = [len(r) for r in rows]
+    return head + struct.pack(f">{2 * len(rows)}I", *starts, *lengths) + body
+
+
+def psd_packbits_row(row: bytes) -> bytes:
+    """One PSD row in PackBits: runs of 3-128 bytes, literals of up to
+    128."""
+    out = bytearray()
+    i, n = 0, len(row)
+    lit = bytearray()
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            while lit:
+                out += bytes([min(len(lit), 128) - 1]) + lit[:128]
+                del lit[:128]
+            out += bytes([257 - (j - i), row[i]])
+            i = j
+        else:
+            lit.append(row[i])
+            i += 1
+    while lit:
+        out += bytes([min(len(lit), 128) - 1]) + lit[:128]
+        del lit[:128]
+    return bytes(out)
+
+
+def psd_packbits_segments(planes: np.ndarray) -> tuple[np.ndarray, bytes]:
+    """PackBits of (c, h, w) uint8 planes in NumPy, each row cut into
+    128-byte segments, a run packet where a segment is one value and a
+    literal one elsewhere: (the (c * h,) row byte counts, the data)."""
+    c, h, w = planes.shape
+    n = -(-w // 128)
+    seg = np.zeros((c * h, n, 128), np.uint8)
+    seg.reshape(c * h, -1)[:, :w] = planes.reshape(c * h, w)
+    size = np.full(n, 128)
+    size[-1] = w - 128 * (n - 1)
+    flat = ((seg == seg[..., :1]) | (np.arange(128) >= size[:, None])).all(-1)
+    packets = np.zeros((c * h, n, 129), np.uint8)
+    packets[..., 0] = np.where(flat, 257 - size, size - 1)
+    packets[..., 1:] = seg
+    length = np.where(flat, 2, size + 1)
+    keep = np.arange(129) < length[..., None]
+    return length.sum(1), packets[keep].tobytes()
+
+
+def write_psd(planes: np.ndarray, mode: int, *, bits: int = 8,
+              compression: int = 0, colour_data: bytes = b"",
+              resources: bytes = b"", layers: bytes = b"",
+              channels: int | None = None, width: int | None = None,
+              segments: bool = False) -> bytes:
+    """A PSD file of (c, h, row bytes) uint8 planes (bit-packed rows at 1
+    bit) in colour ``mode``: the header (``channels`` as given, else c),
+    the sections, and the merged image raw (0) or in PackBits (1, each row
+    coded on its own after the table of row byte counts; in 128-byte
+    segments by ``psd_packbits_segments`` when ``segments``)."""
+    c, h, _ = planes.shape
+    width = width or (planes.shape[2] * 8 if bits == 1 else planes.shape[2])
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, width,
+                                 bits, mode)
+    out = head + struct.pack(">I", len(colour_data)) + colour_data \
+        + struct.pack(">I", len(resources)) + resources \
+        + struct.pack(">I", len(layers)) + layers + struct.pack(
+            ">H", compression)
+    if compression == 1 and segments:
+        counts, data = psd_packbits_segments(planes)
+        return out + counts.astype(">u2").tobytes() + data
+    if compression == 1:
+        coded = [psd_packbits_row(bytes(r)) for p in planes for r in p]
+        return out + struct.pack(f">{len(coded)}H", *map(len, coded)) + \
+            b"".join(coded)
+    return out + planes.tobytes()
+
+
+def psd_resource(ident: int, name: bytes, data: bytes) -> bytes:
+    """One image resource block (name and data padded to even)."""
+    label = bytes([len(name)]) + name
+    label += b"\0" * (len(label) % 2)
+    return b"8BIM" + struct.pack(">H", ident) + label + struct.pack(
+        ">I", len(data)) + data + b"\0" * (len(data) % 2)
+
+
+DDPF = {"alpha": 0x1, "fourcc": 0x4, "palette": 0x20, "rgb": 0x40,
+        "luminance": 0x20000}
+
+
+def write_dds(w: int, h: int, payload: bytes, *, flags: int = 0,
+              fourcc: bytes = b"\0\0\0\0", bitcount: int = 0,
+              masks: tuple = (0, 0, 0, 0), dxgi: int | None = None,
+              header_size: int = 124) -> bytes:
+    """A DDS file: the 128-byte header (a DX10 header after it when
+    ``dxgi`` is given, FourCC "DX10"), then ``payload`` (a palette, the
+    pixels or the blocks)."""
+    if dxgi is not None:
+        fourcc, flags = b"DX10", flags | DDPF["fourcc"]
+    head = b"DDS " + struct.pack("<7I", header_size, 0x1007, h, w, 0, 0, 0) \
+        + bytes(44) + struct.pack("<II4sI4I", 32, flags, fourcc, bitcount,
+                                  *masks) + struct.pack("<5I", 0x1000, 0, 0,
+                                                        0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + payload
+
+
+def blocks_of(img: np.ndarray) -> np.ndarray:
+    """(h, w, c) pixels, h and w multiples of 4 -> (blocks, 16, c) in row
+    order of blocks, each block's pixels in row order."""
+    h, w, c = img.shape
+    return img.reshape(h // 4, 4, w // 4, 4, c).transpose(0, 2, 1, 3, 4) \
+        .reshape(-1, 16, c)
+
+
+def bc7_mode6(rgba: np.ndarray) -> bytes:
+    """BC7 mode-6 blocks of (h, w, 4) uint8 pixels (h and w multiples of
+    4): each block's per-channel minimum and maximum as its endpoints (7
+    bits and a p-bit of 0 and 1), 4-bit indices by projection on the
+    segment between them, pixel 0's top index bit clear."""
+    px = blocks_of(rgba).astype(np.int64)
+    n = len(px)
+    e0 = px.min(1) & ~1
+    e1 = px.max(1) | 1
+    d = (e1 - e0)[:, None, :]
+    t = ((px - e0[:, None, :]) * d).sum(2) / np.maximum((d * d).sum(2), 1)
+    idx = np.clip(np.rint(t * 15), 0, 15).astype(np.int64)
+    flip = idx[:, 0] >= 8
+    e0, e1 = np.where(flip[:, None], e1, e0), np.where(flip[:, None], e0, e1)
+    idx = np.where(flip[:, None], 15 - idx, idx)
+    fields = [(np.full(n, 64), 7)]
+    for ch in range(4):
+        fields += [(e0[:, ch] >> 1, 7), (e1[:, ch] >> 1, 7)]
+    fields += [(e0[:, 0] & 1, 1), (e1[:, 0] & 1, 1), (idx[:, 0], 3)]
+    fields += [(idx[:, i], 4) for i in range(1, 16)]
+    bits = np.zeros((n, 128), np.uint8)
+    pos = 0
+    for value, width in fields:
+        for k in range(width):
+            bits[:, pos + k] = (value >> k) & 1
+        pos += width
+    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+
+
+def random_blocks(n: int, size: int, seed: int, fmt: str = "") -> bytes:
+    """``n`` random blocks of ``size`` bytes; for BC6H the first byte's
+    mode bits spread over all 32 codes (reserved ones included)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 256, (n, size), dtype=np.uint8)
+    if fmt.startswith("BC6"):
+        blocks[:, 0] = (blocks[:, 0] & 0xE0) | rng.integers(0, 32, n)
+    return blocks.tobytes()
+
+
+LARGE_BC7 = "bc7_mode6_4096x2048.dds"
+
+
+def smooth_rgba(w: int, h: int) -> np.ndarray:
+    """Smooth seeded-free RGBA content (the large timing files')."""
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = np.stack([0.5 + 0.4 * np.sin(6 * x + 3 * y),
+                    0.5 + 0.4 * np.cos(5 * y) * x, 0.3 + 0.5 * x * y,
+                    0.6 + 0.4 * np.sin(9 * x * y)], -1)
+    return (img * 255).astype(np.uint8)
+
+
+def large_bc7(w: int = 4096, h: int = 2048) -> bytes:
+    """A BC7 (mode 6) DDS of ``smooth_rgba`` content, DXGI BC7_UNORM."""
+    return write_dds(w, h, bc7_mode6(smooth_rgba(w, h)), dxgi=98)
+
+
+def large_psd(w: int = 4096, h: int = 2048) -> tuple[bytes, np.ndarray]:
+    """A PackBits RGBA PSD (``psd_packbits_segments``) of ``sample_image``
+    content with a flat band on the left (run packets), and the (h, w, 4)
+    array it was made from."""
+    img = sample_image(w, h, 61)
+    img[:, :w // 4] = img[:, :1]
+    return write_psd(np.moveaxis(img, -1, 0), 3, compression=1,
+                     segments=True), img
+
+
+def new_format_fixtures() -> dict:
+    """{file name: bytes} of the QOI, PCX, DCX, SGI, PSD and DDS files
+    under ``tests/ldr``."""
+    from PIL import Image
+
+    rgba = sample_image(37, 21, 1)
+    rgb = sample_image(40, 24, 2, 3)
+    gray = sample_image(33, 17, 3, 1)[..., 0]
+    pal = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                       colors=40)
+    out = {}
+    # QOI: Pillow's writer, and op streams showing Pillow's decoder.
+    out["pillow_rgba.qoi"] = pillow_bytes(rgba, "QOI")
+    out["pillow_rgb.qoi"] = pillow_bytes(rgb, "QOI")
+    quirks = bytes([0x05, 0xFF, 10, 20, 30, 40, 0xC4, 0x15, 0x55, 0xFE, 1,
+                    2, 3, 0x80 | 40, 0x9C, 0x3F, 0xC0 | 61])
+    out["ops_rgb_alpha_index.qoi"] = write_qoi(9, 7, quirks, channels=3,
+                                               colourspace=1, end=b"")
+    # PCX: Pillow's writer in each mode, and planar, odd-stride and DCX files.
+    out["pillow_rgb.pcx"] = pillow_bytes(rgb[:, :39], "PCX")
+    out["pillow_p.pcx"] = pillow_bytes(pal, "PCX")
+    out["pillow_l.pcx"] = pillow_bytes(Image.fromarray(gray), "PCX")
+    out["pillow_1.pcx"] = pillow_bytes(Image.fromarray(gray).convert("1"),
+                                       "PCX")
+    idx16 = sample_image(29, 19, 4, 1)[..., 0] >> 4
+    pal16 = sample_image(16, 1, 5, 3)[0].tobytes()
+    out["planes4_p4l.pcx"] = write_pcx(pcx_planes(idx16, 4, 4), 29, 1, 4,
+                                       palette16=pal16, version=2)
+    out["planes2_p2l.pcx"] = write_pcx(pcx_planes(idx16 & 3, 2, 4), 29, 1, 2,
+                                       palette16=pal16, version=3)
+    odd = sample_image(13, 9, 6, 3)
+    out["rgb_odd_width_even_stride.pcx"] = write_pcx(
+        np.concatenate([np.pad(odd[..., c], ((0, 0), (0, 1)))
+                        for c in range(3)], 1), 13, 8, 3, stride=15)
+    out["pages.dcx"] = write_dcx([pillow_bytes(rgb[:9, :11], "PCX"),
+                                  pillow_bytes(rgba[..., :3], "PCX")])
+    # SGI: Pillow's writer, and 16-bit RLE, shared rows, 1-D gray.
+    out["pillow_rgba_rle.sgi"] = pillow_bytes(rgba, "SGI", compression="rle")
+    out["pillow_gray_raw.sgi"] = pillow_bytes(Image.fromarray(gray), "SGI")
+    rgb16 = rgb.astype(np.uint16) * 257 + np.arange(40, dtype=np.uint16)[
+        None, :, None]
+    out["rgb16_rle.sgi"] = write_sgi(rgb16, 2, True)
+    out["rgba16_raw.sgi"] = write_sgi(rgba.astype(np.uint16) * 257, 2)
+    bands = np.repeat(sample_image(17, 3, 7)[:, :, :4], 4, 0)
+    out["shared_rows_rle.sgi"] = write_sgi(bands, 1, True, share_rows=True,
+                                           reverse_rows=True)
+    out["gray_1d.sgi"] = write_sgi(gray[:1, :, None], 1, False, dimension=1)
+    # PSD: this module's writer, every mode, raw and PackBits.
+    planes = np.moveaxis(rgba, -1, 0)
+    out["rgba_packbits.psd"] = write_psd(planes, 3, compression=1,
+                                         resources=psd_resource(
+                                             1005, b"", bytes(16)))
+    out["rgb_raw.psd"] = write_psd(np.moveaxis(rgb, -1, 0), 3)
+    out["rgb_5_channels.psd"] = write_psd(np.concatenate(
+        [planes, planes[:1]]), 3, compression=1)
+    cmyk = np.asarray(Image.fromarray(rgb).convert("CMYK"))
+    out["cmyk_packbits.psd"] = write_psd(255 - np.moveaxis(cmyk, -1, 0), 4,
+                                         compression=1)
+    lab = sample_image(19, 11, 8, 3)
+    out["lab_raw.psd"] = write_psd(np.moveaxis(lab, -1, 0), 9)
+    idx = np.asarray(pal)
+    colours = np.asarray(pal.getpalette(), np.uint8).reshape(-1, 3)
+    out["indexed_packbits.psd"] = write_psd(
+        idx[None], 2, compression=1,
+        colour_data=np.pad(colours, ((0, 256 - len(colours)), (0, 0))).T
+        .tobytes())
+    out["bitmap_raw.psd"] = write_psd(
+        np.packbits(gray > 100, axis=1)[None], 0, bits=1, width=33)
+    out["gray_layers_packbits.psd"] = write_psd(
+        gray[None], 1, compression=1, layers=struct.pack(">I", 4) + bytes(4),
+        resources=psd_resource(1039, b"icc", bytes(7)))
+    out["duotone_raw.psd"] = write_psd(gray[None], 8, colour_data=bytes(10),
+                                       channels=2)
+    # DDS: Pillow's writer, and every other format Pillow reads.
+    b1 = rgba.copy()
+    b1[..., 3] = (b1[..., 3] > 127) * 255
+    out["dxt1_alpha.dds"] = pillow_bytes(b1, "DDS", pixel_format="DXT1")
+    out["dxt5.dds"] = pillow_bytes(rgba, "DDS", pixel_format="DXT5")
+    out["bc5_dx10.dds"] = pillow_bytes(rgb, "DDS", pixel_format="BC5")
+    out["pillow_la.dds"] = pillow_bytes(Image.fromarray(rgba).convert("LA"),
+                                        "DDS")
+    out["bc7_mode6.dds"] = write_dds(40, 24, bc7_mode6(
+        sample_image(40, 24, 9)), dxgi=99)
+    out["bc7_random_17x13.dds"] = write_dds(
+        17, 13, random_blocks(20, 16, 10), dxgi=97)
+    out["bc6h_uf16.dds"] = write_dds(16, 16, random_blocks(16, 16, 11, "BC6"),
+                                     dxgi=95)
+    out["bc6h_sf16.dds"] = write_dds(16, 16, random_blocks(16, 16, 12, "BC6"),
+                                     dxgi=96)
+    out["ati1.dds"] = write_dds(16, 8, random_blocks(8, 8, 13),
+                                fourcc=b"ATI1", flags=DDPF["fourcc"])
+    out["bc5s.dds"] = write_dds(16, 8, random_blocks(8, 16, 14),
+                                fourcc=b"BC5S", flags=DDPF["fourcc"])
+    out["masks_rgb565.dds"] = write_dds(
+        11, 5, sample_image(11, 5, 15, 2).tobytes(), flags=DDPF["rgb"],
+        bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0))
+    out["masks_a4r4g4b4.dds"] = write_dds(
+        11, 5, sample_image(11, 5, 16, 2).tobytes(),
+        flags=DDPF["rgb"] | DDPF["alpha"], bitcount=16,
+        masks=(0xF00, 0xF0, 0xF, 0xF000))
+    out["p8.dds"] = write_dds(
+        12, 6, sample_image(256, 1, 17)[0].tobytes()
+        + sample_image(12, 6, 18, 1).tobytes(), flags=DDPF["palette"],
+        bitcount=8)
+    out["r8g8b8a8_srgb.dds"] = write_dds(9, 7, sample_image(9, 7, 19)
+                                         .tobytes(), dxgi=29)
+    return out
+
+
+def env_qoi(w: int, h: int, seed: int) -> bytes:
+    """An RGB QOI map of ``sample_image``."""
+    return write_qoi(w, h, qoi_ops(sample_image(w, h, seed), 3), channels=3)
+
+
+def env_dds_bc1(w: int, h: int, seed: int) -> bytes:
+    """A DXT1 (BC1) DDS map of ``sample_image``, written by Pillow."""
+    return pillow_bytes(sample_image(w, h, seed, 3), "DDS",
+                        pixel_format="DXT1")
+
+
+def env_sgi_rle(w: int, h: int, seed: int) -> bytes:
+    """An RLE RGB SGI map of ``sample_image``."""
+    return write_sgi(sample_image(w, h, seed, 3), 1, True)
+
+
 def write_fixtures(directory: str = LDR_DIR) -> None:
     """Write ``tests/ldr``: the files, Pillow's decode of each in
     ``pillow_rgba.npz`` and its SHA-256 in ``pillow_sha256.json``."""
@@ -1954,6 +2434,9 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env.gif"] = env_gif(64, 32, 24)
     files["env_jpeg_ycbcr.tif"] = env_tiff_jpeg(64, 32, 25)
     files["env_float.tif"] = env_tiff_float(64, 32, 26)
+    files["env_bc1.dds"] = env_dds_bc1(64, 32, 27)
+    files["env_rle.sgi"] = env_sgi_rle(64, 32, 28)
+    files["env.qoi"] = env_qoi(64, 32, 29)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -1969,6 +2452,9 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
         with open(os.path.join(directory, name), "wb") as f:
             f.write(data)
         digests[name] = hashlib.sha256(pillow_rgba(data).tobytes()).hexdigest()
+    # Made where they are used (8 MiB), only their decodes' digests kept.
+    digests[LARGE_BC7] = hashlib.sha256(pillow_rgba(
+        large_bc7()).tobytes()).hexdigest()
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
 

@@ -1,7 +1,8 @@
 """Hold the LDR readers to Pillow on mutated and generated files.
 
     python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
-        tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|mut] [--n 2000] [--seed 1]
+        tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|qoi|pcx|sgi|psd|dds|
+        mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
 writers with random headers, depths, compressions and layouts; for TIFF
@@ -10,7 +11,13 @@ samples under each predictor, JPEG, CCITT and old-style LZW; for WebP,
 Pillow's writer and Pillow's own libwebp with random options, this
 suite's VP8L writer with random transforms and animations with random
 offsets; for GIF, random code sizes, palettes, transparency, interlace,
-offsets and extensions; a quarter of them then mutated) or, with
+offsets and extensions; for QOI, encoded images and random op streams
+under any channel count; for PCX, every bit and plane count, version,
+stride and trailer, some in a DCX; for SGI, every mode, raw and RLE, with
+random row tables; for PSD, every colour mode and depth, channel counts,
+sections and compressions; for DDS, every pixel format (masks,
+luminance, palette, FourCC and DX10 codes, Pillow's and others) over
+random or encoded blocks; a quarter of them then mutated) or, with
 ``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
 end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
@@ -18,6 +25,8 @@ C++ loops and with their Python versions. A case is BAD when the port
 returns an array that is not Pillow's, or any array where Pillow raises;
 it is a GAP when Pillow reads it and the port raises. BAD cases are
 written under ``build/ldr_fuzz/``; the exit code is 1 if there is one.
+A case Pillow takes longer than ``--pillow-seconds`` on is skipped and
+counted apart.
 The process's address space is capped at 3 GiB (headers may claim huge
 images).
 """
@@ -28,6 +37,7 @@ import argparse
 import io
 import os
 import resource
+import signal
 import struct
 import sys
 import warnings
@@ -46,12 +56,32 @@ from wgpu_path_tracing_tpu_torch.utils.image import decode_image_rgba  # noqa: E
 OUT_DIR = os.path.join(REPO, "build", "ldr_fuzz")
 
 
-def pillow(data: bytes):
+class PillowTimeout(Exception):
+    """Pillow took longer than ``--pillow-seconds`` on a case."""
+
+
+def _timeout(signum, frame):
+    raise PillowTimeout()
+
+
+def pillow(data: bytes, seconds: float = 0.0):
+    """Pillow's RGBA and format, or (None, its error). With ``seconds``,
+    a decode that takes longer raises ``PillowTimeout`` (Pillow's DDS mask
+    decoder is a Python loop a pixel, hours on a header that claims a
+    huge image)."""
+    if seconds:
+        signal.signal(signal.SIGALRM, _timeout)
+        signal.setitimer(signal.ITIMER_REAL, seconds)
     try:
         with Image.open(io.BytesIO(data)) as im:
             return np.asarray(im.convert("RGBA")), im.format
+    except PillowTimeout:
+        raise
     except Exception as exc:
         return None, f"{type(exc).__name__}: {str(exc)[:80]}"
+    finally:
+        if seconds:
+            signal.setitimer(signal.ITIMER_REAL, 0)
 
 
 def port(data: bytes, in_cxx: bool):
@@ -516,11 +546,173 @@ def rnd_gif(rng) -> bytes:
         version=pick(rng, [b"GIF89a", b"GIF87a"]))
 
 
+def rnd_qoi(rng) -> bytes:
+    """An encoded image or random ops, under any channel count, the end
+    marker kept, cut or gone."""
+    w, h = int(rng.integers(1, 12)), int(rng.integers(1, 9))
+    channels = pick(rng, [3, 4, 4, 0, 5])
+    if rng.random() < 0.6:
+        ops = C.qoi_ops(rnd_image(rng, w, h), 3 if channels == 3 else 4)
+    else:
+        ops = bytes(pick(rng, [0xFE, 0xFF, int(rng.integers(0, 256))])
+                    for _ in range(int(rng.integers(1, 4 * w * h))))
+        ops = b"".join(bytes([b]) + rand_bytes(rng, 4 if b == 0xFF else 3
+                                               if b == 0xFE else 0)
+                       for b in ops)
+    return C.write_qoi(w, h, ops, channels=channels,
+                       colourspace=int(rng.integers(0, 3)),
+                       end=pick(rng, [b"\0" * 7 + b"\1", b"", b"\0\0"]))
+
+
+def rnd_pcx(rng) -> bytes:
+    """A PCX of any bit and plane count, version, header stride, box and
+    trailer, rows run-length coded or random, sometimes in a DCX."""
+    w, h = int(rng.integers(1, 20)), int(rng.integers(1, 8))
+    if rng.random() < 0.8:  # a mode Pillow reads
+        bits, planes = pick(rng, [(1, 1), (1, 2), (1, 4), (8, 1), (8, 3)])
+        version = 5 if bits == 8 else pick(rng, [0, 2, 3, 5])
+    else:
+        bits, planes = pick(rng, [1, 2, 4, 8]), pick(rng, [1, 2, 3, 4])
+        version = pick(rng, [5, 0, 2, 3])
+    stride = (w * bits + 7) // 8
+    told = pick(rng, [stride, stride, stride + 1, max(stride - 1, 0),
+                      stride + (stride % 2)])
+    real = stride + (stride % 2 if told != stride else 0)
+    rows = rng.integers(0, 256, (h, planes * real), dtype=np.uint8)
+    if rng.random() < 0.5:
+        rows[:, :] = rows[:, :1]
+    data = None if rng.random() < 0.8 else rand_bytes(
+        rng, int(rng.integers(0, 3 * h * planes * real)))
+    trailer = None
+    r = rng.random()
+    if r < 0.3:
+        trailer = b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8),
+                                      3).tobytes()
+    elif r < 0.6:
+        trailer = bytes([pick(rng, [12, 12, 11])]) + rand_bytes(rng, 768)
+    data = C.write_pcx(rows, w, bits, planes, version=version, stride=told,
+                       palette16=rand_bytes(rng, 48), trailer=trailer,
+                       origin=(int(rng.integers(0, 3)),
+                               int(rng.integers(0, 3))), data=data)
+    if rng.random() < 0.2:
+        data = C.write_dcx([data] * int(rng.integers(1, 3)))
+    return data
+
+
+def rnd_sgi(rng) -> bytes:
+    """An SGI of any mode, raw or RLE (or an unknown compression), its row
+    tables sometimes shared, reordered or random."""
+    w, h = int(rng.integers(1, 10)), int(rng.integers(1, 7))
+    z = pick(rng, [1, 3, 4, 2] if rng.random() < 0.2 else [1, 3, 4])
+    bpc = pick(rng, [1, 2, 3] if rng.random() < 0.2 else [1, 2])
+    px = rnd_image(rng, w, h)[..., :1].repeat(4, -1)[..., :z] if rng.random(
+    ) < 0.3 else np.resize(rnd_image(rng, w, h), (h, w, z))
+    px = px.astype(np.uint16) * 257 if bpc == 2 else px
+    rle = rng.random() < 0.6
+    data = C.write_sgi(px, min(bpc, 2), rle,
+                       dimension=(pick(rng, [1, 2, 3]) if rng.random() < 0.1
+                                  else 1 if z == 1 and rng.random() < 0.3
+                                  else None),
+                       share_rows=bool(rng.random() < 0.3),
+                       reverse_rows=bool(rng.random() < 0.3))
+    d = bytearray(data)
+    d[3] = bpc
+    if rng.random() < 0.1:
+        d[2] = int(rng.integers(2, 5))
+    if rle and rng.random() < 0.2:  # a random table entry
+        at = 512 + 4 * int(rng.integers(0, 2 * z * h))
+        d[at:at + 4] = struct.pack(">I", int(rng.integers(0, len(d) + 20)))
+    return bytes(d)
+
+
+PSD_MODES = [(0, 1), (0, 8), (1, 8), (2, 8), (3, 8), (3, 8), (4, 8), (7, 8),
+             (8, 8), (9, 8), (3, 16), (5, 8)]
+
+
+def rnd_psd(rng) -> bytes:
+    """A PSD of any colour mode and depth, channel count, colour data,
+    resources, layer section and compression."""
+    w, h = int(rng.integers(1, 12)), int(rng.integers(1, 7))
+    mode, bits = pick(rng, PSD_MODES)
+    need = {3: 3, 4: 4, 9: 3}.get(mode, 1)
+    c = max(1, need + pick(rng, [0, 0, 1, 2, -1]))
+    row = (w + 7) // 8 if bits == 1 else w
+    planes = rng.integers(0, 256, (c, h, row), dtype=np.uint8)
+    if rng.random() < 0.5:
+        planes[:] = planes[:, :, :1]
+    colour = pick(rng, [b"", rand_bytes(rng, 768), rand_bytes(rng, 10)])
+    res = b"".join(C.psd_resource(int(rng.integers(1000, 1100)),
+                                  rand_bytes(rng, int(rng.integers(0, 4))),
+                                  rand_bytes(rng, int(rng.integers(0, 9))))
+                   for _ in range(int(rng.integers(0, 3))))
+    layers = pick(rng, [b"", struct.pack(">I", 0), rand_bytes(rng, 12)])
+    data = C.write_psd(planes, mode, bits=bits,
+                       compression=pick(rng, [0, 1, 1, 2]),
+                       colour_data=colour, resources=res, layers=layers,
+                       width=w)
+    return data
+
+
+DXGI_CODES = [70, 71, 72, 73, 74, 76, 77, 79, 80, 81, 82, 83, 84, 95, 96, 97,
+              98, 99, 27, 28, 29, 2, 87]
+FOURCCS = [b"DXT1", b"DXT3", b"DXT5", b"ATI1", b"BC4U", b"ATI2", b"BC5U",
+           b"BC5S", b"BC4S", b"DXT2", b"\0\0\0\0"]
+DDS_MASKS = MASKS + [(0xF00, 0xF0, 0xF, 0xF000), (0xFF,), (0x3, 0xC, 0x30, 0xC0)]
+
+
+def rnd_dds(rng) -> bytes:
+    """A DDS of any pixel format: masks of any bit count, luminance,
+    palette, FourCC and DX10 codes (some Pillow does not implement), over
+    random blocks or BC7 mode-6 blocks, a header size sometimes wrong."""
+    w, h = int(rng.integers(1, 14)), int(rng.integers(1, 10))
+    kind = pick(rng, ["masks", "lum", "pal", "fourcc", "dx10", "dx10",
+                      "bc7"])
+    blocks = ((w + 3) // 4) * ((h + 3) // 4)
+    kw = {"header_size": 124 if rng.random() < 0.95 else pick(rng, [100, 0])}
+    if kind == "masks":
+        masks = pick(rng, DDS_MASKS)
+        masks = (masks + (0, 0, 0, 0))[:4]
+        bitcount = pick(rng, [8, 16, 24, 32, 0, 12, 40])
+        alpha = DDPF_ALPHA if rng.random() < 0.5 else 0
+        return C.write_dds(w, h, rand_bytes(rng, w * h * bitcount // 8),
+                           flags=0x40 | alpha, bitcount=bitcount, masks=masks,
+                           **kw)
+    if kind == "lum":
+        bitcount = pick(rng, [8, 16, 16, 32])
+        alpha = DDPF_ALPHA if rng.random() < 0.7 else 0
+        return C.write_dds(w, h, rand_bytes(rng, w * h * bitcount // 8),
+                           flags=0x20000 | alpha, bitcount=bitcount, **kw)
+    if kind == "pal":
+        return C.write_dds(w, h, rand_bytes(rng, 1024 + w * h), flags=0x20,
+                           bitcount=8, **kw)
+    if kind == "bc7":
+        img = rnd_image(rng, 4 * ((w + 3) // 4), 4 * ((h + 3) // 4))
+        return C.write_dds(w, h, C.bc7_mode6(img), dxgi=98, **kw)
+    size = 16
+    if kind == "fourcc":
+        fourcc = pick(rng, FOURCCS)
+        size = 8 if fourcc in (b"DXT1", b"ATI1", b"BC4U") else 16
+        return C.write_dds(w, h, C.random_blocks(blocks, size, int(
+            rng.integers(0, 1 << 30))), fourcc=fourcc, flags=0x4, **kw)
+    dxgi = pick(rng, DXGI_CODES)
+    if dxgi in (70, 71, 79, 80):
+        size = 8
+    n = w * h if dxgi in (27, 28, 29) else blocks
+    return C.write_dds(w, h, C.random_blocks(n, 4 if n == w * h else size,
+                                             int(rng.integers(0, 1 << 30)),
+                                             "BC6" if dxgi in (95, 96) else ""),
+                       dxgi=dxgi, **kw)
+
+
+DDPF_ALPHA = 0x1
+
+
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "tiff": rnd_tiff, "tiff_big": rnd_tiff_big, "tiff_ycbcr": rnd_tiff_ycbcr,
        "tiff_float": rnd_tiff_float, "tiff_jpeg": rnd_tiff_jpeg,
        "tiff_fax": rnd_tiff_fax, "tiff_oldlzw": rnd_tiff_oldlzw,
-       "webp": rnd_webp, "gif": rnd_gif}
+       "webp": rnd_webp, "gif": rnd_gif, "qoi": rnd_qoi, "pcx": rnd_pcx,
+       "sgi": rnd_sgi, "psd": rnd_psd, "dds": rnd_dds}
 
 
 def main(argv=None) -> int:
@@ -528,12 +720,15 @@ def main(argv=None) -> int:
     ap.add_argument("--kind", default="mut", choices=[*GEN, "mut"])
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--pillow-seconds", type=float, default=30.0,
+                    help="skip a case Pillow takes longer than this on")
     args = ap.parse_args(argv)
     resource.setrlimit(resource.RLIMIT_AS, (3 << 30, 3 << 30))
     warnings.simplefilter("ignore")
     rng = np.random.default_rng(args.seed)
     fixtures = list(C.fixtures().values())
-    counts = {"same": 0, "both_raise": 0, "gap": 0, "bad": 0}
+    counts = {"same": 0, "both_raise": 0, "gap": 0, "bad": 0,
+              "pillow_timeout": 0}
     gaps: dict = {}
     for _ in range(args.n):
         if args.kind == "mut":
@@ -542,7 +737,11 @@ def main(argv=None) -> int:
             data = GEN[args.kind](rng)
             if rng.random() < 0.25:
                 data = mutate(data, rng)
-        want, why = pillow(data)
+        try:
+            want, why = pillow(data, args.pillow_seconds)
+        except PillowTimeout:
+            counts["pillow_timeout"] += 1
+            continue
         verdict = None
         for in_cxx in (True, False):
             got, err = port(data, in_cxx)

@@ -9,7 +9,14 @@
 // * wpt_lzw: libtiff's LZWDecode (new-style codes) or LZWDecodeCompat
 //   (old-style) of one TIFF strip or tile (utils/tiff.py::lzw_plain);
 // * wpt_gif_lzw: Pillow's GifDecode of one GIF frame's LZW data, rows in
-//   interlace order (utils/gif.py::lzw_plain).
+//   interlace order (utils/gif.py::lzw_plain);
+// * wpt_qoi: Pillow's QoiDecoder op loop (utils/qoi.py::ops_plain);
+// * wpt_pcx_rle: Pillow's PcxDecode run-length loop
+//   (utils/pcx.py::rle_plain);
+// * wpt_sgi_rle: Pillow's SgiRleDecode of every row of every channel
+//   (utils/sgi.py::rle_plain);
+// * wpt_packbits_rows: Pillow's PackbitsDecode, a packet that crosses the
+//   end of a row dropping its rest (utils/psd.py::packbits_rows_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
 // count of bytes written.
 
@@ -371,4 +378,194 @@ extern "C" int64_t wpt_gif_lzw(const uint8_t* data, int64_t n, int32_t bits,
       }
     }
   }
+}
+
+
+// Status: 0 done, 1 the data runs out.
+extern "C" int64_t wpt_qoi(const uint8_t* data, int64_t n, int64_t pos,
+                           int64_t pixels, uint8_t* out) {
+  uint8_t index[64][4];
+  bool seen[64] = {false};
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t k = 0;
+  while (k < pixels) {
+    if (pos >= n) return 1;
+    const int b = data[pos++];
+    uint8_t v[4];
+    if (b == 0xFE) {
+      if (pos + 3 > n) return 1;
+      v[0] = data[pos];
+      v[1] = data[pos + 1];
+      v[2] = data[pos + 2];
+      v[3] = prev[3];
+      pos += 3;
+    } else if (b == 0xFF) {
+      if (pos + 4 > n) return 1;
+      std::memcpy(v, data + pos, 4);
+      pos += 4;
+    } else if ((b >> 6) == 0) {
+      if (seen[b]) {
+        std::memcpy(v, index[b], 4);
+      } else {
+        v[0] = v[1] = v[2] = v[3] = 0;
+      }
+    } else if ((b >> 6) == 1) {
+      v[0] = static_cast<uint8_t>(prev[0] + ((b >> 4) & 3) - 2);
+      v[1] = static_cast<uint8_t>(prev[1] + ((b >> 2) & 3) - 2);
+      v[2] = static_cast<uint8_t>(prev[2] + (b & 3) - 2);
+      v[3] = prev[3];
+    } else if ((b >> 6) == 2) {
+      if (pos >= n) return 1;
+      const int second = data[pos++];
+      const int dg = (b & 0x3F) - 32;
+      v[0] = static_cast<uint8_t>(prev[0] + dg + (second >> 4) - 8);
+      v[1] = static_cast<uint8_t>(prev[1] + dg);
+      v[2] = static_cast<uint8_t>(prev[2] + dg + (second & 15) - 8);
+      v[3] = prev[3];
+    } else {
+      int64_t run = (b & 0x3F) + 1;
+      if (run > pixels - k) run = pixels - k;
+      for (int64_t i = 0; i < run; ++i) std::memcpy(out + 4 * (k + i), prev, 4);
+      k += run;
+      continue;
+    }
+    std::memcpy(prev, v, 4);
+    const int h = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64;
+    std::memcpy(index[h], v, 4);
+    seen[h] = true;
+    std::memcpy(out + 4 * k, v, 4);
+    ++k;
+  }
+  return 0;
+}
+
+// Status: 0 done, 1 the data runs out, 2 a run crosses the end of a row.
+extern "C" int64_t wpt_pcx_rle(const uint8_t* data, int64_t n, int64_t pos,
+                               int64_t row_bytes, int64_t rows, uint8_t* out) {
+  const int64_t total = row_bytes * rows;
+  int64_t at = 0, x = 0;
+  while (at < total) {
+    if (pos >= n) return 1;
+    const int b = data[pos];
+    if ((b & 0xC0) == 0xC0) {
+      if (pos + 1 >= n) return 1;
+      const int64_t k = b & 0x3F;
+      if (x + k > row_bytes) return 2;
+      std::memset(out + at, data[pos + 1], k);
+      at += k;
+      x += k;
+      pos += 2;
+    } else {
+      out[at++] = static_cast<uint8_t>(b);
+      ++x;
+      ++pos;
+    }
+    if (x == row_bytes) x = 0;
+  }
+  return 0;
+}
+
+// One channel of one SGI RLE row (Pillow's expandrow / expandrow2): 0, 1
+// (the chain had not ended by its last counted packet) or -1 (overrun).
+static int sgi_row(const uint8_t* data, int64_t pos, int64_t count_in,
+                   uint8_t* row, int ch, int z, int bpc, int64_t w,
+                   int64_t last) {
+  int64_t x = 0;
+  int64_t dst = static_cast<int64_t>(ch) * bpc;
+  const int64_t step = static_cast<int64_t>(z) * bpc;
+  for (int64_t k = count_in; k > 0; --k) {
+    if (pos + bpc - 1 > last) return -1;
+    const int pixel = data[pos + bpc - 1];
+    pos += bpc;
+    if (k == 1 && pixel != 0) return 1;
+    const int count = pixel & 0x7F;
+    if (!count) return 0;
+    if (x + count > w) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (pos + static_cast<int64_t>(bpc) * count > last) return -1;
+      for (int i = 0; i < count; ++i) {
+        std::memcpy(row + dst, data + pos, bpc);
+        pos += bpc;
+        dst += step;
+      }
+    } else {
+      if ((bpc == 2 ? pos + 2 : pos) > last) return -1;
+      for (int i = 0; i < count; ++i) {
+        std::memcpy(row + dst, data + pos, bpc);
+        dst += step;
+      }
+      pos += bpc;
+    }
+  }
+  return 0;
+}
+
+// Rows in stored order (bottom first), w * z * bpc bytes each, zero past a
+// chain that had not ended. Status: 0, 1 the tables do not fit in the
+// file, 2 a row outside the file or overrunning its width.
+extern "C" int64_t wpt_sgi_rle(const uint8_t* data, int64_t n, int64_t w,
+                               int64_t h, int32_t z, int32_t bpc,
+                               uint8_t* out) {
+  const int64_t header = 512;
+  const int64_t size = n - header;
+  const int64_t tablen = static_cast<int64_t>(z) * h;
+  if (size < 8 * tablen) return 1;
+  auto be32 = [&](int64_t at) {
+    return static_cast<uint32_t>(data[at]) << 24 |
+           static_cast<uint32_t>(data[at + 1]) << 16 |
+           static_cast<uint32_t>(data[at + 2]) << 8 | data[at + 3];
+  };
+  const int64_t row_bytes = w * z * bpc;
+  std::vector<uint8_t> row(row_bytes, 0);
+  for (int64_t y = 0; y < h; ++y) {
+    for (int ch = 0; ch < z; ++ch) {
+      const int64_t t = y + ch * h;
+      const uint32_t off = be32(header + 4 * t);
+      const uint32_t len = be32(header + 4 * (tablen + t));
+      if (off < header) return 2;
+      // Pillow passes the length on as a signed int (a negative one
+      // decodes nothing) and checks it against nothing.
+      const int status = sgi_row(data, off, static_cast<int32_t>(len),
+                                 row.data(), ch, z, bpc, w, n - 1);
+      if (status == -1) return 2;
+      if (status == 1) return 0;
+    }
+    std::memcpy(out + y * row_bytes, row.data(), row_bytes);
+  }
+  return 0;
+}
+
+// Status: 0 done, 1 the data runs out.
+extern "C" int64_t wpt_packbits_rows(const uint8_t* data, int64_t n,
+                                     int64_t pos, int64_t row_bytes,
+                                     int64_t rows, uint8_t* out) {
+  const int64_t total = row_bytes * rows;
+  int64_t at = 0, x = 0;
+  while (at < total) {
+    if (pos >= n) return 1;
+    const int b = data[pos];
+    if (b == 0x80) {
+      ++pos;
+      continue;
+    }
+    int64_t k;
+    if (b & 0x80) {
+      if (pos + 2 > n) return 1;
+      k = 257 - b;
+      if (k > row_bytes - x) k = row_bytes - x;
+      std::memset(out + at, data[pos + 1], k);
+      pos += 2;
+    } else {
+      if (pos + b + 2 > n) return 1;
+      k = b + 1;
+      if (k > row_bytes - x) k = row_bytes - x;
+      std::memcpy(out + at, data + pos + 1, k);
+      pos += b + 2;
+    }
+    at += k;
+    x += k;
+    if (x == row_bytes) x = 0;
+  }
+  return 0;
 }

@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Eight sources,
+The counterpart of the JAX package's ``accel/native.py``. Nine sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -19,7 +19,10 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 * ``image_scan.cpp``: the per-packet loops of the LDR readers,
   ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``,
   ``utils/tiff.py::packbits_plain`` and ``lzw_plain`` (new- and old-style
-  codes), and ``utils/gif.py::lzw_plain``;
+  codes), ``utils/gif.py::lzw_plain``, ``utils/qoi.py::ops_plain``,
+  ``utils/pcx.py::rle_plain``, ``utils/sgi.py::rle_plain`` and
+  ``utils/psd.py::packbits_rows_plain``;
+* ``bcn_scan.cpp``: the BC1-BC7 block decoders of ``utils/bcn.py``;
 * ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
 * ``webp_scan.cpp``: the WebP decoding loops, ``utils/webp.py::
   vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
@@ -57,7 +60,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
            "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp",
-           "fax_scan.cpp")
+           "fax_scan.cpp", "bcn_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -138,8 +141,22 @@ SIGNATURES = {
     "wpt_yuv_to_rgb": [_U8P, _I64, _U8P, _U8P, _I64, _I32, _I32, _U8P],
     # filtered alpha, width, height, filter method, out alpha
     "wpt_alpha_unfilter": [_U8P, _I32, _I32, _I32, _U8P],
+    # data, its length, start, pixels, out RGBA
+    "wpt_qoi": [ctypes.c_char_p, _I64, _I64, _I64, _U8P],
+    # data, its length, start, bytes a row, rows, out
+    "wpt_pcx_rle": [ctypes.c_char_p, _I64, _I64, _I64, _I64, _U8P],
+    # data, its length, width, height, channels, bytes a sample, out rows
+    "wpt_sgi_rle": [ctypes.c_char_p, _I64, _I64, _I64, _I32, _I32, _U8P],
+    # data, its length, start, bytes a row, rows, out
+    "wpt_packbits_rows": [ctypes.c_char_p, _I64, _I64, _I64, _I64, _U8P],
+    # data, its length, start, format (BCN_CODES), width, height, out
+    "wpt_bcn": [ctypes.c_char_p, _I64, _I64, _I32, _I64, _I64, _U8P],
 }
 JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
+# utils/bcn.py's formats -> (wpt_bcn's code, bytes a pixel).
+BCN_CODES = {"BC1": (1, 4), "BC2": (2, 4), "BC3": (3, 4), "BC4": (4, 1),
+             "BC5": (5, 3), "BC5S": (6, 3), "BC6H": (7, 3), "BC6HS": (8, 3),
+             "BC7": (9, 4)}
 PACK_CODES = {"none": 0, "ffd": 1}
 
 
@@ -572,4 +589,49 @@ def alpha_unfilter_native(rows: np.ndarray, method: int) -> np.ndarray:
     h, w = rows.shape
     out = np.empty((h, w), np.uint8)
     lib().wpt_alpha_unfilter(_ptr(rows, _U8P), w, h, method, _ptr(out, _U8P))
+    return out
+
+
+def qoi_native(data: bytes, pos: int, pixels: int) -> tuple[np.ndarray, int]:
+    """``utils/qoi.py::ops_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros((pixels, 4), np.uint8)
+    status = lib().wpt_qoi(data, len(data), pos, pixels, _ptr(out, _U8P))
+    return out, int(status)
+
+
+def pcx_rle_native(data: bytes, pos: int, row_bytes: int, rows: int
+                   ) -> tuple[np.ndarray, int]:
+    """``utils/pcx.py::rle_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros((rows, row_bytes), np.uint8)
+    status = lib().wpt_pcx_rle(data, len(data), pos, row_bytes, rows,
+                               _ptr(out, _U8P))
+    return out, int(status)
+
+
+def sgi_rle_native(data: bytes, w: int, h: int, z: int, bpc: int
+                   ) -> tuple[np.ndarray, int]:
+    """``utils/sgi.py::rle_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros((h, w * z * bpc), np.uint8)
+    status = lib().wpt_sgi_rle(data, len(data), w, h, z, bpc,
+                               _ptr(out, _U8P))
+    return out, int(status)
+
+
+def packbits_rows_native(data: bytes, pos: int, row_bytes: int, rows: int
+                         ) -> tuple[np.ndarray, int]:
+    """``utils/psd.py::packbits_rows_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros((rows, row_bytes), np.uint8)
+    status = lib().wpt_packbits_rows(data, len(data), pos, row_bytes, rows,
+                                     _ptr(out, _U8P))
+    return out, int(status)
+
+
+def bcn_native(data: bytes, pos: int, fmt: str, w: int, h: int
+               ) -> np.ndarray:
+    """``utils/bcn.py::decode_plain`` in C++ (``bcn_scan.cpp``): the
+    (h, w, channels) pixels of ``fmt``'s blocks from ``pos``."""
+    code, chans = BCN_CODES[fmt]
+    out = np.empty((h, w, chans), np.uint8)
+    if lib().wpt_bcn(data, len(data), pos, code, w, h, _ptr(out, _U8P)):
+        raise ValueError(f"the {fmt} blocks end before the image does")
     return out

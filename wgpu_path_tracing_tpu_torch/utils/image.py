@@ -335,36 +335,44 @@ def read_png(path: str) -> np.ndarray:
 
 def _readers() -> dict:
     """The decoders of the formats this package reads, by Pillow's name."""
-    from wgpu_path_tracing_tpu_torch.utils import (bmp, gif, netpbm, tga,
-                                                   tiff, webp)
+    from wgpu_path_tracing_tpu_torch.utils import (bmp, dds, gif, netpbm, pcx,
+                                                   psd, qoi, sgi, tga, tiff,
+                                                   webp)
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
             "GIF": gif.decode_gif_rgba, "JPEG": decode_jpeg_rgba,
             "PPM": netpbm.decode_netpbm_rgba, "PNG": decode_png_rgba,
-            "CUR": bmp.decode_cur_rgba, "ICO": bmp.decode_ico_rgba,
-            "TIFF": tiff.decode_tiff_rgba, "TGA": tga.decode_tga_rgba,
+            "CUR": bmp.decode_cur_rgba, "PCX": pcx.decode_pcx_rgba,
+            "DCX": pcx.decode_dcx_rgba, "DDS": dds.decode_dds_rgba,
+            "ICO": bmp.decode_ico_rgba, "TIFF": tiff.decode_tiff_rgba,
+            "PSD": psd.decode_psd_rgba, "QOI": qoi.decode_qoi_rgba,
+            "SGI": sgi.decode_sgi_rgba, "TGA": tga.decode_tga_rgba,
             "WEBP": webp.decode_webp_rgba}
 
 
 def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
     """LDR image bytes -> (H, W, 4) uint8 RGBA, what Pillow's
     ``Image.open(...).convert("RGBA")`` returns. The format is the one
-    ``Image.open`` would choose, found as it finds it (``utils/sniff.py``):
-    the bytes, not a file name or a MIME type, and Pillow's order of
-    formats. PNG (``decode_png_rgba``), JPEG (``utils/jpeg.py``), BMP, DIB,
-    ICO and CUR (``utils/bmp.py``), GIF (``utils/gif.py``, the first
-    frame), netpbm (``utils/netpbm.py``), TIFF (``utils/tiff.py``), TGA
-    (``utils/tga.py``) and WebP (``utils/webp.py``, lossless, lossy with
-    its alpha, the first frame of an animation) are read. The walk goes on
-    past a format only where that format's reader says Pillow's ``_open``
-    would pass the bytes on (TGA, which has no signature, passes on a RIFF
-    header, so WebP files reach WEBP). Bytes Pillow would open as a format
-    this package does not read (AVIF, QOI, ...) raise ``ValueError`` at the
-    first such format, naming ``name`` and the format, and bytes no format
-    takes raise ``ValueError`` too; a variant of a read format that Pillow
-    opens but this package does not read raises ``NotImplementedError``
-    naming ``name``."""
+    ``Image.open`` would choose, found as it finds it
+    (``utils/sniff.py``): the bytes, not a file name or a MIME type, and
+    Pillow's order of formats. PNG (``decode_png_rgba``), JPEG
+    (``utils/jpeg.py``), BMP, DIB, ICO and CUR (``utils/bmp.py``), GIF
+    (``utils/gif.py``, the first frame), netpbm (``utils/netpbm.py``),
+    TIFF (``utils/tiff.py``), TGA (``utils/tga.py``), WebP
+    (``utils/webp.py``, lossless, lossy with its alpha, the first frame of
+    an animation), QOI (``utils/qoi.py``), PCX and DCX (``utils/pcx.py``),
+    SGI (``utils/sgi.py``), PSD (the merged image, ``utils/psd.py``) and
+    DDS (``utils/dds.py``, BC1-BC7 through ``utils/bcn.py``) are read. The
+    walk goes on past a format only where that format's reader says
+    Pillow's ``_open`` would pass the bytes on (TGA, which has no
+    signature, passes on a RIFF header, so WebP files reach WEBP). Bytes
+    Pillow would open as a format this package does not read (AVIF, FTEX,
+    XPM, ...) raise ``ValueError`` at the first such format, naming
+    ``name`` and the format, and bytes no format takes raise
+    ``ValueError`` too; a variant of a read format that Pillow opens but
+    this package does not read raises ``NotImplementedError`` naming
+    ``name``."""
     from wgpu_path_tracing_tpu_torch.utils import sniff
 
     readers = _readers()

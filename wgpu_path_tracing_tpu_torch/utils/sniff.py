@@ -128,6 +128,19 @@ def _pcx_takes(data: bytes) -> bool:
     return x1 + 1 > x0 and y1 + 1 > y0
 
 
+def _gbr_takes(data: bytes) -> bool:
+    """GbrImageFile._open: a header of at least 20 bytes, version 1 or 2
+    (2 with the "GIMP" magic at byte 20), a size and a depth of 1 or 4;
+    anything else passes the bytes on."""
+    if len(data) < 20:
+        return False
+    header, version, w, h, depth = struct.unpack_from(">5I", data)
+    if header < 20 or version not in (1, 2) or w == 0 or h == 0 \
+            or depth not in (1, 4):
+        return False
+    return version == 1 or (len(data) >= 28 and data[20:24] == b"GIMP")
+
+
 _IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 _IM_TAGS = {"Comment", "Date", "Digitalization equipment",
             "File size (no of images)", "Lut", "Name", "Scale (x,y)",
@@ -259,6 +272,7 @@ def _spider_takes(data: bytes) -> bool:
 # of whether Pillow's _open might take the bytes or end the search there.
 TAKES = {
     "PCX": lambda d: ACCEPT["PCX"](d[:16]) and _pcx_takes(d),
+    "GBR": lambda d: ACCEPT["GBR"](d[:16]) and _gbr_takes(d),
     "IM": _im_takes,
     "IMT": _imt_takes,
     "IPTC": _iptc_takes,
