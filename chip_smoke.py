@@ -163,7 +163,15 @@ and runs these phases, one line of output each:
    s and timed with the plain versions too, the plain versions on files
    of ``ASSET_PYTHON_SIZE``, and the same
    box with BC7 DDS, BC1 DDS, PSD and QOI sidecar textures
-   (``ASSET_TEXTURES``) against its plain path;
+   (``ASSET_TEXTURES``) against its plain path; then the FTEX, BLP, ICNS,
+   Sun raster, MSP, XBM and XPM readers (their committed files are among
+   the ``tests/ldr`` files held to Pillow both ways): a 4096x2048 RLE Sun
+   raster and DXT5 BLP2 made by the test suite's writers, each decoded
+   with the C++ loops within 5 s and with the plain versions to the
+   SHA-256 of Pillow's decode, both ways on files of
+   ``LEGACY_PYTHON_SIZE``, and the same box with DXT5 BLP2, BLP1 JPEG,
+   it32 ICNS and XPM sidecar textures (``LEGACY_TEXTURES``) against its
+   plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -179,7 +187,8 @@ and runs these phases, one line of output each:
    then the material box at 512x512 x 8 spp under each committed
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
    map, a 16-bit RGB TIFF map, a lossy WebP map, a GIF map, a JPEG-in-TIFF
-   YCbCr map and a float TIFF map (``RenderConfig.env_map``): its launches
+   YCbCr map, a float TIFF map, a BC1 DDS map, an RLE SGI map, an RLE Sun
+   raster map and a DXT1 BLP2 map (``RenderConfig.env_map``): its launches
    (K1, K2, K2's ENV instantiation) and its image against the plain
    path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
@@ -2775,6 +2784,20 @@ ASSET_TEXTURES = ("bc7_mode6.dds", "dxt1_alpha.dds", "rgba_packbits.psd",
                   "pillow_rgba.qoi")
 ASSET_ENV_MAPS = (("env_bc1.dds", "env_dds_bc1"), ("env_rle.sgi",
                                                     "env_sgi_rle"))
+# The legacy-format-textured box: the same scene with a DXT5 BLP2 of a
+# width that is no multiple of 4 (its rows sheared as Pillow reads them), a
+# BLP1 JPEG, a run-length it32 ICNS with its t8mk mask and an XPM as its
+# four sidecar textures; and the env box under an RLE Sun raster map and a
+# DXT1 BLP2 map.
+LEGACY_TEXTURES = ("dxt5_18x10_sheared.blp", "jpeg_blp1.blp",
+                   "it32_rle_t8mk.icns", "palette.xpm")
+LEGACY_ENV_MAPS = (("env_rle.ras", "env_sun_rle"), ("env_dxt1.blp",
+                                                    "env_blp_dxt1"))
+# The legacy-format decode timings: a 4096x2048 RLE 24-bit Sun raster and
+# DXT5 BLP2 (their Pillow decodes' SHA-256 in tests/ldr/pillow_sha256.json)
+# made here by the test suite's writers, in C++ and with the plain
+# versions; the plain versions on files of LEGACY_PYTHON_SIZE too.
+LEGACY_PYTHON_SIZE = (1024, 512)
 # The asset-format decode timings: a 4096x2048 BC7 DDS (its Pillow decode's
 # SHA-256 in tests/ldr/pillow_sha256.json) and PackBits RGBA PSD made here
 # by the test suite's writers, in C++ and with the plain versions; the
@@ -3014,6 +3037,7 @@ def phase_gltf(dev, smi, report, profile: str | None):
         report["gltf"]["webp_gif"] = webp_gif_scene(tmp, smi, report)
         report["gltf"]["tiff_variants"] = tiff_variant_scene(tmp, smi, report)
         report["gltf"]["assets"] = asset_scene(tmp, smi, report)
+        report["gltf"]["legacy"] = legacy_scene(tmp, smi, report)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -3174,9 +3198,9 @@ def ldr_scene(tmp: str, smi: str, report: dict) -> dict:
                 raise AssertionError(f"{name}: the decode differs from "
                                      "Pillow's")
     say("gltf", f"{len(cases)} committed TGA, BMP, DIB, ICO, CUR, netpbm, "
-        "WebP, GIF, TIFF, QOI, PCX, DCX, SGI, PSD and DDS files decode "
-        "array-equal to Pillow's, with the C++ loops and with the Python "
-        "ones")
+        "WebP, GIF, TIFF, QOI, PCX, DCX, SGI, PSD, DDS, FTEX, BLP, ICNS, Sun "
+        "raster, MSP, XBM and XPM files decode array-equal to Pillow's, "
+        "with the C++ loops and with the Python ones")
     w, h = LDR_TIMING_SIZE
     img = sample_image(w, h, 31)
     img[..., 3] = 255
@@ -3371,6 +3395,42 @@ def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
     return out
 
 
+def timed_decodes(files: list, smi: str) -> dict:
+    """Each (name, bytes, want, python) of ``files`` decoded with the C++
+    loops and, where ``python``, with the plain ones, each decode held to
+    ``want``: the SHA-256 of Pillow's decode, the array the file was made
+    from, or (None) the C++ decode; every C++ decode within
+    JPEG_DECODE_BOUND_S. Returns {name: {"cxx": s, "python": s}}."""
+    seconds = {}
+    for name, data, want, python in files:
+        both = decode_both(data, name, python)
+        what = ("Pillow's decode (SHA-256)" if isinstance(want, str) else
+                "the C++ decode" if want is None else
+                "the array it was made from")
+        for rgba, _ in both:
+            if isinstance(want, str):
+                ok = hashlib.sha256(rgba.tobytes()).hexdigest() == want
+            elif want is None:
+                ok = np.array_equal(rgba, both[0][0])
+            else:
+                ok = np.array_equal(rgba, want)
+            if not ok:
+                raise AssertionError(f"{name}: the decode differs from "
+                                     f"{what}")
+        seconds[name] = {"cxx": both[0][1]}
+        if python:
+            seconds[name]["python"] = both[1][1]
+        say("gltf", f"{name} ({len(data)} bytes): decoded in "
+            f"{both[0][1]:.3f} s with the C++ loops"
+            + (f", {both[1][1]:.3f} s with the plain ones" if python else "")
+            + f" on this host, equal to {what}, on {smi}")
+    slow = {n: t["cxx"] for n, t in seconds.items()
+            if t["cxx"] > JPEG_DECODE_BOUND_S}
+    if slow:
+        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    return seconds
+
+
 def asset_scene(tmp: str, smi: str, report: dict) -> dict:
     """The QOI, PCX (DCX), SGI, PSD and DDS readers on this host
     (``ldr_scene`` has held every committed file of theirs to its Pillow
@@ -3396,36 +3456,7 @@ def asset_scene(tmp: str, smi: str, report: dict) -> dict:
              (f"packbits_rgba_{w}x{h}.psd", psd, img, True),
              (f"bc7_mode6_{pw}x{ph}.dds", small_bc7, None, True),
              (f"packbits_rgba_{pw}x{ph}.psd", small_psd, small_img, True)]
-    seconds = {}
-    for name, data, want, python in files:
-        both = decode_both(data, name, python)
-        for rgba, _ in both:
-            if isinstance(want, str):
-                ok = hashlib.sha256(rgba.tobytes()).hexdigest() == want
-            elif want is None:  # the plain decoders against the C++ one
-                ok = np.array_equal(rgba, both[0][0])
-            else:
-                ok = np.array_equal(rgba, want)
-            if not ok:
-                raise AssertionError(
-                    f"{name}: the decode differs from "
-                    + ("Pillow's (SHA-256)" if isinstance(want, str) else
-                       "the C++ decode" if want is None else
-                       "the array it was made from"))
-        seconds[name] = {"cxx": both[0][1]}
-        if python:
-            seconds[name]["python"] = both[1][1]
-        say("gltf", f"{name} ({len(data)} bytes): decoded in "
-            f"{both[0][1]:.3f} s with the C++ loops"
-            + (f", {both[1][1]:.3f} s with the plain ones" if python else "")
-            + " on this host, equal to "
-            + ("Pillow's decode (SHA-256)" if isinstance(want, str) else
-               "the C++ decode" if want is None else
-               "the array it was made from") + f", on {smi}")
-    slow = {n: t["cxx"] for n, t in seconds.items()
-            if t["cxx"] > JPEG_DECODE_BOUND_S}
-    if slow:
-        raise AssertionError(f"decodes over {JPEG_DECODE_BOUND_S} s: {slow}")
+    seconds = timed_decodes(files, smi)
     out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
            "python_size": list(ASSET_PYTHON_SIZE)}
     texture_files = {}
@@ -3434,6 +3465,42 @@ def asset_scene(tmp: str, smi: str, report: dict) -> dict:
             texture_files[name] = f.read()
     out.update(ldr_box(tmp, texture_files, smi, report, ASSET_TEXTURES,
                        "gltf_assets"))
+    return out
+
+
+def legacy_scene(tmp: str, smi: str, report: dict) -> dict:
+    """The FTEX, BLP, ICNS, Sun raster, MSP, XBM and XPM readers on this
+    host (``ldr_scene`` has held every committed file of theirs to its
+    Pillow array both ways): the decode seconds of a 4096x2048 RLE 24-bit
+    Sun raster and a 4096x2048 DXT5 BLP2 made here by the test suite's
+    writers, each against the SHA-256 of Pillow's decode, in C++ (under
+    JPEG_DECODE_BOUND_S) and with the plain versions (the Python RLE loop
+    and the NumPy DXT decoder, what a host without g++ runs); both ways on
+    files of LEGACY_PYTHON_SIZE (against the C++ decode); then the
+    legacy-textured box (``ldr_box`` with LEGACY_TEXTURES)."""
+    cases_module = image_cases()
+    with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
+        digests = json.load(f)
+    w, h = LDR_TIMING_SIZE
+    pw, ph = LEGACY_PYTHON_SIZE
+    ((ras, _), blp, (small_ras, _), small_blp), make_s = timed(lambda: (
+        cases_module.large_sun(w, h), cases_module.large_blp(w, h),
+        cases_module.large_sun(pw, ph), cases_module.large_blp(pw, ph)))
+    files = [(cases_module.LARGE_SUN, ras, digests[cases_module.LARGE_SUN],
+              True),
+             (cases_module.LARGE_BLP, blp, digests[cases_module.LARGE_BLP],
+              True),
+             (f"rle24_{pw}x{ph}.ras", small_ras, None, True),
+             (f"dxt5_{pw}x{ph}.blp", small_blp, None, True)]
+    seconds = timed_decodes(files, smi)
+    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
+           "python_size": list(LEGACY_PYTHON_SIZE)}
+    texture_files = {}
+    for name in LEGACY_TEXTURES:
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            texture_files[name] = f.read()
+    out.update(ldr_box(tmp, texture_files, smi, report, LEGACY_TEXTURES,
+                       "gltf_legacy"))
     return out
 
 
@@ -3618,7 +3685,8 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
     for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
-                            + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS):
+                            + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS
+                            + LEGACY_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

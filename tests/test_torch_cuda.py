@@ -1561,6 +1561,65 @@ def test_renderer_asset_env_map_equals_plain_path(dev, name):
                                   plain_render(r, spp=2).view(np.uint32))
 
 
+def test_renderer_legacy_textured_scene_equals_plain_path(
+        dev, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s legacy-textured box (a sheared DXT5 BLP2, a BLP1
+    JPEG, a run-length it32 ICNS with its mask, an XPM as sidecar
+    textures) through ``load_model`` and the CUDA bounce: the C++ DXT and
+    ICNS loops taken, the walk and K2 in the scene's texture mode, equal
+    to its plain path on every pixel."""
+    from chip_smoke import LEGACY_TEXTURES, ldr_cases, with_sidecar_images
+    from wgpu_path_tracing_tpu_torch.accel import native
+
+    assert native.native_available()
+    calls = {}
+    for fn in ("blp_dxt_native", "icns_rle_native"):
+        real = getattr(native, fn)
+
+        def counted(*args, _real=real, _fn=fn):
+            calls[_fn] = calls.get(_fn, 0) + 1
+            return _real(*args)
+
+        monkeypatch.setattr(native, fn, counted)
+    files = {name: data for name, data, _ in ldr_cases()}
+    for name in LEGACY_TEXTURES:
+        (tmp_path / name).write_bytes(files[name])
+    path = tmp_path / "legacy_textured.gltf"
+    path.write_text(with_sidecar_images(
+        scene_to_glb(textured_cornell(tessellation=12)),
+        list(LEGACY_TEXTURES)))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    assert set(calls) == {"blp_dxt_native", "icns_rle_native"}, calls
+    mode = r.stats()["texture"]
+    assert r.stats()["intersector"] == "walk" and mode in ("fat", "per_slot")
+    before = (K3.Counter.launches, K2.Counter.by_mode[mode])
+    kernel = r.render(spp=1)
+    assert (K3.Counter.launches, K2.Counter.by_mode[mode]) == (
+        before[0] + 2 * r.config.max_bounces,
+        before[1] + r.config.max_bounces)
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["env_rle.ras", "env_dxt1.blp"])
+def test_renderer_legacy_env_map_equals_plain_path(dev, name):
+    """The material box under ``chip_smoke.py``'s RLE Sun raster map and
+    DXT1 BLP2 map: K2's ENV instantiation at every bounce, the image equal
+    to the plain path's."""
+    from chip_smoke import LDR_DIR
+
+    r = Renderer(RenderConfig(width=W, height=H,
+                              env_map=f"{LDR_DIR}/{name}", env_intensity=1.5),
+                 device="cuda")
+    r.load_scene(material_test_box())
+    before = K2.Counter.env
+    kernel = r.render(spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=2).view(np.uint32))
+
+
 def test_committed_ldr_files_decode_to_their_pillow_arrays_here(dev):
     """The files under ``tests/ldr`` decode on the card's host (no Pillow)
     to ``pillow_rgba.npz``, with the C++ loops and with the Python ones."""

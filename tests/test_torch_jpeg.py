@@ -480,8 +480,8 @@ def test_images_are_sniffed_by_their_bytes(tmp_path):
     np.testing.assert_array_equal(IMAGE.decode_image_rgba(jpeg),
                                   pillow_rgba(jpeg))
     with pytest.raises(ValueError,
-                       match="x.xpm: Pillow would open this file as XPM"):
-        IMAGE.decode_image_rgba(b"/* XPM */" + bytes(20), "x.xpm")
+                       match="x.fits: Pillow would open this file as FITS"):
+        IMAGE.decode_image_rgba(b"SIMPLE  =  T" + bytes(20), "x.fits")
 
 
 # --- against the JAX package --------------------------------------------------

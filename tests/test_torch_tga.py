@@ -260,8 +260,9 @@ def test_sniffing_follows_pillows_order():
     as TGA. A TGA header that PCX's test takes (an ID field of 10 bytes)
     is PCX's, an unknown PCX mode to Pillow, which raises, and the port
     raises so. A GIF and a WebP (tried after TGA, whose header checks a
-    RIFF file fails) read as Pillow reads them; a format still not read
-    (XPM) raises naming it; bytes no format takes raise."""
+    RIFF file fails) read as Pillow reads them, and so does an XPM (tried
+    after TGA, which passes its header on); a format still not read
+    (FITS) raises naming it; bytes no format takes raise."""
     px = C.sample_image(6, 4, 2, 3)
     data = C.write_tga(px[..., ::-1], 2, 24)
     assert data[:4] == b"\0\0\2\0"
@@ -278,9 +279,11 @@ def test_sniffing_follows_pillows_order():
     C.assert_like_pillow(webp)
     xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n'
            b'"a c #ff0000",\n"b c #00ff00",\n"ab"\n};\n')
-    assert C.pillow_bytes(Image.open(io.BytesIO(xpm)), "PNG")
-    C.assert_refused(xpm, "x.xpm", ValueError,
-                     "Pillow would open this file as XPM")
+    assert list(sniff.pillow_candidates(xpm)) == ["TGA", "XPM"]
+    C.assert_like_pillow(xpm)
+    fits = b"SIMPLE  =  T" + bytes(20)
+    C.assert_refused(fits, "x.fits", ValueError,
+                     "Pillow would open this file as FITS")
     assert C.pillow_refuses(b"\xff" * 40)
     C.assert_refused(b"\xff" * 40, "n.bin", ValueError,
                      "not an image Pillow can identify")

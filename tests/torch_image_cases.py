@@ -1690,6 +1690,7 @@ def fixtures() -> dict:
     out.update(webp_gif_fixtures())
     out.update(tiff_variant_fixtures())
     out.update(new_format_fixtures())
+    out.update(legacy_fixtures())
     return out
 
 
@@ -2423,6 +2424,497 @@ def env_sgi_rle(w: int, h: int, seed: int) -> bytes:
     return write_sgi(sample_image(w, h, seed, 3), 1, True)
 
 
+# --- FTEX, BLP, ICNS, Sun raster, MSP, XBM, XPM ----------------------------
+
+
+def write_ftex(w: int, h: int, fmt: int, mip: bytes, *, formats: int = 1,
+               where: int = 32, size: int | None = None) -> bytes:
+    """An FTEX file: the 32-byte header (one format, its mipmap at
+    ``where``), then the mipmap's size and data."""
+    head = b"FTEX" + struct.pack("<7i", 1, w, h, 1, formats, fmt, where)
+    pad = bytes(max(0, where - len(head)))
+    return head + pad + struct.pack("<i", len(mip) if size is None else size) \
+        + mip
+
+
+def to565(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 -> 5:6:5 words (the top bits of each channel)."""
+    c = rgb.astype(np.int64)
+    return (c[..., 0] >> 3) << 11 | (c[..., 1] >> 2) << 5 | c[..., 2] >> 3
+
+
+def dxt_blocks(rgba: np.ndarray, kind: int) -> bytes:
+    """DXT1, DXT3 or DXT5 blocks of (h, w, 4) uint8 pixels (h and w
+    multiples of 4): each block's colour endpoints its channel-wise
+    maximum and minimum, each pixel the nearest of the four colours Pillow's
+    BLP decoder makes of them; DXT1 blocks with a pixel of alpha below 128
+    in the 3-colour mode, those pixels transparent; DXT3 alpha its top
+    nibble; DXT5 alpha on the 8-value ramp of its extremes. Encoded
+    65,536 blocks at a time (the timing files are large)."""
+    blocks = blocks_of(rgba)
+    return b"".join(_dxt_encode(blocks[i:i + 65536].astype(np.int64), kind)
+                    for i in range(0, len(blocks), 65536))
+
+
+def _dxt_encode(px: np.ndarray, kind: int) -> bytes:
+    """``dxt_blocks`` of (n, 16, 4) block pixels."""
+    n = len(px)
+    hi, lo = to565(px[..., :3].max(1)), to565(px[..., :3].min(1))
+    holes = (px[..., 3] < 128) if kind == 1 else np.zeros((n, 16), bool)
+    punch = holes.any(1)
+    c0 = np.where(punch, lo, hi)
+    c1 = np.where(punch, hi, lo)
+
+    def unpack(c):
+        return np.stack([((c >> 11) & 31) << 3, ((c >> 5) & 63) << 2,
+                         (c & 31) << 3], -1)
+
+    p0, p1 = unpack(c0), unpack(c1)
+    four = c0 > c1
+    pal = np.stack([p0, p1,
+                    np.where(four[:, None], (2 * p0 + p1) // 3,
+                             (p0 + p1) // 2),
+                    np.where(four[:, None], (2 * p1 + p0) // 3, 1 << 20)], 1)
+    dist = ((px[:, :, None, :3] - pal[:, None]) ** 2).sum(-1)
+    idx = np.where(holes, 3, dist.argmin(-1))
+    lut = (idx << (2 * np.arange(16))).sum(1)
+    colour = np.stack([c0 & 255, c0 >> 8, c1 & 255, c1 >> 8, lut & 255,
+                       (lut >> 8) & 255, (lut >> 16) & 255, lut >> 24], 1)
+    if kind == 1:
+        return colour.astype(np.uint8).tobytes()
+    a = px[..., 3]
+    if kind == 3:
+        nib = (a >> 4).reshape(n, 8, 2)
+        alpha = nib[..., 0] | nib[..., 1] << 4
+    else:
+        a0, a1 = a.max(1), a.min(1)
+        k = np.arange(8)
+        ramp = np.where(k == 0, a0[:, None], np.where(
+            k == 1, a1[:, None], ((8 - k) * a0[:, None]
+                                  + (k - 1) * a1[:, None]) // 7))
+        ai = np.abs(a[:, :, None] - ramp[:, None]).argmin(-1)
+        ai = np.where((a0 == a1)[:, None], 0, ai)
+        bits = (ai << (3 * np.arange(16))).sum(1)
+        alpha = np.concatenate([a0[:, None], a1[:, None]] + [
+            ((bits >> (8 * j)) & 255)[:, None] for j in range(6)], 1)
+    return np.concatenate([alpha, colour], 1).astype(np.uint8).tobytes()
+
+
+def blp_palette(colours: np.ndarray) -> bytes:
+    """(k, 4) RGBA entries -> BLP's 256 BGRA palette entries (the rest
+    zero)."""
+    pal = np.zeros((256, 4), np.uint8)
+    pal[:len(colours)] = np.asarray(colours, np.uint8)[:, [2, 1, 0, 3]]
+    return pal.tobytes()
+
+
+def write_blp2(w: int, h: int, payload: bytes, *, encoding: int = 2,
+               alpha: int = 0, alpha_encoding: int = 0, compression: int = 1,
+               palette: bytes = bytes(1024), offset: int | None = None,
+               length: int | None = None) -> bytes:
+    """A BLP2 file: the 20-byte header, the offset and length tables (the
+    first mipmap ``payload``, at ``offset`` or right after the palette),
+    the palette, then ``payload``."""
+    head = b"BLP2" + struct.pack("<i3bBII", compression, encoding, alpha,
+                                 alpha_encoding, 0, w, h)
+    at = 20 + 128 + len(palette)
+    tables = struct.pack("<16I", at if offset is None else offset,
+                         *[0] * 15) + struct.pack(
+        "<16I", len(payload) if length is None else length, *[0] * 15)
+    return head + tables + palette + payload
+
+
+def write_blp1(w: int, h: int, payload: bytes, *, compression: int = 1,
+               alpha: int = 0, encoding: int = 5,
+               palette: bytes = bytes(1024), jpeg_header: bytes = b"",
+               offset: int | None = None, length: int | None = None) -> bytes:
+    """A BLP1 file: the 28-byte header, the tables, then for compression 0
+    the shared JPEG header (its length first) and ``payload`` (the rest of
+    the JPEG), else the palette and ``payload`` (the indices)."""
+    head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h,
+                                 encoding, 0)
+    if compression == 0:
+        body = struct.pack("<I", len(jpeg_header)) + jpeg_header
+        at = 28 + 128 + len(body)
+    else:
+        body = palette
+        at = 28 + 128 + len(body)
+    tables = struct.pack("<16I", at if offset is None else offset,
+                         *[0] * 15) + struct.pack(
+        "<16I", len(payload) if length is None else length, *[0] * 15)
+    return head + tables + body + payload
+
+
+def blp1_jpeg(jpeg: bytes, w: int, h: int, split: int = 0, **kw) -> bytes:
+    """A BLP1 JPEG file of a whole JPEG stream, its first ``split`` bytes
+    as the shared header."""
+    return write_blp1(w, h, jpeg[split:], compression=0,
+                      jpeg_header=jpeg[:split], **kw)
+
+
+def icns_rle(channel: bytes) -> bytes:
+    """One ICNS channel run-length coded: runs of 3-130 bytes as b + 125,
+    the rest as literal strings of up to 128."""
+    out, lit = bytearray(), bytearray()
+    i, n = 0, len(channel)
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            out.append(len(lit[k:k + 128]) - 1)
+            out.extend(lit[k:k + 128])
+        lit.clear()
+
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and channel[j] == channel[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out += bytes([j - i + 125, channel[i]])
+        else:
+            lit.extend(channel[i:j])
+        i = j
+    flush()
+    return bytes(out)
+
+
+def write_icns(entries: list, filesize: int | None = None) -> bytes:
+    """An ICNS file of [(type, data)] blocks."""
+    body = b"".join(t + struct.pack(">I", len(d) + 8) + d for t, d in entries)
+    return b"icns" + struct.pack(">I", len(body) + 8 if filesize is None
+                                 else filesize) + body
+
+
+def icns_rgb(rgb: np.ndarray, rle: bool = True, it32: bool = False) -> bytes:
+    """An ``*32`` entry of (h, w, 3) pixels: raw interleaved, or each
+    channel run-length coded one after another (``it32`` with its zero
+    signature)."""
+    data = b"".join(icns_rle(rgb[..., c].tobytes()) for c in range(3)) \
+        if rle else rgb.tobytes()
+    return (bytes(4) if it32 else b"") + data
+
+
+def sun_rle(stream: np.ndarray) -> bytes:
+    """A byte stream in Sun raster run-length code: runs of 3 or more (or
+    of 0x80) as 0x80, count - 1, value, in pieces of at most 256; a lone
+    0x80 as 0x80 0; other bytes as they are. Vectorised (the timing
+    files are large)."""
+    v = np.asarray(stream, np.uint8).reshape(-1)
+    if not len(v):
+        return b""
+    starts = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+    lengths = np.diff(np.r_[starts, len(v)])
+    pieces = -(-lengths // 256)
+    first = np.repeat(starts, pieces) + 256 * (
+        np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces,
+                                            pieces))
+    size = np.minimum(np.repeat(starts + lengths, pieces) - first, 256)
+    value = v[first]
+    run = (size >= 3) | ((value == 0x80) & (size == 2))
+    escape = (value == 0x80) & (size == 1)
+    nbytes = np.where(run, 3, np.where(escape, 2, size))
+    at = np.cumsum(nbytes) - nbytes
+    out = np.zeros(int(nbytes.sum()), np.uint8)
+    out[at[run | escape]] = 0x80
+    out[at[run] + 1] = size[run] - 1
+    out[at[run] + 2] = value[run]
+    lit = ~(run | escape)
+    out[at[lit]] = value[lit]
+    two = lit & (size == 2)
+    out[at[two] + 1] = value[two]
+    return out.tobytes()
+
+
+def write_sun(w: int, h: int, depth: int, payload: bytes, *, ftype: int = 1,
+              ptype: int = 0, palette: bytes = b"") -> bytes:
+    """A Sun raster file: the 32-byte header, the colour map, ``payload``."""
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(payload), ftype,
+                       ptype if palette or ptype else 0, len(palette)) \
+        + palette + payload
+
+
+def sun_rows(px: np.ndarray, depth: int, pad: bool = True) -> np.ndarray:
+    """Pixels as Sun raster rows: (h, w) gray or indices at 1, 4 or 8 bits
+    (1 bits set where black), (h, w, 3|4) bytes at 24 or 32, each row
+    padded to 16 bits where ``pad``."""
+    h = px.shape[0]
+    if depth == 1:
+        rows = np.packbits(px.astype(bool), axis=1)
+    elif depth == 4:
+        p = px.astype(np.uint8)
+        if p.shape[1] % 2:
+            p = np.pad(p, ((0, 0), (0, 1)))
+        rows = (p[:, 0::2] << 4) | p[:, 1::2]
+    else:
+        rows = px.reshape(h, -1).astype(np.uint8)
+    if pad and rows.shape[1] % 2:
+        rows = np.pad(rows, ((0, 0), (0, 1)))
+    return rows
+
+
+def msp_lins_row(row: bytes) -> bytes:
+    """One MSP version-2 row: runs of 3-255 as 0, count, value, the rest
+    as literal strings of up to 255."""
+    out, lit = bytearray(), bytearray()
+    i, n = 0, len(row)
+
+    def flush():
+        for k in range(0, len(lit), 255):
+            out.append(len(lit[k:k + 255]))
+            out.extend(lit[k:k + 255])
+        lit.clear()
+
+    while i < n:
+        j = i
+        while j < n and j - i < 255 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out += bytes([0, j - i, row[i]])
+        else:
+            lit.extend(row[i:j])
+        i = j
+    flush()
+    return bytes(out)
+
+
+def msp_header(magic: bytes, w: int, h: int) -> bytes:
+    """A 32-byte MSP header whose words XOR to 0 (the checksum word 12)."""
+    words = [*struct.unpack("<2H", magic), w, h, 1, 1, 1, 1, w, h, 0, 0, 0,
+             0, 0, 0]
+    check = 0
+    for word in words:
+        check ^= word
+    words[12] = check
+    return struct.pack("<16H", *words)
+
+
+def write_msp_lins(bits: np.ndarray, rows: list | None = None) -> bytes:
+    """An MSP version-2 file of (h, w) 0/1 pixels (1 white): the row map
+    and each row coded (or the coded ``rows`` given)."""
+    h, w = bits.shape
+    if rows is None:
+        packed = np.packbits(bits.astype(bool), axis=1)
+        rows = [msp_lins_row(r.tobytes()) for r in packed]
+    return msp_header(b"LinS", w, h) + struct.pack(
+        f"<{h}H", *[len(r) for r in rows]) + b"".join(rows)
+
+
+def write_xbm(bits: np.ndarray, *, prefix: bytes = b"", hotspot=None,
+              per_line: int = 12, fmt: str = "0x{:02x}") -> bytes:
+    """An XBM of (h, w) 0/1 pixels (1 white, the first pixel in the lowest
+    bit)."""
+    h, w = bits.shape
+    data = np.packbits(bits.astype(bool), axis=1, bitorder="little")
+    out = prefix + f"#define im_width {w}\n#define im_height {h}\n".encode()
+    if hotspot:
+        out += (f"#define im_x_hot {hotspot[0]}\n#define im_y_hot "
+                f"{hotspot[1]}\n").encode()
+    vals = [fmt.format(b) for b in data.reshape(-1).tolist()]
+    lines = [", ".join(vals[i:i + per_line])
+             for i in range(0, len(vals), per_line)]
+    return out + b"static unsigned char im_bits[] = {\n   " + \
+        ",\n   ".join(lines).encode() + b" };\n"
+
+
+XPM_CHARS = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+
+
+def write_xpm(idx: np.ndarray, colours: list, *, bpp: int = 1,
+              keys: list | None = None, comment: bool = True,
+              extra: bytes = b"") -> bytes:
+    """An XPM of (h, w) indices into ``colours`` (each ``#rrggbb`` bytes or
+    ``None``), keys of ``bpp`` characters (or the ``keys`` given)."""
+    h, w = idx.shape
+    if keys is None:
+        keys = [bytes(XPM_CHARS[(i // len(XPM_CHARS) ** k) % len(XPM_CHARS)]
+                      for k in range(bpp)) for i in range(len(colours))]
+    lines = [b"/* XPM */", b"static char *image[] = {",
+             b'"%d %d %d %d",' % (w, h, len(colours), bpp)]
+    lines += [b'"%s c %s",' % (k, c) for k, c in zip(keys, colours)]
+    if comment:
+        lines.append(b"/* pixels */")
+    table = np.array([np.frombuffer(k, np.uint8) for k in keys])
+    for row in idx:
+        lines.append(b'"' + table[row].tobytes() + b'",')
+    return b"\n".join(lines) + b"\n};\n" + extra
+
+
+def xpm_colours(rgb: np.ndarray) -> list:
+    """(k, 3) uint8 -> [b"#rrggbb", ...]."""
+    return [b"#%02x%02x%02x" % tuple(c) for c in rgb.tolist()]
+
+
+def quantize(rgb: np.ndarray, levels: int = 4) -> tuple:
+    """(h, w, 3) -> ((h, w) indices, (k, 3) colours): each channel on
+    ``levels`` steps, the colours those present."""
+    step = 255 // (levels - 1)
+    q = (rgb.astype(np.int64) + step // 2) // step
+    codes = (q[..., 0] * levels + q[..., 1]) * levels + q[..., 2]
+    present, idx = np.unique(codes, return_inverse=True)
+    colours = np.stack([present // (levels * levels), present // levels
+                        % levels, present % levels], -1) * step
+    return idx.reshape(rgb.shape[:2]), colours.astype(np.uint8)
+
+
+LARGE_SUN = "rle24_4096x2048.ras"
+LARGE_BLP = "dxt5_4096x2048.blp"
+
+
+def large_sun(w: int = 4096, h: int = 2048) -> tuple[bytes, np.ndarray]:
+    """An RLE 24-bit Sun raster (BGR, unpadded rows as Pillow reads them)
+    of ``sample_image`` content with a flat band on the left (runs), and
+    the (h, w, 3) RGB array it was made from."""
+    img = sample_image(w, h, 62, 3)
+    img[:, :w // 4] = img[:, :1]
+    return write_sun(w, h, 24, sun_rle(img[..., ::-1]), ftype=2), img
+
+
+def large_blp(w: int = 4096, h: int = 2048) -> bytes:
+    """A DXT5 BLP2 (alpha flag set) of ``smooth_rgba`` content."""
+    return write_blp2(w, h, dxt_blocks(smooth_rgba(w, h), 5), alpha=8,
+                      alpha_encoding=7)
+
+
+def legacy_fixtures() -> dict:
+    """{file name: bytes} of the FTEX, BLP, ICNS, Sun raster, MSP, XBM and
+    XPM files under ``tests/ldr``."""
+    from PIL import Image
+
+    rgba = sample_image(36, 20, 41)
+    rgb = sample_image(40, 24, 42, 3)
+    gray = sample_image(33, 17, 43, 1)[..., 0]
+    pal = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                       colors=40)
+    out = {}
+    # FTEX: BC1 (random blocks, both palettes) and raw RGB.
+    out["bc1_random.ftc"] = write_ftex(17, 13, 0, random_blocks(20, 8, 44))
+    out["rgb.ftu"] = write_ftex(13, 9, 1, sample_image(13, 9, 45, 3)
+                                .tobytes(), where=40)
+    # BLP: Pillow's palette writer, and DXT, JPEG and BLP1 palette files.
+    rgba_pal = Image.fromarray(rgba).convert("P", palette=Image.Palette.ADAPTIVE,
+                                              colors=32)
+    rgba_pal.putpalette(np.concatenate([np.asarray(
+        rgba_pal.getpalette()[:96], np.uint8).reshape(32, 3), np.arange(
+        0, 256, 8, dtype=np.uint8)[:, None]], 1).reshape(-1).tolist(), "RGBA")
+    out["pillow_p_rgba.blp"] = pillow_bytes(rgba_pal, "BLP")
+    out["pillow_p_blp1.blp"] = pillow_bytes(pal, "BLP", blp_version="BLP1")
+    out["dxt1_random.blp"] = write_blp2(16, 8, random_blocks(8, 8, 46))
+    out["dxt1_alpha_random.blp"] = write_blp2(16, 8, random_blocks(8, 8, 47),
+                                              alpha=1)
+    out["dxt3.blp"] = write_blp2(36, 20, dxt_blocks(rgba, 3), alpha=4,
+                                 alpha_encoding=1)
+    out["dxt5_18x10_sheared.blp"] = write_blp2(
+        18, 10, dxt_blocks(sample_image(20, 12, 48), 5), alpha=8,
+        alpha_encoding=7)
+    out["dxt5_no_alpha_flag.blp"] = write_blp2(
+        16, 12, dxt_blocks(sample_image(16, 12, 49), 5), alpha_encoding=7)
+    out["dxt3_random_offset.blp"] = write_blp2(
+        8, 8, random_blocks(4, 16, 50), alpha_encoding=1, offset=1200,
+        palette=bytes(1024) + bytes(28))
+    jpeg = pillow_bytes(rgb, "JPEG", quality=90)
+    out["jpeg_blp1.blp"] = blp1_jpeg(jpeg, 40, 24, split=300)
+    cmyk = Image.fromarray(rgb).convert("CMYK")
+    out["jpeg_cmyk_alpha_blp1.blp"] = blp1_jpeg(
+        pillow_bytes(cmyk, "JPEG", quality=90), 40, 24, split=0, alpha=1)
+    with open(os.path.join(os.path.dirname(LDR_DIR), "jpeg",
+                           "emissive_ycck_420.jpg"), "rb") as f:
+        ycck = f.read()
+    out["jpeg_ycck_as_cmyk_blp1.blp"] = blp1_jpeg(ycck, *Image.open(
+        io.BytesIO(ycck)).size, split=len(ycck) // 3)
+    out["jpeg_gray_smaller_blp1.blp"] = blp1_jpeg(
+        pillow_bytes(gray, "JPEG", quality=90), 30, 17, split=200)
+    colours = np.concatenate([sample_image(64, 1, 51, 3)[0], np.arange(
+        0, 256, 4, dtype=np.uint8)[:, None]], 1)
+    out["palette_alpha_blp1.blp"] = write_blp1(
+        21, 13, (sample_image(21, 13, 52, 1)[..., 0] >> 2).tobytes(),
+        alpha=8, encoding=4, palette=blp_palette(colours))
+    out["palette_blp2.blp"] = write_blp2(
+        21, 13, (sample_image(21, 13, 53, 1)[..., 0] >> 2).tobytes(),
+        encoding=1, palette=blp_palette(colours))
+    # ICNS: RGB entries raw and run-length coded, masks, PNG entries.
+    it = sample_image(128, 128, 54)
+    out["it32_rle_t8mk.icns"] = write_icns([
+        (b"it32", icns_rgb(it[..., :3], it32=True)),
+        (b"t8mk", it[..., 3].tobytes()),
+        (b"is32", icns_rgb(sample_image(16, 16, 55, 3)))])
+    small = sample_image(16, 16, 56)
+    out["is32_raw_s8mk.icns"] = write_icns([
+        (b"is32", icns_rgb(small[..., :3], rle=False)),
+        (b"s8mk", small[..., 3].tobytes())])
+    out["ih32_rle_no_mask.icns"] = write_icns([
+        (b"ih32", icns_rgb(sample_image(48, 48, 57, 3)))])
+    p16 = Image.fromarray(small[..., :3]).convert(
+        "P", palette=Image.Palette.ADAPTIVE, colors=8)
+    out["png_trns_ignored.icns"] = write_icns([
+        (b"icp4", pillow_bytes(p16, "PNG", transparency=0)),
+        (b"is32", icns_rgb(small[..., :3]))])
+    out["png_half_size_ic08.icns"] = write_icns([
+        (b"ic08", pillow_bytes(sample_image(32, 32, 58), "PNG")),
+        (b"il32", icns_rgb(sample_image(32, 32, 59, 3)))])
+    # Sun raster: every depth, raw and RLE, type 3, palettes, padded RLE.
+    odd = sample_image(13, 9, 60, 3)
+    out["bgr24_raw_odd.ras"] = write_sun(13, 9, 24, sun_rows(
+        odd[..., ::-1], 24).tobytes())
+    out["bgr24_rle.ras"] = write_sun(40, 24, 24, sun_rle(rgb[..., ::-1]),
+                                     ftype=2)
+    out["bgr24_rle_padded_sheared.ras"] = write_sun(
+        13, 9, 24, sun_rle(sun_rows(odd[..., ::-1], 24)), ftype=2)
+    out["bgrx32.ras"] = write_sun(11, 7, 32, sample_image(11, 7, 61)
+                                  .tobytes())
+    out["rgbx32_type3.ras"] = write_sun(11, 7, 32, sample_image(11, 7, 62)
+                                        .tobytes(), ftype=3)
+    out["gray8_palette_rle.ras"] = write_sun(
+        33, 17, 8, sun_rle(gray), ftype=2, palette=np.ascontiguousarray(
+            sample_image(200, 1, 63, 3)[0].T).tobytes(), ptype=1)
+    out["gray4_odd.ras"] = write_sun(13, 9, 4, sun_rows(
+        sample_image(13, 9, 64, 1)[..., 0] >> 4, 4).tobytes())
+    out["mono1_rle.ras"] = write_sun(33, 17, 1, sun_rle(sun_rows(
+        gray > 120, 1, pad=False)), ftype=2)
+    # MSP: Pillow's version-1 writer and version-2 rows.
+    bits = (gray > 110).astype(np.uint8)
+    out["pillow_danm.msp"] = pillow_bytes(
+        Image.fromarray(gray).convert("1"), "MSP")
+    out["lins.msp"] = write_msp_lins(bits)
+    rows = [msp_lins_row(r.tobytes()) for r in np.packbits(bits, axis=1)]
+    rows[3] = b""  # a blank (white) row
+    rows[6] = rows[6] + b"\x02\xaa\x55"  # two bytes too many: a shift
+    out["lins_blank_and_shifted.msp"] = write_msp_lins(bits, rows)
+    # XBM: Pillow's writer and a hand-written header.
+    out["pillow.xbm"] = pillow_bytes(Image.fromarray(gray).convert("1"),
+                                     "XBM")
+    out["hotspot_leading_space.xbm"] = write_xbm(
+        bits[:, :30], prefix=b"  \n", hotspot=(3, 4), per_line=7,
+        fmt="0x{:X}")
+    # XPM: palette with None, more than 256 colours, two-byte keys.
+    idx, cols = quantize(rgb)
+    out["palette.xpm"] = write_xpm(idx, xpm_colours(cols))
+    idx2 = idx.copy()
+    idx2[:, 0] = len(cols)
+    none_first = [b"None"] + xpm_colours(cols)
+    out["none_key_space_alpha.xpm"] = write_xpm(
+        idx2[:, 1:] + 1, none_first, keys=[b" "] + [
+            bytes([c]) for c in XPM_CHARS[:len(cols)]], comment=False)
+    cube = np.stack(np.meshgrid(*[np.arange(7)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    q = (sample_image(30, 20, 65, 3).astype(np.int64) + 21) // 42
+    out["rgb_343_colours.xpm"] = write_xpm(
+        (q[..., 0] * 7 + q[..., 1]) * 7 + q[..., 2],
+        xpm_colours((cube * 42).astype(np.uint8)), bpp=2)
+    return out
+
+
+def env_sun_rle(w: int, h: int, seed: int) -> bytes:
+    """An RLE 24-bit Sun raster map of ``sample_image``."""
+    return write_sun(w, h, 24, sun_rle(sample_image(w, h, seed, 3)[..., ::-1]),
+                     ftype=2)
+
+
+def env_blp_dxt1(w: int, h: int, seed: int) -> bytes:
+    """A DXT1 BLP2 map of ``sample_image`` (w and h multiples of 4)."""
+    return write_blp2(w, h, dxt_blocks(sample_image(w, h, seed), 1))
+
+
 def write_fixtures(directory: str = LDR_DIR) -> None:
     """Write ``tests/ldr``: the files, Pillow's decode of each in
     ``pillow_rgba.npz`` and its SHA-256 in ``pillow_sha256.json``."""
@@ -2437,6 +2929,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env_bc1.dds"] = env_dds_bc1(64, 32, 27)
     files["env_rle.sgi"] = env_sgi_rle(64, 32, 28)
     files["env.qoi"] = env_qoi(64, 32, 29)
+    files["env_rle.ras"] = env_sun_rle(64, 32, 30)
+    files["env_dxt1.blp"] = env_blp_dxt1(64, 32, 31)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -2455,6 +2949,10 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     # Made where they are used (8 MiB), only their decodes' digests kept.
     digests[LARGE_BC7] = hashlib.sha256(pillow_rgba(
         large_bc7()).tobytes()).hexdigest()
+    digests[LARGE_SUN] = hashlib.sha256(pillow_rgba(
+        large_sun()[0]).tobytes()).hexdigest()
+    digests[LARGE_BLP] = hashlib.sha256(pillow_rgba(
+        large_blp()).tobytes()).hexdigest()
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
 

@@ -2,7 +2,7 @@
 
     python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
         tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|qoi|pcx|sgi|psd|dds|
-        mut] [--n 2000] [--seed 1]
+        ftex|blp|icns|sun|msp|xbm|xpm|mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
 writers with random headers, depths, compressions and layouts; for TIFF
@@ -17,7 +17,14 @@ stride and trailer, some in a DCX; for SGI, every mode, raw and RLE, with
 random row tables; for PSD, every colour mode and depth, channel counts,
 sections and compressions; for DDS, every pixel format (masks,
 luminance, palette, FourCC and DX10 codes, Pillow's and others) over
-random or encoded blocks; a quarter of them then mutated) or, with
+random or encoded blocks; for FTEX, BC1 or RGB with wrong counts,
+offsets and sizes; for BLP, BLP1 JPEG and palettes and BLP2 palettes and
+DXT over random or encoded blocks, any compression, encoding and alpha
+encoding; for ICNS, raw and run-length RGB entries, masks and PNG entries
+in any order, some cut; for Sun rasters, every depth and type, padded or
+not, with colour maps of any length; for MSP, raw and run-length rows,
+some blank, long or cut; for XBM and XPM, any size and spelling, None
+keys, up to 300 colours; a quarter of them then mutated) or, with
 ``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
 end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
@@ -707,12 +714,182 @@ def rnd_dds(rng) -> bytes:
 DDPF_ALPHA = 0x1
 
 
+def rnd_ftex(rng) -> bytes:
+    """An FTEX of BC1 blocks or raw RGB (or another format), its format
+    count, offset and mipmap size sometimes wrong."""
+    w, h = int(rng.integers(0, 14)), int(rng.integers(1, 10))
+    fmt = pick(rng, [0, 1, 0, 1, 2])
+    need = ((w + 3) // 4) * ((h + 3) // 4) * 8 if fmt == 0 else 3 * w * h
+    mip = rand_bytes(rng, need + pick(rng, [0, 0, 5, -3]))
+    size = pick(rng, [None, None, -1, len(mip) + 9, max(len(mip) - 2, 0)])
+    return C.write_ftex(w, h, fmt, mip, formats=pick(rng, [1, 1, 1, 2, 0]),
+                        where=pick(rng, [32, 32, 40, 31, 900, -8]), size=size)
+
+
+def rnd_blp(rng) -> bytes:
+    """A BLP1 or BLP2 of any compression, encoding and alpha encoding:
+    DXT over random or encoded blocks, palettes, JPEG split anywhere, the
+    offset and length tables sometimes wrong."""
+    w, h = int(rng.integers(0, 14)), int(rng.integers(1, 10))
+    alpha = pick(rng, [0, 1, 8])
+    pal = rand_bytes(rng, 1024)
+    offset = None if rng.random() < 0.8 else int(rng.integers(0, 1400))
+    if rng.random() < 0.35:  # BLP1
+        comp = pick(rng, [0, 0, 1, 1, 2])
+        if comp == 0:
+            jpeg = C.pillow_bytes(rnd_image(rng, max(w, 1) + int(
+                rng.integers(0, 3)), h)[..., :3], "JPEG",
+                quality=int(rng.integers(30, 95)))
+            return C.blp1_jpeg(jpeg, w, h, split=int(rng.integers(
+                0, len(jpeg))), alpha=alpha, offset=offset)
+        return C.write_blp1(w, h, rand_bytes(rng, w * h + pick(
+            rng, [0, 3, -2])), compression=comp, alpha=alpha,
+            encoding=pick(rng, [4, 5, 5, 3]), palette=pal, offset=offset)
+    encoding = pick(rng, [1, 2, 2, 2, 3])
+    ae = pick(rng, [0, 1, 7, 0, 7, 2])
+    if encoding == 2:
+        kind = {0: 1, 1: 3, 7: 5}.get(ae, 5)
+        bw, bh = (w + 3) // 4, (h + 3) // 4
+        if rng.random() < 0.5 and bw:
+            payload = C.dxt_blocks(rnd_image(rng, 4 * bw, 4 * bh), kind)
+        else:
+            payload = C.random_blocks(bw * bh, 8 if kind == 1 else 16,
+                                      int(rng.integers(0, 1 << 30)))
+    else:
+        payload = rand_bytes(rng, w * h + pick(rng, [0, 2, -1]))
+    return C.write_blp2(w, h, payload, encoding=encoding, alpha=alpha,
+                        alpha_encoding=ae, compression=pick(rng, [1, 1, 1, 0]),
+                        palette=pal, offset=offset)
+
+
+ICNS_RGB = {b"is32": (16, b"s8mk"), b"il32": (32, b"l8mk"),
+            b"ih32": (48, b"h8mk"), b"it32": (128, b"t8mk")}
+
+
+def rnd_icns(rng) -> bytes:
+    """An ICNS of raw or run-length RGB entries, masks and PNG entries of
+    any size, in any order, some entries cut or unknown, the file size
+    sometimes wrong."""
+    entries = []
+    for _ in range(int(rng.integers(1, 4))):
+        r = rng.random()
+        if r < 0.5:
+            kind = pick(rng, list(ICNS_RGB))
+            n, mask = ICNS_RGB[kind]
+            img = rnd_image(rng, n, n)
+            entries.append((kind, C.icns_rgb(img[..., :3],
+                                             rle=bool(rng.random() < 0.7),
+                                             it32=kind == b"it32")))
+            if rng.random() < 0.6:
+                entries.append((mask, img[..., 3].tobytes()))
+        elif r < 0.8:
+            kind = pick(rng, [b"icp4", b"icp5", b"ic11", b"ic07", b"ic08"])
+            n = pick(rng, [8, 16, 16, 32, 12])
+            entries.append((kind, C.pillow_bytes(rnd_image(rng, n, n),
+                                                 "PNG")))
+        else:
+            entries.append((pick(rng, [b"TOC ", b"s8mk", b"icnV"]),
+                            rand_bytes(rng, int(rng.integers(0, 300)))))
+    if rng.random() < 0.3:
+        k = int(rng.integers(0, len(entries)))
+        entries[k] = (entries[k][0], entries[k][1][:int(rng.integers(
+            0, len(entries[k][1]) + 1))])
+    data = C.write_icns(entries)
+    if rng.random() < 0.15:
+        data = data[:4] + struct.pack(">I", int(rng.integers(0, len(data)
+                                                             + 50))) + data[8:]
+    return data
+
+
+def rnd_sun(rng) -> bytes:
+    """A Sun raster of any depth and type, raw (padded or not) or RLE,
+    with or without a colour map of any type and length."""
+    w, h = int(rng.integers(0, 14)), int(rng.integers(1, 8))
+    depth = pick(rng, [1, 4, 8, 24, 32, 8, 16])
+    ftype = pick(rng, [0, 1, 2, 2, 3, 4, 5, 6])
+    img = rnd_image(rng, max(w, 1), h)
+    px = {1: img[..., 0] > 128, 4: img[..., 0] >> 4, 8: img[..., 0],
+          16: img[..., :2], 24: img[..., :3], 32: img}[depth]
+    rows = C.sun_rows(px[:, :w], depth, pad=ftype != 2 or rng.random() < 0.2)
+    payload = C.sun_rle(rows) if ftype == 2 else rows.tobytes()
+    if rng.random() < 0.3:
+        payload = payload[:int(rng.integers(0, len(payload) + 1))]
+    palette = b""
+    if rng.random() < 0.3:
+        palette = rand_bytes(rng, pick(rng, [3, 30, 768, 769, 771, 1030]))
+    return C.write_sun(w, h, depth, payload, ftype=ftype, palette=palette,
+                       ptype=pick(rng, [1, 1, 2, 0]))
+
+
+def rnd_msp(rng) -> bytes:
+    """An MSP, version 1 raw or version 2 run-length rows (some blank,
+    long, short or cut), the checksum sometimes wrong."""
+    w, h = int(rng.integers(0, 40)), int(rng.integers(1, 8))
+    bits = rnd_image(rng, max(w, 1), h)[:, :w, 0] > 100
+    if rng.random() < 0.3:
+        data = C.msp_header(b"DanM", w, h) + np.packbits(
+            bits, axis=1).tobytes()
+    else:
+        rows = [C.msp_lins_row(r.tobytes()) for r in np.packbits(bits,
+                                                                 axis=1)]
+        for _ in range(int(rng.integers(0, 3))):
+            k = int(rng.integers(0, h))
+            rows[k] = pick(rng, [b"", rows[k] + b"\x01\x5a", rows[k][:-1],
+                                 b"\x00\x04", b"\x07\x01"])
+        data = C.write_msp_lins(bits.astype(np.uint8), rows)
+    if rng.random() < 0.1:
+        data = data[:30] + bytes([data[30] ^ 1]) + data[31:]
+    return data
+
+
+def rnd_xbm(rng) -> bytes:
+    """An XBM of any size and spelling of its bytes, with or without a
+    hot spot and leading white space, its data sometimes cut."""
+    w, h = int(rng.integers(0, 30)), int(rng.integers(1, 8))
+    bits = rnd_image(rng, max(w, 1), h)[:, :w, 0] > 100
+    data = C.write_xbm(bits, prefix=pick(rng, [b"", b" \n", b"\t"]),
+                       hotspot=(1, 2) if rng.random() < 0.3 else None,
+                       per_line=int(rng.integers(1, 16)),
+                       fmt=pick(rng, ["0x{:02x}", "0x{:X}", "0x{:x}",
+                                      "0xx{:02x}"]))
+    if rng.random() < 0.2:
+        data = data[:int(rng.integers(1, len(data)))]
+    return data
+
+
+def rnd_xpm(rng) -> bytes:
+    """An XPM of up to 300 colours, keys of 1-3 bytes, a None key, colour
+    lines of other spellings and pixel lines of any length."""
+    w, h = int(rng.integers(0, 12)), int(rng.integers(1, 6))
+    levels = pick(rng, [2, 3, 4, 7])
+    img = rnd_image(rng, max(w, 1), h)[:, :max(w, 1), :3]
+    idx, cols = C.quantize(img, levels)
+    colours = C.xpm_colours(cols)
+    if rng.random() < 0.2:
+        colours += C.xpm_colours(rng.integers(0, 256, (int(rng.integers(
+            1, 300)), 3), dtype=np.uint8))
+    if rng.random() < 0.3:
+        colours.insert(0, b"None")
+        idx = idx + 1
+    if rng.random() < 0.1:
+        colours[int(rng.integers(0, len(colours)))] = pick(
+            rng, [b"red", b"#fff", b"#zz"])
+    bpp = max(int(rng.integers(1, 4)), 2 if len(colours) > 64 else 1)
+    data = C.write_xpm(idx[:, :w] if w else idx[:, :0], colours, bpp=bpp,
+                       comment=bool(rng.random() < 0.5))
+    if rng.random() < 0.2:
+        data = data.replace(b'",\n"', b'"\n"', 1)
+    return data
+
+
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "tiff": rnd_tiff, "tiff_big": rnd_tiff_big, "tiff_ycbcr": rnd_tiff_ycbcr,
        "tiff_float": rnd_tiff_float, "tiff_jpeg": rnd_tiff_jpeg,
        "tiff_fax": rnd_tiff_fax, "tiff_oldlzw": rnd_tiff_oldlzw,
        "webp": rnd_webp, "gif": rnd_gif, "qoi": rnd_qoi, "pcx": rnd_pcx,
-       "sgi": rnd_sgi, "psd": rnd_psd, "dds": rnd_dds}
+       "sgi": rnd_sgi, "psd": rnd_psd, "dds": rnd_dds, "ftex": rnd_ftex,
+       "blp": rnd_blp, "icns": rnd_icns, "sun": rnd_sun, "msp": rnd_msp,
+       "xbm": rnd_xbm, "xpm": rnd_xpm}
 
 
 def main(argv=None) -> int:

@@ -4,6 +4,9 @@
 // (unsigned and signed) and BC7. wpt_bcn decodes the blocks of a w x h
 // image in row order into its pixels (1, 3 or 4 bytes each), each block
 // clipped to the image; the caller checks that the data holds them.
+// wpt_blp_dxt is the other DXT decoder Pillow has, the Python one of its
+// BLP plugin (utils/blp.py::dxt_plain): 5:6:5 endpoints shifted, not
+// widened, and every block written whole.
 
 #include <cstdint>
 #include <cstring>
@@ -435,7 +438,64 @@ void bc7(const uint8_t* src, uint8_t* out) {
   }
 }
 
+// The colours of a DXT colour block as Pillow's BlpImagePlugin reads them:
+// 5:6:5 values shifted into the top bits; DXT1 takes the 3-colour palette
+// (with transparent black) where c0 <= c1, DXT3 and DXT5 never.
+void blp_colour(const uint8_t* src, bool dxt1, Rgba* px) {
+  const int c0 = src[0] | src[1] << 8, c1 = src[2] | src[3] << 8;
+  const uint32_t lut = static_cast<uint32_t>(src[4]) | src[5] << 8 |
+                       src[6] << 16 | static_cast<uint32_t>(src[7]) << 24;
+  Rgba p[4];
+  p[0] = {(c0 >> 11 & 0x1F) << 3, (c0 >> 5 & 0x3F) << 2, (c0 & 0x1F) << 3, 255};
+  p[1] = {(c1 >> 11 & 0x1F) << 3, (c1 >> 5 & 0x3F) << 2, (c1 & 0x1F) << 3, 255};
+  if (c0 > c1 || !dxt1) {
+    p[2] = {(2 * p[0].r + p[1].r) / 3, (2 * p[0].g + p[1].g) / 3,
+            (2 * p[0].b + p[1].b) / 3, 255};
+    p[3] = {(p[0].r + 2 * p[1].r) / 3, (p[0].g + 2 * p[1].g) / 3,
+            (p[0].b + 2 * p[1].b) / 3, 255};
+  } else {
+    p[2] = {(p[0].r + p[1].r) / 2, (p[0].g + p[1].g) / 2,
+            (p[0].b + p[1].b) / 2, 255};
+    p[3] = {0, 0, 0, 0};
+  }
+  for (int i = 0; i < 16; ++i) px[i] = p[(lut >> (2 * i)) & 3];
+}
+
 }  // namespace
+
+// kind: 1 DXT1, 3 DXT3, 5 DXT5. out: (4 bh) rows of (4 bw) pixels of 4
+// bytes (DXT3, DXT5, DXT1 with alpha) or 3 (DXT1 without), every block
+// whole; the caller checks that the data holds the blocks.
+extern "C" int64_t wpt_blp_dxt(const uint8_t* data, int64_t n, int64_t pos,
+                               int32_t kind, int32_t alpha, int64_t bw,
+                               int64_t bh, uint8_t* out) {
+  const int size = kind == 1 ? 8 : 16;
+  const int bpp = kind == 1 && !alpha ? 3 : 4;
+  if (pos + bw * bh * size > n) return 1;
+  const int64_t row = 4 * bw * bpp;
+  Rgba col[16];
+  int a[16];
+  for (int64_t by = 0; by < bh; ++by) {
+    for (int64_t bx = 0; bx < bw; ++bx) {
+      const uint8_t* src = data + pos + (by * bw + bx) * size;
+      blp_colour(kind == 1 ? src : src + 8, kind == 1, col);
+      if (kind == 3) {
+        for (int i = 0; i < 16; ++i) col[i].a = ((src[i / 2] >> (4 * (i & 1))) & 15) * 17;
+      } else if (kind == 5) {
+        alpha_ramp(src, false, a);
+        for (int i = 0; i < 16; ++i) col[i].a = a[i];
+      }
+      for (int i = 0; i < 16; ++i) {
+        uint8_t* px = out + (4 * by + i / 4) * row + (4 * bx + i % 4) * bpp;
+        px[0] = static_cast<uint8_t>(col[i].r);
+        px[1] = static_cast<uint8_t>(col[i].g);
+        px[2] = static_cast<uint8_t>(col[i].b);
+        if (bpp == 4) px[3] = static_cast<uint8_t>(col[i].a);
+      }
+    }
+  }
+  return 0;
+}
 
 // format: 1 BC1, 2 BC2, 3 BC3, 4 BC4, 5 BC5, 6 BC5 signed, 7 BC6H, 8 BC6H
 // signed, 9 BC7. out: h x w pixels of 1 (BC4), 3 (BC5, BC6H) or 4 bytes.

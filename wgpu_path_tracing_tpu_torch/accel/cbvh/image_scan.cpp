@@ -16,7 +16,13 @@
 // * wpt_sgi_rle: Pillow's SgiRleDecode of every row of every channel
 //   (utils/sgi.py::rle_plain);
 // * wpt_packbits_rows: Pillow's PackbitsDecode, a packet that crosses the
-//   end of a row dropping its rest (utils/psd.py::packbits_rows_plain).
+//   end of a row dropping its rest (utils/psd.py::packbits_rows_plain);
+// * wpt_sun_rle: Pillow's SunRleDecode, runs spilling across rows
+//   (utils/sun.py::rle_plain);
+// * wpt_msp_rle: Pillow's MspDecoder, every row of the row map
+//   (utils/msp.py::rle_plain);
+// * wpt_icns_rle: Pillow's ICNS read_32 of one channel
+//   (utils/icns.py::rle_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
 // count of bytes written.
 
@@ -568,4 +574,121 @@ extern "C" int64_t wpt_packbits_rows(const uint8_t* data, int64_t n,
     if (x == row_bytes) x = 0;
   }
   return 0;
+}
+
+// Status: 0 done, 1 the data runs out.
+extern "C" int64_t wpt_sun_rle(const uint8_t* data, int64_t n, int64_t pos,
+                               int64_t size, uint8_t* out) {
+  int64_t at = 0;
+  while (at < size) {
+    if (pos >= n) return 1;
+    const uint8_t b = data[pos];
+    if (b != 0x80) {
+      out[at++] = b;
+      ++pos;
+      continue;
+    }
+    if (pos + 1 >= n) return 1;
+    const int64_t k = data[pos + 1];
+    if (k == 0) {
+      out[at++] = 0x80;
+      pos += 2;
+      continue;
+    }
+    if (pos + 2 >= n) return 1;
+    int64_t run = k + 1;
+    if (run > size - at) run = size - at;
+    std::memset(out + at, data[pos + 2], run);
+    at += run;
+    pos += 3;
+  }
+  return 0;
+}
+
+// Rows of rowmap[y] bytes each from pos (a 0 a blank row of 0xFF), each a
+// chain of runs (a 0 byte, a count and a value) and literal strings (a
+// count, then as many bytes as the row holds of them), written on into
+// out up to its size. Status: 0 done (*written the bytes the rows make,
+// which may pass size), 1 a row runs past the data, 2 a run is cut short
+// by the end of its row.
+extern "C" int64_t wpt_msp_rle(const uint8_t* data, int64_t n, int64_t pos,
+                               const int64_t* rowmap, int64_t rows,
+                               int64_t blank, int64_t size, uint8_t* out,
+                               int64_t* written) {
+  int64_t at = 0;
+  auto put = [&](const uint8_t* src, int64_t k, int value) {
+    const int64_t room = at < size ? (k < size - at ? k : size - at) : 0;
+    if (room > 0) {
+      if (src) {
+        std::memcpy(out + at, src, room);
+      } else {
+        std::memset(out + at, value, room);
+      }
+    }
+    at += k;
+  };
+  for (int64_t y = 0; y < rows; ++y) {
+    const int64_t len = rowmap[y];
+    if (len == 0) {
+      put(nullptr, blank, 0xFF);
+      continue;
+    }
+    if (pos + len > n) return 1;
+    const uint8_t* row = data + pos;
+    int64_t i = 0;
+    while (i < len) {
+      const int t = row[i++];
+      if (t == 0) {
+        if (i + 2 > len) return 2;
+        put(nullptr, row[i], row[i + 1]);
+        i += 2;
+      } else {
+        const int64_t k = t < len - i ? t : len - i;
+        put(row + i, k, 0);
+        i += t;
+      }
+    }
+    pos += len;
+  }
+  *written = at;
+  return 0;
+}
+
+// One channel of size bytes from pos: a byte b >= 0x80 repeats the next
+// byte b - 125 times, a byte b < 0x80 copies the next b + 1, until size
+// bytes are counted or the data ends. Status: 0 done (*end where the
+// channel ended), 1 the counts did not sum to size, 2 the data ended
+// inside a packet (Pillow's buffer is then too short).
+extern "C" int64_t wpt_icns_rle(const uint8_t* data, int64_t n, int64_t pos,
+                                int64_t size, uint8_t* out, int64_t* end) {
+  int64_t left = size, at = 0;
+  bool short_data = false;
+  while (left > 0) {
+    if (pos >= n) break;
+    const int b = data[pos++];
+    int64_t k;
+    if (b & 0x80) {
+      k = b - 125;
+      if (pos < n) {
+        const int64_t room = k < size - at ? k : size - at;
+        if (room > 0) std::memset(out + at, data[pos], room);
+        at += k;
+        ++pos;
+      } else {
+        short_data = true;
+      }
+    } else {
+      k = b + 1;
+      const int64_t got = k < n - pos ? k : n - pos;
+      const int64_t room = got < size - at ? got : size - at;
+      if (room > 0) std::memcpy(out + at, data + pos, room);
+      if (got < k) short_data = true;
+      at += got;
+      pos += got;
+    }
+    left -= k;
+  }
+  *end = pos;
+  if (left != 0) return 1;
+  return short_data ? 2 : 0;
 }

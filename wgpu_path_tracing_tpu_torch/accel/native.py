@@ -20,9 +20,11 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``,
   ``utils/tiff.py::packbits_plain`` and ``lzw_plain`` (new- and old-style
   codes), ``utils/gif.py::lzw_plain``, ``utils/qoi.py::ops_plain``,
-  ``utils/pcx.py::rle_plain``, ``utils/sgi.py::rle_plain`` and
-  ``utils/psd.py::packbits_rows_plain``;
-* ``bcn_scan.cpp``: the BC1-BC7 block decoders of ``utils/bcn.py``;
+  ``utils/pcx.py::rle_plain``, ``utils/sgi.py::rle_plain``,
+  ``utils/psd.py::packbits_rows_plain``, ``utils/sun.py::rle_plain``,
+  ``utils/msp.py::rle_plain`` and ``utils/icns.py::rle_plain``;
+* ``bcn_scan.cpp``: the BC1-BC7 block decoders of ``utils/bcn.py``, and
+  the BLP reader's DXT1/3/5 decoder, ``utils/blp.py::dxt_plain``;
 * ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
 * ``webp_scan.cpp``: the WebP decoding loops, ``utils/webp.py::
   vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
@@ -151,6 +153,18 @@ SIGNATURES = {
     "wpt_packbits_rows": [ctypes.c_char_p, _I64, _I64, _I64, _I64, _U8P],
     # data, its length, start, format (BCN_CODES), width, height, out
     "wpt_bcn": [ctypes.c_char_p, _I64, _I64, _I32, _I64, _I64, _U8P],
+    # data, its length, start, DXT kind (1, 3, 5), alpha, blocks a row,
+    # block rows, out
+    "wpt_blp_dxt": [ctypes.c_char_p, _I64, _I64, _I32, _I32, _I64, _I64,
+                    _U8P],
+    # data, its length, start, bytes wanted, out
+    "wpt_sun_rle": [ctypes.c_char_p, _I64, _I64, _I64, _U8P],
+    # data, its length, start, row map, rows, blank row bytes, out size,
+    # out, out bytes written
+    "wpt_msp_rle": [ctypes.c_char_p, _I64, _I64, _I64P, _I64, _I64, _I64,
+                    _U8P, _I64P],
+    # data, its length, start, bytes wanted, out, out end
+    "wpt_icns_rle": [ctypes.c_char_p, _I64, _I64, _I64, _U8P, _I64P],
 }
 JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 # utils/bcn.py's formats -> (wpt_bcn's code, bytes a pixel).
@@ -635,3 +649,45 @@ def bcn_native(data: bytes, pos: int, fmt: str, w: int, h: int
     if lib().wpt_bcn(data, len(data), pos, code, w, h, _ptr(out, _U8P)):
         raise ValueError(f"the {fmt} blocks end before the image does")
     return out
+
+
+def blp_dxt_native(data: bytes, pos: int, kind: int, alpha: bool, bw: int,
+                   bh: int) -> np.ndarray:
+    """``utils/blp.py::dxt_plain`` in C++ (``bcn_scan.cpp``): the
+    (4 bh, 4 bw, 3 or 4) pixels of ``bw`` x ``bh`` DXT``kind`` blocks."""
+    bpp = 3 if kind == 1 and not alpha else 4
+    out = np.empty((4 * bh, 4 * bw, bpp), np.uint8)
+    if lib().wpt_blp_dxt(data, len(data), pos, kind, int(alpha), bw, bh,
+                         _ptr(out, _U8P)):
+        raise ValueError(f"the DXT{kind} blocks end before the image does")
+    return out
+
+
+def sun_rle_native(data: bytes, pos: int, size: int
+                   ) -> tuple[np.ndarray, int]:
+    """``utils/sun.py::rle_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros(size, np.uint8)
+    status = lib().wpt_sun_rle(data, len(data), pos, size, _ptr(out, _U8P))
+    return out, int(status)
+
+
+def msp_rle_native(data: bytes, pos: int, rowmap: np.ndarray, blank: int,
+                   size: int) -> tuple[np.ndarray, int, int]:
+    """``utils/msp.py::rle_plain`` in C++ (``image_scan.cpp``)."""
+    rowmap = np.ascontiguousarray(rowmap, np.int64)
+    out = np.zeros(size, np.uint8)
+    written = np.zeros(1, np.int64)
+    status = lib().wpt_msp_rle(data, len(data), pos, _ptr(rowmap, _I64P),
+                               len(rowmap), blank, size, _ptr(out, _U8P),
+                               _ptr(written, _I64P))
+    return out, int(written[0]), int(status)
+
+
+def icns_rle_native(data: bytes, pos: int, size: int
+                    ) -> tuple[np.ndarray, int, int]:
+    """``utils/icns.py::rle_plain`` in C++ (``image_scan.cpp``)."""
+    out = np.zeros(size, np.uint8)
+    end = np.zeros(1, np.int64)
+    status = lib().wpt_icns_rle(data, len(data), pos, size, _ptr(out, _U8P),
+                                _ptr(end, _I64P))
+    return out, int(end[0]), int(status)

@@ -14,6 +14,7 @@ package's.
 from __future__ import annotations
 
 import math
+import re
 import struct
 import zlib
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHUNK_TYPE = re.compile(rb"\w\w\w\w")  # Pillow's is_cid
 
 
 def buffer_to_srgb(accum, width: int, height: int, exposure: float = 1.0):
@@ -249,21 +251,25 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 def _png_chunks(data: bytes, name: str):
     """(IHDR fields, the joined IDAT payload, PLTE, tRNS, the first chunk
-    before any IDAT whose CRC is wrong, or None) of PNG bytes."""
+    before any IDAT whose CRC is wrong, or None, and for each IDAT chunk
+    (where its bytes end in the joined payload, where they end in
+    ``data``)) of PNG bytes."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file (bad signature)")
-    pos, idat, chunks, bad_crc = 8, [], {}, None
-    while pos < len(data):
+    pos, idat, chunks, bad_crc, ends = 8, [], {}, None, []
+    while pos + 8 <= len(data):  # a header cut short ends the chunks
         (length,) = struct.unpack_from(">I", data, pos)
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         crc = data[pos + 8 + length:pos + 12 + length]
-        if not idat and bad_crc is None and (
+        # Pillow checks each CRC before the first IDAT, not the IDAT's own.
+        if not idat and tag != b"IDAT" and bad_crc is None and (
                 len(crc) < 4 or struct.unpack(">I", crc)[0]
                 != zlib.crc32(tag + body) & 0xFFFFFFFF):
-            bad_crc = tag  # Pillow checks each CRC up to the first IDAT
+            bad_crc = tag
         if tag == b"IDAT":
             idat.append(body)
+            ends.append((sum(map(len, idat)), pos + 8 + len(body)))
         elif tag == b"IEND":
             break
         else:
@@ -275,7 +281,31 @@ def _png_chunks(data: bytes, name: str):
     if header[5]:
         raise ValueError(f"{name}: unknown PNG filter method {header[5]}")
     return (header, b"".join(idat), chunks.get(b"PLTE"), chunks.get(b"tRNS"),
-            bad_crc)
+            bad_crc, ends)
+
+
+def _png_trailer(data: bytes, ends: list, consumed: int, name: str) -> None:
+    """Pillow's ``load_end``: from the end of the IDAT chunk that held the
+    last image byte inflated (``consumed`` bytes into the payload), each
+    chunk's CRC skipped and its data read whole, up to IEND, a header cut
+    short or a type of other than four word characters. A chunk whose
+    data runs past the end of ``data`` raises, as Pillow's read does."""
+    if not ends:
+        return
+    pos = next((end for cum, end in ends if cum >= consumed), ends[-1][1])
+    while True:
+        head = data[pos + 4:pos + 12]
+        if len(head) < 8 or not _PNG_CHUNK_TYPE.fullmatch(head[4:]):
+            return
+        length = int.from_bytes(head[:4], "big")
+        pos += 12
+        if head[4:] == b"IEND":
+            return
+        if pos + length > len(data):
+            raise ValueError(f"{name}: the PNG chunk {head[4:]!r} after the "
+                             "image data runs past the end (Pillow: "
+                             "Truncated File Read)")
+        pos += length
 
 
 def _unpack_samples(rows: np.ndarray, w: int, depth: int,
@@ -295,23 +325,30 @@ def _unpack_samples(rows: np.ndarray, w: int, depth: int,
         ..., None]
 
 
-def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
-    """The image's samples (h, w, channels) uint16 at its own bit depth,
-    each Adam7 pass (PNG spec 8.2) unfiltered on its own and put in place."""
+def _png_samples(header, idat: bytes, name: str) -> tuple[np.ndarray, int]:
+    """(The image's samples (h, w, channels) uint16 at its own bit depth,
+    each Adam7 pass (PNG spec 8.2) unfiltered on its own and put in place;
+    the payload bytes inflated.) Inflation stops at the last row's byte,
+    as Pillow's decoder stops: what the stream holds after it (its end,
+    its checksum) is not read."""
     w, h, depth, ctype, _, _, interlace = header
     ch = _PNG_CHANNELS[ctype]
     bits = depth * ch
     bpp = max(1, bits // 8)  # the filters' byte distance (PNG spec 9.2)
+    passes = []
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:  # an empty pass has no rows, not even filter bytes
+            passes.append((x0, y0, dx, dy, pw, ph))
+    total = sum(ph * (1 + (pw * bits + 7) // 8) for *_, pw, ph in passes)
+    inflate = zlib.decompressobj()
     try:
-        raw = zlib.decompress(idat)
+        raw = inflate.decompress(idat, total)
     except zlib.error as exc:
         raise ValueError(f"{name}: bad PNG image data ({exc})") from None
     out = np.zeros((h, w, ch), np.uint16)
     pos = 0
-    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
-        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
-        if pw == 0 or ph == 0:
-            continue  # an empty pass has no rows, not even filter bytes
+    for x0, y0, dx, dy, pw, ph in passes:
         stride = (pw * bits + 7) // 8
         size = ph * (1 + stride)
         if pos + size > len(raw):
@@ -320,7 +357,7 @@ def _png_samples(header, idat: bytes, name: str) -> np.ndarray:
         rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
         out[y0::dy, x0::dx] = _unpack_samples(rows, pw, depth, ch)
         pos += size
-    return out
+    return out, len(idat) - len(inflate.unconsumed_tail)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -335,20 +372,24 @@ def read_png(path: str) -> np.ndarray:
 
 def _readers() -> dict:
     """The decoders of the formats this package reads, by Pillow's name."""
-    from wgpu_path_tracing_tpu_torch.utils import (bmp, dds, gif, netpbm, pcx,
-                                                   psd, qoi, sgi, tga, tiff,
-                                                   webp)
+    from wgpu_path_tracing_tpu_torch.utils import (blp, bmp, dds, ftex, gif,
+                                                   icns, msp, netpbm, pcx,
+                                                   psd, qoi, sgi, sun, tga,
+                                                   tiff, webp, xbm, xpm)
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
             "GIF": gif.decode_gif_rgba, "JPEG": decode_jpeg_rgba,
             "PPM": netpbm.decode_netpbm_rgba, "PNG": decode_png_rgba,
-            "CUR": bmp.decode_cur_rgba, "PCX": pcx.decode_pcx_rgba,
-            "DCX": pcx.decode_dcx_rgba, "DDS": dds.decode_dds_rgba,
-            "ICO": bmp.decode_ico_rgba, "TIFF": tiff.decode_tiff_rgba,
+            "BLP": blp.decode_blp_rgba, "CUR": bmp.decode_cur_rgba,
+            "PCX": pcx.decode_pcx_rgba, "DCX": pcx.decode_dcx_rgba,
+            "DDS": dds.decode_dds_rgba, "FTEX": ftex.decode_ftex_rgba,
+            "ICNS": icns.decode_icns_rgba, "ICO": bmp.decode_ico_rgba,
+            "TIFF": tiff.decode_tiff_rgba, "MSP": msp.decode_msp_rgba,
             "PSD": psd.decode_psd_rgba, "QOI": qoi.decode_qoi_rgba,
-            "SGI": sgi.decode_sgi_rgba, "TGA": tga.decode_tga_rgba,
-            "WEBP": webp.decode_webp_rgba}
+            "SGI": sgi.decode_sgi_rgba, "SUN": sun.decode_sun_rgba,
+            "TGA": tga.decode_tga_rgba, "WEBP": webp.decode_webp_rgba,
+            "XBM": xbm.decode_xbm_rgba, "XPM": xpm.decode_xpm_rgba}
 
 
 def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -362,13 +403,17 @@ def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
     TIFF (``utils/tiff.py``), TGA (``utils/tga.py``), WebP
     (``utils/webp.py``, lossless, lossy with its alpha, the first frame of
     an animation), QOI (``utils/qoi.py``), PCX and DCX (``utils/pcx.py``),
-    SGI (``utils/sgi.py``), PSD (the merged image, ``utils/psd.py``) and
-    DDS (``utils/dds.py``, BC1-BC7 through ``utils/bcn.py``) are read. The
-    walk goes on past a format only where that format's reader says
-    Pillow's ``_open`` would pass the bytes on (TGA, which has no
-    signature, passes on a RIFF header, so WebP files reach WEBP). Bytes
-    Pillow would open as a format this package does not read (AVIF, FTEX,
-    XPM, ...) raise ``ValueError`` at the first such format, naming
+    SGI (``utils/sgi.py``), PSD (the merged image, ``utils/psd.py``),
+    DDS (``utils/dds.py``, BC1-BC7 through ``utils/bcn.py``), FTEX
+    (``utils/ftex.py``), BLP (``utils/blp.py``), ICNS (``utils/icns.py``),
+    Sun raster (``utils/sun.py``), MSP (``utils/msp.py``), XBM
+    (``utils/xbm.py``) and XPM (``utils/xpm.py``) are read. The walk goes
+    on past a format only where that format's reader says Pillow's
+    ``_open`` would pass the bytes on (TGA, which has no signature, passes
+    on a RIFF header, so WebP files reach WEBP, and on ``#define`` and
+    ``/* XPM */`` headers, so X bitmaps and pixmaps reach XBM and XPM).
+    Bytes Pillow would open as a format this package does not read (AVIF,
+    IM, JPEG 2000, ...) raise ``ValueError`` at the first such format, naming
     ``name`` and the format, and bytes no format takes raise
     ``ValueError`` too; a variant of a read format that Pillow opens but
     this package does not read raises ``NotImplementedError`` naming
@@ -397,7 +442,8 @@ def _gray_to_8bit(s: np.ndarray, depth: int) -> np.ndarray:
     return (s * (255 // ((1 << depth) - 1))).astype(np.uint8)
 
 
-def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
+def decode_png_rgba(data: bytes, name: str = "image",
+                    transparency: bool = True) -> np.ndarray:
     """PNG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
     ``Image.open(...).convert("RGBA")`` returns, for every bit depth (1, 2,
     4, 8, 16) of every colour type the PNG standard allows it, interlaced
@@ -413,11 +459,20 @@ def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
       and 4 bits, against the converted sample; at 1 bit any non-zero value
       means 255), else alpha is 255.
 
+    With ``transparency`` False the ``tRNS`` chunk is not read, as when
+    another format's reader (ICNS) takes the PNG's pixels without its
+    ``info``.
+
     Other combinations, a chunk before the image data whose CRC is wrong
-    or a filter method other than 0 (Pillow refuses both), and bytes that
-    are no PNG (``decode_image_rgba`` reads other formats), raise
-    ``ValueError`` naming ``name``."""
-    header, idat, plte, trns, bad_crc = _png_chunks(data, name)
+    (an IDAT's own CRC is not checked), a chunk after the image data
+    whose data runs past the end (Pillow's ``load_end`` reads each one up
+    to IEND) or a filter method other than 0 (Pillow refuses each), and
+    bytes that are no PNG (``decode_image_rgba`` reads other formats),
+    raise ``ValueError`` naming ``name``. The image data is inflated up to
+    its last row only, so a stream cut after it reads."""
+    header, idat, plte, trns, bad_crc, ends = _png_chunks(data, name)
+    if not transparency:
+        trns = None
     _, _, depth, ctype, _, _, interlace = header
     if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace not in (0, 1):
         raise ValueError(f"{name}: not a valid PNG header (bit depth "
@@ -426,7 +481,8 @@ def decode_png_rgba(data: bytes, name: str = "image") -> np.ndarray:
     if bad_crc is not None:
         raise ValueError(f"{name}: broken PNG file (bad checksum in "
                          f"{bad_crc!r})")
-    s = _png_samples(header, idat, name)
+    s, consumed = _png_samples(header, idat, name)
+    _png_trailer(data, ends, consumed, name)
     h, w = s.shape[0], s.shape[1]
     if ctype == 3:
         if plte is None:

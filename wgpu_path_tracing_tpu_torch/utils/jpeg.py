@@ -1106,11 +1106,15 @@ def _parse_sof(seg: bytes, name: str, kind: tuple) -> dict:
             "lossless": lossless, "block": unit}
 
 
-def decode_jpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
+def decode_jpeg_rgba(data: bytes, name: str = "image",
+                     as_cmyk: bool = False) -> np.ndarray:
     """JPEG bytes -> (H, W, 4) uint8 RGBA, what Pillow's
     ``Image.open(...).convert("RGBA")`` returns for the files the module
-    docstring lists; others raise naming ``name``."""
-    return _to_rgba(*_read_frame(data, name), name)
+    docstring lists; others raise naming ``name``. With ``as_cmyk`` a
+    four-component frame is taken as CMYK whatever its Adobe transform
+    says, so a YCCK frame is not converted: Pillow's BLP plugin sets the
+    JPEG mode "CMYK", which libjpeg then trusts."""
+    return _to_rgba(*_read_frame(data, name), name, as_cmyk)
 
 
 def decode_jpeg_samples(data: bytes, name: str, ycbcr: bool
@@ -1529,7 +1533,8 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return out
 
 
-def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
+def _to_rgba(frame, jfif, adobe, transform, name,
+             as_cmyk: bool = False) -> np.ndarray:
     w, h = frame["width"], frame["height"]
     comps = frame["comps"]
     planes = _planes(frame)
@@ -1542,11 +1547,12 @@ def _to_rgba(frame, jfif, adobe, transform, name) -> np.ndarray:
         # marker or under transform 0, YCCK under 2 (and, with a warning,
         # any other transform).
         c, m, y, k = planes
-        if adobe and transform != 0 and frame["lossless"]:
+        ycck = adobe and transform != 0 and not as_cmyk
+        if ycck and frame["lossless"]:
             raise NotImplementedError(
                 f"{name}: a lossless YCCK JPEG is not supported (libjpeg-turbo"
                 " converts no colour space of a lossless frame)")
-        if adobe and transform != 0:  # jdcolor.c ycck_cmyk_convert
+        if ycck:  # jdcolor.c ycck_cmyk_convert
             c, m, y = (np.clip(255 - (c + _CR_R[y]), 0, 255),
                        np.clip(255 - (c + ((_CB_G[m] + _CR_G[y]) >> 16)), 0,
                                255),
