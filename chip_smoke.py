@@ -171,7 +171,14 @@ and runs these phases, one line of output each:
    SHA-256 of Pillow's decode, both ways on files of
    ``LEGACY_PYTHON_SIZE``, and the same box with DXT5 BLP2, BLP1 JPEG,
    it32 ICNS and XPM sidecar textures (``LEGACY_TEXTURES``) against its
-   plain path;
+   plain path; then the IM, IMT, IPTC, PCD, PIXAR, SPIDER, McIdas, FITS,
+   FLI, GBR and XV-thumbnail readers: a 4096x2048 FLC and IM bit-decoder
+   image made by the test suite's writers, decoded with the C++ loops
+   within 5 s and with their plain loops to the SHA-256 of Pillow's
+   decode, both ways at ``SCI_RARE_PYTHON_SIZE``, the Photo CD
+   files to Pillow's SHA-256, and the same box with IM, FITS, FLC and
+   GIMP-brush sidecar textures (``SCI_RARE_TEXTURES``) against its plain
+   path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -188,7 +195,8 @@ and runs these phases, one line of output each:
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
    map, a 16-bit RGB TIFF map, a lossy WebP map, a GIF map, a JPEG-in-TIFF
    YCbCr map, a float TIFF map, a BC1 DDS map, an RLE SGI map, an RLE Sun
-   raster map and a DXT1 BLP2 map (``RenderConfig.env_map``): its launches
+   raster map, a DXT1 BLP2 map, a float FITS map and a SPIDER map
+   (``RenderConfig.env_map``): its launches
    (K1, K2, K2's ENV instantiation) and its image against the plain
    path's;
 14. binary-BVH walks (``bvh2``): their division (``csrc/bvh2.cu`` div_by)
@@ -2793,6 +2801,20 @@ LEGACY_TEXTURES = ("dxt5_18x10_sheared.blp", "jpeg_blp1.blp",
                    "it32_rle_t8mk.icns", "palette.xpm")
 LEGACY_ENV_MAPS = (("env_rle.ras", "env_sun_rle"), ("env_dxt1.blp",
                                                     "env_blp_dxt1"))
+# The scientific- and rare-format-textured box: the same scene with a
+# Pillow-written YCbCr IM, a GZIP_1 16-bit FITS, an FLC of BRUN and LC
+# chunks and a GIMP brush as its four sidecar textures; and the env box
+# under a float FITS map and a SPIDER map.
+SCI_RARE_TEXTURES = ("pillow_YCbCr.im", "gzip_bitpix16.fits", "brun_lc.flc",
+                     "v2_rgba.gbr")
+SCI_RARE_ENV_MAPS = (("env_float.fits", "env_fits"), ("env.spi",
+                                                      "env_spider"))
+# Their decode timings: a 4096x2048 FLC (BRUN) and IM "L*12" image (the
+# bit decoder), their Pillow decodes' SHA-256 in
+# tests/ldr/pillow_sha256.json, both ways at that size and at
+# SCI_RARE_PYTHON_SIZE; and the Photo CD base image (NumPy only: no loop),
+# plain and rotated.
+SCI_RARE_PYTHON_SIZE = (1024, 512)
 # The legacy-format decode timings: a 4096x2048 RLE 24-bit Sun raster and
 # DXT5 BLP2 (their Pillow decodes' SHA-256 in tests/ldr/pillow_sha256.json)
 # made here by the test suite's writers, in C++ and with the plain
@@ -3036,8 +3058,8 @@ def phase_gltf(dev, smi, report, profile: str | None):
         report["gltf"]["ldr"] = ldr_scene(tmp, smi, report)
         report["gltf"]["webp_gif"] = webp_gif_scene(tmp, smi, report)
         report["gltf"]["tiff_variants"] = tiff_variant_scene(tmp, smi, report)
-        report["gltf"]["assets"] = asset_scene(tmp, smi, report)
-        report["gltf"]["legacy"] = legacy_scene(tmp, smi, report)
+        for key in FORMAT_SCENES:
+            report["gltf"][key] = format_scene(tmp, smi, report, key)
 
 
 def jpeg_scene(tmp: str, smi: str, report: dict) -> dict:
@@ -3431,76 +3453,89 @@ def timed_decodes(files: list, smi: str) -> dict:
     return seconds
 
 
-def asset_scene(tmp: str, smi: str, report: dict) -> dict:
-    """The QOI, PCX (DCX), SGI, PSD and DDS readers on this host
-    (``ldr_scene`` has held every committed file of theirs to its Pillow
-    array both ways): the C++ decode seconds of a 4096x2048 BC7 DDS (mode
-    6; its SHA-256 against Pillow's) and a 4096x2048 PackBits RGBA PSD
-    (against the array it was made from), made here by the test suite's
-    writers, each under JPEG_DECODE_BOUND_S, and their plain decode seconds
-    (the NumPy block decoders and the Python PackBits loop, what a host
-    without g++ runs); both ways on a BC7 DDS and a PSD of
-    ASSET_PYTHON_SIZE (the BC7 one against the C++ decode); then the
-    asset-textured box (``ldr_box`` with ASSET_TEXTURES)."""
+def asset_files(m, digests: dict, size: tuple, python_size: tuple) -> list:
+    """The QOI, PCX (DCX), SGI, PSD and DDS readers' timed files: a BC7 DDS
+    (mode 6; its SHA-256 against Pillow's) and a PackBits RGBA PSD (against
+    the array it was made from) of ``size``, both ways (the NumPy block
+    decoders and the Python PackBits loop are what a host without g++
+    runs); the same at ``python_size`` (the BC7 one against the C++
+    decode)."""
+    (w, h), (pw, ph) = size, python_size
+    bc7, (psd, img) = m.large_bc7(w, h), m.large_psd(w, h)
+    small_bc7, (small_psd, small_img) = m.large_bc7(pw, ph), m.large_psd(pw,
+                                                                         ph)
+    return [(m.LARGE_BC7, bc7, digests[m.LARGE_BC7], True),
+            (f"packbits_rgba_{w}x{h}.psd", psd, img, True),
+            (f"bc7_mode6_{pw}x{ph}.dds", small_bc7, None, True),
+            (f"packbits_rgba_{pw}x{ph}.psd", small_psd, small_img, True)]
+
+
+def legacy_files(m, digests: dict, size: tuple, python_size: tuple) -> list:
+    """The FTEX, BLP, ICNS, Sun raster, MSP, XBM and XPM readers' timed
+    files: an RLE 24-bit Sun raster and a DXT5 BLP2 of ``size``, each
+    against the SHA-256 of Pillow's decode, both ways (the Python RLE loop
+    and the NumPy DXT decoder); the same at ``python_size`` (against the
+    C++ decode)."""
+    (w, h), (pw, ph) = size, python_size
+    (ras, _), blp = m.large_sun(w, h), m.large_blp(w, h)
+    (small_ras, _), small_blp = m.large_sun(pw, ph), m.large_blp(pw, ph)
+    return [(m.LARGE_SUN, ras, digests[m.LARGE_SUN], True),
+            (m.LARGE_BLP, blp, digests[m.LARGE_BLP], True),
+            (f"rle24_{pw}x{ph}.ras", small_ras, None, True),
+            (f"dxt5_{pw}x{ph}.blp", small_blp, None, True)]
+
+
+def sci_rare_files(m, digests: dict, size: tuple, python_size: tuple
+                   ) -> list:
+    """The IM, IMT, IPTC, PCD, PIXAR, SPIDER, McIdas, FITS, FLI, GBR and
+    XV-thumbnail readers' timed files: an FLC and an IM "L*12" image (the
+    bit decoder) of ``size``, each against the SHA-256 of Pillow's decode,
+    both ways; the same at ``python_size`` (against the C++ decode); the
+    two Photo CD files against Pillow's SHA-256."""
+    (w, h), (pw, ph) = size, python_size
+    files = [(m.LARGE_FLI, m.large_fli(w, h), digests[m.LARGE_FLI], True),
+             (m.LARGE_IM_BITS, m.large_im_bits(w, h),
+              digests[m.LARGE_IM_BITS], True),
+             (f"brun_{pw}x{ph}.flc", m.large_fli(pw, ph), None, True),
+             (f"f12_bits_{pw}x{ph}.im", m.large_im_bits(pw, ph), None, True)]
+    return files + [(name, m.photo_cd(k), digests[name], False)
+                    for k, name in enumerate(m.PCD_FILES)]
+
+
+# The reader slices timed and rendered after the TIFF variants, by their
+# report key: (their timed files' maker, the plain decodes' size, the
+# box's sidecar textures, its path's name).
+FORMAT_SCENES = {
+    "assets": (asset_files, ASSET_PYTHON_SIZE, ASSET_TEXTURES,
+               "gltf_assets"),
+    "legacy": (legacy_files, LEGACY_PYTHON_SIZE, LEGACY_TEXTURES,
+               "gltf_legacy"),
+    "sci_rare": (sci_rare_files, SCI_RARE_PYTHON_SIZE, SCI_RARE_TEXTURES,
+                 "gltf_sci_rare"),
+}
+
+
+def format_scene(tmp: str, smi: str, report: dict, key: str) -> dict:
+    """One of FORMAT_SCENES on this host (``ldr_scene`` has held every
+    committed file of its readers to its Pillow array both ways): its
+    files made here by the test suite's writers at LDR_TIMING_SIZE and its
+    plain size, decoded by ``timed_decodes`` (each C++ decode under
+    JPEG_DECODE_BOUND_S); then its box (``ldr_box`` with its
+    textures)."""
+    make, python_size, textures, path_name = FORMAT_SCENES[key]
     cases_module = image_cases()
     with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
         digests = json.load(f)
-    w, h = LDR_TIMING_SIZE
-    pw, ph = ASSET_PYTHON_SIZE
-    ((bc7, (psd, img), small_bc7, (small_psd, small_img)),
-     make_s) = timed(lambda: (
-         cases_module.large_bc7(w, h), cases_module.large_psd(w, h),
-         cases_module.large_bc7(pw, ph), cases_module.large_psd(pw, ph)))
-    files = [(cases_module.LARGE_BC7, bc7, digests[cases_module.LARGE_BC7],
-              True),
-             (f"packbits_rgba_{w}x{h}.psd", psd, img, True),
-             (f"bc7_mode6_{pw}x{ph}.dds", small_bc7, None, True),
-             (f"packbits_rgba_{pw}x{ph}.psd", small_psd, small_img, True)]
-    seconds = timed_decodes(files, smi)
-    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
-           "python_size": list(ASSET_PYTHON_SIZE)}
+    files, make_s = timed(lambda: make(cases_module, digests,
+                                       LDR_TIMING_SIZE, python_size))
+    out = {"timing_seconds": timed_decodes(files, smi),
+           "timing_files_made_seconds": make_s,
+           "python_size": list(python_size)}
     texture_files = {}
-    for name in ASSET_TEXTURES:
+    for name in textures:
         with open(os.path.join(LDR_DIR, name), "rb") as f:
             texture_files[name] = f.read()
-    out.update(ldr_box(tmp, texture_files, smi, report, ASSET_TEXTURES,
-                       "gltf_assets"))
-    return out
-
-
-def legacy_scene(tmp: str, smi: str, report: dict) -> dict:
-    """The FTEX, BLP, ICNS, Sun raster, MSP, XBM and XPM readers on this
-    host (``ldr_scene`` has held every committed file of theirs to its
-    Pillow array both ways): the decode seconds of a 4096x2048 RLE 24-bit
-    Sun raster and a 4096x2048 DXT5 BLP2 made here by the test suite's
-    writers, each against the SHA-256 of Pillow's decode, in C++ (under
-    JPEG_DECODE_BOUND_S) and with the plain versions (the Python RLE loop
-    and the NumPy DXT decoder, what a host without g++ runs); both ways on
-    files of LEGACY_PYTHON_SIZE (against the C++ decode); then the
-    legacy-textured box (``ldr_box`` with LEGACY_TEXTURES)."""
-    cases_module = image_cases()
-    with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
-        digests = json.load(f)
-    w, h = LDR_TIMING_SIZE
-    pw, ph = LEGACY_PYTHON_SIZE
-    ((ras, _), blp, (small_ras, _), small_blp), make_s = timed(lambda: (
-        cases_module.large_sun(w, h), cases_module.large_blp(w, h),
-        cases_module.large_sun(pw, ph), cases_module.large_blp(pw, ph)))
-    files = [(cases_module.LARGE_SUN, ras, digests[cases_module.LARGE_SUN],
-              True),
-             (cases_module.LARGE_BLP, blp, digests[cases_module.LARGE_BLP],
-              True),
-             (f"rle24_{pw}x{ph}.ras", small_ras, None, True),
-             (f"dxt5_{pw}x{ph}.blp", small_blp, None, True)]
-    seconds = timed_decodes(files, smi)
-    out = {"timing_seconds": seconds, "timing_files_made_seconds": make_s,
-           "python_size": list(LEGACY_PYTHON_SIZE)}
-    texture_files = {}
-    for name in LEGACY_TEXTURES:
-        with open(os.path.join(LDR_DIR, name), "rb") as f:
-            texture_files[name] = f.read()
-    out.update(ldr_box(tmp, texture_files, smi, report, LEGACY_TEXTURES,
-                       "gltf_legacy"))
+    out.update(ldr_box(tmp, texture_files, smi, report, textures, path_name))
     return out
 
 
@@ -3686,7 +3721,7 @@ def phase_env(dev, smi, report, profile: str | None):
                                                "env_jpeg_arith")
     for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
                             + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS
-                            + LEGACY_ENV_MAPS):
+                            + LEGACY_ENV_MAPS + SCI_RARE_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

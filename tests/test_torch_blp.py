@@ -264,10 +264,10 @@ def test_headers_pillow_passes_on_are_passed_on(case):
 
 
 def test_blp_and_ftex_are_tried_by_their_signatures():
-    assert list(sniff.pillow_candidates(fixture("dxt3.blp")))[:2] == [
-        "BLP", "TGA"]
-    assert list(sniff.pillow_candidates(fixture("rgb.ftu")))[:2] == [
-        "FTEX", "TGA"]
+    assert list(sniff.pillow_candidates(fixture("dxt3.blp"))) == [
+        "BLP", *C.ANY_BYTES, "TGA"]
+    assert list(sniff.pillow_candidates(fixture("rgb.ftu"))) == [
+        "FTEX", *C.ANY_BYTES, "TGA"]
 
 
 @settings(max_examples=40, deadline=None)

@@ -1620,6 +1620,84 @@ def test_renderer_legacy_env_map_equals_plain_path(dev, name):
                                   plain_render(r, spp=2).view(np.uint32))
 
 
+def test_renderer_sci_rare_textured_scene_equals_plain_path(
+        dev, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s box of scientific and rare formats (a YCbCr IM,
+    a GZIP_1 FITS, an FLC, a GIMP brush as sidecar textures) through
+    ``load_model`` and the CUDA bounce: the C++ FLI loop taken, the walk
+    and K2 in the scene's texture mode, equal to its plain path on every
+    pixel."""
+    from chip_smoke import SCI_RARE_TEXTURES, ldr_cases, with_sidecar_images
+    from wgpu_path_tracing_tpu_torch.accel import native
+
+    assert native.native_available()
+    calls = {}
+    real = native.fli_native
+
+    def counted(*args):
+        calls["fli_native"] = calls.get("fli_native", 0) + 1
+        return real(*args)
+
+    monkeypatch.setattr(native, "fli_native", counted)
+    files = {name: data for name, data, _ in ldr_cases()}
+    for name in SCI_RARE_TEXTURES:
+        (tmp_path / name).write_bytes(files[name])
+    path = tmp_path / "sci_rare_textured.gltf"
+    path.write_text(with_sidecar_images(
+        scene_to_glb(textured_cornell(tessellation=12)),
+        list(SCI_RARE_TEXTURES)))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    assert calls == {"fli_native": 1}, calls
+    mode = r.stats()["texture"]
+    assert r.stats()["intersector"] == "walk" and mode in ("fat", "per_slot")
+    before = (K3.Counter.launches, K2.Counter.by_mode[mode])
+    kernel = r.render(spp=1)
+    assert (K3.Counter.launches, K2.Counter.by_mode[mode]) == (
+        before[0] + 2 * r.config.max_bounces,
+        before[1] + r.config.max_bounces)
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["env_float.fits", "env.spi"])
+def test_renderer_sci_rare_env_map_equals_plain_path(dev, name):
+    """The material box under ``chip_smoke.py``'s float FITS map and SPIDER
+    map: K2's ENV instantiation at every bounce, the image equal to the
+    plain path's."""
+    from chip_smoke import LDR_DIR
+
+    r = Renderer(RenderConfig(width=W, height=H,
+                              env_map=f"{LDR_DIR}/{name}", env_intensity=1.5),
+                 device="cuda")
+    r.load_scene(material_test_box())
+    before = K2.Counter.env
+    kernel = r.render(spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=2).view(np.uint32))
+
+
+def test_large_sci_rare_files_decode_to_pillows_digests_here(dev):
+    """The 4096x2048 FLC and IM bit-decoder image and the Photo CD files
+    made by the test writers decode on the card's host to the SHA-256 of
+    Pillow's decode, with the C++ loops."""
+    import hashlib
+    import json
+
+    from chip_smoke import LDR_DIR, decode_both, image_cases
+
+    cases = image_cases()
+    with open(f"{LDR_DIR}/pillow_sha256.json") as f:
+        digests = json.load(f)
+    made = {cases.LARGE_FLI: cases.large_fli(),
+            cases.LARGE_IM_BITS: cases.large_im_bits()}
+    made.update({n: cases.photo_cd(k) for k, n in enumerate(cases.PCD_FILES)})
+    for name, data in made.items():
+        ((rgba, _),) = decode_both(data, name, python=False)
+        assert hashlib.sha256(rgba.tobytes()).hexdigest() == digests[name], name
+
+
 def test_committed_ldr_files_decode_to_their_pillow_arrays_here(dev):
     """The files under ``tests/ldr`` decode on the card's host (no Pillow)
     to ``pillow_rgba.npz``, with the C++ loops and with the Python ones."""

@@ -22,7 +22,7 @@ from wgpu_path_tracing_tpu.utils import image as JIMAGE
 from wgpu_path_tracing_tpu_torch.accel import native
 from wgpu_path_tracing_tpu_torch.ops import env as ENV
 from wgpu_path_tracing_tpu_torch.utils import image as IMAGE
-from wgpu_path_tracing_tpu_torch.utils import qoi, sniff
+from wgpu_path_tracing_tpu_torch.utils import gbr, qoi, sniff
 from tests import torch_image_cases as C
 
 torch.set_num_threads(1)
@@ -90,7 +90,9 @@ def test_written_variants_equal_pillow(case):
     data = VARIANTS[case]()
     if case == "width_1_as_gbr_prefix":
         assert sniff.ACCEPT["GBR"](data[:16])
-        assert "GBR" not in list(sniff.pillow_candidates(data))
+        assert "GBR" in list(sniff.pillow_candidates(data))
+        with pytest.raises(sniff.NotThisFormat):
+            gbr.decode_gbr_rgba(data, case)
     C.assert_like_pillow(data)
 
 

@@ -256,34 +256,38 @@ SAVE_TABLE = save_table()
 
 def test_sniffing_follows_pillows_order():
     """A true-colour TGA starts with a cursor's signature (``00 00 02 00``):
-    Pillow's CUR reader finds no entries and passes it on, and it is read
-    as TGA. A TGA header that PCX's test takes (an ID field of 10 bytes)
+    Pillow's CUR reader finds no entries and passes it on, as do the
+    formats tried on any bytes before TGA, and it is read as TGA. A TGA header that PCX's test takes (an ID field of 10 bytes)
     is PCX's, an unknown PCX mode to Pillow, which raises, and the port
     raises so. A GIF and a WebP (tried after TGA, whose header checks a
     RIFF file fails) read as Pillow reads them, and so does an XPM (tried
     after TGA, which passes its header on); a format still not read
-    (FITS) raises naming it; bytes no format takes raise."""
+    (JPEG 2000) raises naming it; bytes no format takes raise."""
     px = C.sample_image(6, 4, 2, 3)
     data = C.write_tga(px[..., ::-1], 2, 24)
     assert data[:4] == b"\0\0\2\0"
-    assert list(sniff.pillow_candidates(data)) == ["CUR", "TGA"]
+    assert list(sniff.pillow_candidates(data)) == ["CUR", *C.ANY_BYTES,
+                                                  "TGA"]
     np.testing.assert_array_equal(C.assert_like_pillow(data)[..., :3], px)
     pcx = C.write_tga(px[..., ::-1], 2, 24, ident=b"0123456789")
     assert C.pillow_refuses(pcx)
     C.assert_refused(pcx, "p.tga", ValueError, "unknown PCX mode")
     gif = C.pillow_bytes(Image.fromarray(px), "GIF")
-    assert list(sniff.pillow_candidates(gif)) == ["GIF", "TGA"]
+    assert list(sniff.pillow_candidates(gif)) == ["GIF", *C.ANY_BYTES,
+                                                 "TGA"]
     C.assert_like_pillow(gif)
     webp = C.pillow_bytes(Image.fromarray(px), "WEBP")
-    assert list(sniff.pillow_candidates(webp)) == ["TGA", "WEBP"]
+    assert list(sniff.pillow_candidates(webp)) == [*C.ANY_BYTES, "TGA",
+                                                  "WEBP"]
     C.assert_like_pillow(webp)
     xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n'
            b'"a c #ff0000",\n"b c #00ff00",\n"ab"\n};\n')
-    assert list(sniff.pillow_candidates(xpm)) == ["TGA", "XPM"]
+    assert list(sniff.pillow_candidates(xpm)) == [*C.ANY_BYTES, "TGA",
+                                                 "XPM"]
     C.assert_like_pillow(xpm)
-    fits = b"SIMPLE  =  T" + bytes(20)
-    C.assert_refused(fits, "x.fits", ValueError,
-                     "Pillow would open this file as FITS")
+    jp2 = b"\xff\x4f\xff\x51" + bytes(40)
+    C.assert_refused(jp2, "x.jp2", ValueError,
+                     "Pillow would open this file as JPEG2000")
     assert C.pillow_refuses(b"\xff" * 40)
     C.assert_refused(b"\xff" * 40, "n.bin", ValueError,
                      "not an image Pillow can identify")

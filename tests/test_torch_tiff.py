@@ -237,8 +237,6 @@ def not_read_cases():
             RGB16[..., :1], 16, 1, compression=5, order=">", sample_format=2),
         "ccitt_ends_early": with_byte_count(C.write_tiff(
             (GRAY > 100).astype(np.uint8), 1, 1, compression=4), 9),
-        "jpeg_strip_cut_short": with_byte_count(C.write_tiff(
-            RGB, 8, 2, compression=7, jpeg={"tables": False}), 400),
         "lzma_bad_data": bytes(C.write_tiff(RGB, 8, 2, compression=34925)[:30])
         + b"\xff" * 20 + bytes(C.write_tiff(RGB, 8, 2, compression=34925)[50:]),
     }
@@ -252,8 +250,8 @@ def test_variants_left_for_later_raise_naming_the_image(case):
     """Old-style JPEG (6), zstd, WebP, compressed separate planes of other
     samples than 8-bit RGB, RGBA and CMYK, compressed big-endian signed
     16-bit samples, CCITT data that ends before its last row (libtiff
-    leaves rows unwritten), a JPEG strip cut short (libtiff ends it with a
-    fake EOI) and bad LZMA data (libtiff keeps part of it) raise
+    leaves rows unwritten) and bad LZMA data (libtiff keeps part of it)
+    raise
     ``NotImplementedError`` naming the image, whatever Pillow does with
     them."""
     C.assert_refused(NOT_READ[case], "n.tif", NotImplementedError)

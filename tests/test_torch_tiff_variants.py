@@ -18,6 +18,7 @@ either byte order.
 """
 
 import json
+import struct
 
 import numpy as np
 import pytest
@@ -480,3 +481,58 @@ def test_large_jpeg_in_tiff_equals_pillows_digest():
         want = json.load(f)[C.LARGE_TIFF_JPEG]
     got = C.decode_in(True, fixture(C.LARGE_TIFF_JPEG))
     assert hashlib.sha256(got.tobytes()).hexdigest() == want
+
+
+def _longer(data: bytes, extra: int) -> bytes:
+    """A TIFF whose ImageLength claims ``extra`` rows more than its strips
+    hold."""
+    order = "<" if data[:2] == b"II" else ">"
+    (ifd,) = struct.unpack_from(order + "I", data, 4)
+    (n,) = struct.unpack_from(order + "H", data, ifd)
+    out = bytearray(data)
+    for i in range(n):
+        at = ifd + 2 + 12 * i
+        tag, typ = struct.unpack_from(order + "HH", out, at)
+        if tag == 257:
+            code = order + ("H" if typ == 3 else "I")
+            struct.pack_into(code, out, at + 8,
+                             struct.unpack_from(code, out, at + 8)[0] + extra)
+    return bytes(out)
+
+
+SHORT_STRIPS = {
+    "lab": (LAB, 8, 8, {}), "gray": (GRAY, 8, 1, {}),
+    "white_is_zero": (GRAY, 8, 0, {}), "rgb": (RGB, 8, 2, {}),
+    "rgba": (RGBA, 8, 2, {"extra": (2,)}),
+    "rgba_associated": (RGBA, 8, 2, {"extra": (1,)}),
+    "ycbcr_raw": (YCC, 8, 6, {"subsampling": (1, 1)}),
+    "cmyk": (C.sample_image(37, 23, 11), 8, 5, {}),
+    "gray16": (GRAY.astype(np.uint16) * 200, 16, 1, {}),
+    "gray16_signed": (GRAY.astype(np.uint16) * 200, 16, 1,
+                      {"sample_format": 2}),
+    "bilevel": (BITS, 1, 1, {}), "bilevel_white_is_zero": (BITS, 1, 0, {}),
+    "float": (FLOAT, 32, 1, {"sample_format": 3}),
+    "gray_alpha": (C.sample_image(37, 23, 12, 2), 8, 1, {"extra": (2,)}),
+}
+
+
+@pytest.mark.parametrize("rows_per_strip", [None, 5])
+@pytest.mark.parametrize("case", sorted(SHORT_STRIPS))
+def test_rows_past_the_last_strip_equal_pillow(case, rows_per_strip):
+    """Raw strips that cover fewer rows than ImageLength: Pillow leaves the
+    rest at its image's zero bytes, which in "LAB" (whose fourth byte is
+    255 wherever a strip wrote) convert to (0, 59, 195) with alpha 0; in
+    the other modes the port's zero samples read as Pillow's zero bytes
+    do. Where the strips end inside the last one the new height asks for,
+    or raw YCbCr (four bytes a pixel) runs out, Pillow refuses the file,
+    and so does the port."""
+    samples, bits, photo, kw = SHORT_STRIPS[case]
+    data = _longer(C.write_tiff(samples, bits, photo,
+                                rows_per_strip=rows_per_strip, **kw), 4)
+    if C.pillow_refuses(data):  # a last strip now short of its rows
+        C.assert_refused(data, f"{case}.tif")
+        assert rows_per_strip or case == "ycbcr_raw"
+        return
+    got = C.assert_like_pillow(data, f"{case}.tif")
+    if case == "lab":
+        assert got[-1, 0].tolist() == [0, 59, 195, 0]

@@ -351,7 +351,8 @@ def test_webp_reaches_its_reader_exactly_when_pillow_says_webp(monkeypatch):
     monkeypatch.setattr(webp, "decode_webp_rgba", spy)
     for name in WEBP_FILES:
         data = fixture(name)
-        assert list(sniff.pillow_candidates(data)) == ["TGA", "WEBP"]
+        assert list(sniff.pillow_candidates(data)) == [*C.ANY_BYTES, "TGA",
+                                                      "WEBP"]
         with Image.open(io.BytesIO(data)) as im:
             assert im.format == "WEBP"
         IMAGE.decode_image_rgba(data, name)
@@ -471,3 +472,62 @@ def test_webp_and_gif_sidecars_build_the_jax_atlas(ratio, tmp_path):
     np.testing.assert_array_equal(got, want)
     assert got_rects == want_rects
     assert sum(r[2] > 0 for rects in got_rects for r in rects.values()) == 4
+
+
+def _cut_alpha_cases() -> dict:
+    """Lossy files whose compressed ALPH stream (libwebp's own, a palette
+    of a few levels: its 8-bit alpha path) lost 1 to 5 bytes."""
+    rng = np.random.default_rng(31)
+    out = {}
+    for i in range(14):
+        w, h = int(rng.integers(3, 40)), int(rng.integers(2, 24))
+        img = C.sample_image(w, h, i)
+        img[..., 3] = np.sort(rng.integers(0, 6, (h, w)) * 40, axis=1)
+        still = C.libwebp_encode(img, alpha_compression=1,
+                                 alpha_filtering=int(rng.integers(0, 3)))
+        alph = next(p for f, p in C.riff_chunks(still) if f == b"ALPH")
+        for cut in range(1, 6):
+            out[f"{i}_{cut}"] = C.with_alph(still, alph[:-cut], w, h)
+    return out
+
+
+CUT_ALPHA = _cut_alpha_cases()
+
+
+@pytest.mark.parametrize("case", sorted(CUT_ALPHA))
+def test_alpha_overrun_on_the_8_bit_path_as_libwebp(case):
+    """libwebp's 8-bit alpha path (one colour-indexing transform, no cache,
+    one-symbol red, blue and alpha codes) checks the stream's end after
+    each symbol and fails only where pixels are left; the last symbols
+    read past the end through its 64-bit window (wrapping, then from the
+    window's start). Pillow reads some of these files and refuses others;
+    the port does the same, in C++ and in Python."""
+    data = CUT_ALPHA[case]
+    if C.pillow_refuses(data):
+        C.assert_refused(data, "a.webp")
+    else:
+        C.assert_like_pillow(data, "a.webp")
+
+
+def test_some_cut_alpha_streams_read():
+    assert sum(not C.pillow_refuses(d) for d in CUT_ALPHA.values()) >= 5
+
+
+@pytest.mark.parametrize("extra", [1, 2, 6])
+@pytest.mark.parametrize("inside", [True, False])
+def test_a_vp8x_chunk_longer_than_10_bytes_is_refused(extra, inside):
+    """A ``VP8X`` chunk of more than 10 bytes, its trailing bytes inside
+    the chunk or only claimed by its size: Pillow 12.1.0 fails to make
+    its decoder ("could not create decoder object"), and the port
+    refuses it."""
+    body = bytes([0x10, 0, 0, 0]) + (36).to_bytes(3, "little") + (
+        20).to_bytes(3, "little")
+    still = C.write_vp8l(RGBA)
+    image = [C.chunk(f, p) for f, p in C.riff_chunks(still)]
+    if inside:
+        data = C.riff([C.chunk(b"VP8X", body + bytes(extra))] + image)
+    else:
+        raw = b"VP8X" + struct.pack("<I", 10 + extra) + body + b"".join(image)
+        data = b"RIFF" + struct.pack("<I", 4 + len(raw)) + b"WEBP" + raw
+    assert C.pillow_refuses(data)
+    C.assert_refused(data, "x.webp", ValueError, "WebPDemux refuses")

@@ -1,5 +1,6 @@
 """Small writers of TGA, BMP (DIB, ICO, CUR), netpbm, TIFF, WebP, GIF,
-QOI, PCX (DCX), SGI, PSD and DDS files for the LDR readers' tests
+QOI, PCX (DCX), SGI, PSD and DDS files (and, further down, of the older
+and rarer formats: FTEX to XPM, IM to FLI) for the LDR readers' tests
 (``utils/tga.py``, ``bmp.py``, ``netpbm.py``, ``tiff.py``, ``webp.py``,
 ``gif.py``, ``qoi.py``, ``pcx.py``, ``sgi.py``, ``psd.py``, ``dds.py``),
 and the fixtures under ``tests/ldr/``.
@@ -42,6 +43,10 @@ import struct
 import zlib
 
 import numpy as np
+
+# The formats Pillow tries on any bytes (they have no ``_accept``), in its
+# order; TGA, tried on any bytes too, comes after them.
+ANY_BYTES = ["IM", "IMT", "IPTC", "PCD", "SPIDER"]
 
 LDR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ldr")
 
@@ -116,6 +121,15 @@ def assert_refused(data: bytes, name: str = "r.img",
     for in_cxx in (True, False):
         with pytest.raises(exc, match=f"{name}: {match}"):
             decode_in(in_cxx, data, name)
+
+
+def assert_as_pillow(data: bytes, name: str = "case") -> None:
+    """Pillow's array both ways, or, where Pillow refuses ``data``, both
+    ways of decoding raising naming ``name``."""
+    if pillow_refuses(data):
+        assert_refused(data, name)
+    else:
+        assert_like_pillow(data, name)
 
 
 def pillow_refuses(data: bytes) -> bool:
@@ -1691,6 +1705,7 @@ def fixtures() -> dict:
     out.update(tiff_variant_fixtures())
     out.update(new_format_fixtures())
     out.update(legacy_fixtures())
+    out.update(sci_rare_fixtures())
     return out
 
 
@@ -2931,6 +2946,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env.qoi"] = env_qoi(64, 32, 29)
     files["env_rle.ras"] = env_sun_rle(64, 32, 30)
     files["env_dxt1.blp"] = env_blp_dxt1(64, 32, 31)
+    files["env_float.fits"] = env_fits(64, 32, 32)
+    files["env.spi"] = env_spider(64, 32, 33)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -2953,8 +2970,514 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
         large_sun()[0]).tobytes()).hexdigest()
     digests[LARGE_BLP] = hashlib.sha256(pillow_rgba(
         large_blp()).tobytes()).hexdigest()
+    digests[LARGE_FLI] = hashlib.sha256(pillow_rgba(
+        large_fli()).tobytes()).hexdigest()
+    digests[LARGE_IM_BITS] = hashlib.sha256(pillow_rgba(
+        large_im_bits()).tobytes()).hexdigest()
+    for k, name in enumerate(PCD_FILES):
+        digests[name] = hashlib.sha256(pillow_rgba(
+            photo_cd(k)).tobytes()).hexdigest()
     with open(os.path.join(directory, "pillow_sha256.json"), "w") as f:
         json.dump(digests, f, indent=1)
+
+
+
+# --- IM, SPIDER, FITS, McIdas, GBR, XV thumbnails, PIXAR, IMT, IPTC, PCD, FLI
+
+
+def write_im(itype: bytes, w: int, h: int, data: bytes, *, lut: bytes = None,
+             extra: bytes = b"", size: bytes | None = None,
+             newline: bytes = b"\r\n", pad: bool = True) -> bytes:
+    """An IM file: "Image type", "Image size" (or ``size`` as written),
+    ``extra`` header lines and a "Lut" line with ``lut``'s 768 bytes,
+    the header padded with NULs to 511 bytes and ended by ^Z (or, without
+    ``pad``, ^Z right after it), then ``data`` (rows bottom-up, as IM
+    stores them)."""
+    head = b"Image type: " + itype + newline
+    head += b"Image size (x*y): " + (size or b"%d*%d" % (w, h)) + newline
+    head += extra
+    if lut is not None:
+        head += b"Lut: 1" + newline
+    head = head + b"\0" * (511 - len(head)) if pad else head
+    return head + b"\x1a" + (lut or b"") + data
+
+
+def write_spider(values: np.ndarray, big: bool = True, stack: int = 0
+                 ) -> bytes:
+    """A SPIDER 2D image of float32 ``values`` (h, w): the header Pillow's
+    writer makes (records of 4 w bytes up to 1,024), in either byte order;
+    with ``stack`` images a stack file (its header, then each image after
+    a header of its own)."""
+    h, w = values.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    order = ">" if big else "<"
+
+    def header(istack: int, imgnum: int, maxim: int) -> bytes:
+        hd = [0.0] * (labbyt // 4)
+        hd[0:12] = [1, h, h, 0, 1, 0, 0, 0, 0, 0, 0, w]  # nslice..nsam
+        hd[12] = labrec
+        hd[21] = labbyt
+        hd[22] = lenbyt
+        hd[23] = istack
+        hd[25] = maxim
+        hd[26] = imgnum
+        return struct.pack(f"{order}{len(hd)}f", *hd)
+
+    body = values.astype(order + "f4").tobytes()
+    if not stack:
+        return header(0, 0, 0) + body
+    out = header(2, 0, stack)
+    for k in range(stack):
+        out += header(0, k + 1, 0) + body
+    return out
+
+
+def fits_cards(cards: list) -> bytes:
+    """80-byte FITS header cards ``(keyword, value)`` then END, padded
+    with spaces to a 2,880-byte block."""
+    text = b"".join(b"%-8s= %20s" % (k, v) + b" " * 50 for k, v in cards)
+    text += b"END" + b" " * 77
+    return text + b" " * (-len(text) % 2880)
+
+
+def write_fits(values: np.ndarray, bitpix: int, *, gzip_tile: bool = False,
+               extra: list = ()) -> bytes:
+    """A FITS file of ``values`` (h, w): the primary image big-endian,
+    bottom row first (FITS's order), or (``gzip_tile``) a primary header
+    of no image and a ``ZIMAGE`` BINTABLE whose heap is one gzip member of
+    4 bytes a pixel, ending the file."""
+    import gzip
+
+    h, w = values.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    rows = np.ascontiguousarray(values[::-1]).astype(dt)
+    if not gzip_tile:
+        data = rows.tobytes()
+        return (fits_cards([(b"SIMPLE", b"T"), (b"BITPIX", b"%d" % bitpix),
+                            (b"NAXIS", b"2"), (b"NAXIS1", b"%d" % w),
+                            (b"NAXIS2", b"%d" % h), *extra])
+                + data + b"\0" * (-len(data) % 2880))
+    cells = np.zeros((h, w, 4), np.uint8)
+    raw = rows.view(np.uint8).reshape(h, w, -1)
+    cells[..., 4 - min(raw.shape[2], 4):] = raw[..., :4]
+    heap = gzip.compress(cells[::-1].tobytes(), mtime=0)
+    table = b"\0" * 8
+    return (fits_cards([(b"SIMPLE", b"T"), (b"BITPIX", b"8"),
+                        (b"NAXIS", b"0"), (b"EXTEND", b"T")])
+            + fits_cards([(b"XTENSION", b"'BINTABLE'"), (b"BITPIX", b"8"),
+                          (b"NAXIS", b"2"), (b"NAXIS1", b"8"),
+                          (b"NAXIS2", b"1"), (b"ZIMAGE", b"T"),
+                          (b"ZCMPTYPE", b"'GZIP_1  '"),
+                          (b"ZBITPIX", b"%d" % bitpix), (b"ZNAXIS", b"2"),
+                          (b"ZNAXIS1", b"%d" % w), (b"ZNAXIS2", b"%d" % h),
+                          *extra])
+            + table + heap)
+
+
+def write_mcidas(values: np.ndarray, unit: int, prefix: int = 0,
+                 bands: int = 1, data_at: int = 256) -> bytes:
+    """A McIdas area file of ``values`` (h, w) at ``unit`` bytes a sample
+    (1, 2 or 4, big-endian), each row led by ``prefix`` bytes, rows
+    ``bands`` samples wide apart (word 14), the data at ``data_at``."""
+    h, w = values.shape
+    words = [0] * 64
+    words[1] = 4  # the signature's second word
+    words[8], words[9], words[10], words[13] = h, w, unit, bands
+    words[14], words[33] = prefix, data_at
+    head = b"\0\0\0\0" + struct.pack(">64i", *words)[4:]
+    head = head[:256]
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[unit]
+    stride = prefix + w * unit * bands
+    body = bytearray(b"\x5a" * (data_at - 256 + h * stride))
+    for r in range(h):
+        at = data_at - 256 + r * stride + prefix
+        body[at:at + w * unit] = values[r].astype(dt).tobytes()
+    return head + bytes(body)
+
+
+def write_gbr(pixels: np.ndarray, version: int = 2, comment: bytes = b"brush"
+              ) -> bytes:
+    """A GIMP brush of (h, w) gray or (h, w, 4) RGBA ``pixels``."""
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    comment += b"\0"
+    size = (20 if version == 1 else 28) + len(comment)
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 10)
+    return head + comment + np.ascontiguousarray(pixels, np.uint8).tobytes()
+
+
+def write_xvthumb(idx: np.ndarray, comments: tuple = (b"#XVVERSION:1",)
+                  ) -> bytes:
+    """An XV thumbnail of 3-3-2 palette indices (h, w)."""
+    h, w = idx.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments)
+            + b"%d %d 255\n" % (w, h) + np.ascontiguousarray(
+                idx, np.uint8).tobytes())
+
+
+def write_pixar(rgb: np.ndarray, mode: tuple = (14, 2)) -> bytes:
+    """A PIXAR raster of (h, w, 3) ``rgb`` at byte 1,024."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<2H", head, 416, h, w)
+    struct.pack_into("<2H", head, 424, *mode)
+    return bytes(head) + np.ascontiguousarray(rgb, np.uint8).tobytes()
+
+
+def write_imt(gray: np.ndarray, lines: tuple = ()) -> bytes:
+    """An IM Tools file of (h, w) ``gray``: ``lines`` first (comments,
+    other fields), then the size and "pixel n8", a form feed and the
+    rows."""
+    h, w = gray.shape
+    head = b"".join(line + b"\n" for line in lines)
+    head += b"width %d\nheight %d\npixel n8\n" % (w, h)
+    return head + b"\x0c" + np.ascontiguousarray(gray, np.uint8).tobytes()
+
+
+def iptc_field(record: int, dataset: int, data: bytes,
+               extended: int = 0) -> bytes:
+    """One IPTC field: a 15-bit size, or (``extended`` bytes) a size in
+    the bytes after the header."""
+    if extended:
+        return bytes([0x1C, record, dataset, 0x80 | extended]) + len(
+            data).to_bytes(extended, "big") + data
+    return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+
+
+def write_iptc(image: bytes, w: int, h: int, *, layers: int = 1,
+               component: int = 0, compression: int = 1,
+               band: int | None = None, split: int = 0,
+               extra: bytes = b"", extended: int = 0) -> bytes:
+    """An IPTC/NAA file: the (3, 60), (3, 20), (3, 30), (3, 120) and
+    optional (3, 65) fields, ``extra`` fields, then ``image`` (raw rows
+    or a JPEG) in one image-data field (8, 10) or split in two at
+    ``split``, the second with a size of ``extended`` bytes after its
+    header where given (Pillow reads such a size one byte late)."""
+    out = iptc_field(1, 90, b"\x1b%G") + iptc_field(3, 60, bytes(
+        [layers, component])) + iptc_field(3, 20, struct.pack(">I", w))
+    out += iptc_field(3, 30, struct.pack(">H", h))
+    out += iptc_field(3, 120, bytes([compression])) + extra
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    parts = [image[:split], image[split:]] if split else [image]
+    for k, part in enumerate(parts):
+        out += iptc_field(8, 10, part, extended=extended if k else 0)
+    return out
+
+
+def write_pcd(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+              orientation: int = 0) -> bytes:
+    """A Photo CD base image: ``y`` (512, 768) lumas, ``cb`` and ``cr``
+    (256, 384) chroma; the orientation byte's low bits rotate it."""
+    head = bytearray(96 * 2048)
+    head[2048:2055] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    yy = np.asarray(y, np.uint8).reshape(256, 2 * 768)
+    body = np.concatenate([yy, np.asarray(cb, np.uint8),
+                           np.asarray(cr, np.uint8)], 1)
+    return bytes(head) + body.tobytes()
+
+
+def fli_chunk(kind: int, payload: bytes) -> bytes:
+    return struct.pack("<IH", 6 + len(payload), kind) + payload
+
+
+def fli_colors(palette: np.ndarray, kind: int = 4, skip: int = 0) -> bytes:
+    """A COLOR_256 (4) or COLOR_64 (11, values >> 2) chunk of one packet."""
+    pal = np.asarray(palette, np.uint8)
+    if kind == 11:
+        pal = pal >> 2
+    n = len(pal)
+    return fli_chunk(kind, struct.pack("<H", 1) + bytes([skip, n % 256])
+                     + pal.tobytes())
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """A BRUN chunk: each row a packet count, then runs (a count and a
+    byte) where a byte repeats and literal packets (a negative count)
+    elsewhere, at most 127 a packet."""
+    out = bytearray()
+    for row in np.asarray(idx, np.uint8):
+        packets = bytearray()
+        npk = 0
+        x, w = 0, len(row)
+        while x < w:
+            run = 1
+            while x + run < w and run < 127 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or x + run == w:
+                packets += bytes([run, row[x]])
+                x += run
+            else:
+                lit = 1
+                while x + lit < w and lit < 127 and not (
+                        x + lit + 2 < w and row[x + lit] == row[x + lit + 1]
+                        == row[x + lit + 2]):
+                    lit += 1
+                packets += bytes([256 - lit]) + row[x:x + lit].tobytes()
+                x += lit
+            npk += 1
+        out += bytes([npk & 255]) + packets
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(idx: np.ndarray, before: np.ndarray, first: int = 0) -> bytes:
+    """An LC chunk from ``before`` to ``idx`` (rows ``first`` on): each row
+    a packet count, then packets of a skip and literal bytes (or a run,
+    a negative count, where a changed stretch repeats one byte)."""
+    idx, before = np.asarray(idx, np.uint8), np.asarray(before, np.uint8)
+    rows = bytearray()
+    for y in range(first, idx.shape[0]):
+        changed = np.flatnonzero(idx[y] != before[y])
+        packets, n, x = bytearray(), 0, 0
+        k = 0
+        while k < len(changed):
+            start = int(changed[k])
+            end = start + 1
+            while end < idx.shape[1] and end - start < 100 and (
+                    idx[y, end] != before[y, end] or end + 1 < idx.shape[1]
+                    and idx[y, end + 1] != before[y, end + 1]):
+                end += 1
+            skip = start - x
+            while skip > 255:
+                packets += bytes([255, 0])
+                n += 1
+                skip -= 255
+            seg = idx[y, start:end]
+            if len(seg) >= 3 and (seg == seg[0]).all():
+                packets += bytes([skip, 256 - len(seg), seg[0]])
+            else:
+                packets += bytes([skip, len(seg)]) + seg.tobytes()
+            n += 1
+            x = end
+            while k < len(changed) and changed[k] < end:
+                k += 1
+        rows += bytes([n]) + packets
+    return fli_chunk(12, struct.pack("<2H", first, idx.shape[0] - first)
+                     + bytes(rows))
+
+
+def fli_ss2(idx: np.ndarray, before: np.ndarray, skip_lines: bool = True
+            ) -> bytes:
+    """An SS2 chunk from ``before`` to ``idx`` (an even width): unchanged
+    lines skipped with a flag word, each changed line's pairs as literal
+    packets (or a run of one pair)."""
+    idx, before = np.asarray(idx, np.uint8), np.asarray(before, np.uint8)
+    h, w = idx.shape
+    out, lines, pending = bytearray(), 0, 0
+    for y in range(h):
+        pairs = idx[y].reshape(-1, 2)
+        diff = (idx[y] != before[y]).reshape(-1, 2).any(1)
+        if skip_lines and not diff.any():
+            pending += 1
+            continue
+        words = bytearray()
+        if pending:
+            words += struct.pack("<H", 65536 - pending)
+            pending = 0
+        packets, n, x = bytearray(), 0, 0
+        k = 0
+        changed = np.flatnonzero(diff)
+        while k < len(changed):
+            start = int(changed[k])
+            end = start + 1
+            while end < len(pairs) and diff[end] and end - start < 100:
+                end += 1
+            seg = pairs[start:end]
+            if len(seg) >= 2 and (seg == seg[0]).all():
+                packets += bytes([2 * (start - x), 256 - len(seg)]) + seg[
+                    0].tobytes()
+            else:
+                packets += bytes([2 * (start - x), len(seg)]) + seg.tobytes()
+            n += 1
+            x = end
+            k = int(np.searchsorted(changed, end))
+        out += words + struct.pack("<H", n) + packets
+        lines += 1
+    return fli_chunk(7, struct.pack("<H", lines) + bytes(out))
+
+
+def write_fli(w: int, h: int, chunks: list, *, magic: int = 0xAF12,
+              frames: int = 1, later: list = ()) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file: the 128-byte header, the
+    first frame's ``chunks`` and ``later`` frames' chunk lists."""
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 0, magic, frames, w, h, 8, 0)
+    struct.pack_into("<I", head, 16, 5)
+
+    def frame(cs: list) -> bytes:
+        body = b"".join(cs)
+        return struct.pack("<IHH", 16 + len(body), 0xF1FA, len(cs)) + bytes(
+            8) + body
+
+    body = frame(chunks) + b"".join(frame(cs) for cs in later)
+    struct.pack_into("<I", head, 0, 128 + len(body))
+    return bytes(head) + body
+
+
+def fli_brun_rows(idx: np.ndarray, run: int = 32) -> bytes:
+    """A BRUN chunk in NumPy for large frames: each row cut into pieces of
+    ``run`` pixels (the width a multiple of it), a piece of one value a
+    run packet, any other a literal packet."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    pieces = idx.reshape(h, w // run, run)
+    flat = (pieces == pieces[..., :1]).all(-1)
+    lit = np.concatenate([np.full((h, w // run, 1), 256 - run, np.uint8),
+                          pieces], -1)
+    rle = np.zeros((h, w // run, run + 1), np.uint8)
+    rle[..., 0] = run
+    rle[..., 1] = pieces[..., 0]
+    keep = np.where(flat[..., None], np.arange(run + 1) < 2, True)
+    packets = np.where(flat[..., None], rle, lit)
+    rows = [bytes([(w // run) & 255]) + packets[y][keep[y]].tobytes()
+            for y in range(h)]
+    return fli_chunk(15, b"".join(rows))
+
+
+LARGE_FLI = "brun_4096x2048.flc"
+LARGE_IM_BITS = "f12_bits_4096x2048.im"
+PCD_FILES = ("photo_cd_landscape.pcd", "photo_cd_rotated.pcd")
+
+
+def large_fli(w: int = 4096, h: int = 2048) -> bytes:
+    """An FLC frame of a COLOR_256 palette and a BRUN chunk over
+    ``sample_image`` indices, flat on the left quarter (run packets)."""
+    idx = sample_image(w, h, 66, 1)[..., 0]
+    idx[:, :w // 4] = idx[:, :1]
+    return write_fli(w, h, [fli_colors(sample_image(256, 1, 67, 3)[0]),
+                            fli_brun_rows(idx)])
+
+
+def large_im_bits(w: int = 4096, h: int = 2048) -> bytes:
+    """An IM "L*12" image (Pillow's bit decoder) of seeded bytes."""
+    data = np.random.default_rng(68).integers(
+        0, 256, (w * 12 + 7) // 8 * h, dtype=np.uint8).tobytes()
+    return write_im(b"L*12 image", w, h, data)
+
+
+def photo_cd(orientation: int) -> bytes:
+    """A Photo CD base image of ``sample_image`` content as PhotoYCC."""
+    y = sample_image(768, 512, 69, 1)[..., 0]
+    c = sample_image(384, 256, 70, 2)
+    return write_pcd(y, c[..., 0], c[..., 1], orientation)
+
+
+def sci_rare_fixtures() -> dict:
+    """{file name: bytes} of the IM, SPIDER, FITS, McIdas, GBR, XV
+    thumbnail, PIXAR, IMT, IPTC and FLI files under ``tests/ldr``."""
+    from PIL import Image
+
+    rgba = sample_image(23, 13, 71)
+    rgb = rgba[..., :3]
+    gray = sample_image(21, 11, 72, 1)[..., 0]
+    field = (gray.astype(np.float32) - 40.0) * 1.37
+    out = {}
+    # IM: Pillow's writer in each mode it writes, and hand-made headers.
+    pal = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                       colors=24)
+    ims = {"L": Image.fromarray(gray), "P": pal, "RGB": Image.fromarray(rgb),
+           "RGBA": Image.fromarray(rgba), "1": Image.fromarray(gray > 100),
+           "LA": Image.fromarray(rgba).convert("LA"),
+           "CMYK": Image.fromarray(rgb).convert("CMYK"),
+           "YCbCr": Image.fromarray(rgb).convert("YCbCr"),
+           "I": Image.fromarray(gray.astype(np.int32) * 3 - 50),
+           "F": Image.fromarray(field),
+           "I;16": Image.frombytes("I;16", gray.shape[::-1],
+                                   (gray.astype("<u2") * 2).tobytes())}
+    for mode, img in ims.items():
+        out[f"pillow_{mode.replace(';', '')}.im"] = pillow_bytes(img, "IM")
+    lut = np.stack([np.arange(256), (np.arange(256) * 7) % 256,
+                    255 - np.arange(256)]).astype(np.uint8).tobytes()
+    out["b4_colour_lut.im"] = write_im(b"B4 image", 21, 11, (gray >> 4)
+                                       .tobytes(), lut=lut)
+    out["grey_lut_kept.im"] = write_im(b"Greyscale image", 21, 11,
+                                       gray[::-1].tobytes(),
+                                       lut=bytes(255 - np.arange(256)
+                                                 .astype(np.uint8)) * 3)
+    out["f12_bits.im"] = write_im(b"L*12 image", 21, 11, sample_image(
+        32, 11, 73, 1)[..., 0].tobytes())
+    out["f16s.im"] = write_im(b"L 16S image", 21, 11, (gray.astype("<i2")
+                                                       * 3 - 200).tobytes())
+    out["rgb3_planes.im"] = write_im(b"RGB3 image", 21, 11, np.concatenate(
+        [sample_image(21, 11, 74 + k, 1)[..., 0].reshape(-1)
+         for k in range(3)]).tobytes())
+    out["two_frames.im"] = write_im(b"Greyscale image", 21, 11,
+                                    gray.tobytes() * 2, extra=b"File size "
+                                    b"(no of images): 2\r\n")
+    # SPIDER: Pillow's writer, big-endian, a little-endian stack.
+    out["pillow.spi"] = pillow_bytes(Image.fromarray(field), "SPIDER")
+    out["big_endian.spi"] = write_spider(field * 2.3, True)
+    out["stack_little.spi"] = write_spider(field - 30, False, stack=2)
+    # FITS: every BITPIX, raw and GZIP_1.
+    for bits, v in ((8, gray), (16, gray.astype(np.int32) * 301 - 9000),
+                    (32, gray.astype(np.int32) * 700 - 20000),
+                    (-32, field), (-64, field * 0.5)):
+        out[f"bitpix{bits}.fits"] = write_fits(v, bits)
+    out["gzip_bitpix16.fits"] = write_fits(gray.astype(np.int32) * 3, 16,
+                                           gzip_tile=True)
+    out["gzip_bitpix8.fits"] = write_fits(gray, 8, gzip_tile=True)
+    # McIdas: 1, 2 and 4 bytes a sample, row prefixes and bands.
+    out["mcidas8.area"] = write_mcidas(gray, 1)
+    out["mcidas16_prefix.area"] = write_mcidas(gray.astype(np.int64) * 290,
+                                               2, prefix=4, data_at=300)
+    out["mcidas32_bands.area"] = write_mcidas(
+        gray.astype(np.int64) * 1000 - 70000, 4, bands=2)
+    # GIMP brushes, XV thumbnails, PIXAR, IM Tools.
+    out["v1_gray.gbr"] = write_gbr(gray, 1)
+    out["v2_rgba.gbr"] = write_gbr(rgba, 2, comment=b"a brush")
+    out["thumb.xv"] = write_xvthumb(sample_image(21, 11, 77, 1)[..., 0],
+                                    comments=(b"#XVVERSION:3.10a",
+                                              b"#IMGINFO:x"))
+    out["rgb.pxr"] = write_pixar(rgb)
+    out["gray.imt"] = write_imt(gray, lines=(b"* made for the tests",))
+    # IPTC: raw one layer, bands of RGB and CMYK, a JPEG, a split field.
+    out["raw_l.iim"] = write_iptc(gray.tobytes(), 21, 11)
+    out["raw_rgb_band2.iim"] = write_iptc(gray.tobytes(), 21, 11, layers=3,
+                                          component=1, band=2, split=90)
+    out["raw_cmyk_last_band.iim"] = write_iptc(gray.tobytes(), 21, 11,
+                                               layers=4, component=1,
+                                               band=0)
+    out["jpeg_l.iim"] = write_iptc(pillow_bytes(gray, "JPEG", quality=90),
+                                   21, 11, compression=5)
+    # FLI/FLC: BRUN under each palette chunk, LC and SS2 deltas, COPY,
+    # BLACK.
+    idx = sample_image(24, 13, 78, 1)[..., 0]
+    later = idx.copy()
+    later[3:7, 5:17] = 9
+    later[10] = 250
+    colours = sample_image(256, 1, 79, 3)[0]
+    out["brun_colour64.fli"] = write_fli(24, 13, [
+        fli_colors(colours, 11), fli_brun(idx)], magic=0xAF11)
+    out["brun_lc.flc"] = write_fli(24, 13, [
+        fli_colors(colours), fli_brun(idx), fli_lc(later, idx, 2)],
+        frames=2, later=[[fli_chunk(13, b"")]])
+    out["brun_ss2.flc"] = write_fli(24, 13, [
+        fli_colors(colours[:128], skip=5), fli_brun(idx),
+        fli_ss2(later, idx)])
+    out["copy_stamp.flc"] = write_fli(24, 13, [
+        fli_chunk(18, bytes(12)), fli_chunk(16, idx.tobytes())])
+    # (a last chunk under 10 bytes is refused: BLACK carries 4 spare bytes)
+    out["brun_black_gray.flc"] = write_fli(24, 13, [fli_brun(idx),
+                                                    fli_chunk(13, bytes(4))])
+    return out
+
+
+def env_fits(w: int, h: int, seed: int) -> bytes:
+    """A 32-bit float FITS map of ``sample_image`` gray."""
+    g = sample_image(w, h, seed, 1)[..., 0].astype(np.float32)
+    return write_fits(g * 1.1 - 10, -32)
+
+
+def env_spider(w: int, h: int, seed: int) -> bytes:
+    """A little-endian SPIDER map of ``sample_image`` gray."""
+    g = sample_image(w, h, seed, 1)[..., 0].astype(np.float32)
+    return write_spider(g * 0.9 + 20, False)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
     python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
         tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|qoi|pcx|sgi|psd|dds|
-        ftex|blp|icns|sun|msp|xbm|xpm|mut] [--n 2000] [--seed 1]
+        ftex|blp|icns|sun|msp|xbm|xpm|jpeg_cut|im|spider|fits|mcidas|gbr|
+        xvthumb|pixar|imt|iptc|pcd|fli|mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
 writers with random headers, depths, compressions and layouts; for TIFF
@@ -24,7 +25,11 @@ encoding; for ICNS, raw and run-length RGB entries, masks and PNG entries
 in any order, some cut; for Sun rasters, every depth and type, padded or
 not, with colour maps of any length; for MSP, raw and run-length rows,
 some blank, long or cut; for XBM and XPM, any size and spelling, None
-keys, up to 300 colours; a quarter of them then mutated) or, with
+keys, up to 300 colours; for ``jpeg_cut``, a JPEG of any kind whose
+scan data stops early, some inside a BLP1; for IM, SPIDER, FITS, McIdas,
+GBR, XV thumbnails, PIXAR, IMT, IPTC, Photo CD and FLI, the test writers'
+files with random modes, header fields, chunks and sizes; a quarter of
+them then mutated) or, with
 ``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
 end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
@@ -882,6 +887,269 @@ def rnd_xpm(rng) -> bytes:
     return data
 
 
+def jpeg_scans(data: bytes) -> list:
+    """(start of each scan's entropy-coded data, the marker after it)."""
+    out, pos = [], 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0xD8, 0xD9):
+            break
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        pos += 2 + length
+        if data[pos - length - 1] != 0xDA:
+            continue
+        end = pos
+        while end + 1 < len(data) and not (
+                data[end] == 0xFF and data[end + 1] not in (
+                    0, *range(0xD0, 0xD8))):
+            end += 1
+        out.append((pos, end))
+        pos = end
+    return out
+
+
+def rnd_jpeg_source(rng) -> bytes:
+    """A JPEG of any kind the reader takes: Pillow's baseline, optimized
+    or progressive, with or without restart markers, gray or colour at
+    any subsampling; this suite's progressive scripts, arithmetic-coded
+    and lossless files, restart intervals on any MCU count."""
+    from tests import torch_jpeg_cases as J
+
+    w, h = int(rng.integers(1, 70)), int(rng.integers(1, 70))
+    nc = pick(rng, [1, 3, 3, 3])
+    kind = pick(rng, ["pillow", "pillow", "script", "arith", "lossless"])
+    if kind == "pillow":
+        img = rnd_image(rng, w, h)[..., :3]
+        kw = {"quality": int(rng.integers(20, 98)),
+              "progressive": bool(rng.random() < 0.5),
+              "optimize": bool(rng.random() < 0.3),
+              "subsampling": pick(rng, [0, 1, 2])}
+        if rng.random() < 0.4:
+            kw["restart_marker_blocks"] = int(rng.integers(1, 6))
+        return C.pillow_bytes(img[..., 0] if nc == 1 else img, "JPEG", **kw)
+    planes = J.sample_planes(w, h, nc, int(rng.integers(0, 1 << 30)))
+    sampling = [(1, 1)] * nc if nc == 1 else pick(rng, [
+        [(1, 1)] * 3, [(2, 2), (1, 1), (1, 1)], [(2, 1), (1, 1), (1, 1)]])
+    if kind == "lossless":
+        return J.write_lossless_jpeg(
+            planes, sampling, predictor=int(rng.integers(1, 8)),
+            pt=pick(rng, [0, 0, 1]), restart_rows=pick(rng, [0, 0, 1, 2]),
+            interleaved=bool(rng.random() < 0.6))
+    scans = None
+    if kind == "script" or rng.random() < 0.5:
+        scans = J.script_for(pick(rng, sorted(J.SCRIPTS)), nc)
+    return J.write_jpeg(planes, sampling, quality=int(rng.integers(20, 95)),
+                        restart=pick(rng, [0, 0, 1, 3, 7]), scans=scans,
+                        interleaved=bool(rng.random() < 0.8),
+                        arithmetic=kind == "arith")
+
+
+def rnd_jpeg_cut(rng) -> bytes:
+    """A JPEG whose scan data stops early: one scan (the last, or any)
+    cut at any byte, then EOI, the rest of the file from the marker after
+    that scan (the later scans kept), nothing, or data cut from one
+    restart interval on; sometimes through a BLP1 or a JPEG-in-TIFF."""
+    data = rnd_jpeg_source(rng)
+    scans = jpeg_scans(data)
+    start, end = scans[-1] if rng.random() < 0.5 else pick(rng, scans)
+    cut = int(rng.integers(start, end + 1))
+    rest = pick(rng, ["eoi", "eoi", "after", "none", "restarts"])
+    if rest == "restarts":
+        marks = [i for i in range(start, end - 1) if data[i] == 0xFF
+                 and 0xD0 <= data[i + 1] <= 0xD7]
+        cut = pick(rng, marks) if marks else cut
+        rest = pick(rng, ["eoi", "after"])
+    head = data[:cut]
+    if head.endswith(b"\xff"):
+        head = head[:-1]
+    data = head + (b"\xff\xd9" if rest == "eoi" else data[end:]
+                   if rest == "after" else b"")
+    if rng.random() < 0.15:
+        with Image.open(io.BytesIO(rnd_jpeg_source(rng))) as im:
+            w, h = im.size
+        return C.blp1_jpeg(data, w, h, split=int(rng.integers(0, len(data))))
+    return data
+
+
+def rnd_im(rng) -> bytes:
+    """An IM file of any "Image type" Pillow knows (or not), a size,
+    sometimes a palette ("Lut") of gray or colour, header lines in any
+    spelling, data cut or not."""
+    from wgpu_path_tracing_tpu_torch.utils import im as IM
+
+    w, h = int(rng.integers(1, 24)), int(rng.integers(1, 16))
+    itype = pick(rng, sorted(IM.OPEN) + ["L", "RGB", "Weird image"])
+    data = rand_bytes(rng, int(4 * 8 * w * h * rng.random() * 1.3) + 1)
+    lut = None
+    if rng.random() < 0.3:
+        lut = (bytes(range(256)) * 3 if rng.random() < 0.3
+               else rand_bytes(rng, 768))
+    extra = pick(rng, [b"", b"Name: x\r\n", b"File size (no of images): 2\r\n",
+                       b"Comment: a\r\nComment: b\r\n", b"Bad line\r\n"])
+    size = pick(rng, [None, None, b"%d" % w, b"%d,%d" % (w, h),
+                      b"%d*%d*2" % (w, h), b"%d.5*%d" % (w, h)])
+    return C.write_im(itype.encode(), w, h, data, lut=lut, extra=extra,
+                      size=size, newline=pick(rng, [b"\r\n", b"\n"]),
+                      pad=bool(rng.random() < 0.8))
+
+
+def rnd_spider(rng) -> bytes:
+    """A SPIDER image or stack in either byte order, header fields changed
+    at random."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    v = ((rng.random((h, w)) - 0.2) * 400).astype(np.float32)
+    data = bytearray(C.write_spider(v, bool(rng.random() < 0.5),
+                                    stack=pick(rng, [0, 0, 1, 2])))
+    if rng.random() < 0.3:
+        order = ">" if data[:4] != bytes(4) and struct.unpack_from(
+            ">f", data, 4)[0] == h else "<"
+        k = int(rng.integers(0, 27))
+        struct.pack_into(order + "f", data, 4 * k, pick(
+            rng, [0.0, 1.0, 3.0, -1.0, 2.5, float(w), 1e30]))
+    return bytes(data)
+
+
+def rnd_fits(rng) -> bytes:
+    """A FITS image of any BITPIX (some Pillow gives no mode), raw or
+    GZIP_1, its cards changed or dropped."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    bitpix = pick(rng, [8, 16, 32, -32, -64])
+    v = {8: rng.integers(0, 256, (h, w)),
+         16: rng.integers(-2000, 2000, (h, w)),
+         32: rng.integers(-1000, 70000, (h, w)),
+         -32: (rng.random((h, w)) - 0.3) * 400,
+         -64: (rng.random((h, w)) - 0.3) * 400}[bitpix]
+    extra = pick(rng, [[], [(b"BZERO", b"0")], [(b"COMMENT", b"'x'")]])
+    data = C.write_fits(v, bitpix, gzip_tile=bool(rng.random() < 0.3),
+                        extra=extra)
+    if rng.random() < 0.2:  # another BITPIX or NAXIS
+        data = data.replace(b"BITPIX  =" + b"%21d" % bitpix, b"BITPIX  ="
+                            + b"%21d" % pick(rng, [64, 12, 8, -32]), 1)
+    if rng.random() < 0.1:
+        data = data.replace(b"NAXIS   =                    2",
+                            b"NAXIS   =                    1", 1)
+    return data
+
+
+def rnd_mcidas(rng) -> bytes:
+    """A McIdas area of 1, 2 or 4 bytes a sample (or another count), with
+    row prefixes and band strides."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    unit = pick(rng, [1, 2, 4])
+    v = rng.integers(-100, 1 << (8 * min(unit, 3)), (h, w))
+    data = bytearray(C.write_mcidas(v, unit, prefix=pick(rng, [0, 0, 2, 5]),
+                                    bands=pick(rng, [1, 1, 2]),
+                                    data_at=pick(rng, [256, 256, 300])))
+    if rng.random() < 0.15:
+        struct.pack_into(">i", data, 40, pick(rng, [3, 0, 8]))
+    return bytes(data)
+
+
+def rnd_gbr(rng) -> bytes:
+    """A GIMP brush, version 1 or 2, gray or RGBA, the header's fields
+    changed at random."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    px = rnd_image(rng, w, h)
+    data = bytearray(C.write_gbr(px[..., 0] if rng.random() < 0.5 else px,
+                                 pick(rng, [1, 2]),
+                                 comment=rand_bytes(rng, int(rng.integers(
+                                     0, 40)))))
+    if rng.random() < 0.3:
+        struct.pack_into(">I", data, 4 * int(rng.integers(0, 5)), pick(
+            rng, [0, 1, 2, 3, 4, 19, 20, 27, 28, 100]))
+    return bytes(data)
+
+
+def rnd_xvthumb(rng) -> bytes:
+    """An XV thumbnail with comment lines and a size line of any form."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    data = C.write_xvthumb(rng.integers(0, 256, (h, w)), comments=tuple(
+        b"#c%d" % k for k in range(int(rng.integers(0, 3)))))
+    if rng.random() < 0.2:
+        data = data.replace(b"%d %d 255" % (w, h), pick(
+            rng, [b"%d" % w, b"x y", b"%d %d" % (w, h), b"-1 3"]), 1)
+    return data
+
+
+def rnd_pixar(rng) -> bytes:
+    """A PIXAR raster in mode (14, 2) or another."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    return C.write_pixar(rnd_image(rng, w, h)[..., :3],
+                         mode=pick(rng, [(14, 2), (14, 2), (14, 1), (8, 2)]))
+
+
+def rnd_imt(rng) -> bytes:
+    """An IM Tools file, lines of any kind before the size."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    lines = tuple(pick(rng, [b"* comment", b"depth 8", b"x", b"",
+                             b"width abc", b"pixel n16"])
+                  for _ in range(int(rng.integers(0, 3))))
+    return C.write_imt(rnd_image(rng, w, h)[..., 0], lines=lines)
+
+
+def rnd_iptc(rng) -> bytes:
+    """An IPTC/NAA file: raw or JPEG data, one layer or three or four
+    with a band, fields split, repeated or missing."""
+    w, h = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    gray = rnd_image(rng, w, h)[..., 0]
+    compression = pick(rng, [1, 1, 1, 5, 5, 2])
+    image = gray.tobytes() if compression != 5 else C.pillow_bytes(
+        gray if rng.random() < 0.7 else rnd_image(rng, w, h)[..., :3],
+        "JPEG", quality=80)
+    layers = pick(rng, [1, 1, 1, 3, 4, 2])
+    extra = pick(rng, [b"", b"", C.iptc_field(2, 5, b"title"),
+                       C.iptc_field(3, 60, b"\x01\x00")])
+    return C.write_iptc(image, w, h, layers=layers,
+                        component=int(layers > 1 and rng.random() < 0.9),
+                        compression=compression,
+                        band=pick(rng, [None, 0, 1, 2, 3, 4]),
+                        split=int(rng.integers(0, len(image))),
+                        extra=extra, extended=pick(rng, [0, 0, 0, 4]))
+
+
+def rnd_pcd(rng) -> bytes:
+    """A Photo CD base image of random YCC, any orientation, cut or not."""
+    data = C.write_pcd(rng.integers(0, 256, (512, 768)),
+                       rng.integers(0, 256, (256, 384)),
+                       rng.integers(0, 256, (256, 384)),
+                       int(rng.integers(0, 256)))
+    if rng.random() < 0.2:
+        data = data[:int(rng.integers(2048, len(data)))]
+    return data
+
+
+def rnd_fli(rng) -> bytes:
+    """An FLI or FLC first frame of BRUN, COPY, LC, SS2, BLACK, colour and
+    stamp chunks over random or smooth indices, some cut or corrupt."""
+    w = 2 * int(rng.integers(1, 16))
+    h = int(rng.integers(1, 12))
+    a = rnd_image(rng, w, h)[..., 0]
+    b = a.copy()
+    b[rng.random((h, w)) < 0.3] = rng.integers(0, 256)
+    chunks = []
+    if rng.random() < 0.7:
+        chunks.append(C.fli_colors(rng.integers(0, 256, (int(rng.integers(
+            1, 257)), 3)), pick(rng, [4, 11]), skip=int(rng.integers(0, 3))))
+    first = pick(rng, ["brun", "copy", "black", "none"])
+    if first == "brun":
+        chunks.append(C.fli_brun(a))
+    elif first == "copy":
+        chunks.append(C.fli_chunk(16, a.tobytes()))
+    elif first == "black":
+        chunks.append(C.fli_chunk(13, b""))
+    delta = pick(rng, ["lc", "ss2", "none", "stamp"])
+    if delta == "lc":
+        chunks.append(C.fli_lc(b, a, int(rng.integers(0, h))))
+    elif delta == "ss2":
+        chunks.append(C.fli_ss2(b, a, bool(rng.random() < 0.5)))
+    elif delta == "stamp":
+        chunks.append(C.fli_chunk(18, rand_bytes(rng, 10)))
+    if rng.random() < 0.1:
+        chunks.append(C.fli_chunk(int(rng.integers(0, 30)), rand_bytes(
+            rng, 8)))
+    return C.write_fli(w, h, chunks, magic=pick(rng, [0xAF11, 0xAF12]),
+                       frames=pick(rng, [1, 1, 2, 0]))
+
+
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "tiff": rnd_tiff, "tiff_big": rnd_tiff_big, "tiff_ycbcr": rnd_tiff_ycbcr,
        "tiff_float": rnd_tiff_float, "tiff_jpeg": rnd_tiff_jpeg,
@@ -889,7 +1157,11 @@ GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "webp": rnd_webp, "gif": rnd_gif, "qoi": rnd_qoi, "pcx": rnd_pcx,
        "sgi": rnd_sgi, "psd": rnd_psd, "dds": rnd_dds, "ftex": rnd_ftex,
        "blp": rnd_blp, "icns": rnd_icns, "sun": rnd_sun, "msp": rnd_msp,
-       "xbm": rnd_xbm, "xpm": rnd_xpm}
+       "xbm": rnd_xbm, "xpm": rnd_xpm, "jpeg_cut": rnd_jpeg_cut,
+       "im": rnd_im, "spider": rnd_spider, "fits": rnd_fits,
+       "mcidas": rnd_mcidas, "gbr": rnd_gbr, "xvthumb": rnd_xvthumb,
+       "pixar": rnd_pixar, "imt": rnd_imt, "iptc": rnd_iptc, "pcd": rnd_pcd,
+       "fli": rnd_fli}
 
 
 def main(argv=None) -> int:

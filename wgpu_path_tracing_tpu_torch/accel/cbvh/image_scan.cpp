@@ -22,7 +22,11 @@
 // * wpt_msp_rle: Pillow's MspDecoder, every row of the row map
 //   (utils/msp.py::rle_plain);
 // * wpt_icns_rle: Pillow's ICNS read_32 of one channel
-//   (utils/icns.py::rle_plain).
+//   (utils/icns.py::rle_plain);
+// * wpt_fli: Pillow's FliDecode of one FLI/FLC frame's chunks
+//   (utils/fli.py::fli_plain);
+// * wpt_bit_decode: Pillow's BitDecode at an IM file's "F;n" arguments
+//   (utils/im.py::bits_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
 // count of bytes written.
 
@@ -691,4 +695,179 @@ extern "C" int64_t wpt_icns_rle(const uint8_t* data, int64_t n, int64_t pos,
   *end = pos;
   if (left != 0) return 1;
   return short_data ? 2 : 0;
+}
+
+namespace {
+
+inline int fli16(const uint8_t* p) { return p[0] | (p[1] << 8); }
+inline int64_t fli32(const uint8_t* p) {
+  return static_cast<int32_t>(static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+                              (static_cast<uint32_t>(p[2]) << 16) |
+                              (static_cast<uint32_t>(p[3]) << 24));
+}
+
+}  // namespace
+
+// One frame's bytes (n of them) into out (h x w indices, zero on entry).
+// Status: 0 done, 1 bad data, 2 not enough data for the frame.
+extern "C" int64_t wpt_fli(const uint8_t* buf, int64_t n, int64_t w, int64_t h,
+                           uint8_t* out) {
+  if (n < 4) return 2;
+  const int64_t framesize = fli32(buf);
+  if (n + (n % 2) < framesize) return 2;
+  if (n < 8 || fli16(buf + 4) != 0xF1FA) return 1;
+  const int chunks = fli16(buf + 6);
+  int64_t ptr = 16, left = n - 16;
+  for (int c = 0; c < chunks; ++c) {
+    if (left < 10) return 1;
+    int64_t data = ptr + 6;
+    const int64_t end = ptr + left;
+    const int kind = fli16(buf + ptr + 4);
+    if (kind == 4 || kind == 11 || kind == 18) {
+      // palette and stamp chunks: skipped
+    } else if (kind == 7) {  // SS2
+      const int lines = fli16(buf + data);
+      data += 2;
+      int64_t y = 0;
+      int l = 0;
+      for (; l < lines && y < h; ++l, ++y) {
+        if (data + 2 > end) return 1;
+        int packets = fli16(buf + data);
+        data += 2;
+        while (packets & 0x8000) {
+          if (packets & 0x4000) {
+            y += 65536 - packets;
+            if (y >= h) return 1;
+          } else {
+            out[y * w + w - 1] = static_cast<uint8_t>(packets);
+          }
+          if (data + 2 > end) return 1;
+          packets = fli16(buf + data);
+          data += 2;
+        }
+        int64_t x = 0;
+        int p = 0;
+        for (; p < packets; ++p) {
+          if (data + 2 > end) return 1;
+          x += buf[data];
+          if (buf[data + 1] >= 128) {
+            if (data + 4 > end) return 1;
+            const int64_t i = 256 - buf[data + 1];
+            if (x + 2 * i > w) break;
+            for (int64_t j = 0; j < i; ++j) {
+              out[y * w + x++] = buf[data + 2];
+              out[y * w + x++] = buf[data + 3];
+            }
+            data += 4;
+          } else {
+            const int64_t i = 2 * static_cast<int64_t>(buf[data + 1]);
+            if (x + i > w) break;
+            if (data + 2 + i > end) return 1;
+            std::memcpy(out + y * w + x, buf + data + 2, static_cast<size_t>(i));
+            data += 2 + i;
+            x += i;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (l < lines) return 1;
+    } else if (kind == 12) {  // LC
+      int64_t y = fli16(buf + data);
+      const int64_t ymax = y + fli16(buf + data + 2);
+      data += 4;
+      for (; y < ymax && y < h; ++y) {
+        if (data + 1 > end) return 1;
+        const int packets = buf[data++];
+        int64_t x = 0, i = 0;
+        int p = 0;
+        for (; p < packets; ++p, x += i) {
+          if (data + 2 > end) return 1;
+          x += buf[data];
+          if (buf[data + 1] & 0x80) {
+            i = 256 - buf[data + 1];
+            if (x + i > w) break;
+            if (data + 3 > end) return 1;
+            std::memset(out + y * w + x, buf[data + 2], static_cast<size_t>(i));
+            data += 3;
+          } else {
+            i = buf[data + 1];
+            if (x + i > w) break;
+            if (data + 2 + i > end) return 1;
+            std::memcpy(out + y * w + x, buf + data + 2, static_cast<size_t>(i));
+            data += i + 2;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (y < ymax) return 1;
+    } else if (kind == 13) {  // BLACK
+      std::memset(out, 0, static_cast<size_t>(w * h));
+    } else if (kind == 15) {  // BRUN
+      for (int64_t y = 0; y < h; ++y) {
+        data += 1;
+        int64_t x = 0;
+        while (x < w) {
+          if (data + 2 > end) return 1;
+          const int head = buf[data];
+          int64_t i;
+          if (head & 0x80) {
+            i = 256 - head;
+            if (x + i > w) break;
+            if (data + i + 1 > end) return 1;
+            std::memcpy(out + y * w + x, buf + data + 1, static_cast<size_t>(i));
+            data += i + 1;
+          } else {
+            i = head;
+            if (x + i > w) break;
+            std::memset(out + y * w + x, buf[data + 1], static_cast<size_t>(i));
+            data += 2;
+          }
+          x += i;
+        }
+        if (x != w) return 1;
+      }
+    } else if (kind == 16) {  // COPY
+      if (data + w * h > end) return 2;
+      std::memcpy(out, buf + data, static_cast<size_t>(w * h));
+    } else {
+      return 1;
+    }
+    const int64_t advance = fli32(buf + ptr);
+    if (advance <= 0 || advance > left) return 1;
+    ptr += advance;
+    left -= advance;
+  }
+  return 0;
+}
+
+// bits (1-31) a pixel, least significant first, each row padded to bytes
+// (whose leftover bits stay in the buffer and are OR-ed into the next
+// row's first byte), rows bottom-up, from pos into out (h x w floats).
+// Status: 0 done, 1 the data runs out.
+extern "C" int64_t wpt_bit_decode(const uint8_t* data, int64_t n, int64_t pos,
+                                  int64_t w, int64_t h, int32_t bits, float* out) {
+  const uint64_t mask = (uint64_t(1) << bits) - 1;
+  uint64_t buffer = 0;
+  int64_t count = 0, x = 0, y = h - 1;
+  for (int64_t at = pos; at < n; ++at) {
+    const uint64_t byte = data[at];
+    buffer |= byte << count;
+    count += 8;
+    while (count >= bits) {
+      const uint64_t v = buffer & mask;
+      if (count > 32) {
+        buffer = byte >> (8 - (count - bits));
+      } else {
+        buffer >>= bits;
+      }
+      count -= bits;
+      out[y * w + x] = static_cast<float>(v);
+      if (++x >= w) {
+        if (--y < 0) return 0;
+        x = 0;
+        count = 0;
+      }
+    }
+  }
+  return 1;
 }

@@ -11,12 +11,13 @@
 // The caller hands in the scan's unstuffed restart intervals back to back,
 // each data unit of an MCU with its component slot, block offsets and
 // tables (Huffman lookups of 65,536 entries on the next 16 bits: code
-// length << 8 | symbol, 0 where no code starts; arithmetic table numbers),
+// length << 8 | symbol, 17 << 8 where no code starts, as libjpeg reads a
+// bad code; arithmetic table numbers),
 // and the components' int32 coefficient (or difference) grids, which are
 // written in place.
 
+#include <cstddef>
 #include <cstdint>
-#include <cstring>
 #include <vector>
 
 namespace {
@@ -29,18 +30,21 @@ const int kNatural[80] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-// One block reads at most 64 codes of 16 bits and 64 x 16 more: the
-// padding keeps every read of a block inside the buffer, and the check
-// after each block catches a read past the real bytes.
-constexpr int64_t kPad = 1024;
-
+// The bits of one restart interval's bytes, zeros past their end.
 struct Bits {
   const uint8_t* b;
+  int64_t len;
   int64_t p;
   uint32_t window() const {
-    const uint8_t* q = b + (p >> 3);
-    return (uint32_t(q[0]) << 24) | (uint32_t(q[1]) << 16) |
-           (uint32_t(q[2]) << 8) | q[3];
+    const int64_t i = p >> 3;
+    if (i + 4 <= len) {
+      const uint8_t* q = b + i;
+      return (uint32_t(q[0]) << 24) | (uint32_t(q[1]) << 16) |
+             (uint32_t(q[2]) << 8) | q[3];
+    }
+    uint32_t w = 0;
+    for (int64_t k = i; k < i + 4; ++k) w = (w << 8) | (k < len ? b[k] : 0u);
+    return w;
   }
   int get(int n) {  // n in 0..16
     if (n == 0) return 0;
@@ -48,9 +52,8 @@ struct Bits {
     p += n;
     return v;
   }
-  int symbol(const int32_t* t) {  // -1: no code starts here
-    int e = t[(window() >> (16 - (p & 7))) & 0xFFFF];
-    if (e == 0) return -1;
+  int symbol(const int32_t* t) {  // a bad code: 17 bits, symbol 0
+    const int e = t[(window() >> (16 - (p & 7))) & 0xFFFF];
     p += e >> 8;
     return e & 255;
   }
@@ -65,47 +68,63 @@ inline int32_t wrap16(int64_t v) { return int32_t(int16_t(uint16_t(v))); }
 enum Mode {
   kSequential = 0, kDCFirst, kDCRefine, kACFirst, kACRefine, kLossless
 };
-enum Status { kOk = 0, kBadCode = 1, kTruncated = 2 };
 
 }  // namespace
 
-// data/seg_start: the restart intervals' bytes (seg_start[i]..[i+1]);
+// data/seg_start: the restart intervals' bytes (seg_start[i]..[i+1]), the
+// first n_present of them found in the file and the rest missing (empty);
 // mode, ss, se, al: the scan; n_mcus, interval, mcus_row: its MCUs; unit:
 // the values a data unit (64 coefficients; 1 sample in a lossless scan);
 // for each of the n_blocks data units of an MCU: the slot of its component
 // (coefs[slot], its DC predictor), its block offset, the grid's blocks a
 // MCU row, the component's blocks a MCU across, and its DC and AC tables
-// (indices into tables, -1 where the scan needs none).
+// (indices into tables, -1 where the scan needs none). Data that ends early
+// is read as libjpeg-turbo reads it (its insufficient_data flag): the MCU
+// (in a lossless scan, the MCU row) that runs past its interval's bytes
+// reads zero bits, the interval's later ones are skipped (a lossless row
+// flagged in skipped_rows), and only an interval whose RSTn was found
+// clears the flag. out last_good: the last MCU begun with the flag clear.
+// Returns 0: no data is an error.
 extern "C" int64_t wpt_jpeg_scan(
     const uint8_t* data, const int64_t* seg_start, int64_t n_segs,
-    int32_t mode, int32_t ss, int32_t se, int32_t al, int64_t n_mcus,
-    int64_t interval, int64_t mcus_row, int32_t unit, int32_t n_blocks,
-    const int32_t* slot, const int64_t* off, const int64_t* stride,
-    const int64_t* mcu_w, const int32_t* dc_tab, const int32_t* ac_tab,
-    int32_t** coefs, const int32_t** tables) {
+    int64_t n_present, int32_t mode, int32_t ss, int32_t se, int32_t al,
+    int64_t n_mcus, int64_t interval, int64_t mcus_row, int32_t unit,
+    int32_t n_blocks, const int32_t* slot, const int64_t* off,
+    const int64_t* stride, const int64_t* mcu_w, const int32_t* dc_tab,
+    const int32_t* ac_tab, int32_t** coefs, const int32_t** tables,
+    int64_t* last_good, uint8_t* skipped_rows) {
   const int p1 = 1 << al, m1 = -(1 << al);
-  std::vector<uint8_t> buf;
+  bool is_short = false;
+  *last_good = -1;
   for (int64_t seg = 0; seg < n_segs; ++seg) {
     const int64_t len = seg_start[seg + 1] - seg_start[seg];
-    buf.assign(size_t(len + kPad), 0);
-    if (len) std::memcpy(buf.data(), data + seg_start[seg], size_t(len));
-    Bits br{buf.data(), 0};
-    int64_t preds[4] = {0, 0, 0, 0};
-    int64_t eobrun = 0;
     const int64_t first = seg * interval;
     const int64_t stop = first + interval < n_mcus ? first + interval : n_mcus;
+    if (mode == kLossless) {
+      if (seg < n_present) is_short = false;
+    } else {
+      if (is_short && seg >= n_present) continue;
+      if (!is_short) *last_good = first;
+      is_short = false;
+    }
+    Bits br{data + seg_start[seg], len, 0};
+    int64_t preds[4] = {0, 0, 0, 0};
+    int64_t eobrun = 0;
     for (int64_t m = first; m < stop; ++m) {
       const int64_t my = m / mcus_row, mx = m % mcus_row;
+      if (mode == kLossless && mx == 0 && is_short) {
+        skipped_rows[my] = 1;
+        m += mcus_row - 1;
+        continue;
+      }
       for (int j = 0; j < n_blocks; ++j) {
         int32_t* coef =
             coefs[slot[j]] + (my * stride[j] + off[j] + mx * mcu_w[j]) * unit;
         if (mode == kLossless) {
           const int s = br.symbol(tables[dc_tab[j]]);
-          if (s < 0) return kBadCode;
           coef[0] = s == 16 ? 32768 : s ? extend(br.get(s), s) : 0;
         } else if (mode == kSequential || mode == kDCFirst) {
           const int s = br.symbol(tables[dc_tab[j]]);
-          if (s < 0) return kBadCode;
           const int diff = s ? extend(br.get(s), s) : 0;
           preds[slot[j]] += diff;
           coef[0] = mode == kSequential ? int32_t(preds[slot[j]])
@@ -114,7 +133,6 @@ extern "C" int64_t wpt_jpeg_scan(
             const int32_t* t = tables[ac_tab[j]];
             for (int k = 1; k < 64;) {
               const int rs = br.symbol(t);
-              if (rs < 0) return kBadCode;
               const int r = rs >> 4, sz = rs & 15;
               if (sz) {
                 k += r;
@@ -136,7 +154,6 @@ extern "C" int64_t wpt_jpeg_scan(
             const int32_t* t = tables[ac_tab[j]];
             for (int k = ss; k <= se; ++k) {
               const int rs = br.symbol(t);
-              if (rs < 0) return kBadCode;
               const int r = rs >> 4, s = rs & 15;
               if (s) {
                 k += r;
@@ -155,7 +172,6 @@ extern "C" int64_t wpt_jpeg_scan(
             const int32_t* t = tables[ac_tab[j]];
             for (; k <= se; ++k) {
               const int rs = br.symbol(t);
-              if (rs < 0) return kBadCode;
               int r = rs >> 4, s = rs & 15;
               if (s) {
                 s = br.get(1) ? p1 : m1;
@@ -185,11 +201,18 @@ extern "C" int64_t wpt_jpeg_scan(
             --eobrun;
           }
         }
-        if (br.p > 8 * len) return kTruncated;
+      }
+      if (mode == kLossless) {
+        if (mx == mcus_row - 1) is_short = br.p > 8 * len;
+      } else if (br.p > 8 * len) {
+        is_short = true;
+        break;
+      } else if (m + 1 < stop) {
+        *last_good = m + 1;
       }
     }
   }
-  return kOk;
+  return 0;
 }
 
 namespace {
@@ -336,7 +359,8 @@ bool arith_ac_value(QM& qm, ArithState& s, uint8_t* stats, int st, int k,
 // An arithmetic-coded scan; the arguments as wpt_jpeg_scan takes them (dc_tab
 // and ac_tab are table numbers 0..15), with the DAC conditioning of the 16
 // tables: dc_lo (L), dc_hi (U) and ac_kx (Kx). Bad data is no error: as
-// jdarith.c, the rest of its restart interval is left undecoded.
+// jdarith.c, the rest of its restart interval is left undecoded. Data that
+// ends early, or a missing (empty) interval, reads zero bytes.
 extern "C" int64_t wpt_jpeg_arith_scan(
     const uint8_t* data, const int64_t* seg_start, int64_t n_segs,
     int32_t mode, int32_t ss, int32_t se, int32_t al, int64_t n_mcus,
@@ -438,7 +462,7 @@ extern "C" int64_t wpt_jpeg_arith_scan(
       }
     }
   }
-  return kOk;
+  return 0;
 }
 
 // A lossless component's samples from its (height, width) differences
@@ -480,5 +504,5 @@ extern "C" int64_t wpt_jpeg_undifference(
       out[r * width + i] = uint8_t(cur[i] << pt);
     prev.swap(cur);
   }
-  return kOk;
+  return 0;
 }

@@ -183,10 +183,110 @@ struct Transform {
 struct VP8LCtx {
   LBits br;
   const uint8_t* code_to_plane;
+  bool alpha;  // the stream of an ALPH chunk
 };
 
 std::vector<uint32_t> decode_stream(VP8LCtx& ctx, int xsize, int ysize, bool level0,
                                     std::vector<Transform>* transforms);
+
+// libwebp's VP8LBitReader as it reads past its data (utils/webp.py's
+// _TailBits): a 64-bit window of the last bytes from bit `base`, reads at 64
+// bits or more into it wrap, and a byte shift that finds the stream over sets
+// eos and goes back to the window's start; ReadBits then gives 0.
+struct TailBits {
+  LBits b;
+  int64_t base;
+  bool eos = false;
+  int64_t at(int ahead = 0) const {
+    const int64_t p = b.pos + ahead - base;
+    return p < 64 ? b.pos + ahead : base + (p & 63);
+  }
+  void shift() {
+    if (b.pos > b.limit) {
+      eos = true;
+      b.pos = base;
+    }
+  }
+  uint32_t read(int nb) {
+    if (eos) {
+      b.pos = base;
+      return 0;
+    }
+    const uint32_t v = b.peek32(at());
+    b.pos += nb;
+    shift();
+    return v & ((1u << nb) - 1);
+  }
+  // ReadSymbol's two table levels, each prefetched (and wrapped) on its own.
+  int sym(const Code& code) {
+    if (code.bits == 0) return code.single;
+    const uint32_t v = (b.peek32(at()) & 0xFF) | (b.peek32(at(8)) << 8);
+    const uint8_t bytes[4] = {uint8_t(v), uint8_t(v >> 8), uint8_t(v >> 16),
+                              uint8_t(v >> 24)};
+    LBits r{bytes, 4, 0, 32};
+    const int s = read_sym(r, code);
+    b.pos += r.pos;
+    return s;
+  }
+};
+
+inline int tail_copy_value(int symbol, TailBits& tb) {
+  if (symbol < 4) return symbol + 1;
+  const int extra = (symbol - 2) >> 1;
+  return ((2 + (symbol & 1)) << extra) + static_cast<int>(tb.read(extra)) + 1;
+}
+
+// DecodeAlphaData, libwebp's 8-bit path for an ALPH stream: green symbols and
+// backward references through TailBits, the end of the stream checked after
+// each symbol, an error only where pixels are left.
+void decode_alpha8(VP8LCtx& ctx, int xsize, int ysize, const std::vector<Code>& codes,
+                   int hbits, const std::vector<int>& himage, int hxsize,
+                   std::vector<uint32_t>& out) {
+  const int64_t total = static_cast<int64_t>(xsize) * ysize;
+  out.assign(total, 0);
+  TailBits tb{ctx.br, ctx.br.limit - 64};
+  int64_t pos = 0;
+  int x = 0, y = 0;
+  const Code* g = codes.data();
+  while (pos < total && !tb.eos) {
+    tb.shift();
+    if (!himage.empty())
+      g = codes.data() + 5 * himage[static_cast<int64_t>(y >> hbits) * hxsize + (x >> hbits)];
+    const int code = tb.sym(g[0]);
+    if (code < 256) {
+      out[pos++] = (static_cast<uint32_t>(g[3].single) << 24) |
+                   (static_cast<uint32_t>(g[1].single) << 16) |
+                   (static_cast<uint32_t>(code) << 8) | static_cast<uint32_t>(g[2].single);
+      ++x;
+    } else if (code < 280) {
+      const int length = tail_copy_value(code - 256, tb);
+      const int dsym = tb.sym(g[4]);
+      tb.shift();
+      const int dcode = tail_copy_value(dsym, tb);
+      int64_t dist;
+      if (dcode > 120) {
+        dist = dcode - 120;
+      } else {
+        const int v = ctx.code_to_plane[dcode - 1];
+        dist = static_cast<int64_t>(v >> 4) * xsize + 8 - (v & 15);
+        if (dist < 1) dist = 1;
+      }
+      if (dist > pos || total - pos < length) throw Fail{1};
+      for (int64_t i = pos; i < pos + length; ++i) out[i] = out[i - dist];
+      pos += length;
+      x += length;
+    } else {
+      throw Fail{1};
+    }
+    while (x >= xsize) {
+      x -= xsize;
+      ++y;
+    }
+    tb.eos = tb.eos || tb.b.over();
+  }
+  if (tb.eos && pos < total) throw Fail{2};
+  ctx.br.pos = tb.b.pos;
+}
 
 void decode_pixels(VP8LCtx& ctx, int xsize, int ysize, const std::vector<Code>& codes,
                    int hbits, const std::vector<int>& himage, int hxsize, int cache_bits,
@@ -290,7 +390,18 @@ std::vector<uint32_t> decode_stream(VP8LCtx& ctx, int xsize, int ysize, bool lev
   std::vector<Code> codes(5 * static_cast<size_t>(groups));
   for (int g = 0; g < groups; ++g)
     for (int j = 0; j < 5; ++j) read_code(br, alphabets[j], &codes[5 * g + j]);
+  // An alpha stream of one colour-indexing transform, no cache and one-symbol
+  // red, blue and alpha codes takes libwebp's 8-bit path.
+  bool eight = ctx.alpha && level0 && transforms->size() == 1 &&
+               (*transforms)[0].kind == 3 && cache_bits == 0;
+  for (int g = 0; eight && g < groups; ++g)
+    eight = codes[5 * g + 1].bits == 0 && codes[5 * g + 2].bits == 0 &&
+            codes[5 * g + 3].bits == 0;
   std::vector<uint32_t> out;
+  if (eight) {
+    decode_alpha8(ctx, xsize, ysize, codes, hbits, himage, hxsize, out);
+    return out;
+  }
   decode_pixels(ctx, xsize, ysize, codes, hbits, himage, hxsize, cache_bits, out);
   if (br.over()) throw Fail{2};
   return out;
@@ -1127,8 +1238,9 @@ inline uint8_t yuv_clip8(int v) {
 }  // namespace
 
 extern "C" int64_t wpt_vp8l(const uint8_t* data, int64_t n, int64_t pos, int32_t width,
-                            int32_t height, const uint8_t* code_to_plane, uint32_t* out) {
-  VP8LCtx ctx{LBits{data, n, pos, std::max<int64_t>(8 * n, 64)}, code_to_plane};
+                            int32_t height, int32_t alpha, const uint8_t* code_to_plane,
+                            uint32_t* out) {
+  VP8LCtx ctx{LBits{data, n, pos, std::max<int64_t>(8 * n, 64)}, code_to_plane, alpha != 0};
   try {
     std::vector<Transform> ts;
     std::vector<uint32_t> pix = decode_stream(ctx, width, height, true, &ts);

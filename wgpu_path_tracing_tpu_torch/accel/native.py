@@ -22,7 +22,8 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   codes), ``utils/gif.py::lzw_plain``, ``utils/qoi.py::ops_plain``,
   ``utils/pcx.py::rle_plain``, ``utils/sgi.py::rle_plain``,
   ``utils/psd.py::packbits_rows_plain``, ``utils/sun.py::rle_plain``,
-  ``utils/msp.py::rle_plain`` and ``utils/icns.py::rle_plain``;
+  ``utils/msp.py::rle_plain``, ``utils/icns.py::rle_plain``,
+  ``utils/fli.py::fli_plain`` and ``utils/im.py::bits_plain``;
 * ``bcn_scan.cpp``: the BC1-BC7 block decoders of ``utils/bcn.py``, and
   the BLP reader's DXT1/3/5 decoder, ``utils/blp.py::dxt_plain``;
 * ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
@@ -98,13 +99,13 @@ SIGNATURES = {
                          _I32P],
     # wh, n, out xy, out (width, height)
     "wpt_potpack": [_F64P, _I64, _F64P, _F64P],
-    # data, segment starts, segments, mode, Ss, Se, Al, MCUs, MCUs an
-    # interval, MCUs a row, values a data unit, blocks an MCU, each block's
-    # slot, offset, row stride, MCU width, DC and AC table; coefficient
-    # grids, tables
-    "wpt_jpeg_scan": [ctypes.c_char_p, _I64P, _I64, _I32, _I32, _I32, _I32,
-                      _I64, _I64, _I64, _I32, _I32, _I32P, _I64P, _I64P,
-                      _I64P, _I32P, _I32P, _PTRS, _PTRS],
+    # data, segment starts, segments, segments present, mode, Ss, Se, Al,
+    # MCUs, MCUs an interval, MCUs a row, values a data unit, blocks an MCU,
+    # each block's slot, offset, row stride, MCU width, DC and AC table;
+    # coefficient grids, tables, out last good MCU, out skipped MCU rows
+    "wpt_jpeg_scan": [ctypes.c_char_p, _I64P, _I64, _I64, _I32, _I32, _I32,
+                      _I32, _I64, _I64, _I64, _I32, _I32, _I32P, _I64P,
+                      _I64P, _I64P, _I32P, _I32P, _PTRS, _PTRS, _I64P, _U8P],
     # as wpt_jpeg_scan without the unit, with table numbers, then each
     # table's L, U and Kx; coefficient grids
     "wpt_jpeg_arith_scan": [ctypes.c_char_p, _I64P, _I64, _I32, _I32, _I32,
@@ -132,8 +133,9 @@ SIGNATURES = {
     # (the frame's indices), out pixels written
     "wpt_gif_lzw": [ctypes.c_char_p, _I64, _I32, _I64, _I64, _I32, _U8P,
                     _I64P],
-    # data, its length, start bit, width, height, distance map, out ARGB
-    "wpt_vp8l": [ctypes.c_char_p, _I64, _I64, _I32, _I32, _U8P, _U32P],
+    # data, its length, start bit, width, height, an ALPH stream, distance
+    # map, out ARGB
+    "wpt_vp8l": [ctypes.c_char_p, _I64, _I64, _I32, _I32, _I32, _U8P, _U32P],
     # data, its length, width, height, DC and AC quantizer tables, default
     # and update coefficient probabilities, B_PRED probabilities, out Y, U,
     # V (whole macroblocks)
@@ -165,8 +167,12 @@ SIGNATURES = {
                     _U8P, _I64P],
     # data, its length, start, bytes wanted, out, out end
     "wpt_icns_rle": [ctypes.c_char_p, _I64, _I64, _I64, _U8P, _I64P],
+    # one frame's bytes, their length, width, height, out indices
+    "wpt_fli": [ctypes.c_char_p, _I64, _I64, _I64, _U8P],
+    # data, its length, start, width, height, bits a pixel, out floats
+    "wpt_bit_decode": [ctypes.c_char_p, _I64, _I64, _I64, _I64, _I32,
+                       _F32P],
 }
-JPEG_STATUS = {1: "bad Huffman code", 2: "truncated JPEG data"}
 # utils/bcn.py's formats -> (wpt_bcn's code, bytes a pixel).
 BCN_CODES = {"BC1": (1, 4), "BC2": (2, 4), "BC3": (3, 4), "BC4": (4, 1),
              "BC5": (5, 3), "BC5S": (6, 3), "BC6H": (7, 3), "BC6HS": (8, 3),
@@ -384,17 +390,14 @@ def reorder_tris_native(order, v0, v1, v2, n0, n1, n2, u0, u1, u2, mat):
 
 
 def _scan_layout(segments: list, units: list, restart: int, n_mcus: int,
-                 name: str, table_index):
+                 table_index):
     """What both scan decoders take: the restart intervals' bytes and
-    starts, the interval's MCUs, the components, and each block's slot,
-    offset, row stride, MCU width, DC and AC table (``table_index`` of
-    each unit's table, -1 for none)."""
+    starts (a missing interval empty), the interval's MCUs, the
+    components, and each block's slot, offset, row stride, MCU width, DC
+    and AC table (``table_index`` of each unit's table, -1 for none)."""
     interval = restart or n_mcus
     need = (n_mcus + interval - 1) // interval
-    if len(segments) < need:
-        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
-                         f"{need} restart intervals)")
-    segments = segments[:need]
+    segments = segments[:need] + [b""] * (need - len(segments))
     starts = np.zeros(need + 1, np.int64)
     starts[1:] = np.cumsum([len(s) for s in segments])
     comps, blocks = [], []
@@ -417,15 +420,18 @@ def _scan_layout(segments: list, units: list, restart: int, n_mcus: int,
 
 
 def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
-                     mode: int, ss: int, se: int, al: int, name: str,
-                     unit: int = 64) -> None:
+                     mode: int, ss: int, se: int, al: int, unit: int = 64
+                     ) -> None:
     """One Huffman-coded JPEG scan's entropy decode in C++
     (``jpeg_scan.cpp``), into the components' coefficient arrays in place:
     ``segments``, ``units``, ``restart`` and ``n_mcus`` as ``utils/jpeg.py::
     decode_scan`` takes them; ``mode`` 0 sequential, 1 DC first, 2 DC
     refinement, 3 AC first, 4 AC refinement, 5 lossless differences
     (``unit`` 1: one value a data unit). The same values as the Python
-    decoders; bad data raises ``ValueError`` naming ``name``."""
+    decoders, and what they return (the last MCU begun with libjpeg's
+    out-of-data flag clear; in mode 5 the flags of the MCU rows skipped).
+    As in libjpeg, no data is an error: a bad code or a cut reads on as
+    ``jpeg_scan.cpp`` says."""
     tables = []
 
     def index(t):
@@ -439,29 +445,30 @@ def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
 
     (data, starts, need, interval, mcus_row, n_blocks, slot, off, stride,
      mcu_w, dc_tab, ac_tab, coefs, _keep) = _scan_layout(
-         segments, units, restart, n_mcus, name, index)
+         segments, units, restart, n_mcus, index)
     lookups = [t.lookup for t in tables]
     table_ptrs = (ctypes.c_void_p * max(len(lookups), 1))(
         *[t.ctypes.data for t in lookups])
-    rc = lib().wpt_jpeg_scan(
-        data, starts, need, mode, ss, se, al, n_mcus, interval, mcus_row,
-        unit, n_blocks, slot, off, stride, mcu_w, dc_tab, ac_tab, coefs,
-        ctypes.cast(table_ptrs, _PTRS))
-    if rc:
-        raise ValueError(f"{name}: {JPEG_STATUS.get(rc, f'decode error {rc}')}")
+    last_good = np.zeros(1, np.int64)
+    skipped = np.zeros(-(-n_mcus // mcus_row), np.uint8)
+    lib().wpt_jpeg_scan(
+        data, starts, need, min(len(segments), need), mode, ss, se, al,
+        n_mcus, interval, mcus_row, unit, n_blocks, slot, off, stride, mcu_w,
+        dc_tab, ac_tab, coefs, ctypes.cast(table_ptrs, _PTRS),
+        _ptr(last_good, _I64P), _ptr(skipped, _U8P))
+    return bytearray(skipped.tobytes()) if mode == 5 else int(last_good[0])
 
 
 def jpeg_arith_scan_native(segments: list, units: list, restart: int,
                            n_mcus: int, mode: int, ss: int, se: int, al: int,
-                           cond: dict, name: str) -> None:
+                           cond: dict) -> None:
     """One arithmetic-coded JPEG scan's decode in C++ (``jpeg_scan.cpp``),
     into the components' coefficient arrays in place, as ``utils/jpeg.py::
     decode_arith_scan`` takes its arguments (units carry table numbers, and
     ``cond`` the DAC conditioning); the same coefficients."""
     (data, starts, need, interval, mcus_row, n_blocks, slot, off, stride,
      mcu_w, dc_tab, ac_tab, coefs, _keep) = _scan_layout(
-         segments, units, restart, n_mcus, name,
-         lambda t: -1 if t is None else t)
+         segments, units, restart, n_mcus, lambda t: -1 if t is None else t)
     lo = np.asarray([lu[0] for lu in cond["dc"]], np.uint8)
     hi = np.asarray([lu[1] for lu in cond["dc"]], np.uint8)
     kx = np.asarray(cond["ac"], np.uint8)
@@ -555,13 +562,13 @@ def gif_lzw_native(data: bytes, bits: int, width: int, height: int,
     return out, int(written[0]), int(status)
 
 
-def vp8l_native(data: bytes, pos: int, width: int, height: int
-                ) -> tuple[np.ndarray, int]:
+def vp8l_native(data: bytes, pos: int, width: int, height: int,
+                alpha: bool = False) -> tuple[np.ndarray, int]:
     """``utils/webp.py::vp8l_plain`` in C++ (``webp_scan.cpp``)."""
     from wgpu_path_tracing_tpu_torch.utils import webp_tables as T
 
     out = np.zeros((height, width), np.uint32)
-    status = lib().wpt_vp8l(data, len(data), pos, width, height,
+    status = lib().wpt_vp8l(data, len(data), pos, width, height, int(alpha),
                             _ptr(np.ascontiguousarray(T.CODE_TO_PLANE), _U8P),
                             _ptr(out, _U32P))
     return out, int(status)
@@ -691,3 +698,21 @@ def icns_rle_native(data: bytes, pos: int, size: int
     status = lib().wpt_icns_rle(data, len(data), pos, size, _ptr(out, _U8P),
                                 _ptr(end, _I64P))
     return out, int(end[0]), int(status)
+
+
+def fli_native(buf: bytes, w: int, h: int) -> tuple[np.ndarray, int]:
+    """``utils/fli.py::fli_plain`` in C++ (``image_scan.cpp``): one
+    frame's (h, w) indices and the status."""
+    out = np.zeros((h, w), np.uint8)
+    status = lib().wpt_fli(buf, len(buf), w, h, _ptr(out, _U8P))
+    return out, int(status)
+
+
+def bit_decode_native(data: bytes, pos: int, w: int, h: int, bits: int
+                      ) -> tuple[np.ndarray, int]:
+    """``utils/im.py::bits_plain`` in C++ (``image_scan.cpp``): (h, w)
+    float32 rows, top row first, and the status."""
+    out = np.zeros((h, w), np.float32)
+    status = lib().wpt_bit_decode(data, len(data), pos, w, h, bits,
+                                  _ptr(out, _F32P))
+    return out, int(status)

@@ -372,10 +372,10 @@ def read_png(path: str) -> np.ndarray:
 
 def _readers() -> dict:
     """The decoders of the formats this package reads, by Pillow's name."""
-    from wgpu_path_tracing_tpu_torch.utils import (blp, bmp, dds, ftex, gif,
-                                                   icns, msp, netpbm, pcx,
-                                                   psd, qoi, sgi, sun, tga,
-                                                   tiff, webp, xbm, xpm)
+    from wgpu_path_tracing_tpu_torch.utils import (
+        blp, bmp, dds, fits, fli, ftex, gbr, gif, icns, im, imt, iptc,
+        mcidas, msp, netpbm, pcd, pcx, pixar, psd, qoi, sgi, spider, stubs,
+        sun, tga, tiff, webp, xbm, xpm, xvthumb)
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
@@ -389,7 +389,16 @@ def _readers() -> dict:
             "PSD": psd.decode_psd_rgba, "QOI": qoi.decode_qoi_rgba,
             "SGI": sgi.decode_sgi_rgba, "SUN": sun.decode_sun_rgba,
             "TGA": tga.decode_tga_rgba, "WEBP": webp.decode_webp_rgba,
-            "XBM": xbm.decode_xbm_rgba, "XPM": xpm.decode_xpm_rgba}
+            "XBM": xbm.decode_xbm_rgba, "XPM": xpm.decode_xpm_rgba,
+            "IM": im.decode_im_rgba, "IMT": imt.decode_imt_rgba,
+            "IPTC": iptc.decode_iptc_rgba, "PCD": pcd.decode_pcd_rgba,
+            "PIXAR": pixar.decode_pixar_rgba,
+            "SPIDER": spider.decode_spider_rgba,
+            "MCIDAS": mcidas.decode_mcidas_rgba,
+            "FITS": fits.decode_fits_rgba, "FLI": fli.decode_fli_rgba,
+            "GBR": gbr.decode_gbr_rgba, "WMF": stubs.decode_wmf_rgba,
+            "XVTHUMB": xvthumb.decode_xvthumb_rgba,
+            "EPS": stubs.decode_eps_rgba}
 
 
 def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -407,13 +416,21 @@ def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
     DDS (``utils/dds.py``, BC1-BC7 through ``utils/bcn.py``), FTEX
     (``utils/ftex.py``), BLP (``utils/blp.py``), ICNS (``utils/icns.py``),
     Sun raster (``utils/sun.py``), MSP (``utils/msp.py``), XBM
-    (``utils/xbm.py``) and XPM (``utils/xpm.py``) are read. The walk goes
-    on past a format only where that format's reader says Pillow's
-    ``_open`` would pass the bytes on (TGA, which has no signature, passes
+    (``utils/xbm.py``), XPM (``utils/xpm.py``), IM (``utils/im.py``), IM
+    Tools (``utils/imt.py``), IPTC/NAA (``utils/iptc.py``), Photo CD
+    (``utils/pcd.py``), PIXAR (``utils/pixar.py``), SPIDER
+    (``utils/spider.py``), McIdas (``utils/mcidas.py``), FITS
+    (``utils/fits.py``), FLI and FLC (``utils/fli.py``, the first frame),
+    GIMP brushes (``utils/gbr.py``) and XV thumbnails
+    (``utils/xvthumb.py``) are read; WMF and EPS raise as Pillow's
+    ``load`` raises without a WMF handler or Ghostscript
+    (``utils/stubs.py``). The walk goes on past a format only where that
+    format's reader says Pillow's ``_open`` would pass the bytes on (TGA
+    and the other formats without a signature, tried on any bytes, pass
     on a RIFF header, so WebP files reach WEBP, and on ``#define`` and
     ``/* XPM */`` headers, so X bitmaps and pixmaps reach XBM and XPM).
     Bytes Pillow would open as a format this package does not read (AVIF,
-    IM, JPEG 2000, ...) raise ``ValueError`` at the first such format, naming
+    JPEG 2000, ...) raise ``ValueError`` at the first such format, naming
     ``name`` and the format, and bytes no format takes raise
     ``ValueError`` too; a variant of a read format that Pillow opens but
     this package does not read raises ``NotImplementedError`` naming

@@ -82,6 +82,43 @@ SOF_UNSUPPORTED = {
     0xCE: "arithmetic-coded hierarchical progressive",
     0xCF: "arithmetic-coded hierarchical lossless"}
 
+# The standard Huffman tables (ISO 10918-1 K.3) that libjpeg-turbo's
+# jpeg_std_huff_table supplies for a scan naming table 0 or 1 of a class
+# no DHT defined: {(class, id): (code counts, symbols)}.
+STD_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+             bytes(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+             bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+        "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+        "4a535455565758595a636465666768696a737475767778797a83848586878889"
+        "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+        "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+        "f9fa")),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+        "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+        "494a535455565758595a636465666768696a737475767778797a828384858687"
+        "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+        "f9fa")),
+}
+
+
+def _table(huff: dict, key: tuple):
+    """The Huffman table ``key`` names, the standard one for an undefined
+    table 0 or 1 (kept, as libjpeg keeps it), or None."""
+    if key not in huff and key in STD_HUFFMAN:
+        huff[key] = HuffmanTable(*STD_HUFFMAN[key])
+    return huff.get(key)
+
+
+# Markers libjpeg's read_markers refuses (JPG, DHP, EXP, JPGn), as it does
+# the reserved ones below 0xC0 other than TEM.
+UNKNOWN_MARKERS = frozenset((0xC8, 0xDE, 0xDF, *range(0xF0, 0xFE)))
+
 # jpeg_natural_order (jutils.c): the natural position of each zigzag
 # index, with 16 extra entries of 63 that a corrupt run lands on, as
 # libjpeg's table has them.
@@ -124,7 +161,8 @@ _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 class HuffmanTable:
     """A DHT table as lookups on the next 16 bits: ``lookup`` (int32, for
     the C++ decoder) and ``code`` give (code length << 8 | symbol) for any
-    code, 0 where no code starts; ``dc`` (bits consumed, difference) and
+    code, and 17 << 8 | 0 where no code starts: libjpeg reads a bad code's
+    17 bits and takes symbol 0 (``jpeg_huff_decode``'s warning); ``dc`` (bits consumed, difference) and
     ``ac`` (bits consumed, zero run, coefficient; run -1 at the end of
     block, 16 and no coefficient at a run of 16 zeros) resolve a code and
     its extra bits together where they fit in the 16 bits, and give 0 bits
@@ -150,6 +188,7 @@ class HuffmanTable:
             lo = c << (16 - n)
             code_len[lo:lo + (1 << (16 - n))] = n
             code_sym[lo:lo + (1 << (16 - n))] = sym
+        code_len[code_len == 0] = 17  # a bad code: 17 bits, symbol 0
         self.lookup = (code_len << 8 | code_sym).astype(np.int32)
         self.max_symbol = int(symbols.max(initial=0))
 
@@ -196,6 +235,7 @@ class Component:
         self.quant = None  # latched at the component's first scan
         self.coef = None
         self.coef_bits = [-1] * 64
+        self.prev_bits = [-1] * 64
 
 
 def _extend(v: int, s: int) -> int:
@@ -211,28 +251,60 @@ def _windows(segment: bytes) -> list:
     return w.tolist()
 
 
-def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
-                name: str) -> None:
+# More zero windows for a reader that ran past its interval's bytes: more
+# than one MCU of ten blocks reads (64 codes of at most 33 bits a block).
+_ZERO_TAIL = [0] * 4096
+
+
+def restart_intervals(segments: list, restart: int, n_mcus: int):
+    """(MCUs an interval, each restart interval's bytes): ``None`` for an
+    interval whose data is missing, where the scan's data ends at another
+    marker before its RSTn. libjpeg then finds that marker where the RSTn
+    should be, leaves it for later (``jpeg_resync_to_restart``'s action
+    3), and decodes the interval from no data."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    return interval, [segments[i] if i < len(segments) else None
+                      for i in range(need)]
+
+
+def decode_scan(segments: list, units: list, restart: int, n_mcus: int
+                ) -> int:
     """The entropy-coded data of one scan into its components'
     coefficients. ``segments``: the unstuffed bytes between restart
     markers; ``units``: for each data unit of an MCU in order, (component,
     DC table, AC table, list of block offsets a MCU, blocks a MCU row
     stride and MCUs a row) as ``_scan_units`` makes them; ``restart``: MCUs
-    a restart interval (0: none); ``n_mcus``: the scan's MCU count."""
+    a restart interval (0: none); ``n_mcus``: the scan's MCU count.
+
+    Data that ends early reads as libjpeg-turbo reads it (``jdhuff.c``'s
+    ``insufficient_data``): the MCU that runs past its interval's bytes is
+    decoded on zero bits, the interval's later MCUs are left as they are,
+    and an interval whose RSTn was found starts afresh, while one whose
+    data is missing does not (its first MCU reads zero bits where the last
+    interval ended whole). Returns libjpeg's ``last_good_iMCU_row`` as an
+    MCU: the last MCU that began with the flag clear."""
     zz = NATURAL_ORDER
-    interval = restart or n_mcus
-    need = (n_mcus + interval - 1) // interval
-    if len(segments) < need:
-        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
-                         f"{need} restart intervals)")
+    interval, parts = restart_intervals(segments, restart, n_mcus)
     mcus_row = units[0][5]
-    for seg_i in range(need):
-        win = _windows(segments[seg_i])
+    short, last_good = False, -1
+    for seg_i, seg in enumerate(parts):
+        first = seg_i * interval
+        if short and seg is None:
+            continue
+        if not short:
+            last_good = first
+        short = False
+        seg = seg or b""
+        end = 8 * len(seg)
+        win = _windows(seg)
         p = 0
         preds = {}
-        first = seg_i * interval
-        try:
-            for m in range(first, min(first + interval, n_mcus)):
+        m = first
+        stop = min(first + interval, n_mcus)
+        while m < stop:
+            p0, preds0 = p, dict(preds)
+            try:
                 my, mx = divmod(m, mcus_row)
                 for comp, dct, act, offsets, row_stride, _ in units:
                     coef = comp.coef
@@ -248,8 +320,6 @@ def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
                         else:
                             e = dct.code[(win[p >> 3] >> (16 - (p & 7)))
                                          & 0xFFFF]
-                            if not e:
-                                raise ValueError(f"{name}: bad Huffman code")
                             p += e >> 8
                             s = e & 15
                             diff = 0
@@ -269,9 +339,6 @@ def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
                             if not n:
                                 e = code[(win[p >> 3] >> (16 - (p & 7)))
                                          & 0xFFFF]
-                                if not e:
-                                    raise ValueError(
-                                        f"{name}: bad Huffman code")
                                 p += e >> 8
                                 rs = e & 255
                                 s = rs & 15
@@ -294,10 +361,17 @@ def decode_scan(segments: list, units: list, restart: int, n_mcus: int,
                             else:
                                 k += 16
                     preds[comp] = pred
-        except IndexError:
-            raise ValueError(f"{name}: truncated JPEG data") from None
-        if p > 8 * len(segments[seg_i]):
-            raise ValueError(f"{name}: truncated JPEG data")
+            except IndexError:  # past the zeros: redo the MCU on more
+                win.extend(_ZERO_TAIL)
+                p, preds = p0, preds0
+                continue
+            if p > end:
+                short = True
+                break
+            m += 1
+            if m < stop:
+                last_good = m
+    return last_good
 
 
 def _wrap16(v):
@@ -308,7 +382,8 @@ def _wrap16(v):
 
 class _Reader:
     """The bits of one restart interval's unstuffed bytes, read at bit
-    ``p``; past the end they are zeros, and the interval's check raises."""
+    ``p``; past the end they are zeros (a read past the windows raises
+    ``IndexError``, and the caller adds more)."""
 
     __slots__ = ("win", "p", "name")
 
@@ -323,8 +398,6 @@ class _Reader:
     def symbol(self, table: HuffmanTable) -> int:
         p = self.p
         e = table.code[(self.win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-        if not e:
-            raise ValueError(f"{self.name}: bad Huffman code")
         self.p = p + (e >> 8)
         return e & 255
 
@@ -439,29 +512,41 @@ def decode_mcu_AC_refine(rd: _Reader, block: tuple, st: _Progress, ss: int,
 
 def decode_progressive_scan(segments: list, units: list, restart: int,
                             n_mcus: int, ss: int, se: int, ah: int, al: int,
-                            name: str) -> None:
+                            name: str) -> int:
     """One progressive scan's entropy-coded data into its components'
     coefficients, MCU by MCU through the decoder its ``Ss``/``Ah`` pick;
     ``segments``, ``units``, ``restart`` and ``n_mcus`` as ``decode_scan``
     takes them. Each restart interval starts with the predictors at 0 and
-    no end-of-band run."""
-    interval = restart or n_mcus
-    need = (n_mcus + interval - 1) // interval
-    if len(segments) < need:
-        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
-                         f"{need} restart intervals)")
+    no end-of-band run. Data that ends early reads as ``decode_scan``
+    reads it (``jdphuff.c``): the MCUs left undecoded keep what earlier
+    scans gave them. Returns the last MCU that began with libjpeg's
+    out-of-data flag clear."""
+    interval, parts = restart_intervals(segments, restart, n_mcus)
     mcus_row = units[0][5]
-    for seg_i in range(need):
-        rd, st = _Reader(segments[seg_i], name), _Progress()
+    short, last_good = False, -1
+    for seg_i, seg in enumerate(parts):
         first = seg_i * interval
-        try:
-            for m in range(first, min(first + interval, n_mcus)):
-                my, mx = divmod(m, mcus_row)
-                blocks = [(comp.coef,
-                           (my * row_stride + off + mx * comp.mcu_w) * 64,
-                           comp, dct, act)
-                          for comp, dct, act, offsets, row_stride, _ in units
-                          for off in offsets]
+        if short and seg is None:
+            continue
+        if not short:
+            last_good = first
+        short = False
+        seg = seg or b""
+        rd, st = _Reader(seg, name), _Progress()
+        m = first
+        stop = min(first + interval, n_mcus)
+        while m < stop:
+            my, mx = divmod(m, mcus_row)
+            blocks = [(comp.coef,
+                       (my * row_stride + off + mx * comp.mcu_w) * 64,
+                       comp, dct, act)
+                      for comp, dct, act, offsets, row_stride, _ in units
+                      for off in offsets]
+            p0, preds0, eob0 = rd.p, dict(st.preds), st.eobrun
+            if ss and ah:  # a refinement changes what it reads: keep it
+                coef, base = blocks[0][:2]
+                saved = coef[base:base + 64]
+            try:
                 if ss == 0 and ah == 0:
                     decode_mcu_DC_first(rd, blocks, st, al)
                 elif ss == 0:
@@ -470,10 +555,19 @@ def decode_progressive_scan(segments: list, units: list, restart: int,
                     decode_mcu_AC_first(rd, blocks[0], st, ss, se, al)
                 else:
                     decode_mcu_AC_refine(rd, blocks[0], st, ss, se, al)
-        except IndexError:
-            raise ValueError(f"{name}: truncated JPEG data") from None
-        if rd.p > 8 * len(segments[seg_i]):
-            raise ValueError(f"{name}: truncated JPEG data")
+            except IndexError:  # past the zeros: redo the MCU on more
+                rd.win.extend(_ZERO_TAIL)
+                rd.p, st.preds, st.eobrun = p0, preds0, eob0
+                if ss and ah:
+                    coef[base:base + 64] = saved
+                continue
+            if rd.p > 8 * len(seg):
+                short = True
+                break
+            m += 1
+            if m < stop:
+                last_good = m
+    return last_good
 
 
 # ISO 10918-1 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS
@@ -734,8 +828,8 @@ def arith_mcu_AC_refine(qm: _QM, block: tuple, ss: int, se: int,
 
 
 def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
-                      mode: int, ss: int, se: int, al: int, cond: dict,
-                      name: str) -> None:
+                      mode: int, ss: int, se: int, al: int, cond: dict
+                      ) -> None:
     """One arithmetic-coded scan (SOF9, SOF10) into its components'
     coefficients: ``segments``, ``units`` (with table numbers for tables),
     ``restart`` and ``n_mcus`` as ``decode_scan`` takes them, ``mode`` as
@@ -743,15 +837,13 @@ def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
     conditioning ({"dc": [(L, U)] * 16, "ac": [Kx] * 16}). Each restart
     interval starts the coder, the statistics and the predictors anew. Bad
     data does not raise: as ``jdarith.c`` warns and leaves the rest of the
-    interval undecoded, so does this."""
-    interval = restart or n_mcus
-    need = (n_mcus + interval - 1) // interval
-    if len(segments) < need:
-        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
-                         f"{need} restart intervals)")
+    interval undecoded, so does this. Data that ends early is no error
+    either: past a marker the coder reads zero bytes, also through the
+    intervals whose data is missing."""
+    interval, parts = restart_intervals(segments, restart, n_mcus)
     mcus_row = units[0][5]
-    for seg_i in range(need):
-        qm = _QM(segments[seg_i])
+    for seg_i, seg in enumerate(parts):
+        qm = _QM(seg or b"")
         first = seg_i * interval
         for m in range(first, min(first + interval, n_mcus)):
             if qm.ct == -1 and mode != 2:
@@ -775,42 +867,58 @@ def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
 
 
 def decode_lossless_scan(segments: list, units: list, restart: int,
-                         n_mcus: int, name: str) -> None:
+                         n_mcus: int, name: str) -> bytearray:
     """The Huffman-coded differences of one lossless scan (SOF3,
     ``jdlhuff.c``) into its components' sample grids (``comp.coef``, one
     int32 a sample): ``segments``, ``units`` and ``restart`` as
     ``decode_scan`` takes them, each data unit one sample; category 16 is
-    32768 with no extra bits."""
-    interval = restart or n_mcus
-    need = (n_mcus + interval - 1) // interval
-    if len(segments) < need:
-        raise ValueError(f"{name}: truncated JPEG data ({len(segments)} of "
-                         f"{need} restart intervals)")
+    32768 with no extra bits. Data that ends early reads as ``jdlhuff.c``
+    reads it, an MCU row at a time: the row that runs past its interval's
+    bytes is decoded to its end on zero bits, and each later row of the
+    interval is left at zero differences and resets the predictors
+    (returned: a flag for each MCU row so skipped)."""
+    interval, parts = restart_intervals(segments, restart, n_mcus)
     mcus_row = units[0][5]
-    for seg_i in range(need):
-        rd = _Reader(segments[seg_i], name)
-        first = seg_i * interval
-        try:
-            for m in range(first, min(first + interval, n_mcus)):
-                my, mx = divmod(m, mcus_row)
+    skipped = bytearray(-(-n_mcus // mcus_row))
+    short = False
+    for seg_i, seg in enumerate(parts):
+        if seg is not None:
+            short = False
+        seg = seg or b""
+        rd = _Reader(seg, name)
+        m = seg_i * interval
+        stop = min(m + interval, n_mcus)
+        while m < stop:
+            my, mx = divmod(m, mcus_row)
+            if mx == 0 and short:
+                skipped[my] = 1
+                m += mcus_row
+                continue
+            p0 = rd.p
+            try:
                 for comp, dct, _, offsets, row_stride, _ in units:
                     for off in offsets:
                         s = rd.symbol(dct)
                         comp.coef[my * row_stride + off + mx * comp.mcu_w] = (
                             32768 if s == 16 else
                             _extend(rd.bits(s), s) if s else 0)
-        except IndexError:
-            raise ValueError(f"{name}: truncated JPEG data") from None
-        if rd.p > 8 * len(segments[seg_i]):
-            raise ValueError(f"{name}: truncated JPEG data")
+            except IndexError:  # past the zeros: redo the MCU on more
+                rd.win.extend(_ZERO_TAIL)
+                rd.p = p0
+                continue
+            m += 1
+            if mx == mcus_row - 1:
+                short = rd.p > 8 * len(seg)
+    return skipped
 
 
 def lossless_first_rows(c, interleaved: bool, restart: int,
-                        mcus_row: int) -> np.ndarray:
+                        mcus_row: int, skipped=None) -> np.ndarray:
     """Which of component ``c``'s sample rows ``jdlossls.c`` undifferences
     as a first row (the sample to the left, 2^(7 - Pt) first) in a scan:
     the first row of each iMCU row (``c.v`` rows) in whose MCU rows the
-    scan starts or a restart interval does. An interleaved scan's MCU row
+    scan starts, a restart interval does, or (``skipped``, a flag an MCU
+    row) the decoder found its data gone. An interleaved scan's MCU row
     is an iMCU row; a scan of one component has ``c.v`` MCU rows an iMCU
     row, so a restart inside one takes effect at its first row, as
     libjpeg-turbo undifferences an iMCU row once all of it is decoded."""
@@ -821,6 +929,8 @@ def lossless_first_rows(c, interleaved: bool, restart: int,
     else:
         mcu_rows = rows
     reset = (mcu_rows % per == 0) if per else (mcu_rows == 0)
+    if skipped is not None:
+        reset |= np.frombuffer(bytes(skipped), np.uint8)[mcu_rows] != 0
     imcu = rows // c.v
     hit = np.zeros(imcu[-1] + 1, bool)
     np.logical_or.at(hit, imcu, reset)
@@ -1103,7 +1213,8 @@ def _parse_sof(seg: bytes, name: str, kind: tuple) -> dict:
     return {"width": width, "height": height, "comps": comps,
             "hmax": hmax, "vmax": vmax, "mcus_x": mcus_x, "mcus_y": mcus_y,
             "progressive": progressive, "arithmetic": arithmetic,
-            "lossless": lossless, "block": unit}
+            "lossless": lossless, "block": unit, "scans": 0,
+            "last_good": mcus_y}
 
 
 def decode_jpeg_rgba(data: bytes, name: str = "image",
@@ -1113,8 +1224,10 @@ def decode_jpeg_rgba(data: bytes, name: str = "image",
     docstring lists; others raise naming ``name``. With ``as_cmyk`` a
     four-component frame is taken as CMYK whatever its Adobe transform
     says, so a YCCK frame is not converted: Pillow's BLP plugin sets the
-    JPEG mode "CMYK", which libjpeg then trusts."""
-    return _to_rgba(*_read_frame(data, name), name, as_cmyk)
+    JPEG mode "CMYK", which libjpeg then trusts. A marker that Pillow's
+    walk does not know before the first scan passes the bytes on
+    (``sniff.NotThisFormat``)."""
+    return _to_rgba(*_read_frame(data, name, True), name, as_cmyk)
 
 
 def decode_jpeg_samples(data: bytes, name: str, ycbcr: bool
@@ -1123,14 +1236,14 @@ def decode_jpeg_samples(data: bytes, name: str, ycbcr: bool
     (its frame, (H, W, components) uint8 samples, upsampled): converted
     from YCbCr to RGB where ``ycbcr`` (libtiff's JPEGCOLORMODE_RGB, three
     components), else as they are (JCS_UNKNOWN: no colour conversion)."""
-    frame = _read_frame(data, name)[0]
+    frame = _read_frame(data, name, False)[0]
     planes = _planes(frame)
     if ycbcr and len(planes) == 3:
         return frame, _ycc_to_rgb(*planes)
     return frame, np.stack(planes, -1)
 
 
-def _read_frame(data: bytes, name: str) -> tuple:
+def _read_frame(data: bytes, name: str, standalone: bool = False) -> tuple:
     """Parse and entropy-decode a JPEG: (frame, JFIF marker seen, Adobe
     marker seen, Adobe transform)."""
     from wgpu_path_tracing_tpu_torch.accel import native
@@ -1147,6 +1260,7 @@ def _read_frame(data: bytes, name: str) -> tuple:
     jfif = adobe = False
     transform = None
     scans = 0
+    multi = False
     while True:
         # The next marker, past any fill bytes.
         while pos < len(data) and data[pos] != 0xFF:
@@ -1154,20 +1268,41 @@ def _read_frame(data: bytes, name: str) -> tuple:
         while pos < len(data) and data[pos] == 0xFF:
             pos += 1
         if pos >= len(data):
-            if scans:
-                break  # no EOI after a whole scan, as libjpeg tolerates
-            raise ValueError(f"{name}: truncated JPEG data (no scan)")
+            if scans and not multi:
+                break  # no EOI after a single scan, as Pillow tolerates
+            raise ValueError(f"{name}: truncated JPEG data (no "
+                             f"{'EOI after its scans' if scans else 'scan'}"
+                             ")")
         marker = data[pos]
         pos += 1
         if marker == EOI:
             break
+        if marker == 0x00:  # FF 00 outside a scan: junk to libjpeg
+            continue
+        if marker < 0xC0 and not scans:
+            from wgpu_path_tracing_tpu_torch.utils.sniff import NotThisFormat
+
+            # Pillow's own marker walk up to the first scan knows no
+            # marker below 0xC0 (TEM and the reserved ones): it passes
+            # the bytes on
+            raise (NotThisFormat if standalone else ValueError)(
+                f"{name}: no JPEG marker found (FF {marker:02X})")
         if marker == SOI or 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue
-        if pos + 2 > len(data):
+        if marker < 0xC0 or marker in UNKNOWN_MARKERS:
+            raise ValueError(f"{name}: unsupported JPEG marker FF "
+                             f"{marker:02X} (libjpeg refuses it)")
+        if pos + 2 > len(data) or len(data) - pos < struct.unpack(
+                ">H", data[pos:pos + 2])[0]:
+            if scans and not multi:
+                break  # libjpeg's finish waits on it; Pillow has its rows
             raise ValueError(f"{name}: truncated JPEG data")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         seg = data[pos + 2:pos + length]
-        if length < 2 or len(seg) != length - 2:
+        if length < 2 and (0xE0 <= marker <= 0xEF or marker == 0xFE):
+            pos += 2  # an APPn or COM length under 2: no payload to skip
+            continue
+        if length < 2:
             raise ValueError(f"{name}: truncated JPEG data")
         pos += length
         if marker in SOF_UNSUPPORTED:
@@ -1198,20 +1333,35 @@ def _read_frame(data: bytes, name: str) -> tuple:
         elif marker == SOS:
             if frame is None:
                 raise ValueError(f"{name}: a scan before the frame header")
+            if scans and not multi:
+                raise ValueError(f"{name}: a second scan in a single-scan "
+                                 "JPEG (libjpeg: EOI expected)")
             pos = _read_scan(data, pos, seg, frame, huff, quant, cond,
                              restart, name, in_cxx)
+            if not scans:
+                # libjpeg's has_multiple_scans: it reads every scan, up to
+                # EOI, before any output, and Pillow finds the file
+                # truncated where EOI is missing
+                multi = frame["progressive"] or seg[0] < len(frame["comps"])
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{name}: no image data in the JPEG")
+    if frame["lossless"] and any(c.samples is None for c in frame["comps"]):
+        raise ValueError(f"{name}: a lossless JPEG ends before every "
+                         "component's scan (libjpeg-turbo refuses it)")
     return frame, jfif, adobe, transform
 
 
-def _check_progression(comps, ss, se, ah, al, name) -> None:
+def _check_progression(comps, ss, se, ah, al, scan: int, name) -> None:
     """``jdphuff.c::start_pass_phuff_decoder``'s checks: a DC scan has Se =
     0, an AC scan one component and Ss <= Se < 64, a refinement Al = Ah -
-    1, Al <= 13; these raise. Then each coefficient's history is set to Al;
-    a history that does not match Ah (``JWRN_BOGUS_PROGRESSION``) is a
-    warning there and changes nothing here."""
+    1, Al <= 13; these raise. Then the histories of coefficients min(Ss,
+    1)..max(Se, 9) are kept as they were before this scan (all 0 in the
+    file's first scan: libjpeg-turbo's ``prev_coef_bits``, which block
+    smoothing reads past a scan cut short), and each coefficient's history
+    in the band is set to Al; a history that does not match Ah
+    (``JWRN_BOGUS_PROGRESSION``) is a warning there and changes nothing
+    here."""
     if ss == 0:
         bad = se != 0
     else:
@@ -1220,6 +1370,9 @@ def _check_progression(comps, ss, se, ah, al, name) -> None:
         raise ValueError(f"{name}: bad progressive JPEG scan (Ss={ss}, "
                          f"Se={se}, Ah={ah}, Al={al})")
     for c in comps:
+        lo, hi = min(ss, 1), max(se, 9) + 1
+        c.prev_bits[lo:hi] = c.coef_bits[lo:hi] if scan > 1 else [0] * (
+            hi - lo)
         c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
 
 
@@ -1244,7 +1397,7 @@ def _read_lossless_scan(data, pos, comps, keys, frame, huff, restart, psv,
                          f"({mcus_row} MCUs)")
     tables = []
     for (key_dc, _), c in zip(keys, comps):
-        if key_dc not in huff:
+        if _table(huff, key_dc) is None:
             raise ValueError(f"{name}: a scan uses an undefined Huffman "
                              "table")
         if huff[key_dc].max_symbol > 16:
@@ -1258,12 +1411,13 @@ def _read_lossless_scan(data, pos, comps, keys, frame, huff, restart, psv,
     if in_cxx:
         from wgpu_path_tracing_tpu_torch.accel import native
 
-        native.jpeg_scan_native(segments, units, restart, n_mcus, 5, 0, 0, 0,
-                                name, unit=1)
+        skipped = native.jpeg_scan_native(segments, units, restart, n_mcus,
+                                          5, 0, 0, 0, unit=1)
     else:
-        decode_lossless_scan(segments, units, restart, n_mcus, name)
+        skipped = decode_lossless_scan(segments, units, restart, n_mcus, name)
     for c in comps:
-        first = lossless_first_rows(c, len(comps) > 1, restart, mcus_row)
+        first = lossless_first_rows(c, len(comps) > 1, restart, mcus_row,
+                                    skipped)
         diff = np.frombuffer(c.coef, np.int32).reshape(
             c.grid_h, c.grid_w)[:c.height, :c.width]
         if in_cxx:
@@ -1316,8 +1470,9 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
                 raise ValueError(f"{name}: a component uses an undefined "
                                  "quantization table")
             c.quant = quant[c.tq]  # latched, as libjpeg does
+    frame["scans"] += 1
     if progressive:
-        _check_progression(comps, ss, se, ah, al, name)
+        _check_progression(comps, ss, se, ah, al, frame["scans"], name)
     mode = 0 if not progressive else (
         (1 if ah == 0 else 2) if ss == 0 else (3 if ah == 0 else 4))
     if frame["arithmetic"]:
@@ -1330,15 +1485,15 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
                 jpeg_arith_scan_native)
 
             jpeg_arith_scan_native(segments, units, restart, n_mcus, mode,
-                                   ss, se, al, cond, name)
+                                   ss, se, al, cond)
         else:
             decode_arith_scan(segments, units, restart, n_mcus, mode, ss, se,
-                              al, cond, name)
+                              al, cond)
         return end
     dcs, acs = [], []
     for key_dc, key_ac in keys:
-        if (needs_dc and key_dc not in huff) or (needs_ac
-                                                 and key_ac not in huff):
+        if (needs_dc and _table(huff, key_dc) is None) or (
+                needs_ac and _table(huff, key_ac) is None):
             raise ValueError(f"{name}: a scan uses an undefined Huffman "
                              "table")
         if needs_dc and huff[key_dc].max_symbol > 15:
@@ -1352,13 +1507,17 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
     if in_cxx:
         from wgpu_path_tracing_tpu_torch.accel.native import jpeg_scan_native
 
-        jpeg_scan_native(segments, units, restart, n_mcus, mode, ss, se, al,
-                         name)
+        last_good = jpeg_scan_native(segments, units, restart, n_mcus, mode,
+                                     ss, se, al)
     elif progressive:
-        decode_progressive_scan(segments, units, restart, n_mcus, ss, se,
-                                ah, al, name)
+        last_good = decode_progressive_scan(segments, units, restart, n_mcus,
+                                            ss, se, ah, al, name)
     else:
-        decode_scan(segments, units, restart, n_mcus, name)
+        last_good = decode_scan(segments, units, restart, n_mcus)
+    # libjpeg's last_good_iMCU_row: an interleaved scan's MCU row is an
+    # iMCU row, a scan of one component has v block rows an iMCU row.
+    my = last_good // units[0][5]
+    frame["last_good"] = my if len(comps) > 1 else my // comps[0].v
     return end
 
 
@@ -1395,7 +1554,8 @@ def _estimate(num, q: int, al: int):
     return np.where(num >= 0, mag, -mag)
 
 
-def smooth_blocks(coef: np.ndarray, c, rows_total: int) -> np.ndarray:
+def smooth_blocks(coef: np.ndarray, c, rows_total: int,
+                  bits: list | None = None) -> np.ndarray:
     """``jdcoefct.c::decompress_smooth_data`` (libjpeg-turbo 2.1 and later)
     on component ``c``'s (grid_h, grid_w, 64) natural-order coefficients,
     int16 values: a copy whose real blocks have coefficients 1..9
@@ -1406,8 +1566,9 @@ def smooth_blocks(coef: np.ndarray, c, rows_total: int) -> np.ndarray:
     one repeat it; the rows above and below are picked as libjpeg picks
     them per iMCU row (``block_rows`` is the last iMCU row's real count
     there, so a row's second neighbour below can be a padding row of the
-    grid). ``rows_total``: the frame's iMCU rows."""
-    bits = c.coef_bits
+    grid). ``rows_total``: the frame's iMCU rows; ``bits``: the
+    coefficients' histories (``c.coef_bits`` where not given)."""
+    bits = c.coef_bits if bits is None else bits
     wib, hib, v = -(-c.width // 8), -(-c.height // 8), c.v
     q = [int(c.quant[0])] + [int(c.quant[p]) for p in SMOOTH_POS]
     dc = coef[..., 0].astype(np.int64)
@@ -1481,15 +1642,23 @@ def _component_plane(c, frame: dict, smooth: bool) -> np.ndarray:
     ``smooth``) through ``idct_islow``, cropped to its downsampled size. A
     component no scan named has no quantization table: libjpeg's IDCT then
     multiplies by zeros, a plane of 128. A lossless frame's samples come
-    undifferenced from its scans (0 where no scan named the component)."""
+    undifferenced from its scans (``_read_frame`` refuses a lossless frame
+    with a component no scan named)."""
     if frame["lossless"]:
-        if c.samples is None:
-            return np.zeros((c.height, c.width), np.uint8)
         return c.samples
     coef = np.frombuffer(c.coef, np.int32).astype(np.int16)  # JCOEF wraps
     coef = coef.reshape(c.grid_h, c.grid_w, 64)
     if smooth:
-        coef = smooth_blocks(coef, c, frame["mcus_y"])
+        rows, good = frame["mcus_y"], frame["last_good"]
+        out = smooth_blocks(coef, c, rows)
+        if good < rows - 1:
+            # jdcoefct.c: past the last scan's last good iMCU row the
+            # histories are those from before each component's last scan
+            # (all -1 where the file has one scan).
+            prev = c.prev_bits if frame["scans"] > 1 else [-1] * 64
+            past = (np.arange(c.grid_h) // c.v > good)[:, None, None]
+            out = np.where(past, smooth_blocks(coef, c, rows, prev), out)
+        coef = out
     quant = c.quant if c.quant is not None else np.zeros(64, np.int64)
     blocks = idct_islow(coef.reshape(-1, 64), quant)
     plane = blocks.reshape(c.grid_h, c.grid_w, 8, 8).transpose(

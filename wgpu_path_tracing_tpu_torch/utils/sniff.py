@@ -6,24 +6,22 @@ formats of ``Image.preinit`` (BMP and DIB, GIF, JPEG, PPM, PNG), then every
 other registered format in registration order. A plugin is tried when its
 ``_accept`` passes on the first 16 bytes, or always when it has none (IM,
 IMT, IPTC, PCD, SPIDER and TGA); an ``_open`` that raises ``SyntaxError``,
-``IndexError``, ``TypeError`` or ``struct.error`` passes the bytes on to
-the next plugin, any other error ends the search.
+``IndexError``, ``TypeError``, ``KeyError``, ``EOFError`` or
+``struct.error`` (``ImageFile`` turns the last five into
+``SyntaxError``), or leaves no mode or a size of no pixels, passes the
+bytes on to the next plugin; any other error ends the search.
 
 ``pillow_candidates`` lists, in that order, the formats Pillow would try
-on some bytes: every format whose test passes, TGA among them (it has no
-signature and is always tried), and the formats after TGA (WEBP first).
-The formats this package does not read are kept by their ``_accept`` test
-alone (or, for those without one, by a copy of the first checks of their
-``_open``), so the list is what Pillow might choose, never less:
+on some bytes: every format whose ``_accept`` passes and every format
+without one, so the list is what Pillow might choose, never less.
 ``utils/image.py::decode_image_rgba`` walks it, passing a format on only
 where that format's reader says Pillow's ``_open`` would (a RIFF header
 fails TGA's colour-map check, so a WebP file reaches WEBP), and stops at
-the first format it has no reader for.
+the first format it has no reader for (each of those has an ``_accept``).
 """
 
 from __future__ import annotations
 
-import re
 import struct
 
 
@@ -119,175 +117,15 @@ ACCEPT = {
 }
 
 
-def _pcx_takes(data: bytes) -> bool:
-    """PcxImageFile._open passes a bad box on (SyntaxError); with a good
-    one it opens the file or raises ``unknown PCX mode``."""
-    if len(data) < 12:
-        return False
-    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
-    return x1 + 1 > x0 and y1 + 1 > y0
-
-
-def _gbr_takes(data: bytes) -> bool:
-    """GbrImageFile._open: a header of at least 20 bytes, version 1 or 2
-    (2 with the "GIMP" magic at byte 20), a size and a depth of 1 or 4;
-    anything else passes the bytes on."""
-    if len(data) < 20:
-        return False
-    header, version, w, h, depth = struct.unpack_from(">5I", data)
-    if header < 20 or version not in (1, 2) or w == 0 or h == 0 \
-            or depth not in (1, 4):
-        return False
-    return version == 1 or (len(data) >= 28 and data[20:24] == b"GIMP")
-
-
-_IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = {"Comment", "Date", "Digitalization equipment",
-            "File size (no of images)", "Lut", "Name", "Scale (x,y)",
-            "Image size (x*y)", "Image type"}
-
-
-def _im_takes(data: bytes) -> bool:
-    """ImImageFile._open's header loop: lines of ``key: value`` up to a
-    NUL, ^Z or the end, at least one of them a known tag; any other line
-    passes the bytes on."""
-    if b"\n" not in data[:100]:
-        return False
-    pos, n = 0, 0
-    while pos < len(data):
-        c = data[pos:pos + 1]
-        pos += 1
-        if c == b"\r":
-            continue
-        if c in (b"\0", b"\x1a"):
-            break
-        end = data.find(b"\n", pos)
-        end = len(data) if end < 0 else end + 1
-        s, pos = c + data[pos:end], end
-        if len(s) > 100:
-            return False
-        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
-        m = _IM_SPLIT.match(s)
-        if not m:
-            return False
-        if m.group(1).decode("latin-1") in _IM_TAGS:
-            n += 1
-    return n > 0
-
-
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-
-
-def _imt_takes(data: bytes) -> bool:
-    """ImtImageFile._open: ``width``, ``height`` and ``pixel n8`` lines
-    before the first line it cannot read; a number it cannot read raises
-    (which also ends Pillow's search)."""
-    if b"\n" not in data[:100]:
-        return False
-    lines = data.split(b"\n")
-    w = h = 0
-    mode = False
-    for line in lines:
-        if line[:1] in (b"", b"\x0c"):
-            break
-        if len(line) > 100:
-            break
-        if line[:1] == b"*":
-            continue
-        m = _IMT_FIELD.match(line)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        try:
-            if k == b"width":
-                w = int(v)
-            elif k == b"height":
-                h = int(v)
-        except ValueError:
-            return True
-        if k == b"pixel" and v == b"n8":
-            mode = True
-    return mode and w > 0 and h > 0
-
-
-def _iptc_takes(data: bytes) -> bool:
-    """IptcImageFile._open's field walk: the bytes go on to the next
-    plugin only when a field header is malformed (or cut short)."""
-    pos = 0
-    while True:
-        s = data[pos:pos + 5]
-        pos += 5
-        if not s.strip(b"\x00"):
-            return True  # Pillow then opens the fields or raises
-        if len(s) < 5:
-            return False
-        if s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            return False
-        if (s[1], s[2]) == (8, 10):
-            return True
-        size = s[3]
-        if size > 132:
-            return True  # an OSError, which ends the search
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = int.from_bytes(data[pos:pos + size - 128].rjust(4, b"\0")[-4:],
-                                  "big")
-            pos += s[3] - 128
-        else:
-            size = struct.unpack_from(">H", s, 3)[0]
-        pos += size
-
-
-def _spider_header(t) -> int:
-    """SpiderImagePlugin.isSpiderHeader."""
-    h = (99,) + tuple(t)
-
-    def is_int(f) -> bool:
-        try:
-            return f - int(f) == 0
-        except (ValueError, OverflowError):
-            return False
-
-    if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-        return 0
-    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-        return 0
-    if int(h[22]) != int(h[13]) * int(h[23]):
-        return 0
-    return int(h[22])
-
-
-def _spider_takes(data: bytes) -> bool:
-    if len(data) < 108:
-        return False
-    for order in ">", "<":
-        t = struct.unpack_from(order + "27f", data)
-        if _spider_header(t):
-            return int(t[4]) == 1
-    return False
-
-
-# Formats without _accept (or whose _open is copied to decide), each a test
-# of whether Pillow's _open might take the bytes or end the search there.
-TAKES = {
-    "PCX": lambda d: ACCEPT["PCX"](d[:16]) and _pcx_takes(d),
-    "GBR": lambda d: ACCEPT["GBR"](d[:16]) and _gbr_takes(d),
-    "IM": _im_takes,
-    "IMT": _imt_takes,
-    "IPTC": _iptc_takes,
-    "PCD": lambda d: d[2048:2055] == b"PCD_IPI",
-    "SPIDER": _spider_takes,
-}
+# Formats without _accept: Pillow tries each on any bytes, and its reader
+# passes them on (NotThisFormat) where its _open would.
+ALWAYS = frozenset({"IM", "IMT", "IPTC", "PCD", "SPIDER", "TGA"})
 
 
 def pillow_candidates(data: bytes):
     """The formats Pillow would try on ``data``, in its order: each whose
-    test passes, TGA always (it takes any bytes its header checks pass),
-    then each after TGA whose ``_accept`` passes."""
+    ``_accept`` passes on the first 16 bytes, and each that has none."""
     prefix = data[:16]
     for fmt in ORDER:
-        test = TAKES.get(fmt)
-        if fmt == "TGA" or (test(data) if test is not None
-                            else ACCEPT[fmt](prefix)):
+        if fmt in ALWAYS or ACCEPT[fmt](prefix):
             yield fmt

@@ -642,16 +642,12 @@ def _jpeg(data, tags, w, h, spp, photo, planar, name):
         if src[:2] != b"\xff\xd8":
             raise ValueError(f"{name}: JPEG strip or tile {i} does not start "
                              "with SOI")
-        try:
-            frame, vals = decode_jpeg_samples(src[:2] + seen + src[2:], name,
-                                              ycbcr=photo == 6)
-        except ValueError as exc:
-            if "truncated JPEG data" not in str(exc):
-                raise
-            # libtiff ends a short stream with a fake EOI, and libjpeg
-            # decodes the rest as zeros: read by Pillow, not by the port.
-            raise NotImplementedError(f"{exc}, which libtiff ends with a "
-                                      "fake EOI") from None
+        # libtiff hands libjpeg a fake EOI where the strip's bytes end
+        # (std_fill_input_buffer); libjpeg reads what is cut short as it
+        # reads any JPEG cut at a marker.
+        frame, vals = decode_jpeg_samples(src[:2] + seen + src[2:]
+                                          + b"\xff\xd9", name,
+                                          ycbcr=photo == 6)
         comps = frame["comps"]
         if len(comps) != spp:
             raise ValueError(f"{name}: improper JPEG component count")
@@ -847,8 +843,10 @@ def _raw(data, tags, order, w, h, spp, bits, planar, mode, rawmode, name):
                              f"plane of raw mode {rawmode!r}")
         rawmode = {"1": "1", "L": "L", "P": "P"}.get(mode, mode)
     # What no strip covers stays 0 in Pillow's image: a sample that an
-    # inverting raw mode turns into 0.
+    # inverting raw mode turns into 0; in "LAB", whose zero bytes no file
+    # sample unpacks to (its fourth byte is 255), LAB_UNWRITTEN.
     out = np.full((h, w, per if planar != 2 else spp),
+                  LAB_UNWRITTEN if rawmode == "LAB" else
                   (1 << bits) - 1 if rawmode in INVERTED else 0,
                   np.uint32 if bits == 32 else np.uint16)
     for off, x, y, layer in sorted(tiles, key=lambda t: t[0]):
@@ -878,6 +876,10 @@ def _raw(data, tags, order, w, h, spp, bits, planar, mode, rawmode, name):
     return out, (8 if planar == 2 and bits != 1 else bits), rawmode
 
 
+# A "LAB" pixel no strip wrote: Pillow's zero bytes (L* 0, a* and b*
+# -128, the fourth byte 0), which convert to black-blue with alpha 0.
+LAB_UNWRITTEN = 256
+
 TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
              4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
              6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
@@ -890,6 +892,7 @@ def _to_rgba(mode: str, raw: str, s: np.ndarray, bits: int,
     """Samples read under Pillow's raw mode ``raw`` -> RGBA as
     ``convert("RGBA")`` gives it."""
     from wgpu_path_tracing_tpu_torch.utils.jpeg import pillow_cmyk_to_rgb
+    from wgpu_path_tracing_tpu_torch.utils.pilmodes import gray8
 
     h, w = s.shape[:2]
     out = np.full((h, w, 4), 255, np.uint8)
@@ -901,22 +904,24 @@ def _to_rgba(mode: str, raw: str, s: np.ndarray, bits: int,
         out[..., :3] = (v * (255 // top))[..., None]
         return out
     if mode == "F":  # Pillow's F -> L: clipped, then truncated; NaN 0
-        f = s[..., 0].astype(np.uint32).view(np.float32)
-        with np.errstate(invalid="ignore"):
-            g = np.where(np.isnan(f), 0, np.clip(f, 0, 255)).astype(np.uint8)
-        out[..., :3] = g[..., None]
+        out[..., :3] = gray8(s[..., 0].astype(np.uint32).view(np.float32))[
+            ..., None]
         return out
     if mode in ("I;16", "I;16B", "I"):
         if raw in ("I;16S", "I;16BS"):
             v = np.where(v >= 32768, v - 65536, v)
         elif bits == 32:  # Pillow's "I" holds int32
-            v = s[..., 0].astype(np.uint32).view(np.int32).astype(np.int64)
-        out[..., :3] = np.clip(v, 0, 255)[..., None]
+            v = s[..., 0].astype(np.uint32).view(np.int32)
+        out[..., :3] = gray8(v)[..., None]
         return out
     if mode == "LAB":
         from wgpu_path_tracing_tpu_torch.utils.lab import lab_to_rgb
 
-        out[..., :3] = lab_to_rgb(s[..., :3].astype(np.uint8))
+        unwritten = s[..., 0] == LAB_UNWRITTEN
+        lab = np.where(unwritten[..., None], np.array([0, 128, 128]),
+                       s[..., :3])
+        out[..., :3] = lab_to_rgb(lab.astype(np.uint8))
+        out[..., 3] = np.where(unwritten, 0, 255)
         return out
     if mode in ("P", "PA"):
         n = len(cmap) // 3

@@ -29,18 +29,17 @@ This module reads what that reads, to the same bytes:
   computes), and both loop filters in its order; then libwebp's "fancy"
   chroma upsampling and fixed-point YUV->RGB (``yuv_to_rgb_plain``);
 * ``ALPH``: raw or VP8L-compressed (green only, no header), with the
-  horizontal, vertical and gradient unfilters (``unfilter_plain``).
+  horizontal, vertical and gradient unfilters (``unfilter_plain``); a
+  compressed stream that takes libwebp's 8-bit alpha path may read past
+  its end with its last pixels, as libwebp lets it.
 
 The sequential loops have C++ twins in ``accel/cbvh/webp_scan.cpp``, which
 ``decode_webp_rgba`` takes wherever ``accel.native.native_available()``:
 ``vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and ``unfilter_plain``
 here are their plain versions, the same numbers. What libwebp refuses (or
-``WebPDemux`` rejects) raises ``ValueError`` naming the image, and so do a
-few files libwebp would read that this module does not: a ``VP8X`` chunk
-of more than 10 bytes (``WebPGetFeatures`` then fails and Pillow's mode
-falls back to "RGBA"), and a compressed alpha stream that reads past its
-end, which libwebp's 8-bit alpha path lets through when the overrun comes
-with the last pixels.
+``WebPDemux`` rejects) raises ``ValueError`` naming the image; so does a
+``VP8X`` chunk of any other size than 10 bytes, which Pillow 12.1.0 fails
+to make a decoder for ("could not create decoder object").
 """
 
 from __future__ import annotations
@@ -215,9 +214,15 @@ def _plane_distance(xsize: int, code: int) -> int:
     return dist if dist >= 1 else 1
 
 
-def _decode_stream(br: _LBits, xsize: int, ysize: int, level0: bool):
+def _decode_stream(br: _LBits, xsize: int, ysize: int, level0: bool,
+                   alpha: bool = False):
     """``DecodeImageStream``: (ARGB pixels as a flat list, transforms),
-    the transforms (level 0 only) in the order read."""
+    the transforms (level 0 only) in the order read. An ``ALPH`` stream
+    (``alpha``) of one colour-indexing transform, no colour cache and
+    one-symbol red, blue and alpha codes is decoded as libwebp's 8-bit
+    alpha path decodes it (``DecodeAlphaData``): the end of the stream is
+    checked after each symbol and is an error only where pixels are
+    left, so an overrun that comes with the last pixels reads."""
     transforms = []
     seen = 0
     if level0:
@@ -262,17 +267,23 @@ def _decode_stream(br: _LBits, xsize: int, ysize: int, level0: bool):
                  NUM_DISTANCE)
     groups = [tuple(_read_code(br, a) for a in alphabets)
               for _ in range(groups_n)]
+    eight = (alpha and level0 and [t[0] for t in transforms] == [3]
+             and not cache_bits
+             and all(g[1][1] == g[2][1] == g[3][1] == 0 for g in groups))
     pixels = _decode_pixels(br, xsize, ysize, groups, hbits, himage, hxsize,
-                            cache_bits)
-    if br.over():
+                            cache_bits, eight)
+    if br.over() and not eight:
         raise _Bad(2)
     return pixels, transforms
 
 
 def _decode_pixels(br, xsize, ysize, groups, hbits, himage, hxsize,
-                   cache_bits) -> list:
+                   cache_bits, eight: bool = False) -> list:
     """``DecodeImageData``: literals, backward references and colour cache
-    hits into ``xsize * ysize`` ARGB values."""
+    hits into ``xsize * ysize`` ARGB values (``eight``: ``DecodeAlphaData``,
+    ``_decode_alpha8``)."""
+    if eight:
+        return _decode_alpha8(br, xsize, ysize, groups, hbits, himage, hxsize)
     total = xsize * ysize
     out = [0] * total
     cache = [0] * (1 << cache_bits) if cache_bits else None
@@ -313,6 +324,97 @@ def _decode_pixels(br, xsize, ysize, groups, hbits, himage, hxsize,
         while x >= xsize:
             x -= xsize
             y += 1
+    return out
+
+
+class _TailBits(_LBits):
+    """libwebp's ``VP8LBitReader`` as it reads past its data: its 64-bit
+    window holds the last bytes (``base`` is the window's first bit), a
+    read at 64 bits or more into the window wraps (``val_ >> (bit_pos_ &
+    63)``, the second table level of a long code apart), and once a byte shift finds the stream over (``ShiftBytes``,
+    in ``VP8LReadBits`` and ``VP8LFillBitWindow``) it sets ``eos`` and
+    reads again from the window's start; ``VP8LReadBits`` then gives 0.
+    Before the window holds the last bytes, its reads are ``_LBits``'s."""
+
+    def __init__(self, br: _LBits):
+        super().__init__(br.data, br.pos)
+        self.base = self.limit - 64
+        self.eos = False
+
+    def _at(self, ahead: int = 0) -> int:
+        p = self.pos + ahead - self.base
+        return self.pos + ahead if p < 64 else self.base + (p & 63)
+
+    def _peek(self, q: int) -> int:
+        return int.from_bytes(self.data[q >> 3:(q >> 3) + 4], "little") >> (
+            q & 7)
+
+    def shift(self) -> None:
+        if self.pos > self.limit:
+            self.eos = True
+            self.pos = self.base
+
+    def read(self, n: int) -> int:
+        if self.eos:
+            self.pos = self.base
+            return 0
+        v = self._peek(self._at())
+        self.pos += n
+        self.shift()
+        return v & ((1 << n) - 1)
+
+    def sym(self, code) -> int:
+        table, bits = code
+        if bits == 0:
+            return table
+        # ReadSymbol's two table levels: 8 bits, then the rest 8 bits on,
+        # each prefetched (and wrapped) on its own
+        v = (self._peek(self._at()) & 0xFF) | (self._peek(self._at(8)) << 8)
+        e = table[v & ((1 << bits) - 1)]
+        self.pos += e & 15
+        return e >> 4
+
+
+def _decode_alpha8(br, xsize, ysize, groups, hbits, himage, hxsize) -> list:
+    """``DecodeAlphaData``, libwebp's 8-bit path for an ``ALPH`` stream: the
+    green symbols and backward references read through ``_TailBits``, the
+    end of the stream checked after each symbol (the loop stops there),
+    an error only where pixels are left."""
+    total = xsize * ysize
+    out = [0] * total
+    tb = _TailBits(br)
+    pos = x = y = 0
+    group = groups[0]
+    while pos < total and not tb.eos:
+        tb.shift()  # VP8LFillBitWindow
+        if himage is not None:
+            group = groups[himage[(y >> hbits) * hxsize + (x >> hbits)]]
+        code = tb.sym(group[0])
+        if code < NUM_LITERAL:
+            out[pos] = ((group[3][0] << 24) | (group[1][0] << 16)
+                        | (code << 8) | group[2][0])
+            pos += 1
+            x += 1
+        elif code < NUM_LITERAL + NUM_LENGTH:
+            length = _copy_value(code - NUM_LITERAL, tb)
+            dsym = tb.sym(group[4])
+            tb.shift()
+            dist = _plane_distance(xsize, _copy_value(dsym, tb))
+            if dist > pos or total - pos < length:
+                raise _Bad(1)
+            for i in range(pos, pos + length):
+                out[i] = out[i - dist]
+            pos += length
+            x += length
+        else:
+            raise _Bad(1)
+        while x >= xsize:
+            x -= xsize
+            y += 1
+        tb.eos = tb.eos or tb.over()
+    if tb.eos and pos < total:
+        raise _Bad(2)
+    br.pos = tb.pos
     return out
 
 
@@ -436,15 +538,15 @@ def _inverse_transforms(pix: list, transforms: list,
     return np.asarray(cur, np.uint32).reshape(height, -1)
 
 
-def vp8l_plain(data: bytes, pos: int, width: int, height: int
-               ) -> tuple[np.ndarray, int]:
+def vp8l_plain(data: bytes, pos: int, width: int, height: int,
+               alpha: bool = False) -> tuple[np.ndarray, int]:
     """A VP8L image stream from bit ``pos`` of ``data`` (after the 5-byte
     header of a ``VP8L`` chunk, or the whole of a compressed ``ALPH``
-    payload) -> ((height, width) uint32 ARGB, status): 0, or a key of
-    STATUS. The plain version of ``webp_scan.cpp``'s ``wpt_vp8l``."""
+    payload, ``alpha``) -> ((height, width) uint32 ARGB, status): 0, or a
+    key of STATUS. The plain version of ``webp_scan.cpp``'s ``wpt_vp8l``."""
     br = _LBits(data, pos)
     try:
-        pix, transforms = _decode_stream(br, width, height, True)
+        pix, transforms = _decode_stream(br, width, height, True, alpha)
         return _inverse_transforms(pix, transforms, height), 0
     except _Bad as bad:
         return np.zeros((height, width), np.uint32), bad.status
@@ -1333,12 +1435,13 @@ def unfilter_plain(rows: np.ndarray, method: int) -> np.ndarray:
 # --- the native twins -------------------------------------------------------
 
 
-def _vp8l(data: bytes, pos: int, width: int, height: int):
+def _vp8l(data: bytes, pos: int, width: int, height: int,
+          alpha: bool = False):
     from wgpu_path_tracing_tpu_torch.accel import native
 
     if native.native_available():
-        return native.vp8l_native(data, pos, width, height)
-    return vp8l_plain(data, pos, width, height)
+        return native.vp8l_native(data, pos, width, height, alpha)
+    return vp8l_plain(data, pos, width, height, alpha)
 
 
 def _vp8(data: bytes, width: int, height: int):
@@ -1422,7 +1525,7 @@ def decode_alpha(alph: bytes, width: int, height: int, name: str
         rows = np.frombuffer(body, np.uint8, width * height).reshape(
             height, width)
     else:
-        argb, status = _vp8l(body, 0, width, height)
+        argb, status = _vp8l(body, 0, width, height, alpha=True)
         if status:
             raise ValueError(f"{name}: alpha: {STATUS[status]}")
         rows = ((argb >> 8) & 0xFF).astype(np.uint8).reshape(height, width)
@@ -1529,7 +1632,7 @@ def parse_container(data: bytes) -> dict:
         flags = ALPHA_FLAG if frame["has_alpha"] else 0
         return {"canvas": canvas, "flags": flags, "frames": frames,
                 "extended": False}
-    # VP8X
+    # VP8X: Pillow's decoder refuses any other size than 10
     vsize = struct.unpack_from("<I", buf, 16)[0]
     if vsize != 10 or end - 20 < 10:
         raise ValueError("bad VP8X chunk")
