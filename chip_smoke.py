@@ -178,7 +178,13 @@ and runs these phases, one line of output each:
    decode, both ways at ``SCI_RARE_PYTHON_SIZE``, the Photo CD
    files to Pillow's SHA-256, and the same box with IM, FITS, FLC and
    GIMP-brush sidecar textures (``SCI_RARE_TEXTURES``) against its plain
-   path;
+   path; then the JPEG 2000 reader: the committed 4096x2048 irreversible
+   JP2 and reversible J2K maps decoded with the C++ code-block decoder
+   within 5 s to the SHA-256 of Pillow's decode, both ways on the
+   committed pair at ``JPEG2000_PYTHON_SIZE``, and the same box with a
+   reversible RGBA JP2, a tiled multi-layer irreversible J2K, a 12-bit
+   gray J2K and a palette JP2 as its sidecar textures
+   (``JPEG2000_TEXTURES``) against its plain path;
 13. environment map (``env``): K2's ENV instantiation against its plain
    version at bounces 0..2 on ``material_test_box()`` (open: many rays
    miss), ``textured_cornell()`` and ``textured_material_box()`` each
@@ -195,7 +201,8 @@ and runs these phases, one line of output each:
    progressive JPEG map, Huffman- and arithmetic-coded, an RLE 32-bit TGA
    map, a 16-bit RGB TIFF map, a lossy WebP map, a GIF map, a JPEG-in-TIFF
    YCbCr map, a float TIFF map, a BC1 DDS map, an RLE SGI map, an RLE Sun
-   raster map, a DXT1 BLP2 map, a float FITS map and a SPIDER map
+   raster map, a DXT1 BLP2 map, a float FITS map, a SPIDER map, an
+   irreversible JP2 map and a reversible RPCL J2K map
    (``RenderConfig.env_map``): its launches
    (K1, K2, K2's ENV instantiation) and its image against the plain
    path's;
@@ -2809,6 +2816,18 @@ SCI_RARE_TEXTURES = ("pillow_YCbCr.im", "gzip_bitpix16.fits", "brun_lc.flc",
                      "v2_rgba.gbr")
 SCI_RARE_ENV_MAPS = (("env_float.fits", "env_fits"), ("env.spi",
                                                       "env_spider"))
+# The JPEG 2000-textured box: the same scene with a reversible RGBA JP2, an
+# irreversible J2K of offset tiles and three layers, a 12-bit gray J2K and a
+# JP2 of indices under a pclr palette as its four sidecar textures; and the
+# env box under an irreversible JP2 map and a reversible RPCL J2K map.
+JPEG2000_TEXTURES = ("j2k_rgba_rev.jp2", "j2k_rgb_irr_tiles_layers.j2k",
+                     "j2k_gray12.j2k", "j2k_pclr_cmap.jp2")
+JPEG2000_ENV_MAPS = (("env.jp2", "env_jp2"), ("env_rpcl.j2k", "env_j2k_rpcl"))
+# Their decode timings: the committed 4096x2048 irreversible JP2 and
+# reversible J2K maps (no encoder on this host) in C++, and the committed
+# pair at JPEG2000_PYTHON_SIZE both ways, each to the SHA-256 of Pillow's
+# decode (tests/ldr/pillow_sha256.json).
+JPEG2000_PYTHON_SIZE = (512, 256)
 # Their decode timings: a 4096x2048 FLC (BRUN) and IM "L*12" image (the
 # bit decoder), their Pillow decodes' SHA-256 in
 # tests/ldr/pillow_sha256.json, both ways at that size and at
@@ -3502,6 +3521,26 @@ def sci_rare_files(m, digests: dict, size: tuple, python_size: tuple
                     for k, name in enumerate(m.PCD_FILES)]
 
 
+def jpeg2000_files(m, digests: dict, size: tuple, python_size: tuple
+                   ) -> list:
+    """The JPEG 2000 reader's timed files, committed under ``tests/ldr``:
+    the irreversible JP2 and reversible J2K maps of ``size`` in C++ (the
+    plain tier-1 loop takes minutes there), the same pair at
+    ``python_size`` both ways, each against the SHA-256 of Pillow's
+    decode."""
+    names = {m.LARGE_J2K_IRR: False, m.LARGE_J2K_REV: False,
+             m.MEDIUM_J2K_IRR: True, m.MEDIUM_J2K_REV: True}
+    for name, python in names.items():
+        want = "x".join(map(str, python_size if python else size))
+        if want not in name:
+            raise AssertionError(f"{name} is not of size {want}")
+    out = []
+    for name, python in names.items():
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            out.append((name, f.read(), digests[name], python))
+    return out
+
+
 # The reader slices timed and rendered after the TIFF variants, by their
 # report key: (their timed files' maker, the plain decodes' size, the
 # box's sidecar textures, its path's name).
@@ -3512,6 +3551,8 @@ FORMAT_SCENES = {
                "gltf_legacy"),
     "sci_rare": (sci_rare_files, SCI_RARE_PYTHON_SIZE, SCI_RARE_TEXTURES,
                  "gltf_sci_rare"),
+    "jpeg2000": (jpeg2000_files, JPEG2000_PYTHON_SIZE, JPEG2000_TEXTURES,
+                 "gltf_jpeg2000"),
 }
 
 
@@ -3721,7 +3762,8 @@ def phase_env(dev, smi, report, profile: str | None):
                                                "env_jpeg_arith")
     for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
                             + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS
-                            + LEGACY_ENV_MAPS + SCI_RARE_ENV_MAPS):
+                            + LEGACY_ENV_MAPS + SCI_RARE_ENV_MAPS
+                            + JPEG2000_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

@@ -1698,6 +1698,81 @@ def test_large_sci_rare_files_decode_to_pillows_digests_here(dev):
         assert hashlib.sha256(rgba.tobytes()).hexdigest() == digests[name], name
 
 
+def test_renderer_jpeg2000_textured_scene_equals_plain_path(
+        dev, tmp_path, monkeypatch):
+    """``chip_smoke.py``'s JPEG 2000 box (a reversible RGBA JP2, a tiled
+    irreversible J2K, a 12-bit gray J2K and a palette JP2 as sidecar
+    textures) through ``load_model`` and the CUDA bounce: the C++
+    code-block decoder taken for each texture, the walk and K2 in the
+    scene's texture mode, equal to its plain path on every pixel."""
+    from chip_smoke import JPEG2000_TEXTURES, ldr_cases, with_sidecar_images
+    from wgpu_path_tracing_tpu_torch.accel import native
+
+    assert native.native_available()
+    calls = {}
+    real = native.j2k_t1_native
+
+    def counted(*args):
+        calls["j2k_t1_native"] = calls.get("j2k_t1_native", 0) + 1
+        return real(*args)
+
+    monkeypatch.setattr(native, "j2k_t1_native", counted)
+    files = {name: data for name, data, _ in ldr_cases()}
+    for name in JPEG2000_TEXTURES:
+        (tmp_path / name).write_bytes(files[name])
+    path = tmp_path / "jpeg2000_textured.gltf"
+    path.write_text(with_sidecar_images(
+        scene_to_glb(textured_cornell(tessellation=12)),
+        list(JPEG2000_TEXTURES)))
+    r = Renderer(RenderConfig(width=W, height=H), device="cuda")
+    r.load_model(str(path))
+    assert calls.get("j2k_t1_native", 0) >= len(JPEG2000_TEXTURES), calls
+    mode = r.stats()["texture"]
+    assert r.stats()["intersector"] == "walk" and mode in ("fat", "per_slot")
+    before = (K3.Counter.launches, K2.Counter.by_mode[mode])
+    kernel = r.render(spp=1)
+    assert (K3.Counter.launches, K2.Counter.by_mode[mode]) == (
+        before[0] + 2 * r.config.max_bounces,
+        before[1] + r.config.max_bounces)
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=1).view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["env.jp2", "env_rpcl.j2k"])
+def test_renderer_jpeg2000_env_map_equals_plain_path(dev, name):
+    """The material box under ``chip_smoke.py``'s irreversible JP2 map and
+    reversible RPCL J2K map: K2's ENV instantiation at every bounce, the
+    image equal to the plain path's."""
+    from chip_smoke import LDR_DIR
+
+    r = Renderer(RenderConfig(width=W, height=H,
+                              env_map=f"{LDR_DIR}/{name}", env_intensity=1.5),
+                 device="cuda")
+    r.load_scene(material_test_box())
+    before = K2.Counter.env
+    kernel = r.render(spp=2)
+    assert K2.Counter.env == before + 2 * r.config.max_bounces
+    np.testing.assert_array_equal(kernel.view(np.uint32),
+                                  plain_render(r, spp=2).view(np.uint32))
+
+
+def test_large_jpeg2000_files_decode_to_pillows_digests_here(dev):
+    """The committed 4096x2048 JP2 and J2K maps decode on the card's host
+    to the SHA-256 of Pillow's decode with the C++ code-block decoder."""
+    import hashlib
+    import json
+
+    from chip_smoke import LDR_DIR, decode_both, image_cases
+
+    cases = image_cases()
+    with open(f"{LDR_DIR}/pillow_sha256.json") as f:
+        digests = json.load(f)
+    for name in (cases.LARGE_J2K_IRR, cases.LARGE_J2K_REV):
+        with open(f"{LDR_DIR}/{name}", "rb") as f:
+            ((rgba, _),) = decode_both(f.read(), name, python=False)
+        assert hashlib.sha256(rgba.tobytes()).hexdigest() == digests[name], name
+
+
 def test_committed_ldr_files_decode_to_their_pillow_arrays_here(dev):
     """The files under ``tests/ldr`` decode on the card's host (no Pillow)
     to ``pillow_rgba.npz``, with the C++ loops and with the Python ones."""

@@ -17,7 +17,7 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from PIL import Image, features
+from PIL import Image
 
 from wgpu_path_tracing_tpu.models import gltf as JG
 from wgpu_path_tracing_tpu.ops import env as JENV
@@ -133,19 +133,36 @@ def test_written_variants_equal_pillow(case):
     C.assert_like_pillow(VARIANTS[case]())
 
 
-def j2k() -> bytes:
-    if features.check_codec("jpg_2000"):
-        return C.pillow_bytes(C.sample_image(16, 16, 14, 3), "JPEG2000")
-    return b"\xff\x4f\xff\x51" + bytes(60)
+def j2k(kind: str) -> bytes:
+    """A 16 x 16 JPEG 2000 entry written by Pillow: a J2K codestream or a
+    JP2 file, in RGB, RGBA or L, or 24 x 16 (no allowed size)."""
+    size = (24, 16) if kind == "wrong_size" else (16, 16)
+    img = Image.fromarray(C.sample_image(*size, 14, 4))
+    mode = {"rgba_jp2": "RGBA", "gray_j2k": "L"}.get(kind, "RGB")
+    return C.pillow_bytes(img.convert(mode), "JPEG2000",
+                          no_jp2=kind.endswith("j2k"),
+                          irreversible=kind == "rgb_j2k_irreversible")
 
 
-def test_jpeg2000_entry_raises_not_implemented():
-    """A JPEG 2000 entry (Pillow decodes it with OpenJPEG; this package
-    reads no JPEG 2000: ROADMAP.md C.13) raises ``NotImplementedError``
-    naming the file."""
-    data = C.write_icns([(b"icp4", j2k())])
-    C.assert_refused(data, "j.icns", exc=NotImplementedError,
-                     match="a JPEG 2000 ICNS entry")
+@pytest.mark.parametrize("kind", ["rgb_j2k", "rgb_jp2", "rgba_jp2",
+                                  "gray_j2k", "rgb_j2k_irreversible"])
+def test_jpeg2000_entry_equals_pillow(kind):
+    """A JPEG 2000 entry (J2K or JP2) reads as Pillow reads it through
+    OpenJPEG: opened on its own bytes, converted to RGBA."""
+    C.assert_like_pillow(C.write_icns([(b"icp4", j2k(kind))]), "j.icns")
+
+
+@pytest.mark.parametrize("case", ["wrong_size", "cut", "bad_signature"])
+def test_jpeg2000_entry_refused_as_pillow(case):
+    """Pillow refuses a JPEG 2000 entry of no allowed size, one cut short
+    (OpenJPEG's broken stream) and one whose header is not JPEG 2000 (a
+    ``SyntaxError`` outside ``Image.open``); so does the port."""
+    entry = {"wrong_size": lambda: j2k("wrong_size"),
+             "cut": lambda: j2k("rgb_jp2")[:300],
+             "bad_signature": lambda: b"\x0d\x0a\x87\x0a" + bytes(40)}[case]()
+    data = C.write_icns([(b"icp4", entry)])
+    assert C.pillow_refuses(data)
+    C.assert_refused(data, "j.icns", exc=ValueError)
 
 
 REFUSED = {

@@ -261,8 +261,10 @@ def test_sniffing_follows_pillows_order():
     is PCX's, an unknown PCX mode to Pillow, which raises, and the port
     raises so. A GIF and a WebP (tried after TGA, whose header checks a
     RIFF file fails) read as Pillow reads them, and so does an XPM (tried
-    after TGA, which passes its header on); a format still not read
-    (JPEG 2000) raises naming it; bytes no format takes raise."""
+    after TGA, which passes its header on); a JPEG 2000 codestream whose
+    SIZ names no components is passed on by Pillow's ``_open`` and by the
+    port, to no format; a format still not read (AVIF) raises naming it;
+    bytes no format takes raise."""
     px = C.sample_image(6, 4, 2, 3)
     data = C.write_tga(px[..., ::-1], 2, 24)
     assert data[:4] == b"\0\0\2\0"
@@ -286,8 +288,12 @@ def test_sniffing_follows_pillows_order():
                                                  "XPM"]
     C.assert_like_pillow(xpm)
     jp2 = b"\xff\x4f\xff\x51" + bytes(40)
+    assert C.pillow_refuses(jp2)
     C.assert_refused(jp2, "x.jp2", ValueError,
-                     "Pillow would open this file as JPEG2000")
+                     "not an image Pillow can identify")
+    avif = b"\0\0\0\x1cftypavif" + bytes(40)
+    C.assert_refused(avif, "x.avif", ValueError,
+                     "Pillow would open this file as AVIF")
     assert C.pillow_refuses(b"\xff" * 40)
     C.assert_refused(b"\xff" * 40, "n.bin", ValueError,
                      "not an image Pillow can identify")

@@ -1706,6 +1706,7 @@ def fixtures() -> dict:
     out.update(new_format_fixtures())
     out.update(legacy_fixtures())
     out.update(sci_rare_fixtures())
+    out.update(jpeg2000_fixtures())
     return out
 
 
@@ -2948,6 +2949,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env_dxt1.blp"] = env_blp_dxt1(64, 32, 31)
     files["env_float.fits"] = env_fits(64, 32, 32)
     files["env.spi"] = env_spider(64, 32, 33)
+    files["env.jp2"] = env_jp2(64, 32, 34)
+    files["env_rpcl.j2k"] = env_j2k_rpcl(64, 32, 35)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -2958,7 +2961,15 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
                for n, a in sorted(decoded.items())}
     for name, make in ((LARGE_WEBP, lambda: large_webp(4096, 2048)),
                        (MEDIUM_WEBP, lambda: large_webp(1024, 512)),
-                       (LARGE_TIFF_JPEG, large_tiff_jpeg)):
+                       (LARGE_TIFF_JPEG, large_tiff_jpeg),
+                       (LARGE_J2K_IRR, lambda: j2k_timing_file(4096, 2048,
+                                                               True)),
+                       (LARGE_J2K_REV, lambda: j2k_timing_file(4096, 2048,
+                                                               False)),
+                       (MEDIUM_J2K_IRR, lambda: j2k_timing_file(512, 256,
+                                                                True)),
+                       (MEDIUM_J2K_REV, lambda: j2k_timing_file(512, 256,
+                                                                False))):
         data = make()
         with open(os.path.join(directory, name), "wb") as f:
             f.write(data)
@@ -3482,3 +3493,96 @@ def env_spider(w: int, h: int, seed: int) -> bytes:
 
 if __name__ == "__main__":
     write_fixtures()
+
+
+# --- JPEG 2000 -------------------------------------------------------------------
+
+# The timing files (committed: no encoder on the card's host): 4096x2048
+# maps of smooth_rgba's RGB, irreversible at 60:1 in one layer and
+# reversible, and the same pair at the plain decoder's size.
+LARGE_J2K_IRR = "large_irreversible_4096x2048.jp2"
+LARGE_J2K_REV = "large_reversible_4096x2048.j2k"
+MEDIUM_J2K_IRR = "medium_irreversible_512x256.jp2"
+MEDIUM_J2K_REV = "medium_reversible_512x256.j2k"
+
+
+def j2k_timing_file(w: int, h: int, irreversible: bool) -> bytes:
+    """A JPEG 2000 map of ``smooth_rgba``'s RGB written by Pillow: a JP2
+    at 60:1 irreversible, or a reversible J2K codestream."""
+    rgb = smooth_rgba(w, h)[..., :3]
+    if irreversible:
+        return pillow_bytes(rgb, "JPEG2000", irreversible=True,
+                            quality_mode="rates", quality_layers=[60])
+    return pillow_bytes(rgb, "JPEG2000", no_jp2=True)
+
+
+def env_jp2(w: int, h: int, seed: int) -> bytes:
+    """An irreversible JP2 map of ``sample_image`` (3 layers)."""
+    return pillow_bytes(sample_image(w, h, seed, 3), "JPEG2000",
+                        irreversible=True, quality_mode="rates",
+                        quality_layers=[20, 8, 2])
+
+
+def env_j2k_rpcl(w: int, h: int, seed: int) -> bytes:
+    """A reversible J2K map of ``sample_image`` in RPCL order, 32 x 32
+    precincts, two layers."""
+    return pillow_bytes(sample_image(w, h, seed, 3), "JPEG2000", no_jp2=True,
+                        progression="RPCL", precinct_size=(32, 32),
+                        num_resolutions=3, quality_mode="rates",
+                        quality_layers=[10, 1])
+
+
+def jpeg2000_fixtures() -> dict:
+    """{file name: bytes} of the JPEG 2000 files under ``tests/ldr``:
+    Pillow's writer in every mode it writes and under each of its options,
+    then ``tools/j2k_fixtures.py``'s files (libopenjp2's encoder with the
+    options Pillow never sets, and byte-level rewrites)."""
+    import sys
+
+    from PIL import Image
+
+    sys.path.insert(0, os.path.join(os.path.dirname(LDR_DIR), "..", "tools"))
+    import j2k_fixtures
+
+    rgba = sample_image(31, 22, 91)
+    rgb = sample_image(37, 26, 92, 3)
+    gray = sample_image(33, 19, 93, 1)[..., 0]
+    im = Image.fromarray
+    layers = {"quality_mode": "rates", "quality_layers": [30, 10, 2]}
+    out = {
+        "j2k_l_rev.j2k": pillow_bytes(im(gray), "JPEG2000", no_jp2=True),
+        "j2k_la_irr.jp2": pillow_bytes(im(rgba).convert("LA"), "JPEG2000",
+                                       irreversible=True),
+        "j2k_rgb_rev.jp2": pillow_bytes(rgb, "JPEG2000"),
+        "j2k_rgba_rev.jp2": pillow_bytes(rgba, "JPEG2000"),
+        "j2k_rgba_irr_nomct.j2k": pillow_bytes(rgba, "JPEG2000", no_jp2=True,
+                                               irreversible=True, mct=0),
+        "j2k_i16_rev.jp2": pillow_bytes(
+            im(gray.astype(np.uint16) * 3 + 5).convert("I;16"), "JPEG2000"),
+        "j2k_i16_irr.j2k": pillow_bytes(
+            im(gray.astype(np.uint16) // 4).convert("I;16"), "JPEG2000",
+            irreversible=True, no_jp2=True),
+        "j2k_rgb_irr_tiles_layers.j2k": pillow_bytes(
+            rgb, "JPEG2000", no_jp2=True, irreversible=True,
+            tile_size=(16, 12), tile_offset=(3, 2), offset=(5, 4), **layers),
+        "j2k_rgb_signed_irr.jp2": pillow_bytes(rgb, "JPEG2000", signed=True,
+                                               irreversible=True),
+        "j2k_l_signed_rev.j2k": pillow_bytes(im(gray), "JPEG2000",
+                                             signed=True, no_jp2=True),
+        "j2k_rgb_res1_cblk.j2k": pillow_bytes(
+            rgb, "JPEG2000", no_jp2=True, num_resolutions=1,
+            codeblock_size=(8, 16)),
+        "j2k_rgb_comment_plt_db.jp2": pillow_bytes(
+            rgb, "JPEG2000", comment="a comment", plt=True,
+            quality_mode="dB", quality_layers=[25, 35, 45]),
+    }
+    big = sample_image(64, 48, 94, 3)
+    for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        for irr in (False, True):
+            out[f"j2k_{prog.lower()}_{'irr' if irr else 'rev'}.j2k"] = (
+                pillow_bytes(big, "JPEG2000", no_jp2=True, progression=prog,
+                             irreversible=irr, num_resolutions=3,
+                             precinct_size=(16, 16), codeblock_size=(8, 8),
+                             **layers))
+    out.update({f"j2k_{k}": v for k, v in j2k_fixtures.fixtures().items()})
+    return out

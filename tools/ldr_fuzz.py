@@ -3,7 +3,7 @@
     python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
         tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|qoi|pcx|sgi|psd|dds|
         ftex|blp|icns|sun|msp|xbm|xpm|jpeg_cut|im|spider|fits|mcidas|gbr|
-        xvthumb|pixar|imt|iptc|pcd|fli|mut] [--n 2000] [--seed 1]
+        xvthumb|pixar|imt|iptc|pcd|fli|j2k|jp2|mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
 writers with random headers, depths, compressions and layouts; for TIFF
@@ -28,8 +28,12 @@ some blank, long or cut; for XBM and XPM, any size and spelling, None
 keys, up to 300 colours; for ``jpeg_cut``, a JPEG of any kind whose
 scan data stops early, some inside a BLP1; for IM, SPIDER, FITS, McIdas,
 GBR, XV thumbnails, PIXAR, IMT, IPTC, Photo CD and FLI, the test writers'
-files with random modes, header fields, chunks and sizes; a quarter of
-them then mutated) or, with
+files with random modes, header fields, chunks and sizes; for ``j2k``,
+Pillow's JPEG 2000 writer under random options and libopenjp2's encoder
+with code-block styles, SOP/EPH, ROI, subsampling and tile-parts, some
+rewritten with PPT/PPM or cut into tile-parts (``tools/j2k_fixtures.py``);
+for ``jp2``, Pillow's JP2 files and codestreams under random JP2 boxes;
+a quarter of them then mutated) or, with
 ``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
 end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
@@ -38,7 +42,8 @@ returns an array that is not Pillow's, or any array where Pillow raises;
 it is a GAP when Pillow reads it and the port raises. BAD cases are
 written under ``build/ldr_fuzz/``; the exit code is 1 if there is one.
 A case Pillow takes longer than ``--pillow-seconds`` on is skipped and
-counted apart.
+counted apart, and so is one where OpenJPEG (in Pillow or its encoder)
+kills the process, which JPEG 2000 cases run in a child.
 The process's address space is capped at 3 GiB (headers may claim huge
 images).
 """
@@ -58,6 +63,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
 from PIL import Image  # noqa: E402
 
@@ -1150,6 +1156,190 @@ def rnd_fli(rng) -> bytes:
                        frames=pick(rng, [1, 1, 2, 0]))
 
 
+def forked(fn):
+    """``fn()`` in a child process -> its result, or ("crash", status)
+    where the child dies (OpenJPEG's encoder asserts or faults on some
+    option sets, and its decoder on some mutated files)."""
+    import pickle
+
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            out = ("ok", fn())
+        except Exception as exc:
+            out = ("error", f"{type(exc).__name__}: {str(exc)[:80]}")
+        with os.fdopen(w, "wb") as f:
+            pickle.dump(out, f)
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r, "rb") as f:
+        raw = f.read()
+    _, status = os.waitpid(pid, 0)
+    return pickle.loads(raw) if raw else ("crash", status)
+
+
+def _j2k_options(rng) -> dict:
+    """Random options of Pillow's JPEG 2000 writer."""
+    kw = {}
+    if rng.random() < 0.5:
+        kw["irreversible"] = True
+    if rng.random() < 0.5:
+        kw["progression"] = pick(rng, ["LRCP", "RLCP", "RPCL", "PCRL",
+                                      "CPRL"])
+    if rng.random() < 0.3:
+        kw["tile_size"] = (int(rng.integers(8, 40)), int(rng.integers(8, 40)))
+        if rng.random() < 0.5:
+            kw["tile_offset"] = (int(rng.integers(0, 5)),
+                                 int(rng.integers(0, 5)))
+            kw["offset"] = kw["tile_offset"]
+    if rng.random() < 0.3 and "offset" not in kw:
+        kw["offset"] = (int(rng.integers(0, 9)), int(rng.integers(0, 9)))
+    if rng.random() < 0.4:
+        kw["num_resolutions"] = int(rng.integers(1, 5))
+    if rng.random() < 0.4:
+        kw["codeblock_size"] = (int(2 ** rng.integers(2, 7)),
+                                int(2 ** rng.integers(2, 7)))
+    if rng.random() < 0.3:
+        kw["precinct_size"] = (int(2 ** rng.integers(5, 9)),
+                               int(2 ** rng.integers(5, 9)))
+    if rng.random() < 0.4:
+        kw["quality_mode"] = pick(rng, ["rates", "dB"])
+        layers = [float(rng.integers(1, 60))
+                  for _ in range(int(rng.integers(1, 4)))]
+        kw["quality_layers"] = sorted(layers, reverse=kw["quality_mode"]
+                                      == "rates")
+    if rng.random() < 0.3:
+        kw["mct"] = int(rng.integers(0, 2))
+    if rng.random() < 0.2:
+        kw["signed"] = True
+    if rng.random() < 0.2:
+        kw["plt"] = True
+    if rng.random() < 0.1:
+        kw["comment"] = "fuzz"
+    return kw
+
+
+def _j2k_image(rng):
+    from PIL import Image
+
+    w, h = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+    mode = pick(rng, ["L", "LA", "RGB", "RGBA", "I;16"])
+    if mode == "I;16":
+        v = rnd_image(rng, w, h)[..., 0].astype(np.uint16)
+        return Image.fromarray(v * int(rng.integers(1, 257))).convert("I;16")
+    return Image.fromarray(rnd_image(rng, w, h)).convert(mode)
+
+
+def _opj_case(rng) -> bytes:
+    """A file of libopenjp2's encoder with the options Pillow never sets
+    (``tools/j2k_fixtures.py``), or a rewrite of one."""
+    import j2k_fixtures as F
+
+    w, h = int(rng.integers(2, 36)), int(rng.integers(2, 36))
+    nc = int(rng.integers(1, 5))
+    img = rnd_image(rng, w, h)
+    kw = {"mode": int(rng.integers(0, 64)) if rng.random() < 0.6 else 0,
+          "irreversible": bool(rng.random() < 0.5),
+          "numres": int(rng.integers(1, 4)),
+          "cblk": (int(2 ** rng.integers(2, 6)), int(2 ** rng.integers(2, 6))),
+          "rates": pick(rng, [None, [20, 5], [40, 10, 2]]),
+          "csty": pick(rng, [0, 0, 2, 4, 6]),
+          "prog": pick(rng, list(F.PROGRESSIONS))}
+    dx, dy = [1] * nc, [1] * nc
+    if nc >= 3 and rng.random() < 0.3:
+        dx[1] = dx[2] = int(rng.integers(1, 3))
+        dy[1] = dy[2] = int(rng.integers(1, 3))
+    if rng.random() < 0.2:
+        kw["roi"] = (int(rng.integers(0, nc)), int(rng.integers(1, 9)))
+    if rng.random() < 0.2:
+        kw["tile"] = (int(rng.integers(8, 24)), int(rng.integers(8, 24)))
+        kw["tp_flag"] = pick(rng, [None, "R", "C", "L"])
+    planes = [img[::dy[i], ::dx[i], i % 4].astype(np.int32)
+              for i in range(nc)]
+    planes = [p[:-(-h // dy[i]), :-(-w // dx[i])] for i, p in
+              enumerate(planes)]
+    data = F.opj_encode(planes, width=w, height=h, dx=dx, dy=dy,
+                        colour=2 if nc < 3 else 1, **kw)
+    if "tile" not in kw and not kw["csty"] and rng.random() < 0.4:
+        data = pick(rng, [lambda d: F.with_ppt(d, int(rng.integers(1, 3))),
+                          lambda d: F.with_ppm(d, int(rng.integers(1, 3))),
+                          lambda d: F.split_tile_parts(
+                              d, int(rng.integers(1, 4)),
+                              bool(rng.random() < 0.5)),
+                          lambda d: F.with_sop(d, bool(rng.random() < 0.5))
+                          ])(data)
+    return data
+
+
+def rnd_j2k(rng) -> bytes:
+    """A J2K codestream: Pillow's writer with random options, or
+    libopenjp2's encoder with code-block styles, SOP/EPH, ROI,
+    subsampling and tile-parts, some with headers moved into PPT/PPM or
+    cut into tile-parts."""
+    while True:
+        if rng.random() < 0.5:
+            img, kw = _j2k_image(rng), _j2k_options(rng)
+            kw["no_jp2"] = True
+            got = forked(lambda: C.pillow_bytes(img, "JPEG2000", **kw))
+        else:
+            seed = int(rng.integers(0, 1 << 30))
+            got = forked(lambda: _opj_case(np.random.default_rng(seed)))
+        if got[0] == "ok":
+            return got[1]
+
+
+def rnd_jp2(rng) -> bytes:
+    """A JP2 file: Pillow's, or a codestream under random boxes (``colr``
+    of each enumerated space or an ICC profile, ``pclr`` and ``cmap``,
+    ``cdef``, ``res``, an ``ihdr`` that disagrees, boxes out of order)."""
+    import j2k_fixtures as F
+
+    if rng.random() < 0.4:
+        while True:
+            img, kw = _j2k_image(rng), _j2k_options(rng)
+            got = forked(lambda: C.pillow_bytes(img, "JPEG2000", **kw))
+            if got[0] == "ok":
+                return got[1]
+    cs = rnd_j2k(rng)
+    from wgpu_path_tracing_tpu_torch.utils import jpeg2000 as J
+
+    try:
+        c = J._Codestream(cs)
+        nc, w, h = c.nc, c.x1 - c.x0, c.y1 - c.y0
+        bpc = c.prec[0] - 1 | (c.sgnd[0] << 7)
+    except Exception:
+        nc, w, h, bpc = 3, 8, 8, 7
+    if rng.random() < 0.2:
+        nc = int(rng.integers(1, 6))
+    if rng.random() < 0.1:
+        w, h = w + int(rng.integers(-2, 3)), h + int(rng.integers(-2, 3))
+    boxes = [F.ihdr(max(w, 0), max(h, 0), nc, bpc)]
+    enumcs = pick(rng, [16, 17, 18, 12, 24, 0])
+    if rng.random() < 0.1:
+        boxes.append(F.box(b"colr", b"\x02\x00\x00" + rand_bytes(rng, 20)))
+    elif rng.random() < 0.95:
+        boxes.append(F.colr(enumcs))
+    if rng.random() < 0.25:
+        ne = int(rng.integers(1, 40))
+        npc = int(pick(rng, [3, 3, 4, 1]))
+        boxes.append(F.pclr(rng.integers(0, 256, (ne, npc)),
+                            pick(rng, [8, 8, 4, 12])))
+        if rng.random() < 0.8:
+            boxes.append(F.cmap([(0, 1, i) for i in range(npc)]))
+    if rng.random() < 0.2:
+        boxes.append(F.cdef([(i, int(rng.integers(0, 3)),
+                              int(rng.integers(0, nc + 1)))
+                             for i in range(nc)]))
+    if rng.random() < 0.2:
+        boxes.append(F.res(int(rng.integers(0, 9)), int(rng.integers(0, 3)),
+                           int(rng.integers(0, 5))))
+    if rng.random() < 0.1:
+        boxes = boxes[1:] + boxes[:1]
+    return F.jp2(cs, b"".join(boxes))
+
+
 GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "tiff": rnd_tiff, "tiff_big": rnd_tiff_big, "tiff_ycbcr": rnd_tiff_ycbcr,
        "tiff_float": rnd_tiff_float, "tiff_jpeg": rnd_tiff_jpeg,
@@ -1161,7 +1351,7 @@ GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "im": rnd_im, "spider": rnd_spider, "fits": rnd_fits,
        "mcidas": rnd_mcidas, "gbr": rnd_gbr, "xvthumb": rnd_xvthumb,
        "pixar": rnd_pixar, "imt": rnd_imt, "iptc": rnd_iptc, "pcd": rnd_pcd,
-       "fli": rnd_fli}
+       "fli": rnd_fli, "j2k": rnd_j2k, "jp2": rnd_jp2}
 
 
 def main(argv=None) -> int:
@@ -1177,7 +1367,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     fixtures = list(C.fixtures().values())
     counts = {"same": 0, "both_raise": 0, "gap": 0, "bad": 0,
-              "pillow_timeout": 0}
+              "pillow_timeout": 0, "pillow_crash": 0}
     gaps: dict = {}
     for _ in range(args.n):
         if args.kind == "mut":
@@ -1187,7 +1377,17 @@ def main(argv=None) -> int:
             if rng.random() < 0.25:
                 data = mutate(data, rng)
         try:
-            want, why = pillow(data, args.pillow_seconds)
+            if args.kind in ("j2k", "jp2") or data.startswith(
+                    (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP")):
+                got = forked(lambda: pillow(data, args.pillow_seconds))
+                if got[0] == "crash":
+                    counts["pillow_crash"] += 1
+                    continue
+                if got[0] == "error":
+                    raise PillowTimeout()
+                want, why = got[1]
+            else:
+                want, why = pillow(data, args.pillow_seconds)
         except PillowTimeout:
             counts["pillow_timeout"] += 1
             continue
@@ -1207,7 +1407,8 @@ def main(argv=None) -> int:
         counts[verdict] += 1
         if verdict == "bad":
             os.makedirs(OUT_DIR, exist_ok=True)
-            path = os.path.join(OUT_DIR, f"{args.kind}_{counts['bad']}.bin")
+            path = os.path.join(OUT_DIR, f"{args.kind}_s{args.seed}_"
+                                f"{counts['bad']}.bin")
             with open(path, "wb") as f:
                 f.write(data)
             print(f"BAD ({'C++' if in_cxx else 'Python'}; Pillow: {why}): "

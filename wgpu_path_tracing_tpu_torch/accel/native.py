@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Nine sources,
+The counterpart of the JAX package's ``accel/native.py``. Ten sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -29,7 +29,9 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 * ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
 * ``webp_scan.cpp``: the WebP decoding loops, ``utils/webp.py::
   vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
-  ``unfilter_plain``.
+  ``unfilter_plain``;
+* ``j2k_scan.cpp``: the JPEG 2000 code-block decoder (MQ and raw passes),
+  ``utils/jpeg2000.py::t1_plain``.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -63,7 +65,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
            "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp",
-           "fax_scan.cpp", "bcn_scan.cpp")
+           "fax_scan.cpp", "bcn_scan.cpp", "j2k_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -172,6 +174,9 @@ SIGNATURES = {
     # data, its length, start, width, height, bits a pixel, out floats
     "wpt_bit_decode": [ctypes.c_char_p, _I64, _I64, _I64, _I64, _I32,
                        _F32P],
+    # code-block data, its length, the blocks' table, blocks, segments, out
+    # samples
+    "wpt_j2k_t1": [ctypes.c_char_p, _I64, _I64P, _I64, _I64P, _I32P],
 }
 # utils/bcn.py's formats -> (wpt_bcn's code, bytes a pixel).
 BCN_CODES = {"BC1": (1, 4), "BC2": (2, 4), "BC3": (3, 4), "BC4": (4, 1),
@@ -715,4 +720,18 @@ def bit_decode_native(data: bytes, pos: int, w: int, h: int, bits: int
     out = np.zeros((h, w), np.float32)
     status = lib().wpt_bit_decode(data, len(data), pos, w, h, bits,
                                   _ptr(out, _F32P))
+    return out, int(status)
+
+
+def j2k_t1_native(data: bytes, table: np.ndarray, segs: np.ndarray,
+                  total: int) -> tuple[np.ndarray, int]:
+    """``utils/jpeg2000.py::t1_plain`` over every code-block of a tile in
+    C++ (``j2k_scan.cpp``): the int32 samples and the status."""
+    out = np.zeros(total, np.int32)
+    table = np.ascontiguousarray(table, np.int64)
+    segs = np.ascontiguousarray(segs, np.int64).reshape(-1, 3)
+    if not len(table):
+        return out, 0
+    status = lib().wpt_j2k_t1(data, len(data), _ptr(table, _I64P),
+                              len(table), _ptr(segs, _I64P), _ptr(out, _I32P))
     return out, int(status)

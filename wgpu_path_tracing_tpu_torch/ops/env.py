@@ -84,11 +84,10 @@ def load_env_image(source) -> np.ndarray:
 
     ``source``: a NumPy array (used as it is), a Radiance .hdr, an
     uncompressed float OpenEXR (.exr, as ``utils/image.py::read_exr``
-    takes it), or an LDR image that Pillow would open as PNG, JPEG, TGA,
-    BMP (DIB, ICO, CUR), netpbm, TIFF, WebP or GIF (``utils/image.py::
-    read_png``, the format found by the bytes as Pillow finds it), decoded
-    from sRGB with gamma 2.2 (the reference's texture convention,
-    atlas.ts:143-147)."""
+    takes it), or an LDR image in any format Pillow would open that
+    ``utils/image.py::decode_image_rgba`` lists (``read_png``, the format
+    found by the bytes as Pillow finds it), decoded from sRGB with gamma
+    2.2 (the reference's texture convention, atlas.ts:143-147)."""
     from wgpu_path_tracing_tpu_torch.utils import image
 
     if isinstance(source, np.ndarray):

@@ -26,9 +26,11 @@ bytes:
   size (it checks ``w // pw`` against ``h / ph``). Without a PNG entry
   the RGB entry is needed (a lone mask raises); without a mask alpha is
   255;
-* a JPEG 2000 entry raises ``NotImplementedError`` naming the file (this
-  package reads no JPEG 2000), where Pillow decodes it; another entry
-  format raises ``ValueError``.
+* a JPEG 2000 entry (a J2K codestream or a JP2 file, the entry's own
+  bytes) is read by ``utils/jpeg2000.py`` as ``Jpeg2KImageFile`` opens
+  it outside ``Image.open`` (an error in its header raises rather than
+  passing the bytes on), converted to RGBA and held to the same size
+  check as a PNG entry; another entry format raises ``ValueError``.
 
 The run-length loop is ``rle_plain`` here, the plain version of
 ``accel/cbvh/image_scan.cpp``'s ``wpt_icns_rle``, which the native library
@@ -142,12 +144,34 @@ def _png(data: bytes, start: int, sizes: list, name: str) -> np.ndarray:
         rgba = decode_png_rgba(data[start:], name, transparency=False)
     except struct.error:
         raise ValueError(f"{name}: an ICNS PNG entry is cut short") from None
+    return _allowed(rgba, sizes, "PNG", name)
+
+
+def _jpeg2000(data: bytes, start: int, length: int, sizes: list,
+              name: str) -> np.ndarray:
+    """A JPEG 2000 entry: its own bytes opened as ``Jpeg2KImageFile``
+    opens them (outside ``Image.open``, so every error raises), then
+    converted to RGBA."""
+    from wgpu_path_tracing_tpu_torch.utils.jpeg2000 import (
+        decode_jpeg2000_rgba)
+
+    entry = data[start:] if length < 0 else data[start:start + length]
+    try:
+        rgba = decode_jpeg2000_rgba(entry, name)
+    except NotThisFormat as exc:
+        raise ValueError(str(exc)) from None
+    return _allowed(rgba, sizes, "JPEG 2000", name)
+
+
+def _allowed(rgba: np.ndarray, sizes: list, kind: str,
+             name: str) -> np.ndarray:
+    """Pillow's ``size`` setter on an entry's image."""
     ph, pw = rgba.shape[:2]
-    for w, h, scale in sizes:  # IcnsImageFile's size setter
+    for w, h, scale in sizes:
         if (h * scale) / ph == (w * scale) // pw:
             return rgba
-    raise ValueError(f"{name}: an ICNS PNG entry of {pw}x{ph} (Pillow: this "
-                     "is not one of the allowed sizes of this image)")
+    raise ValueError(f"{name}: an ICNS {kind} entry of {pw}x{ph} (Pillow: "
+                     "this is not one of the allowed sizes of this image)")
 
 
 def decode_icns_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -173,9 +197,8 @@ def decode_icns_rgba(data: bytes, name: str = "image") -> np.ndarray:
             if sig.startswith(PNG_SIGNATURE):
                 channels["RGBA"] = _png(data, start, sizes, name)
             elif sig.startswith(JP2_SIGNATURES) or sig == JP2_BOX:
-                raise NotImplementedError(
-                    f"{name}: a JPEG 2000 ICNS entry, which this package "
-                    "does not read")
+                channels["RGBA"] = _jpeg2000(data, start, length, sizes,
+                                             name)
             else:
                 raise ValueError(f"{name}: unsupported ICNS entry format")
         elif reader == "mask":

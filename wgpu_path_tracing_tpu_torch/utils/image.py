@@ -374,8 +374,8 @@ def _readers() -> dict:
     """The decoders of the formats this package reads, by Pillow's name."""
     from wgpu_path_tracing_tpu_torch.utils import (
         blp, bmp, dds, fits, fli, ftex, gbr, gif, icns, im, imt, iptc,
-        mcidas, msp, netpbm, pcd, pcx, pixar, psd, qoi, sgi, spider, stubs,
-        sun, tga, tiff, webp, xbm, xpm, xvthumb)
+        jpeg2000, mcidas, msp, netpbm, pcd, pcx, pixar, psd, qoi, sgi,
+        spider, stubs, sun, tga, tiff, webp, xbm, xpm, xvthumb)
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_rgba
 
     return {"BMP": bmp.decode_bmp_rgba, "DIB": bmp.decode_dib_rgba,
@@ -398,7 +398,10 @@ def _readers() -> dict:
             "FITS": fits.decode_fits_rgba, "FLI": fli.decode_fli_rgba,
             "GBR": gbr.decode_gbr_rgba, "WMF": stubs.decode_wmf_rgba,
             "XVTHUMB": xvthumb.decode_xvthumb_rgba,
-            "EPS": stubs.decode_eps_rgba}
+            "EPS": stubs.decode_eps_rgba,
+            "BUFR": stubs.decode_bufr_rgba, "GRIB": stubs.decode_grib_rgba,
+            "HDF5": stubs.decode_hdf5_rgba, "MPEG": stubs.decode_mpeg_rgba,
+            "JPEG2000": jpeg2000.decode_jpeg2000_rgba}
 
 
 def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
@@ -421,16 +424,17 @@ def decode_image_rgba(data: bytes, name: str = "image") -> np.ndarray:
     (``utils/pcd.py``), PIXAR (``utils/pixar.py``), SPIDER
     (``utils/spider.py``), McIdas (``utils/mcidas.py``), FITS
     (``utils/fits.py``), FLI and FLC (``utils/fli.py``, the first frame),
-    GIMP brushes (``utils/gbr.py``) and XV thumbnails
-    (``utils/xvthumb.py``) are read; WMF and EPS raise as Pillow's
-    ``load`` raises without a WMF handler or Ghostscript
+    GIMP brushes (``utils/gbr.py``), XV thumbnails (``utils/xvthumb.py``)
+    and JPEG 2000 codestreams and JP2 files (``utils/jpeg2000.py``) are
+    read; WMF, EPS, BUFR, GRIB, HDF5 and MPEG raise as Pillow's ``load``
+    raises without a handler or Ghostscript, or as its MPEG stub fails
     (``utils/stubs.py``). The walk goes on past a format only where that
     format's reader says Pillow's ``_open`` would pass the bytes on (TGA
     and the other formats without a signature, tried on any bytes, pass
     on a RIFF header, so WebP files reach WEBP, and on ``#define`` and
     ``/* XPM */`` headers, so X bitmaps and pixmaps reach XBM and XPM).
-    Bytes Pillow would open as a format this package does not read (AVIF,
-    JPEG 2000, ...) raise ``ValueError`` at the first such format, naming
+    Bytes Pillow would open as a format this package does not read (AVIF)
+    raise ``ValueError`` at the first such format, naming
     ``name`` and the format, and bytes no format takes raise
     ``ValueError`` too; a variant of a read format that Pillow opens but
     this package does not read raises ``NotImplementedError`` naming

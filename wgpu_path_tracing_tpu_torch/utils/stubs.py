@@ -1,4 +1,5 @@
-"""WMF, EMF and EPS: formats Pillow opens and cannot load on this host.
+"""WMF, EMF, EPS, BUFR, GRIB, HDF5 and MPEG: formats Pillow opens and
+cannot load on this host.
 
 Pillow opens a Windows metafile (placeable WMF or EMF) with a stub that
 loads only through a handler, which it has on Windows alone, and an EPS
@@ -11,6 +12,14 @@ known record, a box of no size) go on to Pillow's next formats
 ``_accept`` takes ends with an error in Pillow (its ``_open`` fails, and
 no format after it takes such a start, or its ``load`` needs
 Ghostscript), so the EPS reader raises at once.
+
+BUFR, GRIB and HDF5 are Pillow's stub plugins: ``_open`` takes whatever
+their ``_accept`` took as a 1 x 1 "F" image and ``load`` needs a handler
+that a program must register (none is), so each raises at once. MPEG's
+``_open`` reads a width and a height of 12 bits each after the start
+code: a file too short for them, or a size of no pixels, goes on to the
+next format; any other has no tile, and ``load`` raises ("cannot load
+this image").
 """
 
 from __future__ import annotations
@@ -53,3 +62,36 @@ def decode_eps_rgba(data: bytes, name: str = "image") -> np.ndarray:
     raise ValueError(f"{name}: an EPS file, which Pillow loads only through "
                      "Ghostscript (none on the host), so the JAX package "
                      "cannot read it either")
+
+
+def _stub(kind: str, name: str):
+    raise ValueError(f"{name}: a {kind} file, which Pillow loads only "
+                     f"through a {kind} handler (none is registered), so the "
+                     "JAX package cannot read it either")
+
+
+def decode_bufr_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """Raise as Pillow's ``load`` does on BUFR bytes."""
+    _stub("BUFR", name)
+
+
+def decode_grib_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """Raise as Pillow's ``load`` does on GRIB bytes."""
+    _stub("GRIB", name)
+
+
+def decode_hdf5_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """Raise as Pillow's ``load`` does on HDF5 bytes."""
+    _stub("HDF5", name)
+
+
+def decode_mpeg_rgba(data: bytes, name: str = "image") -> np.ndarray:
+    """Raise as Pillow does on MPEG bytes (or pass them on)."""
+    if len(data) < 7:
+        raise NotThisFormat(f"{name}: an MPEG header cut short")
+    bits = int.from_bytes(data[4:7], "big")
+    if bits >> 12 == 0 or bits & 0xFFF == 0:
+        raise NotThisFormat(f"{name}: an MPEG picture of no size")
+    raise ValueError(f"{name}: an MPEG file, which Pillow opens without "
+                     "decoding it (cannot load this image), so the JAX "
+                     "package cannot read it either")
