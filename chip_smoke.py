@@ -153,9 +153,12 @@ and runs these phases, one line of output each:
    Pillow's), a 4096x2048 G4 page and a 4096x2048 float LZW file with the
    floating-point predictor made by the test suite's writers, each decoded
    with the C++ loops within 5 s and equal to what it was made from, the
-   Python loops on a 1024x512 G4 page, and the same box with four
-   TIFF-variant sidecar textures (``TIFF_VARIANT_TEXTURES``) against its
-   plain path; then the QOI, PCX (DCX), SGI, PSD and DDS readers (their
+   Python loops on a 1024x512 G4 page; the committed 4096x2048 zstd
+   (predictor 2) and old-style JPEG files in C++ and their 512x256 pair
+   both ways, each against Pillow's SHA-256; and the same box with four
+   TIFF-variant sidecar textures (``TIFF_VARIANT_TEXTURES``) and two more,
+   zstd and old-style JPEG (``TIFF_LEFTOVER_TEXTURES``), against its plain
+   path; then the QOI, PCX (DCX), SGI, PSD and DDS readers (their
    committed files are among the ``tests/ldr`` files held to Pillow both
    ways): a 4096x2048 BC7 DDS (its SHA-256 against Pillow's) and a
    4096x2048 PackBits RGBA PSD (against the array it was made from) made
@@ -2791,6 +2794,13 @@ TIFF_VARIANT_TEXTURES = ("jpeg_ycbcr_tiles.tif", "bigtiff_lzw_rgba.tif",
                          "float_lzw_pred3.tif", "g4.tif")
 TIFF_VARIANT_ENV_MAPS = (("env_jpeg_ycbcr.tif", "env_tiff_jpeg"),
                          ("env_float.tif", "env_tiff_float"))
+# TIFF's last variants, in the same box (materials 2 and 3's emissive maps:
+# a zstd RGBA with predictor 2, an old-style JPEG 4:2:0 in strips) and under
+# the env box (a zstd map, an old-style JPEG map in the table tags'
+# layout).
+TIFF_LEFTOVER_TEXTURES = ("zstd_rgba_pred2.tif", "ojpeg_jif_420_strips.tif")
+TIFF_LEFTOVER_ENV_MAPS = (("env_zstd.tif", "env_tiff_zstd"),
+                          ("env_ojpeg.tif", "env_tiff_ojpeg"))
 # The asset-format-textured box: the same scene with a BC7 DDS (mode 6), a
 # BC1 DDS with 1-bit alpha (Pillow's DXT1 writer), a PackBits RGBA PSD and
 # an RGBA QOI as its four sidecar textures; and the env box under a BC1
@@ -2906,8 +2916,9 @@ def ldr_cases() -> list:
 def with_sidecar_images(glb: bytes, names: list) -> str:
     """The .gltf text of the .glb ``glb`` with its buffer as a data URI and
     image i read from the sidecar file ``names[i]`` (by its ``uri``, no
-    ``mimeType``: the loaders sniff the bytes); a name past the scene's
-    images becomes material 1's emissive map (emissive factor 1)."""
+    ``mimeType``: the loaders sniff the bytes); the k-th name past the
+    scene's images becomes material 1 + k's emissive map (emissive factor
+    1)."""
     gf = GLTFFile._parse_glb(glb, "")
     gltf = json.loads(json.dumps(gf.gltf))
     gltf["buffers"] = [{"byteLength": len(gf.buffers[0]),
@@ -2915,10 +2926,10 @@ def with_sidecar_images(glb: bytes, names: list) -> str:
                         + base64.b64encode(gf.buffers[0]).decode()}]
     n = len(gltf.get("images", []))
     gltf["images"] = [{"uri": name} for name in names]
-    for name in names[n:]:
+    for k, name in enumerate(names[n:]):
         gltf["textures"].append({"source": gltf["images"].index(
             {"uri": name})})
-        material = gltf["materials"][1]
+        material = gltf["materials"][1 + k]
         material["emissiveTexture"] = {"index": len(gltf["textures"]) - 1}
         material["emissiveFactor"] = [1.0, 1.0, 1.0]
     return json.dumps(gltf)
@@ -3357,8 +3368,10 @@ def webp_gif_scene(tmp: str, smi: str, report: dict) -> dict:
 def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
     """TIFF's other variants on this host (``ldr_scene`` has held every
     committed one to its Pillow array both ways): the C++ decode seconds of
-    the committed 4096x2048 JPEG-in-TIFF YCbCr 2x2 tiled file (its SHA-256
-    against Pillow's), and of a 4096x2048 G4 page and float LZW file with
+    the committed 4096x2048 JPEG-in-TIFF YCbCr 2x2 tiled file, zstd RGB
+    file (predictor 2) and old-style JPEG file (4:2:0), each against the
+    SHA-256 of Pillow's decode, and both loops on the committed 512x256 zstd
+    and old-style JPEG pair; of a 4096x2048 G4 page and float LZW file with
     the floating-point predictor made here by the test suite's writers
     (each equal to what it was made from: the page's bits, the floats
     clipped and truncated as Pillow converts them); the plain Python loops
@@ -3366,7 +3379,7 @@ def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
     LZW RGB file of LDR_PYTHON_TIFF_SIZE (predictor 2, 16-row bands that
     repeat, so that the writer codes one); each C++ decode under
     JPEG_DECODE_BOUND_S; then the TIFF-variant-textured box (``ldr_box``
-    with TIFF_VARIANT_TEXTURES)."""
+    with TIFF_VARIANT_TEXTURES and TIFF_LEFTOVER_TEXTURES)."""
     cases_module = image_cases()
     with open(os.path.join(LDR_DIR, "pillow_sha256.json")) as f:
         digests = json.load(f)
@@ -3385,11 +3398,14 @@ def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
                    sample_format=3, rows_per_strip=16),
         write_tiff(bands, 8, 2, compression=5, predictor=2, old_lzw=True,
                    rows_per_strip=16)))
-    with open(os.path.join(LDR_DIR, cases_module.LARGE_TIFF_JPEG), "rb") as f:
-        jpeg = f.read()
-    files = [
-        (cases_module.LARGE_TIFF_JPEG, jpeg,
-         digests[cases_module.LARGE_TIFF_JPEG], False),
+    committed = {}
+    for name in (cases_module.LARGE_TIFF_JPEG, cases_module.LARGE_TIFF_ZSTD,
+                 cases_module.LARGE_TIFF_OJPEG, cases_module.MEDIUM_TIFF_ZSTD,
+                 cases_module.MEDIUM_TIFF_OJPEG):
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            committed[name] = f.read()
+    files = [(name, data, digests[name], "512x256" in name)
+             for name, data in committed.items()] + [
         (f"g4_page_{w}x{h}.tif", g4, (1 - page) * 255, False),
         (f"float_lzw_predictor3_{w}x{h}.tif", floats,
          np.clip(field[..., 0], 0, 255).astype(np.uint8), False),
@@ -3431,7 +3447,11 @@ def tiff_variant_scene(tmp: str, smi: str, report: dict) -> dict:
     for name in TIFF_VARIANT_TEXTURES:
         with open(os.path.join(LDR_DIR, name), "rb") as f:
             texture_files[name] = f.read()
-    out.update(ldr_box(tmp, texture_files, smi, report, TIFF_VARIANT_TEXTURES,
+    textures = TIFF_VARIANT_TEXTURES + TIFF_LEFTOVER_TEXTURES
+    for name in TIFF_LEFTOVER_TEXTURES:
+        with open(os.path.join(LDR_DIR, name), "rb") as f:
+            texture_files[name] = f.read()
+    out.update(ldr_box(tmp, texture_files, smi, report, textures,
                        "gltf_tiff_variants"))
     return out
 
@@ -3761,9 +3781,9 @@ def phase_env(dev, smi, report, profile: str | None):
     report["env"]["jpeg_arith"] = jpeg_env_box(smi, report, JPEG_ENV_ARITH,
                                                "env_jpeg_arith")
     for name, path_name in (LDR_ENV_MAPS + WEBP_GIF_ENV_MAPS
-                            + TIFF_VARIANT_ENV_MAPS + ASSET_ENV_MAPS
-                            + LEGACY_ENV_MAPS + SCI_RARE_ENV_MAPS
-                            + JPEG2000_ENV_MAPS):
+                            + TIFF_VARIANT_ENV_MAPS + TIFF_LEFTOVER_ENV_MAPS
+                            + ASSET_ENV_MAPS + LEGACY_ENV_MAPS
+                            + SCI_RARE_ENV_MAPS + JPEG2000_ENV_MAPS):
         report["env"][path_name] = jpeg_env_box(smi, report, name, path_name,
                                                 LDR_DIR)
 

@@ -203,6 +203,13 @@ def once_left_cases():
         "bigtiff": C.pillow_bytes(img, "TIFF", big_tiff=True),
         "int32": C.pillow_bytes(Image.fromarray(GRAY[..., 0]).convert("I"),
                                 "TIFF"),
+        # Left for later once more, then read as Pillow reads them.
+        "zstd": C.pillow_bytes(Image.fromarray(RGB), "TIFF",
+                               compression="zstd"),
+        "separate_planes_16bit_lzw": C.write_tiff(RGB16, 16, 2, compression=5,
+                                                  planar=2),
+        "big_endian_signed_16bit_lzw": C.write_tiff(
+            RGB16[..., :1], 16, 1, compression=5, order=">", sample_format=2),
     }
 
 
@@ -212,7 +219,8 @@ ONCE_LEFT = once_left_cases()
 @pytest.mark.parametrize("case", sorted(ONCE_LEFT))
 def test_variants_once_left_for_later_equal_pillow(case):
     """JPEG-in-TIFF, YCbCr, float and 32-bit samples, old-style LZW, CCITT
-    G3/G4 and BigTIFF decode as Pillow decodes them."""
+    G3/G4, BigTIFF, zstd, compressed 16-bit separate planes and compressed
+    big-endian signed 16-bit samples decode as Pillow decodes them."""
     C.assert_like_pillow(ONCE_LEFT[case], case)
 
 
@@ -226,15 +234,6 @@ def with_byte_count(data: bytes, count: int) -> bytes:
 
 def not_read_cases():
     return {
-        "old_style_jpeg": C.write_tiff(RGB, 8, 6, compression=1,
-                                       tags={259: (3, [6])}),
-        "zstd": C.pillow_bytes(Image.fromarray(RGB), "TIFF",
-                               compression="zstd"),
-        "webp": C.write_tiff(RGB, 8, 2, tags={259: (3, [50001])}),
-        "separate_planes_16bit_lzw": C.write_tiff(RGB16, 16, 2, compression=5,
-                                                  planar=2),
-        "big_endian_signed_16bit_lzw": C.write_tiff(
-            RGB16[..., :1], 16, 1, compression=5, order=">", sample_format=2),
         "ccitt_ends_early": with_byte_count(C.write_tiff(
             (GRAY > 100).astype(np.uint8), 1, 1, compression=4), 9),
         "lzma_bad_data": bytes(C.write_tiff(RGB, 8, 2, compression=34925)[:30])
@@ -247,11 +246,8 @@ NOT_READ = not_read_cases()
 
 @pytest.mark.parametrize("case", sorted(NOT_READ))
 def test_variants_left_for_later_raise_naming_the_image(case):
-    """Old-style JPEG (6), zstd, WebP, compressed separate planes of other
-    samples than 8-bit RGB, RGBA and CMYK, compressed big-endian signed
-    16-bit samples, CCITT data that ends before its last row (libtiff
-    leaves rows unwritten) and bad LZMA data (libtiff keeps part of it)
-    raise
+    """CCITT data that ends before its last row (libtiff leaves rows
+    unwritten) and bad LZMA data (libtiff keeps part of it) raise
     ``NotImplementedError`` naming the image, whatever Pillow does with
     them."""
     C.assert_refused(NOT_READ[case], "n.tif", NotImplementedError)
@@ -259,6 +255,12 @@ def test_variants_left_for_later_raise_naming_the_image(case):
 
 def refused_cases():
     return {
+        # Once left for later: compression 6 over data that is no JPEG
+        # (libtiff's OJPEG finds no tables) and WebP-in-TIFF (Pillow's
+        # libtiff has no WebP codec).
+        "old_style_jpeg": C.write_tiff(RGB, 8, 6, compression=1,
+                                       tags={259: (3, [6])}),
+        "webp": C.write_tiff(RGB, 8, 2, tags={259: (3, [50001])}),
         "lzw_cut_short": C.write_tiff(RGB, 8, 2, compression=5)[:200],
         "packbits_short": C.write_tiff(RGB[:, :3], 8, 2, compression=32773,
                                        rows_per_strip=23)[:60],

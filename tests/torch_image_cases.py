@@ -773,6 +773,58 @@ def fax_encode(bits: np.ndarray, compression: int, options: int = 0,
 _REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
+def rlew_encode(bits: np.ndarray, parity: int = 0) -> bytes:
+    """(rows, w) 0/1 samples -> CCITT RLEW data (compression 32771):
+    modified Huffman rows, each padded to a byte and then to a 16-bit
+    boundary of the file (the strip starting at a file offset of
+    ``parity``)."""
+    out = bytearray()
+    for row in bits.astype(np.uint8):
+        s = fax_row_1d(row)
+        s += "0" * (-len(s) % 8)
+        out += np.packbits(np.frombuffer(s.encode(), np.uint8) - 48).tobytes()
+        if (len(out) + parity) % 2:
+            out.append(0)
+    return bytes(out)
+
+
+def thunder_encode(px: np.ndarray, seed: int = 0) -> bytes:
+    """(rows, w) 4-bit samples -> ThunderScan data (compression 32809),
+    each row from pixel 0: runs of the last pixel at even pixels, three
+    2-bit or two 3-bit deltas where they reach, raw pixels else (chosen
+    with a seeded coin so that every code turns up)."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    for row in px.astype(int):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2 and i % 2 == 0 and rng.random() < 0.8:
+                out.append(run)
+                i += run
+                continue
+            d = [int(row[j]) - p for j, p in zip(range(i, min(i + 3, w)),
+                                                  [last] + list(row[i:i + 2]))]
+            if len(d) == 3 and all(abs(x) <= 1 for x in d) and rng.random() < .8:
+                out.append(0x40 | sum({0: 0, 1: 1, -1: 3}[x] << (4 - 2 * k)
+                                      for k, x in enumerate(d)))
+                last, i = int(row[i + 2]), i + 3
+                continue
+            if len(d) >= 2 and all(abs(x) <= 3 for x in d[:2]) \
+                    and rng.random() < .8:
+                codes = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+                out.append(0x80 | codes[d[0]] << 3 | codes[d[1]])
+                last, i = int(row[i + 1]), i + 2
+                continue
+            out.append(0xC0 | int(row[i]))
+            last, i = int(row[i]), i + 1
+    return bytes(out)
+
+
+
+
 def _lzma(data: bytes) -> bytes:
     import lzma
 
@@ -781,7 +833,7 @@ def _lzma(data: bytes) -> bytes:
 
 COMPRESS = {1: lambda b: b, 5: lzw, 8: lambda b: zlib.compress(b, 6),
             32946: lambda b: zlib.compress(b, 6), 32773: packbits,
-            34925: _lzma}
+            34925: _lzma, 50000: lambda b: zstd_compress(b, 3)}
 # Field types the writer packs: struct code and size.
 _FIELD = {3: ("H", 2), 4: ("I", 4), 16: ("Q", 8), 7: ("B", 1)}
 
@@ -799,7 +851,8 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
     32-bit float samples as a float32 array) a sample, top row first:
     strips of ``rows_per_strip`` rows or tiles of ``tile = (w, h)``,
     chunky or in separate planes, compressed with ``compression`` (1, 2,
-    3, 4, 5, 7, 8, 32773, 32946, 34925), ``predictor`` 2 (differencing) or
+    3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000), ``predictor``
+    2 (differencing) or
     3 (libtiff's floating-point predictor), ``fill`` 2 reversing the bits
     of each stored byte. ``bigtiff`` writes the BigTIFF container (8-byte
     offsets and counts); ``subsampling`` (hs, vs) packs YCbCr ``samples``
@@ -842,6 +895,10 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int, *,
                     continue
                 if compression in (2, 3, 4):
                     data = fax_encode(block[..., 0], compression, fax_options)
+                elif compression == 32771:
+                    data = rlew_encode(block[..., 0])
+                elif compression == 32809:
+                    data = thunder_encode(block[..., 0], seed=len(chunks))
                 else:
                     if subsampling:
                         rows = ycbcr_blocks(block, *subsampling)
@@ -955,6 +1012,279 @@ def _pack_samples(block: np.ndarray, bits: int, order: str) -> np.ndarray:
     shifts = np.arange(bits - 1, -1, -1)
     b = ((flat[..., None].astype(np.uint16) >> shifts) & 1).astype(np.uint8)
     return np.packbits(b.reshape(n, -1), axis=1)
+
+
+# --- old-style JPEG (OJPEG) TIFFs ------------------------------------------------
+
+def jpeg_markers(stream: bytes) -> list:
+    """A JPEG's marker segments up to and including SOS: [(marker, start,
+    end)], then ("scan", start, end) for the entropy-coded data up to EOI
+    (restart markers kept)."""
+    out, pos = [], 2
+    while True:
+        marker = stream[pos + 1]
+        (length,) = struct.unpack(">H", stream[pos + 2:pos + 4])
+        out.append((marker, pos, pos + 2 + length))
+        pos += 2 + length
+        if marker == 0xDA:
+            break
+    end = stream.rindex(b"\xff\xd9")
+    out.append(("scan", pos, end))
+    return out
+
+
+def split_restarts(scan: bytes) -> list:
+    """Entropy-coded data -> its restart intervals (RSTn removed)."""
+    import re
+
+    return re.split(rb"\xff[\xd0-\xd7]", scan)
+
+
+def write_ojpeg(rgb: np.ndarray, *, layout: str = "jif", sampling=(2, 2),
+                rows_per_strip: int | None = None,
+                tile: tuple | None = None, quality: int = 75,
+                photometric: int = 6, spp_tag: bool = True,
+                restart_tag: bool = True, tags: dict | None = None) -> bytes:
+    """An old-style JPEG (compression 6) TIFF of ``rgb`` ((h, w, 3), or
+    (h, w, 1) for gray) made from a JPEG Pillow writes: the image as one
+    JPEG with a restart interval a strip (or tiles stacked as one JPEG a
+    tile wide), each strip's or tile's entropy-coded data an interval.
+    ``layout`` "jif" points JPEGInterchangeFormat (513/514) at the whole
+    JPEG; "tables" writes JPEGProc (512), JPEGRestartInterval (515) and the
+    JPEGQTables/DCTables/ACTables (519-521) a component, the strips then
+    holding the bare intervals. ``sampling`` (h, v) is 1x1, 2x1 or 2x2."""
+    from PIL import Image
+
+    h, w, nc = rgb.shape
+    hs, vs = sampling if nc == 3 else (1, 1)
+    if tile:
+        tw, th = tile
+        across, down = -(-w // tw), -(-h // th)
+        blocks = []
+        for ty in range(down):
+            for tx in range(across):
+                part = rgb[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw]
+                blocks.append(np.pad(part, ((0, th - part.shape[0]),
+                                            (0, tw - part.shape[1]), (0, 0)),
+                                     mode="edge"))
+        image = np.concatenate(blocks, 0)
+        unit_rows = th // (8 * vs)
+    else:
+        rps = rows_per_strip or h
+        image = rgb
+        unit_rows = rps // (8 * vs)
+    sub = {(1, 1): 0, (2, 1): 1, (2, 2): 2}[(hs, vs)]
+    img = Image.fromarray(image[..., 0] if nc == 1 else image)
+    jpeg = pillow_bytes(img, "JPEG", quality=quality, subsampling=sub,
+                        restart_marker_rows=unit_rows)
+    segs = jpeg_markers(jpeg)
+    scan_start, scan_end = segs[-1][1], segs[-1][2]
+    intervals = split_restarts(jpeg[scan_start:scan_end])
+    body = bytearray(b"II*\x00\x00\x00\x00\x00")
+    jif_at = len(body)
+    body += jpeg
+    # each interval's place in the copy of the JPEG
+    offsets, pos = [], jif_at + scan_start
+    for part in intervals:
+        offsets.append(pos)
+        pos += len(part) + 2
+    counts = [len(p) for p in intervals]
+    entries = {}
+    if layout == "tables":
+        dqt = _dqt_tables(jpeg, segs)
+        dht = _dht_tables(jpeg, segs)
+        sof = next(jpeg[a:e] for m, a, e in segs[:-1] if m == 0xC0)
+        sos = next(jpeg[a:e] for m, a, e in segs[:-1] if m == 0xDA)
+        tq = [sof[10 + 3 * c + 2] for c in range(nc)]
+        td = [sos[6 + 2 * c] >> 4 for c in range(nc)]
+        ta = [sos[6 + 2 * c] & 15 for c in range(nc)]
+        at = {}
+        for key, blob in [*dqt.items(), *dht.items()]:
+            at[key] = len(body)
+            body += blob
+        entries[512] = (3, [1])
+        if restart_tag:
+            dri = [jpeg[a + 4:a + 6] for m, a, e in segs[:-1] if m == 0xDD]
+            entries[515] = (3, [struct.unpack(">H", dri[0])[0]])
+        entries[519] = (4, [at["q", t] for t in tq])
+        entries[520] = (4, [at["dc", t] for t in td])
+        entries[521] = (4, [at["ac", t] for t in ta])
+    else:
+        entries[513] = (4, [jif_at])
+        entries[514] = (4, [len(jpeg)])
+    entries.update({256: (4, [w]), 257: (4, [h]), 258: (3, [8] * nc),
+                    259: (3, [6]), 262: (3, [photometric])})
+    if spp_tag:
+        entries[277] = (3, [nc])
+    if nc == 3:
+        entries[530] = (3, [hs, vs])
+    if tile:
+        entries.update({322: (4, [tw]), 323: (4, [th]), 324: (4, offsets),
+                        325: (4, counts)})
+    else:
+        entries.update({278: (4, [rps]), 273: (4, offsets),
+                        279: (4, counts)})
+    entries.update(tags or {})
+    return _tiff_with_body(bytes(body), entries)
+
+
+def _dqt_tables(jpeg: bytes, segs: list) -> dict:
+    """{("q", id): 64 bytes} of the 8-bit tables of the DQT segments."""
+    out = {}
+    for m, a, e in segs[:-1]:
+        if m == 0xDB:
+            for at in range(a + 4, e, 65):
+                out["q", jpeg[at] & 15] = jpeg[at + 1:at + 65]
+    return out
+
+
+def _dht_tables(jpeg: bytes, segs: list) -> dict:
+    """{("dc" or "ac", id): 16 counts + values} from the DHT segments."""
+    out = {}
+    for m, a, e in segs[:-1]:
+        if m != 0xC4:
+            continue
+        pos = a + 4
+        while pos < e:
+            tc, th = jpeg[pos] >> 4, jpeg[pos] & 15
+            n = sum(jpeg[pos + 1:pos + 17])
+            out["ac" if tc else "dc", th] = jpeg[pos + 1:pos + 17 + n]
+            pos += 17 + n
+    return out
+
+
+def _tiff_with_body(body: bytes, entries: dict) -> bytes:
+    """A little-endian TIFF of ``body`` (its first 8 bytes the header,
+    rewritten) and one IFD of ``entries`` {tag: (type, values)} after it."""
+    body = bytearray(body)
+    if len(body) % 2:
+        body.append(0)
+    ifd_at = len(body)
+    struct.pack_into("<I", body, 4, ifd_at)
+    tags = sorted(entries)
+    values_at = ifd_at + 2 + 12 * len(tags) + 4
+    ifd = bytearray(struct.pack("<H", len(tags)))
+    blob = bytearray()
+    for tag in tags:
+        typ, vals = entries[tag]
+        if typ == 5:
+            payload = struct.pack(f"<{2 * len(vals)}I",
+                                  *[v for pair in vals for v in pair])
+        elif typ == 7:
+            payload = bytes(vals)
+        else:
+            payload = struct.pack(f"<{len(vals)}{_FIELD[typ][0]}", *vals)
+        if len(payload) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + payload.ljust(
+                4, b"\0")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals),
+                               values_at + len(blob))
+            blob += payload
+            if len(blob) % 2:
+                blob.append(0)
+    ifd += struct.pack("<I", 0)
+    return bytes(body + ifd + blob)
+
+
+# --- Zstandard (libzstd through ctypes) --------------------------------------
+
+_LIBZSTD: list = []
+
+
+def libzstd():
+    """Pillow's bundled libzstd 1.5.7 (``pillow.libs/libzstd-*.so.1.5.7``,
+    which its libtiff writes and reads zstd TIFFs with), bound with
+    ctypes."""
+    if _LIBZSTD:
+        return _LIBZSTD[0]
+    import ctypes
+    import glob
+
+    import PIL
+
+    root = os.path.dirname(os.path.dirname(PIL.__file__))
+    lib = ctypes.CDLL(glob.glob(os.path.join(root, "pillow.libs",
+                                             "libzstd-*"))[0])
+    size_t, vp = ctypes.c_size_t, ctypes.c_void_p
+    for name, args, res in (
+            ("ZSTD_decompress", [vp, size_t, vp, size_t], size_t),
+            ("ZSTD_isError", [size_t], ctypes.c_uint),
+            ("ZSTD_getErrorName", [size_t], ctypes.c_char_p),
+            ("ZSTD_createCCtx", [], vp), ("ZSTD_freeCCtx", [vp], size_t),
+            ("ZSTD_CCtx_setParameter", [vp, ctypes.c_int, ctypes.c_int],
+             size_t),
+            ("ZSTD_compress2", [vp, vp, size_t, vp, size_t], size_t),
+            ("ZSTD_compressBound", [size_t], size_t),
+            ("ZSTD_createDStream", [], vp), ("ZSTD_freeDStream", [vp], size_t),
+            ("ZSTD_initDStream", [vp], size_t),
+            ("ZSTD_decompressStream", [vp, vp, vp], size_t)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    _LIBZSTD.append(lib)
+    return lib
+
+
+def zstd_compress(data: bytes, level: int = 3, checksum: bool = False,
+                  content_size: bool = True, window_log: int = 0) -> bytes:
+    """``ZSTD_compress2`` at ``level`` (-5 to 22), with or without the
+    content checksum and the content size."""
+    import ctypes
+
+    lib = libzstd()
+    cctx = lib.ZSTD_createCCtx()
+    try:
+        for param, value in ((100, level), (201, int(checksum)),
+                             (200, int(content_size)), (101, window_log)):
+            lib.ZSTD_CCtx_setParameter(cctx, param, value)
+        cap = lib.ZSTD_compressBound(len(data))
+        out = ctypes.create_string_buffer(cap)
+        n = lib.ZSTD_compress2(cctx, out, cap, data, len(data))
+        assert not lib.ZSTD_isError(n), lib.ZSTD_getErrorName(n)
+        return out.raw[:n]
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+
+
+def libzstd_decompress(src: bytes, cap: int = 1 << 24) -> bytes | None:
+    """``ZSTD_decompress`` into ``cap`` bytes: the output, or None where
+    libzstd refuses ``src``."""
+    import ctypes
+
+    lib = libzstd()
+    out = ctypes.create_string_buffer(max(cap, 1))
+    n = lib.ZSTD_decompress(out, cap, src, len(src))
+    return None if lib.ZSTD_isError(n) else out.raw[:n]
+
+
+def libzstd_stream(src: bytes, limit: int) -> bytes | None:
+    """libtiff's ``ZSTDDecode`` loop over ``ZSTD_decompressStream`` with
+    ``limit`` bytes of output: what it wrote (short where the data ran
+    out), or None where it failed."""
+    import ctypes
+
+    class Buffer(ctypes.Structure):
+        _fields_ = [("ptr", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                    ("pos", ctypes.c_size_t)]
+
+    lib = libzstd()
+    ds = lib.ZSTD_createDStream()
+    try:
+        lib.ZSTD_initDStream(ds)
+        src_buf = ctypes.create_string_buffer(src, len(src))
+        out = ctypes.create_string_buffer(max(limit, 1))
+        inb = Buffer(ctypes.cast(src_buf, ctypes.c_void_p), len(src), 0)
+        outb = Buffer(ctypes.cast(out, ctypes.c_void_p), limit, 0)
+        while True:
+            ret = lib.ZSTD_decompressStream(ds, ctypes.byref(outb),
+                                            ctypes.byref(inb))
+            if lib.ZSTD_isError(ret):
+                return None
+            if not (ret != 0 and inb.pos < inb.size and outb.pos < outb.size):
+                break
+        return out.raw[:outb.pos]
+    finally:
+        lib.ZSTD_freeDStream(ds)
 
 
 # --- WebP ------------------------------------------------------------------------
@@ -1707,6 +2037,7 @@ def fixtures() -> dict:
     out.update(legacy_fixtures())
     out.update(sci_rare_fixtures())
     out.update(jpeg2000_fixtures())
+    out.update(tiff_leftover_fixtures())
     return out
 
 
@@ -1772,6 +2103,108 @@ def tiff_variant_fixtures() -> dict:
         sample_image(21, 13, 14, 3).astype(np.uint16) * 257, 16, 2,
         compression=34925, predictor=2)
     return out
+
+
+def tiff_leftover_fixtures() -> dict:
+    """{file name: bytes} of TIFF's last variants under ``tests/ldr``: zstd
+    (Pillow's libtiff and this suite's writer, with libzstd), old-style
+    JPEG in both layouts (``write_ojpeg``), ThunderScan, CCITT RLEW,
+    big-endian signed 16-bit samples and separate planes of other modes."""
+    from PIL import Image
+
+    rgb = sample_image(40, 24, 41, 3)
+    rgba = sample_image(37, 21, 42)
+    gray = sample_image(33, 17, 43, 1)
+    rgb16 = sample_image(29, 15, 44, 4).astype(np.uint16) * 257 + 3
+    wide = sample_image(48, 32, 45, 3)
+    out = {}
+    out["zstd_rgb_pillow.tif"] = pillow_bytes(rgb, "TIFF", compression="zstd")
+    out["zstd_rgba_pred2.tif"] = pillow_bytes(rgba, "TIFF", compression="zstd",
+                                              tiffinfo={317: 2})
+    out["zstd_gray16_mm_tiles.tif"] = write_tiff(
+        rgb16[..., :1], 16, 1, compression=50000, predictor=2, order=">",
+        tile=(16, 16))
+    out["zstd_float_pred3.tif"] = write_tiff(float_gray(27, 19, 46), 32, 1,
+                                             compression=50000, predictor=3,
+                                             sample_format=3, rows_per_strip=8)
+    out["ojpeg_jif_420_strips.tif"] = write_ojpeg(wide, rows_per_strip=16)
+    out["ojpeg_jif_422_tiles.tif"] = write_ojpeg(wide, sampling=(2, 1),
+                                                 tile=(16, 16))
+    out["ojpeg_tables_444.tif"] = write_ojpeg(wide, layout="tables",
+                                              sampling=(1, 1),
+                                              rows_per_strip=8)
+    out["ojpeg_tables_420_nospp.tif"] = write_ojpeg(wide, layout="tables",
+                                                    spp_tag=False,
+                                                    rows_per_strip=16)
+    out["ojpeg_tables_gray.tif"] = write_ojpeg(wide[..., :1], layout="tables",
+                                               photometric=1,
+                                               rows_per_strip=8)
+    out["ojpeg_jif_rgb_photometric.tif"] = write_ojpeg(wide, photometric=2,
+                                                       sampling=(1, 1))
+    out["thunderscan_gray4.tif"] = write_tiff(gray >> 4, 4, 1,
+                                              compression=32809,
+                                              rows_per_strip=6)
+    out["thunderscan_palette4.tif"] = write_tiff(
+        gray >> 4, 4, 3, compression=32809,
+        colormap=np.arange(48).reshape(3, 16) * 4000 % 65536)
+    bits = (gray > 110).astype(np.uint8)
+    out["rlew.tif"] = write_tiff(bits, 1, 0, compression=32771,
+                                 rows_per_strip=5)
+    out["rlew_fill2.tif"] = write_tiff(bits, 1, 1, compression=32771, fill=2)
+    signed = (gray.astype(np.int64) - 100) * 150
+    out["signed16_mm_lzw.tif"] = write_tiff(signed, 16, 1, compression=5,
+                                            order=">", sample_format=2)
+    out["signed16_mm_zstd_pred2.tif"] = write_tiff(
+        signed, 16, 1, compression=50000, order=">", sample_format=2,
+        predictor=2)
+    out["planes_rgb16_lzw.tif"] = write_tiff(rgb16[..., :3], 16, 2,
+                                             compression=5, planar=2)
+    out["planes_rgba16_zstd.tif"] = write_tiff(rgb16, 16, 2,
+                                               compression=50000, planar=2,
+                                               extra=(2,))
+    out["planes_cmyk16_deflate.tif"] = write_tiff(rgb16, 16, 5, compression=8,
+                                                  planar=2)
+    out["planes_la_packbits.tif"] = write_tiff(rgba[..., :2], 8, 1,
+                                               compression=32773, planar=2,
+                                               extra=(2,))
+    out["planes_lab_lzw.tif"] = write_tiff(rgb, 8, 8, compression=5,
+                                           planar=2, rows_per_strip=7)
+    out["planes_jpeg_rgb.tif"] = write_tiff(rgb, 8, 2, compression=7,
+                                            planar=2, rows_per_strip=8)
+    return out
+
+
+def env_tiff_zstd(w: int, h: int, seed: int) -> bytes:
+    """An environment map: a zstd RGB TIFF (predictor 2) written by
+    Pillow's libtiff."""
+    return pillow_bytes(sample_image(w, h, seed, 3), "TIFF",
+                        compression="zstd", tiffinfo={317: 2})
+
+
+def env_tiff_ojpeg(w: int, h: int, seed: int) -> bytes:
+    """An environment map: an old-style JPEG TIFF, YCbCr 2x2, the table
+    tags' layout."""
+    return write_ojpeg(sample_image(w, h, seed, 3), layout="tables",
+                       rows_per_strip=16)
+
+
+LARGE_TIFF_ZSTD = "zstd_rgb_pred2_4096x2048.tif"
+LARGE_TIFF_OJPEG = "ojpeg_ycbcr_4096x2048.tif"
+MEDIUM_TIFF_ZSTD = "zstd_rgb_pred2_512x256.tif"
+MEDIUM_TIFF_OJPEG = "ojpeg_ycbcr_512x256.tif"
+
+
+def tiff_timing_file(kind: str, w: int, h: int) -> bytes:
+    """The card's zstd and old-style JPEG timing maps (committed: its host
+    has neither libzstd nor a JPEG encoder): ``smooth_rgba``'s colours,
+    zstd at level 3 with predictor 2 in strips of 16 rows, or old-style
+    JPEG (4:2:0, quality 90, the interchange stream's layout, strips of
+    64 rows)."""
+    rgb = smooth_rgba(w, h)[..., :3]
+    if kind == "zstd":
+        return write_tiff(rgb, 8, 2, compression=50000, predictor=2,
+                          rows_per_strip=16)
+    return write_ojpeg(rgb, rows_per_strip=64, quality=90)
 
 
 def float_gray(w: int, h: int, seed: int) -> np.ndarray:
@@ -2951,6 +3384,8 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
     files["env.spi"] = env_spider(64, 32, 33)
     files["env.jp2"] = env_jp2(64, 32, 34)
     files["env_rpcl.j2k"] = env_j2k_rpcl(64, 32, 35)
+    files["env_zstd.tif"] = env_tiff_zstd(64, 32, 36)
+    files["env_ojpeg.tif"] = env_tiff_ojpeg(64, 32, 37)
     decoded = {}
     for name, data in files.items():
         with open(os.path.join(directory, name), "wb") as f:
@@ -2969,7 +3404,15 @@ def write_fixtures(directory: str = LDR_DIR) -> None:
                        (MEDIUM_J2K_IRR, lambda: j2k_timing_file(512, 256,
                                                                 True)),
                        (MEDIUM_J2K_REV, lambda: j2k_timing_file(512, 256,
-                                                                False))):
+                                                                False)),
+                       (LARGE_TIFF_ZSTD, lambda: tiff_timing_file(
+                           "zstd", 4096, 2048)),
+                       (LARGE_TIFF_OJPEG, lambda: tiff_timing_file(
+                           "ojpeg", 4096, 2048)),
+                       (MEDIUM_TIFF_ZSTD, lambda: tiff_timing_file(
+                           "zstd", 512, 256)),
+                       (MEDIUM_TIFF_OJPEG, lambda: tiff_timing_file(
+                           "ojpeg", 512, 256))):
         data = make()
         with open(os.path.join(directory, name), "wb") as f:
             f.write(data)

@@ -1,9 +1,10 @@
 """Hold the LDR readers to Pillow on mutated and generated files.
 
     python tools/ldr_fuzz.py [--kind tga|bmp|icon|ppm|tiff|tiff_big|tiff_ycbcr|
-        tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|webp|gif|qoi|pcx|sgi|psd|dds|
-        ftex|blp|icns|sun|msp|xbm|xpm|jpeg_cut|im|spider|fits|mcidas|gbr|
-        xvthumb|pixar|imt|iptc|pcd|fli|j2k|jp2|mut] [--n 2000] [--seed 1]
+        tiff_float|tiff_jpeg|tiff_fax|tiff_oldlzw|tiff_zstd|tiff_ojpeg|webp|
+        gif|qoi|pcx|sgi|psd|dds|ftex|blp|icns|sun|msp|xbm|xpm|jpeg_cut|im|
+        spider|fits|mcidas|gbr|xvthumb|pixar|imt|iptc|pcd|fli|j2k|jp2|zstd|
+        mut] [--n 2000] [--seed 1]
 
 Each case is random bytes of one format (``tests/torch_image_cases.py``'s
 writers with random headers, depths, compressions and layouts; for TIFF
@@ -33,7 +34,10 @@ Pillow's JPEG 2000 writer under random options and libopenjp2's encoder
 with code-block styles, SOP/EPH, ROI, subsampling and tile-parts, some
 rewritten with PPT/PPM or cut into tile-parts (``tools/j2k_fixtures.py``);
 for ``jp2``, Pillow's JP2 files and codestreams under random JP2 boxes;
-a quarter of them then mutated) or, with
+for ``tiff_zstd``, Pillow's zstd TIFFs and this suite's over libzstd at
+any level, layout and sample kind; for ``tiff_ojpeg``, old-style JPEG in
+both layouts with tags present, absent or wrong; a quarter of them then
+mutated) or, with
 ``--kind mut``, a file under ``tests/ldr`` with a few bytes changed or its
 end cut. Pillow (the JAX package's reader)
 and ``utils/image.py::decode_image_rgba`` decode it, the latter with the
@@ -41,6 +45,9 @@ C++ loops and with their Python versions. A case is BAD when the port
 returns an array that is not Pillow's, or any array where Pillow raises;
 it is a GAP when Pillow reads it and the port raises. BAD cases are
 written under ``build/ldr_fuzz/``; the exit code is 1 if there is one.
+``--kind zstd`` holds Zstandard frames alone (libzstd's, a quarter
+mutated) to ``ZSTD_decompress`` and to libtiff's stream loop with a
+strip's room, through Pillow's libzstd.
 A case Pillow takes longer than ``--pillow-seconds`` on is skipped and
 counted apart, and so is one where OpenJPEG (in Pillow or its encoder)
 kills the process, which JPEG 2000 cases run in a child.
@@ -395,6 +402,159 @@ def rnd_tiff_jpeg(rng) -> bytes:
         rows_per_strip=8 * int(rng.integers(1, 4)), tags=tags,
         jpeg={"sampling": sampling, "quality": int(rng.integers(20, 100)),
               "tables": bool(rng.random() < 0.7)})
+
+
+def rnd_tiff_zstd(rng) -> bytes:
+    """zstd TIFFs: Pillow's libtiff writer (predictor 2 or none) or this
+    suite's writer over libzstd at any level, with or without checksums,
+    gray, RGB(A), 16-bit either byte order, float under predictor 3,
+    YCbCr, separate planes, strips or tiles."""
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+    img = C.sample_image(w, h, int(rng.integers(0, 1 << 16)), 4)
+    if rng.random() < 0.3:
+        img = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    kind = pick(rng, ["pillow", "rgb", "gray16", "float", "ycbcr", "planes"])
+    if kind == "pillow":
+        mode = pick(rng, ["RGB", "RGBA", "L", "1", "I;16", "CMYK"])
+        im = Image.fromarray(img).convert(mode) if mode != "I;16" else \
+            Image.fromarray(img[..., 0].astype(np.uint16) * 251)
+        info = {317: 2} if mode not in ("1",) and rng.random() < 0.5 else {}
+        return C.pillow_bytes(im, "TIFF", compression="zstd", tiffinfo=info)
+    level, check = int(rng.integers(-5, 20)), bool(rng.random() < 0.5)
+    old = C.COMPRESS[50000]
+    C.COMPRESS[50000] = lambda b: C.zstd_compress(b, level, check)
+    try:
+        tile = ((16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+                if rng.random() < 0.3 else None)
+        rps = int(rng.integers(1, h + 3))
+        order = pick(rng, ["<", ">"])
+        if kind == "rgb":
+            return C.write_tiff(img[..., :3], 8, 2, compression=50000,
+                                predictor=pick(rng, [1, 2]), tile=tile,
+                                rows_per_strip=rps)
+        if kind == "gray16":
+            return C.write_tiff(img[..., :1].astype(np.uint16) * 257, 16, 1,
+                                compression=50000, order=order,
+                                predictor=pick(rng, [1, 2]),
+                                sample_format=pick(rng, [None, 2]),
+                                tile=tile, rows_per_strip=rps)
+        if kind == "float":
+            return C.write_tiff(C.float_gray(w, h, int(rng.integers(99))),
+                                32, 1, compression=50000, sample_format=3,
+                                predictor=pick(rng, [1, 3]), order=order,
+                                rows_per_strip=rps)
+        if kind == "ycbcr":
+            sub = pick(rng, [(1, 1), (2, 1), (2, 2), (4, 4)])
+            return C.write_tiff(C.rgb_to_ycbcr(img[..., :3]), 8, 6,
+                                compression=50000, subsampling=sub,
+                                rows_per_strip=sub[1] * int(
+                                    rng.integers(1, 4)))
+        bits = pick(rng, [8, 16])
+        v = img if bits == 8 else img.astype(np.uint16) * 257
+        n = pick(rng, [2, 3, 4])
+        photo = {2: 1, 3: 2, 4: 2}[n]
+        extra = (2,) if n in (2, 4) else ()
+        return C.write_tiff(v[..., :n], bits, photo, compression=50000,
+                            planar=2, extra=extra, tile=tile,
+                            rows_per_strip=rps)
+    finally:
+        C.COMPRESS[50000] = old
+
+
+def rnd_tiff_ojpeg(rng) -> bytes:
+    """Old-style JPEG TIFFs in both layouts: 4:2:0, 4:2:2, 4:4:4 or gray,
+    strips or tiles, with or without the restart interval, the sample
+    count, the photometric Pillow forces, YCbCrSubsampling agreeing or
+    not, JPEGInterchangeFormatLength wrong."""
+    w = 16 * int(rng.integers(1, 4))
+    h = 16 * int(rng.integers(1, 4))
+    img = C.sample_image(w, h, int(rng.integers(0, 1 << 16)), 3)
+    if rng.random() < 0.2:
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    gray = rng.random() < 0.2
+    kw = {"layout": pick(rng, ["jif", "tables"]),
+          "sampling": pick(rng, [(1, 1), (2, 1), (2, 2)]),
+          "quality": int(rng.integers(30, 98)),
+          "restart_tag": bool(rng.random() < 0.85),
+          "spp_tag": bool(rng.random() < 0.85)}
+    if rng.random() < 0.3:
+        kw["tile"] = (16, 16) if kw["sampling"] != (1, 1) or rng.random() < .5 \
+            else (16, 8)
+    else:
+        kw["rows_per_strip"] = 16 * int(rng.integers(1, h // 16 + 1))
+    if gray:
+        kw["photometric"] = 1
+        img = img[..., :1]
+    elif rng.random() < 0.15:
+        kw["photometric"] = pick(rng, [2, 6, 0])
+    tags = {}
+    if rng.random() < 0.15:
+        tags[530] = (3, list(pick(rng, [(1, 1), (2, 1), (2, 2)])))
+    if rng.random() < 0.1:
+        tags[514] = (4, [int(rng.integers(0, 2000))])
+    kw["tags"] = tags
+    return C.write_ojpeg(img, **kw)
+
+
+def zstd_case(rng) -> tuple:
+    """A frame libzstd writes (any level, checksum, content size, window)
+    over random, low-entropy, image or text bytes, a quarter mutated, and
+    a strip's room for libtiff's stream loop."""
+    n = int(pick(rng, [0, 1, 7, 100, 1000, 6000, 40000]))
+    kind = int(rng.integers(0, 4))
+    if kind == 0:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    elif kind == 1:
+        data = (rng.integers(0, 4, n, dtype=np.uint8) * 40).tobytes()
+    elif kind == 2:
+        data = C.sample_image(max(1, n // 12), 4, int(rng.integers(99)),
+                              3).tobytes()[:n]
+    else:
+        words = [b"zstd", b"frame", b"literal", b" ", b"sequence"]
+        data = b"".join(words[int(i)] for i in rng.integers(0, 5, n))[:n]
+    frame = C.zstd_compress(data, int(rng.integers(-5, 23)),
+                            bool(rng.random() < 0.5), bool(rng.random() < 0.7),
+                            int(pick(rng, [0, 0, 10, 17])))
+    if rng.random() < 0.75:
+        frame = mutate(frame, rng)
+    return frame, max(1, len(data) - int(pick(rng, [0, 0, 1, 5])))
+
+
+def run_zstd(args) -> int:
+    """``--kind zstd``: frames alone, the port's decoder (C++ and plain)
+    against ``ZSTD_decompress`` and against libtiff's stream loop with a
+    strip's room (a short or failed stream both refused)."""
+    from wgpu_path_tracing_tpu_torch.utils import zstd
+
+    rng = np.random.default_rng(args.seed)
+    counts = {"same": 0, "both_raise": 0, "bad": 0}
+    for i in range(args.n):
+        frame, limit = zstd_case(rng)
+        want = C.libzstd_decompress(frame, 1 << 24)
+        stream = C.libzstd_stream(frame, limit)
+        if stream is not None and len(stream) < limit:
+            stream = None
+        bad = False
+        for fn in (native.zstd_native, zstd.zstd_plain):
+            for lim, ref in ((None, want), (limit, stream)):
+                try:
+                    got = fn(frame, lim)
+                except zstd.ZstdError:
+                    got = None
+                if lim is not None and got is not None and len(got) < lim:
+                    got = None
+                bad |= got != ref
+        if bad:
+            counts["bad"] += 1
+            os.makedirs(OUT_DIR, exist_ok=True)
+            path = os.path.join(OUT_DIR, f"zstd_s{args.seed}_{i}.zst")
+            with open(path, "wb") as f:
+                f.write(frame)
+            print(f"BAD (room {limit}): {path}")
+        else:
+            counts["same" if want is not None else "both_raise"] += 1
+    print("zstd", counts)
+    return 1 if counts["bad"] else 0
 
 
 def rnd_tiff_fax(rng) -> bytes:
@@ -1351,12 +1511,13 @@ GEN = {"tga": rnd_tga, "bmp": rnd_bmp, "icon": rnd_icon, "ppm": rnd_ppm,
        "im": rnd_im, "spider": rnd_spider, "fits": rnd_fits,
        "mcidas": rnd_mcidas, "gbr": rnd_gbr, "xvthumb": rnd_xvthumb,
        "pixar": rnd_pixar, "imt": rnd_imt, "iptc": rnd_iptc, "pcd": rnd_pcd,
-       "fli": rnd_fli, "j2k": rnd_j2k, "jp2": rnd_jp2}
+       "fli": rnd_fli, "j2k": rnd_j2k, "jp2": rnd_jp2,
+       "tiff_zstd": rnd_tiff_zstd, "tiff_ojpeg": rnd_tiff_ojpeg}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", default="mut", choices=[*GEN, "mut"])
+    ap.add_argument("--kind", default="mut", choices=[*GEN, "zstd", "mut"])
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--pillow-seconds", type=float, default=30.0,
@@ -1364,6 +1525,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     resource.setrlimit(resource.RLIMIT_AS, (3 << 30, 3 << 30))
     warnings.simplefilter("ignore")
+    if args.kind == "zstd":
+        return run_zstd(args)
     rng = np.random.default_rng(args.seed)
     fixtures = list(C.fixtures().values())
     counts = {"same": 0, "both_raise": 0, "gap": 0, "bad": 0,

@@ -2,8 +2,10 @@
 // Fax3Decode1D, Fax3Decode2D, Fax4Decode) on one TIFF strip or tile, the
 // same samples and status as utils/fax.py::fax_plain, its plain version.
 // Compression 2 is modified Huffman, 3 T.4 (two-dimensional rows under
-// T4Options bit 0), 4 T.6. The bits come most significant first (the
-// caller reverses fill order 2). Status: 0 decoded; 1 the data ran out, or
+// T4Options bit 0), 4 T.6, 32771 modified Huffman with each row padded to
+// a 16-bit boundary of memory (RLEW: options is the parity of the strip's
+// file offset, where libtiff reads it in the file's image). The bits come
+// most significant first (the caller reverses fill order 2). Status: 0 decoded; 1 the data ran out, or
 // a T.6 strip ended, before its last row; 2 a run array would overflow, or
 // a T.6 strip ended on its first row.
 
@@ -418,6 +420,10 @@ extern "C" int64_t wpt_fax(const uint8_t* src, int64_t n, int32_t compression,
       }
       fill(dst, f.cur, f.pa, lastx);
       if (compression == 2) f.clr(f.avail & 7);
+      if (compression == 32771) {
+        f.clr(f.avail & 15);
+        if (f.avail == 0 && ((options + f.cp) & 1)) f.cp++;
+      }
       if (two_d) {
         if (compression == 4 || f.pa < f.nruns) {
           if (f.pa >= f.nruns) throw Overflow{};

@@ -26,7 +26,9 @@
 // * wpt_fli: Pillow's FliDecode of one FLI/FLC frame's chunks
 //   (utils/fli.py::fli_plain);
 // * wpt_bit_decode: Pillow's BitDecode at an IM file's "F;n" arguments
-//   (utils/im.py::bits_plain).
+//   (utils/im.py::bits_plain);
+// * wpt_thunder: libtiff's ThunderDecode of one TIFF strip, a row at a
+//   time (utils/tiff.py::thunder_plain).
 // Each writes into a buffer the caller sizes and returns a status or the
 // count of bytes written.
 
@@ -870,4 +872,69 @@ extern "C" int64_t wpt_bit_decode(const uint8_t* data, int64_t n, int64_t pos,
     }
   }
   return 1;
+}
+
+// Status: 0 done; 1 a row's data ran out or gave too many pixels (libtiff
+// zeroes the rest of that row and fails the strip).
+extern "C" int64_t wpt_thunder(const uint8_t* src, int64_t n, int64_t width,
+                               int64_t rows, uint8_t* out) {
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t rowbytes = (width + 1) / 2;
+  int64_t bp = 0;
+  for (int64_t r = 0; r < rows; ++r) {
+    uint8_t* row = out + r * rowbytes;
+    uint8_t* op = row;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xF;
+      if (npixels < width) {
+        if (npixels++ & 1)
+          *op++ |= uint8_t(lastpixel);
+        else
+          op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (bp < n && npixels < width) {
+      int c = src[bp++];
+      int64_t k = c;
+      switch (c & 0xC0) {
+        case 0x00:
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            k--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels <= width)
+            for (; k > 0; k -= 2) *op++ = uint8_t(lastpixel);
+          if (k == -1) *--op &= 0xF0;
+          lastpixel &= 0xF;
+          break;
+        case 0x40:
+          for (int shift = 4; shift >= 0; shift -= 2) {
+            int d = (c >> shift) & 3;
+            if (d != 2) setpixel(unsigned(int(lastpixel) + kTwo[d]));
+          }
+          break;
+        case 0x80:
+          for (int shift = 3; shift >= 0; shift -= 3) {
+            int d = (c >> shift) & 7;
+            if (d != 4) setpixel(unsigned(int(lastpixel) + kThree[d]));
+          }
+          break;
+        default:
+          setpixel(unsigned(c));
+      }
+    }
+    if (npixels != width) {
+      std::memset(op, 0, size_t(row + rowbytes - op));
+      return 1;
+    }
+  }
+  return 0;
 }

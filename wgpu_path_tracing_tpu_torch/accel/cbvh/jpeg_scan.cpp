@@ -360,7 +360,8 @@ bool arith_ac_value(QM& qm, ArithState& s, uint8_t* stats, int st, int k,
 // and ac_tab are table numbers 0..15), with the DAC conditioning of the 16
 // tables: dc_lo (L), dc_hi (U) and ac_kx (Kx). Bad data is no error: as
 // jdarith.c, the rest of its restart interval is left undecoded. Data that
-// ends early, or a missing (empty) interval, reads zero bytes.
+// ends early, or a missing (empty) interval, reads zero bytes. Returns the
+// bytes the last interval's decoder read (counting those past its end).
 extern "C" int64_t wpt_jpeg_arith_scan(
     const uint8_t* data, const int64_t* seg_start, int64_t n_segs,
     int32_t mode, int32_t ss, int32_t se, int32_t al, int64_t n_mcus,
@@ -371,6 +372,7 @@ extern "C" int64_t wpt_jpeg_arith_scan(
     int32_t** coefs) {
   const int p1 = 1 << al, m1 = -(1 << al);
   ArithState s;
+  int64_t last_read = 0;  // bytes the last interval read, past its end too
   for (int64_t seg = 0; seg < n_segs; ++seg) {
     QM qm{data + seg_start[seg], seg_start[seg + 1] - seg_start[seg]};
     s = ArithState();
@@ -461,8 +463,9 @@ extern "C" int64_t wpt_jpeg_arith_scan(
         }
       }
     }
+    last_read = qm.pos;
   }
-  return 0;
+  return last_read;
 }
 
 // A lossless component's samples from its (height, width) differences
@@ -505,4 +508,135 @@ extern "C" int64_t wpt_jpeg_undifference(
     prev.swap(cur);
   }
   return 0;
+}
+
+// Whether libjpeg-turbo, fed as Pillow feeds it, decodes `mcus` MCUs of
+// sequential Huffman data from byte `start` of the file without asking
+// for a byte past its end (utils/jpeg.py::huffman_reads_whole, the same
+// answer): ends[i] is the end in the file of the interval's i-th data byte
+// (FF 00 taking two), marker the end of the marker after them (-1: the
+// data runs to the end of the file); each of the MCU's n_blocks blocks
+// uses Huffman tables dc_tab and ac_tab (lookups of tables); fast: no
+// restart interval, so jdhuff.c may take its fast path.
+namespace {
+
+struct SuspendOut {};
+struct MarkerHit {};
+
+struct Eof {
+  const uint8_t* data;
+  int64_t n, start, nb, marker, avail;
+  const int64_t* ends;
+  std::vector<uint8_t> ub, plain;
+  int64_t u = 0, left = 0, p = 0;
+
+  int64_t spos() const { return u ? ends[u - 1] : start; }
+  uint32_t window(int64_t at) const {
+    uint32_t w = 0;
+    for (int k = 0; k < 4; ++k)
+      w = (w << 8) | (at + k < nb ? ub[size_t(at + k)] : 0);
+    return w;
+  }
+  void fill() {
+    while (left < 57) {
+      if (u == nb) {
+        if (marker < 0 || marker > avail) throw SuspendOut{};
+        throw MarkerHit{};
+      }
+      if (ends[u] > avail) throw SuspendOut{};
+      ++u;
+      left += 8;
+    }
+  }
+  void fast_fill() {
+    if (left <= 16) {
+      if (u + 6 > nb) throw MarkerHit{};
+      for (int k = 0; k < 6; ++k)
+        if (!plain[size_t(u + k)]) throw MarkerHit{};
+      u += 6;
+      left += 48;
+    }
+  }
+  void take(int bits, bool slow, int check) {
+    if (slow && left < check) fill();
+    left -= bits;
+    p += bits;
+  }
+  int symbol(const int32_t* table, bool slow) {
+    if (!slow)
+      fast_fill();
+    else if (left < 8)
+      fill();
+    const int32_t e = table[(window(p >> 3) >> (16 - (p & 7))) & 0xFFFF];
+    const int length = e >> 8;
+    if (!slow || length <= 8) {
+      take(length, false, 0);
+    } else {
+      take(9, true, 9);
+      for (int k = 9; k < length; ++k) take(1, true, 1);
+    }
+    return e & 255;
+  }
+};
+
+}  // namespace
+
+extern "C" int64_t wpt_jpeg_reads_whole(const uint8_t* data, int64_t n,
+                                        int64_t start, const int64_t* ends,
+                                        int64_t nb, int64_t marker,
+                                        int64_t mcus, int32_t n_blocks,
+                                        const int32_t* dc_tab,
+                                        const int32_t* ac_tab,
+                                        const int32_t* const* tables,
+                                        int32_t fast) {
+  Eof st{data, n, start, nb, marker, 0, ends, {}, {}};
+  const int64_t block = 65536;
+  st.avail = (start + block - 1) / block * block;
+  if (st.avail > n) st.avail = n;
+  for (int64_t i = 0; i < nb; ++i) {
+    const int64_t q = i ? ends[i - 1] : start;
+    st.ub.push_back(data[q]);
+    st.plain.push_back(ends[i] - q <= 2);
+  }
+  const int64_t need_fast = 512 * int64_t(n_blocks);
+  for (int64_t m = 0; m < mcus; ++m) {
+    const int64_t u0 = st.u, left0 = st.left, p0 = st.p;
+    bool slow_only = !fast;
+    for (;;) {
+      const bool slow = slow_only || st.avail - st.spos() < need_fast;
+      try {
+        for (int j = 0; j < n_blocks; ++j) {
+          const int32_t* dct = tables[dc_tab[j]];
+          const int32_t* act = tables[ac_tab[j]];
+          const int s = st.symbol(dct, slow);
+          if (s) {
+            if (!slow) st.fast_fill();
+            st.take(s, slow, s);
+          }
+          for (int k = 1; k < 64;) {
+            const int rs = st.symbol(act, slow);
+            const int r = rs >> 4, sz = rs & 15;
+            if (sz) {
+              if (!slow) st.fast_fill();
+              st.take(sz, slow, sz);
+              k += r + 1;
+            } else if (r == 15) {
+              k += 16;
+            } else {
+              break;
+            }
+          }
+        }
+        break;
+      } catch (SuspendOut&) {
+        if (st.avail >= n) return 0;
+        st.avail = st.avail + block < n ? st.avail + block : n;
+      } catch (MarkerHit&) {
+        if (slow) return 1;
+        slow_only = true;
+      }
+      st.u = u0, st.left = left0, st.p = p0;
+    }
+  }
+  return 1;
 }

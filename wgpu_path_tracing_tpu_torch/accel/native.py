@@ -1,7 +1,7 @@
 """The native C++ scene-prep library (``accel/cbvh/*.cpp``), built with g++
 and bound with ``ctypes``.
 
-The counterpart of the JAX package's ``accel/native.py``. Ten sources,
+The counterpart of the JAX package's ``accel/native.py``. Eleven sources,
 each the twin of a NumPy or Python path of this package and bit-identical
 to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 
@@ -14,8 +14,9 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
 * ``potpack.cpp``: ``models/potpack.py::potpack_python``;
 * ``jpeg_scan.cpp``: the entropy decode of a JPEG scan, ``utils/jpeg.py::
   decode_scan`` and its progressive MCU decoders, ``decode_arith_scan``
-  and ``decode_lossless_scan``, and a lossless component's
-  ``undifference``;
+  and ``decode_lossless_scan``, a lossless component's ``undifference``,
+  and ``huffman_reads_whole`` (whether libjpeg decodes a scan that runs to
+  the end of the file without asking for more);
 * ``image_scan.cpp``: the per-packet loops of the LDR readers,
   ``utils/tga.py::rle_plain``, ``utils/bmp.py::rle_plain``,
   ``utils/tiff.py::packbits_plain`` and ``lzw_plain`` (new- and old-style
@@ -23,7 +24,8 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   ``utils/pcx.py::rle_plain``, ``utils/sgi.py::rle_plain``,
   ``utils/psd.py::packbits_rows_plain``, ``utils/sun.py::rle_plain``,
   ``utils/msp.py::rle_plain``, ``utils/icns.py::rle_plain``,
-  ``utils/fli.py::fli_plain`` and ``utils/im.py::bits_plain``;
+  ``utils/fli.py::fli_plain``, ``utils/im.py::bits_plain`` and
+  ``utils/tiff.py::thunder_plain``;
 * ``bcn_scan.cpp``: the BC1-BC7 block decoders of ``utils/bcn.py``, and
   the BLP reader's DXT1/3/5 decoder, ``utils/blp.py::dxt_plain``;
 * ``fax_scan.cpp``: the CCITT decoders of ``utils/fax.py::fax_plain``;
@@ -31,7 +33,9 @@ to it (``tests/test_torch_native.py``, ``tests/test_torch_jpeg.py``):
   vp8l_plain``, ``vp8_plain``, ``yuv_to_rgb_plain`` and
   ``unfilter_plain``;
 * ``j2k_scan.cpp``: the JPEG 2000 code-block decoder (MQ and raw passes),
-  ``utils/jpeg2000.py::t1_plain``.
+  ``utils/jpeg2000.py::t1_plain``;
+* ``zstd_scan.cpp``: the Zstandard frame decoder, ``utils/zstd.py::
+  zstd_plain``.
 
 Two things differ from the JAX package's copies, and each keeps the port's
 trees the NumPy build's. The SAH build sorts on float32 centroid keys, as
@@ -65,7 +69,7 @@ from wgpu_path_tracing_tpu_torch.accel.bvh import BVH, build_bvh as build_bvh_nu
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbvh")
 SOURCES = ("bvh_builder.cpp", "wide_collapse.cpp", "flatten.cpp",
            "potpack.cpp", "jpeg_scan.cpp", "image_scan.cpp", "webp_scan.cpp",
-           "fax_scan.cpp", "bcn_scan.cpp", "j2k_scan.cpp")
+           "fax_scan.cpp", "bcn_scan.cpp", "j2k_scan.cpp", "zstd_scan.cpp")
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "native")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
@@ -114,6 +118,11 @@ SIGNATURES = {
                             _I32, _I64, _I64, _I64, _I32, _I32P, _I64P,
                             _I64P, _I64P, _I32P, _I32P, _U8P, _U8P, _U8P,
                             _PTRS],
+    # data, its length, the interval's start, its data bytes' ends, their
+    # count, the marker's end, MCUs, blocks an MCU, each block's DC and AC
+    # table, the tables, fast path allowed
+    "wpt_jpeg_reads_whole": [ctypes.c_char_p, _I64, _I64, _I64P, _I64, _I64,
+                             _I64, _I32, _I32P, _I32P, _PTRS, _I32],
     # differences, row stride, width, height, first rows, predictor, Pt,
     # out samples
     "wpt_jpeg_undifference": [_I32P, _I64, _I64, _I64, _U8P, _I32, _I32,
@@ -177,6 +186,11 @@ SIGNATURES = {
     # code-block data, its length, the blocks' table, blocks, segments, out
     # samples
     "wpt_j2k_t1": [ctypes.c_char_p, _I64, _I64P, _I64, _I64P, _I32P],
+    # data, its length, width, rows, out (rows of (width + 1) // 2 bytes)
+    "wpt_thunder": [ctypes.c_char_p, _I64, _I64, _I64, _U8P],
+    # data, its length, the stream decoder's room (-1: every frame), out,
+    # its capacity, out bytes written (or needed)
+    "wpt_zstd": [ctypes.c_char_p, _I64, _I64, _U8P, _I64, _I64P],
 }
 # utils/bcn.py's formats -> (wpt_bcn's code, bytes a pixel).
 BCN_CODES = {"BC1": (1, 4), "BC2": (2, 4), "BC3": (3, 4), "BC4": (4, 1),
@@ -466,21 +480,44 @@ def jpeg_scan_native(segments: list, units: list, restart: int, n_mcus: int,
 
 def jpeg_arith_scan_native(segments: list, units: list, restart: int,
                            n_mcus: int, mode: int, ss: int, se: int, al: int,
-                           cond: dict) -> None:
+                           cond: dict) -> int:
     """One arithmetic-coded JPEG scan's decode in C++ (``jpeg_scan.cpp``),
     into the components' coefficient arrays in place, as ``utils/jpeg.py::
     decode_arith_scan`` takes its arguments (units carry table numbers, and
-    ``cond`` the DAC conditioning); the same coefficients."""
+    ``cond`` the DAC conditioning); the same coefficients, and the same
+    count of bytes the last interval read."""
     (data, starts, need, interval, mcus_row, n_blocks, slot, off, stride,
      mcu_w, dc_tab, ac_tab, coefs, _keep) = _scan_layout(
          segments, units, restart, n_mcus, lambda t: -1 if t is None else t)
     lo = np.asarray([lu[0] for lu in cond["dc"]], np.uint8)
     hi = np.asarray([lu[1] for lu in cond["dc"]], np.uint8)
     kx = np.asarray(cond["ac"], np.uint8)
-    lib().wpt_jpeg_arith_scan(
+    return lib().wpt_jpeg_arith_scan(
         data, starts, need, mode, ss, se, al, n_mcus, interval, mcus_row,
         n_blocks, slot, off, stride, mcu_w, dc_tab, ac_tab, _ptr(lo, _U8P),
         _ptr(hi, _U8P), _ptr(kx, _U8P), coefs)
+
+
+def jpeg_reads_whole_native(data: bytes, start: int, ends: list,
+                            marker: int, mcus: int, units: list,
+                            fast: bool) -> bool:
+    """``utils/jpeg.py::huffman_reads_whole`` in C++ (``jpeg_scan.cpp``):
+    the same answer."""
+    tables, dc, ac = [], [], []
+    for _, dct, act, offsets, _, _ in units:
+        for _ in offsets:
+            for t, out in ((dct, dc), (act, ac)):
+                if not any(t is y for y in tables):
+                    tables.append(t)
+                out.append(next(i for i, y in enumerate(tables) if y is t))
+    lookups = [t.lookup for t in tables]
+    ptrs = (ctypes.c_void_p * len(lookups))(*[t.ctypes.data for t in lookups])
+    ends_a = np.asarray(ends, np.int64)
+    dc_a, ac_a = np.asarray(dc, np.int32), np.asarray(ac, np.int32)
+    return bool(lib().wpt_jpeg_reads_whole(
+        data, len(data), start, _ptr(ends_a, _I64P), len(ends), marker, mcus,
+        len(dc), _ptr(dc_a, _I32P), _ptr(ac_a, _I32P),
+        ctypes.cast(ptrs, _PTRS), int(fast)))
 
 
 def jpeg_undifference_native(diff: np.ndarray, first_rows: np.ndarray,
@@ -735,3 +772,30 @@ def j2k_t1_native(data: bytes, table: np.ndarray, segs: np.ndarray,
     status = lib().wpt_j2k_t1(data, len(data), _ptr(table, _I64P),
                               len(table), _ptr(segs, _I64P), _ptr(out, _I32P))
     return out, int(status)
+
+
+def thunder_native(src: bytes, width: int, rows: int) -> tuple[bytes, int]:
+    """``utils/tiff.py::thunder_plain`` in C++ (``image_scan.cpp``): the same
+    bytes and status."""
+    out = np.zeros(rows * ((width + 1) // 2) + 1, np.uint8)
+    status = lib().wpt_thunder(src, len(src), width, rows, _ptr(out, _U8P))
+    return out[:-1].tobytes(), int(status)
+
+
+def zstd_native(src: bytes, limit: int | None = None) -> bytes:
+    """``utils/zstd.py::zstd_plain`` in C++ (``zstd_scan.cpp``): the same
+    bytes, or ``ZstdError`` where it refuses the data."""
+    from wgpu_path_tracing_tpu_torch.utils.zstd import ZstdError
+
+    src = bytes(src)
+    cap = limit if limit is not None else 4 * len(src) + 4096
+    while True:
+        out = np.empty(max(cap, 1), np.uint8)
+        got = np.zeros(1, np.int64)
+        status = lib().wpt_zstd(src, len(src), -1 if limit is None else limit,
+                                _ptr(out, _U8P), cap, _ptr(got, _I64P))
+        if status == 1:
+            raise ZstdError("Zstandard data that libzstd refuses")
+        if status == 0:
+            return out[:int(got[0])].tobytes()
+        cap = int(got[0])

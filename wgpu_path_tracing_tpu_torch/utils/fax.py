@@ -3,7 +3,7 @@ decodes them, in plain Python: the plain version of ``accel/cbvh/
 fax_scan.cpp``'s ``wpt_fax``, which the native library runs wherever
 ``accel.native.native_available()``.
 
-Three codings (TIFF compression 2, 3 and 4):
+Four codings (TIFF compression 2, 3, 4 and 32771):
 
 * modified Huffman (2): each row one-dimensional, the bits to the next
   byte boundary dropped after it (libtiff's ``Fax3DecodeRLE``);
@@ -12,7 +12,12 @@ Three codings (TIFF compression 2, 3 and 4):
   bit choosing one- or two-dimensional coding (``Fax3Decode1D``,
   ``Fax3Decode2D``);
 * T.6 (4): every row two-dimensional against the one above, up to EOFB
-  (``Fax4Decode``).
+  (``Fax4Decode``);
+* RLEW (32771): modified Huffman, each row padded to a 16-bit boundary:
+  the bits held dropped to a multiple of 16, and with none held a byte
+  skipped where the next one lies at an odd address (libtiff reads the
+  strip where it lies in the file's image, so ``options`` gives the parity
+  of the strip's file offset).
 
 The decoder keeps libtiff's run arrays and its repairs: a bad code word
 ends the row, whose runs are then cleaned up to the row's width
@@ -376,7 +381,8 @@ def fax_plain(src: bytes, compression: int, lastx: int, rows: int,
               ) -> tuple[np.ndarray, int]:
     """One strip or tile of ``rows`` rows of ``lastx`` pixels ->
     ((rows, lastx) uint8 0/1 samples, status 0 or a key of FAX_STATUS).
-    ``options`` is T4Options (bit 0: two-dimensional rows); ``runs`` the
+    ``options`` is T4Options (bit 0: two-dimensional rows), or for RLEW the
+    parity of the strip's file offset; ``runs`` the
     page's run array (``fax_runs``), updated in place. The rows not decoded
     stay 0."""
     if runs is None:
@@ -385,13 +391,14 @@ def fax_plain(src: bytes, compression: int, lastx: int, rows: int,
     st = _State(src, lastx, runs.tolist())
     out = np.zeros((rows, lastx), np.uint8)
     try:
-        return out, _decode(st, out, compression, two_d, rows, lastx)
+        return out, _decode(st, out, compression, two_d, rows, lastx,
+                            options)
     finally:
         runs[:] = st.runs
 
 
 def _decode(st: _State, out: np.ndarray, compression: int, two_d: bool,
-            rows: int, lastx: int) -> int:
+            rows: int, lastx: int, options: int) -> int:
     """The strip's rows into ``out``: its status."""
     if two_d:
         st.runs[st.ro], st.runs[st.ro + 1] = lastx, 0
@@ -426,6 +433,11 @@ def _decode(st: _State, out: np.ndarray, compression: int, two_d: bool,
             _fill(out, line, st.runs, st.co, st.pa, lastx)
             if compression == 2:
                 st.clr(st.avail & 7)  # to the byte boundary
+            elif compression == 32771:
+                # to a 16-bit boundary of the bits held, then of memory
+                st.clr(st.avail & 15)
+                if st.avail == 0 and (options + st.cp) & 1:
+                    st.cp += 1
             if two_d:
                 if compression == 4 or st.pa < st.nruns:
                     if st.pa >= st.nruns:

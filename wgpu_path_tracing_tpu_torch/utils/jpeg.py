@@ -829,7 +829,7 @@ def arith_mcu_AC_refine(qm: _QM, block: tuple, ss: int, se: int,
 
 def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
                       mode: int, ss: int, se: int, al: int, cond: dict
-                      ) -> None:
+                      ) -> int:
     """One arithmetic-coded scan (SOF9, SOF10) into its components'
     coefficients: ``segments``, ``units`` (with table numbers for tables),
     ``restart`` and ``n_mcus`` as ``decode_scan`` takes them, ``mode`` as
@@ -839,9 +839,11 @@ def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
     data does not raise: as ``jdarith.c`` warns and leaves the rest of the
     interval undecoded, so does this. Data that ends early is no error
     either: past a marker the coder reads zero bytes, also through the
-    intervals whose data is missing."""
+    intervals whose data is missing. Returns the bytes the last interval's
+    coder read (those past its end too)."""
     interval, parts = restart_intervals(segments, restart, n_mcus)
     mcus_row = units[0][5]
+    qm = _QM(b"")
     for seg_i, seg in enumerate(parts):
         qm = _QM(seg or b"")
         first = seg_i * interval
@@ -864,6 +866,7 @@ def decode_arith_scan(segments: list, units: list, restart: int, n_mcus: int,
                 arith_mcu_AC_first(qm, blocks[0], cond, ss, se, al)
             else:
                 arith_mcu_AC_refine(qm, blocks[0], ss, se, al)
+    return qm.pos
 
 
 def decode_lossless_scan(segments: list, units: list, restart: int,
@@ -999,13 +1002,14 @@ def _scan_units(comps: list, frame: dict):
 def _entropy_segments(data: bytes, pos: int, name: str):
     """The scan data from ``pos`` to the next marker other than RSTn, split
     at the restart markers and unstuffed (FF 00 -> FF). Returns (segments,
-    the position of that marker)."""
+    the position of that marker, or ``len(data)`` for data that runs to
+    the end of the file with no marker)."""
     end = pos
     while True:
         j = data.find(b"\xff", end)
         if j < 0 or j + 1 >= len(data):
-            raise ValueError(f"{name}: truncated JPEG data (no marker after "
-                             "the scan)")
+            j = len(data)
+            break
         nb = data[j + 1]
         if nb == 0x00 or 0xD0 <= nb <= 0xD7:
             end = j + 2
@@ -1016,6 +1020,191 @@ def _entropy_segments(data: bytes, pos: int, name: str):
     scan = data[pos:j]
     parts = re.split(rb"\xff[\xd0-\xd7]", scan)
     return [p.replace(b"\xff\x00", b"\xff") for p in parts], j
+
+
+# Pillow hands libjpeg a file in blocks of ImageFile.MAXBLOCK bytes, one
+# more each time libjpeg suspends for data; jdhuff.c fills its bit buffer
+# to MIN_GET_BITS (57 bits on a 64-bit host) and takes its fast path only
+# with BUFSIZE (512) bytes a block of the MCU in the buffer.
+MAXBLOCK = 65536
+MIN_GET_BITS = 57
+FAST_BYTES = 512
+
+
+def interval_bytes(data: bytes, start: int) -> tuple:
+    """The entropy-coded bytes from ``start`` up to the next marker or the
+    end of the file, as libjpeg fetches them: (each data byte's end in the
+    file, FF 00 taking two; the end of the marker after them, or -1 where
+    the data runs to the end of the file). A lone FF at the end is a byte
+    whose end lies past the file."""
+    ends, i, n = [], start, len(data)
+    while i < n:
+        if data[i] != 0xFF:
+            ends.append(i + 1)
+            i += 1
+            continue
+        j = i + 1
+        while j < n and data[j] == 0xFF:
+            j += 1
+        if j >= n:
+            ends.append(n + 1)
+            return ends, -1
+        if data[j] == 0:
+            ends.append(j + 1)
+            i = j + 1
+            continue
+        return ends, j + 1
+    return ends, -1
+
+
+def _reads_whole(data, pos, segments, units, restart, n_mcus,
+                 in_cxx: bool) -> bool:
+    """Whether libjpeg-turbo, fed as Pillow feeds it, decodes a sequential
+    Huffman scan whose data runs to the end of the file: the last restart
+    interval is the one that can ask for more (every earlier one ends at
+    its RSTn), and an interval missing at the end always does."""
+    interval = restart or n_mcus
+    need = (n_mcus + interval - 1) // interval
+    if len(segments) < need:
+        return False
+    start = pos
+    if need > 1:
+        marks = [m.end() for m in re.finditer(rb"\xff+[\xd0-\xd7]",
+                                              data[pos:])]
+        start = pos + marks[need - 2]
+    ends, marker = interval_bytes(data, start)
+    mcus = n_mcus - (need - 1) * interval
+    if in_cxx:
+        from wgpu_path_tracing_tpu_torch.accel.native import (
+            jpeg_reads_whole_native)
+
+        return jpeg_reads_whole_native(data, start, ends, marker, mcus, units,
+                                       restart == 0)
+    return huffman_reads_whole(data, start, ends, marker, mcus, units,
+                               restart == 0)
+
+
+class _Suspend(Exception):
+    """libjpeg's source is out of data: ``decode_mcu`` suspends."""
+
+
+class _Marker(Exception):
+    """The bit reader reached the marker after the data."""
+
+
+def huffman_reads_whole(data: bytes, start: int, ends: list, marker: int,
+                        mcus: int, units: list, fast: bool) -> bool:
+    """Whether libjpeg-turbo decodes ``mcus`` MCUs of sequential Huffman
+    data from ``start`` (the restart interval that runs to the end of the
+    file; ``ends`` and ``marker`` from ``interval_bytes``) without asking
+    for a byte past the end, fed as Pillow feeds it: blocks of MAXBLOCK
+    bytes, one more each time ``decode_mcu`` suspends (the MCU then decoded
+    again from its start). The slow path fills the bit buffer to
+    MIN_GET_BITS bits whenever a code's 8-bit lookahead, a long code's first
+    9 bits or next bit, or a coefficient's extra bits are short; the fast
+    path (``fast``: no restart interval; FAST_BYTES bytes a block of the
+    MCU in the buffer) reads 6 bytes whenever 16 bits or fewer are left,
+    and hands the MCU to the slow path at a marker (or FF FF). Once the
+    marker after the data is read, libjpeg reads zeros and never suspends
+    again. ``units`` as ``decode_scan`` takes them."""
+    n = len(data)
+    avail = min(n, -(-start // MAXBLOCK) * MAXBLOCK)
+    nb = len(ends)
+    prev = [start] + ends[:-1]
+    ub = bytes(data[q] for q, _ in zip(prev, ends))  # FF 00 is FF
+    win = _windows(ub) + _ZERO_TAIL
+    plain = [e - q <= 2 for e, q in zip(ends, prev)]  # not FF FF .. 00
+    blocks = [(dct.code, act.code) for _, dct, act, offsets, _, _ in units
+              for _ in offsets]
+    need_fast = FAST_BYTES * len(blocks)
+    u = left = p = 0  # bytes fetched, bits held, bits consumed
+
+    def fill():
+        """jpeg_fill_bit_buffer: up to MIN_GET_BITS bits."""
+        nonlocal u, left
+        while left < MIN_GET_BITS:
+            if u == nb:
+                if marker < 0 or marker > avail:
+                    raise _Suspend
+                raise _Marker
+            if ends[u] > avail:
+                raise _Suspend
+            u += 1
+            left += 8
+
+    def fast_fill():
+        """FILL_BIT_BUFFER_FAST: 6 bytes when 16 bits or fewer are held."""
+        nonlocal u, left
+        if left <= 16:
+            if u + 6 > nb or not all(plain[u:u + 6]):
+                raise _Marker  # decode_mcu_fast backs out
+            u += 6
+            left += 48
+
+    def take(n_bits: int, slow: bool, check: int) -> None:
+        nonlocal left, p
+        if slow and left < check:
+            fill()
+        left -= n_bits
+        p += n_bits
+
+    def symbol(table, slow: bool) -> int:
+        """HUFF_DECODE (slow: the 8-bit lookahead, then jpeg_huff_decode's
+        9 bits and one at a time) or HUFF_DECODE_FAST."""
+        if not slow:
+            fast_fill()
+        elif left < 8:
+            fill()
+        e = table[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        length = e >> 8
+        if not slow or length <= 8:
+            take(length, False, 0)
+        else:
+            take(9, True, 9)
+            for _ in range(length - 9):
+                take(1, True, 1)
+        return e & 255
+
+    def mcu(slow: bool) -> None:
+        for dct, act in blocks:
+            s = symbol(dct, slow)
+            if s:
+                if not slow:
+                    fast_fill()
+                take(s, slow, s)
+            k = 1
+            while k < 64:
+                rs = symbol(act, slow)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    if not slow:
+                        fast_fill()
+                    take(s, slow, s)
+                    k += r + 1
+                elif r == 15:
+                    k += 16
+                else:
+                    break
+
+    for _ in range(mcus):
+        state = (u, left, p)
+        slow_only = not fast
+        while True:
+            slow = slow_only or avail - (ends[u - 1] if u else start) < \
+                need_fast
+            try:
+                mcu(slow)
+                break
+            except _Suspend:
+                if avail >= n:
+                    return False
+                avail = min(n, avail + MAXBLOCK)
+            except _Marker:
+                if slow:
+                    return True
+                slow_only = True
+            u, left, p = state
+    return True
 
 
 def _idct_1d(x):
@@ -1243,6 +1432,17 @@ def decode_jpeg_samples(data: bytes, name: str, ycbcr: bool
     return frame, np.stack(planes, -1)
 
 
+def decode_jpeg_raw(data: bytes, name: str) -> tuple[dict, list]:
+    """A JPEG stream as libjpeg's ``jpeg_read_raw_data`` gives it (libtiff's
+    old-style JPEG codec asks for it): (its frame, each component's
+    samples at its own sampling, whole blocks, no upsampling or colour
+    conversion)."""
+    frame = _read_frame(data, name, False)[0]
+    smooth = smoothing_ok(frame)
+    return frame, [_component_plane(c, frame, smooth, crop=False)
+                   for c in frame["comps"]]
+
+
 def _read_frame(data: bytes, name: str, standalone: bool = False) -> tuple:
     """Parse and entropy-decode a JPEG: (frame, JFIF marker seen, Adobe
     marker seen, Adobe transform)."""
@@ -1344,6 +1544,12 @@ def _read_frame(data: bytes, name: str, standalone: bool = False) -> tuple:
                 # truncated where EOI is missing
                 multi = frame["progressive"] or seg[0] < len(frame["comps"])
             scans += 1
+            if not multi and not standalone:
+                # In a TIFF, libjpeg reads what follows a single scan only
+                # after the rows (libtiff's finish_decompress): an error
+                # there leaves them read, and Pillow keeps them.
+                break
+
     if frame is None or not scans:
         raise ValueError(f"{name}: no image data in the JPEG")
     if frame["lossless"] and any(c.samples is None for c in frame["comps"]):
@@ -1406,6 +1612,11 @@ def _read_lossless_scan(data, pos, comps, keys, frame, huff, restart, psv,
         tables.append(huff[key_dc])
         c.coef = array("i", bytes(4 * c.grid_w * c.grid_h))
     segments, end = _entropy_segments(data, pos, name)
+    if end == len(data):
+        # jdlhuff.c's refills are not modelled: a lossless scan that runs
+        # to the end of the file is refused, as libjpeg mostly waits there
+        raise ValueError(f"{name}: truncated JPEG data (no marker after the "
+                         "scan)")
     units = [(c, t, None, offs, stride, row)
              for (c, offs, stride, row), t in zip(units, tables)]
     if in_cxx:
@@ -1484,11 +1695,19 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
             from wgpu_path_tracing_tpu_torch.accel.native import (
                 jpeg_arith_scan_native)
 
-            jpeg_arith_scan_native(segments, units, restart, n_mcus, mode,
-                                   ss, se, al, cond)
+            read = jpeg_arith_scan_native(segments, units, restart, n_mcus,
+                                          mode, ss, se, al, cond)
         else:
-            decode_arith_scan(segments, units, restart, n_mcus, mode, ss, se,
-                              al, cond)
+            read = decode_arith_scan(segments, units, restart, n_mcus, mode,
+                                     ss, se, al, cond)
+        if end == len(data):
+            # jdarith.c cannot suspend: it fails if it reads past the end
+            # (a last FF wants the byte after it)
+            need = restart_intervals(segments, restart, n_mcus)[1]
+            have = len(segments[-1]) - (data[-1] == 0xFF)
+            if progressive or len(segments) < len(need) or read > have:
+                raise ValueError(f"{name}: truncated JPEG data (no marker "
+                                 "after the scan)")
         return end
     dcs, acs = [], []
     for key_dc, key_ac in keys:
@@ -1504,6 +1723,10 @@ def _read_scan(data, pos, seg, frame, huff, quant, cond, restart, name,
     segments, end = _entropy_segments(data, pos, name)
     units = [(c, dc, ac, offs, stride, row)
              for (c, offs, stride, row), dc, ac in zip(units, dcs, acs)]
+    if end == len(data) and (progressive or not _reads_whole(
+            data, pos, segments, units, restart, n_mcus, in_cxx)):
+        raise ValueError(f"{name}: truncated JPEG data (no marker after the "
+                         "scan, and libjpeg waits for more)")
     if in_cxx:
         from wgpu_path_tracing_tpu_torch.accel.native import jpeg_scan_native
 
@@ -1637,7 +1860,8 @@ def smooth_blocks(coef: np.ndarray, c, rows_total: int,
     return out
 
 
-def _component_plane(c, frame: dict, smooth: bool) -> np.ndarray:
+def _component_plane(c, frame: dict, smooth: bool,
+                     crop: bool = True) -> np.ndarray:
     """The component's samples, its block grid (block-smoothed where
     ``smooth``) through ``idct_islow``, cropped to its downsampled size. A
     component no scan named has no quantization table: libjpeg's IDCT then
@@ -1663,7 +1887,7 @@ def _component_plane(c, frame: dict, smooth: bool) -> np.ndarray:
     blocks = idct_islow(coef.reshape(-1, 64), quant)
     plane = blocks.reshape(c.grid_h, c.grid_w, 8, 8).transpose(
         0, 2, 1, 3).reshape(c.grid_h * 8, c.grid_w * 8)
-    return plane[:c.height, :c.width]
+    return plane[:c.height, :c.width] if crop else plane
 
 
 def _muldiv255(a, b):

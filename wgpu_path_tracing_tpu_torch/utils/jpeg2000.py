@@ -32,9 +32,12 @@ pixels, all three found black-box:
 
 What OpenJPEG refuses (a cut file, a bad marker, a segment past its
 tile-part) raises ``ValueError`` naming the file, as Pillow raises
-``OSError``. HTJ2K code-blocks (Part 15) and the Part 2 markers raise
-``NotImplementedError`` naming the file: nothing on the build host
-writes them.
+``OSError``. HTJ2K code-blocks (Part 15) raise ``NotImplementedError``
+naming the file: nothing on the build host writes them. The Part 2
+markers (MCT, MCC, MCO, CBD) are read as OpenJPEG reads them, its checks
+and its warnings included (an MCO sets the level shifts); a custom
+component transform in COD and a CBD that changes a component's depth
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -307,7 +310,8 @@ MARKERS = {SOT: _MAIN | _TILE, COD: _MAIN | _TILE, COC: _MAIN | _TILE,
            POC: _MAIN | _TILE, SIZ: 0, TLM: _MAIN, PLM: _MAIN, PLT: _TILE,
            PPM: _MAIN, PPT: _TILE, SOP: 0, CRG: _MAIN,
            COM: _MAIN | _TILE, CAP: _MAIN, CPF: _MAIN,
-           **{m: _MAIN | _TILE for m in PART2}}
+           0xFF74: _MAIN | _TILE, 0xFF75: _MAIN | _TILE,
+           0xFF77: _MAIN | _TILE, 0xFF78: _MAIN}
 # Code-block styles.
 LAZY, RESET, TERMALL, VSC, PTERM, SEGSYM, HT = 1, 2, 4, 8, 16, 32, 64
 
@@ -344,6 +348,9 @@ class _Tcp:
             self.comps.append(c)
         self.index = 0
         self.pocs = []
+        self.dc_shift = None  # an MCO's level shifts (None: each default)
+        self.mct_records = {}  # MCT: index -> (element type, data)
+        self.mcc_records = []  # MCC: [index, components, deco, offsets]
         self.ppt = {}
         self.data = []
         self.parts_seen = 0
@@ -355,6 +362,9 @@ class _Tcp:
                                              self.numlayers, self.mct)
         t.comps = [c.copy() for c in self.comps]
         t.pocs = list(self.pocs)
+        t.dc_shift = None if self.dc_shift is None else list(self.dc_shift)
+        t.mct_records = dict(self.mct_records)
+        t.mcc_records = [list(r) for r in self.mcc_records]
         return t
 
 
@@ -641,10 +651,129 @@ class _Codestream:
         elif m == CAP:
             raise _Unsupported("a CAP marker (HTJ2K, Part 15)")
         elif m in PART2:
-            raise _Unsupported("Part 2 component transform markers")
+            self._part2_marker(m, b, tcp)
         elif m == SIZ:
             raise _Broken("SIZ marker out of place")
         # TLM, PLM, PLT, CRG, COM, CPF: read and unused.
+
+    def _part2_marker(self, m: int, b: bytes, tcp: _Tcp) -> None:
+        """OpenJPEG's readers of the Part 2 markers (opj_j2k_read_mct,
+        _mcc, _mco, _cbd): what it refuses raises, what it passes over with
+        a warning is passed over, and what it keeps is kept. An MCO sets
+        every component's level shift to 0 (or to its MCC's offsets); the
+        decorrelation matrix counts only under COD's custom transform,
+        which raises. A CBD that changes a component's depth or sign
+        raises ``_Unsupported``."""
+        n = len(b)
+        if m == 0xFF74:  # MCT
+            if n < 2:
+                raise _Broken("error reading MCT marker")
+            if _u16(b, 0) != 0:
+                return  # "cannot take in charge mct data within multiple"
+            if n <= 6:
+                raise _Broken("error reading MCT marker")
+            imct = _u16(b, 2)
+            if _u16(b, 4) != 0:
+                # OpenJPEG has already reset the record: only its index
+                # and types stay, with no data.
+                tcp.mct_records[imct & 0xFF] = ((imct >> 10) & 3, b"")
+                return
+            tcp.mct_records[imct & 0xFF] = ((imct >> 10) & 3, b[6:])
+        elif m == 0xFF75:  # MCC
+            if n < 2:
+                raise _Broken("error reading MCC marker")
+            if _u16(b, 0) != 0:
+                return
+            if n < 7:
+                raise _Broken("error reading MCC marker")
+            index = b[2]
+            record = next((r for r in tcp.mcc_records if r[0] == index),
+                          None)
+            new = record is None
+            if new:
+                record = [index, 0, None, None]
+            if _u16(b, 3) != 0:
+                return
+            collections = _u16(b, 5)
+            if collections > 1:
+                return
+            left, at = n - 7, 7
+            for _ in range(collections):
+                if left < 3:
+                    raise _Broken("error reading MCC marker")
+                if b[at] != 1:
+                    return
+                ncomp = _u16(b, at + 1)
+                at, left = at + 3, left - 3
+                size = 1 + (ncomp >> 15)
+                record[1] = ncomp & 0x7FFF
+                if left < size * record[1] + 2:
+                    raise _Broken("error reading MCC marker")
+                left -= size * record[1] + 2
+                for j in range(record[1]):
+                    if int.from_bytes(b[at:at + size], "big") != j:
+                        return
+                    at += size
+                ncomp2 = _u16(b, at)
+                at += 2
+                size = 1 + (ncomp2 >> 15)
+                if ncomp2 & 0x7FFF != record[1]:
+                    return
+                if left < size * record[1] + 3:
+                    raise _Broken("error reading MCC marker")
+                left -= size * record[1] + 3
+                for j in range(record[1]):
+                    if int.from_bytes(b[at:at + size], "big") != j:
+                        return
+                    at += size
+                tmp = int.from_bytes(b[at:at + 3], "big")
+                at += 3
+                record[2] = record[3] = None
+                for slot, idx in ((2, tmp & 0xFF), (3, (tmp >> 8) & 0xFF)):
+                    if idx:
+                        if idx not in tcp.mct_records:
+                            raise _Broken("error reading MCC marker")
+                        record[slot] = idx
+            if left != 0:
+                raise _Broken("error reading MCC marker")
+            if new:
+                tcp.mcc_records.append(record)
+        elif m == 0xFF77:  # MCO
+            if n < 1:
+                raise _Broken("error reading MCO marker")
+            stages = b[0]
+            if stages > 1:
+                return
+            if n != stages + 1:
+                raise _Broken("error reading MCO marker")
+            tcp.dc_shift = [0] * self.nc
+            if stages and tcp.mcc_records and tcp.mcc_records[0][0] == b[1] \
+                    and tcp.mcc_records[0][1] == self.nc:
+                # opj_j2k_add_mct, which looks at the first record only
+                _, _, deco, offs = tcp.mcc_records[0]
+                if deco is not None:
+                    kind, data = tcp.mct_records[deco]
+                    if len(data) != (2, 4, 4, 8)[kind] * self.nc * self.nc:
+                        raise _Broken("bad MCT decorrelation array")
+                if offs is not None:
+                    kind, data = tcp.mct_records[offs]
+                    size = (2, 4, 4, 8)[kind]
+                    if len(data) != size * self.nc:
+                        raise _Broken("bad MCT offset array")
+                    code = (">H", ">I", ">f", ">d")[kind]
+                    vals = [struct.unpack_from(code, data, size * i)[0]
+                            for i in range(self.nc)]
+                    tcp.dc_shift = [_offset_int32(v) for v in vals]
+        else:  # CBD
+            if n != self.nc + 2 or _u16(b, 0) != self.nc:
+                raise _Broken("error reading CBD marker")
+            for i in range(self.nc):
+                prec, sgnd = (b[2 + i] & 0x7F) + 1, b[2 + i] >> 7
+                if prec > 31:
+                    raise _Broken("invalid component precision in CBD")
+                if (prec, sgnd) != (self.prec[i], self.sgnd[i]):
+                    raise _Unsupported("a CBD marker that changes a "
+                                       "component's depth")
 
     def _merge_ppm(self) -> bytes:
         out = bytearray()
@@ -1821,6 +1950,8 @@ def _decode_tile(cs: _Codestream, tcp: _Tcp, index: int, ppm: list) -> tuple:
         lo = -(1 << (prec - 1)) if sgnd else 0
         hi = (1 << (prec - 1)) - 1 if sgnd else (1 << prec) - 1
         shift = 0 if sgnd else 1 << (prec - 1)
+        if tcp.dc_shift is not None:
+            shift = tcp.dc_shift[c]
         a = out[c]
         if comp["tc"].qmfbid == 1:
             v = np.clip(a + np.int32(shift), lo, hi)
@@ -1831,6 +1962,16 @@ def _decode_tile(cs: _Codestream, tcp: _Tcp, index: int, ppm: list) -> tuple:
             v = v.astype(np.int32)
         final.append(v.astype(np.int32, copy=False))
     return tile, final
+
+
+def _offset_int32(v) -> int:
+    """An MCT offset as OpenJPEG reads it into an int32: a 16- or 32-bit
+    unsigned value cast, a float truncated (C's conversion)."""
+    if isinstance(v, float):
+        if v != v or abs(v) >= 2 ** 63:
+            return -(2 ** 31)  # x86's conversion of what does not fit
+        v = int(v)
+    return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
 
 
 # --- Pillow's unpackers ---------------------------------------------------------

@@ -14,22 +14,35 @@ one of two ways, and this module copies both:
   mostly runs out of data;
 * compressed data through libtiff: PackBits (32773), LZW (5, new-style and
   old-style codes), deflate (8, 32946), LZMA (34925, the standard
-  library's ``lzma``), CCITT modified Huffman, T.4 and T.6 (2, 3, 4;
-  ``utils/fax.py``) and JPEG (7: each strip's or tile's stream after the
+  library's ``lzma``), zstd (50000, ``utils/zstd.py``: what
+  ``ZSTD_decompressStream`` gives libtiff), CCITT modified Huffman, T.4,
+  T.6 and RLEW (2, 3, 4, 32771; ``utils/fax.py``), ThunderScan (32809,
+  ``thunder_plain``), JPEG (7: each strip's or tile's stream after the
   ``JPEGTables`` stream, decoded by ``utils/jpeg.py``; YCbCr converted to
   RGB by libjpeg as Pillow's JPEGCOLORMODE_RGB asks, other colour spaces
-  left as they are), each strip or tile decoded to its whole size (a short
-  one raises, extra data is ignored), fill order 2 reversing the bits of
-  the compressed bytes, horizontal differencing (predictor 2) at 8, 16 and
-  32 bits and the floating-point predictor (3) undone a row at a time,
-  16-bit samples in the file's byte order, 32-bit samples in the host's
-  (little-endian) order, which Pillow then reads in the file's: a
-  big-endian compressed 32-bit file comes out byte-swapped, as in Pillow.
-  YCbCr data that is not JPEG-compressed goes through libtiff's
+  left as they are; what libjpeg refuses after a strip's single scan
+  leaves its rows read; separate planes a component a stream) and
+  old-style JPEG (6: the stream libtiff's OJPEG
+  codec builds from the JPEGInterchangeFormat stream or the JPEG table
+  tags and the strips, an RSTn between them, decoded as libjpeg's raw
+  data into TIFF data units), each strip or tile decoded to its whole
+  size (a short one raises, extra data is ignored), fill order 2 reversing
+  the bits of the compressed bytes (not old-style JPEG's), horizontal
+  differencing (predictor 2) at 8, 16 and 32 bits and the floating-point
+  predictor (3) undone a row at a time, 16-bit samples in the file's byte
+  order, 32-bit and signed 16-bit samples in the host's (little-endian)
+  order, which Pillow then reads in the file's: a big-endian compressed
+  32-bit or signed 16-bit file comes out byte-swapped, as in Pillow.
+  Separate planes are copied as Pillow's libtiff reader copies them: plane
+  k into byte k of each 4-byte pixel (a 16-bit sample's high byte), so an
+  "LA" or "PA" image loses its alpha (byte 3), and "LAB" keeps a* and b*
+  unflipped with alpha 0; planes of other depths than 8 and 16 bits, or
+  more planes than the mode has bands, are refused.
+  YCbCr data that is not JPEG goes through libtiff's
   ``TIFFRGBAImage``: data units of ``YCbCrSubsampling`` (1x1, 1x2, 2x1,
   2x2, 4x1, 4x2, 4x4), each pixel taking its unit's Cb and Cr, converted
   by ``TIFFYCbCrToRGB``'s tables (``YCbCrCoefficients``,
-  ``ReferenceBlackWhite``).
+  ``ReferenceBlackWhite``); old-style JPEG's data units go the same way.
 
 Then Pillow's modes (``TiffImagePlugin.OPEN_INFO``) and conversions: 1, 2,
 4 and 8-bit gray (WhiteIsZero inverted at up to 8 bits; 2 and 4 bits
@@ -44,27 +57,33 @@ out as Pillow's "RGBa" unpacker does, others dropped; palette images at
 16 bits through Pillow's ``cmyk2rgb``; CIELab through LittleCMS's Lab to
 sRGB transform (``utils/lab.py``); and the ``Orientation`` tag, which
 Pillow's TIFF loader applies (``ImageOps.exif_transpose``) after the load.
+Old-style JPEG is YCbCr to Pillow whatever the file says, of 3 samples
+where it gives no count.
 
 A separate plane read uncompressed takes one character of Pillow's raw
 mode as its own: 8 bits a sample (1 for "1"), neither inverted nor
-reversed, whatever the file says, as Pillow reads it. Old-style JPEG (6),
-zstd, WebP and the other codecs, compressed separate planes other than
-8-bit RGB, RGBA and CMYK, compressed big-endian signed 16-bit samples,
-CCITT data that ends before its strip's last row (libtiff leaves the rows
-after unwritten), JPEG or LZMA data cut short or bad where libtiff reads
-part of it, and directories libtiff may refuse where Pillow's parser
-does not (repeated tags, a single-valued tag of several values, baseline
-tags of other types than SHORT, LONG and, in a BigTIFF, LONG8) raise
-``NotImplementedError`` naming the image; what Pillow refuses raises
-``ValueError``. The PackBits, LZW and CCITT loops are ``packbits_plain``,
-``lzw_plain`` and ``utils/fax.py::fax_plain`` here, the plain versions of
-``accel/cbvh/image_scan.cpp``'s ``wpt_packbits`` and ``wpt_lzw`` and
-``fax_scan.cpp``'s ``wpt_fax``, which the native library runs wherever
-``accel.native.native_available()``.
+reversed, whatever the file says, as Pillow reads it. WebP-in-TIFF
+(Pillow's libtiff has no WebP codec) and SGILog (its photometrics have no
+Pillow mode, and libtiff refuses it under others) raise ``ValueError``.
+Separate YCbCr planes compressed with JPEG are refused (``ValueError``),
+those under another codec raise ``NotImplementedError``, as do old-style
+JPEG in separate planes or whose striles pass its JPEG frame or whose sampling TIFF has no data units for, CCITT data that
+ends before its strip's last row (libtiff leaves the rows after
+unwritten), LZMA or zstd data bad where libtiff reads part of it, and
+directories libtiff may refuse where Pillow's parser does not (repeated
+tags, a single-valued tag of several values, baseline tags of other types
+than SHORT, LONG and, in a BigTIFF, LONG8) raise ``NotImplementedError``
+naming the image; what Pillow refuses raises ``ValueError``. The
+PackBits, LZW, CCITT and ThunderScan loops are ``packbits_plain``,
+``lzw_plain``, ``utils/fax.py::fax_plain`` and ``thunder_plain`` here, the
+plain versions of ``accel/cbvh/image_scan.cpp``'s ``wpt_packbits``,
+``wpt_lzw`` and ``wpt_thunder`` and ``fax_scan.cpp``'s ``wpt_fax``, which
+the native library runs wherever ``accel.native.native_available()``.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -80,12 +99,22 @@ COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
 READ = ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate",
-        "lzma", "jpeg", "tiff_ccitt", "group3", "group4")
-FAX = {"tiff_ccitt": 2, "group3": 3, "group4": 4}
+        "lzma", "zstd", "jpeg", "tiff_jpeg", "tiff_ccitt", "group3", "group4",
+        "tiff_raw_16", "tiff_thunderscan")
+# Codecs Pillow's libtiff fails on for every file: WebP is not configured,
+# and SGILog takes only the LogL and LogLuv photometrics, which Pillow has
+# no mode for.
+REFUSED = {"webp": "WEBP compression support is not configured",
+           "tiff_sgilog": "SGILog data needs a LogL or LogLuv photometric",
+           "tiff_sgilog24": "SGILog data needs a LogL or LogLuv photometric"}
+# CCITT codings: modified Huffman, T.4, T.6, and modified Huffman with
+# each row padded to 16 bits (RLEW).
+FAX = {"tiff_ccitt": 2, "group3": 3, "group4": 4, "tiff_raw_16": 32771}
 # JPEG frame headers libjpeg reads (SOF0-SOF3, SOF9-SOF11).
 SOF_MARKERS = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA, 0xCB)
 # Codecs that take libtiff's predictor.
-PREDICTED = ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma")
+PREDICTED = ("tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma",
+             "zstd")
 # Integer field types: (struct code, size).
 TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2),
          9: ("i", 4), 16: ("Q", 8)}
@@ -383,6 +412,73 @@ def lzw_plain(src: bytes, size: int, old_style: bool = False
     return bytes(out[:size]), 0 if len(out) >= size else 2
 
 
+def thunder_plain(src: bytes, width: int, rows: int) -> tuple[bytes, int]:
+    """libtiff's ThunderDecode (4-bit ThunderScan data) of one strip, a row
+    of ``width`` pixels at a time, each row starting again from pixel 0:
+    runs of the last pixel (a run after an odd pixel repeats the byte it
+    completes), 2- and 3-bit deltas, each from the pixel before, with
+    their skip codes, and raw pixels. Returns (rows of (width + 1) // 2
+    bytes, status: 0, or 1 for a row whose data runs out or gives too many
+    pixels, the rest of that row zeroed)."""
+    two, three = (0, 1, 0, -1), (0, 1, 2, 3, 0, -3, -2, -1)
+    rowbytes = (width + 1) // 2
+    out = bytearray(rows * rowbytes + 1)
+    bp = 0
+    for r in range(rows):
+        row = op = r * rowbytes
+        last = npixels = 0
+
+        def put(v):
+            nonlocal last, npixels, op
+            last = v & 0xF
+            if npixels < width:
+                if npixels & 1:
+                    out[op] |= last
+                    op += 1
+                else:
+                    out[op] = last << 4
+                npixels += 1
+
+        while bp < len(src) and npixels < width:
+            c = src[bp]
+            bp += 1
+            code = c & 0xC0
+            if code == 0:
+                k = c
+                if npixels & 1:
+                    out[op] |= last
+                    last = out[op]
+                    op += 1
+                    npixels += 1
+                    k -= 1
+                else:
+                    last |= last << 4
+                npixels += k
+                if npixels <= width:
+                    while k > 0:
+                        out[op] = last
+                        op += 1
+                        k -= 2
+                if k == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 0xF
+            elif code == 0x40:
+                for sh in (4, 2, 0):
+                    if (c >> sh) & 3 != 2:
+                        put(last + two[(c >> sh) & 3])
+            elif code == 0x80:
+                for sh in (3, 0):
+                    if (c >> sh) & 7 != 4:
+                        put(last + three[(c >> sh) & 7])
+            else:
+                put(c)
+        if npixels != width:
+            out[op:row + rowbytes] = bytes(row + rowbytes - op)
+            return bytes(out[:-1]), 1
+    return bytes(out[:-1]), 0
+
+
 def _decompress(kind: str, src: bytes, size: int, name: str,
                 old_lzw: bool = False, partial: bool = False) -> np.ndarray:
     """One strip's or tile's ``size`` bytes, in C++ for PackBits and LZW
@@ -401,6 +497,17 @@ def _decompress(kind: str, src: bytes, size: int, name: str,
               else packbits_plain)
         out, status = fn(src, size)
         error = "not enough PackBits data" if status else None
+    elif kind == "zstd":
+        from wgpu_path_tracing_tpu_torch.utils.zstd import (ZstdError,
+                                                            decompress)
+        try:
+            out = decompress(src, size)
+        except ZstdError as exc:
+            if partial:
+                raise NotImplementedError(f"{name}: bad zstd data ({exc}), "
+                                          "which libtiff reads in part") from None
+            raise ValueError(f"{name}: bad zstd data ({exc})") from None
+        error = "not enough zstd data" if len(out) < size else None
     elif kind == "lzma":
         try:
             import lzma
@@ -450,7 +557,9 @@ def _fax(kind: str, src: bytes, width: int, rows: int, options: int,
          runs: np.ndarray, name: str) -> np.ndarray:
     """One strip's or tile's CCITT data -> (rows, width) 0/1 samples, in
     C++ wherever the native library builds; ``runs`` the page's run
-    array."""
+    array; ``options`` T4Options, or for RLEW the strip's file offset
+    (libtiff reads the data where it lies in the file's image, and pads a
+    row to a 16-bit boundary of that memory)."""
     from wgpu_path_tracing_tpu_torch.accel import native
     from wgpu_path_tracing_tpu_torch.utils.fax import FAX_STATUS, fax_plain
 
@@ -584,9 +693,25 @@ def _compressed(data, tags, order, kind, w, h, spp, bits, planar, fmt, name):
         t4 = tags.get(292, (0,)) if kind == "group3" else (0,)
         t4 = t4[0] if isinstance(t4, tuple) else t4
         runs = fax_runs(FAX[kind], tw, t4)
-    for _, p, y0, x0, rows, src in chunks:
+    if kind == "tiff_thunderscan" and (bits != 4 or tiled):
+        raise ValueError(f"{name}: ThunderScan data of {bits}-bit samples or "
+                         "in tiles (libtiff refuses it)")
+    offsets = _layout(tags, w, h, name)[0]
+    for i, p, y0, x0, rows, src in chunks:
         if kind in FAX:
-            vals = _fax(kind, src, tw, rows, t4, runs, name)[..., None]
+            opts = offsets[i] & 1 if kind == "tiff_raw_16" else t4
+            vals = _fax(kind, src, tw, rows, opts, runs, name)[..., None]
+        elif kind == "tiff_thunderscan":
+            from wgpu_path_tracing_tpu_torch.accel import native
+
+            fn = (native.thunder_native if native.native_available()
+                  else thunder_plain)
+            buf, status = fn(src, tw * per, rows)
+            if status:
+                raise ValueError(f"{name}: ThunderScan data that does not "
+                                 "fill its rows")
+            vals = _samples(np.frombuffer(buf, np.uint8).reshape(rows, line),
+                            tw * per, bits, order).reshape(rows, tw, per)
         else:
             buf = _decompress(kind, src, rows * line, name, old_lzw)
             if predictor != 1:
@@ -619,9 +744,8 @@ def _jpeg(data, tags, w, h, spp, photo, planar, name):
     to the image."""
     from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_samples
 
-    if planar != 1:
-        raise NotImplementedError(f"{name}: JPEG-compressed separate planes")
-    chunks, tw, th, tiled = _chunks(data, tags, w, h, 1, name)
+    per = 1 if planar == 2 else spp  # components a stream
+    chunks, tw, th, tiled = _chunks(data, tags, w, h, spp // per, name)
     tables = tags.get(347, b"\xff\xd8")
     if tables[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: the JPEGTables stream does not start with "
@@ -638,7 +762,7 @@ def _jpeg(data, tags, w, h, spp, photo, planar, name):
                if marker in SOF_MARKERS and len(seg) >= 12]
         sampling = (sof[0][11] >> 4, sof[0][11] & 15) if sof else (2, 2)
     out = np.zeros((h, w, spp), np.uint16)
-    for i, _, y0, x0, rows, src in chunks:
+    for i, p, y0, x0, rows, src in chunks:
         if src[:2] != b"\xff\xd8":
             raise ValueError(f"{name}: JPEG strip or tile {i} does not start "
                              "with SOI")
@@ -649,7 +773,7 @@ def _jpeg(data, tags, w, h, spp, photo, planar, name):
                                           + b"\xff\xd9", name,
                                           ycbcr=photo == 6)
         comps = frame["comps"]
-        if len(comps) != spp:
+        if len(comps) != per:
             raise ValueError(f"{name}: improper JPEG component count")
         if (comps[0].h, comps[0].v) != sampling or any(
                 (c.h, c.v) != (1, 1) for c in comps[1:]):
@@ -670,7 +794,7 @@ def _jpeg(data, tags, w, h, spp, photo, planar, name):
         seen += b"".join(seg for marker, seg in _jpeg_segments(src)
                          if marker in (0xC4, 0xDB))
         ys, xs = min(rows, h - y0), min(tw, w - x0)
-        out[y0:y0 + ys, x0:x0 + xs] = vals[:ys, :xs]
+        out[y0:y0 + ys, x0:x0 + xs, p:p + per] = vals[:ys, :xs]
     return out
 
 
@@ -782,25 +906,367 @@ def _ycbcr(data, tags, order, kind, w, h, fmt, name):
                             "split") from None
         units = np.zeros(down * across * unit, np.uint8)
         units[:size] = buf
-        ys, xs = min(rows, h - y0), min(tw, w - x0)
-        # putcontig8bitYCbCr44tile skips the units past the image's edge as
-        # if they were 4x2 units (libtiff's fromskew).
-        stride = across * unit
-        if (hs, vs) == (4, 4) and xs < tw:
-            stride = -(-xs // 4) * unit + (tw - xs) // 4 * 10
-        r = np.arange(ys)[:, None]
-        c = np.arange(xs)[None, :]
-        at = (r // vs) * stride + (c // hs) * unit
-        out[y0:y0 + ys, x0:x0 + xs] = ycbcr_to_rgb(
-            units[at + (r % vs) * hs + c % hs], units[at + hs * vs],
-            units[at + hs * vs + 1], tables)
+        _put_ycbcr(out, units, y0, x0, rows, tw, hs, vs, tables)
     return out
+
+
+def _put_ycbcr(out, units, y0, x0, rows, tw, hs, vs, tables) -> None:
+    """TIFFRGBAImage's putcontig8bitYCbCr put functions: one strip's or
+    tile's data units (``units``, rows of ceil(tw / hs) units of hs x vs Y,
+    Cb and Cr) into ``out`` at (y0, x0)."""
+    h, w = out.shape[:2]
+    unit = hs * vs + 2
+    ys, xs = min(rows, h - y0), min(tw, w - x0)
+    # putcontig8bitYCbCr44tile skips the units past the image's edge as if
+    # they were 4x2 units (libtiff's fromskew).
+    stride = -(-tw // hs) * unit
+    if (hs, vs) == (4, 4) and xs < tw:
+        stride = -(-xs // 4) * unit + (tw - xs) // 4 * 10
+    r = np.arange(ys)[:, None]
+    c = np.arange(xs)[None, :]
+    at = (r // vs) * stride + (c // hs) * unit
+    out[y0:y0 + ys, x0:x0 + xs] = ycbcr_to_rgb(
+        units[at + (r % vs) * hs + c % hs], units[at + hs * vs],
+        units[at + hs * vs + 1], tables)
+
+
+# Old-style JPEG (compression 6): the JPEG markers libtiff's OJPEG codec
+# reads from the stream, and the tables it keeps.
+OJPEG_SOF = (0xC0, 0xC1)
+
+
+def _ojpeg_sources(data, tags, n_chunks, name) -> tuple:
+    """The bytes libtiff's OJPEGReadBufferFill reads, in order: the
+    JPEGInterchangeFormat stream (cut to the file, to its end where the
+    length is 0 or too long), then each strip or tile (a byte count of 0
+    reading to the end of the file, an offset past it nothing), unreversed
+    whatever the fill order. Returns (the interchange stream, [each strip's
+    or tile's bytes])."""
+    size = len(data)
+    jif = tags.get(513, (0,))
+    jif = jif[0] if isinstance(jif, tuple) else jif
+    jif_bytes = b""
+    if 0 < jif < size:
+        n = tags.get(514, (0,))
+        n = n[0] if isinstance(n, tuple) else n
+        if n == 0 or jif + n > size:
+            n = size - jif
+        jif_bytes = data[jif:jif + n]
+    offsets, counts, *_ = _layout(tags, tags[256], tags[257], name)
+    if counts is None:
+        raise NotImplementedError(f"{name}: old-style JPEG data without byte "
+                                  "counts")
+    if len(offsets) < n_chunks or len(counts) < n_chunks:
+        raise ValueError(f"{name}: too few TIFF strips or tiles")
+    parts = []
+    for off, count in zip(offsets[:n_chunks], counts[:n_chunks]):
+        if off == 0 or off >= size:
+            parts.append(b"")
+            continue
+        parts.append(data[off:size if count == 0 else min(off + count, size)])
+    return jif_bytes, parts
+
+
+def _ojpeg_tables(data, tags, key, spp, dht_class, name) -> tuple:
+    """OJPEGReadHeaderInfoSecTables{Q,Dc,Ac}Table: each component's table
+    read from the offsets of tag ``key`` (519-521), a table repeating the
+    one before where its offset does: ({table id: its marker segment},
+    [the id each component takes])."""
+    offs = list(tags.get(key, ()))
+    if len(offs) > 3:
+        raise ValueError(f"{name}: JPEG table tag {key} has incorrect count")
+    offs += [0] * (spp - len(offs))
+    if not offs or offs[0] == 0:
+        raise ValueError(f"{name}: missing JPEG tables")
+    segs, ids = {}, []
+    for m in range(spp):
+        if offs[m] and (m == 0 or offs[m] != offs[m - 1]):
+            if offs[m] in offs[:max(m - 1, 0)]:
+                raise ValueError(f"{name}: corrupt JPEG table tag {key}")
+            if key == 519:
+                table = data[offs[m]:offs[m] + 64]
+                if len(table) != 64:
+                    raise ValueError(f"{name}: JPEG table past the file")
+                segs[m] = b"\xff\xdb\x00\x43" + bytes([m]) + table
+            else:
+                counts = data[offs[m]:offs[m] + 16]
+                n = sum(counts)
+                values = data[offs[m] + 16:offs[m] + 16 + n]
+                if len(counts) != 16 or len(values) != n:
+                    raise ValueError(f"{name}: JPEG table past the file")
+                segs[m] = (b"\xff\xc4" + struct.pack(">H", 19 + n)
+                           + bytes([dht_class | m]) + counts + values)
+            ids.append(m)
+        else:
+            ids.append(ids[-1])
+    return segs, ids
+
+
+def _ojpeg_stream(data, tags, spp, hs, vs, strile, name) -> tuple:
+    """The JPEG stream libtiff's OJPEG codec hands libjpeg for the image:
+    the header markers read from the JPEGInterchangeFormat stream (or, with
+    no SOF there, built from the table tags), written again as OJPEG
+    writes them (every stored quantization table, then DC and AC tables,
+    DRI, SOF, SOS), then the entropy-coded data from where the markers end,
+    an RSTn after each strip or tile but the last, and EOI. ``strile`` is
+    (strip or tile width, its rows, the rows of all striles, their count).
+    Returns (the stream, the SOF's components' (h, v))."""
+    sw, sl, sl_total, n_chunks = strile
+    jif, parts = _ojpeg_sources(data, tags, n_chunks, name)
+    if not all(parts):
+        raise NotImplementedError(f"{name}: old-style JPEG with an empty "
+                                  "strip or tile")
+    stream = jif + b"".join(parts)
+    qt, dc, ac = {}, {}, {}
+    restart = tags.get(515, 0)
+    restart = restart[0] if isinstance(restart, tuple) else restart
+    sof = sos = None
+    pos = 0
+
+    def word(at):
+        if at + 2 > len(stream):
+            raise ValueError(f"{name}: old-style JPEG data cut short")
+        return struct.unpack_from(">H", stream, at)[0]
+
+    while True:
+        if pos >= len(stream):
+            raise ValueError(f"{name}: old-style JPEG data cut short")
+        if stream[pos] != 0xFF:
+            break
+        pos += 1
+        while pos < len(stream) and stream[pos] == 0xFF:
+            pos += 1
+        if pos >= len(stream):
+            raise ValueError(f"{name}: old-style JPEG data cut short")
+        m = stream[pos]
+        pos += 1
+        if m == 0xD8:
+            continue
+        if m not in (0xC4, 0xDA, 0xDB, 0xDD, 0xFE, *OJPEG_SOF) and not (
+                0xE0 <= m <= 0xEF):
+            if m == 0xC3:
+                raise NotImplementedError(f"{name}: lossless old-style JPEG")
+            raise ValueError(f"{name}: unknown marker {m:#x} in old-style "
+                             "JPEG data")
+        n = word(pos)
+        seg = stream[pos + 2:pos + n]
+        if n < 2 or (m in (0xC4, 0xDB) and n <= 2):
+            raise ValueError(f"{name}: corrupt old-style JPEG marker")
+        if m in (0xDB, 0xC4, 0xDD, *OJPEG_SOF, 0xDA) and len(seg) < n - 2:
+            raise ValueError(f"{name}: old-style JPEG data cut short")
+        pos += n
+        if m == 0xDD:
+            if n != 4:
+                raise ValueError(f"{name}: corrupt DRI marker")
+            restart = word(pos - 2)
+        elif m == 0xDB:
+            if (n - 2) % 65:
+                raise ValueError(f"{name}: corrupt DQT marker")
+            for k in range(0, n - 2, 65):
+                if seg[k] & 15 > 3:
+                    raise ValueError(f"{name}: corrupt DQT marker")
+                qt[seg[k] & 15] = b"\xff\xdb\x00\x43" + seg[k:k + 65]
+        elif m == 0xC4:
+            c = seg[0]
+            if c & 0xF0 not in (0, 0x10) or c & 15 > 3:
+                raise ValueError(f"{name}: corrupt DHT marker")
+            (dc if c < 16 else ac)[c & 15] = b"\xff\xc4" + stream[
+                pos - n:pos]
+        elif m in OJPEG_SOF:
+            if sof is not None or n < 11 or (n - 8) % 3 or (n - 8) // 3 != spp:
+                raise ValueError(f"{name}: old-style JPEG data of another "
+                                 "frame than the TIFF's")
+            y, x = struct.unpack(">HH", seg[1:5])
+            if seg[0] != 8 or seg[5] != spp or (y < tags[257] and y < sl_total) \
+                    or (x < tags[256] and x < sw) or x > sw:
+                raise ValueError(f"{name}: old-style JPEG data of another "
+                                 "frame than the TIFF's")
+            comps = [tuple(seg[6 + 3 * k:9 + 3 * k]) for k in range(spp)]
+            if comps[0][1] != (hs << 4 | vs) or any(
+                    c[1] != 0x11 for c in comps[1:]):
+                raise ValueError(f"{name}: old-style JPEG data of other "
+                                 "sampling factors than the TIFF's")
+            sof = (m, y, x, comps)
+        elif m == 0xDA:
+            if sof is None or n != 6 + 2 * spp or seg[0] != spp:
+                raise ValueError(f"{name}: corrupt SOS marker")
+            sos = [tuple(seg[1 + 2 * k:3 + 2 * k]) for k in range(spp)]
+            break  # Ss, Se, Ah/Al not read
+    if sof is None:
+        if n_chunks > 1:
+            # The table layout of several strips or tiles: each one a
+            # restart interval, whatever JPEGRestartInterval says.
+            restart = -(-sw // (8 * hs)) * (sl // (8 * vs))
+        qt, tq = _ojpeg_tables(data, tags, 519, spp, 0, name)
+        dc, td = _ojpeg_tables(data, tags, 520, spp, 0x00, name)
+        ac, ta = _ojpeg_tables(data, tags, 521, spp, 0x10, name)
+        comps = [(k, (hs << 4 | vs) if k == 0 else 0x11, tq[k])
+                 for k in range(spp)]
+        sof = (0xC0, sl_total, sw, comps)
+        sos = [(k, td[k] << 4 | ta[k]) for k in range(spp)]
+    elif sos is None:
+        raise NotImplementedError(f"{name}: old-style JPEG data with a frame "
+                                  "but no scan header")
+    m, y, x, comps = sof
+    head = b"\xff\xd8" + b"".join(qt[k] for k in sorted(qt)) + b"".join(
+        dc[k] for k in sorted(dc)) + b"".join(ac[k] for k in sorted(ac))
+    if restart:
+        head += b"\xff\xdd\x00\x04" + struct.pack(">H", restart)
+    head += bytes([0xFF, m]) + struct.pack(">HBHHB", 8 + 3 * spp, 8, y & 0xFFFF,
+                                           x, spp)
+    head += b"".join(bytes(c) for c in comps)
+    head += b"\xff\xda" + struct.pack(">HB", 6 + 2 * spp, spp) + b"".join(
+        bytes(c) for c in sos) + b"\x00\x3f\x00"
+    # The entropy-coded data: from where the markers end, with an RSTn where
+    # each strip or tile but the last ends (one the markers used up, none).
+    body, at, rst = [stream[pos:max(pos, len(jif))]], len(jif), 0
+    for k, part in enumerate(parts):
+        body.append(stream[max(at, pos):at + len(part)])
+        at += len(part)
+        if k < len(parts) - 1 and at > pos:
+            body.append(bytes([0xFF, 0xD0 + rst]))
+            rst = (rst + 1) % 8
+    data = b"".join(body)
+    if restart:
+        # libtiff's OJPEG source cannot resync: every restart boundary of
+        # the frame must find its RSTn next (junk before it is skipped).
+        hs0, vs0 = comps[0][1] >> 4, comps[0][1] & 15
+        if spp == 1:
+            hs0 = vs0 = 1
+        mcus = -(-x // (8 * hs0)) * -(-y // (8 * vs0))
+        need = -(-mcus // restart) - 1
+        found = [mk.group(1)[0] for mk in re.finditer(rb"\xff+([^\x00\xff])",
+                                                       data)]
+        if [m - 0xD0 for m in found[:need]] != [k % 8 for k in range(need)]:
+            raise NotImplementedError(
+                f"{name}: old-style JPEG whose restart markers libjpeg would "
+                "resync (libtiff's OJPEG fails there; Pillow goes on with "
+                "what its buffer holds)")
+    return head + data + b"\xff\xd9", [(c[1] >> 4, c[1] & 15)
+                                        for c in comps]
+
+
+def _ojpeg(data, tags, w, h, spp, name):
+    """libtiff's old-style JPEG decode (compression 6) as Pillow reads it:
+    (H, W, spp) samples, RGB for YCbCr. Three samples of a YCbCr file come
+    as libjpeg's raw data (each component at its own sampling, whole
+    blocks) packed into TIFF data units, then TIFFRGBAImage's conversion
+    (``ycbcr_tables``), the subsampling taken from the JPEG frame where the
+    interchange stream has one; one sample as libjpeg decodes it, with no
+    colour conversion."""
+    from wgpu_path_tracing_tpu_torch.utils.jpeg import decode_jpeg_raw
+
+    # libtiff's directory reader takes old-style JPEG with no photometric,
+    # or RGB, for YCbCr.
+    photo = tags.get(262, 6)
+    photo = 6 if photo == 2 else photo
+    if tags.get(284, 1) != 1:
+        raise NotImplementedError(f"{name}: old-style JPEG in separate planes")
+    if photo == 6 and spp != 3:
+        raise ValueError(f"{name}: YCbCr of {spp} samples (libtiff refuses "
+                         "the directory)")
+    ycbcr = photo == 6
+    if not ycbcr and spp != 1:
+        raise NotImplementedError(f"{name}: old-style JPEG of {spp} samples "
+                                  f"under photometric {photo}")
+    offsets, _, tw, th, tiled = _layout(tags, w, h, name)
+    th = th if tiled else min(th, h)
+    across, down = -(-w // tw), -(-h // th)
+    total = down * th if tiled else h
+    hs, vs = (1, 1)
+    if ycbcr:
+        hs, vs = (tuple(tags.get(530, (2, 2))) + (2, 2))[:2]
+        jif, parts = _ojpeg_sources(data, tags, across * down, name)
+        found = _ojpeg_frame_sampling(jif + b"".join(parts))
+        if found is not None:
+            if found[1:] != [(1, 1)] * (len(found) - 1) or any(
+                    f not in (1, 2, 4) for f in found[0]):
+                raise NotImplementedError(
+                    f"{name}: old-style JPEG of sampling factors TIFF has no "
+                    "data units for (libtiff upsamples inside libjpeg)")
+            hs, vs = found[0]
+    stream, _ = _ojpeg_stream(data, tags, spp, hs, vs,
+                              (tw, th, total, across * down), name)
+    frame, planes = decode_jpeg_raw(stream, name)
+    lines = -(-th // vs)  # data-unit rows a strip or tile
+    out = np.zeros((h, w, 3 if ycbcr else 1), np.uint16 if not ycbcr
+                   else np.uint8)
+    tables = ycbcr_tables(tags.get(529, LUMA_DEFAULT),
+                          tags.get(532, (0, 255, 128, 255, 128, 255)),
+                          name) if ycbcr else None
+    units_across = -(-tw // hs)
+    for k in range(across * down):
+        ty, tx = divmod(k, across)
+        y0, x0 = ty * th, tx * tw
+        rows = th if tiled else min(th, h - y0)
+        n_lines = -(-rows // vs)
+        top = k * lines  # the JPEG's data-unit row this strile starts at
+        if not ycbcr:
+            plane = planes[0]
+            block = plane[top:top + rows, :tw]
+            if block.shape != (rows, tw):
+                raise NotImplementedError(f"{name}: old-style JPEG striles "
+                                          "past the JPEG frame")
+            ys, xs = min(rows, h - y0), min(tw, w - x0)
+            out[y0:y0 + ys, x0:x0 + xs, 0] = block[:ys, :xs]
+            continue
+        yp, cb, cr = planes
+        r = np.arange(n_lines)[:, None]
+        c = np.arange(units_across)[None, :]
+        ry = (top + r) * vs
+        if ry.max() + vs > yp.shape[0] or (c.max() + 1) * hs > yp.shape[1]:
+            raise NotImplementedError(f"{name}: old-style JPEG striles past "
+                                      "the JPEG frame")
+        units = np.empty((n_lines, units_across, hs * vs + 2), np.uint8)
+        for sy in range(vs):
+            for sx in range(hs):
+                units[..., sy * hs + sx] = yp[ry + sy, c * hs + sx]
+        units[..., -2] = cb[top + r, c]
+        units[..., -1] = cr[top + r, c]
+        _put_ycbcr(out, units.reshape(-1), y0, x0, rows, tw, hs, vs, tables)
+    return out
+
+
+def _ojpeg_frame_sampling(stream: bytes):
+    """OJPEGSubsamplingCorrect's look at the stream: each component's (h,
+    v) in the first SOF0/SOF1/SOF3 among the leading markers, or None."""
+    pos = 0
+    while pos + 1 < len(stream) and stream[pos] == 0xFF:
+        pos += 1
+        while pos < len(stream) and stream[pos] == 0xFF:
+            pos += 1
+        if pos >= len(stream):
+            return None
+        m = stream[pos]
+        pos += 1
+        if m == 0xD8:
+            continue
+        if pos + 2 > len(stream) or m == 0xDA:
+            return None
+        (n,) = struct.unpack_from(">H", stream, pos)
+        if m in (0xC0, 0xC1, 0xC3):
+            seg = stream[pos + 2:pos + n]
+            nc = (n - 8) // 3
+            if n < 11 or (n - 8) % 3 or len(seg) < 6 + 3 * nc or seg[0] != 8 \
+                    or seg[5] != nc:
+                return None
+            return [(seg[7 + 3 * k] >> 4, seg[7 + 3 * k] & 15)
+                    for k in range(nc)]
+        if n < 2 or (m in (0xC4, 0xDB) and n <= 2) or (m == 0xDD and n != 4) \
+                or (m not in (0xC4, 0xDB, 0xDD, 0xFE)
+                    and not 0xE0 <= m <= 0xEF):
+            return None
+        pos += n
+    return None
 
 
 # WhiteIsZero gray: Pillow's raw modes that invert.
 INVERTED = ("1;I", "1;IR", "L;2I", "L;2IR", "L;4I", "L;4IR", "L;I", "L;IR")
 # Raw modes of Pillow's own (uncompressed) reads it has no unpacker for.
 NO_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
+# Pillow's bands of a mode, for the separate planes its libtiff reader
+# copies (one a band).
+PLANE_COUNT = {"LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3}
 # A separate plane read uncompressed takes one character of the raw mode
 # as its own raw mode: the bands Pillow unpacks that way, by image mode.
 PLANE_BANDS = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "L": "L",
@@ -963,10 +1429,9 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         raise ValueError(f"{name}: unknown TIFF compression "
                          f"{tags.get(259)}")
     kind = COMPRESSIONS[tags.get(259, 1)]
-    if kind not in READ:
-        raise NotImplementedError(f"{name}: TIFF compression {kind!r} is "
-                                  "not supported")
-    photo = tags.get(262, 0)
+    # Pillow takes old-style JPEG for YCbCr whatever the file says ("most
+    # certainly"), and for 3 samples where the file gives no count.
+    photo = 6 if kind == "tiff_jpeg" else tags.get(262, 0)
     fill = tags.get(266, 1)
     if 256 not in tags or 257 not in tags:
         raise ValueError(f"{name}: TIFF without its dimensions")
@@ -976,7 +1441,7 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
     extra = tags.get(338, ())
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
-    spp = tags.get(277, 1)
+    spp = tags.get(277, 3 if kind == "tiff_jpeg" else 1)
     if spp < len(bps):
         bps = bps[:spp]
     elif spp > len(bps) and len(bps) == 1:
@@ -990,6 +1455,11 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
                          f"{photo}, sample format {fmt}, fill order {fill}, "
                          f"bits {bps}, extra samples {extra})")
     mode, raw = found
+    if kind in REFUSED:
+        raise ValueError(f"{name}: {REFUSED[kind]}")
+    if kind not in READ:
+        raise NotImplementedError(f"{name}: TIFF compression {kind!r} is "
+                                  "not supported")
     if w <= 0 or h <= 0:
         raise ValueError(f"{name}: TIFF size {w}x{h} is empty")
     bomb_check(w, h, name)
@@ -1020,13 +1490,21 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
                 "may refuse")
         if big and data[4:8] != b"\x08\x00\x00\x00":
             raise ValueError(f"{name}: a BigTIFF header libtiff refuses")
-        if planar == 2 and spp > 1 and not (
-                bits == 8 and raw in ("RGB", "RGBA", "RGBa", "CMYK")):
-            raise NotImplementedError(f"{name}: a compressed separate-plane "
-                                      f"TIFF of raw mode {raw!r}")
-        if order == ">" and raw in ("I;16BS",):
-            raise NotImplementedError(f"{name}: compressed big-endian signed "
-                                      "16-bit samples")
+        bands = PLANE_COUNT.get(mode, 1)
+        if planar == 2 and bands > 1:
+            # Pillow's libtiff reader copies plane k into byte k of each
+            # 4-byte pixel (the high byte of a 16-bit sample) and reads the
+            # bands from there.
+            if photo == 6 and kind != "tiff_jpeg":
+                raise (ValueError if kind == "jpeg" else NotImplementedError)(
+                    f"{name}: compressed separate planes of YCbCr")
+            if kind == "tiff_jpeg":
+                raise NotImplementedError(f"{name}: old-style JPEG in "
+                                          "separate planes")
+            if bits not in (8, 16) or spp != bands:
+                raise ValueError(f"{name}: {spp} separate planes of {bits}-bit "
+                                 f"samples for mode {mode} (Pillow's libtiff "
+                                 "reader refuses them)")
         # Pillow's strip buffer is RowsPerStrip rows (all of them for
         # 2^32 - 1): it refuses one past 2^31 - 1 bytes.
         row = w * 4 if photo == 6 and kind != "jpeg" else -(-w * sum(
@@ -1038,6 +1516,8 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         if kind == "jpeg":
             s = _jpeg(data, tags, w, h, spp, photo, planar, name)
             raw = "RGB" if photo == 6 else raw
+        elif kind == "tiff_jpeg":
+            s = _ojpeg(data, tags, w, h, spp, name)
         elif photo == 6:
             if spp != 3:
                 raise ValueError(f"{name}: YCbCr of {spp} samples (libtiff's "
@@ -1046,9 +1526,15 @@ def decode_tiff_rgba(data: bytes, name: str = "image") -> np.ndarray:
         else:
             s = _compressed(data, tags, order, kind, w, h, spp, bits, planar,
                             fmt, name)
-            if bits == 32 and order == ">":
+            if (bits == 32 or raw == "I;16BS") and order == ">":
                 s = s.byteswap()  # libtiff's host order, read as the file's
+            if planar == 2 and mode in ("LA", "PA"):
+                s[..., 1] = 0  # plane 1 lands in byte 1; alpha is byte 3
+            if planar == 2 and mode == "LAB":
+                s[..., 1:3] ^= 128  # copied, not unpacked as signed bytes
     out = _to_rgba(mode, raw, s, bits, tags.get(320))
+    if kind != "raw" and planar == 2 and mode == "LAB":
+        out[..., 3] = 0  # byte 3, which no plane writes
     orientation = tags.get(274)
     if orientation in TRANSPOSE:
         out = np.ascontiguousarray(TRANSPOSE[orientation](out))
